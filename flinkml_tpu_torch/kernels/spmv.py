@@ -1,0 +1,97 @@
+"""Padded-ELL CSR SpMV — the sparse forward-margin matvec.
+
+Replaces ``flinkml_tpu/kernels/spmv.py:74 pallas_spmv``:
+``out[r] = sum_s values[r, s] * w[indices[r, s]]`` over one padded
+``[rows, width]`` ELL bucket (padding cells, index 0 / value 0, add 0).
+
+:func:`spmv` is the wrapper: for tensors on the CPU it computes the plain
+PyTorch version :func:`spmv_plain`; for CUDA tensors it launches the
+hand-written kernel ``csrc/spmv.cu`` (one warp per row, a fixed shuffle
+tree — see the source note for what bounds it on the H100) or raises
+:class:`~flinkml_tpu_torch.kernels.KernelUnsupportedError`.
+
+The kernel trusts ``0 <= indices < dim``; a CUDA gather does not clamp as
+the JAX one does, so callers check the indices on the host before they
+upload them (:func:`flinkml_tpu_torch.ops.sparse.pack_ell_buckets`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from flinkml_tpu_torch.kernels import _build, _gate
+
+#: Compute types the CUDA kernel takes (values and w share one).
+SUPPORTED_DTYPES = (torch.float32, torch.float64)
+
+LAUNCHES = _gate.launch_counter("spmv")
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # indices, values, w
+    ctypes.c_int64, ctypes.c_int,                        # rows, width
+    ctypes.c_void_p, ctypes.c_void_p,                    # out, stream
+]
+_SYMBOLS = {torch.float32: "fml_spmv_f32", torch.float64: "fml_spmv_f64"}
+
+
+def spmv_plain(indices: torch.Tensor, values: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: gather, multiply, sum over the slots."""
+    return torch.sum(values * w[indices.long()], dim=1)
+
+
+def unsupported_reason(indices, values, w) -> Optional[str]:
+    """Why the CUDA kernel cannot run these operands (None = it can)."""
+    if indices.dim() != 2 or values.dim() != 2:
+        return (f"indices/values must be [rows, width], got ranks "
+                f"{indices.dim()}/{values.dim()}")
+    if tuple(indices.shape) != tuple(values.shape):
+        return (f"indices shape {tuple(indices.shape)} != values shape "
+                f"{tuple(values.shape)}")
+    if w.dim() != 1:
+        return f"w must be [dim], got rank {w.dim()}"
+    if indices.dtype != torch.int32:
+        return f"indices dtype {indices.dtype} is not int32"
+    if values.dtype not in SUPPORTED_DTYPES:
+        return (f"values dtype {values.dtype} is not supported (supported: "
+                "float32, float64)")
+    if values.dtype != w.dtype:
+        return f"values dtype {values.dtype} != w dtype {w.dtype}"
+    devices = {indices.device, values.device, w.device}
+    if len(devices) != 1:
+        return f"operands on different devices {sorted(map(str, devices))}"
+    if values.shape[1] >= 2**31:
+        return f"width {values.shape[1]} does not fit a 32-bit int"
+    return None
+
+
+def spmv(indices: torch.Tensor, values: torch.Tensor,
+         w: torch.Tensor) -> torch.Tensor:
+    """``sum(values * w[indices], dim=1)`` over a padded ELL bucket: the
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors
+    (unsupported operands raise ``KernelUnsupportedError``)."""
+    if values.device.type == "cpu":
+        return spmv_plain(indices, values, w)
+    if values.device.type != "cuda":
+        raise _gate.refuse("spmv", f"device {values.device} is not CUDA")
+    reason = unsupported_reason(indices, values, w)
+    if reason is not None:
+        raise _gate.refuse("spmv", reason)
+    indices = indices.contiguous()
+    values = values.contiguous()
+    w = w.contiguous()
+    rows, width = values.shape
+    out = torch.empty(rows, dtype=values.dtype, device=values.device)
+    if rows == 0:
+        return out
+    fn = _build.function("spmv", _SYMBOLS[values.dtype], _ARGTYPES)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        code = fn(indices.data_ptr(), values.data_ptr(), w.data_ptr(),
+                  rows, width, out.data_ptr(), stream)
+    _build.check("spmv", "spmv", code)
+    LAUNCHES.bump()
+    return out

@@ -1,0 +1,28 @@
+"""Stages of the model catalog ported so far: the four scalers and the
+LogisticRegression model."""
+
+from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
+    LogisticRegressionModel,
+)
+from flinkml_tpu_torch.models.scalers import (  # noqa: F401
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    RobustScaler,
+    RobustScalerModel,
+    StandardScaler,
+    StandardScalerModel,
+)
+
+__all__ = [
+    "LogisticRegressionModel",
+    "MaxAbsScaler",
+    "MaxAbsScalerModel",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
+    "RobustScaler",
+    "RobustScalerModel",
+    "StandardScaler",
+    "StandardScalerModel",
+]
