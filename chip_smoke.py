@@ -12,20 +12,32 @@ and fails with a non-zero exit if any phase fails:
 1. prints the card's name and power limit; builds every CUDA kernel from
    ``flinkml_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: each kernel against its plain PyTorch version at the main
-   path's shapes — ``spmv`` at 65,536 rows x 39 slots, dim 1e6, float32;
-   ``fused_chain`` at 100,000 x 32 in float64 and float32 — with CUDA-event
-   times (L2 flushed before each launch), the plain version's and the
-   library call's time, and the bound from bytes and operations;
-3. sparse path: LogisticRegressionModel (dim 1e6, seeded coefficient, built
-   with ``stage_from_arrays``) transforms 65,536 Criteo-profile SparseVector
-   rows 4 times (a first call, then 3 timed); margins are checked against
-   float64 numpy;
-4. dense path: the four scalers are fitted on seeded data (100,000 x 32),
-   an LR head with a seeded coefficient closes the chain, and
-   ``PipelineModel.transform`` runs 4 times fused (a first call, then 3
-   timed), then per-stage, then
-   after a save -> load round trip; outputs are checked against each other
-   and against a float64 numpy reference.
+   paths' shapes — ``spmv`` at 65,536 and 262,144 rows x 39 slots, dim
+   1e6, float32;
+   ``fused_chain`` at 100,000 x 32 in float64 and float32; ``segment_sum``
+   at the sparse-fit step (262,144 x 39 cells into 1e6 segments, float32
+   and float64, unsorted and sorted) and with a row payload (2^20 cells x
+   16 into 65,536 segments) — with CUDA-event times (L2 flushed before each
+   launch), the plain version's and the library call's time, and the bound
+   from bytes and operations;
+3. sparse serving path: LogisticRegressionModel (dim 1e6, seeded
+   coefficient, built with ``stage_from_arrays``) transforms 65,536
+   Criteo-profile SparseVector rows 4 times (a first call, then 3 timed);
+   margins are checked against float64 numpy;
+4. dense serving path: the four scalers are fitted on seeded data
+   (100,000 x 32), an LR head with a seeded coefficient closes the chain,
+   and ``PipelineModel.transform`` runs 4 times fused (a first call, then 3
+   timed), then per-stage, then after a save -> load round trip; outputs
+   are checked against each other and against a float64 numpy reference;
+5. dense fit path: ``LogisticRegression().fit`` on the bench's a9a-width
+   data (1,000,000 x 123 float32, batch 262,144, 20 epochs, tol 0), twice
+   (a first fit, then a steady one), the coefficient held against a float64
+   numpy run of the same steps; the device loop timed alone;
+6. sparse fit path: ``LogisticRegression().fit`` on 262,144 Criteo-profile
+   SparseVector rows (dim 1e6, batch 262,144, 20 epochs, tol 0; layout
+   ``unsorted``), twice, and ``train_linear_model_sparse_csr`` with layout
+   ``sorted``, each held against a float64 numpy run of the same steps;
+   the host's CSR conversion and packing timed apart from the device loop.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
@@ -51,6 +63,11 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
 SPMV_ROWS, SPMV_DIM, SPMV_NNZ = 65_536, 1_000_000, 39
 CHAIN_ROWS, CHAIN_D = 100_000, 32
+# The fits: the bench's dense (a9a-width) and Criteo sparse workloads.
+DENSE_FIT_ROWS, DENSE_FIT_D = 1_000_000, 123
+SPARSE_FIT_ROWS = 262_144
+FIT_BATCH, FIT_EPOCHS, FIT_LR = 262_144, 20, 0.1
+PAYLOAD_CELLS, PAYLOAD_K, PAYLOAD_SEGMENTS = 1 << 20, 16, 65_536
 
 
 def log(msg: str) -> None:
@@ -77,6 +94,41 @@ def make_criteo_csr(n, dim=1_000_000, nnz=39, seed=0, n_active=256):
     y = (margins > 0).astype(np.float32)
     w = np.ones(n, dtype=np.float32)
     return indptr, indices, values, y, w
+
+
+def make_data(n, dim, seed=0, dtype=np.float32):
+    """Dense a9a-width data with planted labels, the generator of the
+    repo's dense benchmark."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(dtype)
+    true_coef = rng.normal(size=dim).astype(dtype)
+    y = (x @ true_coef > 0).astype(dtype)
+    w = np.ones(n, dtype=dtype)
+    return x, y, w
+
+
+def criteo_rows(indices, values, n, nnz, dim):
+    """SparseVector rows of a ``make_criteo_csr`` draw; duplicate draws
+    within a row merge by sum (CSR semantics)."""
+    from flinkml_tpu_torch.linalg import SparseVector
+
+    idx2 = indices.reshape(n, nnz)
+    order = np.argsort(idx2, axis=1, kind="stable")
+    si = np.take_along_axis(idx2, order, axis=1)
+    sv = np.take_along_axis(values.reshape(n, nnz).astype(np.float64), order,
+                            axis=1)
+    first = np.ones((n, nnz), dtype=bool)
+    first[:, 1:] = si[:, 1:] != si[:, :-1]
+    starts = np.flatnonzero(first.reshape(-1))
+    merged_i = si.reshape(-1)[starts].astype(np.int64)
+    merged_v = np.add.reduceat(sv.reshape(-1), starts)
+    bounds = np.concatenate([[0], np.cumsum(first.sum(axis=1))])
+    rows = np.empty(n, dtype=object)
+    for r in range(n):
+        lo, hi = bounds[r], bounds[r + 1]
+        rows[r] = SparseVector._from_sorted(dim, merged_i[lo:hi],
+                                            merged_v[lo:hi])
+    return rows
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -154,28 +206,30 @@ def card_line() -> str:
 
 # -- phase 2: kernels against their plain versions ------------------------------
 
-def spmv_phase(torch, timer):
+def spmv_phase(torch, timer, rows=SPMV_ROWS):
+    """``spmv`` at ``rows`` x 39 cells, dim 1e6: the serving shape (65,536
+    rows) or the sparse fit's (262,144 rows)."""
     from flinkml_tpu_torch.kernels import spmv as kspmv
 
-    indptr, indices, values, _, _ = make_criteo_csr(SPMV_ROWS, SPMV_DIM,
+    indptr, indices, values, _, _ = make_criteo_csr(rows, SPMV_DIM,
                                                     SPMV_NNZ, seed=1)
     w_host = np.random.default_rng(2).normal(size=SPMV_DIM).astype(np.float32)
-    idx = torch.from_numpy(indices.reshape(SPMV_ROWS, SPMV_NNZ)).cuda()
-    val = torch.from_numpy(values.reshape(SPMV_ROWS, SPMV_NNZ)).cuda()
+    idx = torch.from_numpy(indices.reshape(rows, SPMV_NNZ)).cuda()
+    val = torch.from_numpy(values.reshape(rows, SPMV_NNZ)).cuda()
     w = torch.from_numpy(w_host).cuda()
     got = kspmv.spmv(idx, val, w)
     torch.cuda.synchronize()
     want = kspmv.spmv_plain(idx, val, w)
     check_close("spmv vs plain", got, want, 1e-5, 1e-5)
-    ref = (values.astype(np.float64).reshape(SPMV_ROWS, SPMV_NNZ)
-           * w_host.astype(np.float64)[indices.reshape(SPMV_ROWS, SPMV_NNZ)]
+    ref = (values.astype(np.float64).reshape(rows, SPMV_NNZ)
+           * w_host.astype(np.float64)[indices.reshape(rows, SPMV_NNZ)]
            ).sum(axis=1)
     check_close("spmv vs float64 numpy", got, torch.from_numpy(ref).cuda(),
                 1e-5, 1e-5)
 
     csr = torch.sparse_csr_tensor(
         torch.from_numpy(indptr).cuda(), idx.reshape(-1).long(),
-        val.reshape(-1), size=(SPMV_ROWS, SPMV_DIM),
+        val.reshape(-1), size=(rows, SPMV_DIM),
     )
     library_call = "torch.mv(sparse_csr_tensor, w)"
     library = lambda: torch.mv(csr, w)  # noqa: E731
@@ -191,13 +245,13 @@ def spmv_phase(torch, timer):
     plain_ms = timer(lambda: kspmv.spmv_plain(idx, val, w))
     library_ms = timer(library)
     touched = np.unique(indices).size
-    n_bytes = idx.numel() * 4 + val.numel() * 4 + touched * 4 + SPMV_ROWS * 4
+    n_bytes = idx.numel() * 4 + val.numel() * 4 + touched * 4 + rows * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * val.numel(), "float32")
     rec = {
         "name": "spmv", "route": "cuda",
         "source": "flinkml_tpu_torch/kernels/csrc/spmv.cu",
         "replaces": "flinkml_tpu/kernels/spmv.py:74",
-        "shape": [SPMV_ROWS, SPMV_NNZ, SPMV_DIM], "dtype": "float32",
+        "shape": [rows, SPMV_NNZ, SPMV_DIM], "dtype": "float32",
         "max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "library_call": library_call,
@@ -299,7 +353,6 @@ def chain_phase(torch, timer, dtype, rtol, atol):
 
 def sparse_path(torch):
     import flinkml_tpu_torch as fml
-    from flinkml_tpu_torch.linalg import SparseVector
     from flinkml_tpu_torch.ops.sparse import sparse_margins
 
     n, dim, nnz = SPMV_ROWS, SPMV_DIM, SPMV_NNZ
@@ -310,15 +363,9 @@ def sparse_path(torch):
         fml.LogisticRegressionModel().get_param_map_json(),
         {"coefficient": coef},
     )
-    rows = np.empty(n, dtype=object)
+    rows = criteo_rows(indices, values, n, nnz, dim)
     idx2 = indices.reshape(n, nnz)
     val2 = values.reshape(n, nnz)
-    for r in range(n):
-        # Duplicate draws within a row merge by sum (CSR semantics).
-        ui, inv = np.unique(idx2[r], return_inverse=True)
-        uv = np.zeros(ui.size, dtype=np.float64)
-        np.add.at(uv, inv, val2[r].astype(np.float64))
-        rows[r] = SparseVector._from_sorted(dim, ui.astype(np.int64), uv)
     table = fml.Table({"features": rows})
     ref = (val2.astype(np.float64)
            * coef.astype(np.float32).astype(np.float64)[idx2]).sum(axis=1)
@@ -449,6 +496,287 @@ def dense_path(torch):
     return launches
 
 
+# -- phase 2b: segment_sum against its plain version -----------------------------
+
+def segsum_case(torch, timer, ids_host, values_host, num_segments, dtype,
+                sorted_ids, rtol, atol):
+    """One ``segment_sum`` case: kernel vs plain version on the card, the
+    sorted path also bit for bit vs the in-order sum (``np.add.at``), and
+    the times."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+
+    tdt = getattr(torch, dtype)
+    ids = torch.from_numpy(ids_host).cuda()
+    ids_long = ids.long()
+    vals = torch.from_numpy(values_host).to("cuda", tdt)
+    got = ksegsum.segment_sum(vals, ids, num_segments,
+                              indices_are_sorted=sorted_ids)
+    torch.cuda.synchronize()
+    want = ksegsum.segment_sum_plain(vals, ids, num_segments)
+    label = (f"segment_sum[{'sorted' if sorted_ids else 'unsorted'}, {dtype}, "
+             f"k={1 if vals.dim() == 1 else vals.shape[1]}]")
+    check_close(f"{label} vs plain", got, want, rtol, atol)
+    bitwise = None
+    if sorted_ids:
+        in_order = np.zeros(tuple(got.shape), dtype=vals.cpu().numpy().dtype)
+        np.add.at(in_order, ids_host, vals.cpu().numpy())
+        bitwise = bool(np.array_equal(got.cpu().numpy(), in_order))
+        if not bitwise:
+            fail(f"{label}: the run-flush differs from the in-order sum")
+
+    def library():
+        return torch.zeros(tuple(got.shape), dtype=tdt,
+                           device="cuda").index_add_(0, ids_long, vals)
+
+    ms = timer(lambda: ksegsum.segment_sum(vals, ids, num_segments,
+                                           indices_are_sorted=sorted_ids))
+    plain_ms = timer(lambda: ksegsum.segment_sum_plain(vals, ids,
+                                                       num_segments))
+    library_ms = timer(library)
+    item = vals.element_size()
+    n_bytes = ids.numel() * 4 + vals.numel() * item + got.numel() * item
+    b_ms, b_by = bound_ms(n_bytes, vals.numel(), dtype)
+    rec = {
+        "name": "segment_sum", "route": "cuda",
+        "source": "flinkml_tpu_torch/kernels/csrc/segsum.cu",
+        "replaces": "flinkml_tpu/kernels/segsum.py:222",
+        "shape": [int(vals.shape[0]), int(got.numel() // num_segments),
+                  num_segments],
+        "dtype": dtype, "sorted": sorted_ids,
+        "max_abs_err": max_err(got, want), "bitwise_in_order": bitwise,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "library_call": "torch.zeros(...).index_add_(0, ids_int64, values)",
+    }
+    log("kernel " + json.dumps(rec))
+    return rec
+
+
+def segsum_phase(torch, timer):
+    """The sparse-fit step's scatter (Criteo cells into 1e6 segments) in
+    float32 and float64, unsorted and sorted, and the row payload.
+    Tolerances vs the plain version (``index_add_``, whose atomics also
+    reorder the adds): float32 rtol/atol 1e-5, float64 1e-12."""
+    _, indices, values, _, _ = make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM,
+                                               SPMV_NNZ, seed=5)
+    sorted_order = np.argsort(indices, kind="stable")
+    main = None
+    for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
+        for sorted_ids in (False, True):
+            ids = indices[sorted_order] if sorted_ids else indices
+            vals = values[sorted_order] if sorted_ids else values
+            rec = segsum_case(torch, timer, ids, vals.astype(dtype), SPMV_DIM,
+                              dtype, sorted_ids, tol, tol)
+            if dtype == "float32" and not sorted_ids:
+                main = rec   # the fit's default layout
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, PAYLOAD_SEGMENTS, size=PAYLOAD_CELLS).astype(np.int32)
+    vals = rng.normal(size=(PAYLOAD_CELLS, PAYLOAD_K)).astype(np.float32)
+    for sorted_ids in (False, True):
+        order = np.argsort(ids, kind="stable") if sorted_ids else slice(None)
+        segsum_case(torch, timer, ids[order], vals[order], PAYLOAD_SEGMENTS,
+                    "float32", sorted_ids, 1e-5, 1e-5)
+    return main
+
+
+# -- phase 5: dense fit path --------------------------------------------------------
+
+def numpy_dense_fit(x, y, w, seed, batch, epochs, lr):
+    """Float64 numpy run of the dense trainer's steps (reg 0): the same
+    seeded shuffle, the same rotating windows."""
+    n = x.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    x64 = x[perm].astype(np.float64)
+    y64, w64 = y[perm].astype(np.float64), w[perm].astype(np.float64)
+    n_windows = max(-(-n // batch), 1)
+    coef = np.zeros(x.shape[1])
+    for ep in range(epochs):
+        start = min((ep % n_windows) * batch, n - batch)
+        xb, yb, wb = (a[start:start + batch] for a in (x64, y64, w64))
+        ys = 2.0 * yb - 1.0
+        mult = wb * (-ys / (1.0 + np.exp(xb @ coef * ys)))
+        coef = coef - lr / wb.sum() * (xb.T @ mult)
+    return coef
+
+
+class _Epochs:
+    """Listener: the last epoch a fit ran."""
+
+    epoch = None
+
+    def on_epoch_watermark_incremented(self, epoch, state):
+        self.epoch = epoch
+
+    def on_iteration_terminated(self, state):
+        pass
+
+
+def dense_fit_path(torch):
+    """Tolerance vs the float64 reference: 1e-4 of the largest
+    coefficient (float32 products over 262,144 rows, 20 steps)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+
+    x, y, w = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
+    table = fml.Table({"features": x, "label": y})
+    est = (fml.LogisticRegression().set_seed(0).set_tol(0.0)
+           .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+           .set_learning_rate(FIT_LR))
+    fml.reset_launch_counts()
+    first_s, fit_s, model = timed_calls(torch, lambda: est.fit(table), calls=2)
+    counts = fml.launch_counts()
+    coef = model.coefficient
+    ref = numpy_dense_fit(x, y, w, 0, FIT_BATCH, FIT_EPOCHS, FIT_LR)
+    err = float(np.abs(coef - ref).max())
+    if (coef.shape != ref.shape or not np.isfinite(coef).all()
+            or not err <= 1e-4 * np.abs(ref).max()):
+        fail(f"dense fit: coefficient differs from float64 numpy by {err}")
+
+    # The device loop alone, on data already on the card.
+    xd, yd, wd = (torch.from_numpy(a).cuda() for a in (x, y, w))
+    trainer = sgd._dense_trainer("logistic", FIT_BATCH)
+    listener = _Epochs()
+    _, loop_s, _ = timed_calls(torch, lambda: sgd._run_chunked(
+        trainer, (xd, yd, wd), DENSE_FIT_D, torch.float32, FIT_LR, 0.0, 0.0,
+        0.0, FIT_EPOCHS, listeners=[listener]))
+    if listener.epoch != FIT_EPOCHS - 1:
+        fail(f"dense fit: the device loop ran {listener.epoch} + 1 epochs")
+    samples = FIT_BATCH * FIT_EPOCHS
+    rec = {"path": "dense_lr_fit", "rows": DENSE_FIT_ROWS, "d": DENSE_FIT_D,
+           "dtype": "float32", "batch": FIT_BATCH, "epochs": FIT_EPOCHS,
+           "first_fit_s": first_s, "fit_s": fit_s,
+           "samples_per_s": samples / fit_s, "device_loop_s": loop_s,
+           "device_loop_samples_per_s": samples / loop_s,
+           "host_s": fit_s - loop_s, "max_abs_coef_err": err,
+           "max_abs_coef": float(np.abs(ref).max()), "launches": counts}
+    log("path " + json.dumps(rec))
+
+
+# -- phase 6: sparse fit path -----------------------------------------------------
+
+def numpy_sparse_fit(indptr, indices, values, dim, y, w, epochs, lr):
+    """Float64 numpy full-batch run of the sparse trainer's steps (reg 0;
+    batch >= rows, so every bucket's window is the whole bucket)."""
+    n = indptr.size - 1
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    v = values.astype(np.float64)
+    y64, w64 = y.astype(np.float64), w.astype(np.float64)
+    coef = np.zeros(dim)
+    for _ in range(epochs):
+        dot = np.bincount(rows, weights=v * coef[indices], minlength=n)
+        ys = 2.0 * y64 - 1.0
+        mult = w64 * (-ys / (1.0 + np.exp(dot * ys)))
+        grad = np.bincount(indices, weights=v * mult[rows], minlength=dim)
+        coef = coef - lr / w64.sum() * grad
+    return coef
+
+
+def sparse_fit_path(torch):
+    """Tolerance vs the float64 reference: 1e-4 of the largest
+    coefficient (float32 sums of ~10 cells per column and 39 per row,
+    added by atomics in a run-dependent order on the unsorted path)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.models._data import labeled_sparse_data
+
+    n, dim, nnz = SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ
+    if FIT_BATCH < n:
+        fail("sparse fit: the full-batch numpy reference needs batch >= rows")
+    _, indices, values, y, _ = make_criteo_csr(n, dim, nnz, seed=0)
+    table = fml.Table({"features": criteo_rows(indices, values, n, nnz, dim),
+                       "label": y})
+    est = (fml.LogisticRegression().set_seed(0).set_tol(0.0)
+           .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+           .set_learning_rate(FIT_LR))
+    est.fit(table)   # first fit: kernel libraries load, allocator warms
+    torch.cuda.synchronize()
+    fml.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = fml.launch_counts()
+    if counts["segment_sum"] < FIT_EPOCHS or counts["spmv"] < FIT_EPOCHS:
+        fail(f"sparse fit: kernel launches {counts} in one {FIT_EPOCHS}-epoch "
+             "fit")
+
+    _, csr_s, csr = timed_calls(
+        torch, lambda: labeled_sparse_data(table, "features", "label"))
+    indptr, cidx, cval, _, cy, cw = csr
+    ref = numpy_sparse_fit(indptr, cidx, cval, dim, cy, cw, FIT_EPOCHS,
+                           FIT_LR)
+    errs = {"unsorted": float(np.abs(model.coefficient - ref).max())}
+
+    fml.reset_launch_counts()
+    t0 = time.perf_counter()
+    coef_sorted = sgd.train_linear_model_sparse_csr(
+        *csr[:4], cy, cw, "logistic", FIT_EPOCHS, FIT_LR, FIT_BATCH, 0.0, 0.0,
+        0.0, 0, layout="sorted")
+    torch.cuda.synchronize()
+    sorted_fit_s = time.perf_counter() - t0
+    sorted_counts = fml.launch_counts()
+    errs["sorted"] = float(np.abs(coef_sorted - ref).max())
+    for layout, err in errs.items():
+        if not err <= 1e-4 * np.abs(ref).max():
+            fail(f"sparse fit ({layout}): coefficient differs from float64 "
+                 f"numpy by {err}")
+    if sorted_counts["segment_sum"] < FIT_EPOCHS:
+        fail(f"sparse fit (sorted): kernel launches {sorted_counts}")
+
+    # Host packing apart from the device loop, for both layouts.
+    split = {}
+    for layout in ("unsorted", "sorted"):
+        _, pack_s, (data_args, local_bss) = timed_calls(
+            torch, lambda: sgd.prepare_sparse_buckets(
+                *csr[:4], cy, cw, FIT_BATCH, seed=0, layout=layout))
+        trainer = sgd._sparse_trainer_bucketed("logistic", local_bss, dim,
+                                               layout)
+
+        def loop():
+            return sgd._run_chunked(trainer, data_args, dim, torch.float32,
+                                    FIT_LR, 0.0, 0.0, 0.0, FIT_EPOCHS)
+
+        _, loop_s, _ = timed_calls(torch, loop)
+        split[layout] = {"pack_upload_s": pack_s, "device_loop_s": loop_s,
+                         "buckets": len(local_bss),
+                         "device_share": device_share(torch, loop)}
+    samples = FIT_BATCH * FIT_EPOCHS
+    rec = {"path": "sparse_lr_fit", "rows": n, "dim": dim, "nnz": nnz,
+           "batch": FIT_BATCH, "epochs": FIT_EPOCHS, "fit_s": fit_s,
+           "samples_per_s": samples / fit_s,
+           "sorted_fit_s": sorted_fit_s,
+           "sorted_samples_per_s": samples / sorted_fit_s,
+           "csr_from_rows_s": csr_s, "split": split,
+           "max_abs_coef_err": errs,
+           "max_abs_coef": float(np.abs(ref).max()), "launches": counts,
+           "sorted_launches": sorted_counts}
+    log("path " + json.dumps(rec))
+    return counts
+
+
+def device_share(torch, fn):
+    """Share of ``fn``'s wall time during which the card ran kernels, from
+    ``torch.profiler`` (None when the profiler reports no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    except RuntimeError as e:   # the profiler, not the path, failed
+        log(f"device share not measured: {e}")
+        return None
+    busy_us = 0.0
+    for e in prof.key_averages():
+        busy_us += getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+    return busy_us / wall_us if busy_us > 0 else None
+
+
 def main() -> int:
     import torch
 
@@ -474,17 +802,24 @@ def main() -> int:
 
     timer = Timer(torch)
     spmv_rec = spmv_phase(torch, timer)
+    spmv_phase(torch, timer, rows=SPARSE_FIT_ROWS)
     chain_rec = chain_phase(torch, timer, "float64", 1e-12, 1e-12)
     chain_phase(torch, timer, "float32", 1e-5, 1e-6)
+    segsum_rec = segsum_phase(torch, timer)
     del timer
 
-    spmv_rec["launches"] = sparse_path(torch)
+    serve_spmv = sparse_path(torch)
     chain_rec["launches"] = dense_path(torch)
+    dense_fit_path(torch)
+    fit_counts = sparse_fit_path(torch)
+    spmv_rec["launches"] = serve_spmv + fit_counts["spmv"]
+    segsum_rec["launches"] = fit_counts["segment_sum"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (spmv_rec, chain_rec)]}))
+                                  for r in (spmv_rec, chain_rec,
+                                            segsum_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

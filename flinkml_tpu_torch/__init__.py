@@ -7,10 +7,12 @@ the caller asks for the CPU (:func:`use_device` /
 :func:`set_default_device`); the hot loops are hand-written CUDA kernels
 for Hopper (:mod:`flinkml_tpu_torch.kernels`).
 
-Ported so far (the serving path of LogisticRegression): tables, params,
+Ported so far (LogisticRegression, served and trained): tables, params,
 persistence, ``Pipeline``/``PipelineModel`` with the fused executor, the
-four scalers (fit + transform), ``LogisticRegressionModel`` (binomial,
-dense and sparse transform), and the ``fused_chain`` and ``spmv`` kernels.
+four scalers (fit + transform), ``LogisticRegression`` (binomial fit on
+one device, dense and sparse) and ``LogisticRegressionModel`` (binomial,
+dense and sparse transform), and the ``fused_chain``, ``spmv`` and
+``segment_sum`` kernels.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401
@@ -43,6 +45,7 @@ from flinkml_tpu_torch.linalg import (  # noqa: F401
     Vectors,
 )
 from flinkml_tpu_torch.models import (  # noqa: F401
+    LogisticRegression,
     LogisticRegressionModel,
     MaxAbsScaler,
     MaxAbsScalerModel,
@@ -64,6 +67,7 @@ __all__ = [
     "DenseVector",
     "Estimator",
     "KernelUnsupportedError",
+    "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

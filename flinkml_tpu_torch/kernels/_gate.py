@@ -19,8 +19,8 @@ import threading
 from typing import Dict
 
 #: The four kernel sites of the JAX package (one per hot inner loop).
-#: ``spmv`` and ``fused_chain`` are ported; ``segment_sum`` and ``topk``
-#: are still to be ported.
+#: ``spmv``, ``fused_chain`` and ``segment_sum`` are ported; ``topk`` is
+#: still to be ported.
 SITES = ("fused_chain", "segment_sum", "spmv", "topk")
 
 

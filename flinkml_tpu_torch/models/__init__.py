@@ -1,7 +1,8 @@
-"""Stages of the model catalog ported so far: the four scalers and the
-LogisticRegression model."""
+"""Stages of the model catalog ported so far: the four scalers and
+LogisticRegression (estimator and model)."""
 
 from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
+    LogisticRegression,
     LogisticRegressionModel,
 )
 from flinkml_tpu_torch.models.scalers import (  # noqa: F401
@@ -16,6 +17,7 @@ from flinkml_tpu_torch.models.scalers import (  # noqa: F401
 )
 
 __all__ = [
+    "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",

@@ -2,11 +2,14 @@
 
 The port's counterpart of ``flinkml_tpu.models._data``: tables are already
 columnar, so "extraction" is densifying a features column to ``[n, d]``
-(on the host, or as a tensor on the compute device) and picking the sparse
-path when every row is a ``SparseVector``.
+(on the host, or as a tensor on the compute device), reading label and
+weight columns, and picking the sparse path when every row is a
+``SparseVector``.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,3 +72,65 @@ def sparse_features(table: Table, features_col: str):
     ):
         return col
     return None
+
+
+def labeled_data(
+    table: Table,
+    features_col: str,
+    label_col: str,
+    weight_col: Optional[str] = None,
+    dtype=np.float64,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Extract (X [n,d], y [n], w [n]); weight defaults to 1.0 per row.
+
+    ``dtype`` is the features' as in :func:`features_matrix` (``None``
+    keeps a floating column's dtype); labels and weights are float64.
+    """
+    x = features_matrix(table, features_col, dtype=dtype)
+    y = np.asarray(table.column(label_col), dtype=np.float64).reshape(-1)
+    if y.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"label column {label_col!r} has {y.shape[0]} rows, features have {x.shape[0]}"
+        )
+    if weight_col is not None:
+        w = np.asarray(table.column(weight_col), dtype=np.float64).reshape(-1)
+    else:
+        w = np.ones(x.shape[0], dtype=np.float64)
+    return x, y, w
+
+
+def check_binary_labels(y: np.ndarray, model_name: str) -> None:
+    """Validate labels ∈ {0, 1} (shared by the binomial classifiers)."""
+    labels = np.unique(y)
+    if not np.all(np.isin(labels, (0.0, 1.0))):
+        raise ValueError(
+            f"{model_name} requires labels in {{0, 1}}, got {labels}"
+        )
+
+
+def labeled_sparse_data(
+    table: Table,
+    features_col: str,
+    label_col: str,
+    weight_col: Optional[str] = None,
+    dtype=np.float32,
+):
+    """Sparse analog of :func:`labeled_data`: host CSR arrays + labels.
+
+    Returns ``(indptr, indices, values, dim, y, w)``.
+    """
+    from flinkml_tpu_torch.ops.sparse import csr_from_sparse_vectors
+
+    col = table.column(features_col)
+    indptr, indices, values, dim = csr_from_sparse_vectors(col, dtype=dtype)
+    y = np.asarray(table.column(label_col), dtype=dtype).reshape(-1)
+    if y.shape[0] != indptr.size - 1:
+        raise ValueError(
+            f"label column {label_col!r} has {y.shape[0]} rows, features "
+            f"have {indptr.size - 1}"
+        )
+    if weight_col is not None:
+        w = np.asarray(table.column(weight_col), dtype=dtype).reshape(-1)
+    else:
+        w = np.ones(y.shape[0], dtype=dtype)
+    return indptr, indices, values, dim, y, w

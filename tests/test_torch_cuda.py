@@ -16,7 +16,9 @@ import torch
 import flinkml_tpu_torch as fml
 from flinkml_tpu_torch import pipeline_fusion
 from flinkml_tpu_torch.kernels import chain as kchain
+from flinkml_tpu_torch.kernels import segsum as ksegsum
 from flinkml_tpu_torch.kernels import spmv as kspmv
+from flinkml_tpu_torch.models import _linear_sgd
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +138,86 @@ def test_sparse_lr_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(gpu.column("rawPrediction"),
                                cpu.column("rawPrediction"), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("sorted_ids", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("k", [None, 16])
+def test_segment_sum_kernel_matches_plain(cuda_device, sorted_ids, dtype, tol,
+                                          k):
+    """Both paths against ``index_add_`` (atomics reorder the adds: within
+    ``tol``); the sorted path also bit for bit against the in-order sum."""
+    rng = np.random.default_rng(5)
+    cells, nseg = 50_000, 3_000
+    ids = rng.integers(0, nseg, size=cells).astype(np.int32)
+    if sorted_ids:
+        ids = np.sort(ids)
+    values = rng.normal(size=(cells,) if k is None else (cells, k))
+    tv = torch.from_numpy(values).to(cuda_device, dtype)
+    ti = torch.from_numpy(ids).to(cuda_device)
+    before = ksegsum.LAUNCHES.count
+    got = ksegsum.segment_sum(tv, ti, nseg, indices_are_sorted=sorted_ids)
+    torch.cuda.synchronize()
+    assert ksegsum.LAUNCHES.count == before + 1
+    torch.testing.assert_close(got, ksegsum.segment_sum_plain(tv, ti, nseg),
+                               rtol=tol, atol=tol)
+    if sorted_ids:
+        want = np.zeros((nseg,) + values.shape[1:], tv.cpu().numpy().dtype)
+        np.add.at(want, ids, tv.cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    with pytest.raises(fml.KernelUnsupportedError):
+        ksegsum.segment_sum(tv.bfloat16(), ti, nseg)
+    with pytest.raises(fml.KernelUnsupportedError):
+        ksegsum.segment_sum(tv, ti.long(), nseg)
+    empty = ksegsum.segment_sum(tv[:0], ti[:0], nseg)
+    assert ksegsum.LAUNCHES.count == before + 1 and not empty.any()
+
+
+def test_segment_sum_atomic_path_refused_when_deterministic(cuda_device):
+    tv = torch.ones(10, device=cuda_device)
+    ti = torch.zeros(10, dtype=torch.int32, device=cuda_device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(fml.KernelUnsupportedError, match="sorted"):
+            ksegsum.segment_sum(tv, ti, 3)
+        out = ksegsum.segment_sum(tv, ti, 3, indices_are_sorted=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out.tolist() == [10.0, 0.0, 0.0]
+
+
+def test_dense_fit_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3000, 12)).astype(np.float32)
+    y = (x @ rng.normal(size=12) > 0).astype(np.float32)
+    table = fml.Table({"features": x, "label": y})
+    est = (fml.LogisticRegression().set_seed(1).set_global_batch_size(512)
+           .set_tol(0.0).set_learning_rate(0.5))
+    with fml.use_device(cuda_device):
+        gpu = est.fit(table).coefficient
+    with fml.use_device("cpu"):
+        cpu = est.fit(table).coefficient
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["unsorted", "sorted"])
+def test_sparse_fit_on_card_matches_cpu(cuda_device, layout):
+    rng = np.random.default_rng(7)
+    n, dim = 2000, 5000
+    nnz = rng.integers(1, 40, size=n)
+    indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    indices = rng.integers(0, dim, size=indptr[-1]).astype(np.int32)
+    values = rng.normal(size=indptr[-1]).astype(np.float32)
+    y = rng.integers(0, 2, size=n).astype(np.float32)
+    w = np.ones(n, dtype=np.float32)
+    args = (indptr, indices, values, dim, y, w, "logistic", 10, 0.5, 700,
+            0.001, 0.0, 0.0, 3)
+    fml.reset_launch_counts()
+    with fml.use_device(cuda_device):
+        gpu = _linear_sgd.train_linear_model_sparse_csr(*args, layout=layout)
+    counts = fml.launch_counts()
+    assert counts["segment_sum"] >= 10 and counts["spmv"] >= 10
+    with fml.use_device("cpu"):
+        cpu = _linear_sgd.train_linear_model_sparse_csr(*args, layout=layout)
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-5, atol=1e-6)

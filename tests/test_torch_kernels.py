@@ -3,7 +3,8 @@ PyTorch version against the JAX function it replaces, run through XLA and
 through the Pallas kernel in interpret mode; the host side of the CUDA
 ``fused_chain`` (chain plans, refusals, the packed constant table — held
 against the plain chain by a numpy model of the kernel's arithmetic); the
-build module. The CUDA kernels themselves are held against their plain
+CUDA ``segment_sum``'s sorted run-flush, held bit for bit against the
+Pallas kernel by a Python model of its chunking; the build module. The CUDA kernels themselves are held against their plain
 versions on the card by ``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from flinkml_tpu import kernels as jax_kernels
 from flinkml_tpu_torch.api import ColumnKernel
 from flinkml_tpu_torch.kernels import _build, _gate
 from flinkml_tpu_torch.kernels import chain as kchain
+from flinkml_tpu_torch.kernels import segsum as ksegsum
 from flinkml_tpu_torch.kernels import spmv as kspmv
 from tests._torch_port_common import (  # noqa: F401
     F32_ATOL,
@@ -247,10 +249,133 @@ def test_pack_table_refuses_dim_mismatch():
                           np.dtype(np.float64), x.shape[1] + 1)
 
 
+# -- segment_sum -------------------------------------------------------------------
+
+#: Cells per thread of the CUDA sorted run-flush (``csrc/segsum.cu`` kChunk).
+SEGSUM_CHUNK = 16
+
+
+def _segsum_inputs(cells, k, num_segments, dtype, sorted_ids, seed):
+    """Seeded values and int32 ids; sorted ids come in runs of 1..40 cells,
+    so runs start, end inside and span the kernel's 16-cell chunks."""
+    rng = np.random.default_rng(seed)
+    shape = (cells,) if k is None else (cells, k)
+    values = rng.normal(size=shape).astype(dtype)
+    if sorted_ids:
+        runs = rng.integers(1, 41, size=cells)
+        starts = np.sort(rng.choice(num_segments, size=min(cells, num_segments),
+                                    replace=False))
+        ids = np.repeat(starts, runs[:starts.size])[:cells]
+        ids = np.concatenate([ids, np.full(cells - ids.size, starts[-1])])
+    else:
+        ids = rng.integers(0, num_segments, size=cells)
+    return values, ids.astype(np.int32)
+
+
+def _run_flush_model(values, ids, num_segments, chunk=SEGSUM_CHUNK):
+    """The CUDA sorted kernel's arithmetic, thread by thread: each
+    (chunk, column) skips the run entering from the left, sums every run
+    that starts in its chunk left to right from 0 (reading past the chunk
+    end) and stores it once."""
+    v2 = values[:, None] if values.ndim == 1 else values
+    cells, k = v2.shape
+    out = np.zeros((num_segments, k), values.dtype)
+    for lo in range(0, cells, chunk):
+        hi = min(lo + chunk, cells)
+        for c in range(k):
+            j = lo
+            while 0 < j < hi and ids[j] == ids[lo - 1]:
+                j += 1
+            while j < hi:
+                seg, acc = ids[j], values.dtype.type(0)
+                while True:
+                    acc = values.dtype.type(acc + v2[j, c])
+                    j += 1
+                    if j >= cells or ids[j] != seg:
+                        break
+                out[seg, c] = acc
+    return out[:, 0] if values.ndim == 1 else out
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("sorted_ids", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(500, None, 97), (300, 4, 40), (7, None, 3)])
+def test_segment_sum_plain_matches_jax(backend, sorted_ids, dtype, shape,
+                                       monkeypatch):
+    """segment_sum_plain vs the JAX ``kernels.segment_sum`` (XLA, or
+    ``pallas_segment_sum`` interpreted), flat and row payload, at rtol/atol
+    1e-6 (f32; 1e-12 f64): both sum in element order on the CPU."""
+    cells, k, nseg = shape
+    values, ids = _segsum_inputs(cells, k, nseg, dtype, sorted_ids, seed=cells)
+    jax_backend(monkeypatch, backend, "segment_sum")
+    want = np.asarray(jax_kernels.segment_sum(
+        values, ids, nseg, indices_are_sorted=sorted_ids))
+    got = ksegsum.segment_sum(torch.from_numpy(values), torch.from_numpy(ids),
+                              nseg, indices_are_sorted=sorted_ids)
+    assert got.dtype == torch.from_numpy(values).dtype
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [None, 3])
+def test_segment_sum_run_flush_model_is_bitwise_pallas(dtype, k):
+    """The CUDA run-flush's chunked order (modelled in numpy) equals the
+    Pallas sorted kernel bit for bit — runs shorter than, equal to and
+    longer than a chunk, crossing chunk boundaries."""
+    from flinkml_tpu.kernels.segsum import pallas_segment_sum
+
+    values, ids = _segsum_inputs(400, k, 60, dtype, True, seed=7)
+    assert np.max(np.bincount(ids)) > 2 * SEGSUM_CHUNK
+    want = np.asarray(pallas_segment_sum(values, ids, 60,
+                                         indices_are_sorted=True,
+                                         interpret=True))
+    np.testing.assert_array_equal(_run_flush_model(values, ids, 60), want)
+
+
+def test_segment_sum_empty_inputs():
+    """Zero cells or zero segments: zeros of the output shape."""
+    v = torch.zeros(0, 3, dtype=torch.float32)
+    out = ksegsum.segment_sum(v, torch.zeros(0, dtype=torch.int32), 5)
+    assert out.shape == (5, 3) and not out.any()
+    out = ksegsum.segment_sum(torch.zeros(0), torch.zeros(0, dtype=torch.int32), 0)
+    assert out.shape == (0,)
+
+
+def test_segment_sum_unsupported_reasons():
+    v = torch.ones(6, dtype=torch.float32)
+    ids = torch.zeros(6, dtype=torch.int32)
+    assert ksegsum.unsupported_reason(v, ids, 4) is None
+    assert "int32" in ksegsum.unsupported_reason(v, ids.long(), 4)
+    assert "bfloat16" in ksegsum.unsupported_reason(v.bfloat16(), ids, 4)
+    assert "rows" in ksegsum.unsupported_reason(v[:5], ids, 4)
+    assert "rank" in ksegsum.unsupported_reason(v[None, None], ids, 4)
+    assert "rank" in ksegsum.unsupported_reason(v, ids[None], 4)
+    assert "32-bit" in ksegsum.unsupported_reason(v, ids, 2**31)
+    with pytest.raises(fml.KernelUnsupportedError, match="not CUDA"):
+        ksegsum.segment_sum(v.to("meta"), ids.to("meta"), 4)
+
+
+def test_segment_sum_unsorted_refused_in_deterministic_mode():
+    """The atomic path adds in a run-dependent order: under PyTorch's
+    deterministic mode it is refused, naming the sorted layout."""
+    v = torch.ones(6, dtype=torch.float32)
+    ids = torch.zeros(6, dtype=torch.int32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        reason = ksegsum.unsupported_reason(v, ids, 4)
+        assert ksegsum.unsupported_reason(v, ids, 4,
+                                          indices_are_sorted=True) is None
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert 'layout="sorted"' in reason and "deterministic" in reason
+
+
 # -- build and launch bookkeeping -----------------------------------------------------
 
 def test_build_sources_and_library_names():
-    assert _build.sources() == ["chain", "spmv"]
+    assert _build.sources() == ["chain", "segsum", "spmv"]
     path = _build._library_path("spmv")
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -266,11 +391,13 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 def test_launch_counters_only_count_kernel_launches(on_cpu):
-    assert set(fml.launch_counts()) == {"fused_chain", "spmv"}
+    assert set(fml.launch_counts()) == {"fused_chain", "segment_sum", "spmv"}
     assert set(fml.launch_counts()) <= set(_gate.SITES)
     fml.reset_launch_counts()
     idx, val, w = (torch.from_numpy(a) for a in _ell(4, 3, 10, np.float32, 0))
-    kspmv.spmv(idx, val, w)   # plain version: not a launch
-    assert fml.launch_counts() == {"fused_chain": 0, "spmv": 0}
+    kspmv.spmv(idx, val, w)   # plain versions: not launches
+    ksegsum.segment_sum(val.reshape(-1), idx.reshape(-1), 10)
+    assert fml.launch_counts() == {"fused_chain": 0, "segment_sum": 0,
+                                   "spmv": 0}
     with pytest.raises(ValueError):
         _gate.LaunchCounter("not_a_site")
