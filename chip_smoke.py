@@ -17,7 +17,11 @@ and fails with a non-zero exit if any phase fails:
    ``fused_chain`` at 100,000 x 32 in float64 and float32; ``segment_sum``
    at the sparse-fit step (262,144 x 39 cells into 1e6 segments, float32
    and float64, unsorted and sorted) and with a row payload (2^20 cells x
-   16 into 65,536 segments) — with CUDA-event times (L2 flushed before each
+   16 into 65,536 segments); ``topk`` bit for bit against ``top_k_plain``
+   (values and indices) at [4096, 60000] k=5, [1024, 8192] k=16, [256,
+   2048] k=128 (float32), 1-D n=1e6 k=100 (float64) and on adversarial
+   rows (duplicates, +0/-0, -inf-only rows, NaN of both signs), short and
+   split into segments — with CUDA-event times (L2 flushed before each
    launch), the plain version's and the library call's time, and the bound
    from bytes and operations;
 3. sparse serving path: LogisticRegressionModel (dim 1e6, seeded
@@ -37,7 +41,23 @@ and fails with a non-zero exit if any phase fails:
    SparseVector rows (dim 1e6, batch 262,144, 20 epochs, tol 0; layout
    ``unsorted``), twice, and ``train_linear_model_sparse_csr`` with layout
    ``sorted``, each held against a float64 numpy run of the same steps;
-   the host's CSR conversion and packing timed apart from the device loop.
+   the host's CSR conversion and packing timed apart from the device loop;
+7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
+   ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
+   chunks, three ``topk`` launches), the first 512 predictions equal to a
+   float64 numpy brute force; one chunk's product, distances and ``topk``
+   timed apart;
+8. LSH path: ``MinHashLSH(numHashTables=5)`` on 65,536 Criteo-profile
+   SparseVector rows (39 draws per row over 4,096 columns, so that rows
+   overlap), transform, ``approx_nearest_neighbors(k=100)`` (one ``topk``
+   launch) and ``approx_similarity_join`` at 2,000 x 2,000 rows, each equal
+   to a numpy brute force;
+9. KMeans paths: ``KMeans(maxIter=100)`` at 65,536 x 784, k=10 and
+   262,144 x 128, k=64 on standard normal float32 points (twice, and the
+   device loop alone), the objective below the init's; the same fits in
+   float64 against a float64 numpy Lloyd run from the same init (rtol
+   1e-4); ``BisectingKMeans(k=8)`` on 65,536 x 784 blobs against the CPU
+   port.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
@@ -579,6 +599,108 @@ def segsum_phase(torch, timer):
     return main
 
 
+# -- phase 2c: topk against its plain version ----------------------------------------
+
+# (rows, n, k, dtype, why): the main shapes of the topk phase.
+TOPK_CASES = (
+    (4096, 60_000, 5, "float32", "one KNN chunk at MNIST width"),
+    (1024, 8192, 16, "float32", "autotune/search.py:668"),
+    (256, 2048, 128, "float32", "MAX_K"),
+    (None, 1_000_000, 100, "float64", "LSH-shaped 1-D"),
+)
+
+
+def topk_adversarial(dtype):
+    """Small rows that pin the order: duplicates, +0 and -0, -inf-only
+    rows, NaN of both signs, ascending and descending rows."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(-3, 4, size=(9, 67)).astype(dtype)
+    x[1] = -np.inf
+    x[2, ::2], x[2, 1::2] = 0.0, -0.0
+    x[3, ::5] = np.nan
+    neg_nan = np.frombuffer(
+        np.array([0xFFF8000000000000], np.uint64).tobytes(), np.float64)[0]
+    x[3, 1::7] = neg_nan
+    x[4] = np.arange(67)
+    x[5] = -np.arange(67)
+    x[6, :60] = -np.inf
+    x[7] = 1.0
+    return x
+
+
+def topk_check(torch, x, k, label):
+    """Kernel vs plain, bitwise in values and indices; returns the kernel's
+    result."""
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    got_v, got_i = ktopk.top_k(x, k)
+    torch.cuda.synchronize()
+    want_v, want_i = ktopk.top_k_plain(x, k)
+    if got_v.shape != want_v.shape or got_i.dtype != torch.int32:
+        fail(f"topk {label}: shape {tuple(got_v.shape)} / dtype {got_i.dtype}")
+    view = torch.int32 if x.element_size() == 4 else torch.int64
+    if not (torch.equal(got_i, want_i)
+            and torch.equal(got_v.view(view), want_v.view(view))):
+        bad = (got_i != want_i).nonzero()[:5].tolist()
+        fail(f"topk {label}: differs from the plain version (first index "
+             f"mismatches at {bad})")
+    return got_v, got_i
+
+
+def topk_phase(torch, timer):
+    """``topk`` bit for bit against ``top_k_plain`` at the main paths'
+    shapes and on adversarial rows; times of the kernel, the plain version
+    and ``torch.topk`` (timed only)."""
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    for dtype in ("float32", "float64"):
+        x = torch.from_numpy(topk_adversarial(dtype)).cuda()
+        for k in (1, 10, 67):
+            topk_check(torch, x, k, f"adversarial {dtype} k={k}")
+        # One long row of the same values: split into segments.
+        long = torch.from_numpy(topk_adversarial(dtype).reshape(-1)).cuda()
+        long = long.repeat(500)
+        for k in (1, 100, 128):
+            topk_check(torch, long, k, f"adversarial 1-D {dtype} k={k} "
+                       f"({ktopk.segments(1, long.numel(), k)} segments)")
+    rng = np.random.default_rng(9)
+    recs = []
+    for rows, n, k, dtype, why in TOPK_CASES:
+        shape = (n,) if rows is None else (rows, n)
+        if rows == 4096:
+            # -d2 of integer features: integer values with many ties.
+            host = -rng.integers(0, 176_401, size=shape).astype(dtype)
+        elif rows is None:
+            # -Jaccard distances: a few thousand distinct values.
+            host = -np.round(rng.random(size=shape), 3).astype(dtype)
+        else:
+            host = rng.normal(size=shape).astype(dtype)
+        x = torch.from_numpy(host).cuda()
+        got_v, _ = topk_check(torch, x, k, f"{list(shape)} k={k} {dtype}")
+        ms = timer(lambda: ktopk.top_k(x, k))
+        plain_ms = timer(lambda: ktopk.top_k_plain(x, k))
+        library_ms = timer(lambda: torch.topk(x, k, dim=-1))
+        lib_v, _ = torch.topk(x, k, dim=-1)
+        item = x.element_size()
+        r = 1 if rows is None else rows
+        n_bytes = r * n * item + r * k * (item + 4)
+        b_ms, b_by = bound_ms(n_bytes, r * n, dtype)
+        rec = {
+            "name": "topk", "route": "cuda",
+            "source": "flinkml_tpu_torch/kernels/csrc/topk.cu",
+            "replaces": "flinkml_tpu/kernels/topk.py:79",
+            "shape": list(shape), "k": k, "dtype": dtype, "why": why,
+            "max_abs_err": 0.0,
+            "library_values_equal": bool(torch.equal(lib_v, got_v)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "library_call": "torch.topk(x, k, dim=-1)",
+        }
+        log("kernel " + json.dumps(rec))
+        recs.append(rec)
+    return recs[0]
+
+
 # -- phase 5: dense fit path --------------------------------------------------------
 
 def numpy_dense_fit(x, y, w, seed, batch, epochs, lr):
@@ -754,9 +876,316 @@ def sparse_fit_path(torch):
     return counts
 
 
+# -- phase 7: KNN transform at MNIST width ----------------------------------------
+
+KNN_TRAIN, KNN_QUERIES, KNN_D, KNN_CLASSES, KNN_K = 60_000, 10_000, 784, 10, 5
+KNN_CHECK = 512
+
+
+def numpy_knn(x, y, q, k):
+    """Float64 numpy brute force: exact squared distances of integer
+    features, a stable argsort (ties to the lower train index), a vote
+    with ties to the smaller class."""
+    classes, ids = np.unique(y, return_inverse=True)
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    d2 = ((q64 * q64).sum(1)[:, None] - 2.0 * (q64 @ x64.T)
+          + (x64 * x64).sum(1)[None, :])
+    nearest = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    votes = ids[nearest]
+    counts = np.stack([np.bincount(v, minlength=len(classes)) for v in votes])
+    return classes[np.argmax(counts, axis=1)]
+
+
+def knn_path(torch, timer):
+    """``Knn().fit`` on 60,000 x 784 rows and ``KnnModel.transform`` of
+    10,000 queries, k=5, 10 classes, float32 features drawn as integers
+    0-15 (distances exact in float32): three query chunks, the last
+    partial. Predictions must equal the float64 numpy brute force on the
+    first 512 queries exactly."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.kernels.topk import top_k
+    from flinkml_tpu_torch.ops import blas
+
+    rng = np.random.default_rng(10)
+    x = rng.integers(0, 16, size=(KNN_TRAIN, KNN_D)).astype(np.float32)
+    y = rng.integers(0, KNN_CLASSES, size=KNN_TRAIN).astype(np.float64)
+    q = rng.integers(0, 16, size=(KNN_QUERIES, KNN_D)).astype(np.float32)
+    t0 = time.perf_counter()
+    model = fml.Knn().set_k(KNN_K).fit(fml.Table({"features": x, "label": y}))
+    fit_s = time.perf_counter() - t0
+    queries = fml.Table({"features": q})
+
+    def run():
+        (out,) = model.transform(queries)
+        return out.column("prediction")
+
+    first_s, call_s, pred = timed_calls(torch, run, calls=2)
+    fml.reset_launch_counts()
+    pred = run()
+    launches = fml.launch_counts()["topk"]
+    chunks = -(-KNN_QUERIES // model.CHUNK)
+    if launches != chunks:
+        fail(f"knn: topk launched {launches} times for {chunks} chunks")
+    want = numpy_knn(x, y, q[:KNN_CHECK], KNN_K)
+    if pred.shape != (KNN_QUERIES,) or not np.array_equal(pred[:KNN_CHECK],
+                                                          want):
+        fail(f"knn: {int((pred[:KNN_CHECK] != want).sum())} of {KNN_CHECK} "
+             "predictions differ from the float64 numpy brute force")
+
+    # One full chunk's parts, on the card (CUDA events, L2 flushed).
+    qc = torch.from_numpy(q[:model.CHUNK]).cuda()
+    xt = torch.from_numpy(x).cuda()
+    matmul_ms = timer(lambda: torch.matmul(qc, xt.T))
+    distance_ms = timer(lambda: blas.squared_distances(qc, xt))
+    neg = blas.squared_distances(qc, xt).neg_()
+    topk_ms = timer(lambda: top_k(neg, KNN_K))
+    del neg
+    rec = {"path": "knn_transform", "train": KNN_TRAIN, "queries": KNN_QUERIES,
+           "d": KNN_D, "k": KNN_K, "classes": KNN_CLASSES, "dtype": "float32",
+           "chunk": model.CHUNK, "fit_s": fit_s, "first_call_s": first_s,
+           "call_s": call_s, "queries_per_s": KNN_QUERIES / call_s,
+           "chunk_matmul_ms": matmul_ms, "chunk_distance_ms": distance_ms,
+           "chunk_topk_ms": topk_ms,
+           "chunk_matmul_tflops": 2.0 * model.CHUNK * KNN_TRAIN * KNN_D
+           / matmul_ms / 1e9,
+           "device_share": device_share(torch, run),
+           "topk_launches": launches, "checked_queries": KNN_CHECK}
+    log("path " + json.dumps(rec))
+    return launches
+
+
+# -- phase 8: MinHashLSH ----------------------------------------------------------
+
+LSH_ROWS, LSH_DIM, LSH_TABLES, LSH_K = 65_536, 4_096, 5, 100
+LSH_JOIN_ROWS, LSH_THRESHOLD = 2_000, 0.97
+
+
+def numpy_minhash(a, b, indptr, flat, prime):
+    """[rows, tables] min-hashes of CSR index sets (empty rows: prime)."""
+    out = np.full((indptr.size - 1, a.size), prime, dtype=np.int64)
+    h = (a[None, :] * (flat[:, None].astype(np.int64) + 1) + b[None, :]) % prime
+    for r in range(indptr.size - 1):
+        if indptr[r + 1] > indptr[r]:
+            out[r] = h[indptr[r]:indptr[r + 1]].min(axis=0)
+    return out
+
+
+def lsh_path(torch, timer):
+    """``MinHashLSH(numHashTables=5)`` on 65,536 Criteo-profile rows (39
+    draws per row over 4,096 columns, so that rows overlap), transform,
+    ``approx_nearest_neighbors(k=100)`` and ``approx_similarity_join`` at
+    2,000 x 2,000 rows, each held against a numpy brute force."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.kernels.topk import top_k
+    from flinkml_tpu_torch.models.lsh import PRIME
+
+    _, indices, values, _, _ = make_criteo_csr(LSH_ROWS, LSH_DIM, SPMV_NNZ,
+                                               seed=11)
+    rows = criteo_rows(indices, values, LSH_ROWS, SPMV_NNZ, LSH_DIM)
+    sets = [v.indices[v.values != 0] for v in rows]
+    lengths = np.array([len(r) for r in sets])
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    flat = np.concatenate(sets)
+    table = fml.Table({"features": rows, "id": np.arange(LSH_ROWS)})
+    est = (fml.MinHashLSH().set_input_col("features").set_output_col("hashes")
+           .set_num_hash_tables(LSH_TABLES).set_seed(0))
+    model = est.fit(table)
+    t0 = time.perf_counter()
+    (hashed,) = model.transform(table)
+    transform_s = time.perf_counter() - t0
+    want_h = numpy_minhash(model._a, model._b, indptr, flat, PRIME)
+    if not np.array_equal(hashed.column("hashes"), want_h.astype(np.float64)):
+        fail("lsh: transform hashes differ from numpy")
+
+    key = rows[0]
+    key_set = sets[0]
+    fml.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nn = model.approx_nearest_neighbors(table, key, LSH_K)
+    torch.cuda.synchronize()
+    ann_s = time.perf_counter() - t0
+    launches = fml.launch_counts()["topk"]
+    cand = np.nonzero((want_h == want_h[0][None, :]).any(axis=1))[0]
+    inter = np.bincount(np.repeat(np.arange(LSH_ROWS), lengths),
+                        weights=np.isin(flat, key_set), minlength=LSH_ROWS)
+    inter = inter.astype(np.int64)[cand]
+    dists = 1.0 - inter / (lengths[cand] + key_set.size - inter)
+    order = np.argsort(dists, kind="stable")[:LSH_K]
+    if not (np.array_equal(nn.column("id"), cand[order])
+            and np.array_equal(nn.column("distCol"), dists[order])):
+        fail("lsh: approx_nearest_neighbors differs from the stable argsort")
+    if launches != 1:
+        fail(f"lsh: topk launched {launches} times in one query")
+    neg = torch.from_numpy(-dists).cuda()
+    topk_ms = timer(lambda: top_k(neg, min(LSH_K, dists.size)))
+
+    n = LSH_JOIN_ROWS
+    ta = fml.Table({"features": rows[:n]})
+    tb = fml.Table({"features": rows[n:2 * n]})
+    t0 = time.perf_counter()
+    join = model.approx_similarity_join(ta, tb, LSH_THRESHOLD)
+    join_s = time.perf_counter() - t0
+    dense = np.zeros((2 * n, LSH_DIM), dtype=np.float32)   # exact counts
+    dense[np.repeat(np.arange(2 * n), lengths[:2 * n]),
+          flat[:indptr[2 * n]]] = 1.0
+    inter2 = (dense[:n] @ dense[n:].T).astype(np.int64)
+    union2 = lengths[:n, None] + lengths[None, n:2 * n] - inter2
+    d2 = 1.0 - inter2 / union2
+    shared = (want_h[:n, None, :] == want_h[None, n:2 * n, :]).any(axis=2)
+    ia, ib = np.nonzero(shared & (d2 <= LSH_THRESHOLD))
+    want_join = sorted(zip(ia.tolist(), ib.tolist(), d2[ia, ib].tolist()))
+    got_join = sorted(zip(join.column("idA").tolist(),
+                          join.column("idB").tolist(),
+                          join.column("distCol").tolist()))
+    if got_join != want_join or not got_join:
+        fail(f"lsh: join has {len(got_join)} pairs, numpy {len(want_join)}")
+    rec = {"path": "minhash_lsh", "rows": LSH_ROWS, "dim": LSH_DIM,
+           "nnz": SPMV_NNZ, "tables": LSH_TABLES, "transform_s": transform_s,
+           "transform_rows_per_s": LSH_ROWS / transform_s,
+           "ann_k": LSH_K, "ann_candidates": int(cand.size), "ann_s": ann_s,
+           "ann_topk_ms": topk_ms,
+           "ann_host_s": ann_s - topk_ms / 1e3, "topk_launches": launches,
+           "join_rows": [n, n], "join_threshold": LSH_THRESHOLD,
+           "join_pairs": len(got_join), "join_s": join_s}
+    log("path " + json.dumps(rec))
+    return launches
+
+
+# -- phase 9: KMeans fits -----------------------------------------------------------
+
+# (rows, d, k, iterations): bench.py's kmeans_mnist and kmeans cells.
+KMEANS_CELLS = ((65_536, 784, 10, 100), (262_144, 128, 64, 100))
+BISECT_K = 8
+
+
+def numpy_lloyd(x, centroids, max_iter):
+    """Float64 numpy Lloyd steps (empty clusters keep their centroid).
+    Once an assignment repeats, every later step reproduces the same
+    centroids, so the loop stops there."""
+    x = x.astype(np.float64)
+    c = centroids.astype(np.float64)
+    x2 = (x * x).sum(1)[:, None]
+    prev = None
+    for _ in range(max_iter):
+        assign = np.argmin(x2 - 2.0 * (x @ c.T) + (c * c).sum(1)[None, :],
+                           axis=1)
+        if prev is not None and np.array_equal(assign, prev):
+            break
+        prev = assign
+        onehot = np.zeros((x.shape[0], c.shape[0]))
+        onehot[np.arange(x.shape[0]), assign] = 1.0
+        counts = onehot.sum(0)
+        sums = onehot.T @ x
+        c = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1.0)[:, None],
+                     c)
+    return c
+
+
+def inertia(x, c):
+    """Sum of squared distances to the nearest centroid, in float64."""
+    x = x.astype(np.float64)
+    d2 = (x * x).sum(1)[:, None] - 2.0 * (x @ c.T) + (c * c).sum(1)[None, :]
+    return float(np.maximum(d2.min(axis=1), 0.0).sum())
+
+
+def kmeans_blobs(n, d, k, seed):
+    """Float32 points (unit noise) around k centres 1,000 apart on each
+    axis's scale: no point lies near a boundary between blobs, so two
+    float32 runs that sum in different orders split the blobs alike."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(k, d)) * 1000.0
+    labels = rng.integers(0, k, size=n)
+    return (centres[labels] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+def kmeans_path(torch):
+    """``KMeans(k, maxIter=100).fit`` (random init, seed 0) at the bench's
+    two shapes and on its data (standard normal float32): timed in float32,
+    with the device loop timed alone; Lloyd's objective must fall from the
+    init. The same fit on the same points in float64 is held against a
+    float64 numpy Lloyd run from the same init (rtol 1e-4): a float32 run
+    on points without cluster structure has points within rounding of a
+    boundary, and one flip sends it down another path, so float32 is not
+    compared with float64 step for step. Then ``BisectingKMeans(k=8)`` on
+    MNIST-width blobs against the CPU port on the same data (equal
+    predictions, centroids within 1e-10)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import kmeans as km
+
+    recs = []
+    for n, d, k, iters in KMEANS_CELLS:
+        x = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+        est = fml.KMeans().set_k(k).set_max_iter(iters).set_seed(0)
+        table = fml.Table({"features": x})
+        first_s, fit_s, model = timed_calls(torch, lambda: est.fit(table),
+                                            calls=2)
+        start = km.init_centroids(x, k, 0)
+        got = model.centroids
+        if got.shape != (k, d) or not np.isfinite(got).all():
+            fail(f"kmeans {n}x{d} k={k}: centroids shape {got.shape} or "
+                 "non-finite")
+        before, after = inertia(x, start), inertia(x, got)
+        if not after < before:
+            fail(f"kmeans {n}x{d} k={k}: inertia {after} not below the "
+                 f"init's {before}")
+        xd, wd, _ = km.prepare_kmeans_data(x)
+        c0 = torch.from_numpy(start).cuda()
+        _, loop_s, _ = timed_calls(torch, lambda: km.lloyd(xd, wd, c0, iters),
+                                   calls=2)
+        share = device_share(torch, lambda: km.lloyd(xd, wd, c0, iters))
+        del xd, wd
+
+        x64 = x.astype(np.float64)
+        t0 = time.perf_counter()
+        got64 = est.fit(fml.Table({"features": x64})).centroids
+        fit64_s = time.perf_counter() - t0
+        want = numpy_lloyd(x64, km.init_centroids(x64, k, 0), iters)
+        err = float(np.abs(got64 - want).max())
+        if not np.allclose(got64, want, rtol=1e-4, atol=1e-4):
+            fail(f"kmeans {n}x{d} k={k} float64: centroids differ from "
+                 f"numpy by {err}")
+        rec = {"path": "kmeans_fit", "rows": n, "d": d, "k": k,
+               "iterations": iters, "dtype": "float32", "init_mode": "random",
+               "first_fit_s": first_s, "fit_s": fit_s,
+               "points_per_s": n * iters / fit_s, "device_loop_s": loop_s,
+               "device_loop_points_per_s": n * iters / loop_s,
+               "host_s": fit_s - loop_s, "device_share": share,
+               "inertia_init": before, "inertia_fit": after,
+               "float64_fit_s": fit64_s,
+               "float64_max_abs_centroid_err": err}
+        log("path " + json.dumps(rec))
+        recs.append(rec)
+
+    n, d, _, _ = KMEANS_CELLS[0]
+    x = kmeans_blobs(n, d, 10, seed=13)
+    table = fml.Table({"features": x})
+    est = fml.BisectingKMeans().set_k(BISECT_K).set_seed(0)
+    t0 = time.perf_counter()
+    gpu = est.fit(table)
+    (pg,) = gpu.transform(table)
+    gpu_s = time.perf_counter() - t0
+    with fml.use_device("cpu"):
+        cpu = est.fit(table)
+        (pc,) = cpu.transform(table)
+    if gpu.centroids.shape != (BISECT_K, d) or not np.array_equal(
+            pg.column("prediction"), pc.column("prediction")) or \
+            not np.allclose(gpu.centroids, cpu.centroids, rtol=1e-10,
+                            atol=1e-10):
+        fail("bisecting kmeans: the card's fit differs from the CPU port's")
+    rec = {"path": "bisecting_kmeans_fit", "rows": n, "d": d, "k": BISECT_K,
+           "fit_and_transform_s": gpu_s,
+           "max_abs_centroid_err_vs_cpu": float(
+               np.abs(gpu.centroids - cpu.centroids).max())}
+    log("path " + json.dumps(rec))
+    return recs
+
+
 def device_share(torch, fn):
-    """Share of ``fn``'s wall time during which the card ran kernels, from
-    ``torch.profiler`` (None when the profiler reports no device time)."""
+    """Share of ``fn``'s wall time during which the card ran kernels or
+    copies: the device events' self time from ``torch.profiler`` (None when
+    the profiler reports no device time)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -772,8 +1201,11 @@ def device_share(torch, fn):
         return None
     busy_us = 0.0
     for e in prof.key_averages():
-        busy_us += getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
+        # Host ops also carry the device time of the kernels they launch;
+        # count each device event once, on the device's own rows.
+        if e.device_type == DeviceType.CUDA:
+            busy_us += getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
     return busy_us / wall_us if busy_us > 0 else None
 
 
@@ -806,7 +1238,7 @@ def main() -> int:
     chain_rec = chain_phase(torch, timer, "float64", 1e-12, 1e-12)
     chain_phase(torch, timer, "float32", 1e-5, 1e-6)
     segsum_rec = segsum_phase(torch, timer)
-    del timer
+    topk_rec = topk_phase(torch, timer)
 
     serve_spmv = sparse_path(torch)
     chain_rec["launches"] = dense_path(torch)
@@ -814,12 +1246,15 @@ def main() -> int:
     fit_counts = sparse_fit_path(torch)
     spmv_rec["launches"] = serve_spmv + fit_counts["spmv"]
     segsum_rec["launches"] = fit_counts["segment_sum"]
+    topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
+    del timer
+    kmeans_path(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (spmv_rec, chain_rec,
-                                            segsum_rec)]}))
+                                  for r in (spmv_rec, chain_rec, segsum_rec,
+                                            topk_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,13 @@ the caller asks for the CPU (:func:`use_device` /
 :func:`set_default_device`); the hot loops are hand-written CUDA kernels
 for Hopper (:mod:`flinkml_tpu_torch.kernels`).
 
-Ported so far (LogisticRegression, served and trained): tables, params,
-persistence, ``Pipeline``/``PipelineModel`` with the fused executor, the
-four scalers (fit + transform), ``LogisticRegression`` (binomial fit on
-one device, dense and sparse) and ``LogisticRegressionModel`` (binomial,
-dense and sparse transform), and the ``fused_chain``, ``spmv`` and
-``segment_sum`` kernels.
+Ported so far: tables, params, persistence, ``Pipeline``/``PipelineModel``
+with the fused executor, the four scalers (fit + transform),
+``LogisticRegression`` (binomial fit on one device, dense and sparse) and
+``LogisticRegressionModel`` (binomial, dense and sparse transform),
+``Knn``, ``MinHashLSH``, ``KMeans`` (batch fit on one device) and
+``BisectingKMeans`` with their models, and all four kernels:
+``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401
@@ -45,10 +46,18 @@ from flinkml_tpu_torch.linalg import (  # noqa: F401
     Vectors,
 )
 from flinkml_tpu_torch.models import (  # noqa: F401
+    BisectingKMeans,
+    BisectingKMeansModel,
+    KMeans,
+    KMeansModel,
+    Knn,
+    KnnModel,
     LogisticRegression,
     LogisticRegressionModel,
     MaxAbsScaler,
     MaxAbsScalerModel,
+    MinHashLSH,
+    MinHashLSHModel,
     MinMaxScaler,
     MinMaxScalerModel,
     RobustScaler,
@@ -63,14 +72,22 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AlgoOperator",
+    "BisectingKMeans",
+    "BisectingKMeansModel",
     "ColumnKernel",
     "DenseVector",
     "Estimator",
+    "KMeans",
+    "KMeansModel",
     "KernelUnsupportedError",
+    "Knn",
+    "KnnModel",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
+    "MinHashLSH",
+    "MinHashLSHModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
     "Model",

@@ -8,14 +8,17 @@ The port's counterpart of ``flinkml_tpu.kernels``. Ported so far:
   (:mod:`flinkml_tpu_torch.kernels.chain`, ``csrc/chain.cu``);
 - ``segment_sum`` — the sparse gradient scatter-accumulate, unsorted
   (atomic) and sorted (run-flush) (:mod:`flinkml_tpu_torch.kernels.segsum`,
-  ``csrc/segsum.cu``).
+  ``csrc/segsum.cu``);
+- ``topk`` — the row-wise top-k behind KNN voting and LSH ranking
+  (:mod:`flinkml_tpu_torch.kernels.topk`, ``csrc/topk.cu``).
 
-``topk`` is still to be ported. Every wrapper
+Every kernel site of the JAX package is ported. Every wrapper
 computes its plain PyTorch version for CPU tensors and launches its kernel
 for CUDA tensors, or raises :class:`KernelUnsupportedError`; each counts
 its launches (:func:`launch_counts`). The submodules keep their names
 (``kernels.spmv.spmv`` is the wrapper, ``kernels.chain.fused_chain`` the
-chain's, ``kernels.segsum.segment_sum`` the scatter's). Kernels build with ``nvcc`` at first
+chain's, ``kernels.segsum.segment_sum`` the scatter's,
+``kernels.topk.top_k`` the selection's). Kernels build with ``nvcc`` at first
 use (:mod:`flinkml_tpu_torch.kernels._build`).
 """
 
@@ -26,7 +29,7 @@ from flinkml_tpu_torch.kernels._gate import (  # noqa: F401
     reset_launch_counts,
 )
 # The kernel modules register their launch counters on import.
-from flinkml_tpu_torch.kernels import chain, segsum, spmv  # noqa: F401,E402
+from flinkml_tpu_torch.kernels import chain, segsum, spmv, topk  # noqa: F401,E402
 
 __all__ = [
     "SITES",
@@ -36,4 +39,5 @@ __all__ = [
     "reset_launch_counts",
     "segsum",
     "spmv",
+    "topk",
 ]

@@ -18,9 +18,8 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-#: The four kernel sites of the JAX package (one per hot inner loop).
-#: ``spmv``, ``fused_chain`` and ``segment_sum`` are ported; ``topk`` is
-#: still to be ported.
+#: The four kernel sites of the JAX package (one per hot inner loop), all
+#: ported: ``spmv``, ``fused_chain``, ``segment_sum`` and ``topk``.
 SITES = ("fused_chain", "segment_sum", "spmv", "topk")
 
 

@@ -1,10 +1,18 @@
-"""Stages of the model catalog ported so far: the four scalers and
-LogisticRegression (estimator and model)."""
+"""Stages of the model catalog ported so far: the four scalers,
+LogisticRegression, Knn, MinHashLSH, KMeans (batch fit) and
+BisectingKMeans (estimators and models)."""
 
+from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
+    BisectingKMeans,
+    BisectingKMeansModel,
+)
+from flinkml_tpu_torch.models.kmeans import KMeans, KMeansModel  # noqa: F401
+from flinkml_tpu_torch.models.knn import Knn, KnnModel  # noqa: F401
 from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegression,
     LogisticRegressionModel,
 )
+from flinkml_tpu_torch.models.lsh import MinHashLSH, MinHashLSHModel  # noqa: F401
 from flinkml_tpu_torch.models.scalers import (  # noqa: F401
     MaxAbsScaler,
     MaxAbsScalerModel,
@@ -17,10 +25,18 @@ from flinkml_tpu_torch.models.scalers import (  # noqa: F401
 )
 
 __all__ = [
+    "BisectingKMeans",
+    "BisectingKMeansModel",
+    "KMeans",
+    "KMeansModel",
+    "Knn",
+    "KnnModel",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
+    "MinHashLSH",
+    "MinHashLSHModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
     "RobustScaler",

@@ -1,0 +1,206 @@
+"""MinHashLSH — Jaccard-similarity locality-sensitive hashing.
+
+The port's counterpart of ``flinkml_tpu.models.lsh`` (the upstream
+operator). Hash family: ``h_i(x) = min over active indices j of
+((a_i·(j+1) + b_i) mod PRIME)`` with Spark's ``PRIME = 2038074743``;
+``numHashTables`` independent hashes trade recall for work. The fit draws
+``a`` and ``b`` with the JAX package's ``np.random.default_rng(seed)``
+calls, so both packages hash alike from one seed.
+
+- ``approx_nearest_neighbors(dataset, key, k)``: candidates are rows
+  sharing at least one hash value with the key; exact Jaccard distance
+  ranks them with ``top_k(-dists, k)`` in float64 on the compute device
+  (the CUDA ``topk`` kernel on the card): ascending distance, ties toward
+  the lower candidate index — the order of a stable host argsort.
+- ``approx_similarity_join(a, b, threshold)``: candidate pairs bucket-join
+  on (table, hash value), then exact distance filters.
+
+Active-index extraction, hashing, candidate selection, Jaccard distances
+and the join are host numpy, as in the JAX package: integer arithmetic over
+ragged index sets.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from flinkml_tpu_torch.api import Estimator, Model
+from flinkml_tpu_torch.common_params import HasInputCol, HasOutputCol, HasSeed
+from flinkml_tpu_torch.device import default_device
+from flinkml_tpu_torch.kernels.topk import top_k
+from flinkml_tpu_torch.linalg import SparseVector
+from flinkml_tpu_torch.params import IntParam, ParamValidators
+from flinkml_tpu_torch.table import Table
+
+PRIME = 2038074743  # Spark's MinHash prime
+
+
+def _active_indices(col: np.ndarray) -> List[np.ndarray]:
+    """Per-row sorted active (nonzero) index arrays from a SparseVector
+    object column or a dense [n, d] 0/1 matrix."""
+    if col.dtype == object:
+        rows = []
+        for v in col:
+            if isinstance(v, SparseVector):
+                rows.append(v.indices[v.values != 0])
+            else:
+                arr = np.asarray(v, dtype=np.float64)
+                rows.append(np.nonzero(arr)[0])
+        return rows
+    x = np.asarray(col, dtype=np.float64)
+    if x.ndim != 2:
+        raise ValueError(f"LSH input must be [n, d] or SparseVectors, got {x.shape}")
+    return [np.nonzero(row)[0] for row in x]
+
+
+def _jaccard_distance(a: np.ndarray, b: np.ndarray) -> float:
+    if len(a) == 0 and len(b) == 0:
+        return 1.0
+    inter = len(np.intersect1d(a, b, assume_unique=True))
+    union = len(a) + len(b) - inter
+    return 1.0 - inter / union
+
+
+class MinHashLSH(HasInputCol, HasOutputCol, HasSeed, Estimator):
+    NUM_HASH_TABLES = IntParam(
+        "numHashTables", "Number of independent hash functions.", 1,
+        ParamValidators.gt(0),
+    )
+
+    def fit(self, *inputs: Table) -> "MinHashLSHModel":
+        (table,) = inputs  # fit only draws the hash family (data-free)
+        rng = np.random.default_rng(self.get_seed())
+        n_tables = self.get(self.NUM_HASH_TABLES)
+        a = rng.integers(1, PRIME, size=n_tables, dtype=np.int64)
+        b = rng.integers(0, PRIME, size=n_tables, dtype=np.int64)
+        model = MinHashLSHModel()
+        model.copy_params_from(self)
+        model.set_model_data(Table({"a": a[None, :], "b": b[None, :]}))
+        return model
+
+
+class MinHashLSHModel(HasInputCol, HasOutputCol, HasSeed, Model):
+    NUM_HASH_TABLES = MinHashLSH.NUM_HASH_TABLES
+
+    def __init__(self):
+        super().__init__()
+        self._a: Optional[np.ndarray] = None
+        self._b: Optional[np.ndarray] = None
+
+    def set_model_data(self, *inputs: Table) -> "MinHashLSHModel":
+        (table,) = inputs
+        self._a = np.asarray(table.column("a"), np.int64)[0]
+        self._b = np.asarray(table.column("b"), np.int64)[0]
+        return self
+
+    def get_model_data(self) -> List[Table]:
+        self._require()
+        return [Table({"a": self._a[None, :], "b": self._b[None, :]})]
+
+    def _arrays(self) -> Dict[str, np.ndarray]:
+        self._require()
+        return {"a": self._a, "b": self._b}
+
+    def _set_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
+        self._a = np.asarray(arrays["a"], np.int64)
+        self._b = np.asarray(arrays["b"], np.int64)
+
+    def _require(self) -> None:
+        if self._a is None:
+            raise ValueError("Model data is not set; fit or set_model_data first")
+
+    def _hash_rows(self, rows: List[np.ndarray]) -> np.ndarray:
+        """[n, numHashTables] min-hash values; empty rows hash to PRIME.
+
+        One vectorized pass over the concatenated index sets:
+        ``minimum.reduceat`` over row offsets replaces a per-row loop.
+        """
+        out = np.full((len(rows), len(self._a)), PRIME, dtype=np.int64)
+        lengths = np.asarray([len(r) for r in rows])
+        nonempty = np.nonzero(lengths)[0]
+        if len(nonempty) == 0:
+            return out
+        flat = np.concatenate([rows[i] for i in nonempty]).astype(np.int64)
+        h = (self._a[None, :] * (flat[:, None] + 1) + self._b[None, :]) % PRIME
+        offsets = np.concatenate([[0], np.cumsum(lengths[nonempty])[:-1]])
+        out[nonempty] = np.minimum.reduceat(h, offsets, axis=0)
+        return out
+
+    def transform(self, *inputs: Table) -> Tuple[Table, ...]:
+        (table,) = inputs
+        self._require()
+        rows = _active_indices(table.column(self.get(self.INPUT_COL)))
+        return (
+            table.with_column(
+                self.get(self.OUTPUT_COL),
+                self._hash_rows(rows).astype(np.float64),
+            ),
+        )
+
+    # -- query surfaces ------------------------------------------------------
+    def approx_nearest_neighbors(
+        self, dataset: Table, key, k: int,
+        dist_col: str = "distCol",
+    ) -> Table:
+        """Top-``k`` rows of ``dataset`` by Jaccard distance to ``key``,
+        restricted to rows sharing ≥1 hash value with it, ranked by
+        ``top_k(-dists, k)`` in float64 (ascending distance, ties toward
+        the lower candidate index)."""
+        self._require()
+        rows = _active_indices(dataset.column(self.get(self.INPUT_COL)))
+        hashes = self._hash_rows(rows)
+        if isinstance(key, SparseVector):
+            key_idx = key.indices[key.values != 0]
+        else:
+            key_idx = np.nonzero(np.asarray(key, dtype=np.float64))[0]
+        key_hash = self._hash_rows([key_idx])[0]
+        candidates = np.nonzero((hashes == key_hash[None, :]).any(axis=1))[0]
+        dists = np.asarray([
+            _jaccard_distance(rows[i], key_idx) for i in candidates
+        ], dtype=np.float64)
+        k_eff = min(int(k), dists.size)
+        if k_eff == 0:
+            order = np.zeros(0, dtype=np.int64)
+        else:
+            neg = torch.from_numpy(-dists).to(default_device())
+            _, order = top_k(neg, k_eff)
+            order = order.cpu().numpy().astype(np.int64)
+        picked = candidates[order]
+        return dataset.take(picked).with_column(dist_col, dists[order])
+
+    def approx_similarity_join(
+        self, table_a: Table, table_b: Table, threshold: float,
+        dist_col: str = "distCol",
+    ) -> Table:
+        """Pairs (idA, idB, distance) with Jaccard distance ≤ threshold,
+        restricted to pairs sharing a hash bucket."""
+        self._require()
+        rows_a = _active_indices(table_a.column(self.get(self.INPUT_COL)))
+        rows_b = _active_indices(table_b.column(self.get(self.INPUT_COL)))
+        ha = self._hash_rows(rows_a)
+        hb = self._hash_rows(rows_b)
+        buckets: Dict[Tuple[int, int], List[int]] = {}
+        for i, row in enumerate(hb):
+            for t, h in enumerate(row):
+                buckets.setdefault((t, int(h)), []).append(i)
+        seen: Set[Tuple[int, int]] = set()
+        ids_a, ids_b, dists = [], [], []
+        for i, row in enumerate(ha):
+            for t, h in enumerate(row):
+                for j in buckets.get((t, int(h)), ()):
+                    if (i, j) in seen:
+                        continue
+                    seen.add((i, j))
+                    d = _jaccard_distance(rows_a[i], rows_b[j])
+                    if d <= threshold:
+                        ids_a.append(i)
+                        ids_b.append(j)
+                        dists.append(d)
+        return Table({
+            "idA": np.asarray(ids_a, dtype=np.int64),
+            "idB": np.asarray(ids_b, dtype=np.int64),
+            dist_col: np.asarray(dists, dtype=np.float64),
+        })

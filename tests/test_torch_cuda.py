@@ -18,7 +18,9 @@ from flinkml_tpu_torch import pipeline_fusion
 from flinkml_tpu_torch.kernels import chain as kchain
 from flinkml_tpu_torch.kernels import segsum as ksegsum
 from flinkml_tpu_torch.kernels import spmv as kspmv
+from flinkml_tpu_torch.kernels import topk as ktopk
 from flinkml_tpu_torch.models import _linear_sgd
+from flinkml_tpu_torch.models import kmeans as _kmeans
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +223,88 @@ def test_sparse_fit_on_card_matches_cpu(cuda_device, layout):
     with fml.use_device("cpu"):
         cpu = _linear_sgd.train_linear_model_sparse_csr(*args, layout=layout)
     np.testing.assert_allclose(gpu, cpu, rtol=1e-5, atol=1e-6)
+
+
+def _topk_rows(shape, seed=0):
+    """Integer values (duplicates), +0/-0, an all--inf run, NaN of both
+    signs, a constant run, ascending and descending runs: nine such rows,
+    flattened and cut to ``shape``."""
+    n = -(-int(np.prod(shape)) // 9)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, size=(9, n)).astype(np.float64)
+    x[0, ::2], x[0, 1::2] = 0.0, -0.0
+    x[1] = -np.inf
+    x[2, ::5] = np.nan
+    x[2, 1::7] = -np.nan
+    x[3] = 1.5
+    x[4] = np.arange(n)
+    x[5] = -np.arange(n)
+    return x.reshape(-1)[:int(np.prod(shape))].reshape(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5, 64, 128])
+@pytest.mark.parametrize("shape", [(9, 300), (300,), (3, 70_000),
+                                   (200_000,)])
+def test_topk_kernel_matches_plain_bitwise(cuda_device, dtype, k, shape):
+    host = _topk_rows(shape, seed=k)
+    rows = 1 if len(shape) == 1 else shape[0]
+    assert (ktopk.segments(rows, shape[-1], k) > 1) == (shape[-1] >= 70_000)
+    x = torch.from_numpy(host).to(cuda_device, dtype)
+    before = ktopk.LAUNCHES.count
+    got_v, got_i = ktopk.top_k(x, k)
+    torch.cuda.synchronize()
+    assert ktopk.LAUNCHES.count == before + 1
+    want_v, want_i = ktopk.top_k_plain(x, k)
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(view), want_v.view(view))
+
+
+def test_topk_kernel_refusals(cuda_device):
+    x = torch.zeros(4, 300, device=cuda_device)
+    for bad, k in ((x.int(), 5), (x.half(), 5), (x, 129), (x, 0),
+                   (x[:, :3], 4), (x[None], 5)):
+        with pytest.raises(fml.KernelUnsupportedError):
+            ktopk.top_k(bad, k)
+
+
+def test_knn_on_card_matches_cpu(cuda_device, monkeypatch):
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 4, size=(3000, 16)).astype(np.float32)
+    y = rng.integers(0, 5, size=3000).astype(np.float64)
+    q = fml.Table({"features": rng.integers(0, 4, size=(900, 16))
+                   .astype(np.float32)})
+    model = fml.Knn().set_k(7).fit(fml.Table({"features": x, "label": y}))
+    monkeypatch.setattr(fml.KnnModel, "CHUNK", 256)
+    fml.reset_launch_counts()
+    with fml.use_device(cuda_device):
+        (gpu,) = model.transform(q)
+    assert fml.launch_counts()["topk"] == 4
+    with fml.use_device("cpu"):
+        (cpu,) = model.transform(q)
+    np.testing.assert_array_equal(gpu.column("prediction"),
+                                  cpu.column("prediction"))
+
+
+def test_kmeans_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(6, 8)) * 10.0
+    x = np.concatenate([rng.normal(size=(500, 8)) + c for c in centers])
+    table = fml.Table({"features": x})
+    est = fml.KMeans().set_k(6).set_max_iter(15).set_seed(3)
+    with fml.use_device(cuda_device):
+        gpu = est.fit(table)
+        (pg,) = gpu.transform(table)
+        bis = fml.BisectingKMeans().set_k(4).set_seed(1).fit(table)
+    with fml.use_device("cpu"):
+        cpu = est.fit(table)
+        (pc,) = cpu.transform(table)
+        bis_cpu = fml.BisectingKMeans().set_k(4).set_seed(1).fit(table)
+    np.testing.assert_allclose(gpu.centroids, cpu.centroids, rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_array_equal(pg.column("prediction"),
+                                  pc.column("prediction"))
+    np.testing.assert_allclose(bis.centroids, bis_cpu.centroids, rtol=1e-10,
+                               atol=1e-10)
+    assert _kmeans.KMeansModel().transform_kernel() is None

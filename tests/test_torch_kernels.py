@@ -4,24 +4,31 @@ through the Pallas kernel in interpret mode; the host side of the CUDA
 ``fused_chain`` (chain plans, refusals, the packed constant table — held
 against the plain chain by a numpy model of the kernel's arithmetic); the
 CUDA ``segment_sum``'s sorted run-flush, held bit for bit against the
-Pallas kernel by a Python model of its chunking; the build module. The CUDA kernels themselves are held against their plain
-versions on the card by ``tests/test_torch_cuda.py``."""
+Pallas kernel by a Python model of its chunking; ``top_k_plain`` bit for
+bit against ``jax.lax.top_k`` and, away from signed zeros, the Pallas
+``pallas_top_k`` in interpret mode; the build module. The CUDA kernels
+themselves are held against their plain versions on the card by
+``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import flinkml_tpu_torch as fml
 from flinkml_tpu import kernels as jax_kernels
+from flinkml_tpu.kernels.topk import pallas_top_k
 from flinkml_tpu_torch.api import ColumnKernel
 from flinkml_tpu_torch.kernels import _build, _gate
 from flinkml_tpu_torch.kernels import chain as kchain
 from flinkml_tpu_torch.kernels import segsum as ksegsum
 from flinkml_tpu_torch.kernels import spmv as kspmv
+from flinkml_tpu_torch.kernels import topk as ktopk
 from tests._torch_port_common import (  # noqa: F401
     F32_ATOL,
     F32_RTOL,
@@ -372,10 +379,123 @@ def test_segment_sum_unsorted_refused_in_deterministic_mode():
     assert 'layout="sorted"' in reason and "deterministic" in reason
 
 
+# -- topk --------------------------------------------------------------------------
+
+NEG_NAN = np.frombuffer(np.array([0xFFF8000000000000], np.uint64).tobytes(),
+                        np.float64)[0]
+
+
+def _topk_rows(dtype, n=150, seed=0, signed=True):
+    """Rows that pin the order: integer values (many duplicates), an
+    all--inf row, a row with -inf in most places, NaN, a constant row,
+    ascending and descending rows, and (``signed``) +0/-0 and -NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 6, size=(8, n)).astype(dtype)
+    if signed:
+        x[0, ::3], x[0, 1::3] = 0.0, -0.0
+    x[1] = -np.inf
+    x[2, :-7] = -np.inf
+    x[3, ::4] = np.nan
+    if signed:
+        x[3, 2::9] = NEG_NAN
+    x[4] = 2.5
+    x[5] = np.arange(1, n + 1)
+    x[6] = -np.arange(1, n + 1)
+    return x
+
+
+def _same_bits(got, want) -> bool:
+    return np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("k", [1, 7, 128, 150])
+def test_top_k_plain_matches_lax_top_k(dtype, rank, k):
+    """top_k_plain vs ``jax.lax.top_k`` (the JAX package's default
+    backend): values and indices bit for bit, ±0 and NaN included."""
+    x = _topk_rows(dtype, seed=k)
+    for row in ([x] if rank == 2 else list(x)):
+        want_v, want_i = jax.lax.top_k(jnp.asarray(row), k)
+        got_v, got_i = ktopk.top_k(torch.from_numpy(row), k)
+        assert got_i.dtype == torch.int32
+        assert got_v.dtype == torch.from_numpy(row).dtype
+        assert _same_bits(got_v.numpy(), want_v)
+        assert _same_bits(got_i.numpy(), want_i)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 6, 128])
+def test_top_k_plain_matches_pallas_away_from_signed_zeros(dtype, k):
+    """top_k_plain vs ``pallas_top_k`` in interpret mode, bit for bit on
+    rows without zeros or -NaN (the Pallas kernel's max ranks +0 and -0
+    as equal, and -NaN as NaN)."""
+    x = _topk_rows(dtype, seed=k + 1, signed=False)
+    x = np.concatenate([x, np.random.default_rng(k).normal(size=(5, 150))
+                        .astype(dtype)])
+    want_v, want_i = pallas_top_k(jnp.asarray(x), k, interpret=True)
+    got_v, got_i = ktopk.top_k(torch.from_numpy(x), k)
+    assert _same_bits(got_v.numpy(), want_v)
+    assert _same_bits(got_i.numpy(), want_i)
+
+
+def test_top_k_signed_zero_follows_lax_top_k():
+    """+0 ranks above -0 as in ``lax.top_k``; the Pallas kernel ties them
+    (a fault of the reference: its docstring promises lax.top_k's order)."""
+    row = np.array([0.0, -0.0, 1.0, np.nan, 1.0, -np.inf, 0.0, -0.0],
+                   np.float32)
+    got_v, got_i = ktopk.top_k(torch.from_numpy(row), 6)
+    want_v, want_i = jax.lax.top_k(jnp.asarray(row), 6)
+    assert got_i.tolist() == [3, 2, 4, 0, 6, 1] == np.asarray(want_i).tolist()
+    assert _same_bits(got_v.numpy(), want_v)
+    assert np.signbit(got_v.numpy()).tolist() == [False] * 5 + [True]
+    _, pallas_i = pallas_top_k(jnp.asarray(row), 6, interpret=True)
+    assert np.asarray(pallas_i).tolist() == [3, 2, 4, 0, 1, 6]
+
+
+def test_top_k_order_keys_are_total_order():
+    vals = np.array([NEG_NAN, -np.inf, -1.0, -0.0, 0.0, 1e-300, 1.0, np.inf,
+                     np.nan])
+    keys = ktopk.order_keys(torch.from_numpy(vals))
+    assert bool(torch.all(keys[1:] > keys[:-1]))
+    keys32 = ktopk.order_keys(torch.from_numpy(vals.astype(np.float32)))
+    assert keys32.dtype == torch.int32
+    assert bool(torch.all(keys32[1:] >= keys32[:-1]))
+
+
+def test_top_k_unsupported_reasons():
+    x = torch.zeros(4, 200)
+    assert ktopk.unsupported_reason(x, 5) is None
+    assert ktopk.unsupported_reason(x.double(), 128) is None
+    assert "not supported" in ktopk.unsupported_reason(x.int(), 5)
+    assert "not supported" in ktopk.unsupported_reason(x.bfloat16(), 5)
+    assert "outside" in ktopk.unsupported_reason(x, 0)
+    assert "outside" in ktopk.unsupported_reason(x[:, :3], 4)
+    assert "ceiling of 128" in ktopk.unsupported_reason(x, 129)
+    assert "rank" in ktopk.unsupported_reason(x[None], 5)
+    big = torch.empty(2**31, device="meta")
+    assert "32-bit" in ktopk.unsupported_reason(big, 5)
+    with pytest.raises(fml.KernelUnsupportedError, match="not CUDA"):
+        ktopk.top_k(torch.zeros(10, device="meta"), 3)
+
+
+def test_top_k_plain_domain():
+    """The plain version keeps lax.top_k's domain: any 0 <= k <= n, and
+    only floating operands (the CUDA kernel takes 1 <= k <= 128)."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(3, 300)))
+    v, i = ktopk.top_k(x, 300)
+    assert v.shape == (3, 300) and bool(torch.all(v[:, 1:] <= v[:, :-1]))
+    assert ktopk.top_k(x, 0)[0].shape == (3, 0)
+    with pytest.raises(ValueError, match="outside"):
+        ktopk.top_k(x, 301)
+    with pytest.raises(TypeError, match="floating"):
+        ktopk.top_k(torch.arange(10), 3)
+
+
 # -- build and launch bookkeeping -----------------------------------------------------
 
 def test_build_sources_and_library_names():
-    assert _build.sources() == ["chain", "segsum", "spmv"]
+    assert _build.sources() == ["chain", "segsum", "spmv", "topk"]
     path = _build._library_path("spmv")
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -391,13 +511,14 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 def test_launch_counters_only_count_kernel_launches(on_cpu):
-    assert set(fml.launch_counts()) == {"fused_chain", "segment_sum", "spmv"}
-    assert set(fml.launch_counts()) <= set(_gate.SITES)
+    assert set(fml.launch_counts()) == set(_gate.SITES) == {
+        "fused_chain", "segment_sum", "spmv", "topk"}
     fml.reset_launch_counts()
     idx, val, w = (torch.from_numpy(a) for a in _ell(4, 3, 10, np.float32, 0))
     kspmv.spmv(idx, val, w)   # plain versions: not launches
     ksegsum.segment_sum(val.reshape(-1), idx.reshape(-1), 10)
+    ktopk.top_k(val, 2)
     assert fml.launch_counts() == {"fused_chain": 0, "segment_sum": 0,
-                                   "spmv": 0}
+                                   "spmv": 0, "topk": 0}
     with pytest.raises(ValueError):
         _gate.LaunchCounter("not_a_site")
