@@ -13,17 +13,21 @@ and fails with a non-zero exit if any phase fails:
    ``flinkml_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: each kernel against its plain PyTorch version at the main
    paths' shapes — ``spmv`` at 65,536 and 262,144 rows x 39 slots, dim
-   1e6, float32;
+   1e6, float32 (and at widths 1, 7, 39, 40, 1,000 and 3,000 on bucket
+   views off the 16-byte phase, float32 and float64; the same bits on two
+   launches);
    ``fused_chain`` at 100,000 x 32 in float64 and float32; ``segment_sum``
    at the sparse-fit step (262,144 x 39 cells into 1e6 segments, float32
    and float64, unsorted and sorted) and with a row payload (2^20 cells x
    16 into 65,536 segments); ``topk`` bit for bit against ``top_k_plain``
-   (values and indices) at [4096, 60000] k=5, [1024, 8192] k=16, [256,
-   2048] k=128 (float32), 1-D n=1e6 k=100 (float64) and on adversarial
-   rows (duplicates, +0/-0, -inf-only rows, NaN of both signs), short and
+   (values and indices) at [4096, 60000] k=5, [1024, 8192] k=16 and
+   k=1,024, [256, 2048] k=128 (float32), 1-D n=1e6 k=100 and k=20,000
+   (float64, two bands) and on adversarial rows (duplicates, +0/-0,
+   -inf-only rows, NaN of both signs; k up to the whole row), short and
    split into segments — with CUDA-event times (L2 flushed before each
    launch), the plain version's and the library call's time, and the bound
-   from bytes and operations;
+   from bytes and operations; then the route probe (the same inputs
+   through each of the kernel's routes, timed in turns);
 3. sparse serving path: LogisticRegressionModel (dim 1e6, seeded
    coefficient, built with ``stage_from_arrays``) transforms 65,536
    Criteo-profile SparseVector rows 4 times (a first call, then 3 timed);
@@ -45,8 +49,8 @@ and fails with a non-zero exit if any phase fails:
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
-   float64 numpy brute force; one chunk's product, distances and ``topk``
-   timed apart;
+   float64 numpy brute force, and again with k=200; one chunk's product,
+   distances and ``topk`` timed apart;
 8. LSH path: ``MinHashLSH(numHashTables=5)`` on 65,536 Criteo-profile
    SparseVector rows (39 draws per row over 4,096 columns, so that rows
    overlap), transform, ``approx_nearest_neighbors(k=100)`` (one ``topk``
@@ -63,6 +67,12 @@ Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
 the kernels' JSON summary, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --ab OTHER`` runs none of that: it times ``spmv``
+and ``topk`` through the wrappers of the checkout at OTHER (an unpacked
+``git archive`` of another commit) and of this one, each in its own
+process, in the order OTHER, this, this, OTHER, and prints one JSON line
+per process after the card's line.
 """
 
 from __future__ import annotations
@@ -238,7 +248,10 @@ def spmv_phase(torch, timer, rows=SPMV_ROWS):
     val = torch.from_numpy(values.reshape(rows, SPMV_NNZ)).cuda()
     w = torch.from_numpy(w_host).cuda()
     got = kspmv.spmv(idx, val, w)
+    again = kspmv.spmv(idx, val, w)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"spmv {rows} x {SPMV_NNZ}: two launches differ")
     want = kspmv.spmv_plain(idx, val, w)
     check_close("spmv vs plain", got, want, 1e-5, 1e-5)
     ref = (values.astype(np.float64).reshape(rows, SPMV_NNZ)
@@ -264,6 +277,17 @@ def spmv_phase(torch, timer, rows=SPMV_ROWS):
     ms = timer(lambda: kspmv.spmv(idx, val, w))
     plain_ms = timer(lambda: kspmv.spmv_plain(idx, val, w))
     library_ms = timer(library)
+    # Beside it: the same cells with gathers confined to 2,048 entries of w
+    # (L1-resident: the cell stream's share), and the same number of random
+    # gathers over the same dim with no cell stream (the gathers' floor).
+    local = idx.remainder(2048)
+    local_gather_ms = timer(lambda: kspmv.spmv(local, val, w))
+    del local
+    floor_out = torch.empty(val.numel() // 8 + 1, device="cuda")
+    floor = gather_floor_function()
+    stream = torch.cuda.current_stream().cuda_stream
+    gather_floor_ms = timer(lambda: _build_check(floor(
+        w.data_ptr(), SPMV_DIM, floor_out.data_ptr(), val.numel(), stream)))
     touched = np.unique(indices).size
     n_bytes = idx.numel() * 4 + val.numel() * 4 + touched * 4 + rows * 4
     b_ms, b_by = bound_ms(n_bytes, 2.0 * val.numel(), "float32")
@@ -274,10 +298,102 @@ def spmv_phase(torch, timer, rows=SPMV_ROWS):
         "shape": [rows, SPMV_NNZ, SPMV_DIM], "dtype": "float32",
         "max_abs_err": max_err(got, want), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        "library_call": library_call,
+        "library_call": library_call, "repeatable": True,
+        # Beside the HBM bound: each gather moves one 32-byte L2 sector.
+        "gather_l2_bytes": val.numel() * 32,
+        "local_gather_ms": local_gather_ms, "gather_floor_ms": gather_floor_ms,
     }
     log("kernel " + json.dumps(rec))
     return rec
+
+
+_GATHER_FLOOR = []
+
+
+def gather_floor_function():
+    """``fml_gather_floor`` of ``flinkml_tpu_torch/kernels/probes/
+    gather_floor.cu`` (a measurement probe, built here with the kernels'
+    ``nvcc`` flags): random gathers of w alone."""
+    import ctypes
+
+    from flinkml_tpu_torch.kernels import _build
+
+    if _GATHER_FLOOR:
+        return _GATHER_FLOOR[0]
+    src = os.path.join(os.path.dirname(_build.CSRC_DIR), "probes",
+                       "gather_floor.cu")
+    out = os.path.join(_build.BUILD_DIR, "gather_floor.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(out).fml_gather_floor
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _GATHER_FLOOR.append(fn)
+    return fn
+
+
+def _build_check(code):
+    if code != 0:
+        fail(f"gather floor probe: CUDA error {code}")
+
+
+# Bucket widths the packer's DP picks (ops/sparse.py), and one wider than
+# the kernel's 2,048-cell tile.
+SPMV_WIDTHS = (1, 7, 39, 40, 1000, 3000)
+SPMV_WIDTH_CELLS = 4 << 20
+
+
+def spmv_widths_phase(torch):
+    """``spmv`` at every width on a bucket view that starts one row in (off
+    the 16-byte phase whenever the width is not a multiple of 4), float32
+    and float64, the same bits on two launches. Widths up to 1,000: within
+    rtol/atol 1e-5 of the plain version and of float64 numpy. The width
+    past a tile (3,000 float32 terms a row, whose sums in two orders
+    differ by more than 1e-5): within the summation error bound."""
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+
+    for dtype in ("float32", "float64"):
+        tdt = getattr(torch, dtype)
+        for width in SPMV_WIDTHS:
+            rows = SPMV_WIDTH_CELLS // width + 1
+            rng = np.random.default_rng(width)
+            idx_h = rng.integers(0, SPMV_DIM, size=(rows, width)).astype(np.int32)
+            val_h = rng.normal(size=(rows, width)).astype(dtype)
+            w_h = rng.normal(size=SPMV_DIM).astype(dtype)
+            idx = torch.from_numpy(idx_h).cuda()[1:]
+            val = torch.from_numpy(val_h).cuda()[1:]
+            w = torch.from_numpy(w_h).cuda()
+            got = kspmv.spmv(idx, val, w)
+            again = kspmv.spmv(idx, val, w)
+            torch.cuda.synchronize()
+            label = f"spmv width {width} {dtype}"
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches differ")
+            terms = (val_h[1:].astype(np.float64)
+                     * w_h.astype(np.float64)[idx_h[1:]])
+            ref = torch.from_numpy(terms.sum(axis=1)).cuda()
+            plain = kspmv.spmv_plain(idx, val, w)
+            if width <= 1000:
+                check_close(f"{label} vs plain", got, plain, 1e-5, 1e-5)
+                check_close(f"{label} vs float64 numpy", got, ref, 1e-5, 1e-5)
+                continue
+            # Wider than a tile: a sum of `width` rounded terms, in any
+            # order, is within gamma_width * sum|terms| of the exact sum
+            # (recursive summation's error bound, unit roundoff u).
+            u = float(np.finfo(dtype).eps) / 2
+            gamma = width * u / (1 - width * u)
+            bound = torch.from_numpy(gamma * np.abs(terms).sum(axis=1)).cuda()
+            for name, other, scale in (("float64 numpy", ref, 1.0),
+                                       ("plain", plain.double(), 2.0)):
+                err = (got.double() - other).abs()
+                if not bool(torch.all(err <= scale * bound)):
+                    fail(f"{label} vs {name}: error beyond the summation "
+                         f"bound (max err {float(err.max())})")
+        log(f"spmv widths {list(SPMV_WIDTHS)} {dtype}: equal to plain and "
+            "float64 numpy (1e-5; the summation bound past a tile), "
+            "repeatable")
 
 
 def chain_models(x, coef):
@@ -605,8 +721,19 @@ def segsum_phase(torch, timer):
 TOPK_CASES = (
     (4096, 60_000, 5, "float32", "one KNN chunk at MNIST width"),
     (1024, 8192, 16, "float32", "autotune/search.py:668"),
-    (256, 2048, 128, "float32", "MAX_K"),
+    (256, 2048, 128, "float32", "the Pallas kernel's MAX_K"),
     (None, 1_000_000, 100, "float64", "LSH-shaped 1-D"),
+    (1024, 8192, 1024, "float32", "k past 128, one sort per row"),
+    (None, 1_000_000, 20_000, "float64", "k past one sort: two bands"),
+)
+# (rows, n, k, dtype, routes): the same inputs through each route that
+# takes them, timed in turns, for the rule in kernels/topk.py::route.
+TOPK_ROUTE_CASES = (
+    (4096, 60_000, 5, "float32", ("scan", "radix")),
+    (4096, 60_000, 12, "float32", ("scan", "radix")),
+    (4096, 60_000, 16, "float32", ("scan", "radix")),
+    (1024, 8192, 16, "float32", ("fused", "scan", "radix")),
+    (256, 2048, 32, "float32", ("fused", "radix")),
 )
 
 
@@ -659,10 +786,12 @@ def topk_phase(torch, timer):
             topk_check(torch, x, k, f"adversarial {dtype} k={k}")
         # One long row of the same values: split into segments.
         long = torch.from_numpy(topk_adversarial(dtype).reshape(-1)).cuda()
+        topk_check(torch, x.reshape(-1), x.numel(),
+                   f"adversarial whole {x.numel()}-element row {dtype}")
         long = long.repeat(500)
-        for k in (1, 100, 128):
+        for k in (1, 100, 128, 129, 20_000):
             topk_check(torch, long, k, f"adversarial 1-D {dtype} k={k} "
-                       f"({ktopk.segments(1, long.numel(), k)} segments)")
+                       f"({ktopk.segments(1, long.numel())} segments)")
     rng = np.random.default_rng(9)
     recs = []
     for rows, n, k, dtype, why in TOPK_CASES:
@@ -676,13 +805,14 @@ def topk_phase(torch, timer):
         else:
             host = rng.normal(size=shape).astype(dtype)
         x = torch.from_numpy(host).cuda()
+        r = 1 if rows is None else rows
+        route = ktopk.route(r, n, k, x.element_size())
         got_v, _ = topk_check(torch, x, k, f"{list(shape)} k={k} {dtype}")
         ms = timer(lambda: ktopk.top_k(x, k))
         plain_ms = timer(lambda: ktopk.top_k_plain(x, k))
         library_ms = timer(lambda: torch.topk(x, k, dim=-1))
         lib_v, _ = torch.topk(x, k, dim=-1)
         item = x.element_size()
-        r = 1 if rows is None else rows
         n_bytes = r * n * item + r * k * (item + 4)
         b_ms, b_by = bound_ms(n_bytes, r * n, dtype)
         rec = {
@@ -690,7 +820,7 @@ def topk_phase(torch, timer):
             "source": "flinkml_tpu_torch/kernels/csrc/topk.cu",
             "replaces": "flinkml_tpu/kernels/topk.py:79",
             "shape": list(shape), "k": k, "dtype": dtype, "why": why,
-            "max_abs_err": 0.0,
+            "kernel_route": route, "max_abs_err": 0.0,
             "library_values_equal": bool(torch.equal(lib_v, got_v)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
@@ -698,7 +828,39 @@ def topk_phase(torch, timer):
         }
         log("kernel " + json.dumps(rec))
         recs.append(rec)
+        del x
+    topk_route_probe(torch, timer)
     return recs[0]
+
+
+def topk_route_probe(torch, timer):
+    """Each of TOPK_ROUTE_CASES through every route that takes it, bit for
+    bit against the plain version, timed in turns (forward, then back):
+    the measurements behind the fixed rule in ``kernels/topk.py``."""
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    rng = np.random.default_rng(12)
+    view = {"float32": torch.int32, "float64": torch.int64}
+    for rows, n, k, dtype, routes in TOPK_ROUTE_CASES:
+        host = (-rng.integers(0, 176_401, size=(rows, n)).astype(dtype)
+                if n == 60_000 else rng.normal(size=(rows, n)).astype(dtype))
+        x = torch.from_numpy(host).cuda()
+        want_v, want_i = ktopk.top_k_plain(x, k)
+        times = {r: [] for r in routes}
+        for order in (routes, routes[::-1]):
+            for r in order:
+                got_v, got_i = ktopk.launch(x, k, r)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_i, want_i) and torch.equal(
+                        got_v.view(view[dtype]), want_v.view(view[dtype]))):
+                    fail(f"topk route {r} [{rows}, {n}] k={k}: differs "
+                         "from the plain version")
+                times[r].append(timer(lambda: ktopk.launch(x, k, r)))
+        rec = {"shape": [rows, n], "k": k, "dtype": dtype,
+               "rule": ktopk.route(rows, n, k, x.element_size()),
+               "ms": times}
+        log("topk_route " + json.dumps(rec))
+        del x, want_v, want_i
 
 
 # -- phase 5: dense fit path --------------------------------------------------------
@@ -880,6 +1042,7 @@ def sparse_fit_path(torch):
 
 KNN_TRAIN, KNN_QUERIES, KNN_D, KNN_CLASSES, KNN_K = 60_000, 10_000, 784, 10, 5
 KNN_CHECK = 512
+KNN_WIDE_K = 200
 
 
 def numpy_knn(x, y, q, k):
@@ -932,6 +1095,17 @@ def knn_path(torch, timer):
         fail(f"knn: {int((pred[:KNN_CHECK] != want).sum())} of {KNN_CHECK} "
              "predictions differ from the float64 numpy brute force")
 
+    # k past the Pallas kernel's 128 (the radix route: a row of distances
+    # does not fit shared memory and k > 12), on the checked queries.
+    model_wide = fml.Knn().set_k(KNN_WIDE_K).fit(
+        fml.Table({"features": x, "label": y}))
+    (out_wide,) = model_wide.transform(fml.Table({"features": q[:KNN_CHECK]}))
+    want_wide = numpy_knn(x, y, q[:KNN_CHECK], KNN_WIDE_K)
+    wide_diff = int((out_wide.column("prediction") != want_wide).sum())
+    if wide_diff:
+        fail(f"knn k={KNN_WIDE_K}: {wide_diff} of {KNN_CHECK} predictions "
+             "differ from the float64 numpy brute force")
+
     # One full chunk's parts, on the card (CUDA events, L2 flushed).
     qc = torch.from_numpy(q[:model.CHUNK]).cuda()
     xt = torch.from_numpy(x).cuda()
@@ -949,7 +1123,8 @@ def knn_path(torch, timer):
            "chunk_matmul_tflops": 2.0 * model.CHUNK * KNN_TRAIN * KNN_D
            / matmul_ms / 1e9,
            "device_share": device_share(torch, run),
-           "topk_launches": launches, "checked_queries": KNN_CHECK}
+           "topk_launches": launches, "checked_queries": KNN_CHECK,
+           "checked_k": [KNN_K, KNN_WIDE_K]}
     log("path " + json.dumps(rec))
     return launches
 
@@ -1235,6 +1410,7 @@ def main() -> int:
     timer = Timer(torch)
     spmv_rec = spmv_phase(torch, timer)
     spmv_phase(torch, timer, rows=SPARSE_FIT_ROWS)
+    spmv_widths_phase(torch)
     chain_rec = chain_phase(torch, timer, "float64", 1e-12, 1e-12)
     chain_phase(torch, timer, "float32", 1e-5, 1e-6)
     segsum_rec = segsum_phase(torch, timer)
@@ -1262,5 +1438,69 @@ def main() -> int:
     return 0
 
 
+# -- optional: one checkout's kernels against another's on the same card ----------
+
+AB_TOPK_CASES = TOPK_CASES[:4]
+
+
+def ab_inner(tree: str) -> int:
+    """Time ``spmv`` (the serving and fit shapes) and ``topk`` (the four
+    cases of the parent's phase) through the public wrappers of the
+    checkout at ``tree``; print one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from flinkml_tpu_torch.kernels import _build
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    if not os.path.abspath(_build.__file__).startswith(os.path.abspath(tree)):
+        fail(f"--ab-inner imported {_build.__file__}, not {tree}'s")
+    _build.build_all()
+    timer = Timer(torch)
+    out = {"tree": tree}
+    for rows in (SPMV_ROWS, SPARSE_FIT_ROWS):
+        _, indices, values, _, _ = make_criteo_csr(rows, SPMV_DIM, SPMV_NNZ,
+                                                   seed=1)
+        idx = torch.from_numpy(indices.reshape(rows, SPMV_NNZ)).cuda()
+        val = torch.from_numpy(values.reshape(rows, SPMV_NNZ)).cuda()
+        w = torch.from_numpy(np.random.default_rng(2).normal(
+            size=SPMV_DIM).astype(np.float32)).cuda()
+        out[f"spmv {rows} x {SPMV_NNZ}"] = timer(lambda: kspmv.spmv(idx, val,
+                                                                     w))
+    rng = np.random.default_rng(9)
+    for rows, n, k, dtype, _ in AB_TOPK_CASES:
+        shape = (n,) if rows is None else (rows, n)
+        host = (-rng.integers(0, 176_401, size=shape).astype(dtype)
+                if rows == 4096 else
+                -np.round(rng.random(size=shape), 3).astype(dtype)
+                if rows is None else rng.normal(size=shape).astype(dtype))
+        x = torch.from_numpy(host).cuda()
+        out[f"topk {list(shape)} k={k}"] = timer(lambda: ktopk.top_k(x, k))
+        del x
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ab_main(old: str) -> int:
+    """``--ab OLD``: the kernels of the checkout at OLD and of this one,
+    each timed in its own process, in the order old, new, new, old."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(card_line(), flush=True)
+    for tree in (old, here, here, old):
+        done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ab-inner", tree], capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln for ln in done.stdout.splitlines() if ln.startswith("{")]
+        if done.returncode != 0 or not lines:
+            fail(f"--ab-inner {tree}: exit {done.returncode}\n"
+                 f"{done.stderr[-2000:]}")
+        print(lines[-1], flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-inner":
+        sys.exit(ab_inner(sys.argv[2]))
     sys.exit(main())

@@ -148,15 +148,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of library ``name`` with its
-    ``argtypes`` declared and an ``int`` (CUDA error code) result."""
+    ``argtypes`` declared and a ``restype`` result (by default an ``int``:
+    a CUDA error code)."""
     key = (name, symbol)
     fn = _FUNCS.get(key)
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[key] = fn
     return fn
 

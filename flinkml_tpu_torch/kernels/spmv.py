@@ -6,8 +6,10 @@ Replaces ``flinkml_tpu/kernels/spmv.py:74 pallas_spmv``:
 
 :func:`spmv` is the wrapper: for tensors on the CPU it computes the plain
 PyTorch version :func:`spmv_plain`; for CUDA tensors it launches the
-hand-written kernel ``csrc/spmv.cu`` (one warp per row, a fixed shuffle
-tree — see the source note for what bounds it on the H100) or raises
+hand-written kernel ``csrc/spmv.cu`` (the bucket as one flat stream of
+cells: 16-byte loads, every gather of a thread in flight together, each
+row summed in a fixed order — see the source note for what bounds it on
+the H100) or raises
 :class:`~flinkml_tpu_torch.kernels.KernelUnsupportedError`.
 
 The kernel trusts ``0 <= indices < dim``; a CUDA gather does not clamp as
@@ -31,7 +33,7 @@ LAUNCHES = _gate.launch_counter("spmv")
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # indices, values, w
-    ctypes.c_int64, ctypes.c_int,                        # rows, width
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int,          # rows, width, phase
     ctypes.c_void_p, ctypes.c_void_p,                    # out, stream
 ]
 _SYMBOLS = {torch.float32: "fml_spmv_f32", torch.float64: "fml_spmv_f64"}
@@ -41,6 +43,19 @@ def spmv_plain(indices: torch.Tensor, values: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: gather, multiply, sum over the slots."""
     return torch.sum(values * w[indices.long()], dim=1)
+
+
+def vector_phase(indices: torch.Tensor, values: torch.Tensor) -> int:
+    """The cell position modulo 4 at which both ``indices`` and ``values``
+    start a 16-byte aligned group of 4 cells (the kernel's vector loads),
+    or -1 when no position aligns both (the kernel then loads each cell
+    alone). Read from the base pointers: a bucket view may start at any
+    cell."""
+    ip, vp, item = indices.data_ptr(), values.data_ptr(), values.element_size()
+    for phase in range(4):
+        if (ip + 4 * phase) % 16 == 0 and (vp + item * phase) % 16 == 0:
+            return phase
+    return -1
 
 
 def unsupported_reason(indices, values, w) -> Optional[str]:
@@ -63,8 +78,9 @@ def unsupported_reason(indices, values, w) -> Optional[str]:
     devices = {indices.device, values.device, w.device}
     if len(devices) != 1:
         return f"operands on different devices {sorted(map(str, devices))}"
-    if values.shape[1] >= 2**31:
-        return f"width {values.shape[1]} does not fit a 32-bit int"
+    if values.shape[1] >= 2**31 or values.shape[0] >= 2**31:
+        return (f"rows {values.shape[0]} or width {values.shape[1]} does "
+                "not fit a 32-bit int")
     return None
 
 
@@ -91,7 +107,8 @@ def spmv(indices: torch.Tensor, values: torch.Tensor,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         code = fn(indices.data_ptr(), values.data_ptr(), w.data_ptr(),
-                  rows, width, out.data_ptr(), stream)
+                  rows, width, vector_phase(indices, values), out.data_ptr(),
+                  stream)
     _build.check("spmv", "spmv", code)
     LAUNCHES.bump()
     return out

@@ -10,11 +10,11 @@ treats +0 and -0 as equal, so it differs from ``lax.top_k`` there.)
 
 :func:`top_k` is the wrapper: for tensors on the CPU it computes the plain
 PyTorch version :func:`top_k_plain`; for CUDA tensors it launches the
-hand-written kernel ``csrc/topk.cu`` (one block per row: a strided scan
-that keeps each thread's best k in shared memory, then k block-wide
-arg-max rounds; rows too few to fill the card split into
-:func:`segments`, whose ordered candidates a second launch merges — see
-the source note) or raises
+hand-written kernel ``csrc/topk.cu`` for any 1 <= k <= n, on one of three
+routes that :func:`route` picks by a fixed rule (a radix select of the
+rank-k key in shared memory; a per-thread scan for long rows and small k;
+a radix select over many blocks per row, in bands of 16,384 ranks for
+large k — see the source note), or raises
 :class:`~flinkml_tpu_torch.kernels.KernelUnsupportedError`.
 ``torch.topk`` does not promise this tie order, so it is neither.
 """
@@ -28,31 +28,42 @@ import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
 
-#: Largest k the CUDA kernel selects (each thread keeps k pairs in shared
-#: memory); the plain version takes any k <= n.
-MAX_K = 128
-
 #: Value types the CUDA kernel takes.
 SUPPORTED_DTYPES = (torch.float32, torch.float64)
 
-#: Blocks that fill the H100 (two per SM of 132): rows fewer than this split.
+#: Dynamic shared memory the ``fused`` route may use for a row's keys and
+#: its sort buffer (the kernel accepts up to 220 KB of the H100's 227 KB).
+FUSED_SMEM_BYTES = 200 * 1024
+#: Largest k the rule sends to the ``scan`` route (the kernel takes up to
+#: 32). On the KNN chunk [4096, 60000] f32 the scan reads each element
+#: once and takes 0.59 / 1.45 / 2.02 / 2.64 / 3.43 / 5.26 ms at k = 5 / 12
+#: / 16 / 20 / 24 / 32; the radix route reads it once per digit and takes
+#: 1.93–1.96 ms at every k (H100 80GB HBM3 at 700 W, chip_smoke.py's
+#: route probe): the scan wins up to k = 12.
+SCAN_MAX_K = 12
+#: Blocks that fill the H100 (two per SM of 132): rows fewer than this
+#: split into segments on the ``radix`` route, and the ``scan`` route
+#: needs at least this many rows.
 TARGET_BLOCKS = 264
 #: Fewest elements a row segment holds.
 MIN_SEGMENT = 2048
-#: Most segments per row (the merge keeps one head per segment in shared
-#: memory).
+#: Most segments per row.
 MAX_SEGMENTS = 1024
+
+#: The routes of ``csrc/topk.cu`` and their codes.
+ROUTES = {"fused": 0, "scan": 1, "radix": 2}
 
 LAUNCHES = _gate.launch_counter("topk")
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # x, rows, n, k
-    ctypes.c_int,                                                 # segments
+    ctypes.c_int, ctypes.c_int,                                   # route, segs
     ctypes.c_void_p, ctypes.c_void_p,                             # values, indices
-    ctypes.c_void_p, ctypes.c_void_p,                             # candidates
-    ctypes.c_void_p,                                              # stream
+    ctypes.c_void_p, ctypes.c_void_p,                             # scratch, stream
 ]
-_SYMBOLS = {torch.float32: "fml_topk_f32", torch.float64: "fml_topk_f64"}
+_SCRATCH_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int]                       # rows, k, route, segs
+_SYMBOLS = {torch.float32: "f32", torch.float64: "f64"}
 _INT32_LIMIT = 2**31
 #: The signed integer view of each float width, and its magnitude mask.
 _KEY_VIEW = {2: (torch.int16, 0x7FFF), 4: (torch.int32, 0x7FFFFFFF),
@@ -81,14 +92,40 @@ def top_k_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(x, -1, idx), idx.to(torch.int32)
 
 
-def segments(rows: int, n: int, k: int) -> int:
-    """Blocks per row: 1 when ``rows`` fill the card, else enough segments
-    of at least ``max(MIN_SEGMENT, k)`` elements to make about
-    :data:`TARGET_BLOCKS` blocks (at most :data:`MAX_SEGMENTS`)."""
+def fused_smem_bytes(n: int, k: int, itemsize: int) -> int:
+    """Dynamic shared memory of the ``fused`` route: the row's keys (padded
+    to a 16-byte multiple) and a sort buffer of ``next_pow2(k)`` pairs."""
+    vec = 16 // itemsize
+    p2 = 1 << max(k - 1, 0).bit_length()
+    return -(-n // vec) * vec * itemsize + p2 * (itemsize + 4)
+
+
+def route(rows: int, n: int, k: int, itemsize: int) -> str:
+    """The kernel route for these operands, by a fixed rule:
+
+    - ``fused`` when the row and a sort of k pairs fit
+      :data:`FUSED_SMEM_BYTES` (one launch, every pass in shared memory);
+    - ``scan`` when rows fill the card and k <= :data:`SCAN_MAX_K` (one
+      read of each element from device memory: the KNN chunk);
+    - ``radix`` otherwise (a launch per digit over :func:`segments` blocks
+      per row; for k above one shared-memory sort, bands of 16,384 ranks,
+      ``kSortCap`` in the source)."""
+    if fused_smem_bytes(n, k, itemsize) <= FUSED_SMEM_BYTES:
+        return "fused"
+    if k <= SCAN_MAX_K and rows >= TARGET_BLOCKS:
+        return "scan"
+    return "radix"
+
+
+def segments(rows: int, n: int) -> int:
+    """Blocks per row on the ``radix`` route: 1 when ``rows`` fill the
+    card, else enough segments of at least :data:`MIN_SEGMENT` elements to
+    make about :data:`TARGET_BLOCKS` blocks (at most
+    :data:`MAX_SEGMENTS`)."""
     if rows >= TARGET_BLOCKS:
         return 1
     by_blocks = -(-TARGET_BLOCKS // max(rows, 1))
-    by_length = n // max(MIN_SEGMENT, k)
+    by_length = n // MIN_SEGMENT
     return max(1, min(by_blocks, by_length, MAX_SEGMENTS))
 
 
@@ -102,9 +139,6 @@ def unsupported_reason(x: torch.Tensor, k: int) -> Optional[str]:
     n = x.shape[-1]
     if not 1 <= k <= n:
         return f"k={k} outside [1, n={n}]"
-    if k > MAX_K:
-        return (f"k={k} exceeds the kernel's ceiling of {MAX_K} kept pairs "
-                "per thread")
     rows = 1 if x.dim() == 1 else x.shape[0]
     if n >= _INT32_LIMIT or rows >= _INT32_LIMIT:
         return f"n={n} or rows={rows} does not fit a 32-bit int"
@@ -123,6 +157,15 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     reason = unsupported_reason(x, k)
     if reason is not None:
         raise _gate.refuse("topk", reason)
+    rows = 1 if x.dim() == 1 else x.shape[0]
+    return launch(x, k, route(rows, x.shape[-1], k, x.element_size()))
+
+
+def launch(x: torch.Tensor, k: int,
+           route_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the CUDA kernel on ``route_name`` (one of :data:`ROUTES`) for
+    operands :func:`unsupported_reason` accepts. :func:`top_k` picks the
+    route; a measurement may name another to compare them."""
     x = x.contiguous()
     rows = 1 if x.dim() == 1 else x.shape[0]
     n = x.shape[-1]
@@ -131,22 +174,20 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     indices = torch.empty(shape, dtype=torch.int32, device=x.device)
     if rows == 0:
         return values, indices
-    segs = segments(rows, n, k)
-    cand_key = cand_idx = None
-    if segs > 1:
-        # Each segment's ordered (order key, index) candidates.
-        key_dtype = _KEY_VIEW[x.element_size()][0]
-        cand_key = torch.empty((rows, segs, k), dtype=key_dtype,
-                               device=x.device)
-        cand_idx = torch.empty((rows, segs, k), dtype=torch.int32,
-                               device=x.device)
-    fn = _build.function("topk", _SYMBOLS[x.dtype], _ARGTYPES)
+    code = ROUTES[route_name]
+    segs = segments(rows, n) if route_name == "radix" else 1
+    suffix = _SYMBOLS[x.dtype]
+    size_fn = _build.function("topk", f"fml_topk_scratch_bytes_{suffix}",
+                              _SCRATCH_ARGTYPES, restype=ctypes.c_int64)
+    n_scratch = size_fn(rows, k, code, segs)
+    scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
+               if n_scratch > 0 else None)
+    fn = _build.function("topk", f"fml_topk_{suffix}", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), rows, n, k, segs, values.data_ptr(),
+        code = fn(x.data_ptr(), rows, n, k, code, segs, values.data_ptr(),
                   indices.data_ptr(),
-                  None if cand_key is None else cand_key.data_ptr(),
-                  None if cand_idx is None else cand_idx.data_ptr(), stream)
+                  None if scratch is None else scratch.data_ptr(), stream)
     _build.check("topk", "topk", code)
     LAUNCHES.bump()
     return values, indices

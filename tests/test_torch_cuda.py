@@ -243,13 +243,25 @@ def _topk_rows(shape, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 5, 64, 128])
+@pytest.mark.parametrize("k", [1, 5, 64, 128, 129, 1000, 20_000, "n"])
 @pytest.mark.parametrize("shape", [(9, 300), (300,), (3, 70_000),
-                                   (200_000,)])
+                                   (200_000,), (300, 60_000),
+                                   (300, 60_001)])
 def test_topk_kernel_matches_plain_bitwise(cuda_device, dtype, k, shape):
+    """Every route: short rows (fused), few long rows split into segments
+    and k past one shared-memory sort (radix, in bands), many long rows
+    with small k (scan: 16-byte loads, and single loads where rows are not
+    16-byte aligned); k capped at n."""
+    n = shape[-1]
+    k = n if k == "n" else min(k, n)
     host = _topk_rows(shape, seed=k)
     rows = 1 if len(shape) == 1 else shape[0]
-    assert (ktopk.segments(rows, shape[-1], k) > 1) == (shape[-1] >= 70_000)
+    item = torch.empty(0, dtype=dtype).element_size()
+    route = ktopk.route(rows, n, k, item)
+    if n <= 300:
+        assert route == "fused"
+    elif rows < ktopk.TARGET_BLOCKS:
+        assert route == "radix" and ktopk.segments(rows, n) > 1
     x = torch.from_numpy(host).to(cuda_device, dtype)
     before = ktopk.LAUNCHES.count
     got_v, got_i = ktopk.top_k(x, k)
@@ -263,7 +275,7 @@ def test_topk_kernel_matches_plain_bitwise(cuda_device, dtype, k, shape):
 
 def test_topk_kernel_refusals(cuda_device):
     x = torch.zeros(4, 300, device=cuda_device)
-    for bad, k in ((x.int(), 5), (x.half(), 5), (x, 129), (x, 0),
+    for bad, k in ((x.int(), 5), (x.half(), 5), (x, 0),
                    (x[:, :3], 4), (x[None], 5)):
         with pytest.raises(fml.KernelUnsupportedError):
             ktopk.top_k(bad, k)
@@ -285,6 +297,51 @@ def test_knn_on_card_matches_cpu(cuda_device, monkeypatch):
         (cpu,) = model.transform(q)
     np.testing.assert_array_equal(gpu.column("prediction"),
                                   cpu.column("prediction"))
+
+
+def test_knn_k_200_on_card_matches_cpu(cuda_device, monkeypatch):
+    """k past the old kernel's 128 kept pairs, against 60,000 train rows
+    (a row of distances does not fit shared memory, and the scan route
+    takes k <= 12: the radix route), in chunks of 300 rows and in one of
+    900."""
+    rng = np.random.default_rng(10)
+    x = rng.integers(0, 4, size=(60_000, 16)).astype(np.float32)
+    y = rng.integers(0, 5, size=60_000).astype(np.float64)
+    q = fml.Table({"features": rng.integers(0, 4, size=(900, 16))
+                   .astype(np.float32)})
+    model = fml.Knn().set_k(200).fit(fml.Table({"features": x, "label": y}))
+    assert ktopk.route(300, 60_000, 200, 4) == "radix"
+    with fml.use_device("cpu"):
+        (cpu,) = model.transform(q)
+    for chunk in (300, 4096):
+        monkeypatch.setattr(fml.KnnModel, "CHUNK", chunk)
+        fml.reset_launch_counts()
+        with fml.use_device(cuda_device):
+            (gpu,) = model.transform(q)
+        assert fml.launch_counts()["topk"] == -(-900 // chunk)
+        np.testing.assert_array_equal(gpu.column("prediction"),
+                                      cpu.column("prediction"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [1, 7, 39, 40, 1000, 3000])
+@pytest.mark.parametrize("start", [0, 1, 3])
+def test_spmv_kernel_widths_views_and_repeatable(cuda_device, dtype, width,
+                                                 start):
+    """At every width the packer picks (and one wider than a tile), on a
+    bucket view starting at row ``start`` (cells off the 16-byte phase):
+    within 1e-5 of plain, and two launches give the same bits."""
+    idx, val, w = _ell(700, width, 50_000, seed=width)
+    idx = torch.from_numpy(idx).to(cuda_device)[start:]
+    val = torch.from_numpy(val).to(cuda_device, dtype)[start:]
+    w = torch.from_numpy(w).to(cuda_device, dtype)
+    assert (kspmv.vector_phase(idx, val) == 0) == (start * width % 4 == 0)
+    got = kspmv.spmv(idx, val, w)
+    again = kspmv.spmv(idx, val, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kspmv.spmv_plain(idx, val, w),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
 
 
 def test_kmeans_on_card_matches_cpu(cuda_device):

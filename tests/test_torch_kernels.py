@@ -74,6 +74,39 @@ def test_spmv_plain_matches_jax(backend, dtype, shape, monkeypatch):
                                atol=SPARSE_TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("width", [1, 7, 40, 1000])
+def test_spmv_plain_matches_jitted_jax_twin(dtype, width):
+    """spmv_plain at the widths the packer's DP picks, against the jitted
+    JAX twin ``sum(values * take(w, indices), axis=1)`` at rtol/atol 1e-5,
+    on a bucket view that starts at an odd row."""
+    idx, val, w = _ell(23, width, 5000, dtype, seed=width)
+    want = jax.jit(lambda i, v, ww: jnp.sum(v * jnp.take(ww, i, axis=0),
+                                            axis=1))(idx[3:], val[3:], w)
+    ti, tv = torch.from_numpy(idx)[3:], torch.from_numpy(val)[3:]
+    got = kspmv.spmv(ti, tv, torch.from_numpy(w))
+    assert got.shape == (20,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=SPARSE_TOL, atol=SPARSE_TOL)
+
+
+def test_spmv_vector_phase():
+    """The cell phase at which indices and values both start a 16-byte
+    group, read from the base pointers of a bucket view."""
+    idx = torch.zeros((8, 39), dtype=torch.int32)
+    for dtype in (torch.float32, torch.float64):
+        val = torch.zeros((8, 39), dtype=dtype)
+        assert kspmv.vector_phase(idx, val) == 0
+        for start in range(1, 5):
+            # Row `start` begins at cell 39 * start: the next aligned cell
+            # of both arrays is (-39 * start) mod 4 cells later.
+            assert kspmv.vector_phase(idx[start:], val[start:]) == (
+                -39 * start) % 4
+    # Indices and values whose alignments disagree: no vector phase.
+    flat = torch.zeros(64, dtype=torch.float32)
+    assert kspmv.vector_phase(idx.reshape(-1)[1:], flat[2:]) == -1
+
+
 def test_spmv_unsupported_reasons():
     idx, val, w = (torch.from_numpy(a) for a in _ell(4, 3, 10, np.float32, 0))
     assert kspmv.unsupported_reason(idx, val, w) is None
@@ -410,11 +443,16 @@ def _same_bits(got, want) -> bool:
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("rank", [1, 2])
-@pytest.mark.parametrize("k", [1, 7, 128, 150])
+@pytest.mark.parametrize("k", [1, 7, 128, 150, 129, 1000, "n"])
 def test_top_k_plain_matches_lax_top_k(dtype, rank, k):
     """top_k_plain vs ``jax.lax.top_k`` (the JAX package's default
-    backend): values and indices bit for bit, ±0 and NaN included."""
-    x = _topk_rows(dtype, seed=k)
+    backend): values and indices bit for bit, ±0 and NaN included, past
+    the 128 kept pairs of the Pallas kernel and up to k = n."""
+    if k == "n":
+        n, k = 1000, 1000
+    else:
+        n = 150 if k <= 150 else k + 500
+    x = _topk_rows(dtype, n=n, seed=k)
     for row in ([x] if rank == 2 else list(x)):
         want_v, want_i = jax.lax.top_k(jnp.asarray(row), k)
         got_v, got_i = ktopk.top_k(torch.from_numpy(row), k)
@@ -471,7 +509,8 @@ def test_top_k_unsupported_reasons():
     assert "not supported" in ktopk.unsupported_reason(x.bfloat16(), 5)
     assert "outside" in ktopk.unsupported_reason(x, 0)
     assert "outside" in ktopk.unsupported_reason(x[:, :3], 4)
-    assert "ceiling of 128" in ktopk.unsupported_reason(x, 129)
+    assert ktopk.unsupported_reason(x, 129) is None
+    assert ktopk.unsupported_reason(x, 200) is None   # k = n
     assert "rank" in ktopk.unsupported_reason(x[None], 5)
     big = torch.empty(2**31, device="meta")
     assert "32-bit" in ktopk.unsupported_reason(big, 5)
@@ -481,7 +520,7 @@ def test_top_k_unsupported_reasons():
 
 def test_top_k_plain_domain():
     """The plain version keeps lax.top_k's domain: any 0 <= k <= n, and
-    only floating operands (the CUDA kernel takes 1 <= k <= 128)."""
+    only floating operands (the CUDA kernel takes 1 <= k <= n)."""
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(3, 300)))
     v, i = ktopk.top_k(x, 300)
     assert v.shape == (3, 300) and bool(torch.all(v[:, 1:] <= v[:, :-1]))
@@ -490,6 +529,41 @@ def test_top_k_plain_domain():
         ktopk.top_k(x, 301)
     with pytest.raises(TypeError, match="floating"):
         ktopk.top_k(torch.arange(10), 3)
+
+
+@pytest.mark.parametrize("rows,n,k,dtype,want", [
+    (4096, 60_000, 5, torch.float32, "scan"),      # the KNN chunk
+    (4096, 60_000, 12, torch.float32, "scan"),
+    (4096, 60_000, 16, torch.float32, "radix"),    # past the crossover
+    (4096, 60_000, 200, torch.float32, "radix"),
+    (1024, 8192, 16, torch.float32, "fused"),
+    (1024, 8192, 1024, torch.float32, "fused"),
+    (256, 2048, 128, torch.float32, "fused"),
+    (1, 1312, 100, torch.float64, "fused"),        # an LSH query
+    (1, 1_000_000, 100, torch.float64, "radix"),
+    (1, 1_000_000, 20_000, torch.float64, "radix"),
+    (100, 60_000, 5, torch.float32, "radix"),      # too few rows to scan
+    (1, 16_384, 16_384, torch.float64, "radix"),   # the sort buffer spills
+])
+def test_top_k_route_rule(rows, n, k, dtype, want):
+    """The fixed rule that picks the kernel's route, at the main paths'
+    shapes; a long row with few rows splits into segments."""
+    item = torch.empty(0, dtype=dtype).element_size()
+    assert ktopk.route(rows, n, k, item) == want
+    if want == "fused":
+        assert ktopk.fused_smem_bytes(n, k, item) <= ktopk.FUSED_SMEM_BYTES
+    assert ktopk.segments(rows, n) == (1 if rows >= ktopk.TARGET_BLOCKS
+                                       else min(-(-264 // rows),
+                                                n // 2048, 1024) or 1)
+
+
+def test_top_k_fused_smem_bytes():
+    # [256, 2048] f32, k=128: 8 KB of keys and 128 pairs of 8 bytes.
+    assert ktopk.fused_smem_bytes(2048, 128, 4) == 2048 * 4 + 128 * 8
+    # Keys pad to 16 bytes; the sort buffer to a power of two.
+    assert ktopk.fused_smem_bytes(67, 10, 8) == 68 * 8 + 16 * 12
+    assert ktopk.fused_smem_bytes(5, 1, 4) == 8 * 4 + 1 * 8
+    assert set(ktopk.ROUTES) == {"fused", "scan", "radix"}
 
 
 # -- build and launch bookkeeping -----------------------------------------------------

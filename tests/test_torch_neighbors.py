@@ -75,6 +75,18 @@ def test_knn_duplicated_train_rows_tie_to_lower_index(on_cpu):
                                   np.asarray(want.column("prediction")))
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_knn_k_200_equals_jax(dtype, on_cpu):
+    """k past the Pallas kernel's 128 kept pairs: the port's top-k takes
+    any k, as the JAX package's default ``lax.top_k`` does."""
+    x, y, q = _knn_data(n_train=700, n_query=40, d=4, seed=12)
+    jm, tm = _knn_pair(x, y, 200)
+    (want,) = jm.transform(JaxTable({"features": q}))
+    (got,) = tm.transform(fml.Table({"features": q.astype(dtype)}))
+    np.testing.assert_array_equal(got.column("prediction"),
+                                  np.asarray(want.column("prediction")))
+
+
 def test_knn_k_larger_than_train_votes_among_all(on_cpu):
     x, y, q = _knn_data(n_train=13, seed=4)
     jm, tm = _knn_pair(x, y, 200)
@@ -202,6 +214,24 @@ def test_minhash_ann_ranking_pinned_order(k, key_row, on_cpu):
                                        interpret=True)
         np.testing.assert_array_equal(got.column("id"),
                                       cand[np.asarray(pallas_order)])
+
+
+@pytest.mark.parametrize("k", [129, 300])
+def test_minhash_ann_past_128_results(k, on_cpu):
+    """More than 128 results: rows and distances equal the stable argsort
+    exactly, and the ranking equals ``lax.top_k`` on the same float64
+    distances."""
+    x = _lsh_rows(n=600, d=10, seed=13)
+    jm, tm = _lsh_pair(x, tables=4)
+    cand, dists = _golden(jm, x, x[0])
+    assert dists.size > k
+    order = np.argsort(dists, kind="stable")[:k]
+    got = tm.approx_nearest_neighbors(
+        fml.Table({"f": x, "id": np.arange(len(x))}), x[0], k)
+    np.testing.assert_array_equal(got.column("id"), cand[order])
+    np.testing.assert_array_equal(got.column("distCol"), dists[order])
+    _, lax_order = jax.lax.top_k(jnp.asarray(-dists), k)
+    np.testing.assert_array_equal(got.column("id"), cand[np.asarray(lax_order)])
 
 
 def test_minhash_ann_sparse_key_and_no_candidates(on_cpu):
