@@ -10,16 +10,18 @@ It drives the PyTorch port only (nothing of JAX, nothing of ``flinkml_tpu``)
 and fails with a non-zero exit if any phase fails:
 
 1. prints the card's name and power limit; builds every CUDA kernel from
-   ``flinkml_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   ``flinkml_tpu_torch/kernels/csrc`` and the measurement probes of
+   ``kernels/probes`` (one ``nvcc`` per source, in parallel);
 2. kernel phase: each kernel against its plain PyTorch version at the main
    paths' shapes — ``spmv`` at 65,536 and 262,144 rows x 39 slots, dim
    1e6, float32 (and at widths 1, 7, 39, 40, 1,000 and 3,000 on bucket
    views off the 16-byte phase, float32 and float64; the same bits on two
    launches);
-   ``fused_chain`` at 100,000 x 32 in float64 and float32; ``segment_sum``
-   at the sparse-fit step (262,144 x 39 cells into 1e6 segments, float32
-   and float64, unsorted and sorted) and with a row payload (2^20 cells x
-   16 into 65,536 segments); ``topk`` bit for bit against ``top_k_plain``
+   ``fused_chain`` at 100,000 x 32 in float64 and float32, on both of its
+   routes; ``segment_sum`` at the sparse-fit step (262,144 x 39 cells into
+   1e6 segments, float32 and float64, unsorted beside the random-reduction
+   floor, and sorted) and with a row payload (2^20 cells x 16 into 65,536
+   segments), the sorted path's output block poisoned with NaN first; ``topk`` bit for bit against ``top_k_plain``
    (values and indices) at [4096, 60000] k=5, [1024, 8192] k=16 and
    k=1,024, [256, 2048] k=128 (float32), 1-D n=1e6 k=100 and k=20,000
    (float64, two bands) and on adversarial rows (duplicates, +0/-0,
@@ -68,11 +70,16 @@ just after; a path whose kernel never launched fails. The last lines are
 the kernels' JSON summary, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ab OTHER`` runs none of that: it times ``spmv``
-and ``topk`` through the wrappers of the checkout at OTHER (an unpacked
-``git archive`` of another commit) and of this one, each in its own
-process, in the order OTHER, this, this, OTHER, and prints one JSON line
-per process after the card's line.
+``python3 chip_smoke.py --ab OTHER`` runs none of that: it times ``spmv``,
+``topk``, ``segment_sum`` and ``fused_chain`` through the wrappers of the
+checkout at OTHER (an unpacked ``git archive`` of another commit) and of
+this one, each in its own process, in the order OTHER, this, this, OTHER,
+and prints one JSON line per process after the card's line.
+
+``python3 chip_smoke.py --variants`` runs none of that either: it builds
+edited copies of ``chain.cu`` and ``segsum.cu`` (:data:`VARIANTS`: a step
+removed or a constant changed, to measure what each costs) and times each
+through the port's wrappers; one JSON line per measurement.
 """
 
 from __future__ import annotations
@@ -284,7 +291,7 @@ def spmv_phase(torch, timer, rows=SPMV_ROWS):
     local_gather_ms = timer(lambda: kspmv.spmv(local, val, w))
     del local
     floor_out = torch.empty(val.numel() // 8 + 1, device="cuda")
-    floor = gather_floor_function()
+    floor = probe_function("fml_gather_floor")
     stream = torch.cuda.current_stream().cuda_stream
     gather_floor_ms = timer(lambda: _build_check(floor(
         w.data_ptr(), SPMV_DIM, floor_out.data_ptr(), val.numel(), stream)))
@@ -307,36 +314,26 @@ def spmv_phase(torch, timer, rows=SPMV_ROWS):
     return rec
 
 
-_GATHER_FLOOR = []
-
-
-def gather_floor_function():
-    """``fml_gather_floor`` of ``flinkml_tpu_torch/kernels/probes/
-    gather_floor.cu`` (a measurement probe, built here with the kernels'
-    ``nvcc`` flags): random gathers of w alone."""
+def probe_function(symbol: str):
+    """``symbol`` of a measurement probe in ``flinkml_tpu_torch/kernels/
+    probes`` (built by ``_build.build_all`` with the kernels' ``nvcc``
+    flags; not a kernel of the port): ``(out-or-input pointers..., n,
+    stream)`` as its source says."""
     import ctypes
 
     from flinkml_tpu_torch.kernels import _build
 
-    if _GATHER_FLOOR:
-        return _GATHER_FLOOR[0]
-    src = os.path.join(os.path.dirname(_build.CSRC_DIR), "probes",
-                       "gather_floor.cu")
-    out = os.path.join(_build.BUILD_DIR, "gather_floor.so")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
-                   check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(out).fml_gather_floor
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _GATHER_FLOOR.append(fn)
-    return fn
+    if symbol == "fml_gather_floor":
+        args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p]
+        return _build.function("gather_floor", symbol, args)
+    return _build.function("red_floor", symbol, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
 
 
 def _build_check(code):
     if code != 0:
-        fail(f"gather floor probe: CUDA error {code}")
+        fail(f"floor probe: CUDA error {code}")
 
 
 # Bucket widths the packer's DP picks (ops/sparse.py), and one wider than
@@ -429,7 +426,18 @@ def chain_models(x, coef):
     return stages + [lr]
 
 
+# Instructions of one IEEE division on the FMA pipes (a reciprocal
+# estimate and its Newton steps, about 8 of them in float32 and float64):
+# the estimate behind the chain's division floor.
+DIV_INSTRUCTIONS = 8
+
+
 def chain_phase(torch, timer, dtype, rtol, atol):
+    """The five-stage chain at 100,000 x 32 on both routes, each against
+    the plain chain: ``vector`` (the rule's pick for x as allocated) and
+    ``scalar`` (the same rows one element into their buffer, off the
+    16-byte alignment); the times of both routes, the plain chain's, the
+    byte bound and the division floor."""
     from flinkml_tpu_torch import pipeline_fusion
     from flinkml_tpu_torch.kernels import chain as kchain
 
@@ -446,23 +454,31 @@ def chain_phase(torch, timer, dtype, rtol, atol):
     host_consts = tuple(k.constants for k in kernels)
     dev_consts = tuple({c: torch.as_tensor(v).cuda() for c, v in kc.items()}
                        for kc in host_consts)
-    got = program([xp], host_consts, CHAIN_ROWS)
-    torch.cuda.synchronize()
     want = kchain.chain_plain(kernels, ["features"], outs, [xp], dev_consts,
                               CHAIN_ROWS)
-    err = 0.0
-    for c in ("s4", "rawPrediction"):
-        check_close(f"fused_chain[{dtype}] {c}", got[c][:CHAIN_ROWS],
-                    want[c][:CHAIN_ROWS], rtol, atol)
-        err = max(err, max_err(got[c][:CHAIN_ROWS], want[c][:CHAIN_ROWS]))
-    dot = torch.matmul(got["s4"][:CHAIN_ROWS].double(),
+    dot = torch.matmul(want["s4"][:CHAIN_ROWS].double(),
                        torch.from_numpy(coef).cuda())
     decisive = dot.abs() > 1e-4
-    if not torch.equal(got["prediction"][:CHAIN_ROWS][decisive],
-                       want["prediction"][:CHAIN_ROWS][decisive]):
-        fail(f"fused_chain[{dtype}] prediction differs from plain")
+    shifted = torch.empty(xp.numel() + 1, dtype=tdt, device="cuda")
+    views = {"vector": xp, "scalar": shifted[1:].view(xp.shape)}
+    views["scalar"].copy_(xp)
+    err, route_ms = 0.0, {}
+    for name, xv in views.items():
+        if kchain.route(CHAIN_D, xv.element_size(), xv.data_ptr()) != name:
+            fail(f"fused_chain[{dtype}]: the {name} view takes another route")
+        got = program([xv], host_consts, CHAIN_ROWS)
+        torch.cuda.synchronize()
+        for c in ("s4", "rawPrediction"):
+            check_close(f"fused_chain[{dtype}, {name}] {c}",
+                        got[c][:CHAIN_ROWS], want[c][:CHAIN_ROWS], rtol, atol)
+            err = max(err, max_err(got[c][:CHAIN_ROWS], want[c][:CHAIN_ROWS]))
+        if not torch.equal(got["prediction"][:CHAIN_ROWS][decisive],
+                           want["prediction"][:CHAIN_ROWS][decisive]):
+            fail(f"fused_chain[{dtype}, {name}] prediction differs from plain")
+        route_ms[name] = timer(lambda: program([xv], host_consts, CHAIN_ROWS))
+    del shifted, views
 
-    ms = timer(lambda: program([xp], host_consts, CHAIN_ROWS))
+    ms = route_ms["vector"]
     plain_ms = timer(lambda: kchain.chain_plain(
         kernels, ["features"], outs, [xp], dev_consts, CHAIN_ROWS))
     item = xp.element_size()
@@ -473,13 +489,18 @@ def chain_phase(torch, timer, dtype, rtol, atol):
     # MaxAbs 1, Robust 1 (div), dot 2; per row ~5 for the sigmoid head.
     n_ops = n * d * 11 + n * 5
     b_ms, b_by = bound_ms(n_bytes, n_ops, dtype)
+    # Four of those ops are IEEE divisions of DIV_INSTRUCTIONS each; one
+    # FMA-pipe instruction a lane per cycle is half the peak FLOP rate.
+    div_floor_ms = (n * d * 4 * DIV_INSTRUCTIONS
+                    / (PEAK_OPS_PER_S[dtype] / 2)) * 1e3
     rec = {
         "name": "fused_chain", "route": "cuda",
         "source": "flinkml_tpu_torch/kernels/csrc/chain.cu",
         "replaces": "flinkml_tpu/kernels/chain.py:173",
-        "shape": [n, d], "dtype": dtype, "max_abs_err": err, "ms": ms,
+        "shape": [n, d], "dtype": dtype, "kernel_route": "vector",
+        "max_abs_err": err, "ms": ms, "route_ms": route_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "division_floor_ms": div_floor_ms, "library_ms": None,
     }
     log("kernel " + json.dumps(rec))
     return rec
@@ -634,17 +655,28 @@ def dense_path(torch):
 
 # -- phase 2b: segment_sum against its plain version -----------------------------
 
+def poison(torch, shape, tdt):
+    """Leave a freed block of ``shape`` full of NaN in the caching
+    allocator, so that an output the kernel fails to write shows as NaN."""
+    torch.full(shape, float("nan"), dtype=tdt, device="cuda")
+    torch.cuda.synchronize()
+
+
 def segsum_case(torch, timer, ids_host, values_host, num_segments, dtype,
-                sorted_ids, rtol, atol):
+                sorted_ids, rtol, atol, red_floor=False):
     """One ``segment_sum`` case: kernel vs plain version on the card, the
-    sorted path also bit for bit vs the in-order sum (``np.add.at``), and
-    the times."""
+    sorted path also bit for bit vs the in-order sum (``np.add.at``) on an
+    output block poisoned with NaN, and the times; with ``red_floor``, the
+    same number of random reductions into the same output size alone
+    (``probes/red_floor.cu``)."""
     from flinkml_tpu_torch.kernels import segsum as ksegsum
 
     tdt = getattr(torch, dtype)
     ids = torch.from_numpy(ids_host).cuda()
     ids_long = ids.long()
     vals = torch.from_numpy(values_host).to("cuda", tdt)
+    out_shape = (num_segments,) + tuple(vals.shape[1:])
+    poison(torch, out_shape, tdt)
     got = ksegsum.segment_sum(vals, ids, num_segments,
                               indices_are_sorted=sorted_ids)
     torch.cuda.synchronize()
@@ -684,6 +716,14 @@ def segsum_case(torch, timer, ids_host, values_host, num_segments, dtype,
         "library_ms": library_ms,
         "library_call": "torch.zeros(...).index_add_(0, ids_int64, values)",
     }
+    if red_floor:
+        floor_out = torch.zeros(num_segments, dtype=tdt, device="cuda")
+        floor = probe_function("fml_red_floor_f32" if dtype == "float32"
+                               else "fml_red_floor_f64")
+        stream = torch.cuda.current_stream().cuda_stream
+        rec["red_floor_ms"] = timer(lambda: _build_check(floor(
+            floor_out.data_ptr(), num_segments, vals.numel(), stream)))
+        del floor_out
     log("kernel " + json.dumps(rec))
     return rec
 
@@ -702,7 +742,8 @@ def segsum_phase(torch, timer):
             ids = indices[sorted_order] if sorted_ids else indices
             vals = values[sorted_order] if sorted_ids else values
             rec = segsum_case(torch, timer, ids, vals.astype(dtype), SPMV_DIM,
-                              dtype, sorted_ids, tol, tol)
+                              dtype, sorted_ids, tol, tol,
+                              red_floor=not sorted_ids)
             if dtype == "float32" and not sorted_ids:
                 main = rec   # the fit's default layout
     rng = np.random.default_rng(6)
@@ -1444,12 +1485,18 @@ AB_TOPK_CASES = TOPK_CASES[:4]
 
 
 def ab_inner(tree: str) -> int:
-    """Time ``spmv`` (the serving and fit shapes) and ``topk`` (the four
-    cases of the parent's phase) through the public wrappers of the
-    checkout at ``tree``; print one JSON line."""
+    """Time ``spmv`` (the serving and fit shapes), ``topk`` (four cases of
+    its phase), ``segment_sum`` (the fit shape, unsorted and sorted, float32
+    and float64) and ``fused_chain`` (100,000 x 32, float64 and float32)
+    through the public wrappers of the checkout at ``tree``, by
+    :class:`Timer`, and for the last two also by the profiler's device time
+    of the kernel alone (the ``... device`` keys: the host's enqueue is in
+    the first and not in the second); print one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from flinkml_tpu_torch.kernels import _build
+    from flinkml_tpu_torch.kernels import chain as kchain
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
     from flinkml_tpu_torch.kernels import spmv as kspmv
     from flinkml_tpu_torch.kernels import topk as ktopk
 
@@ -1477,6 +1524,34 @@ def ab_inner(tree: str) -> int:
         x = torch.from_numpy(host).cuda()
         out[f"topk {list(shape)} k={k}"] = timer(lambda: ktopk.top_k(x, k))
         del x
+    _, indices, values, _, _ = make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM,
+                                               SPMV_NNZ, seed=5)
+    order = np.argsort(indices, kind="stable")
+    for dtype in ("float32", "float64"):
+        for sorted_ids in (False, True):
+            sel = order if sorted_ids else slice(None)
+            ids = torch.from_numpy(indices[sel]).cuda()
+            vals = torch.from_numpy(values[sel].astype(dtype)).cuda()
+            key = (f"segment_sum {'sorted' if sorted_ids else 'unsorted'} "
+                   f"{dtype}")
+            call = (lambda: ksegsum.segment_sum(
+                vals, ids, SPMV_DIM, indices_are_sorted=sorted_ids))
+            out[key] = timer(call)
+            out[key + " device"] = kernel_device_ms(torch, call, "segsum")
+            del ids, vals
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(CHAIN_ROWS, CHAIN_D))
+    kernels = [s.transform_kernel()
+               for s in chain_models(x, rng.normal(size=CHAIN_D))]
+    program = kchain.ChainProgram(kernels, ["features"],
+                                  ["s4", "prediction", "rawPrediction"])
+    consts = tuple(k.constants for k in kernels)
+    for dtype in ("float64", "float32"):
+        xp = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+        call = (lambda: program([xp], consts, CHAIN_ROWS))
+        out[f"fused_chain {dtype}"] = timer(call)
+        out[f"fused_chain {dtype} device"] = kernel_device_ms(
+            torch, call, "fused_chain")
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1498,9 +1573,177 @@ def ab_main(old: str) -> int:
     return 0
 
 
+# -- --variants: edited kernel sources timed through the wrappers -----------------
+
+_CHAIN_DIV = ("v = b > T(0) ? (v - a) / b : T(0.5);",
+              "v = b > T(0) ? (v - a) * b : T(0.5);")
+_CHAIN_DIV2 = ("if (op & 4u) v = v / b;", "if (op & 4u) v = v * b;")
+_CHAIN_LOAD = ("if (active && row + step < n_rows) W::load(x + (row + step) "
+               "* d + col, next);",
+               "for (int j = 0; j < V; ++j) next[j] = T(j) + T(0.25);")
+_CHAIN_STORE = ("if (out != nullptr) W::store(out + row * d + col, v);",
+                "if (out != nullptr && v[0] == T(-12345)) "
+                "W::store(out + row * d + col, v);")
+
+#: (name, source, literal edits): what each step of a kernel costs. A
+#: variant that removes work gives wrong outputs on purpose.
+VARIANTS = (
+    ("chain as built", "chain.cu", []),
+    ("chain: no x loads, no s4 stores", "chain.cu",
+     [_CHAIN_LOAD, _CHAIN_STORE]),
+    ("chain: the 4 divisions as multiplies", "chain.cu",
+     [_CHAIN_DIV, _CHAIN_DIV2]),
+    ("chain: no sigmoid in the head", "chain.cu",
+     [("const T p = T(1) / (T(1) + exp_t(-acc));", "const T p = acc;")]),
+    ("chain: 256-thread blocks", "chain.cu",
+     [("constexpr int kVecThreads = 128;", "constexpr int kVecThreads = 256;")]),
+    ("segsum as built", "segsum.cu", []),
+    ("segsum: sorted runs stop at the owner's cells", "segsum.cu",
+     [("    while (going && j < cells) {", "    while (false && j < cells) {")]),
+    ("segsum: sorted without the gap zeroes", "segsum.cu",
+     [("  zero_gaps(lo, hi, out);\n", "")]),
+)
+
+
+def build_variants(variants):
+    """Write and build every variant (one ``nvcc`` each, in parallel, with
+    the kernels' flags, into ``kernels/build/variants``); ``{name: CDLL}``."""
+    import ctypes
+
+    from flinkml_tpu_torch.kernels import _build
+
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, started = _build.nvcc_path(), []
+    for i, (name, source, edits) in enumerate(variants):
+        with open(os.path.join(_build.CSRC_DIR, source)) as f:
+            text = f.read()
+        for old, new in edits:
+            if old not in text:
+                fail(f"variant {name!r}: {old!r} is not in {source}")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, f"v{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        lib = path[:-3] + ".so"
+        proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", lib, path],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started.append((name, proc, lib))
+    libs = {}
+    for name, proc, lib in started:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"variant {name!r} failed to build:\n{out}")
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+class Through:
+    """Route the kernel launches of the wrappers to ``lib`` while open."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        import ctypes
+
+        from flinkml_tpu_torch.kernels import _build
+
+        self.orig = _build.function
+
+        def function(name, symbol, argtypes, restype=ctypes.c_int):
+            fn = getattr(self.lib, symbol)
+            fn.argtypes, fn.restype = list(argtypes), restype
+            return fn
+        _build.function = function
+
+    def __exit__(self, *exc):
+        from flinkml_tpu_torch.kernels import _build
+
+        _build.function = self.orig
+
+
+def kernel_device_ms(torch, fn, name: str, iters: int = 20):
+    """Mean device time per call of ``fn`` of the kernels whose name holds
+    ``name``, from ``torch.profiler`` (None when it reports none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key)
+    return total / iters / 1e3 if total > 0 else None
+
+
+def variants_main() -> int:
+    """``--variants``: every entry of :data:`VARIANTS` through the port's
+    own wrapper at the kernel phase's shapes (``fused_chain`` 100,000 x 32,
+    ``segment_sum`` at the fit shape), timed by :class:`Timer` and by the
+    profiler's device time of the kernel alone; one JSON line each."""
+    import torch
+
+    from flinkml_tpu_torch.kernels import chain as kchain
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --variants: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    print(card_line(), flush=True)
+    timer = Timer(torch)
+    libs = build_variants(VARIANTS)
+
+    def report(name, call, kernel, **keys):
+        with Through(libs[name]):
+            rec = {"variant": name, **keys, "ms": timer(call),
+                   "device_ms": kernel_device_ms(torch, call, kernel)}
+        print(json.dumps(rec), flush=True)
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(CHAIN_ROWS, CHAIN_D))
+    kernels = [s.transform_kernel()
+               for s in chain_models(x, rng.normal(size=CHAIN_D))]
+    consts = tuple(k.constants for k in kernels)
+    program = kchain.ChainProgram(kernels, ["features"],
+                                  ["s4", "prediction", "rawPrediction"])
+    for dtype in ("float64", "float32"):
+        xp = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+        for name, source, _ in VARIANTS:
+            if source == "chain.cu":
+                report(name, lambda: program([xp], consts, CHAIN_ROWS),
+                       "fused_chain", dtype=dtype)
+
+    _, indices, values, _, _ = make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM,
+                                               SPMV_NNZ, seed=5)
+    order = np.argsort(indices, kind="stable")
+    for dtype in ("float32", "float64"):
+        for sorted_ids in (True, False):
+            sel = order if sorted_ids else slice(None)
+            ids = torch.from_numpy(indices[sel]).cuda()
+            vals = torch.from_numpy(values[sel].astype(dtype)).cuda()
+            for name, source, _ in VARIANTS:
+                # The "sorted" variants edit the sorted path only.
+                if source != "segsum.cu" or (
+                        ": sorted" in name and not sorted_ids):
+                    continue
+                report(name, lambda: ksegsum.segment_sum(
+                    vals, ids, SPMV_DIM, indices_are_sorted=sorted_ids),
+                    "segsum", dtype=dtype, sorted=sorted_ids)
+            del ids, vals
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-inner":
         sys.exit(ab_inner(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--variants":
+        sys.exit(variants_main())
     sys.exit(main())

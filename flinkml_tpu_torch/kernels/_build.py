@@ -7,6 +7,9 @@ in ``kernels/build/`` (git-ignored) under a name that carries a hash of the
 source and the flags, so an edited source never loads a stale library.
 The build happens at first use, or up front for every source at once with
 :func:`build_all` (one ``nvcc`` process per source, all started together).
+The measurement probes in ``probes/*.cu`` (not kernels of the port: each
+times one floor of the card, such as its random-gather rate) build the
+same way, by the same name scheme.
 
 Every C entry point takes ``c_void_p`` for each pointer and for the CUDA
 stream, ``c_int``/``c_int64`` for sizes, launches on the given stream, and
@@ -29,6 +32,7 @@ import time
 from typing import Dict, List, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probes")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 NVCC_FLAGS = (
@@ -66,14 +70,29 @@ def nvcc_path() -> str:
     )
 
 
+def _cu_names(directory: str) -> List[str]:
+    return sorted(f[:-3] for f in os.listdir(directory) if f.endswith(".cu"))
+
+
 def sources() -> List[str]:
     """Kernel library names: one per ``csrc/*.cu``."""
-    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    return _cu_names(CSRC_DIR)
+
+
+def probes() -> List[str]:
+    """Measurement probe library names: one per ``probes/*.cu``."""
+    return _cu_names(PROBE_DIR)
+
+
+def _source_path(name: str) -> str:
+    path = os.path.join(CSRC_DIR, f"{name}.cu")
+    return path if os.path.exists(path) else os.path.join(PROBE_DIR,
+                                                          f"{name}.cu")
 
 
 def _library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+    with open(_source_path(name), "rb") as f:
         h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -87,7 +106,7 @@ def _start(name: str, nvcc: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{final}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source_path(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, final
@@ -101,7 +120,8 @@ def _finish(name: str, started) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"nvcc failed to build kernels/csrc/{name}.cu "
+            f"nvcc failed to build kernels/"
+            f"{os.path.relpath(_source_path(name), os.path.dirname(CSRC_DIR))} "
             f"(exit {proc.returncode}):\n{out}"
         )
     # Atomic publish: a concurrent process never loads a partial file.
@@ -109,10 +129,10 @@ def _finish(name: str, started) -> None:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every kernel library not built yet, one ``nvcc`` per source,
-    all in parallel. Returns ``{name: seconds}`` (0.0 for a library that
-    was already built)."""
-    names = sources()
+    """Build every kernel and probe library not built yet, one ``nvcc`` per
+    source, all in parallel. Returns ``{name: seconds}`` (0.0 for a library
+    that was already built)."""
+    names = sources() + probes()
     with _LOCK:
         nvcc = nvcc_path()
         t0 = time.perf_counter()

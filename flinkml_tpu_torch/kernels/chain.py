@@ -18,7 +18,10 @@ tensor}`` (``consts``: per kernel, its host constant arrays):
 - :class:`ChainProgram` — the CUDA kernel. The host reads each stage's op
   from its fingerprint, casts its constants to the compute dtype BEFORE the
   zero guards (as the per-stage transforms do), packs them into one small
-  table (uploaded once per set of model arrays), and launches.
+  table (uploaded once per set of model arrays), and launches on one of two
+  routes, picked by the fixed rule :func:`route`: ``vector`` (lane groups
+  with 16-byte loads, for rows of whole 16-byte chunks) or ``scalar`` (one
+  warp per row, any width).
 
 Which outputs are written follows the executor's request: the eager
 program of a scaler→LR run writes the last scaler's output (pinned by the
@@ -53,10 +56,17 @@ HEAD_STAGE = "LogisticRegressionModel"
 
 LAUNCHES = _gate.launch_counter("fused_chain")
 
+#: Bytes of one vector access of the ``vector`` route, and the most such
+#: chunks a row may have there (one lane each, a warp per row at most).
+VECTOR_BYTES = 16
+MAX_VECTOR_CHUNKS = 32
+ROUTES = ("vector", "scalar")
+
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,      # x, table
     ctypes.c_int, ctypes.c_uint,           # n_run, ops
     ctypes.c_int, ctypes.c_int,            # d, head
+    ctypes.c_int,                          # group (0: the scalar route)
     ctypes.c_int64,                        # n_rows
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # out, pred, raw
     ctypes.c_void_p,                       # stream
@@ -66,6 +76,30 @@ _SYMBOLS = {torch.float32: "fml_fused_chain_f32",
 
 # Op bits of one stage (see csrc/chain.cu).
 _MINMAX, _SUB, _DIV = 1, 2, 4
+
+
+def route(d: int, itemsize: int, x_ptr: int) -> str:
+    """The fixed rule: ``vector`` when a row of ``d`` elements is a whole
+    number of 16-byte chunks, at most :data:`MAX_VECTOR_CHUNKS`, and x
+    starts 16-byte aligned (then every row does); ``scalar`` otherwise."""
+    chunks, rest = divmod(d * itemsize, VECTOR_BYTES)
+    if rest == 0 and 1 <= chunks <= MAX_VECTOR_CHUNKS \
+            and x_ptr % VECTOR_BYTES == 0:
+        return "vector"
+    return "scalar"
+
+
+def lane_group(d: int, itemsize: int) -> Tuple[int, int, int]:
+    """The ``vector`` route's mapping of a row to lanes: ``(group,
+    rows_per_warp, columns_per_lane)``. A group of lanes (the row's chunk
+    count rounded up to a power of two) covers one row, lane ``q`` of the
+    group columns ``[q * columns_per_lane, + columns_per_lane)``; lanes
+    past the row's chunks idle."""
+    chunks = d * itemsize // VECTOR_BYTES
+    group = 1
+    while group < chunks:
+        group *= 2
+    return group, 32 // group, VECTOR_BYTES // itemsize
 
 
 def _stage_name(kernel) -> str:
@@ -262,6 +296,9 @@ class ChainProgram:
                 f"than the {MAX_SMEM_BYTES} bytes of shared memory a block "
                 "can hold",
             )
+        group = (lane_group(d, x.element_size())[0]
+                 if route(d, x.element_size(), x.data_ptr()) == "vector"
+                 else 0)
         table, ops = self.table(consts, x.dtype, x.device, d)
         new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
         outs: Dict[str, torch.Tensor] = {}
@@ -278,7 +315,7 @@ class ChainProgram:
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code = fn(x.data_ptr(), table.data_ptr(), plan.n_run, ops, d,
-                      int(plan.head), int(n_valid), ptr(plan.out_col),
+                      int(plan.head), group, int(n_valid), ptr(plan.out_col),
                       ptr(plan.pred_col), ptr(plan.raw_col), stream)
         _build.check("fused_chain", "chain", code)
         LAUNCHES.bump()

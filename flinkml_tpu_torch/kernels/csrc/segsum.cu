@@ -4,33 +4,54 @@
 // _unsorted_body :89, _sorted_body :107, _unsorted_grid_body :136,
 // _sorted_grid_body :166):
 //   out[ids[j], c] += values[j, c]
-// into a zeroed [num_segments, k] output (k = 1 for the flat form); the
-// wrapper allocates the zeroed output. ids are trusted to lie in
-// [0, num_segments): the host packers check them before upload.
+// into [num_segments, k] (k = 1 for the flat form). ids are trusted to lie
+// in [0, num_segments): the host packers check them before upload.
 //
-// What bounds it on the H100: bytes. Each cell is read once (4 B id + 4 B
-// value at f32) and added once: at the sparse-fit step shape (262,144 rows
-// x 39 cells, 1e6 segments, f32) that is ~82 MB, about 25 us at 3.35 TB/s,
-// against ~10 M additions. The [1e6] f32 output (4 MB) stays in the 50 MB
-// L2, where the atomics resolve.
+// What bounds it on the H100. Bytes: each cell is read once (4 B id + 4 B
+// value at f32) and each output element written once; at the sparse-fit
+// step shape (262,144 rows x 39 cells, 1e6 segments, f32) that is ~86 MB,
+// about 26 us at 3.35 TB/s. The unsorted path's adds land at random ids of
+// a 4 MB output that stays in the 50 MB L2, so its true floor is the card's
+// rate of random L2 reductions (kernels/probes/red_floor.cu measures it),
+// not HBM bytes.
 //
 // The TPU kernel walks the cells in order on one core, carrying the sum in
 // VMEM; a GPU runs its blocks in parallel and in no order. Two paths:
 //
-// - unsorted: one atomicAdd per cell and payload column, a grid-stride
-//   loop over the cells. Neighbouring threads read neighbouring cells, so
-//   the reads are coalesced; the adds resolve in L2. The atomics add in an
-//   order that changes from run to run, so the result equals the in-order
-//   sum only within rounding (the wrapper refuses this path when PyTorch's
-//   deterministic mode is on).
-// - sorted (ids ascending): a run-flush with no atomics. Each thread owns
-//   a contiguous chunk of kChunk cells and one payload column. It skips the
-//   cells at its chunk's start that continue the previous chunk's run, and
-//   for every run whose first cell lies in its chunk it sums the run left
-//   to right (reading past its chunk's end when the run does) and stores
-//   the total once. Every segment is written by exactly one thread, in the
-//   TPU kernel's order (0 + v0 + v1 + ...), so the result is the same on
-//   every run and equals the in-order sum bit for bit.
+// - unsorted: fire-and-forget reductions (atomicAdd with its result unused
+//   compiles to RED). Flat: a grid-stride loop, one cell per thread per
+//   step, neighbouring threads on neighbouring cells. It already runs at
+//   1.1x the card's random-reduction floor (probes/red_floor.cu): 4, 8 or
+//   16 cells a thread from 16-byte loads with their REDs back to back
+//   timed no faster, so the loop stays. [cells, k]: a 2-D block maps
+//   threads to (cell, group of V payload columns) with no division;
+//   V = 4 or 2 uses Hopper's vector reduction (red.global.add.v4/v2.f32)
+//   for float32. The output must be zeroed first (the wrapper does). The
+//   adds land in an order that changes from run to run, so the result
+//   equals the in-order sum only within rounding (the wrapper refuses this
+//   path when PyTorch's deterministic mode is on).
+// - sorted (ids ascending): a run-flush with no atomics and no memset.
+//   Every segment equals 0 + v0 + v1 + ... in cell order bit for bit, as
+//   the JAX _sorted_body adds, and every output element is written exactly
+//   once:
+//   * the segments before ids[0] and after ids[cells - 1] are zeroed by the
+//     whole grid (every block reads those two ids);
+//   * a run belongs to the thread that owns its first cell; that thread
+//     sums the run left to right and stores it once, and zeroes the
+//     segments between the previous cell's id and its own.
+//   Flat: each block stages one tile of kTile cells (ids and values) into
+//   shared memory with cp.async (16-byte copies from the aligned phase,
+//   element copies otherwise); the 8 blocks resident on an SM overlap one
+//   tile's copies with another's sums (measured faster than a persistent
+//   block that double-buffers its tiles). Thread t owns the tile's cells
+//   [8t, 8t + 8) and reads them as 16-byte vectors (a 32-byte stride, so a
+//   2-way bank conflict per quarter-warp: an XOR-swizzled layout free of
+//   conflicts measured no faster); a run that leaves its cells continues
+//   through the next owners' cells, read the same way 8 at a time, and
+//   past the tile from device memory. The gap zeroes of a
+//   warp are written by all its lanes together, so long gaps store whole
+//   lines. [cells, k]: threads map to (chunk of kChunk cells, payload
+//   column), reading neighbouring columns of the same cells.
 //
 // No synchronisation and no allocation: the wrapper allocates `out` and
 // launches on PyTorch's current stream.
@@ -41,99 +62,422 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Cells per thread in the sorted run-flush.
-constexpr int kChunk = 16;
-// Blocks of the grid-stride unsorted loop: 32 per SM of the H100's 132.
+// Blocks of the grid-stride unsorted flat loop: 32 per SM of the H100's 132.
 constexpr int kMaxBlocks = 132 * 32;
+// Unsorted [cells, k]: cells per thread.
+constexpr int kRowCells = 4;
+// Sorted flat: cells per thread and per tile.
+constexpr int kOwn = 8;
+constexpr int kTile = kThreads * kOwn;
+// Sorted [cells, k]: cells per chunk.
+constexpr int kChunk = 16;
 
+// ---------------------------------------------------------------- loads ----
+
+// V consecutive payload values at p (p aligned to V elements).
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float* o) {
+  if constexpr (V == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    o[0] = q.x;
+    o[1] = q.y;
+    o[2] = q.z;
+    o[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
+    o[0] = q.x;
+    o[1] = q.y;
+  } else {
+    o[0] = __ldcs(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_v(const double* p, double* o) {
+  if constexpr (V == 2) {
+    const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+    o[0] = q.x;
+    o[1] = q.y;
+  } else {
+    o[0] = __ldcs(p);
+  }
+}
+
+// ---------------------------------------------------------- reductions ----
+
+// out[0..V) += v[0..V); the result is unused, so each is a RED.
+template <int V>
+__device__ __forceinline__ void red_v(float* p, const float* v) {
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void red_v(double* p, const double* v) {
+  // PTX has no vector form of red.add for f64.
+#pragma unroll
+  for (int j = 0; j < V; ++j) atomicAdd(p + j, v[j]);
+}
+
+// -------------------------------------------------------------- unsorted ----
+
+// Flat: a grid-stride loop, one RED per cell.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segsum_unsorted_kernel(const T* __restrict__ values,
-                       const int32_t* __restrict__ ids,
-                       int cells, int k, T* __restrict__ out) {
+segsum_unsorted_flat(const T* __restrict__ values,
+                     const int32_t* __restrict__ ids, int cells,
+                     T* __restrict__ out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k == 1) {
-    for (int64_t j = start; j < cells; j += stride) {
-      atomicAdd(out + __ldg(ids + j), __ldg(values + j));
-    }
-    return;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < cells; j += stride) {
+    atomicAdd(out + __ldg(ids + j), __ldg(values + j));
   }
-  const int64_t total = static_cast<int64_t>(cells) * k;
-  for (int64_t e = start; e < total; e += stride) {
-    const int64_t j = e / k;
-    const int c = static_cast<int>(e - j * k);
-    atomicAdd(out + static_cast<int64_t>(__ldg(ids + j)) * k + c,
-              __ldg(values + e));
+}
+
+// [cells, k]: block (bx, by) takes cells [blockIdx.x * by * kRowCells, ...);
+// thread (x, y) the cells y, y + by, ... of them and the column groups
+// x, x + bx, ... of V columns each (k = V * groups).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+segsum_unsorted_rows(const T* __restrict__ values,
+                     const int32_t* __restrict__ ids, int cells, int k,
+                     T* __restrict__ out) {
+  const int by = blockDim.y;
+  const int groups = k / V;
+  const int cell0 = blockIdx.x * by * kRowCells + threadIdx.y;
+  int id[kRowCells];
+#pragma unroll
+  for (int p = 0; p < kRowCells; ++p) {
+    const int c = cell0 + p * by;
+    id[p] = c < cells ? __ldg(ids + c) : 0;
+  }
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    T v[kRowCells][V];
+#pragma unroll
+    for (int p = 0; p < kRowCells; ++p) {
+      const int c = cell0 + p * by;
+      if (c < cells) load_v<V>(values + c * k + g * V, v[p]);
+    }
+#pragma unroll
+    for (int p = 0; p < kRowCells; ++p) {
+      if (cell0 + p * by < cells) red_v<V>(out + id[p] * k + g * V, v[p]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- sorted ----
+
+// Zero the segments before ids[0] and after ids[cells - 1] (k elements
+// each), grid-stride over all threads of the launch.
+template <typename T>
+__device__ __forceinline__ void zero_head_tail(const int32_t* __restrict__ ids,
+                                               int cells, int k,
+                                               int num_segments,
+                                               T* __restrict__ out) {
+  const int n_threads = gridDim.x * blockDim.x * blockDim.y;
+  const int gtid = (blockIdx.x * blockDim.y + threadIdx.y) * blockDim.x +
+                   threadIdx.x;
+  const int head = __ldg(ids) * k;
+  for (int e = gtid; e < head; e += n_threads) out[e] = T(0);
+  const int tail = (__ldg(ids + cells - 1) + 1) * k;
+  for (int e = tail + gtid; e < num_segments * k; e += n_threads) out[e] = T(0);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Copy the tile's cells [tb, tb + kTile) ∩ [0, cells) of `src` to `dst`
+// (cell tb + s at dst[s]): whole 16-byte chunks in one copy when `aligned`
+// (tb is on the 16-byte phase), element by element otherwise and at the
+// edges.
+template <typename E>
+__device__ __forceinline__ void stage(E* dst, const E* __restrict__ src,
+                                      long long tb, int cells, bool aligned) {
+  constexpr int per = 16 / sizeof(E);
+  for (int q = threadIdx.x; q < kTile / per; q += kThreads) {
+    const long long c = tb + q * per;
+    if (aligned && c >= 0 && c + per <= cells) {
+      cp_async(dst + (q * per), src + c, 16);
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < per; ++j) {
+      if (c + j >= 0 && c + j < cells) {
+        cp_async(dst + (q * per + j), src + c + j, sizeof(E));
+      }
+    }
+  }
+}
+
+// The owner's 8 cells from the tile: two int4 of ids, and two float4 or
+// four double2 of values.
+__device__ __forceinline__ void read_own(const int32_t* sid, int s0, int* id) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int4 q = *reinterpret_cast<const int4*>(sid + (s0 + 4 * h));
+    id[4 * h] = q.x;
+    id[4 * h + 1] = q.y;
+    id[4 * h + 2] = q.z;
+    id[4 * h + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void read_own(const float* sv, int s0, float* v) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 q = *reinterpret_cast<const float4*>(sv + (s0 + 4 * h));
+    v[4 * h] = q.x;
+    v[4 * h + 1] = q.y;
+    v[4 * h + 2] = q.z;
+    v[4 * h + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void read_own(const double* sv, int s0, double* v) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const double2 q = *reinterpret_cast<const double2*>(sv + (s0 + 2 * h));
+    v[2 * h] = q.x;
+    v[2 * h + 1] = q.y;
+  }
+}
+
+// Each lane's gaps [lo[i], hi[i]) zeroed by the whole warp, lane after
+// lane, 32 consecutive segments per store instruction. All lanes call it;
+// with no gap in the warp it costs one vote.
+template <typename T>
+__device__ __forceinline__ void zero_gaps(const int* lo, const int* hi,
+                                          T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < kOwn; ++i) any |= hi[i] > lo[i];
+  unsigned pending = __ballot_sync(0xffffffffu, any);
+  while (pending) {
+    const int src = __ffs(pending) - 1;
+    pending &= pending - 1;
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      const int a = __shfl_sync(0xffffffffu, lo[i], src);
+      const int b = __shfl_sync(0xffffffffu, hi[i], src);
+      for (int s = a + lane; s < b; s += 32) out[s] = T(0);
+    }
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segsum_sorted_kernel(const T* __restrict__ values,
-                     const int32_t* __restrict__ ids,
-                     int cells, int k, int64_t n_threads,
-                     T* __restrict__ out) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_threads) return;
-  // (chunk, column), column fastest: neighbouring threads read
-  // neighbouring payload columns of the same cells.
-  const int64_t chunk = t / k;
-  const int c = static_cast<int>(t - chunk * k);
-  const int64_t lo = chunk * kChunk;
-  const int64_t hi = lo + kChunk < cells ? lo + kChunk : cells;
-  int64_t j = lo;
-  if (j > 0) {
+segsum_sorted_flat(const T* __restrict__ values,
+                   const int32_t* __restrict__ ids, int cells,
+                   int num_segments, int phase, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int32_t* tid_s = reinterpret_cast<int32_t*>(smem_raw);        // [kTile]
+  T* tval_s = reinterpret_cast<T*>(smem_raw + kTile * sizeof(int32_t));
+
+  zero_head_tail(ids, cells, 1, num_segments, out);
+
+  // Tiles start on the aligned phase; the first one may start up to 3
+  // cells before cell 0 (those slots are never loaded or read).
+  const bool aligned = phase >= 0;
+  const long long base0 = phase > 0 ? phase - 4 : 0;
+  const long long tb = base0 + static_cast<long long>(blockIdx.x) * kTile;
+  stage(tid_s, ids, tb, cells, aligned);
+  stage(tval_s, values, tb, cells, aligned);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const long long c0 = tb + kOwn * t;
+  int id[kOwn];
+  T v[kOwn];
+  read_own(tid_s, kOwn * t, id);
+  read_own(tval_s, kOwn * t, v);
+  // The id of the cell before this thread's first (-1 before cell 0).
+  int cur = -1;
+  if (c0 >= 1 && c0 - 1 < cells) {
+    cur = t > 0 ? tid_s[(kOwn * t - 1)] : __ldg(ids + c0 - 1);
+  }
+  bool owned = false;
+  T acc = T(0);
+  int lo[kOwn], hi[kOwn];
+#pragma unroll
+  for (int i = 0; i < kOwn; ++i) {
+    const long long c = c0 + i;
+    lo[i] = hi[i] = 0;
+    if (c >= 0 && c < cells) {
+      if (id[i] != cur) {     // a run starts at c: this thread owns it
+        if (owned) out[cur] = acc;
+        if (c > 0) {
+          lo[i] = cur + 1;
+          hi[i] = id[i];
+        }
+        cur = id[i];
+        owned = true;
+        acc = T(0);
+      }
+      if (owned) acc += v[i];
+    }
+  }
+  zero_gaps(lo, hi, out);
+  if (owned) {
+    // The run may go on past this thread's cells: the next owners' cells
+    // 8 at a time from shared memory to the tile's end, then device
+    // memory cell by cell.
+    long long j = c0 + kOwn;
+    const long long tile_end = tb + kTile;
+    bool going = true;
+    while (going && j < cells) {
+      if (j < tile_end) {
+        read_own(tid_s, static_cast<int>(j - tb), id);
+        read_own(tval_s, static_cast<int>(j - tb), v);
+#pragma unroll
+        for (int i = 0; i < kOwn; ++i) {
+          going = going && j + i < cells && id[i] == cur;
+          if (going) acc += v[i];
+        }
+        j += kOwn;
+      } else {
+        going = __ldg(ids + j) == cur;
+        if (going) acc += __ldg(values + j);
+        ++j;
+      }
+    }
+    out[cur] = acc;
+  }
+}
+
+// [cells, k]: block (bx, by); thread (x, y) owns chunk blockIdx.x * by + y
+// (kChunk cells) for the columns x, x + bx, ...
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+segsum_sorted_rows(const T* __restrict__ values,
+                   const int32_t* __restrict__ ids, int cells, int k,
+                   int num_segments, T* __restrict__ out) {
+  zero_head_tail(ids, cells, k, num_segments, out);
+  const int chunk = blockIdx.x * blockDim.y + threadIdx.y;
+  const long long lo64 = static_cast<long long>(chunk) * kChunk;
+  if (lo64 >= cells) return;
+  const int lo = static_cast<int>(lo64);
+  const int hi = lo + kChunk < cells ? lo + kChunk : cells;
+  const int before = lo > 0 ? __ldg(ids + lo - 1) : -1;
+  for (int col = threadIdx.x; col < k; col += blockDim.x) {
+    int j = lo;
+    int cur = before;
     // The run entering from the left belongs to the chunk it starts in.
-    const int32_t prev = __ldg(ids + j - 1);
-    while (j < hi && __ldg(ids + j) == prev) ++j;
+    while (j < hi && __ldg(ids + j) == cur) ++j;
+    while (j < hi) {
+      const int id = __ldg(ids + j);
+      if (j > 0) {
+        for (int s = cur + 1; s < id; ++s) out[s * k + col] = T(0);
+      }
+      T acc = T(0);
+      do {
+        acc += __ldg(values + j * k + col);
+        ++j;
+      } while (j < cells && __ldg(ids + j) == id);
+      out[id * k + col] = acc;
+      cur = id;
+    }
   }
-  while (j < hi) {
-    const int32_t id = __ldg(ids + j);
-    T acc = T(0);
-    do {
-      acc += __ldg(values + j * k + c);
-      ++j;
-    } while (j < cells && __ldg(ids + j) == id);
-    out[static_cast<int64_t>(id) * k + c] = acc;
-  }
+}
+
+// ---------------------------------------------------------------- launch ----
+
+// Block shape (bx, by) for [cells, k]: bx threads across `width` column
+// groups (a power of two, at most kThreads), by = kThreads / bx.
+dim3 row_block(int width) {
+  int bx = 1;
+  while (bx < width && bx < kThreads) bx <<= 1;
+  return dim3(bx, kThreads / bx);
+}
+
+template <typename T, int V>
+void launch_unsorted_rows(const T* v, const int32_t* i, int cells, int k,
+                          T* o, cudaStream_t s) {
+  const dim3 block = row_block(k / V);
+  const int per_block = block.y * kRowCells;
+  const int blocks = (cells + per_block - 1) / per_block;
+  segsum_unsorted_rows<T, V><<<blocks, block, 0, s>>>(v, i, cells, k, o);
 }
 
 template <typename T>
 int launch(bool sorted, const void* values, const void* ids, int cells,
-           int k, void* out, void* stream) {
+           int k, int num_segments, int phase, int vec, void* out,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* v = static_cast<const T*>(values);
   const int32_t* i = static_cast<const int32_t*>(ids);
   T* o = static_cast<T*>(out);
-  if (cells > 0 && k > 0) {
-    if (sorted) {
-      const int64_t chunks = (static_cast<int64_t>(cells) + kChunk - 1) / kChunk;
-      const int64_t n_threads = chunks * k;
-      const int64_t blocks = (n_threads + kThreads - 1) / kThreads;
-      segsum_sorted_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-          v, i, cells, k, n_threads, o);
+  if (cells <= 0 || k <= 0 || num_segments <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (sorted && k == 1) {
+    // One tile per block: the blocks resident on an SM overlap one tile's
+    // copies with another's sums.
+    const size_t smem = kTile * (sizeof(int32_t) + sizeof(T));
+    const long long base0 = phase > 0 ? phase - 4 : 0;
+    const long long tiles = (cells - base0 + kTile - 1) / kTile;
+    segsum_sorted_flat<T><<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
+        v, i, cells, num_segments, phase, o);
+  } else if (sorted) {
+    const dim3 block = row_block(k);
+    const long long chunks = (static_cast<long long>(cells) + kChunk - 1) / kChunk;
+    const int blocks = static_cast<int>((chunks + block.y - 1) / block.y);
+    segsum_sorted_rows<T><<<blocks, block, 0, s>>>(v, i, cells, k,
+                                                     num_segments, o);
+  } else if (k == 1) {
+    long long blocks = (static_cast<long long>(cells) + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    segsum_unsorted_flat<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        v, i, cells, o);
+  } else if (vec == 4) {
+    if constexpr (sizeof(T) == 4) {
+      launch_unsorted_rows<T, 4>(v, i, cells, k, o, s);
     } else {
-      const int64_t total = static_cast<int64_t>(cells) * k;
-      int64_t blocks = (total + kThreads - 1) / kThreads;
-      if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-      segsum_unsorted_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-          v, i, cells, k, o);
+      return static_cast<int>(cudaErrorInvalidValue);
     }
+  } else if (vec == 2) {
+    launch_unsorted_rows<T, 2>(v, i, cells, k, o, s);
+  } else {
+    launch_unsorted_rows<T, 1>(v, i, cells, k, o, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// vec: payload columns per vector access on the unsorted [cells, k] path
+// (4 or 2 when k and the values' alignment allow it, else 1); phase (the
+// sorted flat path): the cell at which ids and values are both 16-byte
+// aligned (-1: none).
 extern "C" int fml_segsum_f32(int sorted, const void* values, const void* ids,
-                              int cells, int k, void* out, void* stream) {
-  return launch<float>(sorted != 0, values, ids, cells, k, out, stream);
+                              int cells, int k, int num_segments, int phase,
+                              int vec, void* out, void* stream) {
+  return launch<float>(sorted != 0, values, ids, cells, k, num_segments, phase,
+                       vec, out, stream);
 }
 
 extern "C" int fml_segsum_f64(int sorted, const void* values, const void* ids,
-                              int cells, int k, void* out, void* stream) {
-  return launch<double>(sorted != 0, values, ids, cells, k, out, stream);
+                              int cells, int k, int num_segments, int phase,
+                              int vec, void* out, void* stream) {
+  return launch<double>(sorted != 0, values, ids, cells, k, num_segments,
+                        phase, vec, out, stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

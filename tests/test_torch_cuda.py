@@ -21,6 +21,7 @@ from flinkml_tpu_torch.kernels import spmv as kspmv
 from flinkml_tpu_torch.kernels import topk as ktopk
 from flinkml_tpu_torch.models import _linear_sgd
 from flinkml_tpu_torch.models import kmeans as _kmeans
+from tests._segsum_ids import sorted_id_patterns
 
 pytestmark = pytest.mark.cuda
 
@@ -174,6 +175,135 @@ def test_segment_sum_kernel_matches_plain(cuda_device, sorted_ids, dtype, tol,
         ksegsum.segment_sum(tv, ti.long(), nseg)
     empty = ksegsum.segment_sum(tv[:0], ti[:0], nseg)
     assert ksegsum.LAUNCHES.count == before + 1 and not empty.any()
+
+
+def _segsum_operands(device, ids, k, dtype, offsets, seed):
+    """ids and values on the card as views ``offsets = (ids, values)``
+    elements (rows) into their buffers, so the 16-byte phase logic runs."""
+    rng = np.random.default_rng(seed)
+    id_off, val_off = offsets
+    cells = ids.size
+    id_buf = np.zeros(cells + id_off, np.int32)
+    id_buf[id_off:] = ids
+    shape = (cells + val_off,) if k is None else (cells + val_off, k)
+    val_buf = rng.normal(size=shape)
+    ti = torch.from_numpy(id_buf).to(device)[id_off:]
+    tv = torch.from_numpy(val_buf).to(device, dtype)[val_off:]
+    return tv, ti
+
+
+def _poison(shape, dtype, device):
+    """A freed block of the output's size full of NaN: an element the
+    kernel does not write reads NaN."""
+    torch.full(shape, float("nan"), dtype=dtype, device=device)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pattern", sorted(sorted_id_patterns()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [None, 16])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 3)])
+def test_segment_sum_sorted_bitwise_every_element_written(
+        cuda_device, pattern, dtype, k, offsets):
+    """The sorted path equals the in-order sum bit for bit, gaps included,
+    on an output block poisoned with NaN (no memset: every element is
+    written once), on views off the 16-byte phase."""
+    ids, nseg = sorted_id_patterns()[pattern]
+    tv, ti = _segsum_operands(cuda_device, ids, k, dtype, offsets, seed=1)
+    _poison((nseg,) + tuple(tv.shape[1:]), dtype, cuda_device)
+    before = ksegsum.LAUNCHES.count
+    got = ksegsum.segment_sum(tv, ti, nseg, indices_are_sorted=True)
+    torch.cuda.synchronize()
+    assert ksegsum.LAUNCHES.count == before + 1
+    want = np.zeros((nseg,) + tuple(tv.shape[1:]), tv.cpu().numpy().dtype)
+    np.add.at(want, ids, tv.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    again = ksegsum.segment_sum(tv, ti, nseg, indices_are_sorted=True)
+    assert torch.equal(got, again)
+
+
+def _unsorted_reference(ids, vals, nseg, tol, u):
+    """The float64 in-order sum of ``vals`` (host, float64) per segment, and
+    the bound a float32/float64 sum of them in any order stays within:
+    ``tol * (1 + |sum|)``, or for a long segment ``8 u sqrt(n) sqrt(sum
+    v^2)`` — about 20 standard deviations of the rounding error of n
+    additions in a random order of mean-zero terms, and far below one
+    |v| of the segment."""
+    shape = (nseg,) + vals.shape[1:]
+    ref, sq = np.zeros(shape), np.zeros(shape)
+    np.add.at(ref, ids, vals)
+    np.add.at(sq, ids, vals * vals)
+    n = np.bincount(ids, minlength=nseg).reshape((-1,) + (1,) * (vals.ndim - 1))
+    bound = np.maximum(tol * (1 + np.abs(ref)), 8 * u * np.sqrt(n * sq))
+    return ref, bound
+
+
+@pytest.mark.parametrize("pattern", sorted(sorted_id_patterns()))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("k", [None, 16])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 3)])
+def test_segment_sum_unsorted_patterns_match_plain(cuda_device, pattern, dtype,
+                                                   tol, k, offsets):
+    """The unsorted path (the ids shuffled) and ``index_add_`` each against
+    the float64 sum of the same values, within ``_unsorted_reference``'s
+    bound, on the same id patterns and views; the same result with one
+    cell of the longest segment dropped (the cell of median |v|) falls
+    outside the bound."""
+    ids, nseg = sorted_id_patterns()[pattern]
+    ids = np.random.default_rng(2).permutation(ids)
+    tv, ti = _segsum_operands(cuda_device, ids, k, dtype, offsets, seed=3)
+    got = ksegsum.segment_sum(tv, ti, nseg)
+    want = ksegsum.segment_sum_plain(tv, ti, nseg)
+    torch.cuda.synchronize()
+    vals = tv.cpu().numpy().astype(np.float64)
+    ref, bound = _unsorted_reference(ids, vals, nseg, tol,
+                                     float(torch.finfo(dtype).eps) / 2)
+    for name, res in (("kernel", got), ("index_add_", want)):
+        err = np.abs(res.cpu().numpy().astype(np.float64) - ref)
+        assert (err <= bound).all(), (name, float((err - bound).max()))
+    # A dropped reduction must show: remove the median-|v| cell of the
+    # longest segment from the kernel's result.
+    seg = int(np.bincount(ids).argmax())
+    cells = np.flatnonzero(ids == seg)
+    first = np.abs(vals[cells] if k is None else vals[cells, 0])
+    cell = cells[np.argsort(first)[cells.size // 2]]
+    dropped = got.cpu().numpy().astype(np.float64)
+    where = seg if k is None else (seg, 0)
+    dropped[where] -= vals[cell] if k is None else vals[cell, 0]
+    assert abs(dropped[where] - ref[where]) > bound[where]
+
+
+@pytest.mark.parametrize("d", [1, 7, 32, 33, 123, 1000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_chain_kernel_routes_match_plain(cuda_device, d, dtype, tol, aligned):
+    """Both routes against the plain chain at widths on and off the
+    vector route, on 1,001 rows (not a multiple of any warp's rows); a
+    view one element into its buffer takes the scalar route."""
+    rows = 1001
+    model, x = _five_stage(rows, d=d, seed=d)
+    kernels = [s.transform_kernel() for s in model.stages]
+    buf = torch.zeros(rows * d + 1, dtype=dtype, device=cuda_device)
+    start = 0 if aligned else 1
+    xp = buf[start:start + rows * d].view(rows, d)
+    xp.copy_(torch.from_numpy(x).to(cuda_device, dtype))
+    vector = d * xp.element_size() % 16 == 0 and d * xp.element_size() <= 512
+    assert kchain.route(d, xp.element_size(), xp.data_ptr()) == (
+        "vector" if aligned and vector else "scalar")
+    consts = [k.constants for k in kernels]
+    outs = ["s4", "prediction", "rawPrediction"]
+    got = kchain.ChainProgram(kernels, ["features"], outs)([xp], consts, rows)
+    want = kchain.chain_plain(kernels, ["features"], outs, [xp], consts, rows)
+    torch.cuda.synchronize()
+    for c in ("s4", "rawPrediction"):
+        torch.testing.assert_close(got[c], want[c], rtol=tol, atol=tol)
+    dot = want["s4"].double() @ torch.from_numpy(
+        consts[-1]["coefficient"].reshape(-1)).to(cuda_device, torch.float64)
+    decisive = dot.abs() > 1e-4
+    assert torch.equal(got["prediction"][decisive],
+                       want["prediction"][decisive])
 
 
 def test_segment_sum_atomic_path_refused_when_deterministic(cuda_device):

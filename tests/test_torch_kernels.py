@@ -29,6 +29,7 @@ from flinkml_tpu_torch.kernels import chain as kchain
 from flinkml_tpu_torch.kernels import segsum as ksegsum
 from flinkml_tpu_torch.kernels import spmv as kspmv
 from flinkml_tpu_torch.kernels import topk as ktopk
+from tests._segsum_ids import sorted_id_patterns
 from tests._torch_port_common import (  # noqa: F401
     F32_ATOL,
     F32_RTOL,
@@ -233,6 +234,77 @@ def test_packed_table_reproduces_plain_chain(dtype, outs, on_cpu):
             np.testing.assert_array_equal(got[c], w)
 
 
+@pytest.mark.parametrize("d,itemsize,ptr,want", [
+    (32, 4, 0, "vector"), (32, 8, 16, "vector"), (4, 4, 32, "vector"),
+    (2, 8, 0, "vector"), (128, 4, 0, "vector"), (64, 8, 0, "vector"),
+    (12, 4, 0, "vector"),
+    (1, 4, 0, "scalar"), (1, 8, 0, "scalar"), (7, 4, 0, "scalar"),
+    (33, 4, 0, "scalar"), (123, 4, 0, "scalar"), (132, 4, 0, "scalar"),
+    (66, 8, 0, "scalar"), (1000, 8, 0, "scalar"),
+    (32, 4, 4, "scalar"), (32, 8, 8, "scalar"),
+])
+def test_chain_route_rule(d, itemsize, ptr, want):
+    """The vector route takes rows of whole 16-byte chunks (at most 32) on
+    a 16-byte-aligned base; every other width or view is scalar."""
+    assert kchain.route(d, itemsize, ptr) == want
+    assert want in kchain.ROUTES
+
+
+@pytest.mark.parametrize("d,itemsize,want", [
+    (32, 4, (8, 4, 4)), (32, 8, (16, 2, 2)), (4, 4, (1, 32, 4)),
+    (2, 8, (1, 32, 2)), (12, 4, (4, 8, 4)), (128, 4, (32, 1, 4)),
+    (64, 8, (32, 1, 2)), (40, 8, (32, 1, 2)),
+])
+def test_chain_lane_group(d, itemsize, want):
+    """A power-of-two lane group covers a row, one 16-byte chunk a lane:
+    at d=32 f32 eight lanes of 4 columns, four rows a warp."""
+    group, rows_per_warp, cols = kchain.lane_group(d, itemsize)
+    assert (group, rows_per_warp, cols) == want
+    assert group * rows_per_warp == 32 and group * cols * itemsize >= d * itemsize
+    assert (group // 2) * cols < d   # no group is twice what the row needs
+
+
+def _vector_route_dot(v, coef, itemsize):
+    """The vector route's dot, as csrc/chain.cu orders it: each lane of a
+    group adds its chunk's products left to right from 0, then a fixed xor
+    tree over the group's lanes (idle lanes add 0)."""
+    d = v.shape[1]
+    group, _, cols = kchain.lane_group(d, itemsize)
+    dt = v.dtype.type
+    parts = np.zeros((v.shape[0], group), v.dtype)
+    for q in range(group):
+        for j in range(q * cols, min((q + 1) * cols, d)):
+            parts[:, q] = parts[:, q] + v[:, j] * coef[j]
+    off = group // 2
+    while off:
+        parts = parts + parts[:, np.arange(group) ^ off]
+        off //= 2
+    assert parts.dtype == np.dtype(dt)
+    return parts[:, 0]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_vector_route_dot_order_within_tolerance(dtype, on_cpu):
+    """The vector route's dot order (lane chunks, xor tree) gives the plain
+    chain's rawPrediction within the declared tolerances."""
+    x, coef = dense_data(rows=64, d=32, seed=9)
+    _, port = five_stage_pair(x, coef)
+    kernels = _port_kernels(port)
+    x = x.astype(dtype)
+    outs = ("s4", "prediction", "rawPrediction")
+    want = kchain.chain_plain(kernels, ["features"], outs,
+                              [torch.from_numpy(x)],
+                              [k.constants for k in kernels], 64)
+    s4 = want["s4"].numpy()
+    dot = _vector_route_dot(s4, coef.astype(dtype), np.dtype(dtype).itemsize)
+    p = 1 / (1 + np.exp(-dot))
+    tol = (F64_RAW_RTOL, F64_RAW_RTOL) if dtype == np.float64 \
+        else (F32_RTOL, F32_ATOL)
+    np.testing.assert_allclose(np.stack([1 - p, p], -1),
+                               want["rawPrediction"].numpy(), rtol=tol[0],
+                               atol=tol[1])
+
+
 def test_chain_plans():
     x, coef = dense_data(rows=20)
     _, port = five_stage_pair(x, coef)
@@ -291,13 +363,10 @@ def test_pack_table_refuses_dim_mismatch():
 
 # -- segment_sum -------------------------------------------------------------------
 
-#: Cells per thread of the CUDA sorted run-flush (``csrc/segsum.cu`` kChunk).
-SEGSUM_CHUNK = 16
-
-
 def _segsum_inputs(cells, k, num_segments, dtype, sorted_ids, seed):
     """Seeded values and int32 ids; sorted ids come in runs of 1..40 cells,
-    so runs start, end inside and span the kernel's 16-cell chunks."""
+    so runs start, end inside and span the kernel's 8- and 16-cell
+    owners."""
     rng = np.random.default_rng(seed)
     shape = (cells,) if k is None else (cells, k)
     values = rng.normal(size=shape).astype(dtype)
@@ -312,28 +381,18 @@ def _segsum_inputs(cells, k, num_segments, dtype, sorted_ids, seed):
     return values, ids.astype(np.int32)
 
 
-def _run_flush_model(values, ids, num_segments, chunk=SEGSUM_CHUNK):
-    """The CUDA sorted kernel's arithmetic, thread by thread: each
-    (chunk, column) skips the run entering from the left, sums every run
-    that starts in its chunk left to right from 0 (reading past the chunk
-    end) and stores it once."""
+def _run_flush_model(values, ids, num_segments, phase=0):
+    """The CUDA sorted kernel's arithmetic, from its write plan
+    (``segsum.sorted_plan``): every segment it stores is ``0 + v[first] +
+    ... + v[end - 1]`` added left to right in the values' dtype."""
     v2 = values[:, None] if values.ndim == 1 else values
-    cells, k = v2.shape
-    out = np.zeros((num_segments, k), values.dtype)
-    for lo in range(0, cells, chunk):
-        hi = min(lo + chunk, cells)
-        for c in range(k):
-            j = lo
-            while 0 < j < hi and ids[j] == ids[lo - 1]:
-                j += 1
-            while j < hi:
-                seg, acc = ids[j], values.dtype.type(0)
-                while True:
-                    acc = values.dtype.type(acc + v2[j, c])
-                    j += 1
-                    if j >= cells or ids[j] != seg:
-                        break
-                out[seg, c] = acc
+    k = v2.shape[1]
+    out = np.full((num_segments, k), np.nan, values.dtype)
+    for seg, _, first, end in ksegsum.sorted_plan(ids, num_segments, k, phase):
+        acc = np.zeros(k, values.dtype)
+        for j in range(first, end):
+            acc = (acc + v2[j]).astype(values.dtype)
+        out[seg] = acc
     return out[:, 0] if values.ndim == 1 else out
 
 
@@ -361,17 +420,95 @@ def test_segment_sum_plain_matches_jax(backend, sorted_ids, dtype, shape,
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("k", [None, 3])
 def test_segment_sum_run_flush_model_is_bitwise_pallas(dtype, k):
-    """The CUDA run-flush's chunked order (modelled in numpy) equals the
-    Pallas sorted kernel bit for bit — runs shorter than, equal to and
-    longer than a chunk, crossing chunk boundaries."""
+    """The CUDA run-flush's order (modelled in numpy from its write plan)
+    equals the Pallas sorted kernel bit for bit — runs shorter than, equal
+    to and longer than an owner's cells, crossing owner boundaries."""
     from flinkml_tpu.kernels.segsum import pallas_segment_sum
 
     values, ids = _segsum_inputs(400, k, 60, dtype, True, seed=7)
-    assert np.max(np.bincount(ids)) > 2 * SEGSUM_CHUNK
+    assert np.max(np.bincount(ids)) > 2 * ksegsum.SORTED_CHUNK
     want = np.asarray(pallas_segment_sum(values, ids, 60,
                                          indices_are_sorted=True,
                                          interpret=True))
     np.testing.assert_array_equal(_run_flush_model(values, ids, 60), want)
+
+
+@pytest.mark.parametrize("pattern", sorted(sorted_id_patterns()))
+@pytest.mark.parametrize("k,phase", [(1, 0), (1, 1), (1, 3), (1, -1),
+                                     (16, -1)])
+def test_sorted_plan_writes_every_segment_once(pattern, k, phase):
+    """The sorted kernel's ownership rule: every output segment is stored
+    exactly once (the head and tail by the grid, each run and the gap
+    before it by the owner of the run's first cell), and the runs cover
+    every cell once, in order."""
+    ids, nseg = sorted_id_patterns()[pattern]
+    plan = ksegsum.sorted_plan(ids, nseg, k, phase)
+    segs = np.array([w[0] for w in plan])
+    np.testing.assert_array_equal(np.sort(segs), np.arange(nseg))
+    runs = sorted((first, end, seg, writer)
+                  for seg, writer, first, end in plan if end > first)
+    np.testing.assert_array_equal([r[0] for r in runs],
+                                  [0] + [r[1] for r in runs[:-1]])
+    assert runs[-1][1] == ids.size
+    per = ksegsum.SORTED_OWN if k == 1 else ksegsum.SORTED_CHUNK
+    base0 = phase - 4 if (k == 1 and phase > 0) else 0
+    for first, end, seg, writer in runs:
+        assert (ids[first:end] == seg).all()
+        # The writer owns the run's first cell.
+        assert writer == (first - base0) // per
+    for seg, writer, first, end in plan:
+        if writer == -1:
+            assert seg < ids[0] or seg > ids[-1]
+        elif first == end:   # a gap: between the previous id and the run's
+            assert ids[first - 1] < seg < ids[first]
+
+
+@pytest.mark.parametrize("cells,phase,want", [
+    (10, 0, [0]), (10, 1, [-3]), (4096, 3, [-1, 2047, 4095]),
+    (4100, -1, [0, 2048, 4096]), (2048, 0, [0]),
+])
+def test_sorted_tile_bases(cells, phase, want):
+    """Tiles of 2,048 cells start on the 16-byte phase (the first up to 3
+    cells before cell 0) and cover every cell."""
+    assert ksegsum.SORTED_TILE == 2048
+    assert ksegsum.sorted_tile_bases(cells, phase) == want
+
+
+@pytest.mark.parametrize("pattern", sorted(sorted_id_patterns()))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [None, 16])
+def test_sorted_plan_sums_are_bitwise_pallas(pattern, dtype, k):
+    """The in-order sums the write plan implies equal the JAX
+    ``pallas_segment_sum`` sorted path (interpreted) bit for bit on every
+    id pattern, gaps included."""
+    from flinkml_tpu.kernels.segsum import pallas_segment_sum
+
+    ids, nseg = sorted_id_patterns()[pattern]
+    ids = ids.astype(np.int32)
+    rng = np.random.default_rng(ids.size)
+    values = rng.normal(size=(ids.size,) if k is None
+                        else (ids.size, k)).astype(dtype)
+    want = np.asarray(pallas_segment_sum(values, ids, nseg,
+                                         indices_are_sorted=True,
+                                         interpret=True))
+    got = _run_flush_model(values, ids, nseg, phase=1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_payload_vector_rule():
+    """Vector width of the unsorted [cells, k] path: 4 or 2 float32
+    columns, 2 float64 columns, from k and the base alignment."""
+    base = torch.zeros(64 * 17, dtype=torch.float32)
+    assert base.data_ptr() % 16 == 0
+    assert ksegsum.payload_vector(base.reshape(-1, 16)) == 4
+    assert ksegsum.payload_vector(base[:60].reshape(-1, 6)) == 2
+    assert ksegsum.payload_vector(base[2:66].reshape(-1, 16)) == 2
+    assert ksegsum.payload_vector(base[1:65].reshape(-1, 16)) == 1
+    assert ksegsum.payload_vector(base[:63].reshape(-1, 7)) == 1
+    d = base.double()
+    assert ksegsum.payload_vector(d.reshape(-1, 16)) == 2
+    assert ksegsum.payload_vector(d[1:65].reshape(-1, 16)) == 1
+    assert ksegsum.payload_vector(d[:63].reshape(-1, 3)) == 1
 
 
 def test_segment_sum_empty_inputs():
@@ -574,6 +711,17 @@ def test_build_sources_and_library_names():
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--fmad=false" in _build.NVCC_FLAGS
+
+
+def test_build_probes_are_not_kernels():
+    """The measurement probes build by the same scheme from their own
+    directory and are not among the kernels' sources."""
+    assert _build.probes() == ["gather_floor", "red_floor"]
+    assert not set(_build.probes()) & set(_build.sources())
+    assert _build._source_path("red_floor").startswith(_build.PROBE_DIR)
+    assert _build._source_path("segsum").startswith(_build.CSRC_DIR)
+    path = _build._library_path("red_floor")
+    assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
 
 
 def test_build_without_nvcc_raises(monkeypatch):
