@@ -18,10 +18,19 @@ and fails with a non-zero exit if any phase fails:
    views off the 16-byte phase, float32 and float64; the same bits on two
    launches);
    ``fused_chain`` at 100,000 x 32 in float64 and float32, on both of its
-   routes; ``segment_sum`` at the sparse-fit step (262,144 x 39 cells into
+   routes, and its new ops at their paths' shapes, each op on both routes
+   (the multinomial head at 10,000 x 784 and 100,000 x 32, k=10; the
+   KMeans head at 262,144 x 128, k=64, 65,536 x 784, k=10 and k=64 (its
+   centroids read from device memory, float32 and float64); the one-hot
+   + assemble prologue on Adult's schema, d=108, and on its first four
+   categorical columns and one continuous one, d=48); ``segment_sum`` at
+   the sparse-fit step (262,144 x 39 cells into
    1e6 segments, float32 and float64, unsorted beside the random-reduction
    floor, and sorted) and with a row payload (2^20 cells x 16 into 65,536
-   segments), the sorted path's output block poisoned with NaN first; ``topk`` bit for bit against ``top_k_plain``
+   segments), the sorted path's output block poisoned with NaN first, and
+   sorted on ids that do not ascend ([5, 2], [0, 0, 7, 1, 1], 1e6
+   shuffled cells) equal to ``index_add_``; ``topk`` bit for bit against
+   ``top_k_plain``
    (values and indices) at [4096, 60000] k=5, [1024, 8192] k=16 and
    k=1,024, [256, 2048] k=128 (float32), 1-D n=1e6 k=100 and k=20,000
    (float64, two bands) and on adversarial rows (duplicates, +0/-0,
@@ -39,6 +48,20 @@ and fails with a non-zero exit if any phase fails:
    and ``PipelineModel.transform`` runs 4 times fused (a first call, then 3
    timed), then per-stage, then after a save -> load round trip; outputs
    are checked against each other and against a float64 numpy reference;
+4a. census path (UCI Adult's schema, the a9a source): ``Pipeline.fit`` of
+   OneHotEncoder -> VectorAssembler -> StandardScaler ->
+   LogisticRegression on 48,842 seeded rows (d = 108), the coefficient
+   against float64 numpy; the fused transform of 100,000 rows with
+   out-of-range codes against the per-stage path and float64 numpy;
+4b. MNIST-width multinomial path: ``Pipeline.fit`` of MinMaxScaler ->
+   LogisticRegression(multinomial) on 60,000 x 784 rows in 10 classes
+   against a float64 numpy softmax run; the fused transform of 10,000 rows
+   in float32 and float64; a sparse multinomial transform of 65,536
+   Criteo-profile rows (k = 10);
+4c. KMeans serving path: StandardScaler -> KMeansModel fused at 65,536 x
+   784, k=10, 262,144 x 128, k=64 and 65,536 x 784, k=64, the assignments
+   equal to the plain chain's away from near ties, and the per-stage path
+   timed beside the fused one;
 5. dense fit path: ``LogisticRegression().fit`` on the bench's a9a-width
    data (1,000,000 x 123 float32, batch 262,144, 20 epochs, tol 0), twice
    (a first fit, then a steady one), the coefficient held against a float64
@@ -1397,6 +1420,622 @@ def kmeans_path(torch):
     return recs
 
 
+# -- the chain's prologue and class heads: kernel cases and paths A-C ---------------
+
+#: UCI Adult's categorical columns with their cardinalities, "?" counted as
+#: a category (archive.ics.uci.edu/dataset/2/adult), and its continuous
+#: columns: the a9a source's schema.
+ADULT_CATEGORICAL = (("workclass", 9), ("education", 16),
+                     ("marital_status", 7), ("occupation", 15),
+                     ("relationship", 6), ("race", 5), ("sex", 2),
+                     ("native_country", 42))
+ADULT_CONTINUOUS = ("age", "fnlwgt", "education_num", "capital_gain",
+                    "capital_loss", "hours_per_week")
+CENSUS_TRAIN, CENSUS_SERVE = 48_842, 100_000
+MNIST_TRAIN, MNIST_SERVE, MNIST_D, MNIST_K = 60_000, 10_000, 784, 10
+MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 8_192, 20, 0.1
+#: bench.py's two KMeans shapes, served through StandardScaler -> KMeans.
+#: Path C: bench.py's two KMeans shapes, and MNIST's width with k = 64 (a
+#: head too large for shared memory: its centroids are read from L2).
+KMEANS_SERVE = ((65_536, 784, 10), (262_144, 128, 64), (65_536, 784, 64))
+#: Relative gap of the two best scores under which a class or centroid
+#: choice may break either way between two summation orders (float32).
+NEAR_TIE = 1e-5
+
+#: (op, rows, d, classes, dtype) of the kernel phase's new chain cases:
+#: each op on the route its width gives (784 and 108 columns: scalar;
+#: 32, 48 and 128 float32: vector; 128 float64: scalar). At 784 x k = 64
+#: the centroids do not fit in shared memory beside the rows (read from
+#: device memory).
+CHAIN_OP_CASES = (
+    ("multinomial", MNIST_SERVE, MNIST_D, MNIST_K, "float32"),
+    ("multinomial", MNIST_SERVE, MNIST_D, MNIST_K, "float64"),
+    ("multinomial", 100_000, 32, MNIST_K, "float32"),
+    ("kmeans", 262_144, 128, 64, "float32"),
+    ("kmeans", 262_144, 128, 64, "float64"),
+    ("kmeans", 65_536, 784, 10, "float32"),
+    ("kmeans", 65_536, 784, 64, "float32"),
+    ("kmeans", 65_536, 784, 64, "float64"),
+    ("prologue", CENSUS_SERVE, 108, 0, "float64"),
+    ("prologue", CENSUS_SERVE, 48, 0, "float64"),
+)
+
+
+def census_columns(n, seed, cards=ADULT_CATEGORICAL, serve=False):
+    """Seeded columns of UCI Adult's schema: the categorical codes (int64,
+    int32 and float64 columns, every category present), the continuous
+    columns at Adult's ranges, and a planted binary label. Serving draws
+    add codes outside the fitted range (the catch-all slot)."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for i, (name, card) in enumerate(cards):
+        codes = rng.integers(0, card, size=n)
+        codes[:card] = np.arange(card)
+        if serve:
+            codes[::997] = card + 3
+            codes[1::1009] = -1
+        cols[name] = codes.astype((np.int64, np.int32, np.float64)[i % 3])
+    cols["age"] = rng.integers(17, 91, size=n).astype(np.float64)
+    cols["fnlwgt"] = np.round(rng.lognormal(12.0, 0.5, size=n))
+    cols["education_num"] = rng.integers(1, 17, size=n).astype(np.float64)
+    gain = rng.random(n) < 0.08
+    cols["capital_gain"] = np.where(gain, rng.integers(1, 99_999, n), 0.0)
+    loss = rng.random(n) < 0.05
+    cols["capital_loss"] = np.where(loss, rng.integers(1, 4_356, n), 0.0)
+    cols["hours_per_week"] = rng.integers(1, 100, size=n).astype(np.float64)
+    score = ((cols["education_num"] - 10) / 3 + (cols["age"] - 40) / 15
+             + (cols[cards[0][0]].astype(np.int64) % 3 == 0)
+             + rng.normal(size=n))
+    cols["label"] = (score > 0.5).astype(np.float64)
+    return cols
+
+
+def census_stages(cards=ADULT_CATEGORICAL, continuous=ADULT_CONTINUOUS):
+    """OneHotEncoder(dropLast, keep) -> VectorAssembler(keep) ->
+    StandardScaler -> LogisticRegression, unfitted."""
+    import flinkml_tpu_torch as fml
+
+    names = [c for c, _ in cards]
+    onehot = [f"{c}_vec" for c in names]
+    return [
+        fml.OneHotEncoder().set_input_cols(names).set_output_cols(onehot)
+        .set_drop_last(True).set_handle_invalid("keep"),
+        fml.VectorAssembler().set_input_cols(onehot + list(continuous))
+        .set_handle_invalid("keep").set_output_col("features"),
+        fml.StandardScaler().set_input_col("features").set_output_col(
+            "scaled"),
+        fml.LogisticRegression().set_features_col("scaled").set_seed(0)
+        .set_tol(0.0).set_max_iter(FIT_EPOCHS).set_global_batch_size(8_192)
+        .set_learning_rate(0.5),
+    ]
+
+
+def numpy_census(model, cols, cards=ADULT_CATEGORICAL,
+                 continuous=ADULT_CONTINUOUS):
+    """Float64 numpy run of the fitted census model: one-hot (keep,
+    dropLast), assemble, standardize, sigmoid; ``(features, scaled, dot,
+    raw)``."""
+    enc, _, sc, lr = model.stages
+    parts = []
+    for (name, _), mv in zip(cards, enc._max_indices):
+        v = np.trunc(cols[name].astype(np.float64))
+        valid = (v >= 0) & (v <= mv)
+        slot = np.where(valid, v, mv).astype(np.int64)
+        oh = np.zeros((v.size, mv + 1))
+        oh[np.arange(v.size), slot] = 1.0
+        oh[valid & (v == mv)] = 0.0
+        parts.append(oh)
+    parts += [cols[c].reshape(-1, 1) for c in continuous]
+    x = np.concatenate(parts, axis=1)
+    d = sc._arrays()
+    std = np.where(d["std"] > 0, d["std"], 1.0)
+    s = (x - d["mean"]) / std
+    dot = s @ lr.coefficient
+    p = 1.0 / (1.0 + np.exp(-dot))
+    return x, s, dot, np.stack([1.0 - p, p], axis=-1)
+
+
+def _gap_ok(scores, rel=NEAR_TIE):
+    """Rows whose two best scores differ by more than ``rel`` relative."""
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > rel * (1.0 + np.abs(top2[:, 1]))
+
+
+def chain_op_case(torch, op, rows, d, k, dtype, seed=0):
+    """One new chain op at its path's shape, its inputs on the card:
+    ``(kernels, ext names, ext tensors, eager outputs, n_bytes, n_ops)``.
+    multinomial: MinMaxScaler -> LR [k, d]; kmeans: StandardScaler ->
+    KMeansModel [k, d]; prologue: OneHotEncoder -> VectorAssembler ->
+    StandardScaler -> binomial LR over Adult's schema (d = 108), or over
+    its first four categorical columns and one continuous column (d = 48,
+    a vector-route row)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+    if op == "prologue":
+        cards = ADULT_CATEGORICAL if d == 108 else ADULT_CATEGORICAL[:4]
+        cont = ADULT_CONTINUOUS if d == 108 else ADULT_CONTINUOUS[:1]
+        fit_cols = census_columns(CENSUS_TRAIN, seed + 1, cards)
+        cols = census_columns(rows, seed, cards, serve=True)
+        enc, va, sc, _ = census_stages(cards, cont)
+        with fml.use_device("cpu"):
+            enc = enc.fit(fml.Table(fit_cols))
+            (t,) = fml.PipelineModel([enc, va]).transform(
+                fml.Table(fit_cols))
+            sc = sc.fit(t)
+        head = fml.LogisticRegressionModel().set_features_col("scaled")
+        head.set_model_data(fml.Table({"coefficient": rng.normal(
+            size=(1, d))}))
+        stages = [enc, va, sc, head]
+        body_ops = 2
+    else:
+        cols = {"features": rng.normal(size=(rows, d)) * 3.0}
+        scaler = fml.MinMaxScaler() if op == "multinomial" \
+            else fml.StandardScaler()
+        scaler.set_input_col("features").set_output_col("s")
+        with fml.use_device("cpu"):
+            scaler = scaler.fit(fml.Table(cols))
+        if op == "multinomial":
+            head = fml.LogisticRegressionModel()
+            head.set_model_data(fml.Table({"coefficient": rng.normal(
+                size=(1, k, d))}))
+        else:
+            head = fml.KMeansModel().set_model_data(fml.Table(
+                {"centroids": rng.normal(size=(1, k, d))}))
+        head.set_features_col("s")
+        stages = [scaler, head]
+        body_ops = 5 if op == "multinomial" else 2
+    kernels = [s.transform_kernel() for s in stages]
+    ext = pipeline_fusion.external_inputs(kernels)
+    bucket = pipeline_fusion.row_bucket(rows)
+    vals, n_bytes = [], 0
+    for c in ext:
+        t = torch.from_numpy(np.ascontiguousarray(cols[c]))
+        if t.dtype.is_floating_point:
+            t = t.to(tdt)
+        buf = torch.zeros((bucket,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device="cuda")
+        buf[:rows] = t.cuda()
+        vals.append(buf)
+        n_bytes += t.numel() * t.element_size()
+    pins = [c for kk in kernels if kk.pin_inputs for c in kk.input_cols]
+    eager = pins + list(kernels[-1].output_cols)
+    item = 8 if op == "prologue" else np.dtype(dtype).itemsize
+    # Each output written once: the pinned row, then the head's.
+    n_bytes += rows * d * item
+    if op == "kmeans":
+        n_bytes += rows * 8
+        n_ops = rows * d * (body_ops + 2 * k)
+    elif op == "multinomial":
+        n_bytes += rows * item * (1 + k)
+        n_ops = rows * d * (body_ops + 2 * k) + rows * k * 3
+    else:
+        n_bytes += rows * item * 3
+        n_ops = rows * d * (body_ops + 2) + rows * 5
+    return kernels, ext, vals, eager, n_bytes, n_ops
+
+
+def chain_op_check(torch, label, kernels, got, want, rows, rel):
+    """Every output of the kernel against the plain chain's: float columns
+    within ``rel`` (rtol = atol), class and centroid indices equal away
+    from near ties; returns ``(max_abs_err, rows inside the tie
+    margin)``."""
+    err, ties = 0.0, 0
+    head = kernels[-1]
+    for c, w in want.items():
+        g, w = got[c][:rows], w[:rows]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{label} {c}: {g.dtype}{tuple(g.shape)} != "
+                 f"{w.dtype}{tuple(w.shape)}")
+        if c == head.output_cols[0] and head.fingerprint[0] in (
+                "KMeansModel", "LogisticRegressionModel"):
+            continue
+        check_close(f"{label} {c}", g, w, rel, rel)
+        err = max(err, max_err(g, w))
+    name, pred = head.fingerprint[0], head.output_cols[0]
+    if name in ("KMeansModel", "LogisticRegressionModel"):
+        x = want[head.input_cols[0]][:rows].double()
+        if name == "KMeansModel":
+            c = torch.as_tensor(head.constants["centroids"]).cuda()
+            scores = -(torch.cdist(x, c) ** 2)
+        else:
+            # Binomial: the scores of the two classes are -dot/2 and dot/2.
+            w = torch.as_tensor(head.constants["coefficient"]).cuda()
+            scores = x @ w.T if head.fingerprint[4] else \
+                (x @ w)[:, None] * torch.tensor([-0.5, 0.5], device="cuda",
+                                                dtype=x.dtype)
+        ok = torch.from_numpy(_gap_ok(scores.cpu().numpy())).cuda()
+        ties = int((~ok).sum())
+        if not torch.equal(got[pred][:rows][ok], want[pred][:rows][ok]):
+            fail(f"{label} {pred}: differs from the plain chain away from "
+                 "near ties")
+    return err, ties
+
+
+def chain_ops_phase(torch, timer):
+    """Each new ``fused_chain`` op (the multinomial head, the KMeans head,
+    the one-hot + assemble prologue) at its path's shape on the route that
+    shape takes, against the plain chain on the same card inputs, with the
+    kernel's time, the plain chain's and the bound from bytes and
+    operations. Tolerances: float64 rtol = atol 1e-10, float32 1e-5."""
+    from flinkml_tpu_torch.kernels import chain as kchain
+
+    recs = []
+    for op, rows, d, k, dtype in CHAIN_OP_CASES:
+        kernels, ext, vals, eager, n_bytes, n_ops = chain_op_case(
+            torch, op, rows, d, k, dtype)
+        program = kchain.ChainProgram(kernels, ext, eager)
+        lay = program.layout(vals)
+        host = [kk.constants for kk in kernels]
+        dev = [{c: torch.as_tensor(v).cuda() for c, v in kc.items()}
+               for kc in host]
+        got = program(vals, host, rows)
+        want = kchain.chain_plain(kernels, ext, eager, vals, dev, rows)
+        torch.cuda.synchronize()
+        label = f"fused_chain[{op} {rows}x{d} k={k} {dtype}]"
+        rel = 1e-10 if lay.dtype == torch.float64 else 1e-5
+        err, ties = chain_op_check(torch, label, kernels, got, want, rows,
+                                   rel)
+        ms = timer(lambda: program(vals, host, rows))
+        plain_ms = timer(lambda: kchain.chain_plain(kernels, ext, eager,
+                                                    vals, dev, rows))
+        b_ms, b_by = bound_ms(n_bytes, n_ops, str(lay.dtype).replace(
+            "torch.", ""))
+        rec = {"name": "fused_chain", "op": op, "shape": [rows, d],
+               "classes": k, "dtype": dtype, "kernel_route": lay.route,
+               "gather": lay.gather, "max_abs_err": err,
+               "near_ties": ties, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        log("kernel " + json.dumps(rec))
+        recs.append(rec)
+        del vals, got, want
+    routes = {(r["op"], r["kernel_route"]) for r in recs}
+    for op in ("multinomial", "kmeans", "prologue"):
+        if {(op, "vector"), (op, "scalar")} - routes:
+            fail(f"fused_chain {op}: not run on both routes")
+    return recs
+
+
+def segsum_descent_phase(torch, timer):
+    """Sorted ``segment_sum`` on ids that do not ascend ([5, 2],
+    [0, 0, 7, 1, 1] and 1e6 shuffled cells into 200,003 segments, flat and
+    [cells, 16], float32 and float64): equal to ``index_add_`` (integer
+    values, exact in any order) on an output block poisoned with NaN; the
+    repair's time."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+
+    rng = np.random.default_rng(11)
+    shuffled = (rng.permutation(1_000_000) % 200_003).astype(np.int32)
+    cases = (("5,2", np.array([5, 2], np.int32), 8),
+             ("0,0,7,1,1", np.array([0, 0, 7, 1, 1], np.int32), 9),
+             ("shuffled", shuffled, 200_003))
+    rec = {"name": "segment_sum", "case": "descending ids", "checked": []}
+    for label, ids, nseg in cases:
+        for dtype in ("float32", "float64"):
+            for k in (None, 16):
+                sel = ids if k is None or ids.size < 100 else ids[:100_000]
+                shape = (sel.size,) if k is None else (sel.size, k)
+                tdt = getattr(torch, dtype)
+                vals = torch.from_numpy(rng.integers(-8, 9, size=shape).astype(
+                    np.float64)).to("cuda", tdt)
+                ti = torch.from_numpy(sel).cuda()
+                poison(torch, (nseg,) + tuple(vals.shape[1:]), tdt)
+                got = ksegsum.segment_sum(vals, ti, nseg,
+                                          indices_are_sorted=True)
+                want = ksegsum.segment_sum_plain(vals, ti, nseg)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"segment_sum sorted on ids {label} ({dtype}, "
+                         f"k={k}): differs from index_add_")
+                rec["checked"].append([label, dtype, k])
+    vals = torch.from_numpy(rng.normal(size=shuffled.size).astype(
+        np.float32)).cuda()
+    ti = torch.from_numpy(shuffled).cuda()
+    rec["shuffled_1e6_f32_ms"] = timer(lambda: ksegsum.segment_sum(
+        vals, ti, 200_003, indices_are_sorted=True))
+    log("kernel " + json.dumps(rec))
+
+
+def census_path(torch):
+    """Path A: ``Pipeline.fit`` of OneHotEncoder -> VectorAssembler ->
+    StandardScaler -> LogisticRegression on 48,842 rows of Adult's schema
+    (the LR coefficient against a float64 numpy run of the same steps on
+    the same scaled rows: 1e-8 of the largest), then the fused
+    ``PipelineModel.transform`` of 100,000 rows with out-of-range codes,
+    against the per-stage path and a float64 numpy run."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    train = census_columns(CENSUS_TRAIN, seed=21)
+    first_s, fit_s, model = timed_calls(
+        torch, lambda: fml.Pipeline(census_stages()).fit(fml.Table(train)),
+        calls=1)
+    enc, va, sc, lr = model.stages
+    d = int(sum(enc._max_indices + 1)) + len(ADULT_CONTINUOUS)
+    if d != 108 or lr.coefficient.shape != (d,):
+        fail(f"census: width {d}, coefficient {lr.coefficient.shape}")
+    pipeline_fusion.set_enabled(False)
+    try:
+        (seen,) = fml.PipelineModel([enc, va, sc]).transform(
+            fml.Table(train))
+        scaled = seen.column("scaled")
+    finally:
+        pipeline_fusion.set_enabled(True)
+    ref = numpy_dense_fit(scaled, train["label"], np.ones(CENSUS_TRAIN), 0,
+                          8_192, FIT_EPOCHS, 0.5)
+    fit_err = float(np.abs(lr.coefficient - ref).max())
+    if not fit_err <= 1e-8 * np.abs(ref).max():
+        fail(f"census fit: coefficient differs from float64 numpy by "
+             f"{fit_err}")
+
+    serve = census_columns(CENSUS_SERVE, seed=22, serve=True)
+    table = fml.Table(serve)
+    outs = ("scaled", "prediction", "rawPrediction")
+
+    def run():
+        (out,) = model.transform(table)
+        return {c: out.column(c) for c in outs}
+
+    pipeline_fusion.reset_cache()
+    fml.reset_launch_counts()
+    t_first, call_s, fused = timed_calls(torch, run)
+    launches = fml.launch_counts()["fused_chain"]
+    if launches < 4:
+        fail(f"census: fused_chain launched {launches} times in 4 transforms")
+    (out,) = model.transform(table)
+    lazy = {c: out.column(c) for c in ("workclass_vec", "features")}
+    launches = fml.launch_counts()["fused_chain"]   # and 2 lazy reads
+    # The transform alone (one launch, the outputs left on the card).
+    _, transform_s, _ = timed_calls(torch, lambda: model.transform(table))
+    pipeline_fusion.set_enabled(False)
+    try:
+        _, per_stage_s, per_stage = timed_calls(torch, run, calls=1)
+    finally:
+        pipeline_fusion.set_enabled(True)
+    x, s, dot, raw = numpy_census(model, serve)
+    for name, got in (("fused", fused), ("per-stage", per_stage)):
+        if not (np.allclose(got["scaled"], s, rtol=1e-12, atol=1e-12)
+                and np.allclose(got["rawPrediction"], raw, rtol=1e-10,
+                                atol=1e-10)):
+            fail(f"census: {name} output differs from float64 numpy")
+    decisive = np.abs(dot) > 1e-9
+    if not np.array_equal(fused["prediction"][decisive],
+                          (dot[decisive] >= 0).astype(np.float64)):
+        fail("census: prediction differs from float64 numpy")
+    if not np.array_equal(lazy["features"], x):
+        fail("census: the assembled row differs from numpy")
+    rec = {"path": "census_pipeline", "train_rows": CENSUS_TRAIN,
+           "serve_rows": CENSUS_SERVE, "d": d, "dtype": "float64",
+           "first_fit_s": first_s, "fit_s": fit_s, "transforms": 4,
+           "first_call_s": t_first,
+           "fused_call_s": call_s, "fused_rows_per_s": CENSUS_SERVE / call_s,
+           "fused_transform_only_s": transform_s,
+           "per_stage_call_s": per_stage_s,
+           "per_stage_rows_per_s": CENSUS_SERVE / per_stage_s,
+           "max_abs_coef_err": fit_err,
+           "catch_all_rows": int(sum((serve[c] < 0).sum()
+                                     + (serve[c] >= k).sum()
+                                     for c, k in ADULT_CATEGORICAL)),
+           "fused_chain_launches": launches}
+    log("path " + json.dumps(rec))
+    return launches
+
+
+def mnist_like(n, seed):
+    """MNIST-width rows: 784 pixel intensities 0-255 (float32) drawn
+    around ten seeded class templates, and their labels 0-9."""
+    rng = np.random.default_rng(seed)
+    templates = np.random.default_rng(99).integers(0, 256, (MNIST_K,
+                                                            MNIST_D))
+    y = rng.integers(0, MNIST_K, size=n)
+    y[:MNIST_K] = np.arange(MNIST_K)
+    x = np.clip(np.round(templates[y] + rng.normal(0, 70, (n, MNIST_D))),
+                0, 255).astype(np.float32)
+    return x, y.astype(np.float64)
+
+
+def numpy_softmax_fit(x, y, seed, batch, epochs, lr, k):
+    """Float64 numpy run of the softmax trainer's steps (reg 0, unit
+    weights): the same seeded shuffle and rotating windows."""
+    n = x.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    x64, y64 = x[perm].astype(np.float64), y[perm].astype(np.int64)
+    n_windows = max(-(-n // batch), 1)
+    coef = np.zeros((k, x.shape[1]))
+    for ep in range(epochs):
+        start = min((ep % n_windows) * batch, n - batch)
+        xb, yb = x64[start:start + batch], y64[start:start + batch]
+        logits = xb @ coef.T
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        p = e / e.sum(axis=1, keepdims=True)
+        p[np.arange(yb.size), yb] -= 1.0
+        coef = coef - lr / yb.size * (p.T @ xb)
+    return coef
+
+
+def mnist_path(torch):
+    """Path B: ``Pipeline.fit`` of MinMaxScaler -> LogisticRegression
+    (multinomial) on 60,000 x 784 rows in 10 classes on the card, the
+    coefficient against a float64 numpy softmax run of the same steps on
+    the same scaled rows (1e-4 of the largest: float32 products); the
+    fused transform of 10,000 rows in float32 and float64 against the
+    per-stage path and float64 numpy; one sparse multinomial transform of
+    65,536 Criteo-profile rows with k = 10, the margins against float64
+    numpy."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    x, y = mnist_like(MNIST_TRAIN, seed=31)
+    est = [fml.MinMaxScaler().set_input_col("features").set_output_col("mm"),
+           fml.LogisticRegression().set_features_col("mm")
+           .set_multi_class("multinomial").set_seed(0).set_tol(0.0)
+           .set_max_iter(MNIST_EPOCHS).set_global_batch_size(MNIST_BATCH)
+           .set_learning_rate(MNIST_LR)]
+    train = fml.Table({"features": x, "label": y})
+    fit_first_s, fit_s, model = timed_calls(
+        torch, lambda: fml.Pipeline(est).fit(train), calls=1)
+    mm, lr = model.stages
+    coef = lr.coefficient
+    (seen,) = mm.transform(train)
+    ref = numpy_softmax_fit(seen.column("mm"), y, 0, MNIST_BATCH,
+                            MNIST_EPOCHS, MNIST_LR, MNIST_K)
+    fit_err = float(np.abs(coef - ref).max())
+    if coef.shape != (MNIST_K, MNIST_D) or not np.isfinite(coef).all() \
+            or not fit_err <= 1e-4 * np.abs(ref).max():
+        fail(f"mnist fit: coefficient {coef.shape} differs from float64 "
+             f"numpy by {fit_err}")
+
+    xs, _ = mnist_like(MNIST_SERVE, seed=32)
+    d = mm._arrays()
+    span = d["dataMax"] - d["dataMin"]
+    unit = np.where(span > 0, (xs - d["dataMin"]) / np.where(span > 0, span,
+                                                            1.0), 0.5)
+    logits = unit @ coef.T
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    raw_ref = e / e.sum(axis=1, keepdims=True)
+    decisive = _gap_ok(logits)
+    launches, serve = 0, {}
+    for dtype, tol in (("float32", 1e-5), ("float64", 1e-10)):
+        table = fml.Table({"features": xs.astype(dtype)})
+
+        def run():
+            (out,) = model.transform(table)
+            return {c: out.column(c) for c in ("prediction", "rawPrediction")}
+
+        pipeline_fusion.reset_cache()
+        fml.reset_launch_counts()
+        first_s, call_s, fused = timed_calls(torch, run)
+        n_launch = fml.launch_counts()["fused_chain"]
+        if n_launch < 4:
+            fail(f"mnist serving ({dtype}): fused_chain launched {n_launch} "
+                 "times in 4 transforms")
+        launches += n_launch
+        pipeline_fusion.set_enabled(False)
+        try:
+            _, per_stage_s, per_stage = timed_calls(torch, run, calls=1)
+        finally:
+            pipeline_fusion.set_enabled(True)
+        for name, got in (("fused", fused), ("per-stage", per_stage)):
+            if got["rawPrediction"].shape != (MNIST_SERVE, MNIST_K) or \
+                    not np.allclose(got["rawPrediction"], raw_ref, rtol=tol,
+                                    atol=tol):
+                fail(f"mnist serving ({dtype}, {name}): rawPrediction "
+                     "differs from float64 numpy")
+            if not np.array_equal(got["prediction"][decisive],
+                                  np.argmax(logits, 1)[decisive]):
+                fail(f"mnist serving ({dtype}, {name}): prediction differs")
+        serve[dtype] = {"first_call_s": first_s, "fused_call_s": call_s,
+                        "fused_rows_per_s": MNIST_SERVE / call_s,
+                        "per_stage_call_s": per_stage_s}
+
+    n, dim, nnz = SPMV_ROWS, SPMV_DIM, SPMV_NNZ
+    _, indices, values, _, _ = make_criteo_csr(n, dim, nnz, seed=3)
+    sparse_coef = np.random.default_rng(5).normal(size=(MNIST_K, dim))
+    sparse_model = fml.stage_from_arrays(
+        "flinkml_tpu.models.logistic_regression.LogisticRegressionModel",
+        fml.LogisticRegressionModel().get_param_map_json(),
+        {"coefficient": sparse_coef})
+    rows = criteo_rows(indices, values, n, nnz, dim)
+    t0 = time.perf_counter()
+    (sout,) = sparse_model.transform(fml.Table({"features": rows}))
+    sparse_s = time.perf_counter() - t0
+    c32 = sparse_coef.astype(np.float32).astype(np.float64).T
+    margins = np.einsum("rs,rsk->rk", values.reshape(n, nnz).astype(
+        np.float64), c32[indices.reshape(n, nnz)])
+    m = margins - margins.max(axis=1, keepdims=True)
+    sraw = np.exp(m) / np.exp(m).sum(axis=1, keepdims=True)
+    got_raw = sout.column("rawPrediction")
+    if got_raw.shape != (n, MNIST_K) or not np.allclose(
+            got_raw, sraw, rtol=1e-4, atol=1e-5):
+        fail("mnist sparse multinomial: rawPrediction differs from float64 "
+             "numpy")
+    rec = {"path": "mnist_multinomial", "train_rows": MNIST_TRAIN,
+           "d": MNIST_D, "classes": MNIST_K, "batch": MNIST_BATCH,
+           "epochs": MNIST_EPOCHS, "first_fit_s": fit_first_s,
+           "fit_s": fit_s, "samples_per_s": MNIST_BATCH * MNIST_EPOCHS / fit_s,
+           "max_abs_coef_err": fit_err,
+           "max_abs_coef": float(np.abs(ref).max()),
+           "serve_rows": MNIST_SERVE, "serve": serve,
+           "sparse_rows": n, "sparse_dim": dim, "sparse_transform_s": sparse_s,
+           "sparse_max_abs_raw_err": float(np.abs(got_raw - sraw).max()),
+           "fused_chain_launches": launches}
+    log("path " + json.dumps(rec))
+    return launches
+
+
+def kmeans_serving_path(torch):
+    """Path C: StandardScaler -> KMeansModel fused at bench.py's two KMeans
+    shapes and at MNIST's width with k = 64 (float32 standard normal
+    points; centroids from a 10-iteration fit on the card): the fused
+    transform's assignments against the plain chain's on the card, on
+    every row whose two nearest squared distances differ by more than
+    :data:`NEAR_TIE` relative (the count inside is printed), and against
+    the per-stage path's. Both are timed reading the assignments back."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+    from flinkml_tpu_torch.kernels import chain as kchain
+
+    launches, recs = 0, []
+    for n, d, k in KMEANS_SERVE:
+        x = np.random.default_rng(41).normal(size=(n, d)).astype(np.float32)
+        table = fml.Table({"features": x})
+        scaler = (fml.StandardScaler().set_input_col("features")
+                  .set_output_col("s").fit(table))
+        (scaled,) = scaler.transform(table)
+        km = (fml.KMeans().set_k(k).set_max_iter(10).set_seed(0)
+              .set_features_col("s").fit(scaled))
+        model = fml.PipelineModel([scaler, km])
+
+        def run():
+            (out,) = model.transform(table)
+            return out.column("prediction")
+
+        pipeline_fusion.reset_cache()
+        fml.reset_launch_counts()
+        first_s, call_s, pred = timed_calls(torch, run)
+        n_launch = fml.launch_counts()["fused_chain"]
+        if n_launch < 4:
+            fail(f"kmeans serving {n}x{d} k={k}: fused_chain launched "
+                 f"{n_launch} times in 4 transforms")
+        (out,) = model.transform(table)
+        pipeline_fusion.set_enabled(False)
+        try:
+            _, per_stage_s, per_stage = timed_calls(torch, run, calls=1)
+        finally:
+            pipeline_fusion.set_enabled(True)
+        launches += fml.launch_counts()["fused_chain"]
+        kernels = [s.transform_kernel() for s in model.stages]
+        xd = torch.from_numpy(x).cuda()
+        want = kchain.chain_plain(kernels, ["features"], ["s", "prediction"],
+                                  [xd], [kk.constants for kk in kernels], n)
+        s_fused = out.column("s")
+        if not np.allclose(s_fused, want["s"].cpu().numpy(), rtol=1e-5,
+                           atol=1e-6):
+            fail(f"kmeans serving {n}x{d}: scaled rows differ from plain")
+        c = torch.from_numpy(km.centroids).cuda()
+        d2 = (torch.cdist(want["s"].double(), c) ** 2).cpu().numpy()
+        ok = _gap_ok(-d2)
+        for name, got in (("fused", pred), ("per-stage", per_stage)):
+            if got.dtype != np.int64 or not np.array_equal(
+                    got[ok], want["prediction"].cpu().numpy()[ok]):
+                fail(f"kmeans serving {n}x{d} k={k}: {name} assignments "
+                     "differ from the plain chain away from near ties")
+        rec = {"path": "kmeans_serving", "rows": n, "d": d, "k": k,
+               "dtype": "float32", "transforms": 4, "first_call_s": first_s,
+               "fused_call_s": call_s, "fused_rows_per_s": n / call_s,
+               "per_stage_call_s": per_stage_s,
+               "per_stage_rows_per_s": n / per_stage_s,
+               "rows_within_tie_margin": int((~ok).sum()),
+               "tie_margin_rel": NEAR_TIE,
+               "fused_chain_launches": n_launch}
+        log("path " + json.dumps(rec))
+        recs.append(rec)
+        del xd, want
+    return launches
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -1454,11 +2093,15 @@ def main() -> int:
     spmv_widths_phase(torch)
     chain_rec = chain_phase(torch, timer, "float64", 1e-12, 1e-12)
     chain_phase(torch, timer, "float32", 1e-5, 1e-6)
+    chain_ops_phase(torch, timer)
     segsum_rec = segsum_phase(torch, timer)
+    segsum_descent_phase(torch, timer)
     topk_rec = topk_phase(torch, timer)
 
     serve_spmv = sparse_path(torch)
-    chain_rec["launches"] = dense_path(torch)
+    chain_rec["launches"] = (dense_path(torch) + census_path(torch)
+                             + mnist_path(torch)
+                             + kmeans_serving_path(torch))
     dense_fit_path(torch)
     fit_counts = sparse_fit_path(torch)
     spmv_rec["launches"] = serve_spmv + fit_counts["spmv"]
@@ -1482,13 +2125,17 @@ def main() -> int:
 # -- optional: one checkout's kernels against another's on the same card ----------
 
 AB_TOPK_CASES = TOPK_CASES[:4]
+#: The new chain ops at their paths' shapes (timed where the tree has them).
+AB_CHAIN_OP_CASES = tuple(CHAIN_OP_CASES[i] for i in (0, 3, 8))
 
 
 def ab_inner(tree: str) -> int:
     """Time ``spmv`` (the serving and fit shapes), ``topk`` (four cases of
     its phase), ``segment_sum`` (the fit shape, unsorted and sorted, float32
-    and float64) and ``fused_chain`` (100,000 x 32, float64 and float32)
-    through the public wrappers of the checkout at ``tree``, by
+    and float64) and ``fused_chain`` (100,000 x 32, float64 and float32;
+    and, in a tree that has them, the multinomial head, the KMeans head
+    and the census prologue at their paths' shapes) through the public
+    wrappers of the checkout at ``tree``, by
     :class:`Timer`, and for the last two also by the profiler's device time
     of the kernel alone (the ``... device`` keys: the host's enqueue is in
     the first and not in the second); print one JSON line."""
@@ -1552,6 +2199,19 @@ def ab_inner(tree: str) -> int:
         out[f"fused_chain {dtype}"] = timer(call)
         out[f"fused_chain {dtype} device"] = kernel_device_ms(
             torch, call, "fused_chain")
+    for op, rows, d, k, dtype in AB_CHAIN_OP_CASES:
+        key = f"fused_chain {op} {rows}x{d} k={k} {dtype}"
+        if not hasattr(kchain, "HEADS"):   # a tree without the op
+            out[key] = None
+            continue
+        kernels, ext, vals, eager, _, _ = chain_op_case(torch, op, rows, d,
+                                                        k, dtype)
+        prog = kchain.ChainProgram(kernels, ext, eager)
+        host = [kk.constants for kk in kernels]
+        call = (lambda: prog(vals, host, rows))
+        out[key] = timer(call)
+        out[key + " device"] = kernel_device_ms(torch, call, "fused_chain")
+        del vals
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1578,15 +2238,48 @@ def ab_main(old: str) -> int:
 _CHAIN_DIV = ("v = b > T(0) ? (v - a) / b : T(0.5);",
               "v = b > T(0) ? (v - a) * b : T(0.5);")
 _CHAIN_DIV2 = ("if (op & 4u) v = v / b;", "if (op & 4u) v = v * b;")
-_CHAIN_LOAD = ("if (active && row + step < n_rows) W::load(x + (row + step) "
+_CHAIN_LOAD = ("if (active && row + step < n_rows) W::load(src.x + (row + step) "
                "* d + col, next);",
                "for (int j = 0; j < V; ++j) next[j] = T(j) + T(0.25);")
-_CHAIN_STORE = ("if (out != nullptr) W::store(out + row * d + col, v);",
-                "if (out != nullptr && v[0] == T(-12345)) "
-                "W::store(out + row * d + col, v);")
+_CHAIN_STORE = ("if (a.out != nullptr) W::store(a.out + row * d + col, v);",
+                "if (a.out != nullptr && v[0] == T(-12345)) "
+                "W::store(a.out + row * d + col, v);")
 
-#: (name, source, literal edits): what each step of a kernel costs. A
-#: variant that removes work gives wrong outputs on purpose.
+#: The sorted repair launched from the device, only by a grid that sees a
+#: descent, as a tail launch (it starts after the whole grid): no second
+#: launch on ascending ids, and still the sum on any ids. It needs
+#: relocatable device code and the device runtime, which slow the rest of
+#: the library (PERF.md, section 6).
+_SEGSUM_TAIL_LAUNCH = (
+    "segsum: the sorted repair as a device tail launch (-rdc)", "segsum.cu",
+    [("  const bool repair = __ldcg(work) != 0u;\n"
+      "  __syncthreads();   // every thread has read the flag before it is "
+      "cleared\n"
+      "  if (!repair) return;\n", ""),
+     ("  if (threadIdx.x == 0) *work = 0u;\n}\n",
+      "  if (threadIdx.x == 0) *work = 0u;\n}\n"
+      "template <typename T>\n"
+      "__device__ __noinline__ void repair_after_grid(\n"
+      "    const T* values, const int32_t* ids, int cells, int k,\n"
+      "    int num_segments, T* out, unsigned* work) {\n"
+      "  if (atomicExch(work, 1u) != 0u) return;\n"
+      "  segsum_sorted_repair<T><<<1, kRepairThreads, 0, "
+      "cudaStreamTailLaunch>>>(\n"
+      "      values, ids, cells, k, num_segments, out, work);\n"
+      "  if (cudaGetLastError() != cudaSuccess) __trap();\n}\n"),
+     ("    atomicOr(work, 1u);\n",
+      "    repair_after_grid(values, ids, cells, 1, num_segments, out, "
+      "work);\n"),
+     ("      if (threadIdx.x == 0) atomicOr(work, 1u);\n",
+      "      if (threadIdx.x == 0) repair_after_grid(values, ids, cells, k, "
+      "num_segments, out, work);\n"),
+     ("    segsum_sorted_repair<T><<<1, kRepairThreads, 0, s>>>(\n"
+      "        v, i, cells, k, num_segments, o, work);\n", "")],
+    ("-rdc=true", "-lcudadevrt"))
+
+#: (name, source, literal edits[, extra nvcc flags]): what each step of a
+#: kernel costs. A variant that removes work gives wrong outputs on
+#: purpose.
 VARIANTS = (
     ("chain as built", "chain.cu", []),
     ("chain: no x loads, no s4 stores", "chain.cu",
@@ -1602,12 +2295,19 @@ VARIANTS = (
      [("    while (going && j < cells) {", "    while (false && j < cells) {")]),
     ("segsum: sorted without the gap zeroes", "segsum.cu",
      [("  zero_gaps(lo, hi, out);\n", "")]),
+    ("segsum: sorted without the repair launch", "segsum.cu",
+     [("    segsum_sorted_repair<T><<<1, kRepairThreads, 0, s>>>(",
+       "    if (false) segsum_sorted_repair<T><<<1, kRepairThreads, 0, s>>>(")]),
+    ("segsum: sorted without the descent test", "segsum.cu",
+     [("        descent |= id[i] < cur;\n", "")]),
+    _SEGSUM_TAIL_LAUNCH,
 )
 
 
 def build_variants(variants):
     """Write and build every variant (one ``nvcc`` each, in parallel, with
-    the kernels' flags, into ``kernels/build/variants``); ``{name: CDLL}``."""
+    the kernels' flags and the variant's own, into
+    ``kernels/build/variants``); ``{name: CDLL}``."""
     import ctypes
 
     from flinkml_tpu_torch.kernels import _build
@@ -1615,7 +2315,8 @@ def build_variants(variants):
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     nvcc, started = _build.nvcc_path(), []
-    for i, (name, source, edits) in enumerate(variants):
+    for i, (name, source, edits, *more) in enumerate(variants):
+        flags = more[0] if more else ()
         with open(os.path.join(_build.CSRC_DIR, source)) as f:
             text = f.read()
         for old, new in edits:
@@ -1626,7 +2327,8 @@ def build_variants(variants):
         with open(path, "w") as f:
             f.write(text)
         lib = path[:-3] + ".so"
-        proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", lib, path],
+        proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, *flags, "-o",
+                                 lib, path],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started.append((name, proc, lib))
@@ -1714,7 +2416,7 @@ def variants_main() -> int:
                                   ["s4", "prediction", "rawPrediction"])
     for dtype in ("float64", "float32"):
         xp = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
-        for name, source, _ in VARIANTS:
+        for name, source, *_ in VARIANTS:
             if source == "chain.cu":
                 report(name, lambda: program([xp], consts, CHAIN_ROWS),
                        "fused_chain", dtype=dtype)
@@ -1727,7 +2429,7 @@ def variants_main() -> int:
             sel = order if sorted_ids else slice(None)
             ids = torch.from_numpy(indices[sel]).cuda()
             vals = torch.from_numpy(values[sel].astype(dtype)).cuda()
-            for name, source, _ in VARIANTS:
+            for name, source, *_ in VARIANTS:
                 # The "sorted" variants edit the sorted path only.
                 if source != "segsum.cu" or (
                         ": sorted" in name and not sorted_ids):

@@ -9,10 +9,11 @@ for Hopper (:mod:`flinkml_tpu_torch.kernels`).
 
 Ported so far: tables, params, persistence, ``Pipeline``/``PipelineModel``
 with the fused executor, the four scalers (fit + transform),
-``LogisticRegression`` (binomial fit on one device, dense and sparse) and
-``LogisticRegressionModel`` (binomial, dense and sparse transform),
-``Knn``, ``MinHashLSH``, ``KMeans`` (batch fit on one device) and
-``BisectingKMeans`` with their models, and all four kernels:
+``OneHotEncoder`` and ``VectorAssembler``, ``LogisticRegression``
+(binomial fit on one device, dense and sparse; multinomial, dense) and
+``LogisticRegressionModel`` (binomial and multinomial, dense and sparse
+transform), ``Knn``, ``MinHashLSH``, ``KMeans`` (batch fit on one device)
+and ``BisectingKMeans`` with their models, and all four kernels:
 ``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``.
 """
 
@@ -60,10 +61,13 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     MinHashLSHModel,
     MinMaxScaler,
     MinMaxScalerModel,
+    OneHotEncoder,
+    OneHotEncoderModel,
     RobustScaler,
     RobustScalerModel,
     StandardScaler,
     StandardScalerModel,
+    VectorAssembler,
 )
 from flinkml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: F401
 from flinkml_tpu_torch.table import Table  # noqa: F401
@@ -92,6 +96,8 @@ __all__ = [
     "MinMaxScalerModel",
     "Model",
     "ModelIntegrityError",
+    "OneHotEncoder",
+    "OneHotEncoderModel",
     "Pipeline",
     "PipelineModel",
     "RobustScaler",
@@ -103,6 +109,7 @@ __all__ = [
     "Table",
     "Transformer",
     "Vector",
+    "VectorAssembler",
     "Vectors",
     "default_device",
     "launch_counts",

@@ -4,8 +4,9 @@ The port's counterpart of ``flinkml_tpu.kernels``. Ported so far:
 
 - ``spmv`` — the padded-ELL CSR matvec behind sparse LR scoring
   (:mod:`flinkml_tpu_torch.kernels.spmv`, ``csrc/spmv.cu``);
-- ``fused_chain`` — the fused scaler→LR transform chain
-  (:mod:`flinkml_tpu_torch.kernels.chain`, ``csrc/chain.cu``);
+- ``fused_chain`` — the fused row-local transform chain: one-hot and
+  assembling prologue, scalers, and a binomial or multinomial LR or KMeans
+  head (:mod:`flinkml_tpu_torch.kernels.chain`, ``csrc/chain.cu``);
 - ``segment_sum`` — the sparse gradient scatter-accumulate, unsorted
   (atomic) and sorted (run-flush) (:mod:`flinkml_tpu_torch.kernels.segsum`,
   ``csrc/segsum.cu``);

@@ -2,12 +2,20 @@
 
 Replaces ``flinkml_tpu/kernels/chain.py:173 pallas_chain_fn``. The Pallas
 kernel traces any row-local ``ColumnKernel`` chain; a hand-written CUDA
-kernel cannot, so ``csrc/chain.cu`` implements the chains this slice of
-the port can build: a linear run of up to :data:`MAX_STAGES` scaler stages
-(Standard, MinMax, MaxAbs, Robust scaler models), optionally ending in the
-binomial ``LogisticRegressionModel`` head. Any other chain, dtype or width
-raises :class:`~flinkml_tpu_torch.kernels.KernelUnsupportedError` on CUDA
-tensors; nothing falls back to the eager path there.
+kernel cannot, so ``csrc/chain.cu`` implements the chains of the stages
+the port has, in this grammar (:data:`GRAMMAR`, checked by
+:func:`plan_chain`):
+
+- prologue: any ``OneHotEncoderModel`` stages over input columns, then at
+  most one ``VectorAssembler`` over input columns and one-hot outputs;
+- body: up to :data:`MAX_STAGES` scaler stages (Standard, MinMax, MaxAbs,
+  Robust scaler models), a linear run;
+- head: none, or the ``LogisticRegressionModel`` (binomial or
+  multinomial), or the ``KMeansModel`` (euclidean).
+
+At least one stage. Any other chain, dtype or width raises
+:class:`~flinkml_tpu_torch.kernels.KernelUnsupportedError` on CUDA tensors;
+nothing falls back to the eager path there.
 
 Two versions of one contract ``run(ext_vals, consts, n_valid) -> {col:
 tensor}`` (``consts``: per kernel, its host constant arrays):
@@ -15,18 +23,21 @@ tensor}`` (``consts``: per kernel, its host constant arrays):
 - :func:`chain_plain` — the plain PyTorch version: each kernel's ``fn`` in
   order. The executor's path for CPU tensors, and the reference the CUDA
   kernel is held against.
-- :class:`ChainProgram` — the CUDA kernel. The host reads each stage's op
-  from its fingerprint, casts its constants to the compute dtype BEFORE the
-  zero guards (as the per-stage transforms do), packs them into one small
-  table (uploaded once per set of model arrays), and launches on one of two
-  routes, picked by the fixed rule :func:`route`: ``vector`` (lane groups
-  with 16-byte loads, for rows of whole 16-byte chunks) or ``scalar`` (one
-  warp per row, any width).
+- :class:`ChainProgram` — the CUDA kernel. The host describes the row as a
+  list of parts (one per input column: dense, or one-hot expanded), reads
+  each stage's op from its fingerprint, casts its constants to the compute
+  dtype BEFORE the zero guards (as the per-stage transforms do), packs
+  them and the head's matrix into one table (uploaded once per set of
+  model arrays, read from shared memory as far as it fits there:
+  :func:`shared_memory`), and launches on one of two routes, picked by the
+  fixed rule :func:`route`: ``vector`` (lane groups of 16-byte chunks, for
+  rows of whole chunks) or ``scalar`` (one warp per row, any row).
 
 Which outputs are written follows the executor's request: the eager
 program of a scaler→LR run writes the last scaler's output (pinned by the
 head's ``pin_inputs``) and the head's ``prediction``/``rawPrediction``; a
-lazy intermediate ``s_j`` runs the same kernel truncated after stage j.
+lazy intermediate (a one-hot output, the assembled row, a scaler's
+output) runs the same kernel truncated after the stage that makes it.
 """
 
 from __future__ import annotations
@@ -44,15 +55,31 @@ from flinkml_tpu_torch.kernels import _build, _gate
 #: Scaler stages one launch applies at most (3 op bits each in a 32-bit word).
 MAX_STAGES = 8
 
-#: Shared memory a block may use on the H100 (the per-stage constants and
-#: the coefficient live there).
+#: Input parts of one row at most (``csrc/chain.cu`` kMaxParts).
+MAX_PARTS = 64
+
+#: Shared memory a block may use on the H100 (the per-stage constants, the
+#: head's matrix and the rows a class head stages live there, as far as
+#: they fit: :func:`shared_memory`).
 MAX_SMEM_BYTES = 232_448
 
 SUPPORTED_DTYPES = (torch.float32, torch.float64)
 
 SCALER_STAGES = ("StandardScalerModel", "MinMaxScalerModel",
                  "MaxAbsScalerModel", "RobustScalerModel")
-HEAD_STAGE = "LogisticRegressionModel"
+ONEHOT_STAGE = "OneHotEncoderModel"
+ASSEMBLER_STAGE = "VectorAssembler"
+LR_STAGE = "LogisticRegressionModel"
+KMEANS_STAGE = "KMeansModel"
+#: The heads, as ``ChainPlan.head`` names them (kernel codes 1, 2, 3).
+HEADS = ("binomial", "multinomial", "kmeans")
+
+GRAMMAR = (
+    f"[{ONEHOT_STAGE} over input columns]* [{ASSEMBLER_STAGE} over input "
+    f"columns and one-hot outputs]? [scaler model]{{0..{MAX_STAGES}}} "
+    f"(a linear run) [{LR_STAGE} | {KMEANS_STAGE} (euclidean)]?, at least "
+    "one stage"
+)
 
 LAUNCHES = _gate.launch_counter("fused_chain")
 
@@ -61,30 +88,64 @@ LAUNCHES = _gate.launch_counter("fused_chain")
 VECTOR_BYTES = 16
 MAX_VECTOR_CHUNKS = 32
 ROUTES = ("vector", "scalar")
+#: Threads of a block on each route (``csrc/chain.cu`` kVecThreads,
+#: kThreads): their warps each stage rows for a class head.
+VECTOR_THREADS = 128
+SCALAR_THREADS = 256
+
+
+class _Part(ctypes.Structure):
+    """``csrc/chain.cu`` ``struct Part``: one input column of the row."""
+
+    _fields_ = [
+        ("src", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("max_index", ctypes.c_longlong),
+        ("width", ctypes.c_int),
+        ("offset", ctypes.c_int),
+        ("base", ctypes.c_int),
+        ("code", ctypes.c_int),
+    ]
+
+
+class _PartList(ctypes.Structure):
+    _fields_ = [("p", _Part * MAX_PARTS)]
+
 
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p,      # x, table
-    ctypes.c_int, ctypes.c_uint,           # n_run, ops
-    ctypes.c_int, ctypes.c_int,            # d, head
-    ctypes.c_int,                          # group (0: the scalar route)
-    ctypes.c_int64,                        # n_rows
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # out, pred, raw
-    ctypes.c_void_p,                       # stream
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,   # parts, n_parts, gather
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,   # table, n_table, n_smem
+    ctypes.c_int, ctypes.c_uint, ctypes.c_int,     # n_run, ops, d
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,      # head, k, group
+    ctypes.c_int,                                  # threads (scalar route)
+    ctypes.c_int64, ctypes.c_longlong,             # n_rows, smem bytes
+    ctypes.c_void_p, ctypes.c_void_p,              # row_out, out
+    ctypes.c_void_p, ctypes.c_void_p,              # pred, raw
+    ctypes.c_void_p,                               # stream
 ]
 _SYMBOLS = {torch.float32: "fml_fused_chain_f32",
             torch.float64: "fml_fused_chain_f64"}
+
+# Element type codes of an input column (csrc/chain.cu Elem) and the part
+# flags.
+_ELEM = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3,
+         torch.int16: 4, torch.int8: 5, torch.uint8: 6, torch.bool: 6}
+_ONEHOT, _DROP_LAST = 16, 32
+_HEAD_CODE = {None: 0, "binomial": 1, "multinomial": 2, "kmeans": 3}
 
 # Op bits of one stage (see csrc/chain.cu).
 _MINMAX, _SUB, _DIV = 1, 2, 4
 
 
-def route(d: int, itemsize: int, x_ptr: int) -> str:
+def route(d: int, itemsize: int, *ptrs: int, all_in_row: bool = True) -> str:
     """The fixed rule: ``vector`` when a row of ``d`` elements is a whole
-    number of 16-byte chunks, at most :data:`MAX_VECTOR_CHUNKS`, and x
-    starts 16-byte aligned (then every row does); ``scalar`` otherwise."""
+    number of 16-byte chunks, at most :data:`MAX_VECTOR_CHUNKS`, every
+    dense input (``ptrs``, their base addresses) starts 16-byte aligned
+    (then every row of a single input does), and every part is in the row
+    (``all_in_row``); ``scalar`` otherwise."""
     chunks, rest = divmod(d * itemsize, VECTOR_BYTES)
-    if rest == 0 and 1 <= chunks <= MAX_VECTOR_CHUNKS \
-            and x_ptr % VECTOR_BYTES == 0:
+    if (rest == 0 and 1 <= chunks <= MAX_VECTOR_CHUNKS and all_in_row
+            and all(p % VECTOR_BYTES == 0 for p in ptrs)):
         return "vector"
     return "scalar"
 
@@ -100,6 +161,25 @@ def lane_group(d: int, itemsize: int) -> Tuple[int, int, int]:
     while group < chunks:
         group *= 2
     return group, 32 // group, VECTOR_BYTES // itemsize
+
+
+def shared_memory(n_table: int, n_stages: int, per_warp: int, warps: int,
+                  itemsize: int) -> Optional[Tuple[int, int, int]]:
+    """Where a launch keeps its constants: ``(table elements in shared
+    memory, warps a block, bytes)``. The whole table (``n_table``
+    elements, of which the stages' are the first ``n_stages``) when it fits
+    beside ``warps`` warps' row buffers (``per_warp`` elements each); else
+    the head's block is read from device memory, then the stages' too;
+    then the block has fewer warps. None when one warp's row buffer alone
+    exceeds :data:`MAX_SMEM_BYTES`."""
+    cap = MAX_SMEM_BYTES // itemsize
+    for n in (n_table, n_stages, 0):
+        if n + warps * per_warp <= cap:
+            return n, warps, (n + warps * per_warp) * itemsize
+    fewer = cap // per_warp
+    if fewer < 1:
+        return None
+    return 0, fewer, fewer * per_warp * itemsize
 
 
 def _stage_name(kernel) -> str:
@@ -124,16 +204,47 @@ def chain_plain(kernels, ext_names: Sequence[str], out_names: Sequence[str],
 
 
 @dataclasses.dataclass(frozen=True)
-class ChainPlan:
-    """What one launch computes: ``n_run`` scaler stages, the output of the
-    last one written to ``out_col`` (None: not written), and with ``head``
-    the LR outputs ``pred_col``/``raw_col``."""
+class PartPlan:
+    """One input of the kernel's row: the chain's external column number
+    ``ext``, taken as it is or (``onehot = (max_index, drop_last)``)
+    expanded to one-hot slots; ``out_col``: the one-hot output it writes;
+    ``in_row``: whether it is part of the row (else it only writes
+    ``out_col``)."""
 
-    n_run: int
+    ext: int
+    onehot: Optional[Tuple[int, bool]] = None
+    out_col: Optional[str] = None
+    in_row: bool = True
+
+    @property
+    def onehot_width(self) -> int:
+        """Slots of a one-hot part: the categories (all but the last with
+        dropLast) and the catch-all slot."""
+        max_index, drop_last = self.onehot
+        return max_index + (0 if drop_last else 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """What one launch computes: the row from ``parts`` (written to
+    ``row_col`` when the VectorAssembler's output is asked for), the first
+    ``n_run`` body stages (kernel numbers ``stages``), the output of the
+    last of them written to ``out_col`` (None: not written), and the
+    ``head`` (None or one of :data:`HEADS`, kernel number ``head_stage``)
+    writing ``pred_col`` (and ``raw_col`` for LR)."""
+
+    parts: Tuple[PartPlan, ...]
+    row_col: Optional[str]
+    stages: Tuple[int, ...]
     out_col: Optional[str]
-    head: bool
+    head: Optional[str] = None
+    head_stage: Optional[int] = None
     pred_col: Optional[str] = None
     raw_col: Optional[str] = None
+
+    @property
+    def n_run(self) -> int:
+        return len(self.stages)
 
 
 def plan_chain(kernels, ext_names: Sequence[str],
@@ -141,54 +252,127 @@ def plan_chain(kernels, ext_names: Sequence[str],
     """Check that ``csrc/chain.cu`` computes this chain and these outputs;
     raise :class:`KernelUnsupportedError` naming the reason if not."""
     def refuse(reason):
-        return _gate.refuse("fused_chain", reason)
+        return _gate.refuse("fused_chain",
+                            f"{reason} (the kernel's grammar: {GRAMMAR})")
 
     kernels = tuple(kernels)
+    ext = tuple(ext_names)
     if not kernels:
         raise refuse("empty chain")
     names = [_stage_name(k) for k in kernels]
-    head = names[-1] == HEAD_STAGE
-    scalers = kernels[:-1] if head else kernels
-    for i, name in enumerate(names[:len(scalers)]):
-        if name not in SCALER_STAGES:
-            raise refuse(
-                f"stage {i} ({name or type(kernels[i].fn).__name__}) has no "
-                f"fused_chain op; supported stages: {SCALER_STAGES} "
-                f"optionally ending in {HEAD_STAGE}"
-            )
-    if not scalers:
-        raise refuse("the chain has no scaler stage")
-    if len(scalers) > MAX_STAGES:
-        raise refuse(f"{len(scalers)} scaler stages > MAX_STAGES={MAX_STAGES}")
-    if head and kernels[-1].fingerprint[4]:
-        raise refuse("multinomial LogisticRegressionModel (binomial only)")
-    ext_names = tuple(ext_names)
-    if ext_names != tuple(scalers[0].input_cols):
-        raise refuse(
-            f"the chain reads columns {ext_names}; the kernel reads one "
-            "column, the first stage's input"
-        )
-    for i in range(1, len(kernels)):
-        if tuple(kernels[i].input_cols) != (kernels[i - 1].output_cols[0],):
-            raise refuse(
-                f"stage {i} reads {tuple(kernels[i].input_cols)}, not stage "
-                f"{i - 1}'s output: the kernel runs linear chains only"
-            )
-    scaler_out = [k.output_cols[0] for k in scalers]
+    n, i = len(kernels), 0
+    # One-hot units: output column -> (input column, max_index, drop_last).
+    units: Dict[str, Tuple[str, int, bool]] = {}
+    while i < n and names[i] == ONEHOT_STAGE:
+        _, in_cols, out_cols, drop_last, max_idx = kernels[i].fingerprint
+        for c, o, mv in zip(in_cols, out_cols, max_idx):
+            if c not in ext:
+                raise refuse(f"stage {i} ({ONEHOT_STAGE}) reads {c!r}, which "
+                             "is not an input column of the chain")
+            units[o] = (c, int(mv), bool(drop_last))
+        i += 1
+    row_col, row_inputs = None, None
+    if i < n and names[i] == ASSEMBLER_STAGE:
+        row_inputs = tuple(kernels[i].input_cols)
+        row_col = kernels[i].output_cols[0]
+        for c in row_inputs:
+            if c not in ext and c not in units:
+                raise refuse(f"stage {i} ({ASSEMBLER_STAGE}) reads {c!r}, "
+                             "neither an input column nor a one-hot output")
+        i += 1
+    first = i
+    while i < n and names[i] in SCALER_STAGES:
+        i += 1
+    body = tuple(range(first, i))
+    head_stage = i if i < n and names[i] in (LR_STAGE, KMEANS_STAGE) else None
+    if head_stage is not None:
+        i += 1
+    if i < n:
+        raise refuse(f"stage {i} ({names[i] or type(kernels[i].fn).__name__}) "
+                     "has no place in the chain")
+    if len(body) > MAX_STAGES:
+        raise refuse(f"{len(body)} scaler stages > MAX_STAGES={MAX_STAGES}")
+    tail = body + (() if head_stage is None else (head_stage,))
+    if tail:
+        src = tuple(kernels[tail[0]].input_cols)
+        if row_col is not None and src != (row_col,):
+            raise refuse(f"stage {tail[0]} reads {src}, not the "
+                         f"{ASSEMBLER_STAGE}'s output")
+        if row_col is None:
+            if len(src) != 1 or (src[0] not in ext and src[0] not in units):
+                raise refuse(f"stage {tail[0]} reads {src}: the body reads "
+                             "one input column or one one-hot output")
+            row_inputs = src
+        for a, b in zip(tail, tail[1:]):
+            if tuple(kernels[b].input_cols) != (kernels[a].output_cols[0],):
+                raise refuse(f"stage {b} reads {tuple(kernels[b].input_cols)}"
+                             f", not stage {a}'s output: the body is a "
+                             "linear run")
+    elif row_inputs is None:
+        row_inputs = tuple(units)
+    scaler_out = [kernels[j].output_cols[0] for j in body]
     if len(set(scaler_out)) != len(scaler_out):
         raise refuse(f"scaler output columns {scaler_out} are not distinct")
+
+    head, head_cols = None, ()
+    if head_stage is not None:
+        hk = kernels[head_stage]
+        head_cols = tuple(hk.output_cols)
+        if names[head_stage] == KMEANS_STAGE:
+            if hk.fingerprint[3] != "euclidean":
+                raise refuse(f"{KMEANS_STAGE} with distance "
+                             f"{hk.fingerprint[3]!r} (euclidean only)")
+            head = "kmeans"
+        else:
+            head = "multinomial" if hk.fingerprint[4] else "binomial"
+
     wanted = list(dict.fromkeys(out_names))
-    if head:
-        pred_col, raw_col = kernels[-1].output_cols
-        if pred_col in wanted or raw_col in wanted:
-            out_col = scaler_out[-1] if scaler_out[-1] in wanted else None
-            extra = set(wanted) - {out_col, pred_col, raw_col}
-            if extra or pred_col not in wanted or raw_col not in wanted:
-                raise refuse(f"cannot write the output set {wanted}")
-            return ChainPlan(len(scalers), out_col, True, pred_col, raw_col)
-    if len(wanted) != 1 or wanted[0] not in scaler_out:
+    known = set(units) | set(scaler_out) | set(head_cols) | {row_col}
+    if not wanted or any(c not in known for c in wanted):
         raise refuse(f"cannot write the output set {wanted}")
-    return ChainPlan(scaler_out.index(wanted[0]) + 1, wanted[0], False)
+    want_scalers = [c for c in wanted if c in scaler_out]
+    if any(c in head_cols for c in wanted):
+        if any(c not in wanted for c in head_cols):
+            raise refuse(f"cannot write the output set {wanted}: the head "
+                         f"writes {head_cols} together")
+        if want_scalers and want_scalers != scaler_out[-1:]:
+            raise refuse(f"cannot write the output set {wanted}: with the "
+                         "head, only the last scaler's output")
+        n_run = len(body)
+    else:
+        head = head_stage = None
+        if len(want_scalers) > 1:
+            raise refuse(f"cannot write the output set {wanted}: one "
+                         "scaler output a launch")
+        n_run = scaler_out.index(want_scalers[0]) + 1 if want_scalers else 0
+    if not (row_col in wanted or n_run or head):
+        # Only one-hot outputs: the row is those units alone.
+        row_inputs = tuple(o for o in units if o in wanted)
+
+    written = set()
+
+    def part(c, in_row):
+        if c not in units:
+            return PartPlan(ext.index(c), in_row=in_row)
+        src, mv, drop_last = units[c]
+        out = c if c in wanted and c not in written else None
+        written.add(out)
+        return PartPlan(ext.index(src), (mv, drop_last), out, in_row)
+
+    parts = [part(c, True) for c in row_inputs]
+    parts += [part(o, False) for o in units if o in wanted and o not in written]
+    if len(parts) > MAX_PARTS:
+        raise refuse(f"{len(parts)} input parts > MAX_PARTS={MAX_PARTS}")
+    return ChainPlan(
+        parts=tuple(parts),
+        row_col=row_col if row_col in wanted else None,
+        stages=body[:n_run],
+        out_col=scaler_out[n_run - 1] if n_run and (
+            scaler_out[n_run - 1] in wanted) else None,
+        head=head, head_stage=head_stage,
+        pred_col=head_cols[0] if head else None,
+        raw_col=head_cols[1] if head in ("binomial", "multinomial") else None,
+    )
 
 
 def _stage_entry(kernel, consts: Mapping[str, np.ndarray], dt: np.dtype,
@@ -223,103 +407,245 @@ def _stage_entry(kernel, consts: Mapping[str, np.ndarray], dt: np.dtype,
     return _MINMAX, dmin, vec("dataMax") - dmin, hi - lo, lo
 
 
+def _head_matrix(consts: Mapping[str, np.ndarray], key: str, dt: np.dtype,
+                 d: int) -> np.ndarray:
+    m = np.asarray(consts[key]).astype(dt)
+    if m.ndim != 2 or m.shape[1] != d:
+        raise ValueError(
+            f"features have dim {d} but the model's {key} has shape {m.shape}"
+        )
+    return m
+
+
 def pack_table(plan: ChainPlan, kernels, consts, dt: np.dtype,
                d: int) -> Tuple[np.ndarray, int]:
-    """The kernel's constant table (type ``dt``) and op word for ``plan``."""
-    parts, ops = [], 0
-    for s in range(plan.n_run):
-        bits, a, b, scale, offset = _stage_entry(kernels[s], consts[s], dt, d)
+    """The kernel's constant table (type ``dt``) and op word for ``plan``:
+    each run stage's ``a[d], b[d], scale, offset``, then the head's block
+    (binomial ``coef[d]``; multinomial ``W^T [d][k]``; KMeans ``C^T
+    [d][k]`` and ``|C[c]|^2 [k]``)."""
+    parts, ops = [np.zeros(0, dt)], 0
+    for s, j in enumerate(plan.stages):
+        bits, a, b, scale, offset = _stage_entry(kernels[j], consts[j], dt, d)
         ops |= bits << (3 * s)
         parts += [a, b, np.asarray([scale, offset], dtype=dt)]
-    if plan.head:
-        coef = np.asarray(consts[-1]["coefficient"]).astype(dt)
+    hc = consts[plan.head_stage] if plan.head else None
+    if plan.head == "binomial":
+        coef = np.asarray(hc["coefficient"]).astype(dt)
         if coef.shape != (d,):
             raise ValueError(
                 f"features have dim {d} but the model coefficient has shape "
                 f"{coef.shape}"
             )
         parts.append(coef)
+    elif plan.head == "multinomial":
+        parts.append(_head_matrix(hc, "coefficient", dt, d).T.reshape(-1))
+    elif plan.head == "kmeans":
+        c = _head_matrix(hc, "centroids", dt, d)
+        parts += [c.T.reshape(-1), np.sum(c * c, axis=1, dtype=dt)]
     return np.concatenate(parts), ops
+
+
+def head_classes(plan: ChainPlan, consts) -> int:
+    """Classes (or centroids) of a multinomial or KMeans head, else 0."""
+    if plan.head == "multinomial":
+        return int(np.shape(consts[plan.head_stage]["coefficient"])[0])
+    if plan.head == "kmeans":
+        return int(np.shape(consts[plan.head_stage]["centroids"])[0])
+    return 0
+
+
+def _refuse(reason: str) -> _gate.KernelUnsupportedError:
+    return _gate.refuse("fused_chain", reason)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """:meth:`ChainProgram.layout`'s answer for one signature of inputs:
+    each part's width, the row's dtype and width, whether the vector route
+    gathers, and the route."""
+
+    widths: Tuple[int, ...]
+    dtype: torch.dtype
+    d: int
+    gather: bool
+    route: str
 
 
 class ChainProgram:
     """A chain planned for ``csrc/chain.cu``: ``run(ext_vals, consts,
-    n_valid)`` packs the constants (once per set of model arrays, cached by
-    identity) and launches one kernel over the first ``n_valid`` rows."""
+    n_valid)`` lays out the row's parts, packs the constants (once per set
+    of model arrays, cached by identity) and launches one kernel over the
+    first ``n_valid`` rows."""
 
     def __init__(self, kernels, ext_names: Sequence[str],
                  out_names: Sequence[str]):
         self.kernels = tuple(kernels)
+        self.ext_names, self.out_names = tuple(ext_names), tuple(out_names)
         self.plan = plan_chain(self.kernels, ext_names, out_names)
-        self._table = None   # (arrays, dtype, device, tensor, ops)
+        self._table = None   # (arrays, dtype, device, d, tensor, ops, k)
+        self._layout = None  # (input signature, Layout)
 
     def table(self, consts, dtype: torch.dtype, device: torch.device,
-              d: int) -> Tuple[torch.Tensor, int]:
+              d: int) -> Tuple[torch.Tensor, int, int]:
         arrays = tuple(v for kc in consts for v in kc.values())
         hit = self._table
         if (hit is not None and hit[1] == dtype and hit[2] == device
-                and len(hit[0]) == len(arrays)
+                and hit[3] == d and len(hit[0]) == len(arrays)
                 and all(a is b for a, b in zip(hit[0], arrays))):
-            return hit[3], hit[4]
+            return hit[4], hit[5], hit[6]
         np_dt = np.dtype(str(dtype).replace("torch.", ""))
         host, ops = pack_table(self.plan, self.kernels, consts, np_dt, d)
         tensor = torch.from_numpy(host).to(device)
-        self._table = (arrays, dtype, device, tensor, ops)
-        return tensor, ops
+        k = head_classes(self.plan, consts)
+        self._table = (arrays, dtype, device, d, tensor, ops, k)
+        return tensor, ops, k
+
+    def layout(self, ext_vals) -> "Layout":
+        """How a launch over ``ext_vals`` reads them (a part that is not
+        contiguous is read from a contiguous copy, which is aligned); the
+        route by :func:`route`."""
+        widths, row_dtypes, dense = [], [], []
+        for part in self.plan.parts:
+            v = ext_vals[part.ext]
+            if v.dtype not in _ELEM:
+                raise _refuse(f"input dtype {v.dtype} is not supported "
+                              f"(supported: {sorted(map(str, _ELEM))})")
+            if part.onehot is not None:
+                if v.dim() != 1:
+                    raise _refuse("a one-hot index column must be [rows], "
+                                  f"got {tuple(v.shape)}")
+                width, dt = part.onehot_width, torch.float64
+            else:
+                if v.dim() not in (1, 2):
+                    raise _refuse("an input must be [rows] or [rows, w], "
+                                  f"got {tuple(v.shape)}")
+                width = 1 if v.dim() == 1 else v.shape[1]
+                # Non-float parts promote to float64 (the stages' rule).
+                dt = v.dtype if v.dtype.is_floating_point else torch.float64
+                dense.append(v.data_ptr() if v.is_contiguous() else 0)
+            widths.append(width)
+            if part.in_row:
+                row_dtypes.append(dt)
+        dtype = functools.reduce(torch.promote_types, row_dtypes)
+        if dtype not in SUPPORTED_DTYPES:
+            raise _refuse(f"row dtype {dtype} is not supported (supported: "
+                          "float32, float64)")
+        parts = self.plan.parts
+        d = sum(w for w, p in zip(widths, parts) if p.in_row)
+        gather = not (len(parts) == 1 and parts[0].onehot is None
+                      and ext_vals[parts[0].ext].dtype == dtype)
+        return Layout(tuple(widths), dtype, d, gather,
+                      route(d, dtype.itemsize, *dense,
+                            all_in_row=all(p.in_row for p in parts)))
 
     def __call__(self, ext_vals, consts, n_valid: int) -> Dict[str, torch.Tensor]:
         plan = self.plan
-        x = ext_vals[0]
-        if x.device.type != "cuda":
-            raise _gate.refuse("fused_chain", f"device {x.device} is not CUDA")
-        if not x.dtype.is_floating_point:
-            x = x.to(torch.float64)   # the scalers' dtype rule
-        if x.dtype not in SUPPORTED_DTYPES:
-            raise _gate.refuse(
-                "fused_chain",
-                f"input dtype {x.dtype} is not supported (supported: "
-                "float32, float64)",
-            )
-        if x.dim() == 1:
-            x = x.reshape(-1, 1)
-        if x.dim() != 2:
-            raise _gate.refuse("fused_chain",
-                               f"input must be [rows, d], got {tuple(x.shape)}")
-        x = x.contiguous()
-        bucket, d = x.shape
-        n_table = plan.n_run * (2 * d + 2) + (d if plan.head else 0)
-        if n_table * x.element_size() > MAX_SMEM_BYTES:
-            raise _gate.refuse(
-                "fused_chain",
-                f"d={d} with {plan.n_run} stages needs "
-                f"{n_table * x.element_size()} bytes of constants, more "
-                f"than the {MAX_SMEM_BYTES} bytes of shared memory a block "
-                "can hold",
-            )
-        group = (lane_group(d, x.element_size())[0]
-                 if route(d, x.element_size(), x.data_ptr()) == "vector"
-                 else 0)
-        table, ops = self.table(consts, x.dtype, x.device, d)
-        new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
+        for v in ext_vals:
+            if v.device.type != "cuda":
+                raise _refuse(f"device {v.device} is not CUDA")
+        # The layout depends on the inputs' dtypes, shapes, strides and
+        # 16-byte alignment only: kept for the last such signature.
+        sig = tuple((v.dtype, v.shape, v.stride(), v.data_ptr() % VECTOR_BYTES)
+                    for v in ext_vals)
+        if self._layout is None or self._layout[0] != sig:
+            self._layout = (sig, self.layout(ext_vals))
+        lay = self._layout[1]
+        dtype, d, gather = lay.dtype, lay.d, lay.gather
+        device = ext_vals[0].device
+        bucket = ext_vals[0].shape[0]
+        item = dtype.itemsize
+        vector = lay.route == "vector"
+        group, rows_per_warp, _ = lane_group(d, item) if vector else (0, 1, 0)
+        table, ops, k = self.table(consts, dtype, device, d)
+        class_head = plan.head in ("multinomial", "kmeans")
+        # Each warp of a class head stages its rows, and (multinomial) the
+        # row's logits, in shared memory.
+        logits = k if plan.head == "multinomial" else 0
+        n_smem, threads, smem = 0, SCALAR_THREADS, 0
+        if not vector or gather or class_head:
+            n_stages = plan.n_run * (2 * d + 2)
+            if vector:
+                per_warp = rows_per_warp * d + logits if class_head else 0
+                place = shared_memory(table.numel(), n_stages, per_warp,
+                                      VECTOR_THREADS // 32, item)
+                if place is None or place[1] < VECTOR_THREADS // 32:
+                    # A vector block keeps all its warps: the scalar route
+                    # takes the rows.
+                    vector, group, place = False, 0, None
+            if not vector:
+                per_warp = d + logits if class_head else 0
+                place = shared_memory(table.numel(), n_stages, per_warp,
+                                      SCALAR_THREADS // 32, item)
+            if place is None:
+                raise _refuse(
+                    f"a {plan.head} head over d={d} with {k} classes stages "
+                    f"{per_warp * item} bytes a row, more than the "
+                    f"{MAX_SMEM_BYTES} bytes of shared memory a block can "
+                    "hold"
+                )
+            n_smem, warps, smem = place
+            threads = warps * 32
+
+        new = functools.partial(torch.empty, device=device)
         outs: Dict[str, torch.Tensor] = {}
-        if plan.out_col is not None:
-            outs[plan.out_col] = new((bucket, d))
-        if plan.head:
-            outs[plan.pred_col] = new((bucket,))
-            outs[plan.raw_col] = new((bucket, 2))
+        parts = _PartList()
+        offset = 0
+        # Held until the launch is enqueued: a contiguous copy freed earlier
+        # could be handed to an output below.
+        srcs = [ext_vals[part.ext].contiguous() for part in plan.parts]
+        for i, (part, width, v) in enumerate(zip(plan.parts, lay.widths,
+                                                 srcs)):
+            p = parts.p[i]
+            p.src, p.width = v.data_ptr(), width
+            p.code = _ELEM[v.dtype]
+            if part.onehot is not None:
+                max_index, drop_last = part.onehot
+                p.max_index, p.base = max_index, width - 1
+                p.code |= _ONEHOT | (_DROP_LAST if drop_last else 0)
+                if part.out_col is not None:
+                    outs[part.out_col] = new((bucket, width),
+                                             dtype=torch.float64)
+                    p.out = outs[part.out_col].data_ptr()
+            p.offset = offset if part.in_row else -1
+            offset += width if part.in_row else 0
+        for col in (plan.row_col, plan.out_col):
+            if col is not None:
+                outs[col] = new((bucket, d), dtype=dtype)
+        if plan.head == "kmeans":
+            outs[plan.pred_col] = new((bucket,), dtype=torch.int64)
+        elif plan.head is not None:
+            outs[plan.pred_col] = new((bucket,), dtype=dtype)
+            outs[plan.raw_col] = new(
+                (bucket, 2 if plan.head == "binomial" else k), dtype=dtype)
 
         def ptr(col):
             return outs[col].data_ptr() if col in outs else None
 
-        fn = _build.function("chain", _SYMBOLS[x.dtype], _ARGTYPES)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            code = fn(x.data_ptr(), table.data_ptr(), plan.n_run, ops, d,
-                      int(plan.head), group, int(n_valid), ptr(plan.out_col),
+        fn = _build.function("chain", _SYMBOLS[dtype], _ARGTYPES)
+        check_part_layout()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            code = fn(ctypes.addressof(parts), len(plan.parts), int(gather),
+                      table.data_ptr(), table.numel(), n_smem, plan.n_run,
+                      ops, d, _HEAD_CODE[plan.head], k, group, threads,
+                      int(n_valid), smem,
+                      ptr(plan.row_col), ptr(plan.out_col),
                       ptr(plan.pred_col), ptr(plan.raw_col), stream)
         _build.check("fused_chain", "chain", code)
         LAUNCHES.bump()
         return outs
+
+
+@functools.lru_cache(maxsize=None)
+def check_part_layout() -> None:
+    """Raise unless the built kernel's ``struct Part`` has the size of
+    :class:`_Part` (the layout the host fills); checked once."""
+    size = _build.function("chain", "fml_chain_part_bytes", [])()
+    if size != ctypes.sizeof(_Part):
+        raise RuntimeError(
+            f"kernels[fused_chain]: csrc/chain.cu's Part is {size} bytes, "
+            f"the host's {ctypes.sizeof(_Part)}"
+        )
 
 
 def build_chain(kernels, ext_names: Sequence[str], out_names: Sequence[str],
@@ -332,7 +658,7 @@ def build_chain(kernels, ext_names: Sequence[str], out_names: Sequence[str],
         return functools.partial(chain_plain, kernels, tuple(ext_names),
                                  tuple(out_names))
     if device.type != "cuda":
-        raise _gate.refuse("fused_chain", f"device {device} is not CUDA")
+        raise _refuse(f"device {device} is not CUDA")
     return ChainProgram(kernels, ext_names, out_names)
 
 

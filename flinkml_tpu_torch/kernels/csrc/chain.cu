@@ -1,49 +1,73 @@
-// Fused scaler -> logistic-regression transform chain for Hopper (sm_90a).
+// Fused row-local transform chain for Hopper (sm_90a).
 //
 // Replaces flinkml_tpu/kernels/chain.py:173 pallas_chain_fn for the chains
-// the port can build: up to 8 scaler stages (StandardScaler, MinMaxScaler,
-// MaxAbsScaler, RobustScaler models), optionally ending in the binomial
-// LogisticRegressionModel head. For every row of x [rows, d] it applies
-// each stage's elementwise op sequence in order (the stages are NOT
-// pre-composed: each op rounds as in the per-stage path), writes the last
-// scaler's output, and with the head computes
-//   dot = sum_j v[j] * coef[j],  p = 1 / (1 + exp(-dot)),
-//   prediction = dot >= 0,  rawPrediction = [1 - p, p].
+// the port can build, one launch per chain. A chain has this grammar
+// (kernels/chain.py::plan_chain checks it):
 //
-// What bounds it on the H100: bytes. x is read once and the scaler output
-// written once (25.6 MB each at 100,000 x 32 float64), plus 0.8 MB of
-// predictions and 1.6 MB of raw predictions: ~53.6 MB, about 16 us at
-// 3.35 TB/s, against ~10 operations per element.
+//   prologue: OneHotEncoderModel stages over input columns, then at most
+//             one VectorAssembler over input columns and one-hot outputs
+//   body:     0..8 scaler stages (StandardScaler, MinMaxScaler,
+//             MaxAbsScaler, RobustScaler models), linear
+//   head:     none | binomial LR | multinomial LR | KMeans (euclidean)
 //
-// The division floor: four of the chain's ops are IEEE divisions (`/` is
-// not turned into a reciprocal multiply: the per-stage path divides), each
-// a short Newton sequence of ~8-10 instructions; at 100,000 x 32 that is
-// ~13 M divisions, about 4 us at the f32 rate and 8 us at the f64 rate,
-// under the byte bound in both.
+// The prologue is a list of parts (at most kMaxParts), each one input
+// column: a dense column [rows, w] or [rows] of any numeric type (cast to
+// the row's type T, as the per-stage paths cast), or an index column that
+// a one-hot expands to `width` slots. The parts in the row are
+// concatenated into the row [d] of type T; a part not in the row (offset
+// -1) only writes its one-hot output. One-hot keep semantics, as the JAX
+// fn computes them: the index truncates toward zero; an index outside
+// [0, max_index] (NaN and +-inf included) goes to the catch-all slot
+// `base`; with dropLast the index max_index gives an all-zero row; the
+// one-hot output is float64.
+//
+// The body applies each stage's elementwise op sequence in order (stages
+// are NOT pre-composed: each op rounds as in the per-stage path). Heads:
+//   binomial:    dot = sum_j v[j] * coef[j], p = 1 / (1 + exp(-dot)),
+//                prediction = dot >= 0, rawPrediction = [1 - p, p];
+//   multinomial: logits[c] = sum_j v[j] * W[c, j], rawPrediction =
+//                softmax(logits) (max-subtracted, exp / sum), prediction =
+//                argmax (first index on ties, the first NaN if any);
+//   KMeans:      prediction (int64) = argmin_c max((|v|^2 - 2 v.C[c]) +
+//                |C[c]|^2, 0), the expansion of ops/blas.py::
+//                squared_distances (first index on ties, the first NaN).
+// Which columns are written is the caller's: one-hot outputs, the
+// assembled row (`row_out`), the last scaler's output (`out`), the head's.
+//
+// What bounds it on the H100. A scaler chain with the binomial head:
+// bytes (x read once, the scaler output written once; ~53.6 MB, ~16 us at
+// 3.35 TB/s at 100,000 x 32 float64). A [k, d] head adds 2 k operations a
+// row element: at 262,144 x 128, k = 64 in float64 that is 4.3 GFLOP, ~0.13
+// ms at the float64 vector rate, so the class heads are bound by
+// operations. This kernel is the simple version of them: lanes take
+// classes, each a sequential dot over the row staged in shared memory.
 //
 // Two routes, picked by the wrapper (kernels/chain.py::route):
 //
-// - vector, when a row is a whole number of 16-byte chunks (d * itemsize a
-//   multiple of 16, at most 32 chunks) and x is 16-byte aligned: a group of
-//   G lanes (the chunk count rounded up to a power of two) covers one row,
-//   each lane one 16-byte chunk (4 f32 or 2 f64 columns), so a warp takes
-//   32 / G rows. A lane's columns are the same for every row, so the
-//   per-stage constants of its columns are read once into registers (the
-//   kernel is instantiated per stage count, so only the stages in use take
-//   registers). Each lane takes one row a pass in a persistent grid sized
-//   to the card, and issues the next pass's load before this pass's ops,
-//   so loads stay in flight while the divisions run. The row's dot is
-//   combined by a fixed xor tree inside the group (deterministic);
-//   rawPrediction is one float2/double2 store per row and prediction one
-//   store per row from the group leaders.
-// - scalar, for every other width and for misaligned views: the per-stage
-//   constants are copied once per block into shared memory; one warp owns
-//   one row at a time (grid-stride over rows), its lanes stride the d
-//   columns, and the row's dot is combined by a fixed shuffle tree.
+// - vector, when the row is a whole number of 16-byte chunks (d * itemsize
+//   a multiple of 16, at most 32 chunks), every dense input starts 16-byte
+//   aligned and every part is in the row: a group of G lanes (the chunk
+//   count rounded up to a power of two) covers one row, each lane one
+//   16-byte chunk (4 f32 or 2 f64 columns), so a warp takes 32 / G rows.
+//   With a single dense input of type T the chunk is one 16-byte load
+//   (issued a pass ahead, so loads stay in flight while the divisions
+//   run); otherwise each of the lane's columns is gathered from its part.
+//   Scaler chains with no head or the binomial head keep the per-stage
+//   constants of the lane's columns in registers (the kernel is
+//   instantiated per stage count); the other chains read them from shared
+//   memory. The binomial dot is combined by a fixed xor tree inside the
+//   group; a class head stages the warp's rows in shared memory and runs
+//   them one by one over the whole warp.
+// - scalar, for every other chain: one warp owns one row at a time
+//   (grid-stride over rows), walks the parts in order with its lanes
+//   striding each part's columns, reads the constants from shared memory,
+//   and combines the binomial dot by a fixed shuffle tree.
 //
-// No intermediate column touches device memory. Built with -fmad=false so
-// the MinMax `unit * scale + offset` rounds twice, as numpy and XLA round
-// it, and every op rounds as in the per-stage path on both routes.
+// Every head is a template specialisation, so a chain pays only for its
+// own. No intermediate column touches device memory unless it is asked
+// for. Built with -fmad=false so the MinMax `unit * scale + offset` rounds
+// twice, as numpy and XLA round it, and every op rounds as in the
+// per-stage path on both routes.
 //
 // Stage encoding: 3 bits per stage in `ops` (stage s at bits 3s..3s+2):
 //   bit 0  kind: 0 = shift/scale, 1 = min-max
@@ -51,7 +75,15 @@
 //   bit 2  shift/scale: divide by b[j]
 // min-max: v = b[j] > 0 ? (v - a[j]) / b[j] : 0.5; v = v * scale + offset.
 // Table layout (type T): stage s at s * (2d + 2): a[d], b[d], scale,
-// offset; with the head, coef[d] after the last stage.
+// offset; then the head's block: binomial coef[d]; multinomial W^T [d][k];
+// KMeans C^T [d][k] and |C[c]|^2 [k].
+//
+// Shared memory (the chains that use it): the first n_smem elements of the
+// table, then each warp's staged rows and (multinomial) its k logits. The
+// wrapper (kernels/chain.py::shared_memory) keeps the whole table there
+// when it fits; else the head's block is read from device memory (it stays
+// in L2), then the stages' too; then the block has fewer warps. Only a
+// row (and its logits) that one warp cannot stage is refused.
 //
 // No synchronisation and no allocation: the wrapper allocates the outputs
 // and launches on PyTorch's current stream.
@@ -62,9 +94,58 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;  // 8 resident blocks on each of 132 SMs
 // Vector route: threads per block.
 constexpr int kVecThreads = 128;
+constexpr int kMaxParts = 64;
+
+enum HeadKind { kNoHead = 0, kBinomial = 1, kMultinomial = 2, kKMeans = 3 };
+
+// Part::code: bits 0-3 the element type of `src`, bit 4 one-hot, bit 5
+// dropLast.
+enum Elem { kF32 = 0, kF64 = 1, kI32 = 2, kI64 = 3, kI16 = 4, kI8 = 5, kU8 = 6 };
+constexpr int kOneHot = 16;
+constexpr int kDropLast = 32;
+
+struct Part {
+  const void* src;
+  void* out;            // the one-hot output, double [rows, width], or null
+  long long max_index;  // one-hot: the valid categories are [0, max_index]
+  int width;            // columns the part gives
+  int offset;           // its first column in the row; -1: not in the row
+  int base;             // one-hot: the catch-all slot
+  int code;
+};
+struct PartList {
+  Part p[kMaxParts];
+};
+
+// The input: a dense [rows, d] column of type T, or the part list.
+template <typename T, bool GATHER> struct Src;
+template <typename T> struct Src<T, false> {
+  const T* x;
+};
+template <typename T> struct Src<T, true> {
+  PartList parts;
+  int n_parts;
+};
+
+template <typename T>
+struct Args {
+  const T* table;
+  int n_table;
+  int n_smem;  // the table's elements in shared memory (see the head)
+  int n_run;
+  unsigned ops;
+  int d;
+  int group;  // vector route: lanes per row
+  int k;      // classes of a multinomial or KMeans head
+  int64_t n_rows;
+  T* row_out;
+  T* out;
+  T* pred;
+  T* raw;
+  long long* ipred;
+};
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -80,6 +161,122 @@ __device__ __forceinline__ T apply_op(unsigned op, T v, T a, T b, T scale,
   if (op & 2u) v = v - a;
   if (op & 4u) v = v / b;
   return v;
+}
+
+// Element i of a numeric column as T (a widening or exact cast).
+template <typename T>
+__device__ __forceinline__ T load_as(const void* src, int elem, long long i) {
+  switch (elem) {
+    case kF32: return T(static_cast<const float*>(src)[i]);
+    case kF64: return T(static_cast<const double*>(src)[i]);
+    case kI32: return T(static_cast<const int32_t*>(src)[i]);
+    case kI64: return T(static_cast<const long long*>(src)[i]);
+    case kI16: return T(static_cast<const int16_t*>(src)[i]);
+    case kI8: return T(static_cast<const int8_t*>(src)[i]);
+    default: return T(static_cast<const uint8_t*>(src)[i]);
+  }
+}
+
+// The one-hot slot of row r of part P; `zero`: the row is all zero
+// (dropLast and the last category).
+__device__ __forceinline__ long long onehot_slot(const Part& P, long long r,
+                                                 bool& zero) {
+  const int elem = P.code & 15;
+  bool valid;
+  long long idx;
+  if (elem == kF32 || elem == kF64) {
+    const double t = trunc(load_as<double>(P.src, elem, r));
+    valid = t >= 0.0 && t <= static_cast<double>(P.max_index);  // NaN: no
+    idx = valid ? static_cast<long long>(t) : 0;
+  } else {
+    idx = load_as<long long>(P.src, elem, r);
+    valid = idx >= 0 && idx <= P.max_index;
+  }
+  zero = valid && (P.code & kDropLast) && idx == P.max_index;
+  return valid ? idx : P.base;
+}
+
+// Column c of part P at row r, as T; writes the one-hot output.
+template <typename T>
+__device__ __forceinline__ T part_value(const Part& P, long long r, int c) {
+  if (P.code & kOneHot) {
+    bool zero;
+    const long long slot = onehot_slot(P, r, zero);
+    const T v = (!zero && slot == c) ? T(1) : T(0);
+    if (P.out != nullptr) {
+      static_cast<double*>(P.out)[r * P.width + c] = static_cast<double>(v);
+    }
+    return v;
+  }
+  return load_as<T>(P.src, P.code & 15, r * P.width + c);
+}
+
+// Is (a, ia) before (b, ib) in an argmax (MAX) or argmin order: a NaN comes
+// first, then the larger (smaller) value, then the smaller index.
+template <bool MAX, typename T>
+__device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
+  if (ib < 0) return ia >= 0;
+  if (ia < 0) return false;
+  const bool na = a != a, nb = b != b;
+  if (na || nb) return na && (!nb || ia < ib);
+  if (a == b) return ia < ib;
+  return MAX ? a > b : a < b;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  // xor tree: every lane ends with the same bits (addition commutes).
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A multinomial or KMeans head for one row xr[0..d) in shared memory, run
+// by the whole warp: lane l takes the classes l, l + 32, ..., each a
+// sequential dot over the row; wt = W^T [d][k] (then |C|^2 [k]); lg:
+// the warp's k logits.
+template <typename T, int HEAD>
+__device__ __forceinline__ void class_head(const T* xr, const T* wt, T* lg,
+                                           int64_t row, const Args<T>& a) {
+  constexpr bool kMax = HEAD != kKMeans;
+  const int lane = threadIdx.x & 31;
+  const int d = a.d, k = a.k;
+  T x2 = T(0);
+  if constexpr (HEAD == kKMeans) {
+    for (int j = lane; j < d; j += 32) x2 += xr[j] * xr[j];
+    x2 = warp_sum(x2);
+  }
+  T best = T(0);
+  int bi = -1;
+  for (int c = lane; c < k; c += 32) {
+    T dot = T(0);
+    for (int j = 0; j < d; ++j) dot += xr[j] * wt[j * k + c];
+    if constexpr (HEAD == kKMeans) {
+      T d2 = (x2 - T(2) * dot) + wt[d * k + c];
+      d2 = d2 < T(0) ? T(0) : d2;  // keeps NaN, as torch.clamp_min
+      if (before<false>(d2, c, best, bi)) { best = d2; bi = c; }
+    } else {
+      lg[c] = dot;
+      if (before<true>(dot, c, best, bi)) { best = dot; bi = c; }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (before<kMax>(ob, oi, best, bi)) { best = ob; bi = oi; }
+  }
+  if constexpr (HEAD == kKMeans) {
+    if (lane == 0) a.ipred[row] = bi;
+  } else {
+    __syncwarp();
+    T s = T(0);
+    for (int c = lane; c < k; c += 32) s += exp_t(lg[c] - best);
+    s = warp_sum(s);
+    for (int c = lane; c < k; c += 32) a.raw[row * k + c] = exp_t(lg[c] - best) / s;
+    if (lane == 0) a.pred[row] = static_cast<T>(bi);
+  }
+  __syncwarp();
 }
 
 template <typename T> struct Vec16;
@@ -110,220 +307,424 @@ template <> struct Vec16<double> {
   }
 };
 
-// Vector route, NRUN scaler stages. Lane l of a warp serves row
-// (l / group) of each of the warp's row slots and columns
+// Vector route. NRUN >= 0: the NRUN stages' constants in registers (no
+// head or the binomial head, one dense input of type T); NRUN < 0: a.n_run
+// stages read from `stages`, the head's block from `head_block`, a class
+// head's rows staged in `rowbuf` (shared memory). Lane l of a warp serves
+// row (l / group) of each of the warp's row slots and columns
 // [(l % group) * V, + V) of it; lanes past the row's chunks idle.
-template <typename T, int NRUN>
-__global__ void __launch_bounds__(kVecThreads)
-fused_chain_vector_kernel(const T* __restrict__ x, const T* __restrict__ table,
-                          unsigned ops, int d, int head, int group,
-                          int64_t n_rows, T* __restrict__ out,
-                          T* __restrict__ pred, T* __restrict__ raw) {
+template <typename T, int NRUN, int HEAD, bool GATHER>
+__device__ __forceinline__ void vector_rows(const Args<T>& a,
+                                            const Src<T, GATHER>& src,
+                                            const T* stages,
+                                            const T* head_block, T* rowbuf) {
   using W = Vec16<T>;
   constexpr int V = W::n;
+  constexpr bool kReg = NRUN >= 0;
+  constexpr int R = NRUN > 0 ? NRUN : 1;
+  const int d = a.d;
+  const int group = a.group;
   const int lane = threadIdx.x & 31;
   const int q = lane & (group - 1);
   const int col = q * V;
   const bool active = col < d;
   const int rows_per_warp = 32 / group;
   const int stride = 2 * d + 2;
+  const int n_run = kReg ? NRUN : a.n_run;
 
-  T a[NRUN][V], b[NRUN][V], scale[NRUN], offset[NRUN], coef[V];
+  T ra[R][V], rb[R][V], rscale[R], roffset[R], coef[V];
+  if constexpr (kReg) {
 #pragma unroll
-  for (int s = 0; s < NRUN; ++s) {
-    const T* st = table + s * stride;
-    scale[s] = st[2 * d];
-    offset[s] = st[2 * d + 1];
+    for (int s = 0; s < NRUN; ++s) {
+      const T* st = a.table + s * stride;
+      rscale[s] = st[2 * d];
+      roffset[s] = st[2 * d + 1];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ra[s][j] = active ? st[col + j] : T(0);
+        rb[s][j] = active ? st[d + col + j] : T(1);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      a[s][j] = active ? st[col + j] : T(0);
-      b[s][j] = active ? st[d + col + j] : T(1);
+      coef[j] = HEAD == kBinomial && active ? a.table[NRUN * stride + col + j]
+                                            : T(0);
     }
   }
+  // A class head's k logits (multinomial), after the warp's staged rows.
+  T* lg = rowbuf + rows_per_warp * d;
+
+  // Gathered columns: the part and the part's column of each of the lane's.
+  int gpart[V], gcol[V];
+  if constexpr (GATHER) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    coef[j] = head && active ? table[NRUN * stride + col + j] : T(0);
+    for (int j = 0; j < V; ++j) {
+      gpart[j] = 0;
+      gcol[j] = 0;
+      for (int p = 0; p < src.n_parts; ++p) {
+        const Part& P = src.parts.p[p];
+        if (P.offset >= 0 && col + j >= P.offset &&
+            col + j < P.offset + P.width) {
+          gpart[j] = p;
+          gcol[j] = col + j - P.offset;
+        }
+      }
+    }
   }
 
+  const int64_t n_rows = a.n_rows;
   const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kVecThreads +
                         threadIdx.x) >> 5;
   const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * kVecThreads) >> 5;
   const int64_t step = n_warps * rows_per_warp;
   const int lane_row = lane / group;
   // r0: the warp's first row this pass (the same on every lane, so the
-  // whole warp reaches the shuffles). The load of the next pass is issued
-  // before this pass's ops, so it is in flight while they run.
+  // whole warp reaches the shuffles). A dense input's load of the next
+  // pass is issued before this pass's ops, so it is in flight while they
+  // run.
   int64_t r0 = warp * rows_per_warp;
   T next[V];
-  if (active && r0 + lane_row < n_rows) {
-    W::load(x + (r0 + lane_row) * d + col, next);
+  if constexpr (!GATHER) {
+    if (active && r0 + lane_row < n_rows) {
+      W::load(src.x + (r0 + lane_row) * d + col, next);
+    }
   }
   for (; r0 < n_rows; r0 += step) {
     const int64_t row = r0 + lane_row;
-    T v[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = next[j];
-    if (active && row + step < n_rows) W::load(x + (row + step) * d + col, next);
     const bool ok = active && row < n_rows;
+    T v[V];
+    if constexpr (GATHER) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        v[j] = ok ? part_value<T>(src.parts.p[gpart[j]], row, gcol[j]) : T(0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = next[j];
+      if (active && row + step < n_rows) W::load(src.x + (row + step) * d + col, next);
+    }
     T acc = T(0);
     if (ok) {
+      if (a.row_out != nullptr) W::store(a.row_out + row * d + col, v);
+      if constexpr (kReg) {
 #pragma unroll
-      for (int s = 0; s < NRUN; ++s) {
-        const unsigned op = (ops >> (3 * s)) & 7u;
+        for (int s = 0; s < NRUN; ++s) {
+          const unsigned op = (a.ops >> (3 * s)) & 7u;
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          v[j] = apply_op(op, v[j], a[s][j], b[s][j], scale[s], offset[s]);
+          for (int j = 0; j < V; ++j) {
+            v[j] = apply_op(op, v[j], ra[s][j], rb[s][j], rscale[s], roffset[s]);
+          }
+        }
+      } else {
+        for (int s = 0; s < n_run; ++s) {
+          const unsigned op = (a.ops >> (3 * s)) & 7u;
+          const T* st = stages + s * stride;
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            v[j] = apply_op(op, v[j], st[col + j], st[d + col + j], st[2 * d],
+                            st[2 * d + 1]);
+          }
         }
       }
-      if (out != nullptr) W::store(out + row * d + col, v);
-      if (head) {
+      if (a.out != nullptr) W::store(a.out + row * d + col, v);
+      if constexpr (HEAD == kBinomial) {
 #pragma unroll
-        for (int j = 0; j < V; ++j) acc += v[j] * coef[j];
+        for (int j = 0; j < V; ++j) {
+          acc += v[j] * (kReg ? coef[j] : head_block[col + j]);
+        }
+      }
+      if constexpr (HEAD >= kMultinomial) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) rowbuf[lane_row * d + col + j] = v[j];
       }
     }
-    if (head) {
+    if constexpr (HEAD == kBinomial) {
       for (int off = group >> 1; off > 0; off >>= 1) {
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       }
       if (q == 0 && row < n_rows) {
         const T p = T(1) / (T(1) + exp_t(-acc));
-        pred[row] = acc >= T(0) ? T(1) : T(0);
-        W::store2(raw + 2 * row, T(1) - p, p);
+        a.pred[row] = acc >= T(0) ? T(1) : T(0);
+        W::store2(a.raw + 2 * row, T(1) - p, p);
+      }
+    }
+    if constexpr (HEAD >= kMultinomial) {
+      __syncwarp();
+      for (int rr = 0; rr < rows_per_warp && r0 + rr < n_rows; ++rr) {
+        class_head<T, HEAD>(rowbuf + rr * d, head_block, lg, r0 + rr, a);
       }
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_chain_kernel(const T* __restrict__ x, const T* __restrict__ table,
-                   int n_run, unsigned ops, int d, int head, int64_t n_rows,
-                   T* __restrict__ out, T* __restrict__ pred,
-                   T* __restrict__ raw) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int stride = 2 * d + 2;
-  const int n_table = n_run * stride + (head ? d : 0);
-  for (int i = threadIdx.x; i < n_table; i += blockDim.x) smem[i] = table[i];
+// The table's first n_smem elements in shared memory, the rest read from
+// device memory. Where the table lies is the same for the whole grid: each
+// branch inlines the body with its pointers' address spaces known (a
+// pointer that may be either would make every load a generic one).
+template <typename T, typename Body>
+__device__ __forceinline__ void with_table(const Args<T>& a, T* smem,
+                                           int per_warp, Body body) {
+  for (int i = threadIdx.x; i < a.n_smem; i += blockDim.x) smem[i] = a.table[i];
   __syncthreads();
-  const T* coef = smem + n_run * stride;
+  const int n_stage = a.n_run * (2 * a.d + 2);
+  T* rowbuf = smem + a.n_smem + (threadIdx.x >> 5) * per_warp;
+  if (a.n_smem == a.n_table) {
+    body(smem, smem + n_stage, rowbuf);
+  } else if (a.n_smem > 0) {
+    body(smem, a.table + n_stage, rowbuf);
+  } else {
+    body(a.table, a.table + n_stage, rowbuf);
+  }
+}
+
+template <typename T, int NRUN, int HEAD, bool GATHER>
+__global__ void __launch_bounds__(kVecThreads)
+fused_chain_vector_kernel(const Args<T> a,
+                          const __grid_constant__ Src<T, GATHER> src) {
+  if constexpr (NRUN >= 0) {
+    vector_rows<T, NRUN, HEAD, GATHER>(a, src, nullptr, nullptr, nullptr);
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int per_warp =
+        HEAD >= kMultinomial
+            ? 32 / a.group * a.d + (HEAD == kMultinomial ? a.k : 0)
+            : 0;
+    with_table<T>(a, reinterpret_cast<T*>(smem_raw), per_warp,
+                  [&](const T* stages, const T* head, T* rowbuf) {
+                    vector_rows<T, NRUN, HEAD, GATHER>(a, src, stages, head,
+                                                       rowbuf);
+                  });
+  }
+}
+
+// Scalar route: one warp per row, the parts in order, the stages read
+// from `stages`, the head's block from `head_block`, a class head's row
+// staged in `rowbuf`.
+template <typename T, int HEAD>
+__device__ __forceinline__ void scalar_rows(const Args<T>& a,
+                                            const Src<T, true>& src,
+                                            const T* stages,
+                                            const T* head_block, T* rowbuf) {
+  const int d = a.d;
+  const int stride = 2 * d + 2;
+  T* lg = rowbuf + d;
 
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   for (int64_t row = static_cast<int64_t>(blockIdx.x) * warps +
                      (threadIdx.x >> 5);
-       row < n_rows; row += static_cast<int64_t>(gridDim.x) * warps) {
-    const T* xr = x + row * d;
+       row < a.n_rows; row += static_cast<int64_t>(gridDim.x) * warps) {
     T acc = T(0);
-    for (int j = lane; j < d; j += 32) {
-      T v = xr[j];
-      for (int s = 0; s < n_run; ++s) {
-        const T* st = smem + s * stride;
-        v = apply_op((ops >> (3 * s)) & 7u, v, st[j], st[d + j], st[2 * d],
-                     st[2 * d + 1]);
+    for (int p = 0; p < src.n_parts; ++p) {
+      const Part& P = src.parts.p[p];
+      for (int c = lane; c < P.width; c += 32) {
+        T v = part_value<T>(P, row, c);
+        if (P.offset < 0) continue;
+        const int j = P.offset + c;
+        if (a.row_out != nullptr) a.row_out[row * d + j] = v;
+        for (int s = 0; s < a.n_run; ++s) {
+          const T* st = stages + s * stride;
+          v = apply_op((a.ops >> (3 * s)) & 7u, v, st[j], st[d + j], st[2 * d],
+                       st[2 * d + 1]);
+        }
+        if (a.out != nullptr) a.out[row * d + j] = v;
+        if constexpr (HEAD == kBinomial) acc += v * head_block[j];
+        if constexpr (HEAD >= kMultinomial) rowbuf[j] = v;
       }
-      if (out != nullptr) out[row * d + j] = v;
-      if (head) acc += v * coef[j];
     }
-    if (head) {
+    if constexpr (HEAD == kBinomial) {
       for (int offset = 16; offset > 0; offset >>= 1) {
         acc += __shfl_down_sync(0xffffffffu, acc, offset);
       }
       if (lane == 0) {
         const T p = T(1) / (T(1) + exp_t(-acc));
-        pred[row] = acc >= T(0) ? T(1) : T(0);
-        raw[2 * row] = T(1) - p;
-        raw[2 * row + 1] = p;
+        a.pred[row] = acc >= T(0) ? T(1) : T(0);
+        a.raw[2 * row] = T(1) - p;
+        a.raw[2 * row + 1] = p;
       }
+    }
+    if constexpr (HEAD >= kMultinomial) {
+      __syncwarp();
+      class_head<T, HEAD>(rowbuf, head_block, lg, row, a);
     }
   }
 }
 
-template <typename T, int NRUN>
-int launch_vector(const T* x, const T* table, unsigned ops, int d, int head,
-                  int group, int64_t n_rows, T* out, T* pred, T* raw,
-                  cudaStream_t stream) {
-  static int occupancy = 0;
-  if (occupancy == 0) {
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occupancy, fused_chain_vector_kernel<T, NRUN>, kVecThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (occupancy < 1) occupancy = 1;
+template <typename T, int HEAD>
+__global__ void __launch_bounds__(kThreads)
+fused_chain_rows_kernel(const Args<T> a,
+                        const __grid_constant__ Src<T, true> src) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  with_table<T>(a, reinterpret_cast<T*>(smem_raw),
+                HEAD >= kMultinomial
+                    ? a.d + (HEAD == kMultinomial ? a.k : 0)
+                    : 0,
+                [&](const T* stages, const T* head, T* rowbuf) {
+                  scalar_rows<T, HEAD>(a, src, stages, head, rowbuf);
+                });
+}
+
+// Dynamic shared memory above 48 KB needs a per-kernel opt-in.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t& allowed) {
+  if (smem <= 48 * 1024 || smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+// A persistent grid: at most the blocks the card holds at once. The
+// occupancy of a kernel is kept for the last shared memory size asked.
+struct Occupancy {
+  size_t smem = ~size_t(0);
+  int threads = 0;
+  int blocks = 0;
+};
+
+template <typename K>
+int64_t grid_size(K kernel, int threads, size_t smem, int64_t blocks,
+                  Occupancy& occ, cudaError_t& e) {
+  e = cudaSuccess;
+  if (occ.smem != smem || occ.threads != threads) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ.blocks, kernel,
+                                                      threads, smem);
+    if (e != cudaSuccess) return 0;
+    if (occ.blocks < 1) occ.blocks = 1;
+    occ.smem = smem;
+    occ.threads = threads;
   }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t resident = static_cast<int64_t>(sms > 0 ? sms : 132) * occ.blocks;
+  return blocks < resident ? blocks : resident;
+}
+
+template <typename T, int NRUN, int HEAD, bool GATHER>
+int launch_vector(const Args<T>& a, const Src<T, GATHER>& src, size_t smem,
+                  cudaStream_t stream) {
+  auto kernel = fused_chain_vector_kernel<T, NRUN, HEAD, GATHER>;
+  static size_t allowed = 0;
+  static Occupancy occ;
+  cudaError_t e = allow_smem(kernel, smem, allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t rows_per_block =
-      static_cast<int64_t>(kVecThreads / 32) * (32 / group);
-  int64_t blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  const int64_t resident = static_cast<int64_t>(sms > 0 ? sms : 132) * occupancy;
-  if (blocks > resident) blocks = resident;
-  fused_chain_vector_kernel<T, NRUN><<<static_cast<unsigned>(blocks),
-                                       kVecThreads, 0, stream>>>(
-      x, table, ops, d, head, group, n_rows, out, pred, raw);
+      static_cast<int64_t>(kVecThreads / 32) * (32 / a.group);
+  const int64_t blocks = grid_size(
+      kernel, kVecThreads, smem, (a.n_rows + rows_per_block - 1) / rows_per_block,
+      occ, e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), kVecThreads, smem, stream>>>(a, src);
   return static_cast<int>(cudaGetLastError());
 }
 
-// group > 0: the vector route with lane groups of `group` lanes; 0: the
-// scalar route.
+// threads: a multiple of 32, at most kThreads (fewer when each warp's
+// staged row would not fit in shared memory otherwise).
+template <typename T, int HEAD>
+int launch_rows(const Args<T>& a, const Src<T, true>& src, int threads,
+                size_t smem, cudaStream_t stream) {
+  auto kernel = fused_chain_rows_kernel<T, HEAD>;
+  static size_t allowed = 0;
+  static Occupancy occ;
+  if (threads < 32 || threads > kThreads || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = allow_smem(kernel, smem, allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int warps = threads / 32;
+  const int64_t blocks =
+      grid_size(kernel, threads, smem, (a.n_rows + warps - 1) / warps, occ, e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(a, src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The vector route with the constants in registers: no head or the
+// binomial head over one dense input of type T.
+template <typename T, int HEAD>
+int launch_vector_reg(const Args<T>& a, const Src<T, false>& src,
+                      cudaStream_t stream) {
+  switch (a.n_run) {
+#define FML_CHAIN_RUN(N) \
+  case N:                \
+    return launch_vector<T, N, HEAD, false>(a, src, 0, stream);
+    FML_CHAIN_RUN(0) FML_CHAIN_RUN(1) FML_CHAIN_RUN(2) FML_CHAIN_RUN(3)
+    FML_CHAIN_RUN(4) FML_CHAIN_RUN(5) FML_CHAIN_RUN(6) FML_CHAIN_RUN(7)
+    FML_CHAIN_RUN(8)
+#undef FML_CHAIN_RUN
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int HEAD>
+int launch_head(const Args<T>& a, const PartList* parts, int n_parts,
+                int gather, int threads, size_t smem, cudaStream_t stream) {
+  if (a.group == 0) {
+    Src<T, true> src{*parts, n_parts};
+    return launch_rows<T, HEAD>(a, src, threads, smem, stream);
+  }
+  if (gather) {
+    Src<T, true> src{*parts, n_parts};
+    return launch_vector<T, -1, HEAD, true>(a, src, smem, stream);
+  }
+  const Src<T, false> src{static_cast<const T*>(parts->p[0].src)};
+  if constexpr (HEAD <= kBinomial) {
+    return launch_vector_reg<T, HEAD>(a, src, stream);
+  } else {
+    return launch_vector<T, -1, HEAD, false>(a, src, smem, stream);
+  }
+}
+
+// group > 0: the vector route with lane groups of `group` lanes (kVecThreads
+// a block); 0: the scalar route with `threads` a block. gather: the vector
+// route reads the parts (not one dense input of type T). smem: the dynamic
+// shared memory of the chains that use it (n_smem elements of the table,
+// then each warp's staged rows and logits).
 template <typename T>
-int launch(const void* x_, const void* table_, int n_run, unsigned ops, int d,
-           int head, int group, int64_t n_rows, void* out_, void* pred_,
-           void* raw_, void* stream_) {
-  const T* x = static_cast<const T*>(x_);
-  const T* table = static_cast<const T*>(table_);
-  T* out = static_cast<T*>(out_);
-  T* pred = static_cast<T*>(pred_);
-  T* raw = static_cast<T*>(raw_);
+int launch(const void* parts_, int n_parts, int gather, const void* table,
+           int n_table, int n_smem, int n_run, unsigned ops, int d, int head,
+           int k, int group, int threads, int64_t n_rows, long long smem,
+           void* row_out, void* out, void* pred, void* raw, void* stream_) {
+  const PartList* parts = static_cast<const PartList*>(parts_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
-  if (group > 0) {
-    switch (n_run) {
-#define FML_CHAIN_RUN(N)                                                    \
-  case N:                                                                   \
-    return launch_vector<T, N>(x, table, ops, d, head, group, n_rows, out, \
-                               pred, raw, stream);
-      FML_CHAIN_RUN(1) FML_CHAIN_RUN(2) FML_CHAIN_RUN(3) FML_CHAIN_RUN(4)
-      FML_CHAIN_RUN(5) FML_CHAIN_RUN(6) FML_CHAIN_RUN(7) FML_CHAIN_RUN(8)
-#undef FML_CHAIN_RUN
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+  if (n_parts < 1 || n_parts > kMaxParts) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      sizeof(T) * (static_cast<size_t>(n_run) * (2 * d + 2) + (head ? d : 0));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  Args<T> a{static_cast<const T*>(table), n_table, n_smem, n_run, ops, d,
+            group, k, n_rows, static_cast<T*>(row_out), static_cast<T*>(out),
+            static_cast<T*>(pred), static_cast<T*>(raw),
+            static_cast<long long*>(pred)};
+  const size_t bytes = static_cast<size_t>(smem);
+  switch (head) {
+    case kNoHead: return launch_head<T, kNoHead>(a, parts, n_parts, gather, threads, bytes, stream);
+    case kBinomial: return launch_head<T, kBinomial>(a, parts, n_parts, gather, threads, bytes, stream);
+    case kMultinomial: return launch_head<T, kMultinomial>(a, parts, n_parts, gather, threads, bytes, stream);
+    case kKMeans: return launch_head<T, kKMeans>(a, parts, n_parts, gather, threads, bytes, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int warps = kThreads / 32;
-  int64_t blocks = (n_rows + warps - 1) / warps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  fused_chain_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(x, table, n_run, ops, d, head, n_rows, out,
-                                    pred, raw);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int fml_fused_chain_f32(const void* x, const void* table, int n_run,
-                                   unsigned ops, int d, int head, int group,
-                                   int64_t n_rows, void* out, void* pred,
-                                   void* raw, void* stream) {
-  return launch<float>(x, table, n_run, ops, d, head, group, n_rows, out, pred,
-                       raw, stream);
-}
+#define FML_CHAIN_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const void* parts, int n_parts, int gather,              \
+                      const void* table, int n_table, int n_smem, int n_run,   \
+                      unsigned ops, int d, int head, int k, int group,         \
+                      int threads, int64_t n_rows, long long smem,             \
+                      void* row_out, void* out, void* pred, void* raw,         \
+                      void* stream) {                                          \
+    return launch<T>(parts, n_parts, gather, table, n_table, n_smem, n_run,    \
+                     ops, d, head, k, group, threads, n_rows, smem, row_out,   \
+                     out, pred, raw, stream);                                  \
+  }
+FML_CHAIN_ENTRY(fml_fused_chain_f32, float)
+FML_CHAIN_ENTRY(fml_fused_chain_f64, double)
+#undef FML_CHAIN_ENTRY
 
-extern "C" int fml_fused_chain_f64(const void* x, const void* table, int n_run,
-                                   unsigned ops, int d, int head, int group,
-                                   int64_t n_rows, void* out, void* pred,
-                                   void* raw, void* stream) {
-  return launch<double>(x, table, n_run, ops, d, head, group, n_rows, out,
-                        pred, raw, stream);
-}
+extern "C" int fml_chain_part_bytes() { return static_cast<int>(sizeof(Part)); }
 
 extern "C" const char* fml_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

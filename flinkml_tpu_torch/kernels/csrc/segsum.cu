@@ -33,7 +33,7 @@
 // - sorted (ids ascending): a run-flush with no atomics and no memset.
 //   Every segment equals 0 + v0 + v1 + ... in cell order bit for bit, as
 //   the JAX _sorted_body adds, and every output element is written exactly
-//   once:
+//   once when the ids ascend:
 //   * the segments before ids[0] and after ids[cells - 1] are zeroed by the
 //     whole grid (every block reads those two ids);
 //   * a run belongs to the thread that owns its first cell; that thread
@@ -52,6 +52,19 @@
 //   warp are written by all its lanes together, so long gaps store whole
 //   lines. [cells, k]: threads map to (chunk of kChunk cells, payload
 //   column), reading neighbouring columns of the same cells.
+//   Ids that do not ascend (the caller broke its promise) would give a
+//   segment two writers. The sorted kernels see every descent between two
+//   neighbouring cells at a run start they already test (flat) or in a
+//   scan of the chunk's ids (rows), skip the gap zeroes of that owner or
+//   the whole chunk (a disorder can make a gap as long as the output), and
+//   set a flag in a one-int work area. A one-block repair kernel launched
+//   after them on the stream reads the flag: when it is set, the sum into
+//   zeros again (zeroes, then one atomic add per cell: right, not fast, in
+//   a run-dependent order), and the flag cleared; otherwise nothing. The
+//   kernel boundary orders the repair after every store of the run-flush,
+//   with no fence in its blocks and no host sync. Ascending ids give the
+//   run-flush's bits unchanged. The JAX _sorted_body adds every flush into
+//   zeros, so it too returns the sum on any ids.
 //
 // No synchronisation and no allocation: the wrapper allocates `out` and
 // launches on PyTorch's current stream.
@@ -71,6 +84,8 @@ constexpr int kOwn = 8;
 constexpr int kTile = kThreads * kOwn;
 // Sorted [cells, k]: cells per chunk.
 constexpr int kChunk = 16;
+// The repair kernel's threads (one block).
+constexpr int kRepairThreads = 1024;
 
 // ---------------------------------------------------------------- loads ----
 
@@ -186,6 +201,27 @@ __device__ __forceinline__ void zero_head_tail(const int32_t* __restrict__ ids,
   for (int e = tail + gtid; e < num_segments * k; e += n_threads) out[e] = T(0);
 }
 
+// After a sorted kernel: when it flagged a descent, the sum into zeros
+// again, then the flag cleared (see the head of this file).
+template <typename T>
+__global__ void __launch_bounds__(kRepairThreads)
+segsum_sorted_repair(const T* __restrict__ values,
+                     const int32_t* __restrict__ ids, int cells, int k,
+                     int num_segments, T* __restrict__ out,
+                     unsigned* __restrict__ work) {
+  const bool repair = __ldcg(work) != 0u;
+  __syncthreads();   // every thread has read the flag before it is cleared
+  if (!repair) return;
+  for (int e = threadIdx.x; e < num_segments * k; e += blockDim.x) out[e] = T(0);
+  __threadfence();
+  __syncthreads();
+  for (int e = threadIdx.x; e < cells * k; e += blockDim.x) {
+    const int cell = k == 1 ? e : e / k;
+    atomicAdd(out + __ldg(ids + cell) * k + (e - cell * k), __ldg(values + e));
+  }
+  if (threadIdx.x == 0) *work = 0u;
+}
+
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (bytes == 16) {
@@ -284,7 +320,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 segsum_sorted_flat(const T* __restrict__ values,
                    const int32_t* __restrict__ ids, int cells,
-                   int num_segments, int phase, T* __restrict__ out) {
+                   int num_segments, int phase, T* __restrict__ out,
+                   unsigned* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int32_t* tid_s = reinterpret_cast<int32_t*>(smem_raw);        // [kTile]
   T* tval_s = reinterpret_cast<T*>(smem_raw + kTile * sizeof(int32_t));
@@ -313,7 +350,7 @@ segsum_sorted_flat(const T* __restrict__ values,
   if (c0 >= 1 && c0 - 1 < cells) {
     cur = t > 0 ? tid_s[(kOwn * t - 1)] : __ldg(ids + c0 - 1);
   }
-  bool owned = false;
+  bool owned = false, descent = false;
   T acc = T(0);
   int lo[kOwn], hi[kOwn];
 #pragma unroll
@@ -322,6 +359,7 @@ segsum_sorted_flat(const T* __restrict__ values,
     lo[i] = hi[i] = 0;
     if (c >= 0 && c < cells) {
       if (id[i] != cur) {     // a run starts at c: this thread owns it
+        descent |= id[i] < cur;
         if (owned) out[cur] = acc;
         if (c > 0) {
           lo[i] = cur + 1;
@@ -333,6 +371,11 @@ segsum_sorted_flat(const T* __restrict__ values,
       }
       if (owned) acc += v[i];
     }
+  }
+  if (descent) {   // the repair rewrites the output: no gap zeroes
+    atomicOr(work, 1u);
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) lo[i] = hi[i] = 0;
   }
   zero_gaps(lo, hi, out);
   if (owned) {
@@ -368,7 +411,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 segsum_sorted_rows(const T* __restrict__ values,
                    const int32_t* __restrict__ ids, int cells, int k,
-                   int num_segments, T* __restrict__ out) {
+                   int num_segments, T* __restrict__ out,
+                   unsigned* __restrict__ work) {
   zero_head_tail(ids, cells, k, num_segments, out);
   const int chunk = blockIdx.x * blockDim.y + threadIdx.y;
   const long long lo64 = static_cast<long long>(chunk) * kChunk;
@@ -376,6 +420,16 @@ segsum_sorted_rows(const T* __restrict__ values,
   const int lo = static_cast<int>(lo64);
   const int hi = lo + kChunk < cells ? lo + kChunk : cells;
   const int before = lo > 0 ? __ldg(ids + lo - 1) : -1;
+  // A descent among the chunk's cells: the repair rewrites the output, so
+  // the chunk writes nothing.
+  for (int j = lo, prev = before; j < hi; ++j) {
+    const int id = __ldg(ids + j);
+    if (id < prev) {
+      if (threadIdx.x == 0) atomicOr(work, 1u);
+      return;
+    }
+    prev = id;
+  }
   for (int col = threadIdx.x; col < k; col += blockDim.x) {
     int j = lo;
     int cur = before;
@@ -419,11 +473,12 @@ void launch_unsorted_rows(const T* v, const int32_t* i, int cells, int k,
 template <typename T>
 int launch(bool sorted, const void* values, const void* ids, int cells,
            int k, int num_segments, int phase, int vec, void* out,
-           void* stream) {
+           void* work_, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* v = static_cast<const T*>(values);
   const int32_t* i = static_cast<const int32_t*>(ids);
   T* o = static_cast<T*>(out);
+  unsigned* work = static_cast<unsigned*>(work_);
   if (cells <= 0 || k <= 0 || num_segments <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
@@ -434,13 +489,19 @@ int launch(bool sorted, const void* values, const void* ids, int cells,
     const long long base0 = phase > 0 ? phase - 4 : 0;
     const long long tiles = (cells - base0 + kTile - 1) / kTile;
     segsum_sorted_flat<T><<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
-        v, i, cells, num_segments, phase, o);
+        v, i, cells, num_segments, phase, o, work);
   } else if (sorted) {
     const dim3 block = row_block(k);
     const long long chunks = (static_cast<long long>(cells) + kChunk - 1) / kChunk;
     const int blocks = static_cast<int>((chunks + block.y - 1) / block.y);
     segsum_sorted_rows<T><<<blocks, block, 0, s>>>(v, i, cells, k,
-                                                     num_segments, o);
+                                                     num_segments, o, work);
+  }
+  if (sorted) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    segsum_sorted_repair<T><<<1, kRepairThreads, 0, s>>>(
+        v, i, cells, k, num_segments, o, work);
   } else if (k == 1) {
     long long blocks = (static_cast<long long>(cells) + kThreads - 1) / kThreads;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -465,19 +526,20 @@ int launch(bool sorted, const void* values, const void* ids, int cells,
 // vec: payload columns per vector access on the unsorted [cells, k] path
 // (4 or 2 when k and the values' alignment allow it, else 1); phase (the
 // sorted flat path): the cell at which ids and values are both 16-byte
-// aligned (-1: none).
+// aligned (-1: none); work (the sorted paths): one zeroed unsigned int that
+// only one launch at a time uses, left zeroed by each launch.
 extern "C" int fml_segsum_f32(int sorted, const void* values, const void* ids,
                               int cells, int k, int num_segments, int phase,
-                              int vec, void* out, void* stream) {
+                              int vec, void* out, void* work, void* stream) {
   return launch<float>(sorted != 0, values, ids, cells, k, num_segments, phase,
-                       vec, out, stream);
+                       vec, out, work, stream);
 }
 
 extern "C" int fml_segsum_f64(int sorted, const void* values, const void* ids,
                               int cells, int k, int num_segments, int phase,
-                              int vec, void* out, void* stream) {
+                              int vec, void* out, void* work, void* stream) {
   return launch<double>(sorted != 0, values, ids, cells, k, num_segments,
-                        phase, vec, out, stream);
+                        phase, vec, out, work, stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

@@ -20,8 +20,15 @@ paths, chosen by ``indices_are_sorted`` as in the JAX API:
 - sorted (ids ascending): a run-flush that sums each run left to right and
   stores it once — deterministic, and in the JAX kernel's addition order —
   and writes every output element exactly once (the gaps between runs as
-  zeros), so its output is allocated with ``torch.empty``.
-  :func:`sorted_plan` is the kernel's ownership rule in Python.
+  zeros), so its output is allocated with ``torch.empty``. Ids that do not
+  ascend still give the sum into zeros, as the Pallas kernel and
+  ``index_add_`` do: the kernel flags a descent as it reads the ids, and a
+  one-block repair kernel launched after it on the same stream recomputes
+  the whole output with atomics when the flag is set (a run-dependent
+  order, and no faster than one block), and does nothing otherwise. No
+  host sync: a per-stream work area of one int (:func:`_work_area`)
+  carries the flag, and each call leaves it zeroed. :func:`sorted_plan`
+  is the kernel's write rule in Python.
 
 Zero cells or zero segments return zeros without a launch, as the JAX
 dispatcher does. The kernel trusts ``0 <= ids < num_segments``: the host
@@ -34,7 +41,7 @@ kernel, the output lives in device memory, so there is no VMEM ceiling on
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,14 +61,32 @@ SORTED_TILE = 256 * SORTED_OWN
 #: Cells per owner of the sorted ``[cells, k]`` kernel (kChunk).
 SORTED_CHUNK = 16
 
+#: ``sorted_plan``'s writer of a segment the repair pass recomputes.
+REPAIR = -2
+
 _ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,    # sorted, values, ids
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # cells, k, num_segments
     ctypes.c_int, ctypes.c_int,                        # phase, vec
-    ctypes.c_void_p, ctypes.c_void_p,                  # out, stream
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, work, stream
 ]
 _SYMBOLS = {torch.float32: "fml_segsum_f32", torch.float64: "fml_segsum_f64"}
 _INT32_LIMIT = 2**31
+
+
+_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _work_area(device: torch.device, stream: int) -> torch.Tensor:
+    """The sorted kernels' zeroed int32 descent flag for launches on
+    ``stream``: zeroed once when made, and left zeroed by every call, so
+    calls on one stream share it in turn."""
+    key = (device.index, stream)
+    work = _WORK.get(key)
+    if work is None:
+        work = _WORK.setdefault(
+            key, torch.zeros(1, dtype=torch.int32, device=device))
+    return work
 
 
 def _zeros(values: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -128,23 +153,30 @@ def sorted_tile_bases(cells: int, phase: int) -> List[int]:
 
 def sorted_plan(ids: np.ndarray, num_segments: int, k: int = 1,
                 phase: int = 0) -> List[Tuple[int, int, int, int]]:
-    """The sorted kernel's writes, computed by its own rules: a list of
-    ``(segment, writer, first, end)``, one per output segment the kernel
-    stores (each of its ``k`` columns by the same writer). ``writer`` is
-    the owner (flat: tile * 256 + thread, each owning
-    :data:`SORTED_OWN` cells of its tile; ``[cells, k]``: the chunk of
-    :data:`SORTED_CHUNK` cells), or -1 for the segments before ``ids[0]``
-    and after ``ids[-1]``, which the whole grid zeroes. The segment's value
-    is ``0 + v[first] + ... + v[end - 1]`` in cell order (``first == end``:
-    a zero).
+    """The sorted kernel's final writes, computed by its own rules: a list
+    of ``(segment, writer, first, end)``, one per output segment (each of
+    its ``k`` columns by the same writer).
 
-    A run of equal ids belongs to the owner of its first cell, which sums
-    it (reading past its own cells when the run goes on) and zeroes the
-    segments between the previous cell's id and the run's."""
+    Ascending ids: ``writer`` is the owner (flat: tile * 256 + thread, each
+    owning :data:`SORTED_OWN` cells of its tile; ``[cells, k]``: the chunk
+    of :data:`SORTED_CHUNK` cells), or -1 for the segments before
+    ``ids[0]`` and after ``ids[-1]``, which the whole grid zeroes. The
+    segment's value is ``0 + v[first] + ... + v[end - 1]`` in cell order
+    (``first == end``: a zero). A run of equal ids belongs to the owner of
+    its first cell, which sums it (reading past its own cells when the run
+    goes on) and zeroes the segments between the previous cell's id and
+    the run's.
+
+    Ids with a descent anywhere: the repair kernel rewrites every segment
+    after the run-flush, so every segment has one final write by
+    :data:`REPAIR`, ``0`` plus every cell with its id added by atomics in
+    no fixed order (``first == end == -1``)."""
     ids = np.asarray(ids)
     cells = ids.size
     if cells == 0:
         return []
+    if (np.diff(ids.astype(np.int64)) < 0).any():
+        return [(s, REPAIR, -1, -1) for s in range(num_segments)]
     writes = [(s, -1, 0, 0) for s in range(int(ids[0]))]
     writes += [(s, -1, 0, 0) for s in range(int(ids[-1]) + 1, num_segments)]
     if k == 1:
@@ -173,10 +205,12 @@ def sorted_plan(ids: np.ndarray, num_segments: int, k: int = 1,
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 *, indices_are_sorted: bool = False) -> torch.Tensor:
     """``out[ids[j]] += values[j]`` into zeros ``[num_segments(, k)]``:
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors
-    (unsupported operands raise ``KernelUnsupportedError``).
-    ``indices_are_sorted=True`` promises ascending ``ids`` and takes the
-    deterministic run-flush path."""
+    the plain version for CPU tensors, the CUDA kernels for CUDA tensors
+    (unsupported operands raise ``KernelUnsupportedError``); one call
+    counts one launch.
+    ``indices_are_sorted=True`` takes the deterministic run-flush path
+    for ascending ``ids``; on ids that do not ascend it still returns the
+    sum (by its repair pass, in a run-dependent order)."""
     if values.device.type == "cpu":
         return segment_sum_plain(values, ids, num_segments)
     if values.device.type != "cuda":
@@ -191,7 +225,8 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     cells = values.shape[0]
     k = 1 if values.dim() == 1 else values.shape[1]
     shape = (num_segments,) + tuple(values.shape[1:])
-    # The sorted path writes every element; the atomics add into zeros.
+    # The sorted path writes every element (or its repair pass does); the
+    # atomics add into zeros.
     new = torch.empty if indices_are_sorted else torch.zeros
     out = new(shape, dtype=values.dtype, device=values.device)
     # The 16-byte phase of ids and values: the sorted flat kernel's tiles.
@@ -201,8 +236,11 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     fn = _build.function("segsum", _SYMBOLS[values.dtype], _ARGTYPES)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
+        work = (_work_area(values.device, stream).data_ptr()
+                if indices_are_sorted else None)
         code = fn(int(indices_are_sorted), values.data_ptr(), ids.data_ptr(),
-                  cells, k, num_segments, phase, vec, out.data_ptr(), stream)
+                  cells, k, num_segments, phase, vec, out.data_ptr(), work,
+                  stream)
     _build.check("segment_sum", "segsum", code)
     LAUNCHES.bump()
     return out

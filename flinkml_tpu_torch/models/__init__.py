@@ -1,6 +1,6 @@
 """Stages of the model catalog ported so far: the four scalers,
-LogisticRegression, Knn, MinHashLSH, KMeans (batch fit) and
-BisectingKMeans (estimators and models)."""
+OneHotEncoder, VectorAssembler, LogisticRegression, Knn, MinHashLSH,
+KMeans (batch fit) and BisectingKMeans (estimators and models)."""
 
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
@@ -13,6 +13,10 @@ from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegressionModel,
 )
 from flinkml_tpu_torch.models.lsh import MinHashLSH, MinHashLSHModel  # noqa: F401
+from flinkml_tpu_torch.models.one_hot_encoder import (  # noqa: F401
+    OneHotEncoder,
+    OneHotEncoderModel,
+)
 from flinkml_tpu_torch.models.scalers import (  # noqa: F401
     MaxAbsScaler,
     MaxAbsScalerModel,
@@ -23,6 +27,7 @@ from flinkml_tpu_torch.models.scalers import (  # noqa: F401
     StandardScaler,
     StandardScalerModel,
 )
+from flinkml_tpu_torch.models.vector_assembler import VectorAssembler  # noqa: F401
 
 __all__ = [
     "BisectingKMeans",
@@ -39,8 +44,11 @@ __all__ = [
     "MinHashLSHModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
+    "OneHotEncoder",
+    "OneHotEncoderModel",
     "RobustScaler",
     "RobustScalerModel",
     "StandardScaler",
     "StandardScalerModel",
+    "VectorAssembler",
 ]

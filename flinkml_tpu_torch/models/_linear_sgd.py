@@ -15,6 +15,11 @@ gradient; L1 (elastic net) is a proximal soft-threshold after the step.
   one ``segment_sum`` kernel over every bucket's cells (layout
   ``unsorted``), or one sorted ``segment_sum`` per bucket over pack-time
   per-window sort tables (layout ``sorted``).
+- **Softmax** (multinomial LR, dense only): the dense step's windows with
+  a ``[k, d]`` model, ``x @ coef.T`` → ``log_softmax`` → weighted
+  cross-entropy and ``(p - onehot)ᵀ @ x``, the same update and
+  soft-threshold. Plain ``torch.matmul`` and ``torch.log_softmax``: the
+  JAX package leaves this step to XLA.
 
 **The device loop.** The JAX trainers run the whole epoch loop as one
 ``lax.while_loop`` on the device. Here the carry ``(coef, epoch, loss)``
@@ -40,6 +45,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.kernels.segsum import segment_sum
@@ -265,12 +271,13 @@ def _sparse_trainer_bucketed(loss: str, local_bss: Tuple[int, ...],
     return trainer
 
 
-def _run_chunked(trainer, data_args: Tuple, dim: int, dt: torch.dtype,
+def _run_chunked(trainer, data_args: Tuple, dim, dt: torch.dtype,
                  learning_rate: float, reg_l2: float, reg_l1: float,
                  tol: float, max_iter: int,
                  listeners: Sequence = ()) -> np.ndarray:
     """Drive a whole-loop trainer from epoch 0 to ``max_iter`` (or ``tol``)
-    in one dispatch; returns the coefficient on the host. ``listeners``
+    in one dispatch; returns the coefficient (shape ``dim``: ``d`` or
+    ``(k, d)``) on the host. ``listeners``
     fire once, at the end (the K-epoch checkpointed chunks are ROADMAP.md
     Queue 1 item 16)."""
     device = data_args[0].device
@@ -345,6 +352,91 @@ def train_linear_model(
     trainer = _dense_trainer(loss, local_bs)
     return _run_chunked(
         trainer, (xd, yd, wd), x.shape[1], xd.dtype,
+        learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
+        tol, max_iter, listeners=listeners,
+    )
+
+
+def make_softmax_step(num_classes: int, local_bs: int):
+    """Multinomial (softmax) step: logits ``x @ coef.T``, weighted
+    cross-entropy, gradient ``(p - onehot)ᵀ @ x``; the model is a ``[k,
+    d]`` matrix, with the binomial trainer's update (``coef -=
+    lr/weightSum · grad``) and soft-threshold."""
+
+    def step(coef, epoch, xl, yl, wl, learning_rate, reg_l2, reg_l1):
+        xb = _window(xl, epoch, local_bs)
+        yb = _window(yl, epoch, local_bs)
+        wb = _window(wl, epoch, local_bs)
+        acc = _acc_dt(xb.dtype)
+        logits = torch.matmul(xb, coef.T)                     # [bs, k]
+        logp = torch.log_softmax(logits, dim=-1)
+        onehot = F.one_hot(yb.to(torch.int64), num_classes).to(xb.dtype)
+        per_ex = -torch.sum(onehot * logp, dim=-1) * wb
+        mult = (torch.exp(logp) - onehot) * wb[:, None]       # [bs, k]
+        grad = torch.matmul(mult.T, xb)                       # [k, d]
+        loss_sum = torch.sum(per_ex.to(acc))
+        wsum = torch.sum(wb.to(acc))
+        return _prox_update(coef, grad, loss_sum, wsum, learning_rate,
+                            reg_l2, reg_l1)
+
+    return step
+
+
+def _softmax_trainer(num_classes: int, local_bs: int):
+    """Whole-loop softmax trainer, the contract of :func:`_dense_trainer`."""
+    local_step = make_softmax_step(num_classes, local_bs)
+
+    def trainer(coef, epoch, cur_loss, xl, yl, wl,
+                learning_rate, reg_l2, reg_l1, tol, epoch_end):
+        return _device_loop(
+            lambda c, ep: local_step(c, ep, xl, yl, wl, learning_rate,
+                                     reg_l2, reg_l1),
+            coef, epoch, cur_loss, tol, epoch_end,
+        )
+
+    return trainer
+
+
+def train_softmax_model(
+    x: np.ndarray,
+    y: np.ndarray,
+    w: np.ndarray,
+    num_classes: int,
+    max_iter: int,
+    learning_rate: float,
+    global_batch_size: int,
+    reg: float,
+    elastic_net: float,
+    tol: float,
+    seed: int,
+    dtype=None,
+    listeners=(),
+    checkpoint_manager=None,
+    resume: bool = False,
+) -> np.ndarray:
+    """Multinomial logistic regression on the compute device: returns the
+    coefficient ``[k, d]`` on the host. The machinery of
+    :func:`train_linear_model` (the host shuffle, windowed batches, the
+    device loop, proximal elastic net); the loss is weighted softmax
+    cross-entropy over integer labels ``0..k-1``. The compute dtype is
+    ``dtype``, else ``x``'s floating dtype (float64 otherwise)."""
+    refuse_unported(checkpoint_manager=checkpoint_manager, resume=resume)
+    n = x.shape[0]
+    if n == 0:
+        raise ValueError("training table is empty")
+    if dtype is None:
+        dtype = x.dtype if x.dtype.kind == "f" else np.float64
+    x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
+    perm = np.random.default_rng(seed).permutation(n)
+    x, y, w = x[perm], y[perm], w[perm]
+    device = default_device()
+    xd, yd, wd = (_upload(pad_to_multiple(a, _P_SIZE)[0], device)
+                  for a in (x, y, w))
+    local_bs = align_local_bs(global_batch_size, _P_SIZE,
+                              xd.shape[0] // _P_SIZE)
+    trainer = _softmax_trainer(int(num_classes), local_bs)
+    return _run_chunked(
+        trainer, (xd, yd, wd), (int(num_classes), x.shape[1]), xd.dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
         tol, max_iter, listeners=listeners,
     )

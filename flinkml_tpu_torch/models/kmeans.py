@@ -19,10 +19,10 @@ non-float column promotes to float64); the JAX estimator promotes to
 float64 and computes in its x64 flag's dtype. ``KMeansModel.transform``
 does the same with the query column.
 
-``KMeansModel`` has no ``transform_kernel``: the CUDA ``fused_chain``
-kernel has no nearest-centroid head yet (ROADMAP.md Queue 1 item 17), and
-a chain stage the kernel cannot compute would refuse on the card. A
-pipeline runs the model as its own stage after any fused run before it.
+``KMeansModel.transform_kernel`` (euclidean only) is the per-stage
+nearest-centroid math as plain PyTorch, and the KMeans head of the
+``fused_chain`` kernel on the card; it pins its input column, as the JAX
+package's does.
 
 One device, in-RAM tables only: streamed fits (an iterable of batch
 Tables or a DataCache, ``cache_dir``, ``cache_memory_budget_bytes``),
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flinkml_tpu_torch.api import Estimator, Model
+from flinkml_tpu_torch.api import ColumnKernel, Estimator, Model
 from flinkml_tpu_torch.common_params import (
     HasDistanceMeasure,
     HasFeaturesCol,
@@ -185,6 +185,36 @@ class KMeansModel(_KMeansParams, Model):
         assign = measure.nearest(x, centroids)
         return (
             table.with_column(self.get(_KMeansParams.PREDICTION_COL), assign),
+        )
+
+    def transform_kernel(self) -> Optional[ColumnKernel]:
+        """Nearest-centroid assignment as a chainable kernel: the per-stage
+        path's euclidean ``nearest`` (argmin of ``squared_distances``, an
+        int64 index) in the feature column's dtype, the centroids as a
+        constant. Other distance measures keep the per-stage path."""
+        if self._centroids is None:
+            return None
+        if self.get(_KMeansParams.DISTANCE_MEASURE) != "euclidean":
+            return None
+        fcol = self.get(_KMeansParams.FEATURES_COL)
+        pcol = self.get(_KMeansParams.PREDICTION_COL)
+
+        def fn(cols, consts, valid):
+            x = cols[fcol]
+            if x.dim() == 1:
+                x = x.reshape(-1, 1)
+            if not x.dtype.is_floating_point:
+                x = x.to(torch.float64)
+            c = torch.as_tensor(consts["centroids"]).to(device=x.device,
+                                                         dtype=x.dtype)
+            return {pcol: torch.argmin(blas.squared_distances(x, c), dim=-1)}
+
+        return ColumnKernel(
+            input_cols=(fcol,), output_cols=(pcol,), fn=fn,
+            constants={"centroids": self._centroids},
+            fingerprint=("KMeansModel", fcol, pcol, "euclidean"),
+            # As the JAX package: the input column is an eager output.
+            pin_inputs=True,
         )
 
 

@@ -1,4 +1,5 @@
-"""LogisticRegression — binomial logistic regression, mini-batch SGD, L2.
+"""LogisticRegression — binomial and multinomial logistic regression,
+mini-batch SGD, L2.
 
 The port's counterpart of ``flinkml_tpu.models.logistic_regression``
 (reference: ``LogisticRegression.java:76-454``,
@@ -14,30 +15,32 @@ weighted-mean loss is not above ``tol``. The fit computes in the feature
 column's floating dtype (float64 for anything else); the JAX package
 computes in the dtype its global x64 flag gives.
 
-Binomial only: labels outside {0, 1} under ``multiClass`` ``auto``
-(more than two classes) or ``multinomial`` raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 2). Streamed fits, checkpointing, meshes, sharding
-plans and precision policies raise too, naming their ROADMAP.md items.
+``multiClass``: ``auto`` follows the label cardinality (more than two
+classes: multinomial), ``binomial`` and ``multinomial`` are taken as set.
+A multinomial fit (dense features only, as in the JAX package) trains a
+``[k, d]`` matrix by softmax cross-entropy over labels ``0..k-1``
+(:func:`flinkml_tpu_torch.models._linear_sgd.train_softmax_model`).
+Streamed fits, checkpointing, meshes, sharding plans and precision
+policies raise ``NotImplementedError``, naming their ROADMAP.md items.
 
-The model: prediction = ``dot >= 0``, raw prediction = ``[1-p, p]`` with
-``p = sigmoid(dot)``.
+The model: binomial prediction = ``dot >= 0``, raw prediction = ``[1-p,
+p]`` with ``p = sigmoid(dot)``; multinomial prediction = the argmax of the
+logits ``x @ Wᵀ`` (first index on ties), raw prediction = their softmax.
 
 - Dense features: one ``torch.matmul`` on the compute device (the JAX
   package leaves this product to XLA); the same math is the stage's
   ``transform_kernel``, whose CUDA form is the head of the ``fused_chain``
   kernel (:mod:`flinkml_tpu_torch.kernels.chain`).
 - Sparse features (every row a ``SparseVector``): nnz-bucketed ELL scored
-  by the ``spmv`` kernel (:func:`flinkml_tpu_torch.ops.sparse.sparse_margins`);
-  the margins come back to the host and the sigmoid tail runs there in
-  float64.
+  by the ``spmv`` kernel (:func:`flinkml_tpu_torch.ops.sparse.sparse_margins`;
+  a ``[k, d]`` model by a gathered product there); the margins come back
+  to the host and the sigmoid or softmax tail runs there in float64.
 
 Dtype rule: the dense path computes in the feature column's dtype (a
 non-float column promotes to float64). The JAX package computes this stage
 in the dtype its global x64 flag gives (float64 under x64, which is how its
 tests run); the port has no such flag, so a float32 column is scored in
 float32 here.
-
-Multinomial model data comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -102,6 +105,27 @@ def _predict(x: torch.Tensor, coef) -> Tuple[torch.Tensor, torch.Tensor]:
     return pred, raw
 
 
+def _predict_multinomial(x: torch.Tensor, coef) -> Tuple[torch.Tensor, torch.Tensor]:
+    """prediction = argmax of the logits ``x @ coef.T`` (first index on
+    ties, the first NaN if any); raw = their softmax (max-subtracted, exp
+    over its sum, as ``jax.nn.softmax``), in ``x``'s dtype."""
+    coef = torch.as_tensor(coef).to(device=x.device, dtype=x.dtype)
+    logits = torch.matmul(x, coef.T)
+    e = torch.exp(logits - torch.max(logits, dim=-1, keepdim=True).values)
+    raw = e / torch.sum(e, dim=-1, keepdim=True)
+    pred = torch.argmax(logits, dim=-1).to(x.dtype)
+    return pred, raw
+
+
+def _softmax_from_logits(logits: np.ndarray):
+    """The host tail of sparse multinomial scoring (float64)."""
+    z = logits - logits.max(axis=-1, keepdims=True)
+    e = np.exp(z)
+    raw = e / e.sum(axis=-1, keepdims=True)
+    pred = np.argmax(logits, axis=-1).astype(np.float64)
+    return pred, raw
+
+
 class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, Model):
     """Broadcast-model batch inference: one batched product per table."""
 
@@ -111,14 +135,15 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
 
     def _set_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
         c = np.asarray(arrays["coefficient"], dtype=np.float64)
-        # [d] as saved, or [1, d] as get_model_data tables carry it.
+        # [d] or [k, d] as saved, or with the leading axis of 1 that
+        # get_model_data tables carry ([1, d], [1, k, d]).
         if c.ndim >= 2 and c.shape[0] == 1:
             c = c[0]
-        if c.ndim != 1:
-            raise NotImplementedError(
-                f"multinomial LogisticRegression model data (coefficient "
-                f"shape {c.shape}) is not ported yet: it comes with the "
-                "multinomial LogisticRegression slice of flinkml_tpu_torch"
+        if c.ndim not in (1, 2):
+            raise ValueError(
+                "LogisticRegression model data must be a coefficient [d] or "
+                f"a class matrix [k, d] (with an optional leading axis of "
+                f"1), got shape {np.shape(arrays['coefficient'])}"
             )
         self._coefficient = c
 
@@ -128,25 +153,33 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
         pcol = self.get(_LogisticRegressionParams.PREDICTION_COL)
         rcol = self.get(_LogisticRegressionParams.RAW_PREDICTION_COL)
         fcol = self.get(_LogisticRegressionParams.FEATURES_COL)
+        multinomial = self._coefficient.ndim == 2
         sparse_col = sparse_features(table, fcol)
         if sparse_col is not None:
             from flinkml_tpu_torch.ops.sparse import sparse_margins
 
             # Margins arrive on the host; the elementwise tail stays there.
             dot = sparse_margins(sparse_col, self._coefficient)
-            p = 1.0 / (1.0 + np.exp(-dot.astype(np.float64)))
-            pred = (dot >= 0).astype(dot.dtype)
-            raw = np.stack([1.0 - p, p], axis=-1)
+            if multinomial:
+                pred, raw = _softmax_from_logits(dot.astype(np.float64))
+            else:
+                p = 1.0 / (1.0 + np.exp(-dot.astype(np.float64)))
+                pred = (dot >= 0).astype(dot.dtype)
+                raw = np.stack([1.0 - p, p], axis=-1)
         else:
-            pred, raw = _predict(features_tensor(table, fcol), self._coefficient)
+            predict = _predict_multinomial if multinomial else _predict
+            pred, raw = predict(features_tensor(table, fcol), self._coefficient)
         return (table.with_column(pcol, pred).with_column(rcol, raw),)
 
     def transform_kernel(self) -> Optional[ColumnKernel]:
         """Dense inference as a chainable kernel: the same math as the
-        per-stage path. Sparse feature columns are object columns, which
-        the fused executor never admits, so they keep the O(nnz) path."""
+        per-stage path (binomial or multinomial). Sparse feature columns
+        are object columns, which the fused executor never admits, so they
+        keep the O(nnz) path."""
         if self._coefficient is None:
             return None
+        multinomial = self._coefficient.ndim == 2
+        predict = _predict_multinomial if multinomial else _predict
         fcol = self.get(_LogisticRegressionParams.FEATURES_COL)
         pcol = self.get(_LogisticRegressionParams.PREDICTION_COL)
         rcol = self.get(_LogisticRegressionParams.RAW_PREDICTION_COL)
@@ -157,20 +190,22 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
                 x = x.reshape(-1, 1)
             if not x.dtype.is_floating_point:
                 x = x.to(torch.float64)
-            pred, raw = _predict(x, consts["coefficient"])
+            pred, raw = predict(x, consts["coefficient"])
             return {pcol: pred, rcol: raw}
 
         return ColumnKernel(
             input_cols=(fcol,), output_cols=(pcol, rcol), fn=fn,
             constants={"coefficient": self._coefficient},
-            fingerprint=("LogisticRegressionModel", fcol, pcol, rcol, False),
+            fingerprint=("LogisticRegressionModel", fcol, pcol, rcol,
+                         multinomial),
             pin_inputs=True,
         )
 
 
 class LogisticRegression(_LogisticRegressionParams, Estimator):
-    """Fits binomial LR by SGD on the compute device, from a :class:`Table`
-    of dense or SparseVector features.
+    """Fits LR by SGD on the compute device, from a :class:`Table` of dense
+    or SparseVector features (binomial), or of dense features
+    (multinomial).
 
     The constructor takes the JAX estimator's knobs; every one whose path
     is not ported yet (``mesh``, ``cache_dir``,
@@ -233,14 +268,16 @@ class LogisticRegression(_LogisticRegressionParams, Estimator):
             if x.shape[0] == 0:
                 raise ValueError("training table is empty")
             if _resolve_multi_class(multi_class, y) == "multinomial":
-                raise NotImplementedError(
-                    "multinomial (softmax) LogisticRegression fit is not "
-                    "ported to flinkml_tpu_torch yet: it comes with "
-                    "ROADMAP.md Queue 1 item 2 (multinomial "
-                    "LogisticRegression)"
+                # Softmax cross-entropy over integer classes 0..k-1: the
+                # coefficient is [k, d].
+                num_classes = _check_multinomial_labels(y)
+                coef = _linear_sgd.train_softmax_model(
+                    x, y, w, num_classes=num_classes, elastic_net=0.0,
+                    **hyper,
                 )
-            _check_binomial_labels(y)
-            coef = train_logistic_regression(x, y, w, **hyper)
+            else:
+                _check_binomial_labels(y)
+                coef = train_logistic_regression(x, y, w, **hyper)
 
         model = LogisticRegressionModel()
         model.copy_params_from(self)
@@ -250,6 +287,24 @@ class LogisticRegression(_LogisticRegressionParams, Estimator):
 
 def _check_binomial_labels(y: np.ndarray) -> None:
     check_binary_labels(y, "binomial logistic regression")
+
+
+def _check_multinomial_labels(y: np.ndarray) -> int:
+    """Labels must be exactly the integers 0..k-1 (every class present);
+    returns k. Guards against phantom classes and against a single
+    outlier label allocating a huge [maxLabel+1, d] matrix."""
+    uniq = np.unique(y)
+    if (
+        not np.all(uniq == np.round(uniq))
+        or uniq.min() < 0
+        or uniq.size != int(uniq.max()) + 1
+    ):
+        raise ValueError(
+            "multinomial logistic regression requires integer labels "
+            f"covering 0..k-1 exactly, got {uniq[:6]}"
+            f"{'...' if uniq.size > 6 else ''}"
+        )
+    return int(uniq.max()) + 1
 
 
 def _resolve_multi_class(multi_class: str, y: np.ndarray) -> str:

@@ -35,10 +35,12 @@ def sparse_margins(vectors: Sequence[SparseVector], coef,
     """Row-wise dots ``X @ coef`` (float32) for SparseVector rows, skew-proof.
 
     Packs rows into nnz buckets (padded cells ≈ total nnz), scores each
-    bucket with the ``spmv`` kernel on the compute device, and reassembles
-    the margins in the caller's row order on the host. ``coef`` is a
-    binomial coefficient ``[d]``; class matrices ``[k, d]`` come with the
-    multinomial slice of the port.
+    bucket on the compute device, and reassembles the results in the
+    caller's row order on the host. ``coef`` is a vector ``[d]`` (returns
+    ``[n]``, each bucket by the ``spmv`` kernel) or a class matrix ``[k,
+    d]`` (returns ``[n, k]``: the gathered rows of ``coef.T`` contracted
+    over the slots, ``einsum("rs,rsk->rk")`` in plain torch, as the JAX
+    package leaves it to XLA).
     """
     indptr, indices, values, dim = csr_from_sparse_vectors(
         vectors, dtype=np.float32
@@ -50,29 +52,33 @@ def sparse_margins(vectors: Sequence[SparseVector], coef,
             f"features have dim {dim} but the model coefficient has "
             f"dim {n_coef}"
         )
-    if coef.ndim != 1:
-        raise NotImplementedError(
-            "multinomial sparse scoring (a [k, d] coefficient) is not ported "
-            "yet: it comes with the multinomial LogisticRegression slice"
-        )
     buckets, row_ids = pack_ell_buckets(
         indptr, indices, values, dim, max_buckets=max_buckets,
         dtype=np.float32,
     )
     device = default_device()
     n = indptr.size - 1
-    coef_dev = torch.as_tensor(coef, dtype=torch.float32).to(device)
-    out = np.empty(n, dtype=np.float32)
+    multinomial = coef.ndim == 2
+    k = coef.shape[0] if multinomial else 1
+    coef_dev = torch.as_tensor(
+        np.ascontiguousarray(coef.T if multinomial else coef),
+        dtype=torch.float32).to(device)
+    out = np.empty((n, k) if multinomial else n, dtype=np.float32)
     for bucket, rows in zip(buckets, row_ids):
         width = bucket["indices"].shape[1]
-        # The per-dispatch working set is bounded so scoring a million-row
-        # batch cannot blow host or device memory.
-        chunk = max(1, _SCORING_CHUNK_ELEMS // max(1, width))
+        # The per-dispatch working set ([chunk, slots] values and indices,
+        # and the gathered [chunk, slots, k] coefficients) is bounded so
+        # scoring a million-row batch cannot blow host or device memory.
+        chunk = max(1, _SCORING_CHUNK_ELEMS // max(1, width * k))
         for lo in range(0, rows.size, chunk):
             sl = slice(lo, lo + chunk)
             vb = torch.from_numpy(bucket["values"][sl]).to(device)
             ib = torch.from_numpy(bucket["indices"][sl]).to(device)
-            out[rows[sl]] = spmv(ib, vb, coef_dev).cpu().numpy()
+            if multinomial:
+                res = torch.einsum("rs,rsk->rk", vb, coef_dev[ib.long()])
+            else:
+                res = spmv(ib, vb, coef_dev)
+            out[rows[sl]] = res.cpu().numpy()
     return out
 
 

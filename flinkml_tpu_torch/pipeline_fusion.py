@@ -5,7 +5,8 @@ kernel-capable stages (stages exposing
 :meth:`~flinkml_tpu_torch.api.AlgoOperator.transform_kernel`) executes as
 ONE program: on CUDA one launch of the hand-written ``fused_chain`` kernel
 (:mod:`flinkml_tpu_torch.kernels.chain`), on the CPU the plain PyTorch
-chain. Intermediate columns never leave the device, and the result
+chain. A run may read several input columns (numeric of any kind, such as
+OneHotEncoder's integer codes) and hold stages with several outputs. Intermediate columns never leave the device, and the result
 :class:`~flinkml_tpu_torch.table.Table` carries device-resident output
 columns that reach the host only when read.
 
@@ -29,8 +30,9 @@ Lazy intermediates
 ------------------
 
 The eager program writes only the run's *terminal* columns plus the
-inputs of ``pin_inputs`` stages (the LR head's input, as in the JAX
-package). Other intermediates land in the result table as
+inputs of ``pin_inputs`` stages (the LR and KMeans heads' input, as in the
+JAX package). Other intermediates (a one-hot output, an assembled row, a
+scaler's output) land in the result table as
 :class:`~flinkml_tpu_torch.table.LazyDeviceColumn`: shape and dtype come
 from the plain chain over one zero row on the CPU, and the first read runs
 the chain truncated at that column.

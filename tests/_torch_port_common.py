@@ -127,6 +127,62 @@ def jax_chain(jax_model, x: np.ndarray, backend: str):
     return {c: np.asarray(v)[:n] for c, v in res.items()}
 
 
+def jax_chain_cols(kernels, cols, backend: str, out_names=None):
+    """:func:`jax_chain` for any JAX ``ColumnKernel`` chain over the named
+    numpy ``cols`` (every column the chain reads from outside): the rows
+    padded to the executor's bucket, all outputs (or ``out_names``)."""
+    import jax
+    import jax.numpy as jnp
+    from flinkml_tpu.kernels.chain import pallas_chain_fn
+    from flinkml_tpu.pipeline_fusion import (
+        _chain_fn, _output_cols, external_inputs, row_bucket,
+    )
+
+    ext = external_inputs(kernels)
+    n = len(cols[ext[0]])
+    bucket = row_bucket(n)
+    padded = []
+    for c in ext:
+        v = np.asarray(cols[c])
+        p = np.zeros((bucket,) + v.shape[1:], v.dtype)
+        p[:n] = v
+        padded.append(jnp.asarray(p))
+    consts = tuple(
+        tuple(jnp.asarray(k.constants[c]) for c in sorted(k.constants))
+        for k in kernels
+    )
+    outs = tuple(out_names or _output_cols(kernels))
+    build = pallas_chain_fn if backend == "pallas" else _chain_fn
+    run = jax.jit(build(kernels, ext, outs, bucket))
+    res = run(tuple(padded), consts, np.int32(n))
+    return {c: np.asarray(v)[:n] for c, v in res.items()}
+
+
+def port_chain_cols(kernels, cols, out_names=None):
+    """The port's plain chain (its CPU path) over the same columns, padded
+    the same way: ``{column: numpy array}``."""
+    import torch
+
+    from flinkml_tpu_torch.kernels import chain as kchain
+    from flinkml_tpu_torch.pipeline_fusion import (
+        _output_cols, external_inputs, row_bucket,
+    )
+
+    ext = external_inputs(kernels)
+    n = len(cols[ext[0]])
+    bucket = row_bucket(n)
+    padded = []
+    for c in ext:
+        v = np.asarray(cols[c])
+        p = np.zeros((bucket,) + v.shape[1:], v.dtype)
+        p[:n] = v
+        padded.append(torch.from_numpy(p))
+    outs = tuple(out_names or _output_cols(kernels))
+    res = kchain.chain_plain(kernels, ext, outs, padded,
+                             [k.constants for k in kernels], n)
+    return {c: v[:n].numpy() for c, v in res.items()}
+
+
 def jax_per_stage(jax_model, x: np.ndarray):
     """The JAX package's per-stage ``PipelineModel.transform``."""
     jax_fusion.set_enabled(False)

@@ -254,9 +254,18 @@ def test_stage_from_arrays_and_multinomial_refusal():
     assert isinstance(m, torch_lr.LogisticRegressionModel)
     assert m.get_features_col() == "f"
     np.testing.assert_array_equal(m.coefficient, np.arange(3.0))
-    with pytest.raises(NotImplementedError, match="multinomial"):
+    # A multinomial [k, d] class matrix loads, as saved ([k, d]) and as
+    # get_model_data tables carry it ([1, k, d]); [2, k, d] is refused.
+    coef = np.arange(12.0).reshape(3, 4)
+    for arr in (coef, coef[None]):
+        mm = fml.stage_from_arrays(
+            "flinkml_tpu_torch.models.logistic_regression."
+            "LogisticRegressionModel", {}, {"coefficient": arr})
+        np.testing.assert_array_equal(mm.coefficient, coef)
+    with pytest.raises(ValueError, match="class matrix"):
         fml.stage_from_arrays(
             "flinkml_tpu_torch.models.logistic_regression."
-            "LogisticRegressionModel", {}, {"coefficient": np.ones((3, 4))})
+            "LogisticRegressionModel", {},
+            {"coefficient": np.ones((2, 3, 4))})
     with pytest.raises(ImportError):
         fml.stage_from_arrays("os.path", {}, {})

@@ -495,3 +495,364 @@ def test_kmeans_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(bis.centroids, bis_cpu.centroids, rtol=1e-10,
                                atol=1e-10)
     assert _kmeans.KMeansModel().transform_kernel() is None
+
+
+# -- fused_chain: the prologue and the class heads -----------------------------------
+
+def _onehot_assembler(rows, cards, dense_w, seed, drop_last=True):
+    """OneHotEncoder(keep) over ``len(cards)`` int64 columns, then a
+    VectorAssembler over the one-hot outputs and a float64 ``[rows,
+    dense_w]`` column; serving codes include out-of-range ones."""
+    rng = np.random.default_rng(seed)
+    cats = {f"c{i}": rng.integers(0, k, size=rows) for i, k in
+            enumerate(cards)}
+    names = sorted(cats)
+    with fml.use_device("cpu"):
+        enc = (fml.OneHotEncoder().set_input_cols(names)
+               .set_output_cols([f"o{c}" for c in names])
+               .set_drop_last(drop_last).set_handle_invalid("keep")
+               .fit(fml.Table(cats)))
+    for c in names:
+        cats[c][::97] = -1
+        cats[c][5::89] = 1000
+    va = (fml.VectorAssembler().set_input_cols(
+        [f"o{names[0]}", "dense"] + [f"o{c}" for c in names[1:]])
+        .set_handle_invalid("keep").set_output_col("features"))
+    cats["dense"] = rng.normal(size=(rows, dense_w))
+    return [enc, va], cats
+
+
+def _class_head(kind, d, k, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "kmeans":
+        m = fml.KMeansModel().set_model_data(
+            fml.Table({"centroids": rng.normal(size=(1, k, d))}))
+    else:
+        m = fml.LogisticRegressionModel()
+        m.set_model_data(fml.Table({"coefficient": rng.normal(size=(1, k, d))}))
+    return m
+
+
+def _new_op_chain(op, d, rows, seed):
+    """``(stages, host columns)`` of one new chain op: a class head after a
+    MinMaxScaler or alone, or the one-hot + assemble prologue before a
+    StandardScaler and the binomial head."""
+    rng = np.random.default_rng(seed)
+    if op == "prologue":
+        cards = (4, 3) if d == 10 else (9, 16, 7, 15, 6, 5, 2, 42)
+        stages, cols = _onehot_assembler(rows, cards, d - sum(cards), seed)
+        with fml.use_device("cpu"):
+            (t,) = fml.PipelineModel(stages).transform(fml.Table(dict(cols)))
+            sc = (fml.StandardScaler().set_input_col("features")
+                  .set_output_col("scaled").fit(t))
+        lr = fml.LogisticRegressionModel().set_features_col("scaled")
+        lr.set_model_data(fml.Table({"coefficient": rng.normal(size=(1, d))}))
+        return stages + [sc, lr], cols
+    kind, scaled = op.split("_")
+    cols = {"features": rng.normal(size=(rows, d)) * 3.0}
+    head = _class_head(kind, d, 10 if kind == "multinomial" else 7, seed)
+    if scaled == "alone":
+        return [head], cols
+    with fml.use_device("cpu"):
+        mm = (fml.MinMaxScaler().set_input_col("features")
+              .set_output_col("mm").fit(fml.Table(cols)))
+    head.set_features_col("mm")
+    return [mm, head], cols
+
+
+def _run_both(kernels, cols, device, rows, dtype, aligned=True):
+    """The chain's eager program on the card and the plain chain on the
+    same card tensors; ``aligned=False`` puts every float column one
+    element into its buffer (the scalar route)."""
+    ext = pipeline_fusion.external_inputs(kernels)
+    outs = pipeline_fusion._output_cols(kernels)
+    producer = {c: j for j, k in enumerate(kernels) for c in k.output_cols}
+    terminal = [c for c in outs if not any(
+        c in kernels[j].input_cols for j in range(producer[c] + 1,
+                                                  len(kernels)))]
+    eager = list(pipeline_fusion._closure_outputs(kernels, terminal))
+    bucket = pipeline_fusion.row_bucket(rows)
+    vals = []
+    for c in ext:
+        v = np.asarray(cols[c])
+        t = torch.from_numpy(v)
+        if t.dtype.is_floating_point:
+            t = t.to(dtype)
+        if not aligned and t.dtype.is_floating_point:
+            buf = torch.zeros(bucket * max(1, t[0].numel()) + 1,
+                              dtype=t.dtype, device=device)
+            tp = buf[1:].view((bucket,) + tuple(t.shape[1:]))
+            tp.zero_()
+        else:
+            tp = torch.zeros((bucket,) + tuple(t.shape[1:]), dtype=t.dtype,
+                             device=device)
+        tp[:rows] = t.to(device)
+        vals.append(tp)
+    consts = [k.constants for k in kernels]
+    program = kchain.ChainProgram(kernels, ext, eager)
+    before = kchain.LAUNCHES.count
+    got = program(vals, consts, rows)
+    want = kchain.chain_plain(kernels, ext, eager, vals, consts, rows)
+    torch.cuda.synchronize()
+    assert kchain.LAUNCHES.count == before + 1
+    # The head's input, for the prediction check.
+    want = dict(want, **{c: v for c, v in zip(ext, vals) if c not in want})
+    return program, vals, got, want
+
+
+def _assert_chain_close(got, want, rows, tol):
+    for c, g in got.items():
+        g, w = g[:rows], want[c][:rows]
+        assert g.dtype == w.dtype, c
+        if c == "prediction":
+            continue
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def _assert_predictions(got, want, rows, kernels, rel=1e-9):
+    """Equal predictions wherever the head's two best scores differ by more
+    than ``rel`` relative (a near tie may break either way in another
+    summation order)."""
+    head = kernels[-1]
+    name = head.fingerprint[0]
+    if name not in ("KMeansModel", "LogisticRegressionModel"):
+        return
+    x = want[head.input_cols[0]][:rows].double()
+    if name == "KMeansModel":
+        c = torch.as_tensor(head.constants["centroids"]).to(x.device)
+        score = -((x[:, None, :] - c[None]) ** 2).sum(-1)
+    elif head.fingerprint[4]:
+        score = x @ torch.as_tensor(head.constants["coefficient"]).to(
+            x.device).T
+    else:
+        return
+    top2 = torch.topk(score, 2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]) > rel * (1 + top2[:, 0].abs())
+    assert gap.float().mean() > 0.9
+    assert torch.equal(got["prediction"][:rows][gap],
+                       want["prediction"][:rows][gap])
+
+
+@pytest.mark.parametrize("op", ["multinomial_scaled", "multinomial_alone",
+                                "kmeans_scaled", "kmeans_alone", "prologue"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_chain_new_ops_match_plain(cuda_device, op, dtype, tol, aligned):
+    """Each new chain op on both routes against the plain chain: a vector
+    route width (d = 16 float64 / 32 float32; the prologue's row of 10)
+    with aligned inputs, and the same inputs one element into their
+    buffers on the scalar route. Every output, one-hot and assembled
+    columns included, on 1,001 rows."""
+    rows = 1001
+    d = 10 if op == "prologue" else (16 if dtype == torch.float64 else 32)
+    stages, cols = _new_op_chain(op, d, rows, seed=len(op))
+    kernels = [s.transform_kernel() for s in stages]
+    program, vals, got, want = _run_both(kernels, cols, cuda_device, rows,
+                                         dtype, aligned)
+    assert program.layout(vals).route == ("vector" if aligned else "scalar")
+    _assert_chain_close(got, want, rows, 1e-10 if op == "prologue" else tol)
+    _assert_predictions(got, want, rows, kernels,
+                        1e-9 if dtype == torch.float64 else 1e-5)
+    # The lazy reads: every intermediate alone, by a truncated program.
+    for c in pipeline_fusion._output_cols(kernels):
+        if c in got:
+            continue
+        ext = pipeline_fusion.external_inputs(kernels)
+        lazy = kchain.ChainProgram(kernels, ext, [c])(
+            vals, [k.constants for k in kernels], rows)
+        plain = kchain.chain_plain(kernels, ext, [c], vals,
+                                   [k.constants for k in kernels], rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lazy[c][:rows], plain[c][:rows],
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("op,d,dtype", [
+    ("multinomial_scaled", 784, torch.float64),
+    ("multinomial_scaled", 784, torch.float32),
+    ("kmeans_scaled", 128, torch.float64),
+    ("kmeans_scaled", 128, torch.float32),
+    ("prologue", 108, torch.float64),   # one-hot outputs are float64
+])
+def test_chain_new_ops_full_width(cuda_device, op, d, dtype):
+    """The paths' widths: MNIST's 784 (scalar route), KMeans' 128 (vector
+    in float32, scalar in float64) and the census row of 108."""
+    rows = 3000
+    stages, cols = _new_op_chain(op, d, rows, seed=d)
+    kernels = [s.transform_kernel() for s in stages]
+    _, _, got, want = _run_both(kernels, cols, cuda_device, rows, dtype)
+    f64 = dtype == torch.float64
+    _assert_chain_close(got, want, rows, 1e-10 if f64 else 1e-5)
+    _assert_predictions(got, want, rows, kernels, 1e-9 if f64 else 1e-5)
+
+
+@pytest.mark.parametrize("kind,d,k,dtype", [
+    ("kmeans", 784, 64, torch.float32),      # the whole table fits
+    ("kmeans", 784, 64, torch.float64),      # centroids from device memory
+    ("multinomial", 784, 64, torch.float64),
+    ("kmeans", 20_000, 5, torch.float32),    # two warps a block
+])
+def test_chain_class_heads_beyond_shared_memory(cuda_device, kind, d, k,
+                                                dtype):
+    """StandardScaler -> a class head whose matrix does not fit in shared
+    memory beside the rows (or whose rows alone take most of it): one
+    launch, equal to the plain chain, and the fused pipeline on the card
+    runs it too."""
+    rows = 2000
+    rng = np.random.default_rng(d + k)
+    cols = {"features": rng.normal(size=(rows, d)) * 3.0}
+    with fml.use_device("cpu"):
+        sc = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s").fit(fml.Table(cols)))
+    head = _class_head(kind, d, k, seed=k).set_features_col("s")
+    kernels = [sc.transform_kernel(), head.transform_kernel()]
+    _, _, got, want = _run_both(kernels, cols, cuda_device, rows, dtype)
+    f64 = dtype == torch.float64
+    _assert_chain_close(got, want, rows, 1e-10 if f64 else 1e-5)
+    _assert_predictions(got, want, rows, kernels, 1e-9 if f64 else 1e-5)
+    if d != 784:
+        return
+    host = {"features": cols["features"].astype(
+        np.float64 if f64 else np.float32)}
+    pipeline_fusion.reset_cache()
+    with fml.use_device(cuda_device):
+        fml.reset_launch_counts()
+        (out,) = fml.PipelineModel([sc, head]).transform(fml.Table(host))
+        pred = out.column("prediction")
+        assert fml.launch_counts()["fused_chain"] == 1
+    # The same kernel on the same rows: the same bits.
+    assert np.array_equal(pred, got["prediction"][:rows].cpu().numpy())
+
+
+def test_chain_refuses_a_row_no_warp_can_stage(cuda_device):
+    """A KMeans head over 30,000 float64 columns: one warp's staged row
+    is more than a block's shared memory, a typed refusal naming it."""
+    d = 30_000
+    head = _class_head("kmeans", d, 2, seed=1)
+    program = kchain.ChainProgram([head.transform_kernel()], ["features"],
+                                  ["prediction"])
+    x = torch.zeros((8, d), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(fml.KernelUnsupportedError, match="shared memory"):
+        program([x], [head.transform_kernel().constants], 8)
+
+
+def _nine_stages_port():
+    """The nine kernel-capable stages of the port, each fitted (or given
+    model data) on the CPU; ``{name: (stage, host columns)}``."""
+    rng = np.random.default_rng(31)
+    cols = {"features": rng.normal(size=(777, 8)) * 2.0 + 1.0,
+            "label": (rng.random(777) > 0.5).astype(np.float64),
+            "c1": rng.integers(0, 5, size=777).astype(np.float64),
+            "c2": rng.integers(0, 3, size=777)}
+    t = fml.Table(cols)
+    out = {}
+    with fml.use_device("cpu"):
+        for cls in (fml.StandardScaler, fml.MinMaxScaler, fml.MaxAbsScaler,
+                    fml.RobustScaler):
+            out[cls.__name__] = cls().set_input_col("features") \
+                .set_output_col("out").fit(t)
+        out["VectorAssembler"] = fml.VectorAssembler().set_input_cols(
+            ["features", "label"]).set_handle_invalid("keep") \
+            .set_output_col("out")
+        out["OneHotEncoder"] = fml.OneHotEncoder().set_input_cols(
+            ["c1", "c2"]).set_output_cols(["o1", "o2"]) \
+            .set_handle_invalid("keep").fit(t)
+    out["LogisticRegression"] = _class_head("lr", 8, 1, 1)
+    out["LogisticRegression"].set_model_data(
+        fml.Table({"coefficient": rng.normal(size=(1, 8))}))
+    out["LogisticRegressionMultinomial"] = _class_head("multinomial", 8, 3, 2)
+    out["KMeans"] = _class_head("kmeans", 8, 5, 3)
+    cols["c1"][:3] = [7.0, 4.0, -2.0]
+    return out, cols
+
+
+@pytest.mark.parametrize("name", [
+    "StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler",
+    "VectorAssembler", "OneHotEncoder", "LogisticRegression",
+    "LogisticRegressionMultinomial", "KMeans"])
+def test_nine_single_stage_kernels_match_plain(cuda_device, name):
+    """Each of the nine stages alone is one fused_chain launch on the card,
+    equal to the plain chain (float64)."""
+    stages, cols = _nine_stages_port()
+    kernels = [stages[name].transform_kernel()]
+    _, _, got, want = _run_both(kernels, cols, cuda_device, 777,
+                                torch.float64)
+    _assert_chain_close(got, want, 777, 1e-10)
+    _assert_predictions(got, want, 777, kernels)
+
+
+def test_census_pipeline_on_card_matches_cpu(cuda_device):
+    """The fused census pipeline (one-hot, assemble, scale, LR) on the card
+    against the port's CPU run, every column, the lazy ones too."""
+    stages, cols = _new_op_chain("prologue", 108, 2000, seed=4)
+    model = fml.PipelineModel(stages)
+    names = ("oc0", "oc3", "features", "scaled", "prediction",
+             "rawPrediction")
+    pipeline_fusion.reset_cache()
+    with fml.use_device(cuda_device):
+        fml.reset_launch_counts()
+        (gpu,) = model.transform(fml.Table(dict(cols)))
+        got = {c: gpu.column(c) for c in names}
+        assert fml.launch_counts()["fused_chain"] == 4   # eager + 3 lazy
+    with fml.use_device("cpu"):
+        (cpu,) = model.transform(fml.Table(dict(cols)))
+    for c in names:
+        np.testing.assert_allclose(got[c], cpu.column(c), rtol=1e-10,
+                                   atol=1e-10, err_msg=c)
+
+
+def test_multinomial_fit_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(4000, 20))
+    y = np.argmax(x @ rng.normal(size=(20, 5)), axis=1).astype(np.float64)
+    table = fml.Table({"features": x, "label": y})
+    est = (fml.LogisticRegression().set_seed(2).set_global_batch_size(512)
+           .set_tol(0.0).set_learning_rate(0.5).set_max_iter(15))
+    with fml.use_device(cuda_device):
+        gpu = est.fit(table)
+        (tg,) = gpu.transform(table)
+    with fml.use_device("cpu"):
+        cpu = est.fit(table)
+        (tc,) = cpu.transform(table)
+    assert gpu.coefficient.shape == (5, 20)
+    np.testing.assert_allclose(gpu.coefficient, cpu.coefficient, rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(tg.column("rawPrediction"),
+                               tc.column("rawPrediction"), rtol=1e-10,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("case", ["5,2", "0,0,7,1,1", "shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [None, 16])
+def test_segment_sum_sorted_on_descending_ids(cuda_device, case, dtype, k):
+    """``indices_are_sorted=True`` on ids that do not ascend still returns
+    ``index_add_``'s sum into zeros (integer-valued values: exact in any
+    order), on an output block poisoned with NaN; the next launch on
+    ascending ids is the run-flush's in-order sum again."""
+    rng = np.random.default_rng(12)
+    if case == "shuffled":
+        ids = rng.permutation(1_000_000).astype(np.int32) % 200_003
+        nseg = 200_003
+    else:
+        ids = np.array([int(v) for v in case.split(",")], np.int32)
+        nseg = int(ids.max()) + 3
+    if k is not None and case == "shuffled":
+        ids, nseg = ids[:100_000], nseg
+    shape = (ids.size,) if k is None else (ids.size, k)
+    vals = torch.from_numpy(rng.integers(-8, 9, size=shape).astype(
+        np.float64)).to(cuda_device, dtype)
+    ti = torch.from_numpy(ids).to(cuda_device)
+    _poison((nseg,) + tuple(vals.shape[1:]), dtype, cuda_device)
+    got = ksegsum.segment_sum(vals, ti, nseg, indices_are_sorted=True)
+    want = ksegsum.segment_sum_plain(vals, ti, nseg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    order = torch.argsort(ti.long(), stable=True)
+    again = ksegsum.segment_sum(vals[order], ti[order], nseg,
+                                indices_are_sorted=True)
+    in_order = np.zeros(tuple(want.shape), vals.cpu().numpy().dtype)
+    np.add.at(in_order, ids[order.cpu().numpy()],
+              vals[order].cpu().numpy())
+    np.testing.assert_array_equal(again.cpu().numpy(), in_order)

@@ -473,17 +473,34 @@ def test_save_load_across_packages(tmp_path, on_cpu):
 # -- refusals ---------------------------------------------------------------------------
 
 def test_multinomial_fit_refused(on_cpu):
+    """The multinomial fits that both packages refuse: labels that are not
+    exactly 0..k-1, SparseVector features, and more than two classes under
+    ``multiClass="binomial"`` (tests/test_torch_multinomial.py holds the
+    fits that run)."""
     x, _, _ = dense_lr_data(n=30)
     three = np.arange(30) % 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        fml.LogisticRegression().fit(
-            fml.Table({"features": x, "label": three.astype(float)}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        fml.LogisticRegression().set_multi_class("multinomial").fit(
-            fml.Table({"features": x, "label": (three > 0).astype(float)}))
-    with pytest.raises(ValueError, match="labels in"):
-        fml.LogisticRegression().set_multi_class("binomial").fit(
-            fml.Table({"features": x, "label": three.astype(float)}))
+    indptr, indices, values, dim, _, _ = sparse_lr_data(n=30, dim=20)
+    cases = (
+        ("multinomial", {"features": x, "label": 2.0 * three},
+         "covering 0..k-1"),
+        ("auto", {"label": three.astype(np.float32)}, "dense features only"),
+        ("binomial", {"features": x, "label": three.astype(float)},
+         "labels in"),
+    )
+    for multi_class, cols, match in cases:
+        if "features" not in cols:
+            jcols = dict(cols, features=sparse_rows(
+                indptr, indices, values, dim, JaxSparseVector))
+            cols = dict(cols, features=sparse_rows(
+                indptr, indices, values, dim, fml.SparseVector))
+        else:
+            jcols = cols
+        with pytest.raises(ValueError, match=match):
+            fml.LogisticRegression().set_multi_class(multi_class).fit(
+                fml.Table(cols))
+        with pytest.raises(ValueError, match=match):
+            jax_lr.LogisticRegression().set_multi_class(multi_class).fit(
+                JaxTable(jcols))
 
 
 def test_unported_paths_refused(on_cpu):

@@ -311,11 +311,17 @@ def test_chain_plans():
     k = _port_kernels(port)
     eager = kchain.plan_chain(k, ["features"], ["s4", "prediction",
                                                 "rawPrediction"])
-    assert (eager.n_run, eager.out_col, eager.head) == (4, "s4", True)
+    assert (eager.n_run, eager.out_col, eager.head) == (4, "s4", "binomial")
+    assert eager.parts == (kchain.PartPlan(0),)
     lazy = kchain.plan_chain(k, ["features"], ["s2"])
-    assert (lazy.n_run, lazy.out_col, lazy.head) == (2, "s2", False)
+    assert (lazy.n_run, lazy.out_col, lazy.head) == (2, "s2", None)
     scalers_only = kchain.plan_chain(k[:3], ["features"], ["s3"])
-    assert (scalers_only.n_run, scalers_only.head) == (3, False)
+    assert (scalers_only.n_run, scalers_only.head) == (3, None)
+    # A head with no scaler before it (the JAX package's single-stage run).
+    head_only = kchain.plan_chain(k[4:], ["s4"], ["prediction",
+                                                  "rawPrediction"])
+    assert (head_only.n_run, head_only.out_col, head_only.head) == \
+        (0, None, "binomial")
 
 
 def test_chain_refusals():
@@ -325,12 +331,15 @@ def test_chain_refusals():
     refuse = pytest.raises(fml.KernelUnsupportedError, match="fused_chain")
     with refuse:
         kchain.plan_chain([], [], ["s1"])
-    with refuse:   # LR alone: no scaler stage
-        kchain.plan_chain(k[4:], ["s4"], ["prediction", "rawPrediction"])
     with refuse:   # a stage the kernel has no op for
         other = ColumnKernel(("s4",), ("o",), fn=None,
-                             fingerprint=("OneHotEncoderModel", "s4", "o"))
+                             fingerprint=("PolynomialExpansion", "s4", "o"))
         kchain.plan_chain(k[:4] + [other], ["features"], ["o"])
+    with pytest.raises(fml.KernelUnsupportedError, match="grammar"):
+        # A prologue stage after a scaler.
+        onehot = ColumnKernel(("c",), ("o",), fn=None, fingerprint=(
+            "OneHotEncoderModel", ("c",), ("o",), True, (3,)))
+        kchain.plan_chain(k[:1] + [onehot], ["features", "c"], ["o"])
     with refuse:   # not a linear chain
         kchain.plan_chain([k[0], k[2]], ["features"], ["s3"])
     with refuse:   # two intermediate outputs in one launch
@@ -340,11 +349,11 @@ def test_chain_refusals():
                                     output_cols=(f"c{i + 1}",))
                 for i in range(kchain.MAX_STAGES + 1)]
         kchain.plan_chain(many, ["c0"], [f"c{kchain.MAX_STAGES + 1}"])
-    multinomial = dataclasses.replace(
-        k[4], fingerprint=k[4].fingerprint[:4] + (True,))
-    with refuse:
-        kchain.plan_chain(k[:4] + [multinomial], ["features"],
-                          ["s4", "prediction", "rawPrediction"])
+    with refuse:   # a head's outputs are written together
+        kchain.plan_chain(k, ["features"], ["prediction"])
+    with refuse:   # with the head, only the last scaler's output
+        kchain.plan_chain(k, ["features"], ["s2", "prediction",
+                                            "rawPrediction"])
     program = kchain.ChainProgram(k, ["features"], ["s1"])
     with refuse:   # CPU tensors never reach the CUDA program
         program([torch.zeros(8, x.shape[1])], [kk.constants for kk in k], 4)
@@ -359,6 +368,313 @@ def test_pack_table_refuses_dim_mismatch():
     with pytest.raises(ValueError, match="dim"):
         kchain.pack_table(plan, k, [kk.constants for kk in k],
                           np.dtype(np.float64), x.shape[1] + 1)
+
+
+# -- fused_chain: the prologue and the class heads --------------------------------
+
+def _stage_cols(n=60, seed=21):
+    """Seeded columns for the single-stage chains: features [n, 4],
+    a label, a float and an int category column."""
+    rng = np.random.default_rng(seed)
+    return {
+        "features": rng.normal(size=(n, 4)) * 2.0 + 1.0,
+        "label": (rng.random(n) > 0.5).astype(np.float64),
+        "c1": rng.integers(0, 4, size=n).astype(np.float64),
+        "c2": rng.integers(0, 3, size=n),
+    }
+
+
+def _nine_stages():
+    """``{name: (jax stage, port stage, serving columns)}`` for each of
+    the nine stages with a ``transform_kernel``, the port's built from the
+    JAX model data, as ``tests/test_pipeline_fusion.py`` feeds them one at
+    a time. The serving columns hold out-of-range categories and the
+    dropped-last one."""
+    from flinkml_tpu.io.read_write import load_stage as jax_load  # noqa: F401
+    from flinkml_tpu.models import kmeans as jax_kmeans
+    from flinkml_tpu.models import logistic_regression as jax_lr
+    from flinkml_tpu.models import one_hot_encoder as jax_ohe
+    from flinkml_tpu.models import scalers as jax_scalers
+    from flinkml_tpu.models import vector_assembler as jax_va
+    from flinkml_tpu.table import Table as JaxTable
+    from flinkml_tpu_torch.io.read_write import instantiate_with_params
+    from tests._torch_port_common import port_stage_like
+
+    cols = _stage_cols()
+    serve = _stage_cols(seed=22)
+    serve["c1"][:3] = [5.0, 3.0, -1.0]
+    serve["c2"][:2] = [9, 2]
+    train = JaxTable(cols)
+    rng = np.random.default_rng(23)
+    out = {}
+    for name in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler",
+                 "RobustScaler"):
+        cls = getattr(jax_scalers, name)
+        m = cls().set(cls.INPUT_COL, "features").set(cls.OUTPUT_COL, "out")
+        m = m.fit(train)
+        out[name] = (m, port_stage_like(m), serve)
+    va = jax_va.VectorAssembler().set_input_cols(["features", "label"]) \
+        .set_handle_invalid("keep").set_output_col("out")
+    out["VectorAssembler"] = (
+        va, instantiate_with_params(fml.VectorAssembler,
+                                    va.get_param_map_json()), serve)
+    oh = jax_ohe.OneHotEncoder().set_input_cols(["c1", "c2"]) \
+        .set_output_cols(["o1", "o2"]).set_handle_invalid("keep").fit(train)
+    out["OneHotEncoder"] = (oh, port_stage_like(oh), serve)
+    for name, coef in (("LogisticRegression", rng.normal(size=(1, 4))),
+                       ("LogisticRegressionMultinomial",
+                        rng.normal(size=(1, 3, 4)))):
+        m = jax_lr.LogisticRegressionModel()
+        m.set_model_data(JaxTable({"coefficient": coef}))
+        out[name] = (m, port_stage_like(m), serve)
+    km = jax_kmeans.KMeansModel().set_model_data(
+        JaxTable({"centroids": cols["features"][None, :3]}))
+    out["KMeans"] = (km, port_stage_like(km), serve)
+    return out
+
+
+NINE = ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler",
+        "VectorAssembler", "OneHotEncoder", "LogisticRegression",
+        "LogisticRegressionMultinomial", "KMeans")
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("name", NINE)
+def test_single_stage_chain_matches_jax(backend, name, monkeypatch, on_cpu):
+    """Each of the nine kernel-capable stages alone: the port's plain chain
+    against the JAX chain function (XLA, and the Pallas chain kernel
+    interpreted) — equal bits and dtypes for the scalers, the assembler and
+    the one-hot encoder; rawPrediction within 1e-10 and equal predictions
+    for the heads (on these rows no two classes are within 1e-9)."""
+    from tests._torch_port_common import jax_chain_cols, port_chain_cols
+
+    jax_stage, port_stage, serve = _nine_stages()[name]
+    jax_backend(monkeypatch, backend, "fused_chain")
+    want = jax_chain_cols([jax_stage.transform_kernel()], serve, backend)
+    got = port_chain_cols([port_stage.transform_kernel()], serve)
+    assert set(got) == set(want)
+    for c, w in want.items():
+        assert got[c].dtype == w.dtype, c
+        if c == "rawPrediction":
+            np.testing.assert_allclose(got[c], w, rtol=F64_RAW_RTOL,
+                                       atol=F64_RAW_RTOL)
+        else:
+            np.testing.assert_array_equal(got[c], w, err_msg=c)
+
+
+def _row_model(plan, lay, x_parts):
+    """numpy model of csrc/chain.cu's row: every in-row part in order, a
+    dense one cast to the row's dtype, a one-hot one by the kernel's slot
+    rule (truncate; outside [0, max_index], NaN included, to the catch-all
+    slot; dropLast's last category all zero)."""
+    dt = np.dtype(str(lay.dtype).replace("torch.", ""))
+    cols = []
+    for part, width in zip(plan.parts, lay.widths):
+        if not part.in_row:
+            continue
+        v = x_parts[part.ext]
+        n = v.shape[0]
+        if part.onehot is None:
+            cols.append(v.reshape(n, -1).astype(dt))
+            continue
+        max_index, drop_last = part.onehot
+        t = np.trunc(v.astype(np.float64))
+        with np.errstate(invalid="ignore"):
+            valid = (t >= 0) & (t <= max_index)
+        slot = np.where(valid, t, width - 1).astype(np.int64)
+        oh = np.zeros((n, width), dt)
+        oh[np.arange(n), slot] = 1
+        oh[valid & drop_last & (t == max_index)] = 0
+        cols.append(oh)
+    return np.concatenate(cols, axis=1)
+
+
+def _head_model(plan, table, k, v):
+    """numpy model of the class heads over the packed table."""
+    d = v.shape[1]
+    off = plan.n_run * (2 * d + 2)
+    if plan.head == "multinomial":
+        logits = v @ table[off:off + d * k].reshape(d, k)
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        return {plan.pred_col: np.argmax(logits, axis=1).astype(v.dtype),
+                plan.raw_col: e / e.sum(axis=1, keepdims=True)}
+    ct = table[off:off + d * k].reshape(d, k)
+    c2 = table[off + d * k:off + d * k + k]
+    d2 = np.maximum((np.sum(v * v, axis=1)[:, None] - 2 * (v @ ct)) + c2, 0)
+    return {plan.pred_col: np.argmin(d2, axis=1)}
+
+
+@pytest.mark.parametrize("case", ["census", "onehot", "multinomial",
+                                  "kmeans", "assembler_kmeans"])
+def test_packed_layout_reproduces_plain_chain(case, on_cpu):
+    """The host side of the new chains on the CPU: the plan's parts, the
+    row's dtype and width (:meth:`ChainProgram.layout`), and the packed
+    head matrices (``W^T``, ``C^T`` and ``|C|^2``), run through a numpy
+    model of the kernel's arithmetic, give the plain chain's outputs."""
+    from tests.test_torch_features import census_pair
+
+    stages = _nine_stages()
+    if case == "census":
+        _, port_stages, serve = census_pair(n=40)
+    elif case == "onehot":
+        _, st, serve = stages["OneHotEncoder"]
+        port_stages = [st]
+    elif case == "multinomial":
+        _, st, serve = stages["LogisticRegressionMultinomial"]
+        port_stages = [stages["MinMaxScaler"][1], st.set_features_col("out")]
+    elif case == "kmeans":
+        _, st, serve = stages["KMeans"]
+        port_stages = [st]
+    else:
+        _, va, serve = stages["VectorAssembler"]
+        km = fml.KMeansModel().set_features_col("out").set_model_data(
+            fml.Table({"centroids": np.random.default_rng(3).normal(
+                size=(1, 6, 5))}))
+        port_stages = [va, km]
+    kernels = [s.transform_kernel() for s in port_stages]
+    from flinkml_tpu_torch.pipeline_fusion import (
+        _output_cols, external_inputs)
+
+    ext, outs = external_inputs(kernels), _output_cols(kernels)
+    want = kchain.chain_plain(kernels, ext, outs,
+                              [torch.from_numpy(np.asarray(serve[c]))
+                               for c in ext],
+                              [k.constants for k in kernels], 60)
+    # The executor's eager set: terminals and the pins.
+    eager = [c for c in outs if c in ("prediction", "rawPrediction")] or outs
+    pins = [c for k in kernels if k.pin_inputs for c in k.input_cols
+            if c in outs]
+    program = kchain.ChainProgram(kernels, ext, pins + eager)
+    plan = program.plan
+    lay = program.layout([torch.from_numpy(np.asarray(serve[c]))
+                          for c in ext])
+    dt = np.dtype(str(lay.dtype).replace("torch.", ""))
+    table, ops = kchain.pack_table(plan, kernels,
+                                   [k.constants for k in kernels], dt, lay.d)
+    k = kchain.head_classes(plan, [k.constants for k in kernels])
+    row = _row_model(plan, lay, [np.asarray(serve[c]) for c in ext])
+    assert row.shape[1] == lay.d
+    if plan.row_col is not None:
+        np.testing.assert_array_equal(row, want[plan.row_col].numpy())
+    if len(plan.parts) == 1 and plan.parts[0].out_col is not None:
+        np.testing.assert_array_equal(row,
+                                      want[plan.parts[0].out_col].numpy())
+    v = _kernel_model(dataclasses.replace(plan, head=None, out_col="v"),
+                      table, ops, row)["v"]
+    if plan.out_col is not None:
+        np.testing.assert_array_equal(v, want[plan.out_col].numpy())
+    if plan.head == "binomial":
+        got = _kernel_model(plan, table, ops, row)
+    elif plan.head is not None:
+        got = _head_model(plan, table, k, v)
+    for c in (plan.pred_col, plan.raw_col) if plan.head else ():
+        if c == "rawPrediction":
+            np.testing.assert_allclose(got[c], want[c].numpy(),
+                                       rtol=F64_RAW_RTOL, atol=F64_RAW_RTOL)
+        elif c is not None:
+            assert got[c].dtype == want[c].numpy().dtype
+            np.testing.assert_array_equal(got[c], want[c].numpy())
+
+
+def test_chain_plans_with_prologue():
+    """The census chain's plans: the eager program (the scaled row and the
+    head's outputs; the one-hot outputs and the assembled row lazy), a lazy
+    one-hot output (that unit alone), the assembled row (its parts), a
+    request that mixes a one-hot output with the head's, and the layout:
+    the row of 3 one-hot parts and 2 dense ones, float64, gathered."""
+    from tests.test_torch_features import census_pair
+
+    _, port_stages, serve = census_pair(n=20)
+    kernels = [s.transform_kernel() for s in port_stages]
+    ext = ["c0", "x0", "c1", "x1", "c2"]
+    eager = kchain.plan_chain(kernels, ext,
+                              ["scaled", "prediction", "rawPrediction"])
+    assert (eager.n_run, eager.out_col, eager.head, eager.row_col) == \
+        (1, "scaled", "binomial", None)
+    assert [p.ext for p in eager.parts] == [0, 1, 2, 3, 4]
+    assert [p.onehot is not None for p in eager.parts] == \
+        [True, False, True, False, True]
+    assert all(p.out_col is None for p in eager.parts)
+    lazy = kchain.plan_chain(kernels, ext, ["oc1"])
+    assert (lazy.n_run, lazy.head, lazy.row_col) == (0, None, None)
+    assert lazy.parts == (kchain.PartPlan(2, (6, True), "oc1"),)
+    row = kchain.plan_chain(kernels, ext, ["features"])
+    assert (row.row_col, len(row.parts)) == ("features", 5)
+    mixed = kchain.plan_chain(kernels, ext, ["oc2", "prediction",
+                                             "rawPrediction"])
+    assert [p.out_col for p in mixed.parts] == [None, None, None, None,
+                                                "oc2"]
+    program = kchain.ChainProgram(kernels, ext, ["scaled", "prediction",
+                                                 "rawPrediction"])
+    vals = [torch.from_numpy(np.asarray(serve[c])) for c in ext]
+    lay = program.layout(vals)
+    assert (lay.dtype, lay.widths, lay.d, lay.gather) == \
+        (torch.float64, (4, 1, 7, 2, 2), 16, True)
+    assert lay.route == kchain.route(16, 8, vals[1].data_ptr(),
+                                     vals[3].data_ptr())
+
+
+def test_chain_layout_routes(on_cpu):
+    """The route rule over parts: one aligned dense float input of the
+    row's dtype takes 16-byte loads (no gather); an integer input is
+    gathered (promoted to float64); a misaligned dense part or an
+    out-of-row part sends the chain to the scalar route."""
+    x, coef = dense_data(rows=20, d=4)
+    _, port = five_stage_pair(x, coef)
+    k = _port_kernels(port)
+    program = kchain.ChainProgram(k[:1], ["features"], ["s1"])
+    lay = program.layout([torch.zeros(8, 4, dtype=torch.float64)])
+    assert (lay.gather, lay.route, lay.d) == (False, "vector", 4)
+    lay = program.layout([torch.zeros(8, 4, dtype=torch.int32)])
+    assert (lay.gather, lay.dtype, lay.route) == (True, torch.float64,
+                                                  "vector")
+    buf = torch.zeros(33, dtype=torch.float64)
+    lay = program.layout([buf[1:].view(8, 4)])
+    assert lay.route == "scalar"
+    assert kchain.route(4, 8, 0, 16) == "vector"
+    assert kchain.route(4, 8, 0, 8) == "scalar"
+    assert kchain.route(4, 8, all_in_row=False) == "scalar"
+    with pytest.raises(fml.KernelUnsupportedError, match="dtype"):
+        program.layout([torch.zeros(8, 4, dtype=torch.float16)])
+
+
+@pytest.mark.parametrize("n_table,n_stages,per_warp,warps,item,want", [
+    # StandardScaler -> KMeans at 784 x k = 64: the whole table fits in
+    # float32; in float64 the centroids are read from device memory.
+    (1570 + 784 * 64 + 64, 1570, 784, 8, 4, (51810, 8, 232328)),
+    (1570 + 784 * 64 + 64, 1570, 784, 8, 8, (1570, 8, 62736)),
+    # A multinomial head of 1,000 classes: rows and logits, 8 warps.
+    (1570 + 784 * 1000, 1570, 1784, 8, 8, (1570, 8, 126736)),
+    # Eight stages at d = 2,000 do not fit beside the rows: all in device
+    # memory.
+    (8 * 4002, 8 * 4002, 2000, 8, 8, (0, 8, 128000)),
+    # A row of 20,000 float32: two warps a block.
+    (40002 + 20000 * 5 + 5, 40002, 20000, 8, 4, (0, 2, 160000)),
+    # A row one warp cannot stage.
+    (60002, 60002, 30000, 8, 8, None),
+    # No head: the table only.
+    (2 * 66, 2 * 66, 0, 4, 8, (132, 4, 1056)),
+])
+def test_chain_shared_memory_placement(n_table, n_stages, per_warp, warps,
+                                       item, want):
+    """What the kernel keeps in shared memory: the whole table beside the
+    warps' row buffers when it fits, else the head's block in device
+    memory, then the stages' too, then fewer warps; a row buffer alone
+    over the limit is the one refusal."""
+    got = kchain.shared_memory(n_table, n_stages, per_warp, warps, item)
+    assert got == want
+    if got is not None:
+        assert got[2] <= kchain.MAX_SMEM_BYTES
+
+
+def test_chain_refuses_too_many_parts():
+    """More input parts than the kernel's part list holds."""
+    n = kchain.MAX_PARTS + 1
+    cols = tuple(f"c{i}" for i in range(n))
+    va = ColumnKernel(cols, ("v",), fn=None,
+                      fingerprint=("VectorAssembler", cols, "v"))
+    with pytest.raises(fml.KernelUnsupportedError, match="MAX_PARTS"):
+        kchain.plan_chain([va], cols, ["v"])
 
 
 # -- segment_sum -------------------------------------------------------------------
@@ -461,6 +777,27 @@ def test_sorted_plan_writes_every_segment_once(pattern, k, phase):
             assert seg < ids[0] or seg > ids[-1]
         elif first == end:   # a gap: between the previous id and the run's
             assert ids[first - 1] < seg < ids[first]
+
+
+@pytest.mark.parametrize("ids,nseg", [
+    ([5, 2], 8), ([0, 0, 7, 1, 1], 9),
+    (list(np.random.default_rng(4).permutation(3000) % 700), 701),
+])
+@pytest.mark.parametrize("k", [1, 16])
+def test_sorted_plan_repairs_descending_ids(ids, nseg, k):
+    """Ids that do not ascend: the run-flush would give a segment two
+    writers (on [5, 2] segments 2-5, on [0, 0, 7, 1, 1] segments 1-7), so
+    the kernel's repair pass replaces every store — each segment has
+    exactly one final value, its cells' sum into zero. Ascending ids (equal
+    neighbours included) never take the repair."""
+    ids = np.asarray(ids, np.int32)
+    plan = ksegsum.sorted_plan(ids, nseg, k)
+    segs = sorted(w[0] for w in plan)
+    assert segs == list(range(nseg))
+    assert {w[1] for w in plan} == {ksegsum.REPAIR}
+    for pattern in sorted_id_patterns().values():
+        writers = {w[1] for w in ksegsum.sorted_plan(*pattern, k)}
+        assert ksegsum.REPAIR not in writers
 
 
 @pytest.mark.parametrize("cells,phase,want", [

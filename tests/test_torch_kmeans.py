@@ -20,11 +20,18 @@ import pytest
 import flinkml_tpu_torch as fml
 from flinkml_tpu.models import bisecting_kmeans as jax_bkm
 from flinkml_tpu.models import kmeans as jax_kmeans
+from flinkml_tpu.models import scalers as jax_scalers
 from flinkml_tpu.parallel import DeviceMesh
 from flinkml_tpu.table import Table as JaxTable
 from flinkml_tpu_torch import pipeline_fusion
 from flinkml_tpu_torch.models import kmeans as torch_kmeans
-from tests._torch_port_common import on_cpu  # noqa: F401
+from tests._torch_port_common import (  # noqa: F401
+    JAX_BACKENDS,
+    jax_backend,
+    jax_chain_cols,
+    on_cpu,
+    port_chain_cols,
+)
 
 F64_TOL = 1e-10
 F32_TOL = 1e-5
@@ -159,25 +166,70 @@ def test_save_load_across_packages(cls_name, saver, tmp_path, on_cpu):
 
 
 def test_kmeans_model_has_no_fused_head(on_cpu):
-    """No transform_kernel: a scaler -> KMeansModel pipeline fuses the
-    scaler run alone and runs the model as its own stage, with the
-    per-stage outputs."""
+    """The KMeans head fuses now (it had no transform_kernel before): a
+    scaler -> KMeansModel pipeline runs as ONE program whose outputs equal
+    the per-stage path's, the scaler output pinned as an eager column."""
     x = _blobs(seed=9)
     t = fml.Table({"features": x})
     scaler = (fml.StandardScaler().set(fml.StandardScaler.INPUT_COL, "features")
               .set(fml.StandardScaler.OUTPUT_COL, "s").fit(t))
     km = (fml.KMeans().set_k(4).set_max_iter(10).set_seed(1)
           .set(fml.KMeans.FEATURES_COL, "s").fit(scaler.transform(t)[0]))
-    assert km.transform_kernel() is None
+    assert km.transform_kernel().pin_inputs
     model = fml.PipelineModel([scaler, km])
     (fused,) = model.transform(t)
+    assert pipeline_fusion.compiled_program_count() == 1
     pipeline_fusion.set_enabled(False)
     try:
         (per_stage,) = model.transform(t)
     finally:
         pipeline_fusion.set_enabled(True)
     for c in ("s", "prediction"):
+        assert fused.column(c).dtype == per_stage.column(c).dtype
         np.testing.assert_array_equal(fused.column(c), per_stage.column(c))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("with_scaler", [False, True])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_kmeans_transform_kernel_matches_jax(backend, with_scaler, dtype,
+                                             monkeypatch, on_cpu):
+    """``KMeansModel.transform_kernel`` alone and after a StandardScaler:
+    the port's plain chain against the JAX chain function (XLA, and the
+    Pallas chain kernel interpreted) — the same assignments on blobs with
+    no point near a boundary; the port's per-stage transform agrees. The
+    int64 index is the JAX package's under x64."""
+    x = _blobs(n_per=30, k=5, d=6, seed=11).astype(dtype)
+    centroids = _blobs(n_per=1, k=5, d=6, seed=11, spread=8.0)
+    jm = jax_kmeans.KMeansModel().set_model_data(
+        JaxTable({"centroids": centroids[None]}))
+    tm = fml.KMeansModel().set_model_data(
+        fml.Table({"centroids": centroids[None]}))
+    jax_stages, port_stages = [jm], [tm]
+    if with_scaler:
+        sj = jax_scalers.StandardScaler().set_input_col("features") \
+            .set_output_col("s").fit(JaxTable({"features": x}))
+        st = fml.stage_from_arrays(
+            "flinkml_tpu.models.scalers.StandardScalerModel",
+            sj.get_param_map_json(),
+            {c: sj.get_model_data()[0].column(c) for c in ("mean", "std")})
+        jm.set_features_col("s")
+        tm.set_features_col("s")
+        jax_stages.insert(0, sj)
+        port_stages.insert(0, st)
+    jax_backend(monkeypatch, backend, "fused_chain")
+    want = jax_chain_cols([s.transform_kernel() for s in jax_stages],
+                          {"features": x}, backend)
+    got = port_chain_cols([s.transform_kernel() for s in port_stages],
+                          {"features": x})
+    assert got["prediction"].dtype == want["prediction"].dtype == np.int64
+    np.testing.assert_array_equal(got["prediction"], want["prediction"])
+    (per_stage,) = fml.PipelineModel(port_stages).transform(
+        fml.Table({"features": x}))
+    np.testing.assert_array_equal(per_stage.column("prediction"),
+                                  got["prediction"])
+    assert fml.KMeansModel().transform_kernel() is None
+    assert tm.set_distance_measure("cosine").transform_kernel() is None
 
 
 def test_kmeans_refusals(on_cpu):

@@ -213,8 +213,17 @@ def test_sparse_chunking_and_index_check(monkeypatch, on_cpu):
         torch_sparse.pack_ell_buckets(indptr, indices, values, dim)
     with pytest.raises(ValueError, match="dim"):
         torch_sparse.sparse_margins(col, coef[:-1])
-    with pytest.raises(NotImplementedError, match="multinomial"):
-        torch_sparse.sparse_margins(col, np.ones((3, 512)))
+    # A [k, d] class matrix (multinomial) scores [n, k], chunked the same:
+    # each column within float32 rounding of the [d] scoring of its row.
+    classes = np.stack([coef, -coef, 2 * coef])
+    multi = torch_sparse.sparse_margins(col, classes)
+    assert multi.shape == (100, 3)
+    for c in range(3):
+        np.testing.assert_allclose(
+            multi[:, c], torch_sparse.sparse_margins(col, classes[c]),
+            rtol=SPARSE_TOL, atol=SPARSE_TOL)
+    with pytest.raises(ValueError, match="dim"):
+        torch_sparse.sparse_margins(col, classes[:, :-1])
 
 
 def test_ell_packing_matches_jax():
