@@ -38,7 +38,11 @@ and fails with a non-zero exit if any phase fails:
    split into segments — with CUDA-event times (L2 flushed before each
    launch), the plain version's and the library call's time, and the bound
    from bytes and operations; then the route probe (the same inputs
-   through each of the kernel's routes, timed in turns);
+   through each of the kernel's routes, timed in turns); then bfloat16
+   ``spmv`` at the fit shape, ``segment_sum`` unsorted and sorted at the
+   fit step's cells (sorted bit for bit with the in-order adds) and
+   ``topk`` at the KNN chunk, each against its plain version with its
+   times and its bound at 2 bytes a value;
 3. sparse serving path: LogisticRegressionModel (dim 1e6, seeded
    coefficient, built with ``stage_from_arrays``) transforms 65,536
    Criteo-profile SparseVector rows 4 times (a first call, then 3 timed);
@@ -62,6 +66,16 @@ and fails with a non-zero exit if any phase fails:
    784, k=10, 262,144 x 128, k=64 and 65,536 x 784, k=64, the assignments
    equal to the plain chain's away from near ties, and the per-stage path
    timed beside the fused one;
+4d. precision tiers (path D): the five-stage chain at 65,536 x 64 float32
+   under no policy, ``mixed``, ``mixed_inference`` and
+   ``int8_inference``; the census pipeline and MNIST-width multinomial
+   under ``mixed_inference`` and ``int8_inference``; StandardScaler ->
+   KMeans (262,144 x 128, k=64) under ``mixed_inference``, and under
+   ``mixed`` refused with FML601 before any launch or program. Each:
+   rows/s fused (reading ``prediction`` back) and per-stage, the
+   ``fused_chain`` launch against the plain chain at the same policy (the
+   rows near a decision's boundary counted), its time, device time and
+   bound from the bytes at each width;
 5. dense fit path: ``LogisticRegression().fit`` on the bench's a9a-width
    data (1,000,000 x 123 float32, batch 262,144, 20 epochs, tol 0), twice
    (a first fit, then a steady one), the coefficient held against a float64
@@ -90,8 +104,9 @@ and fails with a non-zero exit if any phase fails:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
-the kernels' JSON summary, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+the kernels' JSON summary (each kernel's record; ``bf16`` and, for
+``fused_chain``, ``tiers`` carry the bfloat16 and path-D measurements),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab OTHER`` runs none of that: it times ``spmv``,
 ``topk``, ``segment_sum`` and ``fused_chain`` through the wrappers of the
@@ -114,12 +129,14 @@ import sys
 import tempfile
 import time
 
+from typing import Optional
+
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# vector (non-tensor-core) float32 / float64 rates.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the vector
+# (non-tensor-core) float32 / float64 rates, and the dense bfloat16 rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 SPMV_ROWS, SPMV_DIM, SPMV_NNZ = 65_536, 1_000_000, 39
 CHAIN_ROWS, CHAIN_D = 100_000, 32
@@ -191,9 +208,16 @@ def criteo_rows(indices, values, n, nnz, dim):
     return rows
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype: str):
+def bound_ms(n_bytes: float, n_ops, dtype: Optional[str]):
+    """The least time of the work: its bytes over the memory rate, or its
+    operations over the peak rate of their type (``n_ops`` a number of
+    ``dtype`` operations, or a ``{dtype: operations}`` mapping with
+    ``dtype`` None), whichever is longer."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype]
+    if dtype is None:
+        t_ops = sum(n / PEAK_OPS_PER_S[dt] for dt, n in n_ops.items())
+    else:
+        t_ops = n_ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -829,7 +853,7 @@ def topk_check(torch, x, k, label):
     want_v, want_i = ktopk.top_k_plain(x, k)
     if got_v.shape != want_v.shape or got_i.dtype != torch.int32:
         fail(f"topk {label}: shape {tuple(got_v.shape)} / dtype {got_i.dtype}")
-    view = torch.int32 if x.element_size() == 4 else torch.int64
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
     if not (torch.equal(got_i, want_i)
             and torch.equal(got_v.view(view), want_v.view(view))):
         bad = (got_i != want_i).nonzero()[:5].tolist()
@@ -2036,6 +2060,404 @@ def kmeans_serving_path(torch):
     return launches
 
 
+# -- path D: precision tiers --------------------------------------------------------
+
+#: bench.py's ``_precision_stage`` chain: four scalers -> binomial LR.
+PRECISION_ROWS, PRECISION_D = 65_536, 64
+#: The tiers path D serves each case under (None: no policy).
+PRECISION_CASES = (
+    ("five_stage", (None, "mixed", "mixed_inference", "int8_inference")),
+    ("census", ("mixed_inference", "int8_inference")),
+    ("mnist", ("mixed_inference", "int8_inference")),
+    ("kmeans", ("mixed_inference",)),
+)
+#: An LR decision within this margin of its boundary (the binomial
+#: probability's 0.5, the two best classes' probabilities) may break either
+#: way between the kernel's and the plain chain's summation orders at
+#: bfloat16: such rows are counted, not held.
+TIER_MARGIN = 2.0 ** -5
+#: A KMeans assignment whose two best distances, as the plain chain rounds
+#: them, lie within this many ulps of their dtype (at the second distance)
+#: may break either way: the kernel rounds the same ops, each sum in
+#: another order, so each distance may differ by an ulp.
+KMEANS_TIER_ULPS = 2
+
+
+def kmeans_near(torch, x, centroids, n_ulps=KMEANS_TIER_ULPS):
+    """Rows whose assignment lies within ``n_ulps`` of a tie: the plain
+    chain's distances (``ops/blas.py::squared_distances`` over ``x`` and
+    ``centroids`` at their dtype) of the two best centroids within
+    ``n_ulps`` ulps of the second one."""
+    from flinkml_tpu_torch.ops import blas
+
+    d2 = blas.squared_distances(x, centroids.to(x.dtype))
+    top2 = torch.topk(d2.double(), 2, dim=1, largest=False).values
+    fi = torch.finfo(d2.dtype)
+    ulp = fi.eps * torch.exp2(torch.floor(torch.log2(
+        top2[:, 1].clamp_min(fi.tiny))))
+    return (top2[:, 1] - top2[:, 0]) <= n_ulps * ulp
+
+
+def _eager_names(kernels):
+    """The executor's eager outputs of a run (terminals and pins)."""
+    from flinkml_tpu_torch import pipeline_fusion
+
+    outs = pipeline_fusion._output_cols(kernels)
+    producer = {c: j for j, k in enumerate(kernels) for c in k.output_cols}
+    terminal = [c for c in outs if not any(
+        c in kernels[j].input_cols for j in range(producer[c] + 1,
+                                                  len(kernels)))]
+    return list(pipeline_fusion._closure_outputs(kernels, terminal))
+
+
+def _chain_ops(kernels, d, k):
+    """Operations a row of the chain does, ``(body, head)``: scaler ops per
+    element (Standard 2, MinMax 5, MaxAbs 1, Robust 1), then the head's
+    dot(s) or distances."""
+    per_elem = {"StandardScalerModel": 2, "MinMaxScalerModel": 5,
+                "MaxAbsScalerModel": 1, "RobustScalerModel": 1}
+    body = sum(per_elem.get(kk.fingerprint[0], 0) for kk in kernels) * d
+    head = kernels[-1].fingerprint[0]
+    if head == "KMeansModel":
+        return body, 2 * k * d + 2 * d + 3 * k
+    if head == "LogisticRegressionModel":
+        return body, 2 * k * d + 4 * k if k else 2 * d + 5
+    return body, 0
+
+
+def tier_kernel_case(torch, timer, label, kernels, table, rows, policy):
+    """The chain's eager program on the card under ``policy`` against the
+    plain chain at the same policy on the same tensors: every output's
+    dtype equal; values within the tier's tolerance (bfloat16 outputs one
+    ulp, bfloat16 rawPrediction 2^-7, float32 1e-5, float64 1e-10); the
+    decisions equal outside the margin of their boundary (the rows inside
+    counted): LR's :data:`TIER_MARGIN`, KMeans' :data:`KMEANS_TIER_ULPS`
+    ulps of the plain chain's distances (:func:`kmeans_near`). Times: the
+    wrapper under :class:`Timer`, the kernel's device time, the plain
+    chain; the bound from the bytes read and written at each width and the
+    operations at the row's type (the body) and the compute type (the
+    head)."""
+    from flinkml_tpu_torch import pipeline_fusion, precision
+    from flinkml_tpu_torch.kernels import chain as kchain
+
+    pol = precision.resolve_policy(policy)
+    ext = pipeline_fusion.external_inputs(kernels)
+    bucket = pipeline_fusion.row_bucket(rows)
+    vals = [table.device_column_padded(c, bucket, "cuda") for c in ext]
+    eager = _eager_names(kernels)
+    consts = pipeline_fusion._tier_consts(kernels, pol)
+    program = kchain.ChainProgram(kernels, ext, eager, pol)
+    got = program(vals, consts, rows)
+    want = kchain.chain_plain(kernels, ext, eager, vals, consts, rows, pol)
+    torch.cuda.synchronize()
+    err, near = 0.0, 0
+    for c, g in got.items():
+        g, w = g[:rows], want[c][:rows]
+        if g.dtype != w.dtype:
+            fail(f"{label}: {c} is {g.dtype}, the plain chain's {w.dtype}")
+        if c == "prediction":
+            continue
+        if g.dtype == torch.bfloat16:
+            tol = (2 ** -7, 2 ** -7) if c == "rawPrediction" else (2 ** -8, 0)
+        elif g.dtype == torch.float32:
+            tol = (1e-5, 1e-5)
+        else:
+            tol = (1e-10, 1e-10)
+        check_close(f"{label} {c}", g.float() if g.dtype == torch.bfloat16
+                    else g, w.float() if w.dtype == torch.bfloat16 else w,
+                    *tol)
+        err = max(err, max_err(g, w))
+    g, w = got["prediction"][:rows], want["prediction"][:rows]
+    if "rawPrediction" in want:
+        top2 = torch.topk(want["rawPrediction"][:rows].double(), 2,
+                          dim=1).values
+        ok = (top2[:, 0] - top2[:, 1]) > TIER_MARGIN
+    else:
+        cen = consts[-1]["centroids"]
+        cen = (kchain.boundary_const(pol, cen, "cuda")
+               if pol is not None and pol.declared
+               else torch.as_tensor(np.asarray(cen)).cuda())
+        ok = ~kmeans_near(torch, want[kernels[-1].input_cols[0]][:rows], cen)
+    near = int((~ok).sum())
+    if not torch.equal(g[ok], w[ok]):
+        fail(f"{label}: decisions differ from the plain chain away from the "
+             f"margin ({near} rows near it)")
+    ms = timer(lambda: program(vals, consts, rows))
+    dev_ms = kernel_device_ms(torch, lambda: program(vals, consts, rows),
+                              "fused_chain")
+    plain_ms = timer(lambda: kchain.chain_plain(kernels, ext, eager, vals,
+                                                consts, rows, pol))
+    table_bytes = program._table[4][0].numel() * \
+        program._table[4][0].element_size()
+    n_bytes = (sum(v[:rows].numel() * v.element_size() for v in vals)
+               + sum(o[:rows].numel() * o.element_size()
+                     for o in got.values()) + table_bytes)
+    lay = program._layout[1]
+    k = kchain.head_classes(program.plan, consts)
+    body, head = _chain_ops(kernels, lay.d, k)
+    row_dt = str(lay.dtype).replace("torch.", "")
+    ops = {row_dt: rows * body}
+    compute = pol.compute if pol is not None and pol.declared else row_dt
+    ops[compute] = ops.get(compute, 0) + rows * head
+    b_ms, b_by = bound_ms(n_bytes, ops, None)
+    return {"kernel_ms": ms, "kernel_device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": n_bytes, "row_dtype": str(lay.dtype).replace(
+                "torch.", ""), "kernel_route": lay.route,
+            "max_abs_err": err, "rows_near_boundary": near,
+            "margin": (f"{KMEANS_TIER_ULPS} ulps" if "rawPrediction"
+                       not in want else TIER_MARGIN)}
+
+
+def _precision_models(torch, case):
+    """``(model, serving table, rows)`` of one path-D case: the five-stage
+    chain (statistics in float64 numpy, a seeded coefficient; float32
+    rows); the census pipeline fitted as path A fits it, serving 100,000
+    rows; MinMaxScaler -> multinomial LR at MNIST's width (k = 10,
+    template classifier); StandardScaler -> KMeans (262,144 x 128, k = 64,
+    a 10-iteration fit)."""
+    import flinkml_tpu_torch as fml
+
+    if case == "five_stage":
+        rng = np.random.default_rng(51)
+        x = rng.normal(size=(PRECISION_ROWS, PRECISION_D))
+        model = fml.PipelineModel(chain_models(
+            x, rng.normal(size=PRECISION_D)))
+        return model, fml.Table({"features": x.astype(np.float32)}), \
+            PRECISION_ROWS
+    if case == "census":
+        train = census_columns(CENSUS_TRAIN, seed=21)
+        model = fml.Pipeline(census_stages()).fit(fml.Table(train))
+        serve = census_columns(CENSUS_SERVE, seed=22, serve=True)
+        return model, fml.Table(serve), CENSUS_SERVE
+    if case == "mnist":
+        x, _ = mnist_like(MNIST_SERVE, seed=52)
+        table = fml.Table({"features": x})
+        mm = (fml.MinMaxScaler().set_input_col("features")
+              .set_output_col("mm").fit(table))
+        templates = np.random.default_rng(99).integers(0, 256, (MNIST_K,
+                                                                MNIST_D))
+        lr = fml.LogisticRegressionModel().set_features_col("mm")
+        lr.set_model_data(fml.Table(
+            {"coefficient": ((templates / 255.0 - 0.5) * 0.05)[None]}))
+        return fml.PipelineModel([mm, lr]), table, MNIST_SERVE
+    n, d, k = KMEANS_SERVE[1]
+    x = np.random.default_rng(53).normal(size=(n, d)).astype(np.float32)
+    table = fml.Table({"features": x})
+    scaler = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s").fit(table))
+    (scaled,) = scaler.transform(table)
+    km = (fml.KMeans().set_k(k).set_max_iter(10).set_seed(0)
+          .set_features_col("s").fit(scaled))
+    return fml.PipelineModel([scaler, km]), table, n
+
+
+def precision_path(torch, timer):
+    """Path D: fused serving under the precision tiers at full width — the
+    five-stage chain (65,536 x 64 float32) under no policy, ``mixed``,
+    ``mixed_inference`` and ``int8_inference``; the census pipeline
+    (100,000 rows, d = 108) and MNIST-width multinomial (10,000 x 784,
+    k = 10) under ``mixed_inference`` and ``int8_inference``;
+    StandardScaler -> KMeans (262,144 x 128, k = 64) under
+    ``mixed_inference``, and under ``mixed`` refused with FML601 before
+    any launch or program. Each case: rows/s of ``transform`` reading
+    ``prediction`` back (fused, and the per-stage path once per model),
+    then :func:`tier_kernel_case`. Returns ``(fused_chain launches of the
+    transforms, the per-case records)``."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    launches, recs = 0, []
+    for case, tiers in PRECISION_CASES:
+        model, table, rows = _precision_models(torch, case)
+
+        def run():
+            (out,) = model.transform(table)
+            return out.column("prediction")
+
+        pipeline_fusion.set_enabled(False)
+        try:
+            _, per_stage_s, _ = timed_calls(torch, run, calls=1)
+        finally:
+            pipeline_fusion.set_enabled(True)
+        kernels = [s.transform_kernel() for s in model.stages]
+        if case == "kmeans":
+            pipeline_fusion.reset_cache()
+            fml.reset_launch_counts()
+            before = pipeline_fusion.compiled_program_count()
+            try:
+                with pipeline_fusion.precision_scope("mixed"):
+                    run()
+                fail("precision kmeans: mixed was not refused")
+            except fml.PrecisionValidationError as e:
+                rules = sorted({f.rule for f in e.findings})
+            if (rules != ["FML601"]
+                    or fml.launch_counts()["fused_chain"] != 0
+                    or pipeline_fusion.compiled_program_count() != before):
+                fail(f"precision kmeans: mixed refused with {rules}, "
+                     f"{fml.launch_counts()['fused_chain']} launches, "
+                     f"{pipeline_fusion.compiled_program_count() - before} "
+                     "new programs")
+            log("path " + json.dumps({"path": "precision", "case": case,
+                                      "policy": "mixed", "refused": rules}))
+        for policy in tiers:
+            pipeline_fusion.reset_cache()
+            fml.reset_launch_counts()
+            with pipeline_fusion.precision_scope(policy):
+                first_s, call_s, pred = timed_calls(torch, run, calls=20)
+            n_launch = fml.launch_counts()["fused_chain"]
+            if n_launch < 4 or pred.shape[0] != rows \
+                    or not np.isfinite(pred).all():
+                fail(f"precision {case} [{policy}]: {n_launch} launches, "
+                     f"prediction {pred.shape} {pred.dtype}")
+            launches += n_launch
+            label = f"precision {case} [{policy}]"
+            rec = {"path": "precision", "case": case, "policy": policy,
+                   "rows": rows, "first_call_s": first_s,
+                   "fused_call_s": call_s, "fused_rows_per_s": rows / call_s,
+                   "per_stage_call_s": per_stage_s,
+                   "per_stage_rows_per_s": rows / per_stage_s,
+                   "prediction_host_dtype": str(pred.dtype),
+                   "fused_chain_launches": n_launch}
+            rec.update(tier_kernel_case(torch, timer, label, kernels, table,
+                                        rows, policy))
+            log("path " + json.dumps(rec))
+            recs.append(rec)
+        del model, table
+    return launches, recs
+
+
+# -- phase 2d: bfloat16 operands of spmv, segment_sum and topk -----------------------
+
+def bf16_sum_check(torch, label, got, vals, ids, num_segments):
+    """A bfloat16 segment sum in some order of its adds against the exact
+    (float64) sum: each segment of ``c`` cells within ``min(c * 2^-9, 1)``
+    of the sum of its cells' magnitudes (the recursive-summation bound at
+    bf16's unit roundoff) plus half an ulp of the result."""
+    exact = torch.zeros(num_segments, dtype=torch.float64).index_add_(
+        0, ids.long(), vals.double())
+    mag = torch.zeros(num_segments, dtype=torch.float64).index_add_(
+        0, ids.long(), vals.double().abs())
+    count = torch.bincount(ids.long(), minlength=num_segments).double()
+    bound = torch.clamp(count * 2.0 ** -9, max=1.0) * mag \
+        + got.double().abs() * 2.0 ** -8
+    if not bool(((got.double() - exact).abs() <= bound).all()):
+        fail(f"{label}: beyond the bf16 summation bound of the exact sum")
+
+
+def bf16_kernel_phase(torch, timer):
+    """``spmv`` at the fit shape (262,144 x 39, dim 1e6), ``segment_sum``
+    unsorted and sorted at the fit step's 10.2 M cells into 1e6 segments,
+    ``topk`` at the KNN chunk [4096, 60000] k=5, all with bfloat16
+    values: each against its plain version (``spmv``: float32 sums in
+    another order, each rounded once: rtol 2^-7, atol 1e-2; sorted
+    ``segment_sum`` bit for bit with the plain version's in-order adds on
+    the CPU; unsorted within bf16 rounding of it; ``topk`` bit for bit),
+    the times of the kernel, the plain version and the library call, the
+    bound at 2 bytes a value. Returns ``{kernel name: [records]}``."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    out = {}
+    rows = SPARSE_FIT_ROWS
+    indptr, indices, values, _, _ = make_criteo_csr(rows, SPMV_DIM, SPMV_NNZ,
+                                                    seed=1)
+    idx = torch.from_numpy(indices.reshape(rows, SPMV_NNZ)).cuda()
+    val = torch.from_numpy(values.reshape(rows, SPMV_NNZ)).to(
+        "cuda", torch.bfloat16)
+    w = torch.from_numpy(np.random.default_rng(2).normal(
+        size=SPMV_DIM)).to("cuda", torch.bfloat16)
+    got = kspmv.spmv(idx, val, w)
+    torch.cuda.synchronize()
+    want = kspmv.spmv_plain(idx, val, w)
+    check_close("spmv[bf16] vs plain", got.float(), want.float(), 2 ** -7,
+                1e-2)
+    library_call = "torch.mv(sparse_csr_tensor, w) [bfloat16]"
+    try:
+        csr = torch.sparse_csr_tensor(torch.from_numpy(indptr).cuda(),
+                                      idx.reshape(-1).long(),
+                                      val.reshape(-1), size=(rows, SPMV_DIM))
+        torch.mv(csr, w)
+        library_ms = timer(lambda: torch.mv(csr, w))
+    except (RuntimeError, NotImplementedError) as e:
+        library_ms, library_call = None, f"none: torch.mv refuses ({e})"[:200]
+    touched = np.unique(indices).size
+    n_bytes = idx.numel() * 4 + val.numel() * 2 + touched * 2 + rows * 2
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * val.numel(), "bfloat16")
+    out["spmv"] = [{
+        "shape": [rows, SPMV_NNZ, SPMV_DIM], "dtype": "bfloat16",
+        "max_abs_err": max_err(got, want),
+        "ms": timer(lambda: kspmv.spmv(idx, val, w)),
+        "plain_ms": timer(lambda: kspmv.spmv_plain(idx, val, w)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "library_call": library_call}]
+    log("kernel_bf16 spmv " + json.dumps(out["spmv"][0]))
+    del idx, val, w, got, want
+
+    order = np.argsort(indices, kind="stable")
+    out["segment_sum"] = []
+    for sorted_ids in (False, True):
+        ids_host = indices[order] if sorted_ids else indices
+        vals_host = torch.from_numpy(
+            values[order] if sorted_ids else values).to(torch.bfloat16)
+        ids = torch.from_numpy(ids_host).cuda()
+        vals = vals_host.cuda()
+        poison(torch, (SPMV_DIM,), torch.bfloat16)
+        got = ksegsum.segment_sum(vals, ids, SPMV_DIM,
+                                  indices_are_sorted=sorted_ids)
+        torch.cuda.synchronize()
+        in_order = ksegsum.segment_sum_plain(
+            vals_host, torch.from_numpy(ids_host), SPMV_DIM)
+        label = f"segment_sum[bf16, {'sorted' if sorted_ids else 'unsorted'}]"
+        if sorted_ids:
+            if not torch.equal(got.cpu().view(torch.int16),
+                               in_order.view(torch.int16)):
+                fail(f"{label}: the run-flush differs from the in-order sum")
+        else:
+            bf16_sum_check(torch, label, got.cpu(), vals_host,
+                           torch.from_numpy(ids_host), SPMV_DIM)
+        ids_long = ids.long()
+        n_bytes = ids.numel() * 4 + vals.numel() * 2 + SPMV_DIM * 2
+        b_ms, b_by = bound_ms(n_bytes, vals.numel(), "bfloat16")
+        rec = {"shape": [int(vals.shape[0]), 1, SPMV_DIM],
+               "dtype": "bfloat16", "sorted": sorted_ids,
+               "max_abs_err": max_err(got.cpu(), in_order),
+               "ms": timer(lambda: ksegsum.segment_sum(
+                   vals, ids, SPMV_DIM, indices_are_sorted=sorted_ids)),
+               "plain_ms": timer(lambda: ksegsum.segment_sum_plain(
+                   vals, ids, SPMV_DIM)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": timer(lambda: torch.zeros(
+                   SPMV_DIM, dtype=torch.bfloat16, device="cuda").index_add_(
+                       0, ids_long, vals)),
+               "library_call": "torch.zeros(...).index_add_ [bfloat16]"}
+        log("kernel_bf16 segment_sum " + json.dumps(rec))
+        out["segment_sum"].append(rec)
+        del ids, vals, got, ids_long
+
+    rows, n, k = 4096, 60_000, 5
+    host = -np.random.default_rng(9).integers(0, 176_401, size=(rows, n))
+    x = torch.from_numpy(host.astype(np.float32)).to("cuda", torch.bfloat16)
+    got_v, _ = topk_check(torch, x, k, f"[{rows}, {n}] k={k} bfloat16")
+    lib_v, _ = torch.topk(x, k, dim=-1)
+    n_bytes = rows * n * 2 + rows * k * (2 + 4)
+    b_ms, b_by = bound_ms(n_bytes, rows * n, "bfloat16")
+    out["topk"] = [{
+        "shape": [rows, n], "k": k, "dtype": "bfloat16",
+        "kernel_route": ktopk.route(rows, n, k,
+                                    ktopk.key_bytes(torch.bfloat16)),
+        "max_abs_err": 0.0,
+        "library_values_equal": bool(torch.equal(lib_v, got_v)),
+        "ms": timer(lambda: ktopk.top_k(x, k)),
+        "plain_ms": timer(lambda: ktopk.top_k_plain(x, k)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(lambda: torch.topk(x, k, dim=-1)),
+        "library_call": "torch.topk(x, k, dim=-1) [bfloat16]"}]
+    log("kernel_bf16 topk " + json.dumps(out["topk"][0]))
+    return out
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -2097,11 +2519,14 @@ def main() -> int:
     segsum_rec = segsum_phase(torch, timer)
     segsum_descent_phase(torch, timer)
     topk_rec = topk_phase(torch, timer)
+    bf16 = bf16_kernel_phase(torch, timer)
 
     serve_spmv = sparse_path(torch)
     chain_rec["launches"] = (dense_path(torch) + census_path(torch)
                              + mnist_path(torch)
                              + kmeans_serving_path(torch))
+    tier_launches, chain_rec["tiers"] = precision_path(torch, timer)
+    chain_rec["launches"] += tier_launches
     dense_fit_path(torch)
     fit_counts = sparse_fit_path(torch)
     spmv_rec["launches"] = serve_spmv + fit_counts["spmv"]
@@ -2112,9 +2537,12 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (spmv_rec, chain_rec, segsum_rec,
-                                            topk_rec)]}))
+    for rec in (spmv_rec, segsum_rec, topk_rec):
+        rec["bf16"] = bf16[rec["name"]]
+    print(json.dumps({"kernels": [
+        dict({k: r[k] for k in keys},
+             **{k: r[k] for k in ("bf16", "tiers") if k in r})
+        for r in (spmv_rec, chain_rec, segsum_rec, topk_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2235,15 +2663,16 @@ def ab_main(old: str) -> int:
 
 # -- --variants: edited kernel sources timed through the wrappers -----------------
 
-_CHAIN_DIV = ("v = b > T(0) ? (v - a) / b : T(0.5);",
-              "v = b > T(0) ? (v - a) * b : T(0.5);")
-_CHAIN_DIV2 = ("if (op & 4u) v = v / b;", "if (op & 4u) v = v * b;")
+_CHAIN_DIV = ("row_round<NARROW>(row_round<NARROW>(v - a) / b)",
+              "row_round<NARROW>(row_round<NARROW>(v - a) * b)")
+_CHAIN_DIV2 = ("if (op & 4u) v = row_round<NARROW>(v / b);",
+               "if (op & 4u) v = row_round<NARROW>(v * b);")
 _CHAIN_LOAD = ("if (active && row + step < n_rows) W::load(src.x + (row + step) "
                "* d + col, next);",
                "for (int j = 0; j < V; ++j) next[j] = T(j) + T(0.25);")
-_CHAIN_STORE = ("if (a.out != nullptr) W::store(a.out + row * d + col, v);",
+_CHAIN_STORE = ("if (a.out != nullptr) store_chunk<NARROW>(a.out, row * d + col, v);",
                 "if (a.out != nullptr && v[0] == T(-12345)) "
-                "W::store(a.out + row * d + col, v);")
+                "store_chunk<NARROW>(a.out, row * d + col, v);")
 
 #: The sorted repair launched from the device, only by a grid that sees a
 #: descent, as a tail launch (it starts after the whole grid): no second
@@ -2277,6 +2706,92 @@ _SEGSUM_TAIL_LAUNCH = (
       "        v, i, cells, k, num_segments, o, work);\n", "")],
     ("-rdc=true", "-lcudadevrt"))
 
+#: The head's rounding and output type decided at compile time in the
+#: untiered kernels (NARROW = false: ``rnd``, ``raw_ty`` and ``pred_ty``
+#: fold to 0), the form that a review asked for; as built they are tested
+#: at run time in every kernel.
+_CHAIN_COMPILE_TIME_HEAD = (
+    "chain: the head's rounding at compile time", "chain.cu",
+    [("template <typename T, int HEAD>\n"
+      "__device__ __forceinline__ void class_head(",
+      "template <typename T, int HEAD, bool NARROW>\n"
+      "__device__ __forceinline__ void class_head("),
+     ("  const int rnd = a.rnd;\n  T x2 = T(0);",
+      "  const int rnd = NARROW ? a.rnd : 0;\n  T x2 = T(0);"),
+     ("head_out(e / s, rnd), a.raw_ty);",
+      "head_out(e / s, rnd), NARROW ? a.raw_ty : 0);"),
+     ("static_cast<T>(bi), a.pred_ty);",
+      "static_cast<T>(bi), NARROW ? a.pred_ty : 0);"),
+     ("class_head<T, HEAD>(", "class_head<T, HEAD, NARROW>("),
+     ("  [[maybe_unused]] const bool plain_out =\n"
+      "      a.rnd == 0 && a.raw_ty == kOutT && a.pred_ty == kOutT;",
+      "  [[maybe_unused]] const bool plain_out = !NARROW || (\n"
+      "      a.rnd == 0 && a.raw_ty == kOutT && a.pred_ty == kOutT);")])
+#: The int8 table's staging loop: removed (the untiered chains never take
+#: it), or called out of line so that it does not share the body's
+#: registers.
+_CHAIN_INT8_LOOP = ("  if (a.qseg != nullptr) {\n"
+                    "    for (int s = 0; s < a.n_seg; ++s) {")
+_CHAIN_NO_INT8 = ("chain: no int8 staging", "chain.cu",
+                  [(_CHAIN_INT8_LOOP, "  if (false) {\n"
+                    "    for (int s = 0; s < a.n_seg; ++s) {")])
+_CHAIN_INT8_NOINLINE = (
+    "chain: int8 staging out of line", "chain.cu",
+    [(_CHAIN_INT8_LOOP,
+      "  if (a.qseg != nullptr) {\n"
+      "    stage_int8<T>(a.qseg, a.n_seg, a.qf, a.qc, smem);\n"
+      "  } else if (false) {\n"
+      "    for (int s = 0; s < a.n_seg; ++s) {"),
+     ("template <typename T, typename Body>\n"
+      "__device__ __forceinline__ void with_table(",
+      "template <typename T>\n"
+      "__device__ __noinline__ void stage_int8(const int* qseg, int n_seg,\n"
+      "                                        const double* qf,\n"
+      "                                        const signed char* qc, T* smem) {\n"
+      "  Args<T> a{};\n"
+      "  a.qseg = qseg;\n  a.n_seg = n_seg;\n  a.qf = qf;\n  a.qc = qc;\n"
+      "  for (int s = 0; s < n_seg; ++s) {\n"
+      "    const int off = qseg[8 * s], len = qseg[8 * s + 1];\n"
+      "    for (int r = threadIdx.x; r < len; r += blockDim.x) {\n"
+      "      smem[off + r] = seg_value(a, s, r);\n"
+      "    }\n  }\n}\n"
+      "template <typename T, typename Body>\n"
+      "__device__ __forceinline__ void with_table(")])
+
+#: The class heads' code shape: their loops not unrolled, or the head
+#: called out of line (its registers apart from the row's).
+_CHAIN_HEAD_DOT = "    for (int j = 0; j < d; ++j) dot += xr[j] * wt[j * k + c];"
+_CHAIN_HEAD_SHAPES = (
+    ("chain: the head's dot not unrolled", "chain.cu",
+     [(_CHAIN_HEAD_DOT, "#pragma unroll 1\n" + _CHAIN_HEAD_DOT)]),
+    ("chain: the head's dot unrolled 4", "chain.cu",
+     [(_CHAIN_HEAD_DOT, "#pragma unroll 4\n" + _CHAIN_HEAD_DOT)]),
+    ("chain: the head's dot unrolled 8", "chain.cu",
+     [(_CHAIN_HEAD_DOT, "#pragma unroll 8\n" + _CHAIN_HEAD_DOT)]),
+    ("chain: the head's class loops not unrolled", "chain.cu",
+     [("    for (int c = lane; c < k; c += 32) {\n",
+       "#pragma unroll 1\n    for (int c = lane; c < k; c += 32) {\n"),
+      ("  for (int c = lane; c < k; c += 32) {\n    T dot = T(0);",
+       "#pragma unroll 1\n  for (int c = lane; c < k; c += 32) {\n"
+       "    T dot = T(0);")]),
+    ("chain: the head out of line", "chain.cu",
+     [("__device__ __forceinline__ void class_head(",
+       "__device__ __noinline__ void class_head(")]),
+)
+#: The bf16 element type dropped from the parts' load switch (wrong for
+#: bf16 inputs; the timed chains have none).
+_CHAIN_NO_BF16_LOAD = [
+    ("    case kBF16:\n"
+     "      return T(__bfloat162float(static_cast<const __nv_bfloat16*>(src)"
+     "[i]));\n", ""),
+    ("  if (elem == kF32 || elem == kF64 || elem == kBF16) {",
+     "  if (elem == kF32 || elem == kF64) {")]
+_CHAIN_LOAD_SHAPES = (
+    ("chain: no bf16 case in the loads", "chain.cu", _CHAIN_NO_BF16_LOAD),
+    ("chain: no bf16 case in the loads, the head's rounding at compile "
+     "time", "chain.cu", _CHAIN_NO_BF16_LOAD + _CHAIN_COMPILE_TIME_HEAD[2]),
+)
+
 #: (name, source, literal edits[, extra nvcc flags]): what each step of a
 #: kernel costs. A variant that removes work gives wrong outputs on
 #: purpose.
@@ -2301,6 +2816,16 @@ VARIANTS = (
     ("segsum: sorted without the descent test", "segsum.cu",
      [("        descent |= id[i] < cur;\n", "")]),
     _SEGSUM_TAIL_LAUNCH,
+    ("segsum: bf16 unsorted as 16-bit RED", "segsum.cu",
+     [("  const uintptr_t at = reinterpret_cast<uintptr_t>(p);\n",
+       "  asm volatile(\"red.global.add.noftz.bf16 [%0], %1;\" ::\"l\"(p), "
+       "\"h\"(__bfloat16_as_ushort(v)) : \"memory\");\n  return;\n"
+       "  const uintptr_t at = reinterpret_cast<uintptr_t>(p);\n")]),
+    _CHAIN_COMPILE_TIME_HEAD,
+    _CHAIN_NO_INT8,
+    _CHAIN_INT8_NOINLINE,
+    *_CHAIN_HEAD_SHAPES,
+    *_CHAIN_LOAD_SHAPES,
 )
 
 
@@ -2384,9 +2909,10 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 20):
     return total / iters / 1e3 if total > 0 else None
 
 
-def variants_main() -> int:
-    """``--variants``: every entry of :data:`VARIANTS` through the port's
-    own wrapper at the kernel phase's shapes (``fused_chain`` 100,000 x 32,
+def variants_main(only: str = "") -> int:
+    """``--variants [A|B...]``: every entry of :data:`VARIANTS` (whose
+    name holds one of the ``|``-separated substrings) through the port's own wrapper at the kernel
+    phase's shapes (``fused_chain`` 100,000 x 32 and the A/B's chain ops,
     ``segment_sum`` at the fit shape), timed by :class:`Timer` and by the
     profiler's device time of the kernel alone; one JSON line each."""
     import torch
@@ -2399,7 +2925,9 @@ def variants_main() -> int:
         return 2
     print(card_line(), flush=True)
     timer = Timer(torch)
-    libs = build_variants(VARIANTS)
+    variants = tuple(v for v in VARIANTS
+                     if any(o in v[0] for o in only.split("|")))
+    libs = build_variants(variants)
 
     def report(name, call, kernel, **keys):
         with Through(libs[name]):
@@ -2416,23 +2944,38 @@ def variants_main() -> int:
                                   ["s4", "prediction", "rawPrediction"])
     for dtype in ("float64", "float32"):
         xp = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
-        for name, source, *_ in VARIANTS:
+        for name, source, *_ in variants:
             if source == "chain.cu":
                 report(name, lambda: program([xp], consts, CHAIN_ROWS),
                        "fused_chain", dtype=dtype)
+    for op, rows, d, k, dtype in AB_CHAIN_OP_CASES:
+        op_kernels, ext, vals, eager, _, _ = chain_op_case(torch, op, rows,
+                                                           d, k, dtype)
+        prog = kchain.ChainProgram(op_kernels, ext, eager)
+        host = [kk.constants for kk in op_kernels]
+        for name, source, *_ in variants:
+            # The 256-thread variant keeps the wrapper's shared memory
+            # sizes for 128: not for the class heads.
+            if source == "chain.cu" and "256-thread" not in name:
+                report(name, lambda: prog(vals, host, rows), "fused_chain",
+                       dtype=dtype, op=op)
+        del vals
 
     _, indices, values, _, _ = make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM,
                                                SPMV_NNZ, seed=5)
     order = np.argsort(indices, kind="stable")
-    for dtype in ("float32", "float64"):
+    for dtype in ("float32", "float64", "bfloat16"):
         for sorted_ids in (True, False):
             sel = order if sorted_ids else slice(None)
             ids = torch.from_numpy(indices[sel]).cuda()
-            vals = torch.from_numpy(values[sel].astype(dtype)).cuda()
-            for name, source, *_ in VARIANTS:
-                # The "sorted" variants edit the sorted path only.
+            vals = torch.from_numpy(values[sel]).to("cuda",
+                                                    getattr(torch, dtype))
+            for name, source, *_ in variants:
+                # The "sorted" variants edit the sorted path only, the
+                # "bf16" ones the bf16 path.
                 if source != "segsum.cu" or (
-                        ": sorted" in name and not sorted_ids):
+                        ": sorted" in name and not sorted_ids) or (
+                        "bf16" in name and dtype != "bfloat16"):
                     continue
                 report(name, lambda: ksegsum.segment_sum(
                     vals, ids, SPMV_DIM, indices_are_sorted=sorted_ids),
@@ -2446,6 +2989,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-inner":
         sys.exit(ab_inner(sys.argv[2]))
-    if len(sys.argv) == 2 and sys.argv[1] == "--variants":
-        sys.exit(variants_main())
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--variants":
+        sys.exit(variants_main(*sys.argv[2:]))
     sys.exit(main())

@@ -14,7 +14,10 @@ with the fused executor, the four scalers (fit + transform),
 ``LogisticRegressionModel`` (binomial and multinomial, dense and sparse
 transform), ``Knn``, ``MinHashLSH``, ``KMeans`` (batch fit on one device)
 and ``BisectingKMeans`` with their models, and all four kernels:
-``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``.
+``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
+runs under the precision tiers (``precision``:
+``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
+and the kernels take bfloat16.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401
@@ -69,7 +72,12 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     StandardScalerModel,
     VectorAssembler,
 )
+from flinkml_tpu_torch import precision  # noqa: F401
 from flinkml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: F401
+from flinkml_tpu_torch.precision import (  # noqa: F401
+    PrecisionPolicy,
+    PrecisionValidationError,
+)
 from flinkml_tpu_torch.table import Table  # noqa: F401
 
 __version__ = "0.1.0"
@@ -100,6 +108,8 @@ __all__ = [
     "OneHotEncoderModel",
     "Pipeline",
     "PipelineModel",
+    "PrecisionPolicy",
+    "PrecisionValidationError",
     "RobustScaler",
     "RobustScalerModel",
     "SparseVector",

@@ -50,6 +50,12 @@ class ColumnKernel:
     materialized as eager outputs of the run (the JAX package pins them so
     the stage's transcendental ops lower as in the per-stage program; the
     port keeps the rule so both packages produce the same eager columns).
+
+    ``accumulates``: where the stage reduces under a declared precision
+    policy — ``"accum"`` (at ``policy.accum``, as LogisticRegression's
+    products), ``"compute"`` (at ``policy.compute``, as KMeans' distance
+    sums), or None (no reduction). The fused executor's precision check
+    reads it in place of the JAX package's program walk.
     """
 
     input_cols: Tuple[str, ...]
@@ -58,6 +64,7 @@ class ColumnKernel:
     constants: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     fingerprint: Tuple = ()
     pin_inputs: bool = False
+    accumulates: Optional[str] = None
 
 
 class Stage(WithParams, abc.ABC):

@@ -38,6 +38,18 @@ program of a scaler→LR run writes the last scaler's output (pinned by the
 head's ``pin_inputs``) and the head's ``prediction``/``rawPrediction``; a
 lazy intermediate (a one-hot output, the assembled row, a scaler's
 output) runs the same kernel truncated after the stage that makes it.
+
+Precision tiers. Both versions take a
+:class:`~flinkml_tpu_torch.precision.PrecisionPolicy` (or None). A
+declared policy (mixed, or quantized) casts every float input and constant
+to ``policy.compute`` at the chain's boundary and dequantizes int8
+constants (:func:`boundary`, as the JAX package's ``_chain_fn``), and the
+stages compute under it (:func:`~flinkml_tpu_torch.precision.chain_policy`).
+On CUDA a bfloat16 row runs the kernel's ``bf16`` entry (float32 registers,
+each op rounded), the constant table holds the boundary's values, and
+under ``int8_inference`` the table is uploaded as int8 codes, float32
+scales and segments that the kernel dequantizes into shared memory
+(:func:`pack_int8`). float16 is refused.
 """
 
 from __future__ import annotations
@@ -51,6 +63,11 @@ import numpy as np
 import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
+from flinkml_tpu_torch.precision import (
+    QuantizedConst,
+    is_narrower,
+    running_under,
+)
 
 #: Scaler stages one launch applies at most (3 op bits each in a 32-bit word).
 MAX_STAGES = 8
@@ -63,7 +80,9 @@ MAX_PARTS = 64
 #: they fit: :func:`shared_memory`).
 MAX_SMEM_BYTES = 232_448
 
-SUPPORTED_DTYPES = (torch.float32, torch.float64)
+#: Row dtypes the CUDA kernel computes (bfloat16: under a precision tier,
+#: or from bfloat16 input columns).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 SCALER_STAGES = ("StandardScalerModel", "MinMaxScalerModel",
                  "MaxAbsScalerModel", "RobustScalerModel")
@@ -121,17 +140,30 @@ _ARGTYPES = [
     ctypes.c_int64, ctypes.c_longlong,             # n_rows, smem bytes
     ctypes.c_void_p, ctypes.c_void_p,              # row_out, out
     ctypes.c_void_p, ctypes.c_void_p,              # pred, raw
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,      # rnd, pred_ty, raw_ty
+    ctypes.c_void_p, ctypes.c_int,                 # qseg, n_seg
+    ctypes.c_void_p, ctypes.c_void_p,              # qf, qc
     ctypes.c_void_p,                               # stream
 ]
+#: The kernel entry of each row dtype (bfloat16 rows: float32 registers),
+#: and of a float64 row whose inputs or head narrow under a tier.
 _SYMBOLS = {torch.float32: "fml_fused_chain_f32",
-            torch.float64: "fml_fused_chain_f64"}
+            torch.float64: "fml_fused_chain_f64",
+            torch.bfloat16: "fml_fused_chain_bf16",
+            "f64_tier": "fml_fused_chain_f64_tier"}
 
 # Element type codes of an input column (csrc/chain.cu Elem) and the part
 # flags.
 _ELEM = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3,
-         torch.int16: 4, torch.int8: 5, torch.uint8: 6, torch.bool: 6}
-_ONEHOT, _DROP_LAST = 16, 32
+         torch.int16: 4, torch.int8: 5, torch.uint8: 6, torch.bool: 6,
+         torch.bfloat16: 7}
+_ONEHOT, _DROP_LAST, _ROUND_BF16, _ROUND_F32 = 16, 32, 64, 128
 _HEAD_CODE = {None: 0, "binomial": 1, "multinomial": 2, "kmeans": 3}
+# The head's rounding bits (csrc/chain.cu kInBf16 ...) and output types.
+_IN_BF16, _OUT_BF16, _IN_F32, _OUT_F32 = 1, 2, 4, 8
+_OUT_TY = {"row": 0, torch.float32: 1, torch.bfloat16: 2}
+#: Ints of one int8-table segment (csrc/chain.cu, the head).
+SEGMENT_INTS = 8
 
 # Op bits of one stage (see csrc/chain.cu).
 _MINMAX, _SUB, _DIV = 1, 2, 4
@@ -164,42 +196,86 @@ def lane_group(d: int, itemsize: int) -> Tuple[int, int, int]:
 
 
 def shared_memory(n_table: int, n_stages: int, per_warp: int, warps: int,
-                  itemsize: int) -> Optional[Tuple[int, int, int]]:
+                  itemsize: int,
+                  whole: bool = False) -> Optional[Tuple[int, int, int]]:
     """Where a launch keeps its constants: ``(table elements in shared
     memory, warps a block, bytes)``. The whole table (``n_table``
     elements, of which the stages' are the first ``n_stages``) when it fits
     beside ``warps`` warps' row buffers (``per_warp`` elements each); else
     the head's block is read from device memory, then the stages' too;
     then the block has fewer warps. None when one warp's row buffer alone
-    exceeds :data:`MAX_SMEM_BYTES`."""
+    exceeds :data:`MAX_SMEM_BYTES`. ``whole`` (an int8 table, which only
+    shared memory holds dequantized): the whole table or None."""
     cap = MAX_SMEM_BYTES // itemsize
-    for n in (n_table, n_stages, 0):
+    for n in ((n_table,) if whole else (n_table, n_stages, 0)):
         if n + warps * per_warp <= cap:
             return n, warps, (n + warps * per_warp) * itemsize
-    fewer = cap // per_warp
+    rest = cap - (n_table if whole else 0)
+    fewer = rest // per_warp if per_warp else 0
     if fewer < 1:
         return None
-    return 0, fewer, fewer * per_warp * itemsize
+    return ((n_table if whole else 0), fewer,
+            ((n_table if whole else 0) + fewer * per_warp) * itemsize)
 
 
 def _stage_name(kernel) -> str:
     return kernel.fingerprint[0] if kernel.fingerprint else ""
 
 
+def _declared(policy) -> bool:
+    return policy is not None and policy.declared
+
+
+def boundary_const(policy, v, device):
+    """One model constant as the chain's boundary gives it under a
+    declared ``policy``: an int8 pair dequantized (``q * scale`` at
+    ``policy.compute``), a float array cast to ``policy.compute``, anything
+    else as it is."""
+    dt = policy.compute_dtype
+    if isinstance(v, QuantizedConst):
+        q = torch.from_numpy(np.asarray(v.q)).to(device).to(dt)
+        return q * torch.from_numpy(np.asarray(v.scale)).to(device).to(dt)
+    t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+    if t.dtype.is_floating_point:
+        return t.to(device=device, dtype=dt)
+    return v
+
+
+def boundary(policy, ext_vals, consts):
+    """The chain's inputs, constants and validity-mask dtype as the JAX
+    package's ``_chain_fn`` takes them under ``policy``: a declared policy
+    casts every float input and constant to ``policy.compute`` and
+    dequantizes int8 pairs; no policy, or one that declares nothing
+    (``full``), leaves them as they are."""
+    if not _declared(policy):
+        return tuple(ext_vals), tuple(consts), torch.float32
+    dt = policy.compute_dtype
+    device = ext_vals[0].device
+    ext = tuple(v.to(dt) if v.dtype.is_floating_point else v
+                for v in ext_vals)
+    cs = tuple({n: boundary_const(policy, v, device) for n, v in kc.items()}
+               for kc in consts)
+    return ext, cs, dt
+
+
 def chain_plain(kernels, ext_names: Sequence[str], out_names: Sequence[str],
-                ext_vals, consts, n_valid: int) -> Dict[str, torch.Tensor]:
+                ext_vals, consts, n_valid: int,
+                policy=None) -> Dict[str, torch.Tensor]:
     """The plain PyTorch chain: each kernel's ``fn`` in order, up to the
-    last kernel an ``out_names`` column needs."""
+    last kernel an ``out_names`` column needs, under ``policy`` (see
+    :func:`boundary`)."""
     producer = {c: j for j, k in enumerate(kernels) for c in k.output_cols}
     last = max(producer[c] for c in out_names)
     bucket = ext_vals[0].shape[0]
     device = ext_vals[0].device
-    valid = (torch.arange(bucket, device=device) < n_valid).to(torch.float32)
+    ext_vals, consts, mask_dt = boundary(policy, ext_vals, consts)
+    valid = (torch.arange(bucket, device=device) < n_valid).to(mask_dt)
     cols = dict(zip(ext_names, ext_vals))
-    for kernel, kc in zip(kernels[:last + 1], consts):
-        cols.update(kernel.fn(
-            {c: cols[c] for c in kernel.input_cols}, kc, valid
-        ))
+    with running_under(policy):
+        for kernel, kc in zip(kernels[:last + 1], consts):
+            cols.update(kernel.fn(
+                {c: cols[c] for c in kernel.input_cols}, kc, valid
+            ))
     return {c: cols[c] for c in out_names}
 
 
@@ -375,82 +451,228 @@ def plan_chain(kernels, ext_names: Sequence[str],
     )
 
 
-def _stage_entry(kernel, consts: Mapping[str, np.ndarray], dt: np.dtype,
-                 d: int):
-    """``(op bits, a[d], b[d], scale, offset)`` of one scaler stage, its
-    constants cast to ``dt`` first and zero-guarded after."""
-    def vec(key):
-        v = np.asarray(consts[key]).astype(dt).reshape(-1)
-        if v.shape[0] != d:
-            raise ValueError(
-                f"{_stage_name(kernel)} constant {key!r} has dim "
-                f"{v.shape[0]} but the features have dim {d}"
-            )
-        return v
+@dataclasses.dataclass(frozen=True)
+class TableEntry:
+    """One segment of the constant table, in order: ``value`` — a model
+    constant as the executor hands it (an array, or a
+    :class:`~flinkml_tpu_torch.precision.QuantizedConst`) named ``key``, or
+    a ``literal`` float64 array (zeros, a min-max range's scale and
+    offset); ``shape`` — what the features need, ``(d,)`` or the head's
+    ``(k, d)`` matrix (stored transposed, ``[d][k]``); ``head``: part of
+    the head's block, at the compute width; ``post``: 1 the zero guard, 2
+    minus entry ``other`` (the min-max span), 3 the squared row norms of
+    entry ``other``'s matrix (KMeans ``|C|^2``, ``value`` None)."""
 
-    def guard(v):
-        return np.where(v > 0, v, dt.type(1)).astype(dt)
+    stage: str
+    key: str
+    value: object
+    shape: Tuple[int, ...]
+    head: bool = False
+    literal: bool = False
+    post: int = 0
+    other: int = 0
 
-    name = _stage_name(kernel)
-    zeros = np.zeros(d, dt)
-    if name in ("StandardScalerModel", "RobustScalerModel"):
-        shift, scale = ("mean", "std") if name == "StandardScalerModel" \
-            else ("median", "range")
-        sub, div = kernel.fingerprint[3:5]
-        return (_SUB * bool(sub) | _DIV * bool(div),
-                vec(shift) if sub else zeros,
-                guard(vec(scale)) if div else zeros, 0.0, 0.0)
-    if name == "MaxAbsScalerModel":
-        return _DIV, zeros, guard(vec("maxAbs")), 0.0, 0.0
-    lo, hi = kernel.fingerprint[3:5]
-    dmin = vec("dataMin")
-    return _MINMAX, dmin, vec("dataMax") - dmin, hi - lo, lo
+    @property
+    def length(self) -> int:
+        return int(np.prod(self.shape))
 
 
-def _head_matrix(consts: Mapping[str, np.ndarray], key: str, dt: np.dtype,
-                 d: int) -> np.ndarray:
-    m = np.asarray(consts[key]).astype(dt)
-    if m.ndim != 2 or m.shape[1] != d:
-        raise ValueError(
-            f"features have dim {d} but the model's {key} has shape {m.shape}"
-        )
-    return m
+def table_entries(plan: ChainPlan, kernels, consts,
+                  d: int) -> Tuple[list, int]:
+    """The table's layout for ``plan`` and its op word: each run stage's
+    ``a[d], b[d], [scale, offset]`` (a: the shift or data min; b: the
+    scale, max-abs or span), then the head's block (binomial ``coef[d]``;
+    multinomial ``W^T [d][k]``; KMeans ``C^T [d][k]`` and ``|C[c]|^2
+    [k]``). The one description of the layout: :func:`pack_table` fills
+    it with values, :func:`pack_int8` with segments."""
+    entries: list = []
+    ops = 0
 
+    def add(stage, key, value, shape, **kw):
+        entries.append(TableEntry(stage, key, value, shape, **kw))
+        return len(entries) - 1
 
-def pack_table(plan: ChainPlan, kernels, consts, dt: np.dtype,
-               d: int) -> Tuple[np.ndarray, int]:
-    """The kernel's constant table (type ``dt``) and op word for ``plan``:
-    each run stage's ``a[d], b[d], scale, offset``, then the head's block
-    (binomial ``coef[d]``; multinomial ``W^T [d][k]``; KMeans ``C^T
-    [d][k]`` and ``|C[c]|^2 [k]``)."""
-    parts, ops = [np.zeros(0, dt)], 0
+    def literal(stage, v):
+        v = np.asarray(v, dtype=np.float64)
+        add(stage, "", v, v.shape, literal=True)
+
     for s, j in enumerate(plan.stages):
-        bits, a, b, scale, offset = _stage_entry(kernels[j], consts[j], dt, d)
-        ops |= bits << (3 * s)
-        parts += [a, b, np.asarray([scale, offset], dtype=dt)]
-    hc = consts[plan.head_stage] if plan.head else None
-    if plan.head == "binomial":
-        coef = np.asarray(hc["coefficient"]).astype(dt)
-        if coef.shape != (d,):
-            raise ValueError(
-                f"features have dim {d} but the model coefficient has shape "
-                f"{coef.shape}"
-            )
-        parts.append(coef)
-    elif plan.head == "multinomial":
-        parts.append(_head_matrix(hc, "coefficient", dt, d).T.reshape(-1))
-    elif plan.head == "kmeans":
-        c = _head_matrix(hc, "centroids", dt, d)
-        parts += [c.T.reshape(-1), np.sum(c * c, axis=1, dtype=dt)]
-    return np.concatenate(parts), ops
+        kernel, c = kernels[j], consts[j]
+        name = _stage_name(kernel)
+        if name == "MinMaxScalerModel":
+            lo, hi = kernel.fingerprint[3:5]
+            a = add(name, "dataMin", c["dataMin"], (d,))
+            add(name, "dataMax", c["dataMax"], (d,), post=2, other=a)
+            literal(name, [hi - lo, lo])
+            ops |= _MINMAX << (3 * s)
+            continue
+        if name == "MaxAbsScalerModel":
+            sub, div, shift, scale = False, True, None, "maxAbs"
+        else:
+            shift, scale = ("mean", "std") if name == "StandardScalerModel" \
+                else ("median", "range")
+            sub, div = kernel.fingerprint[3:5]
+        if sub:
+            add(name, shift, c[shift], (d,))
+        else:
+            literal(name, np.zeros(d))
+        if div:
+            add(name, scale, c[scale], (d,), post=1)
+        else:
+            literal(name, np.zeros(d))
+        literal(name, [0.0, 0.0])
+        ops |= (_SUB * bool(sub) | _DIV * bool(div)) << (3 * s)
+    if plan.head is not None:
+        hc = consts[plan.head_stage]
+        name = _stage_name(kernels[plan.head_stage])
+        if plan.head == "binomial":
+            add(name, "coefficient", hc["coefficient"], (d,), head=True)
+        else:
+            key = "coefficient" if plan.head == "multinomial" else "centroids"
+            k = head_classes(plan, consts)
+            m = add(name, key, hc[key], (k, d), head=True)
+            if plan.head == "kmeans":
+                add(name, "|C|^2", None, (k,), head=True, post=3, other=m)
+    return entries, ops
+
+
+def _entry_value(e: TableEntry, policy, dt: torch.dtype) -> torch.Tensor:
+    """The values of entry ``e`` (not a post-3 one) at ``dt`` on the CPU,
+    in the entry's shape: a literal as it is; a constant through the
+    chain's boundary under ``policy`` (no policy: as it is)."""
+    if e.literal:
+        t = torch.from_numpy(e.value)
+    else:
+        v = boundary_const(policy, e.value, "cpu") if _declared(policy) \
+            else e.value
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+    if len(e.shape) == 1 and t.numel() != e.length:
+        raise ValueError(
+            f"{e.stage} constant {e.key!r} has {t.numel()} elements but the "
+            f"features have dim {e.length}"
+        )
+    if len(e.shape) == 2 and tuple(t.shape) != e.shape:
+        raise ValueError(
+            f"features have dim {e.shape[1]} but the model's {e.key} has "
+            f"shape {tuple(t.shape)}"
+        )
+    return t.reshape(e.shape).to(dt)
+
+
+def _sq_norms(m: torch.Tensor) -> torch.Tensor:
+    """``|C[c]|^2`` of a ``[k, d]`` matrix at its dtype: numpy's sum where
+    numpy has the dtype (the bits the untiered table has always had),
+    PyTorch's at bfloat16 (each square and the sum rounded, as the plain
+    distance rounds them)."""
+    if m.dtype == torch.bfloat16:
+        return torch.sum(m * m, dim=1)
+    a = m.numpy()
+    return torch.from_numpy(np.sum(a * a, axis=1, dtype=a.dtype))
+
+
+def _flat(v: torch.Tensor) -> torch.Tensor:
+    return (v.T if v.dim() == 2 else v).reshape(-1)
+
+
+def pack_table(plan: ChainPlan, kernels, consts, row: torch.dtype, d: int,
+               policy=None) -> Tuple[torch.Tensor, int]:
+    """The kernel's working table for ``plan`` over a row of ``row`` and
+    its op word (:func:`table_entries`): each constant through the chain's
+    boundary under ``policy`` (:func:`boundary_const`: cast, or int8
+    dequantized; no policy: as it is), then cast to the row's dtype, the
+    head's block to the compute width (``policy.compute``, else the
+    row's), BEFORE the zero guards and the min-max span (as the stages
+    compute them). The table is float64 (a float64 row) or float32 — it
+    holds every value exactly."""
+    entries, ops = table_entries(plan, kernels, consts, d)
+    compute = policy.compute_dtype if _declared(policy) else row
+    vals: list = []
+    for e in entries:
+        if e.post == 3:
+            vals.append(_sq_norms(vals[e.other]))
+            continue
+        v = _entry_value(e, policy, compute if e.head else row)
+        if e.post == 1:
+            v = torch.where(v > 0, v, torch.ones((), dtype=v.dtype))
+        elif e.post == 2:
+            v = v - vals[e.other]
+        vals.append(v)
+    table_dt = torch.float64 if row == torch.float64 else torch.float32
+    return torch.cat([torch.zeros(0, dtype=table_dt)]
+                     + [_flat(v).to(table_dt) for v in vals]), ops
+
+
+def pack_int8(plan: ChainPlan, kernels, consts, d: int,
+              policy) -> Tuple[np.ndarray, int, Dict[str, int]]:
+    """The int8 table of ``plan`` under the int8 ``policy`` (``consts``:
+    the executor's, int8 pairs and float arrays): one segment per entry
+    of :func:`table_entries` (:data:`SEGMENT_INTS` int32 each, see
+    ``csrc/chain.cu``) in a byte blob with the float64 values, the float32
+    scales and the int8 codes. Returns ``(blob, ops, layout)`` with the
+    element counts and byte offsets in ``layout``. A float constant that
+    is not quantized (fewer than ``INT8_MIN_CONST_ELEMS`` elements) is
+    its float32 value (the boundary's cast), KMeans' ``|C|^2`` is summed
+    at the compute width from the dequantized centroids; the kernel
+    decodes the segments to :func:`pack_table`'s values."""
+    entries, ops = table_entries(plan, kernels, consts, d)
+    segs: list = []
+    vals: list = []
+    codes: list = []
+    n_vals = n_codes = off = 0
+
+    def floats(v):
+        nonlocal n_vals
+        v = np.asarray(v, dtype=np.float64).reshape(-1)
+        vals.append(v)
+        n_vals += v.size
+        return n_vals - v.size
+
+    for e in entries:
+        kind, sc, per = 0, 0, 1
+        if e.post == 3:
+            src = floats(_sq_norms(_entry_value(
+                entries[e.other], policy, policy.compute_dtype)).numpy())
+        elif e.literal:
+            src = floats(e.value)
+        elif isinstance(e.value, QuantizedConst):
+            q = _entry_value(dataclasses.replace(e, value=e.value.q), None,
+                             torch.int8)
+            codes.append(_flat(q).numpy())
+            kind, src, n_codes = 1, n_codes, n_codes + e.length
+            sc = floats(np.asarray(e.value.scale, np.float32))
+            # A matrix's scales are per column of its last axis: one per
+            # k codes of the transposed layout; a vector has one scale.
+            per = e.shape[0] if len(e.shape) == 2 else e.length
+        else:
+            src = floats(_flat(_entry_value(e, policy,
+                                            policy.compute_dtype)).numpy())
+        post = e.post if e.post in (1, 2) else 0
+        segs.append((off, e.length, kind, src, sc, per, post,
+                     e.other if post == 2 else 0))
+        off += e.length
+    seg_bytes = len(segs) * SEGMENT_INTS * 4
+    vals_at = -(-seg_bytes // 8) * 8
+    codes_at = vals_at + 8 * n_vals
+    blob = np.zeros(codes_at + max(n_codes, 1), dtype=np.uint8)
+    blob[:seg_bytes] = np.asarray(segs, np.int32).reshape(-1).view(np.uint8)
+    if n_vals:
+        blob[vals_at:codes_at] = np.concatenate(vals).view(np.uint8)
+    if n_codes:
+        blob[codes_at:codes_at + n_codes] = np.concatenate(codes).view(
+            np.uint8)
+    return blob, ops, {"n_table": off, "n_seg": len(segs),
+                       "vals_at": vals_at, "codes_at": codes_at}
 
 
 def head_classes(plan: ChainPlan, consts) -> int:
     """Classes (or centroids) of a multinomial or KMeans head, else 0."""
+    def rows(v):
+        return int(np.shape(v.q if isinstance(v, QuantizedConst) else v)[0])
+
     if plan.head == "multinomial":
-        return int(np.shape(consts[plan.head_stage]["coefficient"])[0])
+        return rows(consts[plan.head_stage]["coefficient"])
     if plan.head == "kmeans":
-        return int(np.shape(consts[plan.head_stage]["centroids"])[0])
+        return rows(consts[plan.head_stage]["centroids"])
     return 0
 
 
@@ -461,55 +683,74 @@ def _refuse(reason: str) -> _gate.KernelUnsupportedError:
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """:meth:`ChainProgram.layout`'s answer for one signature of inputs:
-    each part's width, the row's dtype and width, whether the vector route
-    gathers, and the route."""
+    each part's width and flags, the row's dtype and width, whether the
+    vector route gathers, and the route."""
 
     widths: Tuple[int, ...]
     dtype: torch.dtype
     d: int
     gather: bool
     route: str
+    flags: Tuple[int, ...]
 
 
 class ChainProgram:
     """A chain planned for ``csrc/chain.cu``: ``run(ext_vals, consts,
     n_valid)`` lays out the row's parts, packs the constants (once per set
     of model arrays, cached by identity) and launches one kernel over the
-    first ``n_valid`` rows."""
+    first ``n_valid`` rows, under ``policy`` (see the module docstring)."""
 
     def __init__(self, kernels, ext_names: Sequence[str],
-                 out_names: Sequence[str]):
+                 out_names: Sequence[str], policy=None):
         self.kernels = tuple(kernels)
         self.ext_names, self.out_names = tuple(ext_names), tuple(out_names)
+        self.policy = policy
         self.plan = plan_chain(self.kernels, ext_names, out_names)
-        self._table = None   # (arrays, dtype, device, d, tensor, ops, k)
+        self._table = None   # (arrays, dtype, device, d, packed)
         self._layout = None  # (input signature, Layout)
 
     def table(self, consts, dtype: torch.dtype, device: torch.device,
-              d: int) -> Tuple[torch.Tensor, int, int]:
+              d: int):
+        """The packed constants for a row of ``dtype``: ``(tensor, ops, k,
+        int8 layout or None)`` — the working table, or under the int8 tier
+        the blob of :func:`pack_int8`."""
         arrays = tuple(v for kc in consts for v in kc.values())
         hit = self._table
         if (hit is not None and hit[1] == dtype and hit[2] == device
                 and hit[3] == d and len(hit[0]) == len(arrays)
                 and all(a is b for a, b in zip(hit[0], arrays))):
-            return hit[4], hit[5], hit[6]
-        np_dt = np.dtype(str(dtype).replace("torch.", ""))
-        host, ops = pack_table(self.plan, self.kernels, consts, np_dt, d)
-        tensor = torch.from_numpy(host).to(device)
+            return hit[4]
         k = head_classes(self.plan, consts)
-        self._table = (arrays, dtype, device, d, tensor, ops, k)
-        return tensor, ops, k
+        policy = self.policy
+        if _declared(policy) and policy.quant == "int8":
+            blob, ops, lay = pack_int8(self.plan, self.kernels, consts, d,
+                                       policy)
+            packed = (torch.from_numpy(blob).to(device), ops, k, lay)
+        else:
+            host, ops = pack_table(self.plan, self.kernels, consts, dtype, d,
+                                   policy)
+            packed = (host.to(device), ops, k, None)
+        self._table = (arrays, dtype, device, d, packed)
+        return packed
 
     def layout(self, ext_vals) -> "Layout":
         """How a launch over ``ext_vals`` reads them (a part that is not
         contiguous is read from a contiguous copy, which is aligned); the
-        route by :func:`route`."""
-        widths, row_dtypes, dense = [], [], []
+        route by :func:`route`. Under a declared policy each float part
+        counts at ``policy.compute`` (the boundary cast, made at the load:
+        the part's rounding flag)."""
+        declared = _declared(self.policy)
+        compute = self.policy.compute_dtype if declared else None
+        if compute == torch.float16:
+            raise _refuse("float16 compute is not supported (the kernel "
+                          "computes float32, float64 and bfloat16 rows)")
+        widths, flags, row_dtypes, dense = [], [], [], []
         for part in self.plan.parts:
             v = ext_vals[part.ext]
             if v.dtype not in _ELEM:
                 raise _refuse(f"input dtype {v.dtype} is not supported "
                               f"(supported: {sorted(map(str, _ELEM))})")
+            flag = 0
             if part.onehot is not None:
                 if v.dim() != 1:
                     raise _refuse("a one-hot index column must be [rows], "
@@ -522,21 +763,51 @@ class ChainProgram:
                 width = 1 if v.dim() == 1 else v.shape[1]
                 # Non-float parts promote to float64 (the stages' rule).
                 dt = v.dtype if v.dtype.is_floating_point else torch.float64
+                if declared and dt.is_floating_point and dt != compute:
+                    if compute == torch.bfloat16:
+                        flag = _ROUND_BF16
+                    elif is_narrower(compute, dt):
+                        flag = _ROUND_F32
+                    dt = compute
                 dense.append(v.data_ptr() if v.is_contiguous() else 0)
             widths.append(width)
+            flags.append(flag)
             if part.in_row:
                 row_dtypes.append(dt)
         dtype = functools.reduce(torch.promote_types, row_dtypes)
         if dtype not in SUPPORTED_DTYPES:
             raise _refuse(f"row dtype {dtype} is not supported (supported: "
-                          "float32, float64)")
+                          "float32, float64, bfloat16)")
+        regs = torch.float64 if dtype == torch.float64 else torch.float32
         parts = self.plan.parts
         d = sum(w for w, p in zip(widths, parts) if p.in_row)
         gather = not (len(parts) == 1 and parts[0].onehot is None
-                      and ext_vals[parts[0].ext].dtype == dtype)
+                      and ext_vals[parts[0].ext].dtype == regs)
         return Layout(tuple(widths), dtype, d, gather,
-                      route(d, dtype.itemsize, *dense,
-                            all_in_row=all(p.in_row for p in parts)))
+                      route(d, regs.itemsize, *dense,
+                            all_in_row=all(p.in_row for p in parts)),
+                      tuple(flags))
+
+    def _head_args(self, dtype: torch.dtype):
+        """``(rnd, pred dtype, raw dtype)`` of the head over a row of
+        ``dtype`` (see ``csrc/chain.cu``): the head computes at the
+        declared policy's widths, else at the row's."""
+        compute = accum = dtype
+        if _declared(self.policy):
+            compute = self.policy.compute_dtype
+            accum = self.policy.accum_dtype
+            if dtype != torch.float64 and torch.float64 in (compute, accum):
+                raise _refuse(f"a head at {compute}/{accum} over a {dtype} "
+                              "row is not supported")
+        rnd = 0
+        if dtype == torch.float64:
+            rnd |= {torch.bfloat16: _IN_BF16, torch.float32: _IN_F32}.get(
+                compute, 0)
+            rnd |= {torch.bfloat16: _OUT_BF16, torch.float32: _OUT_F32}.get(
+                accum, 0)
+        elif accum == torch.bfloat16:
+            rnd |= _OUT_BF16
+        return rnd, compute, accum
 
     def __call__(self, ext_vals, consts, n_valid: int) -> Dict[str, torch.Tensor]:
         plan = self.plan
@@ -553,39 +824,43 @@ class ChainProgram:
         dtype, d, gather = lay.dtype, lay.d, lay.gather
         device = ext_vals[0].device
         bucket = ext_vals[0].shape[0]
-        item = dtype.itemsize
+        item = 8 if dtype == torch.float64 else 4
         vector = lay.route == "vector"
         group, rows_per_warp, _ = lane_group(d, item) if vector else (0, 1, 0)
-        table, ops, k = self.table(consts, dtype, device, d)
+        table, ops, k, quant = self.table(consts, dtype, device, d)
+        n_table = quant["n_table"] if quant else table.numel()
         class_head = plan.head in ("multinomial", "kmeans")
         # Each warp of a class head stages its rows, and (multinomial) the
         # row's logits, in shared memory.
         logits = k if plan.head == "multinomial" else 0
         n_smem, threads, smem = 0, SCALAR_THREADS, 0
-        if not vector or gather or class_head:
+        if not vector or gather or class_head or quant:
             n_stages = plan.n_run * (2 * d + 2)
+            whole = quant is not None
             if vector:
                 per_warp = rows_per_warp * d + logits if class_head else 0
-                place = shared_memory(table.numel(), n_stages, per_warp,
-                                      VECTOR_THREADS // 32, item)
+                place = shared_memory(n_table, n_stages, per_warp,
+                                      VECTOR_THREADS // 32, item, whole)
                 if place is None or place[1] < VECTOR_THREADS // 32:
                     # A vector block keeps all its warps: the scalar route
                     # takes the rows.
                     vector, group, place = False, 0, None
             if not vector:
                 per_warp = d + logits if class_head else 0
-                place = shared_memory(table.numel(), n_stages, per_warp,
-                                      SCALAR_THREADS // 32, item)
+                place = shared_memory(n_table, n_stages, per_warp,
+                                      SCALAR_THREADS // 32, item, whole)
             if place is None:
                 raise _refuse(
                     f"a {plan.head} head over d={d} with {k} classes stages "
-                    f"{per_warp * item} bytes a row, more than the "
+                    f"{per_warp * item} bytes a row beside a table of "
+                    f"{n_table * item if whole else 0} bytes, more than the "
                     f"{MAX_SMEM_BYTES} bytes of shared memory a block can "
                     "hold"
                 )
             n_smem, warps, smem = place
             threads = warps * 32
 
+        rnd, compute, accum = self._head_args(dtype)
         new = functools.partial(torch.empty, device=device)
         outs: Dict[str, torch.Tensor] = {}
         parts = _PartList()
@@ -593,11 +868,11 @@ class ChainProgram:
         # Held until the launch is enqueued: a contiguous copy freed earlier
         # could be handed to an output below.
         srcs = [ext_vals[part.ext].contiguous() for part in plan.parts]
-        for i, (part, width, v) in enumerate(zip(plan.parts, lay.widths,
-                                                 srcs)):
+        for i, (part, width, flag, v) in enumerate(zip(
+                plan.parts, lay.widths, lay.flags, srcs)):
             p = parts.p[i]
             p.src, p.width = v.data_ptr(), width
-            p.code = _ELEM[v.dtype]
+            p.code = _ELEM[v.dtype] | flag
             if part.onehot is not None:
                 max_index, drop_last = part.onehot
                 p.max_index, p.base = max_index, width - 1
@@ -611,26 +886,40 @@ class ChainProgram:
         for col in (plan.row_col, plan.out_col):
             if col is not None:
                 outs[col] = new((bucket, d), dtype=dtype)
+        pred_ty = raw_ty = 0
         if plan.head == "kmeans":
             outs[plan.pred_col] = new((bucket,), dtype=torch.int64)
         elif plan.head is not None:
-            outs[plan.pred_col] = new((bucket,), dtype=dtype)
+            outs[plan.pred_col] = new((bucket,), dtype=compute)
             outs[plan.raw_col] = new(
-                (bucket, 2 if plan.head == "binomial" else k), dtype=dtype)
+                (bucket, 2 if plan.head == "binomial" else k), dtype=accum)
+            regs = torch.float64 if dtype == torch.float64 else torch.float32
+            pred_ty = 0 if compute == regs else _OUT_TY[compute]
+            raw_ty = 0 if accum == regs else _OUT_TY[accum]
 
         def ptr(col):
             return outs[col].data_ptr() if col in outs else None
 
-        fn = _build.function("chain", _SYMBOLS[dtype], _ARGTYPES)
+        narrow_f64 = dtype == torch.float64 and (
+            rnd & (_IN_BF16 | _IN_F32) or any(lay.flags))
+        fn = _build.function(
+            "chain", _SYMBOLS["f64_tier" if narrow_f64 else dtype], _ARGTYPES)
         check_part_layout()
+        if quant:
+            base = table.data_ptr()
+            qargs = (base, quant["n_seg"], base + quant["vals_at"],
+                     base + quant["codes_at"])
+        else:
+            qargs = (None, 0, None, None)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             code = fn(ctypes.addressof(parts), len(plan.parts), int(gather),
-                      table.data_ptr(), table.numel(), n_smem, plan.n_run,
-                      ops, d, _HEAD_CODE[plan.head], k, group, threads,
-                      int(n_valid), smem,
+                      None if quant else table.data_ptr(), n_table, n_smem,
+                      plan.n_run, ops, d, _HEAD_CODE[plan.head], k, group,
+                      threads, int(n_valid), smem,
                       ptr(plan.row_col), ptr(plan.out_col),
-                      ptr(plan.pred_col), ptr(plan.raw_col), stream)
+                      ptr(plan.pred_col), ptr(plan.raw_col),
+                      rnd, pred_ty, raw_ty, *qargs, stream)
         _build.check("fused_chain", "chain", code)
         LAUNCHES.bump()
         return outs
@@ -649,17 +938,17 @@ def check_part_layout() -> None:
 
 
 def build_chain(kernels, ext_names: Sequence[str], out_names: Sequence[str],
-                device: torch.device):
-    """The chain program for ``device``: :func:`chain_plain` on the CPU,
-    a :class:`ChainProgram` (planned now, so an unsupported chain refuses
-    before anything runs) on CUDA."""
+                device: torch.device, policy=None):
+    """The chain program for ``device`` under ``policy``:
+    :func:`chain_plain` on the CPU, a :class:`ChainProgram` (planned now,
+    so an unsupported chain refuses before anything runs) on CUDA."""
     kernels = tuple(kernels)
     if device.type == "cpu":
         return functools.partial(chain_plain, kernels, tuple(ext_names),
-                                 tuple(out_names))
+                                 tuple(out_names), policy=policy)
     if device.type != "cuda":
         raise _refuse(f"device {device} is not CUDA")
-    return ChainProgram(kernels, ext_names, out_names)
+    return ChainProgram(kernels, ext_names, out_names, policy)
 
 
 def fused_chain(kernels, ext_names: Sequence[str], out_names: Sequence[str],

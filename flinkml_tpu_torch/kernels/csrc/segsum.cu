@@ -66,10 +66,22 @@
 //   run-flush's bits unchanged. The JAX _sorted_body adds every flush into
 //   zeros, so it too returns the sum on any ids.
 //
+// bfloat16 values (fml_segsum_bf16) take the same paths at T = bf16, whose
+// every add rounds to bf16 (Hopper's bf16 add, or a float32 add rounded,
+// which for two bf16 operands gives the same bits): the sorted run-flush
+// adds each run left to right from 0, rounding at each add, bit for bit as
+// the Pallas kernel's bf16 adds; the unsorted path reduces with
+// red.global.add.noftz.bf16x2 (an element as its 4-byte word, the
+// neighbour adding -0.0; two payload columns as one pair) and the repair
+// with bf16 atomics, in a run-dependent order. The sorted flat tile
+// stages 8 bf16 values a 16-byte copy, so its tiles start on the 8-cell
+// phase.
+//
 // No synchronisation and no allocation: the wrapper allocates `out` and
 // launches on PyTorch's current stream.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cstdint>
 
 namespace {
@@ -86,6 +98,10 @@ constexpr int kTile = kThreads * kOwn;
 constexpr int kChunk = 16;
 // The repair kernel's threads (one block).
 constexpr int kRepairThreads = 1024;
+// Sorted flat: the cells of one 16-byte copy of ids and values together
+// (the tiles start on this phase): 4, or 8 for bf16 values.
+template <typename T>
+constexpr int kPhaseCells = sizeof(T) == 2 ? 8 : 4;
 
 // ---------------------------------------------------------------- loads ----
 
@@ -117,6 +133,18 @@ __device__ __forceinline__ void load_v(const double* p, double* o) {
   }
 }
 
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p,
+                                       __nv_bfloat16* o) {
+  if constexpr (V == 2) {
+    const __nv_bfloat162 q = __ldcs(reinterpret_cast<const __nv_bfloat162*>(p));
+    o[0] = q.x;
+    o[1] = q.y;
+  } else {
+    o[0] = __ldcs(p);
+  }
+}
+
 // ---------------------------------------------------------- reductions ----
 
 // out[0..V) += v[0..V); the result is unused, so each is a RED.
@@ -137,6 +165,41 @@ __device__ __forceinline__ void red_v(double* p, const double* v) {
   for (int j = 0; j < V; ++j) atomicAdd(p + j, v[j]);
 }
 
+// *p += v with its result unused. For float and double atomicAdd compiles
+// to RED. A bf16 element is reduced as its aligned 4-byte word, the
+// neighbour adding -0.0 (x + -0 == x for every number x, signed zeros
+// included; a NaN stays NaN): one 32-bit bf16x2 RED in place of a 16-bit
+// one (cuda_bf16.h's atomicAdd is an ATOM; `chip_smoke.py --variants`
+// times the 16-bit RED beside this). The neighbour lies in the output's
+// allocation (the wrapper allocates it; allocations are whole 512-byte
+// blocks).
+__device__ __forceinline__ void red_add(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void red_add(double* p, double v) {
+  atomicAdd(p, v);
+}
+__device__ __forceinline__ void red_add(__nv_bfloat16* p, __nv_bfloat16 v) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const __nv_bfloat16 nz = __ushort_as_bfloat16(0x8000);  // -0.0
+  const __nv_bfloat162 q = (at & 2) ? __halves2bfloat162(nz, v)
+                                    : __halves2bfloat162(v, nz);
+  asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(at & ~uintptr_t(3)),
+               "r"(*reinterpret_cast<const unsigned*>(&q))
+               : "memory");
+}
+
+template <int V>
+__device__ __forceinline__ void red_v(__nv_bfloat16* p,
+                                      const __nv_bfloat16* v) {
+  if constexpr (V == 2) {
+    const __nv_bfloat162 q = __halves2bfloat162(v[0], v[1]);
+    asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(p),
+                 "r"(*reinterpret_cast<const unsigned*>(&q))
+                 : "memory");
+  } else {
+    red_add(p, v[0]);
+  }
+}
+
 // -------------------------------------------------------------- unsorted ----
 
 // Flat: a grid-stride loop, one RED per cell.
@@ -148,7 +211,7 @@ segsum_unsorted_flat(const T* __restrict__ values,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < cells; j += stride) {
-    atomicAdd(out + __ldg(ids + j), __ldg(values + j));
+    red_add(out + __ldg(ids + j), __ldg(values + j));
   }
 }
 
@@ -196,9 +259,9 @@ __device__ __forceinline__ void zero_head_tail(const int32_t* __restrict__ ids,
   const int gtid = (blockIdx.x * blockDim.y + threadIdx.y) * blockDim.x +
                    threadIdx.x;
   const int head = __ldg(ids) * k;
-  for (int e = gtid; e < head; e += n_threads) out[e] = T(0);
+  for (int e = gtid; e < head; e += n_threads) out[e] = T(0.0f);
   const int tail = (__ldg(ids + cells - 1) + 1) * k;
-  for (int e = tail + gtid; e < num_segments * k; e += n_threads) out[e] = T(0);
+  for (int e = tail + gtid; e < num_segments * k; e += n_threads) out[e] = T(0.0f);
 }
 
 // After a sorted kernel: when it flagged a descent, the sum into zeros
@@ -212,7 +275,7 @@ segsum_sorted_repair(const T* __restrict__ values,
   const bool repair = __ldcg(work) != 0u;
   __syncthreads();   // every thread has read the flag before it is cleared
   if (!repair) return;
-  for (int e = threadIdx.x; e < num_segments * k; e += blockDim.x) out[e] = T(0);
+  for (int e = threadIdx.x; e < num_segments * k; e += blockDim.x) out[e] = T(0.0f);
   __threadfence();
   __syncthreads();
   for (int e = threadIdx.x; e < cells * k; e += blockDim.x) {
@@ -256,7 +319,13 @@ __device__ __forceinline__ void stage(E* dst, const E* __restrict__ src,
 #pragma unroll
     for (int j = 0; j < per; ++j) {
       if (c + j >= 0 && c + j < cells) {
-        cp_async(dst + (q * per + j), src + c + j, sizeof(E));
+        if constexpr (sizeof(E) >= 4) {
+          cp_async(dst + (q * per + j), src + c + j, sizeof(E));
+        } else {
+          // cp.async copies 4, 8 or 16 bytes: a 2-byte edge element is a
+          // plain store (visible after the block's barrier).
+          dst[q * per + j] = src[c + j];
+        }
       }
     }
   }
@@ -282,6 +351,17 @@ __device__ __forceinline__ void read_own(const float* sv, int s0, float* v) {
     v[4 * h + 1] = q.y;
     v[4 * h + 2] = q.z;
     v[4 * h + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void read_own(const __nv_bfloat16* sv, int s0,
+                                         __nv_bfloat16* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(sv + s0);
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[h]);
+    v[2 * h] = p.x;
+    v[2 * h + 1] = p.y;
   }
 }
 __device__ __forceinline__ void read_own(const double* sv, int s0, double* v) {
@@ -311,7 +391,7 @@ __device__ __forceinline__ void zero_gaps(const int* lo, const int* hi,
     for (int i = 0; i < kOwn; ++i) {
       const int a = __shfl_sync(0xffffffffu, lo[i], src);
       const int b = __shfl_sync(0xffffffffu, hi[i], src);
-      for (int s = a + lane; s < b; s += 32) out[s] = T(0);
+      for (int s = a + lane; s < b; s += 32) out[s] = T(0.0f);
     }
   }
 }
@@ -329,9 +409,9 @@ segsum_sorted_flat(const T* __restrict__ values,
   zero_head_tail(ids, cells, 1, num_segments, out);
 
   // Tiles start on the aligned phase; the first one may start up to 3
-  // cells before cell 0 (those slots are never loaded or read).
+  // (bf16: 7) cells before cell 0 (those slots are never loaded or read).
   const bool aligned = phase >= 0;
-  const long long base0 = phase > 0 ? phase - 4 : 0;
+  const long long base0 = phase > 0 ? phase - kPhaseCells<T> : 0;
   const long long tb = base0 + static_cast<long long>(blockIdx.x) * kTile;
   stage(tid_s, ids, tb, cells, aligned);
   stage(tval_s, values, tb, cells, aligned);
@@ -351,7 +431,7 @@ segsum_sorted_flat(const T* __restrict__ values,
     cur = t > 0 ? tid_s[(kOwn * t - 1)] : __ldg(ids + c0 - 1);
   }
   bool owned = false, descent = false;
-  T acc = T(0);
+  T acc = T(0.0f);
   int lo[kOwn], hi[kOwn];
 #pragma unroll
   for (int i = 0; i < kOwn; ++i) {
@@ -367,7 +447,7 @@ segsum_sorted_flat(const T* __restrict__ values,
         }
         cur = id[i];
         owned = true;
-        acc = T(0);
+        acc = T(0.0f);
       }
       if (owned) acc += v[i];
     }
@@ -438,9 +518,9 @@ segsum_sorted_rows(const T* __restrict__ values,
     while (j < hi) {
       const int id = __ldg(ids + j);
       if (j > 0) {
-        for (int s = cur + 1; s < id; ++s) out[s * k + col] = T(0);
+        for (int s = cur + 1; s < id; ++s) out[s * k + col] = T(0.0f);
       }
-      T acc = T(0);
+      T acc = T(0.0f);
       do {
         acc += __ldg(values + j * k + col);
         ++j;
@@ -486,7 +566,7 @@ int launch(bool sorted, const void* values, const void* ids, int cells,
     // One tile per block: the blocks resident on an SM overlap one tile's
     // copies with another's sums.
     const size_t smem = kTile * (sizeof(int32_t) + sizeof(T));
-    const long long base0 = phase > 0 ? phase - 4 : 0;
+    const long long base0 = phase > 0 ? phase - kPhaseCells<T> : 0;
     const long long tiles = (cells - base0 + kTile - 1) / kTile;
     segsum_sorted_flat<T><<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
         v, i, cells, num_segments, phase, o, work);
@@ -540,6 +620,14 @@ extern "C" int fml_segsum_f64(int sorted, const void* values, const void* ids,
                               int vec, void* out, void* work, void* stream) {
   return launch<double>(sorted != 0, values, ids, cells, k, num_segments,
                         phase, vec, out, work, stream);
+}
+
+extern "C" int fml_segsum_bf16(int sorted, const void* values,
+                               const void* ids, int cells, int k,
+                               int num_segments, int phase, int vec,
+                               void* out, void* work, void* stream) {
+  return launch<__nv_bfloat16>(sorted != 0, values, ids, cells, k,
+                               num_segments, phase, vec, out, work, stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

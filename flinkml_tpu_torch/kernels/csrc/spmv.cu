@@ -35,12 +35,18 @@
 // tile by tile, each thread adds its own products in order, and a fixed
 // tree over the block's threads sums them.
 //
+// bfloat16 values and w (fml_spmv_bf16): each cell's value and w entry
+// widen to float32, the products and the row sums run in float32, and the
+// row's sum rounds once to bf16 as it is stored. A 4-cell group of values
+// is one 8-byte load.
+//
 // The kernel trusts 0 <= indices < dim: the host checks that when it packs
 // the buckets (ops/sparse.py), because a CUDA gather, unlike the JAX one,
 // does not clamp. No synchronisation and no allocation: the wrapper
 // allocates `out` and launches on PyTorch's current stream.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cstdint>
 
 namespace {
@@ -49,6 +55,39 @@ constexpr int kThreads = 256;
 constexpr int kGroups = 2;  // 4-cell groups per thread per tile
 constexpr int kTileCells = kThreads * 4 * kGroups;
 
+// The arithmetic type of a storage type: bf16 computes in float32.
+template <typename S> struct Acc { using T = S; };
+template <> struct Acc<__nv_bfloat16> { using T = float; };
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename S>
+__device__ __forceinline__ S from_acc(typename Acc<S>::T v) {
+  if constexpr (sizeof(S) == 2) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+// w[i] and values[c] at the arithmetic type.
+template <typename S>
+__device__ __forceinline__ typename Acc<S>::T ld(const S* p, int64_t i) {
+  return to_acc(__ldg(p + i));
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* v, int64_t c,
+                                      float* o) {
+  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(v + c));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  o[0] = __low2float(a);
+  o[1] = __high2float(a);
+  o[2] = __low2float(b);
+  o[3] = __high2float(b);
+}
 __device__ __forceinline__ void load4(const float* v, int64_t c, float* o) {
   const float4 q = __ldcs(reinterpret_cast<const float4*>(v + c));
   o[0] = q.x;
@@ -83,11 +122,12 @@ __device__ __forceinline__ void split_cells(int64_t c0, int cells, int phase,
 // below nvec) of cells starting at `first`, handed to `put(cell, product)`
 // with the cell relative to `first`; every load is issued before the
 // gathers, and every gather before the first multiply.
-template <typename T, typename Put>
+template <typename S, typename Put>
 __device__ __forceinline__ void vector_products(
-    const int32_t* __restrict__ indices, const T* __restrict__ values,
-    const T* __restrict__ w, int64_t first, int q0, int stride, int nvec,
+    const int32_t* __restrict__ indices, const S* __restrict__ values,
+    const S* __restrict__ w, int64_t first, int q0, int stride, int nvec,
     Put put) {
+  using T = typename Acc<S>::T;
   int4 iv[kGroups];
   T vv[kGroups][4];
   T wv[kGroups][4];
@@ -102,10 +142,10 @@ __device__ __forceinline__ void vector_products(
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
     if (q0 + g * stride < nvec) {
-      wv[g][0] = __ldg(w + iv[g].x);
-      wv[g][1] = __ldg(w + iv[g].y);
-      wv[g][2] = __ldg(w + iv[g].z);
-      wv[g][3] = __ldg(w + iv[g].w);
+      wv[g][0] = ld(w, iv[g].x);
+      wv[g][1] = ld(w, iv[g].y);
+      wv[g][2] = ld(w, iv[g].z);
+      wv[g][3] = ld(w, iv[g].w);
     }
   }
 #pragma unroll
@@ -120,12 +160,13 @@ __device__ __forceinline__ void vector_products(
 
 // Rows of at most kTileCells cells: block b owns rows
 // [b * rows_per_tile, ...), summed by groups of `group` lanes.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
 spmv_tile_kernel(const int32_t* __restrict__ indices,
-                 const T* __restrict__ values, const T* __restrict__ w,
+                 const S* __restrict__ values, const S* __restrict__ w,
                  int64_t rows, int width, int rows_per_tile, int group,
-                 int phase, T* __restrict__ out) {
+                 int phase, S* __restrict__ out) {
+  using T = typename Acc<S>::T;
   __shared__ T prod[kTileCells];
   const int tid = threadIdx.x;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_tile;
@@ -140,10 +181,10 @@ spmv_tile_kernel(const int32_t* __restrict__ indices,
   vector_products(indices, values, w, c0 + head, tid, kThreads, nvec,
                   [&](int c, T p) { prod[head + c] = p; });
   for (int c = tid; c < head; c += kThreads) {
-    prod[c] = values[c0 + c] * __ldg(w + indices[c0 + c]);
+    prod[c] = to_acc(values[c0 + c]) * ld(w, indices[c0 + c]);
   }
   for (int c = tail + tid; c < cells; c += kThreads) {
-    prod[c] = values[c0 + c] * __ldg(w + indices[c0 + c]);
+    prod[c] = to_acc(values[c0 + c]) * ld(w, indices[c0 + c]);
   }
   __syncthreads();
 
@@ -157,16 +198,17 @@ spmv_tile_kernel(const int32_t* __restrict__ indices,
     for (int off = group >> 1; off > 0; off >>= 1) {
       acc += __shfl_xor_sync(mask, acc, off);
     }
-    if (lane_g == 0) out[r0 + r] = acc;
+    if (lane_g == 0) out[r0 + r] = from_acc<S>(acc);
   }
 }
 
 // Rows wider than a tile: one block per row.
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
 spmv_wide_kernel(const int32_t* __restrict__ indices,
-                 const T* __restrict__ values, const T* __restrict__ w,
-                 int width, int phase, T* __restrict__ out) {
+                 const S* __restrict__ values, const S* __restrict__ w,
+                 int width, int phase, S* __restrict__ out) {
+  using T = typename Acc<S>::T;
   __shared__ T part[kThreads / 32];
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x;
@@ -180,10 +222,10 @@ spmv_wide_kernel(const int32_t* __restrict__ indices,
                     [&](int, T p) { acc += p; });
   }
   for (int c = tid; c < head; c += kThreads) {
-    acc += values[c0 + c] * __ldg(w + indices[c0 + c]);
+    acc += to_acc(values[c0 + c]) * ld(w, indices[c0 + c]);
   }
   for (int c = tail + tid; c < width; c += kThreads) {
-    acc += values[c0 + c] * __ldg(w + indices[c0 + c]);
+    acc += to_acc(values[c0 + c]) * ld(w, indices[c0 + c]);
   }
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -193,7 +235,7 @@ spmv_wide_kernel(const int32_t* __restrict__ indices,
   if (tid == 0) {
     T sum = T(0);
     for (int i = 0; i < kThreads / 32; ++i) sum += part[i];
-    out[row] = sum;
+    out[row] = from_acc<S>(sum);
   }
 }
 
@@ -238,6 +280,13 @@ extern "C" int fml_spmv_f64(const void* indices, const void* values,
                             const void* w, int64_t rows, int width, int phase,
                             void* out, void* stream) {
   return launch<double>(indices, values, w, rows, width, phase, out, stream);
+}
+
+extern "C" int fml_spmv_bf16(const void* indices, const void* values,
+                             const void* w, int64_t rows, int width,
+                             int phase, void* out, void* stream) {
+  return launch<__nv_bfloat16>(indices, values, w, rows, width, phase, out,
+                               stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

@@ -56,11 +56,17 @@
 //   the elements inside that boundary and outside the previous one, and
 //   sorts them into ranks [b * kSortCap, ...). There is no k ceiling.
 //
+// bfloat16 (fml_topk_bf16): each element is widened to its float32 bits as
+// it is loaded (exact, and the same order), so the keys, the routes and the
+// order rules are float32's; the values written back are the keys' top 16
+// bits, bit for bit the input elements. Its loads are element by element.
+//
 // No synchronisation and no allocation: the wrapper allocates the outputs
 // and the scratch (fml_topk_scratch_bytes), and the launches run on
 // PyTorch's current stream. Every launch is checked with cudaGetLastError.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -83,11 +89,18 @@ enum Route { kFused = 0, kScan = 1, kRadix = 2 };
 
 template <typename F>
 struct Traits;
+// U: the order key's width; B: the stored element's bits; load(p, i):
+// element i's bits widened to U; kVecLoads: the routes' 16-byte loads.
 template <>
 struct Traits<float> {
   using U = uint32_t;
+  using B = uint32_t;
   using V = uint4;
   static constexpr int kVec = 4;
+  static constexpr bool kVecLoads = true;
+  static __device__ __forceinline__ U load(const B* p, int64_t i) {
+    return __ldg(p + i);
+  }
   static __device__ __forceinline__ float from_bits(U u) {
     return __uint_as_float(u);
   }
@@ -95,10 +108,32 @@ struct Traits<float> {
 template <>
 struct Traits<double> {
   using U = unsigned long long;
+  using B = unsigned long long;
   using V = ulonglong2;
   static constexpr int kVec = 2;
+  static constexpr bool kVecLoads = true;
+  static __device__ __forceinline__ U load(const B* p, int64_t i) {
+    return __ldg(p + i);
+  }
   static __device__ __forceinline__ double from_bits(U u) {
     return __longlong_as_double(static_cast<long long>(u));
+  }
+};
+// bf16: each element widened to its float32 bits (the same value, so the
+// key order is the same), keys and selection as float32; the values are
+// the keys' top 16 bits. Element by element loads.
+template <>
+struct Traits<__nv_bfloat16> {
+  using U = uint32_t;
+  using B = unsigned short;
+  using V = uint4;
+  static constexpr int kVec = 4;
+  static constexpr bool kVecLoads = false;
+  static __device__ __forceinline__ U load(const B* p, int64_t i) {
+    return static_cast<U>(__ldg(p + i)) << 16;
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_bits(U u) {
+    return __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
   }
 };
 
@@ -254,11 +289,12 @@ topk_fused_kernel(const F* __restrict__ x, int n, int k, int p2,
   U* skey = keys + (n + kVec - 1) / kVec * kVec;
   int* sidx = reinterpret_cast<int*>(skey + p2);
   const int64_t row = blockIdx.x;
-  const U* xr = reinterpret_cast<const U*>(x) + row * n;
+  const typename Traits<F>::B* xr =
+      reinterpret_cast<const typename Traits<F>::B*>(x) + row * n;
 
   // 1. Stage the row's order keys (16-byte loads where the row is aligned).
   int head = 0;
-  if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+  if (Traits<F>::kVecLoads && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
     const int nv = n / kVec;
     const V* xv = reinterpret_cast<const V*>(xr);
     V* kv = reinterpret_cast<V*>(keys);
@@ -272,7 +308,7 @@ topk_fused_kernel(const F* __restrict__ x, int n, int k, int p2,
     head = nv * kVec;
   }
   for (int i = head + tid; i < n; i += kThreads) {
-    keys[i] = to_key(__ldg(xr + i));
+    keys[i] = to_key(Traits<F>::load(xr, i));
   }
   if (tid == 0) {
     s_prefix = 0;
@@ -415,7 +451,8 @@ topk_scan_kernel(const F* __restrict__ x, int n, int k, int vec,
   U* keys = reinterpret_cast<U*>(smem);
   int* idxs = reinterpret_cast<int*>(keys + static_cast<size_t>(k) * T);
   const int64_t row = blockIdx.x;
-  const U* bits = reinterpret_cast<const U*>(x) + row * n;
+  const typename Traits<F>::B* bits =
+      reinterpret_cast<const typename Traits<F>::B*>(x) + row * n;
 
   int cnt = 0;
   U worst = 0;  // the k-th kept key, once cnt == k
@@ -470,11 +507,11 @@ topk_scan_kernel(const F* __restrict__ x, int n, int k, int vec,
     for (; i + (kUnroll - 1) * T < n; i += kUnroll * T) {
       U b[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) b[u] = __ldg(bits + i + u * T);
+      for (int u = 0; u < kUnroll; ++u) b[u] = Traits<F>::load(bits, i + u * T);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) offer(to_key(b[u]), i + u * T);
     }
-    for (; i < n; i += T) offer(to_key(__ldg(bits + i)), i);
+    for (; i < n; i += T) offer(to_key(Traits<F>::load(bits, i)), i);
   }
 
   const int n_warps = T >> 5;
@@ -569,7 +606,8 @@ topk_select_kernel(const F* __restrict__ x, int n, int segs, int seg_len,
   const U prefix = s.prefix, mask = s.mask;
   for (int b = tid; b < kBins; b += kThreads) h[b] = 0;
   __syncthreads();
-  const U* xr = reinterpret_cast<const U*>(x) + row * n;
+  const typename Traits<F>::B* xr =
+      reinterpret_cast<const typename Traits<F>::B*>(x) + row * n;
   const int64_t lo = static_cast<int64_t>(seg) * seg_len;
   const int64_t hi = min(static_cast<int64_t>(n), lo + seg_len);
   auto add = [&](U u) {
@@ -581,11 +619,11 @@ topk_select_kernel(const F* __restrict__ x, int n, int segs, int seg_len,
   for (; i + (kUnroll - 1) * kThreads < hi; i += kUnroll * kThreads) {
     U b[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) b[u] = __ldg(xr + i + u * kThreads);
+    for (int u = 0; u < kUnroll; ++u) b[u] = Traits<F>::load(xr, i + u * kThreads);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) add(to_key(b[u]));
   }
-  for (; i < hi; i += kThreads) add(to_key(__ldg(xr + i)));
+  for (; i < hi; i += kThreads) add(to_key(Traits<F>::load(xr, i)));
   __syncthreads();
   for (int b = tid; b < kBins; b += kThreads) {
     if (h[b]) atomicAdd(&s.hist[b], h[b]);
@@ -640,14 +678,15 @@ topk_count_kernel(const F* __restrict__ x, int n, int segs, int seg_len,
   const int seg = blockIdx.x % segs;
   const U lp = lo_st[row].prefix, lm = lo_st[row].mask;
   const U hp = hi_st[row].prefix, hm = hi_st[row].mask;
-  const U* xr = reinterpret_cast<const U*>(x) + row * n;
+  const typename Traits<F>::B* xr =
+      reinterpret_cast<const typename Traits<F>::B*>(x) + row * n;
   int64_t a, b;
   warp_range(n, seg, seg_len, a, b);
   int e_lo = 0, e_hi = 0;
   for (int64_t base = a; base < b; base += 32) {
     const int64_t i = base + lane;
     const bool valid = i < b;
-    const U u = valid ? to_key(__ldg(xr + i)) : U(0);
+    const U u = valid ? to_key(Traits<F>::load(xr, i)) : U(0);
     e_lo += __popc(__ballot_sync(0xffffffffu, valid && (u & lm) == lp));
     e_hi += __popc(__ballot_sync(0xffffffffu, valid && (u & hm) == hp));
   }
@@ -709,14 +748,15 @@ topk_write_kernel(const F* __restrict__ x, int n, int segs, int seg_len,
     base_hi += rc[2 * (before_blk + w) + 1];
   }
 
-  const U* xr = reinterpret_cast<const U*>(x) + row * n;
+  const typename Traits<F>::B* xr =
+      reinterpret_cast<const typename Traits<F>::B*>(x) + row * n;
   const unsigned below = lanes_below();
   int64_t a, b;
   warp_range(n, seg, seg_len, a, b);
   for (int64_t base = a; base < b; base += 32) {
     const int64_t i = base + lane;
     const bool valid = i < b;
-    const U u = valid ? to_key(__ldg(xr + i)) : U(0);
+    const U u = valid ? to_key(Traits<F>::load(xr, i)) : U(0);
     const bool e_lo = valid && (u & lm) == lp;
     const bool e_hi = valid && (u & hm) == hp;
     const unsigned b_lo = __ballot_sync(0xffffffffu, e_lo);
@@ -902,7 +942,8 @@ int launch(const void* xv, int64_t rows, int n, int k, int route, int segs,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
       // 16-byte loads when every row starts 16-byte aligned.
-      const int vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+      const int vec = Traits<F>::kVecLoads &&
+                      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                       (static_cast<size_t>(n) * sizeof(F)) % 16 == 0;
       topk_scan_kernel<F><<<row_blocks, t, smem, s>>>(x, n, k, vec, val, idx);
       FML_CHECK_LAUNCH();
@@ -938,6 +979,13 @@ extern "C" int fml_topk_f64(const void* x, int64_t rows, int n, int k,
                         stream);
 }
 
+extern "C" int fml_topk_bf16(const void* x, int64_t rows, int n, int k,
+                             int route, int segs, void* values,
+                             void* indices, void* scratch, void* stream) {
+  return launch<__nv_bfloat16>(x, rows, n, k, route, segs, values, indices,
+                               scratch, stream);
+}
+
 extern "C" int64_t fml_topk_scratch_bytes_f32(int64_t rows, int k, int route,
                                               int segs) {
   return scratch_bytes<float>(rows, k, route, segs);
@@ -946,6 +994,11 @@ extern "C" int64_t fml_topk_scratch_bytes_f32(int64_t rows, int k, int route,
 extern "C" int64_t fml_topk_scratch_bytes_f64(int64_t rows, int k, int route,
                                               int segs) {
   return scratch_bytes<double>(rows, k, route, segs);
+}
+
+extern "C" int64_t fml_topk_scratch_bytes_bf16(int64_t rows, int k,
+                                               int route, int segs) {
+  return scratch_bytes<__nv_bfloat16>(rows, k, route, segs);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

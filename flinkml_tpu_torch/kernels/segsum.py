@@ -49,8 +49,9 @@ import torch
 from flinkml_tpu_torch.kernels import _build, _gate
 from flinkml_tpu_torch.kernels.spmv import vector_phase
 
-#: Value types the CUDA kernel takes (ids are int32).
-SUPPORTED_DTYPES = (torch.float32, torch.float64)
+#: Value types the CUDA kernel takes (ids are int32; bfloat16 adds round
+#: at each add, as the Pallas kernel's).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 LAUNCHES = _gate.launch_counter("segment_sum")
 
@@ -70,7 +71,8 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int,                        # phase, vec
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, work, stream
 ]
-_SYMBOLS = {torch.float32: "fml_segsum_f32", torch.float64: "fml_segsum_f64"}
+_SYMBOLS = {torch.float32: "fml_segsum_f32", torch.float64: "fml_segsum_f64",
+            torch.bfloat16: "fml_segsum_bf16"}
 _INT32_LIMIT = 2**31
 
 
@@ -96,7 +98,16 @@ def _zeros(values: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """The plain PyTorch version: ``index_add_`` into zeros."""
+    """The plain PyTorch version: ``index_add_`` into zeros (on the CPU it
+    adds in cell order, rounding each add at the values' dtype; a bfloat16
+    ``[cells, k]`` payload goes through the flat form, whose adds keep that
+    order)."""
+    if values.dtype == torch.bfloat16 and values.dim() == 2:
+        k = values.shape[1]
+        flat = (ids.long()[:, None] * k
+                + torch.arange(k, device=ids.device)).reshape(-1)
+        return _zeros(values, num_segments).view(-1).index_add_(
+            0, flat, values.reshape(-1)).view(num_segments, k)
     return _zeros(values, num_segments).index_add_(0, ids.long(), values)
 
 
@@ -113,7 +124,7 @@ def unsupported_reason(values, ids, num_segments: int,
         return f"ids dtype {ids.dtype} is not int32"
     if values.dtype not in SUPPORTED_DTYPES:
         return (f"values dtype {values.dtype} is not supported (supported: "
-                "float32, float64)")
+                "float32, float64, bfloat16)")
     if values.device != ids.device:
         return f"values on {values.device} but ids on {ids.device}"
     if num_segments < 0:
@@ -133,8 +144,9 @@ def unsupported_reason(values, ids, num_segments: int,
 def payload_vector(values: torch.Tensor) -> int:
     """Payload columns per vector load and reduction on the unsorted
     ``[cells, k]`` path: 4 (float32) or 2 when ``k`` and the values' base
-    alignment allow 16- or 8-byte accesses, else 1. float64 has no vector
-    reduction, only the 16-byte load of 2 columns."""
+    alignment allow 16- or 8-byte accesses (bfloat16: 2 in 4 bytes), else
+    1. float64 has no vector reduction, only the 16-byte load of 2
+    columns."""
     k, item, ptr = values.shape[1], values.element_size(), values.data_ptr()
     for vec in ((4, 2) if item == 4 else (2,)):
         if k % vec == 0 and ptr % (vec * item) == 0:
@@ -142,17 +154,25 @@ def payload_vector(values: torch.Tensor) -> int:
     return 1
 
 
-def sorted_tile_bases(cells: int, phase: int) -> List[int]:
+def phase_cells(values: torch.Tensor) -> int:
+    """Cells of one 16-byte copy of ids and values together on the sorted
+    flat path (``csrc/segsum.cu`` kPhaseCells): 4, or 8 for bfloat16."""
+    return 8 if values.element_size() == 2 else 4
+
+
+def sorted_tile_bases(cells: int, phase: int, group: int = 4) -> List[int]:
     """First cell of every tile of the sorted flat kernel: tiles of
     :data:`SORTED_TILE` cells start on the 16-byte ``phase`` (the first one
-    up to 3 cells before cell 0), or at cell 0 when no phase aligns
+    up to ``group - 1`` cells before cell 0; ``group``:
+    :func:`phase_cells`), or at cell 0 when no phase aligns
     (``phase < 0``)."""
-    base0 = phase - 4 if phase > 0 else 0
+    base0 = phase - group if phase > 0 else 0
     return list(range(base0, cells, SORTED_TILE))
 
 
 def sorted_plan(ids: np.ndarray, num_segments: int, k: int = 1,
-                phase: int = 0) -> List[Tuple[int, int, int, int]]:
+                phase: int = 0,
+                group: int = 4) -> List[Tuple[int, int, int, int]]:
     """The sorted kernel's final writes, computed by its own rules: a list
     of ``(segment, writer, first, end)``, one per output segment (each of
     its ``k`` columns by the same writer).
@@ -181,7 +201,7 @@ def sorted_plan(ids: np.ndarray, num_segments: int, k: int = 1,
     writes += [(s, -1, 0, 0) for s in range(int(ids[-1]) + 1, num_segments)]
     if k == 1:
         owners = [(b + SORTED_OWN * t, b + SORTED_OWN * (t + 1))
-                  for b in sorted_tile_bases(cells, phase)
+                  for b in sorted_tile_bases(cells, phase, group)
                   for t in range(SORTED_TILE // SORTED_OWN)]
     else:
         owners = [(lo, lo + SORTED_CHUNK)
@@ -231,7 +251,8 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     out = new(shape, dtype=values.dtype, device=values.device)
     # The 16-byte phase of ids and values: the sorted flat kernel's tiles.
     sorted_flat = indices_are_sorted and k == 1
-    phase = vector_phase(ids, values) if sorted_flat else -1
+    phase = (vector_phase(ids, values, phase_cells(values)) if sorted_flat
+             else -1)
     vec = payload_vector(values) if k > 1 else 1
     fn = _build.function("segsum", _SYMBOLS[values.dtype], _ARGTYPES)
     with torch.cuda.device(values.device):

@@ -26,8 +26,9 @@ import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
 
-#: Compute types the CUDA kernel takes (values and w share one).
-SUPPORTED_DTYPES = (torch.float32, torch.float64)
+#: Value types the CUDA kernel takes (values and w share one; bfloat16
+#: multiplies and sums in float32 and rounds each row's sum once).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 LAUNCHES = _gate.launch_counter("spmv")
 
@@ -36,24 +37,32 @@ _ARGTYPES = [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int,          # rows, width, phase
     ctypes.c_void_p, ctypes.c_void_p,                    # out, stream
 ]
-_SYMBOLS = {torch.float32: "fml_spmv_f32", torch.float64: "fml_spmv_f64"}
+_SYMBOLS = {torch.float32: "fml_spmv_f32", torch.float64: "fml_spmv_f64",
+            torch.bfloat16: "fml_spmv_bf16"}
 
 
 def spmv_plain(indices: torch.Tensor, values: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: gather, multiply, sum over the slots."""
+    """The plain PyTorch version: gather, multiply, sum over the slots
+    (bfloat16: in float32, each row's sum rounded once, as the kernel)."""
+    if values.dtype == torch.bfloat16:
+        return torch.sum(values.float() * w[indices.long()].float(),
+                         dim=1).to(torch.bfloat16)
     return torch.sum(values * w[indices.long()], dim=1)
 
 
-def vector_phase(indices: torch.Tensor, values: torch.Tensor) -> int:
-    """The cell position modulo 4 at which both ``indices`` and ``values``
-    start a 16-byte aligned group of 4 cells (the kernel's vector loads),
-    or -1 when no position aligns both (the kernel then loads each cell
-    alone). Read from the base pointers: a bucket view may start at any
-    cell."""
+def vector_phase(indices: torch.Tensor, values: torch.Tensor,
+                 cells: int = 4) -> int:
+    """The cell position modulo ``cells`` at which ``indices`` starts a
+    16-byte aligned group of cells and ``values`` an aligned group of
+    ``cells`` values (16 bytes, or less for narrower values: the kernels'
+    vector loads), or -1 when no position aligns both (the kernel then
+    loads each cell alone). Read from the base pointers: a bucket view may
+    start at any cell."""
     ip, vp, item = indices.data_ptr(), values.data_ptr(), values.element_size()
-    for phase in range(4):
-        if (ip + 4 * phase) % 16 == 0 and (vp + item * phase) % 16 == 0:
+    align = min(16, cells * item)
+    for phase in range(cells):
+        if (ip + 4 * phase) % 16 == 0 and (vp + item * phase) % align == 0:
             return phase
     return -1
 
@@ -72,7 +81,7 @@ def unsupported_reason(indices, values, w) -> Optional[str]:
         return f"indices dtype {indices.dtype} is not int32"
     if values.dtype not in SUPPORTED_DTYPES:
         return (f"values dtype {values.dtype} is not supported (supported: "
-                "float32, float64)")
+                "float32, float64, bfloat16)")
     if values.dtype != w.dtype:
         return f"values dtype {values.dtype} != w dtype {w.dtype}"
     devices = {indices.device, values.device, w.device}

@@ -28,8 +28,9 @@ import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
 
-#: Value types the CUDA kernel takes.
-SUPPORTED_DTYPES = (torch.float32, torch.float64)
+#: Value types the CUDA kernel takes (bfloat16: each element widened to its
+#: float32 key as it is loaded).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 #: Dynamic shared memory the ``fused`` route may use for a row's keys and
 #: its sort buffer (the kernel accepts up to 220 KB of the H100's 227 KB).
@@ -63,7 +64,8 @@ _ARGTYPES = [
 ]
 _SCRATCH_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int]                       # rows, k, route, segs
-_SYMBOLS = {torch.float32: "f32", torch.float64: "f64"}
+_SYMBOLS = {torch.float32: "f32", torch.float64: "f64",
+            torch.bfloat16: "bf16"}
 _INT32_LIMIT = 2**31
 #: The signed integer view of each float width, and its magnitude mask.
 _KEY_VIEW = {2: (torch.int16, 0x7FFF), 4: (torch.int32, 0x7FFFFFFF),
@@ -89,6 +91,10 @@ def top_k_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"k={k} outside [0, n={n}]")
     _, order = torch.sort(order_keys(x), dim=-1, descending=True, stable=True)
     idx = order[..., :k]
+    if x.dtype == torch.bfloat16:
+        # Gathered as bits: PyTorch's bfloat16 gather rewrites a NaN's bits.
+        bits = torch.gather(x.contiguous().view(torch.int16), -1, idx)
+        return bits.view(torch.bfloat16), idx.to(torch.int32)
     return torch.gather(x, -1, idx), idx.to(torch.int32)
 
 
@@ -135,7 +141,7 @@ def unsupported_reason(x: torch.Tensor, k: int) -> Optional[str]:
         return f"operand must be [n] or [rows, n], got rank {x.dim()}"
     if x.dtype not in SUPPORTED_DTYPES:
         return (f"operand dtype {x.dtype} is not supported (supported: "
-                "float32, float64; integer ranking has no kernel)")
+                "float32, float64, bfloat16; integer ranking has no kernel)")
     n = x.shape[-1]
     if not 1 <= k <= n:
         return f"k={k} outside [1, n={n}]"
@@ -158,7 +164,13 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if reason is not None:
         raise _gate.refuse("topk", reason)
     rows = 1 if x.dim() == 1 else x.shape[0]
-    return launch(x, k, route(rows, x.shape[-1], k, x.element_size()))
+    return launch(x, k, route(rows, x.shape[-1], k, key_bytes(x.dtype)))
+
+
+def key_bytes(dtype: torch.dtype) -> int:
+    """Bytes of the kernel's order key for ``dtype``: bfloat16 ranks by its
+    float32 key."""
+    return 4 if dtype == torch.bfloat16 else dtype.itemsize
 
 
 def launch(x: torch.Tensor, k: int,

@@ -54,6 +54,7 @@ from flinkml_tpu_torch.ops import blas
 from flinkml_tpu_torch.ops.distance import DistanceMeasure
 from flinkml_tpu_torch.params import IntParam, ParamValidators, StringParam
 from flinkml_tpu_torch.parallel import pad_to_multiple
+from flinkml_tpu_torch.precision import chain_policy
 from flinkml_tpu_torch.table import Table
 
 #: Row tile of the padded point matrix (the JAX package's per-device
@@ -205,6 +206,12 @@ class KMeansModel(_KMeansParams, Model):
                 x = x.reshape(-1, 1)
             if not x.dtype.is_floating_point:
                 x = x.to(torch.float64)
+            pol = chain_policy()
+            if pol is not None and pol.declared:
+                # The distances at policy.compute, their sums too (plain
+                # dtype propagation, as the JAX kernel): the precision
+                # check refuses this stage where accum is wider.
+                x = x.to(pol.compute_dtype)
             c = torch.as_tensor(consts["centroids"]).to(device=x.device,
                                                          dtype=x.dtype)
             return {pcol: torch.argmin(blas.squared_distances(x, c), dim=-1)}
@@ -215,6 +222,7 @@ class KMeansModel(_KMeansParams, Model):
             fingerprint=("KMeansModel", fcol, pcol, "euclidean"),
             # As the JAX package: the input column is an eager output.
             pin_inputs=True,
+            accumulates="compute",
         )
 
 

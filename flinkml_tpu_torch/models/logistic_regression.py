@@ -74,6 +74,7 @@ from flinkml_tpu_torch.models._data import (
     labeled_sparse_data,
     sparse_features,
 )
+from flinkml_tpu_torch.precision import chain_policy
 from flinkml_tpu_torch.table import Table
 
 
@@ -95,25 +96,29 @@ class _LogisticRegressionParams(
     LogisticRegressionParams / LogisticRegressionModelParams)."""
 
 
-def _predict(x: torch.Tensor, coef) -> Tuple[torch.Tensor, torch.Tensor]:
-    """prediction = 1[dot >= 0]; raw = [1-p, p], in ``x``'s dtype."""
+def _predict(x: torch.Tensor, coef,
+             pred_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """prediction = 1[dot >= 0] (in ``pred_dtype``, default ``x``'s); raw =
+    [1-p, p], in ``x``'s dtype."""
     coef = torch.as_tensor(coef).to(device=x.device, dtype=x.dtype)
     dot = torch.matmul(x, coef)
     p = torch.sigmoid(dot)
-    pred = (dot >= 0).to(x.dtype)
+    pred = (dot >= 0).to(pred_dtype or x.dtype)
     raw = torch.stack([1.0 - p, p], dim=-1)
     return pred, raw
 
 
-def _predict_multinomial(x: torch.Tensor, coef) -> Tuple[torch.Tensor, torch.Tensor]:
+def _predict_multinomial(x: torch.Tensor, coef,
+                         pred_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """prediction = argmax of the logits ``x @ coef.T`` (first index on
-    ties, the first NaN if any); raw = their softmax (max-subtracted, exp
-    over its sum, as ``jax.nn.softmax``), in ``x``'s dtype."""
+    ties, the first NaN if any; in ``pred_dtype``, default ``x``'s); raw =
+    their softmax (max-subtracted, exp over its sum, as
+    ``jax.nn.softmax``), in ``x``'s dtype."""
     coef = torch.as_tensor(coef).to(device=x.device, dtype=x.dtype)
     logits = torch.matmul(x, coef.T)
     e = torch.exp(logits - torch.max(logits, dim=-1, keepdim=True).values)
     raw = e / torch.sum(e, dim=-1, keepdim=True)
-    pred = torch.argmax(logits, dim=-1).to(x.dtype)
+    pred = torch.argmax(logits, dim=-1).to(pred_dtype or x.dtype)
     return pred, raw
 
 
@@ -190,7 +195,19 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
                 x = x.reshape(-1, 1)
             if not x.dtype.is_floating_point:
                 x = x.to(torch.float64)
-            pred, raw = predict(x, consts["coefficient"])
+            pol = chain_policy()
+            if pol is None or not pol.declared:
+                pred, raw = predict(x, consts["coefficient"])
+                return {pcol: pred, rcol: raw}
+            # Under a declared policy (as the JAX kernel): the features and
+            # the coefficients at policy.compute, the product accumulating
+            # at policy.accum (bfloat16 values multiply exactly in float32),
+            # the prediction at policy.compute.
+            kdt, adt = pol.compute_dtype, pol.accum_dtype
+            coef = torch.as_tensor(consts["coefficient"]).to(
+                device=x.device, dtype=kdt)
+            pred, raw = predict(x.to(kdt).to(adt), coef.to(adt),
+                                pred_dtype=kdt)
             return {pcol: pred, rcol: raw}
 
         return ColumnKernel(
@@ -199,6 +216,7 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
             fingerprint=("LogisticRegressionModel", fcol, pcol, rcol,
                          multinomial),
             pin_inputs=True,
+            accumulates="accum",
         )
 
 

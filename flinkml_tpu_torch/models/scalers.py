@@ -224,7 +224,11 @@ class MinMaxScalerModel(_ScalerModel):
         span = c["dataMax"] - c["dataMin"]
         # Constant features map to the middle of the output range.
         unit = torch.where(span > 0, (x - c["dataMin"]) / _guard(span), 0.5)
-        return unit * (hi - lo) + lo
+        # The range's scale and offset round to the unit's dtype first, as
+        # the JAX package's python scalars do (torch would keep them in
+        # float32 against a bfloat16 tensor).
+        return (unit * torch.tensor(hi - lo, dtype=unit.dtype)
+                + torch.tensor(lo, dtype=unit.dtype))
 
 
 class MaxAbsScaler(_HasInputOutputCol, Estimator):

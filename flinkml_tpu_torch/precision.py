@@ -1,0 +1,313 @@
+"""PrecisionPolicy — the declared mixed-precision contract of serving.
+
+The port's counterpart of ``flinkml_tpu.precision``. A policy names three
+float widths and an optional quantization scheme:
+
+- ``compute`` — the width the chain's elementwise and matmul work runs in
+  (``bfloat16`` in the mixed tiers);
+- ``accum`` — the least width any reduction (a dot, a distance sum, a
+  softmax denominator) may run in;
+- ``params`` — the width model constants are stored in;
+- ``quant`` — ``"int8"``: eligible model constants travel as per-column
+  absmax int8 codes with float32 scales (:func:`quantize_absmax`) and are
+  dequantized to ``compute`` width inside the chain.
+
+A policy is frozen and hashable (it keys the fused executor's program
+cache, so a bfloat16, an int8 and a float32 program never alias) and
+round-trips through JSON. The fused executor
+(:mod:`flinkml_tpu_torch.pipeline_fusion`) checks every chain against the
+active policy before it builds a program and raises
+:class:`PrecisionValidationError` with the rule ids of the JAX package's
+FML6xx pass.
+
+``bfloat16`` is ``torch.bfloat16``; numpy has no bfloat16, so the host
+helpers here (the quantizer) take numpy arrays of the other widths only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Mapping, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+#: Canonical float dtype names a policy may declare.
+_FLOAT_NAMES = ("bfloat16", "float16", "float32", "float64")
+
+#: Significand widths (bits): the precision order accumulation cares about.
+_SIGNIFICAND_BITS = {"bfloat16": 8, "float16": 11, "float32": 24,
+                     "float64": 53}
+
+TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                "float32": torch.float32, "float64": torch.float64}
+
+
+def float_name(dtype) -> str:
+    """Canonical name of a float dtype (a name, a numpy dtype or a torch
+    dtype)."""
+    if isinstance(dtype, str) and dtype in _FLOAT_NAMES:
+        return dtype
+    if isinstance(dtype, np.dtype) and dtype.name in _FLOAT_NAMES:
+        return dtype.name
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = str(dtype)
+    if name not in _FLOAT_NAMES:
+        raise ValueError(
+            f"{dtype!r} is not a float dtype a PrecisionPolicy can "
+            f"declare (one of {_FLOAT_NAMES})"
+        )
+    return name
+
+
+def significand_bits(dtype) -> int:
+    """Significand width of a float dtype; non-floats return a sentinel
+    wider than every float (integer values never count as narrow)."""
+    try:
+        name = float_name(dtype)
+    except ValueError:
+        return 1 << 16
+    return _SIGNIFICAND_BITS[name]
+
+
+def is_narrower(a, b) -> bool:
+    """Whether float dtype ``a`` rounds coarser than ``b``."""
+    return significand_bits(a) < significand_bits(b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Finding:
+    """One precision-check finding: the rule id (``FML601`` ...), the
+    message, and the column or constant it names."""
+
+    rule: str
+    message: str
+    column: Optional[str] = None
+
+
+class PrecisionValidationError(ValueError):
+    """A chain failed the precision check against its declared policy —
+    raised before any program is built, carrying the findings."""
+
+    def __init__(self, message: str, findings=()):
+        super().__init__(message)
+        self.findings = list(findings)
+
+
+#: Quantization schemes a policy may declare for model constants.
+_QUANT_SCHEMES = ("int8",)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """The declared ``(compute, accum, params)`` contract and an optional
+    quantization scheme (see the module docstring)."""
+
+    name: str = "custom"
+    compute: str = "float32"
+    accum: str = "float32"
+    params: str = "float32"
+    quant: Optional[str] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "compute", float_name(self.compute))
+        object.__setattr__(self, "accum", float_name(self.accum))
+        object.__setattr__(self, "params", float_name(self.params))
+        if not self.quant:
+            object.__setattr__(self, "quant", None)
+        elif self.quant not in _QUANT_SCHEMES:
+            raise ValueError(
+                f"policy {self.name!r}: unknown quantization scheme "
+                f"{self.quant!r} (one of {_QUANT_SCHEMES}, or None)"
+            )
+        if is_narrower(self.accum, self.compute):
+            raise ValueError(
+                f"policy {self.name!r}: accum ({self.accum}) narrower than "
+                f"compute ({self.compute}) — accumulating below the compute "
+                "width is never intentional"
+            )
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.compute]
+
+    @property
+    def accum_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.accum]
+
+    @property
+    def mixed(self) -> bool:
+        """Whether the policy narrows compute below params."""
+        return is_narrower(self.compute, self.params)
+
+    @property
+    def declared(self) -> bool:
+        """Whether the policy changes the chain: a mixed or a quantized
+        tier casts every float input and constant to ``compute`` at the
+        chain's boundary (``full`` leaves the chain as it is)."""
+        return self.mixed or self.quant is not None
+
+    def describe(self) -> str:
+        return (f"{self.name}(compute={self.compute}, accum={self.accum}, "
+                f"params={self.params})")
+
+    def to_json_dict(self) -> dict:
+        out = {"name": self.name, "compute": self.compute,
+               "accum": self.accum, "params": self.params}
+        if self.quant is not None:
+            out["quant"] = self.quant
+        return out
+
+    @staticmethod
+    def from_json_dict(d: Mapping) -> "PrecisionPolicy":
+        quant = d.get("quant")
+        return PrecisionPolicy(
+            name=str(d.get("name", "custom")),
+            compute=str(d.get("compute", "float32")),
+            accum=str(d.get("accum", "float32")),
+            params=str(d.get("params", "float32")),
+            quant=None if quant in (None, "") else str(quant),
+        )
+
+
+#: Everything at float32 (the explicit other side of an A/B; no policy
+#: leaves programs untouched).
+FULL = PrecisionPolicy("full", "float32", "float32", "float32")
+#: bfloat16 compute, float32 accumulation and parameters: refuses any
+#: stage that accumulates in bfloat16 (the strict gate).
+MIXED = PrecisionPolicy("mixed", "bfloat16", "float32", "float32")
+#: bfloat16 compute and accumulation, float32 parameters: the serving tier.
+MIXED_INFERENCE = PrecisionPolicy(
+    "mixed_inference", "bfloat16", "bfloat16", "float32"
+)
+#: float32 compute and accumulation over int8-quantized model constants.
+INT8_INFERENCE = PrecisionPolicy(
+    "int8_inference", "float32", "float32", "float32", quant="int8"
+)
+
+PRESET_POLICIES = {
+    p.name: p for p in (FULL, MIXED, MIXED_INFERENCE, INT8_INFERENCE)
+}
+
+
+def resolve_policy(policy) -> Optional[PrecisionPolicy]:
+    """Accept a policy object, a preset name, a JSON dict, or None."""
+    if policy is None or isinstance(policy, PrecisionPolicy):
+        return policy
+    if isinstance(policy, str):
+        try:
+            return PRESET_POLICIES[policy]
+        except KeyError:
+            raise ValueError(
+                f"unknown precision preset {policy!r} (presets: "
+                f"{sorted(PRESET_POLICIES)})"
+            ) from None
+    if isinstance(policy, Mapping):
+        return PrecisionPolicy.from_json_dict(policy)
+    raise TypeError(f"cannot interpret {policy!r} as a PrecisionPolicy")
+
+
+# -- post-training quantization (the int8 tier's storage transform) ----------
+
+#: Float constants with fewer elements stay at float width under the int8
+#: tier. A module constant (tests may patch it); the JAX package's env var
+#: and autotune knob for it are not ported.
+INT8_MIN_CONST_ELEMS = 16
+
+
+def quantizable(arr, min_elems: Optional[int] = None) -> bool:
+    """Whether the int8 tier quantizes this model constant: a float array
+    of rank >= 1 with at least ``min_elems`` (default
+    :data:`INT8_MIN_CONST_ELEMS`) elements."""
+    a = np.asarray(arr)
+    if a.dtype.kind != "f":
+        return False
+    limit = INT8_MIN_CONST_ELEMS if min_elems is None else min_elems
+    return a.size >= int(limit) and a.ndim >= 1
+
+
+def quantize_absmax(arr):
+    """Per-column absmax int8 quantization of one model constant, bit for
+    bit the JAX package's: rank >= 2 takes one scale per last-axis column,
+    a vector one scale. Returns ``(q, scale)``: ``q`` int8 in
+    ``[-127, 127]``, ``scale`` float32, ``q * scale ≈ arr``; an all-zero
+    column gets scale 1.0."""
+    a = np.asarray(arr)
+    if a.ndim >= 2:
+        absmax = np.max(np.abs(a), axis=tuple(range(a.ndim - 1)))
+    else:
+        absmax = np.max(np.abs(a)) if a.size else np.float64(0.0)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(
+        np.rint(a / scale.astype(a.dtype)), -127, 127
+    ).astype(np.int8)
+    return q, scale
+
+
+def dequantize_absmax(q, scale, dtype="float32"):
+    """The inverse transform at ``dtype`` width (host reference)."""
+    dt = np.dtype(dtype)
+    return np.asarray(q).astype(dt) * np.asarray(scale).astype(dt)
+
+
+class QuantizedConst(NamedTuple):
+    """One int8-quantized model constant as a chain receives it: the codes
+    and the float32 scales of :func:`quantize_absmax` (host arrays). The
+    chain dequantizes ``q * scale`` at ``policy.compute`` width."""
+
+    q: np.ndarray
+    scale: np.ndarray
+
+
+def cast_floats(tree, dtype):
+    """Cast every floating tensor of a dict, list or tuple (nested) to
+    ``dtype``; other leaves pass through."""
+    dt = TORCH_DTYPES[float_name(dtype)] if not isinstance(
+        dtype, torch.dtype) else dtype
+    if isinstance(tree, Mapping):
+        return type(tree)((k, cast_floats(v, dt)) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cast_floats(v, dt) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dt) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype.is_floating_point:
+        return tree.to(dt)
+    return tree
+
+
+# -- the policy a running chain computes under -------------------------------
+
+_RUN = threading.local()
+
+
+def chain_policy() -> Optional[PrecisionPolicy]:
+    """The policy of the chain running on this thread (None outside a
+    chain, and for a chain with no policy). Stage functions read it: the
+    per-stage transforms call the same functions outside any chain, so a
+    policy never reaches them."""
+    return getattr(_RUN, "value", None)
+
+
+class running_under:
+    """Pin ``policy`` as :func:`chain_policy` while a chain runs."""
+
+    def __init__(self, policy: Optional[PrecisionPolicy]):
+        self._policy = policy
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = chain_policy()
+        _RUN.value = self._policy
+        return self._policy
+
+    def __exit__(self, *exc):
+        _RUN.value = self._prev
+        return False

@@ -29,6 +29,15 @@ import torch
 from flinkml_tpu_torch.device import default_device
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array. numpy has no bfloat16: a bfloat16
+    tensor comes back as float32 holding exactly its values."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
+
+
 class PaddedDeviceColumn:
     """A device-resident column whose backing tensor carries extra padding
     rows beyond the column's logical row count.
@@ -65,7 +74,7 @@ class PaddedDeviceColumn:
     def to_host(self) -> np.ndarray:
         """The logical rows as a host numpy array (one device→host copy;
         :meth:`Table.column` caches the result per table)."""
-        return self.buf[: self.rows].detach().cpu().numpy()
+        return to_numpy(self.buf[: self.rows])
 
 
 class LazyDeviceColumn(PaddedDeviceColumn):
@@ -202,7 +211,7 @@ class Table:
             if isinstance(col, PaddedDeviceColumn):
                 host = col.to_host()
             else:
-                host = col.detach().cpu().numpy()
+                host = to_numpy(col)
             self._host_cache[name] = host
         return self._host_cache[name]
 

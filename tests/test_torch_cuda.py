@@ -78,7 +78,7 @@ def test_spmv_kernel_matches_plain(cuda_device, dtype):
     torch.testing.assert_close(got, kspmv.spmv_plain(idx, val, w),
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(fml.KernelUnsupportedError):
-        kspmv.spmv(idx, val.bfloat16(), w.bfloat16())
+        kspmv.spmv(idx, val.half(), w.half())
     with pytest.raises(fml.KernelUnsupportedError):
         kspmv.spmv(idx.long(), val, w)
 
@@ -170,7 +170,7 @@ def test_segment_sum_kernel_matches_plain(cuda_device, sorted_ids, dtype, tol,
         np.add.at(want, ids, tv.cpu().numpy())
         np.testing.assert_array_equal(got.cpu().numpy(), want)
     with pytest.raises(fml.KernelUnsupportedError):
-        ksegsum.segment_sum(tv.bfloat16(), ti, nseg)
+        ksegsum.segment_sum(tv.half(), ti, nseg)
     with pytest.raises(fml.KernelUnsupportedError):
         ksegsum.segment_sum(tv, ti.long(), nseg)
     empty = ksegsum.segment_sum(tv[:0], ti[:0], nseg)
@@ -856,3 +856,258 @@ def test_segment_sum_sorted_on_descending_ids(cuda_device, case, dtype, k):
     np.add.at(in_order, ids[order.cpu().numpy()],
               vals[order].cpu().numpy())
     np.testing.assert_array_equal(again.cpu().numpy(), in_order)
+
+
+# -- precision tiers and bfloat16 operands -------------------------------------
+
+TIERS = ("mixed", "mixed_inference", "int8_inference")
+
+
+def _tier_chain(case, rows, seed):
+    """``(stages, host columns)`` of the tier chains at widths whose
+    constants the int8 tier quantizes: the five-stage scaler → LR chain
+    (d = 32), the census one-hot prologue → StandardScaler → LR (d = 108),
+    MinMaxScaler → multinomial (d = 64, k = 10) and StandardScaler →
+    KMeans (d = 32, k = 8)."""
+    rng = np.random.default_rng(seed)
+    if case == "five":
+        model, x = _five_stage(rows, d=32, seed=seed)
+        return model.stages, {"features": x}
+    if case == "prologue":
+        return _new_op_chain("prologue", 108, rows, seed)
+    if case == "multinomial":
+        return _new_op_chain("multinomial_scaled", 64, rows, seed)
+    x = rng.normal(size=(rows, 32)) * 2.0
+    with fml.use_device("cpu"):
+        sc = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s").fit(fml.Table({"features": x})))
+    km = fml.KMeansModel().set_features_col("s").set_model_data(
+        fml.Table({"centroids": rng.normal(size=(1, 8, 32))}))
+    return [sc, km], {"features": x}
+
+
+def _tier_both(kernels, cols, device, rows, policy, aligned=True):
+    """:func:`_run_both` under ``policy``: the kernel (int8 constants as
+    the executor hands them) and the plain chain on the same card
+    tensors."""
+    pol = fml.precision.resolve_policy(policy)
+    ext = pipeline_fusion.external_inputs(kernels)
+    outs = pipeline_fusion._output_cols(kernels)
+    producer = {c: j for j, k in enumerate(kernels) for c in k.output_cols}
+    terminal = [c for c in outs if not any(
+        c in kernels[j].input_cols for j in range(producer[c] + 1,
+                                                  len(kernels)))]
+    eager = list(pipeline_fusion._closure_outputs(kernels, terminal))
+    bucket = pipeline_fusion.row_bucket(rows)
+    vals = []
+    for c in ext:
+        t = torch.from_numpy(np.asarray(cols[c]))
+        if t.dtype.is_floating_point and not aligned:
+            buf = torch.zeros(bucket * max(1, t[0].numel()) + 1,
+                              dtype=t.dtype, device=device)
+            tp = buf[1:].view((bucket,) + tuple(t.shape[1:]))
+        else:
+            tp = torch.zeros((bucket,) + tuple(t.shape[1:]), dtype=t.dtype,
+                             device=device)
+        tp[:rows] = t.to(device)
+        vals.append(tp)
+    consts = pipeline_fusion._tier_consts(kernels, pol)
+    program = kchain.ChainProgram(kernels, ext, eager, pol)
+    before = kchain.LAUNCHES.count
+    got = program(vals, consts, rows)
+    want = kchain.chain_plain(kernels, ext, eager, vals, consts, rows, pol)
+    torch.cuda.synchronize()
+    assert kchain.LAUNCHES.count == before + 1
+    return got, want
+
+
+#: KMeans assignments whose two best distances (as the plain chain rounds
+#: them) lie within this many ulps of each other may break either way.
+KMEANS_TIER_ULPS = 2
+
+
+def _kmeans_near(x, centroids, n_ulps=KMEANS_TIER_ULPS):
+    """Rows whose plain distances (``squared_distances`` at ``x``'s dtype)
+    to their two best centroids lie within ``n_ulps`` ulps of the second
+    one."""
+    from flinkml_tpu_torch.ops import blas
+
+    d2 = blas.squared_distances(x, centroids.to(x.dtype))
+    top2 = torch.topk(d2.double(), 2, dim=1, largest=False).values
+    fi = torch.finfo(d2.dtype)
+    ulp = fi.eps * torch.exp2(torch.floor(torch.log2(
+        top2[:, 1].clamp_min(fi.tiny))))
+    return (top2[:, 1] - top2[:, 0]) <= n_ulps * ulp
+
+
+def _tier_close(got, want, rows, kernels, policy):
+    """Each output's dtype equal; values within the tier's tolerance (the
+    kernel and the plain chain round the same ops; sums differ in order):
+    bfloat16 rows 1 ulp, bfloat16 rawPrediction 2^-7, float32 1e-5,
+    float64 1e-10; LR predictions equal away from a 2^-5 margin of their
+    decision (counted: at most 5% of the rows lie within it); KMeans
+    assignments equal wherever the plain chain's two best distances are
+    more than ``KMEANS_TIER_ULPS`` ulps apart, and on 95% of all rows."""
+    near = 0
+    for c, g in got.items():
+        g, w = g[:rows], want[c][:rows]
+        assert g.dtype == w.dtype, (c, g.dtype, w.dtype)
+        if c == "prediction":
+            continue
+        if g.dtype == torch.bfloat16:
+            tol = dict(rtol=2 ** -7, atol=2 ** -7) if c == "rawPrediction" \
+                else dict(rtol=2 ** -8, atol=0.0)
+        elif g.dtype == torch.float32:
+            tol = dict(rtol=1e-5, atol=1e-5)
+        else:
+            tol = dict(rtol=1e-10, atol=1e-10)
+        torch.testing.assert_close(g.double(), w.double(), **tol)
+    if "prediction" in got:
+        g, w = got["prediction"][:rows], want["prediction"][:rows]
+        if "rawPrediction" in want:
+            raw = want["rawPrediction"][:rows].double()
+            top2 = torch.topk(raw, 2, dim=1).values
+            margin = (top2[:, 0] - top2[:, 1]) > 2 ** -5
+            near = int((~margin).sum())
+            assert near <= 0.05 * rows
+        else:
+            pol = fml.precision.resolve_policy(policy)
+            cen = pipeline_fusion._tier_consts(kernels, pol)[-1]["centroids"]
+            margin = ~_kmeans_near(want[kernels[-1].input_cols[0]][:rows],
+                                   kchain.boundary_const(pol, cen, g.device))
+            near = int((~margin).sum())
+            assert (g == w).double().mean() >= 0.95
+        assert torch.equal(g[margin], w[margin])
+    return near
+
+
+@pytest.mark.parametrize("policy", TIERS)
+@pytest.mark.parametrize("case", ["five", "prologue", "multinomial",
+                                  "kmeans"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_chain_tiers_match_plain(cuda_device, case, policy, aligned):
+    """Every tier chain on both routes: the CUDA kernel against the plain
+    chain at the same policy on the card (strict ``mixed`` refuses the
+    KMeans head before anything is built)."""
+    stages, cols = _tier_chain(case, 3000, seed=31)
+    kernels = [s.transform_kernel() for s in stages]
+    if case == "kmeans" and policy == "mixed":
+        with pytest.raises(fml.PrecisionValidationError):
+            pipeline_fusion.check_precision(
+                kernels, [k.constants for k in kernels],
+                fml.precision.MIXED)
+        return
+    got, want = _tier_both(kernels, cols, cuda_device, 3000, policy,
+                           aligned)
+    _tier_close(got, want, 3000, kernels, policy)
+
+
+@pytest.mark.parametrize("policy", TIERS)
+def test_tier_pipelines_on_card(cuda_device, policy):
+    """Through the executor: the five-stage pipeline under each tier on the
+    card equals the same pipeline on the CPU within the tier's tolerance,
+    one kernel launch for the eager program."""
+    stages, cols = _tier_chain("five", 2000, seed=32)
+    model = fml.PipelineModel(stages)
+    table = fml.Table(cols)
+    pipeline_fusion.reset_cache()
+    with pipeline_fusion.precision_scope(policy):
+        with fml.use_device(cuda_device):
+            fml.reset_launch_counts()
+            (gpu,) = model.transform(table)
+            raw = gpu.column("rawPrediction")
+            assert fml.launch_counts()["fused_chain"] == 1
+        with fml.use_device("cpu"):
+            (cpu,) = model.transform(table)
+    tol = 2 ** -7 if policy == "mixed_inference" else 1e-5
+    np.testing.assert_allclose(raw, cpu.column("rawPrediction"), rtol=tol,
+                               atol=tol)
+
+
+def test_chain_refuses_float16(cuda_device):
+    """float16 stays refused: a policy whose compute is float16, and a
+    float16 input column."""
+    stages, cols = _tier_chain("five", 100, seed=33)
+    kernels = [s.transform_kernel() for s in stages]
+    x = torch.from_numpy(cols["features"]).to(cuda_device)
+    pol = fml.precision.PrecisionPolicy("half", "float16", "float32",
+                                        "float32")
+    with pytest.raises(fml.KernelUnsupportedError, match="float16"):
+        kchain.ChainProgram(kernels, ["features"], ["s4"], pol)(
+            [x], [k.constants for k in kernels], 100)
+    with pytest.raises(fml.KernelUnsupportedError):
+        kchain.ChainProgram(kernels, ["features"], ["s4"])(
+            [x.half()], [k.constants for k in kernels], 100)
+
+
+def test_spmv_bf16_matches_plain(cuda_device):
+    idx, val, w = _ell(4000, 39, 100_000, seed=5)
+    idx = torch.from_numpy(idx).to(cuda_device)
+    val = torch.from_numpy(val).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(w).to(cuda_device, torch.bfloat16)
+    for start in (0, 1, 3):
+        before = kspmv.LAUNCHES.count
+        got = kspmv.spmv(idx[start:], val[start:], w)
+        torch.cuda.synchronize()
+        assert kspmv.LAUNCHES.count == before + 1 and got.dtype == torch.bfloat16
+        want = kspmv.spmv_plain(idx[start:], val[start:], w)
+        # float32 sums in another order, each rounded once to bf16.
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("k", [None, 2, 6])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 5)])
+def test_segment_sum_bf16_matches_plain(cuda_device, k, offsets):
+    """bfloat16 values: the sorted run-flush bit for bit with the plain
+    version's in-order adds (on the CPU), every element written; the
+    unsorted atomics within bf16 rounding of it."""
+    rng = np.random.default_rng(8)
+    cells, nseg = 20_000, 1500
+    ids = np.sort(rng.integers(0, nseg, size=cells)).astype(np.int32)
+    shape = (cells,) if k is None else (cells, k)
+    vals = torch.from_numpy(rng.normal(size=shape)).to(torch.bfloat16)
+    oi, ov = offsets
+    ti = torch.zeros(cells + oi, dtype=torch.int32, device=cuda_device)[oi:]
+    tv = torch.zeros((cells + ov,) + shape[1:], dtype=torch.bfloat16,
+                     device=cuda_device)[ov:]
+    ti.copy_(torch.from_numpy(ids))
+    tv.copy_(vals)
+    want = ksegsum.segment_sum_plain(vals, torch.from_numpy(ids), nseg)
+    _poison((nseg,) + shape[1:], torch.bfloat16, cuda_device)
+    got = ksegsum.segment_sum(tv, ti, nseg, indices_are_sorted=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    loose = ksegsum.segment_sum(tv, ti, nseg)
+    torch.cuda.synchronize()
+    assert loose.dtype == torch.bfloat16
+    # The recursive-summation bound at bf16's unit roundoff (2^-9), per
+    # segment of c cells, plus half an ulp of the result.
+    ids_t = torch.from_numpy(ids).long()
+    exact = torch.zeros((nseg,) + shape[1:], dtype=torch.float64) \
+        .index_add_(0, ids_t, vals.double())
+    mag = torch.zeros((nseg,) + shape[1:], dtype=torch.float64) \
+        .index_add_(0, ids_t, vals.double().abs())
+    count = torch.bincount(ids_t, minlength=nseg).double().reshape(
+        (nseg,) + (1,) * (len(shape) - 1))
+    bound = torch.clamp(count * 2.0 ** -9, max=1.0) * mag \
+        + loose.cpu().double().abs() * 2.0 ** -8
+    assert bool(((loose.cpu().double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("k", [1, 5, 128, 1000, 20_000])
+@pytest.mark.parametrize("shape", [(9, 300), (3, 70_000), (300, 60_000)])
+def test_topk_bf16_matches_plain_bitwise(cuda_device, k, shape):
+    """bfloat16 rows on every route: values (bits) and indices equal the
+    plain version's."""
+    n = shape[-1]
+    k = min(k, n)
+    host = torch.from_numpy(_topk_rows(shape, seed=k)).to(torch.bfloat16)
+    x = host.to(cuda_device)
+    before = ktopk.LAUNCHES.count
+    got_v, got_i = ktopk.top_k(x, k)
+    torch.cuda.synchronize()
+    assert ktopk.LAUNCHES.count == before + 1
+    want_v, want_i = ktopk.top_k_plain(host, k)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu().view(torch.int16), want_v.view(torch.int16))

@@ -112,8 +112,9 @@ def test_spmv_unsupported_reasons():
     idx, val, w = (torch.from_numpy(a) for a in _ell(4, 3, 10, np.float32, 0))
     assert kspmv.unsupported_reason(idx, val, w) is None
     assert "int32" in kspmv.unsupported_reason(idx.long(), val, w)
-    assert "bfloat16" in kspmv.unsupported_reason(
-        idx, val.bfloat16(), w.bfloat16())
+    assert "float16" in kspmv.unsupported_reason(
+        idx, val.half(), w.half())
+    assert kspmv.unsupported_reason(idx, val.bfloat16(), w.bfloat16()) is None
     assert "!=" in kspmv.unsupported_reason(idx, val, w.double())
     assert "rank" in kspmv.unsupported_reason(idx, val, w[None])
     assert "shape" in kspmv.unsupported_reason(idx[:2], val, w)
@@ -220,7 +221,8 @@ def test_packed_table_reproduces_plain_chain(dtype, outs, on_cpu):
     plan = kchain.plan_chain(kernels, ["features"], outs)
     table, ops = kchain.pack_table(plan, kernels,
                                    [k.constants for k in kernels],
-                                   np.dtype(dtype), x.shape[1])
+                                   torch.from_numpy(x).dtype, x.shape[1])
+    table = table.numpy()
     assert table.dtype == dtype
     got = _kernel_model(plan, table, ops, x)
     want = kchain.chain_plain(kernels, ["features"], outs,
@@ -367,7 +369,7 @@ def test_pack_table_refuses_dim_mismatch():
                                                "rawPrediction"])
     with pytest.raises(ValueError, match="dim"):
         kchain.pack_table(plan, k, [kk.constants for kk in k],
-                          np.dtype(np.float64), x.shape[1] + 1)
+                          torch.float64, x.shape[1] + 1)
 
 
 # -- fused_chain: the prologue and the class heads --------------------------------
@@ -548,9 +550,10 @@ def test_packed_layout_reproduces_plain_chain(case, on_cpu):
     plan = program.plan
     lay = program.layout([torch.from_numpy(np.asarray(serve[c]))
                           for c in ext])
-    dt = np.dtype(str(lay.dtype).replace("torch.", ""))
     table, ops = kchain.pack_table(plan, kernels,
-                                   [k.constants for k in kernels], dt, lay.d)
+                                   [k.constants for k in kernels], lay.dtype,
+                                   lay.d)
+    table = table.numpy()
     k = kchain.head_classes(plan, [k.constants for k in kernels])
     row = _row_model(plan, lay, [np.asarray(serve[c]) for c in ext])
     assert row.shape[1] == lay.d
@@ -862,7 +865,8 @@ def test_segment_sum_unsupported_reasons():
     ids = torch.zeros(6, dtype=torch.int32)
     assert ksegsum.unsupported_reason(v, ids, 4) is None
     assert "int32" in ksegsum.unsupported_reason(v, ids.long(), 4)
-    assert "bfloat16" in ksegsum.unsupported_reason(v.bfloat16(), ids, 4)
+    assert "float16" in ksegsum.unsupported_reason(v.half(), ids, 4)
+    assert ksegsum.unsupported_reason(v.bfloat16(), ids, 4) is None
     assert "rows" in ksegsum.unsupported_reason(v[:5], ids, 4)
     assert "rank" in ksegsum.unsupported_reason(v[None, None], ids, 4)
     assert "rank" in ksegsum.unsupported_reason(v, ids[None], 4)
@@ -980,7 +984,8 @@ def test_top_k_unsupported_reasons():
     assert ktopk.unsupported_reason(x, 5) is None
     assert ktopk.unsupported_reason(x.double(), 128) is None
     assert "not supported" in ktopk.unsupported_reason(x.int(), 5)
-    assert "not supported" in ktopk.unsupported_reason(x.bfloat16(), 5)
+    assert "not supported" in ktopk.unsupported_reason(x.half(), 5)
+    assert ktopk.unsupported_reason(x.bfloat16(), 5) is None
     assert "outside" in ktopk.unsupported_reason(x, 0)
     assert "outside" in ktopk.unsupported_reason(x[:, :3], 4)
     assert ktopk.unsupported_reason(x, 129) is None
@@ -1081,3 +1086,172 @@ def test_launch_counters_only_count_kernel_launches(on_cpu):
                                    "spmv": 0, "topk": 0}
     with pytest.raises(ValueError):
         _gate.LaunchCounter("not_a_site")
+
+
+# -- bfloat16 operands (the precision tiers) ---------------------------------
+
+def _bf16_pair(a: np.ndarray):
+    """``a`` rounded to bfloat16, as a torch tensor and a JAX array holding
+    the same bits. A NaN becomes the quiet NaN of its sign (0x7FC0 or
+    0xFFC0): PyTorch's conversion writes 0xFFFF for every NaN."""
+    f = np.ascontiguousarray(a, np.float32)
+    t = torch.from_numpy(f.copy()).to(torch.bfloat16)
+    bits = t.view(torch.int16)
+    nan = torch.from_numpy(np.isnan(f))
+    neg = torch.from_numpy(np.signbit(f))
+    bits[nan & ~neg] = 0x7FC0
+    bits[nan & neg] = -64  # 0xFFC0
+    return t, jnp.asarray(bits.numpy()).view(jnp.bfloat16)
+
+
+def _bf16_bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+def _same_bf16(got, want) -> None:
+    """Equal bits, but a NaN only by its sign: ``lax.top_k`` at bfloat16
+    canonicalizes a NaN's payload, where the kernels return the input
+    element."""
+    g, w = _bf16_bits(got), _bf16_bits(want)
+    gn = (g & 0x7F80) == 0x7F80
+    gn &= (g & 0x7F) != 0
+    wn = (w & 0x7F80) == 0x7F80
+    wn &= (w & 0x7F) != 0
+    np.testing.assert_array_equal(gn, wn)
+    np.testing.assert_array_equal(np.where(gn, g < 0, g), np.where(wn, w < 0, w))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("shape", [(37, 9, 4096), (256, 39, 1000), (5, 1, 7)])
+def test_spmv_bf16_plain_matches_jax(backend, shape, monkeypatch):
+    """bfloat16 values and w: spmv_plain (float32 products and row sums,
+    each sum rounded once) vs the JAX ``kernels.spmv`` (XLA, or
+    ``pallas_spmv`` interpreted): a bfloat16 output within one bfloat16
+    rounding of the row's float32 sum (2^-8 of its magnitude, and of the
+    sum of |terms| for rows that cancel; XLA's bfloat16 ops also round each
+    product and partial sum: 2^-6 of the sum of |terms|)."""
+    rows, width, dim = shape
+    idx, val, w = _ell(rows, width, dim, np.float32, seed=rows)
+    tv, jv = _bf16_pair(val)
+    tw, jw = _bf16_pair(w)
+    jax_backend(monkeypatch, backend, "spmv")
+    want = jax_kernels.spmv(idx, jv, jw)
+    assert want.dtype == jnp.bfloat16
+    got = kspmv.spmv(torch.from_numpy(idx), tv, tw)
+    assert got.dtype == torch.bfloat16
+    terms = np.abs(tv.float().numpy() * tw.float().numpy()[idx]).sum(1)
+    diff = np.abs(got.float().numpy() - np.asarray(want, np.float32))
+    assert np.all(diff <= (2.0 ** -8 if backend == "pallas" else 2.0 ** -6)
+                  * (terms + 1e-30))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("sorted_ids", [False, True])
+@pytest.mark.parametrize("shape", [(500, None, 97), (300, 4, 40), (7, None, 3)])
+def test_segment_sum_bf16_plain_is_bitwise_jax(backend, sorted_ids, shape,
+                                               monkeypatch):
+    """bfloat16 values: segment_sum_plain (``index_add_``, in cell order,
+    each add rounded) equals the JAX ``kernels.segment_sum`` (XLA, or
+    ``pallas_segment_sum`` interpreted) bit for bit, flat and row
+    payload."""
+    cells, k, nseg = shape
+    values, ids = _segsum_inputs(cells, k, nseg, np.float32, sorted_ids,
+                                 seed=cells)
+    tv, jv = _bf16_pair(values * 7.0)
+    jax_backend(monkeypatch, backend, "segment_sum")
+    want = jax_kernels.segment_sum(jv, ids, nseg,
+                                   indices_are_sorted=sorted_ids)
+    got = ksegsum.segment_sum(tv, torch.from_numpy(ids), nseg,
+                              indices_are_sorted=sorted_ids)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("phase", [0, 1, 5, 7, -1])
+def test_segment_sum_bf16_run_flush_is_bitwise_pallas(k, phase):
+    """The CUDA run-flush at bfloat16 (its write plan with the bf16 tiles'
+    8-cell phase, each run summed left to right from 0 and rounded at each
+    add) equals the Pallas sorted kernel bit for bit."""
+    from flinkml_tpu.kernels.segsum import pallas_segment_sum
+
+    values, ids = _segsum_inputs(400, k, 60, np.float32, True, seed=7)
+    tv, jv = _bf16_pair(values * 3.0)
+    want = pallas_segment_sum(jv, ids, 60, indices_are_sorted=True,
+                              interpret=True)
+    v2 = tv[:, None] if tv.dim() == 1 else tv
+    kk = v2.shape[1]
+    group = ksegsum.phase_cells(tv)
+    assert group == 8
+    out = torch.full((60, kk), float("nan"), dtype=torch.bfloat16)
+    plan = ksegsum.sorted_plan(ids, 60, kk, phase if kk == 1 else -1, group)
+    for seg, _, first, end in plan:
+        acc = torch.zeros(kk, dtype=torch.bfloat16)
+        for j in range(first, end):
+            acc = acc + v2[j]
+        out[seg] = acc
+    got = out[:, 0] if tv.dim() == 1 else out
+    np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+
+
+def test_segment_sum_bf16_phase_and_vector_rules():
+    """The sorted flat path's phase at bfloat16 aligns 8 cells of values
+    (16 bytes) with their ids; the unsorted ``[cells, k]`` path reduces 2
+    bfloat16 columns at a time."""
+    ids = torch.zeros(64, dtype=torch.int32)
+    vals = torch.zeros(64, dtype=torch.bfloat16)
+    assert ksegsum.phase_cells(vals) == 8
+    assert ksegsum.phase_cells(vals.float()) == 4
+    for start in range(8):
+        ph = kspmv.vector_phase(ids[start:], vals[start:], 8)
+        assert ph == (-start) % 8
+        ip, vp = ids[start:].data_ptr(), vals[start:].data_ptr()
+        assert (ip + 4 * ph) % 16 == 0 and (vp + 2 * ph) % 16 == 0
+    assert ksegsum.sorted_tile_bases(5000, 3, 8)[:2] == [-5, -5 + 2048]
+    assert ksegsum.payload_vector(torch.zeros(10, 6, dtype=torch.bfloat16)) == 2
+    assert ksegsum.payload_vector(
+        torch.zeros(10, 5, dtype=torch.bfloat16)) == 1
+    # spmv's bfloat16 groups of 4 cells need 8-byte aligned values.
+    v = torch.zeros(64, dtype=torch.bfloat16)
+    for start in range(4):
+        ph = kspmv.vector_phase(ids[start:], v[start:])
+        assert (v[start:].data_ptr() + 2 * ph) % 8 == 0
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("k", [1, 7, 128, 150])
+def test_top_k_bf16_plain_matches_lax_top_k(rank, k):
+    """bfloat16 rows: top_k_plain vs ``jax.lax.top_k`` at bfloat16, values
+    and indices bit for bit (±0, NaN and -NaN included; a NaN value by its
+    sign, see :func:`_same_bf16`)."""
+    x, jx = _bf16_pair(_topk_rows(np.float32, n=150, seed=k))
+    for row, jrow in ([(x, jx)] if rank == 2 else list(zip(x, jx))):
+        want_v, want_i = jax.lax.top_k(jrow, k)
+        got_v, got_i = ktopk.top_k(row, k)
+        assert got_v.dtype == torch.bfloat16 and got_i.dtype == torch.int32
+        _same_bf16(got_v, want_v)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("k", [1, 6, 128])
+def test_top_k_bf16_plain_matches_pallas_away_from_signed_zeros(k):
+    """bfloat16 rows without zeros or -NaN: top_k_plain vs ``pallas_top_k``
+    in interpret mode, bit for bit."""
+    rows = np.concatenate([_topk_rows(np.float32, seed=k + 1, signed=False),
+                           np.random.default_rng(k).normal(size=(5, 150))])
+    x, jx = _bf16_pair(rows)
+    want_v, want_i = pallas_top_k(jx, k, interpret=True)
+    got_v, got_i = ktopk.top_k(x, k)
+    _same_bf16(got_v, want_v)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+def test_top_k_bf16_routes_by_float32_keys():
+    """A bfloat16 row ranks by float32 keys on the card, so the route rule
+    sizes its shared memory with 4-byte keys."""
+    assert ktopk.key_bytes(torch.bfloat16) == 4
+    assert ktopk.key_bytes(torch.float64) == 8
+    assert ktopk.route(4096, 60000, 5, ktopk.key_bytes(torch.bfloat16)) \
+        == ktopk.route(4096, 60000, 5, 4)
