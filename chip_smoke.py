@@ -71,7 +71,10 @@ and fails with a non-zero exit if any phase fails:
    ``int8_inference``; the census pipeline and MNIST-width multinomial
    under ``mixed_inference`` and ``int8_inference``; StandardScaler ->
    KMeans (262,144 x 128, k=64) under ``mixed_inference``, and under
-   ``mixed`` refused with FML601 before any launch or program. Each:
+   ``mixed`` refused with FML601 before any launch or program;
+   StandardScaler -> KMeans at 65,536 x 784, k=128 under
+   ``int8_inference`` (an int8 table larger than shared memory: the float
+   table, its head from device memory). Each:
    rows/s fused (reading ``prediction`` back) and per-stage, the
    ``fused_chain`` launch against the plain chain at the same policy (the
    rows near a decision's boundary counted), its time, device time and
@@ -85,6 +88,26 @@ and fails with a non-zero exit if any phase fails:
    ``unsorted``), twice, and ``train_linear_model_sparse_csr`` with layout
    ``sorted``, each held against a float64 numpy run of the same steps;
    the host's CSR conversion and packing timed apart from the device loop;
+6a. streamed out-of-core sparse LR (path E): ``LogisticRegression().fit``
+   of a DataCache of 16 Criteo-profile CSR batches of 65,536 rows (dim
+   1e6), half of them spilled to disk by the cache's memory budget, 5
+   epochs with a checkpoint every 2; a fit stopped at epoch 3 and resumed
+   to 5; the same fit from an in-RAM cache; each against a float64 numpy
+   run of the same steps and against each other (1e-5 of the largest
+   coefficient); samples/s, device share, the feed's wait per epoch, the
+   step's ``spmv`` and ``segment_sum`` time per batch and the latter on
+   the same cell count without padding;
+6b. BASELINE config #3 (path F): LinearSVC and LinearRegression (SGD) at
+   1,000,000 x 123 float32, batch 262,144, reg 2e-4, elasticNet 0.5, 20
+   epochs; LinearRegression ``solver="normal"``; a sparse LinearSVC on
+   262,144 Criteo rows; a streamed LinearRegression over 16 batches;
+   LinearSVCModel serving 65,536 Criteo and 100,000 dense rows; each
+   against float64 numpy;
+6c. BASELINE config #4 (path G): ``OnlineLogisticRegression.fit_stream``
+   over 64 batches of 16,384 x 123 float32 rows with a checkpoint every
+   16; a run crashed at batch 32 and resumed equal to the uninterrupted
+   one bit for bit; against a float64 numpy FTRL; batches/s and
+   samples/s;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -2070,7 +2093,12 @@ PRECISION_CASES = (
     ("census", ("mixed_inference", "int8_inference")),
     ("mnist", ("mixed_inference", "int8_inference")),
     ("kmeans", ("mixed_inference",)),
+    # An int8 table larger than shared memory: the float table, its head
+    # read from device memory.
+    ("kmeans_wide", ("int8_inference",)),
 )
+#: The wide KMeans case: 65,536 x 784, k = 128.
+KMEANS_WIDE = (65_536, 784, 128)
 #: An LR decision within this margin of its boundary (the binomial
 #: probability's 0.5, the two best classes' probabilities) may break either
 #: way between the kernel's and the plain chain's summation orders at
@@ -2187,8 +2215,10 @@ def tier_kernel_case(torch, timer, label, kernels, table, rows, policy):
                               "fused_chain")
     plain_ms = timer(lambda: kchain.chain_plain(kernels, ext, eager, vals,
                                                 consts, rows, pol))
-    table_bytes = program._table[4][0].numel() * \
-        program._table[4][0].element_size()
+    # The table the launch read: the int8 blob, or (an int8 table larger
+    # than shared memory) the float table.
+    launched = (program._float or program._table)[4][0]
+    table_bytes = launched.numel() * launched.element_size()
     n_bytes = (sum(v[:rows].numel() * v.element_size() for v in vals)
                + sum(o[:rows].numel() * o.element_size()
                      for o in got.values()) + table_bytes)
@@ -2215,7 +2245,7 @@ def _precision_models(torch, case):
     rows); the census pipeline fitted as path A fits it, serving 100,000
     rows; MinMaxScaler -> multinomial LR at MNIST's width (k = 10,
     template classifier); StandardScaler -> KMeans (262,144 x 128, k = 64,
-    a 10-iteration fit)."""
+    or 65,536 x 784, k = 128; a 10-iteration fit)."""
     import flinkml_tpu_torch as fml
 
     if case == "five_stage":
@@ -2241,7 +2271,7 @@ def _precision_models(torch, case):
         lr.set_model_data(fml.Table(
             {"coefficient": ((templates / 255.0 - 0.5) * 0.05)[None]}))
         return fml.PipelineModel([mm, lr]), table, MNIST_SERVE
-    n, d, k = KMEANS_SERVE[1]
+    n, d, k = KMEANS_SERVE[1] if case == "kmeans" else KMEANS_WIDE
     x = np.random.default_rng(53).normal(size=(n, d)).astype(np.float32)
     table = fml.Table({"features": x})
     scaler = (fml.StandardScaler().set_input_col("features")
@@ -2260,7 +2290,9 @@ def precision_path(torch, timer):
     k = 10) under ``mixed_inference`` and ``int8_inference``;
     StandardScaler -> KMeans (262,144 x 128, k = 64) under
     ``mixed_inference``, and under ``mixed`` refused with FML601 before
-    any launch or program. Each case: rows/s of ``transform`` reading
+    any launch or program; StandardScaler -> KMeans at 65,536 x 784, k =
+    128 under ``int8_inference`` (a table too large for shared memory).
+    Each case: rows/s of ``transform`` reading
     ``prediction`` back (fused, and the per-stage path once per model),
     then :func:`tier_kernel_case`. Returns ``(fused_chain launches of the
     transforms, the per-case records)``."""
@@ -2458,6 +2490,526 @@ def bf16_kernel_phase(torch, timer):
     return out
 
 
+# -- paths E, F, G: streamed, out-of-core and checkpointed linear fits --------------
+
+#: Path E: the Criteo profile streamed out of core, 16 batches of 65,536
+#: rows, half of the CSR bytes over the cache's memory budget.
+STREAM_BATCHES, STREAM_ROWS, STREAM_EPOCHS = 16, 65_536, 5
+STREAM_STOP, STREAM_INTERVAL = 3, 2
+STREAM_LR, STREAM_REG = 0.5, 1e-4
+#: Path F: BASELINE config #3 at ``bench.py:_inner_svc``'s workload.
+SVC_ROWS, SVC_D, SVC_BATCH, SVC_EPOCHS = 1_000_000, 123, 262_144, 20
+SVC_REG, SVC_EN, SVC_LR = 2e-4, 0.5, 0.1
+SVC_SPARSE_ROWS, SVC_SERVE_SPARSE, SVC_SERVE_DENSE = 262_144, 65_536, 100_000
+SVC_STREAM_BATCHES = 16
+#: Path G: BASELINE config #4 at ``bench.py:_inner_ftrl``'s workload.
+FTRL_BATCHES, FTRL_ROWS, FTRL_D = 64, 16_384, 123
+FTRL_ALPHA, FTRL_BETA, FTRL_REG, FTRL_EN = 0.1, 1.0, 0.002, 0.5
+FTRL_INTERVAL, FTRL_CRASH = 16, 32
+
+
+def numpy_margin(loss, dot, y, w):
+    """The margin terms of ``ops/losses.py`` in float64 numpy:
+    ``(d loss/d margin, per-example loss)``."""
+    if loss == "squared":
+        resid = dot - y
+        return w * resid, 0.5 * w * resid * resid
+    ys = 2.0 * y - 1.0
+    margin = dot * ys
+    if loss == "hinge":
+        return w * (-ys * (margin < 1.0)), w * np.maximum(1.0 - margin, 0.0)
+    return w * (-ys / (1.0 + np.exp(margin))), w * np.logaddexp(0.0, -margin)
+
+
+def numpy_prox(coef, grad, wsum, lr, l2, l1):
+    """The proximal SGD update of ``_linear_sgd._prox_step`` in float64."""
+    grad = grad + 2.0 * l2 * coef
+    step = lr / wsum
+    new = coef - step * grad
+    return np.sign(new) * np.maximum(np.abs(new) - step * l1, 0.0)
+
+
+def numpy_csr_stream_fit(batches, dim, epochs, lr, l2, l1, loss="logistic"):
+    """Float64 numpy run of the streamed sparse trainer: one step per CSR
+    batch ``(indptr, indices, values, y, w)``, in batch order, every
+    epoch (the padding cells add exact zeros, so they are left out)."""
+    coef = np.zeros(dim)
+    for _ in range(epochs):
+        for indptr, idx, val, y, w in batches:
+            n = indptr.size - 1
+            rows = np.repeat(np.arange(n), np.diff(indptr))
+            v = val.astype(np.float64)
+            dot = np.bincount(rows, weights=v * coef[idx], minlength=n)
+            mult, _ = numpy_margin(loss, dot, y.astype(np.float64),
+                                   w.astype(np.float64))
+            grad = np.bincount(idx, weights=v * mult[rows], minlength=dim)
+            coef = numpy_prox(coef, grad, float(w.sum()), lr, l2, l1)
+    return coef
+
+
+def numpy_dense_windows_fit(x, y, w, seed, batch, epochs, lr, l2, l1, loss):
+    """Float64 numpy run of the in-RAM dense trainer under any margin loss
+    and elastic net: the seeded shuffle, the rotating windows."""
+    n = x.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    x64, y64, w64 = (a[perm].astype(np.float64) for a in (x, y, w))
+    n_windows = max(-(-n // batch), 1)
+    coef = np.zeros(x.shape[1])
+    for ep in range(epochs):
+        start = min((ep % n_windows) * batch, n - batch)
+        xb, yb, wb = (a[start:start + batch] for a in (x64, y64, w64))
+        mult, _ = numpy_margin(loss, xb @ coef, yb, wb)
+        coef = numpy_prox(coef, xb.T @ mult, wb.sum(), lr, l2, l1)
+    return coef
+
+
+def numpy_dense_stream_fit(batches, epochs, lr, l2, l1, loss):
+    """Float64 numpy run of the streamed dense trainer over ``(x, y)``
+    batches, unit weights."""
+    coef = np.zeros(batches[0][0].shape[1])
+    for _ in range(epochs):
+        for x, y in batches:
+            x64 = x.astype(np.float64)
+            w = np.ones(x.shape[0])
+            mult, _ = numpy_margin(loss, x64 @ coef, y.astype(np.float64), w)
+            coef = numpy_prox(coef, x64.T @ mult, w.sum(), lr, l2, l1)
+    return coef
+
+
+def numpy_ftrl(batches, alpha, beta, l1, l2):
+    """Float64 numpy FTRL-proximal over ``(x, y)`` batches (unit weights),
+    the algebra of ``online_logistic_regression._ftrl_algebra``."""
+    dim = batches[0][0].shape[1]
+    z, nacc, coef = np.zeros(dim), np.zeros(dim), np.zeros(dim)
+    for x, y in batches:
+        x64, y64 = x.astype(np.float64), y.astype(np.float64)
+        p = 1.0 / (1.0 + np.exp(-(x64 @ coef)))
+        g = x64.T @ (p - y64) / x.shape[0]
+        sigma = (np.sqrt(nacc + g * g) - np.sqrt(nacc)) / alpha
+        z = z + g - sigma * coef
+        nacc = nacc + g * g
+        coef = np.where(np.abs(z) <= l1, 0.0,
+                        -(z - np.sign(z) * l1)
+                        / ((beta + np.sqrt(nacc)) / alpha + l2))
+    return coef
+
+
+def rel_err(got, want) -> float:
+    """Largest absolute difference over the reference's largest magnitude."""
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+class FeedWaits:
+    """Records each :class:`PrefetchingDeviceFeed`'s consumer wait (one
+    feed per epoch of a streamed fit) while installed in the module the
+    trainer takes it from."""
+
+    def __init__(self):
+        from flinkml_tpu_torch.iteration import datacache
+
+        self.module, self.original, self.waits = datacache, None, []
+
+    def __enter__(self):
+        original, waits = self.module.PrefetchingDeviceFeed, self.waits
+
+        class Recorded(original):
+            def close(self):
+                if not getattr(self, "_recorded", False):
+                    self._recorded = True
+                    waits.append(self.wait_s)
+                super().close()
+
+        self.original = original
+        self.module.PrefetchingDeviceFeed = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.PrefetchingDeviceFeed = self.original
+        return False
+
+
+def csr_batch_dicts(indptr, indices, values, y, n_batches, rows, dim):
+    """The flat CSR batch dicts of the streamed sparse fit (each component
+    one 2-D row), and the same batches as host CSR tuples."""
+    dicts, tuples = [], []
+    for b in range(n_batches):
+        lo, hi = b * rows, (b + 1) * rows
+        ip = indptr[lo:hi + 1] - indptr[lo]
+        idx = indices[indptr[lo]:indptr[hi]]
+        val = values[indptr[lo]:indptr[hi]]
+        yb = y[lo:hi]
+        w = np.ones(rows, np.float32)
+        dicts.append({"indptr": ip[None], "indices": idx[None],
+                      "values": val[None], "y": yb[None], "w": w[None],
+                      "dim": np.array([[dim]], np.int64)})
+        tuples.append((ip, idx, val, yb, w))
+    return dicts, tuples
+
+
+def stream_path(torch, timer):
+    """Path E: LogisticRegression streamed out of core over the Criteo
+    profile (dim 1e6, 39 nnz a row, float32): 16 batches of 65,536 rows
+    (1,048,576) in a DataCache whose memory budget is half the CSR bytes
+    (8 batches spill to a temporary directory), 5 epochs with a
+    checkpoint every 2; then a fit stopped at epoch 3 and resumed to 5,
+    and the same fit from an in-RAM cache. Each against a float64 numpy
+    run of the same steps in batch order within 1e-5 of the largest
+    coefficient, and against each other within 1e-5 (the unsorted
+    ``segment_sum`` adds in a run-dependent order). Reports samples/s,
+    the device's busy share, the feed's wait per epoch, the ``spmv`` and
+    ``segment_sum`` time per batch beside their bounds, and the
+    ``segment_sum`` time on the stream's padded cells (a quarter of them on
+    segment 0) beside the same count of unpadded cells; on those inputs
+    each kernel is held against its plain version (rtol/atol 1e-5).
+    Returns the launch counts of the main fit."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+
+    n, dim, nnz = STREAM_BATCHES * STREAM_ROWS, SPMV_DIM, SPMV_NNZ
+    indptr, indices, values, y, _ = make_criteo_csr(n, dim, nnz, seed=7)
+    dicts, tuples = csr_batch_dicts(indptr, indices, values, y,
+                                    STREAM_BATCHES, STREAM_ROWS, dim)
+    batch_bytes = sum(a.nbytes for a in dicts[0].values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        def cache(spill):
+            w = DataCacheWriter(os.path.join(tmp, spill) if spill else None,
+                                batch_bytes * STREAM_BATCHES // 2
+                                if spill else None)
+            for b in dicts:
+                w.append(b)
+            return w.finish()
+
+        spilled = cache("spill")
+        if len(spilled.segments) != STREAM_BATCHES // 2:
+            fail(f"stream: {len(spilled.segments)} batches spilled, expected "
+                 f"{STREAM_BATCHES // 2}")
+
+        def est(epochs, manager=None, resume=False):
+            return (fml.LogisticRegression(
+                checkpoint_manager=manager,
+                checkpoint_interval=STREAM_INTERVAL if manager else 0,
+                resume=resume).set_max_iter(epochs).set_tol(0.0)
+                .set_learning_rate(STREAM_LR).set_reg(STREAM_REG))
+
+        est(1).fit(cache(None))   # first fit: allocator and kernels warm
+        torch.cuda.synchronize()
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=10)
+        fml.reset_launch_counts()
+        with FeedWaits() as feed:
+            t0 = time.perf_counter()
+            main = est(STREAM_EPOCHS, mgr).fit(spilled).coefficient
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        counts = fml.launch_counts()
+        steps = STREAM_BATCHES * STREAM_EPOCHS
+        if counts["spmv"] != steps or counts["segment_sum"] != steps:
+            fail(f"stream: launches {counts} in {steps} steps")
+        if mgr.all_epochs() != [2, 4, 5]:
+            fail(f"stream: checkpoints at {mgr.all_epochs()}")
+
+        ref = numpy_csr_stream_fit(tuples, dim, STREAM_EPOCHS, STREAM_LR,
+                                   STREAM_REG, 0.0)
+        errs = {"numpy": rel_err(main, ref)}
+        stop_mgr = CheckpointManager(os.path.join(tmp, "stop"))
+        est(STREAM_STOP, stop_mgr).fit(spilled)
+        resumed = est(STREAM_EPOCHS, stop_mgr, resume=True).fit(
+            spilled).coefficient
+        errs["resumed"] = rel_err(resumed, np.asarray(main, np.float64))
+        in_ram = est(STREAM_EPOCHS).fit(cache(None)).coefficient
+        errs["in_ram"] = rel_err(in_ram, np.asarray(main, np.float64))
+        for what, err in errs.items():
+            if not np.isfinite(err) or err > 1e-5:
+                fail(f"stream: {what} differs by {err} of the largest "
+                     "coefficient (limit 1e-5)")
+        share = device_share(torch, lambda: est(1).fit(spilled))
+
+        # The step's kernels at one batch's shape (width 64 over 39 nnz).
+        bi, bv = sgd._pack_uniform_ell(*tuples[0][:3], np.float32)
+        ib, vb = (torch.from_numpy(a).cuda() for a in (bi, bv))
+        coef = torch.from_numpy(np.asarray(main, np.float32)).cuda()
+        contrib = torch.randn(vb.numel(), device="cuda") * vb.reshape(-1)
+        flat = ib.reshape(-1)
+        # T2: the same cell count with no padding (random ids, as the
+        # in-RAM bucketed fit's cells).
+        dense_ids = torch.randint(0, dim, (flat.numel(),), device="cuda",
+                                  dtype=torch.int32)
+        # Each kernel against its plain version on these inputs, padding
+        # cells included (rtol/atol 1e-5, as the kernel phase).
+        got = {"spmv": kspmv.spmv(ib, vb, coef),
+               "segment_sum": ksegsum.segment_sum(contrib, flat, dim),
+               "segment_sum_unpadded": ksegsum.segment_sum(contrib,
+                                                           dense_ids, dim)}
+        torch.cuda.synchronize()
+        want = {"spmv": kspmv.spmv_plain(ib, vb, coef),
+                "segment_sum": ksegsum.segment_sum_plain(contrib, flat, dim),
+                "segment_sum_unpadded": ksegsum.segment_sum_plain(
+                    contrib, dense_ids, dim)}
+        kernel_errs = {}
+        for what in got:
+            check_close(f"stream: {what} vs plain", got[what], want[what],
+                        1e-5, 1e-5)
+            kernel_errs[what] = max_err(got[what], want[what])
+        del got, want
+        spmv_ms = timer(lambda: kspmv.spmv(ib, vb, coef))
+        segsum_ms = timer(lambda: ksegsum.segment_sum(contrib, flat, dim))
+        unpadded_ms = timer(lambda: ksegsum.segment_sum(contrib, dense_ids,
+                                                        dim))
+        cells = flat.numel()
+        touched = int(torch.unique(flat).numel())
+        spmv_bound, spmv_by = bound_ms(
+            cells * 8 + touched * 4 + bi.shape[0] * 4, 2.0 * cells, "float32")
+        # Ids and values read once, the [dim] output written once.
+        segsum_bound, segsum_by = bound_ms(cells * 8 + dim * 4, cells,
+                                           "float32")
+        pad_cells = int((vb == 0).sum())
+        samples = n * STREAM_EPOCHS
+        rec = {"path": "stream_sparse_lr", "rows": n, "dim": dim, "nnz": nnz,
+               "batches": STREAM_BATCHES, "batch_rows": STREAM_ROWS,
+               "epochs": STREAM_EPOCHS, "spilled_batches":
+               len(spilled.segments), "ell_width": int(bi.shape[1]),
+               "fit_s": fit_s, "samples_per_s": samples / fit_s,
+               "device_share": share,
+               "host_share": None if share is None else 1.0 - share,
+               "feed_wait_s_per_epoch": feed.waits,
+               "spmv_ms_per_batch": spmv_ms,
+               "spmv_bound_ms": spmv_bound, "spmv_bound_by": spmv_by,
+               "segment_sum_ms_per_batch": segsum_ms,
+               "segment_sum_ms_same_cells_unpadded": unpadded_ms,
+               "segment_sum_bound_ms": segsum_bound,
+               "segment_sum_bound_by": segsum_by,
+               "kernel_max_abs_err": kernel_errs,
+               "padding_cells_per_batch": pad_cells,
+               "cells_per_batch": cells,
+               "checkpoints": mgr.all_epochs(), "rel_err": errs,
+               "launches": counts}
+        log("path " + json.dumps(rec))
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def svc_path(torch):
+    """Path F, BASELINE config #3 at ``bench.py:_inner_svc``'s workload
+    (1,000,000 x 123 float32, batch 262,144, reg 2e-4, elasticNet 0.5, 20
+    epochs): LinearSVC and LinearRegression (SGD) fitted in RAM;
+    LinearRegression ``solver="normal"``; a sparse LinearSVC over 262,144
+    Criteo-profile rows (``spmv`` + ``segment_sum``); a streamed dense
+    LinearRegression over 16 batches of the same data; LinearSVCModel
+    serving 65,536 Criteo rows (``spmv``) and 100,000 dense rows. Each
+    held against float64 numpy: the SGD fits within 1e-4 of the largest
+    coefficient (float32 products over 262,144 rows, 20 steps), the
+    normal solve within 1e-3 (a float32 gram over 1e6 rows), the margins
+    within 1e-4. Returns the launch counts of the sparse fit and the
+    serving."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models._data import labeled_sparse_data
+
+    x, y, w = make_data(SVC_ROWS, SVC_D, seed=3)
+    true = np.random.default_rng(4).normal(size=SVC_D)
+    y_reg = (x.astype(np.float64) @ true).astype(np.float32)
+    l1, l2 = SVC_REG * SVC_EN, SVC_REG * (1.0 - SVC_EN)
+    recs, errs = {}, {}
+
+    def sgd_est(cls):
+        return (cls().set_seed(0).set_tol(0.0).set_max_iter(SVC_EPOCHS)
+                .set_global_batch_size(SVC_BATCH).set_learning_rate(SVC_LR)
+                .set_reg(SVC_REG).set_elastic_net(SVC_EN))
+
+    for name, cls, labels, loss in (
+            ("svc", fml.LinearSVC, y, "hinge"),
+            ("linreg_sgd", fml.LinearRegression, y_reg, "squared")):
+        table = fml.Table({"features": x, "label": labels})
+        first_s, fit_s, model = timed_calls(
+            torch, lambda: sgd_est(cls).fit(table), calls=1)
+        ref = numpy_dense_windows_fit(x, labels, w, 0, SVC_BATCH, SVC_EPOCHS,
+                                      SVC_LR, l2, l1, loss)
+        errs[name] = rel_err(model.coefficient, ref)
+        recs[name] = {"first_fit_s": first_s, "fit_s": fit_s,
+                      "samples_per_s": SVC_BATCH * SVC_EPOCHS / fit_s}
+        if name == "svc":
+            svc_model = model
+
+    table = fml.Table({"features": x, "label": y_reg})
+    _, normal_s, normal = timed_calls(torch, lambda: fml.LinearRegression()
+                                      .set_solver("normal").set_reg(SVC_REG)
+                                      .fit(table), calls=1)
+    x64 = x.astype(np.float64)
+    a = x64.T @ x64 + 2.0 * SVC_REG * np.eye(SVC_D)
+    ref = np.linalg.solve(a, x64.T @ y_reg.astype(np.float64))
+    errs["linreg_normal"] = rel_err(normal.coefficient, ref)
+    recs["linreg_normal"] = {"fit_s": normal_s,
+                             "rows_per_s": SVC_ROWS / normal_s}
+
+    # Streamed dense LinearRegression over 16 batches of the same rows.
+    bs = SVC_ROWS // SVC_STREAM_BATCHES
+    parts = [(x[i * bs:(i + 1) * bs], y_reg[i * bs:(i + 1) * bs])
+             for i in range(SVC_STREAM_BATCHES)]
+    stream_epochs = 5
+    _, stream_s, streamed = timed_calls(torch, lambda: (
+        fml.LinearRegression().set_tol(0.0).set_max_iter(stream_epochs)
+        .set_learning_rate(SVC_LR).set_reg(SVC_REG).set_elastic_net(SVC_EN)
+        .fit(iter(fml.Table({"features": px, "label": py})
+                  for px, py in parts))), calls=1)
+    ref = numpy_dense_stream_fit(parts, stream_epochs, SVC_LR, l2, l1,
+                                 "squared")
+    errs["linreg_stream"] = rel_err(streamed.coefficient, ref)
+    recs["linreg_stream"] = {
+        "fit_s": stream_s, "batches": SVC_STREAM_BATCHES,
+        "epochs": stream_epochs,
+        "samples_per_s": SVC_ROWS * stream_epochs / stream_s}
+
+    # The sparse LinearSVC in RAM (batch >= rows: full-batch steps).
+    sn, dim, nnz = SVC_SPARSE_ROWS, SPMV_DIM, SPMV_NNZ
+    _, indices, values, ys, _ = make_criteo_csr(sn, dim, nnz, seed=8)
+    rows = criteo_rows(indices, values, sn, nnz, dim)
+    stable = fml.Table({"features": rows, "label": ys})
+    fml.reset_launch_counts()
+    _, sparse_s, sparse_model = timed_calls(torch, lambda: (
+        fml.LinearSVC().set_seed(0).set_tol(0.0).set_max_iter(SVC_EPOCHS)
+        .set_global_batch_size(sn).set_learning_rate(SVC_LR)
+        .set_reg(SVC_REG).set_elastic_net(SVC_EN).fit(stable)), calls=1)
+    counts = dict(fml.launch_counts())
+    if counts["spmv"] < SVC_EPOCHS or counts["segment_sum"] < SVC_EPOCHS:
+        fail(f"svc: sparse fit launches {counts}")
+    ip, ci, cv, _, cy, cw = labeled_sparse_data(stable, "features", "label")
+    ref = numpy_csr_stream_fit([(ip, ci, cv, cy, cw)], dim, SVC_EPOCHS,
+                               SVC_LR, l2, l1, loss="hinge")
+    errs["svc_sparse"] = rel_err(sparse_model.coefficient, ref)
+    recs["svc_sparse"] = {"fit_s": sparse_s,
+                          "samples_per_s": sn * SVC_EPOCHS / sparse_s}
+
+    # Serving: 65,536 Criteo rows (spmv) and 100,000 dense rows.
+    serve_rows = rows[:SVC_SERVE_SPARSE]
+    before = fml.launch_counts()["spmv"]
+    _, sparse_serve_s, (out,) = timed_calls(torch, lambda: sparse_model
+                                            .transform(fml.Table(
+                                                {"features": serve_rows})))
+    ip, ci, cv, _, _, _ = labeled_sparse_data(
+        fml.Table({"features": serve_rows, "label": ys[:SVC_SERVE_SPARSE]}),
+        "features", "label")
+    r = np.repeat(np.arange(SVC_SERVE_SPARSE), np.diff(ip))
+    want = np.bincount(r, weights=cv.astype(np.float64)
+                       * sparse_model.coefficient.astype(np.float32)
+                       .astype(np.float64)[ci], minlength=SVC_SERVE_SPARSE)
+    errs["serve_sparse"] = rel_err(out.column("rawPrediction"), want)
+    serve_launch = fml.launch_counts()["spmv"] - before
+    counts["spmv"] += serve_launch
+    xd = x[:SVC_SERVE_DENSE]
+    _, dense_serve_s, (dout,) = timed_calls(
+        torch, lambda: svc_model.transform(fml.Table({"features": xd})))
+    want = xd.astype(np.float64) @ svc_model.coefficient
+    errs["serve_dense"] = rel_err(dout.column("rawPrediction"), want)
+    if not np.array_equal(dout.column("prediction"),
+                          (dout.column("rawPrediction") >= 0) * 1.0):
+        fail("svc: dense predictions disagree with their margins")
+    limits = {"linreg_normal": 1e-3}
+    for what, err in errs.items():
+        if not np.isfinite(err) or err > limits.get(what, 1e-4):
+            fail(f"svc: {what} differs from float64 numpy by {err} of the "
+                 f"largest coefficient (limit {limits.get(what, 1e-4)})")
+    recs["serve"] = {"sparse_rows_per_s": SVC_SERVE_SPARSE / sparse_serve_s,
+                     "dense_rows_per_s": SVC_SERVE_DENSE / dense_serve_s,
+                     "sparse_spmv_launches": serve_launch}
+    log("path " + json.dumps({"path": "svc_linreg", "rows": SVC_ROWS,
+                              "d": SVC_D, "batch": SVC_BATCH,
+                              "epochs": SVC_EPOCHS, "reg": SVC_REG,
+                              "elastic_net": SVC_EN, "fits": recs,
+                              "rel_err": errs, "launches": counts}))
+    return counts
+
+
+def ftrl_path(torch):
+    """Path G, BASELINE config #4 at ``bench.py:_inner_ftrl``'s workload:
+    ``OnlineLogisticRegression.fit_stream`` over 64 batches of 16,384 x 123
+    float32 rows (alpha 0.1, beta 1.0, reg 0.002, elasticNet 0.5), with a
+    checkpoint every 16 batches; a run that crashes at batch 32 and
+    resumes from its snapshot equals the uninterrupted one bit for bit
+    (cuBLAS products, no atomics); against a float64 numpy FTRL within
+    1e-4 of the largest coefficient (float32 over 64 steps)."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+
+    rng = np.random.default_rng(12)
+    true = rng.normal(size=FTRL_D)
+    parts = []
+    for _ in range(FTRL_BATCHES):
+        xb = rng.normal(size=(FTRL_ROWS, FTRL_D)).astype(np.float32)
+        parts.append((xb, (xb @ true > 0).astype(np.float32)))
+    tables = [fml.Table({"features": px, "label": py}) for px, py in parts]
+
+    def est():
+        return (fml.OnlineLogisticRegression().set_alpha(FTRL_ALPHA)
+                .set_beta(FTRL_BETA).set_reg(FTRL_REG)
+                .set_elastic_net(FTRL_EN))
+
+    def crashing():
+        for i, t in enumerate(tables):
+            if i == FTRL_CRASH:
+                raise RuntimeError("injected crash")
+            yield t
+
+    est().fit_stream(tables[:2])   # first fit: cuBLAS and allocator warm
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ftrl_")
+    try:
+        mgr = CheckpointManager(os.path.join(tmp, "main"), max_to_keep=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est().fit_stream(tables, checkpoint_manager=mgr,
+                                 checkpoint_interval=FTRL_INTERVAL)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        plain_t0 = time.perf_counter()
+        est().fit_stream(tables)
+        torch.cuda.synchronize()
+        no_ckpt_s = time.perf_counter() - plain_t0
+        crash = CheckpointManager(os.path.join(tmp, "crash"), max_to_keep=10)
+        try:
+            est().fit_stream(crashing(), checkpoint_manager=crash,
+                             checkpoint_interval=FTRL_INTERVAL)
+            fail("ftrl: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        if crash.latest_epoch() != FTRL_CRASH:
+            fail(f"ftrl: the crashed run's newest snapshot is "
+                 f"{crash.latest_epoch()}")
+        resumed = est().fit_stream(tables, checkpoint_manager=crash,
+                                   checkpoint_interval=FTRL_INTERVAL,
+                                   resume=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if model.model_version != FTRL_BATCHES or \
+            resumed.model_version != FTRL_BATCHES:
+        fail(f"ftrl: versions {model.model_version}, {resumed.model_version}")
+    resume_exact = bool(np.array_equal(resumed.coefficient, model.coefficient))
+    if not resume_exact:
+        fail("ftrl: the resumed run differs from the uninterrupted one by "
+             f"{rel_err(resumed.coefficient, model.coefficient)}")
+    err = rel_err(model.coefficient, numpy_ftrl(
+        parts, FTRL_ALPHA, FTRL_BETA, FTRL_REG * FTRL_EN,
+        FTRL_REG * (1.0 - FTRL_EN)))
+    if not np.isfinite(err) or err > 1e-4:
+        fail(f"ftrl: coefficient differs from float64 numpy by {err} of the "
+             "largest (limit 1e-4)")
+    log("path " + json.dumps({
+        "path": "ftrl", "batches": FTRL_BATCHES, "batch_rows": FTRL_ROWS,
+        "d": FTRL_D, "fit_s": fit_s, "batches_per_s": FTRL_BATCHES / fit_s,
+        "samples_per_s": FTRL_BATCHES * FTRL_ROWS / fit_s,
+        "fit_without_checkpoints_s": no_ckpt_s,
+        "checkpoints": [16, 32, 48, 64], "resume_bit_exact": resume_exact,
+        "rel_err": err}))
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -2529,8 +3081,15 @@ def main() -> int:
     chain_rec["launches"] += tier_launches
     dense_fit_path(torch)
     fit_counts = sparse_fit_path(torch)
-    spmv_rec["launches"] = serve_spmv + fit_counts["spmv"]
-    segsum_rec["launches"] = fit_counts["segment_sum"]
+    stream_counts = stream_path(torch, timer)
+    svc_counts = svc_path(torch)
+    ftrl_path(torch)
+    for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
+        rec["launches_by_path"] = {
+            "sparse_serving": serve_spmv if name == "spmv" else 0,
+            "sparse_fit": fit_counts[name], "stream_E": stream_counts[name],
+            "svc_F": svc_counts[name]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     del timer
     kmeans_path(torch)
@@ -2541,7 +3100,8 @@ def main() -> int:
         rec["bf16"] = bf16[rec["name"]]
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in keys},
-             **{k: r[k] for k in ("bf16", "tiers") if k in r})
+             **{k: r[k] for k in ("bf16", "tiers", "launches_by_path")
+                if k in r})
         for r in (spmv_rec, chain_rec, segsum_rec, topk_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

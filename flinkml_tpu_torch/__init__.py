@@ -10,10 +10,15 @@ for Hopper (:mod:`flinkml_tpu_torch.kernels`).
 Ported so far: tables, params, persistence, ``Pipeline``/``PipelineModel``
 with the fused executor, the four scalers (fit + transform),
 ``OneHotEncoder`` and ``VectorAssembler``, ``LogisticRegression``
-(binomial fit on one device, dense and sparse; multinomial, dense) and
-``LogisticRegressionModel`` (binomial and multinomial, dense and sparse
-transform), ``Knn``, ``MinHashLSH``, ``KMeans`` (batch fit on one device)
-and ``BisectingKMeans`` with their models, and all four kernels:
+(binomial fit on one device, dense and sparse, in RAM and streamed;
+multinomial, dense) and ``LogisticRegressionModel`` (binomial and
+multinomial, dense and sparse transform), ``LinearSVC`` and
+``LinearRegression`` (in RAM and streamed; the normal equations),
+``OnlineLogisticRegression`` (FTRL over a stream), ``Knn``, ``MinHashLSH``,
+``KMeans`` (batch fit on one device) and ``BisectingKMeans`` with their
+models; the iteration runtime (``iterate``), checkpoint/resume
+(``CheckpointManager``) and the out-of-core data cache (``DataCache``) in
+:mod:`flinkml_tpu_torch.iteration`; and all four kernels:
 ``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
 runs under the precision tiers (``precision``:
 ``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
@@ -56,6 +61,10 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     KMeansModel,
     Knn,
     KnnModel,
+    LinearRegression,
+    LinearRegressionModel,
+    LinearSVC,
+    LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
     MaxAbsScaler,
@@ -66,13 +75,20 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     MinMaxScalerModel,
     OneHotEncoder,
     OneHotEncoderModel,
+    OnlineLogisticRegression,
+    OnlineLogisticRegressionModel,
     RobustScaler,
     RobustScalerModel,
     StandardScaler,
     StandardScalerModel,
     VectorAssembler,
 )
-from flinkml_tpu_torch import precision  # noqa: F401
+from flinkml_tpu_torch import iteration, precision  # noqa: F401
+from flinkml_tpu_torch.iteration import (  # noqa: F401
+    CheckpointManager,
+    DataCache,
+    iterate,
+)
 from flinkml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: F401
 from flinkml_tpu_torch.precision import (  # noqa: F401
     PrecisionPolicy,
@@ -86,7 +102,9 @@ __all__ = [
     "AlgoOperator",
     "BisectingKMeans",
     "BisectingKMeansModel",
+    "CheckpointManager",
     "ColumnKernel",
+    "DataCache",
     "DenseVector",
     "Estimator",
     "KMeans",
@@ -94,6 +112,10 @@ __all__ = [
     "KernelUnsupportedError",
     "Knn",
     "KnnModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "LinearSVC",
+    "LinearSVCModel",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
@@ -106,6 +128,8 @@ __all__ = [
     "ModelIntegrityError",
     "OneHotEncoder",
     "OneHotEncoderModel",
+    "OnlineLogisticRegression",
+    "OnlineLogisticRegressionModel",
     "Pipeline",
     "PipelineModel",
     "PrecisionPolicy",
@@ -122,6 +146,8 @@ __all__ = [
     "VectorAssembler",
     "Vectors",
     "default_device",
+    "iterate",
+    "iteration",
     "launch_counts",
     "load_stage",
     "reset_launch_counts",

@@ -204,18 +204,23 @@ def shared_memory(n_table: int, n_stages: int, per_warp: int, warps: int,
     beside ``warps`` warps' row buffers (``per_warp`` elements each); else
     the head's block is read from device memory, then the stages' too;
     then the block has fewer warps. None when one warp's row buffer alone
-    exceeds :data:`MAX_SMEM_BYTES`. ``whole`` (an int8 table, which only
-    shared memory holds dequantized): the whole table or None."""
+    exceeds :data:`MAX_SMEM_BYTES`. ``whole`` (an int8 table, which the
+    kernel dequantizes into shared memory only): first the whole table,
+    with fewer warps if need be; when it does not fit beside one warp's
+    rows, the float table's placements (fewer than ``n_table`` elements:
+    the caller launches on the table dequantized once,
+    :meth:`ChainProgram.float_table`)."""
     cap = MAX_SMEM_BYTES // itemsize
-    for n in ((n_table,) if whole else (n_table, n_stages, 0)):
+    if whole and n_table + per_warp <= cap:
+        fewer = min(warps, (cap - n_table) // per_warp) if per_warp else warps
+        return n_table, fewer, (n_table + fewer * per_warp) * itemsize
+    for n in (n_table, n_stages, 0):
         if n + warps * per_warp <= cap:
             return n, warps, (n + warps * per_warp) * itemsize
-    rest = cap - (n_table if whole else 0)
-    fewer = rest // per_warp if per_warp else 0
+    fewer = cap // per_warp if per_warp else 0
     if fewer < 1:
         return None
-    return ((n_table if whole else 0), fewer,
-            ((n_table if whole else 0) + fewer * per_warp) * itemsize)
+    return 0, fewer, fewer * per_warp * itemsize
 
 
 def _stage_name(kernel) -> str:
@@ -707,31 +712,53 @@ class ChainProgram:
         self.policy = policy
         self.plan = plan_chain(self.kernels, ext_names, out_names)
         self._table = None   # (arrays, dtype, device, d, packed)
+        self._float = None   # the same, for the int8 tier's float table
         self._layout = None  # (input signature, Layout)
+
+    def _cached(self, slot: str, consts, dtype: torch.dtype,
+                device: torch.device, d: int, build):
+        """``build()``'s packed table, kept in ``slot`` and reused while the
+        model arrays (by identity), ``dtype``, ``device`` and ``d`` stay."""
+        arrays = tuple(v for kc in consts for v in kc.values())
+        hit = getattr(self, slot)
+        if (hit is not None and hit[1] == dtype and hit[2] == device
+                and hit[3] == d and len(hit[0]) == len(arrays)
+                and all(a is b for a, b in zip(hit[0], arrays))):
+            return hit[4]
+        packed = build()
+        setattr(self, slot, (arrays, dtype, device, d, packed))
+        return packed
 
     def table(self, consts, dtype: torch.dtype, device: torch.device,
               d: int):
         """The packed constants for a row of ``dtype``: ``(tensor, ops, k,
         int8 layout or None)`` — the working table, or under the int8 tier
         the blob of :func:`pack_int8`."""
-        arrays = tuple(v for kc in consts for v in kc.values())
-        hit = self._table
-        if (hit is not None and hit[1] == dtype and hit[2] == device
-                and hit[3] == d and len(hit[0]) == len(arrays)
-                and all(a is b for a, b in zip(hit[0], arrays))):
-            return hit[4]
-        k = head_classes(self.plan, consts)
-        policy = self.policy
-        if _declared(policy) and policy.quant == "int8":
-            blob, ops, lay = pack_int8(self.plan, self.kernels, consts, d,
-                                       policy)
-            packed = (torch.from_numpy(blob).to(device), ops, k, lay)
-        else:
+        def build():
+            k = head_classes(self.plan, consts)
+            policy = self.policy
+            if _declared(policy) and policy.quant == "int8":
+                blob, ops, lay = pack_int8(self.plan, self.kernels, consts, d,
+                                           policy)
+                return torch.from_numpy(blob).to(device), ops, k, lay
             host, ops = pack_table(self.plan, self.kernels, consts, dtype, d,
                                    policy)
-            packed = (host.to(device), ops, k, None)
-        self._table = (arrays, dtype, device, d, packed)
-        return packed
+            return host.to(device), ops, k, None
+        return self._cached("_table", consts, dtype, device, d, build)
+
+    def float_table(self, consts, dtype: torch.dtype, device: torch.device,
+                    d: int):
+        """Under the int8 tier, the working table of :func:`pack_table`:
+        every int8 pair dequantized once (``q * scale`` at
+        ``policy.compute``, the multiply the kernel makes at the load), for
+        a table too large for shared memory, which the kernel then reads
+        from device memory as under no policy. ``(tensor, ops, k, None)``,
+        cached for the life of the model arrays."""
+        def build():
+            host, ops = pack_table(self.plan, self.kernels, consts, dtype, d,
+                                   self.policy)
+            return host.to(device), ops, head_classes(self.plan, consts), None
+        return self._cached("_float", consts, dtype, device, d, build)
 
     def layout(self, ext_vals) -> "Layout":
         """How a launch over ``ext_vals`` reads them (a part that is not
@@ -809,6 +836,49 @@ class ChainProgram:
             rnd |= _OUT_BF16
         return rnd, compute, accum
 
+    def placement(self, lay: "Layout", k: int, n_table: int,
+                  quant: bool) -> Tuple[bool, int, int, int, int]:
+        """How a launch over rows of ``lay`` stages a table of ``n_table``
+        elements (``quant``: int8, dequantized into shared memory only):
+        ``(vector route, lane group, table elements in shared memory,
+        threads a block, shared-memory bytes)``. Under the int8 tier fewer
+        than ``n_table`` elements in shared memory means the launch takes
+        the float table (:meth:`float_table`). Raises
+        :class:`KernelUnsupportedError` when one warp's rows do not fit."""
+        plan, d = self.plan, lay.d
+        item = 8 if lay.dtype == torch.float64 else 4
+        vector = lay.route == "vector"
+        group, rows_per_warp, _ = lane_group(d, item) if vector else (0, 1, 0)
+        class_head = plan.head in ("multinomial", "kmeans")
+        if not (not vector or lay.gather or class_head or quant):
+            return vector, group, 0, SCALAR_THREADS, 0
+        # Each warp of a class head stages its rows, and (multinomial) the
+        # row's logits, in shared memory.
+        logits = k if plan.head == "multinomial" else 0
+        n_stages = plan.n_run * (2 * d + 2)
+        place = None
+        if vector:
+            per_warp = rows_per_warp * d + logits if class_head else 0
+            place = shared_memory(n_table, n_stages, per_warp,
+                                  VECTOR_THREADS // 32, item, quant)
+            if place is None or place[1] < VECTOR_THREADS // 32:
+                # A vector block keeps all its warps: the scalar route
+                # takes the rows.
+                vector, group, place = False, 0, None
+        if not vector:
+            per_warp = d + logits if class_head else 0
+            place = shared_memory(n_table, n_stages, per_warp,
+                                  SCALAR_THREADS // 32, item, quant)
+        if place is None:
+            raise _refuse(
+                f"a {plan.head} head over d={d} with {k} classes stages "
+                f"{per_warp * item} bytes a row beside a table of "
+                f"{n_table * item if quant else 0} bytes, more than the "
+                f"{MAX_SMEM_BYTES} bytes of shared memory a block can hold"
+            )
+        n_smem, warps, smem = place
+        return vector, group, n_smem, warps * 32, smem
+
     def __call__(self, ext_vals, consts, n_valid: int) -> Dict[str, torch.Tensor]:
         plan = self.plan
         for v in ext_vals:
@@ -824,41 +894,14 @@ class ChainProgram:
         dtype, d, gather = lay.dtype, lay.d, lay.gather
         device = ext_vals[0].device
         bucket = ext_vals[0].shape[0]
-        item = 8 if dtype == torch.float64 else 4
-        vector = lay.route == "vector"
-        group, rows_per_warp, _ = lane_group(d, item) if vector else (0, 1, 0)
         table, ops, k, quant = self.table(consts, dtype, device, d)
         n_table = quant["n_table"] if quant else table.numel()
-        class_head = plan.head in ("multinomial", "kmeans")
-        # Each warp of a class head stages its rows, and (multinomial) the
-        # row's logits, in shared memory.
-        logits = k if plan.head == "multinomial" else 0
-        n_smem, threads, smem = 0, SCALAR_THREADS, 0
-        if not vector or gather or class_head or quant:
-            n_stages = plan.n_run * (2 * d + 2)
-            whole = quant is not None
-            if vector:
-                per_warp = rows_per_warp * d + logits if class_head else 0
-                place = shared_memory(n_table, n_stages, per_warp,
-                                      VECTOR_THREADS // 32, item, whole)
-                if place is None or place[1] < VECTOR_THREADS // 32:
-                    # A vector block keeps all its warps: the scalar route
-                    # takes the rows.
-                    vector, group, place = False, 0, None
-            if not vector:
-                per_warp = d + logits if class_head else 0
-                place = shared_memory(n_table, n_stages, per_warp,
-                                      SCALAR_THREADS // 32, item, whole)
-            if place is None:
-                raise _refuse(
-                    f"a {plan.head} head over d={d} with {k} classes stages "
-                    f"{per_warp * item} bytes a row beside a table of "
-                    f"{n_table * item if whole else 0} bytes, more than the "
-                    f"{MAX_SMEM_BYTES} bytes of shared memory a block can "
-                    "hold"
-                )
-            n_smem, warps, smem = place
-            threads = warps * 32
+        _, group, n_smem, threads, smem = self.placement(
+            lay, k, n_table, quant is not None)
+        if quant and n_smem < n_table:
+            # The int8 table does not fit in shared memory: launch on the
+            # float table, its head read from device memory.
+            table, ops, k, quant = self.float_table(consts, dtype, device, d)
 
         rnd, compute, accum = self._head_args(dtype)
         new = functools.partial(torch.empty, device=device)

@@ -1,6 +1,7 @@
 """Stages of the model catalog ported so far: the four scalers,
-OneHotEncoder, VectorAssembler, LogisticRegression, Knn, MinHashLSH,
-KMeans (batch fit) and BisectingKMeans (estimators and models)."""
+OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
+LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (batch
+fit) and BisectingKMeans (estimators and models)."""
 
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
@@ -8,11 +9,23 @@ from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
 )
 from flinkml_tpu_torch.models.kmeans import KMeans, KMeansModel  # noqa: F401
 from flinkml_tpu_torch.models.knn import Knn, KnnModel  # noqa: F401
+from flinkml_tpu_torch.models.linear_regression import (  # noqa: F401
+    LinearRegression,
+    LinearRegressionModel,
+)
+from flinkml_tpu_torch.models.linear_svc import (  # noqa: F401
+    LinearSVC,
+    LinearSVCModel,
+)
 from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegression,
     LogisticRegressionModel,
 )
 from flinkml_tpu_torch.models.lsh import MinHashLSH, MinHashLSHModel  # noqa: F401
+from flinkml_tpu_torch.models.online_logistic_regression import (  # noqa: F401
+    OnlineLogisticRegression,
+    OnlineLogisticRegressionModel,
+)
 from flinkml_tpu_torch.models.one_hot_encoder import (  # noqa: F401
     OneHotEncoder,
     OneHotEncoderModel,
@@ -36,6 +49,10 @@ __all__ = [
     "KMeansModel",
     "Knn",
     "KnnModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "LinearSVC",
+    "LinearSVCModel",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MaxAbsScaler",
@@ -46,6 +63,8 @@ __all__ = [
     "MinMaxScalerModel",
     "OneHotEncoder",
     "OneHotEncoderModel",
+    "OnlineLogisticRegression",
+    "OnlineLogisticRegressionModel",
     "RobustScaler",
     "RobustScalerModel",
     "StandardScaler",

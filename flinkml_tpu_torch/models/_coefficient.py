@@ -5,14 +5,34 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+import torch
 
 from flinkml_tpu_torch.table import Table
 
 
+def linear_margins(table: Table, features_col: str,
+                   coefficient: np.ndarray) -> np.ndarray:
+    """``x · coef`` per row on the host: SparseVector rows through
+    :func:`flinkml_tpu_torch.ops.sparse.sparse_margins` (the ``spmv``
+    kernel, float32, returned as float64), dense rows by one product on
+    the compute device in the column's floating dtype (float64 for
+    anything else)."""
+    from flinkml_tpu_torch.models._data import features_tensor, sparse_features
+
+    sparse_col = sparse_features(table, features_col)
+    if sparse_col is not None:
+        from flinkml_tpu_torch.ops.sparse import sparse_margins
+
+        return sparse_margins(sparse_col, coefficient).astype(np.float64)
+    x = features_tensor(table, features_col)
+    coef = torch.as_tensor(coefficient).to(device=x.device, dtype=x.dtype)
+    return torch.matmul(x, coef).cpu().numpy()
+
+
 class CoefficientModelMixin:
     """set/get model data, the ``_arrays`` persistence layout, and the
-    fitted-check for coefficient models (LogisticRegression now; LinearSVC,
-    LinearRegression and online LR in later slices)."""
+    fitted-check for coefficient models (LogisticRegression, LinearSVC,
+    LinearRegression)."""
 
     _coefficient: Optional[np.ndarray] = None
 

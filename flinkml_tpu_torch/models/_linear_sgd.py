@@ -30,16 +30,32 @@ host reads that flag once every :data:`SYNC_EVERY` steps. The result is
 the ``while_loop``'s — the same epoch count and the same coefficients, at
 any ``tol`` — with no host round trip per step.
 
+**Checkpoints.** With a checkpoint manager and an interval K the device
+loop runs in K-epoch dispatches; after each the carry ``(coef, loss)`` is
+saved at its epoch and the listeners fire (:func:`_run_chunked`), and
+``resume=True`` restores the newest valid carry and re-enters the same
+loop, so the resumed trajectory is the uninterrupted one.
+
+**Streamed fits** (:func:`train_linear_model_stream`, the
+``ReplayOperator`` path): epoch 0 trains batch by batch while caching each
+batch (spilling beyond a memory budget); later epochs replay the cache
+through a :class:`~flinkml_tpu_torch.iteration.datacache.
+PrefetchingDeviceFeed`. One SGD step per batch, the epoch's loss summed on
+the device and read once per epoch. A sparse stream caches CSR and packs
+each batch into uniform ELL of a power-of-two width; its step is the
+``spmv`` kernel forward and one unsorted ``segment_sum`` kernel gradient.
+
 Single device only: the data-parallel mesh (``torch.distributed``) comes
 with ROADMAP.md Queue 1 item 7. Not ported yet, each refused with
 ``NotImplementedError`` naming its ROADMAP.md Queue 1 item: the
-``cumsum`` sparse layout (item 14), ``mode="host"`` and the ``iterate``
-runtime (item 15), checkpoint/resume (item 16), precision policies
-(item 3), and meshes and sharding plans (item 7).
+``cumsum`` sparse layout (item 14), the sorted-column stream (item 5, with
+the ``data/`` package), precision policies (item 3), and meshes and
+sharding plans (item 7).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -70,10 +86,6 @@ _UNPORTED = {
     "mesh": "item 7 (multi-device)",
     "sharding_plan": "item 7 (multi-device, sharding plans)",
     "precision": "item 3 (precision policies)",
-    "checkpoint_manager": "item 16 (checkpoint/resume)",
-    "resume": "item 16 (checkpoint/resume)",
-    "cache_dir": "item 5 (streamed and out-of-core fits)",
-    "cache_memory_budget_bytes": "item 5 (streamed and out-of-core fits)",
 }
 
 
@@ -125,9 +137,9 @@ def _window(arr: torch.Tensor, epoch: int, local_bs: int) -> torch.Tensor:
     return arr.narrow(0, start, local_bs)
 
 
-def _prox_update(coef, grad, loss_sum, wsum, learning_rate, reg_l2, reg_l1):
+def _prox_step(coef, grad, loss_sum, wsum, learning_rate, reg_l2, reg_l1):
     """L2 gradient term, step, L1 soft-threshold; returns ``(new_coef,
-    mean loss)`` in the JAX package's operation order."""
+    loss_sum + L2 term, wsum)`` in the JAX package's operation order."""
     acc = _acc_dt(coef.dtype)
     grad = grad + 2.0 * reg_l2 * coef
     loss_sum = loss_sum + reg_l2 * torch.sum(torch.square(coef.to(acc)))
@@ -136,6 +148,13 @@ def _prox_update(coef, grad, loss_sum, wsum, learning_rate, reg_l2, reg_l1):
         coef - step_size.to(coef.dtype) * grad,
         step_size.to(coef.dtype) * reg_l1,
     )
+    return new_coef, loss_sum, wsum
+
+
+def _prox_update(coef, grad, loss_sum, wsum, learning_rate, reg_l2, reg_l1):
+    """:func:`_prox_step` with the mean loss: ``(new_coef, mean loss)``."""
+    new_coef, loss_sum, wsum = _prox_step(coef, grad, loss_sum, wsum,
+                                          learning_rate, reg_l2, reg_l1)
     return new_coef, (loss_sum / wsum).to(coef.dtype)
 
 
@@ -271,30 +290,78 @@ def _sparse_trainer_bucketed(loss: str, local_bss: Tuple[int, ...],
     return trainer
 
 
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def _restore_carry(checkpoint_manager, dim, dtype):
+    """The newest valid ``(coef, loss)`` carry: ``(coef_host, epoch,
+    loss)``, or None when there is no checkpoint. One definition for the
+    chunked and the streamed paths, so their snapshot layout cannot
+    diverge (the JAX package's: a ``(coef, float64 loss)`` tuple)."""
+    from flinkml_tpu_torch.iteration.stream_sync import agreed_restore_latest
+
+    like = (np.zeros(dim, dtype=np.dtype(dtype)), np.float64(0.0))
+    restored = agreed_restore_latest(
+        checkpoint_manager, like, None, "checkpoint restore (latest carry)"
+    )
+    if restored is None:
+        return None
+    (coef_h, loss_h), epoch = restored
+    return coef_h, int(epoch), float(loss_h)
+
+
 def _run_chunked(trainer, data_args: Tuple, dim, dt: torch.dtype,
                  learning_rate: float, reg_l2: float, reg_l1: float,
-                 tol: float, max_iter: int,
+                 tol: float, max_iter: int, checkpoint_manager=None,
+                 checkpoint_interval: int = 0, resume: bool = False,
                  listeners: Sequence = ()) -> np.ndarray:
-    """Drive a whole-loop trainer from epoch 0 to ``max_iter`` (or ``tol``)
-    in one dispatch; returns the coefficient (shape ``dim``: ``d`` or
-    ``(k, d)``) on the host. ``listeners``
-    fire once, at the end (the K-epoch checkpointed chunks are ROADMAP.md
-    Queue 1 item 16)."""
+    """Drive a whole-loop trainer from epoch 0 (or the restored epoch) to
+    ``max_iter`` (or ``tol``); returns the coefficient (shape ``dim``:
+    ``d`` or ``(k, d)``) on the host.
+
+    - No checkpoint manager (or interval 0): one dispatch runs the loop.
+    - A manager and an interval K: each dispatch runs K epochs, then the
+      carry ``(coef, loss)`` is saved at its epoch; ``resume=True``
+      restores the newest valid carry and re-enters the same loop, so the
+      resumed trajectory is the uninterrupted one. With a manager the
+      terminal carry is always saved.
+    - ``listeners`` fire after every dispatch (``epoch - 1`` and the
+      coefficient on the host), then ``on_iteration_terminated``.
+    """
+    from flinkml_tpu_torch.iteration.checkpoint import begin_resume
+
     device = data_args[0].device
+    resume_epoch = begin_resume(checkpoint_manager, resume, _P_SIZE)
     coef = torch.zeros(dim, dtype=dt, device=device)
     epoch, cur_loss = 0, float("inf")
+    if resume_epoch is not None:
+        restored = _restore_carry(checkpoint_manager, dim, _np_dtype(dt))
+        if restored is not None:
+            coef_h, epoch, cur_loss = restored
+            coef = torch.from_numpy(np.ascontiguousarray(coef_h)).to(
+                device=device, dtype=dt)
+    chunk = (checkpoint_interval
+             if checkpoint_manager is not None and checkpoint_interval > 0
+             else max_iter)
     hy = tuple(torch.tensor(v, dtype=dt, device=device)
                for v in (learning_rate, reg_l2, reg_l1, tol))
-    if epoch < max_iter and cur_loss > tol:
-        coef, ep_dev, _ = trainer(
+    while epoch < max_iter and cur_loss > tol:
+        epoch_end = min(epoch + chunk, max_iter)
+        coef, ep_dev, loss_dev = trainer(
             coef, epoch, torch.tensor(cur_loss, dtype=dt, device=device),
-            *data_args, *hy, max_iter,
+            *data_args, *hy, epoch_end,
         )
         epoch = int(ep_dev)
+        cur_loss = float(loss_dev)
         coef_host = coef.cpu().numpy()
+        if checkpoint_manager is not None:
+            checkpoint_manager.save((coef_host, np.float64(cur_loss)), epoch)
         for listener in listeners:
             listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
     result = coef.cpu().numpy()
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()  # surface a failed final async write
     for listener in listeners:
         listener.on_iteration_terminated(result)
     return result
@@ -319,6 +386,7 @@ def train_linear_model(
     dtype=None,
     listeners=(),
     checkpoint_manager=None,
+    checkpoint_interval: int = 0,
     resume: bool = False,
     sharding_plan=None,
     precision=None,
@@ -331,9 +399,10 @@ def train_linear_model(
     shuffled on the host by ``np.random.default_rng(seed).permutation``,
     as in the JAX package. The compute dtype is ``dtype``, else ``x``'s
     floating dtype (float64 otherwise); ``y`` and ``w`` are cast to it.
+    ``checkpoint_manager``/``checkpoint_interval``/``resume``: see
+    :func:`_run_chunked`.
     """
-    refuse_unported(checkpoint_manager=checkpoint_manager, resume=resume,
-                    sharding_plan=sharding_plan, precision=precision)
+    refuse_unported(sharding_plan=sharding_plan, precision=precision)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = x.shape[0]
@@ -353,7 +422,9 @@ def train_linear_model(
     return _run_chunked(
         trainer, (xd, yd, wd), x.shape[1], xd.dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
-        tol, max_iter, listeners=listeners,
+        tol, max_iter, checkpoint_manager=checkpoint_manager,
+        checkpoint_interval=checkpoint_interval, resume=resume,
+        listeners=listeners,
     )
 
 
@@ -412,6 +483,7 @@ def train_softmax_model(
     dtype=None,
     listeners=(),
     checkpoint_manager=None,
+    checkpoint_interval: int = 0,
     resume: bool = False,
 ) -> np.ndarray:
     """Multinomial logistic regression on the compute device: returns the
@@ -420,7 +492,6 @@ def train_softmax_model(
     device loop, proximal elastic net); the loss is weighted softmax
     cross-entropy over integer labels ``0..k-1``. The compute dtype is
     ``dtype``, else ``x``'s floating dtype (float64 otherwise)."""
-    refuse_unported(checkpoint_manager=checkpoint_manager, resume=resume)
     n = x.shape[0]
     if n == 0:
         raise ValueError("training table is empty")
@@ -438,7 +509,9 @@ def train_softmax_model(
     return _run_chunked(
         trainer, (xd, yd, wd), (int(num_classes), x.shape[1]), xd.dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
-        tol, max_iter, listeners=listeners,
+        tol, max_iter, checkpoint_manager=checkpoint_manager,
+        checkpoint_interval=checkpoint_interval, resume=resume,
+        listeners=listeners,
     )
 
 
@@ -538,6 +611,7 @@ def train_linear_model_sparse_csr(
     listeners=(),
     layout: str = "unsorted",
     checkpoint_manager=None,
+    checkpoint_interval: int = 0,
     resume: bool = False,
 ) -> np.ndarray:
     """Skew-proof sparse training from host CSR arrays: nnz-bucketed ELL
@@ -545,7 +619,6 @@ def train_linear_model_sparse_csr(
     bucket per step, and the gradient ``layout`` named by the caller
     (``"unsorted"``, the JAX package's default, or ``"sorted"``; the JAX
     package reads it from an env var or its tuning table)."""
-    refuse_unported(checkpoint_manager=checkpoint_manager, resume=resume)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = np.asarray(indptr).size - 1
@@ -559,5 +632,460 @@ def train_linear_model_sparse_csr(
     return _run_chunked(
         trainer, data_args, int(dim), data_args[1].dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
-        tol, max_iter, listeners=listeners,
+        tol, max_iter, checkpoint_manager=checkpoint_manager,
+        checkpoint_interval=checkpoint_interval, resume=resume,
+        listeners=listeners,
     )
+
+
+def train_linear_model_from_table(
+    table,
+    features_col: str,
+    label_col: str,
+    weight_col: Optional[str],
+    label_check=None,
+    sharding_plan=None,
+    precision=None,
+    **hyper,
+) -> np.ndarray:
+    """One in-RAM fit for every linear estimator: SparseVector columns take
+    the nnz-bucketed CSR trainer, anything else the dense trainer (in the
+    column's floating dtype, float64 otherwise). ``label_check(y)``
+    validates labels on either branch; ``hyper`` passes to the trainers
+    (loss, max_iter, ..., the checkpoint knobs)."""
+    from flinkml_tpu_torch.models._data import (
+        labeled_data,
+        labeled_sparse_data,
+        sparse_features,
+    )
+
+    refuse_unported(sharding_plan=sharding_plan, precision=precision)
+    if sparse_features(table, features_col) is not None:
+        indptr, indices, values, dim, y, w = labeled_sparse_data(
+            table, features_col, label_col, weight_col
+        )
+        if label_check is not None:
+            label_check(y)
+        return train_linear_model_sparse_csr(
+            indptr, indices, values, dim, y, w, **hyper
+        )
+    x, y, w = labeled_data(table, features_col, label_col, weight_col,
+                           dtype=None)
+    if x.shape[0] == 0:
+        raise ValueError("training table is empty")
+    if label_check is not None:
+        label_check(y)
+    return train_linear_model(x, y, w, **hyper)
+
+
+# ---------------------------------------------------------------------------
+# Streamed / out-of-core training (the ReplayOperator path)
+# ---------------------------------------------------------------------------
+
+
+def streamed_linear_fit(
+    source,
+    *,
+    features_col: str,
+    label_col: str,
+    weight_col: Optional[str],
+    label_check=None,
+    **kwargs,
+) -> np.ndarray:
+    """The streamed fit of every linear estimator (binomial LR, LinearSVC,
+    LinearRegression), over an iterable of batch Tables or a sealed
+    :class:`~flinkml_tpu_torch.iteration.datacache.DataCache` holding the
+    given columns (or flat CSR batches), ``label_check`` applied on either
+    branch; ``kwargs`` pass to :func:`train_linear_model_stream`.
+
+    SparseVector feature columns take the sparse stream: batches are
+    cached as CSR (O(nnz), at any ``dim``) and trained by the ``spmv`` and
+    ``segment_sum`` kernels; a cache whose batches carry ``indptr``/
+    ``indices``/``values``/``dim`` replays through the same stream (the
+    resume route)."""
+    from flinkml_tpu_torch.iteration.datacache import DataCache
+    from flinkml_tpu_torch.models._data import (
+        labeled_data,
+        labeled_sparse_data,
+        sparse_features,
+    )
+
+    if isinstance(source, DataCache):
+        validate = None
+        mem = source.mem_batches
+        if mem:
+            first = mem[0]
+        else:
+            try:
+                first = next(iter(source.reader()))
+            except StopIteration:
+                raise ValueError("training stream is empty") from None
+        if "indptr" in first:  # a CSR cache
+            if label_check is not None:
+                def validate(batch):
+                    label_check(np.asarray(batch["y"])[0])
+
+            return train_linear_model_stream(
+                source, columns=("x", "y", "w"), validate=validate,
+                sparse_dim=int(np.asarray(first["dim"])[0, 0]), **kwargs,
+            )
+        if label_check is not None:
+            def validate(batch):
+                label_check(np.asarray(batch[label_col]))
+
+        return train_linear_model_stream(
+            source, columns=(features_col, label_col, weight_col),
+            validate=validate, **kwargs,
+        )
+
+    it = iter(source)
+    try:
+        first_t = next(it)
+    except StopIteration:
+        raise ValueError("training stream is empty") from None
+    tables = itertools.chain([first_t], it)
+
+    if sparse_features(first_t, features_col) is not None:
+        dim0 = labeled_sparse_data(first_t, features_col, label_col,
+                                   weight_col)[3]
+
+        def sparse_batches():
+            for t in tables:
+                indptr, indices, values, d, y, w = labeled_sparse_data(
+                    t, features_col, label_col, weight_col
+                )
+                if d != dim0:
+                    raise ValueError(
+                        f"stream batch feature dimension {d} != first "
+                        f"batch's {dim0}"
+                    )
+                if label_check is not None:
+                    label_check(y)
+                # Each component one 2-D row: the cache wants equal row
+                # counts per batch, and CSR components differ in length.
+                yield {
+                    "indptr": np.asarray(indptr)[None, :],
+                    "indices": np.asarray(indices)[None, :],
+                    "values": np.asarray(values)[None, :],
+                    "y": np.asarray(y)[None, :],
+                    "w": np.asarray(w)[None, :],
+                    "dim": np.asarray([[d]], np.int64),
+                }
+
+        return train_linear_model_stream(
+            sparse_batches(), sparse_dim=int(dim0), **kwargs
+        )
+
+    def batches():
+        for t in tables:
+            x, y, w = labeled_data(t, features_col, label_col, weight_col)
+            if label_check is not None:
+                label_check(y)
+            yield {"x": x, "y": y, "w": w}
+
+    return train_linear_model_stream(batches(), **kwargs)
+
+
+def _stream_stepper(loss: str):
+    """One SGD step over one streamed batch: ``(coef, x, y, w, lr, l2,
+    l1) -> (coef, loss_sum, wsum)``, unnormalised, so the epoch's mean loss
+    over batches of any size is summed on the device."""
+
+    def step(coef, xb, yb, wb, learning_rate, reg_l2, reg_l1):
+        acc = _acc_dt(xb.dtype)
+        dot = torch.matmul(xb, coef)
+        mult, per_ex = _margin_grad(loss, dot, yb, wb)
+        return _prox_step(coef, torch.matmul(xb.T, mult),
+                          torch.sum(per_ex.to(acc)), torch.sum(wb.to(acc)),
+                          learning_rate, reg_l2, reg_l1)
+
+    return step
+
+
+def _sparse_stream_stepper(loss: str, dim: int):
+    """Sparse sibling of :func:`_stream_stepper` over one padded-ELL batch
+    ``(indices, values)``: the ``spmv`` kernel forward and one unsorted
+    ``segment_sum`` kernel gradient into the dense ``[dim]`` coefficient
+    (each batch's cells are seen once per epoch, in stream order, so no
+    pack-time sort applies)."""
+
+    def step(coef, ib, vb, yb, wb, learning_rate, reg_l2, reg_l1):
+        acc = _acc_dt(vb.dtype)
+        dot = spmv(ib, vb, coef)
+        mult, per_ex = _margin_grad(loss, dot, yb, wb)
+        contrib = (vb * mult[:, None]).reshape(-1)
+        grad = segment_sum(contrib, ib.reshape(-1), dim)
+        return _prox_step(coef, grad, torch.sum(per_ex.to(acc)),
+                          torch.sum(wb.to(acc)), learning_rate, reg_l2,
+                          reg_l1)
+
+    return step
+
+
+def train_linear_model_sorted_stream(*args, **kwargs) -> np.ndarray:
+    """The stream of device-resident sorted-column tables (refused)."""
+    raise NotImplementedError(
+        "the sorted-column stream (SortedSparseColumn tables from a "
+        "DevicePrefetcher) is not ported to flinkml_tpu_torch yet: it comes "
+        "with ROADMAP.md Queue 1 item 5 (the data/ package); stream CSR "
+        "batches through train_linear_model_stream(sparse_dim=...) instead"
+    )
+
+
+def _ell_width_for(max_nnz: int) -> int:
+    """A batch's max nnz rounded up to a power of two, so the stream's
+    nnz variation maps to a log-bounded set of widths."""
+    return 1 << max(int(max_nnz) - 1, 0).bit_length()
+
+
+def _check_csr_structure(indptr, indices, sparse_dim: int):
+    """Structural CSR validation of a streamed batch; returns ``nnz =
+    diff(indptr)``. A non-monotone indptr would fail inside the ELL fill,
+    and an out-of-range column index would reach the ``spmv`` gather,
+    which does not clamp: both are refused here, on the first pass."""
+    nnz = np.diff(indptr)
+    if indptr.size == 0 or indptr[0] != 0 or np.any(nnz < 0):
+        raise ValueError(
+            "invalid CSR batch: indptr must start at 0 and be "
+            "non-decreasing"
+        )
+    if indices.size and (
+        int(indices.min()) < 0 or int(indices.max()) >= sparse_dim
+    ):
+        raise ValueError(
+            "invalid CSR batch: column indices must lie in "
+            f"[0, {sparse_dim}); got range "
+            f"[{int(indices.min())}, {int(indices.max())}]"
+        )
+    return nnz
+
+
+def _pack_uniform_ell(indptr, indices, values, dtype, width=None):
+    """One CSR batch as uniform ELL of width :func:`_ell_width_for` (or
+    ``width``); padding cells carry index 0 / value 0 (exact no-ops)."""
+    from flinkml_tpu_torch.ops.sparse import fill_ell
+
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = indptr.size - 1
+    nnz = np.diff(indptr)
+    if width is None:
+        width = _ell_width_for(np.max(nnz, initial=1))
+    bi = np.zeros((n, width), dtype=np.int32)
+    bv = np.zeros((n, width), dtype=dtype)
+    fill_ell(bi, bv, indptr[:-1], nnz, indices, values)
+    return bi, bv
+
+
+def train_linear_model_stream(
+    batches,
+    loss: str,
+    max_iter: int,
+    learning_rate: float,
+    reg: float,
+    elastic_net: float,
+    tol: float,
+    cache_dir: Optional[str] = None,
+    memory_budget_bytes: Optional[int] = None,
+    checkpoint_manager=None,
+    checkpoint_interval: int = 0,
+    resume: bool = False,
+    listeners=(),
+    prefetch_depth: int = 2,
+    dtype=np.float32,
+    columns: Tuple[str, str, Optional[str]] = ("x", "y", "w"),
+    validate=None,
+    sparse_dim: Optional[int] = None,
+) -> np.ndarray:
+    """Train from a one-shot stream of batches, datasets larger than RAM
+    included (reference: ``ReplayOperator.java:62-250``).
+
+    - ``batches``: an iterable of ``{x: [n, d], y: [n], w: [n]}`` numpy
+      dicts (keys named by ``columns``; no weight key means unit weights),
+      one global mini-batch each, or a sealed
+      :class:`~flinkml_tpu_torch.iteration.datacache.DataCache` of them
+      (no caching pass; ``resume=True`` needs one: a one-shot stream
+      cannot be replayed after a failure);
+    - ``sparse_dim``: each batch is a flat CSR dict (``indptr``,
+      ``indices``, ``values``, ``y``, optional ``w``, ``dim``, each one 2-D
+      row), cached as CSR, packed per batch into uniform ELL
+      (:func:`_pack_uniform_ell`) and trained by the ``spmv`` and
+      ``segment_sum`` kernels;
+    - epoch 0 trains while appending each batch to a cache that spills
+      beyond ``memory_budget_bytes`` to ``cache_dir``; later epochs replay
+      it through a :class:`~flinkml_tpu_torch.iteration.datacache.
+      PrefetchingDeviceFeed`. Spilled and in-RAM replay give the same
+      bits;
+    - each batch trains at its own row count (the JAX package pads it
+      with weight-0 rows to its mesh's row tile, which adds exact zeros:
+      eager PyTorch compiles nothing per shape); ``validate(batch)``, the
+      CSR structure and the zero-weight checks run on the first pass only
+      (a cached batch cannot change), which is also the first pass over a
+      caller's cache;
+    - termination: ``TerminateOnMaxIterOrTol(max_iter, tol)`` on the
+      weighted epoch-mean loss, summed on the device and read once per
+      epoch; a manager saves ``(coef, loss)`` every ``checkpoint_interval``
+      epochs and always at the end.
+    """
+    from flinkml_tpu_torch.iteration.checkpoint import begin_resume
+    from flinkml_tpu_torch.iteration.datacache import (
+        DataCache,
+        DataCacheWriter,
+        PrefetchingDeviceFeed,
+        device_put,
+    )
+    from flinkml_tpu_torch.iteration.runtime import TerminateOnMaxIterOrTol
+
+    if loss not in _LOSS_KEYS:
+        raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
+    is_cache = isinstance(batches, DataCache)
+    if resume and not is_cache:
+        raise ValueError(
+            "resume=True requires a durable DataCache input: a one-shot "
+            "stream cannot be replayed from the start after a failure"
+        )
+    begin_resume(checkpoint_manager, resume, _P_SIZE)
+    device = default_device()
+    dt = torch.from_numpy(np.zeros(0, dtype)).dtype
+    step = (_sparse_stream_stepper(loss, int(sparse_dim))
+            if sparse_dim is not None else _stream_stepper(loss))
+    x_key, y_key, w_key = columns
+    # Batches are immutable once cached: the input checks need the first
+    # pass only, not max_iter re-scans on the feed's thread.
+    first_pass_done = False
+
+    def check_weights(n, w):
+        if n == 0 or float(w.sum()) == 0.0:
+            # The step divides by the batch's weight sum: an inf step size
+            # would silently NaN the model.
+            raise ValueError(
+                "stream batch has zero total weight (empty batch or all "
+                "weights 0); drop such batches before training"
+            )
+
+    def place_dense(batch):
+        x = np.asarray(batch[x_key], dtype=dtype)
+        n = x.shape[0]
+        y = np.asarray(batch[y_key], dtype=dtype)
+        w = (np.asarray(batch[w_key], dtype=dtype)
+             if w_key is not None and w_key in batch
+             else np.ones(n, dtype=dtype))
+        if not first_pass_done:
+            if validate is not None:
+                validate(batch)
+            check_weights(n, w)
+        return device_put((x, y, w), device)
+
+    def place_sparse(batch):
+        indptr = np.asarray(batch["indptr"])[0]
+        indices = np.asarray(batch["indices"])[0]
+        n = indptr.size - 1
+        y = np.asarray(batch["y"])[0].astype(dtype)
+        w = (np.asarray(batch["w"])[0].astype(dtype)
+             if "w" in batch else np.ones(n, dtype=dtype))
+        if not first_pass_done:
+            d = int(np.asarray(batch["dim"]).reshape(-1)[0])
+            if d != sparse_dim:
+                raise ValueError(
+                    f"CSR stream batch has dim {d}, expected {sparse_dim}"
+                )
+            _check_csr_structure(indptr, indices, sparse_dim)
+            if validate is not None:
+                validate(batch)
+            check_weights(n, w)
+        bi, bv = _pack_uniform_ell(indptr, indices,
+                                   np.asarray(batch["values"])[0], dtype)
+        return device_put((bi, bv, y, w), device)
+
+    place = place_sparse if sparse_dim is not None else place_dense
+    hy = tuple(torch.tensor(v, dtype=dt, device=device) for v in (
+        learning_rate, reg * (1.0 - elastic_net), reg * elastic_net))
+    criterion = TerminateOnMaxIterOrTol(max_iter, tol)
+    coef = None
+    epoch = 0  # epochs completed
+    cur_loss = math.inf
+
+    def run_epoch(device_batches, coef):
+        """One pass; returns ``(coef, epoch mean loss)``. The loss sums
+        stay on the device until the epoch's one conversion."""
+        loss_acc = torch.zeros((), dtype=dt, device=device)
+        wsum_acc = torch.zeros((), dtype=dt, device=device)
+        n_batches = 0
+        for tensors in device_batches:
+            if coef is None:
+                d0 = (sparse_dim if sparse_dim is not None
+                      else tensors[0].shape[1])
+                coef = torch.zeros(int(d0), dtype=dt, device=device)
+            coef, ls, ws = step(coef, *tensors, *hy)
+            loss_acc = loss_acc + ls
+            wsum_acc = wsum_acc + ws
+            n_batches += 1
+        if n_batches == 0:
+            raise ValueError("training stream is empty")
+        return coef, float(loss_acc) / float(wsum_acc)
+
+    def after_epoch(terminated: bool):
+        """Listeners and the checkpoint, after ``epoch`` has advanced; with
+        a manager the terminal carry is always saved."""
+        nonlocal first_pass_done
+        first_pass_done = True
+        save = checkpoint_manager is not None and (
+            terminated
+            or (checkpoint_interval > 0 and epoch % checkpoint_interval == 0))
+        if not (listeners or save):
+            return
+        coef_host = coef.cpu().numpy()
+        for listener in listeners:
+            listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
+        if save:
+            checkpoint_manager.save((coef_host, np.float64(cur_loss)), epoch)
+
+    def feed(source):
+        return PrefetchingDeviceFeed(source, place=place,
+                                     depth=prefetch_depth)
+
+    if is_cache:
+        cache = batches
+        if resume:
+            if sparse_dim is not None:
+                dim = int(sparse_dim)
+            else:
+                dim = np.asarray(next(iter(cache.reader()))[x_key]).shape[1]
+            restored = _restore_carry(checkpoint_manager, dim, dtype)
+            if restored is not None:
+                coef_h, epoch, cur_loss = restored
+                coef = torch.from_numpy(np.ascontiguousarray(coef_h)).to(
+                    device=device, dtype=dt)
+    else:
+        writer = DataCacheWriter(cache_dir, memory_budget_bytes)
+
+        def caching_iter():
+            for b in batches:
+                # A copy: the writer freezes RAM batches, which must not
+                # leak onto the caller's buffers.
+                writer.append({k: np.array(v) for k, v in b.items()})
+                yield b
+
+        feed0 = feed(caching_iter())
+        try:
+            coef, cur_loss = run_epoch(feed0, coef)
+        finally:
+            feed0.close()
+        cache = writer.finish()
+        epoch = 1
+        after_epoch(criterion.should_terminate(0, cur_loss))
+
+    while not (epoch > 0 and criterion.should_terminate(epoch - 1, cur_loss)):
+        replay_feed = feed(cache.reader())
+        try:
+            coef, cur_loss = run_epoch(replay_feed, coef)
+        finally:
+            replay_feed.close()
+        epoch += 1
+        after_epoch(criterion.should_terminate(epoch - 1, cur_loss))
+
+    result = coef.cpu().numpy()
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()  # surface a failed final async write
+    for listener in listeners:
+        listener.on_iteration_terminated(result)
+    return result

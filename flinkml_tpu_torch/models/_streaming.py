@@ -1,0 +1,78 @@
+"""The constructor knobs of every streamed-capable estimator: the cache
+and checkpoint settings, in one place.
+
+The port's counterpart of ``flinkml_tpu.models._streaming``. Estimators
+inherit the mixin first (``class LinearSVC(StreamingEstimatorMixin,
+_LinearSVCParams, Estimator)``). ``mesh``, ``sharding_plan`` and
+``precision`` are refused at construction, naming their ROADMAP.md Queue 1
+items (7 and 3).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, Optional, Tuple
+
+
+def peek_stream(batches) -> Tuple[Optional[Any], Any]:
+    """The first batch of a training stream and the stream to hand to
+    ``iterate``: a list is peeked in place and handed over whole (so a
+    resumed ``"replay"`` run re-reads it from the start); any other
+    iterable is peeked and re-chained. ``(None, empty iterator)`` for an
+    empty stream."""
+    if isinstance(batches, list):
+        if not batches:
+            return None, iter(())
+        return batches[0], batches
+    it = iter(batches)
+    try:
+        first = next(it)
+    except StopIteration:
+        return None, iter(())
+    return first, itertools.chain([first], it)
+
+
+def feed_world_size(batches) -> int:
+    """The world size a checkpoint records for a training feed: a feed's
+    ``num_shards`` where it has one, else 1."""
+    world = getattr(batches, "num_shards", None)
+    try:
+        return max(1, int(world)) if world is not None else 1
+    except (TypeError, ValueError):
+        return 1
+
+
+class StreamingEstimatorMixin:
+    """The cache and checkpoint knobs shared by every streamed-capable
+    estimator: ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
+    streamed fit spills its epoch-0 cache), ``checkpoint_manager``,
+    ``checkpoint_interval`` and ``resume``."""
+
+    def __init__(
+        self,
+        mesh=None,
+        cache_dir: Optional[str] = None,
+        cache_memory_budget_bytes: Optional[int] = None,
+        checkpoint_manager=None,
+        checkpoint_interval: int = 0,
+        resume: bool = False,
+        sharding_plan=None,
+        precision=None,
+    ):
+        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+
+        refuse_unported(mesh=mesh, sharding_plan=sharding_plan,
+                        precision=precision)
+        super().__init__()
+        self.cache_dir = cache_dir
+        self.cache_memory_budget_bytes = cache_memory_budget_bytes
+        self.checkpoint_manager = checkpoint_manager
+        self.checkpoint_interval = checkpoint_interval
+        self.resume = resume
+
+    def _checkpoint_kwargs(self) -> dict:
+        return dict(
+            checkpoint_manager=self.checkpoint_manager,
+            checkpoint_interval=self.checkpoint_interval,
+            resume=self.resume,
+        )

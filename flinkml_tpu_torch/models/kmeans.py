@@ -25,9 +25,9 @@ nearest-centroid math as plain PyTorch, and the KMeans head of the
 package's does.
 
 One device, in-RAM tables only: streamed fits (an iterable of batch
-Tables or a DataCache, ``cache_dir``, ``cache_memory_budget_bytes``),
-``mesh=`` and checkpointing raise ``NotImplementedError`` naming their
-ROADMAP.md Queue 1 items (5, 7 and 16).
+Tables or a DataCache, ``cache_dir``, ``cache_memory_budget_bytes``) and
+checkpointing raise ``NotImplementedError`` naming ROADMAP.md Queue 1
+item 6 (the rest of KMeans), ``mesh=`` item 7.
 """
 
 from __future__ import annotations
@@ -79,6 +79,10 @@ class _KMeansParams(
     )
 
 
+_STREAM_ITEM = ("ROADMAP.md Queue 1 item 6 (the rest of KMeans: its "
+                "streamed fit and checkpointing)")
+
+
 class KMeans(_KMeansParams, Estimator):
     """Fits centroids from a :class:`Table` on the compute device.
 
@@ -103,11 +107,16 @@ class KMeans(_KMeansParams, Estimator):
                     "policy-aware estimators: the linear family's dense "
                     "paths)"
                 )
-        _linear_sgd.refuse_unported(
-            mesh=mesh, checkpoint_manager=checkpoint_manager, resume=resume,
-            cache_dir=cache_dir,
-            cache_memory_budget_bytes=cache_memory_budget_bytes,
-        )
+        _linear_sgd.refuse_unported(mesh=mesh)
+        for name, value in (
+                ("checkpoint_manager", checkpoint_manager),
+                ("resume", resume), ("cache_dir", cache_dir),
+                ("cache_memory_budget_bytes", cache_memory_budget_bytes)):
+            if value is not None and value is not False:
+                raise NotImplementedError(
+                    f"KMeans {name}={value!r} is not ported to "
+                    f"flinkml_tpu_torch yet: it comes with {_STREAM_ITEM}"
+                )
 
     def fit(self, *inputs) -> "KMeansModel":
         (table,) = inputs
@@ -120,9 +129,9 @@ class KMeans(_KMeansParams, Estimator):
             )
         if not isinstance(table, Table):
             raise NotImplementedError(
-                "streamed fits (an iterable of batch Tables or a DataCache) "
-                "are not ported to flinkml_tpu_torch yet: they come with "
-                "ROADMAP.md Queue 1 item 5 (streamed and out-of-core fits)"
+                "KMeans streamed fits (an iterable of batch Tables or a "
+                "DataCache) are not ported to flinkml_tpu_torch yet: they "
+                f"come with {_STREAM_ITEM}"
             )
         x = features_matrix(table, self.get(_KMeansParams.FEATURES_COL),
                             dtype=None)

@@ -15,13 +15,22 @@ weighted-mean loss is not above ``tol``. The fit computes in the feature
 column's floating dtype (float64 for anything else); the JAX package
 computes in the dtype its global x64 flag gives.
 
+``fit`` also takes an iterable of batch Tables or a sealed
+:class:`~flinkml_tpu_torch.iteration.datacache.DataCache` (binomial only):
+the streamed, out-of-core fit (:func:`flinkml_tpu_torch.models.
+_linear_sgd.streamed_linear_fit`), which spills its epoch-0 cache to
+``cache_dir`` beyond ``cache_memory_budget_bytes`` and computes in
+float32, as the JAX package's streamed fit does. ``checkpoint_manager``,
+``checkpoint_interval`` and ``resume`` snapshot and resume both the
+streamed and the in-RAM fits.
+
 ``multiClass``: ``auto`` follows the label cardinality (more than two
 classes: multinomial), ``binomial`` and ``multinomial`` are taken as set.
 A multinomial fit (dense features only, as in the JAX package) trains a
 ``[k, d]`` matrix by softmax cross-entropy over labels ``0..k-1``
 (:func:`flinkml_tpu_torch.models._linear_sgd.train_softmax_model`).
-Streamed fits, checkpointing, meshes, sharding plans and precision
-policies raise ``NotImplementedError``, naming their ROADMAP.md items.
+Meshes, sharding plans and precision policies raise
+``NotImplementedError``, naming their ROADMAP.md items.
 
 The model: binomial prediction = ``dot >= 0``, raw prediction = ``[1-p,
 p]`` with ``p = sigmoid(dot)``; multinomial prediction = the argmax of the
@@ -65,6 +74,7 @@ from flinkml_tpu_torch.common_params import (
     HasTol,
     HasWeightCol,
 )
+from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.models import _linear_sgd
 from flinkml_tpu_torch.models._coefficient import CoefficientModelMixin
 from flinkml_tpu_torch.models._data import (
@@ -74,6 +84,7 @@ from flinkml_tpu_torch.models._data import (
     labeled_sparse_data,
     sparse_features,
 )
+from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
 from flinkml_tpu_torch.precision import chain_policy
 from flinkml_tpu_torch.table import Table
 
@@ -220,39 +231,23 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
         )
 
 
-class LogisticRegression(_LogisticRegressionParams, Estimator):
+class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
+                         Estimator):
     """Fits LR by SGD on the compute device, from a :class:`Table` of dense
     or SparseVector features (binomial), or of dense features
-    (multinomial).
+    (multinomial), or from a stream of batch Tables or a sealed
+    ``DataCache`` (binomial).
 
-    The constructor takes the JAX estimator's knobs; every one whose path
-    is not ported yet (``mesh``, ``cache_dir``,
-    ``cache_memory_budget_bytes``, ``checkpoint_manager``, ``resume``,
-    ``sharding_plan``, ``precision``) raises ``NotImplementedError`` naming
-    its ROADMAP.md item when it is set (``checkpoint_interval`` acts only
-    with a ``checkpoint_manager``, as in the JAX package).
+    The constructor takes the JAX estimator's knobs (see
+    :class:`~flinkml_tpu_torch.models._streaming.StreamingEstimatorMixin`);
+    ``mesh``, ``sharding_plan`` and ``precision`` raise
+    ``NotImplementedError`` naming their ROADMAP.md items when set.
     """
-
-    def __init__(self, mesh=None, cache_dir=None,
-                 cache_memory_budget_bytes=None, checkpoint_manager=None,
-                 checkpoint_interval: int = 0, resume: bool = False,
-                 sharding_plan=None, precision=None):
-        super().__init__()
-        _linear_sgd.refuse_unported(
-            mesh=mesh, cache_dir=cache_dir,
-            cache_memory_budget_bytes=cache_memory_budget_bytes,
-            checkpoint_manager=checkpoint_manager, resume=resume,
-            sharding_plan=sharding_plan, precision=precision,
-        )
 
     def fit(self, *inputs) -> LogisticRegressionModel:
         (table,) = inputs
         if not isinstance(table, Table):
-            raise NotImplementedError(
-                "streamed fits (an iterable of batch Tables or a DataCache) "
-                "are not ported to flinkml_tpu_torch yet: they come with "
-                "ROADMAP.md Queue 1 item 5 (streamed and out-of-core fits)"
-            )
+            return self._fit_stream(table)
         multi_class = self.get(_LogisticRegressionParams.MULTI_CLASS)
         features_col = self.get(_LogisticRegressionParams.FEATURES_COL)
         label_col = self.get(_LogisticRegressionParams.LABEL_COL)
@@ -265,6 +260,7 @@ class LogisticRegression(_LogisticRegressionParams, Estimator):
             reg=self.get(_LogisticRegressionParams.REG),
             tol=self.get(_LogisticRegressionParams.TOL),
             seed=self.get_seed(),
+            **self._checkpoint_kwargs(),
         )
         if sparse_features(table, features_col) is not None:
             indptr, indices, values, dim, y, w = labeled_sparse_data(
@@ -302,9 +298,50 @@ class LogisticRegression(_LogisticRegressionParams, Estimator):
         model.set_model_data(Table({"coefficient": coef[None, ...]}))
         return model
 
+    def _fit_stream(self, source) -> LogisticRegressionModel:
+        """The out-of-core fit from an iterable of batch Tables or a
+        DataCache (``ReplayOperator.java:62-250`` parity)."""
+        if self.get(_LogisticRegressionParams.MULTI_CLASS) == "multinomial":
+            raise ValueError(
+                "multinomial logistic regression does not support "
+                "streamed fits; materialize the data as a Table"
+            )
+        coef = _linear_sgd.streamed_linear_fit(
+            source,
+            features_col=self.get(_LogisticRegressionParams.FEATURES_COL),
+            label_col=self.get(_LogisticRegressionParams.LABEL_COL),
+            weight_col=self.get(_LogisticRegressionParams.WEIGHT_COL),
+            label_check=_check_stream_labels,
+            loss="logistic",
+            max_iter=self.get(_LogisticRegressionParams.MAX_ITER),
+            learning_rate=self.get(_LogisticRegressionParams.LEARNING_RATE),
+            reg=self.get(_LogisticRegressionParams.REG),
+            elastic_net=0.0,
+            tol=self.get(_LogisticRegressionParams.TOL),
+            cache_dir=self.cache_dir,
+            memory_budget_bytes=self.cache_memory_budget_bytes,
+            **self._checkpoint_kwargs(),
+        )
+        model = LogisticRegressionModel()
+        model.copy_params_from(self)
+        model.set_model_data(Table({"coefficient": coef[None, :]}))
+        return model
+
 
 def _check_binomial_labels(y: np.ndarray) -> None:
     check_binary_labels(y, "binomial logistic regression")
+
+
+def _check_stream_labels(y: np.ndarray) -> None:
+    """Streamed fits are binomial only: more than two classes get that
+    limitation in the message."""
+    try:
+        _check_binomial_labels(y)
+    except ValueError as e:
+        raise ValueError(
+            f"{e}; multinomial (>2 classes) is not supported for "
+            "streamed fits — materialize the data as a Table"
+        ) from None
 
 
 def _check_multinomial_labels(y: np.ndarray) -> int:
@@ -347,31 +384,71 @@ def train_logistic_regression(
     mode: str = "device",
     listeners=(),
     checkpoint_manager=None,
+    checkpoint_interval: int = 0,
     resume: bool = False,
     sharding_plan=None,
     precision=None,
 ) -> np.ndarray:
     """The SGD loop; returns the fitted coefficient on the host.
 
-    ``mode="device"`` (the only mode ported) runs the whole epoch loop on
-    the compute device with its carry there
-    (:func:`flinkml_tpu_torch.models._linear_sgd.train_linear_model`);
-    ``listeners`` fire once, when it ends. ``mode="host"`` (one dispatch
-    per epoch through ``iterate``) raises ``NotImplementedError``
-    (ROADMAP.md Queue 1 item 15).
+    - ``mode="device"``: the whole epoch loop on the compute device with
+      its carry there
+      (:func:`flinkml_tpu_torch.models._linear_sgd.train_linear_model`),
+      in ``checkpoint_interval``-epoch dispatches with a checkpoint
+      manager; listeners fire after each dispatch.
+    - ``mode="host"``: one step per epoch driven by
+      :func:`flinkml_tpu_torch.iteration.iterate`: listeners and
+      checkpoints at every epoch, one dispatch and one read of the loss
+      per epoch.
     """
     if mode not in ("device", "host"):
         raise ValueError(f"mode must be 'device' or 'host', got {mode!r}")
-    if mode == "host":
-        raise NotImplementedError(
-            "mode='host' (the per-epoch iterate loop) is not ported to "
-            "flinkml_tpu_torch yet: it comes with ROADMAP.md Queue 1 item "
-            "15 (the iterate runtime and host mode); use mode='device'"
+    if mode == "device":
+        return _linear_sgd.train_linear_model(
+            x, y, w, loss="logistic", max_iter=max_iter,
+            learning_rate=learning_rate, global_batch_size=global_batch_size,
+            reg=reg, elastic_net=0.0, tol=tol, seed=seed, dtype=dtype,
+            listeners=listeners, checkpoint_manager=checkpoint_manager,
+            checkpoint_interval=checkpoint_interval, resume=resume,
+            sharding_plan=sharding_plan, precision=precision,
         )
-    return _linear_sgd.train_linear_model(
-        x, y, w, loss="logistic", max_iter=max_iter,
-        learning_rate=learning_rate, global_batch_size=global_batch_size,
-        reg=reg, elastic_net=0.0, tol=tol, seed=seed, dtype=dtype,
-        listeners=listeners, checkpoint_manager=checkpoint_manager,
-        resume=resume, sharding_plan=sharding_plan, precision=precision,
+    _linear_sgd.refuse_unported(sharding_plan=sharding_plan,
+                                precision=precision)
+    from flinkml_tpu_torch.iteration import (
+        IterationConfig,
+        TerminateOnMaxIterOrTol,
+        iterate,
     )
+
+    n, dim = x.shape
+    if dtype is None:
+        dtype = x.dtype if x.dtype.kind == "f" else np.float64
+    x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
+    perm = np.random.default_rng(seed).permutation(n)
+    x, y, w = x[perm], y[perm], w[perm]
+    device = default_device()
+    xd, yd, wd = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (x, y, w))
+    local_bs = _linear_sgd.align_local_bs(global_batch_size, 1, n)
+    local_step = _linear_sgd.make_dense_step("logistic", local_bs)
+    dt = xd.dtype
+    hy = tuple(torch.tensor(v, dtype=dt, device=device)
+               for v in (learning_rate, reg, 0.0))
+
+    def epoch_step(state, epoch):
+        # A restored carry comes back from the checkpoint as numpy.
+        coef = torch.as_tensor(state).to(device=device, dtype=dt)
+        return local_step(coef, epoch, xd, yd, wd, *hy)
+
+    if checkpoint_manager is not None:
+        checkpoint_manager.world_size = 1
+    result = iterate(
+        epoch_step, torch.zeros(dim, dtype=dt, device=device),
+        config=IterationConfig(
+            TerminateOnMaxIterOrTol(max_iter, tol),
+            checkpoint_interval=checkpoint_interval,
+            checkpoint_manager=checkpoint_manager,
+        ),
+        listeners=listeners, resume=resume,
+    )
+    return torch.as_tensor(result.state).cpu().numpy()

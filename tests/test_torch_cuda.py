@@ -1111,3 +1111,141 @@ def test_topk_bf16_matches_plain_bitwise(cuda_device, k, shape):
     want_v, want_i = ktopk.top_k_plain(host, k)
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_v.cpu().view(torch.int16), want_v.view(torch.int16))
+
+
+# -- int8 tables beyond shared memory; streamed and checkpointed fits ----------
+
+
+def _int8_wide_chain(kind, rows, seed):
+    """StandardScaler → KMeans at 784 x k = 128 (a float32 row), or the
+    one-hot prologue → StandardScaler → a multinomial head at 784 x k = 48
+    (the one-hot part makes the row float64 under the tier): int8 tables
+    too large for shared memory."""
+    rng = np.random.default_rng(seed)
+    if kind == "kmeans":
+        cols = {"features": rng.normal(size=(rows, 784)) * 3.0}
+        with fml.use_device("cpu"):
+            sc = (fml.StandardScaler().set_input_col("features")
+                  .set_output_col("s").fit(fml.Table(cols)))
+        head = _class_head("kmeans", 784, 128, seed).set_features_col("s")
+        return [sc, head], {"features": cols["features"].astype(np.float32)}
+    stages, cols = _onehot_assembler(rows, (4,), 780, seed)
+    with fml.use_device("cpu"):
+        (t,) = fml.PipelineModel(stages).transform(fml.Table(dict(cols)))
+        sc = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s").fit(t))
+    head = _class_head("multinomial", 784, 48, seed).set_features_col("s")
+    return stages + [sc, head], cols
+
+
+@pytest.mark.parametrize("kind", ["kmeans", "multinomial"])
+def test_chain_int8_tables_beyond_shared_memory(cuda_device, kind):
+    """Under ``int8_inference`` a table too large for shared memory runs
+    on the float table with its head read from device memory: one launch,
+    equal to the plain chain at the tier."""
+    stages, cols = _int8_wide_chain(kind, 3000, seed=41)
+    kernels = [s.transform_kernel() for s in stages]
+    got, want = _tier_both(kernels, cols, cuda_device, 3000,
+                           "int8_inference")
+    _tier_close(got, want, 3000, kernels, "int8_inference")
+
+
+def test_sparse_stream_step_kernels_match_plain(cuda_device):
+    """One streamed sparse step (uniform ELL of width 64 over 39 nnz a row,
+    the padding cells on segment 0): the ``spmv`` and ``segment_sum``
+    kernels against the plain versions on the same inputs, within 1e-5."""
+    rng = np.random.default_rng(3)
+    n, dim, nnz = 4096, 100_000, 39
+    indptr = np.arange(n + 1, dtype=np.int64) * nnz
+    indices = rng.integers(0, dim, size=n * nnz).astype(np.int32)
+    values = rng.normal(size=n * nnz).astype(np.float32)
+    bi, bv = _linear_sgd._pack_uniform_ell(indptr, indices, values,
+                                           np.float32)
+    assert bi.shape == (n, 64)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    w = np.ones(n, np.float32)
+    coef = (rng.normal(size=dim) * 0.1).astype(np.float32)
+    step = _linear_sgd._sparse_stream_stepper("logistic", dim)
+
+    def run(device):
+        hy = [torch.tensor(v, dtype=torch.float32, device=device)
+              for v in (0.5, 0.01, 0.001)]
+        args = [torch.from_numpy(a).to(device) for a in (coef, bi, bv, y, w)]
+        return step(*args, *hy)
+
+    fml.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert fml.launch_counts()["spmv"] == 1
+    assert fml.launch_counts()["segment_sum"] == 1
+    want = run(torch.device("cpu"))
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g.cpu(), p, rtol=1e-5, atol=1e-5)
+
+
+def test_prefetching_feed_equals_synchronous_upload(cuda_device):
+    """The feed's copies run on its own stream from pinned memory while the
+    consumer's stream computes; every batch equals a synchronous upload
+    of the same host arrays, also when the consumer holds each batch
+    through more work than the feed's depth."""
+    from flinkml_tpu_torch.iteration.datacache import PrefetchingDeviceFeed
+
+    rng = np.random.default_rng(6)
+    batches = [{"x": rng.normal(size=(65_536, 64)).astype(np.float32),
+                "i": rng.integers(0, 1000, size=(65_536, 8)).astype(np.int32)}
+               for _ in range(12)]
+    sink = torch.zeros((), device=cuda_device)
+    held = []
+    with fml.use_device(cuda_device):
+        feed = PrefetchingDeviceFeed(iter(batches), depth=2)
+        for host, dev in zip(batches, feed):
+            assert dev["x"].device.type == "cuda"
+            # Keep the consumer's stream busy so an unordered copy would
+            # race with it.
+            for _ in range(4):
+                sink = sink + (dev["x"] @ dev["x"].T[:, :64]).sum()
+            held.append(dev)
+        feed.close()
+    torch.cuda.synchronize()
+    assert torch.isfinite(sink)
+    for host, dev in zip(batches, held):
+        assert torch.equal(dev["x"].cpu(), torch.from_numpy(host["x"]))
+        assert torch.equal(dev["i"].cpu(), torch.from_numpy(host["i"]))
+
+
+def test_sparse_streamed_resume_within_tolerance(cuda_device, tmp_path):
+    """A sparse streamed fit on the card stopped at epoch 2 and resumed to
+    5 equals the uninterrupted fit within 1e-5 (the unsorted
+    ``segment_sum`` adds in a run-dependent order, so not bit for bit)."""
+    from flinkml_tpu_torch.iteration import CheckpointManager, cache_stream
+
+    rng = np.random.default_rng(9)
+    dim, nnz = 50_000, 39
+
+    def batch(n):
+        indptr = np.arange(n + 1, dtype=np.int64) * nnz
+        return {"indptr": indptr[None],
+                "indices": rng.integers(0, dim, size=(1, n * nnz)).astype(
+                    np.int32),
+                "values": rng.normal(size=(1, n * nnz)).astype(np.float32),
+                "y": (rng.random((1, n)) > 0.5).astype(np.float32),
+                "dim": np.array([[dim]], np.int64)}
+
+    cache = cache_stream(iter([batch(n) for n in (4096, 3000, 4096, 777)]))
+    kw = dict(features_col="x", label_col="y", weight_col=None,
+              loss="logistic", learning_rate=0.5, reg=0.001, elastic_net=0.0,
+              tol=0.0)
+    with fml.use_device(cuda_device):
+        fml.reset_launch_counts()
+        golden = _linear_sgd.streamed_linear_fit(cache, max_iter=5, **kw)
+        assert fml.launch_counts()["spmv"] == 20
+        assert fml.launch_counts()["segment_sum"] == 20
+        mgr = CheckpointManager(str(tmp_path))
+        _linear_sgd.streamed_linear_fit(cache, max_iter=2,
+                                        checkpoint_manager=mgr, **kw)
+        resumed = _linear_sgd.streamed_linear_fit(
+            cache, max_iter=5, checkpoint_manager=mgr, resume=True, **kw)
+    with fml.use_device("cpu"):
+        plain = _linear_sgd.streamed_linear_fit(cache, max_iter=5, **kw)
+    np.testing.assert_allclose(resumed, golden, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(golden, plain, rtol=1e-5, atol=1e-5)

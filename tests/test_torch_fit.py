@@ -503,11 +503,16 @@ def test_multinomial_fit_refused(on_cpu):
                 JaxTable(jcols))
 
 
-def test_unported_paths_refused(on_cpu):
+def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch):
+    """What stays unported raises ``NotImplementedError`` naming its
+    ROADMAP.md Queue 1 item. (The checkpoint knobs, ``resume``,
+    ``cache_dir``, streamed fits and ``mode="host"`` are ported: their
+    parity cases are in ``tests/test_torch_stream_fit.py``.)"""
+    from flinkml_tpu_torch.iteration import IterationConfig
+    from flinkml_tpu_torch.iteration import checkpoint as t_ckpt
+    from flinkml_tpu_torch.models import online_logistic_regression as t_olr
+
     x, y, w = dense_lr_data(n=30)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_lr.train_logistic_regression(x, y, w, 5, 0.1, 8, 0.0, 0.0, 0,
-                                       mode="host")
     with pytest.raises(ValueError, match="mode must be"):
         t_lr.train_logistic_regression(x, y, w, 5, 0.1, 8, 0.0, 0.0, 0,
                                        mode="nope")
@@ -519,19 +524,32 @@ def test_unported_paths_refused(on_cpu):
     with pytest.raises(ValueError, match="expected one of"):
         t_sgd.prepare_sparse_buckets(indptr, indices, values, dim, ys, ws, 8,
                                      layout="nope")
-    for knob, value, item in (("checkpoint_manager", object(), "item 16"),
-                              ("resume", True, "item 16"),
-                              ("mesh", object(), "item 7"),
+    for knob, value, item in (("mesh", object(), "item 7"),
                               ("sharding_plan", "replicated", "item 7"),
-                              ("precision", "mixed", "item 3"),
-                              ("cache_dir", "/nonexistent", "item 5")):
+                              ("precision", "mixed", "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             fml.LogisticRegression(**{knob: value})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t_sgd.train_linear_model(x, y, w, "logistic", 2, 0.1, 8, 0.0, 0.0,
-                                 0.0, 0, checkpoint_manager=object())
+    # Elastic resume and the multi-process online stream: item 7.
+    with pytest.raises(NotImplementedError, match="item 7"):
+        t_iteration.CheckpointManager(str(tmp_path), rescale="reshard")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        t_ckpt.save_agreed(t_iteration.CheckpointManager(str(tmp_path)), {}, 1)
+    monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
+    table = fml.Table({"features": x, "label": y})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        fml.OnlineLogisticRegression().fit_stream([table])
+    monkeypatch.undo()
+    # The numerics sentinel and self-healing recovery: item 12.
+    for knob in ("sentinel", "recovery"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            IterationConfig(**{knob: object()})
+        with pytest.raises(NotImplementedError, match="item 12"):
+            fml.OnlineLogisticRegression().fit_stream([table],
+                                                      **{knob: object()})
+    # The sorted-column stream: item 5 (the data/ package).
     with pytest.raises(NotImplementedError, match="item 5"):
-        fml.LogisticRegression().fit([fml.Table({"features": x, "label": y})])
+        t_sgd.train_linear_model_sorted_stream([table], "features", "label",
+                                               loss="logistic")
 
 
 def test_fit_without_card_raises_device_error():

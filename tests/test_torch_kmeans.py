@@ -235,13 +235,14 @@ def test_kmeans_transform_kernel_matches_jax(backend, with_scaler, dtype,
 def test_kmeans_refusals(on_cpu):
     x = _blobs(seed=10)
     t = fml.Table({"features": x})
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # KMeans' stream and checkpointing come with the rest of KMeans.
+    with pytest.raises(NotImplementedError, match="item 6"):
         fml.KMeans().fit([t, t])
     with pytest.raises(NotImplementedError, match="item 7"):
         fml.KMeans(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         fml.KMeans(checkpoint_manager=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         fml.KMeans(cache_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="item 7"):
         torch_kmeans.train_kmeans(x, 2, mesh=object())

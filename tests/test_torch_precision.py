@@ -621,14 +621,17 @@ def test_int8_blob_decodes_to_the_working_table(name, on_cpu):
     # do not fit beside it.
     (1570 + 784 * 64 + 64, 784, 8, 4, (51810, 8, 232328)),
     (1570 + 784 * 64 + 64, 784 + 64, 8, 4, (51810, 7, 230984)),
-    # A float64 working table too large to stage: refused.
-    (1570 + 784 * 64 + 64, 784, 8, 8, None),
+    # A float64 table too large for shared memory: the stages' constants
+    # stay there and the head is read from device memory (the caller then
+    # launches on the dequantized float table).
+    (1570 + 784 * 64 + 64, 784, 8, 8, (1570, 8, 62736)),
     # No head: the table alone.
     (4 * 130 + 64, 0, 4, 4, (584, 4, 2336)),
 ])
 def test_int8_table_placement_is_whole(n_table, per_warp, warps, item, want):
     """Under ``int8_inference`` the kernel dequantizes the table into
-    shared memory, so the placement never reads it from device memory."""
+    shared memory whenever the whole table fits beside one warp's rows;
+    a larger one gets the float table's placement, not a refusal."""
     assert kchain.shared_memory(n_table, 1570, per_warp, warps, item,
                                 whole=True) == want
 
