@@ -108,6 +108,19 @@ and fails with a non-zero exit if any phase fails:
    16; a run crashed at batch 32 and resumed equal to the uninterrupted
    one bit for bit; against a float64 numpy FTRL; batches/s and
    samples/s;
+6d. the input pipeline (path H): H1, ``Dataset.from_libsvm`` of 262,144
+   a9a-shaped rows written to a LibSVM file (native parser), shuffled and
+   prefetched into ``LogisticRegression().fit`` (20 epochs) against
+   float64 numpy in the same batch order; H2, a prefetched ``Dataset`` of
+   16 Criteo-profile batches of 65,536 ``SparseVector`` rows (dim 1e6)
+   through the sorted-column stream (``spmv`` and the sorted
+   ``segment_sum``), 5 epochs, against float64 numpy and path E's CSR
+   stream, the two kernels held against their plain versions on the
+   stream's own block and the sorted ``segment_sum`` timed with and
+   without the block's padding run; H3, ``OnlineLogisticRegression.
+   fit_stream`` over an ``ElasticFeed`` at path G's width stopped at
+   world 4 and resumed at world 2, bit for bit with the uninterrupted
+   run;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -3010,6 +3023,461 @@ def ftrl_path(torch):
         "rel_err": err}))
 
 
+# -- path H: the input pipeline (data/) and the sorted-column stream ---------------
+
+#: H1: BASELINE config #1's width (a9a: 123 binary features, 14 set a row)
+#: through a LibSVM file, 16 batches of 16,384 rows, 20 epochs.
+A9A_ROWS, A9A_D, A9A_NNZ, A9A_BATCH, A9A_EPOCHS = 262_144, 123, 14, 16_384, 20
+A9A_SHUFFLE, A9A_LR = 8, 0.1
+#: H2: path E's Criteo profile (dim 1e6, 39 draws a row), 16 batches of
+#: 65,536 rows through a prefetched Dataset, path E's step sizes.
+SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 16, 65_536, 5
+#: H3: BASELINE config #4's width (path G) through an ElasticFeed.
+ELASTIC_WORLD, ELASTIC_RESUME_WORLD, ELASTIC_SHUFFLE = 4, 2, 4
+
+
+def shuffled_order(n, buffer, seed):
+    """The batch order that ``ShuffleOp(buffer, seed)`` gives ``n``
+    batches, drawn here from its own numpy Generator: fill the buffer,
+    then for every arriving batch emit a uniformly drawn resident one and
+    take its slot, and drain in random order at the end."""
+    rng = np.random.default_rng(seed)
+    buf, out = [], []
+    for b in range(n):
+        if len(buf) < buffer:
+            buf.append(b)
+            continue
+        j = int(rng.integers(0, len(buf)))
+        out.append(buf[j])
+        buf[j] = b
+    while buf:
+        out.append(buf.pop(int(rng.integers(0, len(buf)))))
+    return out
+
+
+def write_a9a_libsvm(path, n, d, nnz, seed):
+    """``n`` a9a-shaped rows (``nnz`` of ``d`` binary features set, labels
+    +-1 from a planted model) written as LibSVM; returns the dense rows
+    and the labels mapped to {0, 1}."""
+    rng = np.random.default_rng(seed)
+    cols = np.sort(rng.random((n, d)).argpartition(nnz, axis=1)[:, :nnz],
+                   axis=1)
+    x = np.zeros((n, d), dtype=np.float32)
+    np.put_along_axis(x, cols, 1.0, axis=1)
+    planted = rng.normal(size=d)
+    y = (x @ planted + rng.normal(scale=0.5, size=n) > planted.sum() * nnz
+         / d).astype(np.float32)
+    tokens = [f"{j + 1}:1" for j in range(d)]
+    with open(path, "w") as f:
+        for r in range(n):
+            f.write(("+1 " if y[r] else "-1 ")
+                    + " ".join(tokens[j] for j in cols[r]) + "\n")
+    return x, y
+
+
+def labels_to_binary(t):
+    """a9a's labels are +-1; the binomial fit takes {0, 1}."""
+    return t.with_column("label",
+                         (np.asarray(t.column("label")) > 0).astype(np.float64))
+
+
+def ingest_path(torch):
+    """Path H1: ``Dataset.from_libsvm`` of 262,144 a9a-shaped rows (a
+    LibSVM file written here), batch 16,384, ``.map`` of the +-1 labels to
+    {0, 1}, ``.shuffle(8, seed=0)``, ``.prefetch(2)``, feeding
+    ``LogisticRegression().fit`` (20 epochs, tol 0). The native parser
+    must be the one used; the parsed rows equal the generator's; the
+    coefficient is held against a float64 numpy run of the same batches in
+    the same shuffled order (1e-4 of the largest coefficient). Reports the
+    parse's rows/s (after a first parse that builds the parser), the bare
+    pipeline's rows/s and stall fraction, the fit's prefetch gauges and
+    samples/s."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.data import Dataset
+    from flinkml_tpu_torch.io import _native, read_libsvm
+    from flinkml_tpu_torch.utils.metrics import default_registry
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        path = os.path.join(tmp, "a9a_like.libsvm")
+        t0 = time.perf_counter()
+        x, y = write_a9a_libsvm(path, A9A_ROWS, A9A_D, A9A_NNZ, seed=21)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        before = dict(_native.PARSES)
+        t0 = time.perf_counter()
+        read_libsvm(path, n_features=A9A_D)   # builds the parser (g++) first
+        first_parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels, indptr, _, _, _ = read_libsvm(path, n_features=A9A_D)
+        parse_s = time.perf_counter() - t0
+        if _native.PARSES[("libsvm", "native")] != \
+                before.get(("libsvm", "native"), 0) + 2:
+            fail("ingest: the native LibSVM parser was not used")
+        if labels.size != A9A_ROWS or int(indptr[-1]) != A9A_ROWS * A9A_NNZ:
+            fail(f"ingest: parsed {labels.size} rows, {int(indptr[-1])} nnz")
+
+        def dataset():
+            return Dataset.from_libsvm(path, batch_size=A9A_BATCH,
+                                       n_features=A9A_D)
+
+        parsed = list(dataset().map(labels_to_binary))
+        got_x = np.concatenate([t.column("features") for t in parsed])
+        got_y = np.concatenate([t.column("label") for t in parsed])
+        if not (np.array_equal(got_x, x) and np.array_equal(got_y, y)):
+            fail("ingest: the parsed rows differ from the generator's")
+
+        def pipeline(group):
+            return (dataset().map(labels_to_binary)
+                    .shuffle(A9A_SHUFFLE, seed=0)
+                    .prefetch(2, metrics_group=group))
+
+        it = pipeline("data.prefetch.h1_bare").iterate()
+        t0 = time.perf_counter()
+        rows = sum(t.num_rows for t in it)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        bare_stall = it._prefetcher.stall_fraction
+        if rows != A9A_ROWS:
+            fail(f"ingest: the pipeline delivered {rows} rows")
+
+        def est():
+            return (fml.LogisticRegression().set_max_iter(A9A_EPOCHS)
+                    .set_tol(0.0).set_learning_rate(A9A_LR))
+
+        est().set_max_iter(1).fit(pipeline(None))   # cuBLAS and allocator warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coef = est().fit(pipeline("data.prefetch.h1_fit")).coefficient
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        gauges = default_registry().snapshot()["data.prefetch.h1_fit"][
+            "gauges"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    order = shuffled_order(A9A_ROWS // A9A_BATCH, A9A_SHUFFLE, 0)
+    batches = [(x[b * A9A_BATCH:(b + 1) * A9A_BATCH],
+                y[b * A9A_BATCH:(b + 1) * A9A_BATCH]) for b in order]
+    err = rel_err(coef, numpy_dense_stream_fit(batches, A9A_EPOCHS, A9A_LR,
+                                               0.0, 0.0, "logistic"))
+    if not np.isfinite(err) or err > 1e-4:
+        fail(f"ingest: coefficient differs from float64 numpy by {err} of "
+             "the largest (limit 1e-4)")
+    log("path " + json.dumps({
+        "path": "ingest_H1", "rows": A9A_ROWS, "d": A9A_D, "nnz": A9A_NNZ,
+        "batch_rows": A9A_BATCH, "epochs": A9A_EPOCHS,
+        "file_bytes": file_bytes, "write_s": write_s,
+        "build_and_parse_s": first_parse_s, "parse_s": parse_s,
+        "parse_rows_per_s": A9A_ROWS / parse_s, "parser": "native",
+        "pipeline_s": bare_s, "pipeline_rows_per_s": A9A_ROWS / bare_s,
+        "pipeline_stall_fraction": bare_stall,
+        "fit_s": fit_s, "samples_per_s": A9A_ROWS * A9A_EPOCHS / fit_s,
+        "fit_epoch0_prefetch_rows_per_s": gauges.get("rows_per_sec"),
+        "fit_epoch0_prefetch_stall_fraction": gauges.get("stall_fraction"),
+        "shuffled_order": order, "rel_err": err}))
+
+
+def criteo_merged_csr(n, dim, nnz, seed):
+    """A ``make_criteo_csr`` draw with each row's repeated columns merged
+    by sum (the rows ``SparseVector`` holds): ``(indptr, indices int64,
+    values float64, y)``."""
+    _, indices, values, y, _ = make_criteo_csr(n, dim, nnz, seed=seed)
+    idx2 = indices.reshape(n, nnz)
+    order = np.argsort(idx2, axis=1, kind="stable")
+    si = np.take_along_axis(idx2, order, axis=1)
+    sv = np.take_along_axis(values.reshape(n, nnz).astype(np.float64),
+                            order, axis=1)
+    first = np.ones((n, nnz), dtype=bool)
+    first[:, 1:] = si[:, 1:] != si[:, :-1]
+    starts = np.flatnonzero(first.reshape(-1))
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(first.sum(axis=1), out=indptr[1:])
+    return (indptr, si.reshape(-1)[starts].astype(np.int64),
+            np.add.reduceat(sv.reshape(-1), starts), y)
+
+
+class EpochClock:
+    """An ``IterationListener`` that records the host clock at the end of
+    each epoch (its coefficient arrives on the host, so the card is done)."""
+
+    def __init__(self):
+        self.t0, self.ends = time.perf_counter(), []
+
+    def on_epoch_watermark_incremented(self, epoch, state):
+        self.ends.append(time.perf_counter())
+
+    def on_iteration_terminated(self, state):
+        pass
+
+
+def sorted_stream_path(torch, timer):
+    """Path H2: ``LogisticRegression(maxIter=5, tol=0).fit`` of a prefetched
+    ``Dataset`` at the Criteo profile (path E's: dim 1e6, 39 draws a row,
+    16 batches of 65,536 rows): a ``map`` builds each batch's
+    ``SparseVector`` column from the CSR, ``.prefetch(2)`` packs it into a
+    ``SortedSparseColumn`` (ELL width 64, pack-time sort tables) on its
+    worker, and the fit takes the sorted stream (``spmv`` forward, sorted
+    ``segment_sum`` gradient). Holds the coefficient against a float64
+    numpy run of the same steps and against path E's CSR stream on the
+    same batches (1e-5 of the largest coefficient each), and the step's
+    two kernels against their plain versions on the first batch's own
+    block (the sorted ``segment_sum`` bit for bit with the in-order sum).
+    Reports samples/s for epoch 0 and for epochs 1-4, the device's busy
+    share, and the sorted ``segment_sum``'s time on the block beside the
+    same cells without their padding run. Returns the fit's launch counts."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.data import Dataset
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.table import SortedSparseColumn
+
+    n, dim, nnz = SORTED_BATCHES * SORTED_ROWS, SPMV_DIM, SPMV_NNZ
+    indptr, indices, values, y = criteo_merged_csr(n, dim, nnz, seed=7)
+
+    def build_rows(t):
+        lo = int(t.column("row")[0])
+        vecs = np.empty(t.num_rows, dtype=object)
+        for r in range(t.num_rows):
+            a, b = indptr[lo + r], indptr[lo + r + 1]
+            vecs[r] = fml.SparseVector._from_sorted(dim, indices[a:b],
+                                                    values[a:b])
+        return fml.Table({"features": vecs, "label": t.column("label")})
+
+    ds = Dataset.from_arrays(
+        fml.Table({"row": np.arange(n, dtype=np.int64), "label": y}),
+        SORTED_ROWS).map(build_rows)
+
+    def est(epochs):
+        return (fml.LogisticRegression().set_max_iter(epochs).set_tol(0.0)
+                .set_learning_rate(STREAM_LR).set_reg(STREAM_REG))
+
+    original = sgd.train_linear_model_sorted_stream
+    clock = EpochClock()
+    routed = []
+
+    def timed(*args, **kwargs):
+        routed.append(True)
+        clock.t0 = time.perf_counter()
+        return original(*args, listeners=[clock], **kwargs)
+
+    sgd.train_linear_model_sorted_stream = timed
+    try:
+        torch.cuda.synchronize()
+        fml.reset_launch_counts()
+        t0 = time.perf_counter()
+        coef = est(SORTED_EPOCHS).fit(ds.prefetch(2)).coefficient
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = fml.launch_counts()
+    finally:
+        sgd.train_linear_model_sorted_stream = original
+    steps = SORTED_BATCHES * SORTED_EPOCHS
+    if not routed or counts["spmv"] != steps or \
+            counts["segment_sum"] != steps:
+        fail(f"sorted stream: routed {bool(routed)}, launches {counts} in "
+             f"{steps} steps")
+    epoch_s = np.diff([clock.t0] + clock.ends).tolist()
+
+    tuples, dicts = [], []
+    for b in range(SORTED_BATCHES):
+        lo, hi = b * SORTED_ROWS, (b + 1) * SORTED_ROWS
+        ip = indptr[lo:hi + 1] - indptr[lo]
+        idx = indices[indptr[lo]:indptr[hi]].astype(np.int32)
+        val = values[indptr[lo]:indptr[hi]].astype(np.float32)
+        w = np.ones(SORTED_ROWS, np.float32)
+        tuples.append((ip, idx, val, y[lo:hi], w))
+        dicts.append({"indptr": ip[None], "indices": idx[None],
+                      "values": val[None], "y": y[lo:hi][None],
+                      "w": w[None], "dim": np.array([[dim]], np.int64)})
+    errs = {"numpy": rel_err(coef, numpy_csr_stream_fit(
+        tuples, dim, SORTED_EPOCHS, STREAM_LR, STREAM_REG, 0.0))}
+    csr = sgd.train_linear_model_stream(
+        iter(dicts), loss="logistic", max_iter=SORTED_EPOCHS,
+        learning_rate=STREAM_LR, reg=STREAM_REG, elastic_net=0.0, tol=0.0,
+        sparse_dim=dim)
+    errs["csr_stream"] = rel_err(coef, np.asarray(csr, np.float64))
+    for what, err in errs.items():
+        if not np.isfinite(err) or err > 1e-5:
+            fail(f"sorted stream: differs from {what} by {err} of the "
+                 "largest coefficient (limit 1e-5)")
+    share = device_share(torch, lambda: est(SORTED_EPOCHS).fit(ds.prefetch(2)))
+
+    # The step's kernels on the first batch's own block.
+    it = ds.prefetch(2).iterate()
+    first = next(it)
+    it.close()
+    col = first._raw_column("features")
+    if not isinstance(col, SortedSparseColumn) or not col.indices_are_sorted:
+        fail(f"sorted stream: the prefetched column is {type(col).__name__}")
+    ib, vb, perm, seg = col.indices, col.buf, col.perm, col.segment_ids
+    w = torch.from_numpy(np.asarray(coef, np.float32)).cuda()
+    got = kspmv.spmv(ib, vb, w)
+    want = kspmv.spmv_plain(ib, vb, w)
+    torch.cuda.synchronize()
+    check_close("sorted stream: spmv vs plain", got, want, 1e-5, 1e-5)
+    spmv_err = max_err(got, want)
+    spmv_ms = timer(lambda: kspmv.spmv(ib, vb, w))
+    spmv_plain_ms = timer(lambda: kspmv.spmv_plain(ib, vb, w))
+    cells = ib.numel()
+    touched = int(torch.unique(ib).numel())
+    spmv_bound, spmv_by = bound_ms(cells * 8 + touched * 4 + ib.shape[0] * 4,
+                                   2.0 * cells, "float32")
+    mult = torch.randn(ib.shape[0], device="cuda")
+    contrib = (vb * mult[:, None]).reshape(-1)
+    gathered = contrib.index_select(0, perm)
+    seg_host, vals_host = seg.cpu().numpy(), gathered.cpu().numpy()
+    block = segsum_case(torch, timer, seg_host, vals_host, dim, "float32",
+                        True, 1e-5, 1e-5)
+    # The same block without its padding run: the real cells alone, and
+    # the same cell count with the padding cells' ids spread over dim.
+    nnz_rows = np.diff(col.indptr.cpu().numpy())
+    flat = perm.cpu().numpy().astype(np.int64)
+    width = ib.shape[1]
+    real = (flat % width) < nnz_rows[flat // width]
+    unpadded = segsum_case(torch, timer, seg_host[real], vals_host[real],
+                           dim, "float32", True, 1e-5, 1e-5)
+    spread_ids = seg_host.copy()
+    spread_ids[~real] = np.random.default_rng(8).integers(
+        0, dim, size=int((~real).sum()))
+    order = np.argsort(spread_ids, kind="stable")
+    spread = segsum_case(torch, timer, spread_ids[order].astype(np.int32),
+                         vals_host[order], dim, "float32", True, 1e-5, 1e-5)
+    rec = {"path": "sorted_stream_H2", "rows": n, "dim": dim, "nnz": nnz,
+           "batches": SORTED_BATCHES, "batch_rows": SORTED_ROWS,
+           "epochs": SORTED_EPOCHS, "ell_width": int(width),
+           "cells_per_batch": cells,
+           "padding_cells_per_batch": int((~real).sum()),
+           "fit_s": fit_s, "samples_per_s": n * SORTED_EPOCHS / fit_s,
+           "epoch_s": epoch_s,
+           "epoch0_samples_per_s": n / epoch_s[0],
+           "epochs_1_4_samples_per_s": n * (SORTED_EPOCHS - 1)
+           / sum(epoch_s[1:]),
+           "device_share": share,
+           "spmv_ms_per_batch": spmv_ms, "spmv_plain_ms": spmv_plain_ms,
+           "spmv_bound_ms": spmv_bound, "spmv_bound_by": spmv_by,
+           "spmv_max_abs_err": spmv_err,
+           "segment_sum_sorted_ms_per_batch": block["ms"],
+           "segment_sum_sorted_bound_ms": block["bound_ms"],
+           "segment_sum_sorted_plain_ms": block["plain_ms"],
+           "segment_sum_sorted_library_ms": block["library_ms"],
+           "segment_sum_sorted_bitwise_in_order": block["bitwise_in_order"],
+           "segment_sum_real_cells_ms": unpadded["ms"],
+           "segment_sum_real_cells_bound_ms": unpadded["bound_ms"],
+           "segment_sum_spread_padding_ms": spread["ms"],
+           "rel_err": errs, "launches": counts}
+    log("path " + json.dumps(rec))
+    return counts
+
+
+def elastic_path(torch):
+    """Path H3: ``OnlineLogisticRegression.fit_stream`` (path G's
+    hyper-parameters) over an ``ElasticFeed`` of 64 seeded batches of
+    16,384 x 123 float32 rows (``Dataset.synthetic`` per shard, a
+    post-merge ``.shuffle(4)``): a run at world 4 with a checkpoint every
+    16 batches that stops at batch 32 (a post-merge ``map`` raises there),
+    resumed at world 2 (``rescale="allow"``), must equal the uninterrupted
+    world-1 run bit for bit (cuBLAS, no atomics), its snapshot's cursor
+    recording 4 shards; the model against a float64 numpy FTRL over the
+    same batches in the same order (1e-4 of the largest coefficient)."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.data import Dataset, ElasticFeed
+    from flinkml_tpu_torch.iteration import CheckpointManager
+
+    true = np.random.default_rng(13).normal(size=FTRL_D)
+
+    def make_batch(i, rng):
+        xb = rng.normal(size=(FTRL_ROWS, FTRL_D)).astype(np.float32)
+        return fml.Table({"features": xb,
+                          "label": (xb @ true > 0).astype(np.float32),
+                          "i": np.full(FTRL_ROWS, float(i), np.float32)})
+
+    def feed(world):
+        return ElasticFeed(
+            lambda shard: Dataset.synthetic(make_batch, FTRL_BATCHES,
+                                            seed=14, shard=shard),
+            world).shuffle(ELASTIC_SHUFFLE, seed=15)
+
+    order = shuffled_order(FTRL_BATCHES, ELASTIC_SHUFFLE, 15)
+
+    def crash(t):
+        if float(t.column("i")[0]) == order[FTRL_CRASH]:
+            raise RuntimeError("injected crash")
+        return t
+
+    def est():
+        return (fml.OnlineLogisticRegression().set_alpha(FTRL_ALPHA)
+                .set_beta(FTRL_BETA).set_reg(FTRL_REG)
+                .set_elastic_net(FTRL_EN))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    golden = est().fit_stream(feed(1))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=10)
+        try:
+            est().fit_stream(feed(ELASTIC_WORLD).map(crash),
+                             checkpoint_manager=mgr,
+                             checkpoint_interval=FTRL_INTERVAL)
+            fail("elastic: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        if mgr.latest_epoch() != FTRL_CRASH:
+            fail(f"elastic: the stopped run's newest snapshot is "
+                 f"{mgr.latest_epoch()}")
+        cursor = mgr.read_extra(FTRL_CRASH)["data_cursor"]
+        if (cursor["emitted"], cursor["num_shards"]) != \
+                (FTRL_CRASH, ELASTIC_WORLD):
+            fail(f"elastic: the snapshot's cursor is {cursor}")
+        resume_mgr = CheckpointManager(os.path.join(tmp, "ckpt"),
+                                       max_to_keep=10, rescale="allow")
+        t0 = time.perf_counter()
+        resumed = est().fit_stream(feed(ELASTIC_RESUME_WORLD),
+                                   checkpoint_manager=resume_mgr,
+                                   checkpoint_interval=FTRL_INTERVAL,
+                                   resume=True)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        restored_shards = resume_mgr.last_restored_extra["data_cursor"][
+            "num_shards"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if restored_shards != ELASTIC_WORLD:
+        fail(f"elastic: the restored cursor records {restored_shards} shards")
+    if (golden.model_version, resumed.model_version) != \
+            (FTRL_BATCHES, FTRL_BATCHES):
+        fail(f"elastic: versions {golden.model_version}, "
+             f"{resumed.model_version}")
+    exact = bool(np.array_equal(resumed.coefficient, golden.coefficient))
+    if not exact:
+        fail("elastic: the world-2 resume differs from the uninterrupted "
+             f"run by {rel_err(resumed.coefficient, golden.coefficient)}")
+    parts = []
+    for gi in order:
+        t = make_batch(gi, np.random.default_rng([14, gi]))
+        parts.append((t.column("features"), t.column("label")))
+    err = rel_err(golden.coefficient, numpy_ftrl(
+        parts, FTRL_ALPHA, FTRL_BETA, FTRL_REG * FTRL_EN,
+        FTRL_REG * (1.0 - FTRL_EN)))
+    if not np.isfinite(err) or err > 1e-4:
+        fail(f"elastic: coefficient differs from float64 numpy by {err} of "
+             "the largest (limit 1e-4)")
+    log("path " + json.dumps({
+        "path": "elastic_H3", "batches": FTRL_BATCHES,
+        "batch_rows": FTRL_ROWS, "d": FTRL_D, "stopped_world": ELASTIC_WORLD,
+        "resumed_world": ELASTIC_RESUME_WORLD, "stopped_at": FTRL_CRASH,
+        "restored_cursor_shards": restored_shards, "fit_s": fit_s,
+        "samples_per_s": FTRL_BATCHES * FTRL_ROWS / fit_s,
+        "resume_s": resume_s, "resume_bit_exact": exact, "rel_err": err}))
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -3084,11 +3552,15 @@ def main() -> int:
     stream_counts = stream_path(torch, timer)
     svc_counts = svc_path(torch)
     ftrl_path(torch)
+    ingest_path(torch)
+    sorted_counts = sorted_stream_path(torch, timer)
+    elastic_path(torch)
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
             "sparse_fit": fit_counts[name], "stream_E": stream_counts[name],
-            "svc_F": svc_counts[name]}
+            "svc_F": svc_counts[name],
+            "sorted_stream_H": sorted_counts[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     del timer

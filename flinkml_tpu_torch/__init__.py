@@ -18,7 +18,10 @@ multinomial, dense and sparse transform), ``LinearSVC`` and
 ``KMeans`` (batch fit on one device) and ``BisectingKMeans`` with their
 models; the iteration runtime (``iterate``), checkpoint/resume
 (``CheckpointManager``) and the out-of-core data cache (``DataCache``) in
-:mod:`flinkml_tpu_torch.iteration`; and all four kernels:
+:mod:`flinkml_tpu_torch.iteration`; the input pipeline
+(:mod:`flinkml_tpu_torch.data`: ``Dataset``, ``ElasticFeed``, cursors, the
+device prefetcher; CSV and LibSVM through native parsers) and the
+sorted-column stream it feeds; and all four kernels:
 ``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
 runs under the precision tiers (``precision``:
 ``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
@@ -83,7 +86,7 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     StandardScalerModel,
     VectorAssembler,
 )
-from flinkml_tpu_torch import iteration, precision  # noqa: F401
+from flinkml_tpu_torch import data, iteration, precision  # noqa: F401
 from flinkml_tpu_torch.iteration import (  # noqa: F401
     CheckpointManager,
     DataCache,
@@ -145,6 +148,7 @@ __all__ = [
     "Vector",
     "VectorAssembler",
     "Vectors",
+    "data",
     "default_device",
     "iterate",
     "iteration",

@@ -1,0 +1,219 @@
+"""libsvm-format ingest: native multithreaded parser with a pure-Python parse.
+
+The port's counterpart of ``flinkml_tpu.io.libsvm`` (the same grammar and
+results). The native path, the port's copy of the parser
+(``flinkml_tpu_torch/native/libsvm_parser.cpp``), is compiled on first use
+with the system ``g++`` into ``native/build/``; without a compiler the
+pure-Python parse gives the same arrays, slower. Either way the result is
+CSR arrays ready for densification or ``SparseVector`` rows — host ingest
+fast enough that the GPU does not wait on text parsing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from flinkml_tpu_torch.io._native import PARSES, compile_and_load
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.libsvm_open.restype = ctypes.c_void_p
+    lib.libsvm_open.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.libsvm_fill.restype = ctypes.c_int32
+    lib.libsvm_fill.argtypes = [
+        ctypes.c_void_p,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+    ]
+    lib.libsvm_close.restype = None
+    lib.libsvm_close.argtypes = [ctypes.c_void_p]
+
+
+def _load_native() -> Optional[ctypes.CDLL]:
+    """Compile (once) and load the native parser; None if unavailable."""
+    return compile_and_load("libsvm_parser", _declare)
+
+
+def read_libsvm(
+    path: str,
+    n_features: Optional[int] = None,
+    n_threads: Optional[int] = None,
+    zero_based: Optional[bool] = None,
+    use_native: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Parse a libsvm file.
+
+    Returns ``(labels [n] f64, indptr [n+1] i64, indices [nnz] i32,
+    values [nnz] f32, n_features)``. ``zero_based=None`` auto-detects the
+    index base (0-based if any index 0 appears, matching sklearn's 'auto').
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data:
+        raise ValueError(f"libsvm file {path} is empty")
+
+    lib = _load_native() if use_native else None
+    if lib is not None:
+        result = _parse_native(lib, data, n_threads, zero_based)
+        PARSES["libsvm", "native"] += 1
+    else:
+        result = _parse_python(data, zero_based)
+        PARSES["libsvm", "python"] += 1
+    labels, indptr, indices, values = result
+    if indices.size and indices.min() < 0:
+        raise ValueError(
+            f"negative feature index after base adjustment in {path}; "
+            "pass zero_based=True if the file is 0-based"
+        )
+    inferred = int(indices.max()) + 1 if indices.size else 0
+    if n_features is None:
+        n_features = inferred
+    elif inferred > n_features:
+        raise ValueError(
+            f"file contains feature index {inferred - 1} >= n_features {n_features}"
+        )
+    return labels, indptr, indices, values, n_features
+
+
+def _parse_native(lib, data: bytes, n_threads, zero_based):
+    n_threads = n_threads or min(os.cpu_count() or 1, 16)
+    rows = ctypes.c_int64()
+    nnz = ctypes.c_int64()
+    base = ctypes.c_int64()
+    handle = lib.libsvm_open(
+        data, len(data), n_threads,
+        ctypes.byref(rows), ctypes.byref(nnz), ctypes.byref(base),
+    )
+    if not handle:
+        if rows.value == -2:
+            raise ValueError("malformed libsvm label")
+        raise RuntimeError("native libsvm parser failed to open buffer")
+    try:
+        index_base = (
+            base.value if zero_based is None else (0 if zero_based else 1)
+        )
+        labels = np.empty(rows.value, dtype=np.float64)
+        indptr = np.empty(rows.value + 1, dtype=np.int64)
+        indices = np.empty(nnz.value, dtype=np.int32)
+        values = np.empty(nnz.value, dtype=np.float32)
+        rc = lib.libsvm_fill(handle, labels, indptr, indices, values, index_base)
+        if rc != 0:
+            raise RuntimeError(f"native libsvm parser fill failed (rc={rc})")
+    finally:
+        lib.libsvm_close(handle)
+    return labels, indptr, indices, values
+
+
+def _parse_python(data: bytes, zero_based):
+    labels, indptr, indices, values = [], [0], [], []
+    min_index = None
+    for line in data.splitlines():
+        parts = line.split()
+        if not parts or parts[0].startswith(b"#"):
+            continue
+        try:
+            label = float(parts[0])
+        except ValueError:
+            raise ValueError(f"malformed libsvm label: {parts[0][:20]!r}")
+        labels.append(label)
+        for tok in parts[1:]:
+            # Contract shared with the native parser: a '#' token starts a
+            # comment; a malformed "index:value" token ends the line's
+            # feature list without emitting.
+            if tok.startswith(b"#"):
+                break
+            idx_s, sep, val_s = tok.partition(b":")
+            if not sep:
+                break
+            try:
+                idx = int(idx_s)
+                val = float(val_s)
+            except ValueError:
+                break
+            min_index = idx if min_index is None else min(min_index, idx)
+            indices.append(idx)
+            values.append(val)
+        indptr.append(len(indices))
+    if zero_based is None:
+        index_base = 0 if (min_index == 0) else 1
+    else:
+        index_base = 0 if zero_based else 1
+    indices_arr = np.asarray(indices, dtype=np.int32) - index_base
+    return (
+        np.asarray(labels, dtype=np.float64),
+        np.asarray(indptr, dtype=np.int64),
+        indices_arr,
+        np.asarray(values, dtype=np.float32),
+    )
+
+
+def read_libsvm_dense(path: str, n_features: Optional[int] = None, **kw):
+    """Parse and densify to (X [n, d] f32, y [n] f64) — the a9a path."""
+    labels, indptr, indices, values, n_features = read_libsvm(
+        path, n_features=n_features, **kw
+    )
+    n = labels.shape[0]
+    x = np.zeros((n, n_features), dtype=np.float32)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    x[rows, indices] = values
+    return x, labels
+
+
+def read_libsvm_table(
+    path: str,
+    n_features: Optional[int] = None,
+    features_col: str = "features",
+    label_col: str = "label",
+    **kw,
+):
+    """Parse into a :class:`~flinkml_tpu_torch.table.Table` with a SparseVector
+    features column — the bridge from libsvm ingest straight into the
+    O(nnz) sparse estimators (LogisticRegression / LinearSVC /
+    LinearRegression fit + transform), never densifying.
+
+    Rows are sorted by feature index on the way in (libsvm does not
+    guarantee ordering); a duplicate index within a row raises, keeping
+    SparseVector's sorted-unique invariant intact.
+    """
+    from flinkml_tpu_torch.linalg import SparseVector
+    from flinkml_tpu_torch.table import Table
+
+    labels, indptr, indices, values, dim = read_libsvm(
+        path, n_features=n_features, **kw
+    )
+    n = labels.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    order = np.lexsort((indices, rows))
+    if indices.size > 1:
+        srows, sidx = rows[order], indices[order]
+        dup = (np.diff(sidx) == 0) & (np.diff(srows) == 0)
+        if dup.any():
+            # Indices here are base-adjusted (0-based); say so and point
+            # at the 1-based data line so the message matches the file.
+            raise ValueError(
+                f"duplicate feature index {int(sidx[1:][dup][0])} "
+                f"(0-based) on data line {int(srows[1:][dup][0]) + 1} "
+                f"of {path}"
+            )
+    idx64 = indices[order].astype(np.int64)
+    val64 = values[order].astype(np.float64)
+    idx64.setflags(write=False)
+    val64.setflags(write=False)
+    vecs = np.empty(n, dtype=object)
+    for i in range(n):
+        sl = slice(indptr[i], indptr[i + 1])
+        # Trusted construction over frozen sorted views: per-row
+        # validation would dominate at dataset scale.
+        vecs[i] = SparseVector._from_sorted(dim, idx64[sl], val64[sl])
+    return Table({features_col: vecs, label_col: labels})

@@ -334,8 +334,26 @@ def device_put(tree: Any, device: Optional[torch.device] = None) -> Any:
 
 
 def _tensors(tree: Any) -> Iterator[torch.Tensor]:
+    """Every tensor of a placed batch: a tensor, a dict/tuple/list of them,
+    or a Table of device columns (a padded column's buffer; all five
+    tensors of a sorted sparse column)."""
+    from flinkml_tpu_torch.table import (
+        LazyDeviceColumn,
+        PaddedDeviceColumn,
+        SortedSparseColumn,
+        Table,
+    )
+
     if torch.is_tensor(tree):
         yield tree
+    elif isinstance(tree, Table):
+        for name in tree.column_names:
+            yield from _tensors(tree._raw_column(name))
+    elif isinstance(tree, SortedSparseColumn):
+        yield from tree.tensors()
+    elif (isinstance(tree, PaddedDeviceColumn)
+          and not isinstance(tree, LazyDeviceColumn)):
+        yield tree.buf
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)

@@ -15,13 +15,17 @@ host loop around one step per epoch (``Iterations.java:118-170``):
 - the step returns a criterion value that feeds the termination criterion;
 - a :class:`~flinkml_tpu_torch.iteration.checkpoint.CheckpointManager`
   snapshots the carry every N epochs and always at the end, and
-  ``resume=True`` continues from the newest valid snapshot.
+  ``resume=True`` continues from the newest valid snapshot;
+- a :class:`~flinkml_tpu_torch.data.Dataset` or :class:`~flinkml_tpu_torch.
+  data.ElasticFeed` feed is opened as a tracked iteration: its cursor
+  rides every snapshot (``extra["data_cursor"]``), and a resumed run
+  reopens the feed from it — at the world that wrote it or, for an
+  ElasticFeed over reshardable sources, at another.
 
 Single process, one device. Not ported yet, each refused with
 ``NotImplementedError`` naming its ROADMAP.md Queue 1 item: the
 preemption ``watchdog``, the numerics ``sentinel`` and the self-healing
-``recovery`` (item 12), and the cursor-tracked ``Dataset``/``ElasticFeed``
-feeds (item 5, the ``data/`` package).
+``recovery`` with its quarantine ledger (item 12).
 """
 
 from __future__ import annotations
@@ -240,13 +244,66 @@ def _is_stream(data: Any) -> bool:
     ) and not hasattr(data, "shape")
 
 
-def _refuse_cursor_feeds(data: Any) -> None:
-    """The cursor-tracked feeds of the JAX package's ``data/`` package
-    (``Dataset``, ``ElasticFeed``) announce themselves by ``iterate``/
-    ``peek`` and ``num_shards``; they are not ported."""
-    if hasattr(data, "num_shards") and hasattr(data, "peek"):
-        _refuse("a Dataset or ElasticFeed feed",
-                "item 5 (the data/ package: Dataset, Cursor, ElasticFeed)")
+def _source_position(delivered: int) -> int:
+    """Delivered-batch watermark -> source watermark. They are equal here:
+    the JAX package's quarantine ledger, which makes them differ by the
+    batches read past and never stepped, comes with ROADMAP.md Queue 1
+    item 12."""
+    return delivered
+
+
+def _open_dataset(data: Any, start_epoch: int, config: IterationConfig):
+    """A tracked iteration of ``data`` positioned at ``start_epoch`` when
+    ``data`` is a :class:`~flinkml_tpu_torch.data.Dataset` or an
+    :class:`~flinkml_tpu_torch.data.ElasticFeed` (None for any other feed,
+    which the caller iterates plainly).
+
+    A Dataset is restartable and deterministic, so its resume is always
+    the ``"replay"`` contract whatever ``stream_resume`` says: the chain
+    fast-forwards to the watermark and the consumer sees the exact
+    uninterrupted sequence, shuffle order included. The restored
+    snapshot's cursor (``extra["data_cursor"]``) seeds the reopen — an
+    ElasticFeed's cursor records the world that wrote it, so a run resumed
+    at another world re-splits the feed; the restored epoch stays
+    authoritative where the two disagree."""
+    from flinkml_tpu_torch.data import Cursor, Dataset, ElasticFeed
+
+    if not isinstance(data, (Dataset, ElasticFeed)):
+        return None
+    expected_source = _source_position(start_epoch)
+    cursor = None
+    if start_epoch > 0:
+        extra = getattr(
+            config.checkpoint_manager, "last_restored_extra", None
+        ) or {}
+        recorded = extra.get("data_cursor")
+        if recorded is not None:
+            cursor = Cursor.from_json_dict(recorded)
+            if cursor.emitted != expected_source:
+                # Shift the recorded global watermark by the same number of
+                # lockstep rounds (one batch per shard per round; a
+                # global-order cursor advances one batch per round).
+                watermark = cursor.global_watermark
+                if watermark is not None:
+                    per_round = (cursor.num_shards
+                                 if cursor.shard_index is not None
+                                 and cursor.num_shards is not None else 1)
+                    watermark += (expected_source - cursor.emitted) * per_round
+                cursor = dataclasses.replace(
+                    cursor, emitted=expected_source,
+                    global_watermark=watermark,
+                )
+        else:
+            cursor = Cursor(emitted=expected_source)
+    return data.iterate(cursor)
+
+
+def _snapshot_extra(dataset_iter) -> Optional[dict]:
+    """The checkpoint ``extra`` payload: the input pipeline's cursor, for
+    Dataset and ElasticFeed feeds."""
+    if dataset_iter is None:
+        return None
+    return {"data_cursor": dataset_iter.cursor().to_json_dict()}
 
 
 def iterate(
@@ -272,7 +329,6 @@ def iterate(
     from the newest valid snapshot (``restore_latest``) and continues.
     """
     config = config or IterationConfig()
-    _refuse_cursor_feeds(data)
     state = init_state
     start_epoch = 0
     restored = False
@@ -286,17 +342,23 @@ def iterate(
             restored = True
 
     data_iter: Optional[Iterator] = None
+    dataset_iter = None  # a tracked data/ iteration (the cursor's owner)
     if data is not None and not callable(data) and _is_stream(data):
-        data_iter = iter(data)
-        if config.stream_resume == "replay":
-            # The iterable restarts from the beginning: skip the batches
-            # the earlier run consumed (a live one-shot stream must set
-            # stream_resume="continue", or real data would be dropped).
-            for _ in range(start_epoch):
-                try:
-                    next(data_iter)
-                except StopIteration:
-                    break
+        dataset_iter = _open_dataset(data, start_epoch, config)
+        if dataset_iter is not None:
+            data_iter = dataset_iter
+        else:
+            data_iter = iter(data)
+            if config.stream_resume == "replay":
+                # The iterable restarts from the beginning: skip the
+                # batches the earlier run consumed (a live one-shot stream
+                # must set stream_resume="continue", or real data would be
+                # dropped).
+                for _ in range(_source_position(start_epoch)):
+                    try:
+                        next(data_iter)
+                    except StopIteration:
+                        break
 
     criteria_history: List[Optional[float]] = []
     outputs: List[Any] = []
@@ -305,31 +367,40 @@ def iterate(
     # The last epoch on disk (a restored epoch is): the terminal save
     # skips a rewrite of it.
     last_saved = start_epoch if (restored and start_epoch > 0) else None
-    while not terminated:
-        batch, exhausted = _epoch_data(data, epoch, data_iter)
-        if exhausted:
-            break
-        result = step_fn(state, epoch) if data is None \
-            else step_fn(state, batch, epoch)
-        if not isinstance(result, tuple):
-            state, criteria = result, None
-        elif len(result) == 2:
-            state, criteria = result
-        else:
-            state, criteria, output = result
-            outputs.append(output)
-        criteria_value = None if criteria is None else float(criteria)
-        criteria_history.append(criteria_value)
-        state = notify_epoch_listeners(listeners, epoch, state)
-        terminated = config.termination.should_terminate(epoch, criteria_value)
-        epoch += 1
-        if (config.checkpoint_interval > 0 and manager is not None
-                and epoch % config.checkpoint_interval == 0):
-            manager.save(state, epoch)
-            last_saved = epoch
+    try:
+        while not terminated:
+            batch, exhausted = _epoch_data(data, epoch, data_iter)
+            if exhausted:
+                break
+            result = step_fn(state, epoch) if data is None \
+                else step_fn(state, batch, epoch)
+            if not isinstance(result, tuple):
+                state, criteria = result, None
+            elif len(result) == 2:
+                state, criteria = result
+            else:
+                state, criteria, output = result
+                outputs.append(output)
+            criteria_value = None if criteria is None else float(criteria)
+            criteria_history.append(criteria_value)
+            state = notify_epoch_listeners(listeners, epoch, state)
+            terminated = config.termination.should_terminate(epoch,
+                                                             criteria_value)
+            epoch += 1
+            if (config.checkpoint_interval > 0 and manager is not None
+                    and epoch % config.checkpoint_interval == 0):
+                manager.save(state, epoch,
+                             extra=_snapshot_extra(dataset_iter))
+                last_saved = epoch
+    finally:
+        # A prefetching Dataset runs a worker thread: a raising step must
+        # not strand it. close() is idempotent and keeps the cursor
+        # readable for the terminal save.
+        if dataset_iter is not None:
+            dataset_iter.close()
 
     if manager is not None and last_saved != epoch:
-        manager.save(state, epoch)
+        manager.save(state, epoch, extra=_snapshot_extra(dataset_iter))
     if manager is not None and hasattr(manager, "wait"):
         # A failed final async write surfaces here.
         manager.wait()

@@ -45,12 +45,18 @@ the device and read once per epoch. A sparse stream caches CSR and packs
 each batch into uniform ELL of a power-of-two width; its step is the
 ``spmv`` kernel forward and one unsorted ``segment_sum`` kernel gradient.
 
+The **sorted-column stream** (:func:`train_linear_model_sorted_stream`)
+takes the prefetched tables of the input pipeline (``data/``): each
+batch's ``SortedSparseColumn`` carries pack-time sort tables, so the step
+is the ``spmv`` kernel forward and one sorted ``segment_sum`` kernel
+gradient, in the JAX kernel's addition order. Epoch 0 keeps the device
+tensors; later epochs replay them.
+
 Single device only: the data-parallel mesh (``torch.distributed``) comes
 with ROADMAP.md Queue 1 item 7. Not ported yet, each refused with
 ``NotImplementedError`` naming its ROADMAP.md Queue 1 item: the
-``cumsum`` sparse layout (item 14), the sorted-column stream (item 5, with
-the ``data/`` package), precision policies (item 3), and meshes and
-sharding plans (item 7).
+``cumsum`` sparse layout (item 14), precision policies (item 3), and
+meshes and sharding plans (item 7).
 """
 
 from __future__ import annotations
@@ -702,7 +708,11 @@ def streamed_linear_fit(
     cached as CSR (O(nnz), at any ``dim``) and trained by the ``spmv`` and
     ``segment_sum`` kernels; a cache whose batches carry ``indptr``/
     ``indices``/``values``/``dim`` replays through the same stream (the
-    resume route)."""
+    resume route). A prefetched :class:`~flinkml_tpu_torch.data.Dataset`
+    (or ElasticFeed) of SparseVector rows delivers
+    :class:`~flinkml_tpu_torch.table.SortedSparseColumn` features, which
+    take :func:`train_linear_model_sorted_stream` (the sorted
+    ``segment_sum``)."""
     from flinkml_tpu_torch.iteration.datacache import DataCache
     from flinkml_tpu_torch.models._data import (
         labeled_data,
@@ -744,6 +754,20 @@ def streamed_linear_fit(
     except StopIteration:
         raise ValueError("training stream is empty") from None
     tables = itertools.chain([first_t], it)
+
+    from flinkml_tpu_torch.table import SortedSparseColumn, Table
+
+    if (
+        isinstance(first_t, Table)
+        and features_col in first_t.column_names
+        and isinstance(first_t._raw_column(features_col), SortedSparseColumn)
+    ):
+        # A prefetched Dataset's sparse stream: train on the pack-time
+        # sorted device tables — no host round trip, no sort at step time.
+        return train_linear_model_sorted_stream(
+            tables, features_col, label_col, weight_col,
+            label_check=label_check, **kwargs,
+        )
 
     if sparse_features(first_t, features_col) is not None:
         dim0 = labeled_sparse_data(first_t, features_col, label_col,
@@ -822,14 +846,182 @@ def _sparse_stream_stepper(loss: str, dim: int):
     return step
 
 
-def train_linear_model_sorted_stream(*args, **kwargs) -> np.ndarray:
-    """The stream of device-resident sorted-column tables (refused)."""
-    raise NotImplementedError(
-        "the sorted-column stream (SortedSparseColumn tables from a "
-        "DevicePrefetcher) is not ported to flinkml_tpu_torch yet: it comes "
-        "with ROADMAP.md Queue 1 item 5 (the data/ package); stream CSR "
-        "batches through train_linear_model_stream(sparse_dim=...) instead"
-    )
+def _sorted_column_stepper(loss: str, dim: int):
+    """One SGD step over a prefetched :class:`~flinkml_tpu_torch.table.
+    SortedSparseColumn` batch (``flinkml_tpu.models._linear_sgd.
+    _sorted_column_stepper``): the ``spmv`` kernel forward over the padded
+    ELL block, then the gradient scatter replays the pack-time sort —
+    ``segment_sum(contrib.index_select(0, perm), segment_ids, dim,
+    indices_are_sorted=True)``, the sorted ``segment_sum`` kernel — so the
+    step sorts nothing. ``wb`` comes masked to the batch's logical rows
+    (weight 0 on the row bucket's padding: an exact zero in the gradient,
+    the loss and the weight sum)."""
+
+    def step(coef, ib, vb, perm, seg, yb, wb, learning_rate, reg_l2,
+             reg_l1):
+        acc = _acc_dt(vb.dtype)
+        dot = spmv(ib, vb, coef)
+        mult, per_ex = _margin_grad(loss, dot, yb, wb)
+        contrib = (vb * mult[:, None]).reshape(-1)
+        grad = segment_sum(contrib.index_select(0, perm), seg, dim,
+                           indices_are_sorted=True)
+        return _prox_step(coef, grad, torch.sum(per_ex.to(acc)),
+                          torch.sum(wb.to(acc)), learning_rate, reg_l2,
+                          reg_l1)
+
+    return step
+
+
+def _padded_tensor(raw) -> torch.Tensor:
+    """A column's bucket-height buffer (a prefetched padded column) or the
+    column itself as a tensor."""
+    if hasattr(raw, "buf"):
+        return raw.buf
+    if torch.is_tensor(raw):
+        return raw
+    return torch.from_numpy(np.ascontiguousarray(raw))
+
+
+def train_linear_model_sorted_stream(
+    tables,
+    features_col: str,
+    label_col: str,
+    weight_col: Optional[str] = None,
+    *,
+    loss: str,
+    max_iter: int,
+    learning_rate: float,
+    reg: float,
+    elastic_net: float,
+    tol: float,
+    label_check=None,
+    listeners=(),
+    dtype=np.float32,
+    cache_dir=None,
+    memory_budget_bytes=None,
+    checkpoint_manager=None,
+    checkpoint_interval: int = 0,
+    resume: bool = False,
+    prefetch_depth: int = 2,
+    validate=None,
+) -> np.ndarray:
+    """Train a linear model from a stream of device-resident Tables whose
+    feature column is a :class:`~flinkml_tpu_torch.table.
+    SortedSparseColumn` (what a :class:`~flinkml_tpu_torch.data.prefetch.
+    DevicePrefetcher` emits for ``SparseVector`` rows): the fit never
+    densifies and never sorts at step time (:func:`_sorted_column_stepper`).
+
+    Epoch 0 trains batch by batch while keeping each batch's device
+    tensors; later epochs replay them — the batches are already on the
+    card (O(nnz) each), so ``cache_dir``, ``memory_budget_bytes`` and
+    ``prefetch_depth`` are accepted for call compatibility and unused, as
+    in the JAX package. The first pass reads each batch's labels (for
+    ``label_check``) and weight sum back to the host, as the JAX package
+    does; later epochs read only the epoch's loss. Checkpoint/resume is
+    refused with ``ValueError``, as in the JAX package: stream CSR batches
+    through :func:`train_linear_model_stream` (``sparse_dim=...``) for a
+    durable fit."""
+    del cache_dir, memory_budget_bytes, prefetch_depth
+    from flinkml_tpu_torch.iteration.runtime import TerminateOnMaxIterOrTol
+    from flinkml_tpu_torch.table import SortedSparseColumn
+
+    if loss not in _LOSS_KEYS:
+        raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
+    if checkpoint_manager is not None or resume or checkpoint_interval:
+        raise ValueError(
+            "checkpoint/resume is not supported on the sorted-column "
+            "stream path; use the CSR stream (sparse_dim=...) for "
+            "durable fits"
+        )
+    dt = torch.from_numpy(np.zeros(0, dtype)).dtype
+    criterion = TerminateOnMaxIterOrTol(max_iter, tol)
+    step = None
+    coef = None
+    hy = None
+    dim = None
+    cache = []  # each batch's step arguments, on the device
+
+    def prepare(t):
+        """The first pass over one Table: its checks and step arguments."""
+        nonlocal step, coef, hy, dim
+        col = t._raw_column(features_col)
+        if not isinstance(col, SortedSparseColumn):
+            raise ValueError(
+                f"sorted-column stream: feature column {features_col!r} "
+                "is not a SortedSparseColumn (feed the stream through "
+                "data.prefetch.DevicePrefetcher)"
+            )
+        device = col.buf.device
+        if dim is None:
+            dim = col.dim
+            step = _sorted_column_stepper(loss, dim)
+            coef = torch.zeros(dim, dtype=dt, device=device)
+            hy = tuple(torch.tensor(v, dtype=dt, device=device) for v in (
+                learning_rate, reg * (1.0 - elastic_net),
+                reg * elastic_net))
+        elif col.dim != dim:
+            raise ValueError(
+                f"stream batch feature dimension {col.dim} != first "
+                f"batch's {dim}"
+            )
+        bucket, n = col.buf.shape[0], col.rows
+        yb = _padded_tensor(t._raw_column(label_col)).to(device)
+        if label_check is not None:
+            label_check(yb[:n].cpu().numpy())
+        if weight_col is not None and weight_col in t.column_names:
+            wb = _padded_tensor(t._raw_column(weight_col)).to(device)
+        else:
+            wb = torch.ones(bucket, dtype=dt, device=device)
+        if validate is not None:
+            validate(t)
+        if n == 0 or float(wb[:n].sum()) == 0:
+            raise ValueError(
+                "stream batch has zero total weight (empty batch or "
+                "all weights 0); drop such batches before training"
+            )
+        # The row bucket's padding gets weight 0 (the JAX step masks by
+        # its traced n_valid): once here, not in every epoch's step.
+        wb = wb.to(dt).clone()
+        wb[n:] = 0
+        return (col.indices, col.buf.to(dt), col.perm, col.segment_ids,
+                yb.to(dt), wb)
+
+    def run_epoch(batches, first_pass: bool) -> float:
+        """One pass; returns the epoch's mean loss (the loss sums stay on
+        the device until the epoch's one conversion)."""
+        nonlocal coef
+        loss_acc = wsum_acc = None
+        n_batches = 0
+        for item in batches:
+            if first_pass:
+                item = prepare(item)
+                cache.append(item)
+            coef, ls, ws = step(coef, *item, *hy)
+            loss_acc = ls if loss_acc is None else loss_acc + ls
+            wsum_acc = ws if wsum_acc is None else wsum_acc + ws
+            n_batches += 1
+        if n_batches == 0:
+            raise ValueError("training stream is empty")
+        return float(loss_acc) / float(wsum_acc)
+
+    def after_epoch(epoch):
+        if listeners:
+            coef_host = coef.cpu().numpy()
+            for listener in listeners:
+                listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
+
+    cur_loss = run_epoch(tables, True)
+    epoch = 1
+    after_epoch(epoch)
+    while not criterion.should_terminate(epoch - 1, cur_loss):
+        cur_loss = run_epoch(cache, False)
+        epoch += 1
+        after_epoch(epoch)
+
+    result = coef.cpu().numpy()
+    for listener in listeners:
+        listener.on_iteration_terminated(result)
+    return result
 
 
 def _ell_width_for(max_nnz: int) -> int:

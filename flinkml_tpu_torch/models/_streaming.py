@@ -16,10 +16,17 @@ from typing import Any, Optional, Tuple
 
 def peek_stream(batches) -> Tuple[Optional[Any], Any]:
     """The first batch of a training stream and the stream to hand to
-    ``iterate``: a list is peeked in place and handed over whole (so a
-    resumed ``"replay"`` run re-reads it from the start); any other
-    iterable is peeked and re-chained. ``(None, empty iterator)`` for an
-    empty stream."""
+    ``iterate``. A :class:`~flinkml_tpu_torch.data.Dataset` or
+    :class:`~flinkml_tpu_torch.data.ElasticFeed` is peeked by a throwaway
+    prefetch-free iteration and handed over whole, so the runtime owns its
+    cursor (checkpointed in every snapshot, reopened on resume); a list is
+    peeked in place and handed over whole (so a resumed ``"replay"`` run
+    re-reads it from the start); any other iterable is peeked and
+    re-chained. ``(None, empty iterator)`` for an empty stream."""
+    from flinkml_tpu_torch.data import Dataset, ElasticFeed
+
+    if isinstance(batches, (Dataset, ElasticFeed)):
+        return batches.peek(), batches
     if isinstance(batches, list):
         if not batches:
             return None, iter(())
@@ -33,8 +40,10 @@ def peek_stream(batches) -> Tuple[Optional[Any], Any]:
 
 
 def feed_world_size(batches) -> int:
-    """The world size a checkpoint records for a training feed: a feed's
-    ``num_shards`` where it has one, else 1."""
+    """The world size a checkpoint records for a training feed: a
+    Dataset's shard count or an ElasticFeed's ``world`` (both expose
+    ``num_shards``), else 1. A snapshot written at one world restores at
+    another under the manager's ``rescale="allow"``."""
     world = getattr(batches, "num_shards", None)
     try:
         return max(1, int(world)) if world is not None else 1

@@ -141,6 +141,14 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
     ) -> "OnlineLogisticRegressionModel":
         """One FTRL update per arriving batch.
 
+        ``batches`` is an iterable of batch Tables, or a
+        :class:`~flinkml_tpu_torch.data.Dataset` or
+        :class:`~flinkml_tpu_torch.data.ElasticFeed`, handed to ``iterate``
+        whole so that its cursor rides every snapshot. A snapshot records
+        the feed's world (``num_shards``); an ElasticFeed resumed at
+        another world restores under the manager's ``rescale="allow"``
+        (the FTRL carry is replicated, so the result is the same bits),
+        and ``rescale="reshard"`` is refused (ROADMAP.md Queue 1 item 7).
         ``checkpoint_manager`` (+ ``checkpoint_interval``) snapshots the
         whole carry every N consumed batches and at the end;
         ``resume=True`` continues from the newest valid snapshot, the same

@@ -9,9 +9,15 @@ uploaded and scored by the ``spmv`` kernel
 (:mod:`flinkml_tpu_torch.kernels.spmv`); margins come back to the host.
 
 The packers are copies of the JAX package's (same layout, same widths).
-One addition: :func:`pack_ell_buckets` checks ``0 <= indices < dim`` before
-anything is uploaded, because the CUDA gather does not clamp out-of-range
-indices as the JAX gather does.
+One addition: :func:`pack_ell_buckets` and :func:`pack_sorted_sparse_column`
+check ``0 <= indices < dim`` before anything is uploaded, because the CUDA
+gather does not clamp out-of-range indices as the JAX gather does.
+
+The sorted layout of the input pipeline's stream:
+:func:`pack_sorted_sparse_column` packs a batch of ``SparseVector`` rows
+into a :class:`~flinkml_tpu_torch.table.SortedSparseColumn` with the
+pack-time sort tables of :func:`ell_sort_tables` (equal to the JAX
+package's arrays: they fix the sorted ``segment_sum``'s addition order).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.kernels.spmv import spmv
-from flinkml_tpu_torch.linalg import SparseVector
+from flinkml_tpu_torch.linalg import SparseVector, next_pow2
 
 # Elements per scoring dispatch (~64 MB of f32 working set); module-level
 # so tests can shrink it to force the multi-chunk path.
@@ -226,3 +232,84 @@ def pack_ell_buckets(indptr, indices, values, dim: int,
         buckets.append({"indices": bi, "values": bv})
         row_ids.append(rows)
     return buckets, row_ids
+
+
+# ---------------------------------------------------------------------------
+# The sorted layout (the input pipeline's stream)
+# ---------------------------------------------------------------------------
+
+def ell_sort_tables(indices: np.ndarray):
+    """Pack-time global sort tables for a padded-ELL index block:
+    ``(perm, segment_ids)``, both flat ``[rows * width] int32``.
+
+    ``perm`` is a STABLE argsort of the flattened index block and
+    ``segment_ids = flat[perm]`` ascends by construction, so a consumer's
+    gradient scatter is ``segment_sum(contrib.index_select(0, perm),
+    segment_ids, dim, indices_are_sorted=True)`` with no sort at step
+    time. Padding cells (index 0 / value 0) sort to the front as segment
+    0's no-op adds, so the tables cover the full padded block."""
+    flat = np.asarray(indices, dtype=np.int32).reshape(-1)
+    perm = np.argsort(flat, kind="stable").astype(np.int32)
+    return perm, flat[perm]
+
+
+def pack_sorted_sparse_column(vectors: Sequence[SparseVector],
+                              bucket: int = None, place=None,
+                              dtype=np.float32):
+    """Pack SparseVector rows into a
+    :class:`~flinkml_tpu_torch.table.SortedSparseColumn` (the prefetcher's
+    sparse column; see that class for the layout).
+
+    Rows are zero-padded to ``bucket`` (default: the fused executor's
+    power-of-two row bucket) and the ELL width is the next power of two of
+    the widest row, as in the JAX package. ``place`` uploads one numpy
+    array (default: to ``default_device()``)."""
+    from flinkml_tpu_torch.iteration.datacache import device_put
+    from flinkml_tpu_torch.pipeline_fusion import row_bucket
+    from flinkml_tpu_torch.table import SortedSparseColumn
+
+    vectors = list(vectors)
+    if not vectors:
+        raise ValueError("empty batch")
+    if place is None:
+        device = default_device()
+
+        def place(a):
+            return device_put(a, device)
+
+    n = len(vectors)
+    if bucket is None:
+        bucket = row_bucket(n)
+    if bucket < n:
+        raise ValueError(f"bucket {bucket} < {n} rows")
+    dim = vectors[0].size()
+    for i, v in enumerate(vectors):
+        if v.size() != dim:
+            raise ValueError(f"row {i} has dim {v.size()}, expected {dim}")
+    nnzs = np.fromiter((v.indices.size for v in vectors), dtype=np.int64,
+                       count=n)
+    width = next_pow2(max(int(nnzs.max()), 1))
+    flat_idx = np.concatenate([v.indices for v in vectors])
+    if flat_idx.size and (int(flat_idx.min()) < 0
+                          or int(flat_idx.max()) >= dim):
+        raise ValueError(
+            f"sparse indices out of range for dim {dim}: "
+            f"[{int(flat_idx.min())}, {int(flat_idx.max())}]"
+        )
+    indices = np.zeros((bucket, width), dtype=np.int32)
+    values = np.zeros((bucket, width), dtype=dtype)
+    starts = np.zeros(n, dtype=np.int64)
+    np.cumsum(nnzs[:-1], out=starts[1:])
+    fill_ell(indices, values, starts, nnzs, flat_idx,
+             np.concatenate([v.values for v in vectors]))
+    indptr = np.zeros(bucket + 1, dtype=np.int32)
+    indptr[1:n + 1] = np.cumsum(nnzs)
+    indptr[n + 1:] = indptr[n]
+    perm, segment_ids = ell_sort_tables(indices)
+    host = np.empty(n, dtype=object)
+    for i, v in enumerate(vectors):
+        host[i] = v
+    return SortedSparseColumn(
+        place(values), place(indices), place(indptr), place(perm),
+        place(segment_ids), dim, n, host_rows=host,
+    )

@@ -121,6 +121,95 @@ class LazyDeviceColumn(PaddedDeviceColumn):
         return self._dtype
 
 
+class SortedSparseColumn(PaddedDeviceColumn):
+    """A device-resident SPARSE column in the pipeline's sorted layout
+    (``flinkml_tpu.table.SortedSparseColumn``): padded-ELL blocks
+    zero-padded to the row bucket, CSR ``indptr``, and the pack-time
+    global sort tables that let the gradient scatter run the sorted
+    ``segment_sum`` with no sort at step time:
+
+    - ``buf``         — ``[bucket, width]`` float values (the inherited
+      padded buffer; ``width`` is a power of two);
+    - ``indices``     — ``[bucket, width]`` int32 column ids, ascending
+      within a row; padding cells carry index 0 / value 0 (exact no-ops);
+    - ``indptr``      — ``[bucket + 1]`` int32 CSR row pointers over the
+      logical nnz (padding rows contribute 0);
+    - ``perm`` / ``segment_ids`` — ``[bucket * width]`` int32: a stable
+      argsort of the flat index block and the ids in that order, computed
+      once on the prefetch worker. A consumer's scatter is
+      ``segment_sum(contrib.index_select(0, perm), segment_ids, dim,
+      indices_are_sorted=True)``.
+
+    ``indices_are_sorted`` is recorded on the column: the packer sorts,
+    the consumer reads the attribute. The padding cells sort to the front
+    as segment 0's no-op adds, so the tables cover the FULL padded block,
+    as the JAX column's do: the sorted sum then adds in the JAX kernel's
+    order.
+    """
+
+    __slots__ = ("indices", "indptr", "perm", "segment_ids", "dim",
+                 "indices_are_sorted", "_host_rows")
+
+    def __init__(self, values: torch.Tensor, indices: torch.Tensor,
+                 indptr: torch.Tensor, perm: torch.Tensor,
+                 segment_ids: torch.Tensor, dim: int, rows: int,
+                 host_rows: Optional[np.ndarray] = None):
+        super().__init__(values, rows)
+        if tuple(indices.shape) != tuple(values.shape):
+            raise ValueError(
+                f"indices shape {tuple(indices.shape)} != values shape "
+                f"{tuple(values.shape)}"
+            )
+        bucket, width = values.shape
+        if tuple(indptr.shape) != (bucket + 1,):
+            raise ValueError(
+                f"indptr shape {tuple(indptr.shape)} != ({bucket + 1},)"
+            )
+        if tuple(perm.shape) != (bucket * width,) or \
+                tuple(segment_ids.shape) != (bucket * width,):
+            raise ValueError(
+                "perm/segment_ids must be flat [bucket * width] tables"
+            )
+        self.indices = indices
+        self.indptr = indptr
+        self.perm = perm
+        self.segment_ids = segment_ids
+        self.dim = int(dim)
+        self.indices_are_sorted = True
+        self._host_rows = host_rows
+
+    def tensors(self) -> tuple:
+        """The column's five tensors: ``(buf, indices, indptr, perm,
+        segment_ids)``."""
+        return (self.buf, self.indices, self.indptr, self.perm,
+                self.segment_ids)
+
+    def to_host(self) -> np.ndarray:
+        """The logical rows as the object array of ``SparseVector``s the
+        column was packed from (kept by the packer; rebuilt from the CSR
+        blocks for a column built on the device)."""
+        if self._host_rows is not None:
+            return self._host_rows
+        from flinkml_tpu_torch.linalg import SparseVector
+
+        vals = to_numpy(self.buf)
+        idx = self.indices.cpu().numpy()
+        ptr = self.indptr.cpu().numpy()
+        out = np.empty(self.rows, dtype=object)
+        for r in range(self.rows):
+            k = int(ptr[r + 1] - ptr[r])
+            # A column built without the true per-row nnz counts every ELL
+            # cell, so index-0 padding repeats: fold repeats by sum (the
+            # no-op padding makes that exact).
+            ui, inv = np.unique(idx[r, :k], return_inverse=True)
+            uv = np.zeros(ui.size, dtype=np.float64)
+            np.add.at(uv, inv, vals[r, :k].astype(np.float64))
+            out[r] = SparseVector._from_sorted(self.dim, ui.astype(np.int64),
+                                               uv)
+        self._host_rows = out
+        return out
+
+
 def _is_device_backed(x: Any) -> bool:
     return isinstance(x, (torch.Tensor, PaddedDeviceColumn))
 

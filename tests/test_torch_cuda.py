@@ -1249,3 +1249,74 @@ def test_sparse_streamed_resume_within_tolerance(cuda_device, tmp_path):
         plain = _linear_sgd.streamed_linear_fit(cache, max_iter=5, **kw)
     np.testing.assert_allclose(resumed, golden, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(golden, plain, rtol=1e-5, atol=1e-5)
+
+
+def _criteo_like_rows(n, dim, nnz, seed):
+    """SparseVector rows with ``nnz`` distinct random columns each."""
+    rng = np.random.default_rng(seed)
+    stride = rng.integers(1, dim // nnz, size=(n, 1))
+    start = (rng.random((n, 1)) * (dim - stride * (nnz - 1))).astype(np.int64)
+    idx = start + stride * np.arange(nnz)
+    vals = rng.normal(size=(n, nnz))
+    rows = np.empty(n, dtype=object)
+    for r in range(n):
+        rows[r] = fml.SparseVector._from_sorted(dim, idx[r], vals[r])
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    return rows, y
+
+
+def test_device_prefetcher_equals_synchronous_upload(cuda_device):
+    """A prefetched Dataset batch on the card equals a synchronous upload
+    of the same host rows, all five SortedSparseColumn tensors included,
+    while the consumer's stream is kept busy (the feed's copies run on
+    its own stream; every tensor is recorded on the consumer's)."""
+    from flinkml_tpu_torch.data import Dataset, pad_place_table
+
+    rows, y = _criteo_like_rows(40_000, 100_000, 39, seed=11)
+    table = fml.Table({"features": rows, "label": y})
+    ds = Dataset.from_arrays(table, 8192).prefetch(2)
+    sink = torch.zeros((), device=cuda_device)
+    held = []
+    with fml.use_device(cuda_device):
+        for t in ds:
+            col = t._raw_column("features")
+            assert all(x.device.type == "cuda" for x in col.tensors())
+            for _ in range(4):
+                sink = sink + col.buf.float().pow(2).sum()
+            held.append(t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(sink)
+    with fml.use_device("cpu"):
+        want = [pad_place_table(b) for b in table.batches(8192)]
+    for got, ref in zip(held, want):
+        gcol = got._raw_column("features")
+        rcol = ref._raw_column("features")
+        for g, r in zip(gcol.tensors(), rcol.tensors()):
+            assert torch.equal(g.cpu(), r)
+        assert torch.equal(got._raw_column("label").buf.cpu(),
+                           ref._raw_column("label").buf)
+
+
+def test_sorted_stream_on_card_matches_cpu(cuda_device):
+    """``LogisticRegression().fit`` of a prefetched Dataset of SparseVector
+    rows on the card takes the sorted stream (both kernels launch) and
+    equals the CPU port within 1e-5 of the largest coefficient."""
+    from flinkml_tpu_torch.data import Dataset
+
+    rows, y = _criteo_like_rows(20_000, 50_000, 39, seed=12)
+    ds = Dataset.from_arrays(fml.Table({"features": rows, "label": y}),
+                             4096).shuffle(3, seed=1).prefetch(2)
+
+    def est():
+        return (fml.LogisticRegression().set_max_iter(4).set_tol(0.0)
+                .set_learning_rate(0.5))
+
+    with fml.use_device("cpu"):
+        want = est().fit(ds).coefficient
+    before = (kspmv.LAUNCHES.count, ksegsum.LAUNCHES.count)
+    with fml.use_device(cuda_device):
+        got = est().fit(ds).coefficient
+    assert kspmv.LAUNCHES.count - before[0] == 5 * 4
+    assert ksegsum.LAUNCHES.count - before[1] == 5 * 4
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

@@ -546,10 +546,12 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match="item 12"):
             fml.OnlineLogisticRegression().fit_stream([table],
                                                       **{knob: object()})
-    # The sorted-column stream: item 5 (the data/ package).
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_sgd.train_linear_model_sorted_stream([table], "features", "label",
-                                               loss="logistic")
+    # The sorted-column stream is ported (the data/ package's prefetched
+    # SortedSparseColumn tables): a dense feature column is refused.
+    with pytest.raises(ValueError, match="not a SortedSparseColumn"):
+        t_sgd.train_linear_model_sorted_stream(
+            [table], "features", "label", loss="logistic", max_iter=1,
+            learning_rate=0.1, reg=0.0, elastic_net=0.0, tol=0.0)
 
 
 def test_fit_without_card_raises_device_error():

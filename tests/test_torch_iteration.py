@@ -479,8 +479,13 @@ def test_reshard_and_multi_device_commits_refused(tmp_path):
 
 
 def test_unported_iteration_knobs_refused():
-    """The watchdog, sentinel and recovery (item 12) and the cursor feeds
-    of the ``data/`` package (item 5)."""
+    """The watchdog, sentinel and recovery (item 12) are refused. The
+    cursor feeds of the ``data/`` package are ported: a Dataset is iterated
+    one batch per epoch, and a feed that only looks like one (``peek`` and
+    ``num_shards``) is a plain iterable."""
+    from flinkml_tpu_torch.data import Dataset
+    from flinkml_tpu_torch.table import Table
+
     for knob in ("watchdog", "sentinel", "recovery"):
         with pytest.raises(NotImplementedError, match="item 12"):
             IterationConfig(**{knob: object()})
@@ -492,10 +497,16 @@ def test_unported_iteration_knobs_refused():
             return None
 
         def __iter__(self):
-            return iter(())
+            return iter([1.0, 2.0])
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        iterate(lambda s, d, e: (s, None), 0, FakeDataset())
+    def step(s, d, e):
+        return s + d, None
+
+    assert iterate(step, 0.0, FakeDataset()).state == 3.0
+    ds = Dataset.from_arrays(Table({"y": np.arange(5.0)}), 2)
+    result = iterate(lambda s, d, e: (s + float(d.column("y").sum()), None),
+                     0.0, ds)
+    assert (result.state, result.epochs) == (10.0, 3)
 
 
 # -- the protocol helpers --------------------------------------------------------

@@ -677,8 +677,12 @@ def test_streamed_fit_checkpoint_crosses_packages(direction, tmp_path, mesh1,
 
 
 def test_stream_refusals(on_cpu):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_sgd.train_linear_model_sorted_stream(iter([]), "features", "label")
+    # The sorted-column stream is ported: an empty stream is refused, as
+    # the JAX package refuses it.
+    for sgd in (t_sgd, j_sgd):
+        with pytest.raises(ValueError, match="training stream is empty"):
+            sgd.train_linear_model_sorted_stream(iter([]), "features",
+                                                 "label", **HYPER)
     with pytest.raises(ValueError, match="multinomial"):
         LogisticRegression().set_multi_class("multinomial").fit(
             iter(_tables(_make_batches(), fml.Table)))
