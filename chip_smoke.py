@@ -121,6 +121,20 @@ and fails with a non-zero exit if any phase fails:
    fit_stream`` over an ``ElasticFeed`` at path G's width stopped at
    world 4 and resumed at world 2, bit for bit with the uninterrupted
    run;
+6e. the cumsum layout and the rest of KMeans (path I): I1,
+   ``train_linear_model_sparse_csr(layout="cumsum")`` at the sparse fit
+   path's shape against float64 numpy and the ``unsorted`` fit, its host
+   tables and device loop timed apart, two runs bit for bit, and
+   ``BatchedCSR.matvec``/``rmatvec`` at 65,536 Criteo rows against their
+   plain versions; I2, ``KMeans().fit`` over 16 batches of 65,536 x 784
+   float32 rows (half spilled by the cache's budget), 20 epochs with a
+   checkpoint every 5, a run from a sealed cache crashed at epoch 10 and
+   resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
+   init, then served behind a StandardScaler through ``fused_chain``; I3,
+   ``OnlineKMeans.fit_stream`` over 64 batches of 16,384 x 784 drifting
+   blobs, crashed at batch 32 and resumed bit for bit, against a float64
+   numpy decay rule. Path I must launch ``spmv``, ``segment_sum`` and
+   ``fused_chain``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -2615,22 +2629,30 @@ def rel_err(got, want) -> float:
 
 class FeedWaits:
     """Records each :class:`PrefetchingDeviceFeed`'s consumer wait (one
-    feed per epoch of a streamed fit) while installed in the module the
-    trainer takes it from."""
+    feed per epoch of a streamed fit) and its host-clock span from
+    construction to close while installed in the module the trainer takes
+    it from."""
 
     def __init__(self):
         from flinkml_tpu_torch.iteration import datacache
 
-        self.module, self.original, self.waits = datacache, None, []
+        self.module, self.original = datacache, None
+        self.waits, self.spans = [], []
 
     def __enter__(self):
         original, waits = self.module.PrefetchingDeviceFeed, self.waits
+        spans = self.spans
 
         class Recorded(original):
+            def __init__(self, *args, **kwargs):
+                self._t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+
             def close(self):
                 if not getattr(self, "_recorded", False):
                     self._recorded = True
                     waits.append(self.wait_s)
+                    spans.append(time.perf_counter() - self._t0)
                 super().close()
 
         self.original = original
@@ -3478,6 +3500,451 @@ def elastic_path(torch):
         "resume_s": resume_s, "resume_bit_exact": exact, "rel_err": err}))
 
 
+# -- path I: the cumsum layout with BatchedCSR, the rest of KMeans -----------------
+
+#: I1: BatchedCSR at the serving shape of Criteo rows.
+CSR_ROWS = 65_536
+#: I2: MNIST's width, 16 batches of 65,536 rows (3.3 GB of float32), the
+#: cache's memory budget at half of it; k = 10, 20 Lloyd epochs, a
+#: checkpoint every 5, a crash at 10.
+KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 16, 65_536, 784, 10
+KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 20, 5, 10
+#: I3: 64 batches of 16,384 drifting MNIST-width rows, k = 10, decay 0.9,
+#: a checkpoint every 16 batches, a crash at 32.
+OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 64, 16_384, 784, 10
+OKM_DECAY, OKM_INTERVAL, OKM_CRASH = 0.9, 16, 32
+
+
+def cumsum_path(torch, timer):
+    """Path I1: ``train_linear_model_sparse_csr(layout="cumsum")`` at the
+    sparse fit path's shape (262,144 Criteo rows, dim 1e6, 39 draws a row,
+    batch 262,144, 20 epochs): the ``spmv`` kernel forward, chunked
+    running sums and one ``index_add_`` a step. Held against float64 numpy
+    and against the ``unsorted`` fit (1e-4 of the largest coefficient);
+    the host tables and the device loop timed apart; two runs of the loop
+    equal bit for bit (no atomics), and so is a loop stopped at epoch 10
+    and resumed from its checkpoint. Then ``BatchedCSR.matvec`` (``spmv``)
+    and ``rmatvec`` (``segment_sum``) at 65,536 Criteo rows against their
+    plain versions. Returns the launch counts of the fit and the two
+    calls."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.kernels.segsum import segment_sum_plain
+    from flinkml_tpu_torch.kernels.spmv import spmv_plain
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.ops import BatchedCSR
+
+    n, dim, nnz = SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ
+    if FIT_BATCH < n:
+        fail("cumsum fit: the full-batch numpy reference needs batch >= rows")
+    indptr, indices, values, y, w = make_criteo_csr(n, dim, nnz, seed=0)
+    csr = (indptr, indices, values, dim, y, w)
+    hyper = ("logistic", FIT_EPOCHS, FIT_LR, FIT_BATCH, 0.0, 0.0, 0.0, 0)
+    fml.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coef = sgd.train_linear_model_sparse_csr(*csr, *hyper, layout="cumsum")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    m = CSR_ROWS
+    batch = BatchedCSR(indices[:m * nnz].reshape(m, nnz),
+                       values[:m * nnz].reshape(m, nnz), dim)
+    rng = np.random.default_rng(61)
+    wv = torch.from_numpy(rng.normal(size=dim).astype(np.float32)).cuda()
+    cv = torch.from_numpy(rng.normal(size=m).astype(np.float32)).cuda()
+    mv, rmv = batch.matvec(wv), batch.rmatvec(cv)
+    torch.cuda.synchronize()
+    counts = fml.launch_counts()
+    if counts["spmv"] < FIT_EPOCHS + 1 or counts["segment_sum"] < 1:
+        fail(f"cumsum path: kernel launches {counts} (the fit's {FIT_EPOCHS} "
+             "steps, one matvec and one rmatvec)")
+
+    check_close("BatchedCSR.matvec", mv,
+                spmv_plain(batch.indices, batch.values, wv), 1e-5, 1e-5)
+    contrib = (batch.values * cv[:, None]).reshape(-1)
+    flat_ids = batch.indices.reshape(-1)
+    rmv_plain = segment_sum_plain(contrib, flat_ids, dim)
+    rmv_err = max_err(rmv, rmv_plain)
+    if not rmv_err <= 1e-5 * float(rmv_plain.abs().max()):
+        fail(f"BatchedCSR.rmatvec: max abs err {rmv_err} beyond 1e-5 of the "
+             "largest sum")
+    csr_ms = {"matvec_ms": timer(lambda: batch.matvec(wv)),
+              "matvec_plain_ms": timer(lambda: spmv_plain(
+                  batch.indices, batch.values, wv)),
+              "rmatvec_ms": timer(lambda: batch.rmatvec(cv)),
+              "rmatvec_plain_ms": timer(lambda: segment_sum_plain(
+                  (batch.values * cv[:, None]).reshape(-1), flat_ids, dim))}
+    del batch, wv, cv, mv, rmv, contrib, flat_ids, rmv_plain
+
+    # The host tables apart from the device loop.
+    tables_s = []
+    real_tables = sgd._window_cumsum_tables
+
+    def timed_tables(*a):
+        t1 = time.perf_counter()
+        out = real_tables(*a)
+        tables_s.append(time.perf_counter() - t1)
+        return out
+
+    sgd._window_cumsum_tables = timed_tables
+    try:
+        t0 = time.perf_counter()
+        data_args, local_bss = sgd.prepare_sparse_buckets(
+            indptr, indices, values, dim, y, w, FIT_BATCH, seed=0,
+            layout="cumsum")
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+    finally:
+        sgd._window_cumsum_tables = real_tables
+    trainer = sgd._sparse_trainer_bucketed("logistic", local_bss, dim,
+                                           "cumsum")
+
+    def loop(epochs=FIT_EPOCHS, **ckpt):
+        return sgd._run_chunked(trainer, data_args, dim, torch.float32,
+                                FIT_LR, 0.0, 0.0, 0.0, epochs, **ckpt)
+
+    _, loop_s, second = timed_calls(torch, loop, calls=1)
+    runs_equal = bool(np.array_equal(second, coef))
+    if not runs_equal:
+        fail("cumsum fit: two runs differ by "
+             f"{float(np.abs(second - coef).max())}")
+    share = device_share(torch, loop)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cumsum_")
+    try:
+        half = FIT_EPOCHS // 2
+        ckpt = dict(checkpoint_manager=CheckpointManager(tmp),
+                    checkpoint_interval=half)
+        loop(half, **ckpt)
+        resumed = loop(resume=True, **ckpt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resume_exact = bool(np.array_equal(resumed, coef))
+    if not resume_exact:
+        fail("cumsum fit: the resumed loop differs from the uninterrupted "
+             f"fit by {float(np.abs(resumed - coef).max())}")
+    del data_args
+
+    ref = numpy_sparse_fit(indptr, indices, values, dim, y, w, FIT_EPOCHS,
+                           FIT_LR)
+    t0 = time.perf_counter()
+    unsorted = sgd.train_linear_model_sparse_csr(*csr, *hyper,
+                                                 layout="unsorted")
+    torch.cuda.synchronize()
+    unsorted_s = time.perf_counter() - t0
+    scale = float(np.abs(ref).max())
+    errs = {"float64_numpy": float(np.abs(coef - ref).max()),
+            "unsorted": float(np.abs(coef - unsorted).max())}
+    for name, err in errs.items():
+        if not err <= 1e-4 * scale:
+            fail(f"cumsum fit: coefficient differs from {name} by {err} "
+                 f"(limit 1e-4 of {scale})")
+    samples = FIT_BATCH * FIT_EPOCHS
+    log("path " + json.dumps({
+        "path": "cumsum_I1", "rows": n, "dim": dim, "nnz": nnz,
+        "batch": FIT_BATCH, "epochs": FIT_EPOCHS, "fit_s": fit_s,
+        "samples_per_s": samples / fit_s, "prepare_s": prep_s,
+        "window_cumsum_tables_s": sum(tables_s), "buckets": len(local_bss),
+        "device_loop_s": loop_s, "loop_samples_per_s": samples / loop_s,
+        "loop_device_share": share, "runs_bit_equal": runs_equal,
+        "resume_bit_exact": resume_exact,
+        "unsorted_fit_s": unsorted_s, "max_abs_coef_err": errs,
+        "max_abs_coef": scale, "csr_rows": m, "rmatvec_max_abs_err": rmv_err,
+        **csr_ms, "launches": counts}))
+    return counts
+
+
+def kmeans_stream_path(torch):
+    """Path I2: ``KMeans().fit`` (k-means++ init) over an iterable of 16
+    Tables of 65,536 x 784 float32 blobs around k = 10 centres far apart
+    (so that no row lies near an assignment boundary once each centre has
+    a centroid), the cache's memory budget at half of the 3.3 GB so that
+    half spills, 20 Lloyd epochs with a checkpoint every 5. A fit from a sealed cache of the same batches crashed at
+    epoch 10 and resumed equals the uninterrupted one bit for bit (the
+    one-hot product, no atomics); against the in-RAM ``train_kmeans``
+    from the same initial centroids within 1e-5 of the largest
+    coordinate. The model then serves behind a StandardScaler through the
+    fused executor (``fused_chain``), its assignments against the
+    per-stage path's and the plain chain's away from near ties. Returns
+    the serving's launch counts. The record is logged before a failed
+    check fails the path."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.kernels import chain as kchain
+    from flinkml_tpu_torch.models import kmeans as tkm
+
+    rng = np.random.default_rng(31)
+    centers = (rng.normal(size=(KMS_K, KMS_D)) * 100.0).astype(np.float32)
+    batches = []
+    for _ in range(KMS_BATCHES):
+        x = rng.standard_normal((KMS_ROWS, KMS_D), dtype=np.float32)
+        x += centers[rng.integers(0, KMS_K, size=KMS_ROWS)]
+        batches.append(x)
+    budget = sum(x.nbytes for x in batches) // 2
+    tables = [fml.Table({"features": x}) for x in batches]
+
+    class Crash(CheckpointManager):
+        def save(self, state, epoch, extra=None, **kw):
+            out = super().save(state, epoch, extra, **kw)
+            if epoch == KMS_CRASH:
+                raise RuntimeError("injected crash")
+            return out
+
+    def est(**kw):
+        return (fml.KMeans(**kw).set_k(KMS_K).set_max_iter(KMS_EPOCHS)
+                .set_seed(0).set_init_mode("k-means++"))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kmeans_")
+    try:
+        with FeedWaits() as feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = est(cache_dir=os.path.join(tmp, "c1"),
+                        cache_memory_budget_bytes=budget,
+                        checkpoint_manager=CheckpointManager(
+                            os.path.join(tmp, "k1"), max_to_keep=10),
+                        checkpoint_interval=KMS_INTERVAL).fit(iter(tables))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        spilled = len(os.listdir(os.path.join(tmp, "c1")))
+        writer = DataCacheWriter(os.path.join(tmp, "c2"), budget)
+        for x in batches:
+            writer.append({"features": x.copy()})   # the cache freezes RAM
+        cache = writer.finish()
+        crash = Crash(os.path.join(tmp, "k2"), max_to_keep=10)
+        try:
+            est(checkpoint_manager=crash,
+                checkpoint_interval=KMS_INTERVAL).fit(cache)
+            fail("kmeans stream: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        if crash.latest_epoch() != KMS_CRASH:
+            fail(f"kmeans stream: the crashed run's newest snapshot is "
+                 f"{crash.latest_epoch()}")
+        box = {}
+
+        def resume():
+            box["model"] = est(
+                checkpoint_manager=CheckpointManager(
+                    os.path.join(tmp, "k2"), max_to_keep=10),
+                checkpoint_interval=KMS_INTERVAL, resume=True).fit(cache)
+
+        t0 = time.perf_counter()
+        share = device_share(torch, resume)
+        resume_s = time.perf_counter() - t0
+        init = tkm.train_kmeans_stream(cache, KMS_K, max_iter=0, seed=0,
+                                       init_mode="k-means++",
+                                       column="features")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    problems = []
+    exact = bool(np.array_equal(box["model"].centroids, model.centroids))
+    if not exact:
+        problems.append(
+            "the resumed fit differs from the uninterrupted one by "
+            f"{rel_err(box['model'].centroids, model.centroids)}")
+    x_all = np.concatenate(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = tkm.train_kmeans(x_all, KMS_K, max_iter=KMS_EPOCHS,
+                             initial_centroids=init)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    del x_all
+    err = rel_err(model.centroids, whole)
+    if not np.isfinite(err) or err > 1e-5:
+        problems.append(f"centroids differ from the in-RAM fit by {err} of "
+                        "the largest (limit 1e-5)")
+    # Each centre's blob has one centroid: the nearest centroid of every
+    # centre is distinct.
+    nearest = np.argmin(((centers[:, None, :] - model.centroids[None]) ** 2)
+                        .sum(-1), axis=1)
+    blobs_found = int(np.unique(nearest).size)
+
+    # Served behind a StandardScaler, the centroids in the scaled space.
+    scaler = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s").fit(tables[0]))
+    (sdata,) = scaler.get_model_data()
+    mean, std = sdata.column("mean")[0], sdata.column("std")[0]
+    served = fml.KMeansModel().set_features_col("s").set_model_data(
+        fml.Table({"centroids": ((model.centroids - mean) / std)[None]}))
+    pipe = fml.PipelineModel([scaler, served])
+    table = tables[1]
+
+    def run():
+        (out,) = pipe.transform(table)
+        return out.column("prediction")
+
+    pipeline_fusion.reset_cache()
+    fml.reset_launch_counts()
+    _, call_s, pred = timed_calls(torch, run)
+    counts = fml.launch_counts()
+    if counts["fused_chain"] < 4:
+        problems.append(f"serving: fused_chain launched "
+                        f"{counts['fused_chain']} times in 4 transforms")
+    pipeline_fusion.set_enabled(False)
+    try:
+        _, per_stage_s, per_stage = timed_calls(torch, run, calls=1)
+    finally:
+        pipeline_fusion.set_enabled(True)
+    kernels = [st.transform_kernel() for st in pipe.stages]
+    xd = torch.from_numpy(batches[1]).cuda()
+    want = kchain.chain_plain(kernels, ["features"], ["s", "prediction"],
+                              [xd], [kk.constants for kk in kernels],
+                              KMS_ROWS)
+    c = torch.from_numpy(served.centroids).cuda()
+    ok = _gap_ok(-(torch.cdist(want["s"].double(), c) ** 2).cpu().numpy())
+    plain = want["prediction"].cpu().numpy()
+    for name, got in (("fused", pred), ("per-stage", per_stage)):
+        if not np.array_equal(got[ok], plain[ok]):
+            problems.append(f"serving: {name} assignments differ from the "
+                            "plain chain away from near ties")
+    del xd, want
+    points = KMS_BATCHES * KMS_ROWS
+    log("path " + json.dumps({
+        "path": "kmeans_stream_I2", "batches": KMS_BATCHES,
+        "batch_rows": KMS_ROWS, "d": KMS_D, "k": KMS_K, "epochs": KMS_EPOCHS,
+        "cache_budget_bytes": budget, "spilled_segments": spilled,
+        "fit_s": fit_s, "points_per_s": points * KMS_EPOCHS / fit_s,
+        "epoch_s": feeds.spans, "feed_wait_s": feeds.waits,
+        "epoch_points_per_s": [points / t for t in feeds.spans],
+        "resume_epochs": KMS_EPOCHS - KMS_CRASH, "resume_s": resume_s,
+        "resume_device_share": share, "resume_bit_exact": exact,
+        "in_ram_fit_s": whole_s, "rel_err_vs_in_ram": err,
+        "blobs_found": blobs_found, "serve_rows": KMS_ROWS,
+        "fused_call_s": call_s, "per_stage_call_s": per_stage_s,
+        "rows_within_tie_margin": int((~ok).sum()), "launches": counts}))
+    if problems:
+        fail("kmeans stream: " + "; ".join(problems))
+    return counts
+
+
+def numpy_online_kmeans(batches, centroids, decay):
+    """Float64 numpy decay rule over ``batches`` from ``centroids``."""
+    c = np.asarray(centroids, np.float64).copy()
+    weights = np.zeros(c.shape[0])
+    for x in batches:
+        x64 = x.astype(np.float64)
+        d2 = ((x64 * x64).sum(1)[:, None] - 2.0 * x64 @ c.T
+              + (c * c).sum(1)[None, :])
+        onehot = np.eye(c.shape[0])[d2.argmin(1)]
+        old = weights * decay
+        new = old + onehot.sum(0)
+        upd = (old[:, None] * c + onehot.T @ x64) / np.maximum(new, 1e-12)[
+            :, None]
+        c = np.where(new[:, None] > 0, upd, c)
+        weights = new
+    return c
+
+
+def online_kmeans_path(torch):
+    """Path I3: ``OnlineKMeans.fit_stream`` over 64 seeded batches of
+    16,384 x 784 rows drawn around 10 centres that drift a little each
+    batch, warm-started near the first centres, decay 0.9, a checkpoint
+    every 16 batches; a run crashed at batch 32 and resumed (``replay``)
+    equals the uninterrupted one bit for bit; against a float64 numpy
+    decay rule within 1e-9 of the largest coordinate."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+
+    rng = np.random.default_rng(51)
+    centers0 = rng.normal(size=(OKM_K, OKM_D)) * 4.0
+    drift = rng.normal(size=(OKM_K, OKM_D)) * 0.05
+    batches = []
+    for i in range(OKM_BATCHES):
+        x = rng.standard_normal((OKM_ROWS, OKM_D), dtype=np.float32)
+        x += (centers0 + i * drift).astype(np.float32)[
+            rng.integers(0, OKM_K, size=OKM_ROWS)]
+        batches.append(x)
+    tables = [fml.Table({"features": x}) for x in batches]
+    init = centers0 + rng.normal(size=centers0.shape) * 0.5
+
+    def est():
+        return (fml.OnlineKMeans().set_k(OKM_K).set_decay_factor(OKM_DECAY)
+                .set_initial_model_data(fml.Table({"centroids": init[None]})))
+
+    def crashing():
+        for i, t in enumerate(tables):
+            if i == OKM_CRASH:
+                raise RuntimeError("injected crash")
+            yield t
+
+    est().fit_stream(tables[:2])   # first fit: cuBLAS and allocator warm
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_okm_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est().fit_stream(
+            tables, checkpoint_manager=CheckpointManager(
+                os.path.join(tmp, "main"), max_to_keep=10),
+            checkpoint_interval=OKM_INTERVAL)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        crash = CheckpointManager(os.path.join(tmp, "crash"), max_to_keep=10)
+        try:
+            est().fit_stream(crashing(), checkpoint_manager=crash,
+                             checkpoint_interval=OKM_INTERVAL)
+            fail("online kmeans: the injected crash did not happen")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        if crash.latest_epoch() != OKM_CRASH:
+            fail(f"online kmeans: the crashed run's newest snapshot is "
+                 f"{crash.latest_epoch()}")
+        resumed = est().fit_stream(tables, checkpoint_manager=crash,
+                                   checkpoint_interval=OKM_INTERVAL,
+                                   resume=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    problems = []
+    if (model.model_version, resumed.model_version) != \
+            (OKM_BATCHES, OKM_BATCHES):
+        problems.append(f"versions {model.model_version}, "
+                        f"{resumed.model_version}")
+    exact = bool(np.array_equal(resumed.centroids, model.centroids))
+    if not exact:
+        problems.append("the resumed run differs from the uninterrupted one "
+                        f"by {rel_err(resumed.centroids, model.centroids)}")
+    err = rel_err(model.centroids,
+                  numpy_online_kmeans(batches, init, OKM_DECAY))
+    if not np.isfinite(err) or err > 1e-9:
+        problems.append(f"centroids differ from float64 numpy by {err} of "
+                        "the largest (limit 1e-9)")
+    log("path " + json.dumps({
+        "path": "online_kmeans_I3", "batches": OKM_BATCHES,
+        "batch_rows": OKM_ROWS, "d": OKM_D, "k": OKM_K, "decay": OKM_DECAY,
+        "fit_s": fit_s, "batches_per_s": OKM_BATCHES / fit_s,
+        "samples_per_s": OKM_BATCHES * OKM_ROWS / fit_s,
+        "checkpoints": [16, 32, 48, 64], "resume_bit_exact": exact,
+        "rel_err": err}))
+    if problems:
+        fail("online kmeans: " + "; ".join(problems))
+
+
+def slice_i_path(torch, timer):
+    """Path I as a whole: I1, I2 and I3, which must launch ``spmv``,
+    ``segment_sum`` and ``fused_chain``. Returns the summed counts."""
+    t0 = time.perf_counter()
+    counts = dict(cumsum_path(torch, timer))
+    for name, n in kmeans_stream_path(torch).items():
+        counts[name] = counts.get(name, 0) + n
+    online_kmeans_path(torch)
+    missing = [k for k in ("spmv", "segment_sum", "fused_chain")
+               if not counts.get(k)]
+    if missing:
+        fail(f"path I: {missing} never launched ({counts})")
+    log(f"path I: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return counts
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -3555,12 +4022,15 @@ def main() -> int:
     ingest_path(torch)
     sorted_counts = sorted_stream_path(torch, timer)
     elastic_path(torch)
+    slice_i_counts = slice_i_path(torch, timer)
+    chain_rec["launches"] += slice_i_counts["fused_chain"]
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
             "sparse_fit": fit_counts[name], "stream_E": stream_counts[name],
             "svc_F": svc_counts[name],
-            "sorted_stream_H": sorted_counts[name]}
+            "sorted_stream_H": sorted_counts[name],
+            "slice_I": slice_i_counts[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     del timer

@@ -15,14 +15,16 @@ multinomial, dense) and ``LogisticRegressionModel`` (binomial and
 multinomial, dense and sparse transform), ``LinearSVC`` and
 ``LinearRegression`` (in RAM and streamed; the normal equations),
 ``OnlineLogisticRegression`` (FTRL over a stream), ``Knn``, ``MinHashLSH``,
-``KMeans`` (batch fit on one device) and ``BisectingKMeans`` with their
-models; the iteration runtime (``iterate``), checkpoint/resume
-(``CheckpointManager``) and the out-of-core data cache (``DataCache``) in
+``KMeans`` (in RAM, and streamed out of core with checkpoints, on one
+device), ``OnlineKMeans`` and ``BisectingKMeans`` with their models; the
+iteration runtime (``iterate``), checkpoint/resume (``CheckpointManager``)
+and the out-of-core data cache (``DataCache``) in
 :mod:`flinkml_tpu_torch.iteration`; the input pipeline
 (:mod:`flinkml_tpu_torch.data`: ``Dataset``, ``ElasticFeed``, cursors, the
 device prefetcher; CSV and LibSVM through native parsers) and the
-sorted-column stream it feeds; and all four kernels:
-``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
+sorted-column stream it feeds; ``ops.BatchedCSR`` and the three sparse
+gradient layouts (``unsorted``, ``sorted``, ``cumsum``); and all four
+kernels: ``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
 runs under the precision tiers (``precision``:
 ``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
 and the kernels take bfloat16.
@@ -78,6 +80,8 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     MinMaxScalerModel,
     OneHotEncoder,
     OneHotEncoderModel,
+    OnlineKMeans,
+    OnlineKMeansModel,
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
     RobustScaler,
@@ -86,7 +90,7 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     StandardScalerModel,
     VectorAssembler,
 )
-from flinkml_tpu_torch import data, iteration, precision  # noqa: F401
+from flinkml_tpu_torch import data, iteration, ops, precision  # noqa: F401
 from flinkml_tpu_torch.iteration import (  # noqa: F401
     CheckpointManager,
     DataCache,
@@ -131,6 +135,8 @@ __all__ = [
     "ModelIntegrityError",
     "OneHotEncoder",
     "OneHotEncoderModel",
+    "OnlineKMeans",
+    "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
     "Pipeline",
@@ -154,6 +160,7 @@ __all__ = [
     "iteration",
     "launch_counts",
     "load_stage",
+    "ops",
     "reset_launch_counts",
     "set_default_device",
     "stage_from_arrays",

@@ -1,7 +1,8 @@
 """Stages of the model catalog ported so far: the four scalers,
 OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
-LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (batch
-fit) and BisectingKMeans (estimators and models)."""
+LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
+RAM and streamed), OnlineKMeans and BisectingKMeans (estimators and
+models)."""
 
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
@@ -22,6 +23,10 @@ from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegressionModel,
 )
 from flinkml_tpu_torch.models.lsh import MinHashLSH, MinHashLSHModel  # noqa: F401
+from flinkml_tpu_torch.models.online_kmeans import (  # noqa: F401
+    OnlineKMeans,
+    OnlineKMeansModel,
+)
 from flinkml_tpu_torch.models.online_logistic_regression import (  # noqa: F401
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
@@ -63,6 +68,8 @@ __all__ = [
     "MinMaxScalerModel",
     "OneHotEncoder",
     "OneHotEncoderModel",
+    "OnlineKMeans",
+    "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
     "RobustScaler",

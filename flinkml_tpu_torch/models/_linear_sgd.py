@@ -13,8 +13,12 @@ gradient; L1 (elastic net) is a proximal soft-threshold after the step.
 - **Sparse:** nnz-bucketed padded ELL (``ops.sparse.pack_ell_buckets``);
   the forward margin is the ``spmv`` kernel per bucket and the gradient
   one ``segment_sum`` kernel over every bucket's cells (layout
-  ``unsorted``), or one sorted ``segment_sum`` per bucket over pack-time
-  per-window sort tables (layout ``sorted``).
+  ``unsorted``), one sorted ``segment_sum`` per bucket over pack-time
+  per-window sort tables (layout ``sorted``), or, per bucket, the
+  column-sorted cells' contributions reduced by a chunked running sum
+  differenced at pack-time run boundaries and one ``index_add_`` at the
+  window's ascending columns (layout ``cumsum``: plain torch, as the JAX
+  package computes it outside any Pallas kernel).
 - **Softmax** (multinomial LR, dense only): the dense step's windows with
   a ``[k, d]`` model, ``x @ coef.T`` → ``log_softmax`` → weighted
   cross-entropy and ``(p - onehot)ᵀ @ x``, the same update and
@@ -54,9 +58,8 @@ tensors; later epochs replay them.
 
 Single device only: the data-parallel mesh (``torch.distributed``) comes
 with ROADMAP.md Queue 1 item 7. Not ported yet, each refused with
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item: the
-``cumsum`` sparse layout (item 14), precision policies (item 3), and
-meshes and sharding plans (item 7).
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item: precision
+policies (item 3), and meshes and sharding plans (item 7).
 """
 
 from __future__ import annotations
@@ -77,10 +80,9 @@ from flinkml_tpu_torch.parallel import pad_to_multiple
 
 _LOSS_KEYS = ("logistic", "hinge", "squared")
 
-#: Sparse gradient layouts ported so far (``cumsum`` is ROADMAP.md Queue 1
-#: item 14).
-SPARSE_LAYOUTS = ("unsorted", "sorted")
-_SPARSE_ARGS_PER_BUCKET = {"unsorted": 4, "sorted": 6}
+#: The sparse gradient layouts (the JAX package's three).
+SPARSE_LAYOUTS = ("unsorted", "sorted", "cumsum")
+_SPARSE_ARGS_PER_BUCKET = {"unsorted": 4, "sorted": 6, "cumsum": 8}
 
 #: Steps the device loop runs between two host reads of its active flag.
 SYNC_EVERY = 8
@@ -107,12 +109,6 @@ def refuse_unported(**knobs) -> None:
 
 
 def check_layout(layout: str) -> None:
-    if layout == "cumsum":
-        raise NotImplementedError(
-            "the cumsum sparse layout is not ported to flinkml_tpu_torch "
-            "yet: it comes with ROADMAP.md Queue 1 item 14 (cumsum sparse "
-            f"layout); use one of {SPARSE_LAYOUTS}"
-        )
     if layout not in SPARSE_LAYOUTS:
         raise ValueError(
             f"layout={layout!r}: expected one of {SPARSE_LAYOUTS}"
@@ -194,8 +190,18 @@ def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
     - ``unsorted``: one atomic ``segment_sum`` over every bucket's cells;
     - ``sorted``: per bucket, the window's contributions permuted by the
       pack-time sort table (a plain ``index_select``, as the JAX package's
-      ``jnp.take``) and one deterministic sorted ``segment_sum``.
+      ``jnp.take``) and one deterministic sorted ``segment_sum``;
+    - ``cumsum``: per bucket, the window's cells come column-sorted with
+      their values and rows (:func:`_window_cumsum_tables`), so the
+      contributions are ``svals * mult[srows]``, the per-column totals
+      :func:`~flinkml_tpu_torch.ops.sparse.chunked_run_totals` at the
+      accumulation dtype, and the only scatter one ``index_add_`` at the
+      ascending columns. Padding runs add exactly 0 onto the last real
+      column, so no two adds race: the gradient is the same on every run,
+      on the card too.
     """
+    from flinkml_tpu_torch.ops.sparse import chunked_run_totals
+
     check_layout(layout)
     per_bucket = _SPARSE_ARGS_PER_BUCKET[layout]
 
@@ -213,15 +219,24 @@ def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
             ib, vb, yb, wb = (_window(a, epoch, local_bs) for a in block[:4])
             dot = spmv(ib, vb, coef)
             mult, per_ex = _margin_grad(loss, dot, yb, wb)
-            contrib = (vb * mult[:, None]).reshape(-1)
             if layout == "sorted":
+                contrib = (vb * mult[:, None]).reshape(-1)
                 part = segment_sum(
                     torch.index_select(contrib, 0, window_of(block[4], epoch)),
                     window_of(block[5], epoch), dim, indices_are_sorted=True,
                 )
                 grad = part if grad is None else grad + part
+            elif layout == "cumsum":
+                srows, svals, ends, cols = (window_of(t, epoch)
+                                            for t in block[4:])
+                contrib = svals * torch.index_select(mult, 0, srows)
+                seg = chunked_run_totals(contrib.to(acc), ends)
+                if grad is None:
+                    grad = torch.zeros(dim, dtype=coef.dtype,
+                                       device=coef.device)
+                grad.index_add_(0, cols, seg.to(coef.dtype))
             else:
-                contribs.append(contrib)
+                contribs.append((vb * mult[:, None]).reshape(-1))
                 flat_idx.append(ib.reshape(-1))
             loss_l = loss_l + torch.sum(per_ex.to(acc))
             wsum_l = wsum_l + torch.sum(wb.to(acc))
@@ -280,7 +295,9 @@ def _sparse_trainer_bucketed(loss: str, local_bss: Tuple[int, ...],
                              dim: int, layout: str = "unsorted"):
     """Bucketed counterpart of :func:`_dense_trainer`: the data args are
     ``k·len(local_bss)`` tensors, ``k = 4`` (indices, values, y, w) for
-    ``unsorted`` and 6 (plus the window sort tables) for ``sorted``."""
+    ``unsorted``, 6 (plus the window sort tables) for ``sorted`` and 8
+    (plus the window's sorted rows, values, run ends and columns) for
+    ``cumsum``."""
     local_step = make_sparse_step_bucketed(loss, local_bss, dim, layout)
     n_args = _SPARSE_ARGS_PER_BUCKET[layout] * len(local_bss)
 
@@ -550,6 +567,64 @@ def _window_sort_tables(
     return perm, sids
 
 
+def _window_cumsum_tables(
+    idx_pad: np.ndarray, val_pad: np.ndarray, p_size: int, local_bs: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Per-device, per-window tables of the ``cumsum`` layout: ``(srows,
+    svals, ends, cols)``, the JAX package's arrays bit for bit (the same
+    loop and stable argsort).
+
+    Window w covers rows ``min(w·bs, n_local−bs) .. +bs`` (exactly
+    :func:`_window`'s clamped rotating tile). Its flattened cells are
+    sorted by column id once here:
+
+    - ``srows [p·n_windows, cells] int32``: the row within the window of
+      each sorted cell (the step gathers ``mult`` by it);
+    - ``svals [p·n_windows, cells]``: the cell values, sorted;
+    - ``ends [p·n_windows, max_d] int32``: the inclusive cell index of
+      each column run's last cell, padded by repeating the last real end
+      (a running-sum difference of exactly 0);
+    - ``cols [p·n_windows, max_d] int32``: each run's column id,
+      ascending; padding repeats the last real column, so its exact zero
+      lands there.
+
+    ``max_d`` is the largest distinct-column count over every window.
+    """
+    n_total, width = idx_pad.shape
+    n_local = n_total // p_size
+    n_windows = max(-(-n_local // local_bs), 1)
+    cells = local_bs * width
+    srows = np.empty((p_size * n_windows, cells), np.int32)
+    svals = np.empty((p_size * n_windows, cells), val_pad.dtype)
+    per_window = []
+    for d in range(p_size):
+        ishard = idx_pad[d * n_local:(d + 1) * n_local]
+        vshard = val_pad[d * n_local:(d + 1) * n_local]
+        for wnum in range(n_windows):
+            start = min(wnum * local_bs, max(n_local - local_bs, 0))
+            flat_i = ishard[start:start + local_bs].reshape(-1)
+            flat_v = vshard[start:start + local_bs].reshape(-1)
+            order = np.argsort(flat_i, kind="stable")
+            sids = flat_i[order]
+            row = d * n_windows + wnum
+            srows[row] = (order // width).astype(np.int32)
+            svals[row] = flat_v[order]
+            # Inclusive run ends: positions where the sorted id changes.
+            is_end = np.empty(cells, np.bool_)
+            is_end[:-1] = sids[:-1] != sids[1:]
+            is_end[-1] = True
+            e = np.nonzero(is_end)[0].astype(np.int32)
+            per_window.append((row, e, sids[e]))
+    max_d = max(e.size for _, e, _ in per_window)
+    ends = np.full((p_size * n_windows, max_d), cells - 1, np.int32)
+    cols = np.empty((p_size * n_windows, max_d), np.int32)
+    for row, e, c in per_window:
+        ends[row, : e.size] = e
+        cols[row, : e.size] = c
+        cols[row, e.size:] = c[-1] if c.size else 0
+    return srows, svals, ends, cols
+
+
 def prepare_sparse_buckets(
     indptr, indices, values, dim: int, y, w, global_batch_size: int,
     max_buckets: int = 4, dtype=np.float32, seed: Optional[int] = None,
@@ -558,8 +633,10 @@ def prepare_sparse_buckets(
     """Pack, shuffle, pad and upload CSR data for the bucketed trainer.
 
     Returns ``(data_args, local_bss)``: the flat per-bucket tensors on the
-    compute device (indices, values, y, w[, window-sort perm, sorted ids]
-    per bucket) and each bucket's window size (its proportional share of
+    compute device (indices, values, y, w, then the layout's tables: for
+    ``sorted`` the window-sort perm and sorted ids, for ``cumsum`` the
+    sorted rows, values, run ends and columns) and each bucket's window
+    size (its proportional share of
     ``global_batch_size``, ≥ 1). ``seed`` shuffles rows within each bucket,
     with the JAX package's generator and order, so both packages train on
     the same windows. ``pack_ell_buckets`` refuses indices outside
@@ -593,6 +670,9 @@ def prepare_sparse_buckets(
         local_bss.append(local_bs)
         if layout == "sorted":
             padded += _window_sort_tables(idx_pad, _P_SIZE, local_bs)
+        elif layout == "cumsum":
+            padded += _window_cumsum_tables(idx_pad, padded[1], _P_SIZE,
+                                            local_bs)
         data_args += [_upload(a, device) for a in padded]
     return tuple(data_args), tuple(local_bss)
 
@@ -623,8 +703,9 @@ def train_linear_model_sparse_csr(
     """Skew-proof sparse training from host CSR arrays: nnz-bucketed ELL
     blocks (padded cells ≈ total nnz), a stratified window from every
     bucket per step, and the gradient ``layout`` named by the caller
-    (``"unsorted"``, the JAX package's default, or ``"sorted"``; the JAX
-    package reads it from an env var or its tuning table)."""
+    (``"unsorted"``, the JAX package's default, ``"sorted"`` or
+    ``"cumsum"``; the JAX package reads it from an env var or its tuning
+    table)."""
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = np.asarray(indptr).size - 1
@@ -831,7 +912,9 @@ def _sparse_stream_stepper(loss: str, dim: int):
     ``(indices, values)``: the ``spmv`` kernel forward and one unsorted
     ``segment_sum`` kernel gradient into the dense ``[dim]`` coefficient
     (each batch's cells are seen once per epoch, in stream order, so no
-    pack-time sort applies)."""
+    pack-time sort applies). The streamed fits have this one layout, as
+    in the JAX package: neither ``sorted`` nor ``cumsum`` windows exist
+    there."""
 
     def step(coef, ib, vb, yb, wb, learning_rate, reg_l2, reg_l1):
         acc = _acc_dt(vb.dtype)
@@ -855,7 +938,8 @@ def _sorted_column_stepper(loss: str, dim: int):
     indices_are_sorted=True)``, the sorted ``segment_sum`` kernel — so the
     step sorts nothing. ``wb`` comes masked to the batch's logical rows
     (weight 0 on the row bucket's padding: an exact zero in the gradient,
-    the loss and the weight sum)."""
+    the loss and the weight sum). Its layout is the column's own; the
+    ``cumsum`` layout has no streamed form, in the JAX package either."""
 
     def step(coef, ib, vb, perm, seg, yb, wb, learning_rate, reg_l2,
              reg_l1):

@@ -85,3 +85,13 @@ class StreamingEstimatorMixin:
             checkpoint_interval=self.checkpoint_interval,
             resume=self.resume,
         )
+
+    def _reject_in_ram_checkpointing(self, detail: str = "") -> None:
+        """An in-RAM fit that cannot checkpoint raises instead of dropping
+        the knobs (``ValueError``, the JAX package's message)."""
+        if self.checkpoint_manager is not None or self.resume:
+            raise ValueError(
+                "checkpointing is supported for streamed fits only "
+                "(pass an iterable of batch Tables or a DataCache)"
+                + (f"; {detail}" if detail else "")
+            )

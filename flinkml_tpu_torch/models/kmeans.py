@@ -1,4 +1,4 @@
-"""KMeans — Lloyd's algorithm with random or k-means++ init (batch fit).
+"""KMeans — Lloyd's algorithm with random or k-means++ init.
 
 The port's counterpart of ``flinkml_tpu.models.kmeans`` (reference:
 ``KMeans.java:79-335``, ``KMeansModel.java``, ``KMeansModelData.java``):
@@ -24,15 +24,27 @@ nearest-centroid math as plain PyTorch, and the KMeans head of the
 ``fused_chain`` kernel on the card; it pins its input column, as the JAX
 package's does.
 
-One device, in-RAM tables only: streamed fits (an iterable of batch
-Tables or a DataCache, ``cache_dir``, ``cache_memory_budget_bytes``) and
-checkpointing raise ``NotImplementedError`` naming ROADMAP.md Queue 1
-item 6 (the rest of KMeans), ``mesh=`` item 7.
+**The streamed fit** (:func:`train_kmeans_stream`, the reference's
+``ReplayOperator`` + point-caching ``SelectNearestCentroidOperator``):
+``KMeans.fit`` over an iterable of batch Tables or a sealed
+:class:`~flinkml_tpu_torch.iteration.datacache.DataCache`. Pass 0 caches a
+one-shot stream (spilling past a memory budget) while a seeded
+:class:`~flinkml_tpu_torch.utils.sampling.RowReservoir` samples the
+initial centroids; each Lloyd epoch replays the cache through a
+prefetching device feed, adding each batch's per-cluster sums and counts
+(:func:`kmeans_partials`, the one-hot product, so the sums are the same
+bits on every run) in batch order, and updates the centroids once.
+Checkpoints snapshot the centroids every N epochs; a resume continues
+from the newest one bit for bit. The streamed fit computes in float32,
+as the JAX package's.
+
+One process: ``mesh=`` and the multi-process stream are ROADMAP.md Queue 1
+item 7.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +62,7 @@ from flinkml_tpu_torch.common_params import (
 from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.models import _linear_sgd
 from flinkml_tpu_torch.models._data import features_matrix, features_tensor
+from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
 from flinkml_tpu_torch.ops import blas
 from flinkml_tpu_torch.ops.distance import DistanceMeasure
 from flinkml_tpu_torch.params import IntParam, ParamValidators, StringParam
@@ -79,26 +92,25 @@ class _KMeansParams(
     )
 
 
-_STREAM_ITEM = ("ROADMAP.md Queue 1 item 6 (the rest of KMeans: its "
-                "streamed fit and checkpointing)")
+class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
+    """Fits centroids on the compute device. ``fit`` accepts a
+    :class:`Table` (the in-RAM fit), an iterable of batch Tables (the
+    out-of-core streamed fit: the cache spills to ``cache_dir`` beyond
+    ``cache_memory_budget_bytes``) or a sealed
+    :class:`~flinkml_tpu_torch.iteration.datacache.DataCache` whose batches
+    carry the features column. ``checkpoint_manager``,
+    ``checkpoint_interval`` and ``resume`` act on the streamed fit; the
+    in-RAM fit refuses them (``ValueError``, as in the JAX package).
 
-
-class KMeans(_KMeansParams, Estimator):
-    """Fits centroids from a :class:`Table` on the compute device.
-
-    The constructor takes the JAX estimator's knobs; ``mesh``,
-    ``cache_dir``, ``cache_memory_budget_bytes``, ``checkpoint_manager``
-    and ``resume`` raise ``NotImplementedError`` naming their ROADMAP.md
-    item when set (``checkpoint_interval`` acts only with a
-    ``checkpoint_manager``); ``sharding_plan`` and ``precision`` raise
-    ``ValueError`` as in the JAX package, whose KMeans takes neither.
+    ``mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7);
+    ``sharding_plan`` and ``precision`` raise ``ValueError`` as in the
+    JAX package, whose KMeans takes neither.
     """
 
     def __init__(self, mesh=None, cache_dir=None,
                  cache_memory_budget_bytes=None, checkpoint_manager=None,
                  checkpoint_interval: int = 0, resume: bool = False,
                  sharding_plan=None, precision=None):
-        super().__init__()
         for name, value in (("sharding_plan", sharding_plan),
                             ("precision", precision)):
             if value is not None:
@@ -107,16 +119,12 @@ class KMeans(_KMeansParams, Estimator):
                     "policy-aware estimators: the linear family's dense "
                     "paths)"
                 )
-        _linear_sgd.refuse_unported(mesh=mesh)
-        for name, value in (
-                ("checkpoint_manager", checkpoint_manager),
-                ("resume", resume), ("cache_dir", cache_dir),
-                ("cache_memory_budget_bytes", cache_memory_budget_bytes)):
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"KMeans {name}={value!r} is not ported to "
-                    f"flinkml_tpu_torch yet: it comes with {_STREAM_ITEM}"
-                )
+        super().__init__(
+            mesh=mesh, cache_dir=cache_dir,
+            cache_memory_budget_bytes=cache_memory_budget_bytes,
+            checkpoint_manager=checkpoint_manager,
+            checkpoint_interval=checkpoint_interval, resume=resume,
+        )
 
     def fit(self, *inputs) -> "KMeansModel":
         (table,) = inputs
@@ -127,27 +135,49 @@ class KMeans(_KMeansParams, Estimator):
                 "KMeans currently supports the euclidean distance measure "
                 f"(parity with the reference), got {measure!r}"
             )
-        if not isinstance(table, Table):
-            raise NotImplementedError(
-                "KMeans streamed fits (an iterable of batch Tables or a "
-                "DataCache) are not ported to flinkml_tpu_torch yet: they "
-                f"come with {_STREAM_ITEM}"
+        if isinstance(table, Table):
+            self._reject_in_ram_checkpointing(
+                "the in-RAM fit runs as one whole-loop device program"
             )
-        x = features_matrix(table, self.get(_KMeansParams.FEATURES_COL),
-                            dtype=None)
-        if x.shape[0] < k:
-            raise ValueError(f"k={k} exceeds number of points {x.shape[0]}")
-        centroids = train_kmeans(
-            x,
-            k=k,
-            max_iter=self.get(_KMeansParams.MAX_ITER),
-            seed=self.get_seed(),
-            init_mode=self.get(_KMeansParams.INIT_MODE),
-        )
+            x = features_matrix(table, self.get(_KMeansParams.FEATURES_COL),
+                                dtype=None)
+            if x.shape[0] < k:
+                raise ValueError(
+                    f"k={k} exceeds number of points {x.shape[0]}")
+            centroids = train_kmeans(
+                x,
+                k=k,
+                max_iter=self.get(_KMeansParams.MAX_ITER),
+                seed=self.get_seed(),
+                init_mode=self.get(_KMeansParams.INIT_MODE),
+            )
+        else:
+            centroids = self._fit_stream(table, k)
         model = KMeansModel()
         model.copy_params_from(self)
         model.set_model_data(Table({"centroids": centroids[None, :, :]}))
         return model
+
+    def _fit_stream(self, source, k: int) -> np.ndarray:
+        from flinkml_tpu_torch.iteration.datacache import DataCache
+
+        features_col = self.get(_KMeansParams.FEATURES_COL)
+        if isinstance(source, DataCache):
+            batches = source
+        else:
+            batches = ({"x": features_matrix(t, features_col)
+                        .astype(np.float32)} for t in source)
+        return train_kmeans_stream(
+            batches,
+            k=k,
+            max_iter=self.get(_KMeansParams.MAX_ITER),
+            seed=self.get_seed(),
+            init_mode=self.get(_KMeansParams.INIT_MODE),
+            cache_dir=self.cache_dir,
+            memory_budget_bytes=self.cache_memory_budget_bytes,
+            column=features_col if isinstance(source, DataCache) else "x",
+            **self._checkpoint_kwargs(),
+        )
 
 
 class KMeansModel(_KMeansParams, Model):
@@ -235,21 +265,32 @@ class KMeansModel(_KMeansParams, Model):
         )
 
 
+def kmeans_partials(xb: torch.Tensor, wb: torch.Tensor,
+                    centroids: torch.Tensor):
+    """One Lloyd pass's per-cluster ``(sums [k, d], counts [k])`` over the
+    rows ``xb`` weighed by ``wb`` (0 for padding): argmin over the squared
+    distances, then a weighted one-hot product (a matrix product, not an
+    atomic scatter, so the sums are the same bits on every run)."""
+    k = centroids.shape[0]
+    assign = torch.argmin(blas.squared_distances(xb, centroids), dim=-1)
+    onehot = F.one_hot(assign, k).to(xb.dtype) * wb[:, None]
+    return onehot.T @ xb, torch.sum(onehot, dim=0)
+
+
+def update_centroids(sums: torch.Tensor, counts: torch.Tensor,
+                     centroids: torch.Tensor) -> torch.Tensor:
+    """The cluster means; an empty cluster keeps its previous centroid."""
+    safe = torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where(counts[:, None] > 0, sums / safe, centroids)
+
+
 def lloyd(xd: torch.Tensor, wd: torch.Tensor, centroids: torch.Tensor,
           max_iter: int) -> torch.Tensor:
     """``max_iter`` Lloyd steps on the device from ``centroids``; no host
     read in between. ``wd`` weighs each row (0 for padding)."""
-    k = centroids.shape[0]
     for _ in range(max_iter):
-        # Assignment: argmin over pairwise squared distances.
-        assign = torch.argmin(blas.squared_distances(xd, centroids), dim=-1)
-        # Per-cluster sums via a one-hot product; padded rows have w=0.
-        onehot = F.one_hot(assign, k).to(xd.dtype) * wd[:, None]
-        sums = onehot.T @ xd
-        counts = torch.sum(onehot, dim=0)
-        # Empty clusters keep their previous centroid.
-        safe = torch.clamp_min(counts, 1.0)[:, None]
-        centroids = torch.where(counts[:, None] > 0, sums / safe, centroids)
+        centroids = update_centroids(*kmeans_partials(xd, wd, centroids),
+                                     centroids)
     return centroids
 
 
@@ -310,3 +351,171 @@ def prepare_kmeans_data(x: np.ndarray, mesh=None):
     device = default_device()
     return (torch.from_numpy(np.ascontiguousarray(x_pad)).to(device),
             torch.from_numpy(w).to(device), n_valid)
+
+
+def train_kmeans_stream(
+    batches,
+    k: int,
+    mesh=None,
+    max_iter: int = 20,
+    seed: int = 0,
+    init_mode: str = "random",
+    cache_dir: Optional[str] = None,
+    memory_budget_bytes: Optional[int] = None,
+    prefetch_depth: int = 2,
+    column: str = "x",
+    init_sample_size: int = 65_536,
+    initial_centroids: Optional[np.ndarray] = None,
+    checkpoint_manager=None,
+    checkpoint_interval: int = 0,
+    resume: bool = False,
+    listeners: Sequence = (),
+) -> np.ndarray:
+    """Out-of-core Lloyd over a one-shot stream of batch dicts (or a sealed
+    :class:`~flinkml_tpu_torch.iteration.datacache.DataCache`), with one
+    batch (plus the prefetch depth) on the device at a time; returns the
+    float32 centroids ``[k, d]`` on the host.
+
+    - **Pass 0** caches the stream (spilling beyond
+      ``memory_budget_bytes`` into ``cache_dir``) while a seeded
+      :class:`~flinkml_tpu_torch.utils.sampling.RowReservoir` samples it:
+      ``init_mode="random"`` takes k reservoir rows in a shuffled order,
+      ``"k-means++"`` seeds from an ``init_sample_size`` sample;
+      ``initial_centroids`` overrides both. A sealed cache is sampled by
+      one read.
+    - **Each Lloyd epoch** replays the cache through a
+      :class:`~flinkml_tpu_torch.iteration.datacache.PrefetchingDeviceFeed`,
+      each batch padded to a multiple of :data:`ROW_TILE` rows of zero
+      weight, adds the batches' :func:`kmeans_partials` in batch order and
+      updates the centroids once (an empty cluster keeps its centroid).
+    - **Checkpoints:** ``checkpoint_manager`` + ``checkpoint_interval``
+      save the centroids every N epochs and at the end; ``resume=True``
+      restores the newest snapshot and continues, bit for bit with the
+      uninterrupted run (each epoch is a function of the centroids and the
+      cache). Resume needs a durable ``DataCache``: a one-shot stream
+      cannot be replayed from its start.
+    - ``listeners`` fire at every epoch boundary with the centroids (a
+      device tensor) and at the end.
+
+    The JAX package's ``flinkml_tpu.models.kmeans.train_kmeans_stream``,
+    one process (``mesh`` is ROADMAP.md Queue 1 item 7), with its draws,
+    its padding and its error messages.
+    """
+    from flinkml_tpu_torch.iteration.checkpoint import (
+        begin_resume,
+        should_snapshot,
+    )
+    from flinkml_tpu_torch.iteration.datacache import (
+        DataCache,
+        DataCacheWriter,
+        PrefetchingDeviceFeed,
+        device_put,
+    )
+    from flinkml_tpu_torch.iteration.runtime import notify_epoch_listeners
+    from flinkml_tpu_torch.iteration.stream_sync import agreed_restore
+    from flinkml_tpu_torch.utils.sampling import RowReservoir
+
+    _linear_sgd.refuse_unported(mesh=mesh)
+    if resume and not isinstance(batches, DataCache):
+        raise ValueError(
+            "resume=True requires a durable DataCache input: a one-shot "
+            "stream cannot be replayed from the start after a failure"
+        )
+    # The resume target is decided before pass 0, so a restore skips the
+    # reservoir pass and the seeding whose centroids it would discard.
+    resume_epoch = begin_resume(checkpoint_manager, resume,
+                                _linear_sgd._P_SIZE)
+    device = default_device()
+    n_feat = [None]  # the first batch's feature dim; every batch must match
+
+    def check_dims(x):
+        if x.ndim != 2:
+            raise ValueError(f"stream batches must be [n, d], got {x.shape}")
+        if x.shape[0] == 0:
+            raise ValueError("stream batch has zero rows; drop empty batches")
+        if n_feat[0] is None:
+            n_feat[0] = x.shape[1]
+        elif x.shape[1] != n_feat[0]:
+            raise ValueError(
+                f"batch feature dim {x.shape[1]} != first batch's {n_feat[0]}"
+            )
+
+    def ingest(b):
+        x = np.asarray(b[column], np.float32)
+        check_dims(x)
+        return x
+
+    def place(batch):
+        x_pad, n_valid = pad_to_multiple(ingest(batch), ROW_TILE)
+        w = np.zeros(x_pad.shape[0], np.float32)
+        w[:n_valid] = 1.0  # padded rows never influence centroids
+        return device_put((x_pad, w), device)
+
+    # -- pass 0: cache (unless sealed) + reservoir sample for the init -----
+    reservoir_cap = k if init_mode == "random" else max(k, init_sample_size)
+    need_init = initial_centroids is None and resume_epoch is None
+    reservoir = RowReservoir(reservoir_cap, seed=seed)
+    if isinstance(batches, DataCache):
+        cache = batches
+        if need_init:
+            for b in cache.reader():
+                reservoir.add(ingest(b))
+    else:
+        writer = DataCacheWriter(cache_dir, memory_budget_bytes)
+        for b in batches:
+            x = ingest(b)
+            writer.append({column: np.array(x)})
+            if need_init:
+                reservoir.add(x)
+        cache = writer.finish()
+    if cache.num_rows < k:
+        raise ValueError(f"k={k} exceeds number of points {cache.num_rows}")
+
+    rng = np.random.default_rng(seed)
+    start_epoch = 0
+    if resume_epoch is not None:
+        # One cached batch gives the feature dim.
+        d_feat = np.asarray(next(iter(cache.reader()))[column]).shape[1]
+        centroids, start_epoch = agreed_restore(
+            checkpoint_manager, resume_epoch, np.zeros((k, d_feat), np.float32)
+        )
+    elif initial_centroids is not None:
+        centroids = np.asarray(initial_centroids, np.float32)
+        if centroids.shape[0] != k:
+            raise ValueError(
+                f"initial_centroids has {centroids.shape[0]} rows, need {k}"
+            )
+    else:
+        sample = reservoir.sample()
+        if init_mode == "k-means++":
+            centroids = _kmeans_pp_init(sample, k, rng).astype(np.float32)
+        else:
+            # The reservoir is the uniform k-row sample; shuffled as the
+            # reference's selection is (KMeans.java:314-335).
+            centroids = sample[rng.permutation(sample.shape[0])[:k]]
+
+    cent = torch.from_numpy(np.ascontiguousarray(centroids)).to(device)
+    for epoch in range(start_epoch, max_iter):
+        sums = counts = None
+        feed = PrefetchingDeviceFeed(cache.reader(), place=place,
+                                     depth=prefetch_depth)
+        try:
+            for xb, wb in feed:
+                s, c = kmeans_partials(xb, wb, cent)
+                sums = s if sums is None else sums + s
+                counts = c if counts is None else counts + c
+        finally:
+            feed.close()
+        if sums is None:
+            raise ValueError("training stream is empty")
+        cent = update_centroids(sums, counts, cent)
+        if should_snapshot(checkpoint_manager, checkpoint_interval,
+                           epoch + 1, max_iter):
+            checkpoint_manager.save(cent.cpu().numpy(), epoch + 1)
+        if listeners:
+            cent = notify_epoch_listeners(listeners, epoch, cent)
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()  # surface a failed final async write
+    for listener in listeners:
+        listener.on_iteration_terminated(cent)
+    return cent.cpu().numpy()

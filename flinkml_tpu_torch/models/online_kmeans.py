@@ -1,0 +1,303 @@
+"""OnlineKMeans — decayed mini-batch k-means over a stream.
+
+The port's counterpart of ``flinkml_tpu.models.online_kmeans`` (apache
+flink-ml's ``OnlineKMeans``): one centroid update per arriving batch, fed
+to :func:`flinkml_tpu_torch.iteration.iterate`, with the decay rule of
+Spark's streaming k-means and flink-ml::
+
+    n'       = decay * n + count_batch
+    centroid = (decay * n * centroid + sum_batch) / n'      (n' > 0)
+
+``decayFactor`` 1 gives the running mini-batch mean; 0 forgets history
+each batch. Initial centroids come from a fitted ``KMeansModel`` through
+``set_initial_model_data``, or else from ``k`` seeded random rows of the
+first batch. Everything computes in float64, as the JAX step does (it
+casts each batch to float64): the batch's assignment pass
+(:func:`_batch_stats`: squared distances, argmin, a one-hot product, so
+the sums are the same bits on every run) and the decay rule, on the
+compute device.
+
+The carry ``{"centroids", "weights", "version"}`` is checkpointed in the
+JAX package's layout, so a snapshot of either package resumes in the
+other, and saved models cross packages both ways. One process: the
+multi-process stream is ROADMAP.md Queue 1 item 7, the numerics sentinel
+and recovery item 12.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flinkml_tpu_torch.api import Estimator, Model
+from flinkml_tpu_torch.common_params import (
+    HasDecayFactor,
+    HasFeaturesCol,
+    HasGlobalBatchSize,
+    HasPredictionCol,
+    HasSeed,
+)
+from flinkml_tpu_torch.device import default_device
+from flinkml_tpu_torch.models._data import features_matrix
+from flinkml_tpu_torch.models.kmeans import kmeans_partials
+from flinkml_tpu_torch.ops.distance import DistanceMeasure
+from flinkml_tpu_torch.params import IntParam, ParamValidators
+from flinkml_tpu_torch.table import Table
+
+
+class _OnlineKMeansParams(
+    HasFeaturesCol, HasPredictionCol, HasGlobalBatchSize, HasDecayFactor,
+    HasSeed,
+):
+    K = IntParam(
+        "k", "The number of clusters to create.", 2, ParamValidators.gt(1)
+    )
+
+
+def _batch_stats(x: torch.Tensor, centroids: torch.Tensor):
+    """One assignment pass: the batch's per-centroid sums ``[k, d]`` and
+    counts ``[k]``: KMeans' weighted one-hot product at unit weights (a
+    one-hot times 1 is itself: the JAX ``_batch_stats``' unweighted
+    product)."""
+    return kmeans_partials(x, torch.ones(x.shape[0], dtype=x.dtype,
+                                         device=x.device), centroids)
+
+
+def _decayed_update(centroids, weights, sums, counts, decay: float):
+    """The decay rule: ``(centroids, weights)`` after one batch. A centroid
+    whose decayed weight is 0 keeps its place."""
+    old_w = weights * decay
+    new_w = old_w + counts
+    safe = torch.clamp_min(new_w, 1e-12)[:, None]
+    updated = (old_w[:, None] * centroids + sums) / safe
+    return torch.where(new_w[:, None] > 0, updated, centroids), new_w
+
+
+class OnlineKMeans(_OnlineKMeansParams, Estimator):
+    """Decayed mini-batch k-means: ``fit(table)`` consumes
+    ``globalBatchSize`` mini-batches of one Table, ``fit_stream(batches)``
+    an iterable of batch Tables (one update each)."""
+
+    def __init__(self, mesh=None):
+        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+
+        refuse_unported(mesh=mesh)
+        super().__init__()
+        self._initial_centroids: Optional[np.ndarray] = None
+
+    def set_initial_model_data(self, *inputs: Table) -> "OnlineKMeans":
+        """Warm start from a (bounded) KMeansModel's model-data table."""
+        (table,) = inputs
+        c = np.asarray(table.column("centroids"), dtype=np.float64)
+        self._initial_centroids = c.reshape(c.shape[-2], c.shape[-1])
+        return self
+
+    def fit(self, *inputs: Table) -> "OnlineKMeansModel":
+        """Consume the table as a stream of ``globalBatchSize``
+        mini-batches."""
+        (table,) = inputs
+        return self.fit_stream(table.batches(self.get(self.GLOBAL_BATCH_SIZE)))
+
+    def fit_stream(
+        self,
+        batches: Iterable[Table],
+        *,
+        checkpoint_manager=None,
+        checkpoint_interval: int = 0,
+        resume: bool = False,
+        stream_resume: str = "replay",
+        sentinel=None,
+        recovery=None,
+    ) -> "OnlineKMeansModel":
+        """One decayed centroid update per arriving batch.
+
+        ``batches`` is an iterable of batch Tables, or a
+        :class:`~flinkml_tpu_torch.data.Dataset` or
+        :class:`~flinkml_tpu_torch.data.ElasticFeed` handed to ``iterate``
+        whole (its cursor rides every snapshot; a snapshot records the
+        feed's world). ``checkpoint_manager`` (+ ``checkpoint_interval``)
+        snapshots the carry (centroids, decayed weights, model version)
+        every N consumed batches and at the end; ``resume=True`` continues
+        from the newest valid snapshot, the same bits as the uninterrupted
+        run. ``stream_resume``: ``"replay"`` skips the consumed prefix of
+        a source that restarts from its beginning, ``"continue"`` consumes
+        a live stream from the front. ``sentinel``/``recovery`` are
+        refused (ROADMAP.md Queue 1 item 12); so is a multi-process group
+        (item 7).
+        """
+        from flinkml_tpu_torch.iteration import (
+            IterationConfig,
+            TerminateOnMaxIter,
+            iterate,
+        )
+        from flinkml_tpu_torch.iteration.checkpoint import begin_resume
+        from flinkml_tpu_torch.models._streaming import (
+            feed_world_size,
+            peek_stream,
+        )
+        from flinkml_tpu_torch.models.online_logistic_regression import (
+            _process_count,
+        )
+
+        k = self.get(self.K)
+        decay = self.get(self.DECAY_FACTOR)
+        fcol = self.get(self.FEATURES_COL)
+        rng = np.random.default_rng(self.get_seed())
+        config = IterationConfig(
+            TerminateOnMaxIter(2**31 - 1),
+            checkpoint_interval=checkpoint_interval,
+            checkpoint_manager=checkpoint_manager,
+            stream_resume=stream_resume,
+            sentinel=sentinel,
+            recovery=recovery,
+        )
+        if _process_count() > 1:
+            raise NotImplementedError(
+                "the multi-process online stream (one centroid update per "
+                "arriving batch across processes) is not ported to "
+                "flinkml_tpu_torch yet: it comes with ROADMAP.md Queue 1 "
+                "item 7 (multi-device)"
+            )
+        restore_epoch = begin_resume(checkpoint_manager, resume,
+                                     world_size=feed_world_size(batches))
+
+        # The first batch: the initial centroids draw from it (without
+        # initial model data) and it fixes the carry's shapes for restore.
+        first, stream = peek_stream(batches)
+        if first is None:
+            empty = self._model_from_empty_stream(
+                checkpoint_manager, restore_epoch
+            )
+            if empty is not None:
+                return empty
+            raise ValueError("training stream is empty")
+        x0 = features_matrix(first, fcol)   # float64
+        device = default_device()
+
+        def dev(a):
+            if isinstance(a, np.ndarray) and not a.flags.writeable:
+                a = np.array(a)  # torch.as_tensor wants a writable array
+            return torch.as_tensor(a).to(device=device, dtype=torch.float64)
+
+        if restore_epoch is not None:
+            # A snapshot overwrites the init: no draw (a resumed live
+            # stream's first batch is not the draw batch), only shapes.
+            centroids0 = np.zeros((k, x0.shape[1]))
+        elif self._initial_centroids is not None:
+            centroids0 = self._initial_centroids
+        else:
+            if x0.shape[0] < k:
+                raise ValueError(
+                    f"first batch has {x0.shape[0]} rows < k={k}; "
+                    "increase globalBatchSize or provide initial model data"
+                )
+            centroids0 = x0[rng.choice(x0.shape[0], size=k, replace=False)]
+        state = {"centroids": dev(centroids0),
+                 "weights": torch.zeros(k, dtype=torch.float64, device=device),
+                 "version": 0}
+
+        def step(carry, batch_table, epoch):
+            # A restored carry comes back from the checkpoint as numpy.
+            cent = dev(carry["centroids"])
+            x = dev(features_matrix(batch_table, fcol))   # float64
+            sums, counts = _batch_stats(x, cent)
+            cent, weights = _decayed_update(cent, dev(carry["weights"]),
+                                            sums, counts, decay)
+            return {"centroids": cent, "weights": weights,
+                    "version": int(carry["version"]) + 1}, None
+
+        result = iterate(step, state, stream, config, resume=resume)
+        final = result.state
+        model = self._model(torch.as_tensor(final["centroids"]).cpu().numpy(),
+                            int(final["version"]))
+        model.recovery_summary = result.recovery
+        return model
+
+    def _model(self, centroids, version: int) -> "OnlineKMeansModel":
+        model = OnlineKMeansModel()
+        model.copy_params_from(self)
+        model._centroids = np.asarray(centroids, dtype=np.float64)
+        model._model_version = version
+        return model
+
+    def _model_from_empty_stream(
+        self, manager, restore_epoch
+    ) -> Optional["OnlineKMeansModel"]:
+        """The empty streams that are not errors: a resumed run whose live
+        tail is already exhausted returns the checkpointed model, and a
+        warm-started run returns the initial model data at version 0.
+        None when the empty stream is an error."""
+        if restore_epoch is not None and manager is not None:
+            state, _ = manager.restore_latest(
+                like={"centroids": 0, "weights": 0, "version": 0}
+            )
+            return self._model(state["centroids"], int(state["version"]))
+        if self._initial_centroids is not None:
+            return self._model(self._initial_centroids, 0)
+        return None
+
+
+class OnlineKMeansModel(_OnlineKMeansParams, Model):
+    """Nearest-centroid prediction; carries the model-data version (one
+    version per consumed batch), as the online LR model does."""
+
+    def __init__(self):
+        super().__init__()
+        self._centroids: Optional[np.ndarray] = None
+        self._model_version = 0
+
+    @property
+    def centroids(self) -> np.ndarray:
+        self._require()
+        return self._centroids
+
+    @property
+    def model_version(self) -> int:
+        return self._model_version
+
+    def set_model_data(self, *inputs: Table) -> "OnlineKMeansModel":
+        (table,) = inputs
+        self._set_arrays({"centroids": table.column("centroids")})
+        return self
+
+    def get_model_data(self) -> List[Table]:
+        self._require()
+        return [Table({"centroids": self._centroids[None, :, :]})]
+
+    def _arrays(self):
+        self._require()
+        return {"centroids": self._centroids}
+
+    def _set_arrays(self, arrays) -> None:
+        c = np.asarray(arrays["centroids"], dtype=np.float64)
+        self._centroids = c.reshape(c.shape[-2], c.shape[-1])
+
+    def _require(self) -> None:
+        if self._centroids is None:
+            raise ValueError("Model data is not set; fit or set_model_data first")
+
+    def transform(self, *inputs: Table) -> Tuple[Table, ...]:
+        """The nearest centroid of each row, in float64 on the compute
+        device (the JAX model's dtype)."""
+        (table,) = inputs
+        self._require()
+        device = default_device()
+        x = torch.from_numpy(
+            features_matrix(table, self.get(self.FEATURES_COL))).to(device)
+        assign = DistanceMeasure.get_instance("euclidean").nearest(
+            x, torch.from_numpy(self._centroids).to(device))
+        return (table.with_column(self.get(self.PREDICTION_COL), assign),)
+
+    def save(self, path: str) -> None:
+        self._require()
+        self._save_with_arrays(path, self._arrays(),
+                               extra={"modelVersion": self._model_version})
+
+    @classmethod
+    def load(cls, path: str) -> "OnlineKMeansModel":
+        model, arrays, meta = cls._load_with_arrays(path)
+        model._set_arrays(arrays)
+        model._model_version = int(meta.get("modelVersion", 0))
+        return model

@@ -18,18 +18,209 @@ The sorted layout of the input pipeline's stream:
 into a :class:`~flinkml_tpu_torch.table.SortedSparseColumn` with the
 pack-time sort tables of :func:`ell_sort_tables` (equal to the JAX
 package's arrays: they fix the sorted ``segment_sum``'s addition order).
+
+:class:`BatchedCSR` is one padded-ELL batch on the compute device (the
+JAX package's class): ``matvec`` through the ``spmv`` kernel, ``rmatvec``
+through the unsorted ``segment_sum`` kernel, and ``sorted()`` as a
+:class:`~flinkml_tpu_torch.table.SortedSparseColumn`. Its indices are
+range-checked at construction, as :func:`pack_ell_buckets` does.
+
+The segmented reduction of the ``cumsum`` sparse layout,
+:func:`chunked_run_totals` over the run boundaries of
+:func:`run_boundary_tables`, is plain torch (``torch.cumsum``, gathers and
+a select), as the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from flinkml_tpu_torch.device import default_device
+from flinkml_tpu_torch.kernels.segsum import segment_sum
 from flinkml_tpu_torch.kernels.spmv import spmv
 from flinkml_tpu_torch.linalg import SparseVector, next_pow2
+
+def check_index_range(lo: int, hi: int, dim: int) -> None:
+    """Raise ``ValueError`` unless every index lies in ``[0, dim)`` (``lo``
+    and ``hi`` the smallest and largest): the kernels' gathers do not
+    clamp an out-of-range index as the JAX gather does."""
+    if lo < 0 or hi >= int(dim):
+        raise ValueError(
+            f"sparse indices out of range for dim {dim}: [{lo}, {hi}]"
+        )
+
+
+def _no_backend(backend, method: str) -> None:
+    if backend is not None:
+        raise ValueError(
+            f"BatchedCSR.{method}: backend={backend!r}; the port has one "
+            "lowering (the plain version for CPU tensors, the CUDA kernel "
+            "for CUDA tensors), so backend must be None"
+        )
+
+
+class BatchedCSR:
+    """Padded batch of sparse rows with static shapes, on the compute
+    device (``flinkml_tpu.ops.sparse.BatchedCSR``).
+
+    Attributes:
+        indices: int32 ``[n, max_nnz]`` column indices (0 where padded).
+        values: float ``[n, max_nnz]`` entries (0 where padded).
+        dim: dense width of each row.
+
+    Numpy arrays and tensors are moved to ``default_device()``; the
+    values keep their dtype. Indices outside ``[0, dim)`` raise
+    ``ValueError`` here, because the CUDA gather does not clamp them.
+    """
+
+    def __init__(self, indices, values, dim: int):
+        device = default_device()
+        self.indices = torch.as_tensor(indices).to(device=device,
+                                                   dtype=torch.int32)
+        self.values = torch.as_tensor(values).to(device)
+        if tuple(self.indices.shape) != tuple(self.values.shape) \
+                or self.indices.dim() != 2:
+            raise ValueError(
+                f"indices {tuple(self.indices.shape)} and values "
+                f"{tuple(self.values.shape)} must be equal 2-D shapes"
+            )
+        self.dim = int(dim)
+        if self.indices.numel():
+            lo, hi = torch.aminmax(self.indices)
+            check_index_range(int(lo), int(hi), self.dim)
+
+    @property
+    def num_rows(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def max_nnz(self) -> int:
+        return self.indices.shape[1]
+
+    # -- construction ------------------------------------------------------
+    @staticmethod
+    def pack_sparse_vectors(
+        vectors: Iterable[SparseVector], max_nnz: int = None,
+        dtype=np.float32, sort: bool = False,
+    ):
+        """Host-side ELL packing: numpy ``(indices, values, dim)``, nothing
+        uploaded. A row longer than ``max_nnz`` keeps its first
+        ``max_nnz`` cells, as in the JAX package.
+
+        ``sort=True`` also returns the pack-time global sort tables
+        ``(indices, values, dim, perm, segment_ids)`` of
+        :func:`ell_sort_tables`."""
+        vectors = list(vectors)
+        if not vectors:
+            raise ValueError("empty batch")
+        dim = vectors[0].size()
+        nnzs = [v.indices.size for v in vectors]
+        width = max_nnz if max_nnz is not None else max(max(nnzs), 1)
+        n = len(vectors)
+        indices = np.zeros((n, width), dtype=np.int32)
+        values = np.zeros((n, width), dtype=dtype)
+        for i, v in enumerate(vectors):
+            if v.size() != dim:
+                raise ValueError(f"row {i} has dim {v.size()}, expected {dim}")
+            k = min(v.indices.size, width)
+            indices[i, :k] = v.indices[:k]
+            values[i, :k] = v.values[:k]
+        if sort:
+            perm, segment_ids = ell_sort_tables(indices)
+            return indices, values, dim, perm, segment_ids
+        return indices, values, dim
+
+    @staticmethod
+    def from_sparse_vectors(
+        vectors: Iterable[SparseVector], max_nnz: int = None, dtype=np.float32
+    ) -> "BatchedCSR":
+        indices, values, dim = BatchedCSR.pack_sparse_vectors(
+            vectors, max_nnz, dtype
+        )
+        return BatchedCSR(indices, values, dim)
+
+    @staticmethod
+    def from_scipy(mat, dtype=np.float32) -> "BatchedCSR":
+        """From a scipy.sparse matrix, padding rows to the largest nnz."""
+        mat = mat.tocsr()
+        n, dim = mat.shape
+        nnz_per_row = np.diff(mat.indptr)
+        width = max(int(nnz_per_row.max()), 1) if n else 1
+        indices = np.zeros((n, width), dtype=np.int32)
+        values = np.zeros((n, width), dtype=dtype)
+        fill_ell(indices, values, mat.indptr[:-1], nnz_per_row, mat.indices,
+                 mat.data)
+        return BatchedCSR(indices, values, dim)
+
+    # -- compute -----------------------------------------------------------
+    def to_dense(self) -> torch.Tensor:
+        """Densify to ``[n, dim]`` (tests and small batches only)."""
+        n = self.num_rows
+        out = torch.zeros((n, self.dim), dtype=self.values.dtype,
+                          device=self.values.device)
+        rows = torch.arange(n, device=self.values.device).repeat_interleave(
+            self.max_nnz)
+        return out.index_put_((rows, self.indices.reshape(-1).long()),
+                              self.values.reshape(-1), accumulate=True)
+
+    def _operand(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(device=self.values.device,
+                                     dtype=self.values.dtype)
+
+    def matvec(self, w, backend=None) -> torch.Tensor:
+        """Row-wise sparse dot against a dense vector ``w`` (cast to the
+        values' dtype): ``[n]``, by the ``spmv`` kernel. ``backend`` is the
+        JAX signature's gate argument; only None is accepted."""
+        _no_backend(backend, "matvec")
+        return spmv(self.indices, self.values, self._operand(w))
+
+    def rmatvec(self, coeffs, backend=None) -> torch.Tensor:
+        """Transpose product ``X^T @ coeffs`` → dense ``[dim]``: the
+        contributions flattened into one unsorted ``segment_sum``.
+        ``backend`` must be None, as in :meth:`matvec`."""
+        _no_backend(backend, "rmatvec")
+        contrib = (self.values * self._operand(coeffs)[:, None]).reshape(-1)
+        return segment_sum(contrib, self.indices.reshape(-1), self.dim)
+
+    def slice_rows(self, start: int, stop: int) -> "BatchedCSR":
+        return BatchedCSR(
+            self.indices[start:stop], self.values[start:stop], self.dim
+        )
+
+    def sorted(self, nnz=None, place=None):
+        """This batch as a :class:`~flinkml_tpu_torch.table.
+        SortedSparseColumn` with the pack-time global sort tables of
+        :func:`ell_sort_tables` (equal to the JAX column's).
+
+        ``nnz`` optionally gives each row's true nnz for the CSR
+        ``indptr``; without it every cell counts. ``place`` maps each of
+        the five arrays (two tensors, three numpy tables) onto the device
+        (default: the batch's device)."""
+        from flinkml_tpu_torch.iteration.datacache import device_put
+        from flinkml_tpu_torch.table import SortedSparseColumn
+
+        if place is None:
+            device = self.values.device
+
+            def place(a):
+                return a.to(device) if torch.is_tensor(a) \
+                    else device_put(a, device)
+
+        idx = self.indices.cpu().numpy()
+        n, width = idx.shape
+        if nnz is None:
+            nnz = np.full(n, width, dtype=np.int64)
+        indptr = np.zeros(n + 1, dtype=np.int32)
+        indptr[1:] = np.cumsum(np.asarray(nnz, dtype=np.int64))
+        perm, segment_ids = ell_sort_tables(idx)
+        return SortedSparseColumn(
+            place(self.values), place(self.indices), place(indptr),
+            place(perm), place(segment_ids), self.dim, n,
+        )
+
 
 # Elements per scoring dispatch (~64 MB of f32 working set); module-level
 # so tests can shrink it to force the multi-chunk path.
@@ -209,12 +400,8 @@ def pack_ell_buckets(indptr, indices, values, dim: int,
     """
     indptr = np.asarray(indptr, dtype=np.int64)
     indices = np.asarray(indices)
-    if indices.size and (int(indices.min()) < 0
-                         or int(indices.max()) >= int(dim)):
-        raise ValueError(
-            f"sparse indices out of range for dim {dim}: "
-            f"[{int(indices.min())}, {int(indices.max())}]"
-        )
+    if indices.size:
+        check_index_range(int(indices.min()), int(indices.max()), dim)
     n = indptr.size - 1
     nnz = np.diff(indptr)
     bucket_widths = choose_ell_widths(nnz, max_buckets=max_buckets)
@@ -290,12 +477,8 @@ def pack_sorted_sparse_column(vectors: Sequence[SparseVector],
                        count=n)
     width = next_pow2(max(int(nnzs.max()), 1))
     flat_idx = np.concatenate([v.indices for v in vectors])
-    if flat_idx.size and (int(flat_idx.min()) < 0
-                          or int(flat_idx.max()) >= dim):
-        raise ValueError(
-            f"sparse indices out of range for dim {dim}: "
-            f"[{int(flat_idx.min())}, {int(flat_idx.max())}]"
-        )
+    if flat_idx.size:
+        check_index_range(int(flat_idx.min()), int(flat_idx.max()), dim)
     indices = np.zeros((bucket, width), dtype=np.int32)
     values = np.zeros((bucket, width), dtype=dtype)
     starts = np.zeros(n, dtype=np.int64)
@@ -313,3 +496,91 @@ def pack_sorted_sparse_column(vectors: Sequence[SparseVector],
         place(values), place(indices), place(indptr), place(perm),
         place(segment_ids), dim, n, host_rows=host,
     )
+
+
+# ---------------------------------------------------------------------------
+# The cumsum layout's segmented reduction
+# ---------------------------------------------------------------------------
+
+# Chunk width of the two-level running sum in chunked_run_totals. Within-
+# chunk prefix sums bound the float32 cancellation error of a boundary
+# difference by the chunk's magnitude instead of the whole array's.
+CUMSUM_CHUNK = 65_536
+
+
+def chunked_run_totals(contrib: torch.Tensor, ends: torch.Tensor
+                       ) -> torch.Tensor:
+    """Totals of contiguous runs of ``contrib`` (1-D ``[cells]`` or 2-D
+    ``[cells, k]``, reduced over axis 0 per column) ending at the inclusive
+    indices ``ends`` (ascending; a repeated end differences to exactly 0):
+    the sort-free segmented reduction of the ``cumsum`` sparse layout
+    (``flinkml_tpu.ops.sparse.chunked_run_totals``).
+
+    Two levels: a running sum within each chunk of ``C`` cells and a
+    running sum of the chunk totals. A run inside one chunk differences
+    the local prefix sums; a run spanning chunks adds the tail of its
+    first chunk, the full chunks between (a chunk-prefix difference,
+    exactly 0 when there are none) and the head of its last chunk.
+    ``C = min(CUMSUM_CHUNK, next_pow2(cells + 1))``, so a small input does
+    not pad to a whole chunk. The running sums scan along the innermost
+    axis of a ``[k, chunks, C]`` view, one row per chunk, in a fixed order.
+    """
+    flat = contrib.dim() == 1
+    if flat:
+        contrib = contrib[:, None]
+    cells, k = contrib.shape
+    C = min(CUMSUM_CHUNK, next_pow2(cells + 1))
+    # Front-pad one zero cell so every boundary index shifts to >= 1 and
+    # the "previous end" of the first run is index 0 (a zero); tail-pad to
+    # a whole number of chunks. Every index below stays in range, which
+    # index_select needs (jnp.take would clamp).
+    n_chunks = -(-(cells + 1) // C)
+    pad_tail = n_chunks * C - (cells + 1)
+    padded = torch.cat([contrib.new_zeros((1, k)), contrib,
+                        contrib.new_zeros((pad_tail, k))])
+    lcs = torch.cumsum(padded.T.reshape(k, n_chunks, C), dim=2)
+    chunk_tot = lcs[:, :, -1]                          # [k, n_chunks]
+    chunk_prefix = torch.cumsum(chunk_tot, dim=1)
+    flat_lcs = lcs.reshape(k, -1)
+
+    e1 = ends.to(torch.int64) + 1
+    s1 = torch.cat([e1.new_zeros(1), e1[:-1]])
+    ce, cs = e1 // C, s1 // C
+    local_e = flat_lcs.index_select(1, e1)
+    local_s = flat_lcs.index_select(1, s1)
+    same = (ce == cs)[None, :]
+    # Spanning: tail of the start chunk + full chunks between (exactly 0
+    # when ce == cs + 1) + head of the end chunk.
+    tail = chunk_tot.index_select(1, cs) - local_s
+    between = (chunk_prefix.index_select(1, torch.clamp_min(ce - 1, 0))
+               - chunk_prefix.index_select(1, cs))
+    out = torch.where(same, local_e - local_s, tail + between + local_e)
+    return out[0] if flat else out.T
+
+
+def run_boundary_tables(sorted_keys: np.ndarray):
+    """Run boundaries of each row of ``sorted_keys [R, L]`` (each row
+    ascending): ``(ends, cols)``, both ``[R, max_runs] int32``, the
+    pack-time companion of :func:`chunked_run_totals`. Padding repeats the
+    last real end (whose running-sum difference is exactly 0) and the last
+    real key. ``max_runs`` is at least 1. The JAX package's tables, bit
+    for bit."""
+    sorted_keys = np.asarray(sorted_keys)
+    R, L = sorted_keys.shape
+    per = []
+    for row in range(R):
+        s = sorted_keys[row]
+        is_end = np.empty(L, np.bool_)
+        is_end[:-1] = s[:-1] != s[1:]
+        if L:
+            is_end[-1] = True
+        per.append(np.nonzero(is_end)[0].astype(np.int32))
+    max_runs = max((e.size for e in per), default=1) or 1
+    ends = np.full((R, max_runs), max(L - 1, 0), np.int32)
+    cols = np.zeros((R, max_runs), np.int32)
+    for row, e in enumerate(per):
+        ends[row, : e.size] = e
+        cols[row, : e.size] = sorted_keys[row, e]
+        if e.size:
+            cols[row, e.size:] = sorted_keys[row, e[-1]]
+    return ends, cols

@@ -1,1 +1,2 @@
-"""Host-side utilities of the port: the metrics registry."""
+"""Host-side utilities of the port: the metrics registry and the row
+reservoir of the streamed fits."""

@@ -1320,3 +1320,61 @@ def test_sorted_stream_on_card_matches_cpu(cuda_device):
     assert ksegsum.LAUNCHES.count - before[1] == 5 * 4
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def test_cumsum_fit_on_card_matches_cpu(cuda_device):
+    """The ``cumsum`` layout on the card: the ``spmv`` kernel forward, the
+    chunked running sums (many chunks) and one ``index_add_`` a bucket.
+    Within 1e-5 of the CPU fit, and two runs on the card equal bit for bit
+    (padding runs add exactly 0, so no two adds race)."""
+    rng = np.random.default_rng(21)
+    n, dim = 20_000, 200_000
+    nnz = rng.integers(1, 60, size=n)
+    indptr = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    indices = rng.integers(0, dim, size=indptr[-1]).astype(np.int32)
+    values = rng.normal(size=indptr[-1]).astype(np.float32)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    w = np.ones(n, np.float32)
+    kw = dict(loss="logistic", max_iter=6, learning_rate=0.5,
+              global_batch_size=8_000, reg=0.001, elastic_net=0.1, tol=0.0,
+              seed=3, layout="cumsum")
+    args = (indptr, indices, values, dim, y, w)
+    with fml.use_device(cuda_device):
+        fml.reset_launch_counts()
+        first = _linear_sgd.train_linear_model_sparse_csr(*args, **kw)
+        counts = fml.launch_counts()
+        second = _linear_sgd.train_linear_model_sparse_csr(*args, **kw)
+    with fml.use_device("cpu"):
+        plain = _linear_sgd.train_linear_model_sparse_csr(*args, **kw)
+    assert counts["spmv"] >= 6 and counts["segment_sum"] == 0
+    np.testing.assert_array_equal(first, second)
+    np.testing.assert_allclose(first, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_stream_resume_on_card_bit_for_bit(cuda_device, tmp_path):
+    """A streamed KMeans on the card (a sealed cache replayed through the
+    prefetching feed) stopped at epoch 3 and resumed to 8 equals the
+    uninterrupted fit bit for bit (the one-hot product, no atomics); the
+    CPU fit agrees within 1e-5."""
+    from flinkml_tpu_torch.iteration import CheckpointManager, cache_stream
+
+    rng = np.random.default_rng(22)
+    centers = rng.uniform(-10, 10, size=(6, 64))
+    batches = [{"x": (centers[rng.integers(0, 6, size=m)]
+                      + rng.normal(size=(m, 64))).astype(np.float32)}
+               for m in (4096, 3000, 4096, 1001)]
+    cache = cache_stream(iter(batches))
+    kw = dict(k=6, max_iter=8, seed=4)
+    with fml.use_device(cuda_device):
+        golden = _kmeans.train_kmeans_stream(cache, **kw)
+        mgr = CheckpointManager(str(tmp_path))
+        _kmeans.train_kmeans_stream(cache, checkpoint_manager=mgr,
+                                    checkpoint_interval=3,
+                                    **dict(kw, max_iter=3))
+        resumed = _kmeans.train_kmeans_stream(
+            cache, checkpoint_manager=mgr, checkpoint_interval=3,
+            resume=True, **kw)
+    with fml.use_device("cpu"):
+        plain = _kmeans.train_kmeans_stream(cache, **kw)
+    np.testing.assert_array_equal(resumed, golden)
+    np.testing.assert_allclose(golden, plain, rtol=1e-5, atol=1e-5)

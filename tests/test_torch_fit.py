@@ -50,7 +50,7 @@ from tests.test_logistic_regression import reference_train_table
 
 F64_FIT_TOL = 1e-10
 F32_FIT_TOL = 1e-5
-LAYOUTS = ("unsorted", "sorted")
+LAYOUTS = ("unsorted", "sorted", "cumsum")
 LAYOUT_ENV = "FLINKML_TPU_SPARSE_LAYOUT"
 
 
@@ -517,10 +517,11 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch):
         t_lr.train_logistic_regression(x, y, w, 5, 0.1, 8, 0.0, 0.0, 0,
                                        mode="nope")
     indptr, indices, values, dim, ys, ws = sparse_lr_data(n=20, dim=30)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_sgd.train_linear_model_sparse_csr(
-            indptr, indices, values, dim, ys, ws, "logistic", 2, 0.1, 8, 0.0,
-            0.0, 0.0, 0, layout="cumsum")
+    # The cumsum layout is ported (item 14): it trains, as the other two.
+    fits = [t_sgd.train_linear_model_sparse_csr(
+        indptr, indices, values, dim, ys, ws, "logistic", 2, 0.1, 8, 0.0,
+        0.0, 0.0, 0, layout=layout) for layout in ("cumsum", "unsorted")]
+    np.testing.assert_allclose(*fits, rtol=F32_FIT_TOL, atol=F32_FIT_TOL)
     with pytest.raises(ValueError, match="expected one of"):
         t_sgd.prepare_sparse_buckets(indptr, indices, values, dim, ys, ws, 8,
                                      layout="nope")

@@ -235,15 +235,22 @@ def test_kmeans_transform_kernel_matches_jax(backend, with_scaler, dtype,
 def test_kmeans_refusals(on_cpu):
     x = _blobs(seed=10)
     t = fml.Table({"features": x})
-    # KMeans' stream and checkpointing come with the rest of KMeans.
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fml.KMeans().fit([t, t])
+    # The streamed fit and its knobs are ported (item 6): a stream of
+    # Tables fits, and the in-RAM fit refuses the checkpoint knobs as the
+    # JAX package does (ValueError), the cache knobs being the stream's.
+    streamed = fml.KMeans().set_seed(1).fit([t, t])
+    assert streamed.centroids.shape == (2, 3)
+    assert np.isfinite(streamed.centroids).all()
     with pytest.raises(NotImplementedError, match="item 7"):
         fml.KMeans(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fml.KMeans(checkpoint_manager=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fml.KMeans(cache_dir="/nonexistent")
+    for knobs in ({"checkpoint_manager": object()}, {"resume": True}):
+        with pytest.raises(ValueError, match="streamed fits only"):
+            fml.KMeans(**knobs).fit(t)
+        with pytest.raises(ValueError, match="streamed fits only"):
+            jax_kmeans.KMeans(mesh=_mesh1(), **knobs).fit(JaxTable(
+                {"features": x}))
+    in_ram = fml.KMeans(cache_dir="/nonexistent").set_seed(1).fit(t)
+    assert in_ram.centroids.shape == (2, 3)
     with pytest.raises(NotImplementedError, match="item 7"):
         torch_kmeans.train_kmeans(x, 2, mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):
