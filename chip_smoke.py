@@ -127,14 +127,29 @@ and fails with a non-zero exit if any phase fails:
    tables and device loop timed apart, two runs bit for bit, and
    ``BatchedCSR.matvec``/``rmatvec`` at 65,536 Criteo rows against their
    plain versions; I2, ``KMeans().fit`` over 16 batches of 65,536 x 784
-   float32 rows (half spilled by the cache's budget), 20 epochs with a
-   checkpoint every 5, a run from a sealed cache crashed at epoch 10 and
+   float32 rows (half spilled by the cache's budget), 10 epochs with a
+   checkpoint every 5, a run from a sealed cache crashed at epoch 5 and
    resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
    init, then served behind a StandardScaler through ``fused_chain``; I3,
    ``OnlineKMeans.fit_stream`` over 64 batches of 16,384 x 784 drifting
    blobs, crashed at batch 32 and resumed bit for bit, against a float64
    numpy decay rule. Path I must launch ``spmv``, ``segment_sum`` and
    ``fused_chain``;
+6f. ``parallel/`` on ``torch.distributed`` (path J): J1,
+   ``init_distributed`` at world 1 over nccl through a ``file://`` store,
+   then the sparse LR fit at path B's width (``unsorted`` and ``sorted``),
+   the dense LR fit at path 5's width and ``KMeans`` at 262,144 x 128,
+   k=64 (20 epochs), each with ``mesh=DeviceMesh()`` and without: equal
+   bit for bit (the ``unsorted`` fit, whose ``segment_sum`` adds by
+   atomics, within 1e-5), the fits against float64 numpy; J2, two ranks
+   spawned by the script on the one card over gloo with CUDA tensors
+   (``--j2-rank``), running the sparse and dense fits on a two-rank mesh
+   and ``keyed_aggregate`` of the fit's cells: the ranks equal bit for bit,
+   the fits against a float64 numpy run of the two-shard step,
+   ``keyed_aggregate`` against ``segment_sum_plain`` of each shard summed.
+   Prints the fits' seconds with and without a mesh and the all-reduce's
+   time a step at world 1 and 2; path J must launch ``spmv`` and
+   ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -1003,21 +1018,34 @@ def topk_route_probe(torch, timer):
 
 # -- phase 5: dense fit path --------------------------------------------------------
 
-def numpy_dense_fit(x, y, w, seed, batch, epochs, lr):
+def numpy_dense_fit(x, y, w, seed, batch, epochs, lr, p=1):
     """Float64 numpy run of the dense trainer's steps (reg 0): the same
-    seeded shuffle, the same rotating windows."""
+    seeded shuffle, the same rotating windows. With ``p`` shards (a mesh of
+    p ranks) the rows pad to a multiple of p with weight 0, shard d holds
+    the d-th block, each takes its own window of ``ceil(batch / p)`` rows,
+    and a step sums every shard's gradient and weights."""
     n = x.shape[0]
     perm = np.random.default_rng(seed).permutation(n)
-    x64 = x[perm].astype(np.float64)
-    y64, w64 = y[perm].astype(np.float64), w[perm].astype(np.float64)
-    n_windows = max(-(-n // batch), 1)
+    pad = -n % p
+    x64 = np.concatenate([x[perm].astype(np.float64),
+                          np.zeros((pad, x.shape[1]))])
+    y64 = np.concatenate([y[perm].astype(np.float64), np.zeros(pad)])
+    w64 = np.concatenate([w[perm].astype(np.float64), np.zeros(pad)])
+    n_local = (n + pad) // p
+    bs = min(-(-batch // p), n_local)
+    n_windows = max(-(-n_local // bs), 1)
     coef = np.zeros(x.shape[1])
     for ep in range(epochs):
-        start = min((ep % n_windows) * batch, n - batch)
-        xb, yb, wb = (a[start:start + batch] for a in (x64, y64, w64))
-        ys = 2.0 * yb - 1.0
-        mult = wb * (-ys / (1.0 + np.exp(xb @ coef * ys)))
-        coef = coef - lr / wb.sum() * (xb.T @ mult)
+        start = min((ep % n_windows) * bs, n_local - bs)
+        grad, wsum = np.zeros_like(coef), 0.0
+        for d in range(p):
+            lo = d * n_local + start
+            xb, yb, wb = (a[lo:lo + bs] for a in (x64, y64, w64))
+            ys = 2.0 * yb - 1.0
+            mult = wb * (-ys / (1.0 + np.exp(xb @ coef * ys)))
+            grad += xb.T @ mult
+            wsum += wb.sum()
+        coef = coef - lr / wsum * grad
     return coef
 
 
@@ -1078,7 +1106,9 @@ def dense_fit_path(torch):
 
 def numpy_sparse_fit(indptr, indices, values, dim, y, w, epochs, lr):
     """Float64 numpy full-batch run of the sparse trainer's steps (reg 0;
-    batch >= rows, so every bucket's window is the whole bucket)."""
+    batch >= rows, so every bucket's window is the whole bucket). On a
+    mesh of p ranks with batch >= rows every shard's window is its whole
+    block, so the sum of the p shards' steps is this full-batch step."""
     n = indptr.size - 1
     rows = np.repeat(np.arange(n), np.diff(indptr))
     v = values.astype(np.float64)
@@ -3505,10 +3535,10 @@ def elastic_path(torch):
 #: I1: BatchedCSR at the serving shape of Criteo rows.
 CSR_ROWS = 65_536
 #: I2: MNIST's width, 16 batches of 65,536 rows (3.3 GB of float32), the
-#: cache's memory budget at half of it; k = 10, 20 Lloyd epochs, a
-#: checkpoint every 5, a crash at 10.
+#: cache's memory budget at half of it; k = 10, 10 Lloyd epochs (20 until
+#: path J joined the run), a checkpoint every 5, a crash at 5.
 KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 16, 65_536, 784, 10
-KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 20, 5, 10
+KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 10, 5, 5
 #: I3: 64 batches of 16,384 drifting MNIST-width rows, k = 10, decay 0.9,
 #: a checkpoint every 16 batches, a crash at 32.
 OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 64, 16_384, 784, 10
@@ -3660,8 +3690,8 @@ def kmeans_stream_path(torch):
     Tables of 65,536 x 784 float32 blobs around k = 10 centres far apart
     (so that no row lies near an assignment boundary once each centre has
     a centroid), the cache's memory budget at half of the 3.3 GB so that
-    half spills, 20 Lloyd epochs with a checkpoint every 5. A fit from a sealed cache of the same batches crashed at
-    epoch 10 and resumed equals the uninterrupted one bit for bit (the
+    half spills, 10 Lloyd epochs with a checkpoint every 5. A fit from a sealed cache of the same batches crashed at
+    epoch 5 and resumed equals the uninterrupted one bit for bit (the
     one-hot product, no atomics); against the in-RAM ``train_kmeans``
     from the same initial centroids within 1e-5 of the largest
     coordinate. The model then serves behind a StandardScaler through the
@@ -3945,6 +3975,292 @@ def slice_i_path(torch, timer):
     return counts
 
 
+# -- path J: the data-parallel fits on a mesh -----------------------------------------
+
+#: J1's KMeans cell (path 9's second: 262,144 x 128, k = 64), 20 epochs.
+MESH_KMEANS_N, MESH_KMEANS_D, MESH_KMEANS_K, MESH_KMEANS_ITERS = (
+    262_144, 128, 64, 20)
+#: J2: two ranks on the one card over gloo, within one deadline.
+J2_WORLD, J2_TIMEOUT_S = 2, 420
+#: Path J's device and backends (world 1: nccl; two ranks on one card:
+#: gloo over CUDA tensors).
+J_DEVICE, J1_BACKEND, J2_BACKEND = "cuda", "nccl", "gloo"
+
+
+def _sync(torch):
+    if J_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _seconds(torch, fn):
+    """``(seconds, result)`` of one call on the host clock, synchronized."""
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch)
+    return time.perf_counter() - t0, out
+
+
+def all_reduce_ms(torch, mesh, numel, calls=10):
+    """Host-clock milliseconds of one ``all_reduce`` of ``numel`` float32
+    over the mesh's data axis (the fit step's flat ``[grad | loss_sum |
+    wsum]`` buffer), synchronized, the mean of ``calls`` after 3 warm-up
+    calls."""
+    from flinkml_tpu_torch.parallel.collectives import all_reduce_
+
+    buf = torch.ones(numel, dtype=torch.float32, device=mesh.device)
+    for _ in range(3):
+        all_reduce_(mesh, buf)
+    buf.fill_(1.0)
+    secs, _ = _seconds(torch, lambda: [all_reduce_(mesh, buf)
+                                       for _ in range(calls)])
+    return secs / calls * 1e3
+
+
+def mesh_data():
+    """Path J's seeded inputs: path B's Criteo CSR, path 5's dense rows,
+    J1's KMeans points (standard normal float32)."""
+    return {"csr": make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ,
+                                   seed=0),
+            "dense": make_data(DENSE_FIT_ROWS, DENSE_FIT_D),
+            "points": np.random.default_rng(0).standard_normal(
+                (MESH_KMEANS_N, MESH_KMEANS_D)).astype(np.float32)}
+
+
+def mesh_fits(torch, mesh, data):
+    """The fits of path J over ``mesh`` (None: no mesh) on :func:`mesh_data`:
+    the sparse LR fit at path B's width in the ``unsorted`` and ``sorted``
+    layouts, the dense LR fit (``LogisticRegression(mesh=...)``), the
+    KMeans fit (``KMeans(mesh=...)``). Returns ``{name: (result,
+    seconds)}``."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+
+    out = {}
+    indptr, indices, values, y, w = data["csr"]
+    for layout in ("unsorted", "sorted"):
+        secs, coef = _seconds(torch, lambda: sgd.train_linear_model_sparse_csr(
+            indptr, indices, values, SPMV_DIM, y, w, "logistic", FIT_EPOCHS,
+            FIT_LR, FIT_BATCH, 0.0, 0.0, 0.0, 0, layout=layout, mesh=mesh))
+        out[f"sparse_{layout}"] = (coef, secs)
+    x, yd, _ = data["dense"]
+    table = fml.Table({"features": x, "label": yd})
+    est = (fml.LogisticRegression(mesh=mesh).set_seed(0).set_tol(0.0)
+           .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+           .set_learning_rate(FIT_LR))
+    secs, model = _seconds(torch, lambda: est.fit(table))
+    out["dense"] = (model.coefficient, secs)
+    km = (fml.KMeans(mesh=mesh).set_k(MESH_KMEANS_K).set_seed(0)
+          .set_max_iter(MESH_KMEANS_ITERS))
+    secs, kmodel = _seconds(torch, lambda: km.fit(
+        fml.Table({"features": data["points"]})))
+    out["kmeans"] = (kmodel.centroids, secs)
+    return out
+
+
+def mesh_world1(torch, data, plain, refs):
+    """J1: ``init_distributed`` at world 1 over ``J1_BACKEND`` (nccl)
+    through a ``file://`` store in a temporary directory, then
+    :func:`mesh_fits` with ``mesh=DeviceMesh()``: each fit equal to the same
+    fit without a mesh (``plain``) bit for bit, but the ``unsorted`` sparse
+    fit, whose ``segment_sum`` adds by atomics in a run-dependent order
+    (within 1e-5 of its largest coefficient, as two fits without a mesh
+    are); the sparse and dense fits against float64 numpy (1e-4 of the
+    largest coefficient). Returns the record."""
+    import tempfile
+
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.parallel import distributed as pdist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pdist.init_distributed("file://" + os.path.join(tmp, "store"), 1, 0,
+                               backend=J1_BACKEND, timeout_s=300)
+        try:
+            mesh = DeviceMesh()
+            if mesh.group() is None:
+                fail("path J1: the world-1 mesh has no process group")
+            meshed = mesh_fits(torch, mesh, data)
+            ar_ms = all_reduce_ms(torch, mesh, SPMV_DIM + 2)
+        finally:
+            pdist.shutdown_distributed()
+    rec = {"all_reduce_ms_per_step": ar_ms, "backend": J1_BACKEND,
+           "fit_s_mesh": {k: v[1] for k, v in meshed.items()},
+           "fit_s_no_mesh": {k: v[1] for k, v in plain.items()},
+           "bit_for_bit": {}, "max_abs_diff_vs_no_mesh": {}}
+    for name, (want, _) in plain.items():
+        got = meshed[name][0]
+        rec["bit_for_bit"][name] = bool(np.array_equal(got, want))
+        rec["max_abs_diff_vs_no_mesh"][name] = float(np.abs(got - want).max())
+        if name == "sparse_unsorted":
+            if not rec["max_abs_diff_vs_no_mesh"][name] <= 1e-5 * np.abs(
+                    want).max():
+                fail(f"path J1: the unsorted mesh fit differs from the fit "
+                     f"without a mesh by {rec['max_abs_diff_vs_no_mesh'][name]}")
+        elif not rec["bit_for_bit"][name]:
+            fail(f"path J1: {name} on the world-1 mesh differs from the fit "
+                 f"without a mesh by {rec['max_abs_diff_vs_no_mesh'][name]}")
+    for name, ref in (("sparse_unsorted", refs["sparse"]),
+                      ("sparse_sorted", refs["sparse"]),
+                      ("dense", refs["dense1"])):
+        err = float(np.abs(meshed[name][0] - ref).max())
+        rec.setdefault("max_abs_err_vs_float64", {})[name] = err
+        if not err <= 1e-4 * np.abs(ref).max():
+            fail(f"path J1: {name} differs from float64 numpy by {err}")
+    step_s = meshed["sparse_sorted"][1] / FIT_EPOCHS
+    rec["all_reduce_share_of_sparse_step"] = ar_ms / 1e3 / step_s
+    return rec
+
+
+def j2_rank(out_dir: str) -> int:
+    """One rank of J2 (``chip_smoke.py --j2-rank OUT_DIR``, started by
+    :func:`mesh_world2`): joins the group over ``J2_BACKEND`` with CUDA
+    tensors on the current card, runs the sparse LR fit (``unsorted``) at
+    path B's width and the dense LR fit on a mesh of every rank, then
+    ``keyed_aggregate`` of the sparse fit's cells (262,144 x 39 values by
+    column into 1e6 segments); writes its results, times and launch counts
+    to ``OUT_DIR/rank<r>.npz``."""
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.parallel import DeviceMesh, keyed_aggregate
+    from flinkml_tpu_torch.parallel import distributed as pdist
+
+    fml.set_default_device(J_DEVICE)
+    rank, world = pdist.init_distributed(backend=J2_BACKEND, timeout_s=300)
+    try:
+        mesh = DeviceMesh()
+        fml.reset_launch_counts()
+        indptr, indices, values, y, w = make_criteo_csr(
+            SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ, seed=0)
+        sparse_s, sparse = _seconds(torch, lambda: sgd.train_linear_model_sparse_csr(
+            indptr, indices, values, SPMV_DIM, y, w, "logistic", FIT_EPOCHS,
+            FIT_LR, FIT_BATCH, 0.0, 0.0, 0.0, 0, layout="unsorted", mesh=mesh))
+        x, yd, _ = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
+        est = (fml.LogisticRegression(mesh=mesh).set_seed(0).set_tol(0.0)
+               .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+               .set_learning_rate(FIT_LR))
+        dense_s, model = _seconds(torch, lambda: est.fit(
+            fml.Table({"features": x, "label": yd})))
+        keyed_s, keyed = _seconds(torch, lambda: keyed_aggregate(
+            mesh, values, indices, SPMV_DIM))
+        counts = fml.launch_counts()
+        ar_ms = all_reduce_ms(torch, mesh, SPMV_DIM + 2)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), sparse=sparse,
+                 dense=model.coefficient, keyed=keyed.cpu().numpy(),
+                 seconds=np.asarray([sparse_s, dense_s, keyed_s]),
+                 all_reduce_ms=np.asarray([ar_ms]),
+                 launches=np.asarray([counts["spmv"], counts["segment_sum"]]),
+                 rank_world=np.asarray([rank, world]),
+                 device=np.asarray([mesh.device.index or 0]))
+    finally:
+        pdist.shutdown_distributed()
+    return 0
+
+
+def mesh_world2(torch, refs):
+    """J2: :func:`j2_rank` on ``J2_WORLD`` ranks spawned here, all on the
+    one card, within one deadline (a rank that fails or hangs, or a gloo
+    collective that refuses CUDA tensors, fails the run). The ranks' fits
+    must agree bit for bit and hold against the float64 numpy run of the
+    two-shard step (1e-4 of the largest coefficient); ``keyed_aggregate``
+    against ``segment_sum_plain`` of each shard on the card, summed (1e-5
+    of the largest sum: float32 atomics in both). Returns ``(record,
+    {kernel: launches summed over the ranks})``."""
+    import tempfile
+
+    from flinkml_tpu_torch.kernels.segsum import segment_sum_plain
+    from flinkml_tpu_torch.parallel.launch import spawn_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks([sys.executable, os.path.abspath(__file__),
+                             "--j2-rank", tmp], J2_WORLD, tmp, J2_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(J2_WORLD)]
+    for r, res in enumerate(ranks):
+        log(f"path J2 rank {r}: exit {res.returncode}")
+    for name in ("sparse", "dense", "keyed"):
+        for r in range(1, J2_WORLD):
+            if not np.array_equal(outs[r][name], outs[0][name]):
+                fail(f"path J2: rank {r}'s {name} differs from rank 0's by "
+                     f"{float(np.abs(outs[r][name] - outs[0][name]).max())}")
+    rec = {"world": J2_WORLD, "backend": J2_BACKEND, "wall_s": wall_s,
+           "ranks_bit_for_bit": True,
+           "devices": [int(o["device"][0]) for o in outs],
+           "seconds_rank0": dict(zip(("sparse_fit", "dense_fit", "keyed"),
+                                     outs[0]["seconds"].tolist())),
+           "all_reduce_ms_per_step": [float(o["all_reduce_ms"][0])
+                                      for o in outs],
+           "max_abs_err_vs_float64": {}}
+    for name, ref in (("sparse", refs["sparse"]), ("dense", refs["dense2"])):
+        err = float(np.abs(outs[0][name] - ref).max())
+        rec["max_abs_err_vs_float64"][name] = err
+        if not err <= 1e-4 * np.abs(ref).max():
+            fail(f"path J2: the {name} fit differs from the float64 two-shard "
+                 f"step by {err}")
+    _, indices, values, _, _ = make_criteo_csr(SPARSE_FIT_ROWS, SPMV_DIM,
+                                               SPMV_NNZ, seed=0)
+    half = values.size // J2_WORLD
+    want = sum(segment_sum_plain(
+        torch.from_numpy(values[r * half:(r + 1) * half]).to(J_DEVICE),
+        torch.from_numpy(indices[r * half:(r + 1) * half]).to(J_DEVICE),
+        SPMV_DIM) for r in range(J2_WORLD)).cpu().numpy()
+    err = float(np.abs(outs[0]["keyed"] - want).max())
+    rec["keyed_max_abs_err"] = err
+    if not err <= 1e-5 * np.abs(want).max():
+        fail(f"path J2: keyed_aggregate differs from segment_sum_plain by {err}")
+    step_s = outs[0]["seconds"][0] / FIT_EPOCHS
+    rec["all_reduce_share_of_sparse_step"] = \
+        float(outs[0]["all_reduce_ms"][0]) / 1e3 / step_s
+    launches = np.sum([o["launches"] for o in outs], axis=0)
+    return rec, {"spmv": int(launches[0]), "segment_sum": int(launches[1])}
+
+
+def mesh_path(torch):
+    """Path J: ``parallel/`` on ``torch.distributed``: J1 (world 1 over
+    nccl, the fits with and without a mesh) and J2 (two ranks on the one
+    card over gloo), at path B's sparse width and path 5's dense width.
+    Returns the launches of ``spmv`` and ``segment_sum`` in J1 and in every
+    rank of J2; fails when either never launched."""
+    import flinkml_tpu_torch as fml
+
+    t0 = time.perf_counter()
+    data = mesh_data()
+    indptr, indices, values, y, w = data["csr"]
+    x, yd, wd = data["dense"]
+    refs = {"sparse": numpy_sparse_fit(indptr, indices, values, SPMV_DIM, y,
+                                       w, FIT_EPOCHS, FIT_LR),
+            "dense1": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, FIT_EPOCHS,
+                                      FIT_LR),
+            "dense2": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, FIT_EPOCHS,
+                                      FIT_LR, p=J2_WORLD)}
+    ref_s = time.perf_counter() - t0
+    fml.reset_launch_counts()
+    plain = mesh_fits(torch, None, data)
+    j1 = mesh_world1(torch, data, plain, refs)
+    del data
+    counts = dict(fml.launch_counts())
+    j2, j2_counts = mesh_world2(torch, refs)
+    for name, n in j2_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    missing = [k for k in ("spmv", "segment_sum") if not counts.get(k)]
+    if missing:
+        fail(f"path J: {missing} never launched ({counts})")
+    rec = {"path": "mesh_J", "rows": SPARSE_FIT_ROWS, "dim": SPMV_DIM,
+           "nnz": SPMV_NNZ, "dense_rows": DENSE_FIT_ROWS,
+           "dense_d": DENSE_FIT_D, "epochs": FIT_EPOCHS, "batch": FIT_BATCH,
+           "kmeans": [MESH_KMEANS_N, MESH_KMEANS_D, MESH_KMEANS_K,
+                      MESH_KMEANS_ITERS],
+           "J1": j1, "J2": j2, "numpy_refs_s": ref_s,
+           "launches": {k: counts.get(k, 0) for k in ("spmv", "segment_sum")},
+           "J2_launches": j2_counts, "card": card_line(),
+           "path_s": time.perf_counter() - t0}
+    log("path " + json.dumps(rec))
+    return counts
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -4024,13 +4340,14 @@ def main() -> int:
     elastic_path(torch)
     slice_i_counts = slice_i_path(torch, timer)
     chain_rec["launches"] += slice_i_counts["fused_chain"]
+    mesh_counts = mesh_path(torch)
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
             "sparse_fit": fit_counts[name], "stream_E": stream_counts[name],
             "svc_F": svc_counts[name],
             "sorted_stream_H": sorted_counts[name],
-            "slice_I": slice_i_counts[name]}
+            "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     del timer
@@ -4493,4 +4810,6 @@ if __name__ == "__main__":
         sys.exit(ab_inner(sys.argv[2]))
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--variants":
         sys.exit(variants_main(*sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--j2-rank":
+        sys.exit(j2_rank(sys.argv[2]))
     sys.exit(main())

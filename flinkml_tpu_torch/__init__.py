@@ -10,13 +10,13 @@ for Hopper (:mod:`flinkml_tpu_torch.kernels`).
 Ported so far: tables, params, persistence, ``Pipeline``/``PipelineModel``
 with the fused executor, the four scalers (fit + transform),
 ``OneHotEncoder`` and ``VectorAssembler``, ``LogisticRegression``
-(binomial fit on one device, dense and sparse, in RAM and streamed;
+(binomial fit, dense and sparse, in RAM and streamed;
 multinomial, dense) and ``LogisticRegressionModel`` (binomial and
 multinomial, dense and sparse transform), ``LinearSVC`` and
 ``LinearRegression`` (in RAM and streamed; the normal equations),
 ``OnlineLogisticRegression`` (FTRL over a stream), ``Knn``, ``MinHashLSH``,
-``KMeans`` (in RAM, and streamed out of core with checkpoints, on one
-device), ``OnlineKMeans`` and ``BisectingKMeans`` with their models; the
+``KMeans`` (in RAM, and streamed out of core with checkpoints),
+``OnlineKMeans`` and ``BisectingKMeans`` with their models; the
 iteration runtime (``iterate``), checkpoint/resume (``CheckpointManager``)
 and the out-of-core data cache (``DataCache``) in
 :mod:`flinkml_tpu_torch.iteration`; the input pipeline
@@ -27,7 +27,9 @@ gradient layouts (``unsorted``, ``sorted``, ``cumsum``); and all four
 kernels: ``fused_chain``, ``spmv``, ``segment_sum`` and ``topk``. Fused serving
 runs under the precision tiers (``precision``:
 ``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
-and the kernels take bfloat16.
+and the kernels take bfloat16. :mod:`flinkml_tpu_torch.parallel` runs the
+in-RAM linear and KMeans fits data parallel on a ``torch.distributed``
+mesh (``mesh=``), one process and one device per rank.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401

@@ -19,7 +19,7 @@ restores in the other.
 The exports are the JAX package's but ``HashOp``. Not ported yet, each
 refused naming its ROADMAP.md Queue 1 item: ``data.ops.HashOp`` /
 ``Dataset.hash_column`` (item 9, ``features/hashing.py``) and ``mesh=``
-shards (item 7, multi-device).
+shards (item 7c, multi-process streams).
 """
 
 from flinkml_tpu_torch.data.dataset import Dataset, DatasetIterator

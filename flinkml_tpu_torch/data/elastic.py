@@ -18,7 +18,7 @@ from shard ``g % world`` — the deal every reshardable
 **post-merge** ops (map/shuffle/rebatch, applied to the *global*
 stream, hence world-independent by construction) and an optional
 device-prefetch tail. Here the ``world`` readers run in this process; the
-multi-process feed comes with ROADMAP.md Queue 1 item 7.
+multi-process feed comes with ROADMAP.md Queue 1 item 7c.
 
 Cursor model: an ElasticFeed cursor counts **global** batches
 (``Cursor.emitted``; ``shard_index`` is None — the global-scope

@@ -11,7 +11,7 @@ stream); here an explicit ``shard=(index, count)`` assigns the split —
 row blocks for array sources, files round-robin for file sources, batch
 indices round-robin for synthetic sources. A ``mesh=`` (the per-process
 split of the JAX package) is refused: it comes with ROADMAP.md Queue 1
-item 7 (multi-device).
+item 7c (multi-process streams).
 
 Contracts every source honors (what makes the cursor machinery work):
 
@@ -41,7 +41,7 @@ def resolve_shard(shard: Optional[Tuple[int, int]], mesh=None) -> Tuple[int, int
     """Normalize a shard assignment: an explicit ``(index, count)``, or
     neither (the single unsharded feed). A ``mesh`` (the JAX package's
     per-process split) is refused with ``NotImplementedError``: it comes
-    with ROADMAP.md Queue 1 item 7 (multi-device).
+    with ROADMAP.md Queue 1 item 7c (multi-process streams).
 
     Elastic resume re-derives each NEW shard's read position from a
     restored global watermark one level up: the resolved shard's
@@ -54,7 +54,7 @@ def resolve_shard(shard: Optional[Tuple[int, int]], mesh=None) -> Tuple[int, int
         raise NotImplementedError(
             "mesh= (a per-process shard of the input pipeline) is not "
             "ported to flinkml_tpu_torch yet: it comes with ROADMAP.md "
-            "Queue 1 item 7 (multi-device); pass shard=(index, count)"
+            "Queue 1 item 7c (multi-process streams); pass shard=(index, count)"
         )
     if shard is not None:
         index, count = int(shard[0]), int(shard[1])

@@ -45,14 +45,19 @@ def _check(device: torch.device) -> torch.device:
     return device
 
 
+def requested_device() -> torch.device:
+    """The device :func:`default_device` would return, without checking
+    that it is usable."""
+    stack = getattr(_LOCAL, "stack", None)
+    return stack[-1] if stack else _PROCESS_DEFAULT[0]
+
+
 def default_device() -> torch.device:
     """The device entry points compute on: the innermost
     :class:`use_device` of this thread, else the process default
     (``cuda`` unless :func:`set_default_device` changed it). Raises
     :class:`RuntimeError` when that is ``cuda`` and no card is usable."""
-    stack = getattr(_LOCAL, "stack", None)
-    device = stack[-1] if stack else _PROCESS_DEFAULT[0]
-    return _check(device)
+    return _check(requested_device())
 
 
 def set_default_device(device: DeviceLike) -> None:

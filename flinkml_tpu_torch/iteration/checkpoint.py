@@ -22,7 +22,7 @@ recorded world size is held against the restoring one (one card here,
 unless ``world_size`` says otherwise) under a :class:`RescalePolicy`.
 
 Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP.md
-Queue 1 item 7 (multi-device): ``rescale="reshard"``, :func:`save_agreed`,
+Queue 1 item 7c (multi-process streams): ``rescale="reshard"``, :func:`save_agreed`,
 :func:`rank_scoped`, :func:`reshard_rank_state` and plan-derived layouts.
 """
 
@@ -44,7 +44,7 @@ from flinkml_tpu_torch.io.read_write import content_fingerprint
 
 _log = logging.getLogger(__name__)
 
-_MULTI_DEVICE = "item 7 (multi-device: reshard, agreed commits)"
+_MULTI_DEVICE = "item 7c (multi-process streams: reshard, agreed commits)"
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -150,7 +150,7 @@ class RescalePolicy:
     """What :meth:`CheckpointManager.restore` does when the snapshot's
     world size differs from the restoring one: ``"reject"`` (default)
     raises :class:`RescaleError`; ``"allow"`` restores as it is, with no
-    validation. ``"reshard"`` is refused (ROADMAP.md Queue 1 item 7)."""
+    validation. ``"reshard"`` is refused (ROADMAP.md Queue 1 item 7c)."""
 
     on_mismatch: str = "reject"
 
@@ -223,24 +223,25 @@ def should_snapshot(manager: Optional["CheckpointManager"], interval: int,
 
 def save_replicated(manager: "CheckpointManager", state: Any, epoch: int,
                     mesh=None, extra: Optional[dict] = None) -> None:
-    """The commit of a replicated state; one process: ``manager.save``."""
+    """The commit of a replicated state; one process: ``manager.save``
+    (a mesh is the multi-process commit, refused)."""
     if mesh is not None:
         raise _unported("a mesh")
     manager.save(state, epoch, extra=extra)
 
 
 def save_agreed(*args, **kwargs) -> None:
-    """The multi-process agreed commit (refused, item 7)."""
+    """The multi-process agreed commit (refused, item 7c)."""
     raise _unported("save_agreed (multi-process checkpoint commit)")
 
 
 def rank_scoped(manager: "CheckpointManager") -> "CheckpointManager":
-    """The per-rank view of a shared directory (refused, item 7)."""
+    """The per-rank view of a shared directory (refused, item 7c)."""
     raise _unported("rank_scoped (per-rank checkpoint directories)")
 
 
 def reshard_rank_state(*args, **kwargs) -> Any:
-    """Elastic re-layout of a rank-scoped family (refused, item 7)."""
+    """Elastic re-layout of a rank-scoped family (refused, item 7c)."""
     raise _unported("reshard_rank_state (elastic resume)")
 
 
@@ -307,9 +308,13 @@ class CheckpointManager:
              layouts=None, plan=None) -> str:
         """Snapshot ``state`` at ``epoch``; returns the snapshot's
         directory. ``layouts`` tags each leaf (None: replicated);
-        ``plan`` is refused (item 7)."""
+        ``plan`` is refused (item 7b)."""
         if plan is not None:
-            raise _unported("plan-derived checkpoint layouts")
+            raise NotImplementedError(
+                "plan-derived checkpoint layouts are not ported to "
+                "flinkml_tpu_torch yet: they come with ROADMAP.md Queue 1 "
+                "item 7b (sharding plans)"
+            )
         leaves, treedef = tree_flatten(state)
         # An async snapshot owns its memory: the caller may update its
         # arrays in place while the write runs.
@@ -450,7 +455,8 @@ class CheckpointManager:
                 "rejected (rescaling an in-flight iteration is refused by "
                 "policy). Pass rescale='allow' only if every carry leaf is "
                 "world-independent (reference parity: "
-                "HeadOperator.java:130-146)."
+                "HeadOperator.java:130-146). Resuming a data-parallel fit "
+                "at another world comes with ROADMAP.md Queue 1 item 7c."
             )
             _log.error("%s", msg)
             raise RescaleError(msg)

@@ -1,12 +1,14 @@
-"""Ingest validation and restore helpers of the streamed trainers.
+"""Agreement, ingest validation and restore helpers of the trainers.
 
-The port's counterpart of the one-process part of
-``flinkml_tpu.iteration.stream_sync``. In the JAX package these helpers
-hold a failure on one rank until every rank agrees to abort; with one
-process the agreement is the process itself, so a held failure is raised
-at the rendezvous and a restore is a plain restore. The collectives
-(``agree_max``, ``agree_all_ok``, ``SyncedReplayPlan``, ``synced_stream``,
-``pooled_sample``, ``gather_vectors``) come with ROADMAP.md Queue 1 item 7.
+The port's counterpart of ``flinkml_tpu.iteration.stream_sync``: a
+failure on one rank is held until every rank agrees to abort
+(:func:`agree_all_ok`), because a rank that raises alone strands its
+peers in their next collective. :func:`agree_max` and :func:`agree_min`
+reduce one int over the ranks (one ``all_reduce``). With one process the
+agreement is the process itself: a held failure raises at the
+rendezvous. The multi-process streams' plans (``SyncedReplayPlan``,
+``synced_stream``, ``pooled_sample``, ``gather_vectors``) come with
+ROADMAP.md Queue 1 item 7c.
 """
 
 from __future__ import annotations
@@ -16,6 +18,65 @@ from typing import Any, Optional
 import numpy as np
 
 from flinkml_tpu_torch.iteration.datacache import Segment
+from flinkml_tpu_torch.utils import logging as flog
+
+_log = flog.get_logger("stream_sync")
+
+
+def _agree(value: int, mesh, op: str) -> int:
+    """``value`` reduced by ``op`` (``max`` or ``min``) over the
+    ranks of ``mesh``'s first axis (of the default group when ``mesh`` is
+    None): one int64 ``all_reduce``. One process: ``value``."""
+    import torch
+    import torch.distributed as dist
+
+    from flinkml_tpu_torch.parallel.distributed import process_count
+
+    if process_count() == 1:
+        return int(value)
+    if mesh is not None:
+        group, device = mesh.group(mesh.axis_names[0]), mesh.device
+    else:
+        group = dist.group.WORLD
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.full((1,), int(value), dtype=torch.int64, device=device)
+    red = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    if group is not None:
+        dist.all_reduce(t, op=red, group=group)
+    return int(t.cpu()[0])
+
+
+def agree_max(value: int, mesh=None) -> int:
+    """Max of a per-rank int over the ranks."""
+    return _agree(value, mesh, "max")
+
+
+def agree_min(value: int, mesh=None) -> int:
+    """Min of a per-rank int over the ranks: how elastic survivors pick
+    the newest snapshot every one of them can restore."""
+    return _agree(value, mesh, "min")
+
+
+def agree_all_ok(ok: bool, mesh, what: str) -> None:
+    """Raise on EVERY rank when any rank failed a local check: all ranks
+    call it at the same point, and all ranks raise together. One process:
+    raises at once when not ``ok``."""
+    from flinkml_tpu_torch.parallel.distributed import process_count
+
+    world = process_count()
+    failed = (not ok) if world == 1 else _agree(0 if ok else 1, mesh,
+                                                "max") != 0
+    if failed:
+        suffix = "" if ok else " (failed on this process)"
+        _log.error("agreed abort: %s failed on at least one process%s",
+                   what, suffix)
+        raise ValueError(
+            f"{what} failed on at least one process{suffix}; "
+            "all ranks abort together to avoid a distributed hang"
+        )
+    if world > 1:
+        _log.info("rendezvous ok: %s agreed on all %d processes", what, world)
 
 
 class DeferredValidation:
@@ -37,18 +98,19 @@ class DeferredValidation:
             return None
 
     def rendezvous(self, mesh=None, what: str = "") -> None:
-        """Raise the held failure (one process: nothing to agree)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported to flinkml_tpu_torch yet: it comes "
-                "with ROADMAP.md Queue 1 item 7 (multi-device)"
-            )
-        if self.err is not None:
-            raise self.err
+        """Agree on every rank (:func:`agree_all_ok`); this rank's held
+        failure re-raises as it was, a peer's as ``ValueError``."""
+        try:
+            agree_all_ok(self.err is None, mesh, what)
+        except ValueError:
+            if self.err is not None:
+                raise self.err
+            raise
 
 
 def agreed_restore(manager, epoch, like, mesh=None, what: Optional[str] = None):
-    """``manager.restore(epoch, like)``; a failure raises at once."""
+    """``manager.restore(epoch, like)``, every rank aborting together when
+    one fails."""
     dv = DeferredValidation()
     got = dv.call(manager.restore, epoch, like)
     dv.rendezvous(mesh, what or f"checkpoint restore (epoch {epoch})")
@@ -57,7 +119,8 @@ def agreed_restore(manager, epoch, like, mesh=None, what: Optional[str] = None):
 
 def agreed_restore_latest(manager, like, mesh=None,
                           what: str = "checkpoint restore (latest)"):
-    """``manager.restore_latest(like)``; None means no checkpoint."""
+    """``manager.restore_latest(like)`` under the same agreement; None
+    means no checkpoint."""
     dv = DeferredValidation()
     got = dv.call(manager.restore_latest, like)
     dv.rendezvous(mesh, what)

@@ -11,30 +11,45 @@ from flinkml_tpu_torch.table import Table
 
 
 def linear_margins(table: Table, features_col: str,
-                   coefficient: np.ndarray) -> np.ndarray:
+                   coefficient: np.ndarray, mesh=None) -> np.ndarray:
     """``x · coef`` per row on the host: SparseVector rows through
     :func:`flinkml_tpu_torch.ops.sparse.sparse_margins` (the ``spmv``
     kernel, float32, returned as float64), dense rows by one product on
     the compute device in the column's floating dtype (float64 for
-    anything else)."""
-    from flinkml_tpu_torch.models._data import features_tensor, sparse_features
+    anything else). With a ``mesh`` of several ranks the dense rows are
+    scored sharded (:func:`~flinkml_tpu_torch.models._data.sharded_rows`:
+    each rank its block, the blocks gathered)."""
+    from flinkml_tpu_torch.models._data import (
+        features_matrix,
+        features_tensor,
+        sharded_rows,
+        sparse_features,
+    )
 
     sparse_col = sparse_features(table, features_col)
     if sparse_col is not None:
         from flinkml_tpu_torch.ops.sparse import sparse_margins
 
         return sparse_margins(sparse_col, coefficient).astype(np.float64)
-    x = features_tensor(table, features_col)
-    coef = torch.as_tensor(coefficient).to(device=x.device, dtype=x.dtype)
-    return torch.matmul(x, coef).cpu().numpy()
+
+    def margins(x):
+        coef = torch.as_tensor(coefficient).to(device=x.device, dtype=x.dtype)
+        return torch.matmul(x, coef)
+
+    if mesh is not None and mesh.num_devices > 1:
+        return sharded_rows(mesh, features_matrix(table, features_col,
+                                                  dtype=None), margins)
+    return margins(features_tensor(table, features_col)).cpu().numpy()
 
 
 class CoefficientModelMixin:
     """set/get model data, the ``_arrays`` persistence layout, and the
     fitted-check for coefficient models (LogisticRegression, LinearSVC,
-    LinearRegression)."""
+    LinearRegression); ``mesh`` is the sharded transform's (None: one
+    device)."""
 
     _coefficient: Optional[np.ndarray] = None
+    mesh = None
 
     def set_model_data(self, *inputs: Table):
         (table,) = inputs

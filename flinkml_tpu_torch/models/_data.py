@@ -134,3 +134,20 @@ def labeled_sparse_data(
     else:
         w = np.ones(y.shape[0], dtype=dtype)
     return indptr, indices, values, dim, y, w
+
+
+def sharded_rows(mesh, x: np.ndarray, fn):
+    """``fn`` over this rank's block of ``x``'s rows, the blocks gathered
+    back in row order on the host (the sharded transform: pad to the
+    mesh's data axis, :meth:`~flinkml_tpu_torch.parallel.DeviceMesh.
+    shard_batch`, ``fn``, :meth:`~flinkml_tpu_torch.parallel.DeviceMesh.
+    to_host`). A collective: every rank calls it with the same ``x``.
+    ``fn`` returns a tensor or a tuple of tensors with a leading row
+    axis."""
+    from flinkml_tpu_torch.parallel.mesh import pad_to_multiple
+
+    x_pad, n_valid = pad_to_multiple(x, mesh.axis_size())
+    out = fn(mesh.shard_batch(x_pad))
+    if isinstance(out, tuple):
+        return tuple(mesh.to_host(o)[:n_valid] for o in out)
+    return mesh.to_host(out)[:n_valid]

@@ -56,10 +56,22 @@ is the ``spmv`` kernel forward and one sorted ``segment_sum`` kernel
 gradient, in the JAX kernel's addition order. Epoch 0 keeps the device
 tensors; later epochs replay them.
 
-Single device only: the data-parallel mesh (``torch.distributed``) comes
-with ROADMAP.md Queue 1 item 7. Not ported yet, each refused with
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item: precision
-policies (item 3), and meshes and sharding plans (item 7).
+**Data parallel on a mesh.** ``mesh=`` (a :class:`~flinkml_tpu_torch.
+parallel.DeviceMesh`) runs the in-RAM fits on every rank of the mesh:
+each rank passes the same host data, pads it to the data axis P and keeps
+its contiguous block of rows (per bucket for the sparse fit, with the
+per-device window tables the JAX package builds for P devices), and each
+step adds its local gradient, loss sum and weight sum into one flat
+``[grad | loss_sum | wsum]`` buffer summed by one ``all_reduce`` (the JAX
+step's three ``psum``s). Every rank then applies the same update and reads
+the same loss, so every rank stops at the same epoch with the same bits.
+A fit given no mesh issues no collective. A checkpointed fit on a mesh
+records world P and resumes only at world P (the mesh's first rank
+writes the snapshots).
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP.md Queue 1 item: precision policies (item 3), sharding plans
+(item 7b), and a mesh for the streamed fits (item 7c).
 """
 
 from __future__ import annotations
@@ -76,7 +88,7 @@ from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.kernels.segsum import segment_sum
 from flinkml_tpu_torch.kernels.spmv import spmv
 from flinkml_tpu_torch.ops.losses import margin_terms as _margin_grad
-from flinkml_tpu_torch.parallel import pad_to_multiple
+from flinkml_tpu_torch.parallel.mesh import check_mesh, pad_to_multiple
 
 _LOSS_KEYS = ("logistic", "hinge", "squared")
 
@@ -87,12 +99,13 @@ _SPARSE_ARGS_PER_BUCKET = {"unsorted": 4, "sorted": 6, "cumsum": 8}
 #: Steps the device loop runs between two host reads of its active flag.
 SYNC_EVERY = 8
 
-#: Devices the rows are split over: one until the mesh is ported.
+#: The streamed fits' world: one rank until the multi-process streams
+#: (ROADMAP.md Queue 1 item 7c).
 _P_SIZE = 1
 
 _UNPORTED = {
-    "mesh": "item 7 (multi-device)",
-    "sharding_plan": "item 7 (multi-device, sharding plans)",
+    "mesh": "item 7c (multi-process streamed fits)",
+    "sharding_plan": "item 7b (sharding plans)",
     "precision": "item 3 (precision policies)",
 }
 
@@ -106,6 +119,35 @@ def refuse_unported(**knobs) -> None:
                 f"{name}={value!r} is not ported to flinkml_tpu_torch yet: "
                 f"it comes with ROADMAP.md Queue 1 {_UNPORTED[name]}"
             )
+
+
+def p_size(mesh) -> int:
+    """The ranks the rows are split over: the mesh's data axis, else 1."""
+    return 1 if mesh is None else mesh.axis_size()
+
+
+def multi_rank(mesh) -> bool:
+    """True when ``mesh`` spans more than one rank of a process group."""
+    return (mesh is not None and mesh.group(mesh.axis_names[0]) is not None
+            and mesh.num_devices > 1)
+
+
+def _reduce_terms(mesh, grad, loss_sum, wsum):
+    """The step's ``(grad, loss_sum, wsum)`` summed over the mesh's data
+    axis: one ``all_reduce`` of the flat buffer ``[grad | loss_sum |
+    wsum]`` at the accumulation dtype (the JAX step's three ``psum``s).
+    Without a mesh, or on a mesh without a process group, the terms come
+    back untouched."""
+    if mesh is None or mesh.group(mesh.DATA_AXIS) is None:
+        return grad, loss_sum, wsum
+    from flinkml_tpu_torch.parallel.collectives import all_reduce_
+
+    acc = loss_sum.dtype
+    n = grad.numel()
+    buf = torch.cat([grad.reshape(-1).to(acc), loss_sum.reshape(1),
+                     wsum.reshape(1)])
+    all_reduce_(mesh, buf)
+    return buf[:n].reshape(grad.shape).to(grad.dtype), buf[n], buf[n + 1]
 
 
 def check_layout(layout: str) -> None:
@@ -160,9 +202,10 @@ def _prox_update(coef, grad, loss_sum, wsum, learning_rate, reg_l2, reg_l1):
     return new_coef, (loss_sum / wsum).to(coef.dtype)
 
 
-def make_dense_step(loss: str, local_bs: int):
+def make_dense_step(loss: str, local_bs: int, mesh=None):
     """One epoch: window → ``x @ coef`` → margin terms → ``x.T @ mult`` →
-    prox update. ``epoch`` is a host int (the window index)."""
+    (over a mesh, :func:`_reduce_terms`) → prox update. ``epoch`` is a
+    host int (the window index)."""
 
     def step(coef, epoch, xl, yl, wl, learning_rate, reg_l2, reg_l1):
         xb = _window(xl, epoch, local_bs)
@@ -174,14 +217,14 @@ def make_dense_step(loss: str, local_bs: int):
         grad = torch.matmul(xb.T, mult)
         loss_sum = torch.sum(per_ex.to(acc))
         wsum = torch.sum(wb.to(acc))
-        return _prox_update(coef, grad, loss_sum, wsum, learning_rate,
-                            reg_l2, reg_l1)
+        return _prox_update(coef, *_reduce_terms(mesh, grad, loss_sum, wsum),
+                            learning_rate, reg_l2, reg_l1)
 
     return step
 
 
 def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
-                              dim: int, layout: str = "unsorted"):
+                              dim: int, layout: str = "unsorted", mesh=None):
     """nnz-bucketed sparse step: one window per bucket (sized in
     proportion to the bucket's rows, so every step sees a representative
     nnz mix), the ``spmv`` kernel for each bucket's margins, and the
@@ -199,6 +242,9 @@ def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
       ascending columns. Padding runs add exactly 0 onto the last real
       column, so no two adds race: the gradient is the same on every run,
       on the card too.
+
+    Over a mesh the local terms are summed by :func:`_reduce_terms`
+    before the update.
     """
     from flinkml_tpu_torch.ops.sparse import chunked_run_totals
 
@@ -242,8 +288,8 @@ def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
             wsum_l = wsum_l + torch.sum(wb.to(acc))
         if layout == "unsorted":
             grad = segment_sum(torch.cat(contribs), torch.cat(flat_idx), dim)
-        return _prox_update(coef, grad, loss_l, wsum_l, learning_rate,
-                            reg_l2, reg_l1)
+        return _prox_update(coef, *_reduce_terms(mesh, grad, loss_l, wsum_l),
+                            learning_rate, reg_l2, reg_l1)
 
     return step
 
@@ -275,10 +321,10 @@ def _device_loop(step: Callable, coef: torch.Tensor, epoch: int,
     return coef, ep, cur_loss
 
 
-def _dense_trainer(loss: str, local_bs: int):
+def _dense_trainer(loss: str, local_bs: int, mesh=None):
     """Whole-loop trainer ``(coef, epoch, loss, x, y, w, lr, l2, l1, tol,
     epoch_end) -> (coef, epoch, loss)``, the carry on the device."""
-    local_step = make_dense_step(loss, local_bs)
+    local_step = make_dense_step(loss, local_bs, mesh)
 
     def trainer(coef, epoch, cur_loss, xl, yl, wl,
                 learning_rate, reg_l2, reg_l1, tol, epoch_end):
@@ -292,13 +338,13 @@ def _dense_trainer(loss: str, local_bs: int):
 
 
 def _sparse_trainer_bucketed(loss: str, local_bss: Tuple[int, ...],
-                             dim: int, layout: str = "unsorted"):
+                             dim: int, layout: str = "unsorted", mesh=None):
     """Bucketed counterpart of :func:`_dense_trainer`: the data args are
     ``k·len(local_bss)`` tensors, ``k = 4`` (indices, values, y, w) for
     ``unsorted``, 6 (plus the window sort tables) for ``sorted`` and 8
     (plus the window's sorted rows, values, run ends and columns) for
     ``cumsum``."""
-    local_step = make_sparse_step_bucketed(loss, local_bss, dim, layout)
+    local_step = make_sparse_step_bucketed(loss, local_bss, dim, layout, mesh)
     n_args = _SPARSE_ARGS_PER_BUCKET[layout] * len(local_bss)
 
     def trainer(coef, epoch, cur_loss, *rest):
@@ -317,28 +363,46 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dt).numpy().dtype
 
 
-def _restore_carry(checkpoint_manager, dim, dtype):
+def _restore_carry(checkpoint_manager, dim, dtype, mesh=None):
     """The newest valid ``(coef, loss)`` carry: ``(coef_host, epoch,
     loss)``, or None when there is no checkpoint. One definition for the
     chunked and the streamed paths, so their snapshot layout cannot
-    diverge (the JAX package's: a ``(coef, float64 loss)`` tuple)."""
+    diverge (the JAX package's: a ``(coef, float64 loss)`` tuple). Over a
+    mesh of several ranks every rank restores, a failure on one aborts
+    every rank, and the ranks must agree on the epoch."""
     from flinkml_tpu_torch.iteration.stream_sync import agreed_restore_latest
 
     like = (np.zeros(dim, dtype=np.dtype(dtype)), np.float64(0.0))
+    mesh = mesh if multi_rank(mesh) else None
     restored = agreed_restore_latest(
-        checkpoint_manager, like, None, "checkpoint restore (latest carry)"
+        checkpoint_manager, like, mesh, "checkpoint restore (latest carry)"
     )
+    if mesh is not None:
+        _agree_same(-1 if restored is None else int(restored[1]), mesh,
+                    "the restored checkpoint epoch")
     if restored is None:
         return None
     (coef_h, loss_h), epoch = restored
     return coef_h, int(epoch), float(loss_h)
 
 
+def _agree_same(value: int, mesh, what: str) -> None:
+    """Raise on every rank of ``mesh`` unless all ranks hold ``value``."""
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        agree_all_ok,
+        agree_max,
+        agree_min,
+    )
+
+    agree_all_ok(agree_min(value, mesh) == agree_max(value, mesh), mesh,
+                 f"{what} equal on every rank")
+
+
 def _run_chunked(trainer, data_args: Tuple, dim, dt: torch.dtype,
                  learning_rate: float, reg_l2: float, reg_l1: float,
                  tol: float, max_iter: int, checkpoint_manager=None,
                  checkpoint_interval: int = 0, resume: bool = False,
-                 listeners: Sequence = ()) -> np.ndarray:
+                 listeners: Sequence = (), mesh=None) -> np.ndarray:
     """Drive a whole-loop trainer from epoch 0 (or the restored epoch) to
     ``max_iter`` (or ``tol``); returns the coefficient (shape ``dim``:
     ``d`` or ``(k, d)``) on the host.
@@ -351,15 +415,28 @@ def _run_chunked(trainer, data_args: Tuple, dim, dt: torch.dtype,
       terminal carry is always saved.
     - ``listeners`` fire after every dispatch (``epoch - 1`` and the
       coefficient on the host), then ``on_iteration_terminated``.
+    - Over a ``mesh`` (the trainer's): the snapshots record world P (the
+      mesh's size) and only the mesh's first rank writes them; a resume
+      needs world P. With several ranks the loop holds the mesh's
+      :func:`~flinkml_tpu_torch.parallel.dispatch.local_execution_lock`.
     """
+    import contextlib
+
     from flinkml_tpu_torch.iteration.checkpoint import begin_resume
+    from flinkml_tpu_torch.parallel.dispatch import local_execution_lock
 
     device = data_args[0].device
-    resume_epoch = begin_resume(checkpoint_manager, resume, _P_SIZE)
+    world = 1 if mesh is None else mesh.num_devices
+    writer = mesh is None or mesh.rank == mesh.device_ids[0]
+    resume_epoch = begin_resume(checkpoint_manager, resume, world)
+    if multi_rank(mesh) and checkpoint_manager is not None:
+        _agree_same(-1 if resume_epoch is None else resume_epoch, mesh,
+                    "the resume epoch")
     coef = torch.zeros(dim, dtype=dt, device=device)
     epoch, cur_loss = 0, float("inf")
     if resume_epoch is not None:
-        restored = _restore_carry(checkpoint_manager, dim, _np_dtype(dt))
+        restored = _restore_carry(checkpoint_manager, dim, _np_dtype(dt),
+                                  mesh)
         if restored is not None:
             coef_h, epoch, cur_loss = restored
             coef = torch.from_numpy(np.ascontiguousarray(coef_h)).to(
@@ -369,25 +446,42 @@ def _run_chunked(trainer, data_args: Tuple, dim, dt: torch.dtype,
              else max_iter)
     hy = tuple(torch.tensor(v, dtype=dt, device=device)
                for v in (learning_rate, reg_l2, reg_l1, tol))
-    while epoch < max_iter and cur_loss > tol:
-        epoch_end = min(epoch + chunk, max_iter)
-        coef, ep_dev, loss_dev = trainer(
-            coef, epoch, torch.tensor(cur_loss, dtype=dt, device=device),
-            *data_args, *hy, epoch_end,
-        )
-        epoch = int(ep_dev)
-        cur_loss = float(loss_dev)
-        coef_host = coef.cpu().numpy()
-        if checkpoint_manager is not None:
-            checkpoint_manager.save((coef_host, np.float64(cur_loss)), epoch)
-        for listener in listeners:
-            listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
+    lock = (local_execution_lock(mesh) if multi_rank(mesh)
+            else contextlib.nullcontext())
+    with lock:
+        while epoch < max_iter and cur_loss > tol:
+            epoch_end = min(epoch + chunk, max_iter)
+            coef, ep_dev, loss_dev = trainer(
+                coef, epoch, torch.tensor(cur_loss, dtype=dt, device=device),
+                *data_args, *hy, epoch_end,
+            )
+            epoch = int(ep_dev)
+            cur_loss = float(loss_dev)
+            coef_host = coef.cpu().numpy()
+            if checkpoint_manager is not None and writer:
+                checkpoint_manager.save((coef_host, np.float64(cur_loss)),
+                                        epoch)
+            for listener in listeners:
+                listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
     result = coef.cpu().numpy()
     if checkpoint_manager is not None:
         checkpoint_manager.wait()  # surface a failed final async write
+        if multi_rank(mesh):
+            # Every rank returns after the first rank's last commit.
+            _agree_same(epoch, mesh, "the final checkpoint epoch")
     for listener in listeners:
         listener.on_iteration_terminated(result)
     return result
+
+
+def shard_rows(mesh, arrays, device) -> Tuple[torch.Tensor, ...]:
+    """Each host array padded to the mesh's data axis P with zero rows
+    and this rank's block on the device (without a mesh: the whole array
+    uploaded). Padded rows carry weight 0."""
+    if mesh is None:
+        return tuple(_upload(a, device) for a in arrays)
+    p = mesh.axis_size()
+    return tuple(mesh.shard_batch(pad_to_multiple(a, p)[0]) for a in arrays)
 
 
 def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -413,9 +507,10 @@ def train_linear_model(
     resume: bool = False,
     sharding_plan=None,
     precision=None,
+    mesh=None,
 ) -> np.ndarray:
-    """Dense training on the compute device; returns the coefficient on
-    the host.
+    """Dense training on the compute device (over ``mesh``, data parallel
+    on its ranks: module docstring); returns the coefficient on the host.
 
     ``reg``/``elastic_net`` follow the sklearn/Spark convention:
     l1 = reg * elastic_net, l2 = reg * (1 - elastic_net). Rows are
@@ -426,6 +521,7 @@ def train_linear_model(
     :func:`_run_chunked`.
     """
     refuse_unported(sharding_plan=sharding_plan, precision=precision)
+    check_mesh(mesh)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = x.shape[0]
@@ -436,22 +532,20 @@ def train_linear_model(
     x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
     perm = np.random.default_rng(seed).permutation(n)
     x, y, w = x[perm], y[perm], w[perm]
-    device = default_device()
-    xd, yd, wd = (_upload(pad_to_multiple(a, _P_SIZE)[0], device)
-                  for a in (x, y, w))
-    local_bs = align_local_bs(global_batch_size, _P_SIZE,
-                              xd.shape[0] // _P_SIZE)
-    trainer = _dense_trainer(loss, local_bs)
+    device = default_device() if mesh is None else mesh.device
+    xd, yd, wd = shard_rows(mesh, (x, y, w), device)
+    local_bs = align_local_bs(global_batch_size, p_size(mesh), xd.shape[0])
+    trainer = _dense_trainer(loss, local_bs, mesh)
     return _run_chunked(
         trainer, (xd, yd, wd), x.shape[1], xd.dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
         tol, max_iter, checkpoint_manager=checkpoint_manager,
         checkpoint_interval=checkpoint_interval, resume=resume,
-        listeners=listeners,
+        listeners=listeners, mesh=mesh,
     )
 
 
-def make_softmax_step(num_classes: int, local_bs: int):
+def make_softmax_step(num_classes: int, local_bs: int, mesh=None):
     """Multinomial (softmax) step: logits ``x @ coef.T``, weighted
     cross-entropy, gradient ``(p - onehot)ᵀ @ x``; the model is a ``[k,
     d]`` matrix, with the binomial trainer's update (``coef -=
@@ -470,15 +564,15 @@ def make_softmax_step(num_classes: int, local_bs: int):
         grad = torch.matmul(mult.T, xb)                       # [k, d]
         loss_sum = torch.sum(per_ex.to(acc))
         wsum = torch.sum(wb.to(acc))
-        return _prox_update(coef, grad, loss_sum, wsum, learning_rate,
-                            reg_l2, reg_l1)
+        return _prox_update(coef, *_reduce_terms(mesh, grad, loss_sum, wsum),
+                            learning_rate, reg_l2, reg_l1)
 
     return step
 
 
-def _softmax_trainer(num_classes: int, local_bs: int):
+def _softmax_trainer(num_classes: int, local_bs: int, mesh=None):
     """Whole-loop softmax trainer, the contract of :func:`_dense_trainer`."""
-    local_step = make_softmax_step(num_classes, local_bs)
+    local_step = make_softmax_step(num_classes, local_bs, mesh)
 
     def trainer(coef, epoch, cur_loss, xl, yl, wl,
                 learning_rate, reg_l2, reg_l1, tol, epoch_end):
@@ -508,13 +602,16 @@ def train_softmax_model(
     checkpoint_manager=None,
     checkpoint_interval: int = 0,
     resume: bool = False,
+    mesh=None,
 ) -> np.ndarray:
-    """Multinomial logistic regression on the compute device: returns the
-    coefficient ``[k, d]`` on the host. The machinery of
+    """Multinomial logistic regression on the compute device (over
+    ``mesh``, data parallel on its ranks): returns the coefficient ``[k,
+    d]`` on the host. The machinery of
     :func:`train_linear_model` (the host shuffle, windowed batches, the
     device loop, proximal elastic net); the loss is weighted softmax
     cross-entropy over integer labels ``0..k-1``. The compute dtype is
     ``dtype``, else ``x``'s floating dtype (float64 otherwise)."""
+    check_mesh(mesh)
     n = x.shape[0]
     if n == 0:
         raise ValueError("training table is empty")
@@ -523,18 +620,16 @@ def train_softmax_model(
     x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
     perm = np.random.default_rng(seed).permutation(n)
     x, y, w = x[perm], y[perm], w[perm]
-    device = default_device()
-    xd, yd, wd = (_upload(pad_to_multiple(a, _P_SIZE)[0], device)
-                  for a in (x, y, w))
-    local_bs = align_local_bs(global_batch_size, _P_SIZE,
-                              xd.shape[0] // _P_SIZE)
-    trainer = _softmax_trainer(int(num_classes), local_bs)
+    device = default_device() if mesh is None else mesh.device
+    xd, yd, wd = shard_rows(mesh, (x, y, w), device)
+    local_bs = align_local_bs(global_batch_size, p_size(mesh), xd.shape[0])
+    trainer = _softmax_trainer(int(num_classes), local_bs, mesh)
     return _run_chunked(
         trainer, (xd, yd, wd), (int(num_classes), x.shape[1]), xd.dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
         tol, max_iter, checkpoint_manager=checkpoint_manager,
         checkpoint_interval=checkpoint_interval, resume=resume,
-        listeners=listeners,
+        listeners=listeners, mesh=mesh,
     )
 
 
@@ -628,7 +723,7 @@ def _window_cumsum_tables(
 def prepare_sparse_buckets(
     indptr, indices, values, dim: int, y, w, global_batch_size: int,
     max_buckets: int = 4, dtype=np.float32, seed: Optional[int] = None,
-    layout: str = "unsorted",
+    layout: str = "unsorted", mesh=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
     """Pack, shuffle, pad and upload CSR data for the bucketed trainer.
 
@@ -641,6 +736,11 @@ def prepare_sparse_buckets(
     with the JAX package's generator and order, so both packages train on
     the same windows. ``pack_ell_buckets`` refuses indices outside
     ``[0, dim)``, which the kernels trust.
+
+    Over a ``mesh`` every bucket pads to the data axis P, the window
+    tables are built for P devices (the JAX package's arrays), and each
+    rank keeps its block of every array: its rows and its ``n_windows``
+    table rows.
     """
     from flinkml_tpu_torch.ops.sparse import pack_ell_buckets
 
@@ -652,7 +752,8 @@ def prepare_sparse_buckets(
     buckets, row_ids = pack_ell_buckets(
         indptr, indices, values, dim, max_buckets=max_buckets, dtype=dtype,
     )
-    device = default_device()
+    device = default_device() if mesh is None else mesh.device
+    p = p_size(mesh)
     rng = np.random.default_rng(seed) if seed is not None else None
     data_args: list = []
     local_bss: list = []
@@ -661,19 +762,20 @@ def prepare_sparse_buckets(
         if rng is not None:
             order = rng.permutation(rows.size)
             bi, bv, rows = bi[order], bv[order], rows[order]
-        idx_pad, _ = pad_to_multiple(bi, _P_SIZE)
-        padded = [idx_pad] + [pad_to_multiple(a, _P_SIZE)[0]
-                              for a in (bv, y[rows], w[rows])]
-        n_local = idx_pad.shape[0] // _P_SIZE
-        share = max(1, math.ceil(global_batch_size * rows.size / (n * _P_SIZE)))
+        padded = [pad_to_multiple(a, p)[0]
+                  for a in (bi, bv, y[rows], w[rows])]
+        n_local = padded[0].shape[0] // p
+        share = max(1, math.ceil(global_batch_size * rows.size / (n * p)))
         local_bs = min(share, n_local)
         local_bss.append(local_bs)
         if layout == "sorted":
-            padded += _window_sort_tables(idx_pad, _P_SIZE, local_bs)
+            padded += _window_sort_tables(padded[0], p, local_bs)
         elif layout == "cumsum":
-            padded += _window_cumsum_tables(idx_pad, padded[1], _P_SIZE,
+            padded += _window_cumsum_tables(padded[0], padded[1], p,
                                             local_bs)
-        data_args += [_upload(a, device) for a in padded]
+        # Each table has p·n_windows rows: the block is this rank's.
+        data_args += [_upload(a, device) if mesh is None
+                      else mesh.shard_batch(a) for a in padded]
     return tuple(data_args), tuple(local_bss)
 
 
@@ -699,13 +801,16 @@ def train_linear_model_sparse_csr(
     checkpoint_manager=None,
     checkpoint_interval: int = 0,
     resume: bool = False,
+    mesh=None,
 ) -> np.ndarray:
     """Skew-proof sparse training from host CSR arrays: nnz-bucketed ELL
     blocks (padded cells ≈ total nnz), a stratified window from every
     bucket per step, and the gradient ``layout`` named by the caller
     (``"unsorted"``, the JAX package's default, ``"sorted"`` or
     ``"cumsum"``; the JAX package reads it from an env var or its tuning
-    table)."""
+    table). Over ``mesh``, data parallel on its ranks (module
+    docstring)."""
+    check_mesh(mesh)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = np.asarray(indptr).size - 1
@@ -714,14 +819,16 @@ def train_linear_model_sparse_csr(
     data_args, local_bss = prepare_sparse_buckets(
         indptr, indices, values, dim, y, w, global_batch_size,
         max_buckets=max_buckets, dtype=dtype, seed=seed, layout=layout,
+        mesh=mesh,
     )
-    trainer = _sparse_trainer_bucketed(loss, local_bss, int(dim), layout)
+    trainer = _sparse_trainer_bucketed(loss, local_bss, int(dim), layout,
+                                       mesh)
     return _run_chunked(
         trainer, data_args, int(dim), data_args[1].dtype,
         learning_rate, reg * (1.0 - elastic_net), reg * elastic_net,
         tol, max_iter, checkpoint_manager=checkpoint_manager,
         checkpoint_interval=checkpoint_interval, resume=resume,
-        listeners=listeners,
+        listeners=listeners, mesh=mesh,
     )
 
 

@@ -3,9 +3,11 @@ and checkpoint settings, in one place.
 
 The port's counterpart of ``flinkml_tpu.models._streaming``. Estimators
 inherit the mixin first (``class LinearSVC(StreamingEstimatorMixin,
-_LinearSVCParams, Estimator)``). ``mesh``, ``sharding_plan`` and
-``precision`` are refused at construction, naming their ROADMAP.md Queue 1
-items (7 and 3).
+_LinearSVCParams, Estimator)``). ``mesh`` (a
+:class:`~flinkml_tpu_torch.parallel.DeviceMesh`) runs the in-RAM fits
+data parallel on its ranks; a streamed fit with a mesh is refused
+(ROADMAP.md Queue 1 item 7c). ``sharding_plan`` and ``precision`` are
+refused at construction, naming their items (7b and 3).
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ def feed_world_size(batches) -> int:
 
 
 class StreamingEstimatorMixin:
-    """The cache and checkpoint knobs shared by every streamed-capable
-    estimator: ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
+    """The mesh, cache and checkpoint knobs shared by every
+    streamed-capable estimator: ``mesh`` (the in-RAM fits' data-parallel
+    mesh), ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
     streamed fit spills its epoch-0 cache), ``checkpoint_manager``,
     ``checkpoint_interval`` and ``resume``."""
 
@@ -69,10 +72,12 @@ class StreamingEstimatorMixin:
         precision=None,
     ):
         from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
 
-        refuse_unported(mesh=mesh, sharding_plan=sharding_plan,
-                        precision=precision)
+        refuse_unported(sharding_plan=sharding_plan, precision=precision)
+        check_mesh(mesh)
         super().__init__()
+        self.mesh = mesh
         self.cache_dir = cache_dir
         self.cache_memory_budget_bytes = cache_memory_budget_bytes
         self.checkpoint_manager = checkpoint_manager
@@ -85,6 +90,13 @@ class StreamingEstimatorMixin:
             checkpoint_interval=self.checkpoint_interval,
             resume=self.resume,
         )
+
+    def _refuse_stream_mesh(self) -> None:
+        """A streamed fit over a mesh is the multi-process stream
+        (``NotImplementedError``, ROADMAP.md Queue 1 item 7c)."""
+        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+
+        refuse_unported(mesh=self.mesh)
 
     def _reject_in_ram_checkpointing(self, detail: str = "") -> None:
         """An in-RAM fit that cannot checkpoint raises instead of dropping

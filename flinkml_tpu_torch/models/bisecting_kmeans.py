@@ -11,7 +11,9 @@ The model is a :class:`KMeansModel` over the leaf centroids.
 
 The 2-means runs in the feature column's floating dtype; the statistics
 on the host (sums of squares, leaf means) are float64, as in the JAX
-package.
+package. ``mesh=`` runs each 2-means data parallel on the mesh's ranks
+(:func:`~flinkml_tpu_torch.models.kmeans.train_kmeans`); the split
+assignment and the statistics are computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from flinkml_tpu_torch.table import Table
 class BisectingKMeans(_KMeansParams, Estimator):
     def __init__(self, mesh=None):
         super().__init__()
-        _linear_sgd.refuse_unported(mesh=mesh)
+        _linear_sgd.check_mesh(mesh)
+        self.mesh = mesh
 
     def fit(self, *inputs: Table) -> "BisectingKMeansModel":
         (table,) = inputs
@@ -54,7 +57,7 @@ class BisectingKMeans(_KMeansParams, Estimator):
         max_iter = self.get(self.MAX_ITER)
         init_mode = self.get(self.INIT_MODE)
         seed = self.get_seed()
-        device = default_device()
+        device = default_device() if self.mesh is None else self.mesh.device
         x32 = torch.from_numpy(xc).to(device=device, dtype=torch.float32)
 
         # Leaf clusters as (member_index_array, centroid, splittable).
@@ -73,7 +76,7 @@ class BisectingKMeans(_KMeansParams, Estimator):
             target = int(np.argmax(wcss))
             idx = members[target]
             sub_centroids = train_kmeans(
-                xc[idx], 2, None, max_iter, seed + split_round,
+                xc[idx], 2, self.mesh, max_iter, seed + split_round,
                 init_mode=init_mode,
             )
             split_round += 1
@@ -93,7 +96,7 @@ class BisectingKMeans(_KMeansParams, Estimator):
             centroids.append(x[right].mean(axis=0))
             splittable.append(True)
 
-        model = BisectingKMeansModel()
+        model = BisectingKMeansModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(
             Table({"centroids": np.stack(centroids)[None, :, :]})

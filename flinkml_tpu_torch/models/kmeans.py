@@ -38,8 +38,14 @@ Checkpoints snapshot the centroids every N epochs; a resume continues
 from the newest one bit for bit. The streamed fit computes in float32,
 as the JAX package's.
 
-One process: ``mesh=`` and the multi-process stream are ROADMAP.md Queue 1
-item 7.
+**On a mesh.** ``mesh=`` (a :class:`~flinkml_tpu_torch.parallel.
+DeviceMesh`) runs the in-RAM Lloyd loop data parallel: every rank pads the
+points to a multiple of ``8·P`` rows and keeps its block, and each step's
+per-cluster sums and counts go through one ``all_reduce`` of ``[sums |
+counts]`` (the JAX step's two ``psum``s), so every rank holds the same
+centroids. ``KMeansModel`` scores rows sharded the same way. The streamed
+fit, OnlineKMeans and their multi-process streams stay one-process
+(ROADMAP.md Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -61,7 +67,11 @@ from flinkml_tpu_torch.common_params import (
 )
 from flinkml_tpu_torch.device import default_device
 from flinkml_tpu_torch.models import _linear_sgd
-from flinkml_tpu_torch.models._data import features_matrix, features_tensor
+from flinkml_tpu_torch.models._data import (
+    features_matrix,
+    features_tensor,
+    sharded_rows,
+)
 from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
 from flinkml_tpu_torch.ops import blas
 from flinkml_tpu_torch.ops.distance import DistanceMeasure
@@ -102,7 +112,8 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
     ``checkpoint_interval`` and ``resume`` act on the streamed fit; the
     in-RAM fit refuses them (``ValueError``, as in the JAX package).
 
-    ``mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7);
+    ``mesh`` runs the in-RAM fit data parallel (a streamed fit with a mesh
+    raises ``NotImplementedError``, ROADMAP.md Queue 1 item 7c);
     ``sharding_plan`` and ``precision`` raise ``ValueError`` as in the
     JAX package, whose KMeans takes neither.
     """
@@ -150,10 +161,12 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
                 max_iter=self.get(_KMeansParams.MAX_ITER),
                 seed=self.get_seed(),
                 init_mode=self.get(_KMeansParams.INIT_MODE),
+                mesh=self.mesh,
             )
         else:
+            self._refuse_stream_mesh()
             centroids = self._fit_stream(table, k)
-        model = KMeansModel()
+        model = KMeansModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(Table({"centroids": centroids[None, :, :]}))
         return model
@@ -182,10 +195,15 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
 
 class KMeansModel(_KMeansParams, Model):
     """Nearest-centroid prediction (broadcast-model pattern,
-    ``KMeansModel.java``)."""
+    ``KMeansModel.java``). With a ``mesh`` of several ranks, rows are
+    scored sharded: each rank its block, the blocks gathered."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
+
         super().__init__()
+        check_mesh(mesh)
+        self.mesh = mesh
         self._centroids: Optional[np.ndarray] = None
 
     def set_model_data(self, *inputs: Table) -> "KMeansModel":
@@ -217,12 +235,21 @@ class KMeansModel(_KMeansParams, Model):
     def transform(self, *inputs: Table) -> Tuple[Table, ...]:
         (table,) = inputs
         self._require_model()
-        x = features_tensor(table, self.get(_KMeansParams.FEATURES_COL))
+        fcol = self.get(_KMeansParams.FEATURES_COL)
         measure = DistanceMeasure.get_instance(
             self.get(_KMeansParams.DISTANCE_MEASURE)
         )
-        centroids = torch.from_numpy(self._centroids).to(x.device, x.dtype)
-        assign = measure.nearest(x, centroids)
+
+        def nearest(x):
+            centroids = torch.from_numpy(self._centroids).to(x.device, x.dtype)
+            return measure.nearest(x, centroids)
+
+        if self.mesh is not None and self.mesh.num_devices > 1:
+            assign = sharded_rows(self.mesh,
+                                  features_matrix(table, fcol, dtype=None),
+                                  nearest)
+        else:
+            assign = nearest(features_tensor(table, fcol))
         return (
             table.with_column(self.get(_KMeansParams.PREDICTION_COL), assign),
         )
@@ -284,13 +311,28 @@ def update_centroids(sums: torch.Tensor, counts: torch.Tensor,
     return torch.where(counts[:, None] > 0, sums / safe, centroids)
 
 
+def _reduce_partials(mesh, sums: torch.Tensor, counts: torch.Tensor):
+    """``(sums, counts)`` summed over the mesh's data axis by one
+    ``all_reduce`` of ``[sums | counts]``; untouched without a mesh."""
+    if mesh is None or mesh.group(mesh.DATA_AXIS) is None:
+        return sums, counts
+    from flinkml_tpu_torch.parallel.collectives import all_reduce_
+
+    n = sums.numel()
+    buf = all_reduce_(mesh, torch.cat([sums.reshape(-1), counts]))
+    return buf[:n].reshape(sums.shape), buf[n:]
+
+
 def lloyd(xd: torch.Tensor, wd: torch.Tensor, centroids: torch.Tensor,
-          max_iter: int) -> torch.Tensor:
+          max_iter: int, mesh=None) -> torch.Tensor:
     """``max_iter`` Lloyd steps on the device from ``centroids``; no host
-    read in between. ``wd`` weighs each row (0 for padding)."""
+    read in between. ``wd`` weighs each row (0 for padding). Over a
+    ``mesh``, ``xd``/``wd`` are this rank's block and each step's partials
+    are summed over the ranks."""
     for _ in range(max_iter):
-        centroids = update_centroids(*kmeans_partials(xd, wd, centroids),
-                                     centroids)
+        sums, counts = _reduce_partials(
+            mesh, *kmeans_partials(xd, wd, centroids))
+        centroids = update_centroids(sums, counts, centroids)
     return centroids
 
 
@@ -327,30 +369,33 @@ def train_kmeans(
     initial_centroids: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Returns centroids [k, d] (in ``x``'s dtype); the whole loop runs on
-    the compute device. ``initial_centroids`` overrides the seeded init
-    (tests, warm restarts). ``mesh`` is the JAX signature's; only None
-    (one device) is ported."""
-    _linear_sgd.refuse_unported(mesh=mesh)
+    the compute device (over ``mesh``, data parallel on its ranks, every
+    rank passing the same ``x``). ``initial_centroids`` overrides the
+    seeded init (tests, warm restarts)."""
+    _linear_sgd.check_mesh(mesh)
     if initial_centroids is not None:
         start = np.asarray(initial_centroids, x.dtype)
     else:
         start = init_centroids(x, k, seed, init_mode)
-    xd, wd, _ = prepare_kmeans_data(x)
-    centroids = lloyd(xd, wd, torch.from_numpy(start).to(xd.device), max_iter)
+    xd, wd, _ = prepare_kmeans_data(x, mesh)
+    centroids = lloyd(xd, wd, torch.from_numpy(start).to(xd.device), max_iter,
+                      mesh)
     return centroids.cpu().numpy()
 
 
 def prepare_kmeans_data(x: np.ndarray, mesh=None):
     """Pad and mask the points and move them to the compute device; returns
-    ``(xd, wd, n_valid)``. Rows pad to a multiple of :data:`ROW_TILE`;
-    padded rows weigh 0, so they never influence centroids."""
-    _linear_sgd.refuse_unported(mesh=mesh)
-    x_pad, n_valid = pad_to_multiple(x, ROW_TILE)
+    ``(xd, wd, n_valid)``. Rows pad to a multiple of :data:`ROW_TILE` times
+    the mesh's data axis P (1 without a mesh); padded rows weigh 0, so they
+    never influence centroids. Over a mesh ``xd``/``wd`` are this rank's
+    block."""
+    _linear_sgd.check_mesh(mesh)
+    x_pad, n_valid = pad_to_multiple(x, ROW_TILE * _linear_sgd.p_size(mesh))
     w = np.zeros(x_pad.shape[0], dtype=x.dtype)
     w[:n_valid] = 1.0
-    device = default_device()
-    return (torch.from_numpy(np.ascontiguousarray(x_pad)).to(device),
-            torch.from_numpy(w).to(device), n_valid)
+    xd, wd = _linear_sgd.shard_rows(mesh, (x_pad, w), default_device()
+                                    if mesh is None else mesh.device)
+    return xd, wd, n_valid
 
 
 def train_kmeans_stream(
@@ -398,7 +443,7 @@ def train_kmeans_stream(
       device tensor) and at the end.
 
     The JAX package's ``flinkml_tpu.models.kmeans.train_kmeans_stream``,
-    one process (``mesh`` is ROADMAP.md Queue 1 item 7), with its draws,
+    one process (``mesh`` is ROADMAP.md Queue 1 item 7c), with its draws,
     its padding and its error messages.
     """
     from flinkml_tpu_torch.iteration.checkpoint import (

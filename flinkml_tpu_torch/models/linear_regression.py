@@ -17,6 +17,12 @@ The port's counterpart of ``flinkml_tpu.models.linear_regression``
 
 The model: ``prediction = x · coef`` (dense: one product on the compute
 device; SparseVector rows: the ``spmv`` kernel).
+
+``mesh=`` (a :class:`~flinkml_tpu_torch.parallel.DeviceMesh`) runs both
+solvers data parallel on its ranks (SGD: one ``all_reduce`` a step; the
+normal equations: each rank's ``XᵀWX`` and ``XᵀWy`` summed by one
+``all_reduce``, the JAX package's ``psum``s) and scores dense rows sharded
+over them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from flinkml_tpu_torch.models._coefficient import (
 )
 from flinkml_tpu_torch.models._data import labeled_data, sparse_features
 from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
+from flinkml_tpu_torch.parallel.mesh import check_mesh
 from flinkml_tpu_torch.params import ParamValidators, StringParam
 from flinkml_tpu_torch.table import Table
 
@@ -73,25 +80,33 @@ class _LinearRegressionParams(
     )
 
 
-def normal_equation_terms(x: np.ndarray, y: np.ndarray, w: np.ndarray):
+def normal_equation_terms(x: np.ndarray, y: np.ndarray, w: np.ndarray,
+                          mesh=None):
     """``(XᵀWX, XᵀWy)`` in float32 on the compute device, returned as
-    float64 host arrays."""
-    device = default_device()
-    xd, yd, wd = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                  .to(device) for a in (x, y, w))
+    float64 host arrays. Over a ``mesh`` each rank computes its block's
+    terms and one ``all_reduce`` of ``[XᵀWX | XᵀWy]`` sums them."""
+    device = default_device() if mesh is None else mesh.device
+    xd, yd, wd = _linear_sgd.shard_rows(
+        mesh, tuple(np.asarray(a, np.float32) for a in (x, y, w)), device)
     xw = xd * wd[:, None]
     a = torch.matmul(xd.T, xw)
     b = torch.matmul(xw.T, yd)
+    if mesh is not None:
+        from flinkml_tpu_torch.parallel.collectives import all_reduce_
+
+        d = a.shape[0]
+        buf = all_reduce_(mesh, torch.cat([a.reshape(-1), b]))
+        a, b = buf[:d * d].reshape(d, d), buf[d * d:]
     return a.cpu().numpy().astype(np.float64), b.cpu().numpy().astype(np.float64)
 
 
 def _fit_normal_equations(table, features_col, label_col, weight_col,
-                          reg: float) -> np.ndarray:
+                          reg: float, mesh=None) -> np.ndarray:
     """Exact weighted ridge OLS at the SGD solver's fixed point: the
     trainer's gradient is ``XᵀW·err + 2·reg·c``, so both solvers solve
     ``(XᵀWX + 2·reg·I) c = XᵀWy`` (sklearn Ridge: α = 2·reg)."""
     x, y, w = labeled_data(table, features_col, label_col, weight_col)
-    a64, b64 = normal_equation_terms(x, y, w)
+    a64, b64 = normal_equation_terms(x, y, w, mesh)
     if reg > 0:
         a64 += 2.0 * reg * np.eye(a64.shape[0])
         return np.linalg.solve(a64, b64)
@@ -108,7 +123,7 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
     (``solver="normal"``)."""
 
     def _make_model(self, coef) -> "LinearRegressionModel":
-        model = LinearRegressionModel()
+        model = LinearRegressionModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(Table({"coefficient": coef[None, :]}))
         return model
@@ -136,6 +151,7 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                     "solver='normal' does not support streamed fits (the "
                     "closed form needs the full gram); use solver='sgd'"
                 )
+            self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, features_col=cols[0], label_col=cols[1],
                 weight_col=cols[2], cache_dir=self.cache_dir,
@@ -161,20 +177,23 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                     "sparse path"
                 )
             return self._make_model(
-                _fit_normal_equations(table, *cols, self.get(self.REG)))
+                _fit_normal_equations(table, *cols, self.get(self.REG),
+                                      self.mesh))
         coef = _linear_sgd.train_linear_model_from_table(
             table, *cols,
             global_batch_size=self.get(
                 _LinearRegressionParams.GLOBAL_BATCH_SIZE),
-            seed=self.get_seed(), **self._hyper(),
+            seed=self.get_seed(), mesh=self.mesh, **self._hyper(),
         )
         return self._make_model(coef)
 
 
 class LinearRegressionModel(CoefficientModelMixin, _LinearRegressionParams,
                             Model):
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
+        check_mesh(mesh)
+        self.mesh = mesh
         self._coefficient: Optional[np.ndarray] = None
 
     def transform(self, *inputs: Table) -> Tuple[Table, ...]:
@@ -182,6 +201,6 @@ class LinearRegressionModel(CoefficientModelMixin, _LinearRegressionParams,
         self._require_model()
         pred = linear_margins(
             table, self.get(_LinearRegressionParams.FEATURES_COL),
-            self._coefficient)
+            self._coefficient, self.mesh)
         return (table.with_column(
             self.get(_LinearRegressionParams.PREDICTION_COL), pred),)

@@ -14,6 +14,11 @@ The model: ``rawPrediction = x · coef``, ``prediction = 1[raw >=
 threshold]``. Dense features are scored by one product on the compute
 device, SparseVector features by
 :func:`flinkml_tpu_torch.ops.sparse.sparse_margins` (the ``spmv`` kernel).
+
+``mesh=`` (a :class:`~flinkml_tpu_torch.parallel.DeviceMesh`) trains the
+in-RAM fits data parallel on its ranks and scores dense rows sharded over
+them (the JAX package's LinearSVCModel has no sharded transform; the
+port's gives the same values).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from flinkml_tpu_torch.models._coefficient import (
 )
 from flinkml_tpu_torch.models._data import check_binary_labels
 from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
+from flinkml_tpu_torch.parallel.mesh import check_mesh
 from flinkml_tpu_torch.params import FloatParam
 from flinkml_tpu_torch.table import Table
 
@@ -76,7 +82,7 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
     iterable of batch Tables, or a sealed DataCache."""
 
     def _make_model(self, coef) -> "LinearSVCModel":
-        model = LinearSVCModel()
+        model = LinearSVCModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(Table({"coefficient": coef[None, :]}))
         return model
@@ -98,6 +104,7 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
                     label_col=self.get(_LinearSVCParams.LABEL_COL),
                     weight_col=self.get(_LinearSVCParams.WEIGHT_COL))
         if not isinstance(table, Table):
+            self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, label_check=_check_labels,
                 cache_dir=self.cache_dir,
@@ -108,21 +115,23 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
         coef = _linear_sgd.train_linear_model_from_table(
             table, *cols.values(), label_check=_check_labels,
             global_batch_size=self.get(_LinearSVCParams.GLOBAL_BATCH_SIZE),
-            seed=self.get_seed(), **self._hyper(),
+            seed=self.get_seed(), mesh=self.mesh, **self._hyper(),
         )
         return self._make_model(coef)
 
 
 class LinearSVCModel(CoefficientModelMixin, _LinearSVCParams, Model):
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
+        check_mesh(mesh)
+        self.mesh = mesh
         self._coefficient: Optional[np.ndarray] = None
 
     def transform(self, *inputs: Table) -> Tuple[Table, ...]:
         (table,) = inputs
         self._require_model()
         dot = linear_margins(table, self.get(_LinearSVCParams.FEATURES_COL),
-                             self._coefficient)
+                             self._coefficient, self.mesh)
         pred = (dot >= self.get(_LinearSVCParams.THRESHOLD)).astype(np.float64)
         out = table.with_column(
             self.get(_LinearSVCParams.PREDICTION_COL), pred

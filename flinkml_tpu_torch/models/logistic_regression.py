@@ -29,8 +29,12 @@ classes: multinomial), ``binomial`` and ``multinomial`` are taken as set.
 A multinomial fit (dense features only, as in the JAX package) trains a
 ``[k, d]`` matrix by softmax cross-entropy over labels ``0..k-1``
 (:func:`flinkml_tpu_torch.models._linear_sgd.train_softmax_model`).
-Meshes, sharding plans and precision policies raise
-``NotImplementedError``, naming their ROADMAP.md items.
+``mesh=`` (a :class:`~flinkml_tpu_torch.parallel.DeviceMesh`) trains the
+in-RAM fits data parallel on the mesh's ranks, each on its block of the
+rows with one ``all_reduce`` a step, and the model scores dense rows
+sharded the same way (every rank passes the same table and receives the
+whole result). Sharding plans, precision policies and a mesh for the
+streamed fit raise ``NotImplementedError``, naming their ROADMAP.md items.
 
 The model: binomial prediction = ``dot >= 0``, raw prediction = ``[1-p,
 p]`` with ``p = sigmoid(dot)``; multinomial prediction = the argmax of the
@@ -79,9 +83,11 @@ from flinkml_tpu_torch.models import _linear_sgd
 from flinkml_tpu_torch.models._coefficient import CoefficientModelMixin
 from flinkml_tpu_torch.models._data import (
     check_binary_labels,
+    features_matrix,
     features_tensor,
     labeled_data,
     labeled_sparse_data,
+    sharded_rows,
     sparse_features,
 )
 from flinkml_tpu_torch.models._streaming import StreamingEstimatorMixin
@@ -143,10 +149,17 @@ def _softmax_from_logits(logits: np.ndarray):
 
 
 class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, Model):
-    """Broadcast-model batch inference: one batched product per table."""
+    """Broadcast-model batch inference: one batched product per table.
+    With a ``mesh`` of several ranks, dense rows are scored sharded: each
+    rank scores its block and the blocks are gathered (JAX
+    ``logistic_regression.py:297-307``)."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
+
         super().__init__()
+        check_mesh(mesh)
+        self.mesh = mesh
         self._coefficient: Optional[np.ndarray] = None
 
     def _set_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
@@ -182,6 +195,13 @@ class LogisticRegressionModel(CoefficientModelMixin, _LogisticRegressionParams, 
                 p = 1.0 / (1.0 + np.exp(-dot.astype(np.float64)))
                 pred = (dot >= 0).astype(dot.dtype)
                 raw = np.stack([1.0 - p, p], axis=-1)
+        elif self.mesh is not None and self.mesh.num_devices > 1:
+            # Rows split over the data axis, the coefficient on every rank
+            # (the broadcast-model pattern); every rank gathers the result.
+            predict = _predict_multinomial if multinomial else _predict
+            pred, raw = sharded_rows(
+                self.mesh, features_matrix(table, fcol, dtype=None),
+                lambda xl: predict(xl, self._coefficient))
         else:
             predict = _predict_multinomial if multinomial else _predict
             pred, raw = predict(features_tensor(table, fcol), self._coefficient)
@@ -239,9 +259,10 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
     ``DataCache`` (binomial).
 
     The constructor takes the JAX estimator's knobs (see
-    :class:`~flinkml_tpu_torch.models._streaming.StreamingEstimatorMixin`);
-    ``mesh``, ``sharding_plan`` and ``precision`` raise
-    ``NotImplementedError`` naming their ROADMAP.md items when set.
+    :class:`~flinkml_tpu_torch.models._streaming.StreamingEstimatorMixin`):
+    ``mesh`` trains the in-RAM fits data parallel; ``sharding_plan`` and
+    ``precision`` raise ``NotImplementedError`` naming their ROADMAP.md
+    items when set.
     """
 
     def fit(self, *inputs) -> LogisticRegressionModel:
@@ -260,6 +281,7 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
             reg=self.get(_LogisticRegressionParams.REG),
             tol=self.get(_LogisticRegressionParams.TOL),
             seed=self.get_seed(),
+            mesh=self.mesh,
             **self._checkpoint_kwargs(),
         )
         if sparse_features(table, features_col) is not None:
@@ -293,7 +315,7 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
                 _check_binomial_labels(y)
                 coef = train_logistic_regression(x, y, w, **hyper)
 
-        model = LogisticRegressionModel()
+        model = LogisticRegressionModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(Table({"coefficient": coef[None, ...]}))
         return model
@@ -301,6 +323,7 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
     def _fit_stream(self, source) -> LogisticRegressionModel:
         """The out-of-core fit from an iterable of batch Tables or a
         DataCache (``ReplayOperator.java:62-250`` parity)."""
+        self._refuse_stream_mesh()
         if self.get(_LogisticRegressionParams.MULTI_CLASS) == "multinomial":
             raise ValueError(
                 "multinomial logistic regression does not support "
@@ -388,8 +411,10 @@ def train_logistic_regression(
     resume: bool = False,
     sharding_plan=None,
     precision=None,
+    mesh=None,
 ) -> np.ndarray:
-    """The SGD loop; returns the fitted coefficient on the host.
+    """The SGD loop; returns the fitted coefficient on the host (over
+    ``mesh``, data parallel on its ranks).
 
     - ``mode="device"``: the whole epoch loop on the compute device with
       its carry there
@@ -410,10 +435,18 @@ def train_logistic_regression(
             reg=reg, elastic_net=0.0, tol=tol, seed=seed, dtype=dtype,
             listeners=listeners, checkpoint_manager=checkpoint_manager,
             checkpoint_interval=checkpoint_interval, resume=resume,
-            sharding_plan=sharding_plan, precision=precision,
+            sharding_plan=sharding_plan, precision=precision, mesh=mesh,
         )
     _linear_sgd.refuse_unported(sharding_plan=sharding_plan,
                                 precision=precision)
+    _linear_sgd.check_mesh(mesh)
+    if _linear_sgd.multi_rank(mesh) and checkpoint_manager is not None:
+        raise NotImplementedError(
+            "mode='host' checkpoints from every rank (the iterate runtime's "
+            "commit); on a mesh of several ranks that is the agreed "
+            "multi-process commit, which comes with ROADMAP.md Queue 1 item "
+            "7c. Use mode='device' (its first rank writes the snapshots)."
+        )
     from flinkml_tpu_torch.iteration import (
         IterationConfig,
         TerminateOnMaxIterOrTol,
@@ -426,11 +459,11 @@ def train_logistic_regression(
     x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
     perm = np.random.default_rng(seed).permutation(n)
     x, y, w = x[perm], y[perm], w[perm]
-    device = default_device()
-    xd, yd, wd = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                  for a in (x, y, w))
-    local_bs = _linear_sgd.align_local_bs(global_batch_size, 1, n)
-    local_step = _linear_sgd.make_dense_step("logistic", local_bs)
+    device = default_device() if mesh is None else mesh.device
+    xd, yd, wd = _linear_sgd.shard_rows(mesh, (x, y, w), device)
+    local_bs = _linear_sgd.align_local_bs(
+        global_batch_size, _linear_sgd.p_size(mesh), xd.shape[0])
+    local_step = _linear_sgd.make_dense_step("logistic", local_bs, mesh)
     dt = xd.dtype
     hy = tuple(torch.tensor(v, dtype=dt, device=device)
                for v in (learning_rate, reg, 0.0))
@@ -441,7 +474,7 @@ def train_logistic_regression(
         return local_step(coef, epoch, xd, yd, wd, *hy)
 
     if checkpoint_manager is not None:
-        checkpoint_manager.world_size = 1
+        checkpoint_manager.world_size = 1 if mesh is None else mesh.num_devices
     result = iterate(
         epoch_step, torch.zeros(dim, dtype=dt, device=device),
         config=IterationConfig(

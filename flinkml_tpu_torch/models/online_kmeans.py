@@ -20,7 +20,7 @@ compute device.
 The carry ``{"centroids", "weights", "version"}`` is checkpointed in the
 JAX package's layout, so a snapshot of either package resumes in the
 other, and saved models cross packages both ways. One process: the
-multi-process stream is ROADMAP.md Queue 1 item 7, the numerics sentinel
+multi-process stream is ROADMAP.md Queue 1 item 7c, the numerics sentinel
 and recovery item 12.
 """
 
@@ -125,7 +125,7 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
         a source that restarts from its beginning, ``"continue"`` consumes
         a live stream from the front. ``sentinel``/``recovery`` are
         refused (ROADMAP.md Queue 1 item 12); so is a multi-process group
-        (item 7).
+        (item 7c).
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -158,7 +158,7 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
                 "the multi-process online stream (one centroid update per "
                 "arriving batch across processes) is not ported to "
                 "flinkml_tpu_torch yet: it comes with ROADMAP.md Queue 1 "
-                "item 7 (multi-device)"
+                "item 7c (multi-process streams)"
             )
         restore_epoch = begin_resume(checkpoint_manager, resume,
                                      world_size=feed_world_size(batches))

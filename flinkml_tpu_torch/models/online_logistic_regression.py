@@ -21,7 +21,7 @@ read per batch.
 The carry ``{"z", "n", "coef", "version"}`` is checkpointed in the JAX
 package's layout (``coef, n, version, z``: sorted keys), so a snapshot of
 either package resumes in the other. One process: the multi-process stream
-is ROADMAP.md Queue 1 item 7, the numerics sentinel and recovery item 12.
+is ROADMAP.md Queue 1 item 7c, the numerics sentinel and recovery item 12.
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         the feed's world (``num_shards``); an ElasticFeed resumed at
         another world restores under the manager's ``rescale="allow"``
         (the FTRL carry is replicated, so the result is the same bits),
-        and ``rescale="reshard"`` is refused (ROADMAP.md Queue 1 item 7).
+        and ``rescale="reshard"`` is refused (ROADMAP.md Queue 1 item 7c).
         ``checkpoint_manager`` (+ ``checkpoint_interval``) snapshots the
         whole carry every N consumed batches and at the end;
         ``resume=True`` continues from the newest valid snapshot, the same
@@ -156,7 +156,7 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         a source that re-presents the stream from the start (the consumed
         batches are skipped), ``"continue"`` for a live stream already at
         "now". ``sentinel``/``recovery`` are refused (ROADMAP.md Queue 1
-        item 12); so is a multi-process group (item 7).
+        item 12); so is a multi-process group (item 7c).
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -265,7 +265,7 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         raise NotImplementedError(
             "the multi-process online stream (one FTRL step per arriving "
             "batch across processes) is not ported to flinkml_tpu_torch "
-            "yet: it comes with ROADMAP.md Queue 1 item 7 (multi-device)"
+            "yet: it comes with ROADMAP.md Queue 1 item 7c (multi-process streams)"
         )
 
 

@@ -1,27 +1,67 @@
-"""Row padding for the data-parallel layout.
+"""The parallelism substrate on ``torch.distributed``.
 
-The port's counterpart of ``flinkml_tpu.parallel`` — so far only
-:func:`pad_to_multiple`: the port trains on one device, and the mesh and
-its collectives (``DeviceMesh``, ``all_reduce_sum`` over
-``torch.distributed``) come with the multi-device slice (ROADMAP.md
-Queue 1 item 7).
+The port's counterpart of ``flinkml_tpu.parallel``: one process per rank
+and one device per rank (PyTorch's idiom, not JAX's single controller over
+many local devices). :class:`DeviceMesh` names the ranks with the JAX axis
+names; :mod:`~flinkml_tpu_torch.parallel.collectives` runs each primitive
+on this rank's block and combines the blocks with one collective;
+:func:`init_distributed` forms the process group (``nccl`` for ``cuda``,
+``gloo`` for ``cpu``); :mod:`~flinkml_tpu_torch.parallel.dispatch` bounds
+in-flight collective steps and serializes threads over one mesh.
+
+Tensor parallelism, pipeline stages and ring attention (``tensor.py``,
+``ring.py``) come with ROADMAP.md Queue 1 item 7d.
 """
 
-from __future__ import annotations
+from flinkml_tpu_torch.parallel.mesh import DeviceMesh, pad_to_multiple
+from flinkml_tpu_torch.parallel.collectives import (
+    REPLICATED,
+    all_reduce_sum,
+    broadcast,
+    keyed_aggregate,
+    map_partition,
+    psum,
+)
+from flinkml_tpu_torch.parallel.broadcast_utils import (
+    BroadcastContext,
+    get_broadcast_variable,
+    with_broadcast,
+)
+from flinkml_tpu_torch.parallel.dispatch import (
+    DispatchGuard,
+    default_sync_interval,
+    synced_loop,
+)
+from flinkml_tpu_torch.parallel.distributed import (
+    agree_resume_epoch,
+    compact_rank,
+    host_barrier,
+    init_distributed,
+    process_slice,
+    rescale_world,
+    shutdown_distributed,
+)
 
-import numpy as np
-
-
-def pad_to_multiple(array: np.ndarray, multiple: int, axis: int = 0):
-    """Zero-pad ``array`` along ``axis`` to a multiple; returns (padded, n_valid).
-
-    Algorithms carry ``n_valid`` (or a weight column) so padded rows never
-    contribute to sums.
-    """
-    n = array.shape[axis]
-    target = ((n + multiple - 1) // multiple) * multiple
-    if target == n:
-        return array, n
-    pad_width = [(0, 0)] * array.ndim
-    pad_width[axis] = (0, target - n)
-    return np.pad(array, pad_width), n
+__all__ = [
+    "DeviceMesh",
+    "pad_to_multiple",
+    "REPLICATED",
+    "all_reduce_sum",
+    "broadcast",
+    "keyed_aggregate",
+    "map_partition",
+    "psum",
+    "BroadcastContext",
+    "get_broadcast_variable",
+    "with_broadcast",
+    "DispatchGuard",
+    "default_sync_interval",
+    "synced_loop",
+    "agree_resume_epoch",
+    "compact_rank",
+    "host_barrier",
+    "init_distributed",
+    "process_slice",
+    "rescale_world",
+    "shutdown_distributed",
+]

@@ -503,11 +503,13 @@ def test_multinomial_fit_refused(on_cpu):
                 JaxTable(jcols))
 
 
-def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch):
+def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch, mesh1):
     """What stays unported raises ``NotImplementedError`` naming its
     ROADMAP.md Queue 1 item. (The checkpoint knobs, ``resume``,
     ``cache_dir``, streamed fits and ``mode="host"`` are ported: their
-    parity cases are in ``tests/test_torch_stream_fit.py``.)"""
+    parity cases are in ``tests/test_torch_stream_fit.py``; ``mesh=`` is
+    ported: a world-1 mesh here, P ranks in
+    ``tests/test_torch_data_parallel.py``.)"""
     from flinkml_tpu_torch.iteration import IterationConfig
     from flinkml_tpu_torch.iteration import checkpoint as t_ckpt
     from flinkml_tpu_torch.models import online_logistic_regression as t_olr
@@ -525,19 +527,29 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="expected one of"):
         t_sgd.prepare_sparse_buckets(indptr, indices, values, dim, ys, ws, 8,
                                      layout="nope")
-    for knob, value, item in (("mesh", object(), "item 7"),
-                              ("sharding_plan", "replicated", "item 7"),
+    # mesh= is ported (item 7a): a world-1 mesh fits as JAX's one-device
+    # mesh does, and as the port without a mesh, bit for bit.
+    from flinkml_tpu_torch.parallel import DeviceMesh as TorchMesh
+
+    table = fml.Table({"features": x, "label": y})
+    meshed = fml.LogisticRegression(mesh=TorchMesh()).set_seed(1).fit(table)
+    plain = fml.LogisticRegression().set_seed(1).fit(table)
+    np.testing.assert_array_equal(meshed.coefficient, plain.coefficient)
+    want = jax_lr.LogisticRegression(mesh=mesh1).set_seed(1).fit(
+        JaxTable({"features": x, "label": y})).coefficient
+    np.testing.assert_allclose(meshed.coefficient, want, rtol=F64_FIT_TOL,
+                               atol=F64_FIT_TOL)
+    for knob, value, item in (("sharding_plan", "replicated", "item 7b"),
                               ("precision", "mixed", "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             fml.LogisticRegression(**{knob: value})
-    # Elastic resume and the multi-process online stream: item 7.
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # Elastic resume and the multi-process online stream: item 7c.
+    with pytest.raises(NotImplementedError, match="item 7c"):
         t_iteration.CheckpointManager(str(tmp_path), rescale="reshard")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         t_ckpt.save_agreed(t_iteration.CheckpointManager(str(tmp_path)), {}, 1)
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
-    table = fml.Table({"features": x, "label": y})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         fml.OnlineLogisticRegression().fit_stream([table])
     monkeypatch.undo()
     # The numerics sentinel and self-healing recovery: item 12.

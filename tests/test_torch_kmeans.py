@@ -241,8 +241,15 @@ def test_kmeans_refusals(on_cpu):
     streamed = fml.KMeans().set_seed(1).fit([t, t])
     assert streamed.centroids.shape == (2, 3)
     assert np.isfinite(streamed.centroids).all()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # mesh= is ported (item 7a; P ranks in test_torch_data_parallel.py):
+    # it takes a DeviceMesh, and a world-1 mesh fits as no mesh does.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fml.KMeans(mesh=object())
+    from flinkml_tpu_torch.parallel import DeviceMesh as TorchMesh
+
+    np.testing.assert_array_equal(
+        fml.KMeans(mesh=TorchMesh()).set_seed(1).fit(t).centroids,
+        fml.KMeans().set_seed(1).fit(t).centroids)
     for knobs in ({"checkpoint_manager": object()}, {"resume": True}):
         with pytest.raises(ValueError, match="streamed fits only"):
             fml.KMeans(**knobs).fit(t)
@@ -251,9 +258,9 @@ def test_kmeans_refusals(on_cpu):
                 {"features": x}))
     in_ram = fml.KMeans(cache_dir="/nonexistent").set_seed(1).fit(t)
     assert in_ram.centroids.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         torch_kmeans.train_kmeans(x, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fml.BisectingKMeans(mesh=object())
     with pytest.raises(ValueError, match="exceeds number of points"):
         fml.KMeans().set_k(500).fit(t)

@@ -1,6 +1,7 @@
 """LinearSVC and LinearRegression in the port against the JAX package on a
 one-device mesh, on the CPU: every case of ``tests/test_linear_models.py``
-but ``test_multi_device_sparse`` (the mesh is ROADMAP.md Queue 1 item 7),
+but ``test_multi_device_sparse`` (the mesh's parity cases are in
+``tests/test_torch_data_parallel.py``),
 each fitted by both packages on the same seeded inputs, with the JAX
 test's own assertion held on the port's model too; the normal-equation
 solver; models saved by either package loaded by the other.
@@ -464,12 +465,16 @@ def test_normal_solver_collinear_min_norm(on_cpu):
 
 
 def test_estimators_refuse_unported_knobs():
+    """Sharding plans (item 7b) and precision policies (item 3) are
+    refused; ``mesh=`` is ported (its parity cases are in
+    ``tests/test_torch_data_parallel.py``) and takes a DeviceMesh."""
     for cls in (fml.LinearSVC, fml.LinearRegression):
-        for knob, value, item in (("mesh", object(), "item 7"),
-                                  ("sharding_plan", "replicated", "item 7"),
+        for knob, value, item in (("sharding_plan", "replicated", "item 7b"),
                                   ("precision", "mixed", "item 3")):
             with pytest.raises(NotImplementedError, match=item):
                 cls(**{knob: value})
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            cls(mesh=object())
 
 
 def test_fit_without_card_raises_device_error():
