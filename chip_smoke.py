@@ -114,7 +114,7 @@ and fails with a non-zero exit if any phase fails:
    float64 numpy in the same batch order; H2, a prefetched ``Dataset`` of
    16 Criteo-profile batches of 65,536 ``SparseVector`` rows (dim 1e6)
    through the sorted-column stream (``spmv`` and the sorted
-   ``segment_sum``), 5 epochs, against float64 numpy and path E's CSR
+   ``segment_sum``), 3 epochs, against float64 numpy and path E's CSR
    stream, the two kernels held against their plain versions on the
    stream's own block and the sorted ``segment_sum`` timed with and
    without the block's padding run; H3, ``OnlineLogisticRegression.
@@ -127,8 +127,8 @@ and fails with a non-zero exit if any phase fails:
    tables and device loop timed apart, two runs bit for bit, and
    ``BatchedCSR.matvec``/``rmatvec`` at 65,536 Criteo rows against their
    plain versions; I2, ``KMeans().fit`` over 16 batches of 65,536 x 784
-   float32 rows (half spilled by the cache's budget), 10 epochs with a
-   checkpoint every 5, a run from a sealed cache crashed at epoch 5 and
+   float32 rows (half spilled by the cache's budget), 6 epochs with a
+   checkpoint every 3, a run from a sealed cache crashed at epoch 3 and
    resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
    init, then served behind a StandardScaler through ``fused_chain``; I3,
    ``OnlineKMeans.fit_stream`` over 64 batches of 16,384 x 784 drifting
@@ -150,6 +150,31 @@ and fails with a non-zero exit if any phase fails:
    Prints the fits' seconds with and without a mesh and the all-reduce's
    time a step at world 1 and 2; path J must launch ``spmv`` and
    ``segment_sum``;
+6g. sharding plans, mixed precision, NaiveBayes and the graph API (path
+   K): K1, ``init_distributed`` at world 1 over nccl, then
+   ``LogisticRegression(sharding_plan=...)`` (momentum SGD) and
+   ``train_linear_plan`` (Adam) under BATCH_PARALLEL, FSDP and FSDP_TP on
+   path 5's data (1,000,000 x 123 float32, batch 262,144, 20 epochs,
+   elastic net), the plans bit for bit with each other at world 1 and
+   each against a float64 numpy run of the same plan steps;
+   ``precision="mixed"`` against a numpy emulation of its bfloat16
+   rounding (round to nearest even on the float32 bits) and against the
+   float32 fit; ``dtype=bfloat16`` (FML601) and float64 (FML605) under
+   ``mixed`` refused before any step or collective; the all-gather and
+   all-reduce a step and their times; K2, in J2's two ranks over gloo,
+   FSDP and FSDP_TP fits of the same rows with an intercept column (124
+   wide), the ranks bit for bit, the 123-wide FSDP fit refused (FML502),
+   and a world-2 FSDP snapshot resumed at world 1 under
+   ``rescale="reshard"``; K3, ``NaiveBayes`` on 2,000,000 rows of Adult's
+   schema (8 categorical columns, age, education-num and hours-per-week
+   as categories: 22 M cells counted by one ``segment_sum`` launch),
+   counts, theta and pi equal to float64 numpy (``np.add.at``), the
+   transform of 1,000,000 rows equal to the numpy argmax, the count's
+   ``segment_sum`` against its plain version (and timed, with its bound
+   and ``index_add_``); a ``GraphBuilder`` graph of StandardScaler ->
+   LogisticRegression on the census rows through fit, transform, save,
+   load and transform, equal to the same stages as a ``Pipeline``. Path K
+   must launch ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -163,9 +188,10 @@ and fails with a non-zero exit if any phase fails:
 9. KMeans paths: ``KMeans(maxIter=100)`` at 65,536 x 784, k=10 and
    262,144 x 128, k=64 on standard normal float32 points (twice, and the
    device loop alone), the objective below the init's; the same fits in
-   float64 against a float64 numpy Lloyd run from the same init (rtol
-   1e-4); ``BisectingKMeans(k=8)`` on 65,536 x 784 blobs against the CPU
-   port.
+   float64 at 15 iterations (``KMEANS_CHECK_ITERS``; 100 until path K
+   joined the run) against a float64 numpy Lloyd run from the same init
+   (rtol 1e-4); ``BisectingKMeans(k=8)`` on 65,536 x 784 blobs against
+   the CPU port.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
@@ -1399,6 +1425,9 @@ def lsh_path(torch, timer):
 
 # (rows, d, k, iterations): bench.py's kmeans_mnist and kmeans cells.
 KMEANS_CELLS = ((65_536, 784, 10, 100), (262_144, 128, 64, 100))
+#: Lloyd iterations of the float64 check against numpy (the float32 fits
+#: run the cells' 100): numpy's float64 steps took most of the path.
+KMEANS_CHECK_ITERS = 15
 BISECT_K = 8
 
 
@@ -1446,8 +1475,9 @@ def kmeans_path(torch):
     """``KMeans(k, maxIter=100).fit`` (random init, seed 0) at the bench's
     two shapes and on its data (standard normal float32): timed in float32,
     with the device loop timed alone; Lloyd's objective must fall from the
-    init. The same fit on the same points in float64 is held against a
-    float64 numpy Lloyd run from the same init (rtol 1e-4): a float32 run
+    init. The same fit on the same points in float64, at
+    ``KMEANS_CHECK_ITERS`` iterations, is held against a float64 numpy
+    Lloyd run from the same init (rtol 1e-4): a float32 run
     on points without cluster structure has points within rounding of a
     boundary, and one flip sends it down another path, so float32 is not
     compared with float64 step for step. Then ``BisectingKMeans(k=8)`` on
@@ -1480,10 +1510,13 @@ def kmeans_path(torch):
         del xd, wd
 
         x64 = x.astype(np.float64)
+        est64 = fml.KMeans().set_k(k).set_max_iter(KMEANS_CHECK_ITERS) \
+            .set_seed(0)
         t0 = time.perf_counter()
-        got64 = est.fit(fml.Table({"features": x64})).centroids
+        got64 = est64.fit(fml.Table({"features": x64})).centroids
         fit64_s = time.perf_counter() - t0
-        want = numpy_lloyd(x64, km.init_centroids(x64, k, 0), iters)
+        want = numpy_lloyd(x64, km.init_centroids(x64, k, 0),
+                           KMEANS_CHECK_ITERS)
         err = float(np.abs(got64 - want).max())
         if not np.allclose(got64, want, rtol=1e-4, atol=1e-4):
             fail(f"kmeans {n}x{d} k={k} float64: centroids differ from "
@@ -1496,6 +1529,7 @@ def kmeans_path(torch):
                "host_s": fit_s - loop_s, "device_share": share,
                "inertia_init": before, "inertia_fit": after,
                "float64_fit_s": fit64_s,
+               "float64_iterations": KMEANS_CHECK_ITERS,
                "float64_max_abs_centroid_err": err}
         log("path " + json.dumps(rec))
         recs.append(rec)
@@ -3082,8 +3116,10 @@ def ftrl_path(torch):
 A9A_ROWS, A9A_D, A9A_NNZ, A9A_BATCH, A9A_EPOCHS = 262_144, 123, 14, 16_384, 20
 A9A_SHUFFLE, A9A_LR = 8, 0.1
 #: H2: path E's Criteo profile (dim 1e6, 39 draws a row), 16 batches of
-#: 65,536 rows through a prefetched Dataset, path E's step sizes.
-SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 16, 65_536, 5
+#: 65,536 rows through a prefetched Dataset, path E's step sizes; 3 epochs
+#: (5, path E's, until path K joined the run: H2 runs its fit twice, the
+#: second under the profiler).
+SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 16, 65_536, 3
 #: H3: BASELINE config #4's width (path G) through an ElasticFeed.
 ELASTIC_WORLD, ELASTIC_RESUME_WORLD, ELASTIC_SHUFFLE = 4, 2, 4
 
@@ -3404,7 +3440,7 @@ def sorted_stream_path(torch, timer):
            "fit_s": fit_s, "samples_per_s": n * SORTED_EPOCHS / fit_s,
            "epoch_s": epoch_s,
            "epoch0_samples_per_s": n / epoch_s[0],
-           "epochs_1_4_samples_per_s": n * (SORTED_EPOCHS - 1)
+           "replay_epochs_samples_per_s": n * (SORTED_EPOCHS - 1)
            / sum(epoch_s[1:]),
            "device_share": share,
            "spmv_ms_per_batch": spmv_ms, "spmv_plain_ms": spmv_plain_ms,
@@ -3535,10 +3571,11 @@ def elastic_path(torch):
 #: I1: BatchedCSR at the serving shape of Criteo rows.
 CSR_ROWS = 65_536
 #: I2: MNIST's width, 16 batches of 65,536 rows (3.3 GB of float32), the
-#: cache's memory budget at half of it; k = 10, 10 Lloyd epochs (20 until
-#: path J joined the run), a checkpoint every 5, a crash at 5.
+#: cache's memory budget at half of it; k = 10, 6 Lloyd epochs (20 until
+#: path J joined the run, 10 until path K did), a checkpoint every 3, a
+#: crash at 3.
 KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 16, 65_536, 784, 10
-KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 10, 5, 5
+KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 6, 3, 3
 #: I3: 64 batches of 16,384 drifting MNIST-width rows, k = 10, decay 0.9,
 #: a checkpoint every 16 batches, a crash at 32.
 OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 64, 16_384, 784, 10
@@ -4146,27 +4183,75 @@ def j2_rank(out_dir: str) -> int:
             mesh, values, indices, SPMV_DIM))
         counts = fml.launch_counts()
         ar_ms = all_reduce_ms(torch, mesh, SPMV_DIM + 2)
+        k2 = k2_rank(torch, x, yd, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), sparse=sparse,
                  dense=model.coefficient, keyed=keyed.cpu().numpy(),
                  seconds=np.asarray([sparse_s, dense_s, keyed_s]),
                  all_reduce_ms=np.asarray([ar_ms]),
                  launches=np.asarray([counts["spmv"], counts["segment_sum"]]),
                  rank_world=np.asarray([rank, world]),
-                 device=np.asarray([mesh.device.index or 0]))
+                 device=np.asarray([mesh.device.index or 0]), **k2)
     finally:
         pdist.shutdown_distributed()
     return 0
 
 
-def mesh_world2(torch, refs):
+def k2_rank(torch, x, y, out_dir):
+    """Path K2 on one rank of J2 (two ranks on the one card over gloo):
+    FSDP and FSDP_TP fits of path 5's rows with an intercept column
+    (124 wide, so that ``fsdp`` = 2 divides ``coef``), the same fit over
+    the 123 columns alone (refused: FML502), and an FSDP fit to epoch
+    ``K2_STOP`` that snapshots every ``K2_STOP // 2`` epochs into
+    ``OUT_DIR/k2_ckpt`` (the first rank writes). Returns the arrays the
+    rank saves."""
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.sharding import (
+        FSDP,
+        FSDP_TP,
+        PlanValidationError,
+        train_linear_plan,
+    )
+
+    xk = np.concatenate([x, np.ones((x.shape[0], 1), np.float32)], 1)
+    perm = np.random.default_rng(0).permutation(xk.shape[0])
+    xp, yp = xk[perm], y[perm]
+    fsdp_mesh, tp_mesh = DeviceMesh.for_plan(FSDP), DeviceMesh.for_plan(FSDP_TP)
+    stats = {}
+    fsdp_s, fsdp = _seconds(torch, lambda: train_linear_plan(
+        xp, yp, None, FSDP, fsdp_mesh, stats=stats, **k_kw()))
+    tp_s, fsdp_tp = _seconds(torch, lambda: train_linear_plan(
+        xp, yp, None, FSDP_TP, tp_mesh, **k_kw()))
+    try:
+        train_linear_plan(x[perm], yp, None, FSDP, fsdp_mesh, **k_kw())
+        refused = 0
+    except PlanValidationError as e:
+        refused = int("FML502" in str(e))
+    mgr = CheckpointManager(os.path.join(out_dir, "k2_ckpt"), max_to_keep=10,
+                            rescale="reshard")
+    half_s, half = _seconds(torch, lambda: train_linear_plan(
+        xp, yp, None, FSDP, fsdp_mesh, checkpoint_manager=mgr,
+        checkpoint_interval=K2_STOP // 2, **k_kw(max_iter=K2_STOP)))
+    steps = max(stats["steps"], 1)
+    return {"k2_fsdp": fsdp, "k2_fsdp_tp": fsdp_tp, "k2_half": half,
+            "k2_refused": np.asarray([refused]),
+            "k2_seconds": np.asarray([fsdp_s, tp_s, half_s]),
+            "k2_collectives": np.asarray(
+                [stats["collectives"]["all_gather"] / steps,
+                 stats["collectives"]["all_reduce"] / steps])}
+
+
+def mesh_world2(torch, refs, x, y):
     """J2: :func:`j2_rank` on ``J2_WORLD`` ranks spawned here, all on the
     one card, within one deadline (a rank that fails or hangs, or a gloo
     collective that refuses CUDA tensors, fails the run). The ranks' fits
     must agree bit for bit and hold against the float64 numpy run of the
     two-shard step (1e-4 of the largest coefficient); ``keyed_aggregate``
     against ``segment_sum_plain`` of each shard on the card, summed (1e-5
-    of the largest sum: float32 atomics in both). Returns ``(record,
-    {kernel: launches summed over the ranks})``."""
+    of the largest sum: float32 atomics in both). The ranks also run path
+    K2 (:func:`k2_rank`), checked here by :func:`k2_check` while their
+    directory lives. Returns ``(record, {kernel: launches summed over the
+    ranks}, K2's record)``."""
     import tempfile
 
     from flinkml_tpu_torch.kernels.segsum import segment_sum_plain
@@ -4179,6 +4264,7 @@ def mesh_world2(torch, refs):
         wall_s = time.perf_counter() - t0
         outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
                 for r in range(J2_WORLD)]
+        k2 = k2_check(torch, tmp, outs, x, y)
     for r, res in enumerate(ranks):
         log(f"path J2 rank {r}: exit {res.returncode}")
     for name in ("sparse", "dense", "keyed"):
@@ -4215,14 +4301,16 @@ def mesh_world2(torch, refs):
     rec["all_reduce_share_of_sparse_step"] = \
         float(outs[0]["all_reduce_ms"][0]) / 1e3 / step_s
     launches = np.sum([o["launches"] for o in outs], axis=0)
-    return rec, {"spmv": int(launches[0]), "segment_sum": int(launches[1])}
+    return rec, {"spmv": int(launches[0]),
+                 "segment_sum": int(launches[1])}, k2
 
 
 def mesh_path(torch):
     """Path J: ``parallel/`` on ``torch.distributed``: J1 (world 1 over
     nccl, the fits with and without a mesh) and J2 (two ranks on the one
     card over gloo), at path B's sparse width and path 5's dense width.
-    Returns the launches of ``spmv`` and ``segment_sum`` in J1 and in every
+    The J2 ranks also run path K2 (:func:`k2_rank`). Returns the launches
+    of ``spmv`` and ``segment_sum`` in J1 and in every
     rank of J2; fails when either never launched."""
     import flinkml_tpu_torch as fml
 
@@ -4242,7 +4330,7 @@ def mesh_path(torch):
     j1 = mesh_world1(torch, data, plain, refs)
     del data
     counts = dict(fml.launch_counts())
-    j2, j2_counts = mesh_world2(torch, refs)
+    j2, j2_counts, k2 = mesh_world2(torch, refs, x, yd)
     for name, n in j2_counts.items():
         counts[name] = counts.get(name, 0) + n
     missing = [k for k in ("spmv", "segment_sum") if not counts.get(k)]
@@ -4258,7 +4346,498 @@ def mesh_path(torch):
            "J2_launches": j2_counts, "card": card_line(),
            "path_s": time.perf_counter() - t0}
     log("path " + json.dumps(rec))
-    return counts
+    return counts, k2
+
+
+# -- path K: sharding plans, mixed precision, NaiveBayes and the graph API -----
+
+#: Path K's device (the rehearsal on the CPU sets "cpu").
+K_DEVICE = "cuda"
+#: K1/K2's elastic net (the soft threshold runs every step) and K2's stop.
+K_REG, K_ELASTIC_NET, K2_STOP = 2e-4, 0.5, 10
+K_PLANS = ("batch_parallel", "fsdp", "fsdp_tp")
+#: K3: NaiveBayes rows (fit) and transform rows; the graph's census rows.
+NB_ROWS, NB_SERVE = 2_000_000, 1_000_000
+NB_CONTINUOUS = ("age", "education_num", "hours_per_week")
+
+
+def k_kw(**over):
+    """The plan fits' hyperparameters: path 5's batch, epochs and rate,
+    momentum 0.9, ``K_REG`` split by ``K_ELASTIC_NET``."""
+    kw = dict(max_iter=FIT_EPOCHS, learning_rate=FIT_LR, momentum=0.9,
+              global_batch_size=FIT_BATCH, reg=K_REG,
+              elastic_net=K_ELASTIC_NET)
+    kw.update(over)
+    return kw
+
+
+def bf16_round(a):
+    """float32 values rounded to bfloat16 (nearest, ties to even, on the
+    float32 bits), returned as float32: the card's rounding, without
+    ``ml_dtypes``."""
+    b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    # No finite value overflows 32 bits here (the largest, 0xFF7FFFFF,
+    # plus 0x8000 stays below 2^32).
+    r = (b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return r.view(np.float32)
+
+
+def numpy_plan_windows(x, y, seed, batch):
+    """The plan trainer's windows after the estimator's seeded shuffle:
+    clamped, rotating with the epoch; each ``(x float64, y, w, x as
+    given)``. Padding to a world's rows adds rows of weight 0, which add
+    nothing, and each rank's block is a slice of the window, so the
+    step's sums are the window's at every world."""
+    n = x.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    bs = min(batch, n)
+    out = []
+    for widx in range(max(-(-n // bs), 1)):
+        start = min(widx * bs, max(n - bs, 0))
+        rows = perm[start:start + bs]
+        out.append((x[rows].astype(np.float64), y[rows].astype(np.float64),
+                    np.ones(rows.size), x[rows]))
+    return out
+
+
+def numpy_plan_fit(windows, optimizer, epochs, lr, momentum, l2, l1,
+                   mixed=False):
+    """Float64 numpy run of ``train_linear_plan``'s steps (logistic loss):
+    momentum SGD or Adam, the L1 soft threshold. ``mixed`` emulates the
+    ``mixed`` policy: the batch, ``coef`` and the margin multiplier
+    rounded to bfloat16 (through float32) before the products."""
+    d = windows[0][0].shape[1]
+    coef, buf = np.zeros(d), np.zeros(d)
+    m, v, t = np.zeros(d), np.zeros(d), 0.0
+    xs = [bf16_round(x32).astype(np.float64) if mixed else x64
+          for x64, _, _, x32 in windows]
+    for ep in range(epochs):
+        _, yb, wb, _ = windows[ep % len(windows)]
+        xb = xs[ep % len(windows)]
+        c = bf16_round(coef.astype(np.float32)).astype(np.float64) \
+            if mixed else coef
+        ys = 2.0 * yb - 1.0
+        mult = wb * (-ys / (1.0 + np.exp(xb @ c * ys)))
+        if mixed:
+            mult = bf16_round(mult.astype(np.float32)).astype(np.float64)
+        wsum = max(wb.sum(), 1e-12)
+        grad = xb.T @ mult / wsum + 2.0 * l2 * coef
+        if optimizer == "sgd":
+            buf = momentum * buf + grad
+            step = buf
+        else:
+            t += 1.0
+            m = 0.9 * m + 0.1 * grad
+            v = 0.999 * v + 0.001 * grad * grad
+            step = (m / (1.0 - 0.9 ** t)) / (
+                np.sqrt(v / (1.0 - 0.999 ** t)) + 1e-8)
+        x = coef - lr * step
+        coef = np.sign(x) * np.maximum(np.abs(x) - lr * l1, 0.0)
+    return coef
+
+
+def plan_collective_ms(torch, plan, mesh, dim, calls=20):
+    """Host-clock milliseconds of the plan step's all-gather of ``coef``
+    and its all-reduce of ``[grad | loss_sum | wsum]`` (float32),
+    synchronized, the mean of ``calls`` after 3 warm-up calls."""
+    from flinkml_tpu_torch.sharding.apply import _PlanSync
+
+    sync = _PlanSync(plan, mesh, dim)
+    block = torch.ones(sync.block, dtype=torch.float32, device=mesh.device)
+    buf = torch.ones(dim + 2, dtype=torch.float32, device=mesh.device)
+    out = {}
+    for name, fn in (("all_gather", lambda: sync.gather(block)),
+                     ("all_reduce", lambda: sync.reduce(buf))):
+        for _ in range(3):
+            fn()
+        secs, _ = _seconds(torch, lambda: [fn() for _ in range(calls)])
+        out[name + "_ms"] = secs / calls * 1e3
+    return out
+
+
+def plan_world1(torch, x, y, refs):
+    """K1: ``init_distributed`` at world 1 over ``J1_BACKEND`` (nccl), then
+    ``LogisticRegression(sharding_plan=...)`` (momentum SGD) and
+    ``train_linear_plan`` (Adam) under each of ``K_PLANS`` on path 5's
+    data, every fit on the plan's mesh of the one rank: the plans equal
+    each other bit for bit (at world 1 each collective is the identity)
+    and hold against the float64 numpy steps (1e-4 of the largest
+    coefficient); ``precision="mixed"`` against the numpy emulation of its
+    bf16 rounding (1e-3 of the largest) and against the float32 fit
+    (different, within 2e-2); ``dtype=bfloat16`` (FML601) and float64
+    (FML605) under ``mixed`` refused before any step or collective."""
+    import tempfile
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.parallel import DeviceMesh, dispatch
+    from flinkml_tpu_torch.parallel import distributed as pdist
+    from flinkml_tpu_torch.precision import PrecisionValidationError
+    from flinkml_tpu_torch.sharding import PRESETS, apply, train_linear_plan
+
+    table = fml.Table({"features": x, "label": y})
+    n = x.shape[0]
+    perm = np.random.default_rng(0).permutation(n)
+    xp, yp = x[perm], y[perm]
+
+    def est(**kw):
+        return (fml.LogisticRegression(**kw).set_seed(0).set_tol(0.0)
+                .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+                .set_learning_rate(FIT_LR).set_reg(K_REG))
+
+    rec = {"backend": J1_BACKEND, "fits": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        pdist.init_distributed("file://" + os.path.join(tmp, "store"), 1, 0,
+                               backend=J1_BACKEND, timeout_s=300)
+        try:
+            # The no-plan fit of path 5 (same data and hyperparameters but
+            # the elastic net: LogisticRegression has none), the ratio's
+            # denominator.
+            est().fit(table)
+            no_plan_s, _ = _seconds(torch, lambda: est().fit(table))
+            coefs = {}
+            for name in K_PLANS:
+                plan = PRESETS[name]
+                mesh = DeviceMesh.for_plan(plan)
+                # Momentum SGD through the estimator (its seeded
+                # permutation is xp's), Adam through train_linear_plan.
+                secs, model = _seconds(torch, lambda: est(
+                    sharding_plan=plan).fit(table))
+                coefs[name, "sgd"] = model.coefficient
+                rec["fits"][f"{name}/sgd"] = {
+                    "fit_s": secs,
+                    "samples_per_s": FIT_BATCH * FIT_EPOCHS / secs,
+                    "ratio_to_no_plan_fit": secs / no_plan_s}
+                stats = {}
+                secs, coefs[name, "adam"] = _seconds(
+                    torch, lambda: train_linear_plan(
+                        xp, yp, None, plan, mesh, optimizer="adam",
+                        stats=stats, **k_kw()))
+                steps = max(stats["steps"], 1)
+                rec["fits"][f"{name}/adam"] = {
+                    "fit_s": secs, "loop_s": stats["loop_s"],
+                    "samples_per_s": FIT_BATCH * FIT_EPOCHS / secs,
+                    "loop_samples_per_s":
+                        FIT_BATCH * FIT_EPOCHS / stats["loop_s"],
+                    "all_gather_per_step":
+                        stats["collectives"]["all_gather"] / steps,
+                    "all_reduce_per_step":
+                        stats["collectives"]["all_reduce"] / steps,
+                    "ratio_to_no_plan_fit": secs / no_plan_s}
+                rec["fits"][f"{name}/collective_ms"] = plan_collective_ms(
+                    torch, plan, mesh, x.shape[1])
+            mesh = DeviceMesh.for_plan(PRESETS["fsdp"])
+            secs, mixed = _seconds(torch, lambda: train_linear_plan(
+                xp, yp, None, PRESETS["fsdp"], mesh, precision="mixed",
+                **k_kw()))
+            rec["fits"]["fsdp/sgd/mixed"] = {
+                "fit_s": secs, "samples_per_s": FIT_BATCH * FIT_EPOCHS / secs}
+            full = train_linear_plan(xp, yp, None, PRESETS["fsdp"], mesh,
+                                     **k_kw())
+            events, calls = [], []
+            real_call = apply.LinearStep.__call__
+            apply.LinearStep.__call__ = (
+                lambda self, *a, **k: (calls.append(1),
+                                       real_call(self, *a, **k))[1])
+            dispatch.add_dispatch_observer(events.append)
+            refused = {}
+            try:
+                for dtype, rule in (("bfloat16", "FML601"),
+                                    (np.float64, "FML605")):
+                    try:
+                        train_linear_plan(xp, yp, None, PRESETS["fsdp"], mesh,
+                                          dtype=dtype, precision="mixed",
+                                          **k_kw())
+                        fail(f"path K1: dtype={dtype} under mixed was "
+                             "not refused")
+                    except PrecisionValidationError as e:
+                        rules = sorted({f.rule for f in e.findings})
+                        if rule not in rules:
+                            fail(f"path K1: dtype={dtype} refused with "
+                                 f"{rules}, not {rule}")
+                        refused[str(np.dtype(dtype)) if dtype != "bfloat16"
+                                else dtype] = rules
+            finally:
+                apply.LinearStep.__call__ = real_call
+                dispatch.remove_dispatch_observer(events.append)
+            if events or calls:
+                fail(f"path K1: a refused fit ran {len(calls)} steps and "
+                     f"{len(events)} collectives")
+            rec["refused"] = refused
+        finally:
+            pdist.shutdown_distributed()
+    rec["no_plan_fit_s"] = no_plan_s
+    ref_max = {k: float(np.abs(v).max()) for k, v in refs.items()}
+    for (name, opt), got in coefs.items():
+        if not np.array_equal(got, coefs[K_PLANS[0], opt]):
+            fail(f"path K1: {name}/{opt} differs from {K_PLANS[0]}/{opt} "
+                 "at world 1")
+        want = refs["sgd_l1_0" if opt == "sgd" else "adam"]
+        err = float(np.abs(got - want).max())
+        rec["fits"][f"{name}/{opt}"]["max_abs_err_vs_float64"] = err
+        if not (np.isfinite(got).all() and err <= 1e-4 * np.abs(want).max()):
+            fail(f"path K1: {name}/{opt} differs from float64 numpy by {err}")
+    err = float(np.abs(mixed - refs["mixed"]).max())
+    gap = float(np.abs(mixed - full).max())
+    rec["mixed"] = {"max_abs_err_vs_bf16_emulation": err,
+                    "max_abs_diff_vs_float32": gap,
+                    "max_abs_coef": ref_max["mixed"]}
+    if not err <= 1e-3 * ref_max["mixed"]:
+        fail(f"path K1: the mixed fit differs from its numpy emulation by {err}")
+    if not 0.0 < gap <= 2e-2:
+        fail(f"path K1: the mixed fit is {gap} from the float32 fit")
+    return rec
+
+
+def naive_bayes_data(n, seed):
+    """K3's rows: Adult's 8 categorical columns (``census_columns``) and
+    age, education-num and hours-per-week as integer categories."""
+    cols = census_columns(n, seed)
+    names = [c for c, _ in ADULT_CATEGORICAL] + list(NB_CONTINUOUS)
+    x = np.stack([np.asarray(cols[c], dtype=np.float64) for c in names], 1)
+    return x, cols["label"]
+
+
+def numpy_naive_bayes(x, y, smoothing=1.0):
+    """Float64 numpy NaiveBayes: the vocabularies, the counts by
+    ``np.add.at``, theta and pi by the reference's formula."""
+    labels, li = np.unique(y, return_inverse=True)
+    vocab, ci = zip(*(np.unique(x[:, j], return_inverse=True)
+                      for j in range(x.shape[1])))
+    L, F, C = len(labels), x.shape[1], max(len(v) for v in vocab)
+    flat = (li[:, None] * (F * C) + np.arange(F)[None, :] * C
+            + np.stack(ci, 1)).reshape(-1)
+    counts = np.zeros(L * F * C)
+    np.add.at(counts, flat, 1.0)
+    counts = counts.reshape(L, F, C)
+    docs = np.bincount(li, minlength=L).astype(np.float64)
+    ncat = np.array([len(v) for v in vocab], dtype=np.float64)
+    theta = np.log(counts + smoothing) - np.log(
+        docs[:, None] + smoothing * ncat[None, :])[:, :, None]
+    for j in range(F):
+        theta[:, j, len(vocab[j]):] = -np.inf
+    pi = np.log(docs * F + smoothing) - np.log(docs.sum() * F
+                                               + L * smoothing)
+    return counts, theta, pi, labels, vocab, flat
+
+
+def naive_bayes_phase(torch):
+    """K3a: ``NaiveBayes().fit`` on ``NB_ROWS`` rows (11 features, 22 M
+    cells counted by one ``segment_sum`` launch), counts, theta and pi
+    equal to float64 numpy bit for bit; the transform of ``NB_SERVE``
+    rows equal to the numpy argmax. Returns the record and the count's
+    cells (for :func:`naive_bayes_kernel_check`)."""
+    import flinkml_tpu_torch as fml
+
+    x, y = naive_bayes_data(NB_ROWS, seed=31)
+    table = fml.Table({"features": x, "label": y})
+    before = fml.launch_counts()["segment_sum"]
+    fit_s, model = _seconds(torch, lambda: fml.NaiveBayes().fit(table))
+    fit_launches = fml.launch_counts()["segment_sum"] - before
+    counts, theta, pi, labels, vocab, flat = numpy_naive_bayes(x, y)
+    if not (np.array_equal(model._theta, theta)
+            and np.array_equal(model._pi, pi)
+            and np.array_equal(model._labels, labels)):
+        fail("path K3: NaiveBayes theta/pi differ from float64 numpy")
+    serve = x[:NB_SERVE]
+    ts, (out,) = _seconds(torch, lambda: model.transform(
+        fml.Table({"features": serve})))
+    idx = np.stack([np.searchsorted(vocab[j], serve[:, j])
+                    for j in range(x.shape[1])], 1)
+    probs = pi[None, :] + sum(theta[:, j, idx[:, j]].T
+                              for j in range(x.shape[1]))
+    want = labels[np.argmax(probs, axis=1)]
+    if not np.array_equal(out.column("prediction"), want):
+        fail("path K3: NaiveBayes predictions differ from the numpy argmax")
+    return {"rows": NB_ROWS, "features": x.shape[1], "cells": flat.size,
+            "segments": counts.size, "fit_s": fit_s,
+            "fit_rows_per_s": NB_ROWS / fit_s,
+            "fit_segment_sum_launches": fit_launches,
+            "transform_rows": NB_SERVE, "transform_s": ts,
+            "transform_rows_per_s": NB_SERVE / ts}, (flat, counts)
+
+
+def naive_bayes_kernel_check(torch, timer, flat, counts):
+    """The count's ``segment_sum`` (float64 ones by the fit's flat ids)
+    against ``segment_sum_plain`` on the same cells, bit for bit and equal
+    to ``np.add.at``; timed beside ``index_add_``, with its bound from
+    bytes (each cell's value and id read once, the counts written once).
+    These launches are not the path's."""
+    from flinkml_tpu_torch.kernels import segsum
+
+    L, F, C = counts.shape
+    ids = torch.from_numpy(flat.astype(np.int32)).to(K_DEVICE)
+    ones = torch.ones(ids.numel(), dtype=torch.float64, device=K_DEVICE)
+    got = segsum.segment_sum(ones, ids, L * F * C)
+    plain = segsum.segment_sum_plain(ones, ids, L * F * C)
+    if not torch.equal(got, plain) or not np.array_equal(
+            got.cpu().numpy().reshape(L, F, C), counts):
+        fail("path K3: segment_sum of the counts differs from its plain "
+             "version or from np.add.at")
+    ms = timer(lambda: segsum.segment_sum(ones, ids, L * F * C))
+    plain_ms = timer(lambda: segsum.segment_sum_plain(ones, ids, L * F * C))
+    lib = torch.zeros(L * F * C, dtype=torch.float64, device=K_DEVICE)
+    library_ms = timer(lambda: lib.index_add_(0, ids, ones))
+    cells = ids.numel()
+    bound, by = bound_ms(cells * (8 + 4) + L * F * C * 8,
+                         cells, "float64")
+    return {"cells": cells, "segments": L * F * C, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
+
+
+def graph_phase(torch):
+    """K3b: a ``GraphBuilder`` graph of StandardScaler -> LogisticRegression
+    on the census training rows (Adult's 14 columns as one float64
+    vector), fit -> transform -> save -> load -> transform, equal to the
+    same stages as a ``Pipeline`` (scaled 1e-12, rawPrediction 1e-10,
+    predictions where decisive) and to itself after the round trip."""
+    import tempfile
+
+    import flinkml_tpu_torch as fml
+
+    cols = census_columns(CENSUS_TRAIN, seed=21)
+    names = [c for c, _ in ADULT_CATEGORICAL] + list(ADULT_CONTINUOUS)
+    x = np.stack([np.asarray(cols[c], dtype=np.float64) for c in names], 1)
+    table = fml.Table({"features": x, "label": cols["label"]})
+
+    def stages():
+        return (fml.StandardScaler().set_input_col("features")
+                .set_output_col("scaled"),
+                fml.LogisticRegression().set_features_col("scaled")
+                .set_seed(0).set_global_batch_size(8_192)
+                .set_max_iter(FIT_EPOCHS).set_learning_rate(0.5))
+
+    b = fml.GraphBuilder()
+    src = b.create_table_id()
+    scaler, lr = stages()
+    scaled = b.add_estimator(scaler, src)
+    out = b.add_estimator(lr, scaled[0])
+    graph = b.build_estimator([src], [out[0]])
+    fit_s, gm = _seconds(torch, lambda: graph.fit(table))
+    cols_out = ("scaled", "rawPrediction", "prediction")
+    (g,) = gm.transform(table)
+    (p,) = fml.Pipeline(list(stages())).fit(table).transform(table)
+    with tempfile.TemporaryDirectory() as tmp:
+        gm.save(os.path.join(tmp, "gm"))
+        (again,) = fml.GraphModel.load(os.path.join(tmp, "gm")).transform(
+            table)
+    for c in cols_out:
+        if not np.array_equal(again.column(c), g.column(c)):
+            fail(f"path K3: the graph's {c} changed across save -> load")
+    raw_g, raw_p = g.column("rawPrediction"), p.column("rawPrediction")
+    if not (np.allclose(g.column("scaled"), p.column("scaled"), rtol=1e-12,
+                        atol=1e-12)
+            and np.allclose(raw_g, raw_p, rtol=1e-10, atol=1e-10)):
+        fail("path K3: the graph's output differs from the Pipeline's")
+    decisive = np.abs(raw_p[:, 1] - 0.5) > 1e-9
+    if not np.array_equal(g.column("prediction")[decisive],
+                          p.column("prediction")[decisive]):
+        fail("path K3: the graph's predictions differ from the Pipeline's")
+    return {"rows": CENSUS_TRAIN, "d": x.shape[1], "fit_s": fit_s,
+            "max_abs_raw_diff_vs_pipeline": float(np.abs(raw_g - raw_p).max())}
+
+
+def k2_check(torch, tmp, outs, x, y):
+    """K2's checks in the parent, on the two ranks' outputs of
+    :func:`j2_rank`: the FSDP and FSDP_TP fits the same bits on both
+    ranks and within 1e-4 of the largest coefficient of the float64 numpy
+    steps; the 123-wide fit refused (FML502) on both ranks; the world-2
+    FSDP snapshot of epoch ``K2_STOP`` resumed at world 1 under
+    ``rescale="reshard"``: at epoch ``K2_STOP`` the same bits, and carried
+    on to ``FIT_EPOCHS`` within 1e-5 of the largest coefficient of the
+    uninterrupted world-2 fit (float32 sums in another order)."""
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.sharding import FSDP, train_linear_plan
+
+    for name in ("k2_fsdp", "k2_fsdp_tp", "k2_half", "k2_refused"):
+        if not np.array_equal(outs[1][name], outs[0][name]):
+            fail(f"path K2: rank 1's {name} differs from rank 0's")
+    if outs[0]["k2_refused"].tolist() != [1]:
+        fail("path K2: FSDP over 123 columns at world 2 was not refused "
+             "with FML502")
+    xk = np.concatenate([x, np.ones((x.shape[0], 1), np.float32)], 1)
+    windows = numpy_plan_windows(xk, y, 0, FIT_BATCH)
+    ref = numpy_plan_fit(windows, "sgd", FIT_EPOCHS, FIT_LR, 0.9,
+                         K_REG * (1 - K_ELASTIC_NET), K_REG * K_ELASTIC_NET)
+    rec = {"world": J2_WORLD, "d": xk.shape[1],
+           "seconds_rank0": dict(zip(("fsdp", "fsdp_tp", "fsdp_half"),
+                                     outs[0]["k2_seconds"].tolist())),
+           "collectives_per_step_fsdp": outs[0]["k2_collectives"].tolist()}
+    for name in ("k2_fsdp", "k2_fsdp_tp"):
+        err = float(np.abs(outs[0][name] - ref).max())
+        rec[f"{name}_max_abs_err_vs_float64"] = err
+        if not err <= 1e-4 * np.abs(ref).max():
+            fail(f"path K2: {name} differs from float64 numpy by {err}")
+    perm = np.random.default_rng(0).permutation(xk.shape[0])
+    xp, yp = xk[perm], y[perm]
+    ckpt = os.path.join(tmp, "k2_ckpt")
+    kw = k_kw(checkpoint_interval=K2_STOP // 2, resume=True)
+    with open(os.path.join(ckpt, f"ckpt-{K2_STOP}", "meta.json")) as fh:
+        meta = json.load(fh)
+    if meta["world_size"] != J2_WORLD or meta["layouts"] != [
+            "sharded:0", "sharded:0"]:
+        fail(f"path K2: the snapshot records {meta['world_size']}, "
+             f"{meta['layouts']}")
+    at_stop = train_linear_plan(
+        xp, yp, None, FSDP, None, checkpoint_manager=CheckpointManager(
+            ckpt, max_to_keep=10, rescale="reshard"),
+        **dict(kw, max_iter=K2_STOP))
+    if not np.array_equal(at_stop, outs[0]["k2_half"]):
+        fail("path K2: the world-2 snapshot restored at world 1 differs")
+    resumed = train_linear_plan(
+        xp, yp, None, FSDP, None, checkpoint_manager=CheckpointManager(
+            ckpt, max_to_keep=10, rescale="reshard"), **kw)
+    err = float(np.abs(resumed - outs[0]["k2_fsdp"]).max())
+    rec["resumed_at_world_1_max_abs_diff"] = err
+    if not err <= 1e-5 * np.abs(ref).max():
+        fail(f"path K2: the fit resumed at world 1 differs from the "
+             f"uninterrupted world-2 fit by {err}")
+    return rec
+
+
+def plan_path(torch, timer, k2):
+    """Path K: K1 (the plan fits and the mixed-precision fit at world 1
+    over nccl, :func:`plan_world1`), K2 (its record from path J's ranks,
+    :func:`k2_check`), K3 (NaiveBayes and the graph API), the counters
+    read after K3's graph; then the count's ``segment_sum`` against its
+    plain version. Returns the path's launches and that check's record;
+    fails when ``segment_sum`` never launched."""
+    import flinkml_tpu_torch as fml
+
+    t0 = time.perf_counter()
+    x, y, _ = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
+    windows = numpy_plan_windows(x, y, 0, FIT_BATCH)
+    l2, l1 = K_REG * (1 - K_ELASTIC_NET), K_REG * K_ELASTIC_NET
+    refs = {"sgd_l1_0": numpy_plan_fit(windows, "sgd", FIT_EPOCHS, FIT_LR,
+                                       0.9, K_REG, 0.0),
+            "adam": numpy_plan_fit(windows, "adam", FIT_EPOCHS, FIT_LR,
+                                   0.9, l2, l1),
+            "mixed": numpy_plan_fit(windows, "sgd", FIT_EPOCHS, FIT_LR, 0.9,
+                                    l2, l1, mixed=True)}
+    del windows
+    ref_s = time.perf_counter() - t0
+    fml.reset_launch_counts()
+    k1 = plan_world1(torch, x, y, refs)
+    del x, y
+    nb, (flat, nb_counts) = naive_bayes_phase(torch)
+    graph = graph_phase(torch)
+    counts = dict(fml.launch_counts())
+    if not counts.get("segment_sum"):
+        fail(f"path K: segment_sum never launched ({counts})")
+    nb["segment_sum"] = naive_bayes_kernel_check(torch, timer, flat,
+                                                 nb_counts)
+    del flat
+    rec = {"path": "plan_K", "rows": DENSE_FIT_ROWS, "d": DENSE_FIT_D,
+           "batch": FIT_BATCH, "epochs": FIT_EPOCHS, "reg": K_REG,
+           "elastic_net": K_ELASTIC_NET, "K1": k1, "K2": k2,
+           "K3": {"naive_bayes": nb, "graph": graph},
+           "numpy_refs_s": ref_s,
+           "launches": {k: counts.get(k, 0)
+                        for k in ("segment_sum", "fused_chain")},
+           "card": card_line(), "path_s": time.perf_counter() - t0}
+    log("path " + json.dumps(rec))
+    return counts, nb["segment_sum"]
 
 
 def device_share(torch, fn):
@@ -4312,6 +4891,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
 
+    t_start = time.perf_counter()
+
+    def mark(name: str) -> None:
+        # Seconds since the build ended, so each path's share shows.
+        log(f"elapsed {name}: {time.perf_counter() - t_start:.1f} s")
+
     timer = Timer(torch)
     spmv_rec = spmv_phase(torch, timer)
     spmv_phase(torch, timer, rows=SPARSE_FIT_ROWS)
@@ -4323,6 +4908,7 @@ def main() -> int:
     segsum_descent_phase(torch, timer)
     topk_rec = topk_phase(torch, timer)
     bf16 = bf16_kernel_phase(torch, timer)
+    mark("kernel phase")
 
     serve_spmv = sparse_path(torch)
     chain_rec["launches"] = (dense_path(torch) + census_path(torch)
@@ -4330,28 +4916,40 @@ def main() -> int:
                              + kmeans_serving_path(torch))
     tier_launches, chain_rec["tiers"] = precision_path(torch, timer)
     chain_rec["launches"] += tier_launches
+    mark("serving paths and D")
     dense_fit_path(torch)
     fit_counts = sparse_fit_path(torch)
+    mark("fit paths 5-6")
     stream_counts = stream_path(torch, timer)
     svc_counts = svc_path(torch)
+    mark("paths E-F")
     ftrl_path(torch)
     ingest_path(torch)
     sorted_counts = sorted_stream_path(torch, timer)
     elastic_path(torch)
+    mark("paths G-H")
     slice_i_counts = slice_i_path(torch, timer)
     chain_rec["launches"] += slice_i_counts["fused_chain"]
-    mesh_counts = mesh_path(torch)
+    mark("path I")
+    mesh_counts, k2 = mesh_path(torch)
+    mark("path J")
+    plan_counts, segsum_rec["naive_bayes"] = plan_path(torch, timer, k2)
+    chain_rec["launches"] += plan_counts.get("fused_chain", 0)
+    mark("path K")
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
             "sparse_fit": fit_counts[name], "stream_E": stream_counts[name],
             "svc_F": svc_counts[name],
             "sorted_stream_H": sorted_counts[name],
-            "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name]}
+            "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name],
+            "plan_K": plan_counts.get(name, 0)}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
+    mark("KNN and LSH")
     del timer
     kmeans_path(torch)
+    mark("KMeans")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4359,8 +4957,8 @@ def main() -> int:
         rec["bf16"] = bf16[rec["name"]]
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in keys},
-             **{k: r[k] for k in ("bf16", "tiers", "launches_by_path")
-                if k in r})
+             **{k: r[k] for k in ("bf16", "tiers", "launches_by_path",
+                                  "naive_bayes") if k in r})
         for r in (spmv_rec, chain_rec, segsum_rec, topk_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

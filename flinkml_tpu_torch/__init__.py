@@ -29,7 +29,12 @@ runs under the precision tiers (``precision``:
 ``pipeline_fusion.precision_scope("mixed_inference")`` and the others),
 and the kernels take bfloat16. :mod:`flinkml_tpu_torch.parallel` runs the
 in-RAM linear and KMeans fits data parallel on a ``torch.distributed``
-mesh (``mesh=``), one process and one device per rank.
+mesh (``mesh=``), one process and one device per rank;
+:mod:`flinkml_tpu_torch.sharding` shards the linear fits' state by a
+``ShardingPlan`` (``sharding_plan=``) and trains them under a precision
+policy (``precision="mixed"``). ``NaiveBayes`` and the graph API
+(``GraphBuilder``, ``Graph``, ``GraphModel``) complete the reference's
+surface.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401
@@ -80,6 +85,8 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     MinHashLSHModel,
     MinMaxScaler,
     MinMaxScalerModel,
+    NaiveBayes,
+    NaiveBayesModel,
     OneHotEncoder,
     OneHotEncoderModel,
     OnlineKMeans,
@@ -92,7 +99,19 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     StandardScalerModel,
     VectorAssembler,
 )
-from flinkml_tpu_torch import data, iteration, ops, precision  # noqa: F401
+from flinkml_tpu_torch import (  # noqa: F401
+    data,
+    iteration,
+    ops,
+    precision,
+    sharding,
+)
+from flinkml_tpu_torch.graph import (  # noqa: F401
+    Graph,
+    GraphBuilder,
+    GraphModel,
+    TableId,
+)
 from flinkml_tpu_torch.iteration import (  # noqa: F401
     CheckpointManager,
     DataCache,
@@ -116,6 +135,9 @@ __all__ = [
     "DataCache",
     "DenseVector",
     "Estimator",
+    "Graph",
+    "GraphBuilder",
+    "GraphModel",
     "KMeans",
     "KMeansModel",
     "KernelUnsupportedError",
@@ -135,6 +157,8 @@ __all__ = [
     "MinMaxScalerModel",
     "Model",
     "ModelIntegrityError",
+    "NaiveBayes",
+    "NaiveBayesModel",
     "OneHotEncoder",
     "OneHotEncoderModel",
     "OnlineKMeans",
@@ -152,6 +176,7 @@ __all__ = [
     "StandardScaler",
     "StandardScalerModel",
     "Table",
+    "TableId",
     "Transformer",
     "Vector",
     "VectorAssembler",
@@ -165,6 +190,7 @@ __all__ = [
     "ops",
     "reset_launch_counts",
     "set_default_device",
+    "sharding",
     "stage_from_arrays",
     "use_device",
 ]

@@ -17,6 +17,7 @@ from flinkml_tpu_torch.iteration.device_loop import device_iterate  # noqa: F401
 from flinkml_tpu_torch.iteration.checkpoint import (  # noqa: F401
     CheckpointIntegrityError,
     CheckpointManager,
+    LayoutConflictError,
     RescaleError,
     RescalePolicy,
     reshard_rank_state,
@@ -45,6 +46,7 @@ __all__ = [
     "IterationResult",
     "Iterations",
     "PrefetchingDeviceFeed",
+    "LayoutConflictError",
     "RescaleError",
     "RescalePolicy",
     "Segment",

@@ -19,11 +19,15 @@ restores in the other:
 fingerprint and walks back past torn or corrupt snapshots;
 :class:`CheckpointIntegrityError` only when none survives. A snapshot's
 recorded world size is held against the restoring one (one card here,
-unless ``world_size`` says otherwise) under a :class:`RescalePolicy`.
+unless ``world_size`` says otherwise) under a :class:`RescalePolicy`:
+``"reshard"`` re-lays out assembled leaves by their layout tags (a
+``sharded:<axis>`` leaf must divide across the new world), which
+``save(..., plan=plan)`` derives from a sharding plan.
 
 Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP.md
-Queue 1 item 7c (multi-process streams): ``rescale="reshard"``, :func:`save_agreed`,
-:func:`rank_scoped`, :func:`reshard_rank_state` and plan-derived layouts.
+Queue 1 item 7c (multi-process streams): ``per_rank`` leaves under
+``"reshard"``, :func:`save_agreed`, :func:`rank_scoped` and
+:func:`reshard_rank_state`.
 """
 
 from __future__ import annotations
@@ -58,6 +62,12 @@ class CheckpointIntegrityError(ValueError):
     """A committed checkpoint failed restore-time verification: its
     manifest is unreadable, its arrays are missing or unloadable, or the
     content fingerprint does not match."""
+
+
+class LayoutConflictError(ValueError):
+    """``CheckpointManager.save`` was given both ``plan=`` and an explicit
+    ``layouts=`` that disagree. The plan is the single source of layout
+    truth; the message names the first leaf where the two differ."""
 
 
 class RescaleError(ValueError):
@@ -149,15 +159,16 @@ def _parse_layout(tag: str) -> Tuple[str, Optional[int]]:
 class RescalePolicy:
     """What :meth:`CheckpointManager.restore` does when the snapshot's
     world size differs from the restoring one: ``"reject"`` (default)
-    raises :class:`RescaleError`; ``"allow"`` restores as it is, with no
-    validation. ``"reshard"`` is refused (ROADMAP.md Queue 1 item 7c)."""
+    raises :class:`RescaleError`; ``"reshard"`` re-lays out the carry by
+    its leaf layout tags (``replicated`` leaves pass, a ``sharded:<axis>``
+    leaf keeps its assembled global value and must divide across the new
+    world, a ``per_rank`` leaf is refused); ``"allow"`` restores as it
+    is, with no validation."""
 
     on_mismatch: str = "reject"
 
     def __post_init__(self):
-        if self.on_mismatch == "reshard":
-            raise _unported("rescale='reshard'")
-        if self.on_mismatch not in ("reject", "allow"):
+        if self.on_mismatch not in ("reject", "allow", "reshard"):
             raise ValueError(
                 "RescalePolicy.on_mismatch must be 'reject', 'allow' or "
                 f"'reshard', got {self.on_mismatch!r}"
@@ -304,18 +315,39 @@ class CheckpointManager:
         return list(tags)
 
     # -- save --------------------------------------------------------------
+    def _plan_layouts(self, plan, state, layouts, num_leaves: int):
+        """The layout tags ``plan`` derives for ``state``; an explicit
+        ``layouts=`` must agree (:class:`LayoutConflictError`)."""
+        from flinkml_tpu_torch.sharding.plan import layouts_for, state_names
+
+        derived_tree = layouts_for(plan, state)
+        derived = self._layout_list(derived_tree, state, num_leaves)
+        if layouts is not None:
+            explicit = self._layout_list(layouts, state, num_leaves)
+            names = [n for n, _ in state_names(state)]
+            for i, (d, e) in enumerate(zip(derived, explicit)):
+                if d != e:
+                    raise LayoutConflictError(
+                        f"explicit layouts= disagree with plan "
+                        f"{plan.name!r} at leaf {i} "
+                        f"({names[i] if i < len(names) else '?'}): "
+                        f"plan derives {d!r}, caller passed {e!r}. "
+                        "The plan is authoritative — drop the "
+                        "layouts= override or fix the plan."
+                    )
+        return derived_tree
+
     def save(self, state: Any, epoch: int, extra: Optional[dict] = None,
              layouts=None, plan=None) -> str:
         """Snapshot ``state`` at ``epoch``; returns the snapshot's
-        directory. ``layouts`` tags each leaf (None: replicated);
-        ``plan`` is refused (item 7b)."""
-        if plan is not None:
-            raise NotImplementedError(
-                "plan-derived checkpoint layouts are not ported to "
-                "flinkml_tpu_torch yet: they come with ROADMAP.md Queue 1 "
-                "item 7b (sharding plans)"
-            )
+        directory. ``layouts`` tags each leaf (None: replicated).
+        ``plan`` (a :class:`~flinkml_tpu_torch.sharding.plan.
+        ShardingPlan`) derives the tags instead (``sharded:<dim>`` per
+        sharded family); an explicit ``layouts=`` beside it must agree,
+        else :class:`LayoutConflictError` and nothing is written."""
         leaves, treedef = tree_flatten(state)
+        if plan is not None:
+            layouts = self._plan_layouts(plan, state, layouts, len(leaves))
         # An async snapshot owns its memory: the caller may update its
         # arrays in place while the write runs.
         host_leaves = [_host(leaf, self.async_write) for leaf in leaves]
@@ -445,22 +477,15 @@ class CheckpointManager:
         ckpt_dir = os.path.join(self.directory, f"ckpt-{epoch}")
         meta = self._read_meta(ckpt_dir)
         saved_world = meta.get("world_size")
-        if (saved_world is not None and saved_world != self._world_size()
-                and self.rescale_policy.on_mismatch == "reject"):
-            msg = (
-                f"cannot restore checkpoint {ckpt_dir} (epoch "
-                f"{meta.get('epoch')}): snapshot was written at world_size="
-                f"{saved_world} but the restoring run has world_size="
-                f"{self._world_size()}; RescalePolicy('reject') outcome: "
-                "rejected (rescaling an in-flight iteration is refused by "
-                "policy). Pass rescale='allow' only if every carry leaf is "
-                "world-independent (reference parity: "
-                "HeadOperator.java:130-146). Resuming a data-parallel fit "
-                "at another world comes with ROADMAP.md Queue 1 item 7c."
-            )
-            _log.error("%s", msg)
-            raise RescaleError(msg)
+        rescaling = (saved_world is not None
+                     and saved_world != self._world_size())
+        if rescaling and self.rescale_policy.on_mismatch == "reject":
+            raise self._rescale_error(
+                ckpt_dir, meta, "rejected (rescaling an in-flight "
+                "iteration is refused by policy)")
         host_leaves = self._read_leaves(ckpt_dir, meta)
+        if rescaling and self.rescale_policy.on_mismatch == "reshard":
+            self._reshard_leaves(host_leaves, meta, ckpt_dir)
         n_like = len(tree_flatten(like)[0])
         if n_like != len(host_leaves):
             raise ValueError(
@@ -470,6 +495,61 @@ class CheckpointManager:
         state = tree_unflatten(like, host_leaves)
         self.last_restored_extra = meta.get("extra") or {}
         return state, int(meta["epoch"])
+
+    def _rescale_error(self, ckpt_dir: str, meta: dict, outcome: str
+                       ) -> RescaleError:
+        """The rescale refusal: snapshot dir, epoch, both worlds and the
+        policy's outcome (logged)."""
+        msg = (
+            f"cannot restore checkpoint {ckpt_dir} (epoch "
+            f"{meta.get('epoch')}): snapshot was written at world_size="
+            f"{meta.get('world_size')} but the restoring run has world_size="
+            f"{self._world_size()}; RescalePolicy("
+            f"{self.rescale_policy.on_mismatch!r}) outcome: {outcome}. "
+            "Pass rescale='reshard' for layout-tagged elastic resume, or "
+            "rescale='allow' only if every carry leaf is world-independent "
+            "(reference parity: HeadOperator.java:130-146). The elastic "
+            "resume of the multi-process streams comes with ROADMAP.md "
+            "Queue 1 item 7c."
+        )
+        _log.error("%s", msg)
+        return RescaleError(msg)
+
+    def _reshard_leaves(self, host_leaves: List[np.ndarray], meta: dict,
+                        ckpt_dir: str) -> None:
+        """The ``reshard`` policy on assembled leaves: a replicated leaf
+        passes; a ``sharded:<axis>`` leaf keeps its global value and must
+        divide across the new world; a ``per_rank`` leaf (rank-entangled
+        state, reassembled by :func:`reshard_rank_state`) is refused."""
+        new_world = self._world_size()
+        layouts = meta.get("layouts") or [LAYOUT_REPLICATED] * len(host_leaves)
+        counts = {"replicated": 0, "sharded": 0}
+        for i, (leaf, tag) in enumerate(zip(host_leaves, layouts)):
+            kind, axis = _parse_layout(tag)
+            if kind == "per_rank":
+                raise self._rescale_error(
+                    ckpt_dir, meta,
+                    f"leaf {i} is per_rank (rank-entangled state cannot be "
+                    "re-laid-out; reassembling a rank-scoped family comes "
+                    f"with ROADMAP.md Queue 1 {_MULTI_DEVICE}, or resume at "
+                    "the original world)",
+                )
+            if kind == "sharded":
+                arr = np.asarray(leaf)
+                extent = arr.shape[axis] if axis < arr.ndim else -1
+                if extent < 0 or extent % new_world != 0:
+                    raise self._rescale_error(
+                        ckpt_dir, meta,
+                        f"leaf {i} is sharded:{axis} with extent {extent}, "
+                        f"which does not divide across {new_world} ranks",
+                    )
+            counts[kind] += 1
+        _log.info(
+            "resharded restore: %s (epoch %s) world %s -> %s (%d replicated, "
+            "%d sharded leaves)", ckpt_dir, meta.get("epoch"),
+            meta.get("world_size"), new_world, counts["replicated"],
+            counts["sharded"],
+        )
 
     def verify(self, epoch: int) -> bool:
         """True when the snapshot at ``epoch`` has a readable manifest,

@@ -1,8 +1,8 @@
 """Stages of the model catalog ported so far: the four scalers,
 OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
 LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
-RAM and streamed), OnlineKMeans and BisectingKMeans (estimators and
-models)."""
+RAM and streamed), OnlineKMeans, BisectingKMeans and NaiveBayes
+(estimators and models)."""
 
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
@@ -23,6 +23,10 @@ from flinkml_tpu_torch.models.logistic_regression import (  # noqa: F401
     LogisticRegressionModel,
 )
 from flinkml_tpu_torch.models.lsh import MinHashLSH, MinHashLSHModel  # noqa: F401
+from flinkml_tpu_torch.models.naive_bayes import (  # noqa: F401
+    NaiveBayes,
+    NaiveBayesModel,
+)
 from flinkml_tpu_torch.models.online_kmeans import (  # noqa: F401
     OnlineKMeans,
     OnlineKMeansModel,
@@ -66,6 +70,8 @@ __all__ = [
     "MinHashLSHModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
+    "NaiveBayes",
+    "NaiveBayesModel",
     "OneHotEncoder",
     "OneHotEncoderModel",
     "OnlineKMeans",

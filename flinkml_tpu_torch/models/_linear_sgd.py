@@ -69,9 +69,17 @@ A fit given no mesh issues no collective. A checkpointed fit on a mesh
 records world P and resumes only at world P (the mesh's first rank
 writes the snapshots).
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: precision policies (item 3), sharding plans
-(item 7b), and a mesh for the streamed fits (item 7c).
+**Sharding plans and precision policies.** ``sharding_plan=`` (a
+:class:`~flinkml_tpu_torch.sharding.plan.ShardingPlan`) and
+``precision=`` (a :class:`~flinkml_tpu_torch.precision.PrecisionPolicy`
+or preset name) route the dense in-RAM fit through the plan trainer
+(:func:`flinkml_tpu_torch.sharding.apply.train_linear_plan`, momentum
+SGD over the same seeded row order), as in the JAX package; a policy
+without a plan runs under ``REPLICATED``. The sparse fits refuse both
+with the JAX package's ``ValueError``.
+
+Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP.md
+Queue 1 item: a mesh for the streamed fits (item 7c).
 """
 
 from __future__ import annotations
@@ -105,8 +113,6 @@ _P_SIZE = 1
 
 _UNPORTED = {
     "mesh": "item 7c (multi-process streamed fits)",
-    "sharding_plan": "item 7b (sharding plans)",
-    "precision": "item 3 (precision policies)",
 }
 
 
@@ -519,14 +525,31 @@ def train_linear_model(
     floating dtype (float64 otherwise); ``y`` and ``w`` are cast to it.
     ``checkpoint_manager``/``checkpoint_interval``/``resume``: see
     :func:`_run_chunked`.
+
+    ``sharding_plan`` and ``precision`` route the fit through
+    :func:`~flinkml_tpu_torch.sharding.apply.train_linear_plan` (module
+    docstring): a policy without a plan runs under ``REPLICATED``, a mesh
+    without the plan's axes is rebuilt over the same ranks with
+    :meth:`DeviceMesh.for_plan`, and listeners are refused.
     """
-    refuse_unported(sharding_plan=sharding_plan, precision=precision)
     check_mesh(mesh)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
     n = x.shape[0]
     if n == 0:
         raise ValueError("training table is empty")
+    if precision is not None and sharding_plan is None:
+        from flinkml_tpu_torch.sharding.plan import REPLICATED
+
+        sharding_plan = REPLICATED
+    if sharding_plan is not None:
+        return _train_plan_routed(
+            x, y, w, loss, sharding_plan, mesh, seed, listeners,
+            max_iter=max_iter, learning_rate=learning_rate,
+            global_batch_size=global_batch_size, reg=reg,
+            elastic_net=elastic_net, tol=tol, dtype=dtype,
+            precision=precision, checkpoint_manager=checkpoint_manager,
+            checkpoint_interval=checkpoint_interval, resume=resume)
     if dtype is None:
         dtype = x.dtype if x.dtype.kind == "f" else np.float64
     x, y, w = (np.asarray(a, dtype=dtype) for a in (x, y, w))
@@ -543,6 +566,26 @@ def train_linear_model(
         checkpoint_interval=checkpoint_interval, resume=resume,
         listeners=listeners, mesh=mesh,
     )
+
+
+def _train_plan_routed(x, y, w, loss, plan, mesh, seed, listeners, **kw):
+    """The JAX package's route from the dense fit into the plan trainer
+    (``flinkml_tpu/models/_linear_sgd.py:596-621``)."""
+    from flinkml_tpu_torch.parallel.mesh import DeviceMesh
+    from flinkml_tpu_torch.sharding.apply import train_linear_plan
+
+    if listeners:
+        raise ValueError(
+            "listeners are not supported on the plan-sharded path"
+        )
+    if mesh is None:
+        mesh = DeviceMesh.for_plan(plan)
+    elif any(a not in mesh.shape for a in plan.required_axes()):
+        mesh = DeviceMesh.for_plan(plan, devices=list(mesh.device_ids))
+    perm = np.random.default_rng(seed).permutation(x.shape[0])
+    return train_linear_plan(x[perm], np.asarray(y)[perm],
+                             np.asarray(w)[perm], plan, mesh, loss=loss,
+                             **kw)
 
 
 def make_softmax_step(num_classes: int, local_bs: int, mesh=None):
@@ -846,15 +889,28 @@ def train_linear_model_from_table(
     the nnz-bucketed CSR trainer, anything else the dense trainer (in the
     column's floating dtype, float64 otherwise). ``label_check(y)``
     validates labels on either branch; ``hyper`` passes to the trainers
-    (loss, max_iter, ..., the checkpoint knobs)."""
+    (loss, max_iter, ..., the checkpoint knobs). ``sharding_plan`` and
+    ``precision`` route the dense branch through the plan trainer; the
+    sparse branch refuses them (the JAX package's ``ValueError``)."""
     from flinkml_tpu_torch.models._data import (
         labeled_data,
         labeled_sparse_data,
         sparse_features,
     )
 
-    refuse_unported(sharding_plan=sharding_plan, precision=precision)
     if sparse_features(table, features_col) is not None:
+        if sharding_plan is not None:
+            raise ValueError(
+                "sharding_plan supports the dense path only; the sparse "
+                "trainer keeps its replicated [dim] model (shard it via "
+                "ROADMAP item 5's embedding-table path instead)"
+            )
+        if precision is not None:
+            raise ValueError(
+                "precision supports the dense path only; the sparse "
+                "trainer's gather/segment-sum kernels are not yet "
+                "policy-gated"
+            )
         indptr, indices, values, dim, y, w = labeled_sparse_data(
             table, features_col, label_col, weight_col
         )
@@ -869,7 +925,8 @@ def train_linear_model_from_table(
         raise ValueError("training table is empty")
     if label_check is not None:
         label_check(y)
-    return train_linear_model(x, y, w, **hyper)
+    return train_linear_model(x, y, w, sharding_plan=sharding_plan,
+                              precision=precision, **hyper)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ _LinearSVCParams, Estimator)``). ``mesh`` (a
 :class:`~flinkml_tpu_torch.parallel.DeviceMesh`) runs the in-RAM fits
 data parallel on its ranks; a streamed fit with a mesh is refused
 (ROADMAP.md Queue 1 item 7c). ``sharding_plan`` and ``precision`` are
-refused at construction, naming their items (7b and 3).
+taken by the plan- and policy-aware estimators (the linear family's dense
+paths) and refused at construction by every other, with the JAX
+package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -58,7 +60,16 @@ class StreamingEstimatorMixin:
     streamed-capable estimator: ``mesh`` (the in-RAM fits' data-parallel
     mesh), ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
     streamed fit spills its epoch-0 cache), ``checkpoint_manager``,
-    ``checkpoint_interval`` and ``resume``."""
+    ``checkpoint_interval``, ``resume``, ``sharding_plan`` and
+    ``precision``."""
+
+    #: Subclasses whose trainers thread a ShardingPlan set this True;
+    #: every other refuses the knob at construction.
+    _SHARDING_PLAN_AWARE = False
+
+    #: Subclasses whose trainers thread a PrecisionPolicy set this True;
+    #: every other refuses the knob at construction.
+    _PRECISION_AWARE = False
 
     def __init__(
         self,
@@ -71,10 +82,9 @@ class StreamingEstimatorMixin:
         sharding_plan=None,
         precision=None,
     ):
-        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
         from flinkml_tpu_torch.parallel.mesh import check_mesh
+        from flinkml_tpu_torch.precision import resolve_policy
 
-        refuse_unported(sharding_plan=sharding_plan, precision=precision)
         check_mesh(mesh)
         super().__init__()
         self.mesh = mesh
@@ -83,6 +93,26 @@ class StreamingEstimatorMixin:
         self.checkpoint_manager = checkpoint_manager
         self.checkpoint_interval = checkpoint_interval
         self.resume = resume
+        if sharding_plan is not None and not type(self)._SHARDING_PLAN_AWARE:
+            # A plan ignored in silence would train replicated: the memory
+            # the plan was set to save.
+            raise ValueError(
+                f"{type(self).__name__} does not support sharding_plan "
+                "yet (plan-aware estimators: the linear family's dense "
+                "paths — LogisticRegression, LinearSVC, LinearRegression)"
+            )
+        if precision is not None and not type(self)._PRECISION_AWARE:
+            raise ValueError(
+                f"{type(self).__name__} does not support precision yet "
+                "(policy-aware estimators: the linear family's dense "
+                "paths — LogisticRegression, LinearSVC, LinearRegression)"
+            )
+        #: The resolved :class:`~flinkml_tpu_torch.precision.
+        #: PrecisionPolicy` (a bad preset name fails here), or None.
+        self.precision = resolve_policy(precision)
+        #: The :class:`~flinkml_tpu_torch.sharding.plan.ShardingPlan`, or
+        #: None.
+        self.sharding_plan = sharding_plan
 
     def _checkpoint_kwargs(self) -> dict:
         return dict(

@@ -114,28 +114,10 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
 
     ``mesh`` runs the in-RAM fit data parallel (a streamed fit with a mesh
     raises ``NotImplementedError``, ROADMAP.md Queue 1 item 7c);
-    ``sharding_plan`` and ``precision`` raise ``ValueError`` as in the
-    JAX package, whose KMeans takes neither.
+    ``sharding_plan`` and ``precision`` raise ``ValueError`` at
+    construction (the mixin's), as in the JAX package, whose KMeans takes
+    neither.
     """
-
-    def __init__(self, mesh=None, cache_dir=None,
-                 cache_memory_budget_bytes=None, checkpoint_manager=None,
-                 checkpoint_interval: int = 0, resume: bool = False,
-                 sharding_plan=None, precision=None):
-        for name, value in (("sharding_plan", sharding_plan),
-                            ("precision", precision)):
-            if value is not None:
-                raise ValueError(
-                    f"KMeans does not support {name} yet (plan- and "
-                    "policy-aware estimators: the linear family's dense "
-                    "paths)"
-                )
-        super().__init__(
-            mesh=mesh, cache_dir=cache_dir,
-            cache_memory_budget_bytes=cache_memory_budget_bytes,
-            checkpoint_manager=checkpoint_manager,
-            checkpoint_interval=checkpoint_interval, resume=resume,
-        )
 
     def fit(self, *inputs) -> "KMeansModel":
         (table,) = inputs

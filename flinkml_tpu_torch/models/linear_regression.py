@@ -120,7 +120,12 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                        Estimator):
     """Fits a LinearRegression from a Table, an iterable of batch Tables
     or a sealed DataCache (``solver="sgd"``), or a dense Table
-    (``solver="normal"``)."""
+    (``solver="normal"``). ``sharding_plan`` and ``precision`` take the
+    dense in-RAM ``sgd`` fit through the plan trainer and are refused on
+    the other paths (the JAX package's ``ValueError``)."""
+
+    _SHARDING_PLAN_AWARE = True
+    _PRECISION_AWARE = True
 
     def _make_model(self, coef) -> "LinearRegressionModel":
         model = LinearRegressionModel(mesh=self.mesh)
@@ -151,6 +156,16 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                     "solver='normal' does not support streamed fits (the "
                     "closed form needs the full gram); use solver='sgd'"
                 )
+            if self.sharding_plan is not None:
+                raise ValueError(
+                    "sharding_plan supports in-RAM Table fits only; "
+                    "streamed fits keep their replicated carry"
+                )
+            if self.precision is not None:
+                raise ValueError(
+                    "precision supports in-RAM Table fits only; the "
+                    "streamed trainer is not yet policy-gated"
+                )
             self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, features_col=cols[0], label_col=cols[1],
@@ -164,6 +179,18 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                 raise ValueError(
                     "solver='normal' is a one-shot closed form; "
                     "checkpointing applies to solver='sgd'"
+                )
+            if self.sharding_plan is not None:
+                raise ValueError(
+                    "solver='normal' does not thread a sharding_plan "
+                    "(the closed form materializes the replicated "
+                    "[d, d] gram); use solver='sgd'"
+                )
+            if self.precision is not None:
+                raise ValueError(
+                    "solver='normal' does not thread a precision policy "
+                    "(the closed form is a one-shot f32 solve); use "
+                    "solver='sgd'"
                 )
             if self.get(self.ELASTIC_NET) > 0:
                 raise ValueError(
@@ -183,7 +210,9 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
             table, *cols,
             global_batch_size=self.get(
                 _LinearRegressionParams.GLOBAL_BATCH_SIZE),
-            seed=self.get_seed(), mesh=self.mesh, **self._hyper(),
+            seed=self.get_seed(), mesh=self.mesh,
+            sharding_plan=self.sharding_plan, precision=self.precision,
+            **self._hyper(),
         )
         return self._make_model(coef)
 

@@ -79,7 +79,13 @@ def _check_labels(y: np.ndarray) -> None:
 
 class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
     """Fits a LinearSVC from a Table (dense or SparseVector features), an
-    iterable of batch Tables, or a sealed DataCache."""
+    iterable of batch Tables, or a sealed DataCache. ``sharding_plan``
+    and ``precision`` take the dense in-RAM fit through the plan trainer
+    and are refused on the other paths (the JAX package's
+    ``ValueError``)."""
+
+    _SHARDING_PLAN_AWARE = True
+    _PRECISION_AWARE = True
 
     def _make_model(self, coef) -> "LinearSVCModel":
         model = LinearSVCModel(mesh=self.mesh)
@@ -104,6 +110,16 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
                     label_col=self.get(_LinearSVCParams.LABEL_COL),
                     weight_col=self.get(_LinearSVCParams.WEIGHT_COL))
         if not isinstance(table, Table):
+            if self.sharding_plan is not None:
+                raise ValueError(
+                    "sharding_plan supports in-RAM Table fits only; "
+                    "streamed fits keep their replicated carry"
+                )
+            if self.precision is not None:
+                raise ValueError(
+                    "precision supports in-RAM Table fits only; the "
+                    "streamed trainer is not yet policy-gated"
+                )
             self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, label_check=_check_labels,
@@ -115,7 +131,9 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
         coef = _linear_sgd.train_linear_model_from_table(
             table, *cols.values(), label_check=_check_labels,
             global_batch_size=self.get(_LinearSVCParams.GLOBAL_BATCH_SIZE),
-            seed=self.get_seed(), mesh=self.mesh, **self._hyper(),
+            seed=self.get_seed(), mesh=self.mesh,
+            sharding_plan=self.sharding_plan, precision=self.precision,
+            **self._hyper(),
         )
         return self._make_model(coef)
 

@@ -261,9 +261,14 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
     The constructor takes the JAX estimator's knobs (see
     :class:`~flinkml_tpu_torch.models._streaming.StreamingEstimatorMixin`):
     ``mesh`` trains the in-RAM fits data parallel; ``sharding_plan`` and
-    ``precision`` raise ``NotImplementedError`` naming their ROADMAP.md
-    items when set.
+    ``precision`` route the dense binomial fit through the plan trainer
+    (:func:`flinkml_tpu_torch.sharding.apply.train_linear_plan`) and are
+    refused on the sparse, multinomial and streamed fits with the JAX
+    package's ``ValueError``.
     """
+
+    _SHARDING_PLAN_AWARE = True
+    _PRECISION_AWARE = True
 
     def fit(self, *inputs) -> LogisticRegressionModel:
         (table,) = inputs
@@ -285,6 +290,19 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
             **self._checkpoint_kwargs(),
         )
         if sparse_features(table, features_col) is not None:
+            if self.sharding_plan is not None:
+                raise ValueError(
+                    "sharding_plan supports the dense binomial path "
+                    "only; the sparse trainer keeps its replicated "
+                    "[dim] model (shard it via ROADMAP item 5's "
+                    "embedding-table path instead)"
+                )
+            if self.precision is not None:
+                raise ValueError(
+                    "precision supports the dense binomial path only; "
+                    "the sparse trainer's gather/segment-sum kernels "
+                    "are not yet policy-gated"
+                )
             indptr, indices, values, dim, y, w = labeled_sparse_data(
                 table, features_col, label_col, weight_col)
             if _resolve_multi_class(multi_class, y) == "multinomial":
@@ -306,6 +324,18 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
             if _resolve_multi_class(multi_class, y) == "multinomial":
                 # Softmax cross-entropy over integer classes 0..k-1: the
                 # coefficient is [k, d].
+                if self.sharding_plan is not None:
+                    raise ValueError(
+                        "sharding_plan supports the dense binomial "
+                        "path only (the softmax trainer is not yet "
+                        "plan-aware)"
+                    )
+                if self.precision is not None:
+                    raise ValueError(
+                        "precision supports the dense binomial path "
+                        "only (the softmax trainer is not yet "
+                        "policy-gated)"
+                    )
                 num_classes = _check_multinomial_labels(y)
                 coef = _linear_sgd.train_softmax_model(
                     x, y, w, num_classes=num_classes, elastic_net=0.0,
@@ -313,7 +343,9 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
                 )
             else:
                 _check_binomial_labels(y)
-                coef = train_logistic_regression(x, y, w, **hyper)
+                coef = train_logistic_regression(
+                    x, y, w, sharding_plan=self.sharding_plan,
+                    precision=self.precision, **hyper)
 
         model = LogisticRegressionModel(mesh=self.mesh)
         model.copy_params_from(self)
@@ -328,6 +360,16 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
             raise ValueError(
                 "multinomial logistic regression does not support "
                 "streamed fits; materialize the data as a Table"
+            )
+        if self.sharding_plan is not None:
+            raise ValueError(
+                "sharding_plan supports in-RAM Table fits only; streamed "
+                "fits keep their replicated carry"
+            )
+        if self.precision is not None:
+            raise ValueError(
+                "precision supports in-RAM Table fits only; the streamed "
+                "trainer is not yet policy-gated"
             )
         coef = _linear_sgd.streamed_linear_fit(
             source,
@@ -437,8 +479,16 @@ def train_logistic_regression(
             checkpoint_interval=checkpoint_interval, resume=resume,
             sharding_plan=sharding_plan, precision=precision, mesh=mesh,
         )
-    _linear_sgd.refuse_unported(sharding_plan=sharding_plan,
-                                precision=precision)
+    if sharding_plan is not None:
+        raise ValueError(
+            "sharding_plan is supported in mode='device' only (the host "
+            "iterate loop replicates its carry)"
+        )
+    if precision is not None:
+        raise ValueError(
+            "precision is supported in mode='device' only (the "
+            "policy-gated step lives on the plan-sharded path)"
+        )
     _linear_sgd.check_mesh(mesh)
     if _linear_sgd.multi_rank(mesh) and checkpoint_manager is not None:
         raise NotImplementedError(

@@ -75,6 +75,7 @@ class DeviceMesh:
 
             self.mesh = _TorchMesh(device.type, torch.as_tensor(self._ranks),
                                    mesh_dim_names=names)
+        self._product_groups: Dict[Tuple[str, ...], Any] = {}
         where = np.argwhere(self._ranks == self.rank)
         self.coordinate: Optional[Tuple[int, ...]] = (
             tuple(int(i) for i in where[0]) if where.size else None)
@@ -124,6 +125,48 @@ class DeviceMesh:
         axis = self._names.index(name)
         coord[axis] = slice(None)
         return tuple(int(r) for r in self._ranks[tuple(coord)])
+
+    def group_over(self, axes: Sequence[str]):
+        """``(group, ranks)``: the process group of this rank's slice of
+        the mesh over ``axes`` (every rank that shares this rank's
+        coordinates on the other axes: the product of ``axes``), and that
+        slice's ranks in row-major order over ``axes``, the order
+        ``NamedSharding`` lays a dim sharded over them. ``(None,
+        (rank,))`` without a process group or for no axes. One axis is
+        its own group; a product of several makes one group per slice the
+        first time it is asked for, a collective call: every rank of the
+        process group asks for the same products in the same order (the
+        SPMD rule)."""
+        axes = tuple(axes)
+        if self.mesh is None or not axes:
+            return None, (self.rank,)
+        if len(axes) == 1:
+            return self.group(axes[0]), self.axis_ranks(axes[0])
+        cached = self._product_groups.get(axes)
+        if cached is None:
+            import torch.distributed as dist
+
+            idx = [self._names.index(a) for a in axes]
+            others = [i for i in range(len(self._names)) if i not in idx]
+            width = int(np.prod([self._ranks.shape[i] for i in idx]))
+            rows = self._ranks.transpose(others + idx).reshape(-1, width)
+            cached = (None, (self.rank,))
+            for row in rows:
+                ranks = tuple(int(r) for r in row)
+                group = dist.new_group(list(ranks))
+                if self.rank in ranks:
+                    cached = (group, ranks)
+            self._product_groups[axes] = cached
+        return cached
+
+    def coordinate_of(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over ``axes`` (0 for no axes): the
+        block of a dim sharded over their product that it holds."""
+        index = 0
+        for a in axes:
+            index = index * self.axis_size(a) + (
+                self.axis_index(a) if self.coordinate is not None else 0)
+        return index
 
     # -- plan-shaped construction ------------------------------------------
     @classmethod

@@ -85,12 +85,34 @@ def is_narrower(a, b) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Finding:
-    """One precision-check finding: the rule id (``FML601`` ...), the
-    message, and the column or constant it names."""
+    """One check's finding: the rule id (``FML601``, ``FML502`` ...), the
+    message, the column or constant it names, and, as the JAX package's
+    ``analysis.findings.Finding`` carries them, the stage (a plan's or a
+    program's name), the file it came from and a fix hint. Every FML5xx
+    and FML6xx rule is an error."""
 
     rule: str
     message: str
     column: Optional[str] = None
+    stage: Optional[str] = None
+    location: Optional[str] = None
+    fix_hint: Optional[str] = None
+
+    @property
+    def severity(self) -> str:
+        return "error"
+
+    def render(self) -> str:
+        where = " @ ".join(p for p in (self.location, self.stage) if p)
+        head = f"{self.rule} [{self.severity}]"
+        if where:
+            head += f" {where}"
+        if self.column:
+            head += f" (column {self.column!r})"
+        out = f"{head}: {self.message}"
+        if self.fix_hint:
+            out += f"\n    fix: {self.fix_hint}"
+        return out
 
 
 class PrecisionValidationError(ValueError):
@@ -142,6 +164,10 @@ class PrecisionPolicy:
     @property
     def accum_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.accum]
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.params]
 
     @property
     def mixed(self) -> bool:
@@ -213,6 +239,108 @@ def resolve_policy(policy) -> Optional[PrecisionPolicy]:
     if isinstance(policy, Mapping):
         return PrecisionPolicy.from_json_dict(policy)
     raise TypeError(f"cannot interpret {policy!r} as a PrecisionPolicy")
+
+
+# -- the trainer rules (FML601/603/604/605), from declared widths ------------
+
+
+def check_policy_plan(policy: PrecisionPolicy,
+                      dtype_bytes: Optional[int] = None,
+                      plan_name: Optional[str] = None,
+                      location: Optional[str] = None):
+    """FML605 when a sharding plan's budget math assumed a parameter width
+    (``dtype_bytes``, the width ``infer_plan``/FML503 used) other than
+    ``policy.params``'s. None when no width was assumed."""
+    if dtype_bytes is None:
+        return []
+    want = int(policy.params_dtype.itemsize)
+    if int(dtype_bytes) == want:
+        return []
+    label = f"plan {plan_name!r}" if plan_name else "the sharding plan"
+    return [Finding(
+        "FML605",
+        f"{label} budgets parameters at {int(dtype_bytes)} B/elem but the "
+        f"policy stores params as {policy.params} ({want} B/elem) — the "
+        "HBM footprint the plan validated is not the footprint that will "
+        "exist",
+        stage=plan_name, location=location,
+        fix_hint="validate the plan with dtype_bytes = the itemsize of "
+                 "policy.params (and re-run infer_plan — a budget that fit "
+                 "at 2 B may not fit at 4 B)",
+    )]
+
+
+def check_trainer_widths(policy: PrecisionPolicy, state, accumulations,
+                         collectives=(), program: str = "program"):
+    """FML601/603/604 for a trainer step from the widths it declares (the
+    port walks no program; each step states where it rounds):
+
+    - ``state``: ``{leaf name: dtype}`` of the stored parameters and
+      optimizer state — FML603 for a leaf narrower than ``policy.params``;
+    - ``accumulations``: ``{site: dtype}`` of every reduction, dot
+      accumulator and state update — FML601 for one narrower than
+      ``policy.accum``;
+    - ``collectives``: ``(name, dtype, precast_from)`` of every cross-rank
+      collective — FML604 for one narrower than ``policy.accum`` unless
+      ``precast_from`` (the width it was explicitly cast down from, the
+      sanctioned bandwidth trade) is at least ``policy.accum``.
+    """
+    findings = []
+    for name, dt in state.items():
+        if significand_bits(dt) < significand_bits(policy.params):
+            findings.append(Finding(
+                "FML603",
+                f"parameter/optimizer-state leaf {name!r} is stored as "
+                f"{float_name(dt)}, narrower than policy.params "
+                f"({policy.params})",
+                column=name, stage=program,
+                fix_hint="keep master weights and optimizer moments at "
+                         "policy.params; cast to policy.compute only at the "
+                         "step boundary",
+            ))
+    seen = set()
+    for site, dt in accumulations.items():
+        if significand_bits(dt) < significand_bits(policy.accum) \
+                and site not in seen:
+            seen.add(site)
+            findings.append(Finding(
+                "FML601",
+                f"{site} accumulates in {float_name(dt)}, narrower than "
+                f"policy.accum ({policy.accum})",
+                stage=program,
+                fix_hint="store state at policy.params, multiply at "
+                         "policy.compute with a policy.accum accumulator, "
+                         "and run every state update at policy.accum",
+            ))
+    for name, dt, precast_from in collectives:
+        if significand_bits(dt) >= significand_bits(policy.accum):
+            continue
+        if precast_from is not None and \
+                significand_bits(precast_from) >= significand_bits(policy.accum):
+            continue
+        findings.append(Finding(
+            "FML604",
+            f"collective {name!r} operates on {float_name(dt)} — narrower "
+            f"than policy.accum ({policy.accum}) — without an explicit "
+            "pre-cast",
+            stage=program,
+            fix_hint="run collectives at policy.accum, or cast down "
+                     "explicitly right before the collective",
+        ))
+    return findings
+
+
+def raise_findings(findings, program: str, policy: PrecisionPolicy) -> None:
+    """Raise :class:`PrecisionValidationError` carrying ``findings`` (the
+    JAX package's ``validate_precision`` message) when there are any."""
+    errors = [f for f in findings if f.severity == "error"]
+    if errors:
+        raise PrecisionValidationError(
+            f"program {program!r} failed precision-flow validation "
+            f"against policy {policy.describe()}:\n"
+            + "\n".join(f.render() for f in errors),
+            findings=errors,
+        )
 
 
 # -- post-training quantization (the int8 tier's storage transform) ----------

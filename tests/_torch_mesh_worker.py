@@ -1,10 +1,11 @@
 """One rank of the port's multi-rank parity runs (``tests/test_torch_
-parallel.py``, ``tests/test_torch_data_parallel.py``).
+parallel.py``, ``tests/test_torch_data_parallel.py``,
+``tests/test_torch_sharding.py``, ``tests/test_torch_naive_bayes.py``).
 
 Run as a script by :func:`flinkml_tpu_torch.parallel.launch.spawn_ranks`,
 one process per rank, over gloo on the CPU:
 
-    python tests/_torch_mesh_worker.py {parallel|fits} OUT_DIR
+    python tests/_torch_mesh_worker.py {parallel|fits|plans|naive_bayes} OUT_DIR
 
 It imports numpy, torch and the port only (never ``jax`` or
 ``flinkml_tpu``), builds the inputs with :func:`make_inputs` from numpy
@@ -297,6 +298,121 @@ def fit_cases(mesh, world: int, workdir: str) -> dict:
     return out
 
 
+# -- the sharding plans (test_torch_sharding.py) ----------------------------------------
+
+PLAN_NAMES = ("replicated", "batch_parallel", "fsdp", "fsdp_tp", "embedding")
+PLAN_KW = dict(max_iter=8, learning_rate=0.5, global_batch_size=48,
+               reg=0.01, elastic_net=0.3)
+PLAN_DIM = 64
+BUDGET_EPOCHS, BUDGET_INTERVAL = 12, 4
+
+
+def plan_data(n=128, dim=PLAN_DIM, seed=0):
+    """Seeded rows, planted labels and weights for the plan fits."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim))
+    y = (x @ rng.normal(size=dim) > 0).astype(np.float64)
+    return x, y, rng.uniform(0.5, 2.0, size=n)
+
+
+def budget_bytes(dim=PLAN_DIM, itemsize=8) -> int:
+    """A budget the replicated coef + momentum provably exceed."""
+    return int(dim * itemsize * 2 * 0.75)
+
+
+def plan_cases(world: int, workdir: str) -> dict:
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.parallel import dispatch
+    from flinkml_tpu_torch.parallel.mesh import DeviceMesh
+    from flinkml_tpu_torch.sharding import (
+        BATCH_PARALLEL,
+        FSDP,
+        PRESETS,
+        PlanValidationError,
+        shard_state,
+    )
+    from flinkml_tpu_torch.sharding.apply import (
+        init_linear_state,
+        train_linear_plan,
+    )
+
+    out = {}
+    x, y, w = plan_data()
+    meshes = {name: DeviceMesh.for_plan(PRESETS[name]) for name in PLAN_NAMES}
+    for name in PLAN_NAMES:
+        for opt in ("sgd", "adam"):
+            for dt in ("float64", "float32"):
+                out[f"plan_{name}_{opt}_{dt}"] = train_linear_plan(
+                    x.astype(dt), y, w, PRESETS[name], meshes[name],
+                    optimizer=opt, **PLAN_KW)
+    stats = {}
+    events = []
+    dispatch.add_dispatch_observer(events.append)
+    try:
+        train_linear_plan(x, y, w, FSDP, meshes["fsdp"], stats=stats,
+                          **PLAN_KW)
+    finally:
+        dispatch.remove_dispatch_observer(events.append)
+    out["fsdp_collectives"] = np.asarray(
+        [stats["collectives"]["all_gather"], stats["collectives"]["all_reduce"],
+         stats["steps"], len(events)])
+    state = shard_state(FSDP, meshes["fsdp"],
+                        init_linear_state(PLAN_DIM, "adam", np.float64))
+    out["local_fsdp_coef_shape"] = np.asarray(state["coef"].to_local().shape)
+    out["fsdp_placements"] = np.asarray(
+        [repr(p) for p in state["coef"].placements])
+    out["fsdp_step_placements"] = np.asarray(
+        [repr(p) for p in state["step"].placements])
+    # The estimators over a data mesh: the plan's mesh is rebuilt over the
+    # same ranks.
+    table = fml.Table({"features": x, "label": y})
+    out["lr_estimator_fsdp"] = (fml.LogisticRegression(
+        mesh=DeviceMesh(), sharding_plan=FSDP).set_seed(3).set_max_iter(6)
+        .fit(table).coefficient)
+    out["lr_estimator_mixed"] = (fml.LogisticRegression(
+        mesh=DeviceMesh(), precision="mixed").set_seed(3).set_max_iter(6)
+        .fit(table).coefficient)
+    # Over budget replicated: refused before any step; FSDP trains with
+    # plan-tagged snapshots that resume at another world.
+    budget = budget_bytes()
+    try:
+        train_linear_plan(x, y, w, BATCH_PARALLEL, meshes["batch_parallel"],
+                          hbm_budget_bytes=budget, max_iter=1)
+        out["budget_refused"] = np.asarray([0])
+    except PlanValidationError as e:
+        out["budget_refused"] = np.asarray([int("FML503" in str(e))])
+    if PLAN_DIM * 8 * 2 // world <= budget:
+        mgr = CheckpointManager(os.path.join(workdir, "ckpt_fsdp"),
+                                max_to_keep=10, rescale="reshard")
+        out["budget_fsdp"] = train_linear_plan(
+            x, y, None, FSDP, meshes["fsdp"], max_iter=BUDGET_EPOCHS,
+            learning_rate=0.5, hbm_budget_bytes=budget,
+            checkpoint_manager=mgr, checkpoint_interval=BUDGET_INTERVAL)
+    return out
+
+
+def naive_bayes_cases(world: int) -> dict:
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.parallel.mesh import DeviceMesh
+
+    x, y = naive_bayes_data()
+    model = fml.NaiveBayes(mesh=DeviceMesh()).fit(
+        fml.Table({"features": x, "label": y}))
+    (t,) = model.transform(fml.Table({"features": x}))
+    return {"nb_theta": model._theta, "nb_pi": model._pi,
+            "nb_pred": np.asarray(t.column("prediction"))}
+
+
+def naive_bayes_data(n=601, seed=4):
+    """Integer categories of seven features (n odd: the cells pad)."""
+    rng = np.random.default_rng(seed)
+    cards = (3, 5, 2, 7, 4, 9, 6)
+    x = np.stack([rng.integers(0, c, size=n) for c in cards], 1)
+    y = ((x[:, 0] + x[:, 3] + rng.integers(0, 2, size=n)) % 3).astype(float)
+    return x.astype(np.float64), y
+
+
 def main(argv) -> int:
     which, out_dir = argv[1], argv[2]
     import flinkml_tpu_torch as fml
@@ -309,6 +425,10 @@ def main(argv) -> int:
         mesh = DeviceMesh()
         if which == "parallel":
             out = parallel_cases(mesh, world)
+        elif which == "plans":
+            out = plan_cases(world, out_dir)
+        elif which == "naive_bayes":
+            out = naive_bayes_cases(world)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

@@ -1378,3 +1378,68 @@ def test_kmeans_stream_resume_on_card_bit_for_bit(cuda_device, tmp_path):
         plain = _kmeans.train_kmeans_stream(cache, **kw)
     np.testing.assert_array_equal(resumed, golden)
     np.testing.assert_allclose(golden, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("plan_name", ["replicated", "fsdp", "fsdp_tp"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_plan_fit_on_card_matches_cpu(cuda_device, plan_name, optimizer):
+    """``train_linear_plan`` at world 1 on the card (no process group: the
+    step runs whole, no collective) equals the CPU fit within 1e-12
+    (float64) and 1e-5 (float32); under ``mixed`` (bf16-rounded operands
+    multiplied at float32) within 1e-5 of the CPU's mixed fit, and apart
+    from the float32 fit but within 2e-2."""
+    from flinkml_tpu_torch.sharding import PRESETS, train_linear_plan
+
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(5000, 64))
+    y = (x @ rng.normal(size=64) > 0).astype(np.float64)
+    kw = dict(optimizer=optimizer, max_iter=10, learning_rate=0.3,
+              global_batch_size=1024, reg=0.01, elastic_net=0.2)
+    plan = PRESETS[plan_name]
+    for dtype, tol in ((np.float64, 1e-12), (np.float32, 1e-5)):
+        with fml.use_device(cuda_device):
+            got = train_linear_plan(x.astype(dtype), y, None, plan, **kw)
+        with fml.use_device("cpu"):
+            want = train_linear_plan(x.astype(dtype), y, None, plan, **kw)
+        assert got.dtype == want.dtype == dtype
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    with fml.use_device(cuda_device):
+        mixed = train_linear_plan(x, y, None, plan, precision="mixed", **kw)
+        full = train_linear_plan(x, y, None, plan, dtype=np.float32, **kw)
+    with fml.use_device("cpu"):
+        want = train_linear_plan(x, y, None, plan, precision="mixed", **kw)
+    np.testing.assert_allclose(mixed, want, rtol=0, atol=1e-5)
+    assert np.abs(mixed - full).max() > 0
+    np.testing.assert_allclose(mixed, full, rtol=0, atol=2e-2)
+
+
+def test_naive_bayes_counts_on_card(cuda_device):
+    """NaiveBayes' counts on the card: one ``segment_sum`` launch of
+    float64 ones over the flat (label, feature, category) ids, equal to
+    ``np.add.at`` bit for bit; ``theta``, ``pi`` and the predictions equal
+    the CPU fit bit for bit."""
+    from flinkml_tpu_torch.models import naive_bayes as nb
+    from flinkml_tpu_torch.parallel import DeviceMesh
+
+    rng = np.random.default_rng(32)
+    n = 50_001
+    cards = (9, 16, 7, 15, 6, 5, 2, 42, 73, 16, 99)
+    x = np.stack([rng.integers(0, c, size=n) for c in cards], 1).astype(float)
+    y = ((x[:, 0] + x[:, 3] + rng.integers(0, 2, size=n)) % 2).astype(float)
+    flat = rng.integers(0, 4000, size=n * 11)
+    want = np.zeros(4000)
+    np.add.at(want, flat, 1.0)
+    with fml.use_device(cuda_device):
+        before = ksegsum.LAUNCHES.count
+        counts = nb.count_triples(DeviceMesh(), flat, 4000)
+        assert ksegsum.LAUNCHES.count == before + 1
+        model = fml.NaiveBayes().fit(fml.Table({"features": x, "label": y}))
+        (got,) = model.transform(fml.Table({"features": x}))
+    np.testing.assert_array_equal(counts, want)
+    with fml.use_device("cpu"):
+        cpu = fml.NaiveBayes().fit(fml.Table({"features": x, "label": y}))
+        (ref,) = cpu.transform(fml.Table({"features": x}))
+    np.testing.assert_array_equal(model._theta, cpu._theta)
+    np.testing.assert_array_equal(model._pi, cpu._pi)
+    np.testing.assert_array_equal(got.column("prediction"),
+                                  ref.column("prediction"))

@@ -282,7 +282,8 @@ def test_sharded_blocks_per_rank(on_cpu):
 
 
 def test_streamed_fits_on_a_mesh_refused(on_cpu):
-    """The multi-process streams are item 7c; sharding plans 7b."""
+    """The multi-process streams are item 7c; sharding plans (7b) are
+    ported, and a streamed fit refuses a plan with JAX's ``ValueError``."""
     mesh = fml.parallel.DeviceMesh()
     x, y, _ = worker.dense_lr_data(n=20)
     table = fml.Table({"features": x, "label": y})
@@ -292,6 +293,8 @@ def test_streamed_fits_on_a_mesh_refused(on_cpu):
             est.fit([table])
     with pytest.raises(NotImplementedError, match="item 7c"):
         fml.KMeans(mesh=mesh).fit([fml.Table({"features": x})])
+    from flinkml_tpu_torch.sharding import REPLICATED
+
     for cls in (fml.LogisticRegression, fml.LinearSVC, fml.LinearRegression):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            cls(sharding_plan="replicated")
+        with pytest.raises(ValueError, match="in-RAM Table fits only"):
+            cls(sharding_plan=REPLICATED).fit([table])

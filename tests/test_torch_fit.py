@@ -539,13 +539,27 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch, mesh1):
         JaxTable({"features": x, "label": y})).coefficient
     np.testing.assert_allclose(meshed.coefficient, want, rtol=F64_FIT_TOL,
                                atol=F64_FIT_TOL)
-    for knob, value, item in (("sharding_plan", "replicated", "item 7b"),
-                              ("precision", "mixed", "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            fml.LogisticRegression(**{knob: value})
-    # Elastic resume and the multi-process online stream: item 7c.
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        t_iteration.CheckpointManager(str(tmp_path), rescale="reshard")
+    # Sharding plans (item 7b) and the fit half of the precision
+    # policies (item 3) are ported: parity cases with JAX's fits on its
+    # one-device mesh (more in tests/test_torch_sharding.py and
+    # tests/test_torch_plan_precision.py).
+    from flinkml_tpu.sharding import plan as jax_plan
+    from flinkml_tpu_torch.sharding import plan as t_plan
+
+    for knobs, jax_knobs, tol in (
+            ({"sharding_plan": t_plan.REPLICATED},
+             {"sharding_plan": jax_plan.REPLICATED}, F64_FIT_TOL),
+            ({"precision": "mixed"}, {"precision": "mixed"}, 1e-5)):
+        got = fml.LogisticRegression(**knobs).set_seed(1).fit(table)
+        want = jax_lr.LogisticRegression(mesh=mesh1, **jax_knobs).set_seed(
+            1).fit(JaxTable({"features": x, "label": y}))
+        np.testing.assert_allclose(got.coefficient, want.coefficient,
+                                   rtol=0, atol=tol)
+    # rescale="reshard" of assembled leaves is ported with 7b; the
+    # multi-process commits and the online stream's group stay item 7c.
+    assert t_iteration.CheckpointManager(
+        str(tmp_path), rescale="reshard").rescale_policy.on_mismatch == \
+        "reshard"
     with pytest.raises(NotImplementedError, match="item 7c"):
         t_ckpt.save_agreed(t_iteration.CheckpointManager(str(tmp_path)), {}, 1)
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)

@@ -460,20 +460,39 @@ def test_rescale_guard_uses_world_size(tmp_path):
 
 
 def test_reshard_and_multi_device_commits_refused(tmp_path):
-    """``rescale="reshard"`` and the multi-process commits are the
-    multi-device slice's (ROADMAP.md Queue 1 item 7)."""
-    for spec in ("reshard", t_ckpt.RescalePolicy.reshard):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            if callable(spec):
-                spec()
-            else:
-                CheckpointManager(str(tmp_path), rescale=spec)
+    """``rescale="reshard"`` of assembled leaves and ``save(plan=...)``
+    are ported with the sharding plans (item 7b): a snapshot of the JAX
+    package's manager under ``plan=`` and ``reshard`` restores the same
+    way in the port. The multi-process commits stay the multi-device
+    slice's (ROADMAP.md Queue 1 item 7c)."""
+    from flinkml_tpu.sharding import plan as jax_plan
+    from flinkml_tpu_torch.sharding import plan as t_plan
+
+    state = {"w": np.arange(4.0), "b": np.float64(2.0)}
+    JaxCheckpointManager(str(tmp_path / "jax"), world_size=4).save(
+        state, 1, plan=jax_plan.FSDP)
+    CheckpointManager(str(tmp_path / "port"), world_size=4).save(
+        state, 1, plan=t_plan.FSDP)
+    for d in ("jax", "port"):
+        with open(tmp_path / d / "ckpt-1" / "meta.json") as fh:
+            assert json.load(fh)["layouts"] == ["replicated", "sharded:0"]
+        for mgr in (CheckpointManager(str(tmp_path / d), world_size=2,
+                                      rescale="reshard"),
+                    JaxCheckpointManager(str(tmp_path / d), world_size=2,
+                                         rescale="reshard")):
+            got, _ = mgr.restore(1, like=state)
+            np.testing.assert_array_equal(got["w"], state["w"])
+        for mgr in (CheckpointManager(str(tmp_path / d), world_size=3,
+                                      rescale=t_ckpt.RescalePolicy.reshard()),
+                    JaxCheckpointManager(str(tmp_path / d), world_size=3,
+                                         rescale="reshard")):
+            with pytest.raises(ValueError, match="does not divide"):
+                mgr.restore(1, like=state)
     mgr = CheckpointManager(str(tmp_path))
     for call in (lambda: t_ckpt.save_agreed(mgr, {}, 1),
                  lambda: t_ckpt.rank_scoped(mgr),
                  lambda: t_ckpt.reshard_rank_state(str(tmp_path), 1, {},
-                                                   (0, 1)),
-                 lambda: mgr.save({"w": np.ones(2)}, 1, plan="replicated")):
+                                                   (0, 1))):
         with pytest.raises(NotImplementedError, match="item 7"):
             call()
 

@@ -256,6 +256,17 @@ def test_kmeans_refusals(on_cpu):
         with pytest.raises(ValueError, match="streamed fits only"):
             jax_kmeans.KMeans(mesh=_mesh1(), **knobs).fit(JaxTable(
                 {"features": x}))
+    # Sharding plans and precision policies (items 7b and 3) are ported
+    # for the linear family only: KMeans refuses both at construction
+    # with JAX's message, in both packages.
+    from flinkml_tpu_torch.sharding import FSDP
+
+    for knobs in ({"sharding_plan": FSDP}, {"precision": "mixed"}):
+        name = next(iter(knobs))
+        for cls in (fml.KMeans, jax_kmeans.KMeans):
+            with pytest.raises(ValueError,
+                               match=f"KMeans does not support {name}"):
+                cls(**knobs)
     in_ram = fml.KMeans(cache_dir="/nonexistent").set_seed(1).fit(t)
     assert in_ram.centroids.shape == (2, 3)
     with pytest.raises(TypeError, match="DeviceMesh"):

@@ -464,15 +464,35 @@ def test_normal_solver_collinear_min_norm(on_cpu):
                                atol=1e-3)
 
 
-def test_estimators_refuse_unported_knobs():
+def test_estimators_refuse_unported_knobs(on_cpu):
     """Sharding plans (item 7b) and precision policies (item 3) are
-    refused; ``mesh=`` is ported (its parity cases are in
-    ``tests/test_torch_data_parallel.py``) and takes a DeviceMesh."""
-    for cls in (fml.LinearSVC, fml.LinearRegression):
-        for knob, value, item in (("sharding_plan", "replicated", "item 7b"),
-                                  ("precision", "mixed", "item 3")):
-            with pytest.raises(NotImplementedError, match=item):
-                cls(**{knob: value})
+    ported: the dense in-RAM fits take them and agree with JAX's, and the
+    streamed fits refuse them with JAX's ``ValueError`` (more cases in
+    ``tests/test_torch_sharding.py``); ``mesh=`` is ported (its parity
+    cases are in ``tests/test_torch_data_parallel.py``) and takes a
+    DeviceMesh."""
+    from flinkml_tpu.sharding import plan as jax_plan
+    from flinkml_tpu_torch.sharding import plan as t_plan
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(48, 4))
+    y = (x[:, 0] > 0).astype(np.float64)
+    mesh1 = _mesh1()
+    for cls, jax_cls in ((fml.LinearSVC, jax_svc.LinearSVC),
+                         (fml.LinearRegression, jax_linreg.LinearRegression)):
+        for knobs, jax_knobs, tol in (
+                ({"sharding_plan": t_plan.FSDP},
+                 {"sharding_plan": jax_plan.FSDP}, 1e-10),
+                ({"precision": "mixed"}, {"precision": "mixed"}, 1e-5)):
+            got = cls(**knobs).set_seed(2).set_max_iter(4).fit(
+                fml.Table({"features": x, "label": y}))
+            want = jax_cls(mesh=mesh1, **jax_knobs).set_seed(2).set_max_iter(
+                4).fit(JaxTable({"features": x, "label": y}))
+            np.testing.assert_allclose(got.coefficient,
+                                       np.asarray(want._coefficient),
+                                       rtol=0, atol=tol)
+            with pytest.raises(ValueError, match="in-RAM Table fits only"):
+                cls(**knobs).fit([fml.Table({"features": x, "label": y})])
         with pytest.raises(TypeError, match="DeviceMesh"):
             cls(mesh=object())
 
