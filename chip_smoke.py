@@ -90,9 +90,9 @@ and fails with a non-zero exit if any phase fails:
    the host's CSR conversion and packing timed apart from the device loop;
 6a. streamed out-of-core sparse LR (path E): ``LogisticRegression().fit``
    of a DataCache of 16 Criteo-profile CSR batches of 65,536 rows (dim
-   1e6), half of them spilled to disk by the cache's memory budget, 5
-   epochs with a checkpoint every 2; a fit stopped at epoch 3 and resumed
-   to 5; the same fit from an in-RAM cache; each against a float64 numpy
+   1e6), half of them spilled to disk by the cache's memory budget, 3
+   epochs with a checkpoint every 2; a fit stopped at epoch 2 and resumed
+   to 3; the same fit from an in-RAM cache; each against a float64 numpy
    run of the same steps and against each other (1e-5 of the largest
    coefficient); samples/s, device share, the feed's wait per epoch, the
    step's ``spmv`` and ``segment_sum`` time per batch and the latter on
@@ -114,7 +114,7 @@ and fails with a non-zero exit if any phase fails:
    float64 numpy in the same batch order; H2, a prefetched ``Dataset`` of
    16 Criteo-profile batches of 65,536 ``SparseVector`` rows (dim 1e6)
    through the sorted-column stream (``spmv`` and the sorted
-   ``segment_sum``), 3 epochs, against float64 numpy and path E's CSR
+   ``segment_sum``), 2 epochs, against float64 numpy and path E's CSR
    stream, the two kernels held against their plain versions on the
    stream's own block and the sorted ``segment_sum`` timed with and
    without the block's padding run; H3, ``OnlineLogisticRegression.
@@ -126,20 +126,20 @@ and fails with a non-zero exit if any phase fails:
    path's shape against float64 numpy and the ``unsorted`` fit, its host
    tables and device loop timed apart, two runs bit for bit, and
    ``BatchedCSR.matvec``/``rmatvec`` at 65,536 Criteo rows against their
-   plain versions; I2, ``KMeans().fit`` over 16 batches of 65,536 x 784
-   float32 rows (half spilled by the cache's budget), 6 epochs with a
-   checkpoint every 3, a run from a sealed cache crashed at epoch 3 and
+   plain versions; I2, ``KMeans().fit`` over 8 batches of 65,536 x 784
+   float32 rows (half spilled by the cache's budget), 4 epochs with a
+   checkpoint every 2, a run from a sealed cache crashed at epoch 2 and
    resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
    init, then served behind a StandardScaler through ``fused_chain``; I3,
-   ``OnlineKMeans.fit_stream`` over 64 batches of 16,384 x 784 drifting
-   blobs, crashed at batch 32 and resumed bit for bit, against a float64
+   ``OnlineKMeans.fit_stream`` over 32 batches of 16,384 x 784 drifting
+   blobs, crashed at batch 16 and resumed bit for bit, against a float64
    numpy decay rule. Path I must launch ``spmv``, ``segment_sum`` and
    ``fused_chain``;
 6f. ``parallel/`` on ``torch.distributed`` (path J): J1,
    ``init_distributed`` at world 1 over nccl through a ``file://`` store,
    then the sparse LR fit at path B's width (``unsorted`` and ``sorted``),
    the dense LR fit at path 5's width and ``KMeans`` at 262,144 x 128,
-   k=64 (20 epochs), each with ``mesh=DeviceMesh()`` and without: equal
+   k=64 (20 epochs; the LR fits 10), each with ``mesh=DeviceMesh()`` and without: equal
    bit for bit (the ``unsorted`` fit, whose ``segment_sum`` adds by
    atomics, within 1e-5), the fits against float64 numpy; J2, two ranks
    spawned by the script on the one card over gloo with CUDA tensors
@@ -175,6 +175,24 @@ and fails with a non-zero exit if any phase fails:
    LogisticRegression on the census rows through fit, transform, save,
    load and transform, equal to the same stages as a ``Pipeline``. Path K
    must launch ``segment_sum``;
+6h. the streamed fits on several ranks (path L), in J2's two ranks over
+   gloo, each rank feeding its own partition: L1, the streamed sparse
+   ``LogisticRegression(mesh=...)`` at the Criteo profile (dim 1e6, 39
+   draws), rank 0 with 6 batches of 65,536 rows and rank 1 with 5 of
+   49,152 (padded rows and a dummy step), 3 epochs from a ``DataCache``
+   per rank that spills half its batches, a snapshot every epoch into the
+   shared directory, a run crashed at the end of epoch 3 and resumed: the
+   ranks bit for bit, the resumed fit within 1e-5 of the uninterrupted
+   one, the fit against a float64 numpy run of the combined-step stream;
+   the step's ``spmv`` and ``segment_sum`` on a rank's padded block and
+   on a dummy block against their plain versions, timed beside their
+   bounds; L2, a dense streamed LinearSVC at a9a's width; L3, a streamed
+   KMeans at 784 wide (k = 10, 4 x 65,536 rows a rank, k-means++ from the
+   pooled reservoirs) against the port's one-process fit over the
+   combined stream; L4, FTRL and OnlineKMeans over 16 x 16,384 rows a
+   rank; L5, a world-2 rank-scoped snapshot resharded to world 1. Prints
+   samples/s, the all-reduce a step, the feed's waits and the busy share;
+   path L must launch ``spmv`` and ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -2584,9 +2602,10 @@ def bf16_kernel_phase(torch, timer):
 # -- paths E, F, G: streamed, out-of-core and checkpointed linear fits --------------
 
 #: Path E: the Criteo profile streamed out of core, 16 batches of 65,536
-#: rows, half of the CSR bytes over the cache's memory budget.
-STREAM_BATCHES, STREAM_ROWS, STREAM_EPOCHS = 16, 65_536, 5
-STREAM_STOP, STREAM_INTERVAL = 3, 2
+#: rows, half of the CSR bytes over the cache's memory budget; 3 epochs
+#: (5 until path L joined the run), stopped at 2 and resumed.
+STREAM_BATCHES, STREAM_ROWS, STREAM_EPOCHS = 16, 65_536, 3
+STREAM_STOP, STREAM_INTERVAL = 2, 2
 STREAM_LR, STREAM_REG = 0.5, 1e-4
 #: Path F: BASELINE config #3 at ``bench.py:_inner_svc``'s workload.
 SVC_ROWS, SVC_D, SVC_BATCH, SVC_EPOCHS = 1_000_000, 123, 262_144, 20
@@ -2750,8 +2769,9 @@ def stream_path(torch, timer):
     """Path E: LogisticRegression streamed out of core over the Criteo
     profile (dim 1e6, 39 nnz a row, float32): 16 batches of 65,536 rows
     (1,048,576) in a DataCache whose memory budget is half the CSR bytes
-    (8 batches spill to a temporary directory), 5 epochs with a
-    checkpoint every 2; then a fit stopped at epoch 3 and resumed to 5,
+    (8 batches spill to a temporary directory), ``STREAM_EPOCHS`` epochs
+    with a checkpoint every ``STREAM_INTERVAL``; then a fit stopped at
+    epoch ``STREAM_STOP`` and resumed to the end,
     and the same fit from an in-RAM cache. Each against a float64 numpy
     run of the same steps in batch order within 1e-5 of the largest
     coefficient, and against each other within 1e-5 (the unsorted
@@ -2811,7 +2831,9 @@ def stream_path(torch, timer):
         steps = STREAM_BATCHES * STREAM_EPOCHS
         if counts["spmv"] != steps or counts["segment_sum"] != steps:
             fail(f"stream: launches {counts} in {steps} steps")
-        if mgr.all_epochs() != [2, 4, 5]:
+        if mgr.all_epochs() != sorted(
+                set(range(STREAM_INTERVAL, STREAM_EPOCHS + 1,
+                          STREAM_INTERVAL)) | {STREAM_EPOCHS}):
             fail(f"stream: checkpoints at {mgr.all_epochs()}")
 
         ref = numpy_csr_stream_fit(tuples, dim, STREAM_EPOCHS, STREAM_LR,
@@ -3115,11 +3137,12 @@ def ftrl_path(torch):
 #: through a LibSVM file, 16 batches of 16,384 rows, 20 epochs.
 A9A_ROWS, A9A_D, A9A_NNZ, A9A_BATCH, A9A_EPOCHS = 262_144, 123, 14, 16_384, 20
 A9A_SHUFFLE, A9A_LR = 8, 0.1
-#: H2: path E's Criteo profile (dim 1e6, 39 draws a row), 16 batches of
-#: 65,536 rows through a prefetched Dataset, path E's step sizes; 3 epochs
-#: (5, path E's, until path K joined the run: H2 runs its fit twice, the
-#: second under the profiler).
-SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 16, 65_536, 3
+#: H2: path E's Criteo profile (dim 1e6, 39 draws a row), 8 batches of
+#: 65,536 rows through a prefetched Dataset, path E's step sizes; 2 epochs
+#: (5, path E's, until path K joined the run, 3 until path L did: H2 runs
+#: its fit twice, the second under the profiler; 16 batches until path L's
+#: references ran after its ranks).
+SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 8, 65_536, 2
 #: H3: BASELINE config #4's width (path G) through an ElasticFeed.
 ELASTIC_WORLD, ELASTIC_RESUME_WORLD, ELASTIC_SHUFFLE = 4, 2, 4
 
@@ -3302,8 +3325,8 @@ class EpochClock:
 
 def sorted_stream_path(torch, timer):
     """Path H2: ``LogisticRegression(maxIter=5, tol=0).fit`` of a prefetched
-    ``Dataset`` at the Criteo profile (path E's: dim 1e6, 39 draws a row,
-    16 batches of 65,536 rows): a ``map`` builds each batch's
+    ``Dataset`` at the Criteo profile (path E's: dim 1e6, 39 draws a row;
+    ``SORTED_BATCHES`` batches of 65,536 rows): a ``map`` builds each batch's
     ``SparseVector`` column from the CSR, ``.prefetch(2)`` packs it into a
     ``SortedSparseColumn`` (ELL width 64, pack-time sort tables) on its
     worker, and the fit takes the sorted stream (``spmv`` forward, sorted
@@ -3570,16 +3593,18 @@ def elastic_path(torch):
 
 #: I1: BatchedCSR at the serving shape of Criteo rows.
 CSR_ROWS = 65_536
-#: I2: MNIST's width, 16 batches of 65,536 rows (3.3 GB of float32), the
-#: cache's memory budget at half of it; k = 10, 6 Lloyd epochs (20 until
-#: path J joined the run, 10 until path K did), a checkpoint every 3, a
-#: crash at 3.
-KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 16, 65_536, 784, 10
-KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 6, 3, 3
-#: I3: 64 batches of 16,384 drifting MNIST-width rows, k = 10, decay 0.9,
-#: a checkpoint every 16 batches, a crash at 32.
-OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 64, 16_384, 784, 10
-OKM_DECAY, OKM_INTERVAL, OKM_CRASH = 0.9, 16, 32
+#: I2: MNIST's width, 8 batches of 65,536 rows (1.6 GB of float32; 16
+#: until path L's references ran after its ranks), the cache's memory
+#: budget at half of it; k = 10, 4 Lloyd epochs (20 until path J joined
+#: the run, 10 until path K did, 6 until path L did), a checkpoint every
+#: 2, a crash at 2.
+KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 8, 65_536, 784, 10
+KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 4, 2, 2
+#: I3: 32 batches of 16,384 drifting MNIST-width rows (64 until path L's
+#: references ran after its ranks), k = 10, decay 0.9, a checkpoint every
+#: 8 batches, a crash at 16.
+OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 32, 16_384, 784, 10
+OKM_DECAY, OKM_INTERVAL, OKM_CRASH = 0.9, 8, 16
 
 
 def cumsum_path(torch, timer):
@@ -3723,12 +3748,14 @@ def cumsum_path(torch, timer):
 
 
 def kmeans_stream_path(torch):
-    """Path I2: ``KMeans().fit`` (k-means++ init) over an iterable of 16
-    Tables of 65,536 x 784 float32 blobs around k = 10 centres far apart
-    (so that no row lies near an assignment boundary once each centre has
-    a centroid), the cache's memory budget at half of the 3.3 GB so that
-    half spills, 10 Lloyd epochs with a checkpoint every 5. A fit from a sealed cache of the same batches crashed at
-    epoch 5 and resumed equals the uninterrupted one bit for bit (the
+    """Path I2: ``KMeans().fit`` (k-means++ init) over an iterable of
+    ``KMS_BATCHES`` Tables of 65,536 x 784 float32 blobs around k = 10
+    centres far apart (so that no row lies near an assignment boundary
+    once each centre has a centroid), the cache's memory budget at half of
+    their bytes so that half spills, ``KMS_EPOCHS`` Lloyd epochs with a checkpoint every
+    ``KMS_INTERVAL``. A fit from a sealed cache of the same batches crashed
+    at epoch ``KMS_CRASH`` and resumed equals the uninterrupted one bit
+    for bit (the
     one-hot product, no atomics); against the in-RAM ``train_kmeans``
     from the same initial centroids within 1e-5 of the largest
     coordinate. The model then serves behind a StandardScaler through the
@@ -3911,10 +3938,11 @@ def numpy_online_kmeans(batches, centroids, decay):
 
 
 def online_kmeans_path(torch):
-    """Path I3: ``OnlineKMeans.fit_stream`` over 64 seeded batches of
-    16,384 x 784 rows drawn around 10 centres that drift a little each
-    batch, warm-started near the first centres, decay 0.9, a checkpoint
-    every 16 batches; a run crashed at batch 32 and resumed (``replay``)
+    """Path I3: ``OnlineKMeans.fit_stream`` over ``OKM_BATCHES`` seeded
+    batches of 16,384 x 784 rows drawn around 10 centres that drift a
+    little each batch, warm-started near the first centres, decay 0.9, a
+    checkpoint every ``OKM_INTERVAL`` batches; a run crashed at batch
+    ``OKM_CRASH`` and resumed (``replay``)
     equals the uninterrupted one bit for bit; against a float64 numpy
     decay rule within 1e-9 of the largest coordinate."""
     import shutil
@@ -3990,7 +4018,9 @@ def online_kmeans_path(torch):
         "batch_rows": OKM_ROWS, "d": OKM_D, "k": OKM_K, "decay": OKM_DECAY,
         "fit_s": fit_s, "batches_per_s": OKM_BATCHES / fit_s,
         "samples_per_s": OKM_BATCHES * OKM_ROWS / fit_s,
-        "checkpoints": [16, 32, 48, 64], "resume_bit_exact": exact,
+        "checkpoints": list(range(OKM_INTERVAL, OKM_BATCHES + 1,
+                                  OKM_INTERVAL)),
+        "resume_bit_exact": exact,
         "rel_err": err}))
     if problems:
         fail("online kmeans: " + "; ".join(problems))
@@ -4022,6 +4052,9 @@ J2_WORLD, J2_TIMEOUT_S = 2, 420
 #: Path J's device and backends (world 1: nccl; two ranks on one card:
 #: gloo over CUDA tensors).
 J_DEVICE, J1_BACKEND, J2_BACKEND = "cuda", "nccl", "gloo"
+#: Path J's fits: 10 epochs (``FIT_EPOCHS``, 20, until path L joined the
+#: run).
+J_EPOCHS = 10
 
 
 def _sync(torch):
@@ -4077,13 +4110,13 @@ def mesh_fits(torch, mesh, data):
     indptr, indices, values, y, w = data["csr"]
     for layout in ("unsorted", "sorted"):
         secs, coef = _seconds(torch, lambda: sgd.train_linear_model_sparse_csr(
-            indptr, indices, values, SPMV_DIM, y, w, "logistic", FIT_EPOCHS,
+            indptr, indices, values, SPMV_DIM, y, w, "logistic", J_EPOCHS,
             FIT_LR, FIT_BATCH, 0.0, 0.0, 0.0, 0, layout=layout, mesh=mesh))
         out[f"sparse_{layout}"] = (coef, secs)
     x, yd, _ = data["dense"]
     table = fml.Table({"features": x, "label": yd})
     est = (fml.LogisticRegression(mesh=mesh).set_seed(0).set_tol(0.0)
-           .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+           .set_global_batch_size(FIT_BATCH).set_max_iter(J_EPOCHS)
            .set_learning_rate(FIT_LR))
     secs, model = _seconds(torch, lambda: est.fit(table))
     out["dense"] = (model.coefficient, secs)
@@ -4143,7 +4176,7 @@ def mesh_world1(torch, data, plain, refs):
         rec.setdefault("max_abs_err_vs_float64", {})[name] = err
         if not err <= 1e-4 * np.abs(ref).max():
             fail(f"path J1: {name} differs from float64 numpy by {err}")
-    step_s = meshed["sparse_sorted"][1] / FIT_EPOCHS
+    step_s = meshed["sparse_sorted"][1] / J_EPOCHS
     rec["all_reduce_share_of_sparse_step"] = ar_ms / 1e3 / step_s
     return rec
 
@@ -4154,8 +4187,9 @@ def j2_rank(out_dir: str) -> int:
     tensors on the current card, runs the sparse LR fit (``unsorted``) at
     path B's width and the dense LR fit on a mesh of every rank, then
     ``keyed_aggregate`` of the sparse fit's cells (262,144 x 39 values by
-    column into 1e6 segments); writes its results, times and launch counts
-    to ``OUT_DIR/rank<r>.npz``."""
+    column into 1e6 segments), then paths K2 (:func:`k2_rank`) and L
+    (:func:`l_rank`, its launches counted apart); writes its results,
+    times and launch counts to ``OUT_DIR/rank<r>.npz``."""
     import torch
 
     import flinkml_tpu_torch as fml
@@ -4171,11 +4205,11 @@ def j2_rank(out_dir: str) -> int:
         indptr, indices, values, y, w = make_criteo_csr(
             SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ, seed=0)
         sparse_s, sparse = _seconds(torch, lambda: sgd.train_linear_model_sparse_csr(
-            indptr, indices, values, SPMV_DIM, y, w, "logistic", FIT_EPOCHS,
+            indptr, indices, values, SPMV_DIM, y, w, "logistic", J_EPOCHS,
             FIT_LR, FIT_BATCH, 0.0, 0.0, 0.0, 0, layout="unsorted", mesh=mesh))
         x, yd, _ = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
         est = (fml.LogisticRegression(mesh=mesh).set_seed(0).set_tol(0.0)
-               .set_global_batch_size(FIT_BATCH).set_max_iter(FIT_EPOCHS)
+               .set_global_batch_size(FIT_BATCH).set_max_iter(J_EPOCHS)
                .set_learning_rate(FIT_LR))
         dense_s, model = _seconds(torch, lambda: est.fit(
             fml.Table({"features": x, "label": yd})))
@@ -4184,13 +4218,16 @@ def j2_rank(out_dir: str) -> int:
         counts = fml.launch_counts()
         ar_ms = all_reduce_ms(torch, mesh, SPMV_DIM + 2)
         k2 = k2_rank(torch, x, yd, out_dir)
+        del x, yd
+        l_out = l_rank(torch, mesh, rank, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), sparse=sparse,
                  dense=model.coefficient, keyed=keyed.cpu().numpy(),
                  seconds=np.asarray([sparse_s, dense_s, keyed_s]),
                  all_reduce_ms=np.asarray([ar_ms]),
                  launches=np.asarray([counts["spmv"], counts["segment_sum"]]),
                  rank_world=np.asarray([rank, world]),
-                 device=np.asarray([mesh.device.index or 0]), **k2)
+                 device=np.asarray([mesh.device.index or 0]), **k2,
+                 **l_out)
     finally:
         pdist.shutdown_distributed()
     return 0
@@ -4241,6 +4278,445 @@ def k2_rank(torch, x, y, out_dir):
                  stats["collectives"]["all_reduce"] / steps])}
 
 
+# -- path L: the streamed fits on several ranks (in J2's two ranks) -------------------
+
+#: L1: the streamed sparse LR, Criteo profile, each rank its own partition:
+#: rank r holds L_BATCHES[r] batches of L_ROWS[r] rows (uneven heights and
+#: counts: padded rows and a dummy step), 3 epochs, a snapshot every epoch
+#: into the shared directory, a crash at the end of epoch L_CRASH + 1.
+L_BATCHES, L_ROWS = (6, 5), (65_536, 49_152)
+L_EPOCHS, L_CRASH = 3, 2
+#: L2: a dense streamed LinearSVC at a9a's width (123).
+L_SVC_BATCHES, L_SVC_ROWS = (4, 3), (65_536, 49_152)
+#: L3: a streamed KMeans at 784 wide, k = 10, k-means++ from the ranks'
+#: pooled reservoirs.
+L_KM_BATCHES, L_KM_ROWS, L_KM_D, L_KM_K, L_KM_EPOCHS = 4, 65_536, 784, 10, 3
+#: L4: FTRL (123 wide) and OnlineKMeans (784 wide) over these batches a rank.
+L_ON_BATCHES, L_ON_ROWS = 16, 16_384
+
+
+def l_sparse(rank):
+    """L1's partition of rank ``rank``: flat CSR dicts and host tuples."""
+    n, rows = L_BATCHES[rank] * L_ROWS[rank], L_ROWS[rank]
+    indptr, indices, values, y, _ = make_criteo_csr(n, SPMV_DIM, SPMV_NNZ,
+                                                    seed=20 + rank)
+    return csr_batch_dicts(indptr, indices, values, y, L_BATCHES[rank], rows,
+                           SPMV_DIM)
+
+
+def l_dense(rank):
+    """L2's partition: ``(x, y)`` batches of path 5's planted a9a-width
+    rows (one planted coefficient for every rank)."""
+    true = np.random.default_rng(30).normal(size=DENSE_FIT_D)
+    rng = np.random.default_rng(31 + rank)
+    out = []
+    for _ in range(L_SVC_BATCHES[rank]):
+        x = rng.normal(size=(L_SVC_ROWS[rank], DENSE_FIT_D)).astype(
+            np.float32)
+        out.append((x, (x @ true > 0).astype(np.float32)))
+    return out
+
+
+def l_blobs(rank):
+    """L3's partition: float32 rows around k centres 1,000 apart (the same
+    centres on every rank)."""
+    centres = (np.random.default_rng(40).normal(size=(L_KM_K, L_KM_D))
+               * 1e3).astype(np.float32)
+    rng = np.random.default_rng(41 + rank)
+    out = []
+    for _ in range(L_KM_BATCHES):
+        x = rng.standard_normal((L_KM_ROWS, L_KM_D), dtype=np.float32)
+        x += centres[rng.integers(0, L_KM_K, size=L_KM_ROWS)]
+        out.append(x)
+    return out
+
+
+def l_online(rank):
+    """L4's partitions: FTRL ``(x, y)`` batches at 123 wide, and
+    OnlineKMeans batches at 784 wide around path I3's drifting centres,
+    with I3's warm start."""
+    true = np.random.default_rng(60).normal(size=FTRL_D)
+    rng = np.random.default_rng(61 + rank)
+    ftrl = []
+    for _ in range(L_ON_BATCHES):
+        x = rng.normal(size=(L_ON_ROWS, FTRL_D)).astype(np.float32)
+        ftrl.append((x, (x @ true > 0).astype(np.float32)))
+    crng = np.random.default_rng(51)
+    centers0 = crng.normal(size=(OKM_K, OKM_D)) * 4.0
+    drift = crng.normal(size=(OKM_K, OKM_D)) * 0.05
+    init = centers0 + crng.normal(size=centers0.shape) * 0.5
+    okm = []
+    for i in range(L_ON_BATCHES):
+        x = rng.standard_normal((L_ON_ROWS, OKM_D), dtype=np.float32)
+        x += (centers0 + i * drift).astype(np.float32)[
+            rng.integers(0, OKM_K, size=L_ON_ROWS)]
+        okm.append(x)
+    return ftrl, okm, init
+
+
+def l_combined(parts):
+    """The one-process stream of several ranks' partitions: step t joins
+    every rank's batch t (tuples joined field by field)."""
+    steps = max(len(p) for p in parts)
+    out = []
+    for t in range(steps):
+        here = [p[t] for p in parts if t < len(p)]
+        if isinstance(here[0], tuple):
+            out.append(tuple(np.concatenate(f) for f in zip(*here)))
+        else:
+            out.append(np.concatenate(here))
+    return out
+
+
+def l_csr_steps(parts):
+    """The one-process stream of several ranks' CSR partitions ``(indptr,
+    indices, values, y, w)``: step t joins every rank's batch t."""
+    out = []
+    for t in range(max(len(p) for p in parts)):
+        here = [p[t] for p in parts if t < len(p)]
+        lens = np.concatenate([np.diff(h[0]) for h in here])
+        out.append((np.concatenate([[0], np.cumsum(lens)]),)
+                   + tuple(np.concatenate([h[i] for h in here])
+                           for i in range(1, 5)))
+    return out
+
+
+class _Crash:
+    """Listener: raises at the end of epoch ``at`` (0-based), before that
+    epoch's snapshot."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def on_epoch_watermark_incremented(self, epoch, state):
+        if epoch == self.at:
+            raise RuntimeError("injected crash")
+
+    def on_iteration_terminated(self, state):
+        pass
+
+
+def l_rank(torch, mesh, rank, out_dir):
+    """Path L on one rank of J2 (every rank its own partition): L1 the
+    streamed sparse LR from a ``DataCache`` spilling half its batches into
+    this rank's directory, snapshots into the shared ``OUT_DIR/l_ckpt``,
+    a run crashed at the end of epoch ``L_CRASH + 1`` and resumed, the
+    kernels' launches, the all-reduce a step, the feed's waits and the
+    card's busy share; the step's kernels timed on this rank's padded
+    block and on a dummy block, each against its plain version; L2 the
+    dense streamed LinearSVC; L3 the streamed KMeans (its k-means++ init
+    drawn again here from the pooled reservoirs, for the parent's
+    one-process fit); L4 FTRL and OnlineKMeans; L5 a rank-scoped snapshot.
+    Returns the arrays the rank saves (``l_*``)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration import checkpoint as ckpt
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        agree_max,
+        pad_rows_to,
+        pooled_sample,
+    )
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.models.kmeans import _kmeans_pp_init
+    from flinkml_tpu_torch.utils.sampling import RowReservoir
+
+    out, secs = {}, {}
+    dicts, tuples = l_sparse(rank)
+    budget = sum(a.nbytes for b in dicts for a in b.values()) // 2
+    writer = DataCacheWriter(os.path.join(out_dir, f"l_cache{rank}"), budget)
+    for b in dicts:
+        writer.append(b)
+    cache = writer.finish()
+
+    def est(epochs, manager=None, resume=False):
+        return (fml.LogisticRegression(
+            mesh=mesh, checkpoint_manager=manager,
+            checkpoint_interval=1 if manager else 0, resume=resume)
+            .set_max_iter(epochs).set_tol(0.0).set_learning_rate(STREAM_LR)
+            .set_reg(STREAM_REG))
+
+    est(1).fit(cache)   # first fit: allocator, kernels and gloo warm
+    fml.reset_launch_counts()
+    with FeedWaits() as feed:
+        secs["fit"], main = _seconds(torch, lambda: est(
+            L_EPOCHS, CheckpointManager(os.path.join(out_dir, "l_ckpt"),
+                                        max_to_keep=10)).fit(cache)
+            .coefficient)
+    main_counts = dict(fml.launch_counts())
+    crash_dir = os.path.join(out_dir, "l_crash")
+    try:
+        sgd.train_linear_model_stream(
+            cache, "logistic", L_EPOCHS, STREAM_LR, STREAM_REG, 0.0, 0.0,
+            checkpoint_manager=CheckpointManager(crash_dir, max_to_keep=10),
+            checkpoint_interval=1, listeners=[_Crash(L_CRASH)],
+            sparse_dim=SPMV_DIM, mesh=mesh)
+        crashed = 0
+    except RuntimeError as e:
+        crashed = int("injected crash" in str(e))
+    latest = CheckpointManager(crash_dir).latest_epoch()
+    secs["resume"], resumed = _seconds(torch, lambda: est(
+        L_EPOCHS, CheckpointManager(crash_dir, max_to_keep=10),
+        resume=True).fit(cache).coefficient)
+    share = device_share(torch, lambda: est(1).fit(cache))
+    counts = fml.launch_counts()
+    ar_ms = all_reduce_ms(torch, mesh, SPMV_DIM + 2)
+    out.update(l_main=main, l_resumed=resumed,
+               l_crash=np.asarray([crashed, -1 if latest is None
+                                   else latest]),
+               l_main_launches=np.asarray([main_counts.get("spmv", 0),
+                                           main_counts.get("segment_sum", 0)]),
+               l_launches=np.asarray([counts.get("spmv", 0),
+                                      counts.get("segment_sum", 0)]),
+               l_feed_waits=np.asarray(feed.waits),
+               l_share=np.asarray([np.nan if share is None else share]),
+               l_all_reduce_ms=np.asarray([ar_ms]),
+               l_spilled=np.asarray([len(cache.segments)]))
+
+    # L2: the dense streamed LinearSVC.
+    dense = l_dense(rank)
+    svc = (fml.LinearSVC(mesh=mesh).set_max_iter(L_EPOCHS).set_tol(0.0)
+           .set_reg(SVC_REG).set_elastic_net(SVC_EN)
+           .set_learning_rate(SVC_LR))
+    secs["svc"], svc_coef = _seconds(torch, lambda: svc.fit(iter(
+        fml.Table({"features": x, "label": yb}) for x, yb in dense))
+        .coefficient)
+    out["l_svc"] = svc_coef
+    del dense
+
+    # L3: the streamed KMeans with the k-means++ init from the pooled
+    # reservoirs; the same draw again here, for the parent's check.
+    blobs = l_blobs(rank)
+    km = (fml.KMeans(mesh=mesh).set_k(L_KM_K).set_seed(0)
+          .set_max_iter(L_KM_EPOCHS).set_init_mode("k-means++"))
+    secs["kmeans"], cents = _seconds(torch, lambda: km.fit(iter(
+        fml.Table({"features": x}) for x in blobs)).centroids)
+    cap = max(L_KM_K, 65_536)
+    reservoir = RowReservoir(cap, seed=0)
+    for x in blobs:
+        reservoir.add(x)
+    pooled = pooled_sample(reservoir.sample(), sum(x.shape[0] for x in blobs),
+                           cap, 0, mesh)
+    out["l_km"] = cents
+    out["l_km_init"] = _kmeans_pp_init(pooled, L_KM_K,
+                                       np.random.default_rng(0)).astype(
+        np.float32)
+    del blobs, pooled, reservoir
+
+    # L4: FTRL and OnlineKMeans.
+    ftrl, okm, init = l_online(rank)
+    secs["ftrl"], olr = _seconds(torch, lambda: (
+        fml.OnlineLogisticRegression(mesh=mesh).set_alpha(FTRL_ALPHA)
+        .set_beta(FTRL_BETA).set_reg(FTRL_REG).set_elastic_net(FTRL_EN)
+        .fit_stream(iter(fml.Table({"features": x, "label": yb})
+                         for x, yb in ftrl))))
+    secs["online_kmeans"], ok = _seconds(torch, lambda: (
+        fml.OnlineKMeans(mesh=mesh).set_k(OKM_K).set_decay_factor(OKM_DECAY)
+        .set_initial_model_data(fml.Table({"centroids": init[None]}))
+        .fit_stream(iter(fml.Table({"features": x}) for x in okm))))
+    out.update(l_ftrl=olr.coefficient, l_okm=ok.centroids,
+               l_versions=np.asarray([olr.model_version, ok.model_version]))
+    del ftrl, okm
+
+    # L5: a rank-scoped snapshot of the fitted coefficient (replicated)
+    # and this rank's margins on its first batch (sharded:0).
+    ip, idx, val, _, _ = tuples[0]
+    margins = np.add.reduceat(val.astype(np.float64)
+                              * main.astype(np.float64)[idx], ip[:-1])
+    ckpt.save_agreed(
+        ckpt.rank_scoped(CheckpointManager(os.path.join(out_dir, "l_family"),
+                                           world_size=mesh.num_devices)),
+        {"coef": main, "margins": margins}, L_EPOCHS, mesh, per_rank=True,
+        layouts={"coef": "replicated", "margins": "sharded:0"})
+    out["l_margins"] = margins
+
+    # The step's kernels: this rank's first batch packed at the agreed
+    # width and height, and a dummy block, each against its plain version
+    # on every rank; timed beside its bound on the first rank alone, after
+    # the others have finished with the card.
+    height = max(L_ROWS)
+    width = sgd._ell_width_for(SPMV_NNZ)
+    bi, bv = sgd._pack_uniform_ell(*tuples[0][:3], np.float32, width=width)
+    blocks = {"step": (pad_rows_to(bi, height), pad_rows_to(bv, height)),
+              "dummy": (np.zeros((height, width), np.int32),
+                        np.zeros((height, width), np.float32))}
+    coef = torch.from_numpy(np.asarray(main, np.float32)).cuda()
+
+    def calls(ib, vb, contrib, flat):
+        """``{kernel: (kernel call, plain call)}`` on one block."""
+        return {"spmv": (lambda: kspmv.spmv(ib, vb, coef),
+                         lambda: kspmv.spmv_plain(ib, vb, coef)),
+                "segment_sum": (
+                    lambda: ksegsum.segment_sum(contrib, flat, SPMV_DIM),
+                    lambda: ksegsum.segment_sum_plain(contrib, flat,
+                                                      SPMV_DIM))}
+
+    kernels, timed = [], []
+    for label, (hb_i, hb_v) in blocks.items():
+        ib, vb = (torch.from_numpy(a).cuda() for a in (hb_i, hb_v))
+        flat = ib.reshape(-1)
+        contrib = torch.randn(vb.numel(), device="cuda") * vb.reshape(-1)
+        cells, pads = flat.numel(), int((vb == 0).sum())
+        touched = int(torch.unique(flat).numel())
+        work = {"spmv": (cells * 8 + touched * 4 + height * 4, 2.0 * cells),
+                "segment_sum": (cells * 8 + SPMV_DIM * 4, cells)}
+        for name, (fn, plain) in calls(ib, vb, contrib, flat).items():
+            got, want = fn(), plain()
+            bound, by = bound_ms(*work[name], "float32")
+            kernels.append([["step", "dummy"].index(label),
+                            ["spmv", "segment_sum"].index(name),
+                            max_err(got, want),
+                            float(torch.allclose(got.double(), want.double(),
+                                                 rtol=1e-5, atol=1e-5)),
+                            np.nan, np.nan, bound, float(by == "bytes"),
+                            cells, pads])
+            timed.append((fn, plain))
+    torch.cuda.synchronize()
+    agree_max(0, mesh)   # every rank is done with the card
+    if rank == 0:
+        timer = Timer(torch)
+        for row, (fn, plain) in zip(kernels, timed):
+            row[4], row[5] = timer(fn), timer(plain)
+    out["l_kernels"] = np.asarray(kernels, np.float64)
+    out["l_seconds"] = np.asarray([secs[k] for k in (
+        "fit", "resume", "svc", "kmeans", "ftrl", "online_kmeans")])
+    return out
+
+
+def l_references():
+    """Path L's references that need no rank's output: the float64 numpy
+    runs of the combined-step streams (L1, L2, L4) and L3's combined
+    batches. The parent computes them after J2's ranks have exited, so
+    that no rank is timed while they load the host."""
+    online = [l_online(r) for r in range(J2_WORLD)]
+    refs = {"L1": numpy_csr_stream_fit(
+                l_csr_steps([l_sparse(r)[1] for r in range(J2_WORLD)]),
+                SPMV_DIM, L_EPOCHS, STREAM_LR, STREAM_REG, 0.0),
+            "L2": numpy_dense_stream_fit(
+                l_combined([l_dense(r) for r in range(J2_WORLD)]), L_EPOCHS,
+                SVC_LR, SVC_REG * (1 - SVC_EN), SVC_REG * SVC_EN, "hinge"),
+            "L4_ftrl": numpy_ftrl(
+                l_combined([f for f, _, _ in online]), FTRL_ALPHA, FTRL_BETA,
+                FTRL_REG * FTRL_EN, FTRL_REG * (1.0 - FTRL_EN)),
+            "L4_okm": numpy_online_kmeans(
+                l_combined([k for _, k, _ in online]), online[0][2],
+                OKM_DECAY)}
+    del online
+    refs["L3_batches"] = l_combined([l_blobs(r) for r in range(J2_WORLD)])
+    return refs
+
+
+def l_check(torch, tmp, outs, refs):
+    """Path L's checks in the parent, on J2's ranks' outputs: every fit
+    the same bits on both ranks; L1 against a float64 numpy run of the
+    combined-step stream (step t joins every rank's batch t) within 1e-5
+    of the largest coefficient, the resumed fit within 1e-5 of the
+    uninterrupted one, 18 launches of each kernel a rank in the main fit;
+    L2 against float64 numpy within 1e-4 (path F's limit); L3 against the
+    port's one-process fit over the combined stream from the same
+    k-means++ init within 1e-5; L4 FTRL against float64 numpy within 1e-4
+    (path G's), OnlineKMeans within 1e-5 (float32 sums) and both versions
+    the most batches of a rank; L5 the rank-scoped family resharded to
+    world 1 (``reshard_rank_state``); the step's kernels against their
+    plain versions (rtol/atol 1e-5). ``refs`` is what
+    :func:`l_references` returned. Returns ``(record, {kernel: launches
+    summed over the ranks})``."""
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.checkpoint import reshard_rank_state
+    from flinkml_tpu_torch.models.kmeans import train_kmeans_stream
+
+    problems = []
+    for name in [k for k in outs[0] if k.startswith("l_") and k not in (
+            "l_feed_waits", "l_share", "l_all_reduce_ms", "l_spilled",
+            "l_kernels", "l_seconds", "l_margins", "l_launches",
+            "l_main_launches")]:
+        if not np.array_equal(outs[1][name], outs[0][name]):
+            problems.append(f"rank 1's {name} differs from rank 0's")
+    o = outs[0]
+    errs = {"L1_numpy": rel_err(o["l_main"], refs["L1"]),
+            "L1_resumed": rel_err(o["l_resumed"],
+                                  np.asarray(o["l_main"], np.float64)),
+            "L2_numpy": rel_err(o["l_svc"], refs["L2"]),
+            "L4_ftrl_numpy": rel_err(o["l_ftrl"], refs["L4_ftrl"]),
+            "L4_okm_numpy": rel_err(o["l_okm"], refs["L4_okm"])}
+    one = train_kmeans_stream(iter({"x": x} for x in refs["L3_batches"]),
+                              k=L_KM_K, max_iter=L_KM_EPOCHS,
+                              initial_centroids=o["l_km_init"])
+    errs["L3_one_process"] = rel_err(o["l_km"], np.asarray(one, np.float64))
+    del refs
+    for what, limit in (("L1_numpy", 1e-5), ("L1_resumed", 1e-5),
+                        ("L2_numpy", 1e-4), ("L3_one_process", 1e-5),
+                        ("L4_ftrl_numpy", 1e-4), ("L4_okm_numpy", 1e-5)):
+        if not np.isfinite(errs[what]) or errs[what] > limit:
+            problems.append(f"{what} differs by {errs[what]} of the largest "
+                            f"(limit {limit})")
+    steps = max(L_BATCHES) * L_EPOCHS
+    for r, out in enumerate(outs):
+        if out["l_main_launches"].tolist() != [steps, steps]:
+            problems.append(f"rank {r}: main fit launches "
+                            f"{out['l_main_launches'].tolist()}, expected "
+                            f"{steps} of each kernel")
+        if out["l_crash"].tolist() != [1, L_CRASH]:
+            problems.append(f"rank {r}: crash / newest snapshot "
+                            f"{out['l_crash'].tolist()}")
+        for row in out["l_kernels"]:
+            if row[3] != 1.0:
+                problems.append(f"rank {r}: a step kernel differs from its "
+                                f"plain version by {row[2]}")
+    if o["l_versions"].tolist() != [L_ON_BATCHES, L_ON_BATCHES]:
+        problems.append(f"online versions {o['l_versions'].tolist()}")
+    if CheckpointManager(os.path.join(tmp, "l_ckpt")).all_epochs() != list(
+            range(1, L_EPOCHS + 1)):
+        problems.append("L1's shared snapshots are "
+                        f"{CheckpointManager(os.path.join(tmp, 'l_ckpt')).all_epochs()}")
+    family = reshard_rank_state(os.path.join(tmp, "l_family"), L_EPOCHS,
+                                {"coef": 0, "margins": 0}, (0, 1))
+    if not (np.array_equal(family["coef"], o["l_main"]) and np.array_equal(
+            family["margins"], np.concatenate([out["l_margins"]
+                                               for out in outs]))):
+        problems.append("L5: the world-2 family resharded to world 1 "
+                        "differs from the ranks' leaves")
+    if problems:
+        fail("path L: " + "; ".join(problems))
+    launches = np.sum([out["l_launches"] for out in outs], axis=0)
+    counts = {"spmv": int(launches[0]), "segment_sum": int(launches[1])}
+    kern = {}
+    for row in o["l_kernels"]:
+        block = ["step", "dummy"][int(row[0])]
+        name = ["spmv", "segment_sum"][int(row[1])]
+        kern[f"{name}_{block}"] = {
+            "ms": row[4], "plain_ms": row[5], "bound_ms": row[6],
+            "bound_by": "bytes" if row[7] else "operations",
+            "max_abs_err": row[2], "cells": int(row[8]),
+            "padding_cells": int(row[9])}
+    rows = sum(b * r for b, r in zip(L_BATCHES, L_ROWS))
+    fit_s = float(o["l_seconds"][0])
+    rec = {"path": "stream_mp_L", "world": J2_WORLD, "backend": J2_BACKEND,
+           "batches": list(L_BATCHES), "batch_rows": list(L_ROWS),
+           "dim": SPMV_DIM, "nnz": SPMV_NNZ, "epochs": L_EPOCHS,
+           "spilled_batches": [int(out["l_spilled"][0]) for out in outs],
+           "L1_fit_s": fit_s, "L1_samples_per_s": rows * L_EPOCHS / fit_s,
+           "L1_resume_s": float(o["l_seconds"][1]),
+           "all_reduce_ms_per_step": [float(out["l_all_reduce_ms"][0])
+                                      for out in outs],
+           "steps_per_epoch": max(L_BATCHES),
+           "feed_wait_s_per_epoch": [out["l_feed_waits"].tolist()
+                                     for out in outs],
+           "device_share": [None if np.isnan(out["l_share"][0])
+                            else float(out["l_share"][0]) for out in outs],
+           "kernels_rank0": kern,
+           "seconds_rank0": dict(zip(("L1_fit", "L1_resume", "L2_svc",
+                                      "L3_kmeans", "L4_ftrl",
+                                      "L4_online_kmeans"),
+                                     o["l_seconds"].tolist())),
+           "rel_err": errs, "launches": counts,
+           "launches_main_fit_per_rank": [out["l_main_launches"].tolist()
+                                          for out in outs]}
+    return rec, counts
+
+
 def mesh_world2(torch, refs, x, y):
     """J2: :func:`j2_rank` on ``J2_WORLD`` ranks spawned here, all on the
     one card, within one deadline (a rank that fails or hangs, or a gloo
@@ -4250,8 +4726,9 @@ def mesh_world2(torch, refs, x, y):
     against ``segment_sum_plain`` of each shard on the card, summed (1e-5
     of the largest sum: float32 atomics in both). The ranks also run path
     K2 (:func:`k2_rank`), checked here by :func:`k2_check` while their
-    directory lives. Returns ``(record, {kernel: launches summed over the
-    ranks}, K2's record)``."""
+    directory lives, and path L (:func:`l_rank`), checked by
+    :func:`l_check`. Returns ``(record, {kernel: launches summed over the
+    ranks}, K2's record, (L's record, L's launches))``."""
     import tempfile
 
     from flinkml_tpu_torch.kernels.segsum import segment_sum_plain
@@ -4265,6 +4742,11 @@ def mesh_world2(torch, refs, x, y):
         outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
                 for r in range(J2_WORLD)]
         k2 = k2_check(torch, tmp, outs, x, y)
+        t0 = time.perf_counter()
+        l_refs = l_references()   # after the ranks: none is timed beside it
+        refs_s = time.perf_counter() - t0
+        l_rec, l_counts = l_check(torch, tmp, outs, l_refs)
+        l_rec["references_s"] = refs_s
     for r, res in enumerate(ranks):
         log(f"path J2 rank {r}: exit {res.returncode}")
     for name in ("sparse", "dense", "keyed"):
@@ -4297,21 +4779,23 @@ def mesh_world2(torch, refs, x, y):
     rec["keyed_max_abs_err"] = err
     if not err <= 1e-5 * np.abs(want).max():
         fail(f"path J2: keyed_aggregate differs from segment_sum_plain by {err}")
-    step_s = outs[0]["seconds"][0] / FIT_EPOCHS
+    step_s = outs[0]["seconds"][0] / J_EPOCHS
     rec["all_reduce_share_of_sparse_step"] = \
         float(outs[0]["all_reduce_ms"][0]) / 1e3 / step_s
     launches = np.sum([o["launches"] for o in outs], axis=0)
     return rec, {"spmv": int(launches[0]),
-                 "segment_sum": int(launches[1])}, k2
+                 "segment_sum": int(launches[1])}, k2, (l_rec, l_counts)
 
 
 def mesh_path(torch):
     """Path J: ``parallel/`` on ``torch.distributed``: J1 (world 1 over
     nccl, the fits with and without a mesh) and J2 (two ranks on the one
     card over gloo), at path B's sparse width and path 5's dense width.
-    The J2 ranks also run path K2 (:func:`k2_rank`). Returns the launches
-    of ``spmv`` and ``segment_sum`` in J1 and in every
-    rank of J2; fails when either never launched."""
+    The J2 ranks also run paths K2 (:func:`k2_rank`) and L (the streamed
+    fits on several ranks, :func:`l_rank`). Returns the launches of
+    ``spmv`` and ``segment_sum`` in J1 and in every rank of J2, K2's
+    record and path L's launches; fails when either kernel never launched
+    in J or in L."""
     import flinkml_tpu_torch as fml
 
     t0 = time.perf_counter()
@@ -4319,10 +4803,10 @@ def mesh_path(torch):
     indptr, indices, values, y, w = data["csr"]
     x, yd, wd = data["dense"]
     refs = {"sparse": numpy_sparse_fit(indptr, indices, values, SPMV_DIM, y,
-                                       w, FIT_EPOCHS, FIT_LR),
-            "dense1": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, FIT_EPOCHS,
+                                       w, J_EPOCHS, FIT_LR),
+            "dense1": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, J_EPOCHS,
                                       FIT_LR),
-            "dense2": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, FIT_EPOCHS,
+            "dense2": numpy_dense_fit(x, yd, wd, 0, FIT_BATCH, J_EPOCHS,
                                       FIT_LR, p=J2_WORLD)}
     ref_s = time.perf_counter() - t0
     fml.reset_launch_counts()
@@ -4330,7 +4814,7 @@ def mesh_path(torch):
     j1 = mesh_world1(torch, data, plain, refs)
     del data
     counts = dict(fml.launch_counts())
-    j2, j2_counts, k2 = mesh_world2(torch, refs, x, yd)
+    j2, j2_counts, k2, (l_rec, l_counts) = mesh_world2(torch, refs, x, yd)
     for name, n in j2_counts.items():
         counts[name] = counts.get(name, 0) + n
     missing = [k for k in ("spmv", "segment_sum") if not counts.get(k)]
@@ -4338,7 +4822,7 @@ def mesh_path(torch):
         fail(f"path J: {missing} never launched ({counts})")
     rec = {"path": "mesh_J", "rows": SPARSE_FIT_ROWS, "dim": SPMV_DIM,
            "nnz": SPMV_NNZ, "dense_rows": DENSE_FIT_ROWS,
-           "dense_d": DENSE_FIT_D, "epochs": FIT_EPOCHS, "batch": FIT_BATCH,
+           "dense_d": DENSE_FIT_D, "epochs": J_EPOCHS, "batch": FIT_BATCH,
            "kmeans": [MESH_KMEANS_N, MESH_KMEANS_D, MESH_KMEANS_K,
                       MESH_KMEANS_ITERS],
            "J1": j1, "J2": j2, "numpy_refs_s": ref_s,
@@ -4346,7 +4830,12 @@ def mesh_path(torch):
            "J2_launches": j2_counts, "card": card_line(),
            "path_s": time.perf_counter() - t0}
     log("path " + json.dumps(rec))
-    return counts, k2
+    missing = [k for k in ("spmv", "segment_sum") if not l_counts.get(k)]
+    if missing:
+        fail(f"path L: {missing} never launched ({l_counts})")
+    l_rec["card"] = card_line()
+    log("path " + json.dumps(l_rec))
+    return counts, k2, l_counts
 
 
 # -- path K: sharding plans, mixed precision, NaiveBayes and the graph API -----
@@ -4931,8 +5420,8 @@ def main() -> int:
     slice_i_counts = slice_i_path(torch, timer)
     chain_rec["launches"] += slice_i_counts["fused_chain"]
     mark("path I")
-    mesh_counts, k2 = mesh_path(torch)
-    mark("path J")
+    mesh_counts, k2, l_counts = mesh_path(torch)
+    mark("paths J and L")
     plan_counts, segsum_rec["naive_bayes"] = plan_path(torch, timer, k2)
     chain_rec["launches"] += plan_counts.get("fused_chain", 0)
     mark("path K")
@@ -4943,7 +5432,8 @@ def main() -> int:
             "svc_F": svc_counts[name],
             "sorted_stream_H": sorted_counts[name],
             "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name],
-            "plan_K": plan_counts.get(name, 0)}
+            "plan_K": plan_counts.get(name, 0),
+            "stream_mp_L": l_counts[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     mark("KNN and LSH")

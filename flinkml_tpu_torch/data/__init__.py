@@ -16,10 +16,10 @@ exact uninterrupted batch sequence (shuffle order included).
 that does not depend on ``world``. A cursor written by either package
 restores in the other.
 
-The exports are the JAX package's but ``HashOp``. Not ported yet, each
-refused naming its ROADMAP.md Queue 1 item: ``data.ops.HashOp`` /
-``Dataset.hash_column`` (item 9, ``features/hashing.py``) and ``mesh=``
-shards (item 7c, multi-process streams).
+A source's ``mesh=`` reads this rank's shard of the mesh's data axis,
+each rank's partition of a multi-process stream. The exports are the JAX
+package's but ``HashOp``: ``data.ops.HashOp`` / ``Dataset.hash_column``
+are refused naming ROADMAP.md Queue 1 item 9 (``features/hashing.py``).
 """
 
 from flinkml_tpu_torch.data.dataset import Dataset, DatasetIterator

@@ -17,8 +17,10 @@ from shard ``g % world`` — the deal every reshardable
 :class:`~flinkml_tpu_torch.data.source.Source` uses), with optional
 **post-merge** ops (map/shuffle/rebatch, applied to the *global*
 stream, hence world-independent by construction) and an optional
-device-prefetch tail. Here the ``world`` readers run in this process; the
-multi-process feed comes with ROADMAP.md Queue 1 item 7c.
+device-prefetch tail. The ``world`` readers run in this process. On a
+mesh of several ranks each rank builds its own feed over its partition
+(``make_dataset`` reading ``Dataset.from_*(..., mesh=mesh)``, this rank's
+shard), and the multi-process streamed fits keep the ranks in step.
 
 Cursor model: an ElasticFeed cursor counts **global** batches
 (``Cursor.emitted``; ``shard_index`` is None — the global-scope

@@ -9,9 +9,10 @@ parsers), or a seeded synthetic generator. The reference gets this layer
 from Flink's connector sources (per-subtask splits of a partitioned
 stream); here an explicit ``shard=(index, count)`` assigns the split —
 row blocks for array sources, files round-robin for file sources, batch
-indices round-robin for synthetic sources. A ``mesh=`` (the per-process
-split of the JAX package) is refused: it comes with ROADMAP.md Queue 1
-item 7c (multi-process streams).
+indices round-robin for synthetic sources; a ``mesh=`` assigns this
+rank's split of the mesh's data axis (the per-process split of the JAX
+package), which is how each rank of a multi-process streamed fit reads
+its own partition.
 
 Contracts every source honors (what makes the cursor machinery work):
 
@@ -38,10 +39,11 @@ from flinkml_tpu_torch.table import Table
 
 
 def resolve_shard(shard: Optional[Tuple[int, int]], mesh=None) -> Tuple[int, int]:
-    """Normalize a shard assignment: an explicit ``(index, count)``, or
-    neither (the single unsharded feed). A ``mesh`` (the JAX package's
-    per-process split) is refused with ``NotImplementedError``: it comes
-    with ROADMAP.md Queue 1 item 7c (multi-process streams).
+    """Normalize a shard assignment: an explicit ``(index, count)``, a
+    :class:`~flinkml_tpu_torch.parallel.DeviceMesh` (this rank's index
+    and the size of the mesh's data axis: the reference's per-subtask
+    stream split; ``(0, 1)`` for a mesh without a process group), or
+    neither (the single unsharded feed).
 
     Elastic resume re-derives each NEW shard's read position from a
     restored global watermark one level up: the resolved shard's
@@ -50,14 +52,16 @@ def resolve_shard(shard: Optional[Tuple[int, int]], mesh=None) -> Tuple[int, int
     :class:`~flinkml_tpu_torch.data.Dataset`/:class:`~flinkml_tpu_torch
     .data.ElasticFeed` validate the shard-count change before any batch is
     misread."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a per-process shard of the input pipeline) is not "
-            "ported to flinkml_tpu_torch yet: it comes with ROADMAP.md "
-            "Queue 1 item 7c (multi-process streams); pass shard=(index, count)"
-        )
     if shard is not None:
         index, count = int(shard[0]), int(shard[1])
+    elif mesh is not None:
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+        if mesh.mesh is None:
+            index, count = 0, 1
+        else:
+            index, count = mesh.axis_index(), mesh.axis_size()
     else:
         index, count = 0, 1
     if count < 1 or not (0 <= index < count):

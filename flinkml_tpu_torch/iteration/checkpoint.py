@@ -24,10 +24,15 @@ unless ``world_size`` says otherwise) under a :class:`RescalePolicy`:
 ``sharded:<axis>`` leaf must divide across the new world), which
 ``save(..., plan=plan)`` derives from a sharding plan.
 
-Not ported yet, each refused with ``NotImplementedError`` naming ROADMAP.md
-Queue 1 item 7c (multi-process streams): ``per_rank`` leaves under
-``"reshard"``, :func:`save_agreed`, :func:`rank_scoped` and
-:func:`reshard_rank_state`.
+On a mesh of several ranks the ranks share one checkpoint directory:
+:func:`save_agreed` commits a replicated state from the mesh's first rank
+(or every rank's own state under ``per_rank``, into :func:`rank_scoped`
+directories ``rank-<r>``), and the agreement after the write is the
+commit barrier, so no rank trains past an uncommitted snapshot and a
+failed write aborts every rank. :func:`reshard_rank_state` reassembles a
+rank-scoped family written at one world for a rank of another by the
+leaves' layout tags; a ``per_rank`` leaf is rank-entangled and refuses
+under every policy.
 """
 
 from __future__ import annotations
@@ -47,15 +52,6 @@ import torch
 from flinkml_tpu_torch.io.read_write import content_fingerprint
 
 _log = logging.getLogger(__name__)
-
-_MULTI_DEVICE = "item 7c (multi-process streams: reshard, agreed commits)"
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flinkml_tpu_torch yet: it comes with "
-        f"ROADMAP.md Queue 1 {_MULTI_DEVICE}"
-    )
 
 
 class CheckpointIntegrityError(ValueError):
@@ -232,28 +228,119 @@ def should_snapshot(manager: Optional["CheckpointManager"], interval: int,
     return interval > 0 and step % interval == 0
 
 
+def _writes_replicated(mesh) -> bool:
+    """True on the rank that writes a replicated snapshot: the mesh's
+    first rank (the default group's rank 0 without a mesh)."""
+    from flinkml_tpu_torch.parallel.distributed import process_index
+
+    if mesh is None or mesh.mesh is None:
+        return process_index() == 0
+    return mesh.rank == mesh.device_ids[0]
+
+
+def save_agreed(manager: "CheckpointManager", state: Any, epoch: int,
+                mesh=None, per_rank: bool = False,
+                extra: Optional[dict] = None, layouts=None,
+                plan=None) -> None:
+    """A checkpoint save with an agreed commit on a group of several
+    processes.
+
+    A replicated state (``per_rank=False``: coefficients, centroids,
+    the same bits on every rank) is written by one rank into the shared
+    directory (several writers would race on the atomic rename); a
+    rank-local state (``per_rank=True``) is written by every rank, into
+    its own :func:`rank_scoped` manager. The write is waited for, then
+    every rank agrees on its outcome (:func:`~flinkml_tpu_torch.
+    iteration.stream_sync.agree_all_ok`): that agreement is the commit
+    barrier, and a failed write raises on every rank (its own error on
+    the writer). One process: ``manager.save`` (an async write stays
+    async)."""
+    from flinkml_tpu_torch.parallel.distributed import process_count
+
+    kw = {} if layouts is None else {"layouts": layouts}
+    if plan is not None:
+        kw["plan"] = plan
+    if process_count() == 1:
+        manager.save(state, epoch, extra=extra, **kw)
+        return
+    from flinkml_tpu_torch.iteration.stream_sync import agree_all_ok
+
+    err = None
+    if per_rank or _writes_replicated(mesh):
+        try:
+            manager.save(state, epoch, extra=extra, **kw)
+            manager.wait()  # durable before any rank trains past it
+        except Exception as e:  # noqa: BLE001 — agreed below
+            err = e
+    try:
+        agree_all_ok(err is None, mesh, "checkpoint commit")
+    except ValueError:
+        if err is not None:
+            raise err
+        raise
+
+
 def save_replicated(manager: "CheckpointManager", state: Any, epoch: int,
                     mesh=None, extra: Optional[dict] = None) -> None:
-    """The commit of a replicated state; one process: ``manager.save``
-    (a mesh is the multi-process commit, refused)."""
-    if mesh is not None:
-        raise _unported("a mesh")
-    manager.save(state, epoch, extra=extra)
+    """The one-writer commit of a replicated state (:func:`save_agreed`);
+    the default layout tag records every leaf as replicated."""
+    save_agreed(manager, state, epoch, mesh, per_rank=False, extra=extra)
 
 
-def save_agreed(*args, **kwargs) -> None:
-    """The multi-process agreed commit (refused, item 7c)."""
-    raise _unported("save_agreed (multi-process checkpoint commit)")
+class AgreedCommits:
+    """``manager`` as a loop on a mesh of several ranks must use it: a
+    save is :func:`save_agreed` (the mesh's first rank writes a
+    replicated state, every rank agrees on the commit) and a restore is
+    agreed, a failure on one rank aborting every rank. Anything else is
+    the manager's. Hand it to a loop that saves from every rank, such as
+    :func:`~flinkml_tpu_torch.iteration.iterate`."""
+
+    def __init__(self, manager: "CheckpointManager", mesh):
+        self.manager = manager
+        self.mesh = mesh
+
+    def save(self, state: Any, epoch: int, extra: Optional[dict] = None,
+             layouts=None, plan=None) -> None:
+        save_agreed(self.manager, state, epoch, self.mesh, extra=extra,
+                    layouts=layouts, plan=plan)
+
+    def restore(self, epoch: int, like: Any):
+        from flinkml_tpu_torch.iteration.stream_sync import agreed_restore
+
+        return agreed_restore(self.manager, epoch, like, self.mesh)
+
+    def restore_latest(self, like: Any):
+        from flinkml_tpu_torch.iteration.stream_sync import (
+            agreed_restore_latest,
+        )
+
+        return agreed_restore_latest(self.manager, like, self.mesh)
+
+    def __getattr__(self, name):
+        return getattr(self.manager, name)
 
 
 def rank_scoped(manager: "CheckpointManager") -> "CheckpointManager":
-    """The per-rank view of a shared directory (refused, item 7c)."""
-    raise _unported("rank_scoped (per-rank checkpoint directories)")
+    """This rank's view of a shared checkpoint directory,
+    ``<dir>/rank-<r>`` (``r`` the default group's rank), for a snapshot
+    that holds rank-local state: every rank saves and restores its own.
+    ``max_to_keep`` is at least 2, so a crash between one rank's save
+    (which prunes its previous snapshot) and the agreed commit leaves a
+    common epoch. One process: ``manager`` itself."""
+    from flinkml_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
 
-
-def reshard_rank_state(*args, **kwargs) -> Any:
-    """Elastic re-layout of a rank-scoped family (refused, item 7c)."""
-    raise _unported("reshard_rank_state (elastic resume)")
+    if process_count() == 1:
+        return manager
+    return CheckpointManager(
+        os.path.join(manager.directory, f"rank-{process_index()}"),
+        max_to_keep=max(manager.max_to_keep, 2),
+        rescale=manager.rescale_policy,
+        world_size=manager.world_size,
+        async_write=manager.async_write,
+    )
 
 
 class CheckpointManager:
@@ -298,7 +385,8 @@ class CheckpointManager:
     def allow_rescale(self) -> bool:
         return self.rescale_policy.on_mismatch != "reject"
 
-    def _layout_list(self, layouts, like: Any, num_leaves: int) -> List[str]:
+    @staticmethod
+    def _layout_list(layouts, like: Any, num_leaves: int) -> List[str]:
         if layouts is None:
             return [LAYOUT_REPLICATED] * num_leaves
         if isinstance(layouts, str):
@@ -508,9 +596,7 @@ class CheckpointManager:
             f"{self.rescale_policy.on_mismatch!r}) outcome: {outcome}. "
             "Pass rescale='reshard' for layout-tagged elastic resume, or "
             "rescale='allow' only if every carry leaf is world-independent "
-            "(reference parity: HeadOperator.java:130-146). The elastic "
-            "resume of the multi-process streams comes with ROADMAP.md "
-            "Queue 1 item 7c."
+            "(reference parity: HeadOperator.java:130-146)."
         )
         _log.error("%s", msg)
         return RescaleError(msg)
@@ -520,7 +606,8 @@ class CheckpointManager:
         """The ``reshard`` policy on assembled leaves: a replicated leaf
         passes; a ``sharded:<axis>`` leaf keeps its global value and must
         divide across the new world; a ``per_rank`` leaf (rank-entangled
-        state, reassembled by :func:`reshard_rank_state`) is refused."""
+        state; a rank-scoped family reassembles through
+        :func:`reshard_rank_state`) is refused."""
         new_world = self._world_size()
         layouts = meta.get("layouts") or [LAYOUT_REPLICATED] * len(host_leaves)
         counts = {"replicated": 0, "sharded": 0}
@@ -529,10 +616,10 @@ class CheckpointManager:
             if kind == "per_rank":
                 raise self._rescale_error(
                     ckpt_dir, meta,
-                    f"leaf {i} is per_rank (rank-entangled state cannot be "
-                    "re-laid-out; reassembling a rank-scoped family comes "
-                    f"with ROADMAP.md Queue 1 {_MULTI_DEVICE}, or resume at "
-                    "the original world)",
+                    f"leaf {i} is per_rank (rank-entangled state cannot "
+                    "be re-laid-out; reassemble the rank-scoped family "
+                    "with reshard_rank_state, or resume at the original "
+                    "world)",
                 )
             if kind == "sharded":
                 arr = np.asarray(leaf)
@@ -620,3 +707,108 @@ class CheckpointManager:
         for epoch in self._list_epochs()[: -self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, f"ckpt-{epoch}"),
                           ignore_errors=True)
+
+
+def _rank_dirs(directory: str) -> List[Tuple[int, str]]:
+    """The ``rank-<i>`` subdirectories of a rank-scoped family, by rank."""
+    out = []
+    for name in os.listdir(directory):
+        if name.startswith("rank-"):
+            try:
+                out.append((int(name[len("rank-"):]),
+                            os.path.join(directory, name)))
+            except ValueError:
+                continue
+    return sorted(out)
+
+
+def reshard_rank_state(directory: str, epoch: int, like: Any,
+                       new_shard: Tuple[int, int], layouts=None) -> Any:
+    """Reassemble a :func:`rank_scoped` snapshot family and split it for
+    ``new_shard = (new_rank, new_world)``.
+
+    Every ``rank-<i>`` subdirectory's snapshot at ``epoch`` is read (the
+    old world is the number of rank directories, which must be
+    contiguous), and each leaf is re-laid-out by its recorded layout tag
+    (or by ``layouts``, the :meth:`CheckpointManager.save` convention):
+
+    - ``replicated``: every rank must hold the same bits, which are the
+      result;
+    - ``sharded:<axis>``: the rank chunks concatenate in rank order and
+      split into ``new_world`` equal chunks along ``axis``, of which
+      ``new_rank``'s is returned (:class:`RescaleError` unless the
+      extent divides);
+    - ``per_rank``: rank-entangled, :class:`RescaleError`.
+
+    Returns ``like``'s structure filled with the new rank's leaves."""
+    new_rank, new_world = int(new_shard[0]), int(new_shard[1])
+    if new_world < 1 or not (0 <= new_rank < new_world):
+        raise ValueError(f"invalid new shard assignment {new_shard!r}")
+    ranks = _rank_dirs(directory)
+    if not ranks:
+        raise ValueError(
+            f"no rank-scoped snapshot family under {directory} "
+            "(expected rank-<i> subdirectories)"
+        )
+    if [r for r, _ in ranks] != list(range(len(ranks))):
+        raise RescaleError(
+            f"rank-scoped family under {directory} is not contiguous "
+            f"(found ranks {[r for r, _ in ranks]}); a missing rank's "
+            "shard cannot be reassembled"
+        )
+    old_world = len(ranks)
+    num_leaves = len(tree_flatten(like)[0])
+    per_rank_leaves: List[List[np.ndarray]] = []
+    metas = []
+    for _, rank_dir in ranks:
+        mgr = CheckpointManager(rank_dir, rescale="allow")
+        ckpt_dir = os.path.join(rank_dir, f"ckpt-{epoch}")
+        meta = mgr._read_meta(ckpt_dir)
+        leaves = mgr._read_leaves(ckpt_dir, meta)
+        if len(leaves) != num_leaves:
+            raise ValueError(
+                f"rank snapshot {ckpt_dir} has {len(leaves)} leaves but "
+                f"the provided structure has {num_leaves}"
+            )
+        per_rank_leaves.append(leaves)
+        metas.append(meta)
+    if layouts is not None:
+        tags = CheckpointManager._layout_list(layouts, like, num_leaves)
+    else:
+        tags = metas[0].get("layouts") or [LAYOUT_REPLICATED] * num_leaves
+    out_leaves: List[np.ndarray] = []
+    for i, tag in enumerate(tags):
+        kind, axis = _parse_layout(tag)
+        chunks = [np.asarray(leaves[i]) for leaves in per_rank_leaves]
+        if kind == "per_rank":
+            raise RescaleError(
+                f"leaf {i} of the family under {directory} (epoch "
+                f"{epoch}) is per_rank: rank-entangled state has no "
+                f"global assembly — world {old_world} -> {new_world} "
+                "resume must rebuild it from data"
+            )
+        if kind == "replicated":
+            for r, chunk in enumerate(chunks[1:], start=1):
+                if not np.array_equal(chunk, chunks[0]):
+                    raise RescaleError(
+                        f"replicated leaf {i} diverges between rank 0 "
+                        f"and rank {r} under {directory} (epoch {epoch}):"
+                        " the family is not a consistent snapshot"
+                    )
+            out_leaves.append(chunks[0])
+            continue
+        global_arr = np.concatenate(chunks, axis=axis)
+        extent = global_arr.shape[axis]
+        if extent % new_world != 0:
+            raise RescaleError(
+                f"sharded leaf {i} under {directory} (epoch {epoch}) has "
+                f"global extent {extent} along axis {axis}, which does "
+                f"not divide across {new_world} ranks"
+            )
+        out_leaves.append(np.split(global_arr, new_world, axis=axis)[new_rank])
+    _log.info(
+        "reshard_rank_state: %s epoch %s world %d -> %d (rank %d), "
+        "%d leaves re-laid-out", directory, epoch, old_world, new_world,
+        new_rank, len(out_leaves),
+    )
+    return tree_unflatten(like, out_leaves)

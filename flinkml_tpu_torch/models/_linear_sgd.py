@@ -69,6 +69,20 @@ A fit given no mesh issues no collective. A checkpointed fit on a mesh
 records world P and resumes only at world P (the mesh's first rank
 writes the snapshots).
 
+**Streamed fits on a mesh** of several ranks (the JAX package's
+multi-process streams): each rank feeds its own partition of the stream.
+Pass 0 caches it without training and validates every batch, a failure
+on one rank aborting every rank; the ranks then agree one padded local
+height and one step count an epoch
+(:class:`~flinkml_tpu_torch.iteration.stream_sync.SyncedReplayPlan`; a
+sparse stream also one ELL width), and a short or empty rank feeds
+zero-weight dummy steps. Each step sums its ``[grad | loss_sum | wsum]``
+over the ranks in one ``all_reduce``, so every rank ends with the same
+bits, which equal a one-process streamed fit whose step-t batch joins
+every rank's batch t up to the order of float sums. The mesh's first
+rank commits the snapshots into the shared directory, and every rank
+agrees on the commit.
+
 **Sharding plans and precision policies.** ``sharding_plan=`` (a
 :class:`~flinkml_tpu_torch.sharding.plan.ShardingPlan`) and
 ``precision=`` (a :class:`~flinkml_tpu_torch.precision.PrecisionPolicy`
@@ -77,9 +91,6 @@ or preset name) route the dense in-RAM fit through the plan trainer
 SGD over the same seeded row order), as in the JAX package; a policy
 without a plan runs under ``REPLICATED``. The sparse fits refuse both
 with the JAX package's ``ValueError``.
-
-Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 item: a mesh for the streamed fits (item 7c).
 """
 
 from __future__ import annotations
@@ -107,24 +118,9 @@ _SPARSE_ARGS_PER_BUCKET = {"unsorted": 4, "sorted": 6, "cumsum": 8}
 #: Steps the device loop runs between two host reads of its active flag.
 SYNC_EVERY = 8
 
-#: The streamed fits' world: one rank until the multi-process streams
-#: (ROADMAP.md Queue 1 item 7c).
+#: The one-process streamed fits' world (a mesh of several ranks takes
+#: the multi-process streams).
 _P_SIZE = 1
-
-_UNPORTED = {
-    "mesh": "item 7c (multi-process streamed fits)",
-}
-
-
-def refuse_unported(**knobs) -> None:
-    """Raise ``NotImplementedError`` for the first knob that is set
-    (not None/False) whose path the port does not have yet."""
-    for name, value in knobs.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to flinkml_tpu_torch yet: "
-                f"it comes with ROADMAP.md Queue 1 {_UNPORTED[name]}"
-            )
 
 
 def p_size(mesh) -> int:
@@ -934,6 +930,40 @@ def train_linear_model_from_table(
 # ---------------------------------------------------------------------------
 
 
+_ROUTE_EMPTY, _ROUTE_DENSE, _ROUTE_CSR, _ROUTE_SORTED = 0, 1, 2, 3
+
+
+def _agree_route(kind: int, dim: int, held, mesh) -> Tuple[int, int]:
+    """``(route, CSR dim)`` of a stream from its first batch: this rank's
+    alone, or on a mesh of several ranks the one every rank with data
+    found (a rank with none adopts it). A route or dim that differs
+    between ranks, or a first batch that failed on one (``held``), raises
+    on every rank; a stream empty everywhere raises."""
+    if not multi_rank(mesh):
+        if kind == _ROUTE_EMPTY:
+            raise ValueError("training stream is empty")
+        return kind, dim
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        agree_all_ok,
+        agree_max,
+    )
+
+    agreed, agreed_dim = agree_max(kind, mesh), agree_max(dim, mesh)
+    ok = (held is None and kind in (_ROUTE_EMPTY, agreed)
+          and dim in (0, agreed_dim))
+    try:
+        agree_all_ok(ok, mesh, "stream route agreement (dense, CSR or "
+                     f"sorted; local {kind}/{dim}, global "
+                     f"{agreed}/{agreed_dim})")
+    except ValueError:
+        if held is not None:
+            raise held
+        raise
+    if agreed == _ROUTE_EMPTY:
+        raise ValueError("training stream is empty on every process")
+    return agreed, agreed_dim
+
+
 def streamed_linear_fit(
     source,
     *,
@@ -957,32 +987,41 @@ def streamed_linear_fit(
     (or ElasticFeed) of SparseVector rows delivers
     :class:`~flinkml_tpu_torch.table.SortedSparseColumn` features, which
     take :func:`train_linear_model_sorted_stream` (the sorted
-    ``segment_sum``)."""
+    ``segment_sum``).
+
+    With a ``mesh`` of several ranks in ``kwargs`` the ranks agree the
+    route from their first batches (dense, CSR or sorted; for CSR the
+    dim), so that a rank whose partition is empty takes the same route
+    and feeds only dummies; routes that disagree, or a first batch that
+    fails on one rank, abort every rank. The sorted route has no
+    multi-process form: agreed on several ranks, it raises on every rank
+    (:func:`train_linear_model_sorted_stream`)."""
     from flinkml_tpu_torch.iteration.datacache import DataCache
     from flinkml_tpu_torch.models._data import (
         labeled_data,
         labeled_sparse_data,
         sparse_features,
     )
+    from flinkml_tpu_torch.table import SortedSparseColumn, Table
 
+    multi = multi_rank(kwargs.get("mesh"))
     if isinstance(source, DataCache):
         validate = None
         mem = source.mem_batches
-        if mem:
-            first = mem[0]
-        else:
-            try:
-                first = next(iter(source.reader()))
-            except StopIteration:
-                raise ValueError("training stream is empty") from None
-        if "indptr" in first:  # a CSR cache
+        first = mem[0] if mem else next(iter(source.reader()), None)
+        kind = (_ROUTE_EMPTY if first is None
+                else _ROUTE_CSR if "indptr" in first else _ROUTE_DENSE)
+        kind, dim0 = _agree_route(
+            kind, int(np.asarray(first["dim"])[0, 0])
+            if kind == _ROUTE_CSR else 0, None, kwargs.get("mesh"))
+        if kind == _ROUTE_CSR:
             if label_check is not None:
                 def validate(batch):
                     label_check(np.asarray(batch["y"])[0])
 
             return train_linear_model_stream(
                 source, columns=("x", "y", "w"), validate=validate,
-                sparse_dim=int(np.asarray(first["dim"])[0, 0]), **kwargs,
+                sparse_dim=dim0, **kwargs,
             )
         if label_check is not None:
             def validate(batch):
@@ -994,19 +1033,30 @@ def streamed_linear_fit(
         )
 
     it = iter(source)
+    first_t, held, kind, dim0 = None, None, _ROUTE_EMPTY, 0
     try:
-        first_t = next(it)
-    except StopIteration:
-        raise ValueError("training stream is empty") from None
-    tables = itertools.chain([first_t], it)
+        first_t = next(it, None)
+        if first_t is None:
+            pass
+        elif (isinstance(first_t, Table)
+              and features_col in first_t.column_names
+              and isinstance(first_t._raw_column(features_col),
+                             SortedSparseColumn)):
+            kind = _ROUTE_SORTED
+        elif sparse_features(first_t, features_col) is not None:
+            kind = _ROUTE_CSR
+            dim0 = labeled_sparse_data(first_t, features_col, label_col,
+                                       weight_col)[3]
+        else:
+            kind = _ROUTE_DENSE
+    except Exception as e:  # noqa: BLE001 — agreed below on a mesh
+        if not multi:
+            raise
+        held = e
+    kind, dim0 = _agree_route(kind, dim0, held, kwargs.get("mesh"))
+    tables = itertools.chain([] if first_t is None else [first_t], it)
 
-    from flinkml_tpu_torch.table import SortedSparseColumn, Table
-
-    if (
-        isinstance(first_t, Table)
-        and features_col in first_t.column_names
-        and isinstance(first_t._raw_column(features_col), SortedSparseColumn)
-    ):
+    if kind == _ROUTE_SORTED:
         # A prefetched Dataset's sparse stream: train on the pack-time
         # sorted device tables — no host round trip, no sort at step time.
         return train_linear_model_sorted_stream(
@@ -1014,10 +1064,7 @@ def streamed_linear_fit(
             label_check=label_check, **kwargs,
         )
 
-    if sparse_features(first_t, features_col) is not None:
-        dim0 = labeled_sparse_data(first_t, features_col, label_col,
-                                   weight_col)[3]
-
+    if kind == _ROUTE_CSR:
         def sparse_batches():
             for t in tables:
                 indptr, indices, values, d, y, w = labeled_sparse_data(
@@ -1055,29 +1102,33 @@ def streamed_linear_fit(
     return train_linear_model_stream(batches(), **kwargs)
 
 
-def _stream_stepper(loss: str):
+def _stream_stepper(loss: str, mesh=None):
     """One SGD step over one streamed batch: ``(coef, x, y, w, lr, l2,
     l1) -> (coef, loss_sum, wsum)``, unnormalised, so the epoch's mean loss
-    over batches of any size is summed on the device."""
+    over batches of any size is summed on the device. Over a mesh of
+    several ranks ``x, y, w`` are this rank's block of the step and the
+    terms are summed over the ranks (:func:`_reduce_terms`) before the
+    update."""
 
     def step(coef, xb, yb, wb, learning_rate, reg_l2, reg_l1):
         acc = _acc_dt(xb.dtype)
         dot = torch.matmul(xb, coef)
         mult, per_ex = _margin_grad(loss, dot, yb, wb)
-        return _prox_step(coef, torch.matmul(xb.T, mult),
-                          torch.sum(per_ex.to(acc)), torch.sum(wb.to(acc)),
-                          learning_rate, reg_l2, reg_l1)
+        return _prox_step(coef, *_reduce_terms(
+            mesh, torch.matmul(xb.T, mult), torch.sum(per_ex.to(acc)),
+            torch.sum(wb.to(acc))), learning_rate, reg_l2, reg_l1)
 
     return step
 
 
-def _sparse_stream_stepper(loss: str, dim: int):
+def _sparse_stream_stepper(loss: str, dim: int, mesh=None):
     """Sparse sibling of :func:`_stream_stepper` over one padded-ELL batch
     ``(indices, values)``: the ``spmv`` kernel forward and one unsorted
     ``segment_sum`` kernel gradient into the dense ``[dim]`` coefficient
     (each batch's cells are seen once per epoch, in stream order, so no
-    pack-time sort applies). The streamed fits have this one layout, as
-    in the JAX package: neither ``sorted`` nor ``cumsum`` windows exist
+    pack-time sort applies), summed over the ranks of a mesh as
+    :func:`_stream_stepper` does. The streamed fits have this one layout,
+    as in the JAX package: neither ``sorted`` nor ``cumsum`` windows exist
     there."""
 
     def step(coef, ib, vb, yb, wb, learning_rate, reg_l2, reg_l1):
@@ -1086,9 +1137,9 @@ def _sparse_stream_stepper(loss: str, dim: int):
         mult, per_ex = _margin_grad(loss, dot, yb, wb)
         contrib = (vb * mult[:, None]).reshape(-1)
         grad = segment_sum(contrib, ib.reshape(-1), dim)
-        return _prox_step(coef, grad, torch.sum(per_ex.to(acc)),
-                          torch.sum(wb.to(acc)), learning_rate, reg_l2,
-                          reg_l1)
+        return _prox_step(coef, *_reduce_terms(
+            mesh, grad, torch.sum(per_ex.to(acc)), torch.sum(wb.to(acc))),
+            learning_rate, reg_l2, reg_l1)
 
     return step
 
@@ -1152,6 +1203,7 @@ def train_linear_model_sorted_stream(
     resume: bool = False,
     prefetch_depth: int = 2,
     validate=None,
+    mesh=None,
 ) -> np.ndarray:
     """Train a linear model from a stream of device-resident Tables whose
     feature column is a :class:`~flinkml_tpu_torch.table.
@@ -1163,7 +1215,12 @@ def train_linear_model_sorted_stream(
     tensors; later epochs replay them — the batches are already on the
     card (O(nnz) each), so ``cache_dir``, ``memory_budget_bytes`` and
     ``prefetch_depth`` are accepted for call compatibility and unused, as
-    in the JAX package. The first pass reads each batch's labels (for
+    in the JAX package. A ``mesh`` of one rank is accepted and unused; a
+    mesh of several ranks raises ``ValueError`` on every rank (the JAX
+    package ignores it there, and each rank would train its own
+    partition alone): the column's sort tables index the whole batch's
+    cells and do not split by rows, so such a fit streams CSR batches
+    (``sparse_dim=``) instead. The first pass reads each batch's labels (for
     ``label_check``) and weight sum back to the host, as the JAX package
     does; later epochs read only the epoch's loss. Checkpoint/resume is
     refused with ``ValueError``, as in the JAX package: stream CSR batches
@@ -1175,6 +1232,14 @@ def train_linear_model_sorted_stream(
 
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
+    if multi_rank(mesh):
+        raise ValueError(
+            "the sorted-column stream (a prefetched Dataset or "
+            "ElasticFeed of SparseVector rows) trains on one rank: on a "
+            "mesh of several ranks, stream CSR batches instead (SparseVector "
+            "Tables without the DevicePrefetcher, or flat CSR batches with "
+            "sparse_dim=)"
+        )
     if checkpoint_manager is not None or resume or checkpoint_interval:
         raise ValueError(
             "checkpoint/resume is not supported on the sorted-column "
@@ -1204,9 +1269,7 @@ def train_linear_model_sorted_stream(
             dim = col.dim
             step = _sorted_column_stepper(loss, dim)
             coef = torch.zeros(dim, dtype=dt, device=device)
-            hy = tuple(torch.tensor(v, dtype=dt, device=device) for v in (
-                learning_rate, reg * (1.0 - elastic_net),
-                reg * elastic_net))
+            hy = _stream_hypers(learning_rate, reg, elastic_net, dt, device)
         elif col.dim != dim:
             raise ValueError(
                 f"stream batch feature dimension {col.dim} != first "
@@ -1223,10 +1286,7 @@ def train_linear_model_sorted_stream(
         if validate is not None:
             validate(t)
         if n == 0 or float(wb[:n].sum()) == 0:
-            raise ValueError(
-                "stream batch has zero total weight (empty batch or "
-                "all weights 0); drop such batches before training"
-            )
+            raise _zero_weight_error()
         # The row bucket's padding gets weight 0 (the JAX step masks by
         # its traced n_valid): once here, not in every epoch's step.
         wb = wb.to(dt).clone()
@@ -1316,6 +1376,314 @@ def _pack_uniform_ell(indptr, indices, values, dtype, width=None):
     return bi, bv
 
 
+_DUMMY_BATCH = {"_dummy": True}
+
+
+def _zero_weight_error() -> ValueError:
+    # The step divides by the batch's weight sum: an inf step size would
+    # silently NaN the model.
+    return ValueError(
+        "stream batch has zero total weight (empty batch or all weights "
+        "0); drop such batches before training"
+    )
+
+
+def _run_multiprocess_stream_epochs(cache, plan, place, step, dim, hy, dt,
+                                    device, criterion, checkpoint_manager,
+                                    checkpoint_interval, listeners,
+                                    prefetch_depth, mesh, coef, epoch,
+                                    cur_loss, after_first_epoch=None):
+    """The epochs of the multi-process streams, dense and sparse: each
+    replays the local cache on the agreed schedule (``plan``, dummies
+    after the local batches) through a :class:`~flinkml_tpu_torch.
+    iteration.datacache.PrefetchingDeviceFeed`, one step a batch with the
+    in-flight work bounded by a :class:`~flinkml_tpu_torch.parallel.
+    dispatch.DispatchGuard`; then the listeners, the agreed commit
+    (:func:`~flinkml_tpu_torch.iteration.checkpoint.save_replicated`) and,
+    at the end, the wait for the last write and
+    ``on_iteration_terminated``. Returns the coefficient on the host."""
+    from flinkml_tpu_torch.iteration.checkpoint import save_replicated
+    from flinkml_tpu_torch.iteration.datacache import PrefetchingDeviceFeed
+    from flinkml_tpu_torch.parallel.dispatch import DispatchGuard
+
+    guard = DispatchGuard()
+
+    def run_epoch(coef):
+        loss_acc = torch.zeros((), dtype=dt, device=device)
+        wsum_acc = torch.zeros((), dtype=dt, device=device)
+        feed = PrefetchingDeviceFeed(
+            plan.epoch_batches(cache.reader(), lambda: _DUMMY_BATCH),
+            place=place, depth=prefetch_depth)
+        try:
+            for tensors in feed:
+                if coef is None:
+                    coef = torch.zeros(dim, dtype=dt, device=device)
+                coef, ls, ws = step(coef, *tensors, *hy)
+                loss_acc = loss_acc + ls
+                wsum_acc = wsum_acc + ws
+                coef = guard.after_dispatch(coef)
+        finally:
+            feed.close()
+        coef = guard.flush(coef)
+        return coef, float(loss_acc) / float(wsum_acc)
+
+    while not (epoch > 0 and criterion.should_terminate(epoch - 1, cur_loss)):
+        coef, cur_loss = run_epoch(coef)
+        epoch += 1
+        if after_first_epoch is not None:
+            after_first_epoch()
+        coef_host = coef.cpu().numpy()
+        for listener in listeners:
+            listener.on_epoch_watermark_incremented(epoch - 1, coef_host)
+        terminated = criterion.should_terminate(epoch - 1, cur_loss)
+        if checkpoint_manager is not None and (
+                terminated or (checkpoint_interval > 0
+                               and epoch % checkpoint_interval == 0)):
+            save_replicated(checkpoint_manager,
+                            (coef_host, np.float64(cur_loss)), epoch, mesh)
+    result = coef.cpu().numpy()
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()  # surface a failed final async write
+    for listener in listeners:
+        listener.on_iteration_terminated(result)
+    return result
+
+
+def _ingest(batches, is_cache: bool, check, cache_dir, memory_budget_bytes,
+            mesh, what: str):
+    """Pass 0 of a multi-process stream: ``check`` every batch, caching a
+    one-shot stream (a sealed cache is read once). The source's and the
+    check's failures, the cache writer's too, are held and agreed on every
+    rank before any planning collective (the rank's own error re-raises
+    there). Returns the sealed cache."""
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        DeferredValidation,
+        checked_ingest,
+    )
+
+    dv = DeferredValidation()
+    if is_cache:
+        cache = batches
+        for _ in checked_ingest(cache.reader(), dv, check, multi=True):
+            pass
+    else:
+        writer = DataCacheWriter(cache_dir, memory_budget_bytes)
+
+        def checked_append(b):
+            check(b)
+            writer.append({k: np.array(v) for k, v in b.items()})
+
+        for _ in checked_ingest(batches, dv, checked_append, multi=True):
+            pass
+        cache = writer.finish()
+    dv.rendezvous(mesh, what)
+    return cache
+
+
+def _restored_stream_carry(checkpoint_manager, resume_epoch, dim, dtype,
+                          dt, device, mesh=None):
+    """``(coef or None, epoch, loss)`` to start a stream from: the newest
+    snapshot when resuming (on a mesh of several ranks, the agreed
+    restore), else a fresh start."""
+    if resume_epoch is not None:
+        restored = _restore_carry(checkpoint_manager, dim, dtype, mesh)
+        if restored is not None:
+            coef_h, epoch, cur_loss = restored
+            return (torch.from_numpy(np.ascontiguousarray(coef_h)).to(
+                device=device, dtype=dt), epoch, cur_loss)
+    return None, 0, math.inf
+
+
+def _batch_weights(batch, key, n: int, dtype) -> np.ndarray:
+    """A dense batch's weight column, or unit weights."""
+    if key is not None and key in batch:
+        return np.asarray(batch[key], dtype=dtype)
+    return np.ones(n, dtype=dtype)
+
+
+def _stream_batch_check(dtype, columns, validate, sparse_dim):
+    """``check(batch) -> (rows, width)``: the checks of one streamed
+    batch, on its first pass (a cached batch cannot change), for the
+    one-process and the multi-process streams alike. A dense batch: the
+    ``[n, d]`` shape, one ``d`` for the stream (``width`` is ``d``) and its
+    label column; a flat CSR batch (``sparse_dim``): its dim, components
+    of one length, the CSR structure (:func:`_check_csr_structure`) and
+    label/weight rows (``width`` is its ELL width, :func:`_ell_width_for`).
+    Then ``validate`` and a non-zero weight sum."""
+    x_key, y_key, w_key = columns
+    first_dim = [None]
+
+    def check_dense(b):
+        x = np.asarray(b[x_key])  # no copy: the placement converts it
+        np.asarray(b[y_key])  # a missing label column raises
+        if x.ndim != 2:
+            raise ValueError(f"stream batches must be [n, d], got {x.shape}")
+        if first_dim[0] is None:
+            first_dim[0] = x.shape[1]
+        elif x.shape[1] != first_dim[0]:
+            raise ValueError(
+                f"batch feature dim {x.shape[1]} != first batch's "
+                f"{first_dim[0]}"
+            )
+        if validate is not None:
+            validate(b)
+        n = x.shape[0]
+        if n == 0 or float(_batch_weights(b, w_key, n, dtype).sum()) == 0.0:
+            raise _zero_weight_error()
+        return n, x.shape[1]
+
+    def check_sparse(b):
+        indptr = np.asarray(b["indptr"])[0]
+        n = indptr.size - 1
+        d = int(np.asarray(b["dim"]).reshape(-1)[0])
+        if d != sparse_dim:
+            raise ValueError(
+                f"CSR stream batch has dim {d}, expected {sparse_dim}"
+            )
+        indices = np.asarray(b["indices"])[0]
+        values = np.asarray(b["values"])[0]
+        if indices.shape != values.shape or indices.size != int(indptr[-1]):
+            raise ValueError(
+                "ragged CSR batch: indices/values/indptr disagree"
+            )
+        nnz = _check_csr_structure(indptr, indices, sparse_dim)
+        y = np.asarray(b["y"])[0]
+        w = np.asarray(b["w"])[0] if "w" in b else np.ones(n, dtype=dtype)
+        if y.shape[0] != n or w.shape[0] != n:
+            raise ValueError("ragged CSR batch: y/w rows != indptr rows")
+        if validate is not None:
+            validate(b)
+        if n == 0 or float(w.sum()) == 0.0:
+            raise _zero_weight_error()
+        return n, _ell_width_for(np.max(nnz, initial=1))
+
+    return check_dense if sparse_dim is None else check_sparse
+
+
+def _stream_placer(dtype, device, columns, sparse_dim, height=None,
+                   width=None, dim=None):
+    """``place(batch)``: one streamed batch's step tensors on ``device``
+    (dense ``x, y, w``; sparse ELL ``indices, values, y, w``). Alone a
+    batch keeps its rows and, sparse, its own ELL width. On several ranks
+    (``height``) every step is one ``[height, width]`` block: the batch
+    padded with weight-0 rows at the agreed ELL ``width`` (dense: the
+    agreed feature ``dim``), and the schedule's dummy batch all padding
+    (index 0, value 0, weight 0)."""
+    from flinkml_tpu_torch.iteration.datacache import device_put
+    from flinkml_tpu_torch.iteration.stream_sync import pad_rows_to
+
+    x_key, y_key, w_key = columns
+
+    def padded(arrays):
+        if height is None:
+            return arrays
+        return tuple(pad_rows_to(a, height) for a in arrays)
+
+    def place_dense(batch):
+        if "_dummy" in batch:
+            arrays = (np.zeros((0, dim), dtype), np.zeros(0, dtype),
+                      np.zeros(0, dtype))
+        else:
+            x = np.asarray(batch[x_key], dtype=dtype)
+            arrays = (x, np.asarray(batch[y_key], dtype=dtype),
+                      _batch_weights(batch, w_key, x.shape[0], dtype))
+        return device_put(padded(arrays), device)
+
+    def place_sparse(batch):
+        if "_dummy" in batch:
+            arrays = (np.zeros((0, width), np.int32),
+                      np.zeros((0, width), dtype), np.zeros(0, dtype),
+                      np.zeros(0, dtype))
+        else:
+            indptr = np.asarray(batch["indptr"])[0]
+            n = indptr.size - 1
+            bi, bv = _pack_uniform_ell(
+                indptr, np.asarray(batch["indices"])[0],
+                np.asarray(batch["values"])[0], dtype, width=width)
+            arrays = (bi, bv, np.asarray(batch["y"])[0].astype(dtype),
+                      np.asarray(batch["w"])[0].astype(dtype)
+                      if "w" in batch else np.ones(n, dtype=dtype))
+        return device_put(padded(arrays), device)
+
+    return place_dense if sparse_dim is None else place_sparse
+
+
+def _stream_hypers(learning_rate, reg, elastic_net, dt, device):
+    """``(learning_rate, l2, l1)`` as device scalars of the step's dtype."""
+    return tuple(torch.tensor(v, dtype=dt, device=device) for v in (
+        learning_rate, reg * (1.0 - elastic_net), reg * elastic_net))
+
+
+def _train_linear_stream_multiprocess(
+    batches, loss, mesh, max_iter, learning_rate, reg, elastic_net, tol,
+    cache_dir, memory_budget_bytes, checkpoint_manager, checkpoint_interval,
+    resume, listeners, prefetch_depth, dtype, columns, validate, sparse_dim,
+) -> np.ndarray:
+    """The stream on a mesh of several ranks (the module docstring's
+    "Streamed fits on a mesh"), dense or flat CSR (``sparse_dim``): pass 0
+    caches this rank's partition and checks every batch
+    (:func:`_stream_batch_check`); the ranks agree the schedule (the most
+    batches of any rank, the tallest batch rounded up to 8 rows), the
+    feature dim and, sparse, one ELL width (the widest power-of-two width
+    of any rank's batches), so that every rank's step is one ``[height,
+    width]`` block (:func:`_stream_placer`): sparse, the ``spmv`` kernel,
+    the unsorted ``segment_sum`` kernel, then one ``all_reduce``."""
+    from flinkml_tpu_torch.iteration.checkpoint import begin_resume
+    from flinkml_tpu_torch.iteration.datacache import DataCache
+    from flinkml_tpu_torch.iteration.runtime import TerminateOnMaxIterOrTol
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        SyncedReplayPlan,
+        agree_all_ok,
+        agree_feature_dim,
+        agree_max,
+        round_up,
+    )
+
+    resume_epoch = begin_resume(checkpoint_manager, resume, mesh.num_devices)
+    check_batch = _stream_batch_check(dtype, columns, validate, sparse_dim)
+    local = [0, 0]  # this rank's tallest batch, its widest (dense: its dim)
+
+    def check(b):
+        n, width = check_batch(b)
+        local[0], local[1] = max(local[0], n), max(local[1], width)
+
+    cache = _ingest(batches, isinstance(batches, DataCache), check,
+                    cache_dir, memory_budget_bytes, mesh,
+                    "stream ingest validation")
+    steps = agree_max(cache.num_batches, mesh)
+    if steps == 0:
+        raise ValueError("training stream is empty on every process")
+    plan = SyncedReplayPlan(
+        global_steps=steps,
+        local_height=agree_max(round_up(max(local[0], 1), 8), mesh),
+        mesh=mesh)
+    if sparse_dim is None:
+        dim = agree_feature_dim(cache, columns[0], mesh, local_dim=local[1])
+        width = None
+        step = _stream_stepper(loss, mesh)
+    else:
+        # Ranks fed partitions of different feature spaces would train
+        # coefficients of different shapes and hang in the collectives.
+        dim = int(sparse_dim)
+        agree_all_ok(agree_max(dim, mesh) == dim, mesh,
+                     "sparse stream feature-dimension agreement")
+        width = agree_max(max(local[1], 1), mesh)
+        step = _sparse_stream_stepper(loss, dim, mesh)
+    device = mesh.device
+    place = _stream_placer(dtype, device, columns, sparse_dim,
+                           plan.local_height, width, dim)
+    dt = torch.from_numpy(np.zeros(0, dtype)).dtype
+    coef, epoch, cur_loss = _restored_stream_carry(
+        checkpoint_manager, resume_epoch, dim, dtype, dt, device, mesh)
+    return _run_multiprocess_stream_epochs(
+        cache, plan, place, step, dim,
+        _stream_hypers(learning_rate, reg, elastic_net, dt, device), dt,
+        device, TerminateOnMaxIterOrTol(max_iter, tol), checkpoint_manager,
+        checkpoint_interval, listeners, prefetch_depth, mesh, coef, epoch,
+        cur_loss)
+
+
 def train_linear_model_stream(
     batches,
     loss: str,
@@ -1335,6 +1703,7 @@ def train_linear_model_stream(
     columns: Tuple[str, str, Optional[str]] = ("x", "y", "w"),
     validate=None,
     sparse_dim: Optional[int] = None,
+    mesh=None,
 ) -> np.ndarray:
     """Train from a one-shot stream of batches, datasets larger than RAM
     included (reference: ``ReplayOperator.java:62-250``).
@@ -1357,21 +1726,25 @@ def train_linear_model_stream(
       bits;
     - each batch trains at its own row count (the JAX package pads it
       with weight-0 rows to its mesh's row tile, which adds exact zeros:
-      eager PyTorch compiles nothing per shape); ``validate(batch)``, the
-      CSR structure and the zero-weight checks run on the first pass only
-      (a cached batch cannot change), which is also the first pass over a
-      caller's cache;
+      eager PyTorch compiles nothing per shape); the batch checks
+      (:func:`_stream_batch_check`: shapes, the CSR structure,
+      ``validate(batch)``, the zero-weight check) run on the first pass
+      only (a cached batch cannot change), which is also the first pass
+      over a caller's cache;
     - termination: ``TerminateOnMaxIterOrTol(max_iter, tol)`` on the
       weighted epoch-mean loss, summed on the device and read once per
       epoch; a manager saves ``(coef, loss)`` every ``checkpoint_interval``
-      epochs and always at the end.
+      epochs and always at the end;
+    - ``mesh`` of several ranks: each rank passes its own partition, and
+      the multi-process stream runs (the module docstring's "Streamed fits
+      on a mesh"; pass 0 caches without training, the ranks share the
+      checkpoint directory). Without one, the stream trains here alone.
     """
     from flinkml_tpu_torch.iteration.checkpoint import begin_resume
     from flinkml_tpu_torch.iteration.datacache import (
         DataCache,
         DataCacheWriter,
         PrefetchingDeviceFeed,
-        device_put,
     )
     from flinkml_tpu_torch.iteration.runtime import TerminateOnMaxIterOrTol
 
@@ -1383,62 +1756,30 @@ def train_linear_model_stream(
             "resume=True requires a durable DataCache input: a one-shot "
             "stream cannot be replayed from the start after a failure"
         )
-    begin_resume(checkpoint_manager, resume, _P_SIZE)
-    device = default_device()
+    check_mesh(mesh)
+    if multi_rank(mesh):
+        return _train_linear_stream_multiprocess(
+            batches, loss, mesh, max_iter, learning_rate, reg, elastic_net,
+            tol, cache_dir, memory_budget_bytes, checkpoint_manager,
+            checkpoint_interval, resume, listeners, prefetch_depth, dtype,
+            columns, validate, sparse_dim)
+    resume_epoch = begin_resume(checkpoint_manager, resume, _P_SIZE)
+    device = default_device() if mesh is None else mesh.device
     dt = torch.from_numpy(np.zeros(0, dtype)).dtype
     step = (_sparse_stream_stepper(loss, int(sparse_dim))
             if sparse_dim is not None else _stream_stepper(loss))
-    x_key, y_key, w_key = columns
+    check = _stream_batch_check(dtype, columns, validate, sparse_dim)
+    place_batch = _stream_placer(dtype, device, columns, sparse_dim)
     # Batches are immutable once cached: the input checks need the first
     # pass only, not max_iter re-scans on the feed's thread.
     first_pass_done = False
 
-    def check_weights(n, w):
-        if n == 0 or float(w.sum()) == 0.0:
-            # The step divides by the batch's weight sum: an inf step size
-            # would silently NaN the model.
-            raise ValueError(
-                "stream batch has zero total weight (empty batch or all "
-                "weights 0); drop such batches before training"
-            )
-
-    def place_dense(batch):
-        x = np.asarray(batch[x_key], dtype=dtype)
-        n = x.shape[0]
-        y = np.asarray(batch[y_key], dtype=dtype)
-        w = (np.asarray(batch[w_key], dtype=dtype)
-             if w_key is not None and w_key in batch
-             else np.ones(n, dtype=dtype))
+    def place(batch):
         if not first_pass_done:
-            if validate is not None:
-                validate(batch)
-            check_weights(n, w)
-        return device_put((x, y, w), device)
+            check(batch)
+        return place_batch(batch)
 
-    def place_sparse(batch):
-        indptr = np.asarray(batch["indptr"])[0]
-        indices = np.asarray(batch["indices"])[0]
-        n = indptr.size - 1
-        y = np.asarray(batch["y"])[0].astype(dtype)
-        w = (np.asarray(batch["w"])[0].astype(dtype)
-             if "w" in batch else np.ones(n, dtype=dtype))
-        if not first_pass_done:
-            d = int(np.asarray(batch["dim"]).reshape(-1)[0])
-            if d != sparse_dim:
-                raise ValueError(
-                    f"CSR stream batch has dim {d}, expected {sparse_dim}"
-                )
-            _check_csr_structure(indptr, indices, sparse_dim)
-            if validate is not None:
-                validate(batch)
-            check_weights(n, w)
-        bi, bv = _pack_uniform_ell(indptr, indices,
-                                   np.asarray(batch["values"])[0], dtype)
-        return device_put((bi, bv, y, w), device)
-
-    place = place_sparse if sparse_dim is not None else place_dense
-    hy = tuple(torch.tensor(v, dtype=dt, device=device) for v in (
-        learning_rate, reg * (1.0 - elastic_net), reg * elastic_net))
+    hy = _stream_hypers(learning_rate, reg, elastic_net, dt, device)
     criterion = TerminateOnMaxIterOrTol(max_iter, tol)
     coef = None
     epoch = 0  # epochs completed
@@ -1485,16 +1826,12 @@ def train_linear_model_stream(
 
     if is_cache:
         cache = batches
-        if resume:
-            if sparse_dim is not None:
-                dim = int(sparse_dim)
-            else:
-                dim = np.asarray(next(iter(cache.reader()))[x_key]).shape[1]
-            restored = _restore_carry(checkpoint_manager, dim, dtype)
-            if restored is not None:
-                coef_h, epoch, cur_loss = restored
-                coef = torch.from_numpy(np.ascontiguousarray(coef_h)).to(
-                    device=device, dtype=dt)
+        if resume_epoch is not None:
+            dim = (int(sparse_dim) if sparse_dim is not None
+                   else np.asarray(next(iter(cache.reader()))[columns[0]])
+                   .shape[1])
+            coef, epoch, cur_loss = _restored_stream_carry(
+                checkpoint_manager, resume_epoch, dim, dtype, dt, device)
     else:
         writer = DataCacheWriter(cache_dir, memory_budget_bytes)
 

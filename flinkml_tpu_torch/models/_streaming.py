@@ -5,8 +5,8 @@ The port's counterpart of ``flinkml_tpu.models._streaming``. Estimators
 inherit the mixin first (``class LinearSVC(StreamingEstimatorMixin,
 _LinearSVCParams, Estimator)``). ``mesh`` (a
 :class:`~flinkml_tpu_torch.parallel.DeviceMesh`) runs the in-RAM fits
-data parallel on its ranks; a streamed fit with a mesh is refused
-(ROADMAP.md Queue 1 item 7c). ``sharding_plan`` and ``precision`` are
+data parallel on its ranks, and a streamed fit as the multi-process
+stream (each rank passes its own partition). ``sharding_plan`` and ``precision`` are
 taken by the plan- and policy-aware estimators (the linear family's dense
 paths) and refused at construction by every other, with the JAX
 package's ``ValueError``.
@@ -57,8 +57,8 @@ def feed_world_size(batches) -> int:
 
 class StreamingEstimatorMixin:
     """The mesh, cache and checkpoint knobs shared by every
-    streamed-capable estimator: ``mesh`` (the in-RAM fits' data-parallel
-    mesh), ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
+    streamed-capable estimator: ``mesh`` (the fits' data-parallel mesh;
+    a streamed fit's ranks each feed their own partition), ``cache_dir`` and ``cache_memory_budget_bytes`` (where a
     streamed fit spills its epoch-0 cache), ``checkpoint_manager``,
     ``checkpoint_interval``, ``resume``, ``sharding_plan`` and
     ``precision``."""
@@ -120,13 +120,6 @@ class StreamingEstimatorMixin:
             checkpoint_interval=self.checkpoint_interval,
             resume=self.resume,
         )
-
-    def _refuse_stream_mesh(self) -> None:
-        """A streamed fit over a mesh is the multi-process stream
-        (``NotImplementedError``, ROADMAP.md Queue 1 item 7c)."""
-        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
-
-        refuse_unported(mesh=self.mesh)
 
     def _reject_in_ram_checkpointing(self, detail: str = "") -> None:
         """An in-RAM fit that cannot checkpoint raises instead of dropping

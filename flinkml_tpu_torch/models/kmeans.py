@@ -43,9 +43,13 @@ DeviceMesh`) runs the in-RAM Lloyd loop data parallel: every rank pads the
 points to a multiple of ``8·P`` rows and keeps its block, and each step's
 per-cluster sums and counts go through one ``all_reduce`` of ``[sums |
 counts]`` (the JAX step's two ``psum``s), so every rank holds the same
-centroids. ``KMeansModel`` scores rows sharded the same way. The streamed
-fit, OnlineKMeans and their multi-process streams stay one-process
-(ROADMAP.md Queue 1 item 7c).
+centroids. ``KMeansModel`` scores rows sharded the same way. A streamed
+fit on a mesh of several ranks is the multi-process stream: each rank
+feeds its own partition, the ranks agree one padded height and one step
+count an epoch (short ranks feed zero-weight dummies), the initial
+centroids are drawn from the ranks' pooled reservoir samples, each
+step's partials are summed over the ranks, and the mesh's first rank
+commits the snapshots into the shared directory.
 """
 
 from __future__ import annotations
@@ -112,8 +116,8 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
     ``checkpoint_interval`` and ``resume`` act on the streamed fit; the
     in-RAM fit refuses them (``ValueError``, as in the JAX package).
 
-    ``mesh`` runs the in-RAM fit data parallel (a streamed fit with a mesh
-    raises ``NotImplementedError``, ROADMAP.md Queue 1 item 7c);
+    ``mesh`` runs the in-RAM fit data parallel, and a streamed fit as the
+    multi-process stream (each rank passes its own partition);
     ``sharding_plan`` and ``precision`` raise ``ValueError`` at
     construction (the mixin's), as in the JAX package, whose KMeans takes
     neither.
@@ -146,7 +150,6 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
                 mesh=self.mesh,
             )
         else:
-            self._refuse_stream_mesh()
             centroids = self._fit_stream(table, k)
         model = KMeansModel(mesh=self.mesh)
         model.copy_params_from(self)
@@ -171,6 +174,7 @@ class KMeans(StreamingEstimatorMixin, _KMeansParams, Estimator):
             cache_dir=self.cache_dir,
             memory_budget_bytes=self.cache_memory_budget_bytes,
             column=features_col if isinstance(source, DataCache) else "x",
+            mesh=self.mesh,
             **self._checkpoint_kwargs(),
         )
 
@@ -423,13 +427,24 @@ def train_kmeans_stream(
       cannot be replayed from its start.
     - ``listeners`` fire at every epoch boundary with the centroids (a
       device tensor) and at the end.
+    - ``mesh`` of several ranks: each rank passes its own partition. Pass
+      0 validates every batch, a failure on one rank aborting every rank;
+      the ranks agree the schedule
+      (:class:`~flinkml_tpu_torch.iteration.stream_sync.
+      SyncedReplayPlan`: each batch padded to one height, dummies after a
+      short rank's batches) and the feature dim, ``k`` is held against
+      the global row count, the random or k-means++ init draws from the
+      ranks' reservoirs pooled (:func:`~flinkml_tpu_torch.iteration.
+      stream_sync.pooled_sample`), each step's partials are summed over
+      the ranks in one ``all_reduce``, and the mesh's first rank commits
+      the snapshots. Every rank ends with the same bits.
 
     The JAX package's ``flinkml_tpu.models.kmeans.train_kmeans_stream``,
-    one process (``mesh`` is ROADMAP.md Queue 1 item 7c), with its draws,
-    its padding and its error messages.
+    with its draws, its padding and its error messages.
     """
     from flinkml_tpu_torch.iteration.checkpoint import (
         begin_resume,
+        save_replicated,
         should_snapshot,
     )
     from flinkml_tpu_torch.iteration.datacache import (
@@ -439,10 +454,21 @@ def train_kmeans_stream(
         device_put,
     )
     from flinkml_tpu_torch.iteration.runtime import notify_epoch_listeners
-    from flinkml_tpu_torch.iteration.stream_sync import agreed_restore
+    from flinkml_tpu_torch.iteration.stream_sync import (
+        DeferredValidation,
+        SyncedReplayPlan,
+        agree_feature_dim,
+        agreed_restore,
+        checked_ingest,
+        gather_vectors,
+        pad_rows_to,
+        pooled_sample,
+    )
+    from flinkml_tpu_torch.parallel.dispatch import DispatchGuard
     from flinkml_tpu_torch.utils.sampling import RowReservoir
 
-    _linear_sgd.refuse_unported(mesh=mesh)
+    _linear_sgd.check_mesh(mesh)
+    multi = _linear_sgd.multi_rank(mesh)
     if resume and not isinstance(batches, DataCache):
         raise ValueError(
             "resume=True requires a durable DataCache input: a one-shot "
@@ -450,9 +476,10 @@ def train_kmeans_stream(
         )
     # The resume target is decided before pass 0, so a restore skips the
     # reservoir pass and the seeding whose centroids it would discard.
-    resume_epoch = begin_resume(checkpoint_manager, resume,
-                                _linear_sgd._P_SIZE)
-    device = default_device()
+    resume_epoch = begin_resume(
+        checkpoint_manager, resume,
+        mesh.num_devices if multi else _linear_sgd._P_SIZE)
+    device = default_device() if mesh is None else mesh.device
     n_feat = [None]  # the first batch's feature dim; every batch must match
 
     def check_dims(x):
@@ -478,34 +505,71 @@ def train_kmeans_stream(
         w[:n_valid] = 1.0  # padded rows never influence centroids
         return device_put((x_pad, w), device)
 
+    def fixed_place(height: int, dim: int):
+        """The multi-process placement: every step is ``height`` rows on
+        every rank (weight-0 padding, all-zero dummies)."""
+
+        def place_multi(batch):
+            if "_dummy" in batch:
+                x_pad = np.zeros((height, dim), np.float32)
+                w = np.zeros(height, np.float32)
+            else:
+                x = np.asarray(batch[column], np.float32)
+                x_pad = pad_rows_to(x, height)
+                w = pad_rows_to(np.ones(x.shape[0], np.float32), height)
+            return device_put((x_pad, w), device)
+
+        return place_multi
+
     # -- pass 0: cache (unless sealed) + reservoir sample for the init -----
     reservoir_cap = k if init_mode == "random" else max(k, init_sample_size)
     need_init = initial_centroids is None and resume_epoch is None
     reservoir = RowReservoir(reservoir_cap, seed=seed)
+    # On a mesh the source's and the checks' failures are held for one
+    # agreement before any planning collective; a sealed cache is read
+    # (validated) even when no init needs it, so that no batch fails on
+    # one rank at replay, mid-collective.
+    dv = DeferredValidation()
     if isinstance(batches, DataCache):
         cache = batches
-        if need_init:
-            for b in cache.reader():
-                reservoir.add(ingest(b))
+        if need_init or multi:
+            for x in checked_ingest(cache.reader(), dv, ingest, multi):
+                if need_init:
+                    reservoir.add(x)
     else:
         writer = DataCacheWriter(cache_dir, memory_budget_bytes)
-        for b in batches:
+
+        def ingest_append(b):
             x = ingest(b)
             writer.append({column: np.array(x)})
+            return x
+
+        for x in checked_ingest(batches, dv, ingest_append, multi):
             if need_init:
                 reservoir.add(x)
         cache = writer.finish()
-    if cache.num_rows < k:
-        raise ValueError(f"k={k} exceeds number of points {cache.num_rows}")
+    dim = n_feat[0] or 0
+    plan = None
+    if multi:
+        dv.rendezvous(mesh, "stream ingest validation")
+        plan = SyncedReplayPlan.create(cache, mesh, ROW_TILE)
+        dim = agree_feature_dim(cache, column, mesh, local_dim=dim)
+        total_rows = int(gather_vectors(
+            np.asarray([cache.num_rows], np.float64), mesh).sum())
+    else:
+        total_rows = cache.num_rows
+    if total_rows < k:  # on a mesh a replicated value: every rank raises
+        raise ValueError(f"k={k} exceeds number of points {total_rows}")
 
     rng = np.random.default_rng(seed)
     start_epoch = 0
     if resume_epoch is not None:
-        # One cached batch gives the feature dim.
-        d_feat = np.asarray(next(iter(cache.reader()))[column]).shape[1]
+        # One cached batch gives the feature dim (agreed on a mesh).
+        d_feat = dim if multi else np.asarray(
+            next(iter(cache.reader()))[column]).shape[1]
         centroids, start_epoch = agreed_restore(
-            checkpoint_manager, resume_epoch, np.zeros((k, d_feat), np.float32)
-        )
+            checkpoint_manager, resume_epoch,
+            np.zeros((k, d_feat), np.float32), mesh if multi else None)
     elif initial_centroids is not None:
         centroids = np.asarray(initial_centroids, np.float32)
         if centroids.shape[0] != k:
@@ -514,6 +578,10 @@ def train_kmeans_stream(
             )
     else:
         sample = reservoir.sample()
+        if multi:
+            # One global sample from every rank's, the same on each.
+            sample = pooled_sample(sample, cache.num_rows, reservoir_cap,
+                                   seed, mesh)
         if init_mode == "k-means++":
             centroids = _kmeans_pp_init(sample, k, rng).astype(np.float32)
         else:
@@ -521,24 +589,37 @@ def train_kmeans_stream(
             # reference's selection is (KMeans.java:314-335).
             centroids = sample[rng.permutation(sample.shape[0])[:k]]
 
+    guard = DispatchGuard()  # bounded in-flight steps (a no-op alone)
+    reduce_mesh = mesh if multi else None
     cent = torch.from_numpy(np.ascontiguousarray(centroids)).to(device)
     for epoch in range(start_epoch, max_iter):
         sums = counts = None
-        feed = PrefetchingDeviceFeed(cache.reader(), place=place,
-                                     depth=prefetch_depth)
+        if multi:
+            src = plan.epoch_batches(cache.reader(), lambda: {"_dummy": True})
+            place_fn = fixed_place(plan.local_height, dim)
+        else:
+            src, place_fn = cache.reader(), place
+        feed = PrefetchingDeviceFeed(src, place=place_fn, depth=prefetch_depth)
         try:
             for xb, wb in feed:
-                s, c = kmeans_partials(xb, wb, cent)
+                s, c = _reduce_partials(reduce_mesh,
+                                        *kmeans_partials(xb, wb, cent))
                 sums = s if sums is None else sums + s
                 counts = c if counts is None else counts + c
+                counts = guard.after_dispatch(counts)
         finally:
             feed.close()
         if sums is None:
             raise ValueError("training stream is empty")
+        counts = guard.flush(counts)
         cent = update_centroids(sums, counts, cent)
         if should_snapshot(checkpoint_manager, checkpoint_interval,
                            epoch + 1, max_iter):
-            checkpoint_manager.save(cent.cpu().numpy(), epoch + 1)
+            if multi:
+                save_replicated(checkpoint_manager, cent.cpu().numpy(),
+                                epoch + 1, mesh)
+            else:
+                checkpoint_manager.save(cent.cpu().numpy(), epoch + 1)
         if listeners:
             cent = notify_epoch_listeners(listeners, epoch, cent)
     if checkpoint_manager is not None:

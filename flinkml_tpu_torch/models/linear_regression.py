@@ -166,10 +166,9 @@ class LinearRegression(StreamingEstimatorMixin, _LinearRegressionParams,
                     "precision supports in-RAM Table fits only; the "
                     "streamed trainer is not yet policy-gated"
                 )
-            self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, features_col=cols[0], label_col=cols[1],
-                weight_col=cols[2], cache_dir=self.cache_dir,
+                weight_col=cols[2], cache_dir=self.cache_dir, mesh=self.mesh,
                 memory_budget_bytes=self.cache_memory_budget_bytes,
                 **self._hyper(),
             )

@@ -120,10 +120,9 @@ class LinearSVC(StreamingEstimatorMixin, _LinearSVCParams, Estimator):
                     "precision supports in-RAM Table fits only; the "
                     "streamed trainer is not yet policy-gated"
                 )
-            self._refuse_stream_mesh()
             coef = _linear_sgd.streamed_linear_fit(
                 table, label_check=_check_labels,
-                cache_dir=self.cache_dir,
+                cache_dir=self.cache_dir, mesh=self.mesh,
                 memory_budget_bytes=self.cache_memory_budget_bytes,
                 **cols, **self._hyper(),
             )

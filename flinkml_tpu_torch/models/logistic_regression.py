@@ -355,7 +355,6 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
     def _fit_stream(self, source) -> LogisticRegressionModel:
         """The out-of-core fit from an iterable of batch Tables or a
         DataCache (``ReplayOperator.java:62-250`` parity)."""
-        self._refuse_stream_mesh()
         if self.get(_LogisticRegressionParams.MULTI_CLASS) == "multinomial":
             raise ValueError(
                 "multinomial logistic regression does not support "
@@ -385,9 +384,10 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
             tol=self.get(_LogisticRegressionParams.TOL),
             cache_dir=self.cache_dir,
             memory_budget_bytes=self.cache_memory_budget_bytes,
+            mesh=self.mesh,
             **self._checkpoint_kwargs(),
         )
-        model = LogisticRegressionModel()
+        model = LogisticRegressionModel(mesh=self.mesh)
         model.copy_params_from(self)
         model.set_model_data(Table({"coefficient": coef[None, :]}))
         return model
@@ -466,7 +466,9 @@ def train_logistic_regression(
     - ``mode="host"``: one step per epoch driven by
       :func:`flinkml_tpu_torch.iteration.iterate`: listeners and
       checkpoints at every epoch, one dispatch and one read of the loss
-      per epoch.
+      per epoch. On a mesh of several ranks its snapshots are agreed
+      commits (:class:`~flinkml_tpu_torch.iteration.checkpoint.
+      AgreedCommits`: the mesh's first rank writes).
     """
     if mode not in ("device", "host"):
         raise ValueError(f"mode must be 'device' or 'host', got {mode!r}")
@@ -490,18 +492,12 @@ def train_logistic_regression(
             "policy-gated step lives on the plan-sharded path)"
         )
     _linear_sgd.check_mesh(mesh)
-    if _linear_sgd.multi_rank(mesh) and checkpoint_manager is not None:
-        raise NotImplementedError(
-            "mode='host' checkpoints from every rank (the iterate runtime's "
-            "commit); on a mesh of several ranks that is the agreed "
-            "multi-process commit, which comes with ROADMAP.md Queue 1 item "
-            "7c. Use mode='device' (its first rank writes the snapshots)."
-        )
     from flinkml_tpu_torch.iteration import (
         IterationConfig,
         TerminateOnMaxIterOrTol,
         iterate,
     )
+    from flinkml_tpu_torch.iteration.checkpoint import AgreedCommits
 
     n, dim = x.shape
     if dtype is None:
@@ -525,6 +521,10 @@ def train_logistic_regression(
 
     if checkpoint_manager is not None:
         checkpoint_manager.world_size = 1 if mesh is None else mesh.num_devices
+        if _linear_sgd.multi_rank(mesh):
+            # The loop saves on every rank: the mesh's first rank writes,
+            # every rank agrees on the commit and on the restore.
+            checkpoint_manager = AgreedCommits(checkpoint_manager, mesh)
     result = iterate(
         epoch_step, torch.zeros(dim, dtype=dt, device=device),
         config=IterationConfig(

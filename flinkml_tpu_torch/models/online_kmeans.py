@@ -19,9 +19,18 @@ compute device.
 
 The carry ``{"centroids", "weights", "version"}`` is checkpointed in the
 JAX package's layout, so a snapshot of either package resumes in the
-other, and saved models cross packages both ways. One process: the
-multi-process stream is ROADMAP.md Queue 1 item 7c, the numerics sentinel
-and recovery item 12.
+other, and saved models cross packages both ways. The numerics sentinel
+and recovery are ROADMAP.md Queue 1 item 12.
+
+**Several processes.** In a process group of more than one rank each
+rank feeds its own partition: the first batch's dim is agreed over the
+ranks, the initial centroids are ``k`` rows drawn from the ranks' first
+batches pooled (:func:`~flinkml_tpu_torch.iteration.stream_sync.
+pooled_sample`), and every agreed step sums the batch statistics over the
+ranks in one ``all_reduce`` and applies the decay rule once (a drained
+rank feeds zero-weight dummies). It computes in float32, as the JAX
+package's multi-process step does; the centroids are the same bits on
+every rank. Checkpoints of that path are refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,10 +90,11 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
     an iterable of batch Tables (one update each)."""
 
     def __init__(self, mesh=None):
-        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
 
-        refuse_unported(mesh=mesh)
+        check_mesh(mesh)
         super().__init__()
+        self.mesh = mesh
         self._initial_centroids: Optional[np.ndarray] = None
 
     def set_initial_model_data(self, *inputs: Table) -> "OnlineKMeans":
@@ -124,8 +134,10 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
         run. ``stream_resume``: ``"replay"`` skips the consumed prefix of
         a source that restarts from its beginning, ``"continue"`` consumes
         a live stream from the front. ``sentinel``/``recovery`` are
-        refused (ROADMAP.md Queue 1 item 12); so is a multi-process group
-        (item 7c).
+        refused (ROADMAP.md Queue 1 item 12). In a process group of
+        several ranks each rank passes its own partition (the module
+        docstring's "Several processes"; over ``mesh``, else a mesh of
+        every rank), and a checkpoint manager or ``resume`` is refused.
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -154,12 +166,14 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
             recovery=recovery,
         )
         if _process_count() > 1:
-            raise NotImplementedError(
-                "the multi-process online stream (one centroid update per "
-                "arriving batch across processes) is not ported to "
-                "flinkml_tpu_torch yet: it comes with ROADMAP.md Queue 1 "
-                "item 7c (multi-process streams)"
-            )
+            if checkpoint_manager is not None or resume:
+                raise NotImplementedError(
+                    "checkpoint/resume for the multi-process online stream "
+                    "path is not wired (as in the JAX package); run the "
+                    "checkpointing fit single-process"
+                )
+            return self._fit_stream_multiprocess(batches, k, decay, fcol,
+                                                 rng)
         restore_epoch = begin_resume(checkpoint_manager, resume,
                                      world_size=feed_world_size(batches))
 
@@ -214,6 +228,79 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
                             int(final["version"]))
         model.recovery_summary = result.recovery
         return model
+
+    def _fit_stream_multiprocess(self, batches, k, decay, fcol, rng):
+        """The multi-process stream (the module docstring's "Several
+        processes")."""
+        import itertools
+
+        from flinkml_tpu_torch.iteration.datacache import device_put
+        from flinkml_tpu_torch.iteration.stream_sync import (
+            agree_first_item_dim,
+            pooled_sample,
+            synced_padded_stream,
+        )
+        from flinkml_tpu_torch.models.kmeans import _reduce_partials
+        from flinkml_tpu_torch.parallel.dispatch import DispatchGuard
+        from flinkml_tpu_torch.parallel.mesh import DeviceMesh
+
+        mesh = self.mesh if self.mesh is not None else DeviceMesh()
+        device = mesh.device
+        d_seen = [None]
+
+        def check(x):
+            if x.ndim != 2 or x.shape[0] == 0:
+                raise ValueError(
+                    f"stream batches must be non-empty [n, d], got {x.shape}"
+                )
+            if d_seen[0] is None:
+                d_seen[0] = x.shape[1]
+            elif x.shape[1] != d_seen[0]:
+                raise ValueError(
+                    f"batch feature dim {x.shape[1]} != first batch's "
+                    f"{d_seen[0]}"
+                )
+
+        first, rest, dim = agree_first_item_dim(
+            (features_matrix(t, fcol).astype(np.float32) for t in batches),
+            check, lambda x: x.shape[1], mesh)
+        d_seen[0] = dim
+        if self._initial_centroids is not None:
+            centroids = np.asarray(self._initial_centroids, np.float32)
+        else:
+            # The one-process draw takes k rows of the first batch; here
+            # "the first batch" is every rank's first batch, pooled.
+            if first is None:
+                local, local_rows = np.zeros((0, dim), np.float32), 0
+            else:
+                take = min(k, first.shape[0])
+                local = first[rng.choice(first.shape[0], size=take,
+                                         replace=False)]
+                local_rows = first.shape[0]
+            centroids = pooled_sample(local, local_rows, k, self.get_seed(),
+                                      mesh)
+            if centroids.shape[0] < k:
+                raise ValueError(
+                    f"first batches hold {centroids.shape[0]} rows < k={k}; "
+                    "increase globalBatchSize or provide initial model data"
+                )
+        cent = torch.from_numpy(np.ascontiguousarray(centroids)).to(device)
+        weights = torch.zeros(k, dtype=torch.float32, device=device)
+        guard = DispatchGuard()
+        stream = itertools.chain([first] if first is not None else [], rest)
+        version = 0
+        for (x_pad,), valid, _h in synced_padded_stream(
+                ((x,) for x in stream), mesh, check=lambda item: check(item[0]),
+                row_tile=8, dummy_cols=((dim,),)):
+            xb, wb = device_put((x_pad, valid), device)
+            sums, counts = _reduce_partials(mesh,
+                                            *kmeans_partials(xb, wb, cent))
+            cent, weights = _decayed_update(cent, weights, sums, counts,
+                                            decay)
+            version += 1
+            guard.after_dispatch(cent)
+        guard.flush(cent)
+        return self._model(cent.cpu().numpy(), version)
 
     def _model(self, centroids, version: int) -> "OnlineKMeansModel":
         model = OnlineKMeansModel()

@@ -20,8 +20,19 @@ read per batch.
 
 The carry ``{"z", "n", "coef", "version"}`` is checkpointed in the JAX
 package's layout (``coef, n, version, z``: sorted keys), so a snapshot of
-either package resumes in the other. One process: the multi-process stream
-is ROADMAP.md Queue 1 item 7c, the numerics sentinel and recovery item 12.
+either package resumes in the other. The numerics sentinel and recovery
+are ROADMAP.md Queue 1 item 12.
+
+**Several processes.** In a process group of more than one rank each
+rank feeds its own arriving partition and every update is one global
+FTRL step in lockstep (:func:`~flinkml_tpu_torch.iteration.stream_sync.
+synced_padded_stream`: a drained rank feeds zero-weight dummies until
+every stream ends), its gradient, loss and weight sums summed over the
+ranks in one ``all_reduce``: the reference's per-mini-batch allReduce of
+the subtasks' gradients. It computes in float32, as the JAX package's
+multi-process step does; the model is the same bits on every rank and
+its version counts global steps (the most batches of any rank).
+Checkpoints of that path are refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -109,10 +120,11 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
     batch Tables (one update each)."""
 
     def __init__(self, mesh=None):
-        from flinkml_tpu_torch.models._linear_sgd import refuse_unported
+        from flinkml_tpu_torch.parallel.mesh import check_mesh
 
-        refuse_unported(mesh=mesh)
+        check_mesh(mesh)
         super().__init__()
+        self.mesh = mesh
         self._initial_coefficient: Optional[np.ndarray] = None
 
     def set_initial_model_data(self, *inputs: Table) -> "OnlineLogisticRegression":
@@ -147,8 +159,7 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         whole so that its cursor rides every snapshot. A snapshot records
         the feed's world (``num_shards``); an ElasticFeed resumed at
         another world restores under the manager's ``rescale="allow"``
-        (the FTRL carry is replicated, so the result is the same bits),
-        and ``rescale="reshard"`` is refused (ROADMAP.md Queue 1 item 7c).
+        (the FTRL carry is replicated, so the result is the same bits).
         ``checkpoint_manager`` (+ ``checkpoint_interval``) snapshots the
         whole carry every N consumed batches and at the end;
         ``resume=True`` continues from the newest valid snapshot, the same
@@ -156,7 +167,10 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         a source that re-presents the stream from the start (the consumed
         batches are skipped), ``"continue"`` for a live stream already at
         "now". ``sentinel``/``recovery`` are refused (ROADMAP.md Queue 1
-        item 12); so is a multi-process group (item 7c).
+        item 12). In a process group of several ranks each rank passes its
+        own partition (the module docstring's "Several processes"; over
+        ``mesh``, else a mesh of every rank), and a checkpoint manager or
+        ``resume`` is refused.
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -183,6 +197,14 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
             recovery=recovery,
         )
         if _process_count() > 1:
+            if checkpoint_manager is not None or resume:
+                raise NotImplementedError(
+                    "checkpoint/resume for the multi-process online stream "
+                    "path is not wired (as in the JAX package); run the "
+                    "checkpointing fit single-process, or use the bounded "
+                    "multi-process streamed fits, which commit agreed "
+                    "snapshots"
+                )
             return self._fit_stream_multiprocess(batches, alpha, beta, l1, l2)
         restore_epoch = begin_resume(checkpoint_manager, resume,
                                      world_size=feed_world_size(batches))
@@ -261,12 +283,89 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         return None
 
     def _fit_stream_multiprocess(self, batches, alpha, beta, l1, l2):
-        """The multi-process unbounded stream (refused)."""
-        raise NotImplementedError(
-            "the multi-process online stream (one FTRL step per arriving "
-            "batch across processes) is not ported to flinkml_tpu_torch "
-            "yet: it comes with ROADMAP.md Queue 1 item 7c (multi-process streams)"
+        """The multi-process stream (the module docstring's "Several
+        processes"): the first batch's dim agreed over the ranks (a rank
+        with no batch adopts it), then one global FTRL step per agreed
+        step, in float32."""
+        import itertools
+
+        from flinkml_tpu_torch.iteration.datacache import device_put
+        from flinkml_tpu_torch.iteration.stream_sync import (
+            agree_first_item_dim,
+            synced_padded_stream,
         )
+        from flinkml_tpu_torch.models._linear_sgd import _reduce_terms
+        from flinkml_tpu_torch.parallel.dispatch import DispatchGuard
+        from flinkml_tpu_torch.parallel.mesh import DeviceMesh
+
+        mesh = self.mesh if self.mesh is not None else DeviceMesh()
+        device = mesh.device
+        fcol = self.get(_OnlineLogisticRegressionParams.FEATURES_COL)
+        lcol = self.get(_OnlineLogisticRegressionParams.LABEL_COL)
+        wcol = self.get(_OnlineLogisticRegressionParams.WEIGHT_COL)
+
+        def extract(t):
+            x, y, w = labeled_data(t, fcol, lcol, wcol)
+            return (np.asarray(x, np.float32), np.asarray(y, np.float32),
+                    np.asarray(w, np.float32))
+
+        d_seen = [None]
+
+        def check(item):
+            x = item[0]
+            if x.ndim != 2 or x.shape[0] == 0:
+                raise ValueError(
+                    f"stream batches must be non-empty [n, d], got {x.shape}"
+                )
+            if d_seen[0] is None:
+                d_seen[0] = x.shape[1]
+            elif x.shape[1] != d_seen[0]:
+                raise ValueError(
+                    f"batch feature dim {x.shape[1]} != first batch's "
+                    f"{d_seen[0]}"
+                )
+
+        first, rest, dim = agree_first_item_dim(
+            (extract(t) for t in batches), check,
+            lambda item: item[0].shape[1], mesh)
+        d_seen[0] = dim
+        f32 = dict(dtype=torch.float32, device=device)
+        if self._initial_coefficient is None:
+            coef = torch.zeros(dim, **f32)
+            z = torch.zeros(dim, **f32)
+        else:
+            if self._initial_coefficient.shape[0] != dim:
+                raise ValueError(
+                    f"initial coefficient has dim "
+                    f"{self._initial_coefficient.shape[0]} but the stream "
+                    f"has dim {dim}"
+                )
+            coef = torch.as_tensor(self._initial_coefficient).to(**f32)
+            z = -coef * (beta / alpha + l2) - torch.sign(coef) * l1
+            z = torch.where(coef == 0.0, torch.zeros_like(z), z)
+        n = torch.zeros(dim, **f32)
+        guard = DispatchGuard()
+        stream = itertools.chain([first] if first is not None else [], rest)
+        version = 0
+        # The zero-padded weights are the validity mask (padding and dummy
+        # rows weigh 0): the loop's valid_w is not needed.
+        for padded, _valid, _h in synced_padded_stream(
+                stream, mesh, check=check, row_tile=8,
+                dummy_cols=((dim,), (), ())):
+            x, y, w = device_put(padded, device)
+            dot = torch.matmul(x, coef)
+            margin = -dot * (2.0 * y - 1.0)
+            grad, _loss, wsum = _reduce_terms(
+                mesh, torch.matmul(x.T, w * (torch.sigmoid(dot) - y)),
+                torch.sum(w * torch.logaddexp(margin,
+                                              torch.zeros_like(margin))),
+                torch.sum(w))
+            g = grad / torch.clamp_min(wsum, 1e-12)
+            z, n, coef = _ftrl_algebra(z, n, coef, g, alpha, beta, l1, l2)
+            version += 1
+            guard.after_dispatch(coef)
+        guard.flush(coef)
+        return self._model(coef.cpu().numpy(), version)
 
 
 class OnlineLogisticRegressionModel(_OnlineLogisticRegressionParams, Model):

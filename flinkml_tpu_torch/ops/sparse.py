@@ -508,6 +508,15 @@ def pack_sorted_sparse_column(vectors: Sequence[SparseVector],
 CUMSUM_CHUNK = 65_536
 
 
+def _row_cumsum(rows: torch.Tensor) -> torch.Tensor:
+    """The running sum along each row of a 2-D tensor, always by the
+    row-wise scan: one row scans beside an all-zero second row (see
+    :func:`chunked_run_totals`)."""
+    if rows.shape[0] != 1:
+        return torch.cumsum(rows, dim=1)
+    return torch.cumsum(torch.cat([rows, torch.zeros_like(rows)]), dim=1)[:1]
+
+
 def chunked_run_totals(contrib: torch.Tensor, ends: torch.Tensor
                        ) -> torch.Tensor:
     """Totals of contiguous runs of ``contrib`` (1-D ``[cells]`` or 2-D
@@ -522,8 +531,20 @@ def chunked_run_totals(contrib: torch.Tensor, ends: torch.Tensor
     first chunk, the full chunks between (a chunk-prefix difference,
     exactly 0 when there are none) and the head of its last chunk.
     ``C = min(CUMSUM_CHUNK, next_pow2(cells + 1))``, so a small input does
-    not pad to a whole chunk. The running sums scan along the innermost
-    axis of a ``[k, chunks, C]`` view, one row per chunk, in a fixed order.
+    not pad to a whole chunk.
+
+    Both running sums scan rows of a 2-D view (:func:`_row_cumsum`): the
+    within-chunk sum a ``[k·chunks, C]`` view, one row per chunk and
+    column, the chunk-prefix sum a ``[k, chunks]`` view. PyTorch's CUDA
+    ``cumsum`` scans a tensor whose scanned dimension holds all of its
+    elements (one row) with CUB's device-wide scan, whose decoupled
+    look-back does not fix the order of float additions between tiles,
+    so two calls on the same input may differ in the last bits; a tensor
+    of several rows takes the row-wise scan, one block a row in a fixed
+    order. A view of one row (one chunk at ``k = 1``, and every
+    chunk-prefix sum at ``k = 1``) therefore scans with a second, all-zero
+    row, which adds nothing. On the CPU ``cumsum`` adds each row in order
+    whatever the shape, so the extra row changes no bit there.
     """
     flat = contrib.dim() == 1
     if flat:
@@ -538,9 +559,10 @@ def chunked_run_totals(contrib: torch.Tensor, ends: torch.Tensor
     pad_tail = n_chunks * C - (cells + 1)
     padded = torch.cat([contrib.new_zeros((1, k)), contrib,
                         contrib.new_zeros((pad_tail, k))])
-    lcs = torch.cumsum(padded.T.reshape(k, n_chunks, C), dim=2)
+    lcs = _row_cumsum(padded.T.reshape(k * n_chunks, C)).reshape(
+        k, n_chunks, C)
     chunk_tot = lcs[:, :, -1]                          # [k, n_chunks]
-    chunk_prefix = torch.cumsum(chunk_tot, dim=1)
+    chunk_prefix = _row_cumsum(chunk_tot)
     flat_lcs = lcs.reshape(k, -1)
 
     e1 = ends.to(torch.int64) + 1

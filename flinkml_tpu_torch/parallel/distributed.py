@@ -321,8 +321,9 @@ def rescale_world(new_world: int, new_rank: int,
     """Re-join at a NEW world size: leave the old group (if any) and
     rendezvous again as rank ``new_rank`` of ``new_world`` (survivor ranks
     compacted by :func:`compact_rank`). World 1 with no address configured
-    is a no-op returning ``(0, 1)``. The data-plane re-layout is not here
-    (``rescale="reshard"``, ROADMAP.md Queue 1 item 7c)."""
+    is a no-op returning ``(0, 1)``. The state's re-layout is the
+    checkpoint's (``rescale="reshard"``,
+    :func:`~flinkml_tpu_torch.iteration.checkpoint.reshard_rank_state`)."""
     new_world, new_rank = int(new_world), int(new_rank)
     if new_world < 1 or not (0 <= new_rank < new_world):
         raise ValueError(

@@ -1443,3 +1443,58 @@ def test_naive_bayes_counts_on_card(cuda_device):
     np.testing.assert_array_equal(model._pi, cpu._pi)
     np.testing.assert_array_equal(got.column("prediction"),
                                   ref.column("prediction"))
+
+
+@pytest.mark.parametrize("k", [None, 1, 4])
+def test_chunked_run_totals_one_chunk_bit_for_bit(cuda_device, k):
+    """A window that fits one chunk (20,000 cells: C = 32,768), flat and as
+    a ``[cells, k]`` payload: 50 calls on the card give the same bits
+    (both scans take the row-wise kernel, never CUB's device-wide scan),
+    within 1e-3 of the CPU's running sums (float32 sums of up to 20,000
+    standard normals, added in another order)."""
+    from flinkml_tpu_torch.ops import sparse as t_sparse
+
+    rng = np.random.default_rng(31)
+    cells = 20_000
+    shape = (cells,) if k is None else (cells, k)
+    contrib = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    ends = torch.from_numpy(np.unique(np.concatenate(
+        [rng.integers(0, cells, size=3000), [cells - 1]])))
+    assert t_sparse.next_pow2(cells + 1) <= t_sparse.CUMSUM_CHUNK
+    dc, de = contrib.to(cuda_device), ends.to(cuda_device)
+    first = t_sparse.chunked_run_totals(dc, de)
+    for _ in range(49):
+        assert torch.equal(t_sparse.chunked_run_totals(dc, de), first)
+    torch.testing.assert_close(first.cpu(),
+                               t_sparse.chunked_run_totals(contrib, ends),
+                               rtol=0, atol=1e-3)
+
+
+def test_stream_on_two_ranks_on_card(cuda_device, tmp_path):
+    """The streamed CSR fit on two gloo ranks with CUDA tensors on the one
+    card (``tests/_torch_mesh_worker.py stream_cuda``): both kernels
+    launch on each rank, the ranks end with the same bits, within 1e-5 of
+    the one-process CPU fit over the combined stream."""
+    import os
+    import sys
+
+    from flinkml_tpu_torch.parallel.launch import spawn_ranks
+    from tests import _stream_mp_common as C
+    from tests import _torch_mesh_worker as worker
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    spawn_ranks([sys.executable, os.path.join(repo, "tests",
+                                              "_torch_mesh_worker.py"),
+                 "stream_cuda", str(tmp_path)], 2, str(tmp_path), 120,
+                env=env)
+    outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    np.testing.assert_array_equal(outs[1]["sp_coef"], outs[0]["sp_coef"])
+    for o in outs:
+        assert o["local_launches"].min() > 0, o["local_launches"]
+    with fml.use_device("cpu"):
+        want = worker._estimator(fml.LogisticRegression, None,
+                                 C.SPARSE_HP).fit(
+            iter(worker.sparse_combined(C, 2))).coefficient
+    np.testing.assert_allclose(outs[0]["sp_coef"], want, rtol=0, atol=1e-5)

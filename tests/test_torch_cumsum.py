@@ -99,7 +99,44 @@ def test_chunked_run_totals_small_input_pads_to_next_pow2(monkeypatch):
 
     monkeypatch.setattr(torch, "cumsum", spy)
     t_sparse.chunked_run_totals(torch.ones(100), torch.tensor([49, 99]))
-    assert seen[0] == (1, 1, 128)
+    # One chunk of 128 cells; its one row scans beside an all-zero row.
+    assert seen[0] == (2, 128)
+
+
+@pytest.mark.parametrize("cells,k,chunk", [
+    (100, None, None), (100, 1, None), (100, 3, None), (5000, None, 1024),
+    (5000, 1, 1024), (5000, 2, 1024), (1023, None, 1024)])
+def test_chunked_run_totals_scans_take_the_row_wise_shape(
+        monkeypatch, cells, k, chunk):
+    """Every running sum scans dim 1 of a 2-D view of at least two rows
+    (the row-wise scan on the card, never the one-row device-wide scan),
+    and the result is the same bits as the plain one-row scans."""
+    if chunk is not None:
+        monkeypatch.setattr(t_sparse, "CUMSUM_CHUNK", chunk)
+    rng = np.random.default_rng(cells)
+    shape = (cells,) if k is None else (cells, k)
+    contrib = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    ends = torch.from_numpy(np.unique(np.concatenate(
+        [rng.integers(0, cells, size=40), [cells - 1]])))
+    seen = []
+    real = torch.cumsum
+
+    def spy(x, dim):
+        seen.append((tuple(x.shape), dim))
+        return real(x, dim)
+
+    monkeypatch.setattr(torch, "cumsum", spy)
+    got = t_sparse.chunked_run_totals(contrib, ends)
+    monkeypatch.setattr(torch, "cumsum", real)
+    assert len(seen) == 2
+    for shp, dim in seen:
+        assert len(shp) == 2 and dim == 1 and shp[0] >= 2, seen
+    # The same bits as the scans without the zero row (the CPU adds each
+    # row in order whatever the shape).
+    monkeypatch.setattr(t_sparse, "_row_cumsum",
+                        lambda rows: real(rows, dim=1))
+    want = t_sparse.chunked_run_totals(contrib, ends)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(4, 60), (1, 1), (3, 0), (2, 7)])

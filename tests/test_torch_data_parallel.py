@@ -230,9 +230,11 @@ def test_resumed_fit_equals_the_uninterrupted_one(ranks):
                                       outs[r]["ckpt_uninterrupted"])
     mgr = CheckpointManager(os.path.join(workdir, "ckpt"))
     assert mgr.all_epochs() == [6, 9, 12]
-    # The snapshots record world P: a resume at another world is refused.
+    # The snapshots record world P: a resume at another world is refused
+    # by the default policy.
     x, y, w = worker.dense_lr_data()
-    with fml.use_device("cpu"), pytest.raises(RescaleError, match="7c"):
+    with fml.use_device("cpu"), pytest.raises(
+            RescaleError, match=f"written at world_size={world}"):
         t_sgd.train_linear_model(x, y, w, "logistic", checkpoint_manager=mgr,
                                  resume=True, **worker.CKPT_KW)
 
@@ -282,17 +284,22 @@ def test_sharded_blocks_per_rank(on_cpu):
 
 
 def test_streamed_fits_on_a_mesh_refused(on_cpu):
-    """The multi-process streams are item 7c; sharding plans (7b) are
-    ported, and a streamed fit refuses a plan with JAX's ``ValueError``."""
+    """The multi-process streams (item 7c) are ported: on a world-1 mesh
+    (no process group) a streamed fit is the one-process stream, the same
+    bits as without a mesh (P ranks: ``tests/test_torch_stream_mp.py``).
+    Sharding plans (7b) are ported, and a streamed fit refuses a plan with
+    JAX's ``ValueError``."""
     mesh = fml.parallel.DeviceMesh()
     x, y, _ = worker.dense_lr_data(n=20)
     table = fml.Table({"features": x, "label": y})
-    for est in (fml.LogisticRegression(mesh=mesh), fml.LinearSVC(mesh=mesh),
-                fml.LinearRegression(mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            est.fit([table])
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        fml.KMeans(mesh=mesh).fit([fml.Table({"features": x})])
+    for cls in (fml.LogisticRegression, fml.LinearSVC, fml.LinearRegression):
+        np.testing.assert_array_equal(
+            cls(mesh=mesh).set_max_iter(3).fit([table]).coefficient,
+            cls().set_max_iter(3).fit([table]).coefficient)
+    np.testing.assert_array_equal(
+        fml.KMeans(mesh=mesh).set_seed(1).fit(
+            [fml.Table({"features": x})]).centroids,
+        fml.KMeans().set_seed(1).fit([fml.Table({"features": x})]).centroids)
     from flinkml_tpu_torch.sharding import REPLICATED
 
     for cls in (fml.LogisticRegression, fml.LinearSVC, fml.LinearRegression):

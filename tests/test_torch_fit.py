@@ -555,16 +555,30 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch, mesh1):
             1).fit(JaxTable({"features": x, "label": y}))
         np.testing.assert_allclose(got.coefficient, want.coefficient,
                                    rtol=0, atol=tol)
-    # rescale="reshard" of assembled leaves is ported with 7b; the
-    # multi-process commits and the online stream's group stay item 7c.
+    # rescale="reshard" of assembled leaves is ported with 7b, the agreed
+    # commits with 7c: one process, save_agreed is the manager's save, as
+    # in JAX (the P-rank commits: tests/test_torch_stream_mp.py).
+    from flinkml_tpu.iteration import checkpoint as jax_ckpt
+
     assert t_iteration.CheckpointManager(
         str(tmp_path), rescale="reshard").rescale_policy.on_mismatch == \
         "reshard"
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        t_ckpt.save_agreed(t_iteration.CheckpointManager(str(tmp_path)), {}, 1)
+    state = {"coef": np.arange(3.0)}
+    t_ckpt.save_agreed(t_iteration.CheckpointManager(str(tmp_path / "t")),
+                       state, 1)
+    jax_ckpt.save_agreed(jax_ckpt.CheckpointManager(str(tmp_path / "j"),
+                                                    world_size=1), state, 1)
+    for d in ("t", "j"):
+        got, epoch = t_iteration.CheckpointManager(str(tmp_path / d)).restore(
+            1, like={"coef": 0})
+        np.testing.assert_array_equal(got["coef"], state["coef"])
+    # The multi-process online stream refuses checkpoints, as JAX's does.
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        fml.OnlineLogisticRegression().fit_stream([table])
+    with pytest.raises(NotImplementedError,
+                       match="multi-process online stream"):
+        fml.OnlineLogisticRegression().fit_stream(
+            [table], checkpoint_manager=t_iteration.CheckpointManager(
+                str(tmp_path / "olr")))
     monkeypatch.undo()
     # The numerics sentinel and self-healing recovery: item 12.
     for knob in ("sentinel", "recovery"):

@@ -464,7 +464,10 @@ def test_reshard_and_multi_device_commits_refused(tmp_path):
     are ported with the sharding plans (item 7b): a snapshot of the JAX
     package's manager under ``plan=`` and ``reshard`` restores the same
     way in the port. The multi-process commits stay the multi-device
-    slice's (ROADMAP.md Queue 1 item 7c)."""
+    slice's (ROADMAP.md Queue 1 item 7c), ported: one process,
+    ``save_agreed`` is the manager's save, ``rank_scoped`` the manager
+    itself, and ``reshard_rank_state`` re-lays out a family the JAX
+    package wrote as the JAX package does."""
     from flinkml_tpu.sharding import plan as jax_plan
     from flinkml_tpu_torch.sharding import plan as t_plan
 
@@ -488,13 +491,26 @@ def test_reshard_and_multi_device_commits_refused(tmp_path):
                                          rescale="reshard")):
             with pytest.raises(ValueError, match="does not divide"):
                 mgr.restore(1, like=state)
-    mgr = CheckpointManager(str(tmp_path))
-    for call in (lambda: t_ckpt.save_agreed(mgr, {}, 1),
-                 lambda: t_ckpt.rank_scoped(mgr),
-                 lambda: t_ckpt.reshard_rank_state(str(tmp_path), 1, {},
-                                                   (0, 1))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    mgr = CheckpointManager(str(tmp_path / "agreed"))
+    t_ckpt.save_agreed(mgr, state, 1)
+    assert mgr.all_epochs() == [1]
+    assert t_ckpt.rank_scoped(mgr) is mgr
+    from flinkml_tpu.iteration import checkpoint as jax_ckpt
+
+    family = tmp_path / "family"
+    for r in range(4):
+        JaxCheckpointManager(str(family / f"rank-{r}"), world_size=4).save(
+            {"w": np.full(3, 7.0), "rows": np.arange(4.0) + 10 * r}, 2,
+            layouts={"w": "replicated", "rows": "sharded:0"})
+    like = {"w": 0, "rows": 0}
+    for shard in ((0, 2), (1, 2), (0, 1)):
+        got = t_ckpt.reshard_rank_state(str(family), 2, like, shard)
+        want = jax_ckpt.reshard_rank_state(str(family), 2, like, shard)
+        for key in like:
+            np.testing.assert_array_equal(got[key], np.asarray(want[key]))
+    shutil.rmtree(str(family / "rank-2"))
+    with pytest.raises(t_ckpt.RescaleError, match="not contiguous"):
+        t_ckpt.reshard_rank_state(str(family), 2, like, (0, 2))
 
 
 def test_unported_iteration_knobs_refused():

@@ -371,7 +371,9 @@ def test_error_cases_match_jax(tmp_path, mesh1, on_cpu):
     _raises_like_jax("initial_centroids has 2 rows", mesh1,
                      lambda m: iter(batches),
                      initial_centroids=np.zeros((2, 5), np.float32))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # mesh= takes the multi-process stream (item 7c, P ranks in
+    # tests/test_torch_stream_mp.py); anything but a DeviceMesh is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_kmeans.train_kmeans_stream(iter(batches), k=3, mesh=object())
 
 

@@ -367,14 +367,18 @@ def test_ftrl_carry_resumes_across_packages(first, tmp_path, on_cpu):
 
 
 def test_unported_online_paths_refused(monkeypatch, tmp_path, on_cpu):
-    """The multi-process stream (item 7) and the sentinel and recovery
-    (item 12)."""
+    """The sentinel and recovery (item 12); the multi-process stream's
+    checkpoints (refused in JAX too) and a mesh that is not a
+    DeviceMesh."""
     for knob in ("sentinel", "recovery"):
         with pytest.raises(NotImplementedError, match="item 12"):
             _lr().fit_stream(lr_batches(n=2), **{knob: object()})
+    # The multi-process stream (item 7c) is ported; its checkpoints are
+    # refused, as in JAX (P ranks: tests/test_torch_stream_mp.py).
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-process online stream"):
         _lr().fit_stream(lr_batches(n=2), checkpoint_manager=CheckpointManager(
             str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fml.OnlineLogisticRegression(mesh=object())

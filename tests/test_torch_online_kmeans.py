@@ -304,15 +304,19 @@ def test_saved_models_cross_packages(saver, tmp_path, on_cpu):
 # -- what stays unported ---------------------------------------------------------------
 
 def test_unported_online_kmeans_paths_refused(monkeypatch, tmp_path, on_cpu):
-    """The multi-process stream and ``mesh=`` (item 7); the sentinel and
-    recovery (item 12)."""
+    """The sentinel and recovery (item 12); the multi-process stream's
+    checkpoints (refused in JAX too) and a mesh that is not a
+    DeviceMesh."""
     for knob in ("sentinel", "recovery"):
         with pytest.raises(NotImplementedError, match="item 12"):
             _okm().fit_stream(_stream()[:2], **{knob: object()})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # The multi-process stream (item 7c) is ported; its checkpoints are
+    # refused, as in JAX (P ranks: tests/test_torch_stream_mp.py).
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_okm.OnlineKMeans(mesh=object())
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-process online stream"):
         _okm().fit_stream(_stream()[:2], checkpoint_manager=CheckpointManager(
             str(tmp_path)))
     assert fml.OnlineKMeans is t_okm.OnlineKMeans

@@ -601,7 +601,8 @@ def test_save_plan_conflicting_explicit_layouts_raise_typed(tmp_path):
 def test_reshard_restore_checks_sharded_leaves(tmp_path):
     """``rescale="reshard"`` on assembled leaves: a replicated leaf
     passes, a ``sharded:0`` leaf must divide across the new world, a
-    ``per_rank`` leaf is refused (item 7c), as in JAX."""
+    ``per_rank`` leaf is refused, as in JAX (a rank-scoped family
+    reassembles through ``reshard_rank_state``)."""
     state = {"coef": np.arange(6.0), "bias": np.float64(1.0)}
     CheckpointManager(str(tmp_path / "a"), world_size=3).save(
         state, 1, plan=t_plan.FSDP)
@@ -619,9 +620,12 @@ def test_reshard_restore_checks_sharded_leaves(tmp_path):
         jbad.restore(1, like=state)
     CheckpointManager(str(tmp_path / "b"), world_size=2).save(
         state, 1, layouts={"coef": "per_rank", "bias": "replicated"})
-    with pytest.raises(RescaleError, match="item 7c"):
+    with pytest.raises(RescaleError, match="leaf 1 is per_rank"):
         CheckpointManager(str(tmp_path / "b"), world_size=1,
                           rescale="reshard").restore(1, like=state)
+    with pytest.raises(ValueError, match="leaf 1 is per_rank"):
+        JaxCheckpointManager(str(tmp_path / "b"), world_size=1,
+                             rescale="reshard").restore(1, like=state)
 
 
 # ---------------------------------------------------------------------------

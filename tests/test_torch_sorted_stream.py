@@ -268,8 +268,10 @@ def test_prefetched_dataset_fit_takes_the_sorted_stream(name, monkeypatch,
 
 def test_refusals(tmp_path, on_cpu):
     """Checkpointing on the sorted stream (``ValueError``, as the JAX
-    package), ``HashOp`` and ``hash_column`` (item 9) and ``mesh=``
-    shards (item 7)."""
+    package), ``HashOp`` and ``hash_column`` (item 9); ``mesh=`` shards
+    are ported with the multi-process streams (item 7c): one process, a
+    mesh reads the single shard, as the JAX package's (P ranks in
+    ``tests/test_torch_stream_mp.py``)."""
     batches = _batches(n_batches=2)
     for kw in (dict(checkpoint_manager=object()), dict(resume=True),
                dict(checkpoint_interval=2)):
@@ -287,8 +289,14 @@ def test_refusals(tmp_path, on_cpu):
     ds = tdata.Dataset.from_arrays(Table({"k": np.arange(4)}), 2)
     with pytest.raises(NotImplementedError, match="item 9"):
         ds.hash_column("k", seed=0, num_buckets=8)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    from flinkml_tpu.data import source as jax_source
+    from flinkml_tpu.parallel import DeviceMesh as JaxMesh
+    from flinkml_tpu_torch.parallel import DeviceMesh
+
+    assert tdata.resolve_shard(None, mesh=DeviceMesh()) == \
+        jax_source.resolve_shard(None, mesh=JaxMesh()) == (0, 1)
+    meshed = list(tdata.Dataset.from_arrays(Table({"k": np.arange(4)}), 2,
+                                            mesh=DeviceMesh()))
+    assert [t.column("k").tolist() for t in meshed] == [[0, 1], [2, 3]]
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdata.resolve_shard(None, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tdata.Dataset.from_arrays(Table({"k": np.arange(4)}), 2,
-                                  mesh=object())
