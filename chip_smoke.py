@@ -131,8 +131,8 @@ and fails with a non-zero exit if any phase fails:
    checkpoint every 2, a run from a sealed cache crashed at epoch 2 and
    resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
    init, then served behind a StandardScaler through ``fused_chain``; I3,
-   ``OnlineKMeans.fit_stream`` over 32 batches of 16,384 x 784 drifting
-   blobs, crashed at batch 16 and resumed bit for bit, against a float64
+   ``OnlineKMeans.fit_stream`` over 16 batches of 16,384 x 784 drifting
+   blobs, crashed at batch 8 and resumed bit for bit, against a float64
    numpy decay rule. Path I must launch ``spmv``, ``segment_sum`` and
    ``fused_chain``;
 6f. ``parallel/`` on ``torch.distributed`` (path J): J1,
@@ -164,7 +164,10 @@ and fails with a non-zero exit if any phase fails:
    all-reduce a step and their times; K2, in J2's two ranks over gloo,
    FSDP and FSDP_TP fits of the same rows with an intercept column (124
    wide), the ranks bit for bit, the 123-wide FSDP fit refused (FML502),
-   and a world-2 FSDP snapshot resumed at world 1 under
+   an FSDP fit stopped at epoch ``K2_STOP`` by a scripted ``RankLost`` of
+   rank 1 under a ``PreemptionWatchdog`` on both ranks (its terminal
+   snapshot; ``plan_elastic_resume`` on rank 0 gives world 1 at that
+   epoch), and that world-2 FSDP snapshot resumed at world 1 under
    ``rescale="reshard"``; K3, ``NaiveBayes`` on 2,000,000 rows of Adult's
    schema (8 categorical columns, age, education-num and hours-per-week
    as categories: 22 M cells counted by one ``segment_sum`` launch),
@@ -181,7 +184,9 @@ and fails with a non-zero exit if any phase fails:
    draws), rank 0 with 6 batches of 65,536 rows and rank 1 with 5 of
    49,152 (padded rows and a dummy step), 3 epochs from a ``DataCache``
    per rank that spills half its batches, a snapshot every epoch into the
-   shared directory, a run crashed at the end of epoch 3 and resumed: the
+   shared directory, a run crashed by a scripted ``TornWrite`` of epoch
+   3's commit (armed on both ranks; the torn directory never committed
+   nor left behind) and resumed: the
    ranks bit for bit, the resumed fit within 1e-5 of the uninterrupted
    one, the fit against a float64 numpy run of the combined-step stream;
    the step's ``spmv`` and ``segment_sum`` on a rank's padded block and
@@ -193,6 +198,27 @@ and fails with a non-zero exit if any phase fails:
    rank; L5, a world-2 rank-scoped snapshot resharded to world 1. Prints
    samples/s, the all-reduce a step, the feed's waits and the busy share;
    path L must launch ``spmv`` and ``segment_sum``;
+6i. fault injection, the numerics sentinel and self-healing recovery
+   (path M, ``faults_path``): M1, ``OnlineLogisticRegression.fit_stream``
+   at path G's shape (64 x 16,384 x 123 float32) healed under two
+   ``PoisonBatch``, a ``NaNGrad`` and a ``CorruptSnapshot`` of the
+   NaNGrad's rollback target, equal bit for bit to its golden run (the
+   stream without the three quarantined batches), and timed without a
+   sentinel, with one every batch and with one every 8th, and the
+   verdict alone traced by ``torch.profiler``; the time to recover from
+   the ``recovery`` metrics group; M2, ``OnlineKMeans`` at
+   I3's width (16 x 16,384 x 784, k = 10) healed under a ``NaNGrad``,
+   equal to its golden run; M3, the streamed sparse LR at path E's
+   Criteo profile fed as a ``Dataset`` of SparseVector rows (4 x 65,536
+   rows, the CSR route), disarmed; one snapshotted epoch of it timed
+   disarmed and under a plan that injects nothing (every seam calls it)
+   in the order disarmed, armed, armed, disarmed (twice), the armed mean
+   at least ``SEAM_FLOOR`` of the disarmed; under a
+   ``DelayRead`` (epoch 0's feed wait), under a ``RaiseAtRead`` mid-ingest
+   (the fit aborts), and from the sealed cache of the same batches killed
+   after the epoch-2 commit, resumed within 1e-5 and its newest snapshot
+   corrupted (``restore_latest`` walks back). Path M must launch ``spmv``
+   and ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -222,6 +248,8 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 checkout at OTHER (an unpacked ``git archive`` of another commit) and of
 this one, each in its own process, in the order OTHER, this, this, OTHER,
 and prints one JSON line per process after the card's line.
+``--ab-stream OTHER`` does the same with path E's main fit
+(:func:`ab_stream_inner`).
 
 ``python3 chip_smoke.py --variants`` runs none of that either: it builds
 edited copies of ``chain.cu`` and ``segsum.cu`` (:data:`VARIANTS`: a step
@@ -3600,11 +3628,11 @@ CSR_ROWS = 65_536
 #: 2, a crash at 2.
 KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 8, 65_536, 784, 10
 KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 4, 2, 2
-#: I3: 32 batches of 16,384 drifting MNIST-width rows (64 until path L's
-#: references ran after its ranks), k = 10, decay 0.9, a checkpoint every
-#: 8 batches, a crash at 16.
-OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 32, 16_384, 784, 10
-OKM_DECAY, OKM_INTERVAL, OKM_CRASH = 0.9, 8, 16
+#: I3: 16 batches of 16,384 drifting MNIST-width rows (64 until path L's
+#: references ran after its ranks, 32 until path M joined the run), k = 10,
+#: decay 0.9, a checkpoint every 4 batches, a crash at 8.
+OKM_BATCHES, OKM_ROWS, OKM_D, OKM_K = 16, 16_384, 784, 10
+OKM_DECAY, OKM_INTERVAL, OKM_CRASH = 0.9, 4, 8
 
 
 def cumsum_path(torch, timer):
@@ -4052,9 +4080,9 @@ J2_WORLD, J2_TIMEOUT_S = 2, 420
 #: Path J's device and backends (world 1: nccl; two ranks on one card:
 #: gloo over CUDA tensors).
 J_DEVICE, J1_BACKEND, J2_BACKEND = "cuda", "nccl", "gloo"
-#: Path J's fits: 10 epochs (``FIT_EPOCHS``, 20, until path L joined the
-#: run).
-J_EPOCHS = 10
+#: Path J's fits: 6 epochs, fewer than ``FIT_EPOCHS`` (20), so that the
+#: whole script stays within its time budget.
+J_EPOCHS = 6
 
 
 def _sync(torch):
@@ -4237,10 +4265,12 @@ def k2_rank(torch, x, y, out_dir):
     """Path K2 on one rank of J2 (two ranks on the one card over gloo):
     FSDP and FSDP_TP fits of path 5's rows with an intercept column
     (124 wide, so that ``fsdp`` = 2 divides ``coef``), the same fit over
-    the 123 columns alone (refused: FML502), and an FSDP fit to epoch
-    ``K2_STOP`` that snapshots every ``K2_STOP // 2`` epochs into
-    ``OUT_DIR/k2_ckpt`` (the first rank writes). Returns the arrays the
-    rank saves."""
+    the 123 columns alone (refused: FML502), and an FSDP fit that
+    snapshots every ``K2_STOP // 2`` epochs into ``OUT_DIR/k2_ckpt`` (the
+    first rank writes) and stops at epoch ``K2_STOP`` through a scripted
+    ``RankLost`` of rank 1 under a preemption watchdog on both ranks, then
+    the survivors' elastic plan. Returns the arrays the rank saves."""
+    from flinkml_tpu_torch import faults
     from flinkml_tpu_torch.iteration import CheckpointManager
     from flinkml_tpu_torch.parallel import DeviceMesh
     from flinkml_tpu_torch.sharding import (
@@ -4249,6 +4279,7 @@ def k2_rank(torch, x, y, out_dir):
         PlanValidationError,
         train_linear_plan,
     )
+    from flinkml_tpu_torch.utils.preemption import PreemptionWatchdog
 
     xk = np.concatenate([x, np.ones((x.shape[0], 1), np.float32)], 1)
     perm = np.random.default_rng(0).permutation(xk.shape[0])
@@ -4266,11 +4297,23 @@ def k2_rank(torch, x, y, out_dir):
         refused = int("FML502" in str(e))
     mgr = CheckpointManager(os.path.join(out_dir, "k2_ckpt"), max_to_keep=10,
                             rescale="reshard")
-    half_s, half = _seconds(torch, lambda: train_linear_plan(
-        xp, yp, None, FSDP, fsdp_mesh, checkpoint_manager=mgr,
-        checkpoint_interval=K2_STOP // 2, **k_kw(max_iter=K2_STOP)))
+    # The fit stops at K2_STOP through a scripted loss of rank 1, seen by
+    # a watchdog on both ranks: a clean stop with a terminal snapshot.
+    half_stats = {}
+    wd = PreemptionWatchdog(signals=())
+    with wd, faults.armed(faults.FaultPlan(
+            faults.RankLost(epoch=K2_STOP, rank=1))):
+        half_s, half = _seconds(torch, lambda: train_linear_plan(
+            xp, yp, None, FSDP, fsdp_mesh, checkpoint_manager=mgr,
+            checkpoint_interval=K2_STOP // 2, stats=half_stats, **k_kw()))
+    elastic = wd.plan_elastic_resume(mgr, world=J2_WORLD)
     steps = max(stats["steps"], 1)
     return {"k2_fsdp": fsdp, "k2_fsdp_tp": fsdp_tp, "k2_half": half,
+            "k2_preempted": np.asarray([int(half_stats["preempted"]),
+                                        half_stats["epoch"],
+                                        int(wd.shrink_requested)]),
+            "k2_elastic": np.asarray([elastic.epoch, elastic.old_world,
+                                      elastic.new_world]),
             "k2_refused": np.asarray([refused]),
             "k2_seconds": np.asarray([fsdp_s, tp_s, half_s]),
             "k2_collectives": np.asarray(
@@ -4381,21 +4424,6 @@ def l_csr_steps(parts):
     return out
 
 
-class _Crash:
-    """Listener: raises at the end of epoch ``at`` (0-based), before that
-    epoch's snapshot."""
-
-    def __init__(self, at):
-        self.at = at
-
-    def on_epoch_watermark_incremented(self, epoch, state):
-        if epoch == self.at:
-            raise RuntimeError("injected crash")
-
-    def on_iteration_terminated(self, state):
-        pass
-
-
 def l_rank(torch, mesh, rank, out_dir):
     """Path L on one rank of J2 (every rank its own partition): L1 the
     streamed sparse LR from a ``DataCache`` spilling half its batches into
@@ -4409,6 +4437,7 @@ def l_rank(torch, mesh, rank, out_dir):
     one-process fit); L4 FTRL and OnlineKMeans; L5 a rank-scoped snapshot.
     Returns the arrays the rank saves (``l_*``)."""
     import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
     from flinkml_tpu_torch.iteration import CheckpointManager
     from flinkml_tpu_torch.iteration import checkpoint as ckpt
     from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
@@ -4447,16 +4476,24 @@ def l_rank(torch, mesh, rank, out_dir):
             .coefficient)
     main_counts = dict(fml.launch_counts())
     crash_dir = os.path.join(out_dir, "l_crash")
-    try:
-        sgd.train_linear_model_stream(
-            cache, "logistic", L_EPOCHS, STREAM_LR, STREAM_REG, 0.0, 0.0,
-            checkpoint_manager=CheckpointManager(crash_dir, max_to_keep=10),
-            checkpoint_interval=1, listeners=[_Crash(L_CRASH)],
-            sparse_dim=SPMV_DIM, mesh=mesh)
-        crashed = 0
-    except RuntimeError as e:
-        crashed = int("injected crash" in str(e))
+    # A scripted torn write of epoch L_CRASH + 1's commit, armed on both
+    # ranks: the writer (rank 0) raises inside the write, the other rank
+    # at the commit's agreement.
+    with faults.armed(faults.FaultPlan(faults.TornWrite(L_CRASH + 1))) as plan:
+        try:
+            sgd.train_linear_model_stream(
+                cache, "logistic", L_EPOCHS, STREAM_LR, STREAM_REG, 0.0, 0.0,
+                checkpoint_manager=CheckpointManager(crash_dir,
+                                                     max_to_keep=10),
+                checkpoint_interval=1, sparse_dim=SPMV_DIM, mesh=mesh)
+            crashed = 0
+        except faults.FaultInjected as e:
+            crashed = int("torn checkpoint write" in str(e))
+        except ValueError as e:
+            crashed = int("checkpoint commit" in str(e))
     latest = CheckpointManager(crash_dir).latest_epoch()
+    torn_left = [name for name in os.listdir(crash_dir)
+                 if name.startswith(".tmp") or name == f"ckpt-{L_CRASH + 1}"]
     secs["resume"], resumed = _seconds(torch, lambda: est(
         L_EPOCHS, CheckpointManager(crash_dir, max_to_keep=10),
         resume=True).fit(cache).coefficient)
@@ -4466,6 +4503,7 @@ def l_rank(torch, mesh, rank, out_dir):
     out.update(l_main=main, l_resumed=resumed,
                l_crash=np.asarray([crashed, -1 if latest is None
                                    else latest]),
+               l_torn=np.asarray([len(plan.log), len(torn_left)]),
                l_main_launches=np.asarray([main_counts.get("spmv", 0),
                                            main_counts.get("segment_sum", 0)]),
                l_launches=np.asarray([counts.get("spmv", 0),
@@ -4631,7 +4669,7 @@ def l_check(torch, tmp, outs, refs):
     for name in [k for k in outs[0] if k.startswith("l_") and k not in (
             "l_feed_waits", "l_share", "l_all_reduce_ms", "l_spilled",
             "l_kernels", "l_seconds", "l_margins", "l_launches",
-            "l_main_launches")]:
+            "l_main_launches", "l_torn")]:
         if not np.array_equal(outs[1][name], outs[0][name]):
             problems.append(f"rank 1's {name} differs from rank 0's")
     o = outs[0]
@@ -4661,6 +4699,11 @@ def l_check(torch, tmp, outs, refs):
         if out["l_crash"].tolist() != [1, L_CRASH]:
             problems.append(f"rank {r}: crash / newest snapshot "
                             f"{out['l_crash'].tolist()}")
+        # The torn write fires where the snapshot is written (rank 0) and
+        # leaves neither a committed nor a temporary directory behind.
+        if out["l_torn"].tolist() != [int(r == 0), 0]:
+            problems.append(f"rank {r}: TornWrite fired / torn directories "
+                            f"left {out['l_torn'].tolist()}")
         for row in out["l_kernels"]:
             if row[3] != 1.0:
                 problems.append(f"rank {r}: a step kernel differs from its "
@@ -4699,6 +4742,8 @@ def l_check(torch, tmp, outs, refs):
            "spilled_batches": [int(out["l_spilled"][0]) for out in outs],
            "L1_fit_s": fit_s, "L1_samples_per_s": rows * L_EPOCHS / fit_s,
            "L1_resume_s": float(o["l_seconds"][1]),
+           "L1_torn_write_fired_left": [out["l_torn"].tolist()
+                                        for out in outs],
            "all_reduce_ms_per_step": [float(out["l_all_reduce_ms"][0])
                                       for out in outs],
            "steps_per_epoch": max(L_BATCHES),
@@ -5239,9 +5284,16 @@ def k2_check(torch, tmp, outs, x, y):
     from flinkml_tpu_torch.iteration import CheckpointManager
     from flinkml_tpu_torch.sharding import FSDP, train_linear_plan
 
-    for name in ("k2_fsdp", "k2_fsdp_tp", "k2_half", "k2_refused"):
+    for name in ("k2_fsdp", "k2_fsdp_tp", "k2_half", "k2_refused",
+                 "k2_preempted"):
         if not np.array_equal(outs[1][name], outs[0][name]):
             fail(f"path K2: rank 1's {name} differs from rank 0's")
+    if outs[0]["k2_preempted"].tolist() != [1, K2_STOP, 1]:
+        fail(f"path K2: the RankLost stop gave "
+             f"{outs[0]['k2_preempted'].tolist()}")
+    if outs[0]["k2_elastic"].tolist() != [K2_STOP, J2_WORLD, 1]:
+        fail(f"path K2: plan_elastic_resume on rank 0 gave "
+             f"{outs[0]['k2_elastic'].tolist()}")
     if outs[0]["k2_refused"].tolist() != [1]:
         fail("path K2: FSDP over 123 columns at world 2 was not refused "
              "with FML502")
@@ -5250,6 +5302,8 @@ def k2_check(torch, tmp, outs, x, y):
     ref = numpy_plan_fit(windows, "sgd", FIT_EPOCHS, FIT_LR, 0.9,
                          K_REG * (1 - K_ELASTIC_NET), K_REG * K_ELASTIC_NET)
     rec = {"world": J2_WORLD, "d": xk.shape[1],
+           "rank_lost_stop": outs[0]["k2_preempted"].tolist(),
+           "elastic_plan": outs[0]["k2_elastic"].tolist(),
            "seconds_rank0": dict(zip(("fsdp", "fsdp_tp", "fsdp_half"),
                                      outs[0]["k2_seconds"].tolist())),
            "collectives_per_step_fsdp": outs[0]["k2_collectives"].tolist()}
@@ -5327,6 +5381,435 @@ def plan_path(torch, timer, k2):
            "card": card_line(), "path_s": time.perf_counter() - t0}
     log("path " + json.dumps(rec))
     return counts, nb["segment_sum"]
+
+
+# -- path M: fault injection, the numerics sentinel and recovery (item 12) -------------
+
+#: M1: FTRL at path G's shape (64 x 16,384 x 123 float32), a snapshot every
+#: M1_INTERVAL batches; two PoisonBatch, a NaNGrad and a CorruptSnapshot of
+#: the NaNGrad's rollback target (the first commit at or after M1_CORRUPT).
+M1_INTERVAL, M1_POISON, M1_NAN, M1_CORRUPT = 8, (10, 40), 25, 24
+#: M1's timed fits: each repeat runs no sentinel, interval 1 and interval 8
+#: back to back, in an order rotated each repeat; the verdict alone is
+#: traced over M1_CHECKS calls.
+M1_REPEATS, M1_CHECKS = 6, 500
+#: M2: OnlineKMeans at path I3's width (16 x 16,384 x 784, k = 10).
+M2_BATCHES, M2_NAN = 16, 5
+#: M3: path E's Criteo profile as a Dataset of SparseVector rows (4 batches
+#: of 65,536: path E's 16 cut to a quarter), 3 epochs, a snapshot every
+#: epoch, the epoch-0 cache at half the CSR bytes.
+M3_BATCHES, M3_EPOCHS, M3_KILL, M3_DELAY_S = 4, 3, 2, 0.05
+#: The seams' gate: fits under a plan that injects nothing (every seam
+#: calls the plan) keep this share of the disarmed fits' mean samples/s,
+#: timed in the order disarmed, armed, armed, disarmed, SEAM_ROUNDS times
+#: (the order cancels a steady drift of the host). Path E's samples/s
+#: spread 0.48-0.69 M across runs (a ratio of 0.70).
+SEAM_FLOOR, SEAM_ROUNDS = 0.9, 2
+
+
+def seam_abba(torch, fit, samples):
+    """``fit()`` timed disarmed, under a plan that injects nothing, again
+    under it and disarmed again, ``SEAM_ROUNDS`` times: the armed runs pay
+    every seam's check and its call into the plan, a bound on what the
+    disarmed seams (one attribute read each) cost. Returns the samples/s
+    of each run, the armed mean over the disarmed mean and the seams one
+    armed fit passed."""
+    import contextlib
+
+    from flinkml_tpu_torch import faults
+
+    class CountingPlan(faults.FaultPlan):
+        """Injects nothing; counts the calls of each seam."""
+
+        def __init__(self):
+            super().__init__()
+            self.sites = {}
+
+        def fire_into(self, site, ctx):
+            self.sites[site] = self.sites.get(site, 0) + 1
+
+    rates = {"disarmed": [], "armed": []}
+    sites = None
+    for armed in (False, True, True, False) * SEAM_ROUNDS:
+        plan = CountingPlan()
+        with faults.armed(plan) if armed else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        rates["armed" if armed else "disarmed"].append(samples / fit_s)
+        if armed:
+            sites = plan.sites
+    return {"samples_per_s": rates,
+            "armed_over_disarmed": float(np.mean(rates["armed"])
+                                         / np.mean(rates["disarmed"])),
+            "seam_calls_per_armed_fit": sites}
+
+
+def verdict_trace(torch):
+    """The sentinel's verdict alone on FTRL's carry at path G's width (z, n
+    and coef, 123 float32 each, and a 0-d float32 loss on the card), over
+    ``M1_CHECKS`` checks: host microseconds a check beside a bare
+    ``float(loss)`` (the read an FTRL batch makes without a sentinel), and
+    from ``torch.profiler`` the device kernels and device microseconds a
+    check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flinkml_tpu_torch.recovery import NumericsSentinel
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = {k: torch.randn(FTRL_D, device="cuda", generator=gen)
+             for k in ("z", "n", "coef")}
+    state["version"] = 1
+    loss = torch.rand((), device="cuda", generator=gen)
+    sentinel = NumericsSentinel()
+
+    def host_us(call):
+        call(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(M1_CHECKS):
+            call(i)
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / M1_CHECKS
+
+    check = (lambda i: sentinel.check(state, loss, epoch=i))
+    read_us = host_us(lambda i: float(loss))
+    check_us = host_us(check)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(M1_CHECKS):
+            check(i)
+        torch.cuda.synchronize()
+    kernels, device_us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels += e.count
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    return {"checks": M1_CHECKS, "host_us_per_check": check_us,
+            "host_us_per_loss_read": read_us,
+            "device_events_per_check": kernels / M1_CHECKS,
+            "device_us_per_check": device_us / M1_CHECKS}
+
+
+def _okm_batches(n, seed):
+    """Path I3's drifting blobs: ``n`` batches of 16,384 x 784 float32."""
+    rng = np.random.default_rng(seed)
+    centers0 = rng.normal(size=(OKM_K, OKM_D)) * 4.0
+    drift = rng.normal(size=(OKM_K, OKM_D)) * 0.05
+    out = []
+    for i in range(n):
+        x = rng.standard_normal((OKM_ROWS, OKM_D), dtype=np.float32)
+        x += (centers0 + i * drift).astype(np.float32)[
+            rng.integers(0, OKM_K, size=OKM_ROWS)]
+        out.append(x)
+    return out, centers0 + rng.normal(size=centers0.shape) * 0.5
+
+
+def faults_m1(torch, tmp):
+    """M1: FTRL healed on the card under two PoisonBatch, a NaNGrad and a
+    CorruptSnapshot of its rollback target, against its golden run (the
+    stream without the quarantined batches) bit for bit; batches/s with no
+    sentinel, a sentinel every batch and every 8th (each checked fit less
+    the unchecked fit of its repeat), and the verdict alone
+    (:func:`verdict_trace`); the time to recover from the ``recovery``
+    metrics group."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.recovery import NumericsSentinel, RecoveryPolicy
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(12)
+    true = rng.normal(size=FTRL_D)
+    tables = []
+    for _ in range(FTRL_BATCHES):
+        xb = rng.normal(size=(FTRL_ROWS, FTRL_D)).astype(np.float32)
+        tables.append(fml.Table({"features": xb,
+                                 "label": (xb @ true > 0).astype(np.float32)}))
+
+    def est():
+        return (fml.OnlineLogisticRegression().set_alpha(FTRL_ALPHA)
+                .set_beta(FTRL_BETA).set_reg(FTRL_REG)
+                .set_elastic_net(FTRL_EN))
+
+    est().fit_stream(tables[:2], sentinel=NumericsSentinel())   # warm
+    times = {"none": [], "interval_1": [], "interval_8": []}
+    for r in range(M1_REPEATS):
+        for key in (list(times) * 2)[r % 3:r % 3 + 3]:
+            sentinel = {"none": None, "interval_1": NumericsSentinel(),
+                        "interval_8": NumericsSentinel(interval=8)}[key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est().fit_stream(tables, sentinel=sentinel)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+    fit_s = {k: float(np.median(v)) for k, v in times.items()}
+    # Each repeat's checked fit against its unchecked fit.
+    paired = {k: [1e3 * (t - t0) / FTRL_BATCHES
+                  for t, t0 in zip(times[k], times["none"])]
+              for k in ("interval_1", "interval_8")}
+    trace = verdict_trace(torch)
+    plan = faults.FaultPlan(
+        faults.PoisonBatch(M1_POISON[0]),
+        faults.CorruptSnapshot(min_epoch=M1_CORRUPT, target="arrays"),
+        faults.NaNGrad(M1_NAN), faults.PoisonBatch(M1_POISON[1]))
+    mgr = CheckpointManager(os.path.join(tmp, "m1"), max_to_keep=100)
+    with faults.armed(plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        healed = est().fit_stream(
+            tables, checkpoint_manager=mgr, checkpoint_interval=M1_INTERVAL,
+            recovery=RecoveryPolicy(backoff_s=0.0))
+        torch.cuda.synchronize()
+        healed_s = time.perf_counter() - t0
+    gauges = metrics.group("recovery").snapshot()["gauges"]
+    quarantined = sorted(M1_POISON + (M1_NAN,))
+    golden = est().fit_stream(
+        [t for i, t in enumerate(tables) if i not in quarantined])
+    fired = sorted({d for _, d, _ in plan.log})
+    summary = healed.recovery_summary
+    if summary["quarantined"] != quarantined:
+        fail(f"path M1: quarantined {summary['quarantined']}, expected "
+             f"{quarantined}")
+    if len(fired) != 4:
+        fail(f"path M1: faults fired {fired}")
+    if not np.array_equal(healed.coefficient, golden.coefficient):
+        fail("path M1: the healed FTRL differs from its golden run by "
+             f"{rel_err(healed.coefficient, golden.coefficient)}")
+    if healed.model_version != FTRL_BATCHES - len(quarantined):
+        fail(f"path M1: version {healed.model_version}")
+    return {
+        "batches": FTRL_BATCHES, "batch_rows": FTRL_ROWS, "d": FTRL_D,
+        "fit_s_median": fit_s, "fit_s_runs": times,
+        "batches_per_s": {k: FTRL_BATCHES / v for k, v in fit_s.items()},
+        "sentinel_ms_per_batch": {k: float(np.median(v))
+                                  for k, v in paired.items()},
+        "sentinel_ms_per_batch_runs": paired, "verdict": trace,
+        "healed_fit_s": healed_s, "summary": summary, "fired": fired,
+        "time_to_recover_p50_ms": gauges.get("time_to_recover_p50_ms"),
+        "time_to_recover_p99_ms": gauges.get("time_to_recover_p99_ms"),
+        "healed_equals_golden": True}
+
+
+def faults_m2(torch):
+    """M2: OnlineKMeans at I3's width under a NaNGrad, healed on the card
+    (no manager: the rollback is the pristine initial carry), against its
+    golden run bit for bit."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.recovery import RecoveryPolicy
+
+    batches, init = _okm_batches(M2_BATCHES, seed=52)
+    tables = [fml.Table({"features": x}) for x in batches]
+
+    def est():
+        return (fml.OnlineKMeans().set_k(OKM_K).set_decay_factor(OKM_DECAY)
+                .set_initial_model_data(fml.Table({"centroids": init[None]})))
+
+    with faults.armed(faults.FaultPlan(faults.NaNGrad(M2_NAN))) as plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        healed = est().fit_stream(tables,
+                                  recovery=RecoveryPolicy(backoff_s=0.0))
+        torch.cuda.synchronize()
+        healed_s = time.perf_counter() - t0
+    golden = est().fit_stream(
+        [t for i, t in enumerate(tables) if i != M2_NAN])
+    if not plan.log or healed.recovery_summary["quarantined"] != [M2_NAN]:
+        fail(f"path M2: {healed.recovery_summary}, fired {len(plan.log)}")
+    if not np.array_equal(healed.centroids, golden.centroids):
+        fail("path M2: the healed OnlineKMeans differs from its golden run "
+             f"by {rel_err(healed.centroids, golden.centroids)}")
+    return {"batches": M2_BATCHES, "batch_rows": OKM_ROWS, "d": OKM_D,
+            "healed_fit_s": healed_s, "summary": healed.recovery_summary,
+            "healed_equals_golden": True}
+
+
+def faults_m3(torch, tmp):
+    """M3: the streamed sparse LR at path E's Criteo profile fed as a
+    Dataset of SparseVector rows (no prefetcher: the CSR route, ``spmv``
+    and the unsorted ``segment_sum`` a step), the epoch-0 cache at half
+    its bytes, a snapshot every epoch: disarmed; one snapshotted epoch
+    disarmed and under a plan that injects nothing (:func:`seam_abba`: the
+    ``data.read`` seam with the checkpoint ones); under a DelayRead (the
+    delay shows in epoch 0's feed wait); a RaiseAtRead mid-ingest (the fit
+    aborts, nothing trained on a short stream). A Dataset-fed fit reads its source in epoch 0 only and
+    ``resume=True`` needs a DataCache (in both packages), so the crash and
+    resume run on the sealed cache of the same batches: killed after the
+    epoch-``M3_KILL`` commit, resumed within 1e-5 of the uninterrupted
+    fit, and the resumed run's newest snapshot corrupted, after which
+    ``restore_latest`` walks back one epoch. Returns the record and the
+    launch counts of the disarmed Dataset fit (the difference of two
+    readings: the path's counters are set to 0 once, before M1)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.data import Dataset
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.models._data import labeled_sparse_data
+
+    rows, dim, nnz = STREAM_ROWS, SPMV_DIM, SPMV_NNZ
+    n = M3_BATCHES * rows
+    _, indices, values, y, _ = make_criteo_csr(n, dim, nnz, seed=8)
+    table = fml.Table({"features": criteo_rows(indices, values, n, nnz, dim),
+                       "label": y.astype(np.float64)})
+    dicts = []
+    for b in table.batches(rows):
+        ip, ix, vx, d, yb, wb = labeled_sparse_data(b, "features", "label",
+                                                    None)
+        dicts.append({"indptr": np.asarray(ip)[None],
+                      "indices": np.asarray(ix)[None],
+                      "values": np.asarray(vx)[None],
+                      "y": np.asarray(yb)[None], "w": np.asarray(wb)[None],
+                      "dim": np.asarray([[d]], np.int64)})
+    budget = sum(a.nbytes for b in dicts for a in b.values()) // 2
+
+    def dataset():
+        return Dataset.from_arrays(table, batch_size=rows)
+
+    def est(tag, manager=None, resume=False, epochs=M3_EPOCHS):
+        return (fml.LogisticRegression(
+            cache_dir=os.path.join(tmp, f"m3_{tag}_cache"),
+            cache_memory_budget_bytes=budget, checkpoint_manager=manager,
+            checkpoint_interval=1 if manager else 0, resume=resume)
+            .set_max_iter(epochs).set_tol(0.0).set_learning_rate(STREAM_LR)
+            .set_reg(STREAM_REG))
+
+    def sealed():
+        w = DataCacheWriter(os.path.join(tmp, f"m3_sealed{len(os.listdir(tmp))}"),
+                            budget)
+        for b in dicts:
+            w.append(b)
+        return w.finish()
+
+    est("warm", epochs=1).fit(sealed())    # allocator and kernels warm
+    mgr = CheckpointManager(os.path.join(tmp, "m3_main"), max_to_keep=10)
+    before = dict(fml.launch_counts())
+    with FeedWaits() as feed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main = est("main", mgr).fit(dataset()).coefficient
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    counts = {k: v - before.get(k, 0) for k, v in fml.launch_counts().items()}
+    steps = M3_BATCHES * M3_EPOCHS
+    if counts.get("spmv") != steps or counts.get("segment_sum") != steps:
+        fail(f"path M3: launches {counts} in {steps} steps")
+    if mgr.all_epochs() != list(range(1, M3_EPOCHS + 1)):
+        fail(f"path M3: snapshots {mgr.all_epochs()}")
+    cache = sealed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from_cache = est("cache").fit(cache).coefficient
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    errs = {"dataset_vs_cache": rel_err(main, np.asarray(from_cache,
+                                                         np.float64))}
+    seam_fits = iter(range(4 * SEAM_ROUNDS))
+
+    def snapshotted_epoch():
+        tag = f"seam{next(seam_fits)}"
+        return est(tag, CheckpointManager(os.path.join(tmp, f"m3_{tag}")),
+                   epochs=1).fit(dataset())
+
+    seams = seam_abba(torch, snapshotted_epoch, n)
+
+    plan = faults.FaultPlan(faults.DelayRead(delay_s=M3_DELAY_S))
+    with faults.armed(plan), FeedWaits() as delayed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est("delay", epochs=1).fit(dataset())
+        torch.cuda.synchronize()
+        delay_s = time.perf_counter() - t0
+    delay_reads = len(plan.log)
+
+    plan = faults.FaultPlan(faults.RaiseAtRead(at_read=M3_BATCHES // 2 + 1))
+    with faults.armed(plan):
+        try:
+            est("raise").fit(dataset())
+            raised = False
+        except faults.FaultInjected:
+            raised = True
+    if not raised or len(plan.log) != 1:
+        fail(f"path M3: RaiseAtRead did not abort the fit ({plan.log})")
+
+    kill = CheckpointManager(os.path.join(tmp, "m3_kill"), max_to_keep=10)
+    plan = faults.FaultPlan(faults.KillAfterCheckpoint(min_epoch=M3_KILL))
+    with faults.armed(plan):
+        try:
+            est("kill", kill).fit(cache)
+            killed = False
+        except faults.FaultInjected:
+            killed = True
+    if not killed or kill.latest_epoch() != M3_KILL:
+        fail(f"path M3: the kill left {kill.latest_epoch()}")
+    plan = faults.FaultPlan(faults.CorruptSnapshot(min_epoch=M3_EPOCHS))
+    with faults.armed(plan):
+        resumed = est("resume", kill, resume=True).fit(cache).coefficient
+    errs["resumed_vs_uninterrupted"] = rel_err(
+        resumed, np.asarray(from_cache, np.float64))
+    for what, err in errs.items():
+        if not np.isfinite(err) or err > 1e-5:
+            fail(f"path M3: {what} differs by {err} of the largest "
+                 "coefficient (limit 1e-5)")
+    walked = kill.restore_latest(like=(np.zeros(dim, np.float32),
+                                       np.float64(0)))
+    if not plan.log or walked is None or walked[1] != M3_EPOCHS - 1:
+        fail(f"path M3: restore_latest after the corrupt snapshot gave "
+             f"{None if walked is None else walked[1]}")
+    samples = n * M3_EPOCHS
+    return {
+        "rows": n, "dim": dim, "nnz": nnz, "batches": M3_BATCHES,
+        "batch_rows": rows, "epochs": M3_EPOCHS,
+        "dataset_fit_s": fit_s, "dataset_samples_per_s": samples / fit_s,
+        "cache_fit_s": cache_s, "cache_samples_per_s": samples / cache_s,
+        "seams": seams, "feed_wait_s_per_epoch": feed.waits,
+        "delay_read": {"delay_s": M3_DELAY_S, "reads": delay_reads,
+                       "fit_s": delay_s,
+                       "epoch0_feed_wait_s": delayed.waits[:1],
+                       "disarmed_epoch0_feed_wait_s": feed.waits[:1]},
+        "raise_at_read_aborted": raised, "killed_at": M3_KILL,
+        "walked_back_to": walked[1], "rel_err": errs,
+        "launches": counts}, counts
+
+
+def faults_path(torch):
+    """Path M (ROADMAP item 12): M1 FTRL, M2 OnlineKMeans and M3 the
+    streamed sparse LR under scripted faults (:func:`faults_m1`,
+    :func:`faults_m2`, :func:`faults_m3`), the launch counters set to 0
+    once before M1 and read after M2 and after M3; M3's
+    :func:`seam_abba` record is held to :data:`SEAM_FLOOR`. Returns M's
+    launch counts."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        fml.reset_launch_counts()
+        m1 = faults_m1(torch, tmp)
+        m2 = faults_m2(torch)
+        m1_m2_counts = dict(fml.launch_counts())
+        m3, m3_counts = faults_m3(torch, tmp)
+        counts = dict(fml.launch_counts())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("spmv", "segment_sum"):
+        if counts.get(name, 0) < m3_counts[name]:
+            fail(f"path M: {name} launched {counts.get(name, 0)} times")
+    ratio = m3["seams"]["armed_over_disarmed"]
+    if not ratio >= SEAM_FLOOR:
+        fail(f"path M3: fits whose seams all call a plan ran at {ratio:.3f}x "
+             f"the disarmed fits' samples/s (limit {SEAM_FLOOR})")
+    log("path " + json.dumps({"path": "faults_M", "M1_ftrl": m1,
+                              "M2_online_kmeans": m2, "M3_stream": m3,
+                              "launches_M1_M2": m1_m2_counts,
+                              "launches": counts}))
+    return counts
 
 
 def device_share(torch, fn):
@@ -5425,6 +5908,8 @@ def main() -> int:
     plan_counts, segsum_rec["naive_bayes"] = plan_path(torch, timer, k2)
     chain_rec["launches"] += plan_counts.get("fused_chain", 0)
     mark("path K")
+    faults_counts = faults_path(torch)
+    mark("path M")
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
@@ -5433,7 +5918,7 @@ def main() -> int:
             "sorted_stream_H": sorted_counts[name],
             "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name],
             "plan_K": plan_counts.get(name, 0),
-            "stream_mp_L": l_counts[name]}
+            "stream_mp_L": l_counts[name], "faults_M": faults_counts[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
     mark("KNN and LSH")
@@ -5551,18 +6036,78 @@ def ab_inner(tree: str) -> int:
     return 0
 
 
-def ab_main(old: str) -> int:
+#: Path E's main fits timed in each process of ``--ab-stream``.
+AB_STREAM_FITS = 2
+
+
+def ab_stream_inner(tree: str) -> int:
+    """Path E's main fit (its Criteo profile, 16 x 65,536 rows in a
+    DataCache that spills half, ``STREAM_EPOCHS`` epochs, a snapshot every
+    ``STREAM_INTERVAL``) through the checkout at ``tree``, timed
+    ``AB_STREAM_FITS`` times after a warm fit; print one JSON line."""
+    import shutil
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import DataCacheWriter
+    from flinkml_tpu_torch.kernels import _build
+
+    if not os.path.abspath(fml.__file__).startswith(os.path.abspath(tree)):
+        fail(f"--ab-stream-inner imported {fml.__file__}, not {tree}'s")
+    _build.build_all()
+    n, dim = STREAM_BATCHES * STREAM_ROWS, SPMV_DIM
+    indptr, indices, values, y, _ = make_criteo_csr(n, dim, SPMV_NNZ, seed=7)
+    dicts, _ = csr_batch_dicts(indptr, indices, values, y, STREAM_BATCHES,
+                               STREAM_ROWS, dim)
+    batch_bytes = sum(a.nbytes for a in dicts[0].values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_stream_")
+    try:
+        w = DataCacheWriter(os.path.join(tmp, "spill"),
+                            batch_bytes * STREAM_BATCHES // 2)
+        for b in dicts:
+            w.append(b)
+        spilled = w.finish()
+
+        def fit(epochs, manager=None):
+            return (fml.LogisticRegression(
+                checkpoint_manager=manager,
+                checkpoint_interval=STREAM_INTERVAL if manager else 0)
+                .set_max_iter(epochs).set_tol(0.0)
+                .set_learning_rate(STREAM_LR).set_reg(STREAM_REG)
+                .fit(spilled))
+
+        fit(1)
+        rates = []
+        for i in range(AB_STREAM_FITS):
+            manager = CheckpointManager(os.path.join(tmp, f"ckpt{i}"),
+                                        max_to_keep=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(STREAM_EPOCHS, manager)
+            torch.cuda.synchronize()
+            rates.append(n * STREAM_EPOCHS / (time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"tree": tree, "samples_per_s": rates}), flush=True)
+    return 0
+
+
+def ab_main(old: str, inner: str = "--ab-inner") -> int:
     """``--ab OLD``: the kernels of the checkout at OLD and of this one,
-    each timed in its own process, in the order old, new, new, old."""
+    each timed in its own process, in the order old, new, new, old;
+    ``--ab-stream OLD``: path E's main fit so (:func:`ab_stream_inner`)."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(card_line(), flush=True)
     for tree in (old, here, here, old):
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--ab-inner", tree], capture_output=True,
+                               inner, tree], capture_output=True,
                               text=True, timeout=900)
         lines = [ln for ln in done.stdout.splitlines() if ln.startswith("{")]
         if done.returncode != 0 or not lines:
-            fail(f"--ab-inner {tree}: exit {done.returncode}\n"
+            fail(f"{inner} {tree}: exit {done.returncode}\n"
                  f"{done.stderr[-2000:]}")
         print(lines[-1], flush=True)
     return 0
@@ -5896,6 +6441,10 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-inner":
         sys.exit(ab_inner(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-stream":
+        sys.exit(ab_main(sys.argv[2], "--ab-stream-inner"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-stream-inner":
+        sys.exit(ab_stream_inner(sys.argv[2]))
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--variants":
         sys.exit(variants_main(*sys.argv[2:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--j2-rank":

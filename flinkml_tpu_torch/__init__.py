@@ -34,7 +34,12 @@ mesh (``mesh=``), one process and one device per rank;
 ``ShardingPlan`` (``sharding_plan=``) and trains them under a precision
 policy (``precision="mixed"``). ``NaiveBayes`` and the graph API
 (``GraphBuilder``, ``Graph``, ``GraphModel``) complete the reference's
-surface.
+surface. :mod:`flinkml_tpu_torch.faults` scripts failures at the runtime's
+seams, :mod:`flinkml_tpu_torch.recovery` checks a fit's numerics on the
+device and heals a poisoned batch by rollback and quarantine (with
+``OnlineStandardScaler``, the three online trainers take ``sentinel=`` and
+``recovery=``), and :mod:`flinkml_tpu_torch.utils.preemption` stops a fit
+cleanly on SIGTERM or a lost rank.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401

@@ -25,9 +25,10 @@ the chain and dropping the consumed prefix otherwise (shuffle included:
 the seeded buffer regenerates the identical order). Either way the
 resumed consumer sees the exact uninterrupted sequence.
 
-The JAX package's ``data.read`` fault seam (a scripted source failure per
-batch read) comes with ``faults.py``, ROADMAP.md Queue 1 item 12; and
-``hash_column`` with ``features/hashing.py``, item 9.
+Every source batch read passes the ``data.read`` fault seam
+(:mod:`flinkml_tpu_torch.faults`) before any transform touches it.
+``hash_column`` comes with ``features/hashing.py``, ROADMAP.md Queue 1
+item 9.
 """
 
 from __future__ import annotations
@@ -228,6 +229,19 @@ def _drop(it: Iterator[Table], n: int) -> Iterator[Table]:
         yield batch
 
 
+def _read_seam(src, shard_index: int) -> Iterator[Table]:
+    """Source reads through the ``data.read`` fault seam. Module-level
+    (not a DatasetIterator method) for the same no-back-reference reason
+    as :class:`_ChainState`."""
+    from flinkml_tpu_torch import faults
+
+    for batch in src:
+        if faults.ACTIVE is not None:  # a scripted source failure
+            faults.fire("data.read", read=src.batches_read,
+                        shard=shard_index)
+        yield batch
+
+
 class _ChainState:
     """State shared between the chain generators and the
     DatasetIterator. A separate object on purpose: the prefetch worker
@@ -393,7 +407,8 @@ class DatasetIterator(_TrackedIterator):
         self._emitted_base = skip
         self._src = dataset._source.open(skip_batches=skip if fast else 0)
         self._assemble(
-            self._src, dataset._ops, drop=0 if fast else skip,
+            _read_seam(self._src, dataset._source.shard_index),
+            dataset._ops, drop=0 if fast else skip,
             prefetch_spec=dataset._prefetch, start=skip,
         )
 

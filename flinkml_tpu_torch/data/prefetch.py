@@ -26,9 +26,11 @@ sorted sparse column (``buf``, ``indices``, ``indptr``, ``perm``,
 
 Metrics (``utils.metrics.default_registry()``, group ``data.prefetch``
 by default): ``queue_depth`` / ``stall_fraction`` / ``rows_per_sec``
-gauges and the ``batches_prefetched`` / ``rows_prefetched`` counters. The
-JAX package's ``data.prefetch`` fault seam (a scripted failure before
-each placement) comes with ``faults.py``, ROADMAP.md Queue 1 item 12.
+gauges and the ``batches_prefetched`` / ``rows_prefetched`` counters.
+The worker fires the ``data.prefetch`` fault seam
+(:mod:`flinkml_tpu_torch.faults`) before each placement: a raise there
+stops the worker and reaches the consumer's ``next()`` with the worker's
+traceback; a delay models a slow producer.
 """
 
 from __future__ import annotations
@@ -114,8 +116,16 @@ class DevicePrefetcher(PrefetchingDeviceFeed):
         if place is None:
             place = _default_place(default_device())
 
+        reads = [0]
+
         def pad_and_place(batch):
-            # Runs on the worker thread: bucket pad, upload, counters.
+            # Runs on the worker thread: the fault seam, bucket pad,
+            # upload, counters.
+            from flinkml_tpu_torch import faults
+
+            reads[0] += 1
+            if faults.ACTIVE is not None:  # a scripted producer failure
+                faults.fire("data.prefetch", read=reads[0])
             if isinstance(batch, Table):
                 placed = pad_place_table(batch, place)
                 if group is not None:

@@ -1,0 +1,1151 @@
+"""Deterministic fault injection: scripted failures for recovery proofs.
+
+The port's counterpart of ``flinkml_tpu.faults``, a copy of it (the port
+imports nothing of the JAX package). A :class:`FaultPlan` of scripted
+faults, armed process-wide, fires at named **seam sites** threaded through
+the runtime:
+
+========================  ====================================================
+site                      where it fires
+========================  ====================================================
+``iteration.epoch``       top of every :func:`flinkml_tpu_torch.iteration.
+                          iterate` epoch, before that epoch's batch is read
+``checkpoint.write``      inside ``CheckpointManager._write``, after the
+                          arrays and manifest are written but BEFORE the
+                          atomic rename (a raise is a torn write: the
+                          snapshot is never committed)
+``checkpoint.committed``  right after a checkpoint's atomic rename (the
+                          context carries the committed directory, so a
+                          fault can corrupt it)
+``dispatch.transfer``     every ``DispatchGuard.after_dispatch`` and
+                          ``flush``: the host-device synchronization seam
+``data.read``             every source-batch read of a
+                          :class:`flinkml_tpu_torch.data.DatasetIterator`,
+                          before any transform touches the batch
+``data.prefetch``         inside the :class:`flinkml_tpu_torch.data.
+                          DevicePrefetcher` worker thread, before each
+                          batch's pad and upload (a raise reaches the
+                          consumer's ``next()`` with the worker's traceback)
+``rank.lost``             top of every ``iterate`` epoch (after
+                          ``iteration.epoch``) and of every
+                          ``train_linear_plan`` epoch: a :class:`RankLost`
+                          marks a peer dead; with a watchdog in the context
+                          the loss is a clean preemption stop, without one
+                          a hard crash
+``rendezvous.rescale``    inside :func:`flinkml_tpu_torch.parallel.
+                          distributed.agree_resume_epoch` (a raise is a
+                          failed shrink rendezvous)
+``train.step``            around every step of ``iterate`` and
+                          ``train_linear_plan``, with ``phase='pre'`` (the
+                          context's ``batch``: :class:`PoisonBatch` swaps
+                          in a NaN twin) and ``phase='post'`` (its
+                          ``state`` and ``criteria``: :class:`NaNGrad`,
+                          :class:`InfLoss`). These faults mutate the
+                          context instead of raising and re-fire on every
+                          visit to their batch, so only quarantining the
+                          batch heals the run (:mod:`flinkml_tpu_torch.
+                          recovery`)
+``serving.replica``       the serving seams (``ReplicaDown``,
+``registry.publish``      ``StallDispatch``, ``JitterDispatch``,
+``cluster.worker``        ``SlowRamp``, ``DropPublish``, ``WorkerCrash``):
+                          their faults are here as data; the serving and
+                          cluster firing sites come with ROADMAP.md Queue 1
+                          items 4 and 19. The worker soak of
+                          :mod:`flinkml_tpu_torch.recovery.fuzz` fires
+                          ``cluster.worker`` at every trainer batch
+========================  ====================================================
+
+With no plan armed each seam is one module-attribute ``None`` check. All
+triggers are counter or epoch based, so a plan replays identically, and a
+plan's JSON (:func:`plan_to_json`) is byte-for-byte the JAX package's, so
+a repro file written by either package replays in the other;
+:class:`FuzzPlan` draws the same schedules as the JAX package's for each
+``(seed, index)``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from flinkml_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("faults")
+
+
+class FaultInjected(RuntimeError):
+    """The scripted failure raised by injected faults — catch this (and
+    only this) in recovery tests to distinguish the injection from a real
+    bug in the code under test."""
+
+
+class Fault:
+    """One scripted fault. Subclasses set ``site`` and implement
+    :meth:`should_fire` (pure decision — called for every event at the
+    site) and :meth:`apply` (the effect: raise, delay, corrupt)."""
+
+    site: str = ""
+
+    def should_fire(self, ctx: Dict[str, Any]) -> bool:
+        raise NotImplementedError
+
+    def apply(self, ctx: Dict[str, Any]) -> None:
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        return type(self).__name__
+
+
+class RaiseAtEpoch(Fault):
+    """Raise :class:`FaultInjected` at the top of epoch ``epoch`` —
+    the scripted mid-stream crash. The epoch's batch has NOT been
+    consumed when this fires."""
+
+    site = "iteration.epoch"
+
+    def __init__(self, epoch: int, message: str = "injected crash"):
+        self.epoch = int(epoch)
+        self.message = message
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return not self.fired and ctx.get("epoch") == self.epoch
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(f"{self.message} (epoch {self.epoch})")
+
+    def describe(self):
+        return f"RaiseAtEpoch({self.epoch})"
+
+
+class KillAfterCheckpoint(Fault):
+    """Raise :class:`FaultInjected` immediately after the first checkpoint
+    of epoch >= ``min_epoch`` commits — the snapshot IS durable, the
+    process dies before training past it (the classic preemption shape)."""
+
+    site = "checkpoint.committed"
+
+    def __init__(self, min_epoch: int = 0):
+        self.min_epoch = int(min_epoch)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return not self.fired and ctx.get("epoch", -1) >= self.min_epoch
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(
+            f"injected kill after checkpoint commit (epoch {ctx.get('epoch')})"
+        )
+
+    def describe(self):
+        return f"KillAfterCheckpoint(min_epoch={self.min_epoch})"
+
+
+class CorruptSnapshot(Fault):
+    """Corrupt the just-committed snapshot (arrays bit-flip, manifest
+    mangle, or truncation — see :func:`corrupt_checkpoint`) the first time
+    a checkpoint of epoch >= ``min_epoch`` commits. Does not raise; pair
+    it with :class:`KillAfterCheckpoint` (listed AFTER it in the plan) for
+    the kill-with-corrupt-latest scenario."""
+
+    site = "checkpoint.committed"
+
+    def __init__(self, min_epoch: int = 0, target: str = "arrays"):
+        self.min_epoch = int(min_epoch)
+        self.target = target
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return not self.fired and ctx.get("epoch", -1) >= self.min_epoch
+
+    def apply(self, ctx):
+        self.fired = True
+        corrupt_checkpoint(ctx["path"], target=self.target)
+
+    def describe(self):
+        return f"CorruptSnapshot(min_epoch={self.min_epoch}, {self.target})"
+
+
+class TornWrite(Fault):
+    """Raise inside the checkpoint write of epoch ``epoch``, after
+    serialization but before the atomic rename — the commit never
+    happens, exactly like a kill mid-write. The previous snapshot must
+    remain the restore point."""
+
+    site = "checkpoint.write"
+
+    def __init__(self, epoch: int):
+        self.epoch = int(epoch)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return not self.fired and ctx.get("epoch") == self.epoch
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(
+            f"injected torn checkpoint write (epoch {self.epoch})"
+        )
+
+    def describe(self):
+        return f"TornWrite({self.epoch})"
+
+
+class TransferFault(Fault):
+    """Delay (``mode='delay'``) or fail (``mode='fail'``) the N-th
+    host↔device transfer seam event after arming (1-based)."""
+
+    site = "dispatch.transfer"
+
+    def __init__(self, at_count: int = 1, mode: str = "fail",
+                 delay_s: float = 0.05):
+        if mode not in ("fail", "delay"):
+            raise ValueError(f"mode must be 'fail' or 'delay', got {mode!r}")
+        self.at_count = int(at_count)
+        self.mode = mode
+        self.delay_s = float(delay_s)
+        self._seen = 0
+        self.fired = False
+
+    def should_fire(self, ctx):
+        self._seen += 1
+        return not self.fired and self._seen == self.at_count
+
+    def apply(self, ctx):
+        self.fired = True
+        if self.mode == "delay":
+            time.sleep(self.delay_s)
+            return
+        raise FaultInjected(
+            f"injected transfer failure (transfer #{self.at_count})"
+        )
+
+    def describe(self):
+        return f"TransferFault(#{self.at_count}, {self.mode})"
+
+
+class DropPublish(Fault):
+    """Fail the N-th registry publish after arming (1-based) before any
+    file is written — the publish is dropped as if the publisher crashed
+    on entry; the registry is untouched."""
+
+    site = "registry.publish"
+
+    def __init__(self, at_publish: int = 1):
+        self.at_publish = int(at_publish)
+        self._seen = 0
+        self.fired = False
+
+    def should_fire(self, ctx):
+        self._seen += 1
+        return not self.fired and self._seen == self.at_publish
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(
+            f"injected dropped publish (publish #{self.at_publish})"
+        )
+
+    def describe(self):
+        return f"DropPublish(#{self.at_publish})"
+
+
+class RaiseAtRead(Fault):
+    """Raise :class:`FaultInjected` at the N-th input-pipeline read
+    event after arming (1-based) — the scripted mid-stream SOURCE
+    failure (a vanished file, a dead upstream). ``site`` defaults to
+    ``data.read``; pass ``site='data.prefetch'`` to fail inside the
+    prefetch worker instead (exercising the worker→consumer exception
+    propagation path)."""
+
+    def __init__(self, at_read: int = 1, site: str = "data.read",
+                 message: str = "injected source failure"):
+        if site not in ("data.read", "data.prefetch"):
+            raise ValueError(
+                f"site must be 'data.read' or 'data.prefetch', got {site!r}"
+            )
+        self.site = site
+        self.at_read = int(at_read)
+        self.message = message
+        self._seen = 0
+        self.fired = False
+
+    def should_fire(self, ctx):
+        self._seen += 1
+        return not self.fired and self._seen == self.at_read
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(f"{self.message} (read #{self.at_read})")
+
+    def describe(self):
+        return f"RaiseAtRead(#{self.at_read}, {self.site})"
+
+
+class DelayRead(Fault):
+    """Sleep ``delay_s`` on every input-pipeline read event (or only
+    the first ``first_n``) — the deterministic slow producer, used to
+    prove the prefetcher overlaps source latency with consumer compute.
+    Never raises."""
+
+    def __init__(self, delay_s: float = 0.01,
+                 first_n: Optional[int] = None, site: str = "data.read"):
+        if site not in ("data.read", "data.prefetch"):
+            raise ValueError(
+                f"site must be 'data.read' or 'data.prefetch', got {site!r}"
+            )
+        self.site = site
+        self.delay_s = float(delay_s)
+        self.first_n = None if first_n is None else int(first_n)
+        self._seen = 0
+        self.fired = False
+
+    def should_fire(self, ctx):
+        self._seen += 1
+        return self.first_n is None or self._seen <= self.first_n
+
+    def apply(self, ctx):
+        self.fired = True
+        time.sleep(self.delay_s)
+
+    def describe(self):
+        n = "*" if self.first_n is None else self.first_n
+        return f"DelayRead({self.delay_s}s, first_n={n}, {self.site})"
+
+
+class RankLost(Fault):
+    """Mark ``rank`` as LOST at the top of epoch ``epoch`` — the
+    scripted loss of a host of a preemptible fleet. When the iteration
+    runs under a :class:`~flinkml_tpu_torch.utils.preemption
+    .PreemptionWatchdog`, the loss is delivered through
+    ``watchdog.notify_rank_lost``: the loop stops cleanly at the epoch
+    boundary, commits its final checkpoint, and the survivors plan an
+    elastic resume at the shrunken world (the shrink-on-SIGTERM path).
+    Without a watchdog the loss is a hard crash
+    (:class:`FaultInjected`) — nobody was watching for it."""
+
+    site = "rank.lost"
+
+    def __init__(self, epoch: int, rank: int = 0):
+        self.epoch = int(epoch)
+        self.rank = int(rank)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return not self.fired and ctx.get("epoch") == self.epoch
+
+    def apply(self, ctx):
+        self.fired = True
+        watchdog = ctx.get("watchdog")
+        if watchdog is not None and hasattr(watchdog, "notify_rank_lost"):
+            watchdog.notify_rank_lost(
+                self.rank, reason=f"injected rank loss (epoch {self.epoch})"
+            )
+            return
+        raise FaultInjected(
+            f"injected rank loss (rank {self.rank}, epoch {self.epoch}) "
+            "with no watchdog installed — hard crash"
+        )
+
+    def describe(self):
+        return f"RankLost(rank={self.rank}, epoch={self.epoch})"
+
+
+class ReplicaDown(Fault):
+    """Kill one serving replica: from the ``at_batch``-th batch this
+    replica dispatches (1-based, counted per fault instance) onward,
+    EVERY batch raises :class:`FaultInjected` — the replica is dead, not
+    hiccuping. ``engine`` matches the engine name (a pool replica's is
+    ``"<pool>/<replica>"``, e.g. ``"pool/r1"``; a bare replica name like
+    ``"r1"`` matches its suffix). The in-flight batch's requests fail
+    with the injection; a serving ``ReplicaPool``
+    router retries them on healthy replicas and retires the dead one."""
+
+    site = "serving.replica"
+
+    def __init__(self, engine: str, at_batch: int = 1):
+        self.engine = str(engine)
+        self.at_batch = int(at_batch)
+        self._seen = 0
+        self.fired = False
+
+    def _matches(self, name: str) -> bool:
+        return name == self.engine or name.endswith(f"/{self.engine}")
+
+    def should_fire(self, ctx):
+        if not self._matches(str(ctx.get("engine", ""))):
+            return False
+        self._seen += 1
+        return self._seen >= self.at_batch
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(
+            f"injected replica death ({ctx.get('engine')}, batch "
+            f"#{self._seen})"
+        )
+
+    def describe(self):
+        return f"ReplicaDown({self.engine}, at_batch={self.at_batch})"
+
+
+class StallDispatch(Fault):
+    """The GRAY failure: the replica is alive but frozen. From the
+    ``at_batch``-th batch this replica dispatches (1-based, per fault
+    instance) onward, every batch SLEEPS ``delay_s`` before serving
+    normally — no error is ever raised, so nothing binary (error
+    thresholds, retirement) can see it; only latency can. With
+    ``for_batches=None`` the stall never clears; a finite value stalls
+    exactly that many batches and then recovers — the
+    quarantine→canary→rejoin lifecycle's test fixture. ``engine``
+    matches like :class:`ReplicaDown` (exact name or ``/<engine>``
+    suffix)."""
+
+    site = "serving.replica"
+
+    def __init__(self, engine: str, at_batch: int = 1,
+                 delay_s: float = 0.25,
+                 for_batches: Optional[int] = None):
+        self.engine = str(engine)
+        self.at_batch = int(at_batch)
+        self.delay_s = float(delay_s)
+        self.for_batches = None if for_batches is None else int(for_batches)
+        self._seen = 0
+        self._stalled = 0
+        self.fired = False
+
+    def _matches(self, name: str) -> bool:
+        return name == self.engine or name.endswith(f"/{self.engine}")
+
+    def should_fire(self, ctx):
+        if not self._matches(str(ctx.get("engine", ""))):
+            return False
+        self._seen += 1
+        if self._seen < self.at_batch:
+            return False
+        if self.for_batches is not None and self._stalled >= self.for_batches:
+            return False  # the stall cleared: back to normal service
+        return True
+
+    def apply(self, ctx):
+        self.fired = True
+        self._stalled += 1
+        time.sleep(self.delay_s)
+
+    def describe(self):
+        span = ("forever" if self.for_batches is None
+                else f"for {self.for_batches} batches")
+        return (f"StallDispatch({self.engine}, at_batch={self.at_batch}, "
+                f"delay_s={self.delay_s}, {span})")
+
+
+class JitterDispatch(Fault):
+    """Intermittent slowness: each batch this replica dispatches sleeps
+    ``delay_s`` with probability ``p`` — the flapping gray failure that
+    a naive one-strike quarantine would thrash on. Deterministic: the
+    draw sequence derives from ``seed`` alone, so a JSON-committed repro
+    (:func:`fault_to_spec`) replays the exact same stall pattern."""
+
+    site = "serving.replica"
+
+    def __init__(self, engine: str, p: float = 0.2, delay_s: float = 0.1,
+                 seed: int = 0):
+        self.engine = str(engine)
+        self.p = float(p)
+        self.delay_s = float(delay_s)
+        self.seed = int(seed)
+        import numpy as np
+
+        self._rng = np.random.default_rng(self.seed)
+        self.fired = False
+
+    def _matches(self, name: str) -> bool:
+        return name == self.engine or name.endswith(f"/{self.engine}")
+
+    def should_fire(self, ctx):
+        if not self._matches(str(ctx.get("engine", ""))):
+            return False
+        return bool(self._rng.random() < self.p)
+
+    def apply(self, ctx):
+        self.fired = True
+        time.sleep(self.delay_s)
+
+    def describe(self):
+        return (f"JitterDispatch({self.engine}, p={self.p}, "
+                f"delay_s={self.delay_s}, seed={self.seed})")
+
+
+class SlowRamp(Fault):
+    """Gradual degradation: from ``at_batch`` onward each batch this
+    replica dispatches sleeps ``step_s`` MORE than the one before,
+    capped at ``max_s`` — the leaking-resource / thermal-throttle shape,
+    which defeats any fixed-threshold detector that only compares
+    against its own recent past (the MAD test compares against
+    SIBLINGS, so it still trips)."""
+
+    site = "serving.replica"
+
+    def __init__(self, engine: str, at_batch: int = 1,
+                 step_s: float = 0.02, max_s: float = 0.5):
+        self.engine = str(engine)
+        self.at_batch = int(at_batch)
+        self.step_s = float(step_s)
+        self.max_s = float(max_s)
+        self._seen = 0
+        self.fired = False
+
+    def _matches(self, name: str) -> bool:
+        return name == self.engine or name.endswith(f"/{self.engine}")
+
+    def should_fire(self, ctx):
+        if not self._matches(str(ctx.get("engine", ""))):
+            return False
+        self._seen += 1
+        return self._seen >= self.at_batch
+
+    def apply(self, ctx):
+        self.fired = True
+        ramp = (self._seen - self.at_batch + 1) * self.step_s
+        time.sleep(min(ramp, self.max_s))
+
+    def describe(self):
+        return (f"SlowRamp({self.engine}, at_batch={self.at_batch}, "
+                f"step_s={self.step_s}, max_s={self.max_s})")
+
+
+class WorkerCrash(Fault):
+    """Hard-exit the PROCESS at a ``cluster.worker`` seam event — the
+    real process death behind the chaos stages' "kill a worker
+    mid-traffic" and the fuzz soak's orchestrator-restart-across-a-
+    process-boundary invariants. Fires when the context value under
+    ``key`` (``"request"`` for the serving worker's predict counter,
+    ``"epoch"`` for the trainer feed's batch edge) reaches ``at``;
+    ``apply`` calls ``os._exit(exit_code)`` — no cleanup, no excuses,
+    exactly like an OOM kill or a preemption.
+
+    Cross-RESTART once-semantics need state that survives the process:
+    an in-memory ``fired`` flag dies with the worker, and a restarted
+    child re-arming the same plan would crash at the same trigger
+    forever. ``marker`` (a file path, JSON-serializable with the plan)
+    is that state: the fault touches it just before exiting and never
+    fires while it exists."""
+
+    site = "cluster.worker"
+
+    def __init__(self, at: int = 1, key: str = "request",
+                 exit_code: int = 23, marker: Optional[str] = None):
+        self.at = int(at)
+        self.key = str(key)
+        self.exit_code = int(exit_code)
+        self.marker = marker
+        self.fired = False
+
+    def should_fire(self, ctx):
+        value = ctx.get(self.key)
+        if value is None or int(value) < self.at:
+            return False
+        if self.marker is not None and os.path.exists(self.marker):
+            return False
+        return not self.fired
+
+    def apply(self, ctx):
+        self.fired = True
+        _log.warning(
+            "injected worker crash (%s=%s >= %d), exiting %d",
+            self.key, ctx.get(self.key), self.at, self.exit_code,
+        )
+        if self.marker is not None:
+            with open(self.marker, "w") as f:
+                f.write(f"{self.key}={ctx.get(self.key)}\n")
+                f.flush()
+                os.fsync(f.fileno())
+        os._exit(self.exit_code)
+
+    def describe(self):
+        return (f"WorkerCrash({self.key}>={self.at}, "
+                f"exit={self.exit_code})")
+
+
+class FailRendezvous(Fault):
+    """Raise :class:`FaultInjected` at the N-th ``rendezvous.rescale``
+    seam event after arming (1-based) — the scripted failure of the
+    survivors' elastic-resume agreement (a shrink rendezvous that never
+    converges)."""
+
+    site = "rendezvous.rescale"
+
+    def __init__(self, at_count: int = 1):
+        self.at_count = int(at_count)
+        self._seen = 0
+        self.fired = False
+
+    def should_fire(self, ctx):
+        self._seen += 1
+        return not self.fired and self._seen == self.at_count
+
+    def apply(self, ctx):
+        self.fired = True
+        raise FaultInjected(
+            f"injected rescale-rendezvous failure (rendezvous "
+            f"#{self.at_count})"
+        )
+
+    def describe(self):
+        return f"FailRendezvous(#{self.at_count})"
+
+
+# -- train.step numerics faults ----------------------------------------------
+#
+# These do NOT raise: they corrupt the fired context in place (the seam
+# code reads the possibly-replaced values back out), modeling silent
+# numerics damage — a poisoned input batch, a NaN'd gradient, an
+# overflowed loss — that only a numerics sentinel
+# (flinkml_tpu_torch.recovery) can catch. They key on the SOURCE batch index
+# (``source_index`` in the context: the position in the un-quarantined
+# feed, equal to the epoch until a batch is quarantined) and re-fire on
+# EVERY visit: rolling back and retrying the same batch fails the same
+# way, so the only recovery that converges is quarantining the batch —
+# which is exactly the contract the recovery engine implements.
+
+
+def _poison_leaf(leaf):
+    """A NaN twin of one floating leaf (same device and dtype); any other
+    leaf (ints, bools, Python scalars) is returned as it is."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(leaf):
+        if leaf.is_floating_point():
+            return torch.full_like(leaf, float("nan"))
+        return leaf
+    if hasattr(leaf, "dtype") and np.issubdtype(np.dtype(leaf.dtype),
+                                                np.floating):
+        return leaf * float("nan")
+    return leaf
+
+
+def _map_tree(tree, fn):
+    """``fn`` over every leaf of a tree of dicts, lists and tuples, in
+    ``jax.tree_util``'s order (dicts by sorted key); the containers are
+    rebuilt, a dict keeping its key order."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        done = {k: _map_tree(tree[k], fn) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_tree(v, fn) for v in tree]
+        return tuple(out) if isinstance(tree, tuple) else out
+    return fn(tree)
+
+
+def _poison_float_leaves(tree):
+    """NaN-fill every floating leaf of a state tree (tensors keep their
+    device and dtype; int and bool leaves, model versions and counters,
+    pass through untouched)."""
+    return _map_tree(tree, _poison_leaf)
+
+
+def _poison_column(col):
+    """A NaN twin of one Table column: a float numpy column, tensor or
+    device column (padded, sorted sparse) becomes all-NaN on its device
+    and in its dtype; object columns (SparseVectors) and non-float columns
+    are kept, as the JAX package keeps them."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from flinkml_tpu_torch.table import LazyDeviceColumn, PaddedDeviceColumn
+
+    if torch.is_tensor(col):
+        return _poison_leaf(col)
+    if isinstance(col, PaddedDeviceColumn):
+        if not col.buf.is_floating_point():
+            return col
+        buf = torch.full_like(col.buf, float("nan"))
+        if type(col) in (PaddedDeviceColumn, LazyDeviceColumn):
+            return PaddedDeviceColumn(buf, col.rows)
+        twin = copy.copy(col)
+        twin.buf = buf
+        return twin
+    arr = np.asarray(col)
+    if np.issubdtype(arr.dtype, np.floating):
+        return np.full_like(arr, np.nan)
+    return col
+
+
+def _poison_batch_value(batch):
+    """A NaN-filled twin of a training batch: every float column or array
+    becomes all-NaN, non-float data and the container shape survive (so
+    shapes and buckets are untouched); tensors keep their device and
+    dtype."""
+    import torch
+
+    from flinkml_tpu_torch.table import Table
+
+    if isinstance(batch, Table):
+        return Table({name: _poison_column(batch._raw_column(name))
+                      for name in batch.column_names})
+    if isinstance(batch, dict):
+        return {k: _poison_batch_value(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        out = [_poison_batch_value(v) for v in batch]
+        return tuple(out) if isinstance(batch, tuple) else out
+    if torch.is_tensor(batch) or hasattr(batch, "dtype"):
+        return _poison_float_leaves(batch)
+    return batch
+
+
+class NaNGrad(Fault):
+    """Poison the post-step state at source batch ``at_epoch`` — the
+    scripted NaN gradient: every float leaf of the step's output state
+    becomes NaN, exactly as a NaN'd gradient propagated into the
+    parameters would leave it. Re-fires on every retry of that batch
+    (see the train.step notes above)."""
+
+    site = "train.step"
+
+    def __init__(self, at_epoch: int):
+        self.at_epoch = int(at_epoch)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return (ctx.get("phase") == "post"
+                and ctx.get("source_index") == self.at_epoch)
+
+    def apply(self, ctx):
+        self.fired = True
+        ctx["state"] = _poison_float_leaves(ctx["state"])
+
+    def describe(self):
+        return f"NaNGrad(at_epoch={self.at_epoch})"
+
+
+class InfLoss(Fault):
+    """Overflow the step's loss to +inf at source batch ``at_epoch``
+    (the state stays finite — the overflowed-loss shape a too-hot batch
+    produces). Re-fires on every retry of that batch."""
+
+    site = "train.step"
+
+    def __init__(self, at_epoch: int):
+        self.at_epoch = int(at_epoch)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return (ctx.get("phase") == "post"
+                and ctx.get("source_index") == self.at_epoch)
+
+    def apply(self, ctx):
+        self.fired = True
+        ctx["criteria"] = float("inf")
+
+    def describe(self):
+        return f"InfLoss(at_epoch={self.at_epoch})"
+
+
+class PoisonBatch(Fault):
+    """Replace source batch ``at_batch``'s float data with NaN before
+    the step consumes it — the scripted poisoned input (a corrupted
+    upstream record, a bad feature join). Re-fires on every retry: the
+    batch itself is bad, and only quarantining it heals the run."""
+
+    site = "train.step"
+
+    def __init__(self, at_batch: int):
+        self.at_batch = int(at_batch)
+        self.fired = False
+
+    def should_fire(self, ctx):
+        return (ctx.get("phase") == "pre"
+                and ctx.get("source_index") == self.at_batch)
+
+    def apply(self, ctx):
+        self.fired = True
+        ctx["batch"] = _poison_batch_value(ctx["batch"])
+
+    def describe(self):
+        return f"PoisonBatch(at_batch={self.at_batch})"
+
+
+class FaultPlan:
+    """An ordered script of :class:`Fault`s. ``fire`` runs every matching
+    fault in plan order (so ``[CorruptSnapshot(...), KillAfterCheckpoint
+    (...)]`` corrupts the snapshot and THEN kills at the same commit).
+    ``log`` records every firing — ``(site, description, ctx-summary)``
+    tuples — for assertions and postmortems."""
+
+    def __init__(self, *faults: Fault):
+        self.faults: Tuple[Fault, ...] = tuple(faults)
+        self.log: List[Tuple[str, str, Dict[str, Any]]] = []
+
+    def fire(self, site: str, **ctx: Any) -> None:
+        self.fire_into(site, ctx)
+
+    def fire_into(self, site: str, ctx: Dict[str, Any]) -> None:
+        """Like :meth:`fire` but over a caller-owned context dict, so
+        mutating faults (the ``train.step`` family) can hand replaced
+        values — a poisoned batch, a NaN'd state — back to the seam."""
+        for fault in self.faults:
+            if fault.site == site and fault.should_fire(ctx):
+                summary = {
+                    k: v for k, v in ctx.items()
+                    if isinstance(v, (int, float, str, bool))
+                }
+                self.log.append((site, fault.describe(), summary))
+                _log.warning(
+                    "fault fired at %s: %s %s", site, fault.describe(), summary
+                )
+                fault.apply(ctx)
+
+
+# -- arming ------------------------------------------------------------------
+#
+# Seam hooks read this module attribute and bail on None; that read is the
+# ENTIRE disarmed cost. Hooks call the module-level fire() only after the
+# None check, so the armed path stays one indirection away.
+
+ACTIVE: Optional[FaultPlan] = None
+
+
+def arm(plan: FaultPlan) -> FaultPlan:
+    """Arm ``plan`` process-wide (one plan at a time; arming replaces)."""
+    global ACTIVE
+    ACTIVE = plan
+    _log.warning("fault plan armed: %s",
+                 [f.describe() for f in plan.faults])
+    return plan
+
+
+def disarm() -> None:
+    global ACTIVE
+    if ACTIVE is not None:
+        _log.warning("fault plan disarmed")
+    ACTIVE = None
+
+
+@contextlib.contextmanager
+def armed(plan: FaultPlan):
+    """``with faults.armed(FaultPlan(...)) as plan:`` — scoped arming;
+    always disarms, even when the injected fault propagates."""
+    arm(plan)
+    try:
+        yield plan
+    finally:
+        disarm()
+
+
+def fire(site: str, **ctx: Any) -> None:
+    """Fire the active plan at ``site`` (no-op when disarmed). Seam code
+    should guard with ``if faults.ACTIVE is not None`` first so the
+    disarmed cost is one attribute read."""
+    plan = ACTIVE
+    if plan is not None:
+        plan.fire(site, **ctx)
+
+
+def fire_into(site: str, ctx: Dict[str, Any]) -> None:
+    """Mutable-context variant of :func:`fire` for seams whose faults
+    replace values (``train.step``): the seam reads the possibly-mutated
+    entries back out of ``ctx`` after the call. Same disarmed-cost
+    contract (guard with ``faults.ACTIVE is not None`` first)."""
+    plan = ACTIVE
+    if plan is not None:
+        plan.fire_into(site, ctx)
+
+
+# -- snapshot corruption helpers --------------------------------------------
+#
+# Used by CorruptSnapshot and directly by tests/operators to simulate disk
+# rot on committed checkpoints (layout: <dir>/ckpt-<epoch>/{arrays.npz,
+# meta.json} — iteration/checkpoint.py).
+
+
+def corrupt_checkpoint(ckpt_dir: str, target: str = "arrays") -> str:
+    """Deterministically damage the committed checkpoint at ``ckpt_dir``:
+
+    - ``arrays``: flip bits in the middle of ``arrays.npz`` (payload
+      corruption — the manifest stays valid, only integrity verification
+      can catch it);
+    - ``manifest``: overwrite ``meta.json`` with non-JSON garbage;
+    - ``truncate``: cut ``arrays.npz`` to half its length (torn disk
+      state).
+
+    Returns the path it damaged.
+    """
+    if target == "manifest":
+        path = os.path.join(ckpt_dir, "meta.json")
+        with open(path, "w") as f:
+            f.write('{"epoch": CORRUPTED')
+        _log.warning("corrupted checkpoint manifest: %s", path)
+        return path
+    path = os.path.join(ckpt_dir, "arrays.npz")
+    size = os.path.getsize(path)
+    if target == "truncate":
+        with open(path, "r+b") as f:
+            f.truncate(max(size // 2, 1))
+        _log.warning("truncated checkpoint arrays: %s", path)
+        return path
+    if target != "arrays":
+        raise ValueError(
+            f"target must be 'arrays', 'manifest' or 'truncate', got {target!r}"
+        )
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        chunk = f.read(16)
+        f.seek(size // 2)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    _log.warning("corrupted checkpoint arrays: %s", path)
+    return path
+
+
+def corrupt_latest(manager: Any, target: str = "arrays") -> int:
+    """Damage the newest committed checkpoint of ``manager`` (a
+    :class:`~flinkml_tpu_torch.iteration.CheckpointManager`); returns the epoch
+    it damaged. Raises when the manager holds no checkpoints."""
+    epoch = manager.latest_epoch()
+    if epoch is None:
+        raise ValueError(f"no checkpoints under {manager.directory}")
+    corrupt_checkpoint(
+        os.path.join(manager.directory, f"ckpt-{epoch}"), target=target
+    )
+    return epoch
+
+
+# -- plan serialization (deterministic repro artifacts) ----------------------
+#
+# A FaultPlan round-trips through JSON so the chaos soak
+# (flinkml_tpu_torch.recovery.fuzz) can COMMIT a failing schedule as a minimal
+# reproducer: deserializing builds fresh fault instances (fired flags
+# and counters reset), so a written repro replays the exact schedule.
+# Specs are derived from each fault class's __init__ signature — every
+# fault stores its constructor args under the same attribute names.
+
+
+def fault_types() -> Dict[str, type]:
+    """Every concrete :class:`Fault` subclass in this module, by name."""
+    return {
+        cls.__name__: cls
+        for cls in globals().values()
+        if isinstance(cls, type) and issubclass(cls, Fault)
+        and cls is not Fault
+    }
+
+
+def fault_to_spec(fault: Fault) -> Dict[str, Any]:
+    """``{"type": <class>, <arg>: <value>, ...}`` — the JSON-safe
+    constructor record of one fault."""
+    import inspect
+
+    spec: Dict[str, Any] = {"type": type(fault).__name__}
+    sig = inspect.signature(type(fault).__init__)
+    for name in sig.parameters:
+        if name == "self":
+            continue
+        if not hasattr(fault, name):
+            raise ValueError(
+                f"{type(fault).__name__} does not store constructor arg "
+                f"{name!r}; cannot serialize"
+            )
+        spec[name] = getattr(fault, name)
+    return spec
+
+
+def fault_from_spec(spec: Dict[str, Any]) -> Fault:
+    """Rebuild a fresh fault instance from :func:`fault_to_spec`'s
+    record (unknown types raise ``ValueError``)."""
+    kwargs = dict(spec)
+    name = kwargs.pop("type", None)
+    types = fault_types()
+    if name not in types:
+        raise ValueError(f"unknown fault type {name!r} "
+                         f"(known: {sorted(types)})")
+    return types[name](**kwargs)
+
+
+def plan_to_json(plan: FaultPlan, extra: Optional[Dict[str, Any]] = None
+                 ) -> str:
+    """Serialize ``plan`` (plan order preserved) plus optional metadata
+    — the committed-repro format of the chaos soak."""
+    import json
+
+    record = dict(extra or {})
+    record["faults"] = [fault_to_spec(f) for f in plan.faults]
+    return json.dumps(record, indent=2, sort_keys=True)
+
+
+def plan_from_json(payload: str) -> FaultPlan:
+    """Rebuild a fresh :class:`FaultPlan` from :func:`plan_to_json`
+    output (fired flags reset — the plan replays from scratch)."""
+    import json
+
+    record = json.loads(payload)
+    return FaultPlan(*[fault_from_spec(s) for s in record["faults"]])
+
+
+# -- randomized schedule sampling (the chaos-soak front end) -----------------
+
+
+class FuzzPlan:
+    """Deterministic sampler of fault schedules for the chaos soak
+    (:mod:`flinkml_tpu_torch.recovery.fuzz`).
+
+    ``sample(i)`` derives schedule ``i`` purely from ``(seed, i)``: the
+    same (seed, index) always yields the same :class:`FaultPlan`, so a
+    soak failure is reproducible by index alone (and shrinkable to a
+    committed minimal repro — :func:`plan_to_json`). Each schedule draws
+    1–``max_faults`` faults from the catalog entries whose seam site is
+    in ``seams``, with epoch/batch triggers inside ``horizon`` (the
+    scenario's batch count).
+
+    Args:
+        seed: the soak's RNG seed.
+        seams: seam sites to sample across (default: the trainer-loop
+            seams a device-free online fit exercises — iteration.epoch,
+            rank.lost, checkpoint.write, checkpoint.committed,
+            data.read, and the train.step numerics faults).
+        budget: how many schedules a full soak runs (``schedules()``
+            yields exactly this many).
+        horizon: the scenario's batch/epoch count — triggers are
+            sampled in ``[1, horizon - 1]``.
+        max_faults: most faults per schedule.
+        replicas: size of the serving pool the ``serving.replica``
+            sampler targets — drawn engine names are ``r0..r{n-1}``
+            (matched by suffix against the pool's ``<pool>/rK`` engine
+            names). Ignored unless that seam is in ``seams``.
+        marker_dir: directory for :class:`WorkerCrash` once-markers
+            (the ``cluster.worker`` sampler needs crash-once-across-
+            restarts semantics; each drawn crash gets its own marker
+            file under this directory). Required when that seam is in
+            ``seams``.
+    """
+
+    DEFAULT_SEAMS = (
+        "iteration.epoch",
+        "rank.lost",
+        "checkpoint.write",
+        "checkpoint.committed",
+        "data.read",
+        "train.step",
+    )
+
+    def __init__(self, seed: int, seams: Optional[Tuple[str, ...]] = None,
+                 budget: int = 25, horizon: int = 10, max_faults: int = 3,
+                 replicas: int = 4, marker_dir: Optional[str] = None):
+        self.seed = int(seed)
+        self.seams = tuple(seams) if seams is not None else self.DEFAULT_SEAMS
+        self.budget = int(budget)
+        self.horizon = int(horizon)
+        self.max_faults = int(max_faults)
+        self.replicas = int(replicas)
+        self.marker_dir = marker_dir
+        if "cluster.worker" in self.seams and not marker_dir:
+            raise ValueError(
+                "the cluster.worker seam samples WorkerCrash faults, "
+                "which need marker_dir for crash-once-across-restarts "
+                "semantics"
+            )
+        if self.horizon < 3:
+            raise ValueError(f"horizon must be >= 3, got {self.horizon}")
+        unknown = set(self.seams) - set(self._samplers())
+        if unknown:
+            raise ValueError(
+                f"no samplable faults for seam(s) {sorted(unknown)}; "
+                f"samplable: {sorted(self._samplers())}"
+            )
+
+    def _samplers(self):
+        """seam site -> list of (rng, horizon) -> Fault constructors."""
+        h = self.horizon
+
+        def epoch(rng):
+            return int(rng.integers(1, h))
+
+        return {
+            "iteration.epoch": [
+                lambda rng: RaiseAtEpoch(epoch(rng)),
+            ],
+            "rank.lost": [
+                # No watchdog in the soak scenario: a RankLost is a hard
+                # crash, exercising the restart-resume path.
+                lambda rng: RankLost(epoch(rng), rank=0),
+            ],
+            "checkpoint.write": [
+                lambda rng: TornWrite(epoch(rng)),
+            ],
+            "checkpoint.committed": [
+                lambda rng: KillAfterCheckpoint(min_epoch=epoch(rng)),
+                lambda rng: CorruptSnapshot(
+                    min_epoch=epoch(rng),
+                    target=str(rng.choice(
+                        ["arrays", "manifest", "truncate"])),
+                ),
+            ],
+            "data.read": [
+                lambda rng: RaiseAtRead(at_read=int(rng.integers(1, h))),
+            ],
+            "train.step": [
+                lambda rng: NaNGrad(epoch(rng)),
+                lambda rng: InfLoss(epoch(rng)),
+                lambda rng: PoisonBatch(int(rng.integers(0, h))),
+            ],
+            # Real process deaths: each drawn crash owns a distinct
+            # marker file so it fires once across orchestrator
+            # restarts (the schedule index keys the directory; the
+            # per-draw suffix keys multiple crashes in one schedule).
+            "cluster.worker": [
+                lambda rng: WorkerCrash(
+                    at=epoch(rng), key="epoch",
+                    exit_code=int(rng.integers(20, 30)),
+                    marker=os.path.join(
+                        self.marker_dir or ".",
+                        f"crash-{int(rng.integers(0, 2**31))}.marker",
+                    ),
+                ),
+            ],
+            # Serving-pool gray failures: engine names drawn as bare
+            # "rK" match any pool's "<pool>/rK" replica by suffix.
+            "serving.replica": [
+                lambda rng: ReplicaDown(
+                    engine=f"r{int(rng.integers(0, self.replicas))}",
+                    at_batch=epoch(rng),
+                ),
+                lambda rng: StallDispatch(
+                    engine=f"r{int(rng.integers(0, self.replicas))}",
+                    at_batch=epoch(rng),
+                    delay_s=round(float(rng.uniform(0.05, 0.3)), 3),
+                    for_batches=int(rng.integers(5, 40)),
+                ),
+                lambda rng: JitterDispatch(
+                    engine=f"r{int(rng.integers(0, self.replicas))}",
+                    p=round(float(rng.uniform(0.1, 0.5)), 3),
+                    delay_s=round(float(rng.uniform(0.02, 0.15)), 3),
+                    seed=int(rng.integers(0, 2**31)),
+                ),
+            ],
+        }
+
+    def sample(self, index: int) -> FaultPlan:
+        """Schedule ``index`` — deterministic in ``(seed, index)``."""
+        import numpy as np
+
+        rng = np.random.default_rng([self.seed, int(index)])
+        samplers = self._samplers()
+        n = int(rng.integers(1, self.max_faults + 1))
+        out = []
+        for _ in range(n):
+            seam = str(rng.choice(list(self.seams)))
+            maker = samplers[seam][int(rng.integers(len(samplers[seam])))]
+            out.append(maker(rng))
+        return FaultPlan(*out)
+
+    def schedules(self):
+        """Yield ``(index, FaultPlan)`` for the full ``budget``."""
+        for i in range(self.budget):
+            yield i, self.sample(i)

@@ -10,7 +10,8 @@ restores in the other:
   ``layouts``, ``extra`` and the sha256 ``fingerprint`` of the leaves, the
   scheme of :func:`flinkml_tpu_torch.io.read_write.content_fingerprint`),
   published by an atomic rename, so a kill mid-write never damages the
-  newest committed snapshot;
+  newest committed snapshot (the ``checkpoint.write`` fault seam fires
+  just before the rename, ``checkpoint.committed`` just after it);
 - the leaves in the JAX package's tree order (:func:`tree_flatten`: a
   dict by sorted key, as ``jax.tree_util`` flattens it, not in insertion
   order), and ``treedef`` written as ``str(PyTreeDef)`` is.
@@ -49,6 +50,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flinkml_tpu_torch import faults
 from flinkml_tpu_torch.io.read_write import content_fingerprint
 
 _log = logging.getLogger(__name__)
@@ -488,6 +490,9 @@ class CheckpointManager:
             )
             with open(os.path.join(tmp_dir, "meta.json"), "w") as f:
                 json.dump(meta, f)
+            if faults.ACTIVE is not None:  # the torn-write seam: pre-commit
+                faults.fire("checkpoint.write", epoch=meta["epoch"],
+                            directory=self.directory, path=tmp_dir)
             if os.path.exists(final_dir):
                 shutil.rmtree(final_dir)
             os.rename(tmp_dir, final_dir)  # atomic publish
@@ -496,6 +501,9 @@ class CheckpointManager:
             raise
         _log.info("checkpoint committed: epoch %s -> %s (%d leaves)",
                   meta["epoch"], final_dir, meta["num_leaves"])
+        if faults.ACTIVE is not None:  # the kill/corrupt-after-commit seam
+            faults.fire("checkpoint.committed", epoch=meta["epoch"],
+                        directory=self.directory, path=final_dir)
         self._prune()
 
     # -- restore -----------------------------------------------------------

@@ -1,8 +1,8 @@
 """Stages of the model catalog ported so far: the four scalers,
 OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
 LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
-RAM and streamed), OnlineKMeans, BisectingKMeans and NaiveBayes
-(estimators and models)."""
+RAM and streamed), OnlineKMeans, OnlineStandardScaler, BisectingKMeans
+and NaiveBayes (estimators and models)."""
 
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
@@ -34,6 +34,10 @@ from flinkml_tpu_torch.models.online_kmeans import (  # noqa: F401
 from flinkml_tpu_torch.models.online_logistic_regression import (  # noqa: F401
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
+)
+from flinkml_tpu_torch.models.online_scaler import (  # noqa: F401
+    OnlineStandardScaler,
+    OnlineStandardScalerModel,
 )
 from flinkml_tpu_torch.models.one_hot_encoder import (  # noqa: F401
     OneHotEncoder,
@@ -78,6 +82,8 @@ __all__ = [
     "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
+    "OnlineStandardScaler",
+    "OnlineStandardScalerModel",
     "RobustScaler",
     "RobustScalerModel",
     "StandardScaler",

@@ -19,8 +19,10 @@ compute device.
 
 The carry ``{"centroids", "weights", "version"}`` is checkpointed in the
 JAX package's layout, so a snapshot of either package resumes in the
-other, and saved models cross packages both ways. The numerics sentinel
-and recovery are ROADMAP.md Queue 1 item 12.
+other, and saved models cross packages both ways. ``sentinel=`` and
+``recovery=`` thread the numerics sentinel and the rollback-and-quarantine
+policy of :mod:`flinkml_tpu_torch.recovery` through ``iterate``; the
+model's ``recovery_summary`` records what the recovery did.
 
 **Several processes.** In a process group of more than one rank each
 rank feeds its own partition: the first batch's dim is agreed over the
@@ -30,7 +32,8 @@ pooled_sample`), and every agreed step sums the batch statistics over the
 ranks in one ``all_reduce`` and applies the decay rule once (a drained
 rank feeds zero-weight dummies). It computes in float32, as the JAX
 package's multi-process step does; the centroids are the same bits on
-every rank. Checkpoints of that path are refused, as in the JAX package.
+every rank. Checkpoints, the sentinel and recovery on that path are
+refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -133,11 +136,14 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
         from the newest valid snapshot, the same bits as the uninterrupted
         run. ``stream_resume``: ``"replay"`` skips the consumed prefix of
         a source that restarts from its beginning, ``"continue"`` consumes
-        a live stream from the front. ``sentinel``/``recovery`` are
-        refused (ROADMAP.md Queue 1 item 12). In a process group of
+        a live stream from the front. ``sentinel``/``recovery``: the
+        numerics sentinel and the rollback-and-quarantine policy (see
+        ``OnlineLogisticRegression.fit_stream``); a healed fit equals the
+        same stream without the quarantined batches. In a process group of
         several ranks each rank passes its own partition (the module
         docstring's "Several processes"; over ``mesh``, else a mesh of
-        every rank), and a checkpoint manager or ``resume`` is refused.
+        every rank), and a checkpoint manager, ``resume``, a sentinel or a
+        recovery policy is refused.
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -166,11 +172,13 @@ class OnlineKMeans(_OnlineKMeansParams, Estimator):
             recovery=recovery,
         )
         if _process_count() > 1:
-            if checkpoint_manager is not None or resume:
+            if (checkpoint_manager is not None or resume
+                    or sentinel is not None or recovery is not None):
                 raise NotImplementedError(
-                    "checkpoint/resume for the multi-process online stream "
-                    "path is not wired (as in the JAX package); run the "
-                    "checkpointing fit single-process"
+                    "checkpoint/resume and sentinel/recovery for the "
+                    "multi-process online stream path are not wired (as in "
+                    "the JAX package); run the checkpointing or "
+                    "self-healing fit single-process"
                 )
             return self._fit_stream_multiprocess(batches, k, decay, fcol,
                                                  rng)

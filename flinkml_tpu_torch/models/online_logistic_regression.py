@@ -14,14 +14,17 @@ dtype (float64 for anything else), and a model version counted per batch:
            = −(z_i − sign(z_i)·λ1) / ((β+√n_i)/α + λ2)   otherwise
 
 with λ1 = reg·elasticNet, λ2 = reg·(1−elasticNet). Both products are
-``torch.matmul`` (the JAX package leaves them to XLA). Each update returns
-its batch's loss to the host as a Python float, as the JAX step does: one
-read per batch.
+``torch.matmul`` (the JAX package leaves them to XLA). Each update hands
+its batch's loss to ``iterate`` as a 0-d tensor, which reads it once per
+batch: alone, or together with the numerics sentinel's verdict when one
+checks that batch (one read either way).
 
 The carry ``{"z", "n", "coef", "version"}`` is checkpointed in the JAX
 package's layout (``coef, n, version, z``: sorted keys), so a snapshot of
-either package resumes in the other. The numerics sentinel and recovery
-are ROADMAP.md Queue 1 item 12.
+either package resumes in the other. ``sentinel=``/``recovery=`` thread the
+numerics sentinel and the rollback-and-quarantine policy of
+:mod:`flinkml_tpu_torch.recovery` through ``iterate``; the fitted model's
+``recovery_summary`` records what the recovery did.
 
 **Several processes.** In a process group of more than one rank each
 rank feeds its own arriving partition and every update is one global
@@ -32,7 +35,8 @@ ranks in one ``all_reduce``: the reference's per-mini-batch allReduce of
 the subtasks' gradients. It computes in float32, as the JAX package's
 multi-process step does; the model is the same bits on every rank and
 its version counts global steps (the most batches of any rank).
-Checkpoints of that path are refused, as in the JAX package.
+Checkpoints, the sentinel and recovery on that path are refused, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -166,11 +170,16 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
         bits as the uninterrupted run. ``stream_resume``: ``"replay"`` for
         a source that re-presents the stream from the start (the consumed
         batches are skipped), ``"continue"`` for a live stream already at
-        "now". ``sentinel``/``recovery`` are refused (ROADMAP.md Queue 1
-        item 12). In a process group of several ranks each rank passes its
+        "now". ``sentinel`` (a :class:`~flinkml_tpu_torch.recovery.
+        NumericsSentinel`) checks the carry and the loss after every batch
+        before a snapshot can hold them; ``recovery`` (a
+        :class:`~flinkml_tpu_torch.recovery.RecoveryPolicy`, which implies
+        a default sentinel) heals a poisoned batch in the loop: rollback,
+        quarantine, retry, so the fit equals the same stream without that
+        batch. In a process group of several ranks each rank passes its
         own partition (the module docstring's "Several processes"; over
-        ``mesh``, else a mesh of every rank), and a checkpoint manager or
-        ``resume`` is refused.
+        ``mesh``, else a mesh of every rank), and a checkpoint manager,
+        ``resume``, a sentinel or a recovery policy is refused.
         """
         from flinkml_tpu_torch.iteration import (
             IterationConfig,
@@ -197,11 +206,13 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
             recovery=recovery,
         )
         if _process_count() > 1:
-            if checkpoint_manager is not None or resume:
+            if (checkpoint_manager is not None or resume
+                    or sentinel is not None or recovery is not None):
                 raise NotImplementedError(
-                    "checkpoint/resume for the multi-process online stream "
-                    "path is not wired (as in the JAX package); run the "
-                    "checkpointing fit single-process, or use the bounded "
+                    "checkpoint/resume and sentinel/recovery for the "
+                    "multi-process online stream path are not wired (as in "
+                    "the JAX package); run the checkpointing or "
+                    "self-healing fit single-process, or use the bounded "
                     "multi-process streamed fits, which commit agreed "
                     "snapshots"
                 )
@@ -252,12 +263,15 @@ class OnlineLogisticRegression(_OnlineLogisticRegressionParams, Estimator):
                 dev(x), dev(y), dev(w), alpha, beta, l1, l2,
             )
             return {"z": z, "n": n, "coef": coef,
-                    "version": int(carry["version"]) + 1}, float(loss)
+                    "version": int(carry["version"]) + 1}, loss
 
         result = iterate(step, state, stream, config, resume=resume)
         final = result.state
-        return self._model(torch.as_tensor(final["coef"]).cpu().numpy(),
-                           int(final["version"]))
+        model = self._model(torch.as_tensor(final["coef"]).cpu().numpy(),
+                            int(final["version"]))
+        # What the recovery did (None without a policy).
+        model.recovery_summary = result.recovery
+        return model
 
     def _model(self, coef, version: int) -> "OnlineLogisticRegressionModel":
         model = OnlineLogisticRegressionModel()

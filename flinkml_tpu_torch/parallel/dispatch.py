@@ -13,8 +13,9 @@ collective programs over the same device set (the ranks of a mesh),
 :class:`SliceLease` records which devices a training job holds, and
 :func:`record_collective_dispatch` reports each collective dispatch to
 the installed observers. The port keeps its own lock and lease
-registries. The JAX package's ``dispatch.transfer`` fault seam comes with
-ROADMAP.md Queue 1 item 12.
+registries. :class:`DispatchGuard` fires the ``dispatch.transfer`` fault
+seam (:mod:`flinkml_tpu_torch.faults`) on every ``after_dispatch`` and
+``flush`` while a plan is armed.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 import os
 import threading
 from typing import Any, Callable, Optional
+
+from flinkml_tpu_torch import faults
 
 _ENV_INTERVAL = "FLINKML_SYNC_INTERVAL"
 _DEFAULT_MULTIPROCESS_INTERVAL = 8
@@ -447,6 +450,8 @@ class DispatchGuard:
         self._since_sync = 0
 
     def after_dispatch(self, carry: Any) -> Any:
+        if faults.ACTIVE is not None:  # the host-device transfer seam
+            faults.fire("dispatch.transfer", count=self._since_sync + 1)
         self._since_sync += 1
         if self.interval and self._since_sync >= self.interval:
             block_until_ready(carry)
@@ -455,6 +460,8 @@ class DispatchGuard:
 
     def flush(self, carry: Any) -> Any:
         """Force a synchronization point (end of a training phase)."""
+        if faults.ACTIVE is not None:
+            faults.fire("dispatch.transfer", count=self._since_sync)
         if self._since_sync:
             block_until_ready(carry)
             self._since_sync = 0

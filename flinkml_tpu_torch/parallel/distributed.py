@@ -274,11 +274,17 @@ def agree_resume_epoch(manager, mesh=None, old_world: Optional[int] = None,
     any holds no valid snapshot (:func:`~flinkml_tpu_torch.iteration.
     stream_sync.agree_all_ok`), the minimum nomination is agreed
     (``agree_min``), and every rank checks it can verify that epoch. One
-    process: the local newest valid epoch (None for a fresh start). The
-    JAX package's ``rendezvous.rescale`` fault seam comes with ROADMAP.md
-    Queue 1 item 12.
+    process: the local newest valid epoch (None for a fresh start). Fires
+    the ``rendezvous.rescale`` fault seam (both worlds in the context), so
+    a test can script a shrink rendezvous that fails.
     """
+    from flinkml_tpu_torch import faults
+
     local = manager.newest_valid_epoch()
+    if faults.ACTIVE is not None:  # a scripted shrink-rendezvous failure
+        faults.fire("rendezvous.rescale",
+                    local_epoch=-1 if local is None else int(local),
+                    old_world=old_world, new_world=new_world)
     if process_count() == 1:
         _log.info(
             "elastic resume rendezvous (single process): newest valid "

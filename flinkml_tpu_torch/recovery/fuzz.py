@@ -1,0 +1,770 @@
+"""Randomized chaos soak: sampled fault schedules, invariants, shrink.
+
+The port's counterpart of ``flinkml_tpu.recovery.fuzz`` (its trainer and
+worker soaks). Hand-scripted fault plans only cover the interleavings
+someone wrote down. The soak samples schedules across the fault seams
+(:class:`flinkml_tpu_torch.faults.FuzzPlan`, deterministic in ``(seed,
+index)`` and the same schedules as the JAX package's), runs a real
+online trainer under each one with the self-healing machinery armed,
+restarts it on scripted crashes as an orchestrator would, and asserts the
+recovery INVARIANTS:
+
+1. **finite**: the final model holds no non-finite value;
+2. **no silent fresh start, no mis-versioned model**: the model version
+   equals ``batches - quarantined``;
+3. **parity**: the final coefficients are bit-identical to the same
+   stream trained WITHOUT the quarantined batches (the golden run);
+4. **ledger consistent**: the quarantine ledger names exactly the
+   batches the schedule's numerics faults poisoned.
+
+A failing schedule is **shrunk** to a minimal reproducer (greedy
+delta-debugging over the fault list) and written as a
+:class:`~flinkml_tpu_torch.faults.FaultPlan` JSON file
+(:func:`~flinkml_tpu_torch.faults.plan_to_json`) that either package's
+``plan_from_json`` replays. The trainers run on the port's default
+device (``cuda``); ``--device cpu`` runs them on the host::
+
+    python -m flinkml_tpu_torch.recovery.fuzz --device cpu --seed 7 \
+        --budget 25 --repro-dir /tmp/repros
+
+**Worker soak** (``--worker``): the trainer soak's restart invariants
+across a REAL process boundary. Each schedule draws from the
+``cluster.worker`` seam (a hard ``os._exit`` mid-stream through
+:class:`~flinkml_tpu_torch.faults.WorkerCrash`; crash-once markers keep a
+restarted child from dying at the same trigger forever) beside the
+in-loop numerics and crash seams; the scenario runs in a CHILD process
+(:func:`run_worker_schedule`, which takes the parent's compute device from
+the plan file) and the parent restarts it on every nonzero exit.
+
+The serving soak (``--serving``: gray failures against a replica pool)
+comes with the serving engine, ROADMAP.md Queue 1 item 4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import threading
+import time
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
+
+import numpy as np
+
+from flinkml_tpu_torch import faults as faults_mod
+from flinkml_tpu_torch.recovery.policy import RecoveryPolicy
+from flinkml_tpu_torch.recovery.sentinel import NumericsError, NumericsSentinel
+from flinkml_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("recovery.fuzz")
+
+#: The soak scenario (small on purpose: 25+ schedules must fit a CI
+#: wall-clock budget).
+SCENARIO_BATCHES = 10
+SCENARIO_ROWS = 32
+SCENARIO_DIM = 4
+SCENARIO_ALPHA = 0.5
+SCENARIO_INTERVAL = 2
+_POISON_FAULTS = ("NaNGrad", "InfLoss", "PoisonBatch")
+
+
+def scenario_dataset(seed: int = 0):
+    """The soak's feed: a synthetic :class:`~flinkml_tpu_torch.data.Dataset`
+    (so the ``data.read`` seam is live), deterministic in ``seed``."""
+    from flinkml_tpu_torch.data import Dataset
+    from flinkml_tpu_torch.table import Table
+
+    true = np.arange(1.0, SCENARIO_DIM + 1.0)
+
+    def mk(i, rng):
+        x = rng.normal(size=(SCENARIO_ROWS, SCENARIO_DIM))
+        return Table({
+            "features": x,
+            "label": (x @ true > 0).astype(np.float64),
+        })
+
+    return Dataset.synthetic(mk, SCENARIO_BATCHES, seed=seed)
+
+
+def scenario_batches(seed: int = 0) -> List[Any]:
+    """The same feed materialized as a list (golden runs filter it)."""
+    return list(scenario_dataset(seed))
+
+
+def _fit(feed, manager, resume: bool, self_heal: bool):
+    from flinkml_tpu_torch.models import OnlineLogisticRegression
+
+    kwargs: Dict[str, Any] = {}
+    if self_heal:
+        kwargs["recovery"] = RecoveryPolicy(backoff_s=0.0)
+        kwargs["sentinel"] = NumericsSentinel()
+    return OnlineLogisticRegression().set_alpha(SCENARIO_ALPHA).fit_stream(
+        feed, checkpoint_manager=manager,
+        checkpoint_interval=SCENARIO_INTERVAL, resume=resume, **kwargs,
+    )
+
+
+class GoldenCache:
+    """Golden models per exclusion set (the run with the quarantined
+    batches excluded), computed lazily — most schedules share the empty
+    exclusion."""
+
+    def __init__(self, seed: int = 0):
+        self._batches = scenario_batches(seed)
+        self._cache: Dict[FrozenSet[int], Any] = {}
+
+    def model(self, excluded: FrozenSet[int]):
+        key = frozenset(int(i) for i in excluded)
+        if key not in self._cache:
+            from flinkml_tpu_torch.models import OnlineLogisticRegression
+
+            kept = [b for i, b in enumerate(self._batches)
+                    if i not in key]
+            self._cache[key] = (
+                OnlineLogisticRegression().set_alpha(SCENARIO_ALPHA)
+                .fit_stream(kept)
+            )
+        return self._cache[key]
+
+
+def expected_quarantine(plan: "faults_mod.FaultPlan") -> FrozenSet[int]:
+    """The batches a schedule's numerics faults poison — what a
+    consistent ledger must name exactly."""
+    out = set()
+    for f in plan.faults:
+        name = type(f).__name__
+        if name in ("NaNGrad", "InfLoss"):
+            out.add(int(f.at_epoch))
+        elif name == "PoisonBatch":
+            out.add(int(f.at_batch))
+    return frozenset(i for i in out if 0 <= i < SCENARIO_BATCHES)
+
+
+@dataclasses.dataclass
+class ScheduleResult:
+    index: int
+    faults: List[str]
+    ok: bool
+    failures: List[str]
+    restarts: int
+    quarantined: List[int]
+    elapsed_s: float
+
+
+def run_schedule(plan: "faults_mod.FaultPlan", golden: GoldenCache,
+                 data_seed: int = 0, self_heal: bool = True,
+                 max_restarts: int = 10) -> Tuple[Any, List[str], int]:
+    """Run the scenario under ``plan``: the trainer is restarted on
+    every scripted crash (``FaultInjected`` — the orchestrator's role),
+    numerics faults are healed in-loop when ``self_heal``. Returns
+    ``(model_or_None, invariant_failures, restarts)``."""
+    failures: List[str] = []
+    model = None
+    restarts = 0
+    with tempfile.TemporaryDirectory(prefix="fuzz-ckpt-") as td:
+        from flinkml_tpu_torch.iteration import CheckpointManager
+        from flinkml_tpu_torch.iteration.checkpoint import (
+            CheckpointIntegrityError,
+        )
+
+        manager = CheckpointManager(td, max_to_keep=10)
+        with faults_mod.armed(plan):
+            while True:
+                try:
+                    model = _fit(scenario_dataset(data_seed), manager,
+                                 resume=restarts > 0, self_heal=self_heal)
+                    break
+                except faults_mod.FaultInjected:
+                    restarts += 1
+                    if restarts > max_restarts:
+                        failures.append(
+                            f"did not complete within {max_restarts} "
+                            "restarts"
+                        )
+                        break
+                except NumericsError as e:
+                    failures.append(f"unhealed numerics failure: {e}")
+                    break
+        # The on-disk ledger: what the newest valid snapshot recorded
+        # (what a NEXT resume would honor). read_extra is carry-shape-
+        # independent; the epoch just passed verify(), so a failure
+        # here is a real regression in ledger persistence — recorded as
+        # an invariant failure, never a vacuously-empty disk ledger.
+        recorded = None
+        epoch = manager.newest_valid_epoch()
+        if epoch is not None:
+            try:
+                recorded = manager.read_extra(epoch).get("quarantine")
+            except CheckpointIntegrityError as e:
+                failures.append(
+                    f"snapshot {epoch} passed verify() but its extra "
+                    f"manifest is unreadable: {e}"
+                )
+    from flinkml_tpu_torch.recovery.policy import QuarantineLedger
+
+    disk_ledger = QuarantineLedger.from_json_dict(recorded).indices()
+
+    if model is not None:
+        expected = expected_quarantine(plan) if self_heal else frozenset()
+        summary = getattr(model, "recovery_summary", None) or {}
+        quarantined = summary.get("quarantined", [])
+        if not np.isfinite(model.coefficient).all():
+            failures.append("final model is not finite")
+        want_version = SCENARIO_BATCHES - len(expected)
+        if model.model_version != want_version:
+            failures.append(
+                f"model version {model.model_version} != "
+                f"{want_version} (batches - quarantined: silent fresh "
+                "start or mis-counted poison)"
+            )
+        if self_heal:
+            # The run's quarantines carry across restarts via the
+            # snapshot ledger; the final restart's summary plus the
+            # resumed skips must name exactly the poisoned batches —
+            # read the union of the summary and the on-disk record.
+            seen = set(quarantined) | set(disk_ledger)
+            if seen != set(expected):
+                failures.append(
+                    f"quarantine ledger {sorted(seen)} != poisoned "
+                    f"batches {sorted(expected)}"
+                )
+            if not set(disk_ledger) <= set(expected):
+                failures.append(
+                    f"on-disk ledger {disk_ledger} names batches no "
+                    f"fault poisoned ({sorted(expected)})"
+                )
+        if not failures:
+            ref = golden.model(expected)
+            if not np.array_equal(model.coefficient, ref.coefficient):
+                failures.append(
+                    "final model != golden run with the quarantined "
+                    "batches excluded"
+                )
+    elif not failures:
+        failures.append("no model produced")
+    return model, failures, restarts
+
+
+def shrink_schedule(plan: "faults_mod.FaultPlan",
+                    still_fails: Callable[["faults_mod.FaultPlan"], bool]
+                    ) -> "faults_mod.FaultPlan":
+    """Greedy delta-debugging over the fault list: drop every fault
+    whose removal keeps ``still_fails`` true; repeat until stable. Each
+    probe runs a FRESH plan (fired flags reset via spec round-trip), so
+    probes never contaminate each other."""
+    specs = [faults_mod.fault_to_spec(f) for f in plan.faults]
+
+    def build(subset):
+        return faults_mod.FaultPlan(
+            *[faults_mod.fault_from_spec(dict(s)) for s in subset]
+        )
+
+    changed = True
+    while changed and len(specs) > 1:
+        changed = False
+        for i in range(len(specs)):
+            candidate = specs[:i] + specs[i + 1:]
+            if still_fails(build(candidate)):
+                specs = candidate
+                changed = True
+                break
+    return build(specs)
+
+
+@dataclasses.dataclass
+class SoakReport:
+    seed: int
+    results: List[ScheduleResult]
+    elapsed_s: float
+    budget: int
+    #: Schedules skipped because the wall-clock budget ran out (0 when
+    #: the soak covered the full budget) — never silently truncated.
+    skipped: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return self.skipped == 0 and all(r.ok for r in self.results)
+
+    @property
+    def failures(self) -> List[ScheduleResult]:
+        return [r for r in self.results if not r.ok]
+
+    def summary(self) -> str:
+        n_q = sum(len(r.quarantined) for r in self.results)
+        n_r = sum(r.restarts for r in self.results)
+        return (
+            f"chaos soak seed={self.seed}: {len(self.results)}/"
+            f"{self.budget} schedules, {len(self.failures)} failed, "
+            f"{n_r} restarts, {n_q} quarantined batches, "
+            f"{self.elapsed_s:.1f}s"
+            + (f" ({self.skipped} SKIPPED on wall budget)"
+               if self.skipped else "")
+        )
+
+
+def run_soak(seed: int = 7, budget: int = 25,
+             wall_budget_s: Optional[float] = None,
+             fuzz: Optional["faults_mod.FuzzPlan"] = None,
+             repro_dir: Optional[str] = None,
+             data_seed: int = 0, device=None) -> SoakReport:
+    """The full soak: ``budget`` sampled schedules, invariants asserted,
+    every failing schedule shrunk and (when ``repro_dir`` is given)
+    committed as a minimal ``FaultPlan`` JSON repro. ``device``: the
+    trainers' compute device (None: the default device)."""
+    with _on_device(device):
+        return _run_soak(seed, budget, wall_budget_s, fuzz, repro_dir,
+                         data_seed)
+
+
+def _on_device(device):
+    import contextlib
+
+    from flinkml_tpu_torch.device import use_device
+
+    return contextlib.nullcontext() if device is None else use_device(device)
+
+
+def _run_soak(seed, budget, wall_budget_s, fuzz, repro_dir,
+              data_seed) -> SoakReport:
+    fuzz = fuzz or faults_mod.FuzzPlan(
+        seed=seed, budget=budget, horizon=SCENARIO_BATCHES
+    )
+    golden = GoldenCache(data_seed)
+    golden.model(frozenset())  # the common golden, outside the timed window
+    t0 = time.perf_counter()
+    results: List[ScheduleResult] = []
+    skipped = 0
+    for index, plan in fuzz.schedules():
+        if (wall_budget_s is not None
+                and time.perf_counter() - t0 > wall_budget_s):
+            skipped = fuzz.budget - index
+            _log.warning(
+                "soak wall budget (%ss) exhausted at schedule %d/%d",
+                wall_budget_s, index, fuzz.budget,
+            )
+            break
+        st = time.perf_counter()
+        descs = [f.describe() for f in plan.faults]
+        _, failures, restarts = run_schedule(
+            plan, golden, data_seed=data_seed
+        )
+        # Re-read the expected set for the record (the ledger equals it
+        # on a green schedule).
+        expected = sorted(expected_quarantine(plan))
+        result = ScheduleResult(
+            index=index, faults=descs, ok=not failures,
+            failures=failures, restarts=restarts,
+            quarantined=expected if not failures else [],
+            elapsed_s=round(time.perf_counter() - st, 3),
+        )
+        results.append(result)
+        if failures:
+            _log.error("schedule %d FAILED %s: %s", index, descs, failures)
+            if repro_dir is not None:
+                minimal = shrink_schedule(
+                    plan,
+                    lambda p: bool(
+                        run_schedule(p, golden, data_seed=data_seed)[1]
+                    ),
+                )
+                os.makedirs(repro_dir, exist_ok=True)
+                path = os.path.join(
+                    repro_dir, f"fuzz_repro_seed{seed}_sched{index}.json"
+                )
+                with open(path, "w") as f:
+                    f.write(faults_mod.plan_to_json(minimal, extra={
+                        "seed": seed, "schedule": index,
+                        "failures": failures,
+                        "scenario": {
+                            "batches": SCENARIO_BATCHES,
+                            "rows": SCENARIO_ROWS,
+                            "dim": SCENARIO_DIM,
+                            "alpha": SCENARIO_ALPHA,
+                            "checkpoint_interval": SCENARIO_INTERVAL,
+                            "data_seed": data_seed,
+                        },
+                    }))
+                _log.error("minimal repro written: %s (%d -> %d faults)",
+                           path, len(plan.faults), len(minimal.faults))
+        else:
+            _log.info("schedule %d ok %s (restarts=%d)", index, descs,
+                      restarts)
+    report = SoakReport(
+        seed=seed, results=results,
+        elapsed_s=round(time.perf_counter() - t0, 2),
+        budget=fuzz.budget, skipped=skipped,
+    )
+    _log.warning("%s", report.summary())
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Worker soak: the same invariants across a real process boundary
+# ---------------------------------------------------------------------------
+
+#: Exit code the child uses for an in-loop scripted crash
+#: (``FaultInjected``) — distinct from WorkerCrash's sampled hard-exit
+#: codes (20–29) and from real child failures.
+WORKER_RESTART_EXIT = 3
+WORKER_CHILD_TIMEOUT_S = 180.0
+
+
+def _worker_child_main(workdir: str, resume: bool) -> int:
+    """One incarnation of the soak trainer, run in its own process.
+
+    Reads ``<workdir>/plan.json``, arms it, and runs the scenario with
+    checkpoints under ``<workdir>/ckpt`` — firing the ``cluster.worker``
+    seam once per batch so a sampled :class:`WorkerCrash` is a REAL
+    ``os._exit`` mid-stream. An in-loop scripted crash
+    (``FaultInjected``) exits :data:`WORKER_RESTART_EXIT`; success
+    writes ``<workdir>/result.json`` and exits 0. The orchestrator
+    (parent) restarts on any nonzero exit."""
+    import json
+
+    with open(os.path.join(workdir, "plan.json")) as f:
+        raw = f.read()
+    plan = faults_mod.plan_from_json(raw)
+    extras = json.loads(raw)
+    data_seed = int(extras.get("data_seed", 0))
+    # The parent's compute device rides the plan file: a child on a host
+    # without a card must not ask for the default ``cuda``.
+    from flinkml_tpu_torch.device import set_default_device
+
+    set_default_device(extras.get("device", "cuda"))
+
+    # Fired-flag persistence across INCARNATIONS: the in-process soak's
+    # armed plan object survives its restart loop, so a scripted crash
+    # fires once. Here every incarnation re-arms a fresh plan from
+    # JSON, so fired flags are carried in the workdir instead —
+    # WorkerCrash has its own marker file; the in-loop faults get this.
+    fired_path = os.path.join(workdir, "fired.json")
+    fired_idx: set = set()
+    if os.path.exists(fired_path):
+        with open(fired_path) as f:
+            fired_idx = set(json.load(f))
+    for i in fired_idx:
+        plan.faults[i].fired = True
+
+    from flinkml_tpu_torch.iteration import CheckpointManager
+
+    manager = CheckpointManager(os.path.join(workdir, "ckpt"),
+                                max_to_keep=10)
+
+    # The per-batch worker heartbeat, as a map op so the feed STAYS a
+    # replayable Dataset (quarantine retries re-open it from the
+    # cursor): where a pool worker would be serving a request, the soak
+    # trainer is reading a batch. The counter is monotone across
+    # replays; WorkerCrash's marker keeps each crash once-per-run.
+    reads = [0]
+
+    def heartbeat(batch):
+        reads[0] += 1
+        if faults_mod.ACTIVE is not None:
+            faults_mod.fire("cluster.worker", epoch=reads[0] - 1)
+        return batch
+
+    feed = scenario_dataset(data_seed).map(heartbeat)
+    with faults_mod.armed(plan):
+        try:
+            model = _fit(feed, manager, resume=resume, self_heal=True)
+        except faults_mod.FaultInjected:
+            fired_now = fired_idx | {
+                i for i, f in enumerate(plan.faults)
+                if getattr(f, "fired", False)
+            }
+            with open(fired_path, "w") as f:
+                json.dump(sorted(fired_now), f)
+            return WORKER_RESTART_EXIT
+    summary = getattr(model, "recovery_summary", None) or {}
+    with open(os.path.join(workdir, "result.json"), "w") as f:
+        json.dump({
+            "model_version": int(model.model_version),
+            "coefficient": np.asarray(model.coefficient).tolist(),
+            "quarantined": sorted(
+                int(i) for i in summary.get("quarantined", [])
+            ),
+            "finite": bool(np.isfinite(model.coefficient).all()),
+        }, f)
+    return 0
+
+
+def run_worker_schedule(plan: "faults_mod.FaultPlan", golden: GoldenCache,
+                        data_seed: int = 0, max_restarts: int = 10
+                        ) -> Tuple[Optional[Dict[str, Any]], List[str], int]:
+    """Run one schedule with the trainer in a CHILD process and this
+    process as the orchestrator: every nonzero child exit — an in-loop
+    scripted crash OR a WorkerCrash hard ``os._exit`` — is answered
+    with a restart (``resume=True``), sharing nothing with the previous
+    incarnation but the checkpoint directory. Returns
+    ``(result_dict_or_None, invariant_failures, restarts)``."""
+    import json
+    import subprocess
+    import sys
+
+    failures: List[str] = []
+    result: Optional[Dict[str, Any]] = None
+    restarts = 0
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)
+    )))
+    with tempfile.TemporaryDirectory(prefix="fuzz-worker-") as td:
+        from flinkml_tpu_torch.device import requested_device
+
+        with open(os.path.join(td, "plan.json"), "w") as f:
+            f.write(faults_mod.plan_to_json(plan, extra={
+                "data_seed": int(data_seed),
+                "device": requested_device().type,
+            }))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            x for x in (repo_root, env.get("PYTHONPATH")) if x
+        )
+        while True:
+            argv = [sys.executable, "-m", "flinkml_tpu_torch.recovery.fuzz",
+                    "--worker-child", td]
+            if restarts > 0:
+                argv.append("--resume")
+            proc = subprocess.run(
+                argv, env=env, capture_output=True, text=True,
+                timeout=WORKER_CHILD_TIMEOUT_S,
+            )
+            if proc.returncode == 0:
+                break
+            restarts += 1
+            if restarts > max_restarts:
+                failures.append(
+                    f"did not complete within {max_restarts} restarts "
+                    f"(last rc={proc.returncode}); stderr tail: "
+                    f"{proc.stderr[-500:]}"
+                )
+                break
+        # The on-disk ledger, read the same way run_schedule reads it —
+        # it is the only state the NEXT incarnation would honor.
+        from flinkml_tpu_torch.iteration import CheckpointManager
+        from flinkml_tpu_torch.iteration.checkpoint import (
+            CheckpointIntegrityError,
+        )
+
+        recorded = None
+        manager = CheckpointManager(os.path.join(td, "ckpt"),
+                                    max_to_keep=10)
+        epoch = manager.newest_valid_epoch()
+        if epoch is not None:
+            try:
+                recorded = manager.read_extra(epoch).get("quarantine")
+            except CheckpointIntegrityError as e:
+                failures.append(
+                    f"snapshot {epoch} passed verify() but its extra "
+                    f"manifest is unreadable: {e}"
+                )
+        result_path = os.path.join(td, "result.json")
+        if os.path.exists(result_path):
+            with open(result_path) as f:
+                result = json.load(f)
+    from flinkml_tpu_torch.recovery.policy import QuarantineLedger
+
+    disk_ledger = QuarantineLedger.from_json_dict(recorded).indices()
+
+    if result is not None:
+        expected = expected_quarantine(plan)
+        coeff = np.asarray(result["coefficient"])
+        if not result["finite"] or not np.isfinite(coeff).all():
+            failures.append("final model is not finite")
+        want_version = SCENARIO_BATCHES - len(expected)
+        if result["model_version"] != want_version:
+            failures.append(
+                f"model version {result['model_version']} != "
+                f"{want_version} (batches - quarantined: silent fresh "
+                "start across the process boundary)"
+            )
+        seen = set(result["quarantined"]) | set(disk_ledger)
+        if seen != set(expected):
+            failures.append(
+                f"quarantine ledger {sorted(seen)} != poisoned "
+                f"batches {sorted(expected)}"
+            )
+        if not set(disk_ledger) <= set(expected):
+            failures.append(
+                f"on-disk ledger {disk_ledger} names batches no "
+                f"fault poisoned ({sorted(expected)})"
+            )
+        if not failures:
+            ref = golden.model(expected)
+            if not np.array_equal(coeff, np.asarray(ref.coefficient)):
+                failures.append(
+                    "final model != golden run with the quarantined "
+                    "batches excluded (resume across the process "
+                    "boundary diverged)"
+                )
+    elif not failures:
+        failures.append("no result produced")
+    return result, failures, restarts
+
+
+def run_worker_soak(seed: int = 7, budget: int = 4,
+                    wall_budget_s: Optional[float] = None,
+                    fuzz: Optional["faults_mod.FuzzPlan"] = None,
+                    repro_dir: Optional[str] = None,
+                    data_seed: int = 0, device=None) -> SoakReport:
+    """The process-boundary soak: ``budget`` schedules over the
+    ``cluster.worker`` seam mixed with the in-loop crash/numerics
+    seams, each run via :func:`run_worker_schedule`. Budget defaults
+    small: every restart pays a full child-interpreter spin-up.
+    ``device``: the trainers' compute device (None: the default), which
+    the children take from the plan file."""
+    with _on_device(device):
+        return _run_worker_soak(seed, budget, wall_budget_s, fuzz,
+                                repro_dir, data_seed)
+
+
+def _run_worker_soak(seed, budget, wall_budget_s, fuzz, repro_dir,
+                     data_seed) -> SoakReport:
+    with tempfile.TemporaryDirectory(prefix="fuzz-markers-") as markers:
+        fuzz = fuzz or faults_mod.FuzzPlan(
+            seed=seed,
+            seams=("cluster.worker", "iteration.epoch", "train.step"),
+            budget=budget, horizon=SCENARIO_BATCHES, max_faults=2,
+            marker_dir=markers,
+        )
+        golden = GoldenCache(data_seed)
+        golden.model(frozenset())
+        t0 = time.perf_counter()
+        results: List[ScheduleResult] = []
+        skipped = 0
+        for index, plan in fuzz.schedules():
+            if (wall_budget_s is not None
+                    and time.perf_counter() - t0 > wall_budget_s):
+                skipped = fuzz.budget - index
+                _log.warning(
+                    "worker soak wall budget (%ss) exhausted at "
+                    "schedule %d/%d", wall_budget_s, index, fuzz.budget,
+                )
+                break
+            st = time.perf_counter()
+            descs = [f.describe() for f in plan.faults]
+            _, failures, restarts = run_worker_schedule(
+                plan, golden, data_seed=data_seed
+            )
+            expected = sorted(expected_quarantine(plan))
+            results.append(ScheduleResult(
+                index=index, faults=descs, ok=not failures,
+                failures=failures, restarts=restarts,
+                quarantined=expected if not failures else [],
+                elapsed_s=round(time.perf_counter() - st, 3),
+            ))
+            if failures:
+                _log.error("worker schedule %d FAILED %s: %s",
+                           index, descs, failures)
+                if repro_dir is not None:
+                    minimal = shrink_schedule(
+                        plan,
+                        lambda p: bool(run_worker_schedule(
+                            p, golden, data_seed=data_seed)[1]),
+                    )
+                    os.makedirs(repro_dir, exist_ok=True)
+                    path = os.path.join(
+                        repro_dir,
+                        f"fuzz_worker_repro_seed{seed}_sched{index}.json",
+                    )
+                    with open(path, "w") as f:
+                        f.write(faults_mod.plan_to_json(minimal, extra={
+                            "seed": seed, "schedule": index,
+                            "failures": failures,
+                            "scenario": {
+                                "kind": "worker",
+                                "batches": SCENARIO_BATCHES,
+                                "rows": SCENARIO_ROWS,
+                                "dim": SCENARIO_DIM,
+                                "alpha": SCENARIO_ALPHA,
+                                "checkpoint_interval": SCENARIO_INTERVAL,
+                                "data_seed": data_seed,
+                            },
+                        }))
+                    _log.error(
+                        "minimal worker repro written: %s (%d -> %d "
+                        "faults)", path, len(plan.faults),
+                        len(minimal.faults),
+                    )
+            else:
+                _log.info("worker schedule %d ok %s (restarts=%d)",
+                          index, descs, restarts)
+        report = SoakReport(
+            seed=seed, results=results,
+            elapsed_s=round(time.perf_counter() - t0, 2),
+            budget=fuzz.budget, skipped=skipped,
+        )
+    _log.warning("worker %s", report.summary())
+    return report
+
+
+def run_serving_soak(*args, **kwargs) -> SoakReport:
+    """The serving-pool gray-failure soak. Not ported: it drives the
+    serving engine and replica pool, which come with ROADMAP.md Queue 1
+    item 4."""
+    raise NotImplementedError(
+        "the serving soak is not ported to flinkml_tpu_torch yet: it drives "
+        "the serving replica pool, which comes with ROADMAP.md Queue 1 "
+        "item 4 (serving)"
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="flinkml_tpu_torch chaos soak (the trainers run on the "
+                    "port's default device, cuda; --device cpu runs them on "
+                    "the host)"
+    )
+    parser.add_argument("--seed", type=int, default=7)
+    parser.add_argument("--device", default=None,
+                        help="the trainers' compute device (default: the "
+                             "port's default device, cuda)")
+    parser.add_argument("--budget", type=int, default=None)
+    parser.add_argument("--wall-budget-s", type=float, default=None)
+    parser.add_argument("--repro-dir", default=None,
+                        help="write minimal FaultPlan repros for failing "
+                             "schedules here")
+    parser.add_argument("--serving", action="store_true",
+                        help="the serving-pool gray-failure soak (comes "
+                             "with ROADMAP.md Queue 1 item 4)")
+    parser.add_argument("--worker", action="store_true",
+                        help="run the process-boundary worker-crash soak "
+                             "(each schedule's trainer is a supervised "
+                             "child process)")
+    parser.add_argument("--worker-child", metavar="DIR", default=None,
+                        help=argparse.SUPPRESS)  # internal: one incarnation
+    parser.add_argument("--resume", action="store_true",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker_child:
+        return _worker_child_main(args.worker_child, resume=args.resume)
+    if args.worker:
+        report = run_worker_soak(
+            seed=args.seed,
+            budget=args.budget if args.budget is not None else 4,
+            wall_budget_s=args.wall_budget_s,
+            repro_dir=args.repro_dir, device=args.device,
+        )
+    elif args.serving:
+        report = run_serving_soak(
+            seed=args.seed,
+            budget=args.budget if args.budget is not None else 6,
+            wall_budget_s=args.wall_budget_s,
+            repro_dir=args.repro_dir,
+        )
+    else:
+        report = run_soak(
+            seed=args.seed,
+            budget=args.budget if args.budget is not None else 25,
+            wall_budget_s=args.wall_budget_s,
+            repro_dir=args.repro_dir, device=args.device,
+        )
+    print(report.summary())
+    for r in report.failures:
+        print(f"  FAILED schedule {r.index}: {r.faults} -> {r.failures}")
+    return 0 if report.ok else 1
+
+
+if __name__ == "__main__":  # pragma: no cover — CLI shim
+    raise SystemExit(main())

@@ -45,11 +45,14 @@ blocks and issues the collectives itself:
   rank writes them, and a snapshot taken at one world resumes at another
   under ``rescale="reshard"``.
 
-Not ported yet: the ``sentinel`` (refused, ROADMAP.md Queue 1 item 12).
-The JAX loop's ``rank.lost`` and ``train.step`` fault seams and its
-preemption watchdog come with the same item; they hook in at the top of
-each epoch of :func:`train_linear_plan`'s loop (before the window is
-fetched) and around its ``step`` call.
+- **Faults, preemption and the sentinel.** Each epoch of
+  :func:`train_linear_plan` fires the ``rank.lost`` fault seam and polls
+  the ambient :class:`~flinkml_tpu_torch.utils.preemption.
+  PreemptionWatchdog` (a stop there commits a terminal snapshot), fires
+  ``train.step`` before and after its step, and runs ``sentinel`` (a
+  :class:`~flinkml_tpu_torch.recovery.NumericsSentinel`) over each rank's
+  blocks of the state and the loss; the verdict is one int32 all-reduced
+  (MAX) over the mesh before its one read, so every rank raises together.
 """
 
 from __future__ import annotations
@@ -488,9 +491,14 @@ def train_linear_plan(
     ``checkpoint_manager`` snapshots the assembled state with
     plan-derived layouts every ``checkpoint_interval`` epochs and at the
     end; ``resume=True`` continues from the newest valid snapshot, at
-    any world under ``rescale="reshard"``. ``stats``, when given, is
-    filled with the loop's seconds, its steps and the collectives the loop
-    issued (the steps' and the snapshots').
+    any world under ``rescale="reshard"``. ``sentinel`` raises a typed
+    ``NumericsError`` at the epoch whose state or loss is not finite,
+    before a snapshot can hold it. A ``RankLost`` at the ``rank.lost``
+    seam under a watchdog, or the watchdog's own request, stops the loop
+    at the epoch boundary with a terminal snapshot. ``stats``, when given, is
+    filled with the loop's seconds, its steps, the collectives the loop
+    issued (the steps', the snapshots' and the verdicts'), whether a
+    preemption stopped it and its last epoch.
     """
     import time
 
@@ -501,11 +509,9 @@ def train_linear_plan(
     from flinkml_tpu_torch.parallel.mesh import DeviceMesh, pad_to_multiple
     from flinkml_tpu_torch.precision import resolve_policy
 
-    if sentinel is not None:
-        raise NotImplementedError(
-            "sentinel= is not ported to flinkml_tpu_torch yet: the numerics "
-            "sentinel comes with ROADMAP.md Queue 1 item 12"
-        )
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.utils import preemption
+
     if loss not in ("logistic", "hinge", "squared"):
         raise ValueError(f"unsupported loss {loss!r}")
     policy = resolve_policy(precision)
@@ -564,6 +570,18 @@ def train_linear_plan(
             _log.info("plan-sharded resume: plan=%s epoch=%d world=%d",
                       plan.name, epoch, world)
     sync = _PlanSync(plan, mesh, dim) if grouped else None
+    reduce_verdict = None
+    if sentinel is not None and grouped and world > 1:
+        import torch.distributed as dist
+
+        verdict_group = mesh.group_over(tuple(mesh.axis_names))[0]
+
+        def reduce_verdict(v):
+            # Each rank checked its own blocks: one MAX makes the verdict
+            # the mesh's, so every rank raises at the same epoch.
+            dist.all_reduce(v, op=dist.ReduceOp.MAX, group=verdict_group)
+            sync.counts["all_reduce"] += 1
+            return v
     state = {}
     for name, leaf in state_h.items():
         t = torch.as_tensor(np.asarray(leaf) if not torch.is_tensor(leaf)
@@ -615,12 +633,40 @@ def train_linear_plan(
         lock = local_execution_lock(mesh)
     t_loop = time.perf_counter()
     steps = 0
+    watchdog = preemption.active()
+    preempted = False
     with lock:
         while epoch < max_iter:
-            state, loss_dev = step(state, *window(epoch), sync=sync,
-                                   prepared=True)
+            if faults.ACTIVE is not None:
+                # A scripted RankLost: under the watchdog a clean stop at
+                # this boundary, without one a hard crash (as iterate).
+                faults.fire("rank.lost", epoch=epoch, watchdog=watchdog)
+            if watchdog is not None and watchdog.requested:
+                preempted = True
+                break
+            batch = window(epoch)
+            if faults.ACTIVE is not None:
+                # A PoisonBatch swaps in a NaN twin of the cached window
+                # for this step only; the cache keeps the clean one.
+                fctx = {"phase": "pre", "epoch": epoch,
+                        "source_index": epoch, "batch": batch}
+                faults.fire_into("train.step", fctx)
+                batch = fctx["batch"]
+            state, loss_dev = step(state, *batch, sync=sync, prepared=True)
+            if faults.ACTIVE is not None:
+                fctx = {"phase": "post", "epoch": epoch,
+                        "source_index": epoch, "state": state,
+                        "criteria": loss_dev}
+                faults.fire_into("train.step", fctx)
+                state, loss_dev = fctx["state"], fctx["criteria"]
             epoch += 1
             steps += 1
+            if sentinel is not None:
+                # Before the snapshot below can persist a bad state; the
+                # loss is read with the verdict.
+                loss_dev = sentinel.check(state, loss_dev, epoch=epoch - 1,
+                                          source_index=epoch - 1,
+                                          reduce=reduce_verdict)
             terminal = tol > 0.0 and float(loss_dev) <= tol
             if should_snapshot(checkpoint_manager, checkpoint_interval, epoch,
                                max_iter, terminal=terminal):
@@ -629,6 +675,12 @@ def train_linear_plan(
                     checkpoint_manager.save(snapshot, epoch, plan=plan)
             if terminal:
                 break
+        if preempted and checkpoint_manager is not None:
+            # The preemption's terminal snapshot: the survivors resume
+            # from exactly this epoch.
+            snapshot = assembled()
+            if writer:
+                checkpoint_manager.save(snapshot, epoch, plan=plan)
         loop_counts = dict(sync.counts) if sync is not None else {
             "all_gather": 0, "all_reduce": 0}
         coef = state["coef"] if sync is None else sync.gather(state["coef"])
@@ -643,7 +695,8 @@ def train_linear_plan(
     if stats is not None:
         stats.update(loop_s=loop_s, steps=steps, world=world,
                      batch_world=bw, windows=len(windows),
-                     collectives=loop_counts)
+                     collectives=loop_counts, preempted=preempted,
+                     epoch=epoch)
     return result
 
 

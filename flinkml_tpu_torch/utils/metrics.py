@@ -1,29 +1,70 @@
-"""Metrics registry: named groups of counters and gauges.
+"""Metrics registry: counters, gauges, meters, histories.
 
-The port's counterpart of the registry half of
-``flinkml_tpu.utils.metrics`` (the reference's Flink metric groups): a
-process-wide :class:`MetricsRegistry` of :class:`MetricGroup` s, where
-host code such as the input pipeline's
-:class:`~flinkml_tpu_torch.data.prefetch.DevicePrefetcher` reports its
-counters and gauges. Plain host-side Python; a device time recorded here
-must be taken after ``torch.cuda.synchronize()``.
+The port's counterpart of ``flinkml_tpu.utils.metrics`` (the reference's
+Flink metric groups, ``AbstractWrapperOperator.java:103``): a process-wide
+:class:`MetricsRegistry` of named, optionally labelled
+:class:`MetricGroup` s where host code reports counters, gauges, meters
+and histories: the input pipeline's
+:class:`~flinkml_tpu_torch.data.prefetch.DevicePrefetcher` (group
+``data.prefetch``), the self-healing recovery session (group
+``recovery``: ``rollbacks_total``, ``quarantined_batches``,
+``time_to_recover_p50_ms``/``p99_ms``, ``retries_total{class=...}``).
+:meth:`MetricsRegistry.render_text` gives the JAX package's text
+exposition (``flinkml_rollbacks_total{group="recovery"} 1``). Plain
+host-side Python; a device time recorded here must be taken after
+``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
 
 import collections
+import re
 import threading
-from typing import Any, Dict
+import time
+from typing import Any, Dict, List, Optional
+
+
+class Meter:
+    """Windowed rate meter (events/sec), like Flink's MeterView."""
+
+    def __init__(self, window: int = 64):
+        self._events: collections.deque = collections.deque(maxlen=window)
+
+    def mark(self, n: float = 1.0, now: Optional[float] = None) -> None:
+        self._events.append((time.perf_counter() if now is None else now, n))
+
+    @property
+    def rate(self) -> float:
+        """Events/sec over the retained window (0.0 with <2 samples)."""
+        if len(self._events) < 2:
+            return 0.0
+        t0, _ = self._events[0]
+        t1, _ = self._events[-1]
+        if t1 <= t0:
+            return 0.0
+        total = sum(n for _, n in list(self._events)[1:])
+        return total / (t1 - t0)
 
 
 class MetricGroup:
-    """A named scope of counters and gauges (thread-safe)."""
+    """Named scope of counters/gauges/meters/histories (thread-safe).
 
-    def __init__(self, name: str):
+    ``labels`` are extra Prometheus label pairs attached to every sample
+    the group emits in :meth:`MetricsRegistry.render_text` — e.g. the
+    serving pool registers one group per replica under the SAME group
+    name with ``labels={"replica": "r3"}``, so per-replica gauges
+    aggregate as one labeled family instead of colliding in a flat
+    namespace (``flinkml_p50_ms{group="serving.pool",replica="r3"}``).
+    """
+
+    def __init__(self, name: str, labels: Optional[Dict[str, str]] = None):
         self.name = name
+        self.labels: Dict[str, str] = dict(labels or {})
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = collections.defaultdict(float)
         self._gauges: Dict[str, Any] = {}
+        self._meters: Dict[str, Meter] = {}
+        self._histories: Dict[str, List[float]] = collections.defaultdict(list)
 
     def counter(self, name: str, inc: float = 1.0) -> float:
         with self._lock:
@@ -34,39 +75,159 @@ class MetricGroup:
         with self._lock:
             self._gauges[name] = value
 
+    def meter(self, name: str) -> Meter:
+        with self._lock:
+            if name not in self._meters:
+                self._meters[name] = Meter()
+            return self._meters[name]
+
+    def record(self, name: str, value: float) -> None:
+        """Append to a history series (epoch times, losses, ...)."""
+        with self._lock:
+            self._histories[name].append(float(value))
+
+    def history(self, name: str) -> List[float]:
+        with self._lock:
+            return list(self._histories[name])
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
-            return {"counters": dict(self._counters),
-                    "gauges": dict(self._gauges)}
+            return {
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+                "meters": {k: m.rate for k, m in self._meters.items()},
+                "histories": {k: list(v) for k, v in self._histories.items()},
+            }
 
 
 class MetricsRegistry:
-    """Process-wide registry of metric groups, keyed by name."""
+    """Process-wide registry of metric groups.
+
+    The analog of Flink's per-TM metric registry; ``group("model.kmeans")``
+    plays the role of the re-registered operator metric group.
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._groups: Dict[str, MetricGroup] = {}
+        # key: (name, sorted label items) — label-less groups keep the
+        # plain name as their snapshot key, so existing consumers see
+        # exactly the old namespace.
+        self._groups: Dict[Any, MetricGroup] = {}
 
-    def group(self, name: str) -> MetricGroup:
+    def group(self, name: str,
+              labels: Optional[Dict[str, str]] = None) -> MetricGroup:
+        key = (name, tuple(sorted((labels or {}).items())))
         with self._lock:
-            if name not in self._groups:
-                self._groups[name] = MetricGroup(name)
-            return self._groups[name]
+            if key not in self._groups:
+                self._groups[key] = MetricGroup(name, labels)
+            return self._groups[key]
+
+    @staticmethod
+    def _qualified(g: MetricGroup) -> str:
+        if not g.labels:
+            return g.name
+        inner = ",".join(
+            f'{k}="{_escape_label(str(v))}"'
+            for k, v in sorted(g.labels.items())
+        )
+        return f"{g.name}{{{inner}}}"
 
     def snapshot(self) -> Dict[str, Dict[str, Any]]:
         with self._lock:
             groups = list(self._groups.values())
-        return {g.name: g.snapshot() for g in groups}
+        return {self._qualified(g): g.snapshot() for g in groups}
+
+    def render_text(self) -> str:
+        """Prometheus-style text exposition of every group's counters,
+        numeric gauges, and meter rates — one sample line per metric with
+        the group as a label, e.g.::
+
+            # TYPE flinkml_requests counter
+            flinkml_requests{group="serving.default"} 128
+
+        Counters render as ``counter``, gauges and meter rates as
+        ``gauge`` (rates under ``<name>_rate``). Non-numeric gauges and
+        histories are skipped (histories are unbounded series — scrape
+        :meth:`snapshot` for those). Output is sorted, so diffs are
+        stable, and byte for byte the JAX package's for the same
+        operations; wire it to an HTTP endpoint for a real scrape target.
+
+        A group's extra ``labels`` (see :class:`MetricGroup`) render as
+        additional label pairs after ``group=``, e.g.::
+
+            flinkml_queue_depth{group="serving.pool",replica="r3"} 2
+        """
+        with self._lock:
+            groups = list(self._groups.values())
+        # metric name -> (prom type, [(rendered label set, value)])
+        samples: Dict[str, Any] = {}
+
+        def add(name: str, kind: str, group: str, value: float) -> None:
+            # A Prometheus metric family has ONE type: the same name used
+            # as a counter in one group and a gauge in another would emit
+            # a mistyped series — the later kind moves to a kind-suffixed
+            # family instead (deterministic: groups are visited sorted).
+            entry = samples.get(name)
+            if entry is not None and entry[0] != kind:
+                name = f"{name}_{kind}"
+                entry = samples.get(name)
+            if entry is None:
+                entry = samples.setdefault(name, (kind, []))
+            entry[1].append((group, value))
+
+        for g in sorted(groups, key=self._qualified):
+            pairs = [("group", g.name)] + sorted(g.labels.items())
+            labelset = ",".join(
+                f'{k}="{_escape_label(str(v))}"' for k, v in pairs
+            )
+            snap = g.snapshot()
+            for k, v in snap["counters"].items():
+                add(f"flinkml_{_sanitize(k)}", "counter", labelset, v)
+            for k, v in snap["gauges"].items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                add(f"flinkml_{_sanitize(k)}", "gauge", labelset, v)
+            for k, rate in snap["meters"].items():
+                add(f"flinkml_{_sanitize(k)}_rate", "gauge", labelset, rate)
+        lines: List[str] = []
+        for name in sorted(samples):
+            kind, values = samples[name]
+            lines.append(f"# TYPE {name} {kind}")
+            for labelset, value in sorted(values):
+                # Full precision: '%g' would truncate counters past 6
+                # significant digits (1_234_567 -> 1.23457e+06).
+                rendered = (
+                    str(int(value)) if float(value).is_integer()
+                    else repr(float(value))
+                )
+                lines.append(f"{name}{{{labelset}}} {rendered}")
+        return "\n".join(lines) + ("\n" if lines else "")
 
     def reset(self) -> None:
         with self._lock:
             self._groups.clear()
 
 
-#: The process-wide registry.
+def _sanitize(name: str) -> str:
+    """Prometheus metric-name charset: [a-zA-Z_:][a-zA-Z0-9_:]*."""
+    name = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def _escape_label(value: str) -> str:
+    """Prometheus label-VALUE escaping: backslash, double quote, newline."""
+    return (
+        value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    )
+
+
+#: Default process-wide registry (import-and-use, like Flink's).
 metrics = MetricsRegistry()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-wide :data:`metrics` registry."""
+    """The process-wide :data:`metrics` registry — the scrape root for
+    exposition (``default_registry().render_text()``)."""
     return metrics

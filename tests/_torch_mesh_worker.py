@@ -14,7 +14,9 @@ over each rank's own partition, their checkpoints and rank-scoped
 snapshots), ``stream_faults`` (failures on one rank that must abort
 every rank), ``stream_sync`` (the agreement layer) and ``stream_cuda``
 (the streamed CSR fit on the card, every rank on ``cuda:0`` over gloo:
-``tests/test_torch_cuda.py``). The streams' data
+``tests/test_torch_cuda.py``), or ``faults`` (the plan-sharded fit under
+scripted faults: ``RankLost`` under a watchdog, ``NaNGrad`` under the
+sentinel; ``tests/test_torch_preemption.py``). The streams' data
 and hyperparameters are ``tests/_stream_mp_common.py``'s, which builds
 them from numpy alone.
 
@@ -892,6 +894,80 @@ def stream_sync_cases(mesh, rank: int, world: int) -> dict:
     return out
 
 
+#: The plan x fault composition's run (the JAX package's
+#: ``tests/test_elastic_resume.py`` FSDP case).
+FAULT_PLAN_KW = dict(max_iter=12, learning_rate=0.5)
+FAULT_KILL_EPOCH, FAULT_INTERVAL, FAULT_NAN_EPOCH = 7, 3, 4
+
+
+def fault_plan_data(n=96, dim=64, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim))
+    return x, (x @ np.arange(1.0, dim + 1.0) > 0).astype(x.dtype)
+
+
+def fault_cases(mesh, rank: int, world: int, workdir: str) -> dict:
+    """The FSDP plan fit at this world under scripted faults: a
+    ``RankLost`` of the last rank under a watchdog on every rank (a clean
+    stop with a terminal snapshot, then the survivors' elastic plan), and
+    a ``NaNGrad`` under the sentinel (every rank raises at one epoch);
+    then OnlineStandardScaler over each rank's own partition (one merge of
+    the ranks' moments at the end)."""
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.recovery import NumericsError, NumericsSentinel
+    from flinkml_tpu_torch.sharding import plan as t_plan
+    from flinkml_tpu_torch.sharding.apply import train_linear_plan
+    from flinkml_tpu_torch.utils.preemption import PreemptionWatchdog
+
+    x, y = fault_plan_data()
+    fsdp_mesh = type(mesh).for_plan(t_plan.FSDP)
+    out = {}
+    mgr = CheckpointManager(os.path.join(workdir, "plan_ckpt"),
+                            max_to_keep=10, rescale="reshard")
+    stats = {}
+    wd = PreemptionWatchdog(signals=())
+    with wd:
+        with faults.armed(faults.FaultPlan(faults.RankLost(
+                epoch=FAULT_KILL_EPOCH, rank=world - 1))) as plan:
+            coef = train_linear_plan(
+                x, y, None, t_plan.FSDP, fsdp_mesh,
+                checkpoint_manager=mgr, checkpoint_interval=FAULT_INTERVAL,
+                stats=stats, **FAULT_PLAN_KW)
+    resume = wd.plan_elastic_resume(mgr, world=world)
+    out["preempted_coef"] = coef
+    out["preempted"] = np.asarray([bool(stats["preempted"]),
+                                   stats["epoch"], stats["steps"]])
+    out["lost_ranks"] = np.asarray(wd.lost_ranks)
+    out["elastic_plan"] = np.asarray([resume.epoch, resume.old_world,
+                                      resume.new_world])
+    out["fault_log"] = np.asarray([len(plan.log)])
+    try:
+        with faults.armed(faults.FaultPlan(
+                faults.NaNGrad(FAULT_NAN_EPOCH))):
+            train_linear_plan(x, y, None, t_plan.FSDP, fsdp_mesh,
+                              sentinel=NumericsSentinel(), **FAULT_PLAN_KW)
+        out["nan_raise"] = np.asarray([-1, -1, -1])
+    except NumericsError as e:
+        out["nan_raise"] = np.asarray([e.epoch, e.source_index, e.verdict])
+    # OnlineStandardScaler's ranks: each its own partition, one merge.
+    from flinkml_tpu_torch.models import OnlineStandardScaler
+
+    model = OnlineStandardScaler().fit_stream(scaler_partition(rank, world))
+    out["scaler"] = np.stack([model._data["mean"], model._data["std"]])
+    out["scaler_version"] = np.asarray([model.model_version])
+    return out
+
+
+def scaler_partition(rank: int, world: int, seed=2):
+    """Rank ``rank``'s batches of the scaler stream (rank 0 one more)."""
+    from flinkml_tpu_torch.table import Table
+
+    rng = np.random.default_rng([seed, rank])
+    return [Table({"input": rng.normal(size=(32, 6)) * (1 + i + rank)})
+            for i in range(3 + (rank == 0))]
+
+
 def main(argv) -> int:
     which, out_dir = argv[1], argv[2]
     import flinkml_tpu_torch as fml
@@ -921,6 +997,8 @@ def main(argv) -> int:
             out = stream_sync_cases(mesh, rank, world)
         elif which == "stream_cuda":
             out = stream_cuda_cases(mesh, rank, world)
+        elif which == "faults":
+            out = fault_cases(mesh, rank, world, out_dir)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

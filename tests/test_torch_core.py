@@ -47,6 +47,9 @@ def _forbidden(module: str) -> bool:
     + ["chip_smoke.py", "tests/_torch_mesh_worker.py"],
 )
 def test_port_imports_neither_jax_nor_the_jax_package(path):
+    """Every module of the port (the fault layer, the recovery package,
+    the watchdog and OnlineStandardScaler included), the chip script and
+    the gloo worker."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = []
     for node in ast.walk(tree):
@@ -56,6 +59,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_import_guard_covers_the_fault_and_recovery_modules():
+    """The guard above walks every file of the package, so the modules of
+    faults and self-healing are in its list."""
+    guarded = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"faults.py", "recovery/__init__.py", "recovery/sentinel.py",
+            "recovery/policy.py", "recovery/engine.py", "recovery/fuzz.py",
+            "utils/preemption.py", "utils/metrics.py",
+            "models/online_scaler.py", "iteration/runtime.py",
+            "sharding/apply.py"} <= guarded
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

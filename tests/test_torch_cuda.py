@@ -1498,3 +1498,123 @@ def test_stream_on_two_ranks_on_card(cuda_device, tmp_path):
                                  C.SPARSE_HP).fit(
             iter(worker.sparse_combined(C, 2))).coefficient
     np.testing.assert_allclose(outs[0]["sp_coef"], want, rtol=0, atol=1e-5)
+
+
+# -- faults and the numerics sentinel on the card (ROADMAP item 12) -----------
+
+
+def _verdict_states():
+    nan, inf = float("nan"), float("inf")
+    return [
+        ([np.array([1.0, -2.0])], 0.5, 1e8),
+        ([np.array([1.0, nan])], 0.5, 1e8),
+        ([np.array([inf, 1.0]), np.ones(3)], 0.5, 1e8),
+        ([np.array([2e8])], 0.1, 1e8),
+        ([np.array([1e8 + 1.0], np.float32)], 0.1, 1e8),
+        ([np.ones(4)], inf, 1e8),
+        ([np.array([nan])], 0.0, None),
+    ]
+
+
+def test_sentinel_bits_on_card_equal_cpu(cuda_device):
+    """One verdict pass on CUDA tensors gives the CPU's bits, and a CUDA
+    loss tensor comes back from the same read."""
+    from flinkml_tpu_torch.recovery.sentinel import verdict_bits
+
+    for leaves, loss, max_abs in _verdict_states():
+        cpu = [torch.from_numpy(a) for a in leaves]
+        card = [t.to(cuda_device) for t in cpu]
+        want = verdict_bits(cpu, torch.tensor(loss), max_abs)
+        got = verdict_bits(card, torch.tensor(loss, device=cuda_device),
+                           max_abs)
+        assert got[0] == want[0]
+        assert got[1] == want[1] or (np.isnan(got[1]) and np.isnan(want[1]))
+
+
+def test_poison_faults_keep_device_and_dtype(cuda_device):
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.table import PaddedDeviceColumn
+
+    state = {"z": torch.ones(5, device=cuda_device),
+             "b": torch.ones(2, dtype=torch.bfloat16, device=cuda_device),
+             "version": 3}
+    ctx = {"state": state, "source_index": 1, "phase": "post"}
+    faults.NaNGrad(1).apply(ctx)
+    for key in ("z", "b"):
+        out = ctx["state"][key]
+        assert out.device.type == cuda_device.type
+        assert out.dtype == state[key].dtype
+        assert torch.isnan(out.float()).all()
+    assert ctx["state"]["version"] == 3
+    batch = fml.Table({
+        "x": PaddedDeviceColumn(torch.ones(8, 3, device=cuda_device), 5),
+        "y": torch.ones(5, dtype=torch.float64, device=cuda_device)})
+    ctx = {"batch": batch, "source_index": 0, "phase": "pre"}
+    faults.PoisonBatch(0).apply(ctx)
+    x = ctx["batch"]._raw_column("x")
+    assert x.buf.device.type == cuda_device.type and x.rows == 5
+    assert torch.isnan(x.buf).all()
+    y = ctx["batch"]._raw_column("y")
+    assert y.device.type == cuda_device.type and y.dtype == torch.float64
+    assert torch.isnan(y).all()
+
+
+def _ftrl_batches(n=10, rows=256, dim=16, seed=0):
+    rng = np.random.default_rng(seed)
+    true = rng.normal(size=dim)
+    out = []
+    for _ in range(n):
+        x = rng.normal(size=(rows, dim))
+        out.append(fml.Table({"features": x,
+                              "label": (x @ true > 0).astype(np.float64)}))
+    return out
+
+
+def test_healed_ftrl_on_card_equals_golden(cuda_device, tmp_path):
+    """A PoisonBatch and a NaNGrad healed on the card: the model equals
+    the same stream without the two batches, on the card, bit for bit."""
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.recovery import RecoveryPolicy
+
+    batches = _ftrl_batches()
+
+    def lr():
+        return fml.OnlineLogisticRegression().set_alpha(0.5).set_reg(0.01)
+
+    with fml.use_device(cuda_device):
+        golden = lr().fit_stream(
+            [b for i, b in enumerate(batches) if i not in (3, 6)])
+        with faults.armed(faults.FaultPlan(faults.PoisonBatch(3),
+                                           faults.NaNGrad(6))):
+            healed = lr().fit_stream(
+                batches, checkpoint_manager=CheckpointManager(str(tmp_path)),
+                checkpoint_interval=2,
+                recovery=RecoveryPolicy(backoff_s=0.0))
+    assert healed.recovery_summary["quarantined"] == [3, 6]
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.model_version == golden.model_version == 8
+
+
+def test_prefetch_seam_raise_on_card_reaches_consumer(cuda_device):
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.data import Dataset
+
+    rng = np.random.default_rng(0)
+    table = fml.Table({"features": rng.normal(size=(40, 3)),
+                       "y": np.arange(40.0)})
+    with fml.use_device(cuda_device):
+        ds = Dataset.from_arrays(table, 4).prefetch(depth=2)
+        with faults.armed(faults.FaultPlan(
+                faults.RaiseAtRead(at_read=3, site="data.prefetch"))):
+            it = ds.iterate()
+            first = next(it)
+            assert first.is_device_resident("features")
+            with pytest.raises(faults.FaultInjected, match="read #3"):
+                for _ in it:
+                    pass
+        prefetcher = it._prefetcher
+        prefetcher._thread.join(timeout=10.0)
+        assert not prefetcher._thread.is_alive()
+        with pytest.raises(faults.FaultInjected):
+            next(prefetcher)

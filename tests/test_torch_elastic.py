@@ -5,8 +5,8 @@ against the JAX package, on the CPU (the one-process cases of
 An ElasticFeed merges ``world`` shard readers round-robin into one global
 order, so the batches it delivers — and a model trained on them — do not
 depend on ``world``. The crash is a post-merge ``map`` that raises at one
-global batch (the JAX test's ``faults``/watchdog seams come with ROADMAP.md
-Queue 1 item 12).
+global batch (the cases with the ``faults`` seams and the watchdog are in
+``tests/test_torch_preemption.py``).
 
 Declared tolerances: within the port every comparison is exact (the same
 float64 operations in the same order on the CPU); against the JAX

@@ -579,14 +579,19 @@ def test_unported_paths_refused(on_cpu, tmp_path, monkeypatch, mesh1):
         fml.OnlineLogisticRegression().fit_stream(
             [table], checkpoint_manager=t_iteration.CheckpointManager(
                 str(tmp_path / "olr")))
-    monkeypatch.undo()
-    # The numerics sentinel and self-healing recovery: item 12.
+    # The numerics sentinel and self-healing recovery (item 12) are ported;
+    # on the multi-process online stream they are refused, as in JAX.
     for knob in ("sentinel", "recovery"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            IterationConfig(**{knob: object()})
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError,
+                           match="multi-process online stream"):
             fml.OnlineLogisticRegression().fit_stream([table],
                                                       **{knob: object()})
+    monkeypatch.undo()
+    from flinkml_tpu_torch.recovery import NumericsSentinel, RecoveryPolicy
+
+    config = IterationConfig(sentinel=NumericsSentinel(),
+                             recovery=RecoveryPolicy(backoff_s=0.0))
+    assert config.sentinel.interval == 1 and config.recovery.max_retries == 3
     # The sorted-column stream is ported (the data/ package's prefetched
     # SortedSparseColumn tables): a dense feature column is refused.
     with pytest.raises(ValueError, match="not a SortedSparseColumn"):

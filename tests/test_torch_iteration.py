@@ -514,16 +514,40 @@ def test_reshard_and_multi_device_commits_refused(tmp_path):
 
 
 def test_unported_iteration_knobs_refused():
-    """The watchdog, sentinel and recovery (item 12) are refused. The
-    cursor feeds of the ``data/`` package are ported: a Dataset is iterated
-    one batch per epoch, and a feed that only looks like one (``peek`` and
-    ``num_shards``) is a plain iterable."""
+    """The watchdog, sentinel and recovery knobs (item 12) are ported:
+    the same poisoned loop raises the same typed ``NumericsError`` at the
+    same epoch in both packages under ``sentinel=``, and heals to the same
+    state under ``recovery=``. The cursor feeds of the ``data/`` package
+    are ported: a Dataset is iterated one batch per epoch, and a feed that
+    only looks like one (``peek`` and ``num_shards``) is a plain
+    iterable."""
+    from flinkml_tpu import iteration as jax_iteration
+    from flinkml_tpu import recovery as jax_recovery
+    from flinkml_tpu_torch import recovery as t_recovery
     from flinkml_tpu_torch.data import Dataset
     from flinkml_tpu_torch.table import Table
 
-    for knob in ("watchdog", "sentinel", "recovery"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            IterationConfig(**{knob: object()})
+    feed = [1.0, 2.0, float("nan"), 4.0, 5.0]
+
+    def poisoned(s, d, e):
+        return {"w": s["w"] + d}, float(d)
+
+    for it, rec in ((jax_iteration, jax_recovery), (None, t_recovery)):
+        cfg = (it.IterationConfig if it is not None else IterationConfig)
+        run = (it.iterate if it is not None else iterate)
+        with pytest.raises(rec.NumericsError) as ei:
+            run(poisoned, {"w": np.zeros(2)}, list(feed),
+                cfg(TerminateOnMaxIter(5), sentinel=rec.NumericsSentinel()))
+        assert (ei.value.epoch, ei.value.source_index,
+                ei.value.classification, ei.value.verdict) == (
+                    2, 2, "data_poison", 7)
+        healed = run(poisoned, {"w": np.zeros(2)}, list(feed),
+                     cfg(TerminateOnMaxIter(10),
+                         recovery=rec.RecoveryPolicy(backoff_s=0.0),
+                         watchdog=None))
+        assert healed.recovery["quarantined"] == [2]
+        np.testing.assert_array_equal(np.asarray(healed.state["w"]),
+                                      np.full(2, 12.0))
 
     class FakeDataset:
         num_shards = 1

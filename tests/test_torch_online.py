@@ -2,7 +2,8 @@
 the CPU: every case of ``tests/test_online_logistic_regression.py`` and the
 one-process OnlineLogisticRegression cases of ``tests/test_online_resume.py``
 (a crash is a stream that raises at a batch, a damaged snapshot a truncated
-or rewritten file: the fault seams are ROADMAP.md Queue 1 item 12), the
+or rewritten file; the cases with the fault seams are in
+``tests/test_torch_preemption.py`` and ``tests/test_torch_recovery.py``), the
 FTRL algebra and step against the JAX functions, and FTRL carries and
 models crossing packages.
 
@@ -367,18 +368,45 @@ def test_ftrl_carry_resumes_across_packages(first, tmp_path, on_cpu):
 
 
 def test_unported_online_paths_refused(monkeypatch, tmp_path, on_cpu):
-    """The sentinel and recovery (item 12); the multi-process stream's
-    checkpoints (refused in JAX too) and a mesh that is not a
-    DeviceMesh."""
-    for knob in ("sentinel", "recovery"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            _lr().fit_stream(lr_batches(n=2), **{knob: object()})
-    # The multi-process stream (item 7c) is ported; its checkpoints are
-    # refused, as in JAX (P ranks: tests/test_torch_stream_mp.py).
+    """The sentinel and recovery (item 12) are ported: the same poisoned
+    stream raises at the same source batch under ``sentinel=`` and heals
+    under ``recovery=`` to JAX's healed model (within F64_TOL) with the
+    same summary. What stays refused: the multi-process stream's
+    checkpoints, sentinel and recovery (refused in JAX too) and a mesh
+    that is not a DeviceMesh."""
+    from flinkml_tpu import recovery as jax_recovery
+    from flinkml_tpu_torch import recovery as t_recovery
+
+    def poisoned(cls):
+        out = lr_batches(cls=cls)
+        out[5] = cls({"features": np.full((48, 5), np.nan),
+                      "label": np.zeros(48)})
+        return out
+
+    for pkg, rec, cls in ((fml, t_recovery, fml.Table),
+                          (jax_olr, jax_recovery, JaxTable)):
+        with pytest.raises(rec.NumericsError) as ei:
+            _lr(pkg).fit_stream(poisoned(cls),
+                                sentinel=rec.NumericsSentinel())
+        assert ei.value.source_index == 5
+    got = _lr().fit_stream(poisoned(fml.Table), recovery=t_recovery.
+                           RecoveryPolicy(backoff_s=0.0))
+    want = _lr(jax_olr).fit_stream(poisoned(JaxTable), recovery=jax_recovery.
+                                   RecoveryPolicy(backoff_s=0.0))
+    np.testing.assert_allclose(got.coefficient, want.coefficient,
+                               rtol=F64_TOL, atol=F64_TOL)
+    assert got.recovery_summary == want.recovery_summary
+    # The multi-process stream (item 7c) is ported; its checkpoints,
+    # sentinel and recovery are refused, as in JAX (P ranks:
+    # tests/test_torch_stream_mp.py).
     monkeypatch.setattr(t_olr, "_process_count", lambda: 2)
     with pytest.raises(NotImplementedError,
                        match="multi-process online stream"):
         _lr().fit_stream(lr_batches(n=2), checkpoint_manager=CheckpointManager(
             str(tmp_path)))
+    for knob in ("sentinel", "recovery"):
+        with pytest.raises(NotImplementedError,
+                           match="multi-process online stream"):
+            _lr().fit_stream(lr_batches(n=2), **{knob: object()})
     with pytest.raises(TypeError, match="DeviceMesh"):
         fml.OnlineLogisticRegression(mesh=object())

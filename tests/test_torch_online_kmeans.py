@@ -304,12 +304,28 @@ def test_saved_models_cross_packages(saver, tmp_path, on_cpu):
 # -- what stays unported ---------------------------------------------------------------
 
 def test_unported_online_kmeans_paths_refused(monkeypatch, tmp_path, on_cpu):
-    """The sentinel and recovery (item 12); the multi-process stream's
-    checkpoints (refused in JAX too) and a mesh that is not a
-    DeviceMesh."""
-    for knob in ("sentinel", "recovery"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            _okm().fit_stream(_stream()[:2], **{knob: object()})
+    """The sentinel and recovery (item 12) are ported: under the same
+    ``NaNGrad`` plan the port's healed centroids equal JAX's (within TOL)
+    with the same summary. What stays refused: the multi-process stream's
+    checkpoints, sentinel and recovery (refused in JAX too) and a mesh
+    that is not a DeviceMesh."""
+    from flinkml_tpu import faults as jax_faults
+    from flinkml_tpu import recovery as jax_recovery
+    from flinkml_tpu_torch import faults as t_faults
+    from flinkml_tpu_torch import recovery as t_recovery
+
+    healed = {}
+    for module, faults, rec, cls in (
+            (t_okm, t_faults, t_recovery, None),
+            (jax_okm, jax_faults, jax_recovery, JaxTable)):
+        with faults.armed(faults.FaultPlan(faults.NaNGrad(3))):
+            healed[module] = _okm(module).fit_stream(
+                _stream(cls=cls), recovery=rec.RecoveryPolicy(backoff_s=0.0))
+    got, want = healed[t_okm], healed[jax_okm]
+    np.testing.assert_allclose(got.centroids, want.centroids, rtol=TOL,
+                               atol=TOL)
+    assert got.recovery_summary == want.recovery_summary
+    assert got.recovery_summary["quarantined"] == [3]
     # The multi-process stream (item 7c) is ported; its checkpoints are
     # refused, as in JAX (P ranks: tests/test_torch_stream_mp.py).
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -319,5 +335,9 @@ def test_unported_online_kmeans_paths_refused(monkeypatch, tmp_path, on_cpu):
                        match="multi-process online stream"):
         _okm().fit_stream(_stream()[:2], checkpoint_manager=CheckpointManager(
             str(tmp_path)))
+    for knob in ("sentinel", "recovery"):
+        with pytest.raises(NotImplementedError,
+                           match="multi-process online stream"):
+            _okm().fit_stream(_stream()[:2], **{knob: object()})
     assert fml.OnlineKMeans is t_okm.OnlineKMeans
     assert fml.OnlineKMeansModel is t_okm.OnlineKMeansModel

@@ -1,0 +1,1326 @@
+"""Self-healing training in the port: the numerics sentinel,
+rollback-and-quarantine recovery and the chaos soak
+(``flinkml_tpu_torch.recovery``), on the CPU.
+
+The first part mirrors the JAX package's ``tests/test_recovery.py`` case
+for case on the port (its serving cases come with the serving engine):
+an OnlineLogisticRegression, OnlineKMeans or OnlineStandardScaler fed a
+stream with a poisoned batch heals to a finite model bit-identical to the
+same stream without that batch. The second part holds the port against
+the JAX package on the same numpy inputs: sentinel verdicts, quarantine
+ledgers, healed fits under the same fault plans, ledger-carrying
+snapshots across packages, and the plan-sharded fit under ``NaNGrad``.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from flinkml_tpu_torch import faults
+from flinkml_tpu_torch.iteration import (
+    CheckpointManager,
+    IterationConfig,
+    TerminateOnMaxIter,
+    iterate,
+)
+from flinkml_tpu_torch.models import OnlineKMeans, OnlineLogisticRegression
+from flinkml_tpu_torch.models.online_scaler import OnlineStandardScaler
+from flinkml_tpu_torch.recovery import (
+    DATA_POISON,
+    SYSTEMIC,
+    NonFiniteModelError,
+    NumericsError,
+    NumericsSentinel,
+    QuarantineLedger,
+    RecoveryPolicy,
+)
+from flinkml_tpu_torch.table import Table
+from flinkml_tpu_torch.device import use_device
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    with use_device("cpu"):
+        yield
+
+
+N_BATCHES = 12
+POISON = 5
+INTERVAL = 2
+
+
+def lr_batches(seed=0, n=N_BATCHES, rows=48, dim=5, poison=None):
+    rng = np.random.default_rng(seed)
+    true = rng.normal(size=dim) * 2
+    out = []
+    for i in range(n):
+        x = rng.normal(size=(rows, dim))
+        if poison is not None and i == poison:
+            x = np.full_like(x, np.nan)
+        out.append(Table({"features": x,
+                          "label": (x @ true > 0).astype(np.float64)}))
+    return out
+
+
+def _lr():
+    return OnlineLogisticRegression().set_alpha(0.5).set_reg(0.01)
+
+
+def _policy(**kw):
+    kw.setdefault("backoff_s", 0.0)
+    return RecoveryPolicy(**kw)
+
+
+# ---------------------------------------------------------------------------
+# The sentinel
+# ---------------------------------------------------------------------------
+
+class TestSentinel:
+    def test_clean_state_passes(self):
+        s = NumericsSentinel()
+        s.check({"w": np.ones(4)}, 0.5, epoch=0, source_index=0)
+        assert s.checks == 1 and s.raises == 0
+
+    def test_nonfinite_state_is_data_poison(self):
+        s = NumericsSentinel()
+        with pytest.raises(NumericsError) as ei:
+            s.check({"w": np.array([1.0, np.nan])}, 0.5, epoch=3,
+                    source_index=7)
+        assert ei.value.classification == DATA_POISON
+        assert ei.value.epoch == 3 and ei.value.source_index == 7
+        assert ei.value.exact
+
+    def test_nonfinite_loss_is_data_poison(self):
+        s = NumericsSentinel()
+        with pytest.raises(NumericsError, match="non-finite loss"):
+            s.check({"w": np.ones(4)}, float("inf"), epoch=1,
+                    source_index=1)
+
+    def test_int_leaves_and_none_loss_pass(self):
+        s = NumericsSentinel()
+        s.check({"w": np.ones(2), "version": 3}, None, epoch=0,
+                source_index=0)
+        assert s.raises == 0
+
+    def test_magnitude_streak_is_systemic(self):
+        s = NumericsSentinel(max_abs=10.0, systemic_streak=3)
+        big = {"w": np.full(2, 100.0)}
+        s.check(big, 0.1, epoch=0, source_index=0)
+        s.check(big, 0.1, epoch=1, source_index=1)
+        with pytest.raises(NumericsError) as ei:
+            s.check(big, 0.1, epoch=2, source_index=2)
+        assert ei.value.classification == SYSTEMIC
+
+    def test_magnitude_streak_resets_on_clean_epoch(self):
+        s = NumericsSentinel(max_abs=10.0, systemic_streak=2)
+        s.check({"w": np.full(2, 100.0)}, 0.1, epoch=0, source_index=0)
+        s.check({"w": np.ones(2)}, 0.1, epoch=1, source_index=1)  # resets
+        s.check({"w": np.full(2, 100.0)}, 0.1, epoch=2, source_index=2)
+        assert s.raises == 0
+
+    def test_interval_checks_are_inexact_and_pinpointable(self):
+        s = NumericsSentinel(interval=4)
+        bad = {"w": np.array([np.nan])}
+        # epochs 0-2 not due; epoch 3 due ((3+1) % 4 == 0)
+        s.check(bad, 0.1, epoch=0, source_index=0)
+        s.check(bad, 0.1, epoch=2, source_index=2)
+        assert s.checks == 0
+        with pytest.raises(NumericsError) as ei:
+            s.check(bad, 0.1, epoch=3, source_index=3)
+        assert not ei.value.exact
+        # pinpoint mode: every epoch due again, detections exact
+        s.begin_pinpoint(3)
+        with pytest.raises(NumericsError) as ei2:
+            s.check(bad, 0.1, epoch=1, source_index=1)
+        assert ei2.value.exact
+
+    def test_validation(self):
+        with pytest.raises(ValueError):
+            NumericsSentinel(interval=0)
+        with pytest.raises(ValueError):
+            NumericsSentinel(systemic_streak=0)
+
+
+# ---------------------------------------------------------------------------
+# Ledger + policy
+# ---------------------------------------------------------------------------
+
+class TestLedgerAndPolicy:
+    def test_ledger_ranges_merge_and_roundtrip(self):
+        led = QuarantineLedger()
+        for i in (7, 3, 4, 5):
+            assert led.add(i)
+        assert not led.add(4)  # dupe
+        assert led.ranges() == [(3, 6), (7, 8)]
+        rt = QuarantineLedger.from_json_dict(led.to_json_dict())
+        assert rt.indices() == [3, 4, 5, 7]
+        assert 5 in rt and 6 not in rt
+
+    def test_source_position(self):
+        led = QuarantineLedger([1, 5])
+        # delivered d -> source watermark: quarantined batches BELOW the
+        # watermark were read-and-discarded and count; one sitting AT it
+        # is skipped at the next read (delivered order: 0,2,3,4,6,...).
+        assert led.source_position(0) == 0
+        assert led.source_position(1) == 1   # batch 1 not read yet
+        assert led.source_position(2) == 3   # 0,2 delivered; 1 skipped
+        assert led.source_position(4) == 5   # 0,2,3,4 delivered
+        assert led.source_position(5) == 7   # ...,6 delivered; 1,5 skipped
+        assert QuarantineLedger().source_position(9) == 9
+
+    def test_policy_validation_and_actions(self):
+        p = RecoveryPolicy()
+        assert p.action_for(DATA_POISON) == "rollback_quarantine"
+        assert p.action_for(SYSTEMIC) == "abort"
+        p2 = RecoveryPolicy(actions={SYSTEMIC: "stop_at_last_valid"})
+        assert p2.action_for(SYSTEMIC) == "stop_at_last_valid"
+        with pytest.raises(ValueError):
+            RecoveryPolicy(max_retries=0)
+        with pytest.raises(ValueError):
+            RecoveryPolicy(actions={"nope": "abort"})
+        with pytest.raises(ValueError):
+            RecoveryPolicy(actions={SYSTEMIC: "rollback_quarantine"})
+
+    def test_policy_backoff_jitter_bounds(self):
+        import random
+
+        p = RecoveryPolicy(backoff_s=0.1, backoff_jitter=0.5,
+                           max_backoff_s=10.0)
+        d = p.backoff(3, random.Random(0))  # base 0.4
+        assert 0.4 <= d <= 0.6
+        assert RecoveryPolicy(backoff_s=0.0).backoff(5) == 0.0
+        assert RecoveryPolicy(backoff_s=4.0, max_backoff_s=1.0).backoff(9) \
+            <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# E2E acceptance: poisoned stream self-heals without operator intervention
+# ---------------------------------------------------------------------------
+
+def test_poisoned_stream_self_heals_bit_exact(tmp_path):
+    """The self-healing acceptance criterion, first half: a NaN batch in the
+    stream is detected, rolled back past, quarantined, and the fit
+    converges — finite and bit-identical to the same stream with the
+    poisoned batch excluded; the ledger names exactly that batch."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    healed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL, recovery=_policy(),
+    )
+    assert np.isfinite(healed.coefficient).all()
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.model_version == golden.model_version == N_BATCHES - 1
+    summary = healed.recovery_summary
+    assert summary["quarantined"] == [POISON]
+    assert summary["quarantine_ranges"] == [(POISON, POISON + 1)]
+    assert summary["rollbacks"] == 1
+    assert summary["retries"] == {DATA_POISON: 1}
+    # The ledger rides the snapshot manifest (resume honors it).
+    ckpt = os.path.join(str(tmp_path / "ckpt"),
+                        f"ckpt-{N_BATCHES - 1}", "meta.json")
+    with open(ckpt) as f:
+        extra = json.load(f)["extra"]
+    assert extra["quarantine"] == {"ranges": [[POISON, POISON + 1]]}
+
+
+def test_poisoned_stream_survives_kill_mid_recovery(tmp_path):
+    """Second half: the healed run is KILLED after recovery (a
+    kill-after-commit past the quarantine), and the resumed process —
+    which knows nothing of the first — honors the ledger from the
+    snapshot manifest and completes to the same bit-exact model."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    # Kill at the first commit at-or-after epoch 8 (the quarantine of
+    # batch 5 happened around epoch 5 — the ledger is in that snapshot).
+    with faults.armed(faults.FaultPlan(
+            faults.KillAfterCheckpoint(min_epoch=8))):
+        with pytest.raises(faults.FaultInjected):
+            _lr().fit_stream(
+                lr_batches(poison=POISON), checkpoint_manager=mgr,
+                checkpoint_interval=INTERVAL, recovery=_policy(),
+            )
+    recorded = None
+    # the committed snapshot already carries the quarantine record
+    epochs = mgr.all_epochs()
+    with open(os.path.join(str(tmp_path / "ckpt"),
+                           f"ckpt-{epochs[-1]}", "meta.json")) as f:
+        recorded = json.load(f)["extra"].get("quarantine")
+    assert recorded == {"ranges": [[POISON, POISON + 1]]}
+
+    resumed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL, resume=True, recovery=_policy(),
+    )
+    np.testing.assert_array_equal(resumed.coefficient, golden.coefficient)
+    assert resumed.model_version == golden.model_version
+    # The resumed session quarantined nothing NEW (the ledger came from
+    # the manifest), and its summary carries the inherited skips.
+    assert resumed.recovery_summary["quarantined"] == [POISON]
+    assert resumed.recovery_summary["rollbacks"] == 0
+
+
+def test_resume_honors_ledger_without_policy(tmp_path):
+    """A ledgered snapshot resumed WITHOUT a recovery policy still skips
+    the quarantined range — the ledger is part of the snapshot contract,
+    not of the policy object."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    with faults.armed(faults.FaultPlan(
+            faults.KillAfterCheckpoint(min_epoch=8))):
+        with pytest.raises(faults.FaultInjected):
+            _lr().fit_stream(
+                lr_batches(poison=POISON), checkpoint_manager=mgr,
+                checkpoint_interval=INTERVAL, recovery=_policy(),
+            )
+    resumed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL, resume=True,  # no recovery=
+    )
+    np.testing.assert_array_equal(resumed.coefficient, golden.coefficient)
+    assert resumed.model_version == golden.model_version
+
+
+def test_poison_batch_fault_heals_identically(tmp_path):
+    """The same acceptance shape driven by the PoisonBatch fault at the
+    train.step seam instead of NaN data — the seam poisons batch 5's
+    floats before the step consumes them, and re-fires on every retry
+    (only the quarantine heals it)."""
+    clean = lr_batches()
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(clean) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    with faults.armed(faults.FaultPlan(faults.PoisonBatch(POISON))) as plan:
+        healed = _lr().fit_stream(
+            clean, checkpoint_manager=mgr,
+            checkpoint_interval=INTERVAL, recovery=_policy(),
+        )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantined"] == [POISON]
+    assert any(site == "train.step" for site, _, _ in plan.log)
+
+
+def test_adjacent_poisoned_batches_quarantine_as_one_range(tmp_path):
+    """Two adjacent NaN batches heal as two rollbacks and ONE merged
+    ledger range."""
+    batches = lr_batches()
+    for i in (POISON, POISON + 1):
+        batches[i] = Table({
+            "features": np.full((48, 5), np.nan),
+            "label": np.zeros(48),
+        })
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(batches)
+         if i not in (POISON, POISON + 1)]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    healed = _lr().fit_stream(
+        batches, checkpoint_manager=mgr, checkpoint_interval=INTERVAL,
+        recovery=_policy(),
+    )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantine_ranges"] == \
+        [(POISON, POISON + 2)]
+    assert healed.recovery_summary["rollbacks"] == 2
+
+
+def test_recovery_without_manager_replays_from_scratch(tmp_path):
+    """No checkpoint manager: the rollback is an (explicit, logged)
+    fresh start with the ledger applied — still converges to the
+    excluded-batch golden."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    healed = _lr().fit_stream(lr_batches(poison=POISON),
+                              recovery=_policy())
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantined"] == [POISON]
+
+
+# ---------------------------------------------------------------------------
+# Compound recovery (satellite): numerics fault + damaged rollback target
+# ---------------------------------------------------------------------------
+
+def km_batches(seed=1, n=N_BATCHES, rows=40, dim=4):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-8, 8, size=(3, dim))
+    out = []
+    for _ in range(n):
+        assign = rng.integers(0, 3, size=rows)
+        x = centers[assign] + rng.normal(scale=0.4, size=(rows, dim))
+        out.append(Table({"features": x}))
+    return out
+
+
+def sc_batches(seed=2, n=N_BATCHES, rows=32, dim=6):
+    rng = np.random.default_rng(seed)
+    return [Table({"input": rng.normal(size=(rows, dim)) * (1 + i)})
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("trainer", ["lr", "kmeans", "scaler"])
+def test_compound_nangrad_plus_corrupt_rollback_target(tmp_path, trainer):
+    """The compound satellite, per online trainer: NaNGrad at epoch 7
+    AND a corrupted rollback target (the epoch-6 interval commit) ⇒ the
+    recovery's restore_latest walks back ONE MORE snapshot (epoch 4),
+    quarantines batch 7, and converges to finite-model parity with the
+    batch-7-excluded run."""
+    k = 7
+    if trainer == "lr":
+        make, batches = _lr, lr_batches()
+        final = lambda m: m.coefficient
+        version = lambda m: m.model_version
+    elif trainer == "kmeans":
+        make = lambda: OnlineKMeans().set_k(3).set_seed(11) \
+            .set_decay_factor(0.9)
+        batches = km_batches()
+        final = lambda m: m.centroids
+        version = lambda m: m.model_version
+    else:
+        make = lambda: OnlineStandardScaler().set_input_col("input")
+        batches = sc_batches()
+        final = lambda m: np.stack([m._data["mean"], m._data["std"]])
+        version = lambda m: m.model_version
+
+    golden = make().fit_stream(
+        [b for i, b in enumerate(batches) if i != k]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    # Plan order: corrupt the epoch-6 commit the moment it lands, then
+    # let NaNGrad poison epoch 7's step — the rollback target is already
+    # damaged when the recovery engine reaches for it.
+    with faults.armed(faults.FaultPlan(
+            faults.CorruptSnapshot(min_epoch=6, target="arrays"),
+            faults.NaNGrad(k))) as plan:
+        healed = make().fit_stream(
+            batches, checkpoint_manager=mgr,
+            checkpoint_interval=INTERVAL, recovery=_policy(),
+        )
+    assert np.isfinite(final(healed)).all()
+    np.testing.assert_array_equal(final(healed), final(golden))
+    assert version(healed) == version(golden) == N_BATCHES - 1
+    assert healed.recovery_summary["quarantined"] == [k]
+    # Both faults fired: the corrupt at the epoch-6 commit, the NaN at
+    # epoch 7 — and recovery had to fall back PAST the corrupt snapshot.
+    sites = [site for site, _, _ in plan.log]
+    assert "checkpoint.committed" in sites and "train.step" in sites
+
+
+def test_compound_shuffled_dataset_nangrad_torn_write(tmp_path):
+    """The shuffled-Dataset variant of the compound satellite: a
+    seeded-shuffle Dataset feed where TornWrite kills the epoch-6
+    commit (a crash — the snapshot never lands, so the restart resumes
+    from the epoch-4 one: the rollback target fell one snapshot back)
+    and NaNGrad then poisons the resumed run's epoch 7 ⇒ quarantine of
+    the poisoned SOURCE batch, healed model bit-identical to the golden
+    run whose feed skips that batch — shuffle order preserved
+    throughout (cursor replay)."""
+    from flinkml_tpu_torch.data import Dataset
+
+    rows = np.concatenate([np.asarray(b.column("features"))
+                           for b in lr_batches(seed=3)])
+    labels = np.concatenate([np.asarray(b.column("label"))
+                             for b in lr_batches(seed=3)])
+
+    def ds():
+        return Dataset.from_arrays(
+            Table({"features": rows, "label": labels}), batch_size=48
+        ).shuffle(4, seed=13)
+
+    k = 7
+    # Golden: the same shuffled sequence with delivered batch 7 removed.
+    seq = list(ds())
+    golden = _lr().fit_stream([b for i, b in enumerate(seq) if i != k])
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    with faults.armed(faults.FaultPlan(
+            faults.TornWrite(6), faults.NaNGrad(k))):
+        with pytest.raises(faults.FaultInjected):
+            _lr().fit_stream(ds(), checkpoint_manager=mgr,
+                             checkpoint_interval=INTERVAL,
+                             recovery=_policy())
+        assert mgr.latest_epoch() == 4  # 6 torn: one snapshot back
+        healed = _lr().fit_stream(
+            ds(), checkpoint_manager=mgr, checkpoint_interval=INTERVAL,
+            resume=True, recovery=_policy(),
+        )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.model_version == golden.model_version == N_BATCHES - 1
+    assert healed.recovery_summary["quarantined"] == [k]
+    # The terminal snapshot's cursor advanced past the quarantined batch
+    # (source watermark = delivered + skipped).
+    with open(os.path.join(str(tmp_path / "ckpt"),
+                           f"ckpt-{N_BATCHES - 1}", "meta.json")) as f:
+        extra = json.load(f)["extra"]
+    assert extra["data_cursor"]["emitted"] == N_BATCHES
+    assert extra["quarantine"] == {"ranges": [[k, k + 1]]}
+
+
+def test_torn_write_restart_then_poison_composes(tmp_path):
+    """TornWrite kills the epoch-6 commit (a crash, restarted like an
+    orchestrator would) and the SAME stream then poisons batch 7 on the
+    resumed run: the restart path and the in-loop heal compose to
+    excluded-batch parity."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=7)) if i != 7]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    with faults.armed(faults.FaultPlan(faults.TornWrite(6))):
+        with pytest.raises(faults.FaultInjected):
+            _lr().fit_stream(lr_batches(poison=7), checkpoint_manager=mgr,
+                             checkpoint_interval=INTERVAL,
+                             recovery=_policy())
+        assert mgr.latest_epoch() == 4  # 6 torn — one snapshot back
+        resumed = _lr().fit_stream(
+            lr_batches(poison=7), checkpoint_manager=mgr,
+            checkpoint_interval=INTERVAL, resume=True, recovery=_policy(),
+        )
+    np.testing.assert_array_equal(resumed.coefficient, golden.coefficient)
+    assert resumed.recovery_summary["quarantined"] == [7]
+
+
+# ---------------------------------------------------------------------------
+# Classification, escalation, actions
+# ---------------------------------------------------------------------------
+
+def test_sentinel_without_recovery_raises_typed(tmp_path):
+    with pytest.raises(NumericsError) as ei:
+        _lr().fit_stream(lr_batches(poison=POISON),
+                         sentinel=NumericsSentinel())
+    assert ei.value.classification == DATA_POISON
+    assert ei.value.source_index == POISON
+
+
+def test_infloss_fault_quarantines_and_heals(tmp_path):
+    clean = lr_batches()
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(clean) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    with faults.armed(faults.FaultPlan(faults.InfLoss(POISON))):
+        healed = _lr().fit_stream(
+            clean, checkpoint_manager=mgr, checkpoint_interval=INTERVAL,
+            recovery=_policy(),
+        )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["retries"] == {DATA_POISON: 1}
+
+
+def test_systemic_divergence_aborts_with_context(tmp_path):
+    """A magnitude divergence (finite but exploding) is systemic: no
+    batch to quarantine, the default action aborts with a typed error."""
+    def step(carry, batch, epoch):
+        return {"w": carry["w"] * 100.0}, 0.1
+
+    with pytest.raises(NumericsError) as ei:
+        iterate(
+            step, {"w": np.ones(3)},
+            [np.zeros(1)] * 20,
+            IterationConfig(
+                TerminateOnMaxIter(2**31 - 1),
+                sentinel=NumericsSentinel(max_abs=1e4, systemic_streak=2),
+                recovery=_policy(),
+            ),
+        )
+    assert ei.value.classification == SYSTEMIC
+    assert "unrecoverable" in str(ei.value)
+
+
+def test_systemic_stop_at_last_valid_returns_snapshot(tmp_path):
+    """The stop_at_last_valid action: the run terminates with the
+    newest valid (finite) snapshot instead of raising."""
+    def step(carry, batch, epoch):
+        return {"w": carry["w"] * 10.0, "version": carry["version"] + 1}, 0.1
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    result = iterate(
+        step, {"w": np.ones(3), "version": 0},
+        [np.zeros(1)] * 30,
+        IterationConfig(
+            TerminateOnMaxIter(2**31 - 1),
+            checkpoint_interval=2, checkpoint_manager=mgr,
+            sentinel=NumericsSentinel(max_abs=1e6, systemic_streak=2),
+            recovery=_policy(
+                actions={SYSTEMIC: "stop_at_last_valid"}
+            ),
+        ),
+    )
+    assert result.recovery["stopped_early"]
+    assert np.isfinite(result.state["w"]).all()
+    assert np.all(np.abs(result.state["w"]) <= 1e6)
+    # The returned state IS a committed snapshot.
+    assert result.state["version"] in mgr.all_epochs()
+
+
+def test_quarantine_budget_escalates(tmp_path):
+    """Every batch poisoned: the quarantine budget trips and the run
+    escalates to the systemic action instead of quarantining the whole
+    feed."""
+    batches = [Table({"features": np.full((8, 3), np.nan),
+                      "label": np.zeros(8)})
+               for _ in range(10)]
+    with pytest.raises(NumericsError) as ei:
+        _lr().fit_stream(batches,
+                         recovery=_policy(quarantine_budget=3))
+    assert ei.value.classification == SYSTEMIC
+    assert "budget" in str(ei.value)
+
+
+def test_continue_stream_cannot_heal(tmp_path):
+    """A live one-shot stream (stream_resume='continue') cannot be
+    rolled back: the poison escalates to a loud systemic abort rather
+    than silently dropping data."""
+    with pytest.raises(NumericsError) as ei:
+        _lr().fit_stream(iter(lr_batches(poison=POISON)),
+                         stream_resume="continue",
+                         recovery=_policy())
+    assert "cannot be quarantined" in str(ei.value)
+
+
+def test_one_shot_stream_inexact_verdict_cannot_pinpoint():
+    """A one-shot generator feed with an interval-checked sentinel:
+    the inexact verdict must NOT trigger a pinpoint retry (re-iterating
+    the consumed stream would silently train on a truncated tail) —
+    loud escalation instead."""
+    def gen():
+        yield from lr_batches(poison=POISON)
+
+    with pytest.raises(NumericsError) as ei:
+        _lr().fit_stream(gen(), sentinel=NumericsSentinel(interval=4),
+                         recovery=_policy())
+    assert ei.value.classification == SYSTEMIC
+    assert "not replayable" in str(ei.value)
+
+
+def test_tuple_feed_keeps_stream_semantics():
+    """A TUPLE of batches trains exactly like the same list (the
+    runtime treats bare tuples as static pytrees, so peek_stream must
+    keep routing tuple feeds through the chained-iterator path)."""
+    batches = lr_batches(n=4)
+    from_list = _lr().fit_stream(list(batches))
+    from_tuple = _lr().fit_stream(tuple(batches))
+    np.testing.assert_array_equal(from_tuple.coefficient,
+                                  from_list.coefficient)
+    assert from_tuple.model_version == 4
+
+
+def test_data_poison_action_overrides(tmp_path):
+    """A user may opt poison verdicts OUT of healing: 'abort' raises
+    the typed error (no quarantine), 'stop_at_last_valid' returns the
+    newest valid snapshot's model."""
+    with pytest.raises(NumericsError) as ei:
+        _lr().fit_stream(
+            lr_batches(poison=POISON),
+            recovery=_policy(actions={DATA_POISON: "abort"}),
+        )
+    assert ei.value.classification == DATA_POISON
+    assert "unrecoverable" in str(ei.value)
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    stopped = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL,
+        recovery=_policy(actions={DATA_POISON: "stop_at_last_valid"}),
+    )
+    assert np.isfinite(stopped.coefficient).all()
+    assert stopped.recovery_summary["stopped_early"]
+    assert stopped.recovery_summary["quarantined"] == []  # no healing
+    assert stopped.model_version == 4  # the newest pre-poison commit
+
+
+def test_interval_sentinel_heals_with_min_retry_budget(tmp_path):
+    """The pinpoint re-run's exact localization counts as PROGRESS:
+    even max_retries=1 (the validator's minimum) heals one poisoned
+    batch under an interval sentinel — the pinpoint rollback must not
+    consume the no-progress budget."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    healed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL,
+        sentinel=NumericsSentinel(interval=4),
+        recovery=_policy(max_retries=1),
+    )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantined"] == [POISON]
+
+
+def test_fresh_run_never_rolls_back_to_stale_snapshots(tmp_path):
+    """A FRESH fit (resume=False) over a dirty checkpoint directory
+    must not let recovery resurrect the previous run's model: rollback
+    only targets snapshots this run committed (or restored at entry)."""
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    # Previous run over DIFFERENT data leaves stale ckpt-2..ckpt-12.
+    _lr().fit_stream(lr_batches(seed=99), checkpoint_manager=mgr,
+                     checkpoint_interval=INTERVAL)
+    assert mgr.latest_epoch() == N_BATCHES
+
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    healed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL, recovery=_policy(),
+    )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.model_version == golden.model_version == N_BATCHES - 1
+    assert healed.recovery_summary["quarantined"] == [POISON]
+
+
+def test_inplace_mutating_step_fresh_rollback_is_pristine():
+    """A step that mutates its carry arrays IN PLACE must not corrupt
+    the rollback-to-fresh template (no manager: every rollback is a
+    fresh start) — the heal still quarantines exactly the poisoned
+    batch and ends finite."""
+    B, P = 8, 3
+    rng = np.random.default_rng(0)
+    batches = [rng.normal(size=(4, 3)) for _ in range(B)]
+    batches[P] = np.full((4, 3), np.nan)
+
+    def step(carry, batch, epoch):
+        carry["w"] += np.asarray(batch).sum(0)  # in-place!
+        return carry, float(carry["w"][0])
+
+    result = iterate(
+        step, {"w": np.zeros(3)}, batches,
+        IterationConfig(TerminateOnMaxIter(2**31 - 1),
+                        recovery=_policy()),
+    )
+    assert np.isfinite(result.state["w"]).all()
+    assert result.recovery["quarantined"] == [P]
+    expected = np.sum([b for i, b in enumerate(batches) if i != P],
+                      axis=(0, 1))
+    np.testing.assert_allclose(result.state["w"], expected)
+
+
+def test_two_poisons_in_one_interval_window_heal_at_min_retries(tmp_path):
+    """Two poisoned batches inside a single sentinel-interval window:
+    each new quarantine counts as forward progress, so even
+    max_retries=1 heals both (the quarantine_budget, not the retry
+    count, bounds this axis)."""
+    batches = lr_batches()
+    for i in (POISON, POISON + 1):
+        batches[i] = Table({"features": np.full((48, 5), np.nan),
+                            "label": np.zeros(48)})
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(batches)
+         if i not in (POISON, POISON + 1)]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    healed = _lr().fit_stream(
+        batches, checkpoint_manager=mgr, checkpoint_interval=INTERVAL,
+        sentinel=NumericsSentinel(interval=4),
+        recovery=_policy(max_retries=1),
+    )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantine_ranges"] == \
+        [(POISON, POISON + 2)]
+
+
+def test_interval_sentinel_pinpoints_before_quarantining(tmp_path):
+    """An interval-4 sentinel detects the poison late (inexact): the
+    engine rolls back WITHOUT quarantining, re-runs with per-epoch
+    checks to pinpoint the batch, then quarantines exactly it — same
+    final parity, one extra rollback."""
+    golden = _lr().fit_stream(
+        [b for i, b in enumerate(lr_batches(poison=POISON)) if i != POISON]
+    )
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    healed = _lr().fit_stream(
+        lr_batches(poison=POISON), checkpoint_manager=mgr,
+        checkpoint_interval=INTERVAL,
+        sentinel=NumericsSentinel(interval=4),
+        recovery=_policy(),
+    )
+    np.testing.assert_array_equal(healed.coefficient, golden.coefficient)
+    assert healed.recovery_summary["quarantined"] == [POISON]
+    assert healed.recovery_summary["rollbacks"] == 2  # pinpoint + heal
+
+
+def test_rollback_discards_nonfinite_snapshot_from_disk(tmp_path):
+    """A non-finite snapshot the rollback walk-back skips is DELETED,
+    not left as the newest epoch on disk: a kill before the retry
+    re-commits that epoch would otherwise hand the poisoned carry to
+    the resumed run's finiteness-unaware ``restore_latest`` — which
+    would then quarantine whatever batch happened to be current."""
+    from flinkml_tpu_torch.recovery.engine import RecoverySession
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=10)
+    fine = {"w": np.ones(3)}
+    mgr.save(fine, 2)
+    mgr.save({"w": np.array([1.0, np.nan, 1.0])}, 4)  # interval-window
+    mgr.wait()
+
+    session = RecoverySession(
+        _policy(), mgr, NumericsSentinel(), QuarantineLedger(),
+        {"w": np.zeros(3)}, replayable=True, initially_restored=True,
+    )
+    state, epoch, restored = session._rollback()
+    assert restored and epoch == 2
+    np.testing.assert_array_equal(state["w"], fine["w"])
+    # The poisoned commit is gone: a kill-and-resume lands on the
+    # finite snapshot, never the NaN carry.
+    assert mgr.all_epochs() == [2]
+    _, latest = mgr.restore_latest(like=fine)
+    assert latest == 2
+
+
+def test_read_extra_is_structure_independent(tmp_path):
+    """``read_extra`` returns a snapshot's sidecar records (here the
+    quarantine ledger) without a carry-shaped ``like`` — what the
+    chaos soak's disk-ledger invariant reads."""
+    from flinkml_tpu_torch.iteration.checkpoint import CheckpointIntegrityError
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    ledger = QuarantineLedger([POISON])
+    mgr.save({"anything": np.ones(2), "nested": {"n": np.zeros(1)}}, 3,
+             extra={"quarantine": ledger.to_json_dict()})
+    mgr.wait()
+    recorded = mgr.read_extra(3).get("quarantine")
+    assert QuarantineLedger.from_json_dict(recorded).indices() == [POISON]
+    # a damaged manifest raises typed, never an empty dict
+    meta = tmp_path / "ckpt" / "ckpt-3" / "meta.json"
+    meta.write_text("{not json")
+    with pytest.raises(CheckpointIntegrityError):
+        mgr.read_extra(3)
+
+
+def test_recovery_metrics_exposed():
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    before = dict(
+        metrics.group("recovery").snapshot()["counters"]
+    )
+    _lr().fit_stream(lr_batches(poison=POISON), recovery=_policy())
+    g = metrics.group("recovery").snapshot()
+    assert g["counters"]["rollbacks_total"] >= \
+        before.get("rollbacks_total", 0) + 1
+    assert g["counters"]["quarantined_batches"] >= \
+        before.get("quarantined_batches", 0) + 1
+    assert "time_to_recover_p50_ms" in g["gauges"]
+    assert "time_to_recover_p99_ms" in g["gauges"]
+    labeled = metrics.group(
+        "recovery", labels={"class": DATA_POISON}
+    ).snapshot()
+    assert labeled["counters"].get("retries_total", 0) >= 1
+    text = metrics.render_text()
+    assert ('flinkml_retries_total{group="recovery",class="data_poison"}'
+            in text)
+    assert 'flinkml_rollbacks_total{group="recovery"}' in text
+
+
+def _metrics_counters_meters(reg):
+    g = reg.group("op")
+    g.counter("records", 3)
+    g.counter("records", 2)
+    g.gauge("epoch", 7)
+    g.gauge("label", "not-a-number")
+    g.record("loss", 0.5)
+    g.record("loss", 0.25)
+    m = g.meter("rows")
+    m.mark(100, now=0.0)
+    m.mark(100, now=1.0)
+    reg.group("train.lr").counter("records", 7)
+
+
+def _metrics_names_and_escapes(reg):
+    reg.group("g").counter("weird name-1.x", 1)
+    reg.group('serving.a"b\\c').counter("requests", 1)
+
+
+def _metrics_labels(reg):
+    for i, depth in enumerate((2, 5)):
+        g = reg.group("serving.pool", labels={"replica": f"r{i}"})
+        g.gauge("queue_depth", depth)
+        g.counter("requests", 10 * (i + 1))
+    reg.group("serving.pool").counter("requests", 7)
+
+
+def _metrics_precision_and_kinds(reg):
+    reg.group("g").counter("requests", 1_234_567)
+    reg.group("a").counter("depth", 2)
+    reg.group("b").gauge("depth", 5)
+    reg.group("c").gauge("ratio", 0.1)
+    reg.group("d").gauge("flag", True)
+
+
+@pytest.mark.parametrize("fill", [
+    _metrics_counters_meters, _metrics_names_and_escapes, _metrics_labels,
+    _metrics_precision_and_kinds,
+], ids=lambda f: f.__name__[len("_metrics_"):])
+def test_metrics_registry_matches_jax(fill):
+    """The same operations on the port's and the JAX package's registries
+    give the same snapshot and the same text exposition, byte for byte
+    (counters, gauges, meter rates, histories, labels, escaping, full
+    precision, one family per type)."""
+    from flinkml_tpu.utils.metrics import MetricsRegistry as JaxRegistry
+    from flinkml_tpu_torch.utils.metrics import MetricsRegistry
+
+    port, ref = MetricsRegistry(), JaxRegistry()
+    fill(port)
+    fill(ref)
+    assert port.snapshot() == ref.snapshot()
+    text = port.render_text()
+    assert text == ref.render_text()
+    assert text == port.render_text() and text.endswith("\n")
+    port.reset()
+    assert port.snapshot() == {} and port.render_text() == ""
+
+
+def test_metrics_meter_rate_window():
+    """A meter's rate is the events after the first over the window's
+    span, 0.0 with fewer than two marks or no elapsed time, as JAX's."""
+    from flinkml_tpu.utils.metrics import Meter as JaxMeter
+    from flinkml_tpu_torch.utils.metrics import Meter
+
+    for meter in (Meter(window=3), JaxMeter(window=3)):
+        assert meter.rate == 0.0
+        meter.mark(5, now=1.0)
+        assert meter.rate == 0.0
+        meter.mark(5, now=1.0)
+        assert meter.rate == 0.0
+        for t in (2.0, 3.0, 5.0):
+            meter.mark(10, now=t)
+        assert meter.rate == pytest.approx(20 / 3.0)
+
+
+# ---------------------------------------------------------------------------
+# Chaos soak + shrink
+# ---------------------------------------------------------------------------
+
+def test_fuzzplan_is_deterministic():
+    fz = faults.FuzzPlan(seed=11, budget=30, horizon=10)
+    a = [f.describe() for f in fz.sample(4).faults]
+    b = [f.describe() for f in faults.FuzzPlan(seed=11, horizon=10)
+         .sample(4).faults]
+    assert a == b
+    c = [f.describe() for f in faults.FuzzPlan(seed=12, horizon=10)
+         .sample(4).faults]
+    assert [f.describe() for f in fz.sample(5).faults] != a or c != a
+    assert len(list(fz.schedules())) == 30
+    with pytest.raises(ValueError):
+        faults.FuzzPlan(seed=1, seams=("no.such.seam",))
+
+
+def test_fault_plan_json_roundtrip():
+    plan = faults.FaultPlan(
+        faults.NaNGrad(3), faults.TornWrite(4),
+        faults.CorruptSnapshot(2, "manifest"),
+        faults.RaiseAtRead(5, "data.prefetch"),
+    )
+    js = faults.plan_to_json(plan, extra={"seed": 1})
+    rt = faults.plan_from_json(js)
+    assert [f.describe() for f in rt.faults] == \
+        [f.describe() for f in plan.faults]
+    assert json.loads(js)["seed"] == 1
+    # fresh instances: fired flags reset
+    assert not any(getattr(f, "fired", False) for f in rt.faults)
+
+
+def test_chaos_soak_small_budget_green():
+    from flinkml_tpu_torch.recovery.fuzz import run_soak
+
+    report = run_soak(seed=7, budget=8)
+    assert report.ok, [
+        (r.index, r.faults, r.failures) for r in report.failures
+    ]
+    assert len(report.results) == 8
+
+
+@pytest.mark.parametrize("argv, device", [
+    (["--budget", "2"], None),
+    (["--device", "cpu", "--budget", "2"], "cpu"),
+    (["--worker", "--budget", "2"], None),
+    (["--worker", "--device", "cpu", "--budget", "2"], "cpu"),
+])
+def test_soak_cli_runs_on_the_ports_device_unless_asked(monkeypatch, argv,
+                                                        device):
+    """The soak CLI, like every entry point, runs its trainers on the
+    port's default device (``cuda``) unless the caller passes
+    ``--device cpu``; the trainer and worker soaks get the same device."""
+    from flinkml_tpu_torch.recovery import fuzz
+
+    seen = []
+
+    def fake(**kwargs):
+        seen.append(kwargs["device"])
+        return fuzz.SoakReport(seed=kwargs["seed"], results=[],
+                               elapsed_s=0.0, budget=kwargs["budget"])
+
+    monkeypatch.setattr(fuzz, "run_soak", fake)
+    monkeypatch.setattr(fuzz, "run_worker_soak", fake)
+    assert fuzz.main(argv) == 0
+    assert seen == [device]
+
+
+def test_soak_cli_on_the_cpu_green(capsys):
+    from flinkml_tpu_torch.recovery.fuzz import main
+
+    assert main(["--device", "cpu", "--seed", "7", "--budget", "3"]) == 0
+    assert "FAILED" not in capsys.readouterr().out
+
+
+def test_worker_soak_restarts_across_process_boundary():
+    """The ``cluster.worker`` seam in the soak: schedules draw REAL
+    ``os._exit`` worker crashes, each trainer incarnation is a child
+    process, and the orchestrator-restart invariants (no silent fresh
+    start, ledger parity, bit-exact coefficients vs golden) hold with
+    nothing shared between incarnations but the checkpoint directory."""
+    from flinkml_tpu_torch.recovery.fuzz import run_worker_soak
+
+    report = run_worker_soak(seed=7, budget=3)
+    assert report.ok, [
+        (r.index, r.faults, r.failures) for r in report.failures
+    ]
+    assert len(report.results) == 3
+    # At least one schedule actually crossed the boundary: a hard exit
+    # answered by a restart (seed 7's draws include WorkerCrash).
+    assert sum(r.restarts for r in report.results) >= 1
+
+
+def test_worker_schedule_crash_then_poison_heals(tmp_path):
+    """One deterministic schedule: a WorkerCrash hard-exits the child
+    mid-stream AND a NaNGrad poisons a later batch — the restarted
+    incarnation resumes (not a fresh start), quarantines the poison,
+    and lands bit-exactly on the golden run minus that batch."""
+    from flinkml_tpu_torch.recovery.fuzz import GoldenCache, run_worker_schedule
+
+    golden = GoldenCache(0)
+    plan = faults.FaultPlan(
+        faults.WorkerCrash(at=4, key="epoch", exit_code=23,
+                           marker=str(tmp_path / "crash.marker")),
+        faults.NaNGrad(6),
+    )
+    result, failures, restarts = run_worker_schedule(plan, golden)
+    assert not failures, failures
+    assert restarts == 1
+    assert result["quarantined"] == [6]
+    assert result["model_version"] == 9  # 10 batches - 1 quarantined
+
+
+def test_shrink_minimizes_to_the_poison(tmp_path):
+    from flinkml_tpu_torch.recovery.fuzz import (
+        GoldenCache,
+        run_schedule,
+        shrink_schedule,
+    )
+
+    golden = GoldenCache(0)
+    plan = faults.FaultPlan(faults.TornWrite(3), faults.PoisonBatch(5),
+                            faults.RaiseAtEpoch(7))
+    _, failures, _ = run_schedule(plan, golden, self_heal=False)
+    assert failures  # un-healed poison: the seeded failing schedule
+    minimal = shrink_schedule(
+        plan,
+        lambda p: bool(run_schedule(p, golden, self_heal=False)[1]),
+    )
+    assert [f.describe() for f in minimal.faults] == \
+        ["PoisonBatch(at_batch=5)"]
+    # ... the written repro replays, and the SAME schedule heals under
+    # the recovery policy (the soak invariant).
+    replay = faults.plan_from_json(faults.plan_to_json(minimal))
+    _, healed_failures, _ = run_schedule(replay, golden, self_heal=True)
+    assert not healed_failures
+
+
+# ---------------------------------------------------------------------------
+# The port against the JAX package on the same numpy inputs
+# ---------------------------------------------------------------------------
+
+import torch  # noqa: E402
+
+from flinkml_tpu import faults as jax_faults  # noqa: E402
+from flinkml_tpu import recovery as jax_recovery  # noqa: E402
+from flinkml_tpu.iteration import (  # noqa: E402
+    CheckpointManager as JaxCheckpointManager,
+)
+from flinkml_tpu.models import online_kmeans as jax_okm  # noqa: E402
+from flinkml_tpu.models import online_logistic_regression as jax_olr  # noqa: E402
+from flinkml_tpu.models import online_scaler as jax_osc  # noqa: E402
+from flinkml_tpu.recovery import sentinel as jax_sentinel  # noqa: E402
+from flinkml_tpu.table import Table as JaxTable  # noqa: E402
+from flinkml_tpu_torch.recovery import sentinel as t_sentinel  # noqa: E402
+
+F64_TOL = 1e-10   # tests/test_torch_online.py's FTRL tolerance
+KM_TOL = 1e-12    # tests/test_torch_online_kmeans.py's
+
+_NAN, _INF = float("nan"), float("inf")
+VERDICT_CASES = {
+    "finite": ([np.array([1.0, -2.0])], 0.5, 1e8),
+    "nan_leaf": ([np.array([1.0, _NAN])], 0.5, 1e8),
+    "pos_inf": ([np.array([_INF, 1.0])], 0.5, 1e8),
+    "neg_inf": ([np.array([-_INF])], 0.5, 1e8),
+    "above_max_abs": ([np.array([3.0]), np.array([2e8, 1.0])], 0.1, 1e8),
+    "at_max_abs_f32": ([np.array([1e8 + 1.0])], 0.1, 1e8),
+    "nan_loss": ([np.ones(3)], _NAN, 1e8),
+    "inf_loss": ([np.ones(3)], _INF, 1e8),
+    "no_bound_inf": ([np.array([_INF])], 0.0, _INF),
+    "no_bound_nan": ([np.array([_NAN])], 0.0, _INF),
+    "f32_leaf": ([np.array([1.0, _NAN], np.float32)], 0.0, 1e8),
+    "two_leaves": ([np.array([[1.0, 2.0]]), np.array([-_INF])], _NAN, 10.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VERDICT_CASES))
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "torch"])
+def test_sentinel_bits_match_jax(case, as_tensor):
+    """One verdict pass gives JAX's bits, NaN included (a NaN leaf sets
+    the non-finite and the magnitude bit), on numpy and torch leaves; a
+    tensor loss comes back from the same read."""
+    leaves, loss, max_abs = VERDICT_CASES[case]
+    want = int(jax_sentinel._verdict_fn()(tuple(leaves), float(loss),
+                                          float(max_abs)))
+    t_leaves = [torch.from_numpy(a) for a in leaves] if as_tensor else leaves
+    t_loss = torch.tensor(loss, dtype=torch.float64) if as_tensor else loss
+    bits, value = t_sentinel.verdict_bits(
+        t_leaves, t_loss, None if max_abs == _INF else max_abs)
+    assert bits == want
+    assert value == loss or (np.isnan(value) and np.isnan(loss))
+
+
+def _raises(sentinel, module, steps):
+    """The (epoch, classification, exact, verdict) of every raise."""
+    out = []
+    for epoch, state, loss in steps:
+        try:
+            sentinel.check(state, loss, epoch=epoch, source_index=epoch)
+            out.append(None)
+        except module.NumericsError as e:
+            out.append((e.epoch, e.classification, e.exact, e.verdict))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["interval_pinpoint", "streak", "loss",
+                                  "int_leaves"])
+def test_sentinel_classification_matches_jax(kind):
+    bad, big, ok = {"w": np.array([_NAN])}, {"w": np.full(2, 1e3)}, \
+        {"w": np.ones(2), "version": 3}
+    if kind == "interval_pinpoint":
+        kw = dict(interval=4)
+        steps = [(0, ok, 0.1), (1, bad, 0.1), (3, bad, 0.1), (4, ok, 0.1),
+                 (7, ok, 0.1), (8, bad, 0.1)]
+    elif kind == "streak":
+        kw = dict(max_abs=10.0, systemic_streak=2)
+        steps = [(0, big, 0.1), (1, ok, 0.1), (2, big, 0.1), (3, big, 0.1),
+                 (4, big, 0.1)]
+    elif kind == "loss":
+        kw = {}
+        steps = [(0, ok, _INF), (1, ok, None), (2, ok, -_INF), (3, ok, 0.2)]
+    else:
+        kw = {}
+        steps = [(0, {"v": np.arange(3)}, None), (1, {"v": 2}, _NAN)]
+    got_s, want_s = t_sentinel.NumericsSentinel(**kw), \
+        jax_sentinel.NumericsSentinel(**kw)
+    got = _raises(got_s, t_sentinel, steps)
+    want = _raises(want_s, jax_sentinel, steps)
+    assert got == want
+    if kind == "interval_pinpoint":
+        got_s.begin_pinpoint(9)
+        want_s.begin_pinpoint(9)
+        more = [(5, bad, 0.1), (9, ok, 0.1), (10, bad, 0.1)]
+        assert _raises(got_s, t_sentinel, more) == \
+            _raises(want_s, jax_sentinel, more)
+    assert (got_s.checks, got_s.raises) == (want_s.checks, want_s.raises)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quarantine_ledger_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(40, size=int(rng.integers(0, 12)), replace=False)
+    got = QuarantineLedger([int(i) for i in idx])
+    want = jax_recovery.QuarantineLedger([int(i) for i in idx])
+    assert json.dumps(got.to_json_dict()) == json.dumps(want.to_json_dict())
+    assert got.ranges() == want.ranges() and len(got) == len(want)
+    assert [got.source_position(d) for d in range(45)] == \
+        [want.source_position(d) for d in range(45)]
+    back = jax_recovery.QuarantineLedger.from_json_dict(got.to_json_dict())
+    assert back.indices() == got.indices()
+
+
+def _trainer(pkg, kind):
+    if kind == "lr":
+        cls = OnlineLogisticRegression if pkg == "port" \
+            else jax_olr.OnlineLogisticRegression
+        return cls().set_alpha(0.5).set_reg(0.01)
+    if kind == "kmeans":
+        cls = OnlineKMeans if pkg == "port" else jax_okm.OnlineKMeans
+        return cls().set_k(3).set_seed(11).set_decay_factor(0.9)
+    return (OnlineStandardScaler if pkg == "port"
+            else jax_osc.OnlineStandardScaler)()
+
+
+def _feed(pkg, kind):
+    batches = {"lr": lr_batches, "kmeans": km_batches,
+               "scaler": sc_batches}[kind]()
+    if pkg == "port":
+        return batches
+    return [JaxTable({c: np.asarray(b.column(c)) for c in b.column_names})
+            for b in batches]
+
+
+def _final(model, kind):
+    if kind == "lr":
+        return np.asarray(model.coefficient)
+    if kind == "kmeans":
+        return np.asarray(model.centroids)
+    if hasattr(model, "_data"):
+        return np.stack([model._data["mean"], model._data["std"]])
+    return np.stack([model._mean, model._std])
+
+
+PARITY_PLANS = {
+    "poison_batch": lambda f: [f.PoisonBatch(5)],
+    "nan_grad": lambda f: [f.NaNGrad(5)],
+    "inf_loss": lambda f: [f.InfLoss(5)],
+    "corrupt_rollback_target": lambda f: [
+        f.CorruptSnapshot(min_epoch=6, target="arrays"), f.NaNGrad(7)],
+}
+
+
+@pytest.mark.parametrize("plan", sorted(PARITY_PLANS))
+@pytest.mark.parametrize("kind", ["lr", "kmeans", "scaler"])
+def test_healed_fits_match_jax(tmp_path, kind, plan):
+    """The same fault plan heals the port's and the JAX package's online
+    fits to the same model (FTRL within 1e-10, centroids and moments
+    within 1e-12) with the same recovery summary; the port's is bit for
+    bit its own golden run without the quarantined batch."""
+    results = {}
+    for pkg, mod, rec, mgr_cls in (
+            ("port", faults, None, CheckpointManager),
+            ("jax", jax_faults, jax_recovery, JaxCheckpointManager)):
+        kw = {} if pkg == "port" else {"world_size": 1}
+        mgr = mgr_cls(str(tmp_path / pkg), max_to_keep=10, **kw)
+        policy = (_policy() if pkg == "port"
+                  else jax_recovery.RecoveryPolicy(backoff_s=0.0))
+        with mod.armed(mod.FaultPlan(*PARITY_PLANS[plan](mod))):
+            results[pkg] = _trainer(pkg, kind).fit_stream(
+                _feed(pkg, kind), checkpoint_manager=mgr,
+                checkpoint_interval=INTERVAL, recovery=policy)
+    got, want = results["port"], results["jax"]
+    tol = F64_TOL if kind == "lr" else KM_TOL
+    np.testing.assert_allclose(_final(got, kind), _final(want, kind),
+                               rtol=tol, atol=tol)
+    assert got.recovery_summary == want.recovery_summary
+    assert got.model_version == want.model_version
+    q = got.recovery_summary["quarantined"]
+    golden = _trainer("port", kind).fit_stream(
+        [b for i, b in enumerate(_feed("port", kind)) if i not in q])
+    np.testing.assert_array_equal(_final(got, kind), _final(golden, kind))
+
+
+@pytest.mark.parametrize("kind", ["lr", "kmeans", "scaler"])
+def test_torn_write_then_poison_matches_jax(tmp_path, kind):
+    """TornWrite kills the epoch-6 commit, the restarted run heals a
+    NaNGrad at batch 7: port and JAX land on the same model and summary."""
+    results = {}
+    for pkg, mod, mgr_cls in (("port", faults, CheckpointManager),
+                              ("jax", jax_faults, JaxCheckpointManager)):
+        kw = {} if pkg == "port" else {"world_size": 1}
+        mgr = mgr_cls(str(tmp_path / pkg), max_to_keep=10, **kw)
+        policy = (_policy() if pkg == "port"
+                  else jax_recovery.RecoveryPolicy(backoff_s=0.0))
+        with mod.armed(mod.FaultPlan(mod.TornWrite(6), mod.NaNGrad(7))):
+            with pytest.raises(mod.FaultInjected):
+                _trainer(pkg, kind).fit_stream(
+                    _feed(pkg, kind), checkpoint_manager=mgr,
+                    checkpoint_interval=INTERVAL, recovery=policy)
+            assert mgr.latest_epoch() == 4
+            results[pkg] = _trainer(pkg, kind).fit_stream(
+                _feed(pkg, kind), checkpoint_manager=mgr,
+                checkpoint_interval=INTERVAL, resume=True, recovery=policy)
+    got, want = results["port"], results["jax"]
+    tol = F64_TOL if kind == "lr" else KM_TOL
+    np.testing.assert_allclose(_final(got, kind), _final(want, kind),
+                               rtol=tol, atol=tol)
+    assert got.recovery_summary == want.recovery_summary
+    assert got.recovery_summary["quarantined"] == [7]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_ledgered_snapshot_resumes_across_packages(tmp_path, writer):
+    """A healed run killed after a commit that carries the quarantine
+    ledger, written by one package, resumes in the other with the skips
+    intact (no policy on the resume: the ledger is part of the snapshot)
+    and lands on the resuming package's own golden run."""
+    d = str(tmp_path / "ckpt")
+    if writer == "jax":
+        mgr = JaxCheckpointManager(d, max_to_keep=10, world_size=1)
+        with jax_faults.armed(jax_faults.FaultPlan(
+                jax_faults.KillAfterCheckpoint(min_epoch=8))):
+            with pytest.raises(jax_faults.FaultInjected):
+                _trainer("jax", "lr").fit_stream(
+                    [JaxTable({c: np.asarray(b.column(c))
+                               for c in b.column_names})
+                     for b in lr_batches(poison=POISON)],
+                    checkpoint_manager=mgr, checkpoint_interval=INTERVAL,
+                    recovery=jax_recovery.RecoveryPolicy(backoff_s=0.0))
+        resumed = _lr().fit_stream(
+            lr_batches(poison=POISON),
+            checkpoint_manager=CheckpointManager(d, max_to_keep=10),
+            checkpoint_interval=INTERVAL, resume=True)
+        golden = _lr().fit_stream(
+            [b for i, b in enumerate(lr_batches()) if i != POISON])
+        np.testing.assert_allclose(resumed.coefficient, golden.coefficient,
+                                   rtol=F64_TOL, atol=F64_TOL)
+    else:
+        mgr = CheckpointManager(d, max_to_keep=10)
+        with faults.armed(faults.FaultPlan(
+                faults.KillAfterCheckpoint(min_epoch=8))):
+            with pytest.raises(faults.FaultInjected):
+                _lr().fit_stream(lr_batches(poison=POISON),
+                                 checkpoint_manager=mgr,
+                                 checkpoint_interval=INTERVAL,
+                                 recovery=_policy())
+        batches = [JaxTable({c: np.asarray(b.column(c))
+                             for c in b.column_names})
+                   for b in lr_batches(poison=POISON)]
+        resumed = _trainer("jax", "lr").fit_stream(
+            batches, checkpoint_manager=JaxCheckpointManager(
+                d, max_to_keep=10, world_size=1),
+            checkpoint_interval=INTERVAL, resume=True)
+        golden = _trainer("jax", "lr").fit_stream(
+            [b for i, b in enumerate(batches) if i != POISON])
+        np.testing.assert_allclose(resumed.coefficient, golden.coefficient,
+                                   rtol=F64_TOL, atol=F64_TOL)
+    assert resumed.model_version == N_BATCHES - 1
+    with open(os.path.join(d, f"ckpt-{N_BATCHES - 1}", "meta.json")) as f:
+        assert json.load(f)["extra"]["quarantine"] == \
+            {"ranges": [[POISON, POISON + 1]]}
+
+
+def test_inplace_tensor_step_rollback_is_pristine_on_its_device():
+    """A step that updates its tensor carry in place (``add_``) cannot
+    reach the rollback copy: every rollback hands out a fresh clone on the
+    carry's device and in its dtype, and the heal equals the clean sum."""
+    B, P = 8, 3
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.normal(size=(4, 3))) for _ in range(B)]
+    batches[P] = torch.full((4, 3), float("nan"), dtype=torch.float64)
+    init = {"w": torch.zeros(3, dtype=torch.float64)}
+    seen = []
+
+    def step(carry, batch, epoch):
+        seen.append((carry["w"].device, carry["w"].dtype))
+        carry["w"].add_(batch.sum(0))  # in place
+        return carry, carry["w"][0]
+
+    result = iterate(step, init, batches, IterationConfig(
+        TerminateOnMaxIter(2**31 - 1), recovery=_policy()))
+    assert torch.isfinite(result.state["w"]).all()
+    assert result.recovery["quarantined"] == [P]
+    want = torch.stack([b for i, b in enumerate(batches) if i != P]).sum(
+        (0, 1))
+    torch.testing.assert_close(result.state["w"], want, rtol=1e-12,
+                               atol=1e-12)
+    assert set(seen) == {(torch.device("cpu"), torch.float64)}

@@ -694,8 +694,9 @@ def test_plan_unaware_estimators_refuse_the_knob_at_construction(on_cpu):
 
 def test_refusals_come_before_any_step(monkeypatch, on_cpu):
     """FML502 (an uneven fsdp split) and FML501 (a mesh without the
-    plan's axes) are refused before any step runs; ``sentinel=`` is item
-    12."""
+    plan's axes) are refused before any step runs. ``sentinel=`` (item
+    12) is ported: under ``NaNGrad`` it raises the same ``NumericsError``
+    at the same epoch as JAX's plan fit, before that epoch's snapshot."""
     calls = []
     monkeypatch.setattr(t_apply.LinearStep, "__call__",
                         lambda *a, **k: calls.append(1))
@@ -706,11 +707,29 @@ def test_refusals_come_before_any_step(monkeypatch, on_cpu):
     with pytest.raises(t_apply.PlanValidationError, match="FML501"):
         t_apply.train_linear_plan(x, y, None, t_plan.FSDP, DeviceMesh(),
                                   max_iter=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_apply.train_linear_plan(x, y, None, t_plan.FSDP, None,
-                                  max_iter=2, sentinel=object())
     x8, y8, _ = worker.plan_data(n=32, dim=8)
     with pytest.raises(ValueError, match="needs a process group"):
         t_apply.train_linear_plan(x8, y8, None, t_plan.FSDP, mesh,
                                   max_iter=2)
+    assert calls == []
+    monkeypatch.undo()
+    from flinkml_tpu import faults as jax_faults
+    from flinkml_tpu import recovery as jax_recovery
+    from flinkml_tpu_torch import faults as t_faults
+    from flinkml_tpu_torch import recovery as t_recovery
+
+    raised = []
+    for apply, faults, rec, mesh in (
+            (t_apply, t_faults, t_recovery, None),
+            (jax_apply, jax_faults, jax_recovery,
+             _jax_mesh(jax_plan.FSDP, 1))):
+        plan = t_plan.FSDP if apply is t_apply else jax_plan.FSDP
+        with faults.armed(faults.FaultPlan(faults.NaNGrad(3))):
+            with pytest.raises(rec.NumericsError) as ei:
+                apply.train_linear_plan(x8, y8, None, plan, mesh,
+                                        max_iter=6,
+                                        sentinel=rec.NumericsSentinel())
+        raised.append((ei.value.epoch, ei.value.source_index,
+                       ei.value.classification, ei.value.verdict))
+    assert raised[0] == raised[1] == (3, 3, "data_poison", 6)
     assert calls == []
