@@ -59,7 +59,7 @@ and fails with a non-zero exit if any phase fails:
    out-of-range codes against the per-stage path and float64 numpy;
 4b. MNIST-width multinomial path: ``Pipeline.fit`` of MinMaxScaler ->
    LogisticRegression(multinomial) on 60,000 x 784 rows in 10 classes
-   against a float64 numpy softmax run; the fused transform of 10,000 rows
+   (10 epochs) against a float64 numpy softmax run; the fused transform of 10,000 rows
    in float32 and float64; a sparse multinomial transform of 65,536
    Criteo-profile rows (k = 10);
 4c. KMeans serving path: StandardScaler -> KMeansModel fused at 65,536 x
@@ -89,7 +89,7 @@ and fails with a non-zero exit if any phase fails:
    ``sorted``, each held against a float64 numpy run of the same steps;
    the host's CSR conversion and packing timed apart from the device loop;
 6a. streamed out-of-core sparse LR (path E): ``LogisticRegression().fit``
-   of a DataCache of 16 Criteo-profile CSR batches of 65,536 rows (dim
+   of a DataCache of 8 Criteo-profile CSR batches of 65,536 rows (dim
    1e6), half of them spilled to disk by the cache's memory budget, 3
    epochs with a checkpoint every 2; a fit stopped at epoch 2 and resumed
    to 3; the same fit from an in-RAM cache; each against a float64 numpy
@@ -98,7 +98,7 @@ and fails with a non-zero exit if any phase fails:
    step's ``spmv`` and ``segment_sum`` time per batch and the latter on
    the same cell count without padding;
 6b. BASELINE config #3 (path F): LinearSVC and LinearRegression (SGD) at
-   1,000,000 x 123 float32, batch 262,144, reg 2e-4, elasticNet 0.5, 20
+   1,000,000 x 123 float32, batch 262,144, reg 2e-4, elasticNet 0.5, 10
    epochs; LinearRegression ``solver="normal"``; a sparse LinearSVC on
    262,144 Criteo rows; a streamed LinearRegression over 16 batches;
    LinearSVCModel serving 65,536 Criteo and 100,000 dense rows; each
@@ -110,9 +110,9 @@ and fails with a non-zero exit if any phase fails:
    samples/s;
 6d. the input pipeline (path H): H1, ``Dataset.from_libsvm`` of 262,144
    a9a-shaped rows written to a LibSVM file (native parser), shuffled and
-   prefetched into ``LogisticRegression().fit`` (20 epochs) against
+   prefetched into ``LogisticRegression().fit`` (10 epochs) against
    float64 numpy in the same batch order; H2, a prefetched ``Dataset`` of
-   16 Criteo-profile batches of 65,536 ``SparseVector`` rows (dim 1e6)
+   4 Criteo-profile batches of 65,536 ``SparseVector`` rows (dim 1e6)
    through the sorted-column stream (``spmv`` and the sorted
    ``segment_sum``), 2 epochs, against float64 numpy and path E's CSR
    stream, the two kernels held against their plain versions on the
@@ -126,7 +126,7 @@ and fails with a non-zero exit if any phase fails:
    path's shape against float64 numpy and the ``unsorted`` fit, its host
    tables and device loop timed apart, two runs bit for bit, and
    ``BatchedCSR.matvec``/``rmatvec`` at 65,536 Criteo rows against their
-   plain versions; I2, ``KMeans().fit`` over 8 batches of 65,536 x 784
+   plain versions; I2, ``KMeans().fit`` over 4 batches of 65,536 x 784
    float32 rows (half spilled by the cache's budget), 4 epochs with a
    checkpoint every 2, a run from a sealed cache crashed at epoch 2 and
    resumed bit for bit, against the in-RAM ``train_kmeans`` from the same
@@ -139,7 +139,7 @@ and fails with a non-zero exit if any phase fails:
    ``init_distributed`` at world 1 over nccl through a ``file://`` store,
    then the sparse LR fit at path B's width (``unsorted`` and ``sorted``),
    the dense LR fit at path 5's width and ``KMeans`` at 262,144 x 128,
-   k=64 (20 epochs; the LR fits 10), each with ``mesh=DeviceMesh()`` and without: equal
+   k=64 (20 epochs; the LR fits 4), each with ``mesh=DeviceMesh()`` and without: equal
    bit for bit (the ``unsorted`` fit, whose ``segment_sum`` adds by
    atomics, within 1e-5), the fits against float64 numpy; J2, two ranks
    spawned by the script on the one card over gloo with CUDA tensors
@@ -192,9 +192,9 @@ and fails with a non-zero exit if any phase fails:
    the step's ``spmv`` and ``segment_sum`` on a rank's padded block and
    on a dummy block against their plain versions, timed beside their
    bounds; L2, a dense streamed LinearSVC at a9a's width; L3, a streamed
-   KMeans at 784 wide (k = 10, 4 x 65,536 rows a rank, k-means++ from the
+   KMeans at 784 wide (k = 10, 2 x 65,536 rows a rank, 2 epochs, k-means++ from the
    pooled reservoirs) against the port's one-process fit over the
-   combined stream; L4, FTRL and OnlineKMeans over 16 x 16,384 rows a
+   combined stream; L4, FTRL and OnlineKMeans over 8 x 16,384 rows a
    rank; L5, a world-2 rank-scoped snapshot resharded to world 1. Prints
    samples/s, the all-reduce a step, the feed's waits and the busy share;
    path L must launch ``spmv`` and ``segment_sum``;
@@ -219,6 +219,32 @@ and fails with a non-zero exit if any phase fails:
    after the epoch-2 commit, resumed within 1e-5 and its newest snapshot
    corrupted (``restore_latest`` walks back). Path M must launch ``spmv``
    and ``segment_sum``;
+6j. the serving runtime (path N, ``serving_path``), at ``bench.py``'s
+   serving widths with models the port fits on the card: N1, bench's
+   five-stage chain (50,000 x 32 float64) behind one ``ServingEngine``
+   (``max_batch_rows=256``, 1 ms window) that follows a ``ModelRegistry``,
+   8 closed-loop clients sending 1-32 rows for 3 s: rows/s, the engine's
+   and the clients' p50/p99, batch occupancy, no new program or kernel
+   build after warmup; then 1 s more under ``torch.profiler``: the card's
+   busy share and ``fused_chain``'s device time a batch beside the
+   batch's wall time; N2, under the same load v2 (the chain refitted on
+   data seed 1) published into the registry and ``rollback(1)``: every
+   response its own version's, publish-to-first-v2 time and
+   ``redispatched_for_version``; a ``DropPublish`` leaves the registry
+   untouched and a NaN model is refused at publish and (published
+   unchecked) at install while v1 serves; N1 and N2 launch
+   ``fused_chain`` once a warmed bucket a full load plus once a batch;
+   N3, one engine, then an 8-replica ``ReplicaPool`` on the one card
+   (each replica its own CUDA stream) under FIFO and continuous batching,
+   16 clients, ``max_batch_rows=128``, 2 ms window, 2 s each; N4, 4
+   replicas over the chain at 20,000 rows under
+   ``serving_grayfail_policy()`` with r1 stalled 0.2 s a batch: p99
+   during the stall, time to quarantine, hedge wins, recovered p99 within
+   max(2x baseline, baseline + 50 ms); N5, a 1-replica pool whose offered
+   load triples, grown by a ``PoolAutoscaler``, then
+   ``run_serving_soak(seed=7, budget=2)``. Every response is held against
+   its version's float64 numpy chain (``rawPrediction`` within 1e-10,
+   predictions away from 2^-5 of the decision);
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -240,7 +266,8 @@ and fails with a non-zero exit if any phase fails:
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
 the kernels' JSON summary (each kernel's record; ``bf16`` and, for
-``fused_chain``, ``tiers`` carry the bfloat16 and path-D measurements),
+``fused_chain``, ``tiers`` carry the bfloat16 and path-D measurements;
+``launches_by_path`` each path's launches),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab OTHER`` runs none of that: it times ``spmv``,
@@ -1617,7 +1644,7 @@ ADULT_CONTINUOUS = ("age", "fnlwgt", "education_num", "capital_gain",
                     "capital_loss", "hours_per_week")
 CENSUS_TRAIN, CENSUS_SERVE = 48_842, 100_000
 MNIST_TRAIN, MNIST_SERVE, MNIST_D, MNIST_K = 60_000, 10_000, 784, 10
-MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 8_192, 20, 0.1
+MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 8_192, 10, 0.1  # 20 until path N
 #: bench.py's two KMeans shapes, served through StandardScaler -> KMeans.
 #: Path C: bench.py's two KMeans shapes, and MNIST's width with k = 64 (a
 #: head too large for shared memory: its centroids are read from L2).
@@ -2354,7 +2381,8 @@ def tier_kernel_case(torch, timer, label, kernels, table, rows, policy):
                                                 consts, rows, pol))
     # The table the launch read: the int8 blob, or (an int8 table larger
     # than shared memory) the float table.
-    launched = (program._float or program._table)[4][0]
+    tables = {key[0]: packed for key, (_, packed) in program._tables.items()}
+    launched = (tables.get("_float") or tables["_table"])[0]
     table_bytes = launched.numel() * launched.element_size()
     n_bytes = (sum(v[:rows].numel() * v.element_size() for v in vals)
                + sum(o[:rows].numel() * o.element_size()
@@ -2629,14 +2657,16 @@ def bf16_kernel_phase(torch, timer):
 
 # -- paths E, F, G: streamed, out-of-core and checkpointed linear fits --------------
 
-#: Path E: the Criteo profile streamed out of core, 16 batches of 65,536
-#: rows, half of the CSR bytes over the cache's memory budget; 3 epochs
-#: (5 until path L joined the run), stopped at 2 and resumed.
-STREAM_BATCHES, STREAM_ROWS, STREAM_EPOCHS = 16, 65_536, 3
+#: Path E: the Criteo profile streamed out of core, 8 batches of 65,536
+#: rows (16 until path N joined the run), half of the CSR bytes over the
+#: cache's memory budget; 3 epochs (5 until path L joined the run),
+#: stopped at 2 and resumed.
+STREAM_BATCHES, STREAM_ROWS, STREAM_EPOCHS = 8, 65_536, 3
 STREAM_STOP, STREAM_INTERVAL = 2, 2
 STREAM_LR, STREAM_REG = 0.5, 1e-4
-#: Path F: BASELINE config #3 at ``bench.py:_inner_svc``'s workload.
-SVC_ROWS, SVC_D, SVC_BATCH, SVC_EPOCHS = 1_000_000, 123, 262_144, 20
+#: Path F: BASELINE config #3 at ``bench.py:_inner_svc``'s workload, 10
+#: epochs (20 until path N joined the run).
+SVC_ROWS, SVC_D, SVC_BATCH, SVC_EPOCHS = 1_000_000, 123, 262_144, 10
 SVC_REG, SVC_EN, SVC_LR = 2e-4, 0.5, 0.1
 SVC_SPARSE_ROWS, SVC_SERVE_SPARSE, SVC_SERVE_DENSE = 262_144, 65_536, 100_000
 SVC_STREAM_BATCHES = 16
@@ -3162,15 +3192,16 @@ def ftrl_path(torch):
 # -- path H: the input pipeline (data/) and the sorted-column stream ---------------
 
 #: H1: BASELINE config #1's width (a9a: 123 binary features, 14 set a row)
-#: through a LibSVM file, 16 batches of 16,384 rows, 20 epochs.
-A9A_ROWS, A9A_D, A9A_NNZ, A9A_BATCH, A9A_EPOCHS = 262_144, 123, 14, 16_384, 20
+#: through a LibSVM file, 16 batches of 16,384 rows, 10 epochs (20 until
+#: path N joined the run).
+A9A_ROWS, A9A_D, A9A_NNZ, A9A_BATCH, A9A_EPOCHS = 262_144, 123, 14, 16_384, 10
 A9A_SHUFFLE, A9A_LR = 8, 0.1
 #: H2: path E's Criteo profile (dim 1e6, 39 draws a row), 8 batches of
 #: 65,536 rows through a prefetched Dataset, path E's step sizes; 2 epochs
 #: (5, path E's, until path K joined the run, 3 until path L did: H2 runs
 #: its fit twice, the second under the profiler; 16 batches until path L's
-#: references ran after its ranks).
-SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 8, 65_536, 2
+#: references ran after its ranks, 8 until path N joined).
+SORTED_BATCHES, SORTED_ROWS, SORTED_EPOCHS = 4, 65_536, 2
 #: H3: BASELINE config #4's width (path G) through an ElasticFeed.
 ELASTIC_WORLD, ELASTIC_RESUME_WORLD, ELASTIC_SHUFFLE = 4, 2, 4
 
@@ -3621,12 +3652,12 @@ def elastic_path(torch):
 
 #: I1: BatchedCSR at the serving shape of Criteo rows.
 CSR_ROWS = 65_536
-#: I2: MNIST's width, 8 batches of 65,536 rows (1.6 GB of float32; 16
-#: until path L's references ran after its ranks), the cache's memory
+#: I2: MNIST's width, 4 batches of 65,536 rows (0.8 GB of float32; 16
+#: until path L's references ran after its ranks, 8 until path N joined), the cache's memory
 #: budget at half of it; k = 10, 4 Lloyd epochs (20 until path J joined
 #: the run, 10 until path K did, 6 until path L did), a checkpoint every
 #: 2, a crash at 2.
-KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 8, 65_536, 784, 10
+KMS_BATCHES, KMS_ROWS, KMS_D, KMS_K = 4, 65_536, 784, 10
 KMS_EPOCHS, KMS_INTERVAL, KMS_CRASH = 4, 2, 2
 #: I3: 16 batches of 16,384 drifting MNIST-width rows (64 until path L's
 #: references ran after its ranks, 32 until path M joined the run), k = 10,
@@ -4080,9 +4111,10 @@ J2_WORLD, J2_TIMEOUT_S = 2, 420
 #: Path J's device and backends (world 1: nccl; two ranks on one card:
 #: gloo over CUDA tensors).
 J_DEVICE, J1_BACKEND, J2_BACKEND = "cuda", "nccl", "gloo"
-#: Path J's fits: 6 epochs, fewer than ``FIT_EPOCHS`` (20), so that the
-#: whole script stays within its time budget.
-J_EPOCHS = 6
+#: Path J's fits: 4 epochs (6 until path N joined the run), fewer than
+#: ``FIT_EPOCHS`` (20), so that the whole script stays within its time
+#: budget.
+J_EPOCHS = 4
 
 
 def _sync(torch):
@@ -4332,10 +4364,11 @@ L_EPOCHS, L_CRASH = 3, 2
 #: L2: a dense streamed LinearSVC at a9a's width (123).
 L_SVC_BATCHES, L_SVC_ROWS = (4, 3), (65_536, 49_152)
 #: L3: a streamed KMeans at 784 wide, k = 10, k-means++ from the ranks'
-#: pooled reservoirs.
-L_KM_BATCHES, L_KM_ROWS, L_KM_D, L_KM_K, L_KM_EPOCHS = 4, 65_536, 784, 10, 3
-#: L4: FTRL (123 wide) and OnlineKMeans (784 wide) over these batches a rank.
-L_ON_BATCHES, L_ON_ROWS = 16, 16_384
+#: pooled reservoirs (4 batches and 3 epochs until path N joined the run).
+L_KM_BATCHES, L_KM_ROWS, L_KM_D, L_KM_K, L_KM_EPOCHS = 2, 65_536, 784, 10, 2
+#: L4: FTRL (123 wide) and OnlineKMeans (784 wide) over these batches a
+#: rank (16 until path N joined the run).
+L_ON_BATCHES, L_ON_ROWS = 8, 16_384
 
 
 def l_sparse(rank):
@@ -5812,6 +5845,640 @@ def faults_path(torch):
     return counts
 
 
+# -- path N: the serving runtime (engine, registry, pool, gray failure, scaler) --
+
+N_ROWS, N_D = 50_000, 32          # bench.py _serving_stage's model
+N1_CLIENTS, N1_SECONDS = 8, 3.0   # the bench runs 4 s
+N1_BATCH_ROWS, N1_WAIT_MS = 256, 1.0
+N1_PROFILE_SECONDS = 1.0
+N2_SECONDS = 3.0
+N3_REPLICAS, N3_CLIENTS, N3_SECONDS = 8, 16, 2.0   # the bench runs 3 s
+N3_BATCH_ROWS, N3_WAIT_MS = 128, 2.0
+N4_ROWS, N4_PHASE_S = 20_000, 1.5
+N5_SECONDS = 2.0
+N_DECISION = 2.0 ** -5
+N_SHED_BACKOFF_S = 0.001          # a client's pause after a shed request
+
+
+def n_model(n, d, seed=0):
+    """bench.py's ``_five_stage_model``: the four scalers and a two-step
+    LogisticRegression fitted by the port (on the card) on seeded data.
+    ``(PipelineModel, x)``."""
+    import flinkml_tpu_torch as fml
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = (x @ rng.normal(size=d) > 0).astype(np.float64)
+    cur = fml.Table({"features": x, "label": y})
+    stages, prev = [], "features"
+    for i, cls in enumerate((fml.StandardScaler, fml.MinMaxScaler,
+                             fml.MaxAbsScaler, fml.RobustScaler), start=1):
+        m = cls().set(cls.INPUT_COL, prev).set(cls.OUTPUT_COL, f"s{i}").fit(cur)
+        (cur,) = m.transform(cur)
+        prev = f"s{i}"
+        stages.append(m)
+    lr = (fml.LogisticRegression()
+          .set(fml.LogisticRegression.FEATURES_COL, prev)
+          .set(fml.LogisticRegression.LABEL_COL, "label")
+          .set_max_iter(2).fit(cur))
+    return fml.PipelineModel(stages + [lr]), x
+
+
+class Responses:
+    """What closed-loop clients saw: each response's rows, version,
+    outputs, latency and completion time (thread-safe appends)."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.items = []      # (lo, rows, version, columns)
+        self.lat = []        # (t_done, ms)
+        self.errors = []
+        self.sheds = []      # (t, error type) of each request shed
+
+    def add(self, lo, rows, resp, ms, t_done):
+        with self.lock:
+            self.items.append((lo, rows, resp.version, resp.columns))
+            self.lat.append((t_done, ms))
+
+    def p(self, q, t0=None, t1=None):
+        with self.lock:
+            vals = [ms for tc, ms in self.lat
+                    if (t0 is None or tc >= t0) and (t1 is None or tc < t1)]
+        return float(np.percentile(vals, q)) if vals else None
+
+
+def n_load(predict, x, clients, seconds, responses, rows=(1, 33), seed=0,
+           during=None, shed=()):
+    """``clients`` closed-loop threads (each sends its next request the
+    moment the last lands: ``rows`` rows from a seeded offset) for
+    ``seconds``; ``during(t0)`` runs in this thread meanwhile. A request
+    refused with one of the ``shed`` errors is logged in
+    ``responses.sheds`` and the client backs off for N_SHED_BACKOFF_S and
+    sends its next one, as ``bench.py``'s clients do; any other error ends
+    the client and fails the check. Returns ``(rows served, elapsed s)``."""
+    import threading
+
+    stop = threading.Event()
+    served = [0] * clients
+
+    def client(tid):
+        rng = np.random.default_rng(seed * 1000 + tid)
+        try:
+            while not stop.is_set():
+                r = int(rng.integers(*rows))
+                lo = int(rng.integers(0, len(x) - r))
+                t0 = time.perf_counter()
+                try:
+                    resp = predict({"features": x[lo:lo + r]})
+                except shed as e:
+                    with responses.lock:
+                        responses.sheds.append((time.perf_counter(),
+                                                type(e).__name__))
+                    time.sleep(N_SHED_BACKOFF_S)
+                    continue
+                t1 = time.perf_counter()
+                responses.add(lo, r, resp, (t1 - t0) * 1e3, t1)
+                served[tid] += r
+        except BaseException as e:  # noqa: BLE001 — the check reports it
+            responses.errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        during(t0)
+    remaining = seconds - (time.perf_counter() - t0)
+    if remaining > 0:
+        time.sleep(remaining)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in threads):
+        fail("path N: a client thread hung")
+    return sum(served), time.perf_counter() - t0
+
+
+def n_check(label, responses, refs, cols=("prediction", "rawPrediction")):
+    """Every response against its version's float64 numpy chain:
+    ``rawPrediction`` within 1e-10, predictions equal where the margin is
+    more than 2^-5 from the decision; one version a response."""
+    if responses.errors:
+        fail(f"path {label}: {len(responses.errors)} requests failed: "
+             f"{responses.errors[0]!r}")
+    if not responses.items:
+        fail(f"path {label}: no response")
+    worst = 0.0
+    for lo, rows, version, got in responses.items:
+        if version not in refs:
+            fail(f"path {label}: a response names version {version}")
+        _, dot, raw = refs[version]
+        sl = slice(lo, lo + rows)
+        if got["rawPrediction"].shape != (rows, 2):
+            fail(f"path {label}: response shape {got['rawPrediction'].shape}")
+        err = float(np.abs(got["rawPrediction"] - raw[sl]).max())
+        worst = max(worst, err)
+        if not np.allclose(got["rawPrediction"], raw[sl], rtol=1e-10,
+                           atol=1e-10):
+            fail(f"path {label}: a version-{version} response is {err} from "
+                 "its float64 numpy chain (mixed or mis-versioned?)")
+        keep = np.abs(dot[sl]) > N_DECISION
+        if not np.array_equal(got["prediction"][keep],
+                              (dot[sl][keep] >= 0).astype(np.float64)):
+            fail(f"path {label}: a prediction differs from numpy")
+    return worst
+
+
+def n_counts():
+    from flinkml_tpu_torch import pipeline_fusion
+    from flinkml_tpu_torch.kernels import _build
+
+    return pipeline_fusion.compiled_program_count(), len(_build._LIBS)
+
+
+def n_profile_batches(torch, engine, x, seconds):
+    """N1's load again for ``seconds`` under ``torch.profiler``: the
+    card's busy share, and ``fused_chain``'s device time a batch beside
+    the batch's wall time (the engine's ``_serve_batch`` timed around)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    serve = engine._serve_batch
+
+    def timed(batch):
+        t0 = time.perf_counter()
+        serve(batch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    engine._serve_batch = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n_load(engine.predict, x, N1_CLIENTS, seconds, Responses(),
+                   seed=3)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    except RuntimeError as e:   # the profiler, not the path, failed
+        log(f"path N1 profile not measured: {e}")
+        return {"busy_share": None}
+    finally:
+        del engine._serve_batch
+    busy_us = chain_us = 0.0
+    chain_n = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            busy_us += t
+            if "chain" in e.key:
+                chain_us += t
+                chain_n += e.count
+    return {
+        "busy_share": busy_us / wall_us if busy_us > 0 else None,
+        "fused_chain_device_ms_per_batch": (chain_us / chain_n / 1e3
+                                            if chain_n else None),
+        "batch_wall_ms_mean": float(np.mean(walls)) if walls else None,
+        "batch_wall_ms_p50": float(np.median(walls)) if walls else None,
+        "profiled_batches": len(walls), "profiled_launches": chain_n,
+    }
+
+
+def serving_n1_n2(torch, tmp, v1, x):
+    """N1 (``bench.py:662 _serving_stage``) and N2 (registry, hot swap,
+    rollback, ``DropPublish``, a NaN model refused) on one engine that
+    follows a ``ModelRegistry``."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.recovery import NonFiniteModelError
+    from flinkml_tpu_torch.serving import (
+        ModelRegistry,
+        ServingConfig,
+        ServingEngine,
+    )
+
+    v2, _ = n_model(N_ROWS, N_D, seed=1)  # the same chain, data seed 1
+    refs = {1: numpy_chain(v1, x), 2: numpy_chain(v2, x)}
+    reg = ModelRegistry(os.path.join(tmp, "registry"))
+    reg.publish(v1)
+    engine = ServingEngine(
+        reg, fml.Table({"features": x[:4]}),
+        ServingConfig(max_batch_rows=N1_BATCH_ROWS, max_wait_ms=N1_WAIT_MS),
+        output_cols=("prediction", "rawPrediction"), name="n1",
+    )
+    rec = {"path": "serving_N1", "rows": N_ROWS, "d": N_D,
+           "clients": N1_CLIENTS, "seconds": N1_SECONDS}
+    try:
+        engine.start().follow_registry()
+        if engine.device.type != "cuda" or engine._stream is None:
+            fail(f"path N1: the engine serves on {engine.device}")
+        warm = n_counts()
+        buckets = int(engine.stats()["gauges"]["warmed_buckets"])
+        n1 = Responses()
+        rows, elapsed = n_load(engine.predict, x, N1_CLIENTS, N1_SECONDS, n1)
+        if n_counts() != warm:
+            fail(f"path N1: programs or kernel builds {warm} -> "
+                 f"{n_counts()} after warmup")
+        rec["max_abs_err"] = n_check("N1", n1, refs)
+        st = engine.stats()
+        c = st["counters"]
+        if {v for _, _, v, _ in n1.items} != {1}:
+            fail("path N1: a response not from version 1")
+        rec.update({
+            "rows_per_s": rows / elapsed, "requests": len(n1.items),
+            "batches": int(c["batches"]),
+            "occupancy": c["batch_rows"] / c["batch_padded_rows"],
+            "engine_p50_ms": st["gauges"]["p50_ms"],
+            "engine_p99_ms": st["gauges"]["p99_ms"],
+            "client_p50_ms": n1.p(50), "client_p99_ms": n1.p(99),
+            "warm_buckets": buckets,
+        })
+        rec.update(n_profile_batches(torch, engine, x, N1_PROFILE_SECONDS))
+
+        # N2: publish v2 under load, then roll back to v1.
+        n2 = Responses()
+        marks = {}
+
+        def swaps(t0):
+            time.sleep(0.5)
+            marks["publish"] = time.perf_counter()
+            reg.publish(v2)
+            marks["published"] = time.perf_counter()
+            time.sleep(1.0)
+            marks["rollback"] = time.perf_counter()
+            reg.rollback(1)
+            marks["rolled_back"] = time.perf_counter()
+
+        before = dict(engine.stats()["counters"])
+        n_load(engine.predict, x, N1_CLIENTS, N2_SECONDS, n2, seed=1,
+               during=swaps)
+        rec2 = {"path": "serving_N2", "max_abs_err": n_check("N2", n2, refs)}
+        after = engine.stats()["counters"]
+        seen = [(t, v) for (t, _), (_, _, v, _) in zip(n2.lat, n2.items)]
+        v2_at = [t for t, v in seen if v == 2]
+        if not v2_at:
+            fail("path N2: no response from version 2 after its publish")
+        late_v1 = [t for t, v in seen if v == 1 and
+                   marks["published"] < t < marks["rollback"]]
+        if engine.active_version != 1:
+            fail(f"path N2: version {engine.active_version} active after "
+                 "rollback(1)")
+        rec2.update({
+            "publish_to_first_v2_ms": (min(v2_at) - marks["publish"]) * 1e3,
+            "publish_s": marks["published"] - marks["publish"],
+            "rollback_s": marks["rolled_back"] - marks["rollback"],
+            "responses": len(n2.items),
+            "v2_responses": len(v2_at),
+            "v1_completed_between_publish_and_rollback": len(late_v1),
+            "redispatched_for_version": after.get(
+                "redispatched_for_version", 0) - before.get(
+                "redispatched_for_version", 0),
+            "errors": after.get("errors", 0) - before.get("errors", 0),
+            "swaps": after.get("swaps", 0) - before.get("swaps", 0),
+        })
+        if rec2["errors"]:
+            fail(f"path N2: {rec2['errors']} batches failed")
+
+        # A dropped publish leaves the registry as it was.
+        versions = reg.versions()
+        with faults.armed(faults.FaultPlan(faults.DropPublish(at_publish=1))):
+            try:
+                reg.publish(v2)
+                fail("path N2: DropPublish did not drop the publish")
+            except faults.FaultInjected:
+                pass
+        if reg.versions() != versions or reg.current_version() != 1:
+            fail("path N2: a dropped publish changed the registry")
+        # A NaN model: refused at publish, and (published unchecked) at
+        # install, while v1 keeps serving.
+        bad = reg.get(1)[1]
+        coef = np.array(bad.stages[-1].coefficient, dtype=np.float64)
+        coef[0] = np.nan
+        bad.stages[-1].set_model_data(fml.Table({"coefficient": coef[None]}))
+        try:
+            reg.publish(bad)
+            fail("path N2: a NaN model was published")
+        except NonFiniteModelError:
+            pass
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            reg.publish(bad, check_finite=False)
+        if not any("listener" in str(w.message) for w in caught):
+            fail("path N2: the follower did not refuse the NaN model")
+        resp = engine.predict({"features": x[:64]})
+        if resp.version != 1 or engine.active_version != 1:
+            fail("path N2: v1 stopped serving after the NaN publish")
+        rec2["nan_model"] = "refused at publish and at install; v1 serving"
+        rec2["drop_publish"] = "registry untouched"
+        rec["launch_identity"] = {
+            "full_loads": int(engine.stats()["counters"]["full_loads"]),
+            "batches": int(engine.stats()["counters"]["batches"]),
+            "buckets": buckets}
+    finally:
+        engine.stop()
+    log("path " + json.dumps(rec))
+    log("path " + json.dumps(rec2))
+    return rec, rec2
+
+
+def serving_n3(torch, model, x):
+    """N3 (``bench.py:736 _serving_scaleout_stage``): one engine, then an
+    8-replica pool on the one card under FIFO and continuous batching."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.serving import (
+        ReplicaPool,
+        ServingConfig,
+        ServingEngine,
+    )
+
+    refs = {None: numpy_chain(model, x)}
+    example = fml.Table({"features": x[:4]})
+    out = {"path": "serving_N3", "replicas": N3_REPLICAS,
+           "clients": N3_CLIENTS, "seconds": N3_SECONDS}
+
+    def cfg(**kw):
+        return ServingConfig(max_batch_rows=N3_BATCH_ROWS,
+                             max_wait_ms=N3_WAIT_MS, **kw)
+
+    def measure(label, server):
+        got = Responses()
+        rows, elapsed = n_load(server.predict, x, N3_CLIENTS, N3_SECONDS,
+                               got, seed=4)
+        out[f"{label}_max_abs_err"] = n_check(f"N3 {label}", got, refs)
+        out[f"{label}_rows_per_s"] = rows / elapsed
+        out[f"{label}_p50_ms"] = got.p(50)
+        out[f"{label}_p99_ms"] = got.p(99)
+
+    engine = ServingEngine(model, example, cfg(),
+                           output_cols=("prediction", "rawPrediction"),
+                           name="n3_single").start()
+    try:
+        measure("single", engine)
+    finally:
+        engine.stop()
+    for batching in ("fifo", "continuous"):
+        pool = ReplicaPool(
+            model, example, config=cfg(batching=batching),
+            n_replicas=N3_REPLICAS,
+            output_cols=("prediction", "rawPrediction"),
+            name=f"n3_{batching}",
+        )
+        try:
+            t0 = time.perf_counter()
+            pool.start()
+            out[f"{batching}_start_s"] = time.perf_counter() - t0
+            streams = {id(r.engine._stream) for r in pool.replicas}
+            if (len(streams) != N3_REPLICAS
+                    or any(r.engine.device.type != "cuda"
+                           for r in pool.replicas)):
+                fail("path N3: replicas do not each own a stream on the card")
+            measure(batching, pool)
+            out[f"{batching}_per_replica_requests"] = [
+                int(r["counters"].get("requests", 0))
+                for r in pool.stats()["per_replica"].values()]
+        finally:
+            pool.stop()
+    out["rows_per_s_per_replica"] = out["continuous_rows_per_s"] / N3_REPLICAS
+    out["pool_over_single"] = (out["continuous_rows_per_s"]
+                               / out["single_rows_per_s"])
+    out["continuous_minus_fifo_p50_ms"] = (out["continuous_p50_ms"]
+                                           - out["fifo_p50_ms"])
+    log("path " + json.dumps(out))
+    return out
+
+
+def serving_n4(torch, model, x):
+    """N4 (``bench.py:1235 _serving_grayfail_stage``): 4 replicas under
+    ``serving_grayfail_policy()``, r1 stalled 0.2 s a batch."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.recovery.fuzz import serving_grayfail_policy
+    from flinkml_tpu_torch.serving import (
+        ReplicaPool,
+        ReplicaState,
+        ServingConfig,
+    )
+
+    refs = {None: numpy_chain(model, x)}
+    pool = ReplicaPool(
+        model, fml.Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=128, max_queue_rows=512,
+                             max_wait_ms=1.0, default_timeout_ms=15_000.0),
+        n_replicas=4, output_cols=("prediction", "rawPrediction"),
+        name="n4", grayfail=serving_grayfail_policy(),
+    ).start()
+    guard = pool.grayfail_guard(interval_s=0.05).start()
+    got = Responses()
+    marks = {}
+    r1 = pool.replicas[1]
+
+    def phases(t0):
+        time.sleep(N4_PHASE_S)     # baseline (also seeds attempt rings)
+        marks["stall"] = time.perf_counter()
+        with faults.armed(faults.FaultPlan(
+                faults.StallDispatch("r1", delay_s=0.2))):
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                if r1.health.state is ReplicaState.SLOW:
+                    marks["quarantine"] = time.perf_counter()
+                    break
+                time.sleep(0.02)
+            time.sleep(N4_PHASE_S / 2)
+        marks["cleared"] = time.perf_counter()
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            if r1.health.state is ReplicaState.HEALTHY:
+                marks["rejoin"] = time.perf_counter()
+                break
+            time.sleep(0.02)
+        marks["recovered_from"] = marks.get("rejoin", marks["cleared"])
+        time.sleep(N4_PHASE_S / 2)
+
+    try:
+        rows, elapsed = n_load(pool.predict, x, 4, 0.0, got, rows=(16, 49),
+                               seed=5, during=phases)
+        router = pool.stats()["router"]
+        gcount = guard._metrics.snapshot()["counters"]
+    finally:
+        guard.stop()
+        pool.stop(drain=False, timeout=30.0)
+    err = n_check("N4", got, refs)
+    base = got.p(99, None, marks["stall"])
+    stall = got.p(99, marks["stall"], marks["cleared"])
+    recovered = got.p(99, marks["recovered_from"])
+    hedged = router.get("hedges_dispatched", 0.0)
+    rec = {"path": "serving_N4", "rows": N4_ROWS, "max_abs_err": err,
+           "rows_per_s": rows / elapsed, "baseline_p99_ms": base,
+           "p99_during_stall_ms": stall, "recovered_p99_ms": recovered,
+           "time_to_quarantine_s": (marks["quarantine"] - marks["stall"]
+                                    if "quarantine" in marks else None),
+           "time_to_rejoin_s": (marks["rejoin"] - marks["cleared"]
+                                if "rejoin" in marks else None),
+           "hedge_win_fraction": (router.get("hedges_won", 0.0) / hedged
+                                  if hedged else 0.0),
+           "hedges_dispatched": int(hedged),
+           "abandoned_attempts": int(router.get("abandoned_attempts", 0.0)),
+           "quarantines_total": int(gcount.get("quarantines_total", 0)),
+           "rejoins_total": int(gcount.get("rejoins_total", 0))}
+    log("path " + json.dumps(rec))
+    if "quarantine" not in marks:
+        fail("path N4: the stalled replica was never quarantined")
+    if "rejoin" not in marks:
+        fail("path N4: the stalled replica never rejoined")
+    bound = max(2.0 * base, base + 50.0)
+    if recovered is None or recovered > bound:
+        fail(f"path N4: recovered p99 {recovered} ms > {bound:.1f} ms "
+             f"(baseline {base:.1f} ms)")
+    return rec
+
+
+def serving_n5(torch, model, x):
+    """N5: the closed loop of ``bench.py:1030 _serving_autoscale_stage`` —
+    a 1-replica pool whose offered load triples, scaled by a
+    ``PoolAutoscaler`` with no operator; then the serving soak
+    (``run_serving_soak(seed=7, budget=2)``) on the card."""
+    import threading
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.recovery.fuzz import run_serving_soak
+    from flinkml_tpu_torch.serving import (
+        AutoscaleConfig,
+        PoolAutoscaler,
+        ReplicaPool,
+        PoolUnavailableError,
+        ServingConfig,
+        ServingOverloadError,
+    )
+
+    # The bench's clients back off on these: a full queue, and the one
+    # replica DRAINING after it tripped its queue bound (the router's
+    # load shedding, as in the JAX package).
+    shed = (ServingOverloadError, PoolUnavailableError)
+    refs = {None: numpy_chain(model, x)}
+    pool = ReplicaPool(
+        model, fml.Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=128, max_queue_rows=256,
+                             max_wait_ms=1.0),
+        n_replicas=1, output_cols=("prediction", "rawPrediction"),
+        name="n5",
+    ).start()
+    scaler = PoolAutoscaler(pool, AutoscaleConfig(
+        min_replicas=1, max_replicas=4, up_consecutive=10,
+        down_consecutive=10_000, cooldown_s=0.3, interval_s=0.1,
+    )).start()
+    light, heavy = Responses(), Responses()
+    marks = {}
+
+    def spike(t0):
+        time.sleep(N5_SECONDS / 2)
+        marks["spike"] = time.perf_counter()
+        rows, _ = n_load(pool.predict, x, 4, 0.0, heavy, rows=(16, 49),
+                         seed=7, during=settle, shed=shed)
+        marks["heavy_rows"] = rows
+
+    def settle(t0):
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and len(pool.replicas) < 2:
+            time.sleep(0.05)
+        marks["scaled"] = time.perf_counter()
+        stable, last = time.monotonic(), len(pool.replicas)
+        while time.monotonic() < deadline:
+            if len(pool.replicas) != last:
+                last, stable = len(pool.replicas), time.monotonic()
+            if time.monotonic() - stable >= 1.0:
+                break
+            time.sleep(0.05)
+        marks["settled"] = time.perf_counter()
+        time.sleep(N5_SECONDS)
+        marks["end"] = time.perf_counter()
+
+    try:
+        n_load(pool.predict, x, 2, 0.0, light, rows=(16, 49), seed=6,
+               during=spike, shed=shed)
+        st = scaler.stats()
+    finally:
+        scaler.stop()
+        pool.stop()
+    for label, got in (("N5 light", light), ("N5 heavy", heavy)):
+        n_check(label, got, refs)
+    both = Responses()
+    both.lat = light.lat + heavy.lat
+    sheds = light.sheds + heavy.sheds
+
+    def shed_in(t0, t1):
+        return sum(1 for t, _ in sheds if t0 <= t < t1)
+
+    rec = {"path": "serving_N5",
+           "spike_p99_ms": both.p(99, marks["spike"], marks["scaled"]),
+           "recovered_p99_ms": both.p(99, marks["settled"], marks["end"]),
+           "seconds_to_first_scale": marks["scaled"] - marks["spike"],
+           # 6 clients of up to 48 rows outrun one replica's 256-row queue:
+           # the pool may shed until it scales.
+           "shed_requests": {k: sum(1 for _, n in sheds if n == k)
+                             for k in sorted({n for _, n in sheds})},
+           "shed_before_scale": shed_in(marks["spike"], marks["scaled"]),
+           "shed_recovered": shed_in(marks["settled"], marks["end"]),
+           "replicas": st["replicas"], "counters": st["counters"],
+           "backlog_ewma": st["backlog_ewma"]}
+    if st["counters"].get("scale_up_total", 0) < 1:
+        fail(f"path N5: the autoscaler never scaled up ({st})")
+    t0 = time.perf_counter()
+    report = run_serving_soak(seed=7, budget=2)
+    rec["soak"] = {"summary": report.summary(),
+                   "seconds": time.perf_counter() - t0,
+                   "stats": [r.stats for r in report.results]}
+    log("path " + json.dumps(rec))
+    if not report.ok:
+        fail(f"path N5: serving soak failed: "
+             f"{[r.failures for r in report.failures]}")
+    return rec
+
+
+def serving_path(torch):
+    """Path N (ROADMAP item 4): the serving runtime at the bench's widths
+    (:func:`serving_n1_n2`, :func:`serving_n3`, :func:`serving_n4`,
+    :func:`serving_n5`), the launch counters set to 0 just before and read
+    just after. Every batch of every engine is one ``fused_chain`` launch:
+    N1 and N2's engine launches one a warmed bucket a full load plus one a
+    batch. Returns N's launch counts."""
+    import shutil
+
+    import flinkml_tpu_torch as fml
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        v1, x = n_model(N_ROWS, N_D, seed=0)
+        small, xs = n_model(N4_ROWS, N_D, seed=0)
+        fml.reset_launch_counts()
+        n1, _ = serving_n1_n2(torch, tmp, v1, x)
+        n12 = dict(fml.launch_counts())
+        serving_n3(torch, v1, x)
+        serving_n4(torch, small, xs)
+        serving_n5(torch, small, xs)
+        counts = dict(fml.launch_counts())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ident = n1["launch_identity"]
+    want = ident["buckets"] * ident["full_loads"] + ident["batches"]
+    # N1's profiled load is a load like the others; launches and batches
+    # are both counted by the engine.
+    if n12.get("fused_chain", 0) != want:
+        fail(f"path N1-N2: fused_chain launched {n12.get('fused_chain', 0)} "
+             f"times, expected {want} (warmed buckets x full loads + "
+             "batches)")
+    if counts.get("fused_chain", 0) <= n12["fused_chain"]:
+        fail("path N3-N5: fused_chain never launched")
+    log("path " + json.dumps({"path": "serving_N", "launches": counts,
+                              "launches_N1_N2": n12}))
+    return counts
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -5883,11 +6550,11 @@ def main() -> int:
     mark("kernel phase")
 
     serve_spmv = sparse_path(torch)
-    chain_rec["launches"] = (dense_path(torch) + census_path(torch)
-                             + mnist_path(torch)
-                             + kmeans_serving_path(torch))
-    tier_launches, chain_rec["tiers"] = precision_path(torch, timer)
-    chain_rec["launches"] += tier_launches
+    chain_paths = {"dense": dense_path(torch), "census": census_path(torch),
+                   "mnist": mnist_path(torch),
+                   "kmeans_serving": kmeans_serving_path(torch)}
+    chain_paths["precision_D"], chain_rec["tiers"] = precision_path(
+        torch, timer)
     mark("serving paths and D")
     dense_fit_path(torch)
     fit_counts = sparse_fit_path(torch)
@@ -5901,15 +6568,19 @@ def main() -> int:
     elastic_path(torch)
     mark("paths G-H")
     slice_i_counts = slice_i_path(torch, timer)
-    chain_rec["launches"] += slice_i_counts["fused_chain"]
+    chain_paths["slice_I"] = slice_i_counts["fused_chain"]
     mark("path I")
     mesh_counts, k2, l_counts = mesh_path(torch)
     mark("paths J and L")
     plan_counts, segsum_rec["naive_bayes"] = plan_path(torch, timer, k2)
-    chain_rec["launches"] += plan_counts.get("fused_chain", 0)
+    chain_paths["plan_K"] = plan_counts.get("fused_chain", 0)
     mark("path K")
     faults_counts = faults_path(torch)
     mark("path M")
+    chain_paths["serving_N"] = serving_path(torch)["fused_chain"]
+    mark("path N")
+    chain_rec["launches_by_path"] = chain_paths
+    chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
         rec["launches_by_path"] = {
             "sparse_serving": serve_spmv if name == "spmv" else 0,
@@ -6041,7 +6712,7 @@ AB_STREAM_FITS = 2
 
 
 def ab_stream_inner(tree: str) -> int:
-    """Path E's main fit (its Criteo profile, 16 x 65,536 rows in a
+    """Path E's main fit (its Criteo profile, 8 x 65,536 rows in a
     DataCache that spills half, ``STREAM_EPOCHS`` epochs, a snapshot every
     ``STREAM_INTERVAL``) through the checkout at ``tree``, timed
     ``AB_STREAM_FITS`` times after a warm fit; print one JSON line."""

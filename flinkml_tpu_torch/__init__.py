@@ -39,7 +39,11 @@ seams, :mod:`flinkml_tpu_torch.recovery` checks a fit's numerics on the
 device and heals a poisoned batch by rollback and quarantine (with
 ``OnlineStandardScaler``, the three online trainers take ``sentinel=`` and
 ``recovery=``), and :mod:`flinkml_tpu_torch.utils.preemption` stops a fit
-cleanly on SIGTERM or a lost rank.
+cleanly on SIGTERM or a lost rank. :mod:`flinkml_tpu_torch.serving` serves
+fitted pipelines online: a micro-batching ``ServingEngine`` over the fused
+executor (one CUDA stream an engine), a versioned ``ModelRegistry`` with hot
+swaps, a ``ReplicaPool`` with gray-failure defense, an autoscaler and a
+multi-model pool.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401

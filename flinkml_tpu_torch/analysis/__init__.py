@@ -4,6 +4,8 @@
 - :mod:`.collectives`: :class:`~.collectives.CollectiveOp` and the
   cross-rank collective-order comparator (FML301);
 - :mod:`.sharding_check`: sharding-plan validation (FML501–FML504).
+- :mod:`.memory`: :func:`~.memory.estimate_serving_bytes`, the serving
+  engine's load-time memory gate.
 
 The precision rules (FML6xx) live in :mod:`flinkml_tpu_torch.precision`.
 The JAX package's program walkers (jaxpr passes, the AST lint, the

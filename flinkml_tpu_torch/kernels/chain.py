@@ -54,9 +54,11 @@ scales and segments that the kernel dequantizes into shared memory
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,6 +103,10 @@ GRAMMAR = (
 )
 
 LAUNCHES = _gate.launch_counter("fused_chain")
+
+#: Packed constant tables a :class:`ChainProgram` keeps, one per set of
+#: model arrays (two versions of one model shape served side by side fit).
+TABLES_KEPT = 4
 
 #: Bytes of one vector access of the ``vector`` route, and the most such
 #: chunks a row may have there (one lane each, a warp per row at most).
@@ -703,7 +709,16 @@ class ChainProgram:
     """A chain planned for ``csrc/chain.cu``: ``run(ext_vals, consts,
     n_valid)`` lays out the row's parts, packs the constants (once per set
     of model arrays, cached by identity) and launches one kernel over the
-    first ``n_valid`` rows, under ``policy`` (see the module docstring)."""
+    first ``n_valid`` rows, under ``policy`` (see the module docstring).
+
+    One program serves every model of its shape (the program key holds
+    no constant values), from any thread and CUDA stream: the packed
+    tables of the last :data:`TABLES_KEPT` sets of model arrays are kept
+    side by side (so two versions served in turn, as in a rolling swap,
+    do not repack on every batch), a pack has landed on the device before
+    any launch reads it (a synchronous copy), and each launch marks the
+    table in use on its stream, so an evicted table's memory is not
+    reused while a launch on another stream still reads it."""
 
     def __init__(self, kernels, ext_names: Sequence[str],
                  out_names: Sequence[str], policy=None):
@@ -711,22 +726,30 @@ class ChainProgram:
         self.ext_names, self.out_names = tuple(ext_names), tuple(out_names)
         self.policy = policy
         self.plan = plan_chain(self.kernels, ext_names, out_names)
-        self._table = None   # (arrays, dtype, device, d, packed)
-        self._float = None   # the same, for the int8 tier's float table
+        # (slot, array ids, dtype, device, d) -> (arrays, packed), LRU; an
+        # entry holds its arrays, so their ids are not reused while it
+        # lives.
+        self._tables: "collections.OrderedDict" = collections.OrderedDict()
+        self._tables_lock = threading.Lock()
         self._layout = None  # (input signature, Layout)
 
     def _cached(self, slot: str, consts, dtype: torch.dtype,
                 device: torch.device, d: int, build):
-        """``build()``'s packed table, kept in ``slot`` and reused while the
-        model arrays (by identity), ``dtype``, ``device`` and ``d`` stay."""
+        """``build()``'s packed table for these model arrays (by
+        identity), ``dtype``, ``device`` and ``d``, built on a miss."""
         arrays = tuple(v for kc in consts for v in kc.values())
-        hit = getattr(self, slot)
-        if (hit is not None and hit[1] == dtype and hit[2] == device
-                and hit[3] == d and len(hit[0]) == len(arrays)
-                and all(a is b for a, b in zip(hit[0], arrays))):
-            return hit[4]
+        key = (slot, tuple(map(id, arrays)), dtype, device, d)
+        with self._tables_lock:
+            hit = self._tables.get(key)
+            if hit is not None:
+                self._tables.move_to_end(key)
+                return hit[1]
         packed = build()
-        setattr(self, slot, (arrays, dtype, device, d, packed))
+        with self._tables_lock:
+            self._tables[key] = (arrays, packed)
+            self._tables.move_to_end(key)
+            while len(self._tables) > TABLES_KEPT:
+                self._tables.popitem(last=False)
         return packed
 
     def table(self, consts, dtype: torch.dtype, device: torch.device,
@@ -888,9 +911,10 @@ class ChainProgram:
         # 16-byte alignment only: kept for the last such signature.
         sig = tuple((v.dtype, v.shape, v.stride(), v.data_ptr() % VECTOR_BYTES)
                     for v in ext_vals)
-        if self._layout is None or self._layout[0] != sig:
-            self._layout = (sig, self.layout(ext_vals))
-        lay = self._layout[1]
+        cached = self._layout  # one read: another thread may replace it
+        if cached is None or cached[0] != sig:
+            cached = self._layout = (sig, self.layout(ext_vals))
+        lay = cached[1]
         dtype, d, gather = lay.dtype, lay.d, lay.gather
         device = ext_vals[0].device
         bucket = ext_vals[0].shape[0]
@@ -955,7 +979,9 @@ class ChainProgram:
         else:
             qargs = (None, 0, None, None)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
+            current = torch.cuda.current_stream(device)
+            table.record_stream(current)
+            stream = current.cuda_stream
             code = fn(ctypes.addressof(parts), len(plan.parts), int(gather),
                       None if quant else table.data_ptr(), n_table, n_smem,
                       plan.n_run, ops, d, _HEAD_CODE[plan.head], k, group,

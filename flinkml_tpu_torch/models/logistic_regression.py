@@ -113,13 +113,42 @@ class _LogisticRegressionParams(
     LogisticRegressionParams / LogisticRegressionModelParams)."""
 
 
+#: Elements a CPU elementwise kernel takes in one vectorized step at most
+#: (two 512-bit vectors of bytes): see :func:`_full_blocks`.
+_CPU_BLOCK = 128
+
+
+def _full_blocks(fn, v: torch.Tensor) -> torch.Tensor:
+    """``fn(v)`` for an elementwise ``fn``, computed on the CPU over whole
+    vectorized blocks: PyTorch's CPU kernels for transcendental functions
+    (``sigmoid``, ``exp``) take the last ``len % block`` elements through a
+    scalar path that can differ from the vector path in the last bit, so
+    without the padding a row's value would depend on its position in
+    the batch."""
+    n = v.shape[0]
+    if v.device.type != "cpu" or n % _CPU_BLOCK == 0:
+        return fn(v)
+    padded = v.new_zeros((n + _CPU_BLOCK - n % _CPU_BLOCK,) + v.shape[1:])
+    padded[:n] = v
+    return fn(padded)[:n]
+
+
 def _predict(x: torch.Tensor, coef,
              pred_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """prediction = 1[dot >= 0] (in ``pred_dtype``, default ``x``'s); raw =
-    [1-p, p], in ``x``'s dtype."""
+    [1-p, p], in ``x``'s dtype. In float32 and float64 the dot is a
+    product and a sum along each row, so a row's outputs do not depend on
+    the rows beside it (a float32 ``matmul`` on the CPU rounds a row
+    differently in batches of different sizes; a served response must
+    equal the same rows alone; the sigmoid likewise, see
+    :func:`_full_blocks`). A 16-bit row keeps ``matmul``: its products are
+    exact and the sum rounds once, as in the kernel."""
     coef = torch.as_tensor(coef).to(device=x.device, dtype=x.dtype)
-    dot = torch.matmul(x, coef)
-    p = torch.sigmoid(dot)
+    if x.dtype in (torch.float32, torch.float64):
+        dot = (x * coef).sum(-1)
+    else:
+        dot = torch.matmul(x, coef)
+    p = _full_blocks(torch.sigmoid, dot)
     pred = (dot >= 0).to(pred_dtype or x.dtype)
     raw = torch.stack([1.0 - p, p], dim=-1)
     return pred, raw

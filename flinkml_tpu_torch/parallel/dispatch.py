@@ -24,6 +24,8 @@ import os
 import threading
 from typing import Any, Callable, Optional
 
+import torch
+
 from flinkml_tpu_torch import faults
 
 _ENV_INTERVAL = "FLINKML_SYNC_INTERVAL"
@@ -150,9 +152,12 @@ _MESH_LOCKS_GUARD = threading.Lock()
 
 def _device_id(d) -> int:
     """An integer device id: an int (a rank) or a ``torch.device``'s
-    index."""
+    index; a ``torch.device`` without one (``cpu``, a bare ``cuda``) is
+    the process's one device of its type, id 0."""
     if isinstance(d, int):
         return d
+    if isinstance(d, torch.device):
+        return 0 if d.index is None else int(d.index)
     index = getattr(d, "index", None)
     if index is None:
         raise TypeError(f"cannot take a device id from {d!r}")

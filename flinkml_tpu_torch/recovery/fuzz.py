@@ -36,8 +36,17 @@ in-loop numerics and crash seams; the scenario runs in a CHILD process
 (:func:`run_worker_schedule`, which takes the parent's compute device from
 the plan file) and the parent restarts it on every nonzero exit.
 
-The serving soak (``--serving``: gray failures against a replica pool)
-comes with the serving engine, ROADMAP.md Queue 1 item 4.
+**Serving soak** (``--serving``): gray failures against a live replica
+pool. Each schedule draws from the ``serving.replica`` seam (stalls,
+jitter, slow ramps and replica kills), runs closed-loop clients against a
+4-replica :class:`~flinkml_tpu_torch.serving.ReplicaPool` with the
+gray-failure guard armed, and asserts: no request lost past its typed
+retries, every response the reference transform of its own rows, one
+model version, every quarantined replica rejoined, and recovered p99
+within max(2x baseline, baseline + 50 ms)::
+
+    python -m flinkml_tpu_torch.recovery.fuzz --serving --device cpu \
+        --seed 7 --budget 2
 """
 
 from __future__ import annotations
@@ -697,15 +706,358 @@ def _run_worker_soak(seed, budget, wall_budget_s, fuzz, repro_dir,
     return report
 
 
-def run_serving_soak(*args, **kwargs) -> SoakReport:
-    """The serving-pool gray-failure soak. Not ported: it drives the
-    serving engine and replica pool, which come with ROADMAP.md Queue 1
-    item 4."""
-    raise NotImplementedError(
-        "the serving soak is not ported to flinkml_tpu_torch yet: it drives "
-        "the serving replica pool, which comes with ROADMAP.md Queue 1 "
-        "item 4 (serving)"
+# ---------------------------------------------------------------------------
+# Serving soak: gray-failure schedules against a live replica pool
+# ---------------------------------------------------------------------------
+
+#: The serving scenario (sized so each schedule — pool spin-up, client
+#: load, recovery probe — fits a few seconds of CI wall clock).
+SERVING_REPLICAS = 4
+SERVING_CLIENTS = 4
+SERVING_REQUESTS = 25
+SERVING_ROWS = 8
+SERVING_DIM = 4
+SERVING_BASELINE_REQUESTS = 60
+
+
+def serving_grayfail_policy():
+    """The soak's :class:`~flinkml_tpu_torch.serving.GrayFailPolicy`: the
+    production floors scaled down so the defense is LIVE at the
+    millisecond latencies of a small pool (sampled stalls are 50–300 ms;
+    the default 250 ms abandonment floor would sleep through half of
+    them)."""
+    from flinkml_tpu_torch.serving import GrayFailPolicy
+
+    return GrayFailPolicy(
+        attempt_floor_ms=40.0, min_attempt_samples=8,
+        hedge_floor_ms=30.0,
+        min_slow_samples=8, slow_trip=2, slow_clear=2,
+        slow_abs_floor_ms=10.0,
+        canary_interval_s=0.05, canary_timeout_ms=500.0,
+        quarantine_retire_s=10.0,
+        brownout=False,  # single-model pool: no SLO classes to shed
     )
+
+
+def serving_scenario(seed: int = 0):
+    """The serving feed: a fitted pure (elementwise, hedge-idempotent)
+    transform plus every client request's features and their reference
+    outputs. Elementwise on purpose — each output row depends only on
+    its own input row, so the reference computed in one shot is bitwise
+    comparable to pool responses regardless of how continuous batching
+    coalesced or padded the requests."""
+    from flinkml_tpu_torch.models import StandardScaler
+    from flinkml_tpu_torch.table import Table
+
+    rng = np.random.default_rng([seed, 17])
+    n = SERVING_CLIENTS * SERVING_REQUESTS * SERVING_ROWS
+    x = rng.normal(size=(n, SERVING_DIM))
+    model = (
+        StandardScaler()
+        .set(StandardScaler.INPUT_COL, "features")
+        .set(StandardScaler.OUTPUT_COL, "scaled")
+        .fit(Table({"features": x[:256]}))
+    )
+    (ref,) = model.transform(Table({"features": x}))
+    return model, x, np.asarray(ref.column("scaled"))
+
+
+def _p99(samples_ms: List[float]) -> float:
+    ordered = sorted(samples_ms)
+    import math
+
+    return ordered[min(len(ordered) - 1,
+                       math.ceil(0.99 * len(ordered)) - 1)]
+
+
+def run_serving_schedule(plan: "faults_mod.FaultPlan",
+                         scenario: Optional[Tuple[Any, Any, Any]] = None,
+                         data_seed: int = 0, max_retries: int = 8
+                         ) -> Tuple[List[str], Dict[str, Any]]:
+    """Run the closed-loop serving scenario under ``plan`` with the
+    gray-failure guard armed; returns ``(invariant_failures, stats)``.
+
+    Phases: (1) un-faulted baseline load seeds every replica's attempt
+    ring and measures baseline p99; (2) the fault plan arms and
+    ``SERVING_CLIENTS`` closed-loop clients each issue
+    ``SERVING_REQUESTS`` requests, retrying only on TYPED backpressure
+    (overload / unavailable / timeout) with bounded budget; (3) faults
+    disarm, quarantined replicas are given time to canary-rejoin, and a
+    recovery probe re-measures p99. Invariants per module docstring.
+    """
+    from flinkml_tpu_torch.serving import (
+        PoolUnavailableError,
+        ReplicaPool,
+        ServingConfig,
+        ServingOverloadError,
+        ServingTimeoutError,
+        ReplicaState,
+    )
+    from flinkml_tpu_torch.table import Table
+
+    model, x, expected = scenario or serving_scenario(data_seed)
+    failures: List[str] = []
+    pool = ReplicaPool(
+        model, Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=64, max_queue_rows=512,
+                             max_wait_ms=1.0, default_timeout_ms=15_000.0),
+        n_replicas=SERVING_REPLICAS, output_cols=("scaled",),
+        name="soak", grayfail=serving_grayfail_policy(),
+    )
+    guard = pool.grayfail_guard(interval_s=0.05)
+    retryable = (ServingOverloadError, PoolUnavailableError,
+                 ServingTimeoutError)
+    lock = threading.Lock()
+    lost: List[str] = []
+    mismatched: List[str] = []
+    versions: set = set()
+    retries = [0]
+    stats: Dict[str, Any] = {}
+
+    def one_request(sl, tag: str) -> Optional[float]:
+        """One closed-loop request; parity-checked. Returns latency ms
+        (None when lost after the retry budget)."""
+        feats = {"features": x[sl]}
+        t0 = time.perf_counter()
+        for attempt in range(max_retries + 1):
+            try:
+                resp = pool.predict(feats, timeout_ms=5_000.0)
+            except retryable:
+                with lock:
+                    retries[0] += 1
+                time.sleep(0.01 * (attempt + 1))
+                continue
+            latency = (time.perf_counter() - t0) * 1e3
+            got = np.asarray(resp.columns["scaled"])
+            with lock:
+                versions.add(resp.version)
+                if not np.array_equal(got, expected[sl]):
+                    mismatched.append(
+                        f"{tag}: response is not the reference transform "
+                        "of its own rows (duplicate/mixed/mis-versioned)"
+                    )
+            return latency
+        with lock:
+            lost.append(f"{tag}: lost after {max_retries} typed-error "
+                        "retries")
+        return None
+
+    def closed_loop(client: int):
+        for i in range(SERVING_REQUESTS):
+            start = (client * SERVING_REQUESTS + i) * SERVING_ROWS
+            lat = one_request(slice(start, start + SERVING_ROWS),
+                              f"client {client} request {i}")
+            if lat is not None:
+                with lock:
+                    faulted_ms.append(lat)
+            # Think time: stretches the load window across several guard
+            # evaluations so quarantine/rejoin actually happen DURING
+            # traffic (a request takes about a millisecond; without this
+            # the whole faulted phase fits inside one sampled stall).
+            time.sleep(0.005)
+
+    try:
+        pool.start()
+        # Phase 1: baseline (also seeds the sibling attempt rings the
+        # abandonment budget needs).
+        baseline_ms = []
+        for i in range(SERVING_BASELINE_REQUESTS):
+            start = (i % (SERVING_CLIENTS * SERVING_REQUESTS)) * SERVING_ROWS
+            lat = one_request(slice(start, start + SERVING_ROWS),
+                              f"baseline {i}")
+            if lat is not None:
+                baseline_ms.append(lat)
+        if lost:
+            return lost + ["baseline load lost requests; aborting"], stats
+        p99_base = _p99(baseline_ms)
+        # Phase 2: faulted closed-loop load.
+        faulted_ms: List[float] = []
+        guard.start()
+        with faults_mod.armed(plan):
+            threads = [
+                threading.Thread(target=closed_loop, args=(c,),
+                                 name=f"soak-client-{c}", daemon=True)
+                for c in range(SERVING_CLIENTS)
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        # Phase 3: faults disarmed — wait for SLOW replicas to
+        # canary-rejoin, then probe recovered p99.
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            if not any(r.health.state is ReplicaState.SLOW
+                       for r in pool.replicas):
+                break
+            time.sleep(0.05)
+        still_slow = [r.name for r in pool.replicas
+                      if r.health.state is ReplicaState.SLOW]
+        if still_slow:
+            failures.append(
+                f"replicas {still_slow} never rejoined after the faults "
+                "cleared (canary/rejoin path broken)"
+            )
+        recovered_ms = []
+        for i in range(SERVING_BASELINE_REQUESTS):
+            start = (i % (SERVING_CLIENTS * SERVING_REQUESTS)) * SERVING_ROWS
+            lat = one_request(slice(start, start + SERVING_ROWS),
+                              f"recovery {i}")
+            if lat is not None:
+                recovered_ms.append(lat)
+        p99_rec = _p99(recovered_ms) if recovered_ms else float("inf")
+        failures.extend(lost)
+        failures.extend(mismatched)
+        if len(versions) > 1:
+            failures.append(
+                f"responses named {len(versions)} distinct model "
+                f"versions ({sorted(versions)}); expected exactly one"
+            )
+        # ≤ 2x baseline, with an absolute floor so timer noise on a
+        # sub-ms baseline can't flake the invariant.
+        bound = max(2.0 * p99_base, p99_base + 50.0)
+        if p99_rec > bound:
+            failures.append(
+                f"recovered p99 {p99_rec:.1f}ms > bound {bound:.1f}ms "
+                f"(baseline {p99_base:.1f}ms): pool did not recover"
+            )
+        per_replica = {r.name: r.health.state.value for r in pool.replicas}
+        stats.update({
+            "p99_baseline_ms": round(p99_base, 2),
+            "p99_faulted_ms": round(_p99(faulted_ms), 2)
+            if faulted_ms else None,
+            "p99_recovered_ms": round(p99_rec, 2),
+            "retries": retries[0],
+            "replica_states": per_replica,
+        })
+    finally:
+        guard.stop()
+        pool.stop(drain=False, timeout=5.0)
+    return failures, stats
+
+
+@dataclasses.dataclass
+class ServingScheduleResult:
+    index: int
+    faults: List[str]
+    ok: bool
+    failures: List[str]
+    stats: Dict[str, Any]
+    elapsed_s: float
+
+
+@dataclasses.dataclass
+class ServingSoakReport:
+    seed: int
+    results: List[ServingScheduleResult]
+    elapsed_s: float
+    budget: int
+    skipped: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return self.skipped == 0 and all(r.ok for r in self.results)
+
+    @property
+    def failures(self) -> List[ServingScheduleResult]:
+        return [r for r in self.results if not r.ok]
+
+    def summary(self) -> str:
+        n_retries = sum(r.stats.get("retries", 0) for r in self.results)
+        return (
+            f"serving soak seed={self.seed}: {len(self.results)}/"
+            f"{self.budget} schedules, {len(self.failures)} failed, "
+            f"{n_retries} typed-error retries, {self.elapsed_s:.1f}s"
+            + (f" ({self.skipped} SKIPPED on wall budget)"
+               if self.skipped else "")
+        )
+
+
+def run_serving_soak(seed: int = 7, budget: int = 6,
+                     wall_budget_s: Optional[float] = None,
+                     fuzz: Optional["faults_mod.FuzzPlan"] = None,
+                     repro_dir: Optional[str] = None,
+                     data_seed: int = 0, device=None) -> ServingSoakReport:
+    """The serving-pool soak: ``budget`` schedules over the
+    ``serving.replica`` seam, each run with :func:`run_serving_schedule`;
+    failing schedules shrink through :func:`shrink_schedule` and commit
+    the same JSON repro artifact as the trainer soak. ``device``: the
+    pool's compute device (None: the default device)."""
+    with _on_device(device):
+        return _run_serving_soak(seed, budget, wall_budget_s, fuzz,
+                                 repro_dir, data_seed)
+
+
+def _run_serving_soak(seed, budget, wall_budget_s, fuzz, repro_dir,
+                      data_seed) -> ServingSoakReport:
+    fuzz = fuzz or faults_mod.FuzzPlan(
+        seed=seed, seams=("serving.replica",), budget=budget,
+        horizon=8, max_faults=3, replicas=SERVING_REPLICAS,
+    )
+    scenario = serving_scenario(data_seed)
+    t0 = time.perf_counter()
+    results: List[ServingScheduleResult] = []
+    skipped = 0
+    for index, plan in fuzz.schedules():
+        if (wall_budget_s is not None
+                and time.perf_counter() - t0 > wall_budget_s):
+            skipped = fuzz.budget - index
+            _log.warning(
+                "serving soak wall budget (%ss) exhausted at schedule "
+                "%d/%d", wall_budget_s, index, fuzz.budget,
+            )
+            break
+        st = time.perf_counter()
+        descs = [f.describe() for f in plan.faults]
+        failures, stats = run_serving_schedule(
+            plan, scenario=scenario, data_seed=data_seed
+        )
+        results.append(ServingScheduleResult(
+            index=index, faults=descs, ok=not failures,
+            failures=failures, stats=stats,
+            elapsed_s=round(time.perf_counter() - st, 3),
+        ))
+        if failures:
+            _log.error("serving schedule %d FAILED %s: %s",
+                       index, descs, failures)
+            if repro_dir is not None:
+                minimal = shrink_schedule(
+                    plan,
+                    lambda p: bool(run_serving_schedule(
+                        p, scenario=scenario, data_seed=data_seed)[0]),
+                )
+                os.makedirs(repro_dir, exist_ok=True)
+                path = os.path.join(
+                    repro_dir,
+                    f"fuzz_serving_repro_seed{seed}_sched{index}.json",
+                )
+                with open(path, "w") as f:
+                    f.write(faults_mod.plan_to_json(minimal, extra={
+                        "seed": seed, "schedule": index,
+                        "failures": failures,
+                        "scenario": {
+                            "kind": "serving",
+                            "replicas": SERVING_REPLICAS,
+                            "clients": SERVING_CLIENTS,
+                            "requests_per_client": SERVING_REQUESTS,
+                            "rows_per_request": SERVING_ROWS,
+                            "dim": SERVING_DIM,
+                            "data_seed": data_seed,
+                        },
+                    }))
+                _log.error("minimal serving repro written: %s (%d -> %d "
+                           "faults)", path, len(plan.faults),
+                           len(minimal.faults))
+        else:
+            _log.info("serving schedule %d ok %s (%s)", index, descs,
+                      stats)
+    report = ServingSoakReport(
+        seed=seed, results=results,
+        elapsed_s=round(time.perf_counter() - t0, 2),
+        budget=fuzz.budget, skipped=skipped,
+    )
+    _log.warning("%s", report.summary())
+    return report
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -726,8 +1078,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="write minimal FaultPlan repros for failing "
                              "schedules here")
     parser.add_argument("--serving", action="store_true",
-                        help="the serving-pool gray-failure soak (comes "
-                             "with ROADMAP.md Queue 1 item 4)")
+                        help="run the serving-pool gray-failure soak "
+                             "instead of the trainer soak")
     parser.add_argument("--worker", action="store_true",
                         help="run the process-boundary worker-crash soak "
                              "(each schedule's trainer is a supervised "
@@ -751,7 +1103,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             seed=args.seed,
             budget=args.budget if args.budget is not None else 6,
             wall_budget_s=args.wall_budget_s,
-            repro_dir=args.repro_dir,
+            repro_dir=args.repro_dir, device=args.device,
         )
     else:
         report = run_soak(

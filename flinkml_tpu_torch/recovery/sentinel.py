@@ -31,8 +31,9 @@ the same knob on ``fit_stream``) or through
 rollback-and-quarantine instead of a crash.
 
 :func:`check_stage_finite` refuses a non-finite model at a publish or
-serve boundary; its callers (the registry and the serving engine) come
-with ROADMAP.md Queue 1 item 4.
+serve boundary: :meth:`~flinkml_tpu_torch.serving.ModelRegistry.publish`
+calls it before any file is written, and the serving engine before it
+installs a model (``ServingConfig(refuse_nonfinite=True)``).
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ and histories: the input pipeline's
 :class:`~flinkml_tpu_torch.data.prefetch.DevicePrefetcher` (group
 ``data.prefetch``), the self-healing recovery session (group
 ``recovery``: ``rollbacks_total``, ``quarantined_batches``,
-``time_to_recover_p50_ms``/``p99_ms``, ``retries_total{class=...}``).
+``time_to_recover_p50_ms``/``p99_ms``, ``retries_total{class=...}``),
+the serving engines (group ``serving.<name>``, whose :class:`LatencyWindow`
+publishes ``p50_ms``/``p99_ms``).
 :meth:`MetricsRegistry.render_text` gives the JAX package's text
 exposition (``flinkml_rollbacks_total{group="recovery"} 1``). Plain
 host-side Python; a device time recorded here must be taken after
@@ -98,6 +100,53 @@ class MetricGroup:
                 "meters": {k: m.rate for k, m in self._meters.items()},
                 "histories": {k: list(v) for k, v in self._histories.items()},
             }
+
+
+class LatencyWindow:
+    """Sliding per-request latency ring publishing ``p50_ms``/``p99_ms``
+    gauges into a group: the one implementation of the percentile gauges
+    shared by the serving engine's per-engine window and the multi-model
+    pool's per-SLO-class windows. Thread-safe; ``record`` takes any number
+    of samples, so a batch's completions pay one lock acquisition and one
+    sort."""
+
+    def __init__(self, group: MetricGroup, window: int = 2048):
+        import numpy as np
+
+        self._group = group
+        self._lock = threading.Lock()
+        self._ring = np.empty(int(window), dtype=np.float64)
+        self._size = 0
+        self._next = 0
+
+    def record(self, *latencies_ms: float) -> None:
+        import numpy as np
+
+        with self._lock:
+            for v in latencies_ms:
+                self._ring[self._next] = v
+                self._next = (self._next + 1) % len(self._ring)
+                self._size = min(self._size + 1, len(self._ring))
+            if not self._size:
+                return
+            arr = self._ring[:self._size].copy()
+        # np.percentile(arr, [50, 99])'s values (linear interpolation),
+        # from one partial sort instead of a full one.
+        q = (0.5, 0.99)
+        at = [(self._size - 1) * p for p in q]
+        lo = [int(np.floor(v)) for v in at]
+        hi = [min(i + 1, self._size - 1) for i in lo]
+        arr.partition(sorted(set(lo + hi)))
+        p50, p99 = (_lerp(arr[a], arr[b], v - a)
+                    for a, b, v in zip(lo, hi, at))
+        self._group.gauge("p50_ms", float(p50))
+        self._group.gauge("p99_ms", float(p99))
+
+
+def _lerp(a: float, b: float, t: float) -> float:
+    """numpy's percentile interpolation, operation for operation."""
+    diff = b - a
+    return b - diff * (1 - t) if t >= 0.5 else a + diff * t
 
 
 class MetricsRegistry:

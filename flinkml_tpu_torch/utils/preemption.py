@@ -211,9 +211,11 @@ class PreemptionWatchdog:
 
     # -- shutdown actions ----------------------------------------------------
     def register_engine(self, engine: Any) -> None:
-        """Serving engines to drain cleanly on preemption: anything with
-        ``stop(drain=True)`` (the port's serving engine comes with
-        ROADMAP.md Queue 1 item 4)."""
+        """Serving engines to drain cleanly on preemption: a
+        :class:`~flinkml_tpu_torch.serving.ServingEngine` (or a pool, or
+        anything with ``stop(drain=True)``). :meth:`finalize` stops each
+        with ``drain=True``, so every request already queued is
+        answered."""
         self._engines.append(engine)
 
     @property

@@ -1,0 +1,833 @@
+"""Autoscaling + multi-tenant serving in the port
+(``flinkml_tpu_torch.serving``), on the CPU.
+
+Mirrors the JAX package's ``tests/test_autoscaler.py`` name for name,
+less its clean-process compile-cache case (the compile-cache store comes
+with ROADMAP.md Queue 1 item 11). Every test runs under
+``use_device("cpu")``. The acceptance contract:
+
+  1. **Closed loop**: offered load triples against an undersized pool;
+     the autoscaler grows replicas from the pool's own metrics and p99
+     recovers WITHOUT operator action.
+  2. **Chaos composition**: killing a replica mid-spike composes with
+     the scaling loop — the autoscaler replaces the retired replica
+     (healthy count under ``min_replicas`` outranks hysteresis), the
+     router's failover loses zero requests, and the pool converges.
+  3. **Hysteresis**: scale events need decisive, sustained signals (the
+     1.10x decisive margin) — noise cannot flap the replica count.
+  4. **Leases**: a training slice lease is reclaimed via the revoke →
+     release handshake before serving is placed on it; with reclaim
+     disabled the scaler refuses rather than stealing the slice (the
+     FML304 shape).
+  5. **Multi-tenancy**: N models over one pool route correctly, roll
+     their registries independently, and a batch-class job can never
+     starve the interactive tier (class admission shares).
+  6. Satellites: a fresh/revived replica's latency EWMA seeds from its
+     healthy siblings' median; revive resets pre-failure health stats.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from flinkml_tpu_torch import faults, pipeline_fusion
+from flinkml_tpu_torch.models.logistic_regression import LogisticRegression
+from flinkml_tpu_torch.models.scalers import StandardScaler
+from flinkml_tpu_torch.parallel import dispatch as _dispatch
+from flinkml_tpu_torch.pipeline import PipelineModel
+from flinkml_tpu_torch.serving import (
+    BATCH,
+    INTERACTIVE,
+    AutoscaleConfig,
+    MultiModelPool,
+    PoolAutoscaler,
+    ReplicaHealth,
+    ReplicaPool,
+    ServingConfig,
+    SLOAdmissionError,
+    SLOClass,
+)
+from flinkml_tpu_torch.table import Table
+from tests._torch_serving_common import (  # noqa: F401
+    _on_cpu,
+    _time_limit,
+    on_cpu,
+    program_counts,
+)
+
+
+
+def _data(n=300, d=6, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = (x @ rng.normal(size=d) > 0).astype(np.float64)
+    return x, y
+
+
+def _chain(x, y):
+    train = Table({"features": x, "label": y})
+    sc = (
+        StandardScaler()
+        .set(StandardScaler.INPUT_COL, "features")
+        .set(StandardScaler.OUTPUT_COL, "scaled")
+        .fit(train)
+    )
+    (t2,) = sc.transform(train)
+    lr = (
+        LogisticRegression()
+        .set(LogisticRegression.FEATURES_COL, "scaled")
+        .set(LogisticRegression.LABEL_COL, "label")
+        .set_max_iter(3)
+        .fit(t2)
+    )
+    return PipelineModel([sc, lr])
+
+
+def _pool(source, x, n_replicas=1, name="as_pool", **cfg):
+    config = ServingConfig(**{
+        "max_batch_rows": 32,
+        "max_queue_rows": 256,
+        "max_wait_ms": 1.0,
+        **cfg,
+    })
+    return ReplicaPool(
+        source, Table({"features": x[:4]}), config=config,
+        n_replicas=n_replicas, output_cols=("prediction",), name=name,
+    )
+
+
+# ---------------------------------------------------------------------------
+# 1. The closed-loop acceptance scenario
+# ---------------------------------------------------------------------------
+
+def test_closed_loop_load_triple_recovers_p99_without_operator():
+    """Offered load triples against a 1-replica pool; the autoscaler
+    (background control thread — no operator in the loop) scales up on
+    the backlog signal, the pool's own scaling signal recovers below
+    the threshold, zero requests are lost, and post-scale p99 holds
+    within a 2x tripwire of the pre-scale spike.
+
+    Why a tripwire and not strict improvement on the CPU: the replicas'
+    Python dispatchers share the GIL (and every CPU tensor op hands it
+    over), so IN-PROCESS replicas cannot add real capacity (closed-loop
+    p50 scales with 1/throughput — Little's law); the true p99-recovery
+    number is the card's (``chip_smoke.py`` path N5). The 2x bound is
+    not vacuous: a per-(rows, bucket) build on every batch degrades this
+    scenario >10x."""
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=1, name="loop_pool",
+                 max_queue_rows=512).start()
+    # up_consecutive x interval gives a ~1s measurable saturation window
+    # BEFORE the first scale event — the "spike" the recovery is judged
+    # against.
+    scaler = PoolAutoscaler(pool, AutoscaleConfig(
+        min_replicas=1, max_replicas=3, scale_up_backlog=0.05,
+        up_consecutive=10, down_consecutive=10_000,  # no down mid-test
+        cooldown_s=0.3, interval_s=0.1,
+    )).start()
+    stop = threading.Event()
+    lat: list = []  # (t_completed, latency_ms)
+    lat_lock = threading.Lock()
+    errors: list = []
+
+    def client(tid):
+        rng = np.random.default_rng(tid)
+        while not stop.is_set():
+            rows = int(rng.integers(8, 25))
+            lo = int(rng.integers(0, x.shape[0] - rows))
+            t0 = time.perf_counter()
+            try:
+                pool.predict({"features": x[lo:lo + rows]})
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+                return
+            with lat_lock:
+                lat.append((time.perf_counter(),
+                            (time.perf_counter() - t0) * 1e3))
+
+    def p99_window(t0, t1=None):
+        with lat_lock:
+            vals = [ms for (tc, ms) in lat
+                    if tc >= t0 and (t1 is None or tc < t1)]
+        return (float(np.percentile(vals, 99)), len(vals)) if vals \
+            else (None, 0)
+
+    try:
+        # Phase 1: light load (2 clients) — the pool is sized for this.
+        light = [threading.Thread(target=client, args=(i,))
+                 for i in range(2)]
+        for t in light:
+            t.start()
+        time.sleep(0.8)
+
+        # Phase 2: offered load triples (6 clients total).
+        spike_t0 = time.perf_counter()
+        heavy = [threading.Thread(target=client, args=(10 + i,))
+                 for i in range(4)]
+        for t in heavy:
+            t.start()
+
+        # The control loop must react on its own.
+        deadline = time.monotonic() + 40
+        while time.monotonic() < deadline and len(pool.replicas) < 2:
+            time.sleep(0.05)
+        first_scale_t = time.perf_counter()
+        assert len(pool.replicas) >= 2, (
+            f"autoscaler never scaled up: {scaler.stats()}"
+        )
+        backlog_at_scale = scaler.stats()["backlog_ewma"]
+        spike_p99, spike_n = p99_window(spike_t0, first_scale_t)
+        # Let scaling settle: replica count stable for >= 1s (later
+        # scale-ups pay in-process compiles that must not pollute the
+        # recovery window).
+        stable_since = time.monotonic()
+        last_count = len(pool.replicas)
+        while time.monotonic() < deadline:
+            if len(pool.replicas) != last_count:
+                last_count = len(pool.replicas)
+                stable_since = time.monotonic()
+            if time.monotonic() - stable_since >= 1.0:
+                break
+            time.sleep(0.05)
+        settle_t0 = time.perf_counter()
+        time.sleep(1.5)  # post-scale steady state under the SAME load
+        recovered_p99, rec_n = p99_window(settle_t0)
+        stop.set()
+        for t in light + heavy:
+            t.join(timeout=60)
+    finally:
+        stop.set()
+        scaler.stop()
+        pool.stop()
+    assert not errors, errors[:3]
+    st = scaler.stats()
+    assert st["counters"].get("scale_events_total", 0) >= 1
+    # The control loop's own signal recovered: scaling grew aggregate
+    # queue capacity, so the backlog fraction fell decisively from its
+    # at-scale-time level (a constant in-flight row count over 3x the
+    # capacity).
+    assert st["backlog_ewma"] is not None and backlog_at_scale is not None
+    assert st["backlog_ewma"] <= backlog_at_scale * 0.75, (
+        f"backlog signal never recovered: {backlog_at_scale:.3f} -> "
+        f"{st['backlog_ewma']:.3f} ({st})"
+    )
+    # p99 tripwire (see docstring for why 2x, not strict improvement,
+    # on a shared-executor CPU mesh).
+    assert spike_p99 is not None and spike_n >= 5, (spike_p99, spike_n)
+    assert recovered_p99 is not None and rec_n >= 5
+    assert recovered_p99 <= spike_p99 * 2.0, (
+        f"p99 catastrophically degraded after scale-up: spike "
+        f"{spike_p99:.1f}ms ({spike_n} reqs) -> {recovered_p99:.1f}ms "
+        f"({rec_n} reqs) ({st})"
+    )
+
+
+def test_scale_up_seeds_ewma_from_sibling_median():
+    """Satellite regression: a replica added to a serving pool seeds
+    its latency EWMA from the healthy siblings' median, so the router's
+    deadline ordering treats it as a known quantity and it takes load
+    immediately instead of settling late."""
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="seed_pool").start()
+    try:
+        for i in range(6):
+            pool.predict({"features": x[i:i + 3]})
+        sib = [r.health.ewma_ms_per_row for r in pool.replicas]
+        assert any(v is not None for v in sib)
+        replica = pool.add_replica()
+        expect = float(np.median([v for v in sib if v is not None]))
+        assert replica.health.ewma_ms_per_row == pytest.approx(expect)
+        # ...and it serves immediately.
+        resp = pool.predict({"features": x[:3]})
+        assert resp.columns["prediction"].shape == (3,)
+    finally:
+        pool.stop()
+
+
+def test_scale_down_drains_without_losing_requests():
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=3, name="down_pool").start()
+    try:
+        for i in range(9):
+            pool.predict({"features": x[i:i + 2]})
+        name = pool.remove_replica()
+        assert len(pool.replicas) == 2
+        assert all(r.name != name for r in pool.replicas)
+        resp = pool.predict({"features": x[:2]})
+        assert resp.columns["prediction"].shape == (2,)
+        with pytest.raises(ValueError, match="last healthy"):
+            pool.remove_replica()
+            pool.remove_replica()
+    finally:
+        pool.stop()
+
+
+# ---------------------------------------------------------------------------
+# 2. Chaos composition: kill mid-spike, the scaler replaces
+# ---------------------------------------------------------------------------
+
+def test_chaos_kill_mid_spike_autoscaler_replaces_and_pool_converges():
+    """Extends the pool's chaos contract to the scaling loop: killing 1 of
+    2 replicas mid-load loses zero requests (router failover) AND the
+    autoscaler replaces the retired replica (healthy < min_replicas
+    outranks hysteresis), so capacity — and p99 — converge."""
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="chaos_scale_pool").start()
+    scaler = PoolAutoscaler(pool, AutoscaleConfig(
+        min_replicas=2, max_replicas=4, scale_up_backlog=0.95,
+        up_consecutive=10_000, down_consecutive=10_000,
+        cooldown_s=0.1, interval_s=0.05,
+    )).start()
+    stop = threading.Event()
+    errors: list = []
+    served = [0]
+
+    def client(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            while not stop.is_set():
+                rows = int(rng.integers(1, 7))
+                lo = int(rng.integers(0, x.shape[0] - rows))
+                resp = pool.predict({"features": x[lo:lo + rows]})
+                (ref,) = pm.transform(Table({"features": x[lo:lo + rows]}))
+                np.testing.assert_array_equal(
+                    np.asarray(ref.column("prediction")),
+                    resp.column("prediction"),
+                )
+                served[0] += 1
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    try:
+        with faults.armed(faults.FaultPlan(
+            faults.ReplicaDown("r1", at_batch=2)
+        )):
+            threads = [
+                threading.Thread(target=on_cpu(client), args=(i,)) for i in range(4)
+            ]
+            for t in threads:
+                t.start()
+            # Wait for the kill to land and the scaler to replace it
+            # (the dead slot is PRUNED once the replacement joins, so
+            # the observable end state is: r1 gone, r2 serving).
+            deadline = time.monotonic() + 60
+            replaced = False
+            while time.monotonic() < deadline:
+                st = pool.stats()
+                if ("r2" in st["per_replica"] and st["healthy"] >= 2
+                        and "r1" not in st["per_replica"]):
+                    replaced = True
+                    break
+                time.sleep(0.05)
+            served_at_replace = served[0]
+            time.sleep(0.5)  # must keep serving on the replacement
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        stop.set()
+        scaler.stop()
+        pool.stop()
+    assert not errors, errors[:3]
+    assert replaced, f"scaler never replaced the dead replica: {pool.stats()}"
+    assert served[0] > served_at_replace, "pool stalled after replacement"
+    assert scaler.stats()["counters"].get("replacements_total", 0) >= 1
+    # The replacement is a NEW replica (r2), and the dead slot was
+    # pruned (a flapping failure must not leak stopped engines).
+    names = {r.name for r in pool.replicas}
+    assert "r2" in names and "r1" not in names, names
+
+
+# ---------------------------------------------------------------------------
+# 3. Hysteresis
+# ---------------------------------------------------------------------------
+
+def test_hysteresis_needs_decisive_sustained_signal():
+    """A single noisy sample (or a signal inside the 1.10x band) never
+    scales; a sustained decisive one does — the autotune idiom."""
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=1, name="hyst_pool",
+                 max_queue_rows=100).start()
+    try:
+        cfg = AutoscaleConfig(
+            min_replicas=1, max_replicas=3, scale_up_backlog=0.5,
+            up_consecutive=2, cooldown_s=0.0, backlog_alpha=1.0,
+        )
+        scaler = PoolAutoscaler(pool, cfg)
+        # Signal ABOVE threshold but inside the decisive band
+        # (0.5 <= 0.52 < 0.55): never fires.
+        pool.replicas[0].health.outstanding_rows = 52
+        for _ in range(6):
+            assert scaler.step() is None
+        assert len(pool.replicas) == 1
+        # Decisive (>= 0.55) but only ONE evaluation: still no event.
+        pool.replicas[0].health.outstanding_rows = 90
+        assert scaler.step() is None
+        pool.replicas[0].health.outstanding_rows = 0
+        assert scaler.step() is None  # streak broken
+        # Decisive AND sustained: fires exactly once, then cooldown.
+        pool.replicas[0].health.outstanding_rows = 90
+        assert scaler.step() is None
+        assert scaler.step() == "up"
+        assert len(pool.replicas) == 2
+        pool.replicas[0].health.outstanding_rows = 0
+    finally:
+        pool.stop()
+
+
+def test_scale_down_needs_sustained_idle():
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="idle_pool").start()
+    try:
+        scaler = PoolAutoscaler(pool, AutoscaleConfig(
+            min_replicas=1, max_replicas=3, scale_up_backlog=0.5,
+            down_consecutive=3, cooldown_s=0.0, backlog_alpha=1.0,
+        ))
+        assert scaler.step() is None
+        assert scaler.step() is None
+        assert scaler.step() == "down"
+        assert len(pool.replicas) == 1
+        # Never below min_replicas.
+        for _ in range(10):
+            scaler.step()
+        assert len(pool.replicas) == 1
+    finally:
+        pool.stop()
+
+
+# ---------------------------------------------------------------------------
+# 4. Training slice leases
+# ---------------------------------------------------------------------------
+
+def _clear_foreign_leases(before):
+    with _dispatch._LEASES_GUARD:
+        for token in set(_dispatch._LEASES) - before:
+            del _dispatch._LEASES[token]
+
+
+def test_lease_reclaim_handshake_frees_devices_for_scale_up():
+    """Every candidate device is leased to a 'trainer'; the autoscaler
+    performs the reclaim handshake (request_revoke -> the trainer
+    releases at its next safe boundary -> placement on the freed
+    device). The trainer observes the revoke through the lease it
+    polls."""
+    x, y = _data()
+    pm = _chain(x, y)
+    devices = [torch.device("cpu")]  # the port's one device per process
+    leases_before = set(_dispatch._LEASES)
+    pool = _pool(pm, x, n_replicas=1, name="lease_pool")
+    pool._device_universe = list(devices)
+    pool.start()
+    lease = _dispatch.lease_devices(devices, holder="trainer")
+    released_by_trainer = threading.Event()
+
+    def trainer():
+        # The cooperating holder: poll at "epoch boundaries".
+        while not lease.revoke_requested():
+            time.sleep(0.01)
+        lease.release()
+        released_by_trainer.set()
+
+    t = threading.Thread(target=trainer)
+    t.start()
+    try:
+        scaler = PoolAutoscaler(pool, AutoscaleConfig(
+            min_replicas=1, max_replicas=3, scale_up_backlog=0.1,
+            up_consecutive=1, cooldown_s=0.0, backlog_alpha=1.0,
+            reclaim_leases=True, lease_reclaim_timeout_s=10.0,
+        ))
+        pool.replicas[0].health.outstanding_rows = 200
+        assert scaler.step() == "up"
+        pool.replicas[0].health.outstanding_rows = 0
+        assert released_by_trainer.is_set()
+        assert not lease.active
+        assert lease.revoke_reason and "lease_pool" in lease.revoke_reason
+        assert len(pool.replicas) == 2
+        assert scaler.stats()["counters"].get("lease_reclaims_total") == 1
+    finally:
+        t.join(timeout=10)
+        lease.release()
+        _clear_foreign_leases(leases_before)
+        pool.stop()
+
+
+def test_scaler_refuses_leased_placement_without_reclaim():
+    """reclaim_leases=False: the scaler must NOT place serving work on
+    a leased slice (the FML304 shape) — it skips the scale-up loudly
+    and proceeds once the lease is gone."""
+    x, y = _data()
+    pm = _chain(x, y)
+    devices = [torch.device("cpu")]  # the port's one device per process
+    leases_before = set(_dispatch._LEASES)
+    pool = _pool(pm, x, n_replicas=1, name="nolease_pool")
+    pool._device_universe = list(devices)
+    pool.start()
+    lease = _dispatch.lease_devices(devices, holder="trainer")
+    try:
+        scaler = PoolAutoscaler(pool, AutoscaleConfig(
+            min_replicas=1, max_replicas=3, scale_up_backlog=0.1,
+            up_consecutive=1, cooldown_s=0.0, backlog_alpha=1.0,
+            reclaim_leases=False,
+        ))
+        pool.replicas[0].health.outstanding_rows = 200
+        assert scaler.step() is None  # refused, not placed on the lease
+        assert len(pool.replicas) == 1
+        assert lease.active and not lease.revoke_requested()
+        lease.release()
+        assert scaler.step() == "up"  # the streak survived the refusal
+        assert len(pool.replicas) == 2
+        pool.replicas[0].health.outstanding_rows = 0
+    finally:
+        lease.release()
+        _clear_foreign_leases(leases_before)
+        pool.stop()
+
+
+# ---------------------------------------------------------------------------
+# 5. Multi-model multiplexing + SLO-weighted admission
+# ---------------------------------------------------------------------------
+
+def _mm_pool(x, pm_a, pm_b, name="mm_pool", batch_share=0.5):
+    mm = MultiModelPool(
+        Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=32, max_queue_rows=64,
+                             max_wait_ms=1.0),
+        name=name,
+    )
+    mm.add_model("rank", pm_a, slo=INTERACTIVE, n_replicas=2)
+    mm.add_model("offline", pm_b, slo=SLOClass(
+        "batch", weight=1.0, deadline_ms=30_000.0,
+        max_queue_share=batch_share,
+    ), n_replicas=1)
+    return mm
+
+
+def test_multimodel_routing_parity_and_output_cols():
+    x, y = _data()
+    pm_a, pm_b = _chain(x, y), _chain(x, 1.0 - y)
+    mm = _mm_pool(x, pm_a, pm_b).start()
+    try:
+        ra = mm.predict("rank", {"features": x[:5]})
+        rb = mm.predict("offline", {"features": x[:5]})
+        (ref_a,) = pm_a.transform(Table({"features": x[:5]}))
+        (ref_b,) = pm_b.transform(Table({"features": x[:5]}))
+        np.testing.assert_array_equal(
+            np.asarray(ref_a.column("prediction")), ra.column("prediction")
+        )
+        np.testing.assert_array_equal(
+            np.asarray(ref_b.column("prediction")), rb.column("prediction")
+        )
+        with pytest.raises(KeyError, match="no model"):
+            mm.predict("absent", {"features": x[:2]})
+        # Replicas are model-tagged and the router filtered by them.
+        st = mm.stats()
+        assert st["models"]["rank"]["replicas"] == ["r0", "r1"]
+        assert st["models"]["offline"]["replicas"] == ["r2"]
+    finally:
+        mm.stop()
+
+
+def test_batch_class_admission_cap_is_the_starvation_guarantee():
+    """The deterministic half of 'batch can never starve interactive':
+    with the batch class's full capacity share in flight, further batch
+    requests are refused with the TYPED class error while interactive
+    admission (its own share untouched) proceeds — so the interactive
+    tier always has headroom by construction."""
+    x, y = _data()
+    pm_a, pm_b = _chain(x, y), _chain(x, 1.0 - y)
+    mm = _mm_pool(x, pm_a, pm_b, name="starve_pool").start()
+    try:
+        capacity = sum(r.engine.config.max_queue_rows for r in mm.replicas)
+        ledger = mm._ledgers["batch"]
+        ledger.outstanding_rows = int(0.5 * capacity)  # share exhausted
+        with pytest.raises(SLOAdmissionError, match="batch"):
+            mm.predict("offline", {"features": x[:4]})
+        # Interactive is untouched by the batch class's spent budget.
+        resp = mm.predict("rank", {"features": x[:4]})
+        assert resp.columns["prediction"].shape == (4,)
+        ledger.outstanding_rows = 0
+        st = mm.stats()["classes"]
+        assert st["batch"]["counters"]["budget_rejections"] == 1
+        assert st["interactive"]["counters"]["admitted_requests"] >= 1
+    finally:
+        mm.stop()
+
+
+def test_batch_saturation_live_interactive_stays_served():
+    """The live half: batch clients hammer their model continuously
+    (accepting their typed budget refusals); every interactive request
+    completes within its deadline budget — zero interactive failures."""
+    x, y = _data()
+    pm_a, pm_b = _chain(x, y), _chain(x, 1.0 - y)
+    mm = _mm_pool(x, pm_a, pm_b, name="live_starve_pool",
+                  batch_share=0.25).start()
+    stop = threading.Event()
+    interactive_errors: list = []
+    batch_rejections = [0]
+
+    def batch_client(tid):
+        rng = np.random.default_rng(tid)
+        while not stop.is_set():
+            rows = int(rng.integers(16, 33))
+            lo = int(rng.integers(0, x.shape[0] - rows))
+            try:
+                mm.predict("offline", {"features": x[lo:lo + rows]})
+            except SLOAdmissionError:
+                batch_rejections[0] += 1  # working as designed: back off
+                time.sleep(0.002)
+            except Exception:  # noqa: BLE001 — pool stopping
+                return
+
+    def interactive_client(tid):
+        rng = np.random.default_rng(100 + tid)
+        try:
+            for _ in range(30):
+                rows = int(rng.integers(1, 5))
+                lo = int(rng.integers(0, x.shape[0] - rows))
+                mm.predict("rank", {"features": x[lo:lo + rows]},
+                           timeout_ms=10_000.0)
+        except BaseException as e:  # noqa: BLE001
+            interactive_errors.append(e)
+
+    try:
+        batchers = [threading.Thread(target=batch_client, args=(i,))
+                    for i in range(4)]
+        for t in batchers:
+            t.start()
+        time.sleep(0.3)  # batch pressure established
+        inter = [threading.Thread(target=interactive_client, args=(i,))
+                 for i in range(2)]
+        for t in inter:
+            t.start()
+        for t in inter:
+            t.join(timeout=120)
+        stop.set()
+        for t in batchers:
+            t.join(timeout=60)
+    finally:
+        stop.set()
+        mm.stop()
+    assert not interactive_errors, interactive_errors[:3]
+    # Per-class latency families exist for the dashboards.
+    gauges = mm.stats()["classes"]["interactive"]["gauges"]
+    assert "p99_ms" in gauges
+
+
+def test_multimodel_registries_roll_independently(tmp_path):
+    from flinkml_tpu_torch.serving import ModelRegistry
+
+    x, y = _data()
+    pm_a, pm_b = _chain(x, y), _chain(x, 1.0 - y)
+    reg_a = ModelRegistry(str(tmp_path / "a"))
+    reg_b = ModelRegistry(str(tmp_path / "b"))
+    reg_a.publish(pm_a)
+    reg_b.publish(pm_b)
+    mm = MultiModelPool(
+        Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=32, max_queue_rows=64,
+                             max_wait_ms=1.0),
+        name="roll_mm",
+    )
+    mm.add_model("a", reg_a, slo=INTERACTIVE, n_replicas=2)
+    mm.add_model("b", reg_b, slo=BATCH, n_replicas=1)
+    mm.start()
+    mm.follow_registries()
+    try:
+        assert mm.predict("a", {"features": x[:2]}).version == 1
+        reg_a.publish(_chain(x, y))  # v2 for model a ONLY
+        versions = {
+            r.name: r.engine.active_version for r in mm.replicas
+        }
+        assert versions == {"r0": 2, "r1": 2, "r2": 1}, versions
+        assert mm.predict("a", {"features": x[:2]}).version == 2
+        assert mm.predict("b", {"features": x[:2]}).version == 1
+    finally:
+        mm.stop()
+
+
+def test_multimodel_scale_target_is_slo_weighted():
+    x, y = _data()
+    pm_a, pm_b = _chain(x, y), _chain(x, 1.0 - y)
+    mm = _mm_pool(x, pm_a, pm_b, name="target_pool").start()
+    try:
+        # Equal per-model backlog: interactive's 3x weight wins.
+        for r in mm.replicas:
+            r.health.outstanding_rows = 20
+        assert mm.scale_target()["model_id"] == "rank"
+        # Batch backlog 10x: batch outweighs the weight handicap.
+        for r in mm.replicas:
+            r.health.outstanding_rows = (
+                60 if r.model_id == "offline" else 2
+            )
+        assert mm.scale_target()["model_id"] == "offline"
+        # The scaler plumbs the target through add_replica(model_id=).
+        scaler = PoolAutoscaler(mm, AutoscaleConfig(
+            min_replicas=1, max_replicas=6, scale_up_backlog=0.1,
+            up_consecutive=1, cooldown_s=0.0, backlog_alpha=1.0,
+        ))
+        assert scaler.step() == "up"
+        assert [r.model_id for r in mm.replicas].count("offline") == 2
+        for r in mm.replicas:
+            r.health.outstanding_rows = 0
+        # Scale-down never removes a model's last replica.
+        victim = mm._scale_down_victim()
+        assert victim.model_id in ("rank", "offline")
+        per_model = [r.model_id for r in mm.replicas]
+        assert per_model.count(victim.model_id) >= 2
+    finally:
+        mm.stop()
+
+
+# ---------------------------------------------------------------------------
+# 6. Satellites: EWMA seeding + revive reset
+# ---------------------------------------------------------------------------
+
+def test_replica_health_revive_resets_latency_and_backlog():
+    """Satellite regression: revive() must clear the retired replica's
+    pre-failure EWMA and outstanding rows — stale history must not rank
+    the revived replica."""
+    h = ReplicaHealth("rX")
+    h.submit(40)
+    h.on_success(40, 400.0)  # ewma 10 ms/row
+    h.on_error(RuntimeError("boom"))
+    assert h.state.value == "unhealthy"
+    assert h.ewma_ms_per_row is not None
+    h.revive()
+    assert h.state.value == "healthy"
+    assert h.ewma_ms_per_row is None
+    assert h.outstanding_rows == 0
+    # seed_ewma fills the blank but never clobbers a real observation.
+    h.seed_ewma(3.0)
+    assert h.ewma_ms_per_row == 3.0
+    h.seed_ewma(99.0)
+    assert h.ewma_ms_per_row == 3.0
+
+
+def test_pool_revive_reseeds_from_siblings():
+    x, y = _data()
+    pm = _chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="revive_seed_pool").start()
+    try:
+        for i in range(6):
+            pool.predict({"features": x[i:i + 3]})
+        with faults.armed(faults.FaultPlan(faults.ReplicaDown("r0"))):
+            pool.predict({"features": x[:2]})  # retires r0
+        assert pool.stats()["per_replica"]["r0"]["state"] == "unhealthy"
+        # Pollute the dead replica's ledger as its death throes would.
+        pool.replicas[0].health.ewma_ms_per_row = 1e6
+        pool.replicas[0].health.outstanding_rows = 999
+        pool.revive("r0")
+        h = pool.replicas[0].health
+        assert h.outstanding_rows == 0
+        sibling = pool.replicas[1].health.ewma_ms_per_row
+        assert h.ewma_ms_per_row == sibling  # median of 1 sibling
+        resp = pool.predict({"features": x[:2]})
+        assert resp.columns["prediction"].shape == (2,)
+    finally:
+        pool.stop()
+
+
+def test_multimodel_revive_is_model_aware(tmp_path):
+    """Regression: MultiModelPool.revive used to inherit the base
+    pool's registry re-sync, which dereferences the pool-level registry
+    — always None for a multi-model pool — and crashed with
+    AttributeError after follow_registries(); the revived replica must
+    instead re-sync through its OWN model's registry."""
+    from flinkml_tpu_torch.serving import ModelRegistry
+
+    x, y = _data()
+    pm = _chain(x, y)
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    reg.publish(pm)
+    mm = MultiModelPool(
+        Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=32, max_queue_rows=64,
+                             max_wait_ms=1.0),
+        name="revive_mm",
+    )
+    mm.add_model("m", reg, slo=INTERACTIVE, n_replicas=2)
+    mm.start()
+    mm.follow_registries()
+    try:
+        with faults.armed(faults.FaultPlan(faults.ReplicaDown("r0"))):
+            mm.predict("m", {"features": x[:2]})  # retires r0
+        assert mm.replicas[0].health.state.value == "unhealthy"
+        reg.publish(_chain(x, 1.0 - y))  # v2 rolls only the live replica
+        mm.revive("r0")  # used to raise AttributeError here
+        assert mm.replicas[0].health.state.value == "healthy"
+        # Re-synced through ITS model's registry to the current version.
+        assert mm.replicas[0].engine.active_version == 2
+        resp = mm.predict("m", {"features": x[:2]})
+        assert resp.version == 2
+    finally:
+        mm.stop()
+
+
+# ---------------------------------------------------------------------------
+# 7. Held against the JAX package: the same signals, the same decisions
+# ---------------------------------------------------------------------------
+
+class _JaxDevice:
+    """What the JAX autoscaler reads of a device: its ``id``."""
+
+    def __init__(self, i):
+        self.id = i
+
+    def __repr__(self):
+        return f"dev{self.id}"
+
+
+def _scaler_trace(pkg):
+    """Drive one package's ``PoolAutoscaler`` over a fake pool through one
+    scripted run of backlog and p99 signals (a spike, a retirement under
+    ``min_replicas``, idle decay) on a fake clock; return each step's
+    decision, the replica set and the EWMA."""
+    from tests._torch_serving_common import FakePool
+
+    autoscaler = __import__(f"{pkg}.serving.autoscaler", fromlist=["x"])
+    devices = ([_JaxDevice(i) for i in range(4)] if pkg == "flinkml_tpu"
+               else list(range(4)))
+    pool = FakePool(pkg, 2, devices)
+    scaler = autoscaler.PoolAutoscaler(pool, autoscaler.AutoscaleConfig(
+        min_replicas=2, max_replicas=5, scale_up_backlog=0.3,
+        scale_down_backlog=0.05, p99_target_ms=40.0, up_consecutive=2,
+        down_consecutive=3, cooldown_s=1.0, backlog_alpha=0.5,
+    ))
+    rng = np.random.default_rng(5)
+    script = ([(200, 10.0)] * 6 + ["kill"] + [(40, 60.0)] * 8
+              + [(0, 5.0)] * 12)
+    trace = []
+    for t, item in enumerate(script):
+        if item == "kill":  # every replica but the newest dies
+            for r in pool.replicas[:-1]:
+                r.health.force_unhealthy(RuntimeError("chaos"))
+            continue
+        rows, p99 = item
+        for r in pool.replicas:
+            r.health.outstanding_rows = int(rows * rng.uniform(0.8, 1.2))
+            r.engine.queued_rows = int(rows * rng.uniform(0.5, 1.0))
+            r.engine.observed_p99_ms = p99 * float(rng.uniform(0.9, 1.1))
+        decision = scaler.step(now=0.5 * t)
+        trace.append((decision, [r.name for r in pool.replicas],
+                      scaler.stats()["backlog_ewma"]))
+    return trace, pool.events
+
+
+def test_scale_decisions_match_jax():
+    """The same scripted signals give the same scale-up, replacement and
+    scale-down decisions (and the same backlog EWMA, bit for bit) in both
+    packages."""
+    got = _scaler_trace("flinkml_tpu_torch")
+    want = _scaler_trace("flinkml_tpu")
+    assert got == want
+    decisions = {d for d, _, _ in got[0]}
+    assert {"up", "replace", "down"} <= decisions, decisions

@@ -72,6 +72,18 @@ def test_import_guard_covers_the_fault_and_recovery_modules():
             "sharding/apply.py"} <= guarded
 
 
+def test_import_guard_covers_the_serving_modules():
+    """The serving runtime and every module it changed are in the guard's
+    list."""
+    guarded = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {f"serving/{m}.py" for m in (
+        "__init__", "errors", "batcher", "registry", "engine", "publisher",
+        "health", "router", "pool", "grayfail", "multiplex", "autoscaler",
+    )} | {"analysis/memory.py", "analysis/__init__.py", "utils/metrics.py",
+          "kernels/chain.py", "parallel/dispatch.py", "recovery/fuzz.py",
+          "recovery/sentinel.py", "utils/preemption.py"} <= guarded
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="use_device"):

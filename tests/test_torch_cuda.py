@@ -1618,3 +1618,215 @@ def test_prefetch_seam_raise_on_card_reaches_consumer(cuda_device):
         assert not prefetcher._thread.is_alive()
         with pytest.raises(faults.FaultInjected):
             next(prefetcher)
+
+
+# ---------------------------------------------------------------------------
+# The serving runtime on the card
+# ---------------------------------------------------------------------------
+
+SERVED = ("s4", "prediction", "rawPrediction")
+
+
+def _serving_engine(source, x, name, **cfg):
+    from flinkml_tpu_torch.serving import ServingConfig, ServingEngine
+
+    config = ServingConfig(**{"max_batch_rows": 128, "max_wait_ms": 1.0,
+                              **cfg})
+    return ServingEngine(source, fml.Table({"features": x[:4]}), config,
+                         output_cols=SERVED, name=name)
+
+
+def _served_alone(model, x, device):
+    """Each row's outputs from the model's own fused transform, served
+    alone (one batch) on ``device``."""
+    with fml.use_device(device):
+        (out,) = model.transform(fml.Table({"features": x}))
+        return {c: out.column(c) for c in SERVED}
+
+
+def test_serving_engine_on_card_matches_cpu_per_stage(cuda_device):
+    """An engine built with no device request serves on the card: each
+    batch is one ``fused_chain`` launch, and the responses equal the CPU
+    per-stage chain within the fused route's tolerance."""
+    model, x = _five_stage(2000, seed=5)
+    with fml.use_device("cpu"):
+        pipeline_fusion.set_enabled(False)
+        try:
+            (ref,) = model.transform(fml.Table({"features": x}))
+        finally:
+            pipeline_fusion.set_enabled(True)
+    eng = _serving_engine(model, x, "card_parity").start()
+    try:
+        assert eng.device.type == "cuda"
+        fml.reset_launch_counts()
+        got = {c: [] for c in SERVED}
+        for lo in range(0, 2000, 50):
+            resp = eng.predict({"features": x[lo:lo + 50]})
+            for c in SERVED:
+                got[c].append(resp.column(c))
+        batches = eng.stats()["counters"]["batches"]
+        assert fml.launch_counts()["fused_chain"] == batches == 40
+    finally:
+        eng.stop()
+    got = {c: np.concatenate(v) for c, v in got.items()}
+    np.testing.assert_allclose(got["s4"], ref.column("s4"), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(got["rawPrediction"],
+                               ref.column("rawPrediction"), rtol=1e-10,
+                               atol=1e-10)
+    margin = np.asarray(ref.column("rawPrediction"))[:, 1] - 0.5
+    decisive = np.abs(margin) > 2.0 ** -5
+    np.testing.assert_array_equal(got["prediction"][decisive],
+                                  np.asarray(ref.column("prediction"))[decisive])
+
+
+def test_two_engines_on_their_streams_alternate_versions_bit_for_bit(
+        cuda_device):
+    """Two engines, each on its own CUDA stream, serve v1 and v2 of one
+    model shape (one fused program, two packed tables) in turn from
+    several client threads for a few hundred batches, swapping versions
+    half way: every response is bit for bit its version's served alone."""
+    import threading
+
+    from flinkml_tpu_torch.serving import ModelRegistry
+
+    v1, x = _five_stage(1024, seed=6)
+    v2, _ = _five_stage(1024, seed=7)
+    ref = {1: _served_alone(v1, x, cuda_device),
+           2: _served_alone(v2, x, cuda_device)}
+    assert not np.array_equal(ref[1]["rawPrediction"], ref[2]["rawPrediction"])
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        regs = [ModelRegistry(f"{root}/a"), ModelRegistry(f"{root}/b")]
+        for reg, first, second in ((regs[0], v1, v2), (regs[1], v2, v1)):
+            reg.publish(first)
+            reg.publish(second)
+            reg.rollback(1)
+        engines = [_serving_engine(regs[i], x, f"stream{i}").start()
+                   for i in range(2)]
+        assert engines[0]._stream is not engines[1]._stream
+        version_of = [{1: 1, 2: 2}, {1: 2, 2: 1}]  # registry v -> model
+        errors, served = [], [0]
+
+        def client(tid):
+            rng = np.random.default_rng(tid)
+            try:
+                for i in range(100):
+                    e = (tid + i) % 2
+                    rows = int(rng.integers(1, 65))
+                    lo = int(rng.integers(0, 1024 - rows))
+                    resp = engines[e].predict({"features": x[lo:lo + rows]})
+                    want = ref[version_of[e][resp.version]]
+                    for c in SERVED:
+                        np.testing.assert_array_equal(
+                            resp.column(c), want[c][lo:lo + rows])
+                    served[0] += 1
+            except BaseException as err:  # noqa: BLE001
+                errors.append(err)
+
+        try:
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(6)]
+            for t in threads:
+                t.start()
+            while served[0] < 300 and any(t.is_alive() for t in threads):
+                threading.Event().wait(0.01)
+            for eng in engines:
+                eng.swap_to(2)
+            for t in threads:
+                t.join(timeout=120)
+            assert not errors, errors[:3]
+            assert served[0] == 600
+            assert sum(e.stats()["counters"]["batches"] for e in engines) \
+                >= 200
+        finally:
+            for eng in engines:
+                eng.stop()
+
+
+def test_hot_swap_under_eight_clients_on_card(cuda_device):
+    """A registry publish mid-traffic on the card, 8 client threads: no
+    error, every response carries one version and equals that version's
+    outputs bit for bit."""
+    import tempfile
+    import threading
+
+    from flinkml_tpu_torch.serving import ModelRegistry
+
+    v1, x = _five_stage(1024, seed=8)
+    v2, _ = _five_stage(1024, seed=9)
+    ref = {1: _served_alone(v1, x, cuda_device),
+           2: _served_alone(v2, x, cuda_device)}
+    with tempfile.TemporaryDirectory() as root:
+        reg = ModelRegistry(root)
+        reg.publish(v1)
+        eng = _serving_engine(reg, x, "card_swap").start().follow_registry()
+        errors, versions = [], []
+        stop = threading.Event()
+
+        def client(tid):
+            rng = np.random.default_rng(tid)
+            try:
+                while not stop.is_set():
+                    rows = int(rng.integers(1, 33))
+                    lo = int(rng.integers(0, 1024 - rows))
+                    resp = eng.predict({"features": x[lo:lo + rows]})
+                    versions.append(resp.version)
+                    for c in SERVED:
+                        np.testing.assert_array_equal(
+                            resp.column(c), ref[resp.version][c][lo:lo + rows])
+            except BaseException as err:  # noqa: BLE001
+                errors.append(err)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        try:
+            for t in threads:
+                t.start()
+            threading.Event().wait(0.5)
+            reg.publish(v2)
+            threading.Event().wait(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            eng.stop()
+        assert not errors, errors[:3]
+        assert set(versions) == {1, 2} and versions[-1] == 2
+        assert eng.stats()["counters"].get("errors", 0) == 0
+
+
+def test_cpu_engine_on_card_host_launches_nothing(cuda_device):
+    """An engine built under ``use_device("cpu")`` on the card's host
+    serves on the CPU from its dispatcher thread and launches no kernel."""
+    model, x = _five_stage(256, seed=10)
+    with fml.use_device("cpu"):
+        eng = _serving_engine(model, x, "cpu_on_card")
+    fml.reset_launch_counts()
+    eng.start()
+    try:
+        assert eng.device.type == "cpu" and eng._stream is None
+        resp = eng.predict({"features": x[:40]})
+        assert resp.column("rawPrediction").shape == (40, 2)
+    finally:
+        eng.stop()
+    assert sum(fml.launch_counts().values()) == 0
+
+
+def test_engine_builds_nothing_after_warmup_on_card(cuda_device):
+    """From the end of ``start()`` to ``stop()``, requests of every size up
+    to ``max_batch_rows`` build no new fused program and no kernel."""
+    from tests._torch_serving_common import program_counts
+
+    model, x = _five_stage(512, seed=11)
+    pipeline_fusion.reset_cache()
+    eng = _serving_engine(model, x, "card_warm").start()
+    try:
+        warmed = program_counts()
+        assert warmed[0] > 0 and warmed[1] >= 1
+        for rows in (1, 3, 8, 9, 17, 33, 64, 65, 128):
+            eng.predict({"features": np.resize(x, (rows, x.shape[1]))})
+        assert program_counts() == warmed
+    finally:
+        eng.stop()

@@ -5,8 +5,8 @@ Mirrors the JAX package's ``tests/test_faults.py`` on the port: plan
 arming and firing, zero cost when disarmed, the corrupt-snapshot fallback
 ladder of ``restore_latest``, torn writes, kill-after-commit, transfer
 faults at the dispatch seam and the preemption watchdog (final checkpoint
-and drain, SIGTERM). The registry's dropped publish comes with the
-serving engine. Then the seams the JAX package tests elsewhere (the
+and drain, SIGTERM). The registry's dropped publish is in
+``tests/test_torch_serving.py``. Then the seams the JAX package tests elsewhere (the
 ``data.read`` and ``data.prefetch`` seams, the ``rendezvous.rescale``
 seam) and the cross-package checks: a plan's JSON is the same bytes in
 both packages, a plan written by JAX replays in the port, and

@@ -3,7 +3,9 @@ rollback-and-quarantine recovery and the chaos soak
 (``flinkml_tpu_torch.recovery``), on the CPU.
 
 The first part mirrors the JAX package's ``tests/test_recovery.py`` case
-for case on the port (its serving cases come with the serving engine):
+for case on the port (its publish and serve refusals are in
+``tests/test_torch_serving.py``, the serving soak in
+``tests/test_torch_grayfail.py``):
 an OnlineLogisticRegression, OnlineKMeans or OnlineStandardScaler fed a
 stream with a poisoned batch heals to a finite model bit-identical to the
 same stream without that batch. The second part holds the port against
@@ -943,12 +945,15 @@ def test_chaos_soak_small_budget_green():
     (["--device", "cpu", "--budget", "2"], "cpu"),
     (["--worker", "--budget", "2"], None),
     (["--worker", "--device", "cpu", "--budget", "2"], "cpu"),
+    (["--serving", "--budget", "2"], None),
+    (["--serving", "--device", "cpu", "--budget", "2"], "cpu"),
 ])
 def test_soak_cli_runs_on_the_ports_device_unless_asked(monkeypatch, argv,
                                                         device):
     """The soak CLI, like every entry point, runs its trainers on the
     port's default device (``cuda``) unless the caller passes
-    ``--device cpu``; the trainer and worker soaks get the same device."""
+    ``--device cpu``; the trainer, worker and serving soaks get the same
+    device."""
     from flinkml_tpu_torch.recovery import fuzz
 
     seen = []
@@ -960,6 +965,7 @@ def test_soak_cli_runs_on_the_ports_device_unless_asked(monkeypatch, argv,
 
     monkeypatch.setattr(fuzz, "run_soak", fake)
     monkeypatch.setattr(fuzz, "run_worker_soak", fake)
+    monkeypatch.setattr(fuzz, "run_serving_soak", fake)
     assert fuzz.main(argv) == 0
     assert seen == [device]
 

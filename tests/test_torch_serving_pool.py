@@ -1,0 +1,542 @@
+"""Replica pool, router, continuous batching, per-replica degradation, in
+the port (``flinkml_tpu_torch.serving``), on the CPU.
+
+Mirrors the JAX package's ``tests/test_serving_pool.py`` name for name.
+The port runs one device per process: replicas repeat over the given
+devices, and a mesh slice is one device. The acceptance contract of the
+serving scale-out subsystem:
+
+  1. Continuous batching splits requests at bucket boundaries — a late
+     arrival joins the currently forming power-of-two bucket, tails ride
+     the next dispatch, and per-request reassembly keeps responses
+     bitwise-equal to a direct transform and single-version.
+  2. Deadlines are swept promptly: an overdue request fails with the
+     typed timeout as soon as its deadline passes, not at the window.
+  3. A ReplicaPool routes by least-outstanding-rows over healthy
+     replicas; killing one replica mid-traffic (the ``serving.replica``
+     fault seam) loses zero requests routed to healthy replicas — the
+     dead replica's traffic is retried elsewhere and the replica is
+     retired while the pool keeps serving.
+  4. ``follow_registry`` rolls hot-swaps across the pool one replica at
+     a time; a rollback racing a publish converges every replica to the
+     registry's final CURRENT pointer with zero mis-versioned responses.
+  5. Overload degrades by replica: one replica tripping its queue bound
+     drains and rejoins; the pool never browns out globally.
+"""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from flinkml_tpu_torch import faults
+from flinkml_tpu_torch.models.logistic_regression import LogisticRegression
+from flinkml_tpu_torch.models.scalers import MinMaxScaler, StandardScaler
+from flinkml_tpu_torch.pipeline import PipelineModel
+from flinkml_tpu_torch.serving import (
+    ContinuousBatcher,
+    HealthPolicy,
+    ModelRegistry,
+    PoolUnavailableError,
+    ReplicaPool,
+    ReplicaState,
+    ServingConfig,
+    ServingRequest,
+    ServingTimeoutError,
+    slice_meshes,
+)
+from flinkml_tpu_torch.table import Table
+from tests._torch_serving_common import (  # noqa: F401
+    _on_cpu,
+    _time_limit,
+    on_cpu,
+    program_counts,
+)
+
+
+
+def _data(n=200, d=6, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = (x @ rng.normal(size=d) > 0).astype(np.float64)
+    return x, y
+
+
+def _two_stage_chain(x, y):
+    train = Table({"features": x, "label": y})
+    sc = (
+        StandardScaler()
+        .set(StandardScaler.INPUT_COL, "features")
+        .set(StandardScaler.OUTPUT_COL, "scaled")
+        .fit(train)
+    )
+    (t2,) = sc.transform(train)
+    lr = (
+        LogisticRegression()
+        .set(LogisticRegression.FEATURES_COL, "scaled")
+        .set(LogisticRegression.LABEL_COL, "label")
+        .set_max_iter(3)
+        .fit(t2)
+    )
+    return PipelineModel([sc, lr])
+
+
+def _pool(source, x, n_replicas=4, name="pool", **cfg):
+    config = ServingConfig(**{
+        "max_batch_rows": 64,
+        "max_queue_rows": 512,
+        "max_wait_ms": 1.0,
+        **cfg,
+    })
+    return ReplicaPool(
+        source, Table({"features": x[:4]}), config=config,
+        n_replicas=n_replicas, output_cols=("prediction",), name=name,
+    )
+
+
+def _req(rows, deadline=None):
+    return ServingRequest(
+        columns={"x": np.zeros((rows, 2))},
+        rows=rows,
+        enqueued_at=time.monotonic(),
+        deadline=deadline,
+    )
+
+
+# ---------------------------------------------------------------------------
+# 1. ContinuousBatcher
+# ---------------------------------------------------------------------------
+
+def test_continuous_batcher_splits_at_cap():
+    """Saturated queue: every dispatch is an exactly-full cap bucket —
+    the straddling request contributes its head rows, the tail rides the
+    next dispatch (no head-of-line blocking)."""
+    b = ContinuousBatcher(max_batch_rows=8, max_wait_s=0.0,
+                          max_queue_rows=64)
+    b.offer(_req(5))
+    b.offer(_req(5))
+    batch, _ = b.next_batch(poll_s=0.01)
+    assert [(s.rows, s.start) for s in batch] == [(5, 0), (3, 0)]
+    assert sum(s.rows for s in batch) == 8  # exactly the cap bucket
+    batch2, _ = b.next_batch(poll_s=0.01)
+    assert [(s.rows, s.start) for s in batch2] == [(2, 3)]
+    assert batch[1].request is batch2[0].request
+    # Segment views are the right row ranges of the request's columns.
+    np.testing.assert_array_equal(
+        batch2[0].columns["x"], batch2[0].request.columns["x"][3:5]
+    )
+
+
+def test_continuous_batcher_late_arrival_fills_forming_bucket():
+    """6 rows are waiting out a long window (bucket 8); a late 4-row
+    arrival fills the forming bucket, so the window closes immediately
+    with an exactly-full 8-row batch (6 + 2 split) — occupancy 1.0
+    without waiting, the Orca-style admission."""
+    b = ContinuousBatcher(max_batch_rows=64, max_wait_s=30.0,
+                          max_queue_rows=256)
+    b.offer(_req(6))
+    result = {}
+
+    def consume():
+        result["batch"], result["expired"] = b.next_batch(poll_s=0.01)
+
+    t = threading.Thread(target=consume)
+    t.start()
+    time.sleep(0.1)
+    b.offer(_req(4))
+    t.join(timeout=5)
+    assert not t.is_alive(), "window did not close on the late arrival"
+    batch = result["batch"]
+    assert [s.rows for s in batch] == [6, 2]
+    assert sum(s.rows for s in batch) == 8
+    # The tail is at the queue front and dispatches next.
+    tail, _ = b.next_batch(poll_s=0.01)
+    assert [(s.start, s.rows) for s in tail] == [(2, 2)]
+
+
+def test_continuous_batcher_window_expiry_flushes_whole_queue():
+    b = ContinuousBatcher(max_batch_rows=64, max_wait_s=0.0,
+                          max_queue_rows=256)
+    for _ in range(3):
+        b.offer(_req(2))
+    batch, expired = b.next_batch(poll_s=0.01)
+    assert [s.rows for s in batch] == [2, 2, 2]
+    assert expired == []
+
+
+def test_batcher_prompt_deadline_sweep():
+    """An overdue request is failed the moment the consumer observes its
+    deadline — it must neither ride a batch nor wait out a long window
+    (the behavior of a batcher that only drops dead requests at the
+    head)."""
+    b = ContinuousBatcher(max_batch_rows=64, max_wait_s=30.0,
+                          max_queue_rows=256)
+    b.offer(_req(2))  # fresh, keeps the window open
+    result = {}
+
+    def consume():
+        result["batch"], result["expired"] = b.next_batch(poll_s=0.01)
+
+    t = threading.Thread(target=consume)
+    t.start()
+    time.sleep(0.1)
+    overdue = _req(3, deadline=time.monotonic() - 0.001)
+    b.offer(overdue)
+    t.join(timeout=5)
+    assert not t.is_alive(), "sweep did not wake promptly"
+    assert result["batch"] == []
+    assert result["expired"] == [overdue]
+    assert b.queued_rows == 2  # the fresh request still queued
+
+
+def test_continuous_request_reassembly_single_version():
+    req = _req(5)
+    assert req.add_segment(0, {"p": np.arange(3.0)}, 7, 3) is None
+    out = req.add_segment(3, {"p": np.arange(3.0, 5.0)}, 7, 2)
+    cols, version = out
+    np.testing.assert_array_equal(cols["p"], np.arange(5.0))
+    assert version == 7
+
+
+def test_continuous_request_reassembly_flags_mixed_versions():
+    req = _req(5)
+    assert req.add_segment(0, {"p": np.arange(3.0)}, 7, 3) is None
+    assert req.add_segment(3, {"p": np.arange(2.0)}, 8, 2) == "mixed"
+    req.reset_segments()
+    assert req.segments == []
+    assert not req.done.is_set()
+
+
+def test_continuous_batcher_discards_dead_tails():
+    """A split request whose head batch FAILED must not dispatch its
+    queued tail as dead device work (and must release its admission
+    rows)."""
+    b = ContinuousBatcher(max_batch_rows=8, max_wait_s=0.0,
+                          max_queue_rows=64)
+    r1, r2 = _req(12), _req(4)
+    b.offer(r1)
+    b.offer(r2)
+    batch, _ = b.next_batch(poll_s=0.01)  # head 8 rows of r1
+    assert [(s.request, s.rows) for s in batch] == [(r1, 8)]
+    r1.fail(RuntimeError("head batch died"))  # the engine's error path
+    batch, _ = b.next_batch(poll_s=0.01)
+    assert [(s.request, s.rows) for s in batch] == [(r2, 4)]
+    assert b.queued_rows == 0
+
+
+def test_slice_meshes_rejects_indivisible():
+    with pytest.raises(ValueError, match="equal slices"):
+        slice_meshes(3, devices=list(range(8)))
+    # The port runs one device per process: a slice of several devices
+    # is refused, naming the rule.
+    with pytest.raises(ValueError, match="one device per process"):
+        slice_meshes(2, devices=list(range(4)))
+    assert [m.device_ids for m in slice_meshes(4, devices=list(range(4)))] \
+        == [(0,), (1,), (2,), (3,)]
+
+
+def test_continuous_batcher_requeue_front():
+    b = ContinuousBatcher(max_batch_rows=8, max_wait_s=0.0,
+                          max_queue_rows=64)
+    r1, r2 = _req(3), _req(2)
+    b.offer(r1)
+    batch, _ = b.next_batch(poll_s=0.01)
+    assert batch[0].request is r1
+    b.offer(r2)
+    r1.dispatched_rows = 3
+    assert b.requeue(r1)
+    batch, _ = b.next_batch(poll_s=0.01)
+    # r1 re-dispatches whole, from the front, before r2.
+    assert [(s.request, s.start, s.rows) for s in batch] == [
+        (r1, 0, 3), (r2, 0, 2)
+    ]
+    b.stop()
+    assert not b.requeue(r2)
+
+
+# ---------------------------------------------------------------------------
+# 2. ReplicaPool routing
+# ---------------------------------------------------------------------------
+
+def test_pool_parity_and_balance():
+    """Concurrent clients through a 4-replica pool: every response
+    bitwise-equal to direct transform, and every replica served some."""
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    pool = _pool(pm, x, name="parity_pool").start()
+    errors = []
+
+    def client(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            for _ in range(20):
+                rows = int(rng.integers(1, 9))
+                lo = int(rng.integers(0, x.shape[0] - rows))
+                sl = x[lo:lo + rows]
+                resp = pool.predict({"features": sl})
+                (ref,) = pm.transform(Table({"features": sl}))
+                np.testing.assert_array_equal(
+                    np.asarray(ref.column("prediction")),
+                    resp.column("prediction"),
+                )
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    try:
+        threads = [
+            threading.Thread(target=on_cpu(client), args=(i,)) for i in range(8)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        st = pool.stats()
+        assert st["router"]["routed_requests"] == 160
+        per = st["per_replica"]
+        requests = {r: per[r]["counters"].get("requests", 0) for r in per}
+        assert sum(requests.values()) >= 160
+        assert all(v > 0 for v in requests.values()), (
+            f"router starved a replica: {requests}"
+        )
+    finally:
+        pool.stop()
+
+
+def test_pool_replica_kill_mid_traffic_loses_nothing():
+    """Chaos contract: kill 1 of 4 replicas via the serving.replica seam
+    while clients run. Zero client errors (requests on the dead replica
+    are retried on healthy ones), correct parity and version tags, the
+    replica is retired, the pool keeps serving."""
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    pool = _pool(pm, x, name="chaos_pool").start()
+    errors = []
+    served = [0]
+    stop = threading.Event()
+
+    def client(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            while not stop.is_set():
+                rows = int(rng.integers(1, 7))
+                lo = int(rng.integers(0, x.shape[0] - rows))
+                sl = x[lo:lo + rows]
+                resp = pool.predict({"features": sl})
+                (ref,) = pm.transform(Table({"features": sl}))
+                np.testing.assert_array_equal(
+                    np.asarray(ref.column("prediction")),
+                    resp.column("prediction"),
+                )
+                served[0] += 1
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    try:
+        with faults.armed(faults.FaultPlan(
+            faults.ReplicaDown("r2", at_batch=2)
+        )) as plan:
+            threads = [
+                threading.Thread(target=on_cpu(client), args=(i,)) for i in range(6)
+            ]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                st = pool.stats()
+                if st["per_replica"]["r2"]["state"] == "unhealthy":
+                    break
+                time.sleep(0.05)
+            served_at_kill = served[0]
+            time.sleep(0.5)  # pool must keep serving after the kill
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        st = pool.stats()
+        assert st["per_replica"]["r2"]["state"] == "unhealthy"
+        assert st["healthy"] == 3
+        assert st["router"].get("failovers", 0) >= 1
+        assert served[0] > served_at_kill, "pool stopped serving after kill"
+        assert any(site == "serving.replica" for site, _, _ in plan.log)
+    finally:
+        pool.stop()
+
+
+def test_pool_deadline_expired_at_admission():
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="deadline_pool").start()
+    try:
+        with pytest.raises(ServingTimeoutError):
+            pool.predict({"features": x[:2]}, timeout_ms=0.0)
+        assert pool.stats()["router"].get("admission_timeouts", 0) >= 1
+    finally:
+        pool.stop()
+
+
+def test_pool_unavailable_when_every_replica_dead():
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    pool = _pool(pm, x, n_replicas=2, name="dead_pool").start()
+    try:
+        with faults.armed(faults.FaultPlan(
+            faults.ReplicaDown("r0"), faults.ReplicaDown("r1")
+        )):
+            with pytest.raises(PoolUnavailableError):
+                for _ in range(8):  # a few: retire both, then refuse
+                    pool.predict({"features": x[:2]})
+        assert pool.stats()["healthy"] == 0
+    finally:
+        pool.stop()
+
+
+def test_pool_revive_rejoins_rotation(tmp_path):
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    reg.publish(pm)
+    pool = _pool(reg, x, n_replicas=2, name="revive_pool").start()
+    pool.follow_registry()
+    try:
+        with faults.armed(faults.FaultPlan(faults.ReplicaDown("r0"))):
+            pool.predict({"features": x[:2]})  # retires r0, serves on r1
+        assert pool.stats()["per_replica"]["r0"]["state"] == "unhealthy"
+        reg.publish(_two_stage_chain(x, -y + 1))  # rolls only r1
+        assert pool.replicas[1].engine.active_version == 2
+        pool.revive("r0")
+        st = pool.stats()
+        assert st["per_replica"]["r0"]["state"] == "healthy"
+        # Revive re-synced the replica to the registry's current version.
+        assert pool.versions() == {"r0": 2, "r1": 2}
+        resp = pool.predict({"features": x[:2]})
+        assert resp.version == 2
+    finally:
+        pool.stop()
+
+
+def test_pool_overload_degrades_by_replica():
+    """One replica saturating its bounded queue trips into DRAINING and
+    out of rotation; traffic keeps flowing through the other replica;
+    the drained replica rejoins once its backlog falls under the
+    low-water mark."""
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    pool = _pool(
+        pm, x, n_replicas=2, name="shed_pool",
+        max_batch_rows=8, max_queue_rows=8, shed_on_overload=False,
+    )
+    pool.start()
+    try:
+        r0, r1 = pool.replicas
+        # Pool replicas never shed to the caller's thread — failover IS
+        # the pool's shed path, and shedding would hide the queue-full
+        # signal the degradation ladder is built on.
+        assert not r0.engine.config.shed_on_overload
+        # Ledger: consecutive queue-full refusals trip DRAINING at the
+        # policy threshold (the router reports each refusal it reroutes).
+        for _ in range(HealthPolicy().overload_trip - 1):
+            assert not r0.health.on_overload()
+        assert r0.health.on_overload()
+        assert r0.health.state is ReplicaState.DRAINING
+        # Backlog still above low water (simulated stuck queue): the
+        # replica stays out of rotation — requests flow through r1 only.
+        r0.engine._batcher._queued_rows = 6
+        resp = pool.predict({"features": x[:3]})
+        assert resp.columns["prediction"].shape == (3,)
+        assert r0.health.state is ReplicaState.DRAINING
+        assert r1.engine.stats()["counters"]["requests"] >= 1
+        assert r0.engine.stats()["counters"].get("requests", 0) == 0
+        # Backlog cleared -> the next routing pass rejoins it.
+        r0.engine._batcher._queued_rows = 0
+        pool.predict({"features": x[:3]})
+        assert r0.health.state is ReplicaState.HEALTHY
+        # A success resets the overload streak.
+        assert r0.health.snapshot()["consecutive_overloads"] == 0
+    finally:
+        pool.stop()
+
+
+def test_pool_mesh_slices_hold_slice_locks():
+    """Mesh-slice placement: every replica batch dispatch records the
+    slice's devices and holds the slice's local_execution_lock — the
+    trace is FML303-clean against a concurrently locked trainer shape
+    (the JAX package's trace analyzer audits the port's trace). Port
+    slices are one device each."""
+    from flinkml_tpu.analysis.collectives import (
+        DispatchEvent,
+        check_dispatch_trace,
+    )
+    from flinkml_tpu_torch.parallel import dispatch as _dispatch
+
+    x, y = _data()
+    pm = _two_stage_chain(x, y)
+    meshes = slice_meshes(2, devices=[0, 1])
+    # The slice locks this test registers overlap the full-device mesh:
+    # leaving them registered would silently upgrade every later
+    # full-mesh lock in the process to a composite (test cross-talk).
+    locks_before = set(_dispatch._MESH_LOCKS)
+    pool = ReplicaPool(
+        pm, Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=32, max_queue_rows=256,
+                             max_wait_ms=1.0),
+        meshes=meshes, output_cols=("prediction",), name="slice_pool",
+    ).start()
+    events = []
+    _dispatch.add_dispatch_observer(events.append)
+    try:
+        for i in range(6):
+            pool.predict({"features": x[i:i + 2]})
+        pool_events = [
+            e for e in events if e["program"].startswith("serving.pool/")
+        ]
+        assert pool_events, "no replica dispatch was recorded"
+        for e in pool_events:
+            assert len(e["devices"]) == 1  # the one-device slice
+            assert any(t.startswith("lock:mesh:") for t in e["locks"]), e
+        trace = [
+            DispatchEvent(
+                thread=e["thread"], program=e["program"],
+                devices=tuple(e["devices"]), locks=tuple(e["locks"]),
+            )
+            for e in events
+        ]
+        assert check_dispatch_trace(trace) == []
+    finally:
+        _dispatch.remove_dispatch_observer(events.append)
+        pool.stop()
+        with _dispatch._MESH_LOCKS_GUARD:
+            for key in set(_dispatch._MESH_LOCKS) - locks_before:
+                del _dispatch._MESH_LOCKS[key]
+
+
+# ---------------------------------------------------------------------------
+# 3. Rolling hot-swap
+# ---------------------------------------------------------------------------
+
+def test_pool_follow_registry_rolls_all_replicas(tmp_path):
+    x, y = _data()
+    pm1 = _two_stage_chain(x, y)
+    pm2 = _two_stage_chain(x, -y + 1)
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    reg.publish(pm1)
+    pool = _pool(reg, x, n_replicas=3, name="roll_pool").start()
+    pool.follow_registry()
+    try:
+        assert pool.versions() == {"r0": 1, "r1": 1, "r2": 1}
+        reg.publish(pm2)  # the pool listener rolls replicas one by one
+        assert pool.versions() == {"r0": 2, "r1": 2, "r2": 2}
+        resp = pool.predict({"features": x[:3]})
+        assert resp.version == 2
+        (ref,) = pm2.transform(Table({"features": x[:3]}))
+        np.testing.assert_array_equal(
+            np.asarray(ref.column("prediction")), resp.column("prediction")
+        )
+        reg.rollback(1)
+        assert pool.versions() == {"r0": 1, "r1": 1, "r2": 1}
+        assert pool.predict({"features": x[:3]}).version == 1
+    finally:
+        pool.stop()
