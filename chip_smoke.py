@@ -245,6 +245,24 @@ and fails with a non-zero exit if any phase fails:
    ``run_serving_soak(seed=7, budget=2)``. Every response is held against
    its version's float64 numpy chain (``rawPrediction`` within 1e-10,
    predictions away from 2^-5 of the decision);
+6k. the cluster runtime (path O, ``cluster_path``), the chain of N1
+   fitted again on the card: O1 (``bench.py``'s
+   ``_multiproc_pool_stage``), an in-process ``ReplicaPool`` of 2 and a
+   ``ClusterPool`` of 2 worker processes on the one card, 4 closed-loop
+   clients of 1-32 rows for 3 s each (``max_batch_rows=128``, 2 ms
+   window): rows/s, p50/p99, the workers-to-threads ratio, each worker's
+   spawn ms and the transport p50/p99; the pool's responses bit for bit
+   the in-process engine's on 4,096 rows, and each worker on ``cuda``
+   with no ``nvcc`` run and its own ``fused_chain`` launches (read over
+   the transport's ``stats``); O2, on those workers, a ``WorkerCrash``
+   (exit 23) armed over the transport mid-traffic with zero requests
+   lost and the survivor HEALTHY, ``respawn_dead()`` (no ``nvcc``, its
+   predecessor's program count, flat under traffic, parity bit for bit),
+   a lease acquired inside a worker reclaimed over the wire, and the
+   metrics (2 workers alive, 3 ``spawn_ms``, a transport p99); O3,
+   ``tests/_torch_elastic_rank.py`` as an ``ElasticProcessWorld`` of two
+   gloo ranks on ``cuda:0`` that loses rank 1 to a ``WorkerCrash`` and
+   resumes at world 1, bit for bit with a golden run;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -277,6 +295,10 @@ this one, each in its own process, in the order OTHER, this, this, OTHER,
 and prints one JSON line per process after the card's line.
 ``--ab-stream OTHER`` does the same with path E's main fit
 (:func:`ab_stream_inner`).
+
+``python3 chip_smoke.py --o-scaleout`` runs none of that: path N3's load
+against one engine, 8 in-process replicas and 8 worker processes on the
+card (:func:`o_scaleout_main`); one JSON line.
 
 ``python3 chip_smoke.py --variants`` runs none of that either: it builds
 edited copies of ``chain.cu`` and ``segsum.cu`` (:data:`VARIANTS`: a step
@@ -4111,10 +4133,10 @@ J2_WORLD, J2_TIMEOUT_S = 2, 420
 #: Path J's device and backends (world 1: nccl; two ranks on one card:
 #: gloo over CUDA tensors).
 J_DEVICE, J1_BACKEND, J2_BACKEND = "cuda", "nccl", "gloo"
-#: Path J's fits: 4 epochs (6 until path N joined the run), fewer than
-#: ``FIT_EPOCHS`` (20), so that the whole script stays within its time
-#: budget.
-J_EPOCHS = 4
+#: Path J's fits: 2 epochs (6 until path N joined the run, 4 until path
+#: O), fewer than ``FIT_EPOCHS`` (20), so that the whole script stays
+#: within its time budget.
+J_EPOCHS = 2
 
 
 def _sync(torch):
@@ -6479,6 +6501,329 @@ def serving_path(torch):
     return counts
 
 
+# -- path O: the cluster runtime (worker processes, ClusterPool, elastic worlds) --
+
+O_WORKERS, O_CLIENTS, O_SECONDS = 2, 4, 3.0      # bench.py _multiproc_pool_stage
+O_BATCH_ROWS, O_WAIT_MS = 128, 2.0
+O_CRASH_EXIT, O_CRASH_SECONDS = 23, 1.5   # the crash lands at 0.5 s
+O_PARITY_ROWS = 4096                 # rows served through both, 32 a request
+O_CHILD_TIMEOUT_S = 120
+
+
+def o_parity(ref, pool, x):
+    """The first O_PARITY_ROWS rows through the in-process engine and the
+    pool, 1–32 rows a request: ``(bit for bit, requests)``."""
+    rng = np.random.default_rng(8)
+    lo, same, n = 0, True, 0
+    while lo < O_PARITY_ROWS:
+        rows = int(rng.integers(1, 33))
+        req = {"features": x[lo:lo + rows]}
+        a, b = ref.predict(req), pool.predict(req)
+        for c in ("prediction", "rawPrediction"):
+            same &= bool(np.array_equal(a.column(c), b.column(c)))
+        lo += rows
+        n += 1
+    return same, n
+
+
+def cluster_o1_o2(torch, model, x):
+    """O1 (``bench.py:899 _multiproc_pool_stage``): an in-process
+    ``ReplicaPool`` of 2 and a ``ClusterPool`` of 2 workers on the one card,
+    4 closed-loop clients of 1–32 rows each for 3 s; O2 on the same
+    workers: a ``WorkerCrash`` armed over the transport mid-traffic, the
+    respawn, a lease reclaimed over the wire, the metrics. Returns
+    ``(O1's record, O2's record, {worker: its last fused_chain count})``."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.cluster import ClusterPool, reclaim_worker_leases
+    from flinkml_tpu_torch.serving import (
+        ReplicaPool,
+        ServingConfig,
+        ServingEngine,
+    )
+
+    refs = {None: numpy_chain(model, x)}
+    example = fml.Table({"features": x[:4]})
+    cfg = ServingConfig(max_batch_rows=O_BATCH_ROWS, max_wait_ms=O_WAIT_MS)
+    cols = ("prediction", "rawPrediction")
+    rec = {"path": "cluster_O1", "workers": O_WORKERS,
+           "clients": O_CLIENTS, "seconds": O_SECONDS}
+    rec2 = {"path": "cluster_O2"}
+
+    def measure(label, server):
+        got = Responses()
+        rows, elapsed = n_load(server.predict, x, O_CLIENTS, O_SECONDS, got,
+                               seed=6)
+        rec[f"{label}_max_abs_err"] = n_check(f"O1 {label}", got, refs)
+        rec[f"{label}_rows_per_s"] = rows / elapsed
+        rec[f"{label}_p50_ms"] = got.p(50)
+        rec[f"{label}_p99_ms"] = got.p(99)
+
+    threads = ReplicaPool(model, example, config=cfg, n_replicas=O_WORKERS,
+                          output_cols=cols, name="o1_threads").start()
+    try:
+        measure("threads", threads)
+    finally:
+        threads.stop()
+    ref = ServingEngine(model, example, cfg, output_cols=cols,
+                        name="o_ref").start()
+    pool = ClusterPool(model, example, config=cfg, n_workers=O_WORKERS,
+                       output_cols=cols, name="o_workers")
+    last = {}
+    try:
+        t0 = time.perf_counter()
+        pool.start()
+        rec["start_s"] = time.perf_counter() - t0
+        rec["spawn_ms"] = [r.engine.process.spawn_ms for r in pool.replicas]
+        rec["spawn_stage_ms"] = [r.engine.process.spawn_stage_ms
+                                 for r in pool.replicas]
+        measure("workers", pool)
+        rec["workers_over_threads"] = (rec["workers_rows_per_s"]
+                                       / rec["threads_rows_per_s"])
+        snap = pool.cluster_metrics.snapshot()["gauges"]
+        rec["transport_p50_ms"] = snap.get("p50_ms")
+        rec["transport_p99_ms"] = snap.get("p99_ms")
+        same, n = o_parity(ref, pool, x)
+        if not same:
+            fail("path O1: a worker's response differs from the in-process "
+                 "engine's bits")
+        rec["parity_requests"] = n
+        before = {}
+        for r in pool.replicas:
+            st = r.engine.worker_stats()
+            if not st["device"].startswith("cuda"):
+                fail(f"path O1: worker {r.name} serves on {st['device']}")
+            if st["nvcc_runs"] != 0:
+                fail(f"path O1: worker {r.name} ran nvcc {st['nvcc_runs']} "
+                     "times (the pool builds the kernels before the spawn)")
+            if st["launches"].get("fused_chain", 0) <= 0:
+                fail(f"path O1: worker {r.name} launched no fused_chain")
+            before[r.name] = st
+            last[r.name] = st["launches"]["fused_chain"]
+        rec["worker_launches"] = dict(last)
+        rec["worker_programs"] = {k: v["compiled_programs"]
+                                  for k, v in before.items()}
+
+        # O2: a crash mid-traffic, armed over the transport.
+        victim = pool.replicas[0]
+        marker = os.path.join(victim.engine.process.workdir, "crash.marker")
+        plan = faults.plan_to_json(faults.FaultPlan(faults.WorkerCrash(
+            at=1, key="request", exit_code=O_CRASH_EXIT, marker=marker)))
+
+        def crash(t0):
+            time.sleep(0.5)
+            victim.engine.client.call("arm_faults", {"plan_json": plan})
+            deadline = time.monotonic() + 20.0
+            while victim.engine.process.alive and time.monotonic() < deadline:
+                time.sleep(0.02)
+            rec2["crash_s"] = time.perf_counter() - t0
+
+        got = Responses()
+        n_load(pool.predict, x, O_CLIENTS, O_CRASH_SECONDS, got, seed=7,
+               during=crash)
+        rec2["max_abs_err"] = n_check("O2", got, refs)   # 0 requests lost
+        rec2["requests"] = len(got.items)
+        rec2["crashed_rc"] = victim.engine.process.returncode
+        if rec2["crashed_rc"] != O_CRASH_EXIT:
+            fail(f"path O2: the worker exited {rec2['crashed_rc']}")
+        health = {r.name: r.health.state.name for r in pool.replicas}
+        rec2["health_after_crash"] = health
+        if health.get("r1") != "HEALTHY":
+            fail(f"path O2: the survivor is {health.get('r1')}")
+        survivor = pool.replicas[1].engine.worker_stats()
+        last["r1"] = survivor["launches"]["fused_chain"]
+        t0 = time.perf_counter()
+        (successor,) = pool.respawn_dead()
+        rec2["respawn_s"] = time.perf_counter() - t0
+        warm = successor.engine.worker_stats()
+        same, _ = o_parity(ref, pool, x)
+        if not same:
+            fail("path O2: parity broke after the respawn")
+        after = successor.engine.worker_stats()
+        rec2["respawn_nvcc_runs"] = warm["nvcc_runs"]
+        rec2["respawn_programs"] = [warm["compiled_programs"],
+                                    after["compiled_programs"]]
+        if warm["nvcc_runs"] != 0:
+            fail(f"path O2: the respawned worker ran nvcc {warm['nvcc_runs']}"
+                 " times")
+        if not (warm["compiled_programs"] == after["compiled_programs"]
+                == before["r0"]["compiled_programs"]):
+            fail(f"path O2: programs {before['r0']['compiled_programs']} "
+                 f"(predecessor) -> {warm['compiled_programs']} (warm) -> "
+                 f"{after['compiled_programs']} (after traffic)")
+        client = successor.engine.client
+        acquired = client.call("lease", {"cmd": "acquire",
+                                         "holder": "o2-trainer",
+                                         "cooperative": True})
+        reclaimed = reclaim_worker_leases(
+            client, device_ids=acquired["devices"], timeout_s=10.0)
+        if not reclaimed or not all(r["released"] for r in reclaimed):
+            fail(f"path O2: lease reclaim over the wire: {reclaimed}")
+        rec2["lease_reclaimed"] = len(reclaimed)
+        snap = pool.cluster_metrics.snapshot()
+        rec2["workers_alive"] = snap["gauges"].get("workers_alive")
+        rec2["spawn_ms"] = snap["histories"].get("spawn_ms", [])
+        rec2["transport_p99_ms"] = snap["gauges"].get("p99_ms")
+        if (rec2["workers_alive"] != 2.0 or len(rec2["spawn_ms"]) != 3
+                or rec2["transport_p99_ms"] is None):
+            fail(f"path O2: metrics {snap['gauges']} spawn_ms "
+                 f"{rec2['spawn_ms']}")
+        for r in pool.replicas:
+            if r.engine.process.alive:
+                last[r.name] = r.engine.worker_stats()["launches"][
+                    "fused_chain"]
+        rec2["worker_launches"] = dict(last)
+    finally:
+        pool.stop()
+        ref.stop()
+    log("path " + json.dumps(rec))
+    log("path " + json.dumps(rec2))
+    return rec, rec2, last
+
+
+def cluster_o3(torch):
+    """O3: ``tests/_torch_elastic_rank.py``'s scenario on the card — two
+    gloo ranks on ``cuda:0``, rank 1 exits through ``WorkerCrash``,
+    ``ElasticProcessWorld.run(2, min_world=1)`` resumes the survivor at
+    world 1 from the crash-time epoch; the result equals a continuous
+    golden run (started beside it) bit for bit."""
+    from flinkml_tpu_torch.cluster import ElasticProcessWorld
+    from flinkml_tpu_torch.cluster.elastic import DEVICE_VAR
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "tests", "_torch_elastic_rank.py")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        x for x in (here, os.environ.get("PYTHONPATH")) if x))
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        world = ElasticProcessWorld(
+            lambda rank, w, rnd: [sys.executable, script, wd], env=env,
+            workdir=wd, round_timeout_s=O_CHILD_TIMEOUT_S)
+        golden = subprocess.Popen(
+            [sys.executable, script, wd, "golden"],
+            env=dict(env, **{DEVICE_VAR: world.device}),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        try:
+            final = world.run(2, min_world=1)
+        finally:
+            try:
+                _, err = golden.communicate(timeout=O_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                golden.kill()
+                golden.communicate()
+                fail("path O3: the golden run hung")
+        if golden.returncode != 0:
+            fail(f"path O3: the golden run exited {golden.returncode}: "
+                 f"{err.decode(errors='replace')[-2000:]}")
+        res = json.load(open(os.path.join(wd, "result.json")))
+        gold = json.load(open(os.path.join(wd, "result-golden.json")))
+        rounds = [{k: r[k] for k in ("world", "exit_codes", "lost",
+                                     "elapsed_s")} for r in world.rounds]
+    rec = {"path": "cluster_O3", "final_world": final, "rounds": rounds,
+           "resumed_from": res["resumed_from"], "device": res["device"],
+           "seconds": time.perf_counter() - t0}
+    if final != 1 or rounds[0]["lost"] != 1 or \
+            O_CRASH_EXIT not in rounds[0]["exit_codes"]:
+        fail(f"path O3: the world did not shrink 2 -> 1: {rounds}")
+    if not res["device"].startswith("cuda") or res["resumed_from"] <= 0:
+        fail(f"path O3: resumed from {res['resumed_from']} on "
+             f"{res['device']}")
+    if res["w"] != gold["w"] or res["rows"] != gold["rows"]:
+        fail("path O3: the resumed world differs from the golden run")
+    log("path " + json.dumps(rec))
+    return rec
+
+
+def cluster_path(torch):
+    """Path O (ROADMAP item 19): the cluster runtime on the one card
+    (:func:`cluster_o1_o2`, :func:`cluster_o3`), the chain fitted by the
+    port on the card at N1's widths. This process's launch counters are
+    set to 0 just before and read just after; each worker counts its own
+    from its start, read over the transport (``stats``). Returns
+    ``(the workers' summed fused_chain launches, this process's)``."""
+    import flinkml_tpu_torch as fml
+
+    model, x = n_model(N_ROWS, N_D, seed=0)
+    fml.reset_launch_counts()
+    _, _, workers = cluster_o1_o2(torch, model, x)
+    cluster_o3(torch)
+    here = dict(fml.launch_counts())
+    if here.get("fused_chain", 0) <= 0:
+        fail("path O: the in-process pool launched no fused_chain")
+    total = sum(workers.values())
+    log("path " + json.dumps({"path": "cluster_O", "worker_launches":
+                              workers, "launches": here}))
+    return total, here["fused_chain"]
+
+
+
+def o_scaleout_main() -> int:
+    """``chip_smoke.py --o-scaleout``: path N3's load (16 closed-loop
+    clients of 1–32 rows, 2 s, 128-row buckets, 2 ms window) against one
+    engine, an 8-replica in-process ``ReplicaPool`` and an 8-worker
+    ``ClusterPool`` on the one card, in that order, then the engine again;
+    prints one JSON line. Not a path of the smoke test: it measures whether
+    replicas as processes lift N3's 0.15x."""
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.cluster import ClusterPool
+    from flinkml_tpu_torch.kernels import _build
+    from flinkml_tpu_torch.serving import (
+        ReplicaPool,
+        ServingConfig,
+        ServingEngine,
+    )
+
+    if not torch.cuda.is_available():
+        fail("--o-scaleout needs the card")
+    _build.build_all()
+    model, x = n_model(N_ROWS, N_D, seed=0)
+    refs = {None: numpy_chain(model, x)}
+    example = fml.Table({"features": x[:4]})
+    cfg = ServingConfig(max_batch_rows=N3_BATCH_ROWS, max_wait_ms=N3_WAIT_MS)
+    cols = ("prediction", "rawPrediction")
+    out = {"card": card_line(), "replicas": N3_REPLICAS,
+           "clients": N3_CLIENTS, "seconds": N3_SECONDS}
+
+    def measure(label, server):
+        got = Responses()
+        rows, elapsed = n_load(server.predict, x, N3_CLIENTS, N3_SECONDS,
+                               got, seed=4)
+        out[f"{label}_max_abs_err"] = n_check(f"scale-out {label}", got,
+                                              refs)
+        out[f"{label}_rows_per_s"] = rows / elapsed
+        out[f"{label}_p50_ms"] = got.p(50)
+        out[f"{label}_p99_ms"] = got.p(99)
+
+    for label, make in (
+            ("single", lambda: ServingEngine(model, example, cfg,
+                                             output_cols=cols, name="o_one")),
+            ("threads", lambda: ReplicaPool(model, example, config=cfg,
+                                            n_replicas=N3_REPLICAS,
+                                            output_cols=cols,
+                                            name="o_threads")),
+            ("workers", lambda: ClusterPool(model, example, config=cfg,
+                                            n_workers=N3_REPLICAS,
+                                            output_cols=cols,
+                                            name="o_workers8")),
+            ("single_again", lambda: ServingEngine(model, example, cfg,
+                                                   output_cols=cols,
+                                                   name="o_one_again"))):
+        server = make()
+        t0 = time.perf_counter()
+        server.start()
+        out[f"{label}_start_s"] = time.perf_counter() - t0
+        try:
+            measure(label, server)
+        finally:
+            server.stop()
+    for label in ("threads", "workers"):
+        out[f"{label}_over_single"] = (out[f"{label}_rows_per_s"]
+                                       / out["single_rows_per_s"])
+    print(json.dumps(out), flush=True)
+    return 0
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -6579,6 +6924,9 @@ def main() -> int:
     mark("path M")
     chain_paths["serving_N"] = serving_path(torch)["fused_chain"]
     mark("path N")
+    chain_paths["cluster_O"], chain_paths["cluster_O_parent"] = \
+        cluster_path(torch)
+    mark("path O")
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -7118,6 +7466,8 @@ if __name__ == "__main__":
         sys.exit(ab_stream_inner(sys.argv[2]))
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--variants":
         sys.exit(variants_main(*sys.argv[2:]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--o-scaleout":
+        sys.exit(o_scaleout_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--j2-rank":
         sys.exit(j2_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,0 +1,219 @@
+"""Elastic process worlds: world size = process count.
+
+The elastic machinery (snapshot layout tags, ``rank_scoped``,
+``reshard_rank_state``, ``agree_resume_epoch``, the world-independent
+elastic feed) re-lays a world's state out for another world size. This
+module supplies the real process boundaries: :class:`ElasticProcessWorld`
+launches one OS process per rank, wires them to one rendezvous through
+the ``FLINKML_TPU_COORD_ADDR`` env family (read by
+:func:`~flinkml_tpu_torch.parallel.distributed.init_distributed`), and —
+when a rank dies (a :class:`~flinkml_tpu_torch.faults.WorkerCrash`, a
+preemption, an OOM kill) — relaunches the SURVIVORS as a compacted
+smaller world. Each rank computes on the device the launcher's
+constructing thread requested (``cuda`` unless it asked for the CPU),
+passed as ``FLINKML_TPU_DEVICE`` (:data:`DEVICE_VAR`), which a rank script
+makes its default with :func:`rank_device`.
+
+The resumed ranks find the dead world's snapshots via
+``agree_resume_epoch`` and the checkpoint layout tags re-layout the
+state to the new world size; this launcher only supplies real process
+boundaries and the restart loop an orchestrator would.
+
+Rank exit codes are the contract: 0 means the rank finished its work;
+anything else means the rank was lost this round and the world shrinks
+by the number of lost ranks (never below ``min_world``).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+from flinkml_tpu_torch.cluster.errors import ClusterError
+from flinkml_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("cluster.elastic")
+
+#: The env-var rendezvous family init_distributed reads (satellite
+#: contract: operator-launched processes and spawned workers share one
+#: path).
+COORD_ADDR_VAR = "FLINKML_TPU_COORD_ADDR"
+WORLD_SIZE_VAR = "FLINKML_TPU_WORLD_SIZE"
+RANK_VAR = "FLINKML_TPU_RANK"
+#: The device every rank of an elastic world computes on ("cuda" or
+#: "cpu"), set by the launcher.
+DEVICE_VAR = "FLINKML_TPU_DEVICE"
+
+
+def rank_device() -> str:
+    """In a rank of an elastic world: make the launcher's device
+    (:data:`DEVICE_VAR`, ``cuda`` when unset) this process's default and
+    return it. ``cuda`` on a host without a usable card raises."""
+    from flinkml_tpu_torch.device import set_default_device
+
+    device = os.environ.get(DEVICE_VAR) or "cuda"
+    set_default_device(device)
+    return device
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rendezvous_env(rank: int, world: int, port: int,
+                   base: Optional[Mapping[str, str]] = None
+                   ) -> Dict[str, str]:
+    """The child env for one rank of a ``world``-process rendezvous."""
+    env = dict(base if base is not None else os.environ)
+    env[COORD_ADDR_VAR] = f"127.0.0.1:{port}"
+    env[WORLD_SIZE_VAR] = str(int(world))
+    env[RANK_VAR] = str(int(rank))
+    return env
+
+
+class ElasticProcessWorld:
+    """Launch/supervise one elastic multi-process run (see module
+    docstring).
+
+    ``argv_for_rank(rank, world, round_index)`` builds each rank's
+    command line — the script it names must call :func:`rank_device`
+    and ``init_distributed()`` (env-driven) and resume from its checkpoint
+    directory when one exists.
+    """
+
+    def __init__(
+        self,
+        argv_for_rank: Callable[[int, int, int], Sequence[str]],
+        *,
+        env: Optional[Mapping[str, str]] = None,
+        workdir: Optional[str] = None,
+        round_timeout_s: float = 300.0,
+    ):
+        from flinkml_tpu_torch.device import requested_device
+
+        self._argv_for_rank = argv_for_rank
+        self._base_env = dict(env) if env is not None else None
+        #: The device every rank computes on: the constructing thread's
+        #: requested device.
+        self.device = requested_device().type
+        self._workdir = workdir
+        self._round_timeout_s = float(round_timeout_s)
+        self.rounds: List[Dict[str, object]] = []
+
+    def _launch_round(self, world: int, round_index: int
+                      ) -> Tuple[List[subprocess.Popen], List[str]]:
+        port = free_port()
+        procs: List[subprocess.Popen] = []
+        logs: List[str] = []
+        for rank in range(world):
+            env = rendezvous_env(rank, world, port, base=self._base_env)
+            env[DEVICE_VAR] = self.device
+            log_path = None
+            stderr = subprocess.DEVNULL
+            if self._workdir is not None:
+                log_path = os.path.join(
+                    self._workdir,
+                    f"round{round_index}-rank{rank}.log",
+                )
+                stderr = open(log_path, "wb")
+            logs.append(log_path or "<devnull>")
+            try:
+                procs.append(subprocess.Popen(
+                    [str(a) for a in
+                     self._argv_for_rank(rank, world, round_index)],
+                    env=env, stdout=stderr, stderr=stderr,
+                    cwd=self._workdir,
+                ))
+            finally:
+                if stderr is not subprocess.DEVNULL:
+                    stderr.close()
+        return procs, logs
+
+    def run(self, world: int, *, min_world: int = 1,
+            max_rounds: int = 4) -> int:
+        """Run rounds until a world completes with every rank at exit 0.
+        Each failed round shrinks the world by its lost ranks. Returns
+        the world size that completed. Raises :class:`ClusterError`
+        when the world would shrink below ``min_world`` or the round
+        budget is spent."""
+        world = int(world)
+        for round_index in range(int(max_rounds)):
+            t0 = time.monotonic()
+            procs, logs = self._launch_round(world, round_index)
+            rcs, crashed = self._wait_round(procs)
+            lost = len(crashed)
+            self.rounds.append({
+                "round": round_index, "world": world, "exit_codes": rcs,
+                "lost": lost, "elapsed_s": time.monotonic() - t0,
+                "logs": logs,
+            })
+            if lost == 0:
+                _log.info("elastic world %d completed in round %d",
+                          world, round_index)
+                return world
+            survivors = world - lost
+            _log.warning(
+                "elastic round %d: lost %d of %d ranks (exit codes %s); "
+                "resuming at world %d", round_index, lost, world, rcs,
+                survivors,
+            )
+            if survivors < int(min_world):
+                raise ClusterError(
+                    f"world shrank below min_world={min_world} "
+                    f"(survivors {survivors}); rounds: {self.rounds}"
+                )
+            world = survivors
+        raise ClusterError(
+            f"no round completed within {max_rounds} rounds; "
+            f"rounds: {self.rounds}"
+        )
+
+    def _wait_round(self, procs: List[subprocess.Popen]
+                    ) -> Tuple[List[int], List[int]]:
+        """Wait for every rank → ``(exit_codes, crashed_ranks)``. Once
+        ANY rank dies nonzero on its own, give the rest a short grace
+        (a lost peer wedges collectives, so they rarely finish) then
+        terminate them — ranks WE signalled are survivors of the next
+        round, not losses; only self-inflicted deaths shrink the
+        world."""
+        deadline = time.monotonic() + self._round_timeout_s
+        while time.monotonic() < deadline:
+            states = [p.poll() for p in procs]
+            if all(s is not None for s in states):
+                crashed = [i for i, s in enumerate(states) if s != 0]
+                return [int(s) for s in states], crashed
+            if any(s is not None and s != 0 for s in states):
+                grace = time.monotonic() + 10.0
+                while time.monotonic() < grace:
+                    if all(p.poll() is not None for p in procs):
+                        break
+                    time.sleep(0.1)
+                # Everyone dead-by-now of its own accord is a loss;
+                # everyone still running is merely interrupted.
+                crashed = [
+                    i for i, p in enumerate(procs)
+                    if p.poll() is not None and p.poll() != 0
+                ]
+                for p in procs:
+                    if p.poll() is None:
+                        p.terminate()
+                for p in procs:
+                    try:
+                        p.wait(10.0)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait(5.0)
+                return [int(p.poll()) for p in procs], crashed
+            time.sleep(0.1)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(5.0)
+        raise ClusterError(
+            f"elastic round timed out after {self._round_timeout_s}s"
+        )

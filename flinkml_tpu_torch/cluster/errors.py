@@ -1,0 +1,137 @@
+"""Typed errors for the multi-process worker runtime.
+
+The port's counterpart of the JAX package's ``cluster/errors.py``, a
+copy of it (the port imports nothing of the JAX package).
+
+The transport's whole contract is that a failure is never a hung socket
+or a mystery ``EOFError`` — every way a frame exchange can go wrong has
+a distinct type, because the serving router treats different failures
+differently (schema errors propagate, overloads fail over and trip
+DRAINING, everything else retires the replica — see
+``flinkml_tpu_torch/serving/router.py``):
+
+- :class:`FrameError` — the byte stream itself is broken: wrong magic,
+  or the peer closed mid-frame (a torn frame). The connection is
+  unusable; in-flight requests on it fail with
+  :class:`WorkerDiedError`.
+- :class:`OversizedFrameError` — a frame header declares a payload over
+  the negotiated cap. Raised on the SEND side before any byte leaves
+  (the embedding-exchange guard: batch-sized payloads only, never a
+  vocab-sized transfer) and on the RECEIVE side before the payload is
+  read (a misbehaving peer cannot make us allocate its lie).
+- :class:`TransportTimeoutError` — a deadline expired mid-exchange
+  (including mid-read of a frame's own bytes). Also a
+  :class:`TimeoutError`, mirroring
+  :class:`~flinkml_tpu_torch.serving.errors.ServingTimeoutError`.
+- :class:`WorkerDiedError` — the worker process is gone (clean EOF,
+  connection reset, or a nonzero exit): every request in flight on that
+  connection fails with this, which the router maps to
+  record-failure → retire, exactly like an in-process replica death.
+- :class:`WorkerSpawnError` — the child never produced its ready line
+  (bad spec, import failure, spawn deadline).
+- :class:`RemoteError` — the worker reported an exception type this
+  process does not recognize; carries the remote type name and message.
+
+Errors that ARE recognized cross the boundary as themselves: a worker
+raising :class:`~flinkml_tpu_torch.serving.errors.ServingSchemaError` surfaces
+client-side as ``ServingSchemaError``, so the router's typed-outcome
+table needs no cluster-specific rows (see :func:`decode_error`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Type
+
+
+class ClusterError(RuntimeError):
+    """Base of every cluster-runtime error."""
+
+
+class TransportError(ClusterError):
+    """Base of transport-layer (framing/connection) errors."""
+
+
+class FrameError(TransportError):
+    """The byte stream is not a valid frame sequence: bad magic bytes,
+    or the peer closed the connection mid-frame (torn frame)."""
+
+
+class ConnectionClosedError(FrameError):
+    """Clean EOF at a frame boundary — the peer hung up between frames
+    (distinct from a torn frame so a reader loop can exit quietly)."""
+
+
+class OversizedFrameError(TransportError):
+    """A frame payload exceeds the size cap — refused before any
+    payload byte is sent or read."""
+
+
+class TransportTimeoutError(TransportError, TimeoutError):
+    """A transport deadline expired (including mid-read of a frame)."""
+
+
+class WorkerDiedError(TransportError):
+    """The worker process died (EOF/reset/exit) with requests in
+    flight; each fails with this and the router retires the replica."""
+
+
+class WorkerSpawnError(ClusterError):
+    """A worker child process failed to come up (no ready line within
+    the spawn deadline, or it exited during startup)."""
+
+
+class RemoteError(ClusterError):
+    """The worker raised an exception type unknown to this process;
+    carries the remote type name and message."""
+
+    def __init__(self, etype: str, message: str):
+        super().__init__(f"{etype}: {message}")
+        self.etype = etype
+        self.remote_message = message
+
+
+def _raisable_types() -> Dict[str, Type[BaseException]]:
+    """Exception types allowed to cross the process boundary AS
+    THEMSELVES. Anything else arrives as :class:`RemoteError` — error
+    frames carry (type name, message), never pickled exception objects,
+    so a worker cannot make the client construct arbitrary types."""
+    from flinkml_tpu_torch import faults
+    from flinkml_tpu_torch.serving import errors as serving_errors
+
+    out: Dict[str, Type[BaseException]] = {
+        cls.__name__: cls
+        for cls in (
+            ClusterError, TransportError, FrameError,
+            ConnectionClosedError, OversizedFrameError,
+            TransportTimeoutError, WorkerDiedError, WorkerSpawnError,
+        )
+    }
+    for name in serving_errors.__all__:
+        obj = getattr(serving_errors, name)
+        if isinstance(obj, type) and issubclass(obj, BaseException):
+            out[name] = obj
+    out["FaultInjected"] = faults.FaultInjected
+    out["ValueError"] = ValueError
+    out["KeyError"] = KeyError
+    out["TimeoutError"] = TimeoutError
+    return out
+
+
+def encode_error(exc: BaseException) -> Dict[str, Any]:
+    """The JSON/pickle-safe ERROR-frame payload for ``exc``."""
+    return {"etype": type(exc).__name__, "message": str(exc)}
+
+
+def decode_error(payload: Dict[str, Any]) -> BaseException:
+    """Rebuild a typed exception from an ERROR-frame payload: a known
+    type reconstructs as itself (message-only constructor), an unknown
+    one becomes :class:`RemoteError` carrying the remote type name."""
+    etype = str(payload.get("etype", "RemoteError"))
+    message = str(payload.get("message", ""))
+    cls = _raisable_types().get(etype)
+    if cls is None:
+        return RemoteError(etype, message)
+    try:
+        return cls(message)
+    except Exception:  # constructor wants more args — degrade, loudly
+        return RemoteError(etype, message)

@@ -1,0 +1,259 @@
+"""ClusterPool: a ReplicaPool whose replicas are worker PROCESSES.
+
+Subclasses :class:`~flinkml_tpu_torch.serving.pool.ReplicaPool` and
+overrides exactly one seam — replica construction — so every pool
+behavior (router balance, typed failover, gray-fail defense, health
+quarantine, autoscaler hooks, rolling hot swap) is inherited, not
+reimplemented. Each replica slot holds a :class:`~flinkml_tpu_torch.
+cluster.remote.RemoteEngine` fronting one spawned worker; each worker
+owns its own interpreter lock, which is what lets "N replicas" add real
+capacity where in-process replicas take turns at the host.
+
+Warm spawn: the workers start together. On ``cuda`` the pool builds
+every kernel library once in the parent
+(:func:`flinkml_tpu_torch.kernels._build.build_all`) before it spawns,
+so a worker — a respawn after a crash included — only loads the
+libraries and runs no ``nvcc``. The port has no persistent compile store
+(ROADMAP.md Queue 1 item 11): ``compile_cache_dir`` is accepted and
+recorded in each worker's spec, and a worker builds its fused executor's
+programs at warmup, the same count as its predecessor's.
+
+Cross-process helpers live here too: :func:`reclaim_worker_leases` (the
+revoke→release handshake carried over the transport) and
+:func:`fetch_embedding_rows` (batch-sized row exchange; a vocab-sized
+request is refused with the framing cap's own typed error).
+
+Metrics: ``cluster.<pool>`` publishes ``workers_alive``, ``spawn_ms``
+(history), transport ``p50_ms``/``p99_ms`` (round-trip latency window),
+and ``reconnects_total``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+
+from flinkml_tpu_torch.cluster.client import WorkerClient
+from flinkml_tpu_torch.cluster.remote import RemoteEngine
+from flinkml_tpu_torch.serving.engine import ServingConfig
+from flinkml_tpu_torch.serving.health import HealthPolicy, ReplicaHealth
+from flinkml_tpu_torch.serving.pool import Replica, ReplicaPool
+from flinkml_tpu_torch.serving.registry import ModelRegistry
+from flinkml_tpu_torch.table import Table
+from flinkml_tpu_torch.utils.logging import get_logger
+from flinkml_tpu_torch.utils.metrics import LatencyWindow, metrics
+
+_log = get_logger("cluster.pool")
+
+
+class ClusterPool(ReplicaPool):
+    """See module docstring.
+
+    ``n_workers`` worker processes on the device the constructing thread
+    requested (``config.device`` wins; a replica added later, the adding
+    thread's), each seeing ``devices_per_worker``
+    cards (``None``: the parent's visibility). ``worker_env``
+    adds/overrides env for every child — exporting the
+    ``FLINKML_TPU_COORD_ADDR`` family here is how operator-launched
+    workers join one rendezvous. ``share_compiles`` has no counterpart:
+    workers share the pool's kernel builds through the build directory.
+    """
+
+    def __init__(
+        self,
+        source: Union[ModelRegistry, Any],
+        example: Table,
+        *,
+        config: Optional[ServingConfig] = None,
+        n_workers: int = 2,
+        output_cols: Optional[Sequence[str]] = None,
+        name: str = "cluster",
+        health_policy: Optional[HealthPolicy] = None,
+        grayfail: Optional[Any] = None,
+        devices_per_worker: Optional[int] = 1,
+        worker_env: Optional[Mapping[str, str]] = None,
+        spawn_timeout_s: float = 180.0,
+        compile_cache_dir: Optional[str] = None,
+    ):
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self._init_core(
+            source, example, config=config, output_cols=output_cols,
+            name=name, health_policy=health_policy, grayfail=grayfail,
+        )
+        self._devices_per_worker = devices_per_worker
+        self._worker_env = dict(worker_env or {})
+        self._spawn_timeout_s = float(spawn_timeout_s)
+        self._compile_cache_dir = compile_cache_dir
+        self.cluster_metrics = metrics.group(f"cluster.{name}")
+        self._transport_window = LatencyWindow(self.cluster_metrics)
+        for _ in range(int(n_workers)):
+            self.replicas.append(self._make_replica({}, source))
+        self._update_worker_gauge()
+
+    # -- the one overridden seam ------------------------------------------
+    def _make_replica(self, place: Dict[str, Any], source: Any,
+                      model_id: Optional[str] = None) -> Replica:
+        i = self._next_index
+        self._next_index += 1
+        rname = f"r{i}"
+        cfg = dataclasses.replace(
+            self._base_config,
+            metrics_name=self.name,
+            metrics_labels={"replica": rname},
+            shed_on_overload=False,
+        )
+        engine = RemoteEngine(
+            source, self._example, cfg,
+            output_cols=self._output_cols,
+            name=f"{self.name}/{rname}",
+            index=i,
+            compile_cache_dir=self._compile_cache_dir,
+            devices_per_worker=self._devices_per_worker,
+            spawn_timeout_s=self._spawn_timeout_s,
+            worker_env=self._worker_env,
+            transport_window=self._transport_window,
+            cluster_metrics=self.cluster_metrics,
+        )
+        return Replica(
+            name=rname, engine=engine,
+            health=ReplicaHealth(rname, self._health_policy),
+            device=None, mesh=None, model_id=model_id,
+        )
+
+    # -- placement: workers, not devices ----------------------------------
+    def add_replica(self, device: Optional[Any] = None,
+                    mesh: Optional[Any] = None,
+                    source: Optional[Any] = None,
+                    model_id: Optional[str] = None) -> Replica:
+        """Grow the pool by one WORKER (spawn → warm → join rotation).
+        ``device``/``mesh`` are ignored — a worker's placement is its own
+        process env."""
+        replica = self._make_replica(
+            {}, source if source is not None else self._source,
+            model_id=model_id,
+        )
+        if self._started:
+            replica.engine.start()
+        self._seed_ewma(replica)
+        self.replicas.append(replica)
+        self._metrics.counter("replicas_added")
+        self._metrics.gauge("replicas", float(len(self.replicas)))
+        self._update_health_gauge()
+        self._update_worker_gauge()
+        _log.info("cluster pool %s scaled UP: worker %s pid %s (now %d)",
+                  self.name, replica.name, replica.engine.process.pid,
+                  len(self.replicas))
+        return replica
+
+    def start(self) -> "ClusterPool":
+        """Build the kernels once here when the workers compute on
+        ``cuda``, then spawn and warm every worker, all at once. A worker
+        that fails its spawn stops the others and raises."""
+        if any(r.engine.device.type == "cuda" for r in self.replicas):
+            from flinkml_tpu_torch.kernels import _build
+
+            _build.build_all()
+        replicas = list(self.replicas)
+        with ThreadPoolExecutor(max_workers=len(replicas) or 1,
+                                thread_name_prefix=f"{self.name}-spawn"
+                                ) as spawner:
+            futures = [spawner.submit(r.engine.start) for r in replicas]
+            errors = [f.exception() for f in futures]
+        failed = next((e for e in errors if e is not None), None)
+        if failed is not None:
+            for replica in replicas:
+                replica.engine.stop(drain=False, timeout=5.0)
+            self._update_worker_gauge()
+            raise failed
+        self._started = True
+        self._metrics.gauge("replicas", float(len(self.replicas)))
+        self._update_health_gauge()
+        self._update_worker_gauge()
+        return self
+
+    def stop(self, drain: bool = True,
+             timeout: Optional[float] = None) -> None:
+        super().stop(drain=drain, timeout=timeout)
+        self._update_worker_gauge()
+
+    def respawn_dead(self) -> List[Replica]:
+        """Replace every retired (dead-worker) replica with a freshly
+        spawned one: prune the corpses, spawn warm successors (they load
+        the kernel libraries the pool built; no ``nvcc``)."""
+        pruned = self.prune_retired()
+        replaced = [self.add_replica() for _ in pruned]
+        self._update_worker_gauge()
+        return replaced
+
+    def workers_alive(self) -> int:
+        return sum(
+            1 for r in self.replicas
+            if getattr(r.engine, "process", None) is not None
+            and r.engine.process.alive
+        )
+
+    def _update_worker_gauge(self) -> None:
+        self.cluster_metrics.gauge(
+            "workers_alive", float(self.workers_alive())
+        )
+
+    def worker_clients(self) -> List[WorkerClient]:
+        """The live transport clients (lease reclaim, embedding
+        exchange, stats scraping)."""
+        return [
+            r.engine.client for r in self.replicas
+            if isinstance(r.engine, RemoteEngine)
+            and r.engine.client is not None and r.engine.client.connected
+        ]
+
+
+def reclaim_worker_leases(
+    client: WorkerClient,
+    device_ids: Optional[Sequence[int]] = None,
+    timeout_s: float = 10.0,
+    reason: str = "cross-process reclaim",
+) -> List[Dict[str, Any]]:
+    """The revoke→release handshake over the transport: list the
+    worker's active slice leases (optionally only those overlapping
+    ``device_ids``), request revocation of each, and wait — bounded —
+    for the holders' own releases to land. Returns the final snapshots;
+    a lease still unreleased at the deadline is returned with
+    ``released: False`` so the caller can escalate instead of silently
+    placing work on a contested slice."""
+    leases = client.call("lease", {"cmd": "list"},
+                         timeout_s=timeout_s)["leases"]
+    if device_ids is not None:
+        wanted = set(int(i) for i in device_ids)
+        leases = [
+            ls for ls in leases if wanted & set(ls["devices"])
+        ]
+    out = []
+    for ls in leases:
+        client.call("lease", {
+            "cmd": "request_revoke", "token": ls["token"],
+            "reason": reason,
+        }, timeout_s=timeout_s)
+        done = client.call("lease", {
+            "cmd": "wait_released", "token": ls["token"],
+            "timeout_s": timeout_s,
+        }, timeout_s=timeout_s + 5.0)
+        out.append({**ls, "released": bool(done["released"])})
+    return out
+
+
+def fetch_embedding_rows(
+    client: WorkerClient,
+    ids: Sequence[int],
+    timeout_s: float = 30.0,
+) -> np.ndarray:
+    """Batch-sized embedding row exchange across the process boundary.
+    The worker refuses anything vocab-sized (payload-cap typed error)."""
+    out = client.call(
+        "embedding_rows", {"ids": np.asarray(ids, np.int64)},
+        timeout_s=timeout_s,
+    )
+    return np.asarray(out["rows"])

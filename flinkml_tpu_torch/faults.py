@@ -45,14 +45,16 @@ site                      where it fires
                           visit to their batch, so only quarantining the
                           batch heals the run (:mod:`flinkml_tpu_torch.
                           recovery`)
-``serving.replica``       the serving seams (``ReplicaDown``,
-``registry.publish``      ``StallDispatch``, ``JitterDispatch``,
-``cluster.worker``        ``SlowRamp``, ``DropPublish``, ``WorkerCrash``):
-                          their faults are here as data; the serving and
-                          cluster firing sites come with ROADMAP.md Queue 1
-                          items 4 and 19. The worker soak of
-                          :mod:`flinkml_tpu_torch.recovery.fuzz` fires
-                          ``cluster.worker`` at every trainer batch
+``serving.replica``       every ``ServingEngine`` batch, before its
+                          dispatch (``ReplicaDown``, ``StallDispatch``,
+                          ``JitterDispatch``, ``SlowRamp``)
+``registry.publish``      ``ModelRegistry.publish``, before its commit
+                          (``DropPublish``)
+``cluster.worker``        a cluster worker's ``WorkerServer._dispatch``
+                          before every predict (``{"worker", "request"}``);
+                          the worker soak of :mod:`flinkml_tpu_torch.
+                          recovery.fuzz` fires it at every trainer batch
+                          (``WorkerCrash``)
 ========================  ====================================================
 
 With no plan armed each seam is one module-attribute ``None`` check. All

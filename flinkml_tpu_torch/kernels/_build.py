@@ -48,6 +48,14 @@ _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
 #: ``nvcc``'s output (with ``ptxas -v``'s registers/spills) per library
 #: built in this process.
 BUILD_LOGS: Dict[str, str] = {}
+_NVCC_RUNS = [0]
+
+
+def nvcc_runs() -> int:
+    """``nvcc`` processes this process has started: 0 in a process that
+    only loaded libraries another process built (a cluster worker whose
+    pool built them first)."""
+    return _NVCC_RUNS[0]
 
 
 def nvcc_path() -> str:
@@ -109,6 +117,7 @@ def _start(name: str, nvcc: str):
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source_path(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    _NVCC_RUNS[0] += 1
     return proc, tmp, final
 
 

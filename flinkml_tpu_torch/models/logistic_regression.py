@@ -159,10 +159,20 @@ def _predict_multinomial(x: torch.Tensor, coef,
     """prediction = argmax of the logits ``x @ coef.T`` (first index on
     ties, the first NaN if any; in ``pred_dtype``, default ``x``'s); raw =
     their softmax (max-subtracted, exp over its sum, as
-    ``jax.nn.softmax``), in ``x``'s dtype."""
+    ``jax.nn.softmax``), in ``x``'s dtype. On the CPU, as in
+    :func:`_predict`, a float32 or float64 row's logits are a product and
+    a sum along the row, one class at a time (a ``[rows, k, d]`` product
+    would not fit at MNIST's width), and the exp runs over whole vector
+    blocks, so a row's outputs do not depend on the rows beside it. On the
+    card the logits stay one GEMM."""
     coef = torch.as_tensor(coef).to(device=x.device, dtype=x.dtype)
-    logits = torch.matmul(x, coef.T)
-    e = torch.exp(logits - torch.max(logits, dim=-1, keepdim=True).values)
+    if x.device.type == "cpu" and x.dtype in (torch.float32, torch.float64):
+        logits = torch.stack(
+            [(x * coef[j]).sum(-1) for j in range(coef.shape[0])], dim=-1)
+    else:
+        logits = torch.matmul(x, coef.T)
+    e = _full_blocks(
+        torch.exp, logits - torch.max(logits, dim=-1, keepdim=True).values)
     raw = e / torch.sum(e, dim=-1, keepdim=True)
     pred = torch.argmax(logits, dim=-1).to(pred_dtype or x.dtype)
     return pred, raw

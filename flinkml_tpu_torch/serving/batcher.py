@@ -45,10 +45,13 @@ saturation has unbounded latency). Deadlines are swept **promptly**: the
 consumer wakes at the earliest queued deadline and fails overdue
 requests the moment it passes, instead of letting them ride out the
 max-wait window (a never-filling queue used to hold an expired request
-for the whole window).
+for the whole window). A consumer that wakes later than the 5 ms margin
+still dispatches the one request whose deadline closed the window,
+after that deadline (the JAX package's batcher expires it).
 
-Thread-safe; one consumer (the engine's dispatcher thread) and any
-number of producers.
+Thread-safe; one consumer (the engine's dispatcher thread, blocking in
+:meth:`next_batch`, or the CPU host polling :meth:`poll`: one window rule
+for both) and any number of producers.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -241,6 +244,14 @@ class AdaptiveMicroBatcher:
         self._queue: Deque[ServingRequest] = collections.deque()
         self._queued_rows = 0
         self._stopped = False
+        #: Called (outside the lock) after an offer or a stop, when a
+        #: dispatcher that serves several batchers (:meth:`poll`) waits on
+        #: a condition of its own.
+        self.waker: Optional[Callable[[], None]] = None
+        #: The open batching window: ``(window end, the bucket it opened
+        #: on, its close time, the request whose deadline set that time or
+        #: None)``.
+        self._window: Optional[tuple] = None
 
     # -- producer side -----------------------------------------------------
     def offer(self, request: ServingRequest) -> bool:
@@ -255,7 +266,9 @@ class AdaptiveMicroBatcher:
             self._queue.append(request)
             self._queued_rows += request.rows
             self._cond.notify_all()
-            return True
+        if self.waker is not None:
+            self.waker()
+        return True
 
     def requeue(self, request: ServingRequest) -> bool:
         """Put a request back at the FRONT of the queue for a whole
@@ -281,57 +294,85 @@ class AdaptiveMicroBatcher:
         with self._cond:
             return self._queued_rows
 
+    def oldest(self) -> float:
+        """When the oldest queued request arrived (``inf`` when none is)."""
+        with self._cond:
+            return self._queue[0].enqueued_at if self._queue else float("inf")
+
     # -- consumer side (the dispatcher thread) -----------------------------
     def next_batch(
         self, poll_s: float = 0.05
     ) -> Tuple[List[BatchSegment], List[ServingRequest]]:
-        """Block up to ``poll_s`` for work, then apply the batching window;
-        returns ``(batch, expired)`` — either may be empty. ``expired``
-        are requests whose deadline passed while queued (the caller fails
-        them with the timeout error); they never occupy batch rows, and
-        an expiry observed mid-window returns IMMEDIATELY so the typed
-        timeout is prompt rather than delayed to the window's close."""
+        """Block up to ``poll_s`` for work, then wait out the batching
+        window (:meth:`poll`'s rule); returns ``(batch, expired)`` —
+        either may be empty. ``expired`` are requests whose deadline
+        passed while queued (the caller fails them with the timeout
+        error); they never occupy batch rows, and an expiry observed
+        mid-window returns IMMEDIATELY so the typed timeout is prompt
+        rather than delayed to the window's close."""
         with self._cond:
             if not self._queue and not self._stopped:
                 self._cond.wait(poll_s)
-            expired = self._drop_expired()
-            if not self._queue:
-                return [], expired
-            # Batching window, anchored to the OLDEST queued request — but
-            # never waiting past any queued request's deadline: a request
-            # whose deadline falls inside the window closes it early (less
-            # a small margin) so it dispatches in time instead of being
-            # expired by the very wait that was supposed to batch it.
-            window_end = self._queue[0].enqueued_at + self.max_wait_s
-            forming_bucket = min(
-                self.max_batch_rows, row_bucket(self._queued_rows)
-            )
-            while not self._stopped:
-                newly_expired = self._drop_expired()
-                if newly_expired:
-                    # Prompt sweep: fail overdue requests NOW (the caller
-                    # raises the typed timeout) instead of holding them —
-                    # or the window — until the max-wait elapses.
-                    expired.extend(newly_expired)
-                    return [], expired
-                if not self._queue:
-                    return [], expired
-                rows = self._queued_rows
-                if rows >= self.max_batch_rows:
-                    break
-                if self._close_early(rows, forming_bucket):
-                    break
-                deadlines = [
-                    r.deadline for r in self._queue if r.deadline is not None
-                ]
-                close_at = window_end
-                if deadlines:
-                    close_at = min(close_at, min(deadlines) - 0.005)
-                remaining = close_at - time.monotonic()
-                if remaining <= 0:
-                    break
-                self._cond.wait(remaining)
-            return self._pop_batch(forming_bucket), expired
+            expired: List[ServingRequest] = []
+            while True:
+                batch, newly, wake_at = self._poll()
+                expired.extend(newly)
+                if self._window is None:
+                    # The window is over: popped, emptied, or cut short by
+                    # an expiry.
+                    return batch, expired
+                self._cond.wait(wake_at - time.monotonic())
+
+    def poll(self) -> Tuple[List[BatchSegment], List[ServingRequest],
+                            Optional[float]]:
+        """:meth:`next_batch` without blocking, for a dispatcher that
+        serves several batchers in turn (``engine._CPU_HOST``): returns
+        ``(batch, expired, wake_at)`` — the batch once its window has
+        closed, the requests that expired while queued, and the
+        ``time.monotonic()`` at which to poll again (None: a batch was
+        popped or nothing is queued)."""
+        with self._cond:
+            return self._poll()
+
+    def _poll(self) -> Tuple[List[BatchSegment], List[ServingRequest],
+                             Optional[float]]:
+        # Batching window, anchored to the OLDEST queued request when it
+        # opens, on the bucket it opened on — but never waiting past any
+        # queued request's deadline: a request whose deadline falls inside
+        # the window closes it early (less a small margin) so it
+        # dispatches in time instead of being expired by the very wait
+        # that was supposed to batch it. Caller holds the lock.
+        now = time.monotonic()
+        window = self._window
+        closed = window is not None and now >= window[2]
+        # A dispatcher woken later than the margin (a loaded host) still
+        # dispatches the request whose deadline closed the window, rather
+        # than expire it by the late wake-up; every other overdue request
+        # expires.
+        expired = self._drop_expired(window[3] if closed else None)
+        if not self._queue:
+            self._window = None
+            return [], expired, None
+        if window is None:
+            window = (self._queue[0].enqueued_at + self.max_wait_s,
+                      min(self.max_batch_rows, row_bucket(self._queued_rows)))
+        elif expired and not closed:
+            # Prompt sweep: fail overdue requests NOW (the caller raises
+            # the typed timeout) instead of holding them — or the window —
+            # until the max-wait elapses; the next poll opens a new window.
+            self._window = None
+            return [], expired, now
+        rows = self._queued_rows
+        close_at, closer = window[0], None
+        for r in self._queue:
+            if r.deadline is not None and r.deadline - 0.005 < close_at:
+                close_at, closer = r.deadline - 0.005, r
+        if (self._stopped or rows >= self.max_batch_rows
+                or self._close_early(rows, window[1]) or close_at <= now):
+            self._window = None
+            return self._pop_batch(window[1]), expired, None
+        self._window = (window[0], window[1], close_at, closer)
+        return [], expired, close_at
 
     def _close_early(self, rows: int, forming_bucket: int) -> bool:
         # Bucket exactly full: occupancy 1.0, waiting buys nothing.
@@ -367,7 +408,9 @@ class AdaptiveMicroBatcher:
                 break
         return batch
 
-    def _drop_expired(self) -> List[ServingRequest]:
+    def _drop_expired(
+        self, spare: Optional[ServingRequest] = None
+    ) -> List[ServingRequest]:
         now = time.monotonic()
         expired, dead = [], []
         for r in self._queue:
@@ -377,7 +420,8 @@ class AdaptiveMicroBatcher:
                 # capacity NOW, not when it reaches the head. This is the
                 # hedge-loser cancellation path.
                 dead.append(r)
-            elif r.deadline is not None and r.deadline <= now:
+            elif (r.deadline is not None and r.deadline <= now
+                  and r is not spare):
                 expired.append(r)
         for r in dead:
             self._queue.remove(r)
@@ -393,6 +437,8 @@ class AdaptiveMicroBatcher:
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
+        if self.waker is not None:
+            self.waker()
 
     def drain_pending(self) -> List[ServingRequest]:
         """Pop every queued request (shutdown without drain: the engine

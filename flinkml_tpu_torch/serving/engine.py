@@ -99,13 +99,123 @@ from flinkml_tpu_torch.utils.metrics import LatencyWindow, metrics
 MAX_BATCH_ROWS = 1024
 MAX_WAIT_MS = 2.0
 
-#: Held by a CPU engine's dispatcher around each batch. Every CPU tensor
-#: op releases the GIL, so two engines' batches at once would hand the
-#: GIL back and forth at each op — the replicas of a CPU pool share the
-#: host's cores anyway, and taking turns whole keeps their tail latency
-#: bounded. Warmup and shedding do not take it (a shed must not wait for a
-#: dispatcher); CUDA engines overlap on their own streams.
-_CPU_DISPATCH = threading.Lock()
+class _CpuHost:
+    """The one dispatcher of every CPU engine of the process. Each engine
+    keeps its own batcher (window, bucket, deadlines:
+    :meth:`AdaptiveMicroBatcher.poll`), but one thread forms and runs
+    every CPU batch, in turn. A dispatcher thread per engine would wake,
+    take the GIL and hand it back around every batch, and on one host
+    those handoffs bounded N in-process replicas below one engine; two CPU
+    batches at once would hand the GIL back and forth at each tensor op
+    (every one releases it), on cores the replicas share anyway. The
+    engine whose oldest request is oldest goes first, as one queue would.
+    The engine's own thread only waits until the engine stopped and its
+    queue drained (``running`` and ``stop`` are unchanged). With a fault
+    plan armed, a batch's ``serving.replica`` seam fires on a thread of
+    its own, so that a stalled replica holds only itself; the batch then
+    comes back to this thread to run. CUDA engines keep a dispatcher
+    thread each: they overlap on their own streams."""
+
+    #: Longest sleep between polls with nothing queued.
+    IDLE_S = 0.02
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        #: ``(engine, event set once it stopped and drained)``
+        self._engines: List[Tuple["ServingEngine", threading.Event]] = []
+        #: Engines with a batch at its seam or back from it, not yet run.
+        self._busy: set = set()
+        #: ``(engine, batch)`` back from the seam, to run next.
+        self._ready: collections.deque = collections.deque()
+        self._kicked = False
+        self._thread: Optional[threading.Thread] = None
+
+    def kick(self) -> None:
+        with self._cond:
+            self._kicked = True
+            self._cond.notify_all()
+
+    def serve(self, engine: "ServingEngine") -> None:
+        """Serve ``engine`` until it stopped and its queue drained (called
+        from the engine's dispatcher thread, which waits here)."""
+        done = threading.Event()
+        engine._batcher.waker = self.kick
+        with self._cond:
+            self._engines.append((engine, done))
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, name="serving-cpu-host", daemon=True)
+                self._thread.start()
+            self._kicked = True
+            self._cond.notify_all()
+        done.wait()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                self._kicked = False
+                for entry in [e for e in self._engines
+                              if e[0]._stop_event.is_set()
+                              and e[0]._batcher.queue_depth == 0
+                              and e[0] not in self._busy]:
+                    self._engines.remove(entry)
+                    entry[0]._batcher.waker = None
+                    entry[1].set()
+                if not self._engines:
+                    self._thread = None
+                    return
+                ready = list(self._ready)
+                self._ready.clear()
+            for engine, batch in ready:
+                engine._run_batch(batch)
+                engine._metrics.gauge("queue_depth",
+                                      engine._batcher.queue_depth)
+                with self._cond:
+                    self._busy.discard(engine)
+            with self._cond:
+                engines = [e for e, _ in self._engines if e not in self._busy]
+            # Oldest request first across the engines, as one queue would.
+            engines.sort(key=lambda e: e._batcher.oldest())
+            wake = time.monotonic() + self.IDLE_S
+            served = bool(ready)
+            for engine in engines:
+                batch, expired, at = engine._batcher.poll()
+                engine._expire(expired)
+                if batch:
+                    self._dispatch(engine, batch)
+                    served = True
+                elif at is not None:
+                    wake = min(wake, at)
+            if served:
+                continue
+            with self._cond:
+                if not self._kicked:
+                    self._cond.wait(max(0.0, wake - time.monotonic()))
+
+    def _dispatch(self, engine: "ServingEngine",
+                  batch: List[BatchSegment]) -> None:
+        if faults.ACTIVE is None:
+            engine._run_batch(batch)
+            engine._metrics.gauge("queue_depth", engine._batcher.queue_depth)
+            return
+        with self._cond:
+            self._busy.add(engine)
+
+        def seam():
+            passed = engine._replica_seam(batch)
+            with self._cond:
+                if passed:
+                    self._ready.append((engine, batch))
+                else:
+                    self._busy.discard(engine)
+                self._kicked = True
+                self._cond.notify_all()
+
+        threading.Thread(target=seam, name=f"serving-{engine.name}-seam",
+                         daemon=True).start()
+
+
+_CPU_HOST = _CpuHost()
 
 
 @dataclasses.dataclass
@@ -352,6 +462,8 @@ class ServingEngine:
             for req in self._batcher.drain_pending():
                 req.fail(EngineStoppedError("serving engine stopped"))
         self._stop_event.set()
+        if self.device.type == "cpu":
+            _CPU_HOST.kick()
         # Unfollow BEFORE the join (safe regardless of its outcome): a
         # stopped engine must not keep paying load+warmup in publishing
         # threads on every registry event.
@@ -729,27 +841,52 @@ class ServingEngine:
 
     # -- dispatcher --------------------------------------------------------
     def _dispatch_loop(self) -> None:
+        if self.device.type == "cpu":
+            _CPU_HOST.serve(self)
+            return
         while True:
             batch, expired = self._batcher.next_batch(poll_s=0.02)
-            for req in expired:
-                if req.claim_timeout_count():
-                    self._metrics.counter("timeouts")
-                req.fail(ServingTimeoutError(
-                    "request expired while queued (deadline passed before "
-                    "dispatch)"
-                ))
+            self._expire(expired)
             if batch:
                 self._serve_batch(batch)
             elif self._stop_event.is_set() and self._batcher.queue_depth == 0:
                 return
             self._metrics.gauge("queue_depth", self._batcher.queue_depth)
 
+    def _expire(self, expired: List[ServingRequest]) -> None:
+        for req in expired:
+            if req.claim_timeout_count():
+                self._metrics.counter("timeouts")
+            req.fail(ServingTimeoutError(
+                "request expired while queued (deadline passed before "
+                "dispatch)"
+            ))
+
     def _serve_batch(self, batch: List[BatchSegment]) -> None:
+        if faults.ACTIVE is None or self._replica_seam(batch):
+            self._run_batch(batch)
+
+    def _replica_seam(self, batch: List[BatchSegment]) -> bool:
+        """Fire the replica-kill seam (pool chaos) for ``batch``; False
+        when it raised and failed the batch."""
+        try:
+            faults.fire("serving.replica", engine=self.name,
+                        rows=sum(s.rows for s in batch))
+        except BaseException as e:  # noqa: BLE001 — fail the batch
+            self._fail_batch(batch, e)
+            return False
+        return True
+
+    def _fail_batch(self, batch: List[BatchSegment],
+                    error: BaseException) -> None:
+        self._metrics.counter("errors")
+        for seg in batch:
+            seg.request.fail(error)
+
+    def _run_batch(self, batch: List[BatchSegment]) -> None:
         active = self._active  # snapshot: in-flight work stays on it
         rows = sum(s.rows for s in batch)
         try:
-            if faults.ACTIVE is not None:  # replica-kill seam (pool chaos)
-                faults.fire("serving.replica", engine=self.name, rows=rows)
             cols = [s.columns for s in batch]
             packed = {
                 name: (
@@ -759,7 +896,7 @@ class ServingEngine:
                 for name in self._schema
             }
             table = Table(packed)
-            with self._batch_lock(), self._dispatch_guard(), \
+            with self._dispatch_guard(), \
                     pipeline_fusion.precision_scope(self._policy):
                 from flinkml_tpu_torch.parallel import dispatch as _dispatch
 
@@ -776,9 +913,7 @@ class ServingEngine:
                     c: np.asarray(out.column(c)) for c in self._output_cols
                 }
         except BaseException as e:  # noqa: BLE001 — fail the batch, not the loop
-            self._metrics.counter("errors")
-            for seg in batch:
-                seg.request.fail(e)
+            self._fail_batch(batch, e)
             return
         bucket = pipeline_fusion.row_bucket(rows)
         self._metrics.counter("batches")
@@ -858,11 +993,6 @@ class ServingEngine:
 
                 stack.enter_context(local_execution_lock(self.config.mesh))
             yield
-
-    def _batch_lock(self):
-        if self.device.type == "cpu":
-            return _CPU_DISPATCH
-        return contextlib.nullcontext()
 
     def _cuda_stream(self):
         if self.device.type != "cuda":

@@ -90,6 +90,11 @@ class ReplicaHealth:
         #: Per-attempt latency ring (successes + censored abandonments)
         #: — the gray-failure outlier test's input. Guarded by ``_lock``.
         self._attempt_ms: collections.deque = collections.deque(maxlen=256)
+        #: :meth:`attempt_p99` of the ring as it stands (None: not yet
+        #: computed since it last changed). The router reads every
+        #: sibling's p99 on every request of a pool of several replicas,
+        #: so one sort a change, not one a read. Guarded by ``_lock``.
+        self._attempt_p99: Optional[float] = None
         self._abandoned_attempts = 0
 
     # -- state -------------------------------------------------------------
@@ -147,6 +152,7 @@ class ReplicaHealth:
         up waiting."""
         with self._lock:
             self._attempt_ms.append(float(latency_ms))
+            self._attempt_p99 = None
             if abandoned:
                 self._abandoned_attempts += 1
 
@@ -156,8 +162,11 @@ class ReplicaHealth:
             n = len(self._attempt_ms)
             if n < max(1, min_samples):
                 return None
-            ordered = sorted(self._attempt_ms)
-            return ordered[min(n - 1, math.ceil(0.99 * n) - 1)]
+            if self._attempt_p99 is None:
+                ordered = sorted(self._attempt_ms)
+                self._attempt_p99 = ordered[min(n - 1,
+                                                math.ceil(0.99 * n) - 1)]
+            return self._attempt_p99
 
     def recent_attempt_p99(self, window: int,
                            min_samples: int = 1) -> Optional[float]:
@@ -184,6 +193,7 @@ class ReplicaHealth:
             if self._state is not ReplicaState.HEALTHY:
                 return False
             self._attempt_ms.clear()
+            self._attempt_p99 = None
             self._transition(ReplicaState.SLOW)
             return True
 
@@ -195,6 +205,7 @@ class ReplicaHealth:
             if self._state is not ReplicaState.SLOW:
                 return False
             self._attempt_ms.clear()
+            self._attempt_p99 = None
             self._abandoned_attempts = 0
             self._transition(ReplicaState.HEALTHY)
             return True
@@ -271,6 +282,7 @@ class ReplicaHealth:
             self.outstanding_rows = 0
             self.ewma_ms_per_row = None
             self._attempt_ms.clear()
+            self._attempt_p99 = None
             self._abandoned_attempts = 0
             self._transition(ReplicaState.HEALTHY)
 

@@ -1830,3 +1830,39 @@ def test_engine_builds_nothing_after_warmup_on_card(cuda_device):
         assert program_counts() == warmed
     finally:
         eng.stop()
+
+
+def test_cluster_pool_on_card_matches_in_process_engine(cuda_device):
+    """A 2-worker ClusterPool on the card: each worker serves on ``cuda``,
+    runs no ``nvcc`` (the pool built the kernels before the spawn),
+    launches ``fused_chain`` for its batches, and answers bit for bit as
+    the in-process engine does."""
+    from flinkml_tpu_torch.cluster import ClusterPool
+    from flinkml_tpu_torch.serving import ServingConfig
+
+    model, x = _five_stage(1024, seed=12)
+    ref = _serving_engine(model, x, "cluster_ref").start()
+    pool = ClusterPool(
+        model, fml.Table({"features": x[:4]}),
+        config=ServingConfig(max_batch_rows=128, max_wait_ms=1.0),
+        n_workers=2, output_cols=SERVED, name="card_cluster",
+    )
+    try:
+        pool.start()
+        rng = np.random.default_rng(12)
+        lo = 0
+        while lo < 1024:
+            rows = int(rng.integers(1, 65))
+            req = {"features": x[lo:lo + rows]}
+            want, got = ref.predict(req), pool.predict(req)
+            for c in SERVED:
+                np.testing.assert_array_equal(got.column(c), want.column(c))
+            lo += rows
+        for r in pool.replicas:
+            st = r.engine.worker_stats()
+            assert st["device"].startswith("cuda")
+            assert st["nvcc_runs"] == 0
+            assert st["launches"]["fused_chain"] > 0
+    finally:
+        pool.stop()
+        ref.stop()

@@ -272,3 +272,43 @@ def test_multinomial_save_load_across_packages(tmp_path, on_cpu):
     np.testing.assert_allclose(a.column("rawPrediction"),
                                b.column("rawPrediction"), rtol=F64_RAW_RTOL,
                                atol=F64_RAW_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_served_multinomial_rows_answer_as_alone(dtype, on_cpu):
+    """A multinomial model served through a ServingEngine on the CPU
+    answers 1, 7, 33 and 130 rows bit for bit as it answers each row alone
+    (the head's logits are row sums, its exp runs over whole vector
+    blocks), and the served head agrees with JAX's multinomial transform
+    within the declared tolerances."""
+    from flinkml_tpu_torch.serving import ServingConfig, ServingEngine
+
+    d, k = 37, 6
+    jm, tm, coef = _models(d=d, k=k, seed=11)
+    x = np.random.default_rng(12).normal(size=(130, d)).astype(dtype)
+    engine = ServingEngine(
+        tm, fml.Table({"features": x[:4]}),
+        ServingConfig(max_batch_rows=256, max_wait_ms=0.0),
+        output_cols=("prediction", "rawPrediction"), name="multinomial",
+    ).start()
+    try:
+        alone = [engine.predict({"features": x[i]}) for i in range(130)]
+        (jo,) = jm.transform(JaxTable({"features": x}))
+        for n in (1, 7, 33, 130):
+            served = engine.predict({"features": x[:n]})
+            for col in ("prediction", "rawPrediction"):
+                np.testing.assert_array_equal(
+                    served.column(col),
+                    np.concatenate([a.column(col) for a in alone[:n]]))
+        rtol, atol = (F64_RAW_RTOL, F64_RAW_RTOL) if dtype == np.float64 \
+            else (F32_RTOL, F32_ATOL)
+        np.testing.assert_allclose(served.column("rawPrediction"),
+                                   jo.column("rawPrediction"), rtol=rtol,
+                                   atol=atol)
+        decisive = _decisive(x.astype(np.float64) @ coef.T,
+                             1e-9 if dtype == np.float64 else 1e-4)
+        np.testing.assert_array_equal(
+            served.column("prediction")[decisive],
+            np.asarray(jo.column("prediction"))[decisive])
+    finally:
+        engine.stop()

@@ -267,6 +267,31 @@ def test_batcher_window_closes_before_queued_deadline():
     assert time.monotonic() - t0 < 2.0  # closed at the deadline, not 5s
 
 
+def test_batcher_late_wakeup_dispatches_the_window_deadline():
+    """A declared difference from the JAX batcher (ROADMAP Queue 3): when
+    the dispatcher wakes later than the 5 ms margin at a window that a
+    queued deadline closed, the request whose deadline closed it is
+    dispatched in that window, not expired by the late wake-up; any other
+    request whose deadline passed meanwhile still expires."""
+    b = AdaptiveMicroBatcher(max_batch_rows=64, max_wait_s=5.0,
+                             max_queue_rows=256)
+    wait = b._cond.wait
+
+    def late_wait(timeout=None):
+        wait(timeout)
+        time.sleep(0.06)  # the wake-up lands well past both deadlines
+        return False
+
+    b._cond.wait = late_wait
+    deadline = time.monotonic() + 0.05
+    b.offer(_req(2, deadline=deadline))
+    other = _req(3, deadline=deadline + 0.002)
+    b.offer(other)
+    batch, expired = b.next_batch(poll_s=0.01)
+    assert time.monotonic() > deadline + 0.002
+    assert [r.rows for r in batch] == [2] and expired == [other]
+
+
 def test_batcher_expires_overdue_requests():
     b = AdaptiveMicroBatcher(max_batch_rows=8, max_wait_s=0.0,
                              max_queue_rows=64)
@@ -1317,3 +1342,172 @@ def test_serving_exports_the_jax_packages_names():
             assert ours.__name__ == theirs.__name__
         else:  # the SLO class presets
             assert repr(ours) == repr(theirs)
+
+
+def _window_script(seed):
+    """Timed arrivals for a batcher with a window: ``(arrival, rows,
+    deadline offset or None)``, arrivals 0-3 ms apart; an offset below
+    zero is already overdue, a small one closes or outlives a window."""
+    rng = np.random.default_rng(seed)
+    script, t = [], 0.0
+    for _ in range(40):
+        t += float(rng.choice([0.0, 0.0005, 0.001, 0.002, 0.003]))
+        rows = int(rng.choice([1, 2, 3, 5, 8, 13, 16, 24, 40]))
+        u = rng.random()
+        deadline = (-1.0 if u < 0.1 else
+                    float(rng.choice([0.001, 0.006, 0.008])) if u < 0.4
+                    else None)
+        script.append((t, rows, deadline))
+    return script
+
+
+def _windowed(pkg, cls_name, script, max_batch_rows, by_poll=False):
+    """Drive one package's batcher through ``script`` on a simulated
+    clock (a wait ends at its timeout or at the next arrival, which it
+    offers; serving takes no time), with ``next_batch`` or — ``by_poll``
+    — as the CPU host drives ``poll``. Returns each batch as ``(time,
+    [(request, start, rows)])`` and the set of expired requests."""
+    mod = __import__(f"{pkg}.serving.batcher", fromlist=["x"])
+    b = getattr(mod, cls_name)(max_batch_rows=max_batch_rows,
+                               max_wait_s=0.004,
+                               max_queue_rows=4 * max_batch_rows)
+    clock, pending, ids, held = [100.0], list(script), {}, []
+    batches, expired = [], set()
+
+    def arrive():
+        while pending and 100.0 + pending[0][0] <= clock[0]:
+            t, rows, deadline = pending.pop(0)
+            req = mod.ServingRequest(
+                columns={"f": np.zeros((rows, 2))}, rows=rows,
+                enqueued_at=100.0 + t,
+                deadline=None if deadline is None else 100.0 + t + deadline)
+            ids[id(req)] = len(ids)
+            held.append(req)  # alive, so no later request reuses its id()
+            b.offer(req)
+
+    def wait(timeout=None):
+        nxt = 100.0 + pending[0][0] if pending else float("inf")
+        end = clock[0] + timeout
+        clock[0] = max(clock[0], min(nxt, end))
+        arrive()
+        return nxt <= end
+
+    def record(batch, gone):
+        if batch:
+            batches.append((clock[0], [(ids[id(s.request)], s.start, s.rows)
+                                       for s in batch]))
+        expired.update(ids[id(r)] for r in gone)
+
+    real_time = mod.time
+    mod.time = type("Clock", (), {"monotonic": staticmethod(
+        lambda: clock[0])})
+    b._cond.wait = wait
+    try:
+        while pending or b.queued_rows:
+            arrive()
+            if not by_poll:
+                record(*b.next_batch(poll_s=0.01))
+                continue
+            batch, gone, wake_at = b.poll()
+            record(batch, gone)
+            if not batch:
+                wait((wake_at if wake_at is not None else float("inf"))
+                     - clock[0])
+    finally:
+        mod.time = real_time
+    return batches, expired
+
+
+@pytest.mark.parametrize("cls_name", ["AdaptiveMicroBatcher",
+                                      "ContinuousBatcher"])
+@pytest.mark.parametrize("max_batch_rows", [8, 32])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("by_poll", [False, True])
+def test_batcher_windows_match_jax(cls_name, max_batch_rows, seed, by_poll):
+    """With a window, deadlines that close it early, expiries mid-window
+    and a bucket filling, the port's batcher — through ``next_batch``, or
+    through ``poll`` polled again at each arrival and at the time it names,
+    as the CPU host drives it — forms the batches the JAX package's
+    ``next_batch`` forms, at the same times, and expires the same
+    requests."""
+    script = _window_script(seed)
+    got = _windowed("flinkml_tpu_torch", cls_name, script, max_batch_rows,
+                    by_poll=by_poll)
+    want = _windowed("flinkml_tpu", cls_name, script, max_batch_rows)
+    assert got == want
+    assert got[0] and got[1]
+
+
+def test_cpu_engines_share_one_dispatcher(pipeline_and_data):
+    """Every CPU engine of the process is served by the one host thread
+    (``engine._CPU_HOST``); each engine's own thread only waits, and stop()
+    still drains and joins it."""
+    pm, x = pipeline_and_data
+    engines = [_engine(pm, x, max_wait_ms=0.0) for _ in range(2)]
+    seen = set()
+    for eng in engines:
+        run = eng._run_batch
+
+        def traced(batch, run=run):
+            seen.add(threading.current_thread().name)
+            run(batch)
+
+        eng._run_batch = traced
+        eng.start()
+    try:
+        for i in range(6):
+            engines[i % 2].predict({"features": x[i:i + 3]})
+        assert seen == {"serving-cpu-host"}
+    finally:
+        for eng in engines:
+            eng.stop()
+    assert not any(eng.running for eng in engines)
+
+
+def test_cpu_host_runs_armed_batches_while_a_seam_stalls(pipeline_and_data):
+    """With a fault plan armed, a stalled replica's ``serving.replica``
+    seam sleeps on a thread of its own: the sibling engine is served
+    meanwhile, and every batch, the stalled one too, still runs on the one
+    host thread."""
+    import flinkml_tpu_torch.faults as faults
+
+    pm, x = pipeline_and_data
+    engines = [ServingEngine(pm, Table({"features": x[:4]}),
+                             ServingConfig(max_batch_rows=64,
+                                           max_queue_rows=256,
+                                           warmup_row_counts=(1, 64),
+                                           max_wait_ms=0.0),
+                             output_cols=("prediction",), name=name)
+               for name in ("stalled", "sibling")]
+    ran = []
+    for eng in engines:
+        run = eng._run_batch
+
+        def traced(batch, run=run):
+            ran.append(threading.current_thread().name)
+            run(batch)
+
+        eng._run_batch = traced
+        eng.start()
+    stalled, sibling = engines
+    stall = faults.StallDispatch("stalled", delay_s=2.0, for_batches=1)
+    try:
+        with faults.armed(faults.FaultPlan(stall)):
+            slow = threading.Thread(target=stalled.predict,
+                                    args=({"features": x[:3]},))
+            slow.start()
+            t0 = time.monotonic()
+            while not stall.fired and time.monotonic() - t0 < 10.0:
+                time.sleep(0.005)
+            assert stall.fired
+            got = sibling.predict({"features": x[3:6]})
+            assert slow.is_alive()  # the sibling answered inside the stall
+            slow.join(10.0)
+        assert not slow.is_alive()
+        want = pm.transform(Table({"features": x[3:6]}))[0]
+        np.testing.assert_array_equal(got.column("prediction"),
+                                      np.asarray(want.column("prediction")))
+        assert ran == ["serving-cpu-host"] * 2
+    finally:
+        for eng in engines:
+            eng.stop()
