@@ -263,6 +263,49 @@ and fails with a non-zero exit if any phase fails:
    ``tests/_torch_elastic_rank.py`` as an ``ElasticProcessWorld`` of two
    gloo ranks on ``cuda:0`` that loses rank 1 to a ``WorkerCrash`` and
    resumes at world 1, bit for bit with a golden run;
+6l. tensor parallelism and ring attention (path P, ``pr_ranks``): two
+   gloo ranks spawned on the card (``--pr-rank``; ``send``/``recv`` and
+   ``all_to_all`` staged through host memory) run a Transformer-base-like
+   block in float32: ``tensor_parallel_mlp`` on [8192, 1024], d_ff 4096;
+   ``expert_parallel_ffn`` and ``routed_expert_ffn`` with 2 experts (one a
+   rank), 8,192 tokens, capacity 1.25; ``pipeline_parallel_apply`` over 2
+   stages and 8 microbatches of [1024, 1024]; ``ring_attention`` and
+   ``ulysses_attention`` on q, k, v [1, 16, 8192, 64], causal and not.
+   The ranks agree bit for bit, each output within ``P_TOL`` of the
+   largest magnitude of the same computation unsharded on the card; each
+   call's ms and its collectives' share;
+6m. ALS (path Q, ``als_path``, ``bench.py``'s ``_inner_als`` shape:
+   16,384 x 16,384, 2^21 ratings in [1, 5], rank 32, seed 0): the first
+   half-step against a float64 numpy solve (256 users); a 1-iteration
+   fit against the ``cumsum`` layout's, and on the first 2^19 ratings
+   against the CPU port's (rtol 5e-4, atol 5e-5); 3-iteration fits of both layouts (rating
+   visits/s; training RMSE within 1e-4; ``cumsum`` bit for bit twice);
+   the implicit mode; a streamed fit from a ``DataCache`` of 8 batches
+   crashed after its epoch-1 snapshot and resumed; ``segment_sum`` at
+   [65,536, 1,024] into 16,385 segments and ``recommend_for_all_users
+   (10)``'s ``topk`` on [16,384, 16,384] against their plain versions
+   and ``torch.topk``, with bounds; ``factor_tables()`` and the item
+   factors served by an ``EmbeddingLookupModel`` behind a
+   ``ServingEngine`` on a one-device mesh (4,096 rows within the
+   ``mixed_inference`` tolerance). Q must launch ``segment_sum`` and
+   ``topk``;
+6n. sharded embeddings (path R, ``bench.py``'s
+   ``_sharded_embedding_stage`` shape: vocab 2^20, dim 16, batch 2^13,
+   8 reps): R1 at world 1 over nccl, FML503 refusing the replicated table
+   and ``infer_plan`` finding no plan at 24 MB, the table replicated;
+   R2 in path P's ranks, the table routed to the EMBEDDING plan at 96 MB
+   (two shards); each strategy's lookup and update rows/s and
+   ``exchange_bytes_per_step``, lookups and ``exchange.gather`` bit for
+   bit with the dense gather, updates within 1e-5 of ``np.add.at``; the
+   all_to_all scatter's local ``segment_sum`` with its masked rows on row
+   0 and with them left out. R must launch ``segment_sum``;
+6o. hashed features (path S, ``bench.py``'s ``_feature_freshness_stage``
+   shape: 2^16 buckets, 512 rows x 4 ids, factor 16, 32 publishes):
+   ``hash_buckets`` into a ``StreamingHashedFMTrainer`` on the card, a
+   ``DeltaPublisher`` into a ``ModelRegistry``, a 2-replica
+   ``ReplicaPool`` on the card following it by ``_try_delta_swap``; every
+   answer bit for bit with its version's full snapshot; trainer rows/s,
+   the delta-to-snapshot ratio, time to freshness p50/p99, delta swaps;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -6824,6 +6867,939 @@ def o_scaleout_main() -> int:
     print(json.dumps(out), flush=True)
     return 0
 
+# -- paths P-S: tensor parallelism, ALS, embeddings, hashed features ---------------
+
+#: Paths P-S's device (a rehearsal on the CPU sets "cpu").
+PS_DEVICE = "cuda"
+#: Path P and R2's ranks: two gloo ranks on the one card (J2's set-up).
+PR_WORLD, PR_BACKEND, PR_TIMEOUT_S = 2, "gloo", 600
+# Path P: a Transformer-base-like block (d_model 1024, d_ff 4096, 16 heads
+# of 64), float32.
+P_TOKENS, P_D, P_DFF = 8192, 1024, 4096
+P_EXPERTS, P_CAPACITY = 2, 1.25
+P_MICRO, P_MB_ROWS = 8, 1024
+P_HEADS, P_SEQ, P_HEAD_D = 16, 8192, 64
+#: Path P's tolerance: max abs error at most this share of the largest
+#: magnitude of the same computation unsharded on the card.
+P_TOL = 2e-4
+# Path Q: bench.py's _inner_als shape; ITERS cut from the bench's 10.
+Q_USERS, Q_ITEMS, Q_NNZ, Q_RANK = 16_384, 16_384, 1 << 21, 32
+Q_ITERS, Q_STREAM_ITERS, Q_STREAM_BATCHES = 3, 2, 8
+Q_CHECK_USERS, Q_SERVE_ROWS, Q_SERVE_IDS = 256, 4096, 4
+#: Ratings of the fit held against the CPU port's (a quarter: the CPU fit
+#: of all 2^21 took 15 s of the script).
+Q_CPU_NNZ = 1 << 19
+#: ALS tolerance between two reductions (the JAX package's own).
+Q_RTOL, Q_ATOL = 5e-4, 5e-5
+# Path R: bench.py's _sharded_embedding_stage shape.
+R_VOCAB, R_DIM, R_BATCH, R_REPS = 1 << 20, 16, 1 << 13, 8
+#: The bench's budget, for its 8 devices (16 MB a shard fits, 32 MB at
+#: fsdp only and 128 MB replicated do not); R2's two ranks keep that
+#: contract at 4 times the budget (64 MB a shard of two).
+R_BUDGET = 24 << 20
+R2_BUDGET = 4 * R_BUDGET
+# Path S: bench.py's _feature_freshness_stage shape.
+S_BUCKETS, S_ROWS, S_LEN, S_FACTOR, S_PUBLISHES = 1 << 16, 512, 4, 16, 32
+
+
+def ps_sync(torch):
+    if PS_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def ps_seconds(torch, fn):
+    """``(seconds, result)`` of one call, synchronized on the card."""
+    ps_sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    ps_sync(torch)
+    return time.perf_counter() - t0, out
+
+
+def p_inputs():
+    """Path P's seeded float32 inputs (numpy)."""
+    rng = np.random.default_rng(0)
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {
+        "x": normal(P_TOKENS, P_D),
+        "w1": normal(P_D, P_DFF, scale=P_D ** -0.5),
+        "b1": normal(P_DFF, scale=0.1),
+        "w2": normal(P_DFF, P_D, scale=P_DFF ** -0.5),
+        "b2": normal(P_D, scale=0.1),
+        "ew1": normal(P_EXPERTS, P_D, P_DFF, scale=P_D ** -0.5),
+        "ew2": normal(P_EXPERTS, P_DFF, P_D, scale=P_DFF ** -0.5),
+        "logits": normal(P_TOKENS, P_EXPERTS, scale=2.0),
+        "mb": normal(P_MICRO, P_MB_ROWS, P_D),
+        "stages": normal(PR_WORLD, P_D, P_D, scale=P_D ** -0.5),
+        "q": normal(1, P_HEADS, P_SEQ, P_HEAD_D),
+        "k": normal(1, P_HEADS, P_SEQ, P_HEAD_D),
+        "v": normal(1, P_HEADS, P_SEQ, P_HEAD_D),
+    }
+
+
+def p_gates(logits):
+    z = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return (z / z.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+class CollectiveClock:
+    """Host seconds spent in the port's collectives (each call between two
+    card synchronizations), installed over :mod:`~flinkml_tpu_torch.
+    parallel.collectives`' group primitives, which ``tensor.py``,
+    ``ring.py`` and ``exchange.py`` call through the module."""
+
+    NAMES = ("group_all_reduce", "group_all_gather", "group_all_to_all",
+             "ppermute")
+
+    def __init__(self, torch):
+        from flinkml_tpu_torch.parallel import collectives
+
+        self.torch, self.mod, self.seconds = torch, collectives, 0.0
+        self.saved = {n: getattr(collectives, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(collectives, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def run(*args, **kwargs):
+            ps_sync(self.torch)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ps_sync(self.torch)
+            self.seconds += time.perf_counter() - t0
+            return out
+        return run
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def p_rank(torch, rank, out_dir):
+    """Path P on one rank: each primitive once to warm up, then once timed
+    with the collectives clocked; rank 0 keeps the outputs, every rank
+    their digests (the ranks must agree bit for bit)."""
+    import hashlib
+
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.parallel import ring as pring
+    from flinkml_tpu_torch.parallel import tensor as ptensor
+
+    inp = p_inputs()
+    model, expert = DeviceMesh({"model": PR_WORLD}), DeviceMesh(
+        {"expert": PR_WORLD})
+    pipe, seq = DeviceMesh({"pipe": PR_WORLD}), DeviceMesh()
+    cases = {
+        "tensor_parallel_mlp": lambda: ptensor.tensor_parallel_mlp(
+            inp["x"], inp["w1"], inp["b1"], inp["w2"], inp["b2"], model),
+        "expert_parallel_ffn": lambda: ptensor.expert_parallel_ffn(
+            inp["x"], p_gates(inp["logits"]), inp["ew1"], inp["ew2"],
+            expert),
+        "routed_expert_ffn": lambda: ptensor.routed_expert_ffn(
+            inp["x"], inp["logits"], inp["ew1"], inp["ew2"], expert,
+            capacity_factor=P_CAPACITY),
+        "pipeline_parallel_apply": lambda: ptensor.pipeline_parallel_apply(
+            inp["mb"], inp["stages"], "linear_tanh", pipe),
+    }
+    for causal in (False, True):
+        for kind, fn in (("ring", pring.ring_attention),
+                         ("ulysses", pring.ulysses_attention)):
+            cases[f"{kind}_attention_causal_{causal}"] = (
+                lambda fn=fn, causal=causal: fn(inp["q"], inp["k"], inp["v"],
+                                                seq, causal=causal))
+    out, timing = {}, {}
+    for name, fn in cases.items():
+        fn()  # warm-up
+        clock = CollectiveClock(torch)
+        try:
+            secs, got = ps_seconds(torch, fn)
+        finally:
+            clock.close()
+        host = got.float().cpu().numpy()
+        out[f"p_digest_{name}"] = np.frombuffer(
+            hashlib.sha256(host.tobytes()).digest(), np.uint8)
+        if rank == 0:
+            out[f"p_out_{name}"] = host
+        timing[name] = (secs * 1e3, clock.seconds * 1e3)
+        del got
+    out["p_timing"] = np.asarray([timing[n] for n in cases])
+    out["p_names"] = np.asarray(list(cases))
+    return out
+
+
+def p_references(torch, inp):
+    """The same computations unsharded on the card (no mesh, no
+    collective), each a function of nothing."""
+    import torch.nn.functional as F
+
+    from flinkml_tpu_torch.parallel import ring as pring
+    from flinkml_tpu_torch.parallel.tensor import route_top1
+
+    dev = PS_DEVICE
+
+    def t(name):
+        return torch.from_numpy(inp[name]).to(dev)
+
+    def gelu(a):
+        return F.gelu(a, approximate="tanh")
+
+    def mlp():
+        return gelu(t("x") @ t("w1") + t("b1")) @ t("w2") + t("b2")
+
+    def experts(gates):
+        x, w1, w2 = t("x"), t("ew1"), t("ew2")
+        return sum(gates[:, e:e + 1] * (gelu(x @ w1[e]) @ w2[e])
+                   for e in range(P_EXPERTS))
+
+    def dense():
+        return experts(torch.from_numpy(p_gates(inp["logits"])).to(dev))
+
+    def routed():
+        # Each rank's tokens routed on their own, with its capacity.
+        n_local = P_TOKENS // PR_WORLD
+        capacity = max(1, int(np.ceil(n_local * P_CAPACITY / PR_WORLD)))
+        gates = torch.zeros((P_TOKENS, P_EXPERTS), device=dev)
+        for r in range(PR_WORLD):
+            rows = slice(r * n_local, (r + 1) * n_local)
+            expert, gate, _, keep = route_top1(t("logits")[rows], capacity)
+            block = torch.zeros((n_local, P_EXPERTS), device=dev)
+            block[keep, expert[keep]] = gate[keep]
+            gates[rows] = block
+        return experts(gates)
+
+    def pipeline():
+        acts = t("mb")
+        for s in range(PR_WORLD):
+            acts = torch.tanh(acts @ t("stages")[s])
+        return acts
+
+    refs = {"tensor_parallel_mlp": mlp, "expert_parallel_ffn": dense,
+            "routed_expert_ffn": routed, "pipeline_parallel_apply": pipeline}
+    for causal in (False, True):
+        for kind in ("ring", "ulysses"):
+            refs[f"{kind}_attention_causal_{causal}"] = (
+                lambda causal=causal: pring._full_attention(
+                    t("q"), t("k"), t("v"), causal))
+    return refs
+
+
+def p_check(torch, outs):
+    """Path P in the parent: the ranks' digests equal, rank 0's outputs
+    within :data:`P_TOL` of the unsharded computation on the card."""
+    inp = p_inputs()
+    refs = p_references(torch, inp)
+    names = [str(n) for n in outs[0]["p_names"]]
+    rec = {"path": "tensor_P", "world": PR_WORLD, "backend": PR_BACKEND,
+           "tokens": P_TOKENS, "d_model": P_D, "d_ff": P_DFF,
+           "experts": P_EXPERTS, "capacity_factor": P_CAPACITY,
+           "microbatches": [P_MICRO, P_MB_ROWS],
+           "qkv": [1, P_HEADS, P_SEQ, P_HEAD_D], "tolerance": P_TOL,
+           "cases": {}}
+    for i, name in enumerate(names):
+        for r in range(1, PR_WORLD):
+            if not np.array_equal(outs[r][f"p_digest_{name}"],
+                                  outs[0][f"p_digest_{name}"]):
+                fail(f"path P: rank {r}'s {name} differs from rank 0's")
+        refs[name]()  # warm-up (the parent's first cuBLAS call)
+        ref_s, want = ps_seconds(torch, refs[name])
+        got = torch.from_numpy(outs[0][f"p_out_{name}"]).to(want.device)
+        err = max_err(got, want)
+        scale = float(want.abs().max().item())
+        if not (bool(torch.isfinite(got).all()) and err <= P_TOL * scale):
+            fail(f"path P: {name} differs from the unsharded computation "
+                 f"by {err} (largest magnitude {scale})")
+        ms, coll_ms = (float(v) for v in outs[0]["p_timing"][i])
+        rec["cases"][name] = {
+            "ms": ms, "collective_ms": coll_ms,
+            "collective_share": coll_ms / ms, "unsharded_ms": ref_s * 1e3,
+            "max_abs_err": err, "max_abs_ref": scale,
+            "ranks_bit_for_bit": True}
+        del want, got
+    ps_sync(torch)
+    return rec
+
+
+def r_table_rows():
+    """The rows an ``EmbeddingTable(scale=0.01, seed=0)`` of path R holds."""
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((R_VOCAB, R_DIM)) * 0.01).astype(np.float32)
+
+
+def r_batch():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, R_VOCAB, R_BATCH).astype(np.int32)
+    delta = (rng.normal(size=(R_BATCH, R_DIM)) * 1e-3).astype(np.float32)
+    return ids, delta
+
+
+def r_rates(torch, table, ids, delta, strategy):
+    """Lookup and update rows/s of ``R_REPS`` calls each (host clock,
+    synchronized), after one warm-up call of each; the lookups (of the
+    fresh table) come back too."""
+    table.lookup(ids)
+    lookup_s, got = ps_seconds(torch, lambda: [table.lookup(ids)
+                                               for _ in range(R_REPS)][-1])
+    table.scatter_add(ids, delta, strategy=strategy)
+    update_s, _ = ps_seconds(torch, lambda: [
+        table.scatter_add(ids, delta, strategy=strategy)
+        for _ in range(R_REPS)])
+    return (R_BATCH * R_REPS / lookup_s, R_BATCH * R_REPS / update_s,
+            got.cpu().numpy())
+
+
+def r2_rank(torch, rank, out_dir):
+    """Path R2 on one rank: the contract at :data:`R2_BUDGET` (FML503
+    refuses the replicated placement, ``infer_plan`` routes past fsdp to
+    the embedding plan), then each strategy's lookup and update rates, the
+    lookups through ``exchange.gather`` of both strategies, and the table
+    after ``1 + R_REPS`` updates; returns rank 0's results and this rank's
+    ``segment_sum`` launches."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.analysis.sharding_check import check_plan
+    from flinkml_tpu_torch.embeddings import EmbeddingTable, exchange
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.sharding import EMBEDDING, REPLICATED, infer_plan
+
+    mesh = DeviceMesh.for_plan(EMBEDDING)
+    param = {"bench/embedding": (R_VOCAB, R_DIM)}
+    refusal = check_plan(REPLICATED, mesh, param_shapes=param,
+                         hbm_budget_bytes=R2_BUDGET, optimizer_slots=1)
+    plan = infer_plan(mesh, param, R2_BUDGET, optimizer_slots=1)
+    ids, delta = r_batch()
+    out = {"r2_fml503": np.asarray(any(f.rule == "FML503" for f in refusal)),
+           "r2_plan": np.asarray(plan.name)}
+    fml.reset_launch_counts()
+    for strategy in ("ring", "all_to_all"):
+        table = EmbeddingTable("bench", R_VOCAB, R_DIM, mesh=mesh, plan=plan,
+                               hbm_budget_bytes=R2_BUDGET, optimizer_slots=1,
+                               scale=0.01)
+        lookup_rate, update_rate, looked = r_rates(torch, table, ids, delta,
+                                                   strategy)
+        (gathered,) = exchange.gather(
+            ((table.rows, torch.from_numpy(ids).to(table.device)),),
+            axes=table.axes, n_shards=table.n_shards,
+            shard_rows=table.shard_rows, strategy=strategy)
+        host = table.to_host()
+        out[f"r2_{strategy}_rates"] = np.asarray([lookup_rate, update_rate])
+        out[f"r2_{strategy}_bytes"] = np.asarray(
+            table.exchange_bytes_per_step(R_BATCH, strategy))
+        out[f"r2_{strategy}_shards"] = np.asarray([table.n_shards,
+                                                   table.shard_rows])
+        if rank == 0:
+            out[f"r2_{strategy}_lookup"] = looked
+            out[f"r2_{strategy}_gather"] = gathered.cpu().numpy()
+            out[f"r2_{strategy}_host"] = host
+        del table
+    out["r2_segment_sum"] = np.asarray(fml.launch_counts()["segment_sum"])
+    return out
+
+
+def pr_rank(out_dir: str) -> int:
+    """One rank of paths P and R2 (``chip_smoke.py --pr-rank OUT_DIR``,
+    started by :func:`pr_ranks`): joins a group of ``PR_WORLD`` ranks over
+    gloo with CUDA tensors on the current card, runs :func:`p_rank` and
+    :func:`r2_rank`, and writes ``OUT_DIR/rank<r>.npz``."""
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fml.set_default_device(PS_DEVICE)
+    rank, world = pdist.init_distributed(backend=PR_BACKEND, timeout_s=300)
+    try:
+        out = p_rank(torch, rank, out_dir)
+        out.update(r2_rank(torch, rank, out_dir))
+        from flinkml_tpu_torch.parallel.collectives import HOST_STAGED
+
+        out["host_staged"] = np.asarray([HOST_STAGED["ppermute"],
+                                         HOST_STAGED["all_to_all"]])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 rank_world=np.asarray([rank, world]), **out)
+    finally:
+        pdist.shutdown_distributed()
+    return 0
+
+
+def pr_ranks(torch):
+    """Paths P and R2 on ``PR_WORLD`` ranks spawned here on the one card;
+    returns ``(P's record, R2's record, R2's segment_sum launches)``."""
+    import tempfile
+
+    from flinkml_tpu_torch.parallel.launch import spawn_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks([sys.executable, os.path.abspath(__file__), "--pr-rank",
+                     tmp], PR_WORLD, tmp, PR_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(PR_WORLD)]
+    p_rec = p_check(torch, outs)
+    p_rec["wall_s"] = wall_s
+    p_rec["host_staged_rank0"] = dict(zip(
+        ("ppermute", "all_to_all"), outs[0]["host_staged"].tolist()))
+    r2_rec, launches = r2_check(outs)
+    return p_rec, r2_rec, launches
+
+
+def r2_check(outs):
+    """R2 in the parent: the contract held, the lookups bit for bit with
+    the dense gather of the fresh table and each strategy's
+    ``exchange.gather`` with that of the updated one, the tables within
+    1e-5 of ``np.add.at`` applied ``1 + R_REPS`` times."""
+    rows = r_table_rows()
+    ids, delta = r_batch()
+    want = rows.copy()
+    for _ in range(1 + R_REPS):
+        np.add.at(want, ids, delta)
+    o = outs[0]
+    if not bool(o["r2_fml503"]) or str(o["r2_plan"]) != "embedding":
+        fail(f"path R2: FML503 {bool(o['r2_fml503'])}, plan "
+             f"{str(o['r2_plan'])} at {R2_BUDGET} bytes")
+    rec = {"world": PR_WORLD, "budget_bytes": R2_BUDGET,
+           "plan": str(o["r2_plan"]), "fml503_refuses_replicated": True,
+           "strategies": {}}
+    for strategy in ("ring", "all_to_all"):
+        if o[f"r2_{strategy}_lookup"].tobytes() != rows[ids].tobytes():
+            fail(f"path R2: the {strategy} lookup differs from the dense "
+                 "gather")
+        if o[f"r2_{strategy}_gather"].tobytes() != \
+                o[f"r2_{strategy}_host"][ids].tobytes():
+            fail(f"path R2: exchange.gather ({strategy}) differs from the "
+                 "dense gather of the updated table")
+        err = float(np.abs(o[f"r2_{strategy}_host"] - want).max())
+        if not err <= 1e-5:
+            fail(f"path R2: the {strategy} table differs from np.add.at by "
+                 f"{err}")
+        rec["strategies"][strategy] = {
+            "lookup_rows_per_s": [float(x[f"r2_{strategy}_rates"][0])
+                                  for x in outs],
+            "update_rows_per_s": [float(x[f"r2_{strategy}_rates"][1])
+                                  for x in outs],
+            "exchange_bytes_per_step": int(o[f"r2_{strategy}_bytes"]),
+            "shards_rows": o[f"r2_{strategy}_shards"].tolist(),
+            "lookup_bit_for_bit": True, "max_abs_err_vs_add_at": err}
+    return rec, int(sum(int(x["r2_segment_sum"]) for x in outs))
+
+
+def r_hot_spot(torch, timer, n_shards=PR_WORLD):
+    """The all_to_all scatter's local ``segment_sum`` on rank 0 of R2 as
+    the JAX package has it (the gathered batch, the rows another shard
+    owns added as zeros into local row 0) beside the same sum with those
+    rows left out: device ms of each, and the row-0 share of the cells."""
+    from flinkml_tpu_torch.kernels.segsum import segment_sum
+
+    ids, delta = r_batch()
+    shard_rows = -(-R_VOCAB // n_shards)
+    mask = ids < shard_rows
+    dev = PS_DEVICE
+    vals = torch.from_numpy(np.where(mask[:, None], delta, 0)).to(dev)
+    seg = torch.from_numpy(np.where(mask, ids, 0).astype(np.int32)).to(dev)
+    own_vals = torch.from_numpy(delta[mask]).to(dev)
+    own_seg = torch.from_numpy(ids[mask].astype(np.int32)).to(dev)
+    got = segment_sum(vals, seg, shard_rows)
+    want = segment_sum(own_vals, own_seg, shard_rows)
+    err = max_err(got, want)
+    if not err <= 1e-5:
+        fail(f"path R: the masked scatter differs from the owned rows' by "
+             f"{err}")
+    return {"cells": int(ids.size), "masked_to_row0": int((~mask).sum()),
+            "segments": shard_rows, "k": R_DIM,
+            "ms_with_row0": timer(lambda: segment_sum(vals, seg, shard_rows)),
+            "ms_owned_only": timer(lambda: segment_sum(own_vals, own_seg,
+                                                       shard_rows)),
+            "max_abs_err": err}
+
+
+def r_world1(torch):
+    """R1: world 1 over nccl: FML503 refuses the replicated placement at
+    the bench's 24 MB and ``infer_plan`` finds no plan (every one holds
+    the whole 128 MB on one rank); the table placed replicated (no
+    budget): lookups bit for bit with the dense gather, the update
+    (``index_add_``, the JAX package's ``.at[].add``) within 1e-5 of
+    ``np.add.at``, the rates."""
+    import tempfile
+
+    from flinkml_tpu_torch.analysis.sharding_check import check_plan
+    from flinkml_tpu_torch.embeddings import EmbeddingTable
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.parallel import distributed as pdist
+    from flinkml_tpu_torch.sharding import (
+        EMBEDDING,
+        REPLICATED,
+        NoFeasiblePlanError,
+        infer_plan,
+    )
+
+    ids, delta = r_batch()
+    rows = r_table_rows()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdist.init_distributed("file://" + os.path.join(tmp, "store"), 1, 0,
+                               backend=J1_BACKEND, timeout_s=300)
+        try:
+            mesh = DeviceMesh.for_plan(EMBEDDING)
+            param = {"bench/embedding": (R_VOCAB, R_DIM)}
+            refusal = check_plan(REPLICATED, mesh, param_shapes=param,
+                                 hbm_budget_bytes=R_BUDGET, optimizer_slots=1)
+            if not any(f.rule == "FML503" for f in refusal):
+                fail("path R1: FML503 did not refuse the replicated table")
+            try:
+                infer_plan(mesh, param, R_BUDGET, optimizer_slots=1)
+                fail("path R1: infer_plan found a plan for 128 MB on one "
+                     "rank under 24 MB")
+            except NoFeasiblePlanError:
+                pass
+            table = EmbeddingTable("bench", R_VOCAB, R_DIM, mesh=mesh,
+                                   plan=REPLICATED, optimizer_slots=1,
+                                   scale=0.01)
+            lookup_rate, update_rate, looked = r_rates(torch, table, ids,
+                                                       delta, None)
+            host = table.to_host()
+        finally:
+            pdist.shutdown_distributed()
+    if looked.tobytes() != rows[ids].tobytes():
+        fail("path R1: the lookup differs from the dense gather")
+    want = rows.copy()
+    for _ in range(1 + R_REPS):
+        np.add.at(want, ids, delta)
+    err = float(np.abs(host - want).max())
+    if not err <= 1e-5:
+        fail(f"path R1: the update differs from np.add.at by {err}")
+    return {"world": 1, "backend": J1_BACKEND, "budget_bytes": R_BUDGET,
+            "fml503_refuses_replicated": True, "infer_plan": "no feasible plan",
+            "plan_used": "replicated", "lookup_rows_per_s": lookup_rate,
+            "update_rows_per_s": update_rate, "max_abs_err_vs_add_at": err,
+            "lookup_bit_for_bit": True,
+            "exchange_bytes_per_step": table.exchange_bytes_per_step(
+                R_BATCH)}
+
+
+def q_data():
+    """bench.py's ``_inner_als`` ratings (seed 0)."""
+    rng = np.random.default_rng(0)
+    users = rng.integers(0, Q_USERS, size=Q_NNZ).astype(np.int32)
+    items = rng.integers(0, Q_ITEMS, size=Q_NNZ).astype(np.int32)
+    ratings = rng.uniform(1, 5, size=Q_NNZ).astype(np.float32)
+    return users, items, ratings
+
+
+def q_estimator(layout="segment", iters=Q_ITERS, implicit=False, **kw):
+    import flinkml_tpu_torch as fml
+
+    return fml.ALS(layout=layout, **kw).set_rank(Q_RANK).set_max_iter(
+        iters).set_seed(0).set_implicit_prefs(implicit)
+
+
+def numpy_half_step(users, items, ratings, check, reg=0.1):
+    """The first half-step's factors of users ``check`` in float64 numpy:
+    each user's normal equations from the seeded item init (ALS-WR)."""
+    rng = np.random.default_rng(0)
+    y = rng.normal(scale=1.0 / np.sqrt(Q_RANK),
+                   size=(Q_ITEMS, Q_RANK)).astype(np.float32)
+    y = y.astype(np.float64)
+    out = np.zeros((len(check), Q_RANK))
+    order = np.argsort(users, kind="stable")
+    starts = np.searchsorted(users[order], check)
+    ends = np.searchsorted(users[order], check, side="right")
+    for j, (lo, hi) in enumerate(zip(starts, ends)):
+        sel = order[lo:hi]
+        ys = y[items[sel]]
+        lam = max(reg * max(hi - lo, 1), 1e-4)
+        a = ys.T @ ys + lam * np.eye(Q_RANK)
+        out[j] = np.linalg.solve(a, ys.T @ ratings[sel].astype(np.float64))
+    return out
+
+
+def q_close(name, got, want, rtol=None, atol=None):
+    rtol = Q_RTOL if rtol is None else rtol
+    atol = Q_ATOL if atol is None else atol
+    err = float(np.abs(got - want).max())
+    if not (np.isfinite(got).all() and np.allclose(got, want, rtol=rtol,
+                                                    atol=atol)):
+        fail(f"path Q: {name} differs by {err} (rtol {rtol}, atol {atol})")
+    return err
+
+
+#: Relative agreement of two fits' training RMSE past the first iteration.
+Q_RMSE_RTOL = 1e-4
+
+
+def q_rmse(model, table) -> float:
+    """The model's root mean square error on its training ratings."""
+    import flinkml_tpu_torch as fml
+
+    (out,) = model.transform(fml.Table({"user": table.column("user"),
+                                        "item": table.column("item")}))
+    err = out.column("prediction") - table.column("rating")
+    return float(np.sqrt(np.mean(err * err)))
+
+
+def q_rmse_close(name, got, want):
+    if not abs(got - want) <= Q_RMSE_RTOL * want:
+        fail(f"path Q: {name}: training RMSE {got} against {want}")
+
+
+def q_segsum_case(torch, timer, users, items, model_items):
+    """The user half-step's first chunk as the kernel sees it: the
+    ``[65,536, k²]`` outer products into ``users + 1`` segments, against
+    its plain version, with its bound and ``index_add_``'s time."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+
+    dev = PS_DEVICE
+    n = min(1 << 16, Q_NNZ)
+    y = torch.from_numpy(model_items[items[:n]]).to(dev)
+    vals = (y[:, :, None] * y[:, None, :]).reshape(n, Q_RANK * Q_RANK)
+    seg = torch.from_numpy(users[:n]).to(dev)
+    got = ksegsum.segment_sum(vals, seg, Q_USERS + 1)
+    want = ksegsum.segment_sum_plain(vals, seg, Q_USERS + 1)
+    check_close("path Q segment_sum [65536, 1024]", got, want, 1e-5, 1e-5)
+    n_bytes = seg.numel() * 4 + vals.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, vals.numel(), "float32")
+    long_seg = seg.long()
+    return {"shape": [n, Q_RANK * Q_RANK, Q_USERS + 1],
+            "max_abs_err": max_err(got, want),
+            "ms": timer(lambda: ksegsum.segment_sum(vals, seg, Q_USERS + 1)),
+            "plain_ms": timer(lambda: ksegsum.segment_sum_plain(
+                vals, seg, Q_USERS + 1)),
+            "library_ms": timer(lambda: torch.zeros(
+                tuple(got.shape), device=dev).index_add_(0, long_seg, vals)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def q_topk_case(torch, timer, model):
+    """``recommend_for_all_users(10)``'s selection: the ``topk`` kernel on
+    the ``[users, items]`` scores against ``torch.topk``'s values, with
+    its bound."""
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    dev = PS_DEVICE
+    u = torch.from_numpy(model.user_factors.astype(np.float32)).to(dev)
+    v = torch.from_numpy(model.item_factors.astype(np.float32)).to(dev)
+    scores = u @ v.T
+    vals, idx = ktopk.top_k(scores, 10)
+    lib_vals, _ = torch.topk(scores, 10)
+    if not torch.equal(vals, lib_vals):
+        fail(f"path Q: topk's values differ from torch.topk's by "
+             f"{max_err(vals, lib_vals)}")
+    plain_vals, plain_idx = ktopk.top_k_plain(scores, 10)
+    if not (torch.equal(vals, plain_vals) and torch.equal(idx, plain_idx)):
+        fail("path Q: topk differs from its plain version")
+    n_bytes = scores.numel() * 4 + vals.numel() * 8
+    b_ms, b_by = bound_ms(n_bytes, scores.numel(), "float32")
+    return {"shape": list(scores.shape), "k": 10, "max_abs_err": 0.0,
+            "ms": timer(lambda: ktopk.top_k(scores, 10)),
+            "plain_ms": timer(lambda: ktopk.top_k_plain(scores, 10),
+                              warmup=1, iters=3),
+            "library_ms": timer(lambda: torch.topk(scores, 10)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def q_stream(torch, users, items, ratings, tmp):
+    """The streamed fit from a ``DataCache`` of ``Q_STREAM_BATCHES``
+    batches: uninterrupted, and crashed after its epoch-1 snapshot then
+    resumed; the two fits' training RMSE within :data:`Q_RMSE_RTOL` (the
+    segment layout's atomics add in a run-dependent order, and the
+    second iteration spreads that into the factors)."""
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+
+    per = Q_NNZ // Q_STREAM_BATCHES
+    cache = cache_stream(iter([
+        {"user": users[i * per:(i + 1) * per],
+         "item": items[i * per:(i + 1) * per],
+         "rating": ratings[i * per:(i + 1) * per]}
+        for i in range(Q_STREAM_BATCHES)]))
+
+    class Crash(CheckpointManager):
+        fired = False
+
+        def save(self, state, epoch, extra=None, **kw):
+            path = super().save(state, epoch, extra, **kw)
+            if not Crash.fired and epoch >= 1:
+                Crash.fired = True
+                raise RuntimeError("injected crash")
+            return path
+
+    secs, golden = ps_seconds(torch, lambda: q_estimator(
+        iters=Q_STREAM_ITERS).fit(cache))
+    mgr = Crash(os.path.join(tmp, "ckpt"))
+    try:
+        q_estimator(iters=Q_STREAM_ITERS, checkpoint_manager=mgr,
+                    checkpoint_interval=1).fit(cache)
+        fail("path Q: the streamed fit did not crash")
+    except RuntimeError:
+        pass
+    resumed = q_estimator(iters=Q_STREAM_ITERS, checkpoint_manager=mgr,
+                          checkpoint_interval=1, resume=True).fit(cache)
+    import flinkml_tpu_torch as fml
+
+    table = fml.Table({"user": users, "item": items, "rating": ratings})
+    rmse = (q_rmse(resumed, table), q_rmse(golden, table))
+    q_rmse_close("the resumed streamed fit", *rmse)
+    return {"batches": Q_STREAM_BATCHES, "iters": Q_STREAM_ITERS,
+            "seconds": secs,
+            "rating_visits_per_s": Q_NNZ * 2 * Q_STREAM_ITERS / secs,
+            "train_rmse_resumed_uninterrupted": list(rmse),
+            "resume_max_abs_diff": float(np.abs(
+                resumed.user_factors - golden.user_factors).max()),
+            "resumed_from": 1}
+
+
+def q_serve(torch, model):
+    """``factor_tables()``, then the item factors as an
+    ``EmbeddingLookupModel`` behind a ``ServingEngine`` on a one-device
+    mesh: 4,096 rows of 4 ids within the ``mixed_inference`` tolerance
+    (bfloat16 rows summed at bfloat16: 2^-6 of the largest factor) of
+    the float32 mean."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.embeddings.serving import EmbeddingLookupModel
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.serving.engine import ServingConfig, ServingEngine
+
+    user_t, item_t = model.factor_tables()
+    if user_t.rows.device.type != PS_DEVICE:
+        fail(f"path Q: factor_tables placed on {user_t.rows.device}")
+    rows = item_t.to_host()
+    ids = np.random.default_rng(1).integers(
+        0, Q_ITEMS, size=(Q_SERVE_ROWS, Q_SERVE_IDS)).astype(np.int32)
+    engine = ServingEngine(
+        EmbeddingLookupModel(rows), fml.Table({"ids": ids[:2]}),
+        config=ServingConfig(mesh=DeviceMesh(), max_batch_rows=Q_SERVE_ROWS))
+    engine.start()
+    try:
+        secs, resp = ps_seconds(torch, lambda: engine.predict({"ids": ids}))
+        bound = engine._active.model
+    finally:
+        engine.stop()
+    if bound._table is None or bound._table.rows.device.type != PS_DEVICE:
+        fail("path Q: the engine did not bind the lookup model to its mesh")
+    got = np.asarray(resp.columns["vector"], np.float64)
+    want = rows[ids].astype(np.float64).mean(axis=1)
+    err = float(np.abs(got - want).max())
+    tol = 2.0 ** -6 * float(np.abs(rows).max())
+    if not err <= tol:
+        fail(f"path Q: served vectors differ from the float32 mean by {err}")
+    return {"rows": Q_SERVE_ROWS, "ids_per_row": Q_SERVE_IDS,
+            "predict_s": secs, "max_abs_err_vs_float32": err,
+            "tolerance": tol}
+
+
+def als_path(torch, timer):
+    """Path Q (``bench.py``'s ``_inner_als`` shape): module docstring.
+    Returns ``(record, segment_sum launches, topk launches, kernel
+    records)``."""
+    import tempfile
+
+    import flinkml_tpu_torch as fml
+
+    users, items, ratings = q_data()
+    table = fml.Table({"user": users, "item": items, "rating": ratings})
+    rec = {"path": "als_Q", "users": Q_USERS, "items": Q_ITEMS,
+           "nnz": Q_NNZ, "rank": Q_RANK, "iters": Q_ITERS}
+    fml.reset_launch_counts()
+    one_s, one = ps_seconds(torch, lambda: q_estimator(iters=1).fit(table))
+    check = np.arange(Q_CHECK_USERS)
+    want = numpy_half_step(users, items, ratings, check)
+    err = q_close("the first half-step vs float64 numpy",
+                  one.user_factors[check], want, rtol=1e-4, atol=1e-5)
+    rec["half_step_max_abs_err_vs_float64"] = err
+    rec["first_fit_s"] = one_s
+    one_cumsum = q_estimator("cumsum", iters=1).fit(table)
+    rec["layouts_max_abs_diff_1_iter"] = q_close(
+        "the cumsum fit vs the segment fit (1 iteration)",
+        one_cumsum.user_factors, one.user_factors)
+    fits = {}
+    for layout in ("segment", "cumsum"):
+        secs, fits[layout] = ps_seconds(
+            torch, lambda layout=layout: q_estimator(layout).fit(table))
+        rec[f"{layout}_fit_s"] = secs
+        rec[f"{layout}_rating_visits_per_s"] = Q_NNZ * 2 * Q_ITERS / secs
+        rec[f"{layout}_train_rmse"] = q_rmse(fits[layout], table)
+    # Past the first iteration two summation orders drift apart in the
+    # factors (the factorization of these random ratings is far from
+    # unique); the fits are held by their training error instead.
+    rec["layouts_max_abs_diff"] = float(np.abs(
+        fits["cumsum"].user_factors - fits["segment"].user_factors).max())
+    q_rmse_close("the cumsum fit vs the segment fit",
+                 rec["cumsum_train_rmse"], rec["segment_train_rmse"])
+    again = q_estimator("cumsum").fit(table)
+    if not np.array_equal(again.user_factors, fits["cumsum"].user_factors):
+        fail("path Q: two cumsum fits on the card differ")
+    rec["cumsum_bit_for_bit"] = True
+    secs, implicit = ps_seconds(torch, lambda: q_estimator(
+        iters=1, implicit=True).fit(table))
+    if not np.isfinite(implicit.user_factors).all():
+        fail("path Q: the implicit fit is not finite")
+    rec["implicit_fit_s"] = secs
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["stream"] = q_stream(torch, users, items, ratings, tmp)
+    model = fits["segment"]
+    secs, (rec_ids, rec_scores) = ps_seconds(
+        torch, lambda: model.recommend_for_all_users(10))
+    if rec_ids.shape != (Q_USERS, 10) or not np.all(
+            np.diff(rec_scores, axis=1) <= 0):
+        fail("path Q: recommend_for_all_users is not [users, 10] descending")
+    rec["recommend_s"] = secs
+    rec["serve"] = q_serve(torch, model)
+    counts = fml.launch_counts()
+    seg_n, topk_n = counts["segment_sum"], counts["topk"]
+    if not seg_n or not topk_n:
+        fail(f"path Q: segment_sum {seg_n} / topk {topk_n} launches")
+    # The CPU port's fit of one iteration (plain segment_sum: index_add_
+    # in cell order) beside the card's, on the first Q_CPU_NNZ ratings.
+    head = fml.Table({"user": users[:Q_CPU_NNZ], "item": items[:Q_CPU_NNZ],
+                      "rating": ratings[:Q_CPU_NNZ]})
+    card = q_estimator(iters=1).fit(head)
+    t0 = time.perf_counter()
+    with fml.use_device("cpu"):
+        cpu = q_estimator(iters=1).fit(head)
+    rec["cpu_fit_s"] = time.perf_counter() - t0
+    rec["cpu_check_nnz"] = Q_CPU_NNZ
+    rec["card_vs_cpu_max_abs_diff"] = {
+        "user": q_close("the card fit vs the CPU fit (users)",
+                        card.user_factors, cpu.user_factors),
+        "item": q_close("the card fit vs the CPU fit (items)",
+                        card.item_factors, cpu.item_factors)}
+    kernels = {"segment_sum": q_segsum_case(torch, timer, users, items,
+                                            one.item_factors.astype(
+                                                np.float32)),
+               "topk": q_topk_case(torch, timer, model)}
+    rec["launches"] = {"segment_sum": seg_n, "topk": topk_n}
+    rec["card"] = card_line()
+    log("path " + json.dumps(rec))
+    for name, k in kernels.items():
+        log(f"kernel {name} als_Q " + json.dumps(k))
+    return seg_n, topk_n, kernels
+
+
+def s_batch(rng):
+    from flinkml_tpu_torch.features import hash_buckets
+
+    keys = rng.integers(0, 1 << 22, size=(S_ROWS, S_LEN))
+    ids = hash_buckets(keys.reshape(-1), seed=7,
+                       num_buckets=S_BUCKETS).reshape(S_ROWS, S_LEN)
+    return ids, (keys.sum(axis=1) % 2).astype(np.float32)
+
+
+def features_path(torch):
+    """Path S (``bench.py``'s ``_feature_freshness_stage`` shape): module
+    docstring. Returns the record."""
+    import tempfile
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.features import (
+        DeltaPublisher,
+        StreamingHashedFMTrainer,
+    )
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.serving.engine import ServingConfig
+    from flinkml_tpu_torch.serving.pool import ReplicaPool
+    from flinkml_tpu_torch.serving.registry import ModelRegistry
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(0)
+    trainer = StreamingHashedFMTrainer(num_buckets=S_BUCKETS,
+                                       factor_size=S_FACTOR, hash_seed=7,
+                                       learning_rate=0.05)
+    if trainer._v_table.rows.device.type != PS_DEVICE:
+        fail("path S: the trainer's tables are not on the card")
+    example = fml.Table({"hashed_ids": np.zeros((2, S_LEN), np.int32)})
+    with tempfile.TemporaryDirectory() as root:
+        registry = ModelRegistry(os.path.join(root, "reg"))
+        publisher = DeltaPublisher(registry, trainer, every_n_batches=1,
+                                   max_depth=S_PUBLISHES + 1,
+                                   name="smoke_freshness")
+        trainer.fit_batch(*s_batch(rng))
+        publisher.publish_now()
+        pool = ReplicaPool(
+            registry, example,
+            config=ServingConfig(max_batch_rows=256, max_wait_ms=1.0),
+            meshes=[DeviceMesh(), DeviceMesh()], name="smoke_freshness",
+        ).start().follow_registry()
+        try:
+            t_train, fresh_ms, checked = 0.0, [], 0
+            probe = s_batch(np.random.default_rng(1))[0][:64]
+            for _ in range(S_PUBLISHES):
+                ids, labels = s_batch(rng)
+                secs, _ = ps_seconds(torch, lambda: trainer.fit_batch(
+                    ids, labels))
+                t_train += secs
+                t0 = time.perf_counter()
+                version = publisher.publish_now()
+                fresh_ms.append((time.perf_counter() - t0) * 1e3)
+                resp = pool.predict({"hashed_ids": probe})
+                (want,) = registry.get(resp.version)[1].transform(
+                    fml.Table({"hashed_ids": probe}))
+                for col in ("prediction", "rawPrediction"):
+                    if resp.column(col).tobytes() != np.asarray(
+                            want.column(col)).tobytes():
+                        fail(f"path S: version {resp.version}'s {col} "
+                             "differs from its full snapshot")
+                checked += resp.version == version
+            lag = pool.freshness_lag(trainer.watermark)
+            swaps = [r.engine._metrics.snapshot()["counters"].get(
+                "delta_swaps", 0) for r in pool.replicas]
+            bound = [r.engine._active.model._v_table for r in pool.replicas]
+        finally:
+            pool.stop()
+        counters = registry._metrics.snapshot()["counters"]
+    if lag != 0 or min(swaps) != S_PUBLISHES:
+        fail(f"path S: lag {lag}, delta swaps {swaps}")
+    if any(t is None or t.rows.device.type != PS_DEVICE for t in bound):
+        fail("path S: a replica does not serve from tables on the card")
+    gauges = metrics.group("features.publisher", labels={
+        "publisher": "smoke_freshness"}).snapshot()["gauges"]
+    rec = {"path": "features_S", "buckets": S_BUCKETS, "rows": S_ROWS,
+           "ids_per_row": S_LEN, "factor": S_FACTOR,
+           "publishes": S_PUBLISHES,
+           "train_rows_per_s": S_ROWS * S_PUBLISHES / t_train,
+           "delta_publishes": int(counters.get("delta_publishes", 0)),
+           "delta_bytes": int(gauges["delta_bytes"]),
+           "full_snapshot_bytes": int(gauges["full_bytes"]),
+           "delta_ratio": float(gauges["delta_ratio"]),
+           "time_to_freshness_ms_p50": float(np.percentile(fresh_ms, 50)),
+           "time_to_freshness_ms_p99": float(np.percentile(fresh_ms, 99)),
+           "delta_swaps": swaps, "responses_of_newest_version": int(checked),
+           "bit_for_bit_with_full_snapshots": True, "card": card_line()}
+    log("path " + json.dumps(rec))
+    return rec
+
+
+def slice_pqrs_path(torch, timer):
+    """Paths P, Q, R and S (module docstring), each with the launch
+    counters set to 0 before it and read after. Returns ``(segment_sum
+    launches by path, topk launches of Q, Q's kernel records)``."""
+    import flinkml_tpu_torch as fml
+
+    t0 = time.perf_counter()
+    fml.reset_launch_counts()
+    p_rec, r2_rec, r2_segsum = pr_ranks(torch)
+    parent = fml.launch_counts()
+    if any(parent.values()):
+        fail(f"path P: the parent launched kernels {parent}")
+    p_rec["card"] = card_line()
+    log("path " + json.dumps(p_rec))
+    q_segsum, q_topk, q_kernels = als_path(torch, timer)
+    fml.reset_launch_counts()
+    r1 = r_world1(torch)
+    r_segsum = r2_segsum + fml.launch_counts()["segment_sum"]
+    if not r2_segsum:
+        fail("path R: the all_to_all scatter never launched segment_sum")
+    r_rec = {"path": "embeddings_R", "vocab": R_VOCAB, "dim": R_DIM,
+             "batch": R_BATCH, "reps": R_REPS, "R1": r1, "R2": r2_rec,
+             "segment_sum_launches": r_segsum,
+             "a2a_hot_spot": r_hot_spot(torch, timer), "card": card_line()}
+    log("path " + json.dumps(r_rec))
+    fml.reset_launch_counts()
+    features_path(torch)
+    log(f"paths P-S: {time.perf_counter() - t0:.1f} s")
+    return ({"als_Q": q_segsum, "embeddings_R": r_segsum}, q_topk,
+            q_kernels)
+
+
 def device_share(torch, fn):
     """Share of ``fn``'s wall time during which the card ran kernels or
     copies: the device events' self time from ``torch.profiler`` (None when
@@ -6927,6 +7903,10 @@ def main() -> int:
     chain_paths["cluster_O"], chain_paths["cluster_O_parent"] = \
         cluster_path(torch)
     mark("path O")
+    pqrs_segsum, q_topk, q_kernels = slice_pqrs_path(torch, timer)
+    segsum_rec["als_Q"] = q_kernels["segment_sum"]
+    topk_rec["als_Q"] = q_kernels["topk"]
+    mark("paths P-S")
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -6938,8 +7918,13 @@ def main() -> int:
             "slice_I": slice_i_counts[name], "mesh_J": mesh_counts[name],
             "plan_K": plan_counts.get(name, 0),
             "stream_mp_L": l_counts[name], "faults_M": faults_counts[name]}
+        if name == "segment_sum":
+            rec["launches_by_path"].update(pqrs_segsum)
         rec["launches"] = sum(rec["launches_by_path"].values())
-    topk_rec["launches"] = knn_path(torch, timer) + lsh_path(torch, timer)
+    topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
+                                    "lsh": lsh_path(torch, timer),
+                                    "als_Q": q_topk}
+    topk_rec["launches"] = sum(topk_rec["launches_by_path"].values())
     mark("KNN and LSH")
     del timer
     kmeans_path(torch)
@@ -6952,7 +7937,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in keys},
              **{k: r[k] for k in ("bf16", "tiers", "launches_by_path",
-                                  "naive_bayes") if k in r})
+                                  "naive_bayes", "als_Q") if k in r})
         for r in (spmv_rec, chain_rec, segsum_rec, topk_rec)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -7470,4 +8455,6 @@ if __name__ == "__main__":
         sys.exit(o_scaleout_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--j2-rank":
         sys.exit(j2_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pr-rank":
+        sys.exit(pr_rank(sys.argv[2]))
     sys.exit(main())

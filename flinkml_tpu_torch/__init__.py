@@ -43,7 +43,13 @@ cleanly on SIGTERM or a lost rank. :mod:`flinkml_tpu_torch.serving` serves
 fitted pipelines online: a micro-batching ``ServingEngine`` over the fused
 executor (one CUDA stream an engine), a versioned ``ModelRegistry`` with hot
 swaps, a ``ReplicaPool`` with gray-failure defense, an autoscaler and a
-multi-model pool.
+multi-model pool. :mod:`flinkml_tpu_torch.parallel` also carries tensor,
+pipeline and expert parallelism and ring attention;
+:mod:`flinkml_tpu_torch.embeddings` shards embedding tables over a mesh,
+:mod:`flinkml_tpu_torch.features` hashes raw keys into them and publishes
+a streaming FM trainer's rows as registry deltas, and ``ALS`` factors a
+ratings matrix with the ``segment_sum`` kernel and recommends with
+``topk``.
 """
 
 from flinkml_tpu_torch.api import (  # noqa: F401
@@ -76,6 +82,8 @@ from flinkml_tpu_torch.linalg import (  # noqa: F401
     Vectors,
 )
 from flinkml_tpu_torch.models import (  # noqa: F401
+    ALS,
+    ALSModel,
     BisectingKMeans,
     BisectingKMeansModel,
     KMeans,
@@ -136,6 +144,8 @@ from flinkml_tpu_torch.table import Table  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
+    "ALS",
+    "ALSModel",
     "AlgoOperator",
     "BisectingKMeans",
     "BisectingKMeansModel",

@@ -27,8 +27,6 @@ resumed consumer sees the exact uninterrupted sequence.
 
 Every source batch read passes the ``data.read`` fault seam
 (:mod:`flinkml_tpu_torch.faults`) before any transform touches it.
-``hash_column`` comes with ``features/hashing.py``, ROADMAP.md Queue 1
-item 9.
 """
 
 from __future__ import annotations
@@ -138,10 +136,19 @@ class Dataset:
     def hash_column(self, input_col: str, *, seed: int, num_buckets: int,
                     output_col: str = "hashed_ids",
                     **kwargs) -> "Dataset":
-        """The seeded feature hash of ``input_col`` (refused, with
-        :class:`~flinkml_tpu_torch.data.ops.HashOp`: ROADMAP.md Queue 1
-        item 9)."""
-        return self._with_op(HashOp(None))
+        """Hash the raw string/int keys of ``input_col`` into
+        ``output_col`` embedding-row ids (seeded, process-stable — see
+        :mod:`flinkml_tpu_torch.features.hashing`): the vocabulary-free
+        front end that lets an unbounded stream feed ``EmbeddingTable``
+        training directly. Extra kwargs reach
+        :class:`~flinkml_tpu_torch.features.hashing.HashedFeature`
+        (``pad_key``, ``track_collisions``, ...)."""
+        from flinkml_tpu_torch.features.hashing import HashedFeature
+
+        return self._with_op(HashOp(HashedFeature(
+            seed, num_buckets, input_col=input_col, output_col=output_col,
+            **kwargs,
+        )))
 
     def prefetch(self, depth: int = 2, place=None,
                  metrics_group: str = "data.prefetch") -> "Dataset":

@@ -21,9 +21,8 @@ chain. Two properties carry the subsystem's contracts:
 Ops are instantiated once per Dataset but applied per ITERATION: all
 mutable state (rebatch remainders, window buffers, shuffle buffer +
 RNG) lives inside the generator ``apply`` returns, so two concurrent
-iterations of one Dataset never share state. ``HashOp`` (the seeded
-feature hash) is refused: it needs ``features/hashing.py``, which comes
-with ROADMAP.md Queue 1 item 9.
+iterations of one Dataset never share state. ``HashOp`` wraps the
+seeded feature hash of :mod:`flinkml_tpu_torch.features.hashing`.
 """
 
 from __future__ import annotations
@@ -201,13 +200,25 @@ class ShuffleOp(Op):
 
 
 class HashOp(Op):
-    """The seeded feature hash per batch (refused): the JAX package's
-    ``HashOp`` wraps a ``features.hashing.HashedFeature``, which comes
-    with ROADMAP.md Queue 1 item 9 (embeddings and the recsys family)."""
+    """Seeded feature hash per batch (1:1, so skip-transparent): the
+    wrapped :class:`~flinkml_tpu_torch.features.hashing.HashedFeature`
+    turns the raw-key ``input_col`` into an ``output_col`` of
+    embedding-row bucket ids. The hash is process-stable (murmur3 over
+    canonical key bytes, never Python ``hash()``), so a cursor-resumed
+    replay re-hashes every batch to bit-identical ids."""
 
-    def __init__(self, hashed_feature=None):
-        raise NotImplementedError(
-            "HashOp (a seeded feature hash in the input pipeline) is not "
-            "ported to flinkml_tpu_torch yet: it needs features/hashing.py, "
-            "which comes with ROADMAP.md Queue 1 item 9"
+    skip_transparent = True
+
+    def __init__(self, hashed_feature):
+        self.hashed = hashed_feature
+
+    def apply(self, it, ctx):
+        hashed = self.hashed
+        for batch in it:
+            yield hashed(batch)
+
+    def describe(self):
+        return (
+            f"hash({self.hashed.input_col}->{self.hashed.output_col}, "
+            f"buckets={self.hashed.num_buckets}, seed={self.hashed.seed})"
         )

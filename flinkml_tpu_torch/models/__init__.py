@@ -2,8 +2,9 @@
 OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
 LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
 RAM and streamed), OnlineKMeans, OnlineStandardScaler, BisectingKMeans
-and NaiveBayes (estimators and models)."""
+NaiveBayes and ALS (estimators and models)."""
 
+from flinkml_tpu_torch.models.als import ALS, ALSModel  # noqa: F401
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
     BisectingKMeans,
     BisectingKMeansModel,
@@ -56,6 +57,8 @@ from flinkml_tpu_torch.models.scalers import (  # noqa: F401
 from flinkml_tpu_torch.models.vector_assembler import VectorAssembler  # noqa: F401
 
 __all__ = [
+    "ALS",
+    "ALSModel",
     "BisectingKMeans",
     "BisectingKMeansModel",
     "KMeans",

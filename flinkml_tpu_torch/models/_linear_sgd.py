@@ -898,8 +898,9 @@ def train_linear_model_from_table(
         if sharding_plan is not None:
             raise ValueError(
                 "sharding_plan supports the dense path only; the sparse "
-                "trainer keeps its replicated [dim] model (shard it via "
-                "ROADMAP item 5's embedding-table path instead)"
+                "trainer keeps its replicated [dim] model (shard a large "
+                "sparse model's rows with flinkml_tpu_torch.embeddings."
+                "EmbeddingTable instead)"
             )
         if precision is not None:
             raise ValueError(

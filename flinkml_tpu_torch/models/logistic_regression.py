@@ -333,8 +333,8 @@ class LogisticRegression(StreamingEstimatorMixin, _LogisticRegressionParams,
                 raise ValueError(
                     "sharding_plan supports the dense binomial path "
                     "only; the sparse trainer keeps its replicated "
-                    "[dim] model (shard it via ROADMAP item 5's "
-                    "embedding-table path instead)"
+                    "[dim] model (shard a large sparse model's rows with "
+                    "flinkml_tpu_torch.embeddings.EmbeddingTable instead)"
                 )
             if self.precision is not None:
                 raise ValueError(

@@ -7,10 +7,10 @@ names; :mod:`~flinkml_tpu_torch.parallel.collectives` runs each primitive
 on this rank's block and combines the blocks with one collective;
 :func:`init_distributed` forms the process group (``nccl`` for ``cuda``,
 ``gloo`` for ``cpu``); :mod:`~flinkml_tpu_torch.parallel.dispatch` bounds
-in-flight collective steps and serializes threads over one mesh.
-
-Tensor parallelism, pipeline stages and ring attention (``tensor.py``,
-``ring.py``) come with ROADMAP.md Queue 1 item 7d.
+in-flight collective steps and serializes threads over one mesh;
+:mod:`~flinkml_tpu_torch.parallel.tensor` (tensor, pipeline and expert
+parallelism) and :mod:`~flinkml_tpu_torch.parallel.ring` (ring and Ulysses
+attention) run the JAX package's ``shard_map`` bodies on each rank's block.
 """
 
 from flinkml_tpu_torch.parallel.mesh import DeviceMesh, pad_to_multiple
@@ -41,6 +41,14 @@ from flinkml_tpu_torch.parallel.distributed import (
     rescale_world,
     shutdown_distributed,
 )
+from flinkml_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+from flinkml_tpu_torch.parallel.tensor import (
+    expert_parallel_ffn,
+    pipeline_parallel_apply,
+    register_pipeline_stage,
+    routed_expert_ffn,
+    tensor_parallel_mlp,
+)
 
 __all__ = [
     "DeviceMesh",
@@ -64,4 +72,11 @@ __all__ = [
     "process_slice",
     "rescale_world",
     "shutdown_distributed",
+    "ring_attention",
+    "ulysses_attention",
+    "expert_parallel_ffn",
+    "pipeline_parallel_apply",
+    "register_pipeline_stage",
+    "routed_expert_ffn",
+    "tensor_parallel_mlp",
 ]

@@ -23,6 +23,19 @@ tensor is already this rank's block. Without a process group the mesh has
 one rank and no collective is issued. gloo and NCCL add in their own
 order, not XLA's ``psum`` order, so a sum agrees with the JAX package's to
 rounding; every rank receives the same bits.
+
+The group primitives below take a process group and its ranks in mesh
+order (:meth:`~flinkml_tpu_torch.parallel.DeviceMesh.group_over`) and
+stand for the JAX package's named-axis collectives inside ``shard_map``:
+:func:`group_all_reduce` (``psum``), :func:`group_all_gather`
+(``all_gather(tiled=True)``), :func:`group_all_to_all`
+(``all_to_all(split_axis=0, concat_axis=0, tiled=True)``) and
+:func:`ppermute` (``ppermute`` with the ring permutation, one
+``batch_isend_irecv``). Under gloo, ``send``/``recv`` and ``all_to_all``
+move host tensors in this port: a CUDA payload is copied to host memory,
+exchanged, and copied back (:data:`HOST_STAGED` counts each), while the
+arithmetic stays on the card. ``all_reduce`` and ``all_gather`` take the
+CUDA tensors directly, and NCCL never stages.
 """
 
 from __future__ import annotations
@@ -161,3 +174,109 @@ def map_partition(mesh: DeviceMesh, fn: Callable, *arrays, out_specs=None):
     if isinstance(out, (tuple, list)):
         return type(out)(gather_blocks(mesh, o) for o in out)
     return gather_blocks(mesh, out)
+
+
+#: Payloads a gloo group moved through host memory, by primitive (see the
+#: module docstring). NCCL groups never add to it.
+HOST_STAGED = {"ppermute": 0, "all_to_all": 0}
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def _staged(group, tensor: torch.Tensor) -> bool:
+    """True when ``tensor`` crosses ``group`` through host memory: a CUDA
+    tensor under gloo."""
+    return tensor.is_cuda and _dist().get_backend(group) == "gloo"
+
+
+def _group_order(group, ranks) -> list:
+    """The mesh index of each group rank: ``torch.distributed`` numbers a
+    group's members by global rank, the mesh by its own order."""
+    members = _dist().get_process_group_ranks(group)
+    return [list(ranks).index(g) for g in members]
+
+
+def group_all_reduce(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
+    """In-place sum of ``tensor`` over ``group`` (``psum``); a no-op
+    without a group or for one rank. Returns ``tensor``."""
+    if group is None or len(ranks) == 1:
+        return tensor
+    from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
+
+    record_collective_dispatch("all_reduce", ranks, ("all_reduce",))
+    _dist().all_reduce(tensor, group=group)
+    return tensor
+
+
+def group_all_gather(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``tensor`` concatenated along dim 0 in mesh order
+    (``all_gather(tiled=True)``)."""
+    tensor = tensor.contiguous()
+    if group is None or len(ranks) == 1:
+        return tensor
+    from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
+
+    dist = _dist()
+    parts = [torch.empty_like(tensor) for _ in ranks]
+    record_collective_dispatch("all_gather", ranks, ("all_gather",))
+    dist.all_gather(parts, tensor, group=group)
+    by_mesh = dict(zip(_group_order(group, ranks), parts))
+    return torch.cat([by_mesh[m] for m in range(len(ranks))])
+
+
+def group_all_to_all(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor [P, ...]``: block ``m`` goes to the mesh's rank ``m``, and
+    block ``m`` of the result came from it (``all_to_all(split_axis=0,
+    concat_axis=0, tiled=True)``)."""
+    if group is None or len(ranks) == 1:
+        return tensor.clone()
+    from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
+
+    dist = _dist()
+    order = _group_order(group, ranks)
+    device = tensor.device
+    send = tensor[order].contiguous()
+    if _staged(group, send):
+        HOST_STAGED["all_to_all"] += 1
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    record_collective_dispatch("all_to_all", ranks, ("all_to_all",))
+    dist.all_to_all_single(recv, send, group=group)
+    out = torch.empty_like(recv)
+    out[order] = recv
+    return out.to(device)
+
+
+def ppermute(group, ranks, tensors, shift: int = 1) -> list:
+    """Each tensor sent ``shift`` places on along ``ranks`` (mesh order,
+    cyclic) and replaced by the one from ``shift`` places before: the
+    ring ``ppermute``. One ``batch_isend_irecv`` carries every tensor
+    (one tag each), so no rank waits on a send its peer has not posted a
+    receive for. Returns new tensors."""
+    tensors = list(tensors)
+    if group is None or len(ranks) == 1:
+        return [t.clone() for t in tensors]
+    from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
+
+    dist = _dist()
+    p = len(ranks)
+    me = list(ranks).index(dist.get_rank())
+    dst, src = ranks[(me + shift) % p], ranks[(me - shift) % p]
+    staged = any(_staged(group, t) for t in tensors)
+    sends = [t.contiguous().cpu() if staged else t.contiguous()
+             for t in tensors]
+    recvs = [torch.empty_like(s) for s in sends]
+    if staged:
+        HOST_STAGED["ppermute"] += 1
+    ops = [dist.P2POp(dist.isend, s, dst, group, tag)
+           for tag, s in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, r, src, group, tag)
+            for tag, r in enumerate(recvs)]
+    record_collective_dispatch("ppermute", ranks, ("ppermute",))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]

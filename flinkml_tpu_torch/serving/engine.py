@@ -592,6 +592,13 @@ class ServingEngine:
         return True
 
     def _install(self, version: Optional[int], model: Any) -> None:
+        if self.config.mesh is not None and hasattr(model, "for_mesh"):
+            # Mesh-bindable models (flinkml_tpu_torch.embeddings.serving,
+            # features.model): the shared source model carries host state
+            # only; each engine binds a clone PLACED on its own mesh here,
+            # so a pool loads one table per replica instead of racing
+            # placements on a shared object.
+            model = model.for_mesh(self.config.mesh)
         if self.config.refuse_nonfinite:
             # Refuse BEFORE warmup/flip: a follower's failed swap keeps
             # the previous (finite) model serving — the registry's own

@@ -16,7 +16,10 @@ every rank), ``stream_sync`` (the agreement layer) and ``stream_cuda``
 (the streamed CSR fit on the card, every rank on ``cuda:0`` over gloo:
 ``tests/test_torch_cuda.py``), or ``faults`` (the plan-sharded fit under
 scripted faults: ``RankLost`` under a watchdog, ``NaNGrad`` under the
-sentinel; ``tests/test_torch_preemption.py``). The streams' data
+sentinel; ``tests/test_torch_preemption.py``), or ``tensor``, ``ring``,
+``embeddings``, ``features`` and ``als`` (``tests/_torch_recsys_cases.py``:
+tensor and pipeline parallelism, ring attention, sharded embedding
+tables, the sharded hashed-FM trainer and ALS on the mesh). The streams' data
 and hyperparameters are ``tests/_stream_mp_common.py``'s, which builds
 them from numpy alone.
 
@@ -970,6 +973,7 @@ def scaler_partition(rank: int, world: int, seed=2):
 
 def main(argv) -> int:
     which, out_dir = argv[1], argv[2]
+    import _torch_recsys_cases as recsys
     import flinkml_tpu_torch as fml
     from flinkml_tpu_torch.parallel import DeviceMesh, init_distributed
     from flinkml_tpu_torch.parallel.distributed import shutdown_distributed
@@ -999,6 +1003,16 @@ def main(argv) -> int:
             out = stream_cuda_cases(mesh, rank, world)
         elif which == "faults":
             out = fault_cases(mesh, rank, world, out_dir)
+        elif which == "tensor":
+            out = recsys.tensor_cases(world)
+        elif which == "ring":
+            out = recsys.ring_cases(world)
+        elif which == "embeddings":
+            out = recsys.embedding_cases(world, out_dir)
+        elif which == "features":
+            out = recsys.feature_cases(world)
+        elif which == "als":
+            out = recsys.als_cases(mesh, rank, world, out_dir)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

@@ -1866,3 +1866,160 @@ def test_cluster_pool_on_card_matches_in_process_engine(cuda_device):
     finally:
         pool.stop()
         ref.stop()
+
+
+# -- tensor parallelism, embeddings, hashed features and ALS ---------------------
+
+
+def _als_table(n=4000, users=300, items=200, seed=0):
+    rng = np.random.default_rng(seed)
+    return fml.Table({"user": rng.integers(0, users, n),
+                      "item": rng.integers(0, items, n),
+                      "rating": rng.uniform(1, 5, n).astype(np.float32)})
+
+
+def _als_fit(layout, device, implicit=False, iters=1):
+    from flinkml_tpu_torch.models.als import ALS
+
+    with fml.use_device(device):
+        return ALS(layout=layout).set_rank(8).set_max_iter(iters) \
+            .set_seed(0).set_implicit_prefs(implicit).fit(_als_table())
+
+
+def _als_rmse(model):
+    t = _als_table()
+    (out,) = model.transform(fml.Table({"user": t.column("user"),
+                                        "item": t.column("item")}))
+    return float(np.sqrt(np.mean((out.column("prediction")
+                                  - t.column("rating")) ** 2)))
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_als_segment_layout_on_card(cuda_device, implicit):
+    """The segment layout launches the segment_sum kernel three times a
+    chunk; one iteration agrees with the CPU fit within the layouts'
+    tolerance (its atomics add in a run-dependent order), and three
+    iterations within 1e-4 of the CPU fit's training RMSE (past the
+    first iteration two summation orders drift apart in the factors of
+    these random ratings). The cumsum layout repeats bit for bit."""
+    before = ksegsum.LAUNCHES.count
+    card = _als_fit("segment", "cuda", implicit)
+    # 1 iteration x 2 half-steps x 1 chunk x 3 scatters.
+    assert ksegsum.LAUNCHES.count - before == 6
+    cpu = _als_fit("segment", "cpu", implicit)
+    np.testing.assert_allclose(card.user_factors, cpu.user_factors,
+                               rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(card.item_factors, cpu.item_factors,
+                               rtol=5e-4, atol=5e-5)
+    a = _als_fit("cumsum", "cuda", implicit, iters=3)
+    b = _als_fit("cumsum", "cuda", implicit, iters=3)
+    np.testing.assert_array_equal(a.user_factors, b.user_factors)
+    cpu3 = _als_fit("segment", "cpu", implicit, iters=3)
+    card3 = _als_fit("segment", "cuda", implicit, iters=3)
+    for model in (a, card3):
+        assert abs(_als_rmse(model) - _als_rmse(cpu3)) <= \
+            1e-4 * _als_rmse(cpu3)
+
+
+def test_als_segment_layout_refuses_deterministic_mode(cuda_device):
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(fml.KernelUnsupportedError, match="atomics"):
+            _als_fit("segment", "cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_als_recommend_topk_on_card(cuda_device):
+    model = _als_fit("segment", "cpu")
+    before = ktopk.LAUNCHES.count
+    with fml.use_device("cuda"):
+        ids, scores = model.recommend_for_all_users(10)
+    assert ktopk.LAUNCHES.count == before + 1
+    with fml.use_device("cpu"):
+        cpu_ids, cpu_scores = model.recommend_for_all_users(10)
+    u = torch.from_numpy(model.user_factors.astype(np.float32)).cuda()
+    v = torch.from_numpy(model.item_factors.astype(np.float32)).cuda()
+    want = torch.topk(u @ v.T, 10).values.cpu().numpy()
+    np.testing.assert_array_equal(scores, want)
+    np.testing.assert_allclose(scores, cpu_scores, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_scatter_and_lookup_on_card(cuda_device):
+    """An unsharded table on the card: lookups bit for bit with the host
+    gather, the scatter within 1e-5 of np.add.at."""
+    from flinkml_tpu_torch.embeddings import EmbeddingTable
+
+    rng = np.random.default_rng(0)
+    rows = rng.normal(size=(5000, 16)).astype(np.float32)
+    ids = rng.integers(0, 5000, 4096).astype(np.int32)
+    delta = rng.normal(size=(4096, 16)).astype(np.float32)
+    with fml.use_device("cuda"):
+        t = EmbeddingTable("t", 5000, 16, rows=rows)
+        assert t.rows.is_cuda
+        assert t.lookup(ids).cpu().numpy().tobytes() == rows[ids].tobytes()
+        t.scatter_add(ids, delta)
+    ref = rows.copy()
+    np.add.at(ref, ids, delta)
+    np.testing.assert_allclose(t.to_host(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_a2a_scatter_launches_segment_sum_on_card(cuda_device):
+    """The all_to_all scatter's local sum is the segment_sum kernel (one
+    shard: no collective), with the masked rows on local row 0."""
+    from flinkml_tpu_torch.embeddings import exchange
+
+    rng = np.random.default_rng(1)
+    table = torch.zeros((64, 8), device=cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 128, 512)).to(cuda_device)
+    rows = torch.from_numpy(rng.normal(size=(512, 8)).astype(
+        np.float32)).to(cuda_device)
+    axes = exchange.ShardAxes(None, (0,), 0)
+    before = ksegsum.LAUNCHES.count
+    (got,) = exchange.a2a_scatter_add((table,), ((0, ids, rows),),
+                                      axes=axes, n_shards=1, shard_rows=64)
+    assert ksegsum.LAUNCHES.count == before + 1
+    mask = ids < 64
+    want = torch.zeros_like(table).index_add_(0, ids[mask], rows[mask])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_hashed_fm_trainer_on_card(cuda_device):
+    from flinkml_tpu_torch.features import StreamingHashedFMTrainer
+    from tests._torch_recsys_cases import click_batches
+
+    with fml.use_device("cuda"):
+        tr = StreamingHashedFMTrainer(num_buckets=64, factor_size=4,
+                                      learning_rate=0.1)
+        assert tr._v_table.rows.is_cuda
+        losses = [tr.fit_batch(ids, y) for ids, y in click_batches()]
+    with fml.use_device("cpu"):
+        ref = StreamingHashedFMTrainer(num_buckets=64, factor_size=4,
+                                       learning_rate=0.1)
+        want = [ref.fit_batch(ids, y) for ids, y in click_batches()]
+    np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-6)
+    for name, arr in ref.delta_state().items():
+        np.testing.assert_allclose(tr.delta_state()[name], arr, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_tensor_parallel_one_rank_on_card(cuda_device):
+    """One rank: the TP block, the pipeline and ring attention run on the
+    card without a collective and equal the same computation unsharded."""
+    import torch.nn.functional as F
+
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.parallel import ring, tensor
+    from tests._torch_recsys_cases import mlp_inputs, qkv
+
+    x, w1, b1, w2, b2 = mlp_inputs()
+    with fml.use_device("cuda"):
+        out = tensor.tensor_parallel_mlp(x, w1, b1, w2, b2,
+                                         DeviceMesh({"model": 1}))
+        q, k, v = (torch.from_numpy(a).cuda() for a in qkv())
+        att = ring.ring_attention(q, k, v, DeviceMesh(), causal=True)
+    assert out.is_cuda and att.is_cuda
+    t = [torch.from_numpy(a).cuda() for a in (x, w1, b1, w2, b2)]
+    want = F.gelu(t[0] @ t[1] + t[2], approximate="tanh") @ t[3] + t[4]
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(att, ring._full_attention(q, k, v, True))

@@ -268,10 +268,11 @@ def test_prefetched_dataset_fit_takes_the_sorted_stream(name, monkeypatch,
 
 def test_refusals(tmp_path, on_cpu):
     """Checkpointing on the sorted stream (``ValueError``, as the JAX
-    package), ``HashOp`` and ``hash_column`` (item 9); ``mesh=`` shards
-    are ported with the multi-process streams (item 7c): one process, a
-    mesh reads the single shard, as the JAX package's (P ranks in
-    ``tests/test_torch_stream_mp.py``)."""
+    package); ``HashOp`` and ``hash_column`` are ported with the hashed
+    features (item 9, no longer refused: they hash as the JAX package's
+    do); ``mesh=`` shards are ported with the multi-process streams (item
+    7c): one process, a mesh reads the single shard, as the JAX package's
+    (P ranks in ``tests/test_torch_stream_mp.py``)."""
     batches = _batches(n_batches=2)
     for kw in (dict(checkpoint_manager=object()), dict(resume=True),
                dict(checkpoint_interval=2)):
@@ -284,11 +285,15 @@ def test_refusals(tmp_path, on_cpu):
         t_sgd.train_linear_model_sorted_stream(
             [Table({"features": np.ones((3, 2)), "label": np.ones(3)})],
             "features", "label", **_hyper("logistic", np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        HashOp(None)
+    from flinkml_tpu.features import hash_buckets as jax_hash
+    from flinkml_tpu_torch.features import HashedFeature
+
     ds = tdata.Dataset.from_arrays(Table({"k": np.arange(4)}), 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ds.hash_column("k", seed=0, num_buckets=8)
+    hashed = [t.column("hashed_ids") for t in
+              ds.hash_column("k", seed=0, num_buckets=8)]
+    assert np.concatenate(hashed).tolist() == \
+        jax_hash(np.arange(4), seed=0, num_buckets=8).tolist()
+    assert HashOp(HashedFeature(0, 8, input_col="k")).skip_transparent
     from flinkml_tpu.data import source as jax_source
     from flinkml_tpu.parallel import DeviceMesh as JaxMesh
     from flinkml_tpu_torch.parallel import DeviceMesh
