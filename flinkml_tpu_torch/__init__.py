@@ -86,6 +86,17 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     ALSModel,
     BisectingKMeans,
     BisectingKMeansModel,
+    CountVectorizer,
+    CountVectorizerModel,
+    FMClassifier,
+    FMClassifierModel,
+    FMRegressor,
+    FMRegressorModel,
+    HashingTF,
+    IDF,
+    IDFModel,
+    IsotonicRegression,
+    IsotonicRegressionModel,
     KMeans,
     KMeansModel,
     Knn,
@@ -96,12 +107,17 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    MLPClassifier,
+    MLPClassifierModel,
+    MLPRegressor,
+    MLPRegressorModel,
     MaxAbsScaler,
     MaxAbsScalerModel,
     MinHashLSH,
     MinHashLSHModel,
     MinMaxScaler,
     MinMaxScalerModel,
+    NGram,
     NaiveBayes,
     NaiveBayesModel,
     OneHotEncoder,
@@ -110,11 +126,15 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     OnlineKMeansModel,
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
+    RegexTokenizer,
     RobustScaler,
     RobustScalerModel,
     StandardScaler,
     StandardScalerModel,
+    Tokenizer,
     VectorAssembler,
+    Word2Vec,
+    Word2VecModel,
 )
 from flinkml_tpu_torch import (  # noqa: F401
     data,
@@ -134,6 +154,19 @@ from flinkml_tpu_torch.iteration import (  # noqa: F401
     DataCache,
     iterate,
 )
+from flinkml_tpu_torch.params import (  # noqa: F401
+    BoolParam,
+    FloatArrayParam,
+    FloatParam,
+    IntArrayParam,
+    IntParam,
+    LongParam,
+    Param,
+    ParamValidators,
+    StringArrayParam,
+    StringParam,
+    WithParams,
+)
 from flinkml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: F401
 from flinkml_tpu_torch.precision import (  # noqa: F401
     PrecisionPolicy,
@@ -149,14 +182,30 @@ __all__ = [
     "AlgoOperator",
     "BisectingKMeans",
     "BisectingKMeansModel",
+    "BoolParam",
     "CheckpointManager",
     "ColumnKernel",
+    "CountVectorizer",
+    "CountVectorizerModel",
     "DataCache",
     "DenseVector",
     "Estimator",
+    "FMClassifier",
+    "FMClassifierModel",
+    "FMRegressor",
+    "FMRegressorModel",
+    "FloatArrayParam",
+    "FloatParam",
     "Graph",
     "GraphBuilder",
     "GraphModel",
+    "HashingTF",
+    "IDF",
+    "IDFModel",
+    "IntArrayParam",
+    "IntParam",
+    "IsotonicRegression",
+    "IsotonicRegressionModel",
     "KMeans",
     "KMeansModel",
     "KernelUnsupportedError",
@@ -168,6 +217,11 @@ __all__ = [
     "LinearSVCModel",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "LongParam",
+    "MLPClassifier",
+    "MLPClassifierModel",
+    "MLPRegressor",
+    "MLPRegressorModel",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
     "MinHashLSH",
@@ -176,6 +230,7 @@ __all__ = [
     "MinMaxScalerModel",
     "Model",
     "ModelIntegrityError",
+    "NGram",
     "NaiveBayes",
     "NaiveBayesModel",
     "OneHotEncoder",
@@ -184,22 +239,32 @@ __all__ = [
     "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
+    "Param",
+    "ParamValidators",
     "Pipeline",
     "PipelineModel",
     "PrecisionPolicy",
     "PrecisionValidationError",
+    "RegexTokenizer",
     "RobustScaler",
     "RobustScalerModel",
     "SparseVector",
     "Stage",
     "StandardScaler",
     "StandardScalerModel",
+    "StringArrayParam",
+    "StringParam",
     "Table",
     "TableId",
+    "Tokenizer",
     "Transformer",
     "Vector",
     "VectorAssembler",
     "Vectors",
+    "WithParams",
+    "Word2Vec",
+    "Word2VecModel",
+    "__version__",
     "data",
     "default_device",
     "iterate",

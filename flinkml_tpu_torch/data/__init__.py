@@ -18,14 +18,15 @@ restores in the other.
 
 A source's ``mesh=`` reads this rank's shard of the mesh's data axis,
 each rank's partition of a multi-process stream. The exports are the JAX
-package's but ``HashOp``: ``data.ops.HashOp`` / ``Dataset.hash_column``
-are refused naming ROADMAP.md Queue 1 item 9 (``features/hashing.py``).
+package's, ``HashOp`` (``Dataset.hash_column``: raw keys hashed into
+bucket ids by :mod:`flinkml_tpu_torch.features.hashing`) among them.
 """
 
 from flinkml_tpu_torch.data.dataset import Dataset, DatasetIterator
 from flinkml_tpu_torch.data.elastic import ElasticFeed, ElasticFeedIterator
 from flinkml_tpu_torch.data.ops import (
     FilterOp,
+    HashOp,
     MapOp,
     Op,
     RebatchOp,
@@ -68,6 +69,7 @@ __all__ = [
     "Op",
     "MapOp",
     "FilterOp",
+    "HashOp",
     "RebatchOp",
     "WindowOp",
     "ShuffleOp",

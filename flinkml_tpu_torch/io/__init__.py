@@ -11,14 +11,22 @@ from flinkml_tpu_torch.io.libsvm import (  # noqa: F401
 from flinkml_tpu_torch.io.read_write import (  # noqa: F401
     ModelIntegrityError,
     content_fingerprint,
+    load_metadata,
+    load_model_arrays,
     load_stage,
+    save_metadata,
+    save_model_arrays,
     stage_from_arrays,
 )
 
 __all__ = [
     "ModelIntegrityError",
     "content_fingerprint",
+    "load_metadata",
+    "load_model_arrays",
     "load_stage",
+    "save_metadata",
+    "save_model_arrays",
     "read_csv",
     "read_csv_table",
     "read_libsvm",

@@ -1,8 +1,11 @@
 """Stages of the model catalog ported so far: the four scalers,
 OneHotEncoder, VectorAssembler, LogisticRegression, LinearSVC,
 LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
-RAM and streamed), OnlineKMeans, OnlineStandardScaler, BisectingKMeans
-NaiveBayes and ALS (estimators and models)."""
+RAM and streamed), OnlineKMeans, OnlineStandardScaler, BisectingKMeans,
+NaiveBayes, ALS, the MLPs, the factorization machines,
+IsotonicRegression, the text features (Tokenizer, RegexTokenizer,
+HashingTF, CountVectorizer, IDF), NGram and Word2Vec (estimators and
+models). ``__all__`` lists them in the JAX package's order."""
 
 from flinkml_tpu_torch.models.als import ALS, ALSModel  # noqa: F401
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
@@ -55,41 +58,88 @@ from flinkml_tpu_torch.models.scalers import (  # noqa: F401
     StandardScalerModel,
 )
 from flinkml_tpu_torch.models.vector_assembler import VectorAssembler  # noqa: F401
+from flinkml_tpu_torch.models.fm import (  # noqa: F401
+    FMClassifier,
+    FMClassifierModel,
+    FMRegressor,
+    FMRegressorModel,
+)
+from flinkml_tpu_torch.models.isotonic import (  # noqa: F401
+    IsotonicRegression,
+    IsotonicRegressionModel,
+)
+from flinkml_tpu_torch.models.mlp import (  # noqa: F401
+    MLPClassifier,
+    MLPClassifierModel,
+    MLPRegressor,
+    MLPRegressorModel,
+)
+from flinkml_tpu_torch.models.ngram import NGram  # noqa: F401
+from flinkml_tpu_torch.models.text import (  # noqa: F401
+    IDF,
+    CountVectorizer,
+    CountVectorizerModel,
+    HashingTF,
+    IDFModel,
+    RegexTokenizer,
+    Tokenizer,
+)
+from flinkml_tpu_torch.models.word2vec import Word2Vec, Word2VecModel  # noqa: F401
 
 __all__ = [
-    "ALS",
-    "ALSModel",
-    "BisectingKMeans",
-    "BisectingKMeansModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "KMeans",
     "KMeansModel",
     "Knn",
     "KnnModel",
-    "LinearRegression",
-    "LinearRegressionModel",
-    "LinearSVC",
-    "LinearSVCModel",
-    "LogisticRegression",
-    "LogisticRegressionModel",
-    "MaxAbsScaler",
-    "MaxAbsScalerModel",
-    "MinHashLSH",
-    "MinHashLSHModel",
-    "MinMaxScaler",
-    "MinMaxScalerModel",
     "NaiveBayes",
     "NaiveBayesModel",
     "OneHotEncoder",
     "OneHotEncoderModel",
+    "LinearSVC",
+    "LinearSVCModel",
+    "LinearRegression",
+    "LinearRegressionModel",
     "OnlineKMeans",
     "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
-    "OnlineStandardScaler",
-    "OnlineStandardScalerModel",
-    "RobustScaler",
-    "RobustScalerModel",
     "StandardScaler",
     "StandardScalerModel",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
+    "MaxAbsScaler",
+    "MaxAbsScalerModel",
+    "RobustScaler",
+    "RobustScalerModel",
+    "OnlineStandardScaler",
+    "OnlineStandardScalerModel",
+    "ALS",
+    "ALSModel",
+    "BisectingKMeans",
+    "BisectingKMeansModel",
+    "MLPClassifier",
+    "MLPClassifierModel",
+    "MLPRegressor",
+    "MLPRegressorModel",
+    "FMClassifier",
+    "FMClassifierModel",
+    "FMRegressor",
+    "FMRegressorModel",
+    "IsotonicRegression",
+    "IsotonicRegressionModel",
+    "Tokenizer",
+    "RegexTokenizer",
+    "HashingTF",
+    "CountVectorizer",
+    "CountVectorizerModel",
+    "IDF",
+    "IDFModel",
     "VectorAssembler",
+    "NGram",
+    "Word2Vec",
+    "Word2VecModel",
+    "MinHashLSH",
+    "MinHashLSHModel",
 ]

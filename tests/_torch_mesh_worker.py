@@ -1013,6 +1013,8 @@ def main(argv) -> int:
             out = recsys.feature_cases(world)
         elif which == "als":
             out = recsys.als_cases(mesh, rank, world, out_dir)
+        elif which == "recsys_b":
+            out = recsys.recsys_b_cases(mesh, rank, world, out_dir)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

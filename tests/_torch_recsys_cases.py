@@ -1,7 +1,8 @@
 """The multi-rank cases of the port's tensor parallelism, ring attention,
 embedding tables, hashed features and ALS, run by ``tests/
 _torch_mesh_worker.py`` (modes ``tensor``, ``ring``, ``embeddings``,
-``features`` and ``als``) on P gloo ranks on the CPU.
+``features``, ``als`` and ``recsys_b``: Word2Vec, FM and MLP) on P gloo
+ranks on the CPU.
 
 Imports numpy, torch and the port only. The input builders are shared
 with the tests, which feed the same numpy inputs to the JAX package on a
@@ -460,3 +461,215 @@ def als_cases(mesh, rank: int, world: int, workdir: str) -> dict:
     out["resume_user"] = rec.user_factors
     out["resume_item"] = rec.item_factors
     return out
+
+
+# -- Word2Vec, FM and MLP (mode recsys_b) ------------------------------------
+
+
+def w2v_corpus(seed=3):
+    """``tests/test_embeddings.py``'s Word2Vec corpus: two topics."""
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "horse", "cow", "sheep", "goat"]
+    tools = ["hammer", "saw", "drill", "wrench", "screw", "nail"]
+    docs = []
+    for _ in range(120):
+        pool = animals if rng.random() < 0.5 else tools
+        docs.append(list(rng.choice(pool, size=8)))
+    return docs
+
+
+def fm_data(n=512, d=24, seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    true = rng.normal(size=d)
+    return x, (x @ true > 0).astype(np.float64)
+
+
+def adam_batches(n_batches=4, rows=64, d=6, seed=0):
+    """``tests/test_stream_fit_mlp_pca.py``'s MLP/FM stream batches."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        x = rng.normal(size=(rows, d)).astype(np.float32)
+        y = (x[:, 0] + x[:, 1] > 0).astype(np.float64)
+        out.append({"features": x, "label": y})
+    return out
+
+
+def sentence_docs(n_batches=3, per_batch=40, seed=0):
+    """``tests/test_stream_fit_recsys.py``'s token batches (two cliques)."""
+    rng = np.random.default_rng(seed)
+    cliques = [[f"a{i}" for i in range(6)], [f"b{i}" for i in range(6)]]
+    return [[list(rng.choice(cliques[rng.integers(0, 2)], size=8))
+             for _ in range(per_batch)] for _ in range(n_batches)]
+
+
+def token_table(docs, table_cls):
+    col = np.empty(len(docs), dtype=object)
+    col[:] = [list(d) for d in docs]
+    return table_cls({"tokens": col})
+
+
+def w2v_estimator(cls, **kw):
+    return (cls(**kw).set_input_col("tokens").set_vector_size(16)
+            .set_window_size(2).set_min_count(1).set_max_iter(3)
+            .set_seed(0))
+
+
+def mlp_estimator(cls, **kw):
+    return (cls(**kw).set_layers([6, 8, 2]).set_max_iter(6)
+            .set_global_batch_size(64).set_learning_rate(0.05).set_tol(0.0)
+            .set_seed(0))
+
+
+def fm_estimator(cls, **kw):
+    return (cls(**kw).set_factor_size(4).set_max_iter(6)
+            .set_global_batch_size(64).set_learning_rate(0.05)
+            .set_reg(0.001).set_tol(0.0).set_seed(0))
+
+
+def _with_env(env: dict, fn):
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def recsys_b_cases(mesh, rank: int, world: int, workdir: str) -> dict:
+    """Word2Vec's dense and sharded trainers, FM's sharded factors, and
+    the streamed Word2Vec, MLP and FM fits on ``world`` ranks."""
+    from flinkml_tpu_torch.iteration import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+    from flinkml_tpu_torch.models import (
+        FMClassifier,
+        FMRegressor,
+        MLPClassifier,
+        Word2Vec,
+    )
+    from flinkml_tpu_torch.parallel import DeviceMesh
+    from flinkml_tpu_torch.sharding.plan import EMBEDDING, FSDP
+    from flinkml_tpu_torch.table import Table
+
+    out = {}
+    # -- Word2Vec in RAM: dense, then sharded under both strategies.
+    col = np.empty(120, dtype=object)
+    col[:] = w2v_corpus()
+    t = Table({"doc": col})
+
+    def w2v_fit(dim=12, iters=2, corpus=t):
+        return Word2Vec(mesh=mesh).set_input_col("doc").set_vector_size(dim) \
+            .set_max_iter(iters).set_min_count(1).set_seed(0).fit(corpus)
+
+    out["w2v_dense"] = w2v_fit().vectors
+    for strategy in ("ring", "all_to_all"):
+        env = {"FLINKML_W2V_SHARD_VOCAB": "0",
+               "FLINKML_TPU_EMBEDDING_EXCHANGE": strategy}
+        out[f"w2v_sharded_{strategy}"] = _with_env(env, w2v_fit).vectors
+        col5 = np.empty(120, dtype=object)
+        col5[:] = w2v_corpus(seed=5)
+        out[f"w2v_seed5_{strategy}"] = _with_env(
+            env, lambda: w2v_fit(8, 1, Table({"doc": col5}))).vectors
+    # -- FM: the replicated fit on the data mesh, the sharded factor fits.
+    x, y = fm_data()
+    ft = Table({"features": x, "label": y})
+    dense = FMClassifier(mesh=mesh).set_max_iter(40) \
+        .set_global_batch_size(256).set_seed(0).fit(ft)
+    shard = FMClassifier(sharding_plan=EMBEDDING,
+                         mesh=DeviceMesh.for_plan(EMBEDDING)).set_max_iter(40) \
+        .set_global_batch_size(256).set_seed(0).fit(ft)
+    out["fm_dense_pred"] = dense.transform(ft)[0]["prediction"]
+    out["fm_shard_pred"] = shard.transform(ft)[0]["prediction"]
+    out["fm_shard_v"] = shard._v
+    x2, _ = fm_data(seed=2)
+    lt = Table({"features": x2, "label": x2[:, 0] + 1.0})
+    one = dict(max_iter=1, global_batch_size=256, seed=0)
+    for name, plan in (("dense", None), ("fsdp", FSDP)):
+        kw = {"mesh": mesh} if plan is None else {
+            "sharding_plan": plan, "mesh": DeviceMesh.for_plan(plan)}
+        est = FMRegressor(**kw)
+        for k, v in one.items():
+            getattr(est, f"set_{k}")(v)
+        m = est.fit(lt)
+        out[f"fm_step_{name}_w0"] = np.asarray([m._w0])
+        out[f"fm_step_{name}_w"] = m._w
+    # -- MLP in RAM on the data mesh: 5 steps.
+    rng = np.random.default_rng(3)
+    xm = rng.normal(size=(300, 6))
+    ym = rng.integers(0, 3, 300).astype(np.float64)
+    mlp = MLPClassifier(mesh=mesh).set_layers([6, 12, 3]).set_max_iter(5) \
+        .set_learning_rate(0.05).set_global_batch_size(64).set_tol(0.0) \
+        .set_seed(0).fit(Table({"features": xm, "label": ym}))
+    for i, a in enumerate(mlp._weights):
+        out[f"mlp_inram_{i}"] = a
+    # -- the streamed fits: each rank feeds its own partition.
+    mine = adam_batches(n_batches=2 * world)[rank::world]
+    for name, est_cls, make in (("mlp", MLPClassifier, mlp_estimator),
+                                ("fm", FMClassifier, fm_estimator)):
+        ram = make(est_cls, mesh=mesh).fit(iter(Table(b) for b in mine))
+        spill = make(est_cls, mesh=mesh, cache_dir=f"{workdir}/{name}{rank}",
+                     cache_memory_budget_bytes=1).fit(
+            iter(Table(b) for b in mine))
+        for i, (a, b) in enumerate(zip(_flat_model(ram), _flat_model(spill))):
+            out[f"{name}_stream_{i}"] = a
+            out[f"{name}_spill_{i}"] = b
+        ylab = np.int32 if name == "mlp" else np.float32
+        cache = cache_stream(
+            {"x": b["features"], "y": b["label"].astype(ylab),
+             "w": np.ones(len(b["label"]), np.float32)} for b in mine)
+        golden = make(est_cls, mesh=mesh).fit(cache)
+        ckpt = f"{workdir}/{name}_ckpt"
+        make(est_cls, mesh=mesh, checkpoint_manager=CheckpointManager(ckpt),
+             checkpoint_interval=2).set_max_iter(2).fit(cache)
+        rec = make(est_cls, mesh=mesh,
+                   checkpoint_manager=CheckpointManager(ckpt),
+                   checkpoint_interval=2, resume=True).fit(cache)
+        for i, (a, b) in enumerate(zip(_flat_model(golden),
+                                       _flat_model(rec))):
+            out[f"{name}_golden_{i}"] = a
+            out[f"{name}_resumed_{i}"] = b
+        learn = make(est_cls, mesh=mesh).set_max_iter(25).fit(
+            iter(Table(b) for b in adam_batches(n_batches=2 * world,
+                                                seed=1)[rank::world]))
+        probe = np.concatenate([b["features"] for b in adam_batches(
+            n_batches=2 * world, seed=1)])
+        out[f"{name}_learn_pred"] = learn.transform(
+            Table({"features": probe}))[0]["prediction"]
+    # Word2Vec streamed: each rank its own documents.
+    sdocs = sentence_docs(n_batches=2 * world)[rank::world]
+    tables = lambda: iter(token_table(d, Table) for d in sdocs)  # noqa: E731
+    ram = w2v_estimator(Word2Vec, mesh=mesh).fit(tables())
+    spill = w2v_estimator(Word2Vec, mesh=mesh,
+                          cache_dir=f"{workdir}/w2v{rank}",
+                          cache_memory_budget_bytes=1).fit(tables())
+    out["w2v_stream"] = ram.vectors
+    out["w2v_stream_vocab"] = np.asarray(ram.vocabulary, dtype=str)
+    out["w2v_spill"] = spill.vectors
+    golden = w2v_estimator(Word2Vec, mesh=mesh).set_max_iter(4).fit(tables())
+    ckpt = f"{workdir}/w2v_ckpt"
+    w2v_estimator(Word2Vec, mesh=mesh,
+                  checkpoint_manager=CheckpointManager(ckpt),
+                  checkpoint_interval=2).set_max_iter(2).fit(tables())
+    rec = w2v_estimator(Word2Vec, mesh=mesh,
+                        checkpoint_manager=CheckpointManager(ckpt),
+                        checkpoint_interval=2, resume=True) \
+        .set_max_iter(4).fit(tables())
+    out["w2v_golden"] = golden.vectors
+    out["w2v_resumed"] = rec.vectors
+    out["w2v_cliques"] = w2v_estimator(Word2Vec, mesh=mesh).set_max_iter(8) \
+        .fit(tables()).vectors
+    return out
+
+
+def _flat_model(model):
+    """An MLP's weights or an FM's ``(w0, w, v)`` as a list of arrays."""
+    if hasattr(model, "_weights"):
+        return list(model._weights)
+    return [np.asarray([model._w0]), model._w, model._v]

@@ -2023,3 +2023,217 @@ def test_tensor_parallel_one_rank_on_card(cuda_device):
     want = F.gelu(t[0] @ t[1] + t[2], approximate="tanh") @ t[3] + t[4]
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(att, ring._full_attention(q, k, v, True))
+
+
+# -- threefry, Word2Vec, FM and MLP (the recsys family's rest) ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_threefry_draws_on_card_match_cpu(cuda_device, dtype):
+    from flinkml_tpu_torch.ops import threefry
+
+    for span in (7, 1000, 1 << 18, 2**31 - 1):
+        card = threefry.randint(threefry.fold_in(
+            threefry.PRNGKey(3, cuda_device), torch.arange(40,
+                                                           device=cuda_device)),
+            (257,), 0, span, dtype=dtype)
+        cpu = threefry.randint(threefry.fold_in(
+            threefry.PRNGKey(3, "cpu"), torch.arange(40)), (257,), 0, span,
+            dtype=dtype)
+        assert torch.equal(card.cpu(), cpu)
+    key_c, key_h = threefry.PRNGKey(9, cuda_device), threefry.PRNGKey(9, "cpu")
+    assert torch.equal(threefry.uniform(key_c, (4096,)).cpu(),
+                       threefry.uniform(key_h, (4096,)))
+    ulps = (threefry.normal(key_c, (1 << 16,)).cpu().view(torch.int32).long()
+            - threefry.normal(key_h, (1 << 16,)).view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 3
+
+
+def _w2v_inputs(device, vocab=1000, dim=32, n=5000, seed=0):
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (put(rng.integers(0, vocab, n).astype(np.int32)),
+            put(rng.integers(0, vocab, n).astype(np.int32)),
+            torch.ones(n, device=device),
+            put(rng.integers(0, vocab, 1 << 12).astype(np.int32)),
+            put(((rng.random((vocab, dim)) - 0.5) / dim).astype(np.float32)),
+            put(np.zeros((vocab, dim), np.float32)))
+
+
+def test_word2vec_sgns_steps_on_card_match_cpu(cuda_device):
+    from flinkml_tpu_torch.models import word2vec as w2v
+    from flinkml_tpu_torch.ops import threefry
+
+    trainer = w2v._sgns_trainer(None, 256, 5, "scatter")
+    before = ksegsum.LAUNCHES.count
+    card = trainer(*_w2v_inputs(cuda_device), 0.5, 5,
+                   threefry.PRNGKey(1, cuda_device))
+    torch.cuda.synchronize()
+    assert ksegsum.LAUNCHES.count == before + 3 * 5
+    cpu = trainer(*_w2v_inputs("cpu"), 0.5, 5, threefry.PRNGKey(1, "cpu"))
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_word2vec_scatter_refuses_deterministic_mode(cuda_device):
+    from flinkml_tpu_torch.models import word2vec as w2v
+    from flinkml_tpu_torch.ops import threefry
+
+    trainer = w2v._sgns_trainer(None, 64, 2, "scatter")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(fml.KernelUnsupportedError):
+            trainer(*_w2v_inputs(cuda_device), 0.5, 1,
+                    threefry.PRNGKey(1, cuda_device))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("shape", [(8192, 128, 32768), (40960, 128, 32768)])
+def test_word2vec_scatter_shapes_match_plain(cuda_device, shape):
+    cells, dim, vocab = shape
+    rng = np.random.default_rng(4)
+    vals = torch.from_numpy(rng.normal(size=(cells, dim)).astype(
+        np.float32)).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, vocab, cells).astype(
+        np.int32)).to(cuda_device)
+    torch.testing.assert_close(ksegsum.segment_sum(vals, ids, vocab),
+                               ksegsum.segment_sum_plain(vals, ids, vocab),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _topic_tokens(n_docs=400, seed=0):
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "horse", "mouse", "bird"]
+    tools = ["hammer", "wrench", "drill", "saw", "pliers"]
+    col = np.empty(n_docs, dtype=object)
+    for i in range(n_docs):
+        col[i] = list(rng.choice(animals if rng.uniform() < 0.5 else tools,
+                                 size=8))
+    return fml.Table({"tok": col})
+
+
+def test_word2vec_fit_and_find_synonyms_on_card(cuda_device):
+    def fit():
+        return fml.Word2Vec().set_input_col("tok").set_vector_size(16) \
+            .set_window_size(3).set_min_count(2).set_max_iter(3) \
+            .set_learning_rate(2.0).set_batch_size(512).set_seed(0) \
+            .fit(_topic_tokens())
+
+    card = fit()
+    with fml.use_device("cpu"):
+        cpu = fit()
+    np.testing.assert_array_equal(card.vocabulary, cpu.vocabulary)
+    np.testing.assert_allclose(card.vectors, cpu.vectors, rtol=1e-4,
+                               atol=1e-4)
+    before = ktopk.LAUNCHES.count
+    words, sims = card.find_synonyms("cat", 4)
+    assert ktopk.LAUNCHES.count == before + 1
+    vecs = torch.from_numpy(card.vectors.astype(np.float32)).to(cuda_device)
+    from flinkml_tpu_torch.models.word2vec import cosine_scores
+
+    i = list(card.vocabulary).index("cat")
+    lib, _ = torch.topk(cosine_scores(vecs, i), 4)
+    np.testing.assert_array_equal(sims, lib.cpu().numpy())
+    assert "cat" not in words
+
+
+def test_word2vec_find_synonyms_topk_shape_matches_plain(cuda_device):
+    from flinkml_tpu_torch.models.word2vec import cosine_scores
+
+    vecs = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(32768, 128)).astype(np.float32)).to(cuda_device)
+    sims = cosine_scores(vecs, 7)
+    vals, idx = ktopk.top_k(sims, 10)
+    pv, pi = ktopk.top_k_plain(sims, 10)
+    assert torch.equal(vals, pv) and torch.equal(idx, pi)
+
+
+@pytest.mark.parametrize("cls_name", ["FMClassifier", "FMRegressor"])
+def test_fm_steps_on_card_match_cpu(cuda_device, cls_name):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2048, 24))
+    y = (x @ rng.normal(size=24) > 0).astype(np.float64)
+    if cls_name == "FMRegressor":
+        y = x[:, 0] + 1.0
+
+    def fit():
+        return getattr(fml, cls_name)().set_max_iter(5).set_reg(0.01) \
+            .set_global_batch_size(512).set_seed(0).set_tol(0.0) \
+            .fit(fml.Table({"features": x, "label": y}))
+
+    card = fit()
+    with fml.use_device("cpu"):
+        cpu = fit()
+    for a, b in ((card._w0, cpu._w0), (card._w, cpu._w), (card._v, cpu._v)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_fm_sharded_fit_at_world_one_on_card(cuda_device):
+    from flinkml_tpu_torch.sharding import EMBEDDING
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(1024, 24))
+    t = fml.Table({"features": x, "label": x[:, 0] + 1.0})
+
+    def fit(**kw):
+        return fml.FMRegressor(**kw).set_max_iter(5) \
+            .set_global_batch_size(256).set_seed(0).set_tol(0.0).fit(t)
+
+    card = fit(sharding_plan=EMBEDDING)
+    with fml.use_device("cpu"):
+        cpu = fit(sharding_plan=EMBEDDING)
+    np.testing.assert_allclose(card._v, cpu._v, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card._w0, cpu._w0, rtol=1e-5, atol=1e-5)
+
+
+def test_fm_sparse_margin_float64_on_card(cuda_device):
+    from flinkml_tpu_torch.linalg import SparseVector
+
+    rng = np.random.default_rng(3)
+    dim, k = 100_000, 8
+    model = fml.FMRegressorModel()
+    model._set(0.25, rng.normal(size=dim), rng.normal(size=(dim, k)) * 0.1)
+    col = np.empty(3000, dtype=object)
+    col[:] = [SparseVector(dim, np.sort(rng.choice(dim, 39, replace=False)),
+                           rng.normal(size=39)) for _ in range(3000)]
+    before = kspmv.LAUNCHES.count
+    got = model._margin(fml.Table({"features": col}))
+    assert kspmv.LAUNCHES.count == before + 1
+    with fml.use_device("cpu"):
+        want = model._margin(fml.Table({"features": col}))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("cls_name", ["MLPClassifier", "MLPRegressor"])
+def test_mlp_steps_on_card_match_cpu(cuda_device, cls_name):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1000, 6))
+    if cls_name == "MLPClassifier":
+        layers, y = [6, 32, 3], rng.integers(0, 3, 1000).astype(np.float64)
+    else:
+        layers, y = [6, 32, 1], x[:, 0] * x[:, 1]
+
+    def fit():
+        return getattr(fml, cls_name)().set_layers(layers).set_max_iter(5) \
+            .set_learning_rate(0.05).set_global_batch_size(128) \
+            .set_tol(0.0).set_seed(0) \
+            .fit(fml.Table({"features": x, "label": y}))
+
+    card = fit()
+    with fml.use_device("cpu"):
+        cpu = fit()
+    for a, b in zip(card._weights, cpu._weights):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_mlp_short_fit_on_card_learns_xor(cuda_device):
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, size=(1200, 2))
+    y = ((x[:, 0] > 0) ^ (x[:, 1] > 0)).astype(np.float64)
+    t = fml.Table({"features": x, "label": y})
+    model = fml.MLPClassifier().set_layers([2, 16, 2]).set_max_iter(600) \
+        .set_learning_rate(0.01).set_global_batch_size(256).set_tol(0.0) \
+        .set_seed(0).fit(t)
+    (out,) = model.transform(t)
+    assert (out["prediction"] == y).mean() > 0.97
