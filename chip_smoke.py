@@ -341,6 +341,37 @@ and fails with a non-zero exit if any phase fails:
    and ``topk`` on [32,768] cosine scores, k = 10, each against its plain
    version with its bound and the library call's time. U must launch
    ``segment_sum``, ``spmv`` and ``topk``;
+6q. the device half of the model catalog (path V, ``catalog_v_path``;
+   V2's ranks in P-R's group): V1, ``GBTClassifier.fit`` at
+   ``bench.py:456 _inner_gbt``'s shape (262,144 x 16 uniform rows, seed 0,
+   y = x0·x1 > 0, 32 bins, depth 4, 20 trees, lr 0.2), with the
+   ``segment`` layout (one ``segment_sum`` a level and one for the leaves)
+   and the ``cumsum`` layout, the builder alone timed twice a layout
+   (row-trees/s, ``bench.py``'s metric, and whether the two builds are
+   the same bits), the card's forest held against the CPU port's by the
+   near-tie rule (:func:`forest_parting`) over the CPU port's first 5
+   trees (``V_CPU_TREES``, fitted beside the build) and their training
+   accuracy within 0.005. V2, the streamed fit of the same rows in 4 batches, 5
+   trees, subsample 0.8, exact edges, crashed after the snapshot of tree 3
+   and resumed (the rule, and whether the resume is bit for bit), and over
+   two gloo ranks on the card in P-R's group (each rank half of every
+   batch, no subsampling; the same bits on both ranks, the rule against
+   V1's first 5 trees). V3, ``RandomForestClassifier`` (10 trees, 4 of
+   16 features, Poisson bagging) against the CPU port's first 5 trees,
+   tree by tree; every tree's draws
+   on the card equal to the CPU's, and the float32 ``log`` of all 2^23
+   uniform values card against CPU. V4, ``GaussianMixture`` k = 8 on
+   100,000 x 32 blobs, diag and full, 10 EM iterations, the mean
+   log-likelihood within 1e-5 of float64 numpy EM from the same
+   initialization. V5, ``PCA`` (k = 10) and ``Correlation`` at a9a's
+   width (1,000,000 x 123, U2's rows) against float64 numpy (Spearman on
+   a 100,000-row prefix). V6, ``PowerIterationClustering`` on 100,000
+   vertices and 10^6 edges, 20 iterations, the iterate against float64
+   numpy. V7, one fit and transform of each selector, ``KBinsDiscretizer``
+   and ``AFTSurvivalRegression`` (against the CPU port). With the counters
+   read: V1's level-0 histogram sum (4,194,304 ``[2]`` cells into 8,192
+   segments, 512 hit) against its plain version, with its bound and
+   ``index_add_``'s time. V must launch ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -7264,8 +7295,8 @@ def r2_rank(torch, rank, out_dir):
 def pr_rank(out_dir: str) -> int:
     """One rank of paths P and R2 (``chip_smoke.py --pr-rank OUT_DIR``,
     started by :func:`pr_ranks`): joins a group of ``PR_WORLD`` ranks over
-    gloo with CUDA tensors on the current card, runs :func:`p_rank` and
-    :func:`r2_rank`, and writes ``OUT_DIR/rank<r>.npz``."""
+    gloo with CUDA tensors on the current card, runs :func:`p_rank`,
+    :func:`r2_rank`, :func:`u6_rank` and :func:`v2_rank`, and writes ``OUT_DIR/rank<r>.npz``."""
     import torch
 
     import flinkml_tpu_torch as fml
@@ -7278,6 +7309,7 @@ def pr_rank(out_dir: str) -> int:
         out = p_rank(torch, rank, out_dir)
         out.update(r2_rank(torch, rank, out_dir))
         out.update(u6_rank(torch, rank, out_dir))
+        out.update(v2_rank(torch, rank, out_dir))
         from flinkml_tpu_torch.parallel.collectives import HOST_STAGED
 
         out["host_staged"] = np.asarray([HOST_STAGED["ppermute"],
@@ -7290,8 +7322,8 @@ def pr_rank(out_dir: str) -> int:
 
 
 def pr_ranks(torch):
-    """Paths P, R2 and U6 on ``PR_WORLD`` ranks spawned here on the one
-    card; returns ``(P's record, R2's record, R2's segment_sum launches,
+    """Paths P, R2, U6 and V2's ranks on ``PR_WORLD`` ranks spawned here
+    on the one card; returns ``(P's record, R2's record, R2's segment_sum launches,
     every rank's outputs)`` (U6's are checked by :func:`u6_check` once the
     parent's own launches have been read)."""
     import tempfile
@@ -7305,6 +7337,7 @@ def pr_ranks(torch):
         wall_s = time.perf_counter() - t0
         outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
                 for r in range(PR_WORLD)]
+    PREPARED["pr_outs"] = outs   # V2's ranks, checked in path V
     p_rec = p_check(torch, outs)
     p_rec["wall_s"] = wall_s
     p_rec["host_staged_rank0"] = dict(zip(
@@ -8523,6 +8556,752 @@ def recsys_u_path(torch, timer):
     return launches, kernels
 
 
+# -- path V: the device half of the model catalog --------------------------------
+
+#: The forests' near-tie rule: two forests may part only at a node where
+#: their best gains lie within this relative gap of each other (the two
+#: splits tie within float32 rounding, which then decides); every split
+#: before it is equal, and the leaves of trees before it agree within
+#: ``V_LEAF_RTOL`` (atol that share of the tree's largest leaf). A boosted
+#: forest is compared up to its first parting (later trees fit other
+#: residuals); a bagged one tree by tree.
+V_TIE_GAP = 1e-4
+V_LEAF_RTOL = 1e-5
+#: The card's leaves against another run's (the CPU port's, the resumed
+#: run's): a leaf is a float32 sum of up to 16,384 rows' g and h each (at
+#: V1's shape), added by atomics on the card and in row order on the
+#: CPU. The hessians of tree 0 are one value repeated, whose rounding
+#: errors do not cancel: two orders part by ≈ 1e-5 of the largest leaf
+#: (9.3e-6 of 0.61 on an H100 at V1's shape).
+V_CARD_LEAF_RTOL = 1e-4
+
+
+def forest_arrays(model):
+    """``(feats, thresholds, gains, leaves)`` of a fitted forest model of
+    either package."""
+    return tuple(np.asarray(a) for a in (model._feats, model._thrs,
+                                         model._gains, model._leaves))
+
+
+def forest_parting(ref, got, boosting, gap=V_TIE_GAP, leaf_rtol=V_LEAF_RTOL):
+    """Hold forest ``got`` against ``ref`` (:func:`forest_arrays`) by the
+    near-tie rule. Returns ``(report, problems)``: the report counts the
+    trees compared equal and lists each parting ``[tree, node, relative
+    gap]``; ``problems`` lists every breach (empty: the rule holds)."""
+    rf, rt, rg, rl = ref
+    gf, gt, gg, gl = got
+    problems, ties = [], []
+    if rf.shape != gf.shape or rl.shape != gl.shape:
+        return ({"trees": int(rf.shape[0]), "equal_trees": 0, "ties": []},
+                [f"forest shapes differ: {rf.shape}/{rl.shape} vs "
+                 f"{gf.shape}/{gl.shape}"])
+    equal = 0
+    for t in range(rf.shape[0]):
+        parted = np.nonzero((rf[t] != gf[t]) | (rt[t] != gt[t]))[0]
+        if parted.size == 0:
+            scale = float(np.abs(rl[t]).max())
+            if not np.allclose(gl[t], rl[t], rtol=leaf_rtol,
+                               atol=leaf_rtol * scale):
+                problems.append(
+                    f"tree {t}: leaves differ by "
+                    f"{float(np.abs(gl[t] - rl[t]).max())} (rtol "
+                    f"{leaf_rtol}, largest leaf {scale})")
+            equal += 1
+            continue
+        i = int(parted[0])
+        rel = abs(float(rg[t, i]) - float(gg[t, i])) / max(
+            abs(float(rg[t, i])), 1e-30)
+        if not rel <= gap:
+            problems.append(
+                f"tree {t} node {i}: split (feature {rf[t, i]}, threshold "
+                f"{rt[t, i]}) vs (feature {gf[t, i]}, threshold "
+                f"{gt[t, i]}) with best gains {rg[t, i]} and {gg[t, i]}: "
+                f"relative gap {rel} > {gap}, not a near tie")
+        ties.append([t, i, rel])
+        if boosting:
+            break
+    return {"trees": int(rf.shape[0]), "equal_trees": equal,
+            "ties": ties}, problems
+
+
+V_DEVICE = "cuda"
+#: V1: ``bench.py:456 _inner_gbt``'s shape: 262,144 x 16 uniform(-1, 1)
+#: rows (seed 0), y = x0·x1 > 0, 32 bins, depth 4, 20 trees, lr 0.2.
+V_ROWS, V_D, V_BINS, V_DEPTH, V_TREES, V_LR = 262_144, 16, 32, 4, 20, 0.2
+#: The card's forest against the CPU port's: training accuracy (on the
+#: first V_ACC_ROWS rows) within this.
+V_ACC_TOL, V_ACC_ROWS = 0.005, 65_536
+#: The CPU port's forests (V1, V3) are fitted with their first trees only,
+#: beside the build: a tree's key is ``split(key, T)[t]``, the same for
+#: any T, so they are the card's forests' first trees (a boosted tree
+#: also sees only the trees before it).
+V_CPU_TREES = 5
+#: V2: V1's rows in 4 batches, 5 trees, subsample 0.8 (the resume
+#: fast-forwards its draws), a crash after the snapshot of tree 3.
+V2_BATCHES, V2_TREES, V2_SUBSAMPLE, V2_CRASH = 4, 5, 0.8, 3
+#: V3: a random forest on V1's rows, 4 of 16 features a tree, Poisson(1)
+#: bootstrap weights.
+V3_TREES, V3_FRACTION = 10, 0.25
+#: V4: GaussianMixture, k = 8 on 100,000 x 32 float32 blobs, a fixed
+#: number of EM iterations (tol 0) against float64 numpy EM.
+V4_ROWS, V4_D, V4_K, V4_ITERS, V4_LL_RTOL = 100_000, 32, 8, 10, 1e-5
+#: V5: PCA and Correlation at a9a's width (``make_data``, U2's rows);
+#: Spearman ranks a 100,000-row prefix on the host.
+V5_ROWS, V5_D, V5_SEED, V5_K, V5_SPEARMAN_ROWS = (1_000_000, 123, 5, 10,
+                                                   100_000)
+#: V6: PowerIterationClustering on a seeded graph (a ring through every
+#: vertex, the rest uniform random edges, affinities uniform [0.5, 1.5)).
+V6_VERTICES, V6_EDGES, V6_ITERS = 100_000, 1_000_000, 20
+#: V7: the selectors', KBinsDiscretizer's and AFT's fits (AFT: 200 Adam
+#: steps, batch 4,096).
+V7_ROWS, V7_AFT_STEPS = 100_000, 200
+
+
+def v_sync(torch):
+    if V_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def v_seconds(torch, fn):
+    """``(seconds, result)`` of one call, synchronized on the card."""
+    v_sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    v_sync(torch)
+    return time.perf_counter() - t0, out
+
+
+def v_data():
+    """V1's rows (``bench.py:456``'s generator)."""
+    if "v_data" not in PREPARED:
+        rng = np.random.default_rng(0)
+        x = rng.uniform(-1, 1, size=(V_ROWS, V_D)).astype(np.float32)
+        PREPARED["v_data"] = (x, (x[:, 0] * x[:, 1] > 0).astype(np.float32))
+    return PREPARED["v_data"]
+
+
+def v_gbt(cls_name="GBTClassifier", layout="segment", trees=None, **kw):
+    from flinkml_tpu_torch.models import gbt
+
+    est = getattr(gbt, cls_name)(hist_layout=layout, **kw)
+    return (est.set_num_trees(V_TREES if trees is None else trees)
+            .set_max_depth(V_DEPTH)
+            .set_max_bins(V_BINS).set_learning_rate(V_LR).set_reg_lambda(1.0)
+            .set_seed(0))
+
+
+def v_accuracy(model, x, y) -> float:
+    """Training accuracy on the first :data:`V_ACC_ROWS` rows (the host
+    walks the forest)."""
+    import flinkml_tpu_torch as fml
+
+    x, y = x[:V_ACC_ROWS], y[:V_ACC_ROWS]
+    pred = model.transform(fml.Table({"features": x}))[0].column("prediction")
+    return float((pred == y).mean())
+
+
+def v_prefix(model, trees: int, boosting: bool):
+    """A copy of a fitted forest model with its first ``trees`` trees (a
+    bagged forest averages them)."""
+    out = type(model)()
+    out.copy_params_from(model)
+    out._set_forest(model._feats[:trees], model._thrs[:trees],
+                    model._leaves[:trees], model._base, model._depth,
+                    model._lr if boosting else 1.0 / trees,
+                    model._gains[:trees], model._n_features,
+                    model._hash_features)
+    return out
+
+
+def v_forest_check(label, ref, got, boosting, acc_ref=None, acc_got=None):
+    """The near-tie rule (:func:`forest_parting`, leaves within
+    :data:`V_CARD_LEAF_RTOL`) over ``ref``'s trees, and the training
+    accuracies within :data:`V_ACC_TOL`; returns the rule's report."""
+    trees = ref._feats.shape[0]
+    report, problems = forest_parting(
+        forest_arrays(ref), tuple(a[:trees] for a in forest_arrays(got)),
+        boosting, leaf_rtol=V_CARD_LEAF_RTOL)
+    if problems:
+        fail(f"path V: {label}: {problems[0]}")
+    if acc_ref is not None and not abs(acc_got - acc_ref) <= V_ACC_TOL:
+        fail(f"path V: {label}: accuracy {acc_got} vs {acc_ref} (tolerance "
+             f"{V_ACC_TOL})")
+    return report
+
+
+def v_blobs():
+    """V4's blobs: 8 centers uniform in [-10, 10)^32, unit normal noise."""
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(-10, 10, size=(V4_K, V4_D))
+    assign = rng.integers(0, V4_K, V4_ROWS)
+    return (centers[assign] + rng.normal(size=(V4_ROWS, V4_D))).astype(
+        np.float32)
+
+
+def numpy_gmm_em(x, k, cov_type, iters, seed):
+    """Float64 numpy EM from the port's initialization (the host mean
+    removed, k-means++ on the centered rows with ``seed``, the data
+    variance as every covariance): ``(weights, means, covs)`` in centered
+    space after ``iters`` iterations, and the shift."""
+    from flinkml_tpu_torch.models import gmm as pgmm
+    from flinkml_tpu_torch.models.kmeans import _kmeans_pp_init
+
+    x = np.asarray(x, np.float64)
+    shift = x.mean(axis=0)
+    xc = x - shift
+    rng = np.random.default_rng(seed)
+    means = np.asarray(_kmeans_pp_init(xc, k, rng), np.float64)
+    var = np.maximum(xc.var(axis=0), pgmm._REG)
+    covs = (np.tile(var[None, :], (k, 1)) if cov_type == "diag"
+            else np.tile(np.diag(var)[None], (k, 1, 1)))
+    weights = np.full(k, 1.0 / k)
+    for _ in range(iters):
+        logp = numpy_gmm_logp(xc, weights, means, covs, cov_type)
+        mx = logp.max(axis=1, keepdims=True)
+        resp = np.exp(logp - mx)
+        resp /= resp.sum(axis=1, keepdims=True)
+        r_k = resp.sum(axis=0)
+        r_x = resp.T @ xc
+        if cov_type == "diag":
+            r_xx = resp.T @ (xc * xc)
+        else:
+            r_xx = np.stack([(resp[:, j:j + 1] * xc).T @ xc
+                             for j in range(k)])
+        weights, means, covs = pgmm._m_step(r_k, r_x, r_xx, cov_type)
+    return weights, means, covs, shift
+
+
+def numpy_gmm_logp(x, weights, means, covs, cov_type):
+    """``[n, k]`` float64 log(w_j · N(x | mu_j, Sigma_j))."""
+    d = x.shape[1]
+    out = np.empty((x.shape[0], len(weights)))
+    for j in range(len(weights)):
+        diff = x - means[j]
+        if cov_type == "diag":
+            maha = (diff * diff / covs[j]).sum(axis=1)
+            logdet = np.log(covs[j]).sum()
+        else:
+            chol = np.linalg.cholesky(covs[j])
+            z = np.linalg.solve(chol, diff.T)
+            maha = (z * z).sum(axis=0)
+            logdet = 2.0 * np.log(np.diag(chol)).sum()
+        out[:, j] = (np.log(weights[j]) - 0.5 * (d * np.log(2 * np.pi)
+                                                 + logdet) - 0.5 * maha)
+    return out
+
+
+def numpy_gmm_ll(x, weights, means, covs, cov_type) -> float:
+    """Mean float64 log-likelihood of rows ``x`` under a mixture."""
+    logp = numpy_gmm_logp(np.asarray(x, np.float64), weights, means, covs,
+                          cov_type)
+    mx = logp.max(axis=1, keepdims=True)
+    return float(np.mean(mx[:, 0] + np.log(np.exp(logp - mx).sum(axis=1))))
+
+
+def v_graph():
+    """V6's edges: a ring through every vertex and uniform random edges."""
+    rng = np.random.default_rng(6)
+    n, m = V6_VERTICES, V6_EDGES
+    ring = np.arange(n)
+    src = np.concatenate([ring, rng.integers(0, n, m - n)])
+    dst = np.concatenate([(ring + 1) % n, rng.integers(0, n, m - n)])
+    return src, dst, rng.uniform(0.5, 1.5, m)
+
+
+def v_references():
+    """Path V's references that need no card, made while the kernels
+    build: V1's and V3's forests fitted by the CPU port, V4's float64
+    EM, V5's float64 covariance and correlations, V6's float64 power
+    iterate."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import pic
+
+    t0 = time.perf_counter()
+    refs = {}
+    x, y = v_data()
+    table = fml.Table({"features": x, "label": y})
+    with fml.use_device("cpu"):
+        t = time.perf_counter()
+        m = v_gbt(trees=V_CPU_TREES).fit(table)
+        refs["v1_cpu_s"] = time.perf_counter() - t
+        refs["v1"], refs["v1_acc"] = m, v_accuracy(m, x, y)
+        rf = v_gbt("RandomForestClassifier", trees=V_CPU_TREES) \
+            .set_feature_subset_fraction(V3_FRACTION).fit(table)
+        refs["v3"], refs["v3_acc"] = rf, v_accuracy(rf, x, y)
+    xb = v_blobs()
+    refs["v4_x"] = xb
+    for cov in ("diag", "full"):
+        w, mu, c, shift = numpy_gmm_em(xb, V4_K, cov, V4_ITERS, 0)
+        refs[f"v4_{cov}_ll"] = numpy_gmm_ll(xb - shift, w, mu, c, cov)
+    xa = make_data(V5_ROWS, V5_D, seed=V5_SEED)[0].astype(np.float64)
+    xa_c = xa - xa.mean(axis=0)
+    cov = xa_c.T @ xa_c / (V5_ROWS - 1)
+    std = np.sqrt(np.diag(cov))
+    refs["v5_cov"], refs["v5_corr"] = cov, cov / np.outer(std, std)
+    from scipy.stats import rankdata
+
+    ranks = rankdata(xa[:V5_SPEARMAN_ROWS], axis=0)
+    refs["v5_spearman"] = np.corrcoef(ranks, rowvar=False)
+    src, dst, w = v_graph()
+    ids, s, d, wn, v0, _ = pic.pic_inputs(src, dst, w, 2, 0)
+    v = v0.astype(np.float64)
+    wn64 = wn.astype(np.float64)
+    for _ in range(V6_ITERS):
+        v = np.bincount(s, weights=wn64 * v[d], minlength=len(ids))
+        v /= np.abs(v).sum()
+    refs["v6_inputs"], refs["v6_iterate"] = (s, d, wn, v0), v
+    refs["seconds"] = time.perf_counter() - t0
+    PREPARED["v_refs"] = refs
+
+
+def v_segsum_case(torch, timer, x, y):
+    """V1's level-0 histogram sum (the first tree's ``[n·d, 2]`` g and h
+    into ``n_leaves·d·bins`` = 8,192 segments, of which the level's node
+    0 hits 512) and its leaf sums (``[n, 2]`` into 16, by tree 0's
+    leaves), each against its plain version, with its bound and
+    ``index_add_``'s time."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.models import gbt
+
+    dev = V_DEVICE
+    binned = torch.from_numpy(gbt.bin_features(
+        x, gbt.quantile_bin_edges(x, V_BINS))).to(dev)
+    yd = torch.from_numpy(y).to(dev)
+    pos = float(y.sum())
+    base = float(np.float32(np.log(pos / (len(y) - pos))))
+    g, h = gbt.grad_hess(torch.full_like(yd, base), yd, torch.ones_like(yd),
+                         True)
+    gh = torch.stack([g, h], dim=1)
+    node = torch.zeros(V_ROWS, dtype=torch.int32, device=dev)
+    n_leaves = 1 << V_DEPTH
+    segments = n_leaves * V_D * V_BINS
+    feat = torch.arange(V_D, dtype=torch.int32, device=dev)
+    ids = ((node[:, None] * V_D + feat[None, :]) * V_BINS + binned).reshape(-1)
+    vals = gh.repeat_interleave(V_D, dim=0)
+    # The leaf sums: the same rows' g and h by tree 0's leaf (V1's forest).
+    feats, thrs = PREPARED["v1_segment"]._feats, PREPARED["v1_segment"]._thrs
+    leaf = np.zeros(V_ROWS, np.int64)
+    for level in range(V_DEPTH):
+        i = (1 << level) - 1 + leaf
+        leaf = leaf * 2 + (x[np.arange(V_ROWS), feats[0, i]] > thrs[0, i])
+    records = []
+    for label, seg_ids, v, n_seg, tol in (
+            ("GBT level-0 histogram, [n·d, 2] g and h", ids, vals, segments,
+             1e-5),
+            ("GBT leaf sums, [n, 2] g and h", torch.from_numpy(
+                leaf.astype(np.int32)).to(dev), gh, n_leaves, 1e-4)):
+        got = ksegsum.segment_sum(v, seg_ids, n_seg)
+        want = ksegsum.segment_sum_plain(v, seg_ids, n_seg)
+        # Tree 0's h is one value, each hit segment sums thousands of it:
+        # the rounding errors of a float32 sum in two orders do not cancel
+        # as random terms' do (an H100 at level 0: 2.2e-6 of the largest
+        # sum).
+        scale = float(ksegsum.segment_sum_plain(v.abs(), seg_ids,
+                                                n_seg).max())
+        check_close(f"path V segment_sum {label}", got, want, 1e-5,
+                    tol * scale)
+        n_bytes = seg_ids.numel() * 4 + v.numel() * 4 + got.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, v.numel(), "float32")
+        long_ids = seg_ids.long()
+        records.append({
+            "label": label, "shape": [int(seg_ids.numel()), 2, n_seg],
+            "segments_hit": int(torch.unique(seg_ids).numel()),
+            "max_abs_err": max_err(got, want),
+            "ms": timer(lambda: ksegsum.segment_sum(v, seg_ids, n_seg)),
+            "plain_ms": timer(lambda: ksegsum.segment_sum_plain(
+                v, seg_ids, n_seg)),
+            "library_ms": timer(lambda: torch.zeros(
+                tuple(got.shape), device=dev).index_add_(0, long_ids, v)),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return records
+
+
+def v1_gbt(torch, rec, refs):
+    """V1: the boosted forest through ``GBTClassifier.fit`` on the card,
+    both layouts; the builder alone (``bench.py``'s row-trees/s); each
+    layout built twice to show which is bit for bit."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import gbt
+    from flinkml_tpu_torch.parallel import DeviceMesh
+
+    x, y = v_data()
+    table = fml.Table({"features": x, "label": y})
+    out = {"rows": V_ROWS, "features": V_D, "bins": V_BINS,
+           "depth": V_DEPTH, "trees": V_TREES}
+    models = {}
+    edges = gbt.quantile_bin_edges(x.astype(np.float64), V_BINS)
+    binned = gbt.bin_features(x.astype(np.float64), edges)
+    pos = float(y.sum())
+    base = float(np.float32(np.log(pos / (V_ROWS - pos))))
+    mesh = DeviceMesh()
+    dev_args = (mesh.shard_batch(binned), mesh.shard_batch(y),
+                mesh.shard_batch(np.ones(V_ROWS, np.float32)))
+    for layout in ("segment", "cumsum"):
+        fit_s, models[layout] = v_seconds(torch, lambda: v_gbt(
+            layout=layout).fit(table))
+        tables = gbt.sharded_hist_args(binned, mesh, V_BINS, layout)
+
+        def build():
+            return gbt.build_forest(
+                *dev_args, base=base, lr=float(np.float32(V_LR)), lam=1.0,
+                subsample=1.0, seed=0, n_feat=V_D, n_bins=V_BINS,
+                depth=V_DEPTH, num_trees=V_TREES, logistic=True,
+                hist_layout=layout, hist_tables=tables, mesh=mesh)
+
+        s1, f1 = v_seconds(torch, build)
+        s2, f2 = v_seconds(torch, build)
+        out[layout] = {
+            "fit_s": fit_s, "fit_row_trees_per_s": V_ROWS * V_TREES / fit_s,
+            "builder_s": [s1, s2],
+            "builder_row_trees_per_s": V_ROWS * V_TREES / min(s1, s2),
+            "repeat_bitwise": all(np.array_equal(a, b)
+                                  for a, b in zip(f1, f2)),
+            "accuracy": v_accuracy(models[layout], x, y)}
+    out["segment"]["vs_cpu_port"] = v_forest_check(
+        "V1 segment vs the CPU port", refs["v1"], models["segment"], True,
+        refs["v1_acc"], v_accuracy(v_prefix(models["segment"], V_CPU_TREES,
+                                            True), x, y))
+    out["cumsum"]["vs_segment"] = v_forest_check(
+        "V1 cumsum vs segment", models["segment"], models["cumsum"], True,
+        out["segment"]["accuracy"], out["cumsum"]["accuracy"])
+    out["cpu_port_fit_s"] = refs["v1_cpu_s"]
+    rec["V1"] = out
+    PREPARED["v1_segment"] = models["segment"]
+
+
+def v2_batches(part=None, parts=1):
+    """V1's rows in :data:`V2_BATCHES` batches (``part`` of ``parts``: that
+    block of every batch)."""
+    x, y = v_data()
+    rows = V_ROWS // V2_BATCHES
+    out = []
+    for b in range(V2_BATCHES):
+        xb, yb = x[b * rows:(b + 1) * rows], y[b * rows:(b + 1) * rows]
+        if part is not None:
+            k = rows // parts
+            xb, yb = xb[part * k:(part + 1) * k], yb[part * k:(part + 1) * k]
+        out.append({"features": xb, "label": yb})
+    return out
+
+
+def v2_estimator(subsample=V2_SUBSAMPLE, **kw):
+    return (v_gbt(trees=V2_TREES, stream_reservoir_capacity=V_ROWS, **kw)
+            .set_subsample(subsample))
+
+
+def v2_stream(torch, rec, tmp):
+    """V2: the streamed fit over a sealed cache, uninterrupted, then
+    crashed after the snapshot of tree :data:`V2_CRASH` and resumed."""
+    from flinkml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+
+    cache = cache_stream(iter(v2_batches()))
+    fit_s, golden = v_seconds(torch, lambda: v2_estimator().fit(cache))
+
+    class Crash(CheckpointManager):
+        def save(self, state, epoch, extra=None, **kw):
+            path = super().save(state, epoch, extra, **kw)
+            if epoch >= V2_CRASH:
+                raise RuntimeError("injected crash")
+            return path
+
+    ck = os.path.join(tmp, "v2_ck")
+    try:
+        v2_estimator(checkpoint_manager=Crash(ck), checkpoint_interval=1) \
+            .fit(cache)
+        fail("path V2: the crash was not injected")
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    resume_s, resumed = v_seconds(torch, lambda: v2_estimator(
+        checkpoint_manager=CheckpointManager(ck), checkpoint_interval=1,
+        resume=True).fit(cache))
+    report = v_forest_check("V2 resume vs the uninterrupted run", golden,
+                            resumed, True)
+    rec["V2"] = {"batches": V2_BATCHES, "trees": V2_TREES,
+                 "crash_after_tree": V2_CRASH, "fit_s": fit_s,
+                 "row_trees_per_s": V_ROWS * V2_TREES / fit_s,
+                 "resume_s": resume_s, "resume_vs_uninterrupted": report,
+                 "resume_bitwise": all(np.array_equal(a, b) for a, b in zip(
+                     forest_arrays(golden), forest_arrays(resumed)))}
+
+
+def v2_rank(torch, rank, out_dir):
+    """V2 on one rank of P-R's group: the streamed fit over this rank's
+    block of every batch, without subsampling (each rank would draw its
+    own mask, as each JAX process does); its forest and ``segment_sum``
+    launches."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+    from flinkml_tpu_torch.parallel import DeviceMesh
+
+    fml.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = v2_estimator(1.0, mesh=DeviceMesh()).fit(cache_stream(iter(
+        v2_batches(rank, PR_WORLD))))
+    out = {f"v2_{k}": a for k, a in zip(("feats", "thrs", "gains", "leaves"),
+                                        forest_arrays(model))}
+    out["v2_s"] = np.asarray(time.perf_counter() - t0)
+    out["v2_segment_sum"] = np.asarray(fml.launch_counts()["segment_sum"])
+    return out
+
+
+def v2_rank_check(rec, outs):
+    """The two ranks' streamed forest: the same bits on both ranks, and
+    by the near-tie rule against the first trees of V1's in-RAM forest on
+    the card (the same rows, exact edges, no subsampling). Returns the
+    ranks' launches."""
+    forests = [tuple(o[f"v2_{k}"] for k in ("feats", "thrs", "gains",
+                                             "leaves")) for o in outs]
+    for f in forests[1:]:
+        if any(a.tobytes() != b.tobytes() for a, b in zip(forests[0], f)):
+            fail("path V2: the ranks' streamed forests differ")
+    report, problems = forest_parting(
+        tuple(a[:V2_TREES] for a in forest_arrays(PREPARED["v1_segment"])),
+        forests[0], True, leaf_rtol=V_CARD_LEAF_RTOL)
+    if problems:
+        fail(f"path V2 ranks vs V1's forest: {problems[0]}")
+    launches = int(sum(int(o["v2_segment_sum"]) for o in outs))
+    rec["V2_ranks"] = {"world": PR_WORLD, "s": [float(o["v2_s"])
+                                                for o in outs],
+                       "vs_v1_in_ram": report,
+                       "segment_sum_launches": launches}
+    return launches
+
+
+def v3_forest(torch, rec, refs):
+    """V3: the random forest on the card against the CPU port's, tree by
+    tree; every tree's draws (Poisson weights, feature subset; the first
+    tree's float64 uniform mask too) on the card equal to the CPU's; the
+    float32 ``log`` of
+    every value a uniform draw can take, card against CPU (Knuth's
+    Poisson adds them)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import gbt
+    from flinkml_tpu_torch.ops import threefry
+
+    x, y = v_data()
+    fit_s, rf = v_seconds(torch, lambda: v_gbt(
+        "RandomForestClassifier", trees=V3_TREES)
+        .set_feature_subset_fraction(V3_FRACTION).fit(
+            fml.Table({"features": x, "label": y})))
+    report = v_forest_check("V3 random forest vs the CPU port", refs["v3"],
+                            rf, False, refs["v3_acc"],
+                            v_accuracy(v_prefix(rf, V_CPU_TREES, False), x, y))
+    keys = {dev: threefry.split(threefry.PRNGKey(0, dev), V3_TREES)
+            for dev in (V_DEVICE, "cpu")}
+    subset = max(1, int(round(V3_FRACTION * V_D)))
+    unequal = 0
+    for t in range(V3_TREES):
+        for boosting, lam in ((False, 1.0),) + (((True, 0.8),) if t == 0
+                                                else ()):
+            mc, fc = gbt.tree_weights(keys[V_DEVICE][t], V_ROWS, lam,
+                                      boosting, V_D, subset,
+                                      torch.device(V_DEVICE))
+            mh, fh = gbt.tree_weights(keys["cpu"][t], V_ROWS, lam, boosting,
+                                      V_D, subset, torch.device("cpu"))
+            unequal += int((mc.cpu() != mh).sum()) + int((fc.cpu() != fh)
+                                                          .sum())
+    if unequal:
+        fail(f"path V3: {unequal} draws on the card differ from the CPU's")
+    bits = torch.arange(1 << 23, dtype=torch.int32) | 0x3F800000
+    u = bits.view(torch.float32) - 1.0
+    log_card = torch.log(u.to(V_DEVICE)).cpu()
+    log_cpu = torch.log(u)
+    differ = int((log_card.view(torch.int32) != log_cpu.view(torch.int32))
+                 .sum())
+    rec["V3"] = {"trees": V3_TREES, "features_a_tree": subset,
+                 "fit_s": fit_s, "vs_cpu_port": report,
+                 "draws_equal": True,
+                 "uniform_values_whose_log_differs": differ}
+
+
+def v4_gmm(torch, rec, refs):
+    """V4: GaussianMixture on the card, diag and full, :data:`V4_ITERS`
+    EM iterations; the mean log-likelihood of its mixture against float64
+    numpy EM from the same initialization."""
+    import flinkml_tpu_torch as fml
+
+    xb = refs["v4_x"]
+    out = {"rows": V4_ROWS, "d": V4_D, "k": V4_K, "iterations": V4_ITERS}
+    for cov in ("diag", "full"):
+        est = (fml.GaussianMixture().set_k(V4_K).set_covariance_type(cov)
+               .set_max_iter(V4_ITERS).set_tol(0.0).set_seed(0))
+        fit_s, m = v_seconds(torch, lambda: est.fit(
+            fml.Table({"features": xb})))
+        ll = numpy_gmm_ll(xb, m.weights, m.means, m.covariances, cov)
+        want = refs[f"v4_{cov}_ll"]
+        if not abs(ll - want) <= V4_LL_RTOL * abs(want):
+            fail(f"path V4 {cov}: mean log-likelihood {ll} vs float64 EM "
+                 f"{want} (rtol {V4_LL_RTOL})")
+        pred = m.transform(fml.Table({"features": xb[:4096]}))[0]
+        out[cov] = {"fit_s": fit_s,
+                    "rows_x_iterations_per_s": V4_ROWS * V4_ITERS / fit_s,
+                    "mean_ll": ll, "numpy_f64_mean_ll": want,
+                    "clusters_used": int(len(np.unique(
+                        pred.column("prediction"))))}
+    rec["V4"] = out
+
+
+def v5_pca_corr(torch, rec, refs):
+    """V5: PCA and Correlation at a9a's width against float64 numpy: the
+    explained variances (rtol 1e-4), each component an eigenvector of the
+    float64 covariance (residual within 1e-4 of its eigenvalue: the
+    spectrum of standard normal rows is nearly degenerate, so components
+    are held by what they must satisfy), Pearson within 1e-5, Spearman on
+    a 100,000-row prefix within 1e-5."""
+    import flinkml_tpu_torch as fml
+
+    xa = make_data(V5_ROWS, V5_D, seed=V5_SEED)[0]
+    table = fml.Table({"features": xa})
+    fit_s, m = v_seconds(torch, lambda: fml.PCA().set_input_col("features")
+                         .set_k(V5_K).fit(table))
+    cov = refs["v5_cov"]
+    lam_ref = np.sort(np.linalg.eigvalsh(cov))[::-1][:V5_K]
+    var_err = float(np.abs(m.explained_variance / lam_ref - 1).max())
+    resid = max(float(np.linalg.norm(cov @ c - lam * c) / lam)
+                for c, lam in zip(m.components, m.explained_variance))
+    if not (var_err <= 1e-4 and resid <= 1e-4):
+        fail(f"path V5 PCA: variances off by {var_err}, eigen-residual "
+             f"{resid} (1e-4)")
+    corr_s, (pear,) = v_seconds(torch, lambda: fml.Correlation().transform(
+        table))
+    pear_err = float(np.abs(pear.column("corr")[0] - refs["v5_corr"]).max())
+    (spear,) = fml.Correlation().set_method("spearman").transform(
+        fml.Table({"features": xa[:V5_SPEARMAN_ROWS]}))
+    spear_err = float(np.abs(spear.column("corr")[0]
+                             - refs["v5_spearman"]).max())
+    if not (pear_err <= 1e-5 and spear_err <= 1e-5):
+        fail(f"path V5 Correlation: Pearson {pear_err}, Spearman "
+             f"{spear_err} (1e-5)")
+    rec["V5"] = {"rows": V5_ROWS, "d": V5_D, "k": V5_K, "pca_fit_s": fit_s,
+                 "variance_rel_err": var_err, "eigen_residual": resid,
+                 "pearson_s": corr_s, "pearson_err": pear_err,
+                 "spearman_rows": V5_SPEARMAN_ROWS, "spearman_err": spear_err}
+
+
+def v6_pic(torch, rec, refs):
+    """V6: PowerIterationClustering on the card; its power iterate against
+    float64 numpy (1e-4 of the largest entry)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import pic
+
+    src, dst, w = v_graph()
+    op = (fml.PowerIterationClustering().set_k(2).set_max_iter(V6_ITERS)
+          .set_weight_col("w").set_seed(0))
+    tr_s, (out,) = v_seconds(torch, lambda: op.transform(fml.Table(
+        {"src": src, "dst": dst, "w": w})))
+    s, d, wn, v0 = refs["v6_inputs"]
+    up = lambda a: torch.from_numpy(a).to(V_DEVICE)  # noqa: E731
+    it_s, v = v_seconds(torch, lambda: pic.power_iteration(
+        up(s), up(d), up(wn), up(v0), V6_ITERS))
+    want = refs["v6_iterate"]
+    err = float(np.abs(v.cpu().numpy() - want).max())
+    if not err <= 1e-4 * float(np.abs(want).max()):
+        fail(f"path V6: power iterate off by {err}")
+    rec["V6"] = {"vertices": V6_VERTICES, "edges": V6_EDGES,
+                 "iterations": V6_ITERS, "transform_s": tr_s,
+                 "iterations_s": it_s, "iterate_err": err,
+                 "cluster_sizes": np.bincount(out.column("prediction")
+                                              .astype(np.int64)).tolist()}
+
+
+def v7_small(torch, rec):
+    """V7: one fit and one transform of each selector, KBinsDiscretizer
+    and AFTSurvivalRegression on the card; the variance selector and AFT
+    against the CPU port (AFT within 1e-4 after 200 steps)."""
+    import flinkml_tpu_torch as fml
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(V7_ROWS, 8)) * np.linspace(0.01, 2, 8)
+    yc = rng.integers(0, 3, V7_ROWS).astype(np.float64)
+    cat = np.stack([(yc + rng.integers(0, 2, V7_ROWS)) % 4,
+                    rng.integers(0, 5, V7_ROWS)], axis=1).astype(np.float64)
+    t = fml.Table({"features": x, "cat": cat, "label": yc})
+    out = {}
+    t0 = time.perf_counter()
+    vt = fml.VarianceThresholdSelector().set_output_col("o") \
+        .set_variance_threshold(0.5)
+    sel = vt.fit(t).selected_indices
+    with fml.use_device("cpu"):
+        if not np.array_equal(sel, vt.fit(t).selected_indices):
+            fail("path V7: the variance selector differs from the CPU port")
+    vt.fit(t).transform(t)
+    ufs = (fml.UnivariateFeatureSelector().set_features_col("cat")
+           .set_output_col("o").set_selection_threshold(1))
+    ufs.fit(t).transform(t)
+    for op in (fml.ChiSqTest().set_features_col("cat"), fml.ANOVATest(),
+               fml.FValueTest()):
+        op.transform(t)
+    kb = fml.KBinsDiscretizer().set_input_col("features").set_output_col("o")
+    kb.fit(t).transform(t)
+    out["selectors_kbins_s"] = time.perf_counter() - t0
+    beta = np.asarray([0.5, -0.3, 0.2, 0.0, 0.1, -0.2, 0.3, 0.05])
+    tt = np.exp(x @ beta + 0.5 * np.log(rng.exponential(size=V7_ROWS)))
+    at = fml.Table({"features": x, "label": tt,
+                    "censor": (rng.uniform(size=V7_ROWS) < 0.7).astype(
+                        np.float64)})
+
+    def aft():
+        return (fml.AFTSurvivalRegression().set_max_iter(V7_AFT_STEPS)
+                .set_learning_rate(0.05).set_global_batch_size(4096)
+                .set_tol(0.0).set_seed(0).fit(at))
+
+    aft_s, card = v_seconds(torch, aft)
+    with fml.use_device("cpu"):
+        cpu = aft()
+    err = float(np.abs(card.coefficients - cpu.coefficients).max())
+    if not (err <= 1e-4 and abs(card.scale - cpu.scale) <= 1e-4):
+        fail(f"path V7: AFT on the card off the CPU port by {err}")
+    card.transform(at)
+    out.update({"aft_fit_s": aft_s, "aft_coef_err_vs_cpu": err})
+    rec["V7"] = out
+
+
+def catalog_v_path(torch, timer):
+    """Path V (module docstring, V1-V7; V2's ranks run in
+    :func:`pr_ranks`). Returns ``(segment_sum launches, kernel record)``."""
+    import flinkml_tpu_torch as fml
+
+    t0 = time.perf_counter()
+    if "v_refs_future" in PREPARED:
+        PREPARED.pop("v_refs_future").result()
+    elif "v_refs" not in PREPARED:
+        v_references()
+    refs = PREPARED["v_refs"]
+    wait_s = time.perf_counter() - t0
+    rec = {"path": "catalog_V", "references_s": refs["seconds"],
+           "references_wait_s": wait_s, "part_s": {}}
+    fml.reset_launch_counts()
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        fn(torch, rec, *args)
+        rec["part_s"][name] = time.perf_counter() - t
+
+    part("V1", v1_gbt, refs)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("V2", v2_stream, tmp)
+    part("V3", v3_forest, refs)
+    part("V4", v4_gmm, refs)
+    part("V5", v5_pca_corr, refs)
+    part("V6", v6_pic, refs)
+    part("V7", v7_small)
+    launches = fml.launch_counts()["segment_sum"]
+    if not launches:
+        fail("path V: segment_sum never launched")
+    rank_launches = v2_rank_check(rec, PREPARED["pr_outs"])
+    rec["segment_sum_launches"] = {"parent": launches,
+                                   "V2_ranks": rank_launches}
+    rec["card"] = card_line()
+    rec["seconds"] = time.perf_counter() - t0
+    log("path " + json.dumps(rec))
+    x, y = v_data()
+    kernels = v_segsum_case(torch, timer, x, y)
+    log("kernel segment_sum catalog_V " + json.dumps(kernels))
+    return launches + rank_launches, kernels
+
+
 #: Inputs and float64 references that need no card, made while the kernels
 #: build (:func:`prepare_references`) and taken by the path that uses them.
 PREPARED = {}
@@ -8531,7 +9310,9 @@ PREPARED = {}
 def prepare_references() -> float:
     """Fill :data:`PREPARED` (the ``topk`` probe's rows, path J's inputs
     and references, path L's references) and draw the a9a-width rows of
-    paths F and U2: host work that would otherwise wait for the card.
+    paths F, U2 and V5: host work that would otherwise wait for the card.
+    Path V's references are made on a thread of their own
+    (:func:`v_references`, started by :func:`main`).
     Returns its seconds."""
     t0 = time.perf_counter()
     # torch.profiler imports this at its first start (device_share).
@@ -8590,6 +9371,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     # The host references need no kernel: make them while nvcc runs.
+    # Path V's CPU-port and float64 references run beside the build and
+    # the earlier paths; path V waits for them.
+    v_pool = ThreadPoolExecutor(max_workers=1)
+    PREPARED["v_refs_future"] = v_pool.submit(v_references)
+    v_pool.shutdown(wait=False)
     with ThreadPoolExecutor(max_workers=1) as pool:
         build = pool.submit(_build.build_all)
         prep_s = prepare_references()
@@ -8671,6 +9457,8 @@ def main() -> int:
                       (topk_rec, "topk")):
         rec["recsys_U"] = u_kernels[name]
     mark("path U")
+    v_segsum, segsum_rec["catalog_V"] = catalog_v_path(torch, timer)
+    mark("path V")
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -8685,6 +9473,7 @@ def main() -> int:
             "recsys_U": u_counts[name]}
         if name == "segment_sum":
             rec["launches_by_path"].update(pqrs_segsum)
+            rec["launches_by_path"]["catalog_V"] = v_segsum
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
                                     "lsh": lsh_path(torch, timer),
@@ -8703,7 +9492,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in keys},
              **{k: r[k] for k in ("bf16", "tiers", "launches_by_path",
-                                  "naive_bayes", "als_Q", "recsys_U")
+                                  "naive_bayes", "als_Q", "recsys_U",
+                                  "catalog_V")
                 if k in r})
         for r in (spmv_rec, chain_rec, segsum_rec, topk_rec)]}))
     print(card)

@@ -16,7 +16,10 @@ multinomial, dense and sparse transform), ``LinearSVC`` and
 ``LinearRegression`` (in RAM and streamed; the normal equations),
 ``OnlineLogisticRegression`` (FTRL over a stream), ``Knn``, ``MinHashLSH``,
 ``KMeans`` (in RAM, and streamed out of core with checkpoints),
-``OnlineKMeans`` and ``BisectingKMeans`` with their models; the
+``OnlineKMeans`` and ``BisectingKMeans`` with their models (and the
+catalog's later slices: ALS, the recsys family, the histogram GBTs and
+random forests, GaussianMixture, PCA, Correlation, PIC, the selectors,
+KBinsDiscretizer and AFT survival); the
 iteration runtime (``iterate``), checkpoint/resume (``CheckpointManager``)
 and the out-of-core data cache (``DataCache``) in
 :mod:`flinkml_tpu_torch.iteration`; the input pipeline
@@ -82,21 +85,35 @@ from flinkml_tpu_torch.linalg import (  # noqa: F401
     Vectors,
 )
 from flinkml_tpu_torch.models import (  # noqa: F401
+    AFTSurvivalRegression,
+    AFTSurvivalRegressionModel,
     ALS,
     ALSModel,
+    ANOVATest,
     BisectingKMeans,
     BisectingKMeansModel,
+    ChiSqTest,
+    Correlation,
     CountVectorizer,
     CountVectorizerModel,
     FMClassifier,
     FMClassifierModel,
     FMRegressor,
     FMRegressorModel,
+    FValueTest,
+    GBTClassifier,
+    GBTClassifierModel,
+    GBTRegressor,
+    GBTRegressorModel,
+    GaussianMixture,
+    GaussianMixtureModel,
     HashingTF,
     IDF,
     IDFModel,
     IsotonicRegression,
     IsotonicRegressionModel,
+    KBinsDiscretizer,
+    KBinsDiscretizerModel,
     KMeans,
     KMeansModel,
     Knn,
@@ -126,12 +143,23 @@ from flinkml_tpu_torch.models import (  # noqa: F401
     OnlineKMeansModel,
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
+    PCA,
+    PCAModel,
+    PowerIterationClustering,
+    RandomForestClassifier,
+    RandomForestClassifierModel,
+    RandomForestRegressor,
+    RandomForestRegressorModel,
     RegexTokenizer,
     RobustScaler,
     RobustScalerModel,
     StandardScaler,
     StandardScalerModel,
     Tokenizer,
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
     VectorAssembler,
     Word2Vec,
     Word2VecModel,
@@ -177,14 +205,19 @@ from flinkml_tpu_torch.table import Table  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = [
+    "AFTSurvivalRegression",
+    "AFTSurvivalRegressionModel",
     "ALS",
     "ALSModel",
+    "ANOVATest",
     "AlgoOperator",
     "BisectingKMeans",
     "BisectingKMeansModel",
     "BoolParam",
     "CheckpointManager",
+    "ChiSqTest",
     "ColumnKernel",
+    "Correlation",
     "CountVectorizer",
     "CountVectorizerModel",
     "DataCache",
@@ -194,8 +227,15 @@ __all__ = [
     "FMClassifierModel",
     "FMRegressor",
     "FMRegressorModel",
+    "FValueTest",
     "FloatArrayParam",
     "FloatParam",
+    "GBTClassifier",
+    "GBTClassifierModel",
+    "GBTRegressor",
+    "GBTRegressorModel",
+    "GaussianMixture",
+    "GaussianMixtureModel",
     "Graph",
     "GraphBuilder",
     "GraphModel",
@@ -206,6 +246,8 @@ __all__ = [
     "IntParam",
     "IsotonicRegression",
     "IsotonicRegressionModel",
+    "KBinsDiscretizer",
+    "KBinsDiscretizerModel",
     "KMeans",
     "KMeansModel",
     "KernelUnsupportedError",
@@ -239,12 +281,19 @@ __all__ = [
     "OnlineKMeansModel",
     "OnlineLogisticRegression",
     "OnlineLogisticRegressionModel",
+    "PCA",
+    "PCAModel",
     "Param",
     "ParamValidators",
     "Pipeline",
     "PipelineModel",
+    "PowerIterationClustering",
     "PrecisionPolicy",
     "PrecisionValidationError",
+    "RandomForestClassifier",
+    "RandomForestClassifierModel",
+    "RandomForestRegressor",
+    "RandomForestRegressorModel",
     "RegexTokenizer",
     "RobustScaler",
     "RobustScalerModel",
@@ -258,6 +307,10 @@ __all__ = [
     "TableId",
     "Tokenizer",
     "Transformer",
+    "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
     "Vector",
     "VectorAssembler",
     "Vectors",

@@ -4,8 +4,11 @@ LinearRegression, OnlineLogisticRegression, Knn, MinHashLSH, KMeans (in
 RAM and streamed), OnlineKMeans, OnlineStandardScaler, BisectingKMeans,
 NaiveBayes, ALS, the MLPs, the factorization machines,
 IsotonicRegression, the text features (Tokenizer, RegexTokenizer,
-HashingTF, CountVectorizer, IDF), NGram and Word2Vec (estimators and
-models). ``__all__`` lists them in the JAX package's order."""
+HashingTF, CountVectorizer, IDF), NGram, Word2Vec, the histogram GBTs and
+random forests, GaussianMixture, PCA, Correlation,
+PowerIterationClustering, the feature tests and selectors,
+KBinsDiscretizer and AFTSurvivalRegression (estimators and models).
+``__all__`` lists them in the JAX package's order."""
 
 from flinkml_tpu_torch.models.als import ALS, ALSModel  # noqa: F401
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
@@ -85,6 +88,40 @@ from flinkml_tpu_torch.models.text import (  # noqa: F401
     Tokenizer,
 )
 from flinkml_tpu_torch.models.word2vec import Word2Vec, Word2VecModel  # noqa: F401
+from flinkml_tpu_torch.models.discretizer import (  # noqa: F401
+    KBinsDiscretizer,
+    KBinsDiscretizerModel,
+)
+from flinkml_tpu_torch.models.gbt import (  # noqa: F401
+    GBTClassifier,
+    GBTClassifierModel,
+    GBTRegressor,
+    GBTRegressorModel,
+    RandomForestClassifier,
+    RandomForestClassifierModel,
+    RandomForestRegressor,
+    RandomForestRegressorModel,
+)
+from flinkml_tpu_torch.models.gmm import (  # noqa: F401
+    GaussianMixture,
+    GaussianMixtureModel,
+)
+from flinkml_tpu_torch.models.pca import PCA, PCAModel  # noqa: F401
+from flinkml_tpu_torch.models.pic import PowerIterationClustering  # noqa: F401
+from flinkml_tpu_torch.models.selectors import (  # noqa: F401
+    ANOVATest,
+    ChiSqTest,
+    FValueTest,
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+)
+from flinkml_tpu_torch.models.stats import Correlation  # noqa: F401
+from flinkml_tpu_torch.models.survival import (  # noqa: F401
+    AFTSurvivalRegression,
+    AFTSurvivalRegressionModel,
+)
 
 __all__ = [
     "LogisticRegression",
@@ -113,12 +150,26 @@ __all__ = [
     "MaxAbsScalerModel",
     "RobustScaler",
     "RobustScalerModel",
+    "KBinsDiscretizer",
+    "KBinsDiscretizerModel",
     "OnlineStandardScaler",
     "OnlineStandardScalerModel",
+    "Correlation",
     "ALS",
     "ALSModel",
     "BisectingKMeans",
     "BisectingKMeansModel",
+    "PowerIterationClustering",
+    "GaussianMixture",
+    "GaussianMixtureModel",
+    "GBTClassifier",
+    "GBTClassifierModel",
+    "GBTRegressor",
+    "GBTRegressorModel",
+    "RandomForestClassifier",
+    "RandomForestClassifierModel",
+    "RandomForestRegressor",
+    "RandomForestRegressorModel",
     "MLPClassifier",
     "MLPClassifierModel",
     "MLPRegressor",
@@ -129,6 +180,10 @@ __all__ = [
     "FMRegressorModel",
     "IsotonicRegression",
     "IsotonicRegressionModel",
+    "AFTSurvivalRegression",
+    "AFTSurvivalRegressionModel",
+    "PCA",
+    "PCAModel",
     "Tokenizer",
     "RegexTokenizer",
     "HashingTF",
@@ -142,4 +197,11 @@ __all__ = [
     "Word2VecModel",
     "MinHashLSH",
     "MinHashLSHModel",
+    "ChiSqTest",
+    "ANOVATest",
+    "FValueTest",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
+    "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel",
 ]

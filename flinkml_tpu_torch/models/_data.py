@@ -99,6 +99,36 @@ def labeled_data(
     return x, y, w
 
 
+_HASH_MIX = np.uint64(0x9E3779B97F4A7C15)  # golden-ratio multiplicative mix
+
+
+def hashed_feature_matrix(
+    sparse_col: np.ndarray, num_buckets: int, dtype=np.float32
+) -> np.ndarray:
+    """Hash-bundle a SparseVector column into a dense ``[n, num_buckets]``
+    host matrix: bucket ``mix(col_id) % num_buckets`` accumulates the sum
+    of that row's values whose column hashes there (the JAX package's
+    bundling, bit for bit: the tree models' route for high-cardinality
+    sparse inputs, so histograms stay ``n x num_buckets`` whatever the
+    sparse dimensionality)."""
+    from flinkml_tpu_torch.ops.sparse import csr_from_sparse_vectors
+
+    indptr, indices, values, _dim = csr_from_sparse_vectors(
+        sparse_col, dtype=dtype
+    )
+    n = indptr.size - 1
+    mixed = indices.astype(np.uint64) * _HASH_MIX
+    buckets = ((mixed >> np.uint64(32)) % np.uint64(num_buckets)).astype(
+        np.int64
+    )
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    flat = np.bincount(
+        rows * num_buckets + buckets, weights=values,
+        minlength=n * num_buckets,
+    )
+    return flat.reshape(n, num_buckets).astype(dtype)
+
+
 def check_binary_labels(y: np.ndarray, model_name: str) -> None:
     """Validate labels ∈ {0, 1} (shared by the binomial classifiers)."""
     labels = np.unique(y)

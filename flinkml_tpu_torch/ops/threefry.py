@@ -2,7 +2,8 @@
 
 The port's counterpart of the ``jax.random`` calls its Adam, MLP, FM and
 Word2Vec trainers make (``PRNGKey``, ``fold_in``, ``split``, ``randint``,
-``uniform``, ``normal``), with the bit layout of
+``uniform``, ``normal``) and the forests make (float64 ``uniform``,
+``poisson`` below a rate of 10, ``permutation``), with the bit layout of
 ``jax_threefry_partitionable=True``: a draw of shape ``s`` runs the
 Threefry-2x32 block cipher once per element, on the counter pair (high and
 low 32 bits of the element's row-major index), and a 32-bit draw is the
@@ -203,16 +204,101 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: the top 23 bits of a 32-bit
-    draw as the mantissa of a float in ``[1, 2)``, minus 1, scaled to
-    ``[minval, maxval)`` and clamped below at ``minval``."""
+            maxval: float = 1.0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform``: the top mantissa bits of a draw as the
+    mantissa of a float in ``[1, 2)``, minus 1, scaled to ``[minval,
+    maxval)`` and clamped below at ``minval``.
+
+    float32 (the default) takes the top 23 of 32 bits, and its scaling is
+    XLA's one fused multiply-add. float64 (JAX's default dtype under
+    ``jax_enable_x64``) takes the top 52 of the 64 bits ``hi·2**32 + lo``
+    of the cipher's two words; its scaling is a float64 multiply and add,
+    so it equals JAX's bit for bit on ``[0, 1)`` (the forests' draw),
+    where both are exact."""
+    if dtype == torch.float64:
+        shape = tuple(int(s) for s in shape)
+        k0, k1 = _words(key, len(shape))
+        hi, lo = _counters(shape, key.device)
+        y0, y1 = threefry2x32(k0, k1, hi, lo)
+        # (hi·2**32 + lo) >> 12 without leaving the positive int64 range.
+        bits = (y0 << 20) | (y1 >> 12) | 0x3FF0000000000000
+        floats = bits.view(torch.float64) - 1.0
+        lo_t = torch.tensor(minval, dtype=torch.float64, device=key.device)
+        hi_t = torch.tensor(maxval, dtype=torch.float64, device=key.device)
+        return torch.maximum(lo_t, floats * (hi_t - lo_t) + lo_t)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or float64, got {dtype}")
     bits = random_bits(key, shape)
     floats = (((bits >> 9) | 0x3F800000).to(torch.int32)
               .view(torch.float32) - 1.0)
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+class UnsupportedDrawError(NotImplementedError):
+    """A draw the port does not make: ``poisson`` with ``lam >= 10`` (JAX's
+    transformed-rejection branch) or a NaN rate."""
+
+
+#: JAX's switch from Knuth's algorithm to transformed rejection.
+POISSON_KNUTH_LIMIT = 10.0
+
+
+def poisson(key: torch.Tensor, lam: float, shape: Sequence[int],
+            dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``jax.random.poisson(key, lam, shape)`` for a scalar rate below 10:
+    Knuth's algorithm as ``jax._src.random._poisson_knuth`` runs it. ``lam``
+    is rounded to float32; each round splits the key once (the first half
+    carries on, the second draws), counts every element whose running
+    ``log_prod`` is still above ``-lam``, then adds the ``log`` of one
+    float32 ``uniform`` over the whole shape; the rounds stop when no
+    element is above. The draw is the count less one, ``dtype`` (int64:
+    JAX's ``int`` under x64); ``lam == 0`` gives zeros.
+
+    The rejection branch (``lam >= 10``) raises
+    :class:`UnsupportedDrawError`: the forests' rates (``subsample``) lie
+    in (0, 1]."""
+    lam32 = float(np.float32(lam))
+    if not lam32 < POISSON_KNUTH_LIMIT:
+        raise UnsupportedDrawError(
+            f"poisson takes rates below {POISSON_KNUTH_LIMIT} (Knuth's "
+            f"branch), got {lam!r}")
+    if lam32 < 0:
+        raise ValueError(f"poisson rate must be >= 0, got {lam!r}")
+    shape = tuple(int(s) for s in shape)
+    if lam32 == 0.0:
+        return torch.zeros(shape, dtype=dtype, device=key.device)
+    neg = torch.tensor(-lam32, dtype=torch.float32, device=key.device)
+    k = torch.zeros(shape, dtype=torch.int64, device=key.device)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=key.device)
+    rng = key
+    while True:
+        live = log_prod > neg
+        if not bool(live.any()):
+            break
+        keys = split(rng)
+        rng, sub = keys[0], keys[1]
+        k = k + live.to(torch.int64)
+        log_prod = log_prod + torch.log(uniform(sub, shape))
+    return (k - 1).to(dtype)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``, JAX's ``_shuffle`` of
+    ``arange(n)`` (int64): ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each
+    splitting the key (the first half carries on), drawing 32-bit sort
+    keys with the second and sorting the values by them, stably."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        keys = split(key)
+        key, sub = keys[0], keys[1]
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

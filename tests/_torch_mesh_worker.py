@@ -19,7 +19,9 @@ scripted faults: ``RankLost`` under a watchdog, ``NaNGrad`` under the
 sentinel; ``tests/test_torch_preemption.py``), or ``tensor``, ``ring``,
 ``embeddings``, ``features`` and ``als`` (``tests/_torch_recsys_cases.py``:
 tensor and pipeline parallelism, ring attention, sharded embedding
-tables, the sharded hashed-FM trainer and ALS on the mesh). The streams' data
+tables, the sharded hashed-FM trainer and ALS on the mesh), or
+``catalog_b`` (``tests/_torch_catalog_cases.py``: the forests in RAM and
+streamed, GaussianMixture, PCA and Correlation on the mesh). The streams' data
 and hyperparameters are ``tests/_stream_mp_common.py``'s, which builds
 them from numpy alone.
 
@@ -973,6 +975,7 @@ def scaler_partition(rank: int, world: int, seed=2):
 
 def main(argv) -> int:
     which, out_dir = argv[1], argv[2]
+    import _torch_catalog_cases as catalog
     import _torch_recsys_cases as recsys
     import flinkml_tpu_torch as fml
     from flinkml_tpu_torch.parallel import DeviceMesh, init_distributed
@@ -1015,6 +1018,8 @@ def main(argv) -> int:
             out = recsys.als_cases(mesh, rank, world, out_dir)
         elif which == "recsys_b":
             out = recsys.recsys_b_cases(mesh, rank, world, out_dir)
+        elif which == "catalog_b":
+            out = catalog.catalog_b_cases(mesh, rank, world)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

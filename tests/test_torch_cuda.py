@@ -2237,3 +2237,171 @@ def test_mlp_short_fit_on_card_learns_xor(cuda_device):
         .set_seed(0).fit(t)
     (out,) = model.transform(t)
     assert (out["prediction"] == y).mean() > 0.97
+
+
+# -- the device-side catalog (item 10b): forests, GMM, PCA, PIC ----------------
+
+def _forest_table(n=3000, d=6, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, size=(n, d))
+    y = (x[:, 0] * x[:, 1] > 0).astype(np.float64)
+    return fml.Table({"features": x, "label": y}), x, y
+
+
+def _near_tie_problems(a, b, boosting):
+    import chip_smoke
+
+    return chip_smoke.forest_parting(
+        chip_smoke.forest_arrays(a), chip_smoke.forest_arrays(b), boosting,
+        leaf_rtol=chip_smoke.V_CARD_LEAF_RTOL)[1]
+
+
+@pytest.mark.parametrize("layout", ["segment", "cumsum"])
+@pytest.mark.parametrize("name", ["GBTClassifier", "RandomForestClassifier"])
+def test_gbt_forest_on_card_matches_cpu(cuda_device, name, layout):
+    from flinkml_tpu_torch.models import gbt
+
+    t, x, y = _forest_table()
+
+    def fit(device):
+        est = getattr(gbt, name)(hist_layout=layout).set_num_trees(8) \
+            .set_max_depth(4).set_max_bins(32).set_subsample(0.8).set_seed(1)
+        with fml.use_device(device):
+            return est.fit(t)
+
+    before = ksegsum.LAUNCHES.count
+    card = fit("cuda")
+    launches = ksegsum.LAUNCHES.count - before
+    assert launches == (8 * 5 if layout == "segment" else 0)
+    cpu = fit("cpu")
+    assert not _near_tie_problems(cpu, card, name.startswith("GBT"))
+    acc = lambda m: (m.transform(fml.Table({"features": x}))[0]
+                     .column("prediction") == y).mean()  # noqa: E731
+    assert abs(acc(card) - acc(cpu)) < 0.01
+
+
+def test_gbt_segment_layout_refuses_deterministic_mode(cuda_device):
+    from flinkml_tpu_torch.models import gbt
+
+    t, _, _ = _forest_table(n=200)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with fml.use_device("cuda"):
+            with pytest.raises(fml.KernelUnsupportedError):
+                gbt.GBTClassifier().set_num_trees(1).set_max_depth(2).fit(t)
+            # The cumsum layout has no atomics: it runs, and repeats.
+            fits = [gbt.GBTClassifier(hist_layout="cumsum").set_num_trees(3)
+                    .set_max_depth(3).fit(t) for _ in range(2)]
+            assert np.array_equal(fits[0]._leaves, fits[1]._leaves)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_forest_draws_on_card_match_cpu(cuda_device):
+    from flinkml_tpu_torch.models import gbt
+    from flinkml_tpu_torch.ops import threefry
+
+    keys_c = threefry.split(threefry.PRNGKey(5, cuda_device), 6)
+    keys_h = threefry.split(threefry.PRNGKey(5, "cpu"), 6)
+    for t in range(6):
+        for boosting, sub in ((True, 0.7), (False, 1.0), (False, 0.5)):
+            mc, fc = gbt.tree_weights(keys_c[t], 1 << 18, sub, boosting, 16,
+                                      4, cuda_device)
+            mh, fh = gbt.tree_weights(keys_h[t], 1 << 18, sub, boosting, 16,
+                                      4, torch.device("cpu"))
+            assert torch.equal(mc.cpu(), mh) and torch.equal(fc.cpu(), fh)
+
+
+def test_gbt_stream_on_card_matches_cpu_and_resumes(cuda_device, tmp_path):
+    from flinkml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+    from flinkml_tpu_torch.models import gbt
+    from flinkml_tpu_torch.models._gbt_stream import train_gbt_stream
+    from flinkml_tpu_torch.parallel import DeviceMesh
+
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(4):
+        xb = rng.uniform(-1, 1, size=(500, 4)).astype(np.float32)
+        batches.append({"x": xb, "y": (xb[:, 0] * xb[:, 1] > 0).astype(
+            np.float32), "w": np.ones(500, np.float32)})
+    cache = cache_stream(iter(batches))
+    args = dict(logistic=True, num_trees=5, depth=3, max_bins=16,
+                learning_rate=0.3, reg_lambda=1.0, subsample=0.8, seed=0)
+
+    def forest(r):
+        return (r[0], gbt.split_thresholds(r[5], r[0], r[1]), r[2], r[3])
+
+    def run(device, **kw):
+        with fml.use_device(device):
+            return train_gbt_stream(cache, mesh=DeviceMesh(), **args, **kw)
+
+    import chip_smoke
+    tol = chip_smoke.V_CARD_LEAF_RTOL
+    card, cpu = run("cuda"), run("cpu")
+    assert not chip_smoke.forest_parting(forest(cpu), forest(card), True,
+                                         leaf_rtol=tol)[1]
+
+    class Crash(CheckpointManager):
+        def save(self, state, epoch, extra=None, **kw):
+            p = super().save(state, epoch, extra, **kw)
+            if epoch >= 3:
+                raise RuntimeError("injected crash")
+            return p
+
+    with pytest.raises(RuntimeError, match="injected"):
+        run("cuda", checkpoint_manager=Crash(str(tmp_path / "ck")),
+            checkpoint_interval=3)
+    resumed = run("cuda", checkpoint_manager=CheckpointManager(
+        str(tmp_path / "ck")), checkpoint_interval=3, resume=True)
+    assert not chip_smoke.forest_parting(forest(card), forest(resumed),
+                                         True, leaf_rtol=tol)[1]
+
+
+@pytest.mark.parametrize("cov", ["diag", "full"])
+def test_gmm_em_statistics_on_card_match_cpu(cuda_device, cov):
+    from flinkml_tpu_torch.models import gmm
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(5000, 8)).astype(np.float32)
+    weights = np.full(4, 0.25)
+    means = rng.normal(size=(4, 8))
+    covs = (rng.uniform(0.5, 2, (4, 8)) if cov == "diag"
+            else np.stack([np.eye(8) * s for s in (0.6, 1.0, 1.4, 2.0)]))
+
+    def stats(device):
+        xd = torch.from_numpy(x).to(device)
+        return gmm.unpack_statistics(gmm.em_statistics(
+            xd, torch.ones(len(x), device=device), weights, means, covs,
+            cov), 4, 8, cov)
+
+    for a, b in zip(stats(cuda_device), stats("cpu")):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, np.abs(b).max()))
+
+
+def test_pca_gram_and_pic_on_card_match_cpu(cuda_device):
+    from flinkml_tpu_torch.models import pca, pic
+
+    x = np.random.default_rng(4).normal(size=(20000, 16)).astype(np.float32)
+    card = pca.mean_and_gram(None, torch.from_numpy(x).to(cuda_device),
+                             torch.ones(len(x), device=cuda_device), x[0])
+    cpu = pca.mean_and_gram(None, torch.from_numpy(x), torch.ones(len(x)),
+                            x[0])
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, np.abs(b).max()))
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 3000, 20000)
+    dst = rng.integers(0, 3000, 20000)
+    ids, s, d, wn, v0, _ = pic.pic_inputs(src, dst, np.ones(20000), 2, 0)
+    up = lambda a, dev: torch.from_numpy(a).to(dev)  # noqa: E731
+    before = ksegsum.LAUNCHES.count
+    vc = pic.power_iteration(up(s, cuda_device), up(d, cuda_device),
+                             up(wn, cuda_device), up(v0, cuda_device), 15)
+    torch.cuda.synchronize()
+    assert ksegsum.LAUNCHES.count == before + 15
+    vh = pic.power_iteration(up(s, "cpu"), up(d, "cpu"), up(wn, "cpu"),
+                             up(v0, "cpu"), 15)
+    np.testing.assert_allclose(vc.cpu().numpy(), vh.numpy(), rtol=1e-4,
+                               atol=1e-6 * float(vh.abs().max()))

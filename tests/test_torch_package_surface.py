@@ -35,26 +35,16 @@ GAPS = {
         "pallas_segment_sum", "segment_sum", "segsum_backend", "pallas_spmv",
         "spmv_backend", "pallas_top_k", "top_k", "topk_backend",
     },
-    # ROADMAP item 10: the rest of the model catalog.
+    # ROADMAP item 10c: the rest of the model catalog.
     "flinkml_tpu_torch.models": {
         "Normalizer", "ElementwiseProduct", "VectorSlicer",
         "PolynomialExpansion", "Binarizer", "Bucketizer", "Imputer",
-        "ImputerModel", "KBinsDiscretizer", "KBinsDiscretizerModel",
-        "Correlation", "AgglomerativeClustering", "PowerIterationClustering",
-        "GaussianMixture", "GaussianMixtureModel", "Swing", "GBTClassifier",
-        "GBTClassifierModel", "GBTRegressor", "GBTRegressorModel",
-        "RandomForestClassifier", "RandomForestClassifierModel",
-        "RandomForestRegressor", "RandomForestRegressorModel", "OneVsRest",
-        "OneVsRestModel", "AFTSurvivalRegression",
-        "AFTSurvivalRegressionModel", "FPGrowth", "FPGrowthModel",
-        "PrefixSpan", "PCA", "PCAModel", "StringIndexer",
-        "StringIndexerModel", "IndexToStringModel", "SQLTransformer",
-        "BinaryClassificationEvaluator", "FeatureHasher", "Interaction",
-        "DCT", "StopWordsRemover", "RandomSplitter", "LDA", "LDAModel",
-        "VectorIndexer", "VectorIndexerModel", "ChiSqTest", "ANOVATest",
-        "FValueTest", "VarianceThresholdSelector",
-        "VarianceThresholdSelectorModel", "UnivariateFeatureSelector",
-        "UnivariateFeatureSelectorModel",
+        "ImputerModel", "AgglomerativeClustering", "Swing", "OneVsRest",
+        "OneVsRestModel", "FPGrowth", "FPGrowthModel", "PrefixSpan",
+        "StringIndexer", "StringIndexerModel", "IndexToStringModel",
+        "SQLTransformer", "BinaryClassificationEvaluator", "FeatureHasher",
+        "Interaction", "DCT", "StopWordsRemover", "RandomSplitter", "LDA",
+        "LDAModel", "VectorIndexer", "VectorIndexerModel",
         "MulticlassClassificationEvaluator", "RegressionEvaluator",
         "ClusteringEvaluator",
     },

@@ -5,7 +5,8 @@
 on (this JAX's default) and ``jax_enable_x64`` on (the conftest's), the
 configuration the JAX trainers' draws are compared in. ``PRNGKey``,
 ``fold_in`` (one step and a vectorised block), ``split``, ``randint``
-(int32 and int64, the spans the trainers use) and ``uniform`` equal JAX's
+(int32 and int64, the spans the trainers use), ``uniform`` (float32 and
+float64), ``poisson`` (Knuth's branch) and ``permutation`` equal JAX's
 bit for bit. ``normal`` carries XLA's float32 ``erf_inv`` polynomial (with
 XLA's fused multiply-adds) but PyTorch's ``log1p`` and ``sqrt``: over
 600,000 draws (three seeds) at most 3 ulps part it from JAX's, on about 1%
@@ -145,3 +146,44 @@ def test_erf_inv_edges():
     got = tf.erf_inv(x).numpy()
     assert np.isinf(got[0]) and got[0] < 0 and np.isinf(got[1])
     np.testing.assert_allclose(got[2:], want[2:], rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", ((1000,), (7, 9)))
+def test_uniform_float64_bit_for_bit(seed, shape):
+    """JAX's default dtype under x64, the boosted forests' row mask."""
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
+    assert want.dtype == np.float64
+    got = tf.uniform(tf.PRNGKey(seed, "cpu"), shape, dtype=torch.float64)
+    assert got.dtype == torch.float64
+    assert (want.view(np.int64) == got.numpy().view(np.int64)).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lam", (1.0, 0.5, 0.37, 1e-3, 0.0, 9.5))
+def test_poisson_knuth_bit_for_bit(seed, lam):
+    want = np.asarray(jax.random.poisson(jax.random.PRNGKey(seed), lam,
+                                         (50_000,)))
+    got = tf.poisson(tf.PRNGKey(seed, "cpu"), lam, (50_000,))
+    assert want.dtype == np.int64 and got.dtype == torch.int64
+    assert (want == got.numpy()).all()
+    want = np.asarray(jax.random.poisson(jax.random.PRNGKey(seed), lam,
+                                         (6, 11)))
+    assert (want == tf.poisson(tf.PRNGKey(seed, "cpu"), lam,
+                               (6, 11)).numpy()).all()
+
+
+@pytest.mark.parametrize("lam", (10.0, 25.0, float("nan")))
+def test_poisson_refuses_the_rejection_branch(lam):
+    with pytest.raises(tf.UnsupportedDrawError):
+        tf.poisson(tf.PRNGKey(0, "cpu"), lam, (4,))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", (1, 2, 5, 16, 123, 2000))
+def test_permutation_bit_for_bit(seed, n):
+    """``n`` up to 2000 runs two sorting rounds (1626 and above)."""
+    want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+    got = tf.permutation(tf.PRNGKey(seed, "cpu"), n)
+    assert got.dtype == torch.int64
+    assert want.tolist() == got.tolist()
