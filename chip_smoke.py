@@ -372,6 +372,38 @@ and fails with a non-zero exit if any phase fails:
    read: V1's level-0 histogram sum (4,194,304 ``[2]`` cells into 8,192
    segments, 512 hit) against its plain version, with its bound and
    ``index_add_``'s time. V must launch ``segment_sum``;
+6r. the host half of the model catalog (path W, ``catalog_w_path``; its
+   corpus, CPU-port references and Criteo-shaped columns made beside the
+   build, :func:`w_references`): W1, ``LDA.fit`` (k = 20, 10 passes, tol
+   0) on dense float32 counts resident on the card (4.48 GB) at the UCI
+   "Bag of Words" Enron corpus' shape, 39,861 documents x 28,102 words,
+   ~6.4 M tokens drawn from a seeded LDA process with 20 planted topics
+   (Dirichlet 0.1 mixtures, Dirichlet 0.05 topics); the card's gamma draws
+   within 10 ulps of the CPU's, its first VB pass on a 2,048-document prefix
+   within 1e-4 of the CPU port's, the bound rising every pass, the fitted
+   topics' mean matched cosine to the planted ones at least 0.8, and
+   ``transform``; the streamed fit in 8 batches for 2 passes crashed after
+   the pass-1 snapshot and resumed bit for bit. W2, ``OneVsRest`` over
+   ``Pipeline(MinMaxScaler, LogisticRegression)`` on 60,000 x 784
+   MNIST-like rows in 10 classes, its transform through ``fused_chain``
+   (one launch a class), each class's ``rawPrediction``, fused and per
+   stage, within 1e-5 of a float64 numpy sigmoid of its scaled rows,
+   ``MulticlassClassificationEvaluator`` equal to float64 numpy within
+   1e-12 and accuracy at least 0.9. W3, ``CrossValidator`` (3 folds) and
+   ``TrainValidationSplit`` over LogisticRegression's regParam {100, 0,
+   1000} at a9a's shape (32,561 x 123, columns of two scales, noisy planted
+   labels), areaUnderROC within 1e-5 of the CPU port's and the same pick,
+   which the CPU port's metrics decide by at least 1e-3. W4, 65,536
+   Criteo-shaped rows (13 numeric columns with NaNs,
+   card-resident, through ``Imputer``; 26 categorical string columns
+   through ``StringIndexer`` capped at 10,000 values and its
+   ``IndexToStringModel``) hashed by ``FeatureHasher`` into 2^18, then the
+   sparse ``LogisticRegression`` fit (``spmv`` and ``segment_sum``) within
+   1e-4 of the largest coefficient of float64 numpy, and its transform
+   (``spmv``) within 1e-5 of a float64 numpy sigmoid of the CSR rows'
+   margins. W5, every other new stage on a Table of card tensors, bit
+   for bit against the same stage on host columns (the silhouette within
+   1e-6). W must launch ``fused_chain``, ``spmv`` and ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -9302,6 +9334,739 @@ def catalog_v_path(torch, timer):
     return launches + rank_launches, kernels
 
 
+# -- path W: the host half of the model catalog -------------------------------------
+
+#: W1: LDA at the UCI "Bag of Words" Enron corpus' shape, its counts drawn
+#: from a seeded LDA generative process with k = 20 planted topics.
+W1_DOCS, W1_VOCAB, W1_TOKENS, W1_K = 39_861, 28_102, 6_400_000, 20
+W1_ALPHA, W1_ETA, W1_SEED = 0.1, 0.05, 20   # the planted process
+W1_FIT_SEED, W1_PASSES, W1_PREFIX = 0, 10, 2_048
+W1_PASS_RTOL = 1e-4        # the prefix pass, card against CPU, of the largest
+W1_GAMMA_ULPS = 10         # the card's draws against the CPU's
+#: A floor on the mean matched cosine to the planted topics, well above
+#: the initial lambda's: a sanity check that the fit learnt the topics.
+#: The prefix pass against the CPU port is the check that finds a fault.
+W1_COSINE = 0.8
+W1_STREAM_BATCHES, W1_STREAM_PASSES = 8, 2
+#: W2: OneVsRest over MinMaxScaler -> LogisticRegression at MNIST's width.
+W2_ROWS, W2_ITERS, W2_BATCH, W2_LR, W2_ACCURACY = 60_000, 5, 8_192, 1.0, 0.9
+W2_RAW_TOL = 1e-5          # float32 P(class) against float64 numpy
+#: W3: the tuning tools over LogisticRegression at a9a's shape. The L2
+#: term is added to the batch's summed gradient, so a regParam shrinks a
+#: step as regParam / 8,192 per row would: 100 and 1000 turn the fitted
+#: direction on :func:`w3_data`, and the unregularised fit, in the middle of
+#: the grid, wins by ~1e-2 AUC.
+W3_ROWS, W3_D, W3_REGS, W3_FOLDS, W3_METRIC_TOL = 32_561, 123, (
+    100.0, 0.0, 1000.0), 3, 1e-5
+W3_ITERS, W3_BATCH, W3_LR = 10, 8_192, 4.0
+#: The CPU port's best metric leads the next by at least this, or the pick
+#: is not decided by the data and the check against the card means nothing.
+W3_MARGIN = 1e-3
+#: W4: Criteo-shaped rows through Imputer, StringIndexer and FeatureHasher
+#: into a sparse LogisticRegression.
+W4_ROWS, W4_NUMERIC, W4_FEATURES, W4_MAX_INDEX = 65_536, 13, 1 << 18, 10_000
+W4_CARDINALITY = (1_460, 583, 100_000, 50_000, 305, 24, 12_517, 633, 3,
+                  93_145, 5_683, 100_000, 3_194, 27, 14_992, 100_000, 10,
+                  5_652, 2_173, 4, 100_000, 18, 15, 86_000, 105, 42_646)
+W4_EPOCHS, W4_LR, W4_TOL, W4_RAW_TOL = 10, 0.1, 1e-4, 1e-5
+#: W5: the other new stages on a card-resident Table.
+W5_ROWS, W5_D, W5_AGGLOMERATIVE_ROWS, W5_SILHOUETTE_RTOL = 65_536, 8, 2_000, 1e-6
+
+
+def w_corpus():
+    """``(flat, topics)``: the corpus' token cells ``doc·V + word`` (int64,
+    sorted, one per token) and the planted ``[k, V]`` topics. Per document:
+    a Poisson length of mean tokens/docs, a Dirichlet(0.1) topic mixture,
+    and its tokens' words from their topics' Dirichlet(0.05) rows."""
+    rng = np.random.default_rng(W1_SEED)
+    topics = rng.dirichlet(np.full(W1_VOCAB, W1_ETA), size=W1_K)
+    theta = rng.dirichlet(np.full(W1_K, W1_ALPHA), size=W1_DOCS)
+    lengths = rng.poisson(W1_TOKENS / W1_DOCS, size=W1_DOCS)
+    per_topic = rng.multinomial(lengths, theta)
+    cells = []
+    for t in range(W1_K):
+        docs = np.repeat(np.arange(W1_DOCS, dtype=np.int64), per_topic[:, t])
+        cells.append(docs * W1_VOCAB + rng.choice(W1_VOCAB, size=docs.size,
+                                                  p=topics[t]))
+    flat = np.concatenate(cells)
+    flat.sort()
+    return flat, topics
+
+
+def w_dense_counts(flat, lo, hi):
+    """Documents ``[lo, hi)`` as dense float32 ``[hi - lo, V]`` counts."""
+    a, b = np.searchsorted(flat, [lo * W1_VOCAB, hi * W1_VOCAB])
+    out = np.zeros((hi - lo) * W1_VOCAB, np.float32)
+    np.add.at(out, flat[a:b] - lo * W1_VOCAB, 1.0)
+    return out.reshape(hi - lo, W1_VOCAB)
+
+
+def w_stream_batches(flat):
+    """W1's stream: the corpus in ``W1_STREAM_BATCHES`` batches of rows in
+    multiples of 8 (the fit's row tile: only the last batch pads)."""
+    step = -(-W1_DOCS // W1_STREAM_BATCHES)
+    step += -step % 8
+    return [{"x": w_dense_counts(flat, lo, min(lo + step, W1_DOCS))}
+            for lo in range(0, W1_DOCS, step)]
+
+
+def w4_columns():
+    """Criteo-shaped rows: 13 integer-valued numeric columns with 20% NaN,
+    26 categorical columns of 8-hex-digit strings drawn Zipf-like over
+    Criteo's per-column cardinalities (capped at 100,000), and a label
+    planted on four categorical columns and one numeric column."""
+    rng = np.random.default_rng(41)
+    cols, margin = {}, np.zeros(W4_ROWS)
+    for j in range(W4_NUMERIC):
+        v = np.floor(rng.lognormal(1.0, 1.2, W4_ROWS))
+        if j == 0:
+            margin += 0.8 * (np.log1p(v) - 1.2)
+        v[rng.uniform(size=W4_ROWS) < 0.2] = np.nan
+        cols[f"i{j}"] = v
+    for j, card in enumerate(W4_CARDINALITY):
+        ids = np.minimum(rng.zipf(1.2, W4_ROWS) - 1, card - 1)
+        if j < 4:
+            margin += rng.normal(size=card)[ids]
+        hexes = np.char.mod("%08x", rng.integers(0, 1 << 32, size=card))
+        cols[f"c{j}"] = hexes[ids]
+    y = (margin + rng.logistic(size=W4_ROWS) > 0).astype(np.float64)
+    return cols, y
+
+
+def w4_features(cols, imputer=None, indexer=None):
+    """The W4 host stages: ``Imputer`` (mean) on the numeric columns,
+    ``StringIndexer`` (``maxIndexNum`` 10,000, rare values to the catch-all)
+    and its ``IndexToStringModel`` on the categorical ones, and
+    ``FeatureHasher`` over all 39 into 2^18. Fits the two estimators when
+    not given. Returns ``(hashed SparseVector column, imputer, indexer)``."""
+    import flinkml_tpu_torch as fml
+
+    num = [f"i{j}" for j in range(W4_NUMERIC)]
+    cat = [f"c{j}" for j in range(len(W4_CARDINALITY))]
+    t = fml.Table(cols)
+    if imputer is None:
+        imputer = fml.models.Imputer().set_input_cols(num).set_output_cols(
+            [f"{c}_imp" for c in num]).fit(t)
+    (t,) = imputer.transform(t)
+    if indexer is None:
+        indexer = (fml.models.StringIndexer().set_input_cols(cat)
+                   .set_output_cols([f"{c}_idx" for c in cat])
+                   .set_max_index_num(W4_MAX_INDEX)
+                   .set_string_order_type("frequencyDesc")
+                   .set_handle_invalid("keep").fit(t))
+    (t,) = indexer.transform(t)
+    inverse = fml.models.IndexToStringModel.from_indexer(indexer)
+    inverse.set_input_cols([f"{c}_idx" for c in cat]).set_output_cols(
+        [f"{c}_top" for c in cat])
+    (t,) = inverse.transform(t)
+    (t,) = (fml.models.FeatureHasher()
+            .set_input_cols([f"{c}_imp" for c in num]
+                            + [f"{c}_top" for c in cat])
+            .set_output_col("features").set_num_features(W4_FEATURES)
+            .transform(t))
+    return t.column("features"), imputer, indexer
+
+
+def w3_data():
+    """``(x, y)`` at a9a's shape, 32,561 x 123 float32: the columns'
+    scales differ, as a9a's binary columns' frequencies do (the first half
+    at 1, the rest at 0.3), and the label is a planted direction over all
+    of them plus logistic noise. L2 shrinks the low-variance columns'
+    coefficients first, so it turns the fitted direction and moves the
+    AUC."""
+    rng = np.random.default_rng(7)
+    scale = np.where(np.arange(W3_D) < W3_D // 2, 1.0, 0.3)
+    x = (rng.normal(size=(W3_ROWS, W3_D)) * scale).astype(np.float32)
+    margin = x @ (rng.normal(size=W3_D) / scale)
+    y = (3.0 * margin / margin.std() + rng.logistic(size=W3_ROWS) > 0)
+    return x, y.astype(np.float32)
+
+
+def w_lr(**kw):
+    import flinkml_tpu_torch as fml
+
+    est = fml.LogisticRegression().set_seed(0).set_tol(0.0)
+    for name, v in kw.items():
+        getattr(est, f"set_{name}")(v)
+    return est
+
+
+def w3_tuners(x, y):
+    """W3's CrossValidator and TrainValidationSplit, fitted on the current
+    device: ``(cv_model, tvs_model)``."""
+    import flinkml_tpu_torch as fml
+
+    models = []
+    for cls in (fml.CrossValidator, fml.TrainValidationSplit):
+        lr = w_lr(max_iter=W3_ITERS, global_batch_size=W3_BATCH,
+                  learning_rate=W3_LR)
+        grid = fml.ParamGridBuilder().add_grid(
+            lr, fml.LogisticRegression.REG, list(W3_REGS)).build()
+        tuner = cls(lr, grid, fml.models.BinaryClassificationEvaluator()
+                    .set_metrics_names(["areaUnderROC"])).set_seed(0)
+        if cls is fml.CrossValidator:
+            tuner.set_num_folds(W3_FOLDS)
+        models.append(tuner.fit(fml.Table({"features": x, "label": y})))
+    return tuple(models)
+
+
+def w_references():
+    """Path W's inputs and references that need no card, made while the
+    kernels build: W1's corpus, its streamed batches and the CPU port's
+    first VB pass on the 2,048-document prefix; W3's CPU-port tuners; W4's
+    Criteo-shaped columns and the CPU port's hashed features."""
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models import lda
+    from flinkml_tpu_torch.ops import threefry
+
+    t0 = time.perf_counter()
+    refs = {}
+    flat, topics = w_corpus()
+    refs["w1_corpus"] = (flat, topics)
+    refs["w1_batches"] = w_stream_batches(flat)
+    prefix = torch.from_numpy(w_dense_counts(flat, 0, W1_PREFIX))
+    with fml.use_device("cpu"):
+        key = threefry.PRNGKey(W1_FIT_SEED, device="cpu")
+        lam0 = lda._initial_lambda(key, W1_K, W1_VOCAB)
+        t = time.perf_counter()
+        refs["w1_prefix_pass"] = lda.vb_pass(
+            prefix, torch.ones(W1_PREFIX),
+            torch.from_numpy(lam0.astype(np.float32)), 1.0 / W1_K,
+            threefry.fold_in(key, 0)).numpy()
+        refs["w1_prefix_cpu_s"] = time.perf_counter() - t
+        refs["w1_lam0"] = lam0
+        x, y = w3_data()
+        t = time.perf_counter()
+        refs["w3"] = w3_tuners(x, y)
+        refs["w3_cpu_s"] = time.perf_counter() - t
+    cols, y4 = w4_columns()
+    refs["w4_cols"], refs["w4_y"] = cols, y4
+    refs["seconds"] = time.perf_counter() - t0
+    PREPARED["w_refs"] = refs
+
+
+def w1_lda(torch, rec, refs):
+    """W1: ``LDA.fit`` (k = 20, 10 passes, tol 0) on the card-resident dense
+    counts; the prefix pass against the CPU port's; the fitted topics
+    against the planted ones, the bound pass by pass; ``transform``; the
+    streamed fit's crash and bit-exact resume."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+    from flinkml_tpu_torch.models import lda
+    from flinkml_tpu_torch.ops import threefry
+    from scipy.optimize import linear_sum_assignment
+
+    dev = "cuda"
+    flat, topics = refs["w1_corpus"]
+    steps = rec.setdefault("W1_step_s", {})
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    t = time.perf_counter()
+    cells = torch.from_numpy(flat).to(dev)
+    counts = torch.zeros(W1_DOCS * W1_VOCAB, dtype=torch.float32, device=dev)
+    counts.index_put_((cells,), torch.ones(cells.numel(), dtype=torch.float32,
+                                           device=dev), accumulate=True)
+    counts = counts.view(W1_DOCS, W1_VOCAB)
+    del cells
+    tokens = float(counts.sum())
+    torch.cuda.synchronize()
+    rec["W1_counts"] = {"docs": W1_DOCS, "vocab": W1_VOCAB,
+                        "tokens": int(tokens), "bytes": counts.numel() * 4,
+                        "upload_s": time.perf_counter() - t}
+    if tokens != flat.size:
+        fail(f"W1: {tokens} tokens on the card, {flat.size} drawn")
+
+    key = threefry.PRNGKey(W1_FIT_SEED, device=dev)
+    lam0 = lda._initial_lambda(key, W1_K, W1_VOCAB)
+    # The draws on the card against the CPU's: within gamma's declared
+    # ulps (PyTorch's float64 log on each), no flipped decision.
+    ulps = np.abs(lam0.view(np.int64) - refs["w1_lam0"].view(np.int64))
+    rec["W1_gamma_draws"] = {"differ": int((ulps > 0).sum()),
+                             "of": int(ulps.size), "max_ulps": int(ulps.max())}
+    if ulps.max() > W1_GAMMA_ULPS:
+        fail(f"W1: the card's gamma draws differ from the CPU's: "
+             f"{rec['W1_gamma_draws']}")
+    lam_dev = torch.from_numpy(lam0.astype(np.float32)).to(dev)
+    pass_key = threefry.fold_in(key, 0)
+    ones = torch.ones(W1_PREFIX, device=dev)
+    got = lda.vb_pass(counts[:W1_PREFIX], ones, lam_dev, 1.0 / W1_K,
+                      pass_key).cpu().numpy()
+    want = refs["w1_prefix_pass"]
+    kv = W1_K * W1_VOCAB
+    err = float(np.abs(got[:kv] - want[:kv]).max())
+    rel_tail = np.abs(got[kv:] - want[kv:]) / np.abs(want[kv:])
+    rec["W1_prefix_pass"] = {"max_abs_err": err,
+                             "largest": float(np.abs(want[:kv]).max()),
+                             "bound_tokens_rel_err": rel_tail.tolist(),
+                             "cpu_s": refs["w1_prefix_cpu_s"]}
+    if not (err <= W1_PASS_RTOL * np.abs(want[:kv]).max()
+            and rel_tail.max() <= W1_PASS_RTOL):
+        fail(f"W1: the prefix pass differs from the CPU port's: "
+             f"{rec['W1_prefix_pass']}")
+    step("upload, draws and prefix pass")
+
+    # One full pass alone: its device time and the card's busy share.
+    w_all = torch.ones(W1_DOCS, device=dev)
+    timer = Timer(torch)
+    pass_ms = timer(lambda: lda.vb_pass(counts, w_all, lam_dev, 1.0 / W1_K,
+                                        pass_key), warmup=1, iters=2)
+    share = device_share(torch, lambda: lda.vb_pass(
+        counts, w_all, lam_dev, 1.0 / W1_K, pass_key))
+    del timer, w_all
+    # The bound of a pass: the counts read once an E-step, and the E-steps'
+    # two [n, k] x [k, V] products.
+    pass_bound, pass_by = bound_ms(
+        lda._E_STEPS * counts.numel() * 4,
+        lda._E_STEPS * 2 * 2.0 * W1_DOCS * W1_K * W1_VOCAB, "float32")
+    step("pass timed and profiled")
+
+    bounds = []
+    m_step = lda._m_step
+
+    def recording(*args, **kw):
+        out = m_step(*args, **kw)
+        bounds.append(out[1])
+        return out
+
+    est = fml.models.LDA().set_k(W1_K).set_max_iter(W1_PASSES).set_tol(0.0) \
+        .set_seed(W1_FIT_SEED)
+    table = fml.Table({"features": counts})
+    lda._m_step = recording
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        lda._m_step = m_step
+    rises = all(b > a for a, b in zip(bounds, bounds[1:]))
+
+    def matched_cosine(tm):
+        cos = (tm / np.linalg.norm(tm, axis=1, keepdims=True)) @ (
+            topics / np.linalg.norm(topics, axis=1, keepdims=True)).T
+        r, c = linear_sum_assignment(-cos)
+        return cos[r, c]
+
+    matched = matched_cosine(model.topics_matrix)
+    t = time.perf_counter()
+    (out,) = model.transform(fml.Table({"features": counts}))
+    theta = out.column("topicDistribution")
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t
+    rec["W1_fit"] = {
+        "passes": W1_PASSES, "fit_s": fit_s, "pass_ms": pass_ms,
+        "pass_bound_ms": pass_bound, "pass_bound_by": pass_by,
+        "pass_device_busy_share": share,
+        "tokens_per_s": tokens * W1_PASSES / fit_s,
+        "bound_per_token": bounds, "bound_rises": rises,
+        "matched_cosine_mean": float(matched.mean()),
+        "matched_cosine_initial": float(matched_cosine(lam0).mean()),
+        "matched_cosine_min": float(matched.min()),
+        "topics_above_0.9": int((matched > 0.9).sum()),
+        "transform_s": transform_s}
+    if len(bounds) != W1_PASSES or not np.isfinite(bounds).all() or not rises:
+        fail(f"W1: the bound does not rise pass by pass: {bounds}")
+    if not matched.mean() >= W1_COSINE:
+        fail(f"W1: mean matched cosine {matched.mean()} < {W1_COSINE}")
+    if theta.shape != (W1_DOCS, W1_K) or not np.isfinite(theta).all() or \
+            not np.allclose(theta.sum(axis=1), 1.0, rtol=1e-6):
+        fail("W1: transform's topic mixtures are not distributions")
+    del out, table, counts, theta
+    step("fit and transform")
+
+    class Crash(CheckpointManager):
+        def save(self, state, epoch, extra=None, **kw):
+            path = super().save(state, epoch, extra, **kw)
+            if epoch >= 1:
+                raise RuntimeError("injected crash after pass 1")
+            return path
+
+    def stream(**kw):
+        return fml.models.LDA(**kw).set_k(W1_K).set_max_iter(W1_STREAM_PASSES) \
+            .set_tol(0.0).set_seed(W1_FIT_SEED).set_features_col("x")
+
+    cache = cache_stream(iter(refs["w1_batches"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        golden = stream().fit(cache)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t
+        try:
+            stream(checkpoint_manager=Crash(tmp), checkpoint_interval=1) \
+                .fit(cache)
+            fail("W1: the injected crash did not fire")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        t = time.perf_counter()
+        resumed = stream(checkpoint_manager=CheckpointManager(tmp),
+                         checkpoint_interval=1, resume=True).fit(cache)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+    step("stream, crash and resume")
+    same = resumed._lambda.tobytes() == golden._lambda.tobytes()
+    rec["W1_stream"] = {"batches": cache.num_batches,
+                        "passes": W1_STREAM_PASSES, "fit_s": stream_s,
+                        "resume_s": resume_s, "resume_bit_for_bit": same}
+    if not same:
+        fail("W1: the streamed fit's resume differs from the uninterrupted "
+             "run")
+
+
+def multiclass_metrics_numpy(y, pred):
+    """Float64 numpy accuracy and the support-weighted precision, recall
+    and F1 over the label classes."""
+    classes = np.unique(y)
+    tp = np.asarray([np.sum((pred == c) & (y == c)) for c in classes], float)
+    support = np.asarray([np.sum(y == c) for c in classes], float)
+    predicted = np.asarray([np.sum(pred == c) for c in classes], float)
+    prec = np.where(predicted > 0, tp / np.maximum(predicted, 1), 0.0)
+    recall = tp / support
+    f1 = np.where(prec + recall > 0, 2 * prec * recall
+                  / np.maximum(prec + recall, 1e-300), 0.0)
+    w = support / support.sum()
+    return {"accuracy": float(np.mean(pred == y)),
+            "weightedPrecision": float(w @ prec),
+            "weightedRecall": float(w @ recall), "weightedF1": float(w @ f1)}
+
+
+def w2_one_vs_rest(torch, rec, refs):
+    """W2: ``OneVsRest`` over ``Pipeline(MinMaxScaler, LogisticRegression)``
+    on 60,000 x 784 MNIST-like rows in 10 classes; its transform runs each
+    class's fitted pipeline through ``fused_chain``. Each class's
+    ``rawPrediction``, fused and per stage, against a float64 numpy sigmoid
+    of its scaled rows; ``MulticlassClassificationEvaluator`` against
+    float64 numpy of the same predictions."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    x, y = mnist_like(W2_ROWS, seed=51)
+    inner = fml.Pipeline([
+        fml.MinMaxScaler().set_input_col("features").set_output_col("mm"),
+        w_lr(features_col="mm", max_iter=W2_ITERS,
+             global_batch_size=W2_BATCH, learning_rate=W2_LR)])
+    table = fml.Table({"features": torch.from_numpy(x).to("cuda"),
+                       "label": y})
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = fml.models.OneVsRest(inner).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    before = fml.launch_counts()["fused_chain"]
+    t = time.perf_counter()
+    (out,) = model.transform(table)
+    pred = out.column("prediction")
+    transform_s = time.perf_counter() - t
+    launches = fml.launch_counts()["fused_chain"] - before
+    pipeline_fusion.set_enabled(False)
+    try:
+        (per_stage,) = model.transform(table)
+    finally:
+        pipeline_fusion.set_enabled(True)
+    # Each class's P(class) in float64 numpy: its scaler's map folded into
+    # its coefficient (a constant 0.5 where a column's span is 0), so that
+    # one product scores every class.
+    fold = np.empty((x.shape[1], len(model.classes)))
+    shift = np.empty(len(model.classes))
+    for j, m in enumerate(model.models):
+        scaler, lr = m.stages
+        d = scaler._arrays()
+        span = d["dataMax"] - d["dataMin"]
+        fold[:, j] = np.where(span > 0, lr.coefficient
+                              / np.where(span > 0, span, 1.0), 0.0)
+        shift[j] = 0.5 * lr.coefficient[span <= 0].sum() - d["dataMin"] \
+            @ fold[:, j]
+    want_raw = 1.0 / (1.0 + np.exp(-(x.astype(np.float64) @ fold + shift)))
+    raw_err = {}
+    for name, got in (("fused", out), ("per_stage", per_stage)):
+        raw = np.asarray(got.column("rawPrediction"), np.float64)
+        raw_err[name] = float(np.abs(raw - want_raw).max()) \
+            if raw.shape == want_raw.shape else float("inf")
+    names = ["accuracy", "weightedPrecision", "weightedRecall", "weightedF1"]
+    (metrics,) = fml.models.MulticlassClassificationEvaluator() \
+        .set_metrics_names(names).transform(out)
+    want = multiclass_metrics_numpy(y, pred)
+    errs = {n: abs(float(metrics.column(n)[0]) - want[n]) for n in names}
+    rec["W2"] = {"rows": W2_ROWS, "classes": len(model.classes),
+                 "fit_s": fit_s, "transform_s": transform_s,
+                 "transform_fused_chain_launches": launches,
+                 "raw_prediction_max_abs_err": raw_err,
+                 "metrics": want, "metric_max_abs_err": max(errs.values())}
+    if not max(raw_err.values()) <= W2_RAW_TOL:
+        fail(f"W2: rawPrediction differs from float64 numpy: {raw_err}")
+    if launches < len(model.classes):
+        fail(f"W2: fused_chain launched {launches} times for "
+             f"{len(model.classes)} classes")
+    if max(errs.values()) > 1e-12:
+        fail(f"W2: the evaluator differs from float64 numpy: {errs}")
+    if not want["accuracy"] >= W2_ACCURACY:
+        fail(f"W2: accuracy {want['accuracy']} < {W2_ACCURACY}")
+
+
+def w3_tuning(torch, rec, refs):
+    """W3: ``CrossValidator`` (3 folds) and ``TrainValidationSplit`` over
+    LogisticRegression's regParam {100, 0, 1000} on :func:`w3_data` on the
+    card, against the CPU port's: the metrics within 1e-5 and the same
+    pick, which the CPU port's metrics decide by at least ``W3_MARGIN``."""
+    x, y = w3_data()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = w3_tuners(x, y)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    out = {"card_s": card_s, "cpu_s": refs["w3_cpu_s"]}
+    for name, g, w in zip(("cross_validator", "train_validation_split"),
+                          got, refs["w3"]):
+        err = float(np.abs(np.subtract(g.avg_metrics, w.avg_metrics)).max())
+        ranked = np.sort(w.avg_metrics)
+        out[name] = {"best_index": g.best_index, "avg_metrics": g.avg_metrics,
+                     "cpu_best_index": w.best_index,
+                     "cpu_avg_metrics": w.avg_metrics,
+                     "cpu_lead": float(ranked[-1] - ranked[-2]),
+                     "max_abs_err": err}
+        if not out[name]["cpu_lead"] >= W3_MARGIN:
+            fail(f"W3 {name}: the CPU port's metrics {w.avg_metrics} do not "
+                 f"decide the pick by {W3_MARGIN}")
+        if g.best_index != w.best_index or not err <= W3_METRIC_TOL:
+            fail(f"W3 {name}: card {g.best_index} {g.avg_metrics}, CPU port "
+                 f"{w.best_index} {w.avg_metrics}")
+    rec["W3"] = out
+
+
+def w4_hashed_lr(torch, rec, refs):
+    """W4: the Criteo-shaped rows, their numeric columns card-resident,
+    through the host stages into 2^18 hashed features, then
+    ``LogisticRegression`` (full batch, 10 epochs) on the sparse path
+    (``spmv`` and ``segment_sum``) against float64 numpy within 1e-4 of
+    the largest coefficient, and its transform (``spmv``) against a float64
+    numpy sigmoid of the CSR rows' margins."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.models._data import labeled_sparse_data
+
+    cols, y = dict(refs["w4_cols"]), refs["w4_y"]
+    for j in range(W4_NUMERIC):
+        cols[f"i{j}"] = torch.from_numpy(cols[f"i{j}"]).to("cuda")
+    t = time.perf_counter()
+    feats, _, _ = w4_features(cols)
+    host_s = time.perf_counter() - t
+    table = fml.Table({"features": feats, "label": y})
+    before = fml.launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = w_lr(max_iter=W4_EPOCHS, global_batch_size=W4_ROWS,
+                 learning_rate=W4_LR).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    mid = fml.launch_counts()
+    (out,) = model.transform(table)
+    after = fml.launch_counts()
+    indptr, idx, val, _, cy, cw = labeled_sparse_data(table, "features",
+                                                      "label")
+    ref = numpy_sparse_fit(indptr, idx, val, W4_FEATURES, cy, cw, W4_EPOCHS,
+                           W4_LR)
+    err = float(np.abs(model.coefficient - ref).max())
+    rows = np.repeat(np.arange(W4_ROWS), np.diff(indptr))
+    margin = np.bincount(rows, weights=val.astype(np.float64)
+                         * model.coefficient[idx], minlength=W4_ROWS)
+    raw = np.asarray(out.column("rawPrediction"), np.float64)
+    raw_err = float(np.abs(raw[:, 1] - 1.0 / (1.0 + np.exp(-margin))).max()) \
+        if raw.shape == (W4_ROWS, 2) else float("inf")
+    (auc,) = fml.models.BinaryClassificationEvaluator() \
+        .set_metrics_names(["areaUnderROC"]).transform(out)
+    fit_launches = {k: mid[k] - before[k] for k in ("spmv", "segment_sum")}
+    rec["W4"] = {"rows": W4_ROWS, "features": W4_FEATURES,
+                 "nnz": int(indptr[-1]), "host_stages_s": host_s,
+                 "fit_s": fit_s, "fit_launches": fit_launches,
+                 "transform_spmv_launches": after["spmv"] - mid["spmv"],
+                 "max_abs_err": err, "largest": float(np.abs(ref).max()),
+                 "transform_raw_max_abs_err": raw_err,
+                 "train_auc": float(auc.column("areaUnderROC")[0])}
+    if min(fit_launches.values()) < W4_EPOCHS or after["spmv"] == mid["spmv"]:
+        fail(f"W4: kernel launches {rec['W4']}")
+    if not err <= W4_TOL * np.abs(ref).max():
+        fail(f"W4: coefficient differs from float64 numpy by {err}")
+    if not raw_err <= W4_RAW_TOL:
+        fail(f"W4: the transform's P(1) differs from a float64 numpy "
+             f"sigmoid of indptr/idx/val @ coef by {raw_err}")
+
+
+def w5_cases(rng):
+    """``(name, stage builder, columns)`` for W5: every new stage not run by
+    W1-W4, on ``W5_ROWS`` rows (AgglomerativeClustering on 2,000); float
+    columns go to the card, token and string columns stay on the host."""
+    import flinkml_tpu_torch as fml
+
+    m = fml.models
+    x = rng.normal(size=(W5_ROWS, W5_D))
+    a = rng.normal(size=W5_ROWS)
+    a[rng.uniform(size=W5_ROWS) < 0.05] = np.nan
+    v = rng.integers(0, 5, size=(W5_ROWS, W5_D)).astype(np.float64)
+    v[:, -1] = rng.normal(size=W5_ROWS)   # continuous: passes through
+    label = (x[:, 0] + rng.normal(size=W5_ROWS) > 0).astype(np.float64)
+    p = 1.0 / (1.0 + np.exp(-x[:, 0]))
+    words = np.asarray(["the", "a", "cat", "is", "on", "mat", "I", "dog"])
+    tokens = np.empty(W5_ROWS, dtype=object)
+    for i, ids in enumerate(rng.integers(0, len(words), size=(W5_ROWS, 5))):
+        tokens[i] = list(words[ids[:1 + i % 5]])
+    small = np.empty(4_000, dtype=object)
+    for i in range(small.size):
+        small[i] = [f"i{j}" for j in sorted(set(rng.integers(0, 12, 4)))]
+    xa = np.concatenate([rng.normal(size=(W5_AGGLOMERATIVE_ROWS // 4, 4)) + c
+                         for c in (0, 5, 10, 15)])
+    split = [[-np.inf, -1.0, 0.0, 1.0, np.inf]]
+    return [
+        ("Normalizer", lambda: m.Normalizer().set_input_col("x")
+         .set_output_col("o").set_p(3.0), {"x": x}),
+        ("ElementwiseProduct", lambda: m.ElementwiseProduct()
+         .set_input_col("x").set_output_col("o")
+         .set_scaling_vec(list(np.arange(W5_D) - 3.0)), {"x": x}),
+        ("VectorSlicer", lambda: m.VectorSlicer().set_input_col("x")
+         .set_output_col("o").set_indices([5, 0, 3]), {"x": x}),
+        ("PolynomialExpansion", lambda: m.PolynomialExpansion()
+         .set_input_col("x").set_output_col("o").set_degree(2), {"x": x}),
+        ("Binarizer", lambda: m.Binarizer().set_input_cols(["a", "x"])
+         .set_output_cols(["oa", "ox"]).set_thresholds([0.0, 0.5]),
+         {"a": np.nan_to_num(a), "x": x}),
+        ("Bucketizer", lambda: m.Bucketizer().set_input_cols(["a"])
+         .set_output_cols(["o"]).set_splits_array(split)
+         .set_handle_invalid("keep"), {"a": a}),
+        ("Interaction", lambda: m.Interaction().set_input_cols(["a", "x"])
+         .set_output_col("o"), {"a": np.nan_to_num(a), "x": x}),
+        ("DCT", lambda: m.DCT().set_input_col("x").set_output_col("o"),
+         {"x": x}),
+        ("StopWordsRemover", lambda: m.StopWordsRemover()
+         .set_input_cols(["t"]).set_output_cols(["o"]),
+         {"t": tokens, "x": x}),
+        ("RandomSplitter", lambda: m.RandomSplitter()
+         .set_weights([0.6, 0.3, 0.1]).set_seed(3), {"x": x, "a": a}),
+        ("VectorIndexer", lambda: m.VectorIndexer().set_input_col("v")
+         .set_output_col("o").set_max_categories(6), {"v": v}),
+        ("SQLTransformer", lambda: m.SQLTransformer().set_statement(
+            "SELECT *, ABS(a) * 2 + b AS s FROM __THIS__ WHERE b > -1"),
+         {"a": a, "b": x[:, 1].copy(), "x": x}),
+        ("FPGrowth", lambda: m.FPGrowth().set_min_support(0.05)
+         .set_min_confidence(0.3), {"items": small}),
+        ("PrefixSpan", lambda: m.PrefixSpan().set_min_support(0.05)
+         .set_max_pattern_length(3).set_sequence_col("items"),
+         {"items": small}),
+        ("Swing", lambda: m.Swing().set_k(10), {
+            "user": rng.integers(0, 3_000, W5_ROWS // 4),
+            "item": rng.integers(0, 800, W5_ROWS // 4)}),
+        ("AgglomerativeClustering", lambda: m.AgglomerativeClustering()
+         .set_num_clusters(4), {"features": xa}),
+        ("BinaryClassificationEvaluator", lambda: m
+         .BinaryClassificationEvaluator().set_metrics_names(
+             ["areaUnderROC", "areaUnderPR", "ks", "logLoss"]),
+         {"label": label, "rawPrediction": np.stack([1 - p, p], axis=1)}),
+        ("RegressionEvaluator", lambda: m.RegressionEvaluator()
+         .set_metrics_names(["rmse", "mae", "r2", "explainedVariance"]),
+         {"label": x[:, 0].copy(), "prediction": x[:, 0] + 0.1 * x[:, 1]}),
+    ]
+
+
+def w5_stages(torch, rec, refs):
+    """W5: each stage of :func:`w5_cases` on a Table whose numeric columns
+    are card tensors, bit for bit against the same stage on the host
+    Table; ``ClusteringEvaluator`` (its distances one float32 product on
+    the card) within 1e-6."""
+    import flinkml_tpu_torch as fml
+
+    rng = np.random.default_rng(61)
+    out = {}
+
+    def on_card(cols):
+        return {k: (torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+                    if v.dtype.kind in "fi" else v) for k, v in cols.items()}
+
+    def run(build, cols):
+        stage = build()
+        table = fml.Table(cols)
+        if hasattr(stage, "fit"):
+            stage = stage.fit(table)
+        return stage.transform(table)
+
+    for name, build, cols in w5_cases(rng):
+        t = time.perf_counter()
+        got = run(build, on_card(cols))
+        card_s = time.perf_counter() - t
+        want = run(build, cols)
+        for g, w in zip(got, want):
+            for c in w.column_names:
+                gc, wc = np.asarray(g.column(c)), np.asarray(w.column(c))
+                same = (gc.shape == wc.shape and (
+                    [repr(e) for e in gc.reshape(-1)]
+                    == [repr(e) for e in wc.reshape(-1)]
+                    if wc.dtype == object else
+                    gc.astype(wc.dtype).tobytes() == wc.tobytes()))
+                if not same:
+                    fail(f"W5 {name}: column {c!r} differs card against "
+                         "host")
+        out[name] = card_s
+    xb = np.concatenate([rng.normal(size=(W5_ROWS // 4, W5_D)) + 4 * i
+                         for i in range(4)])
+    pred = np.repeat(np.arange(4.0), W5_ROWS // 4)
+    ev = fml.models.ClusteringEvaluator()
+    got = float(ev.transform(fml.Table(on_card(
+        {"features": xb, "prediction": pred})))[0].column("silhouette")[0])
+    with fml.use_device("cpu"):
+        want = float(ev.transform(fml.Table(
+            {"features": xb, "prediction": pred}))[0].column("silhouette")[0])
+    out["ClusteringEvaluator_rel_err"] = abs(got - want) / abs(want)
+    if not out["ClusteringEvaluator_rel_err"] <= W5_SILHOUETTE_RTOL:
+        fail(f"W5: silhouette {got} on the card, {want} on the CPU")
+    rec["W5_stage_s"] = out
+
+
+def catalog_w_path(torch):
+    """Path W (module docstring, W1-W5). Returns the launches of
+    ``fused_chain``, ``spmv`` and ``segment_sum``."""
+    import flinkml_tpu_torch as fml
+
+    t0 = time.perf_counter()
+    if "w_refs_future" in PREPARED:
+        PREPARED.pop("w_refs_future").result()
+    elif "w_refs" not in PREPARED:
+        w_references()
+    refs = PREPARED.pop("w_refs")
+    wait_s = time.perf_counter() - t0
+    rec = {"path": "catalog_W", "references_s": refs["seconds"],
+           "references_wait_s": wait_s, "part_s": {}}
+    torch.cuda.empty_cache()
+    fml.reset_launch_counts()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        fn(torch, rec, refs)
+        rec["part_s"][name] = time.perf_counter() - t
+
+    part("W1", w1_lda)
+    part("W2", w2_one_vs_rest)
+    part("W3", w3_tuning)
+    part("W4", w4_hashed_lr)
+    part("W5", w5_stages)
+    counts = fml.launch_counts()
+    launches = {k: counts[k] for k in ("fused_chain", "spmv", "segment_sum")}
+    for k, n in launches.items():
+        if not n:
+            fail(f"path W: {k} never launched")
+    rec["launches"] = launches
+    rec["card"] = card_line()
+    rec["seconds"] = time.perf_counter() - t0
+    log("path " + json.dumps(rec))
+    return launches
+
+
 #: Inputs and float64 references that need no card, made while the kernels
 #: build (:func:`prepare_references`) and taken by the path that uses them.
 PREPARED = {}
@@ -9371,10 +10136,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     # The host references need no kernel: make them while nvcc runs.
-    # Path V's CPU-port and float64 references run beside the build and
-    # the earlier paths; path V waits for them.
-    v_pool = ThreadPoolExecutor(max_workers=1)
+    # Paths V's and W's CPU-port and float64 references run beside the
+    # build and the earlier paths; each path waits for its own.
+    v_pool = ThreadPoolExecutor(max_workers=2)
     PREPARED["v_refs_future"] = v_pool.submit(v_references)
+    PREPARED["w_refs_future"] = v_pool.submit(w_references)
     v_pool.shutdown(wait=False)
     with ThreadPoolExecutor(max_workers=1) as pool:
         build = pool.submit(_build.build_all)
@@ -9459,6 +10225,9 @@ def main() -> int:
     mark("path U")
     v_segsum, segsum_rec["catalog_V"] = catalog_v_path(torch, timer)
     mark("path V")
+    w_counts = catalog_w_path(torch)
+    chain_paths["catalog_W"] = w_counts["fused_chain"]
+    mark("path W")
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -9474,6 +10243,7 @@ def main() -> int:
         if name == "segment_sum":
             rec["launches_by_path"].update(pqrs_segsum)
             rec["launches_by_path"]["catalog_V"] = v_segsum
+        rec["launches_by_path"]["catalog_W"] = w_counts[name]
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
                                     "lsh": lsh_path(torch, timer),

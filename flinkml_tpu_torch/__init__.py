@@ -19,7 +19,9 @@ multinomial, dense and sparse transform), ``LinearSVC`` and
 ``OnlineKMeans`` and ``BisectingKMeans`` with their models (and the
 catalog's later slices: ALS, the recsys family, the histogram GBTs and
 random forests, GaussianMixture, PCA, Correlation, PIC, the selectors,
-KBinsDiscretizer and AFT survival); the
+KBinsDiscretizer and AFT survival; LDA, OneVsRest, the evaluators, the
+feature, indexing, mining and graph stages, and the model selection of
+:mod:`flinkml_tpu_torch.tuning`); the
 iteration runtime (``iterate``), checkpoint/resume (``CheckpointManager``)
 and the out-of-core data cache (``DataCache``) in
 :mod:`flinkml_tpu_torch.iteration`; the input pipeline
@@ -201,6 +203,13 @@ from flinkml_tpu_torch.precision import (  # noqa: F401
     PrecisionValidationError,
 )
 from flinkml_tpu_torch.table import Table  # noqa: F401
+from flinkml_tpu_torch.tuning import (  # noqa: F401
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
+)
 
 __version__ = "0.1.0"
 
@@ -220,6 +229,8 @@ __all__ = [
     "Correlation",
     "CountVectorizer",
     "CountVectorizerModel",
+    "CrossValidator",
+    "CrossValidatorModel",
     "DataCache",
     "DenseVector",
     "Estimator",
@@ -284,6 +295,7 @@ __all__ = [
     "PCA",
     "PCAModel",
     "Param",
+    "ParamGridBuilder",
     "ParamValidators",
     "Pipeline",
     "PipelineModel",
@@ -306,6 +318,8 @@ __all__ = [
     "Table",
     "TableId",
     "Tokenizer",
+    "TrainValidationSplit",
+    "TrainValidationSplitModel",
     "Transformer",
     "UnivariateFeatureSelector",
     "UnivariateFeatureSelectorModel",

@@ -7,8 +7,11 @@ IsotonicRegression, the text features (Tokenizer, RegexTokenizer,
 HashingTF, CountVectorizer, IDF), NGram, Word2Vec, the histogram GBTs and
 random forests, GaussianMixture, PCA, Correlation,
 PowerIterationClustering, the feature tests and selectors,
-KBinsDiscretizer and AFTSurvivalRegression (estimators and models).
-``__all__`` lists them in the JAX package's order."""
+KBinsDiscretizer and AFTSurvivalRegression, LDA, OneVsRest, the
+evaluators, the feature transforms, Imputer, the indexers,
+SQLTransformer, FPGrowth, PrefixSpan, Swing and AgglomerativeClustering
+(estimators and models): the JAX package's whole catalog. ``__all__``
+lists them in the JAX package's order."""
 
 from flinkml_tpu_torch.models.als import ALS, ALSModel  # noqa: F401
 from flinkml_tpu_torch.models.bisecting_kmeans import (  # noqa: F401
@@ -123,6 +126,50 @@ from flinkml_tpu_torch.models.survival import (  # noqa: F401
     AFTSurvivalRegressionModel,
 )
 
+from flinkml_tpu_torch.models.agglomerative import AgglomerativeClustering  # noqa: F401
+from flinkml_tpu_torch.models.evaluation import (  # noqa: F401
+    BinaryClassificationEvaluator,
+)
+from flinkml_tpu_torch.models.evaluation_multi import (  # noqa: F401
+    ClusteringEvaluator,
+    MulticlassClassificationEvaluator,
+    RegressionEvaluator,
+)
+from flinkml_tpu_torch.models.feature_transforms import (  # noqa: F401
+    Binarizer,
+    Bucketizer,
+    ElementwiseProduct,
+    Normalizer,
+    PolynomialExpansion,
+    VectorSlicer,
+)
+from flinkml_tpu_torch.models.fpgrowth import FPGrowth, FPGrowthModel  # noqa: F401
+from flinkml_tpu_torch.models.imputer import Imputer, ImputerModel  # noqa: F401
+from flinkml_tpu_torch.models.lda import LDA, LDAModel  # noqa: F401
+from flinkml_tpu_torch.models.misc_transforms import (  # noqa: F401
+    DCT,
+    FeatureHasher,
+    Interaction,
+    RandomSplitter,
+    StopWordsRemover,
+)
+from flinkml_tpu_torch.models.one_vs_rest import (  # noqa: F401
+    OneVsRest,
+    OneVsRestModel,
+)
+from flinkml_tpu_torch.models.prefixspan import PrefixSpan  # noqa: F401
+from flinkml_tpu_torch.models.sql_transformer import SQLTransformer  # noqa: F401
+from flinkml_tpu_torch.models.string_indexer import (  # noqa: F401
+    IndexToStringModel,
+    StringIndexer,
+    StringIndexerModel,
+)
+from flinkml_tpu_torch.models.swing import Swing  # noqa: F401
+from flinkml_tpu_torch.models.vector_indexer import (  # noqa: F401
+    VectorIndexer,
+    VectorIndexerModel,
+)
+
 __all__ = [
     "LogisticRegression",
     "LogisticRegressionModel",
@@ -150,6 +197,14 @@ __all__ = [
     "MaxAbsScalerModel",
     "RobustScaler",
     "RobustScalerModel",
+    "Normalizer",
+    "ElementwiseProduct",
+    "VectorSlicer",
+    "PolynomialExpansion",
+    "Binarizer",
+    "Bucketizer",
+    "Imputer",
+    "ImputerModel",
     "KBinsDiscretizer",
     "KBinsDiscretizerModel",
     "OnlineStandardScaler",
@@ -157,11 +212,13 @@ __all__ = [
     "Correlation",
     "ALS",
     "ALSModel",
+    "AgglomerativeClustering",
     "BisectingKMeans",
     "BisectingKMeansModel",
     "PowerIterationClustering",
     "GaussianMixture",
     "GaussianMixtureModel",
+    "Swing",
     "GBTClassifier",
     "GBTClassifierModel",
     "GBTRegressor",
@@ -174,6 +231,8 @@ __all__ = [
     "MLPClassifierModel",
     "MLPRegressor",
     "MLPRegressorModel",
+    "OneVsRest",
+    "OneVsRestModel",
     "FMClassifier",
     "FMClassifierModel",
     "FMRegressor",
@@ -182,6 +241,9 @@ __all__ = [
     "IsotonicRegressionModel",
     "AFTSurvivalRegression",
     "AFTSurvivalRegressionModel",
+    "FPGrowth",
+    "FPGrowthModel",
+    "PrefixSpan",
     "PCA",
     "PCAModel",
     "Tokenizer",
@@ -191,10 +253,24 @@ __all__ = [
     "CountVectorizerModel",
     "IDF",
     "IDFModel",
+    "StringIndexer",
+    "StringIndexerModel",
+    "IndexToStringModel",
+    "SQLTransformer",
     "VectorAssembler",
+    "BinaryClassificationEvaluator",
+    "FeatureHasher",
+    "Interaction",
+    "DCT",
+    "StopWordsRemover",
+    "RandomSplitter",
     "NGram",
     "Word2Vec",
     "Word2VecModel",
+    "LDA",
+    "LDAModel",
+    "VectorIndexer",
+    "VectorIndexerModel",
     "MinHashLSH",
     "MinHashLSHModel",
     "ChiSqTest",
@@ -204,4 +280,7 @@ __all__ = [
     "VarianceThresholdSelectorModel",
     "UnivariateFeatureSelector",
     "UnivariateFeatureSelectorModel",
+    "MulticlassClassificationEvaluator",
+    "RegressionEvaluator",
+    "ClusteringEvaluator",
 ]

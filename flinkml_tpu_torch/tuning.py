@@ -1,0 +1,278 @@
+"""Model selection: ParamGridBuilder, CrossValidator,
+TrainValidationSplit.
+
+The tuning family of the wider Flink/Spark ML API (the reference
+snapshot has none). A grid point is applied by setting params directly
+on the owning stage instance (our ``Param`` descriptors are class-level,
+so each grid entry names the stage it configures — this also makes grids
+over stages nested inside a ``Pipeline`` work naturally), the estimator
+is refit per fold, and the evaluator (any AlgoOperator producing a
+single-row metric table, e.g. ``BinaryClassificationEvaluator``) scores
+the held-out fold. The best configuration is refit on the full data.
+
+Each fold's fit runs on the compute device; the tuning loop is plain
+host orchestration around it. The port's counterpart of
+``flinkml_tpu.tuning``, with the same seeded fold split.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from flinkml_tpu_torch.api import AlgoOperator, Estimator, Model
+from flinkml_tpu_torch.common_params import HasSeed
+from flinkml_tpu_torch.io import read_write
+from flinkml_tpu_torch.params import (
+    BoolParam,
+    FloatParam,
+    IntParam,
+    Param,
+    ParamValidators,
+    StringParam,
+    WithParams,
+)
+from flinkml_tpu_torch.table import Table
+
+# One grid point: [(stage, param, value), ...]
+ParamMap = List[Tuple[WithParams, Param, Any]]
+
+
+class ParamGridBuilder:
+    """Cartesian product of per-(stage, param) value lists.
+
+    ::
+
+        grid = (
+            ParamGridBuilder()
+            .add_grid(lr, LogisticRegression.REG, [0.0, 0.1])
+            .add_grid(lr, LogisticRegression.MAX_ITER, [20, 50])
+            .build()
+        )   # 4 param maps
+    """
+
+    def __init__(self):
+        self._grid: List[Tuple[WithParams, Param, Sequence[Any]]] = []
+
+    def add_grid(
+        self, stage: WithParams, param: Param, values: Sequence[Any]
+    ) -> "ParamGridBuilder":
+        if not values:
+            raise ValueError(f"empty value list for param {param.name}")
+        if stage.get_param(param.name) is None:
+            raise ValueError(
+                f"Parameter {param.name} is not defined on "
+                f"{type(stage).__name__}"
+            )
+        self._grid.append((stage, param, list(values)))
+        return self
+
+    def build(self) -> List[ParamMap]:
+        maps: List[ParamMap] = [[]]
+        for stage, param, values in self._grid:
+            maps = [
+                m + [(stage, param, v)] for m in maps for v in values
+            ]
+        return maps
+
+
+def _apply(param_map: ParamMap) -> None:
+    for stage, param, value in param_map:
+        stage.set(param, value)
+
+
+def _metric_from(evaluator: AlgoOperator, table: Table,
+                 metric_name: Optional[str]) -> float:
+    (metrics,) = evaluator.transform(table)
+    name = metric_name or metrics.column_names[0]
+    return float(np.asarray(metrics.column(name))[0])
+
+
+def _describe(param_map: ParamMap) -> Dict[str, Any]:
+    return {
+        f"{type(stage).__name__}.{param.name}": value
+        for stage, param, value in param_map
+    }
+
+
+class _TuningParams(HasSeed):
+    METRIC_NAME = StringParam(
+        "metricName",
+        "Which column of the evaluator's output to optimize "
+        "(default: its first column).",
+        None,
+    )
+    LARGER_BETTER = BoolParam(
+        "largerBetter", "Whether larger metric values win.", True
+    )
+
+
+class _BestModelWrapper(Model):
+    """Shared scaffold for the fitted tuning models: delegate transform to
+    the winning inner model; persist it in a subdirectory."""
+
+    def __init__(self):
+        super().__init__()
+        self.best_model: Optional[Model] = None
+        self.best_index: int = -1
+        self.avg_metrics: List[float] = []
+        self.param_maps_description: List[Dict[str, Any]] = []
+
+    def transform(self, *inputs: Table) -> Tuple[Table, ...]:
+        if self.best_model is None:
+            raise ValueError("No best model; fit first or load")
+        return self.best_model.transform(*inputs)
+
+    def save(self, path: str) -> None:
+        if self.best_model is None:
+            raise ValueError("No best model; fit first or load")
+        read_write.save_metadata(self, path, extra={
+            "bestIndex": self.best_index,
+            "avgMetrics": list(map(float, self.avg_metrics)),
+            "paramMaps": self.param_maps_description,
+        })
+        self.best_model.save(read_write.stage_path(path, 0))
+
+    @classmethod
+    def load(cls, path: str):
+        meta = read_write.load_metadata(path, expected_class=cls)
+        model = cls()
+        model.load_param_map_json(meta["paramMap"])
+        model.best_index = int(meta["bestIndex"])
+        model.avg_metrics = list(meta["avgMetrics"])
+        model.param_maps_description = list(meta["paramMaps"])
+        model.best_model = read_write.load_stage(read_write.stage_path(path, 0))
+        return model
+
+
+class CrossValidator(_TuningParams, Estimator):
+    """k-fold cross-validated grid search.
+
+    Construct with ``estimator``, ``estimator_param_maps`` (from
+    :class:`ParamGridBuilder`), and ``evaluator``; ``numFolds`` seeded
+    row splits. ``fit`` returns a :class:`CrossValidatorModel` whose
+    ``avg_metrics`` align with the param maps and whose ``best_model``
+    is refit on the full input.
+    """
+
+    NUM_FOLDS = IntParam(
+        "numFolds", "Number of cross-validation folds.", 3,
+        ParamValidators.gt(1),
+    )
+
+    def __init__(self, estimator: Estimator = None,
+                 estimator_param_maps: List[ParamMap] = None,
+                 evaluator: AlgoOperator = None):
+        super().__init__()
+        self.estimator = estimator
+        self.estimator_param_maps = estimator_param_maps
+        self.evaluator = evaluator
+
+    def _check(self):
+        if self.estimator is None or self.evaluator is None:
+            raise ValueError("estimator and evaluator must be provided")
+        if not self.estimator_param_maps:
+            raise ValueError("estimator_param_maps must be a non-empty list")
+
+    def fit(self, *inputs: Table) -> "CrossValidatorModel":
+        (table,) = inputs
+        self._check()
+        k = self.get(self.NUM_FOLDS)
+        n = table.num_rows
+        if n < k:
+            raise ValueError(f"{n} rows < numFolds={k}")
+        rng = np.random.default_rng(self.get_seed())
+        perm = rng.permutation(n)
+        folds = np.array_split(perm, k)
+        larger = self.get(self.LARGER_BETTER)
+        metric_name = self.get(self.METRIC_NAME)
+        avg_metrics = []
+        for param_map in self.estimator_param_maps:
+            scores = []
+            for f in range(k):
+                test_idx = folds[f]
+                train_idx = np.concatenate(
+                    [folds[g] for g in range(k) if g != f]
+                )
+                _apply(param_map)
+                model = self.estimator.fit(table.take(train_idx))
+                (scored,) = model.transform(table.take(test_idx))
+                scores.append(
+                    _metric_from(self.evaluator, scored, metric_name)
+                )
+            avg_metrics.append(float(np.mean(scores)))
+        best = int(np.argmax(avg_metrics) if larger else np.argmin(avg_metrics))
+        _apply(self.estimator_param_maps[best])
+        best_model = self.estimator.fit(table)
+        out = CrossValidatorModel()
+        out.copy_params_from(self)
+        out.best_model = best_model
+        out.best_index = best
+        out.avg_metrics = avg_metrics
+        out.param_maps_description = [
+            _describe(m) for m in self.estimator_param_maps
+        ]
+        return out
+
+
+class CrossValidatorModel(_TuningParams, _BestModelWrapper):
+    NUM_FOLDS = CrossValidator.NUM_FOLDS
+
+
+class TrainValidationSplit(_TuningParams, Estimator):
+    """Single train/validation split grid search (cheaper than k-fold)."""
+
+    TRAIN_RATIO = FloatParam(
+        "trainRatio", "Fraction of rows used for training.", 0.75,
+        ParamValidators.in_range(0.0, 1.0, lower_inclusive=False,
+                                 upper_inclusive=False),
+    )
+
+    def __init__(self, estimator: Estimator = None,
+                 estimator_param_maps: List[ParamMap] = None,
+                 evaluator: AlgoOperator = None):
+        super().__init__()
+        self.estimator = estimator
+        self.estimator_param_maps = estimator_param_maps
+        self.evaluator = evaluator
+
+    _check = CrossValidator._check
+
+    def fit(self, *inputs: Table) -> "TrainValidationSplitModel":
+        (table,) = inputs
+        self._check()
+        n = table.num_rows
+        n_train = int(n * self.get(self.TRAIN_RATIO))
+        if not 0 < n_train < n:
+            raise ValueError(
+                f"trainRatio {self.get(self.TRAIN_RATIO)} leaves an empty "
+                f"split for {n} rows"
+            )
+        rng = np.random.default_rng(self.get_seed())
+        perm = rng.permutation(n)
+        train_idx, val_idx = perm[:n_train], perm[n_train:]
+        larger = self.get(self.LARGER_BETTER)
+        metric_name = self.get(self.METRIC_NAME)
+        metrics = []
+        for param_map in self.estimator_param_maps:
+            _apply(param_map)
+            model = self.estimator.fit(table.take(train_idx))
+            (scored,) = model.transform(table.take(val_idx))
+            metrics.append(_metric_from(self.evaluator, scored, metric_name))
+        best = int(np.argmax(metrics) if larger else np.argmin(metrics))
+        _apply(self.estimator_param_maps[best])
+        best_model = self.estimator.fit(table)
+        out = TrainValidationSplitModel()
+        out.copy_params_from(self)
+        out.best_model = best_model
+        out.best_index = best
+        out.avg_metrics = metrics
+        out.param_maps_description = [
+            _describe(m) for m in self.estimator_param_maps
+        ]
+        return out
+
+
+class TrainValidationSplitModel(_TuningParams, _BestModelWrapper):
+    TRAIN_RATIO = TrainValidationSplit.TRAIN_RATIO

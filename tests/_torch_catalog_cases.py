@@ -1,6 +1,8 @@
 """The multi-rank cases of the port's device-side catalog (GBT and random
 forests in RAM and streamed, GaussianMixture, PCA, Correlation), run by
-``tests/_torch_mesh_worker.py catalog_b`` on P gloo ranks on the CPU.
+``tests/_torch_mesh_worker.py catalog_b``, and of LDA (in RAM and
+streamed), run by ``tests/_torch_mesh_worker.py catalog_c``, on P gloo
+ranks on the CPU.
 
 Imports numpy, torch and the port only. The input builders are shared
 with ``tests/test_torch_catalog_b_mesh.py``, which feeds the same numpy
@@ -130,3 +132,54 @@ def catalog_b_cases(mesh, rank: int, world: int) -> dict:
     out["corr"] = Correlation(mesh=mesh).transform(
         Table({"features": xp}))[0].column("corr")[0]
     return out
+
+
+LDA_KW = dict(k=3, max_iter=4, tol=0.0, seed=5)
+LDA_STREAM_ROWS = 32      # rows of each rank's block (a multiple of 16)
+LDA_STREAM_BATCHES = 3
+
+
+def lda_corpus(n_docs=90, vocab=30, k=3, doc_len=40, seed=0):
+    """``[n_docs, vocab]`` float64 counts from k topics with disjoint
+    dominant word blocks (``test_lda.py``'s generator), the topics and
+    each document's dominant topic."""
+    rng = np.random.default_rng(seed)
+    block = vocab // k
+    topics = np.full((k, vocab), 0.01 / vocab)
+    for t in range(k):
+        topics[t, t * block:(t + 1) * block] = 1.0
+    topics /= topics.sum(axis=1, keepdims=True)
+    theta = rng.dirichlet([0.2] * k, size=n_docs)
+    counts = np.stack([np.bincount(rng.choice(vocab, size=doc_len, p=th @ topics),
+                                   minlength=vocab) for th in theta])
+    return counts.astype(np.float64), topics, np.argmax(theta, axis=1)
+
+
+def lda_stream_blocks(world: int, seed=1):
+    """``[batch][rank]`` blocks of ``LDA_STREAM_ROWS`` float32 count rows
+    (column ``x``)."""
+    counts, _, _ = lda_corpus(
+        n_docs=world * LDA_STREAM_ROWS * LDA_STREAM_BATCHES, seed=seed)
+    counts = counts.astype(np.float32)
+    rows = world * LDA_STREAM_ROWS
+    return [[{"x": counts[b * rows + r * LDA_STREAM_ROWS:
+                          b * rows + (r + 1) * LDA_STREAM_ROWS]}
+             for r in range(world)] for b in range(LDA_STREAM_BATCHES)]
+
+
+def lda_combined_batches(world: int):
+    return [{"x": np.concatenate([blk["x"] for blk in blocks])}
+            for blocks in lda_stream_blocks(world)]
+
+
+def catalog_c_cases(mesh, rank: int, world: int) -> dict:
+    from flinkml_tpu_torch.iteration.datacache import cache_stream
+    from flinkml_tpu_torch.models import LDA
+    from flinkml_tpu_torch.table import Table
+
+    counts, _, _ = lda_corpus()
+    m = _setup(LDA(mesh=mesh), **LDA_KW).fit(Table({"features": counts}))
+    mine = [blocks[rank] for blocks in lda_stream_blocks(world)]
+    s = _setup(LDA(mesh=mesh), **LDA_KW).set_features_col("x").fit(
+        cache_stream(iter(mine)))
+    return {"lda_lambda": m._lambda, "lda_stream_lambda": s._lambda}

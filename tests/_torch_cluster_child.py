@@ -34,6 +34,9 @@ SERVED = ("s4", "prediction", "rawPrediction")
 
 def main() -> int:
     workdir = sys.argv[1]
+    from _torch_threads import cap_torch_threads
+
+    cap_torch_threads()
 
     import numpy as np
 

@@ -40,6 +40,9 @@ ROWS, DIM = 8, 3
 def main() -> int:
     workdir = sys.argv[1]
     golden = len(sys.argv) > 2 and sys.argv[2] == "golden"
+    from _torch_threads import cap_torch_threads
+
+    cap_torch_threads()
 
     import numpy as np
     import torch

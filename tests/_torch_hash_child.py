@@ -21,6 +21,9 @@ KEYS = ["", "a", "hello", "user:12345", "日本語", "the quick brown fox",
 
 
 def main() -> None:
+    from _torch_threads import cap_torch_threads
+
+    cap_torch_threads()
     import numpy as np
 
     from flinkml_tpu_torch.features.hashing import (

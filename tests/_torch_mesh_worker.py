@@ -21,7 +21,8 @@ sentinel; ``tests/test_torch_preemption.py``), or ``tensor``, ``ring``,
 tensor and pipeline parallelism, ring attention, sharded embedding
 tables, the sharded hashed-FM trainer and ALS on the mesh), or
 ``catalog_b`` (``tests/_torch_catalog_cases.py``: the forests in RAM and
-streamed, GaussianMixture, PCA and Correlation on the mesh). The streams' data
+streamed, GaussianMixture, PCA and Correlation on the mesh), or
+``catalog_c`` (the same file: LDA in RAM and streamed). The streams' data
 and hyperparameters are ``tests/_stream_mp_common.py``'s, which builds
 them from numpy alone.
 
@@ -975,6 +976,9 @@ def scaler_partition(rank: int, world: int, seed=2):
 
 def main(argv) -> int:
     which, out_dir = argv[1], argv[2]
+    from _torch_threads import cap_torch_threads
+
+    cap_torch_threads()
     import _torch_catalog_cases as catalog
     import _torch_recsys_cases as recsys
     import flinkml_tpu_torch as fml
@@ -1020,6 +1024,8 @@ def main(argv) -> int:
             out = recsys.recsys_b_cases(mesh, rank, world, out_dir)
         elif which == "catalog_b":
             out = catalog.catalog_b_cases(mesh, rank, world)
+        elif which == "catalog_c":
+            out = catalog.catalog_c_cases(mesh, rank, world)
         else:
             out = fit_cases(mesh, world, out_dir)
         out["local_rank_world"] = np.asarray([rank, world])

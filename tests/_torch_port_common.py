@@ -16,6 +16,9 @@ from flinkml_tpu.models import scalers as jax_scalers
 from flinkml_tpu.pipeline import PipelineModel as JaxPipelineModel
 from flinkml_tpu.table import Table as JaxTable
 from flinkml_tpu_torch import pipeline_fusion as torch_fusion
+from tests._torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # Declared tolerances (float64 runs are the JAX package under x64).
 F64_SCALER_RTOL = 1e-12

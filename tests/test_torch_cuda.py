@@ -2405,3 +2405,98 @@ def test_pca_gram_and_pic_on_card_match_cpu(cuda_device):
                              up(v0, "cpu"), 15)
     np.testing.assert_allclose(vc.cpu().numpy(), vh.numpy(), rtol=1e-4,
                                atol=1e-6 * float(vh.abs().max()))
+
+
+# -- LDA, gamma, OneVsRest and the tuning tools (the catalog's host half) -------
+
+
+@pytest.mark.parametrize("a", [100.0, 1.0])
+def test_gamma_and_normal_float64_on_card_match_cpu(cuda_device, a):
+    """The float64 draws on the card: within the ulps declared against JAX
+    (``test_torch_threefry.py``), no flipped decision."""
+    from flinkml_tpu_torch.ops import threefry
+
+    key_c, key_h = threefry.PRNGKey(5, cuda_device), threefry.PRNGKey(5, "cpu")
+    card = threefry.gamma(key_c, a, (20, 500)).cpu()
+    cpu = threefry.gamma(key_h, a, (20, 500))
+    assert card.dtype == torch.float64
+    torch.testing.assert_close(card, cpu, rtol=1e-12, atol=0)
+    assert int((card.view(torch.int64) - cpu.view(torch.int64)).abs().max()) \
+        <= 10
+    ulps = (threefry.normal(key_c, (1 << 16,), torch.float64).cpu()
+            .view(torch.int64) - threefry.normal(key_h, (1 << 16,),
+                                                 torch.float64)
+            .view(torch.int64))
+    assert int(ulps.abs().max()) <= 3
+
+
+def test_lda_vb_pass_and_fit_on_card_match_cpu(cuda_device):
+    from flinkml_tpu_torch.models import lda
+    from flinkml_tpu_torch.ops import threefry
+    from flinkml_tpu_torch.table import Table
+
+    rng = np.random.default_rng(6)
+    counts = rng.poisson(0.3, size=(600, 400)).astype(np.float32)
+    lam0 = lda._initial_lambda(threefry.PRNGKey(0, "cpu"), 5, 400)
+
+    def packed(device):
+        key = threefry.PRNGKey(0, device)
+        return lda.vb_pass(
+            torch.from_numpy(counts).to(device),
+            torch.ones(600, device=device),
+            torch.from_numpy(lam0.astype(np.float32)).to(device), 0.2,
+            threefry.fold_in(key, 0)).cpu().numpy()
+
+    card, cpu = packed(cuda_device), packed("cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(cpu[:-2]).max())
+    fits = []
+    for device in (cuda_device, "cpu"):
+        with fml.use_device(device):
+            fits.append(fml.models.LDA().set_k(5).set_max_iter(3)
+                        .set_tol(0.0).set_seed(0).fit(Table({
+                            "features": torch.from_numpy(counts).to(device)
+                        })).topics_matrix)
+    np.testing.assert_allclose(fits[0], fits[1], rtol=1e-4,
+                               atol=1e-4 * fits[1].max())
+
+
+def test_one_vs_rest_on_card_launches_fused_chain(cuda_device):
+    from flinkml_tpu_torch.table import Table
+
+    rng = np.random.default_rng(7)
+    x = np.concatenate([rng.normal(size=(300, 4)) + 4 * np.eye(4)[i % 3]
+                        for i in range(3)]).astype(np.float32)
+    y = np.repeat([0.0, 1.0, 2.0], 300)
+    inner = fml.Pipeline([
+        fml.MinMaxScaler().set_input_col("features").set_output_col("mm"),
+        fml.LogisticRegression().set_features_col("mm").set_max_iter(20)
+        .set_learning_rate(1.0).set_seed(0)])
+    table = Table({"features": torch.from_numpy(x).to(cuda_device),
+                   "label": y})
+    model = fml.models.OneVsRest(inner).fit(table)
+    before = kchain.LAUNCHES.count
+    (out,) = model.transform(table)
+    torch.cuda.synchronize()
+    assert kchain.LAUNCHES.count - before >= 3
+    assert (out.column("prediction") == y).mean() > 0.9
+
+
+def test_tuning_on_card_matches_cpu(cuda_device):
+    from flinkml_tpu_torch.table import Table
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2000, 6)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + 0.5 * rng.normal(size=2000) > 0).astype(
+        np.float32)
+    metrics = []
+    for device in (cuda_device, "cpu"):
+        with fml.use_device(device):
+            lr = fml.LogisticRegression().set_max_iter(10).set_seed(0)
+            grid = fml.ParamGridBuilder().add_grid(
+                lr, fml.LogisticRegression.REG, [0.0, 1.0]).build()
+            cv = fml.CrossValidator(
+                lr, grid, fml.models.BinaryClassificationEvaluator())
+            metrics.append(cv.set_num_folds(2).set_seed(0).fit(Table(
+                {"features": x, "label": y})).avg_metrics)
+    np.testing.assert_allclose(metrics[0], metrics[1], rtol=0, atol=1e-5)

@@ -22,11 +22,6 @@ PORT_ROOT = os.path.dirname(flinkml_tpu_torch.__file__)
 
 #: Names of the JAX ``__all__`` the port does not export yet, by package.
 GAPS = {
-    # ROADMAP item 10: the model-selection tools.
-    "flinkml_tpu_torch": {
-        "ParamGridBuilder", "CrossValidator", "CrossValidatorModel",
-        "TrainValidationSplit", "TrainValidationSplitModel",
-    },
     # Declared difference: the JAX kernel gate (backend knobs, interpret
     # mode, the Pallas entry points).
     "flinkml_tpu_torch.kernels": {
@@ -34,19 +29,6 @@ GAPS = {
         "backend_for", "interpret_mode", "resolve_backend",
         "pallas_segment_sum", "segment_sum", "segsum_backend", "pallas_spmv",
         "spmv_backend", "pallas_top_k", "top_k", "topk_backend",
-    },
-    # ROADMAP item 10c: the rest of the model catalog.
-    "flinkml_tpu_torch.models": {
-        "Normalizer", "ElementwiseProduct", "VectorSlicer",
-        "PolynomialExpansion", "Binarizer", "Bucketizer", "Imputer",
-        "ImputerModel", "AgglomerativeClustering", "Swing", "OneVsRest",
-        "OneVsRestModel", "FPGrowth", "FPGrowthModel", "PrefixSpan",
-        "StringIndexer", "StringIndexerModel", "IndexToStringModel",
-        "SQLTransformer", "BinaryClassificationEvaluator", "FeatureHasher",
-        "Interaction", "DCT", "StopWordsRemover", "RandomSplitter", "LDA",
-        "LDAModel", "VectorIndexer", "VectorIndexerModel",
-        "MulticlassClassificationEvaluator", "RegressionEvaluator",
-        "ClusteringEvaluator",
     },
     # ROADMAP item 18: the profiling utilities.
     "flinkml_tpu_torch.utils": {

@@ -11,6 +11,15 @@ bit for bit. ``normal`` carries XLA's float32 ``erf_inv`` polynomial (with
 XLA's fused multiply-adds) but PyTorch's ``log1p`` and ``sqrt``: over
 600,000 draws (three seeds) at most 3 ulps part it from JAX's, on about 1%
 of the draws; the test bounds the gap at those 3 ulps.
+
+The float64 ``normal`` carries XLA's float64 ``erf_inv`` (Giles'
+double-precision polynomials) and ``log1p`` (a Cephes rational) with their
+fused multiply-adds, and PyTorch's ``log`` above ``sqrt(2) - 1`` only:
+over 900,000 draws (three seeds) 28 differ from JAX's, by at most 3 ulps.
+``gamma`` (Marsaglia–Tsang, ``a >= 1``) equals JAX's bit for bit at LDA's
+``a = 100``; over 1.5 M draws at ``a`` in {1, 1.5, 2.5, 10, 100} (three
+seeds) 6 differ, by at most 10 ulps, and no accept/reject decision flips
+(a flip would change a draw wholly). The tests bound those gaps.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ SEEDS = (0, 7, 123456789)
 SPANS = (1, 7, 1000, 2**18, 2**31 - 1)
 SHAPES = ((13,), (4, 6))
 NORMAL_MAX_ULPS = 3
+NORMAL64_MAX_ULPS = 3
+GAMMA_MAX_ULPS = 10
 
 
 def _words(a) -> np.ndarray:
@@ -187,3 +198,98 @@ def test_permutation_bit_for_bit(seed, n):
     got = tf.permutation(tf.PRNGKey(seed, "cpu"), n)
     assert got.dtype == torch.int64
     assert want.tolist() == got.tolist()
+
+
+def _ulps64(want, got) -> np.ndarray:
+    return np.abs(np.asarray(want).view(np.int64)
+                  - np.asarray(got).view(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_float64_within_ulps(seed):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (50000,),
+                                        jnp.float64))
+    got = tf.normal(tf.PRNGKey(seed, "cpu"), (50000,), torch.float64).numpy()
+    assert got.dtype == np.float64
+    ulps = _ulps64(want, got)
+    assert ulps.max() <= NORMAL64_MAX_ULPS
+    assert (ulps == 0).mean() > 0.999
+
+
+def test_erf_inv_float64_matches_xla():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-1, 1, 4000),
+                        1 - 10.0 ** -rng.uniform(0, 15, 2000),
+                        -1 + 10.0 ** -rng.uniform(0, 15, 2000),
+                        [-1.0, 1.0, 0.0]])
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    got = tf.erf_inv(torch.from_numpy(x)).numpy()
+    assert np.isinf(got[-3]) and got[-3] < 0 and np.isinf(got[-2])
+    assert got[-1] == 0.0
+    ulps = _ulps64(want[:-3], got[:-3])
+    # Only PyTorch's log in log1p's upper branch (w >= ~0.35) is not XLA's.
+    assert (ulps == 0).mean() > 0.99
+    np.testing.assert_allclose(got[:-3], want[:-3], rtol=1e-13)
+
+
+def test_erf_inv_float64_planted_fault_is_caught():
+    """A Horner step without the fused multiply-add breaks the bit
+    equality the test above holds."""
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-0.99, 0.99, 4000))
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x.numpy())))
+    fused = tf._fma64
+    try:
+        tf._fma64 = lambda a, b, c: a * b + c
+        got = tf.erf_inv(x).numpy()
+    finally:
+        tf._fma64 = fused
+    assert (_ulps64(want, got) == 0).mean() < 0.99
+
+
+@pytest.mark.parametrize("seed", SEEDS[:2])
+@pytest.mark.parametrize("a,shape", [(100.0, (40, 50)), (100.0, (3000,)),
+                                     (1.0, (3000,)), (2.5, (3000,))])
+def test_gamma_matches_jax(seed, a, shape):
+    want = np.asarray(jax.random.gamma(jax.random.PRNGKey(seed), a, shape))
+    got = tf.gamma(tf.PRNGKey(seed, "cpu"), a, shape).numpy()
+    assert got.dtype == np.float64 and got.shape == shape
+    ulps = _ulps64(want, got)
+    # No flipped decision: a flip would give a wholly different draw.
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    assert ulps.max() <= GAMMA_MAX_ULPS
+    if a == 100.0:  # LDA's draws: bit for bit
+        assert ulps.max() == 0
+
+
+def test_gamma_over_a_batch_of_keys():
+    keys = tf.split(tf.PRNGKey(3, "cpu"), 4)
+    rows = tf.gamma(keys, 100.0, (5,)).numpy()
+    scalars = tf.gamma(keys, 100.0).numpy()
+    assert rows.shape == (4, 5) and scalars.shape == (4,)
+    jkeys = jax.random.split(jax.random.PRNGKey(3), 4)
+    for i in range(4):
+        assert rows[i].tobytes() == tf.gamma(keys[i], 100.0, (5,)).numpy() \
+            .tobytes()
+        want = np.asarray(jax.random.gamma(jkeys[i], 100.0, ()))
+        assert scalars[i] == want
+
+
+def test_gamma_planted_fault_is_caught():
+    """Another key, or multiply-adds rounded twice (XLA fuses them),
+    breaks the bounds the tests above hold."""
+    want = np.asarray(jax.random.gamma(jax.random.PRNGKey(0), 1.0, (3000,)))
+    other = tf.gamma(tf.PRNGKey(1, "cpu"), 1.0, (3000,)).numpy()
+    assert not np.allclose(other, want, rtol=1e-12)
+    fused = tf._fma64
+    try:
+        tf._fma64 = lambda a, b, c: a * b + c
+        got = tf.gamma(tf.PRNGKey(0, "cpu"), 1.0, (3000,)).numpy()
+    finally:
+        tf._fma64 = fused
+    assert _ulps64(want, got).max() > GAMMA_MAX_ULPS
+
+
+@pytest.mark.parametrize("a", (0.5, 0.99, float("nan")))
+def test_gamma_refuses_the_boosted_branch(a):
+    with pytest.raises(tf.UnsupportedDrawError):
+        tf.gamma(tf.PRNGKey(0, "cpu"), a, (3,))
