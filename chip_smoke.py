@@ -11,7 +11,9 @@ and fails with a non-zero exit if any phase fails:
 
 1. prints the card's name and power limit; builds every CUDA kernel from
    ``flinkml_tpu_torch/kernels/csrc`` and the measurement probes of
-   ``kernels/probes`` (one ``nvcc`` per source, in parallel);
+   ``kernels/probes`` (one ``nvcc`` per source, in parallel) into a fresh
+   compile-cache store, a temporary directory named by
+   ``FLINKML_TPU_COMPILE_CACHE`` for every process the run starts;
 2. kernel phase: each kernel against its plain PyTorch version at the main
    paths' shapes — ``spmv`` at 65,536 and 262,144 rows x 39 slots, dim
    1e6, float32 (and at widths 1, 7, 39, 40, 1,000 and 3,000 on bucket
@@ -404,6 +406,23 @@ and fails with a non-zero exit if any phase fails:
    margins. W5, every other new stage on a Table of card tensors, bit
    for bit against the same stage on host columns (the silhouette within
    1e-6). W must launch ``fused_chain``, ``spmv`` and ``segment_sum``;
+6s. the compile cache, the tuning table and profiling (path X,
+   ``compile_cache_path``, right after the kernel phase): X1, a fresh
+   child (``--x1-child``) loads the four kernel libraries from the store
+   with no ``nvcc`` run, serves the parent's saved chain from a
+   ``ReplicaPool`` (the time from its spawn to its first prediction, the
+   store's ``load_ms``), scales it to 3 replicas with no build, bit for
+   bit, and holds ``spmv``, ``segment_sum``, ``topk`` and ``fused_chain``
+   against their plain versions; X2, a child (``--x2-child``) on a copy
+   of the store whose ``spmv`` is torn rebuilds it with one ``nvcc`` run
+   (one corrupt entry) and holds it against the plain version, and an
+   entry copied under another environment is refused; X3, the committed
+   tuning table passes ``--check``, ``mesh_key()`` names this card, every
+   consumer resolves to its entry, and one quick measurement
+   (``gbt_histogram``) runs; X4, a ``trace`` of one served batch names
+   the ``fused_chain`` kernel and a ``StepTimer`` of ``segment_sum``
+   (2^26 cells) reads within 20% (or 20 µs) of CUDA events around the
+   same steps. X1's and X2's children run beside X3.
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -451,8 +470,10 @@ through the port's wrappers; one JSON line per measurement.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -6707,6 +6728,7 @@ def cluster_o1_o2(torch, model, x):
     import flinkml_tpu_torch as fml
     from flinkml_tpu_torch import faults
     from flinkml_tpu_torch.cluster import ClusterPool, reclaim_worker_leases
+    from flinkml_tpu_torch.kernels import _build
     from flinkml_tpu_torch.serving import (
         ReplicaPool,
         ServingConfig,
@@ -6769,11 +6791,16 @@ def cluster_o1_o2(torch, model, x):
                      "times (the pool builds the kernels before the spawn)")
             if st["launches"].get("fused_chain", 0) <= 0:
                 fail(f"path O1: worker {r.name} launched no fused_chain")
+            if st["compile_cache"].get("hits", 0) < len(_build.sources()):
+                fail(f"path O1: worker {r.name} loaded "
+                     f"{st['compile_cache']} from the store")
             before[r.name] = st
             last[r.name] = st["launches"]["fused_chain"]
         rec["worker_launches"] = dict(last)
         rec["worker_programs"] = {k: v["compiled_programs"]
                                   for k, v in before.items()}
+        rec["worker_store"] = {k: v["compile_cache"]
+                               for k, v in before.items()}
 
         # O2: a crash mid-traffic, armed over the transport.
         victim = pool.replicas[0]
@@ -6817,6 +6844,10 @@ def cluster_o1_o2(torch, model, x):
         if warm["nvcc_runs"] != 0:
             fail(f"path O2: the respawned worker ran nvcc {warm['nvcc_runs']}"
                  " times")
+        rec2["respawn_store"] = warm["compile_cache"]
+        if warm["compile_cache"].get("hits", 0) < len(_build.sources()):
+            fail(f"path O2: the respawned worker loaded "
+                 f"{warm['compile_cache']} from the store")
         if not (warm["compiled_programs"] == after["compiled_programs"]
                 == before["r0"]["compiled_programs"]):
             fail(f"path O2: programs {before['r0']['compiled_programs']} "
@@ -10067,6 +10098,408 @@ def catalog_w_path(torch):
     return launches
 
 
+# -- path X: the compile-cache store, the tuning table and profiling --------------
+
+#: Path X1's kernel checks in the fresh child (the kernel phase's widths at
+#: smaller row counts: the point is a library loaded from the store).
+X_SPMV_ROWS = 4_096
+X_SEGSUM_CELLS, X_SEGSUM_SEGMENTS = 1 << 18, 100_000
+X_TOPK_ROWS, X_TOPK_N, X_TOPK_K = 256, 8_192, 16
+#: Rows of one served request in X1 (the replicas' bit-for-bit check) and
+#: of X4's traced batch.
+X_SERVE_ROWS = 64
+#: X4's StepTimer check: a segment_sum long enough (its 512 MB of cells
+#: take ≥ 0.17 ms at the card's memory rate) that 20% of it is well above
+#: the host's clock and launch noise.
+X_TIMER_CELLS, X_TIMER_SEGMENTS, X_TIMER_STEPS = 1 << 26, 1 << 20, 20
+#: The tuning table's key for one H100 (path X3).
+X_MESH = "cuda/NVIDIA_H100_80GB_HBM3/1"
+
+
+def x_store_counters() -> dict:
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    return dict(metrics.group("compile_cache").snapshot()["counters"])
+
+
+def x_kernel_checks(torch) -> dict:
+    """``spmv``, ``segment_sum`` and ``topk`` launched once each on this
+    process's libraries, held against their plain versions as the kernel
+    phase holds them (1e-5; ``topk`` bit for bit). Returns each max abs
+    err."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(
+        0, SPMV_DIM, size=(X_SPMV_ROWS, SPMV_NNZ)).astype(np.int32)).cuda()
+    val = torch.from_numpy(rng.normal(
+        size=(X_SPMV_ROWS, SPMV_NNZ)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=SPMV_DIM).astype(np.float32)).cuda()
+    got, want = kspmv.spmv(idx, val, w), kspmv.spmv_plain(idx, val, w)
+    check_close("path X spmv vs plain", got, want, 1e-5, 1e-5)
+    errs = {"spmv": max_err(got, want)}
+    ids = torch.from_numpy(rng.integers(
+        0, X_SEGSUM_SEGMENTS, size=X_SEGSUM_CELLS).astype(np.int32)).cuda()
+    vals = torch.from_numpy(rng.normal(
+        size=X_SEGSUM_CELLS).astype(np.float32)).cuda()
+    got = ksegsum.segment_sum(vals, ids, X_SEGSUM_SEGMENTS)
+    want = ksegsum.segment_sum_plain(vals, ids, X_SEGSUM_SEGMENTS)
+    check_close("path X segment_sum vs plain", got, want, 1e-5, 1e-5)
+    errs["segment_sum"] = max_err(got, want)
+    x = torch.from_numpy(rng.normal(
+        size=(X_TOPK_ROWS, X_TOPK_N)).astype(np.float32)).cuda()
+    (gv, gi), (wv, wi) = ktopk.top_k(x, X_TOPK_K), ktopk.top_k_plain(
+        x, X_TOPK_K)
+    if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+        fail("path X topk differs from top_k_plain")
+    errs["topk"] = 0.0
+    torch.cuda.synchronize()
+    return errs
+
+
+def x1_child() -> int:
+    """Path X1's fresh process (``--x1-child``; the store is
+    ``$FLINKML_TPU_COMPILE_CACHE``, filled by the parent's build): load the
+    four kernel libraries with no ``nvcc``, load the parent's saved chain
+    and serve its first prediction from a ``ReplicaPool`` (the cold start,
+    timed from the spawn), scale the pool from 1 to 3 replicas with no new
+    build, then launch each kernel against its plain version. Prints one
+    JSON report."""
+    import torch
+
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.kernels import _build
+    from flinkml_tpu_torch.pipeline import PipelineModel
+    from flinkml_tpu_torch.serving import ReplicaPool, ServingConfig
+    from flinkml_tpu_torch.table import Table
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    spawned = float(os.environ["FML_X_SPAWNED"])
+    fml.reset_launch_counts()
+    outcomes = _build.load_all()
+    loaded = x_store_counters()
+    rep = {"outcomes": outcomes, "nvcc_after_load": _build.nvcc_runs(),
+           "hits": loaded.get("hits", 0), "misses": loaded.get("misses", 0),
+           "load_ms": metrics.group("compile_cache").history("load_ms")}
+    model = PipelineModel.load(os.environ["FML_X_MODEL"])
+    x = np.load(os.environ["FML_X_MODEL"] + ".npy")
+    rows = {"features": x[:X_SERVE_ROWS], "label": np.zeros(X_SERVE_ROWS)}
+    pool = ReplicaPool(
+        model, Table({"features": x[:4], "label": np.zeros(4)}),
+        config=ServingConfig(max_batch_rows=256, max_wait_ms=1.0),
+        n_replicas=1, output_cols=("prediction", "rawPrediction"),
+        name="x1-pool",
+    ).start()
+    try:
+        first = pool.predict(rows)
+        rep["first_prediction_s"] = time.time() - spawned
+        nvcc_before = _build.nvcc_runs()
+        pool.add_replica()
+        pool.add_replica()
+        outs = [r.engine.predict(rows).columns for r in pool.replicas]
+        rep["new_builds_on_scale_up"] = _build.nvcc_runs() - nvcc_before
+    finally:
+        pool.stop(drain=False)
+    rep["replicas"] = len(outs)
+    rep["scaled_bitwise"] = all(
+        o[c].tobytes() == outs[0][c].tobytes() for o in outs for c in o)
+    rep["max_abs_err"] = x_kernel_checks(torch)
+    with fml.use_device("cpu"):
+        (plain,) = model.transform(Table(dict(rows)))
+    want = torch.from_numpy(np.asarray(plain.column("rawPrediction")))
+    got = torch.from_numpy(np.asarray(first.columns["rawPrediction"]))
+    check_close("path X1 fused_chain vs plain", got, want, 1e-12, 1e-12)
+    rep["max_abs_err"]["fused_chain"] = max_err(got, want)
+    rep["launches"] = dict(fml.launch_counts())
+    rep["nvcc_runs"] = _build.nvcc_runs()
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+def x2_child() -> int:
+    """Path X2's fresh process (``--x2-child``): ``spmv``'s entry in the
+    store was truncated by the parent; loading it must rebuild it with one
+    ``nvcc`` run, count one corrupt entry, and the rebuilt kernel must hold
+    against the plain version. Prints one JSON report."""
+    import torch
+
+    from flinkml_tpu_torch.kernels import _build
+
+    before = x_store_counters()
+    outcome = _build._load("spmv", _build.store())
+    after = x_store_counters()
+    rep = {"outcome": outcome, "nvcc_runs": _build.nvcc_runs(),
+           "corrupt_entries": after.get("corrupt_entries", 0)
+           - before.get("corrupt_entries", 0)}
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+
+    rng = np.random.default_rng(12)
+    idx = torch.from_numpy(rng.integers(
+        0, SPMV_DIM, size=(X_SPMV_ROWS, SPMV_NNZ)).astype(np.int32)).cuda()
+    val = torch.from_numpy(rng.normal(
+        size=(X_SPMV_ROWS, SPMV_NNZ)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=SPMV_DIM).astype(np.float32)).cuda()
+    got, want = kspmv.spmv(idx, val, w), kspmv.spmv_plain(idx, val, w)
+    check_close("path X2 rebuilt spmv vs plain", got, want, 1e-5, 1e-5)
+    rep["max_abs_err"] = max_err(got, want)
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+def x_start_child(mode: str, **env_extra) -> subprocess.Popen:
+    """Start ``chip_smoke.py --<mode>`` (on this process's store unless
+    ``env_extra`` names another)."""
+    env = dict(os.environ, FML_X_SPAWNED=repr(time.time()), **env_extra)
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), f"--{mode}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def x_child_report(mode: str, proc: subprocess.Popen) -> dict:
+    """The child's JSON report (its last line); a failed child fails."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"path X {mode} did not finish in 300 s")
+    if proc.returncode != 0:
+        fail(f"path X {mode} exited {proc.returncode}:\n{out[-3000:]}\n"
+             f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def x1_check(rep: dict) -> dict:
+    """X1's checks on the fresh child's report."""
+    from flinkml_tpu_torch.kernels import _build
+
+    if rep["nvcc_runs"] != 0 or rep["nvcc_after_load"] != 0:
+        fail(f"path X1: the child ran nvcc {rep['nvcc_runs']} times")
+    if rep["hits"] < len(_build.sources()) or rep["misses"] != 0:
+        fail(f"path X1: {rep['hits']} store hits, {rep['misses']} misses "
+             f"for {len(_build.sources())} kernel libraries")
+    if set(rep["outcomes"].values()) != {"disk"}:
+        fail(f"path X1: the libraries loaded as {rep['outcomes']}")
+    if rep["replicas"] != 3 or rep["new_builds_on_scale_up"] != 0:
+        fail(f"path X1: scale-up to {rep['replicas']} replicas built "
+             f"{rep['new_builds_on_scale_up']} libraries")
+    if not rep["scaled_bitwise"]:
+        fail("path X1: the scaled replicas answer other bits than the first")
+    for site in ("spmv", "segment_sum", "topk", "fused_chain"):
+        if rep["launches"].get(site, 0) <= 0:
+            fail(f"path X1: the child launched no {site}")
+    return rep
+
+
+def x2_torn_store(work: str) -> str:
+    """A copy of this process's store whose ``spmv`` library is torn (its
+    first half), for X2's fresh child. A copy, never the entry in place:
+    this process has the library mapped, and cutting a mapped file under
+    it faults the process (SIGBUS)."""
+    from flinkml_tpu_torch.kernels import _build
+
+    path = _build.store().entry_path(_build.program_key("spmv"))
+    env_dir = os.path.dirname(path)
+    copy_dir = os.path.join(work, "store", os.path.basename(env_dir))
+    shutil.copytree(env_dir, copy_dir,
+                    ignore=shutil.ignore_patterns("*.lock", ".tmp-*"))
+    torn = os.path.join(copy_dir, os.path.basename(path))
+    with open(torn, "r+b") as fh:
+        fh.truncate(os.path.getsize(torn) // 2)
+    return os.path.join(work, "store")
+
+
+def x2_check(rep: dict) -> dict:
+    """X2's checks on the child that met the torn ``spmv`` entry."""
+    if rep["outcome"] != "compiled" or rep["nvcc_runs"] != 1 \
+            or rep["corrupt_entries"] != 1:
+        fail(f"path X2: the truncated spmv entry gave {rep}")
+    return rep
+
+
+def x2_env_mismatch() -> dict:
+    """X2's second half: this store's ``spmv`` entry copied under another
+    environment's namespace is refused (a miss, counted)."""
+    from flinkml_tpu_torch import compile_cache
+    from flinkml_tpu_torch.kernels import _build
+
+    store = _build.store()
+    key = _build.program_key("spmv")
+    path = store.entry_path(key)
+    bumped = compile_cache.CompileCacheStore(store.directory)
+    bumped._env = dict(store._environment(), torch="999.0.0")
+    alien = bumped.entry_path(key)
+    os.makedirs(os.path.dirname(alien), exist_ok=True)
+    for suffix in (".so", ".json"):
+        shutil.copy(path[:-3] + suffix, alien[:-3] + suffix)
+    before = x_store_counters().get("env_mismatches", 0)
+    if bumped._read_disk(key) is not None:
+        fail("path X2: an entry of another environment was read")
+    rep = {"env_mismatches": x_store_counters().get("env_mismatches", 0)
+           - before,
+           "namespaces_differ": os.path.dirname(alien)
+           != os.path.dirname(path)}
+    shutil.rmtree(os.path.dirname(alien), ignore_errors=True)
+    if rep["env_mismatches"] != 1 or not rep["namespaces_differ"]:
+        fail(f"path X2: {rep}")
+    return rep
+
+
+def x3_table(torch) -> dict:
+    """X3: the committed tuning table checks, keys this card, and every
+    consumer resolves to its entry; one quick measurement runs."""
+    from flinkml_tpu_torch import precision
+    from flinkml_tpu_torch.autotune import load_table, mesh_key, search
+    from flinkml_tpu_torch.models import _linear_sgd, als, gbt, word2vec
+    from flinkml_tpu_torch.serving import autoscaler, engine
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "flinkml_tpu_torch.autotune", "--check"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        fail(f"path X3: autotune --check exited {proc.returncode}:\n"
+             f"{proc.stderr[-2000:]}")
+    rep = {"check": proc.stdout.strip(), "mesh": mesh_key()}
+    if rep["mesh"] != X_MESH:
+        fail(f"path X3: mesh_key() is {rep['mesh']!r}, not {X_MESH!r}")
+    table = load_table()
+    cfg = engine.resolve_config(engine.ServingConfig(), torch.device("cuda"))
+    resolved = {
+        "sparse_layout": _linear_sgd.resolve_layout(),
+        "gbt_histogram": gbt.resolve_hist_layout(),
+        "als_reduction": als.resolve_layout(),
+        "w2v_accum": word2vec.resolve_accum(),
+        "serving_max_batch_rows": cfg.max_batch_rows,
+        "serving_window_ms": cfg.max_wait_ms,
+        "serving_scale_up_backlog": autoscaler._tuned_backlog_threshold(
+            autoscaler.SCALE_UP_BACKLOG),
+        "int8_min_const_elems": precision.int8_min_const_elems(),
+    }
+    entries = table.data["entries"].get(X_MESH, {})
+    if set(entries) != set(resolved):
+        fail(f"path X3: the table's {X_MESH} knobs {sorted(entries)} are "
+             f"not the one-card knobs {sorted(resolved)}")
+    for knob, value in resolved.items():
+        if value != table.value(X_MESH, knob):
+            fail(f"path X3: {knob} resolves to {value!r}, the table says "
+                 f"{table.value(X_MESH, knob)!r}")
+    rep["resolved"] = resolved
+    t0 = time.perf_counter()
+    rep["quick_gbt_histogram"] = search.measure_gbt_histogram(quick=True)
+    rep["quick_s"] = time.perf_counter() - t0
+    if not all(v > 0 for v in rep["quick_gbt_histogram"].values()):
+        fail(f"path X3: quick measurement {rep['quick_gbt_histogram']}")
+    return rep
+
+
+def x4_profiling(torch, model, x) -> dict:
+    """X4: a ``trace`` around one served batch (of ``model``) names the
+    ``fused_chain`` kernel; a ``StepTimer`` around ``segment_sum`` reads
+    what CUDA events around the same steps read (each step launched on an
+    idle card and waited for), within 20% or 20 µs."""
+    import glob
+
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.serving import ServingConfig, ServingEngine
+    from flinkml_tpu_torch.table import Table
+    from flinkml_tpu_torch.utils import StepTimer, annotate, trace
+
+    engine = ServingEngine(
+        model, Table({"features": x[:4], "label": np.zeros(4)}),
+        ServingConfig(max_batch_rows=256, max_wait_ms=1.0),
+        output_cols=("prediction",), name="x4").start()
+    rows = {"features": x[:X_SERVE_ROWS], "label": np.zeros(X_SERVE_ROWS)}
+    log_dir = tempfile.mkdtemp(prefix="fml-x4-trace-")
+    try:
+        engine.predict(rows)
+        with trace(log_dir, ignore_errors=False):
+            with annotate("x4_served_batch"):
+                engine.predict(rows)
+            torch.cuda.synchronize()
+        (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        with open(path) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    finally:
+        engine.stop(drain=False)
+        shutil.rmtree(log_dir, ignore_errors=True)
+    kernels = sorted(n for n in names if "fused_chain" in n)
+    if not kernels or "x4_served_batch" not in names:
+        fail("path X4: the trace of a served batch names no fused_chain "
+             "kernel or no annotation")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ids = torch.randint(0, X_TIMER_SEGMENTS, (X_TIMER_CELLS,), device="cuda",
+                        dtype=torch.int32, generator=gen)
+    vals = torch.randn(X_TIMER_CELLS, device="cuda", generator=gen)
+    ksegsum.segment_sum(vals, ids, X_TIMER_SEGMENTS)
+    torch.cuda.synchronize()
+    timer = StepTimer()
+    for _ in range(X_TIMER_STEPS):
+        with timer:
+            timer.observe(ksegsum.segment_sum(vals, ids, X_TIMER_SEGMENTS))
+    event_ms = []
+    for _ in range(X_TIMER_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ksegsum.segment_sum(vals, ids, X_TIMER_SEGMENTS)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    event_ms = float(np.mean(event_ms))
+    timer_ms = timer.mean * 1e3
+    rep = {"trace_kernels": kernels, "step_timer_ms": timer_ms,
+           "cuda_event_ms": event_ms}
+    if abs(timer_ms - event_ms) > max(0.2 * event_ms, 0.020):
+        fail(f"path X4: StepTimer reads {timer_ms:.4f} ms, CUDA events "
+             f"{event_ms:.4f} ms")
+    return rep
+
+
+def compile_cache_path(torch) -> dict:
+    """Path X: the store (X1 a cold start in a fresh process, X2 a torn
+    library rebuilt in another and an entry of another environment
+    refused), the tuning table (X3) and profiling (X4). X1's and X2's
+    children run while this process checks X2's namespaces and X3; X4
+    runs alone after them, for its times. Returns the launch counts of
+    this process's work (X3's quick measurement, X4)."""
+    import flinkml_tpu_torch as fml
+
+    from flinkml_tpu_torch.autotune.search import _serving_model
+
+    t0 = time.perf_counter()
+    rec = {"path": "compile_cache_X"}
+    model, x = _serving_model()  # the search's scaler → LR chain, 2,048 x 16
+    work = tempfile.mkdtemp(prefix="fml-x-")
+    try:
+        path = os.path.join(work, "model")
+        model.save(path)
+        np.save(path + ".npy", x[:X_SERVE_ROWS])
+        x1 = x_start_child("x1-child", FML_X_MODEL=path)
+        x2 = x_start_child("x2-child",
+                           FLINKML_TPU_COMPILE_CACHE=x2_torn_store(work))
+        rec["x2_env"] = x2_env_mismatch()
+        fml.reset_launch_counts()
+        rec["x3"] = x3_table(torch)
+        rec["x1"] = x1_check(x_child_report("x1-child", x1))
+        rec["x2"] = x2_check(x_child_report("x2-child", x2))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["x4"] = x4_profiling(torch, model, x)
+    counts = dict(fml.launch_counts())
+    for site in ("fused_chain", "segment_sum"):
+        if counts.get(site, 0) <= 0:
+            fail(f"path X: {site} never launched in the parent")
+    rec["launches"] = counts
+    rec["card"] = card_line()
+    rec["seconds"] = time.perf_counter() - t0
+    log("path " + json.dumps(rec))
+    return counts
+
+
 #: Inputs and float64 references that need no card, made while the kernels
 #: build (:func:`prepare_references`) and taken by the path that uses them.
 PREPARED = {}
@@ -10127,8 +10560,15 @@ def main() -> int:
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import flinkml_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from flinkml_tpu_torch import compile_cache
     from flinkml_tpu_torch.kernels import _build
 
+    # Path X1: the kernels build into a fresh store, which every process
+    # this run starts (ranks, workers, path X's children) shares.
+    x_store = tempfile.mkdtemp(prefix="fml-compile-cache-")
+    atexit.register(shutil.rmtree, x_store, True)
+    os.environ[compile_cache.ENV_DIR_VAR] = x_store
+    compile_cache.reset()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -10171,6 +10611,9 @@ def main() -> int:
     topk_rec = topk_phase(torch, timer)
     bf16 = bf16_kernel_phase(torch, timer)
     mark("kernel phase")
+    x_counts = compile_cache_path(torch)
+    chain_paths_x = x_counts["fused_chain"]
+    mark("path X")
 
     serve_spmv = sparse_path(torch)
     chain_paths = {"dense": dense_path(torch), "census": census_path(torch),
@@ -10228,6 +10671,7 @@ def main() -> int:
     w_counts = catalog_w_path(torch)
     chain_paths["catalog_W"] = w_counts["fused_chain"]
     mark("path W")
+    chain_paths["compile_cache_X"] = chain_paths_x
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -10243,6 +10687,7 @@ def main() -> int:
         if name == "segment_sum":
             rec["launches_by_path"].update(pqrs_segsum)
             rec["launches_by_path"]["catalog_V"] = v_segsum
+            rec["launches_by_path"]["compile_cache_X"] = x_counts[name]
         rec["launches_by_path"]["catalog_W"] = w_counts[name]
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
@@ -10784,4 +11229,8 @@ if __name__ == "__main__":
         sys.exit(j2_rank(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--pr-rank":
         sys.exit(pr_rank(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--x1-child":
+        sys.exit(x1_child())
+    if len(sys.argv) == 2 and sys.argv[1] == "--x2-child":
+        sys.exit(x2_child())
     sys.exit(main())

@@ -1,0 +1,299 @@
+"""The mesh-keyed tuning table (the port's counterpart of
+``flinkml_tpu.autotune.table``, with the same file format and env vars).
+
+Format (``tuning_table.json``, committed next to this module)::
+
+    {
+      "version": 1,
+      "entries": {
+        "<backend>/<device_kind>/<n_devices>": {
+          "<knob>": {
+            "value": <winner>,
+            "unit": "<what the candidates were measured in>",
+            "candidates": {"<candidate>": <measured value>, ...},
+            "measured_at": "<UTC ISO stamp>",
+            "source": "<harness that measured it>"
+          }, ...
+        }, ...
+      }
+    }
+
+The mesh key is the measurement's validity domain: a winner measured on
+one H100 says nothing about another card or world size, so lookups only
+ever see their own mesh's entry. The port's key is
+``cuda/<sanitized device name>/<world size>`` (``cuda/NVIDIA_H100_80GB_
+HBM3/1``), or ``cpu/cpu/<world size>`` for work on the host, the world
+size being that of the default process group (1 without one).
+
+``candidates`` is committed alongside the winner on purpose: a reader
+can see HOW decisive the win was, and the search's hysteresis rule
+(flip the default only on a >1.10x win, so measurement noise never
+flip-flops a committed default) is auditable after the fact.
+
+Lookup precedence at every consulted site: explicit env var / argument
+> tuning-table entry for the current mesh > static fallback.
+``FLINKML_TPU_AUTOTUNE=0`` turns the middle layer off.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import tempfile
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from flinkml_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("autotune")
+
+#: The committed table (package data).
+DEFAULT_TABLE_PATH = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tuning_table.json"
+)
+
+#: Point lookups at a different table file.
+ENV_TABLE_VAR = "FLINKML_TPU_TUNING_TABLE"
+
+#: ``=0`` disables every table consult (static defaults only).
+ENV_DISABLE_VAR = "FLINKML_TPU_AUTOTUNE"
+
+#: Every knob a table may carry, with the unit its candidates are
+#: measured in — ``--check`` refuses unknown knobs so a typo'd entry
+#: cannot sit silently unconsulted.
+KNOWN_KNOBS: Dict[str, str] = {
+    "sparse_layout": "samples_per_sec",
+    "gbt_histogram": "row_trees_per_sec",
+    "als_reduction": "rating_visits_per_sec",
+    "w2v_accum": "pairs_per_sec",
+    "infer_plan_order": "samples_per_sec",
+    "serving_max_batch_rows": "rows_per_sec",
+    "serving_window_ms": "rows_per_sec",
+    # The sharded-embedding exchange (flinkml_tpu_torch.embeddings): ring
+    # vs all_to_all row routing, with dense_psum (replicated table, dense
+    # gradient all-reduce) as the below-threshold candidate.
+    "embedding_exchange": "lookup_update_rows_per_sec",
+    # The autoscaler's scale-up backlog threshold (queued rows as a
+    # fraction of per-replica queue capacity), committed as
+    # 1/recovery_s so that higher is better for every knob.
+    "serving_scale_up_backlog": "inverse_recovery_s",
+    # The int8 tier's minimum constant size worth quantizing (elements).
+    "int8_min_const_elems": "rows_per_sec",
+}
+
+#: The JAX package's kernel-backend knobs (xla vs pallas per kernel
+#: site). The port's gate has one CUDA route per site and no backend
+#: choice, so nothing consults them: :meth:`TuningTable.check` names an
+#: entry for one as not consulted in the port.
+UNCONSULTED_KNOBS = (
+    "kernel_backend_fused_chain",
+    "kernel_backend_segment_sum",
+    "kernel_backend_spmv",
+    "kernel_backend_topk",
+)
+
+_CACHE_LOCK = threading.Lock()
+_CACHE: Dict[str, Tuple[float, "TuningTable"]] = {}
+_WARNED: set = set()
+
+
+def mesh_key(backend: Optional[str] = None,
+             device_kind: Optional[str] = None,
+             n_devices: Optional[int] = None) -> str:
+    """The current (or given) mesh's table key:
+    ``backend/device_kind/n_devices`` with the device kind sanitized
+    (``NVIDIA H100 80GB HBM3`` -> ``NVIDIA_H100_80GB_HBM3``). The current
+    mesh is this thread's compute device
+    (:func:`~flinkml_tpu_torch.device.default_device`: ``cuda`` and its
+    card's name, or ``cpu/cpu``) and the default process group's world
+    size (1 without one)."""
+    if backend is None or device_kind is None or n_devices is None:
+        import torch
+
+        from flinkml_tpu_torch.device import default_device
+
+        device = default_device()
+        backend = backend or device.type
+        if device_kind is None:
+            device_kind = (torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else "cpu")
+        if n_devices is None:
+            dist = torch.distributed
+            n_devices = (dist.get_world_size()
+                         if dist.is_available() and dist.is_initialized()
+                         else 1)
+    kind = re.sub(r"[^A-Za-z0-9_.-]", "_", str(device_kind))
+    return f"{backend}/{kind}/{int(n_devices)}"
+
+
+class TuningTable:
+    """In-memory view of one table file (see module docstring)."""
+
+    def __init__(self, data: Optional[dict] = None,
+                 path: Optional[str] = None):
+        self.data = data or {"version": 1, "entries": {}}
+        self.path = path
+
+    # -- lookups -----------------------------------------------------------
+    def record(self, mesh: str, knob: str) -> Optional[dict]:
+        return self.data.get("entries", {}).get(mesh, {}).get(knob)
+
+    def value(self, mesh: str, knob: str) -> Any:
+        rec = self.record(mesh, knob)
+        return None if rec is None else rec.get("value")
+
+    def meshes(self) -> Tuple[str, ...]:
+        return tuple(self.data.get("entries", {}))
+
+    # -- mutation ----------------------------------------------------------
+    def set_knob(self, mesh: str, knob: str, value: Any, *,
+                 candidates: Optional[Dict[str, float]] = None,
+                 unit: Optional[str] = None,
+                 measured_at: Optional[str] = None,
+                 source: str = "flinkml_tpu_torch.autotune",
+                 refused: Optional[Dict[str, str]] = None) -> None:
+        if knob not in KNOWN_KNOBS:
+            raise ValueError(
+                f"unknown tuning knob {knob!r}; known: "
+                f"{sorted(KNOWN_KNOBS)}"
+            )
+        if measured_at is None:
+            import datetime
+
+            measured_at = (
+                datetime.datetime.now(datetime.timezone.utc)
+                .strftime("%Y-%m-%dT%H:%M:%SZ")
+            )
+        entry = self.data.setdefault("entries", {}).setdefault(mesh, {})
+        entry[knob] = {
+            "value": value,
+            "unit": unit or KNOWN_KNOBS[knob],
+            "candidates": dict(candidates or {}),
+            "measured_at": measured_at,
+            "source": source,
+        }
+        if refused:
+            # Candidates the port refuses on this mesh (a port addition:
+            # recorded, never measured, never the value).
+            entry[knob]["refused"] = dict(refused)
+
+    def save(self, path: Optional[str] = None) -> str:
+        """Atomic write (temp file + rename — a reader never sees a torn
+        table)."""
+        path = path or self.path or DEFAULT_TABLE_PATH
+        directory = os.path.dirname(os.path.abspath(path))
+        os.makedirs(directory, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp-tune-")
+        try:
+            with os.fdopen(fd, "w") as fh:
+                json.dump(self.data, fh, indent=2, sort_keys=True)
+                fh.write("\n")
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        return path
+
+    # -- validation --------------------------------------------------------
+    def check(self) -> Sequence[str]:
+        """Schema problems, empty when clean (the CI gate)."""
+        problems = []
+        if self.data.get("version") != 1:
+            problems.append(f"version != 1: {self.data.get('version')!r}")
+        entries = self.data.get("entries")
+        if not isinstance(entries, dict):
+            return problems + ["entries is not a dict"]
+        for mesh, knobs in entries.items():
+            if not re.fullmatch(r"[^/]+/[^/]+/\d+", mesh):
+                problems.append(f"bad mesh key {mesh!r}")
+            if not isinstance(knobs, dict):
+                problems.append(f"{mesh}: knobs is not a dict")
+                continue
+            for knob, rec in knobs.items():
+                where = f"{mesh}/{knob}"
+                if knob in UNCONSULTED_KNOBS:
+                    problems.append(
+                        f"{where}: not consulted in the port (its kernel "
+                        "gate has one CUDA route and no backend choice)"
+                    )
+                    continue
+                if knob not in KNOWN_KNOBS:
+                    problems.append(f"{where}: unknown knob")
+                    continue
+                if not isinstance(rec, dict) or "value" not in rec:
+                    problems.append(f"{where}: record has no value")
+                    continue
+                for field in ("candidates", "measured_at", "source", "unit"):
+                    if field not in rec:
+                        problems.append(f"{where}: missing {field!r}")
+                cands = rec.get("candidates")
+                if not isinstance(cands, dict) or not cands:
+                    problems.append(
+                        f"{where}: no measured candidates — a committed "
+                        "value must be measured, not guessed"
+                    )
+        return problems
+
+
+def load_table(path: Optional[str] = None) -> TuningTable:
+    """The table at ``path`` (default: ``$FLINKML_TPU_TUNING_TABLE`` or
+    the committed one), cached by mtime. A missing file is an empty
+    table; an unparsable one logs loudly and acts empty (a bad table
+    must never take training down)."""
+    path = path or os.environ.get(ENV_TABLE_VAR) or DEFAULT_TABLE_PATH
+    path = os.path.abspath(path)
+    try:
+        mtime = os.stat(path).st_mtime
+    except OSError:
+        return TuningTable(path=path)
+    with _CACHE_LOCK:
+        cached = _CACHE.get(path)
+        if cached is not None and cached[0] == mtime:
+            return cached[1]
+    try:
+        with open(path) as fh:
+            table = TuningTable(json.load(fh), path=path)
+    except Exception as e:  # noqa: BLE001 — a bad table is an empty table
+        if path not in _WARNED:
+            _WARNED.add(path)
+            _log.warning(
+                "tuning table %s is unreadable (%s: %s); using static "
+                "defaults", path, type(e).__name__, e,
+            )
+        return TuningTable(path=path)
+    with _CACHE_LOCK:
+        _CACHE[path] = (mtime, table)
+    return table
+
+
+def tuned_default(knob: str, fallback: Any,
+                  allowed: Optional[Sequence[Any]] = None,
+                  mesh: Optional[str] = None) -> Any:
+    """The measured default for ``knob`` on the current mesh, or
+    ``fallback`` when autotuning is disabled, the mesh has no entry, or
+    the entry's value fails ``allowed`` (logged once — a stale table
+    must degrade, not crash)."""
+    if os.environ.get(ENV_DISABLE_VAR) == "0":
+        return fallback
+    try:
+        mesh = mesh or mesh_key()
+    except Exception:  # noqa: BLE001 — no backend yet: static default
+        return fallback
+    value = load_table().value(mesh, knob)
+    if value is None:
+        return fallback
+    if allowed is not None and value not in allowed:
+        tag = (knob, mesh)
+        if tag not in _WARNED:
+            _WARNED.add(tag)
+            _log.warning(
+                "tuning table value %r for knob %s (mesh %s) is not one "
+                "of %s; using the static default %r",
+                value, knob, mesh, list(allowed), fallback,
+            )
+        return fallback
+    return value

@@ -10,13 +10,15 @@ owns its own interpreter lock, which is what lets "N replicas" add real
 capacity where in-process replicas take turns at the host.
 
 Warm spawn: the workers start together. On ``cuda`` the pool builds
-every kernel library once in the parent
-(:func:`flinkml_tpu_torch.kernels._build.build_all`) before it spawns,
-so a worker — a respawn after a crash included — only loads the
-libraries and runs no ``nvcc``. The port has no persistent compile store
-(ROADMAP.md Queue 1 item 11): ``compile_cache_dir`` is accepted and
-recorded in each worker's spec, and a worker builds its fused executor's
-programs at warmup, the same count as its predecessor's.
+every kernel library once in the parent, into the compile-cache store at
+``compile_cache_dir`` (else the parent's own store: the configured one or
+``$FLINKML_TPU_COMPILE_CACHE``, else the kernels' default;
+:func:`flinkml_tpu_torch.kernels._build.build_all`) before it spawns, and
+each worker configures the same store
+(:mod:`flinkml_tpu_torch.compile_cache`), so a worker — a respawn after a
+crash included — only loads the libraries and runs no ``nvcc``. A worker
+builds its fused executor's programs (eager PyTorch, in memory) at
+warmup, the same count as its predecessor's.
 
 Cross-process helpers live here too: :func:`reclaim_worker_leases` (the
 revoke→release handshake carried over the transport) and
@@ -59,7 +61,8 @@ class ClusterPool(ReplicaPool):
     adds/overrides env for every child — exporting the
     ``FLINKML_TPU_COORD_ADDR`` family here is how operator-launched
     workers join one rendezvous. ``share_compiles`` has no counterpart:
-    workers share the pool's kernel builds through the build directory.
+    workers share the pool's kernel builds through the compile-cache
+    store named by ``compile_cache_dir`` (module docstring).
     """
 
     def __init__(
@@ -87,7 +90,16 @@ class ClusterPool(ReplicaPool):
         self._devices_per_worker = devices_per_worker
         self._worker_env = dict(worker_env or {})
         self._spawn_timeout_s = float(spawn_timeout_s)
-        self._compile_cache_dir = compile_cache_dir
+        # One shared DISK store for the parent's build and every worker:
+        # the explicit directory, else this process's store (the active
+        # one: $FLINKML_TPU_COMPILE_CACHE or configure()), else the
+        # kernels' default store (a memory-only store cannot cross a
+        # process boundary).
+        from flinkml_tpu_torch.kernels import _build
+
+        self._compile_cache_dir = (compile_cache_dir
+                                   or _build.store().directory
+                                   or _build.default_store().directory)
         self.cluster_metrics = metrics.group(f"cluster.{name}")
         self._transport_window = LatencyWindow(self.cluster_metrics)
         for _ in range(int(n_workers)):
@@ -150,13 +162,18 @@ class ClusterPool(ReplicaPool):
         return replica
 
     def start(self) -> "ClusterPool":
-        """Build the kernels once here when the workers compute on
-        ``cuda``, then spawn and warm every worker, all at once. A worker
-        that fails its spawn stops the others and raises."""
+        """Build the kernels once here, into the workers' store, when they
+        compute on ``cuda``, then spawn and warm every worker, all at
+        once. A worker that fails its spawn stops the others and
+        raises."""
         if any(r.engine.device.type == "cuda" for r in self.replicas):
+            from flinkml_tpu_torch.compile_cache import CompileCacheStore
             from flinkml_tpu_torch.kernels import _build
 
-            _build.build_all()
+            target = _build.store()
+            if target.directory != self._compile_cache_dir:
+                target = CompileCacheStore(self._compile_cache_dir)
+            _build.build_all(target)
         replicas = list(self.replicas)
         with ThreadPoolExecutor(max_workers=len(replicas) or 1,
                                 thread_name_prefix=f"{self.name}-spawn"

@@ -21,10 +21,12 @@ the parent's visible cards ``i*n .. i*n+n-1`` (modulo their count), so
 on a one-card host every worker shares card 0; ``None`` leaves the
 parent's visibility alone.
 
-``compile_cache_dir`` is accepted and recorded in the spec; the port has
-no persistent compile store yet (ROADMAP.md Queue 1 item 11). A worker
-loads the kernel libraries its pool built before the spawn
-(:func:`flinkml_tpu_torch.kernels._build.build_all`).
+``compile_cache_dir`` goes into the spec: the worker configures that
+compile-cache store (:mod:`flinkml_tpu_torch.compile_cache`) and loads
+the kernel libraries its pool built there before the spawn
+(:func:`flinkml_tpu_torch.kernels._build.build_all`). Without one the
+worker uses ``$FLINKML_TPU_COMPILE_CACHE``, else the kernels' default
+store.
 
 ``spawn_ms`` is recorded for the ``cluster.*`` metrics group; a child
 that exits or stays silent past the deadline is a typed

@@ -27,9 +27,10 @@ in-process engine raises — which is what trips the router's failover →
 DRAINING ladder.
 
 The engine knobs resolve as the in-process engine's do
-(``serving/engine.py`` ``MAX_BATCH_ROWS``/``MAX_WAIT_MS`` when left
-None), and the worker gets the same concrete values, so both sides of the
-wire agree on ``max_batch_rows``. The worker computes on the device this
+(``serving/engine.py`` ``resolve_config``: the tuning table for the
+worker's device, else ``MAX_BATCH_ROWS``/``MAX_WAIT_MS`` when left None),
+and the worker gets the same concrete values, so both sides of the wire
+agree on ``max_batch_rows``. The worker computes on the device this
 engine's constructing thread requested (``config.device`` wins).
 
 Failure mapping: a worker's typed serving error re-raises as itself
@@ -41,7 +42,6 @@ path an in-process replica death takes.
 
 from __future__ import annotations
 
-import dataclasses
 import pickle
 import tempfile
 import threading
@@ -134,21 +134,11 @@ class RemoteEngine:
         cluster_metrics: Optional[Any] = None,
     ):
         cfg = config or ServingConfig()
-        self.config = dataclasses.replace(
-            cfg,
-            max_batch_rows=(
-                int(cfg.max_batch_rows) if cfg.max_batch_rows is not None
-                else _engine.MAX_BATCH_ROWS
-            ),
-            max_wait_ms=(
-                float(cfg.max_wait_ms) if cfg.max_wait_ms is not None
-                else _engine.MAX_WAIT_MS
-            ),
-        )
         self.name = name
         self.device = torch.device(
             cfg.device if cfg.device is not None else requested_device()
         )
+        self.config = _engine.resolve_config(cfg, self.device)
         self._schema = {
             n: (np.asarray(example.column(n)).dtype,
                 np.asarray(example.column(n)).shape[1:])

@@ -3,12 +3,13 @@
 Run as ``python -m flinkml_tpu_torch.cluster.worker <spec.pkl>``. The spec
 (written by :class:`~flinkml_tpu_torch.cluster.process.WorkerProcess`)
 names the model source, the request schema example, the engine config,
-the device the parent requested and the compile-cache directory (recorded
-only: the port has no persistent compile store until ROADMAP.md Queue 1
-item 11). On ``cuda`` the engine's warmup loads the kernel libraries the
-pool built before the spawn, so a worker runs no ``nvcc``
-(:func:`flinkml_tpu_torch.kernels._build.nvcc_runs`), and every batch it
-serves is one ``fused_chain`` launch on its card.
+the device the parent requested and the compile-cache directory. The
+worker configures that store (:mod:`flinkml_tpu_torch.compile_cache`)
+and, on ``cuda``, loads every kernel library the pool built there before
+the spawn, so a worker runs no ``nvcc``
+(:func:`flinkml_tpu_torch.kernels._build.nvcc_runs`; its ``stats`` op
+reports the store's counters beside it), and every batch it serves is one
+``fused_chain`` launch on its card.
 
 Startup order:
 
@@ -222,16 +223,19 @@ class WorkerServer:
 
     def _stats(self) -> Dict[str, Any]:
         """The engine's stats and this process's build audit: programs in
-        the fused executor's cache, ``nvcc`` runs, kernel launches (the
-        port's counterpart of the JAX worker's ``pipeline.fusion``
-        compile counters)."""
+        the fused executor's cache, ``nvcc`` runs, the compile-cache
+        store's counters, kernel launches (the port's counterpart of the
+        JAX worker's ``pipeline.fusion`` compile counters)."""
         from flinkml_tpu_torch import pipeline_fusion
         from flinkml_tpu_torch.kernels import _build, launch_counts
+        from flinkml_tpu_torch.utils.metrics import metrics
 
         return {
             "stats": self.engine.stats(),
             "compiled_programs": pipeline_fusion.compiled_program_count(),
             "nvcc_runs": _build.nvcc_runs(),
+            "compile_cache": metrics.group("compile_cache").snapshot()[
+                "counters"],
             "launches": dict(launch_counts()),
             "device": str(getattr(self.engine, "device", "")),
             "pid": os.getpid(),
@@ -380,13 +384,22 @@ def main(argv=None) -> int:
     with open(argv[0], "rb") as f:
         spec = pickle.load(f)
 
-    from flinkml_tpu_torch.device import set_default_device
+    from flinkml_tpu_torch.device import default_device, set_default_device
     from flinkml_tpu_torch.parallel import init_distributed
     from flinkml_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cluster.worker")
+    if spec.get("compile_cache_dir"):
+        from flinkml_tpu_torch import compile_cache
+
+        compile_cache.configure(spec["compile_cache_dir"])
     # The parent's device, or a failed start: never a CPU carry-on.
     set_default_device(spec.get("device", "cuda"))
+    if default_device().type == "cuda":
+        # Every kernel library from the store: a respawn runs no nvcc.
+        from flinkml_tpu_torch.kernels import _build
+
+        _build.load_all()
     # Env-driven rendezvous (FLINKML_TPU_COORD_ADDR et al. — a no-op
     # single-process): world size = process count.
     rank, world = init_distributed()

@@ -32,10 +32,9 @@ Three strategies:
   the table stays replicated. :func:`resolve_exchange` routes small
   vocabs here.
 
-Resolution precedence: ``FLINKML_TPU_EMBEDDING_EXCHANGE`` > the static
-``ring`` default. The JAX package consults its autotune table between the
-two; the port has no tuning table yet (ROADMAP.md Queue 1 item 11), and
-the static ``ring`` stands in for it.
+Resolution precedence: ``FLINKML_TPU_EMBEDDING_EXCHANGE`` > the tuning
+table's ``embedding_exchange`` for the current mesh
+(:mod:`flinkml_tpu_torch.autotune`) > the static ``ring`` default.
 """
 
 from __future__ import annotations
@@ -76,8 +75,10 @@ def dense_vocab_threshold() -> int:
 
 def exchange_strategy() -> str:
     """The SHARDED exchange algorithm (``ring`` or ``all_to_all``): env
-    var > static ``ring``. An explicit ``dense_psum`` is refused: it is
-    a placement, not a sharded algorithm."""
+    var > the tuning table's ``embedding_exchange`` > static ``ring``. An
+    explicit ``dense_psum`` is refused: it is a placement, not a sharded
+    algorithm; a table whose measured winner is ``dense_psum`` (the
+    below-threshold placement) quietly falls back to ``ring``."""
     raw = os.environ.get(ENV_VAR)
     if raw is not None:
         if raw not in STRATEGIES:
@@ -94,7 +95,11 @@ def exchange_strategy() -> str:
                 "'all_to_all'"
             )
         return raw
-    return "ring"
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    chosen = tuned_default("embedding_exchange", "ring",
+                           allowed=STRATEGIES)
+    return chosen if chosen in ("ring", "all_to_all") else "ring"
 
 
 def resolve_exchange(vocab: int, n_shards: int) -> str:

@@ -2,14 +2,20 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers: a build takes seconds, not minutes). Libraries land
-in ``kernels/build/`` (git-ignored) under a name that carries a hash of the
-source and the flags, so an edited source never loads a stale library.
-The build happens at first use, or up front for every source at once with
-:func:`build_all` (one ``nvcc`` process per source, all started together).
-The measurement probes in ``probes/*.cu`` (not kernels of the port: each
-times one floor of the card, such as its random-gather rate) build the
-same way, by the same name scheme.
+(no PyTorch headers: a build takes seconds, not minutes). Every library is
+built into and loaded from a compile-cache store
+(:mod:`flinkml_tpu_torch.compile_cache`): the active store when one is
+configured (``FLINKML_TPU_COMPILE_CACHE`` or
+:func:`~flinkml_tpu_torch.compile_cache.configure`), else
+:func:`default_store`, rooted at ``kernels/build/`` (git-ignored). The
+store keys a library by :func:`program_key` (the source's hash and the
+flags, so an edited source never loads a stale library) and by its
+environment (torch, CUDA, ``nvcc``, card, driver), checks it before it is
+loaded and rebuilds a torn one. The build happens at first use, or up
+front for every source at once with :func:`build_all` (one ``nvcc``
+process per source, all started together). The measurement probes in
+``probes/*.cu`` (not kernels of the port: each times one floor of the
+card, such as its random-gather rate) build the same way.
 
 Every C entry point takes ``c_void_p`` for each pointer and for the CUDA
 stream, ``c_int``/``c_int64`` for sizes, launches on the given stream, and
@@ -29,7 +35,10 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+from flinkml_tpu_torch import compile_cache
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 PROBE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probes")
@@ -49,12 +58,13 @@ _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
 #: built in this process.
 BUILD_LOGS: Dict[str, str] = {}
 _NVCC_RUNS = [0]
+_DEFAULT: List[Optional[compile_cache.CompileCacheStore]] = [None]
 
 
 def nvcc_runs() -> int:
     """``nvcc`` processes this process has started: 0 in a process that
-    only loaded libraries another process built (a cluster worker whose
-    pool built them first)."""
+    only loaded libraries from a store (a cluster worker whose pool built
+    them first)."""
     return _NVCC_RUNS[0]
 
 
@@ -98,83 +108,118 @@ def _source_path(name: str) -> str:
                                                           f"{name}.cu")
 
 
-def _library_path(name: str) -> str:
-    h = hashlib.sha256()
+def program_key(name: str, extra_flags: Sequence[str] = ()) -> tuple:
+    """The store key of library ``name``: its source's sha256 and the
+    ``nvcc`` flags (plus ``extra_flags``, as a ``--variants`` entry of
+    ``chip_smoke.py`` adds)."""
     with open(_source_path(name), "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return ("kernel_library", name, digest,
+            tuple(NVCC_FLAGS) + tuple(extra_flags))
 
 
-def _start(name: str, nvcc: str):
-    """Start ``nvcc`` for ``name``; returns ``(process, tmp, final)`` or
-    None when the library is already built."""
-    final = _library_path(name)
-    if os.path.exists(final):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{final}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source_path(name)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    _NVCC_RUNS[0] += 1
-    return proc, tmp, final
-
-
-def _finish(name: str, started) -> None:
-    proc, tmp, final = started
-    out, _ = proc.communicate()
-    BUILD_LOGS[name] = out
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build kernels/"
-            f"{os.path.relpath(_source_path(name), os.path.dirname(CSRC_DIR))} "
-            f"(exit {proc.returncode}):\n{out}"
-        )
-    # Atomic publish: a concurrent process never loads a partial file.
-    os.replace(tmp, final)
-
-
-def build_all() -> Dict[str, float]:
-    """Build every kernel and probe library not built yet, one ``nvcc`` per
-    source, all in parallel. Returns ``{name: seconds}`` (0.0 for a library
-    that was already built)."""
-    names = sources() + probes()
+def default_store() -> compile_cache.CompileCacheStore:
+    """The store rooted at :data:`BUILD_DIR`, used when none is
+    configured."""
     with _LOCK:
-        nvcc = nvcc_path()
-        t0 = time.perf_counter()
-        started = {n: _start(n, nvcc) for n in names}
+        store = _DEFAULT[0]
+        if store is None or store.directory != os.path.abspath(BUILD_DIR):
+            store = _DEFAULT[0] = compile_cache.CompileCacheStore(BUILD_DIR)
+        return store
+
+
+def store() -> compile_cache.CompileCacheStore:
+    """The store the kernels build into: the active one, else
+    :func:`default_store`."""
+    return compile_cache.active_store() or default_store()
+
+
+def _library_path(name: str) -> str:
+    """Where library ``name`` lives in :func:`default_store`."""
+    return default_store().entry_path(program_key(name))
+
+
+def _compile(name: str, extra_flags: Sequence[str] = ()):
+    """The store's build callable for ``name``: one ``nvcc`` run."""
+
+    def build(out: str) -> None:
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", out,
+               _source_path(name)]
+        with _LOCK:
+            _NVCC_RUNS[0] += 1
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              check=False)
+        BUILD_LOGS[name] = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build kernels/"
+                f"{os.path.relpath(_source_path(name), os.path.dirname(CSRC_DIR))} "
+                f"(exit {proc.returncode}):\n{proc.stdout}"
+            )
+
+    return build
+
+
+def _load(name: str, target: compile_cache.CompileCacheStore) -> str:
+    """Load ``name`` through ``target`` into this process; the outcome."""
+    lib, outcome = target.get_or_compile(program_key(name), _compile(name))
+    with _LOCK:
+        _LIBS.setdefault(name, lib)
+    return outcome
+
+
+def build_all(target: Optional[compile_cache.CompileCacheStore] = None
+              ) -> Dict[str, float]:
+    """Build every kernel and probe library ``target`` (default:
+    :func:`store`) does not hold yet, one ``nvcc`` per source, all in
+    parallel, and load each into this process. Returns ``{name: seconds}``
+    (seconds from the start to that library's build; 0.0 for a library the
+    store already held)."""
+    target = target or store()
+    target.entry_path(("probe",))  # the environment, once, on this thread
+    names = sources() + probes()
+    t0 = time.perf_counter()
+
+    def one(name: str) -> float:
+        outcome = _load(name, target)
+        return time.perf_counter() - t0 if outcome == "compiled" else 0.0
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {n: pool.submit(one, n) for n in names}
         times, errors = {}, []
-        for n in names:
-            if started[n] is None:
-                times[n] = 0.0
-                continue
-            # Reap every nvcc before reporting a failure.
+        for n, f in futures.items():
+            # Wait for every nvcc before reporting a failure.
             try:
-                _finish(n, started[n])
+                times[n] = f.result()
             except RuntimeError as e:
                 errors.append(e)
-                continue
-            times[n] = time.perf_counter() - t0
-        if errors:
-            raise errors[0]
-        return times
+    if errors:
+        raise errors[0]
+    return times
+
+
+def load_all() -> Dict[str, str]:
+    """Load every kernel library (not the probes) through :func:`store`;
+    ``{name: outcome}`` (``"memory"``, ``"disk"`` or ``"compiled"``; a
+    library this process had loaded already reads ``"loaded"``)."""
+    out = {}
+    for name in sources():
+        with _LOCK:
+            loaded = name in _LIBS
+        out[name] = "loaded" if loaded else _load(name, store())
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     with _LOCK:
         lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        started = _start(name, nvcc_path())
-        if started is not None:
-            _finish(name, started)
-        lib = ctypes.CDLL(_library_path(name))
-        _LIBS[name] = lib
-        return lib
+    if lib is None:
+        _load(name, store())
+        with _LOCK:
+            lib = _LIBS[name]
+    return lib
 
 
 def function(name: str, symbol: str, argtypes: Sequence,

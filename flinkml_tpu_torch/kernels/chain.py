@@ -621,7 +621,7 @@ def pack_int8(plan: ChainPlan, kernels, consts, d: int,
     ``csrc/chain.cu``) in a byte blob with the float64 values, the float32
     scales and the int8 codes. Returns ``(blob, ops, layout)`` with the
     element counts and byte offsets in ``layout``. A float constant that
-    is not quantized (fewer than ``INT8_MIN_CONST_ELEMS`` elements) is
+    is not quantized (below the tier's threshold, ``precision.int8_min_const_elems()``) is
     its float32 value (the boundary's cast), KMeans' ``|C|^2`` is summed
     at the compute width from the dequantized centroids; the kernel
     decodes the segments to :func:`pack_table`'s values."""

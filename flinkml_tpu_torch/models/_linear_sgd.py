@@ -159,6 +159,21 @@ def check_layout(layout: str) -> None:
         )
 
 
+def resolve_layout(layout: Optional[str] = None) -> str:
+    """The bucketed sparse trainers' gradient layout: ``layout`` when
+    given, else the tuning table's ``sparse_layout`` for this thread's
+    device (:mod:`flinkml_tpu_torch.autotune`), else ``unsorted``: the
+    JAX package's precedence, the keyword standing for its
+    ``FLINKML_TPU_SPARSE_LAYOUT``."""
+    if layout is None:
+        from flinkml_tpu_torch.autotune import tuned_default
+
+        layout = tuned_default("sparse_layout", "unsorted",
+                               allowed=SPARSE_LAYOUTS)
+    check_layout(layout)
+    return layout
+
+
 def _soft_threshold(x, t):
     return torch.sign(x) * torch.clamp_min(torch.abs(x) - t, 0.0)
 
@@ -226,7 +241,8 @@ def make_dense_step(loss: str, local_bs: int, mesh=None):
 
 
 def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
-                              dim: int, layout: str = "unsorted", mesh=None):
+                              dim: int, layout: Optional[str] = None,
+                              mesh=None):
     """nnz-bucketed sparse step: one window per bucket (sized in
     proportion to the bucket's rows, so every step sees a representative
     nnz mix), the ``spmv`` kernel for each bucket's margins, and the
@@ -245,12 +261,13 @@ def make_sparse_step_bucketed(loss: str, local_bss: Tuple[int, ...],
       column, so no two adds race: the gradient is the same on every run,
       on the card too.
 
+    ``layout=None`` is :func:`resolve_layout`'s (the tuning table's).
     Over a mesh the local terms are summed by :func:`_reduce_terms`
     before the update.
     """
     from flinkml_tpu_torch.ops.sparse import chunked_run_totals
 
-    check_layout(layout)
+    layout = resolve_layout(layout)
     per_bucket = _SPARSE_ARGS_PER_BUCKET[layout]
 
     def window_of(table2d, epoch):
@@ -340,12 +357,14 @@ def _dense_trainer(loss: str, local_bs: int, mesh=None):
 
 
 def _sparse_trainer_bucketed(loss: str, local_bss: Tuple[int, ...],
-                             dim: int, layout: str = "unsorted", mesh=None):
+                             dim: int, layout: Optional[str] = None,
+                             mesh=None):
     """Bucketed counterpart of :func:`_dense_trainer`: the data args are
     ``k·len(local_bss)`` tensors, ``k = 4`` (indices, values, y, w) for
     ``unsorted``, 6 (plus the window sort tables) for ``sorted`` and 8
     (plus the window's sorted rows, values, run ends and columns) for
-    ``cumsum``."""
+    ``cumsum`` (``layout=None``: :func:`resolve_layout`'s)."""
+    layout = resolve_layout(layout)
     local_step = make_sparse_step_bucketed(loss, local_bss, dim, layout, mesh)
     n_args = _SPARSE_ARGS_PER_BUCKET[layout] * len(local_bss)
 
@@ -762,7 +781,7 @@ def _window_cumsum_tables(
 def prepare_sparse_buckets(
     indptr, indices, values, dim: int, y, w, global_batch_size: int,
     max_buckets: int = 4, dtype=np.float32, seed: Optional[int] = None,
-    layout: str = "unsorted", mesh=None,
+    layout: Optional[str] = None, mesh=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
     """Pack, shuffle, pad and upload CSR data for the bucketed trainer.
 
@@ -783,7 +802,7 @@ def prepare_sparse_buckets(
     """
     from flinkml_tpu_torch.ops.sparse import pack_ell_buckets
 
-    check_layout(layout)
+    layout = resolve_layout(layout)
     indptr = np.asarray(indptr, dtype=np.int64)
     n = indptr.size - 1
     y = np.asarray(y, dtype=dtype)
@@ -836,7 +855,7 @@ def train_linear_model_sparse_csr(
     max_buckets: int = 4,
     dtype=np.float32,
     listeners=(),
-    layout: str = "unsorted",
+    layout: Optional[str] = None,
     checkpoint_manager=None,
     checkpoint_interval: int = 0,
     resume: bool = False,
@@ -844,14 +863,16 @@ def train_linear_model_sparse_csr(
 ) -> np.ndarray:
     """Skew-proof sparse training from host CSR arrays: nnz-bucketed ELL
     blocks (padded cells ≈ total nnz), a stratified window from every
-    bucket per step, and the gradient ``layout`` named by the caller
-    (``"unsorted"``, the JAX package's default, ``"sorted"`` or
-    ``"cumsum"``; the JAX package reads it from an env var or its tuning
-    table). Over ``mesh``, data parallel on its ranks (module
+    bucket per step, and the gradient ``layout``: ``"unsorted"``,
+    ``"sorted"`` or ``"cumsum"`` when named by the caller, else the
+    tuning table's for this device, else ``"unsorted"``
+    (:func:`resolve_layout`; the JAX package reads an env var, then its
+    tuning table). Over ``mesh``, data parallel on its ranks (module
     docstring)."""
     check_mesh(mesh)
     if loss not in _LOSS_KEYS:
         raise ValueError(f"loss must be one of {_LOSS_KEYS}, got {loss!r}")
+    layout = resolve_layout(layout)
     n = np.asarray(indptr).size - 1
     if n == 0:
         raise ValueError("training table is empty")

@@ -13,8 +13,8 @@ with the port's kernels:
     carry target id ``n`` (a dummy segment that is dropped), fixed index 0
     and rating 0.
   - The reduction is the ``layout`` keyword (the JAX package reads
-    ``FLINKML_TPU_ALS_REDUCTION`` and its tuning table instead):
-    ``"segment"`` (default) runs the port's ``segment_sum`` kernel three
+    ``FLINKML_TPU_ALS_REDUCTION``), by default the tuning table's
+    ``als_reduction``, else ``"segment"``: ``"segment"`` runs the port's ``segment_sum`` kernel three
     times a chunk, ``[chunk, k²]``, ``[chunk, k]`` and ``[chunk]`` into
     ``n + 1`` segments — on the card its atomics add in an order that
     changes from run to run, and under
@@ -82,6 +82,20 @@ class _ALSParams(HasMaxIter, HasPredictionCol, HasSeed):
 def check_layout(layout: str) -> None:
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}: expected one of {LAYOUTS}")
+
+
+def resolve_layout(layout: Optional[str] = None) -> str:
+    """The in-RAM fit's reduction: ``layout`` when given, else the tuning
+    table's ``als_reduction`` for this thread's device
+    (:mod:`flinkml_tpu_torch.autotune`), else ``segment``: the JAX
+    package's precedence, the keyword standing for its
+    ``FLINKML_TPU_ALS_REDUCTION``."""
+    if layout is None:
+        from flinkml_tpu_torch.autotune import tuned_default
+
+        layout = tuned_default("als_reduction", "segment", allowed=LAYOUTS)
+    check_layout(layout)
+    return layout
 
 
 def als_run_tables(seg_padded: np.ndarray, p_size: int, chunk: int):
@@ -276,7 +290,9 @@ class ALS(StreamingEstimatorMixin, _ALSParams, Estimator):
     ``(user_factors, item_factors)`` every N outer iterations of the
     streamed fit; ``resume=True`` restores and continues exactly.
     ``layout`` picks the in-RAM fit's normal-equation reduction (module
-    docstring).
+    docstring); None, the default, takes the tuning table's
+    ``als_reduction`` for the fit's device, else ``"segment"``
+    (:func:`resolve_layout`).
     """
 
     # Rows per rank handed to one normal-equation chunk; bounds the
@@ -288,8 +304,9 @@ class ALS(StreamingEstimatorMixin, _ALSParams, Estimator):
     #: training (see :meth:`_refuse_sharded_fit`).
     _SHARDING_PLAN_AWARE = True
 
-    def __init__(self, layout: str = "segment", **kwargs):
-        check_layout(layout)
+    def __init__(self, layout: Optional[str] = None, **kwargs):
+        if layout is not None:
+            check_layout(layout)
         super().__init__(**kwargs)
         self.layout = layout
 
@@ -356,7 +373,8 @@ class ALS(StreamingEstimatorMixin, _ALSParams, Estimator):
 
         chunk_g = p * chunk
         user_tabs = item_tabs = None
-        if self.layout == "cumsum":
+        layout = resolve_layout(self.layout)
+        if layout == "cumsum":
             # Sort each side by target ONCE (the assignment is static
             # across iterations); padding ids (n_targets) sort last by
             # construction, so _pad_coo keeps the order.
@@ -387,9 +405,9 @@ class ALS(StreamingEstimatorMixin, _ALSParams, Estimator):
                          for a in by_item)
         for _ in range(self.get(self.MAX_ITER)):
             user_f = _half_step(mesh, user_coo, item_f, n_users, reg,
-                                implicit, alpha, self.layout, user_tabs)
+                                implicit, alpha, layout, user_tabs)
             item_f = _half_step(mesh, item_coo, user_f, n_items, reg,
-                                implicit, alpha, self.layout, item_tabs)
+                                implicit, alpha, layout, item_tabs)
         model = ALSModel()
         model.copy_params_from(self)
         model._set_factors(user_ids, user_f.cpu().numpy(), item_ids,

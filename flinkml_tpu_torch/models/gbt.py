@@ -16,7 +16,8 @@ The port's counterpart of ``flinkml_tpu.models.gbt``:
     stays on the compute device (the margins, node ids, histograms, the
     per-tree arrays); the host reads the forest once at the end.
   - **Histograms** (``hist_layout``, the JAX package's
-    ``FLINKML_TPU_GBT_HISTOGRAM``): ``"segment"`` (default) sends g and h
+    ``FLINKML_TPU_GBT_HISTOGRAM``; by default the tuning table's
+    ``gbt_histogram``, else ``"segment"``): ``"segment"`` sends g and h
     as one ``[n·d, 2]`` payload to the port's ``segment_sum`` kernel into
     ``n_leaves·d·bins`` segments, and the leaf sums as ``[n, 2]`` into
     ``n_leaves`` (one launch a level and one for the leaves, where JAX
@@ -146,6 +147,21 @@ def check_hist_layout(layout: str) -> None:
         raise ValueError(
             f"hist_layout={layout!r}: expected 'segment' or 'cumsum'"
         )
+
+
+def resolve_hist_layout(layout: Optional[str] = None) -> str:
+    """The in-RAM fit's histogram layout: ``layout`` when given, else the
+    tuning table's ``gbt_histogram`` for this thread's device
+    (:mod:`flinkml_tpu_torch.autotune`), else ``segment``: the JAX
+    package's precedence, the keyword standing for its
+    ``FLINKML_TPU_GBT_HISTOGRAM``."""
+    if layout is None:
+        from flinkml_tpu_torch.autotune import tuned_default
+
+        layout = tuned_default("gbt_histogram", "segment",
+                               allowed=HIST_LAYOUTS)
+    check_hist_layout(layout)
+    return layout
 
 
 def gbt_hist_tables(b_pad: np.ndarray, p_size: int, n_bins: int):
@@ -312,7 +328,7 @@ def build_forest(binned, y, w, *, base: float, lr: float, lam: float,
                  subsample: float, seed: int, n_feat: int, n_bins: int,
                  depth: int, num_trees: int, logistic: bool,
                  boosting: bool = True, feat_subset: int = 0,
-                 hist_layout: str = "segment", hist_tables: tuple = (),
+                 hist_layout: Optional[str] = None, hist_tables: tuple = (),
                  mesh: Optional[DeviceMesh] = None):
     """The whole forest on the device from this rank's rows (``binned
     [n_local, d] int32``, ``y``, ``w`` float32 on the compute device).
@@ -321,10 +337,12 @@ def build_forest(binned, y, w, *, base: float, lr: float, lam: float,
 
     ``boosting=False`` bags (random forest): every tree fits the base
     score's residual on Poisson bootstrap weights and its feature subset
-    (``feat_subset > 0``), the margins are not updated."""
+    (``feat_subset > 0``), the margins are not updated.
+    ``hist_layout=None`` is :func:`resolve_hist_layout`'s; ``hist_tables``
+    are :func:`sharded_hist_args` for the same layout."""
     from flinkml_tpu_torch.ops import threefry
 
-    check_hist_layout(hist_layout)
+    hist_layout = resolve_hist_layout(hist_layout)
     device = binned.device
     n_leaves = 1 << depth
     n_inner = n_leaves - 1
@@ -447,17 +465,20 @@ class _GBTBase(StreamingEstimatorMixin, _GBTParams, Estimator):
     boosting only, no ``validationFraction``).
 
     ``hist_layout`` picks the in-RAM fit's per-level histogram reduction
-    (``"segment"`` or ``"cumsum"``, module docstring); the JAX package
-    reads it from ``FLINKML_TPU_GBT_HISTOGRAM`` or its tuning table. The
-    streamed fit histograms with the ``segment_sum`` kernel, as the JAX
-    package's does whatever the layout."""
+    (``"segment"`` or ``"cumsum"``, module docstring); None, the default,
+    takes the tuning table's ``gbt_histogram`` for the fit's device, else
+    ``"segment"`` (:func:`resolve_hist_layout`; the JAX package reads
+    ``FLINKML_TPU_GBT_HISTOGRAM``, then its tuning table). The streamed
+    fit histograms with the ``segment_sum`` kernel, as the JAX package's
+    does whatever the layout."""
 
     _LOGISTIC = True
     _BOOSTING = True
 
     def __init__(self, mesh=None, *, stream_reservoir_capacity: int = 65_536,
-                 hist_layout: str = "segment", **knobs):
-        check_hist_layout(hist_layout)
+                 hist_layout: Optional[str] = None, **knobs):
+        if hist_layout is not None:
+            check_hist_layout(hist_layout)
         super().__init__(mesh=mesh, **knobs)
         self.stream_reservoir_capacity = stream_reservoir_capacity
         self.hist_layout = hist_layout
@@ -536,6 +557,7 @@ class _GBTBase(StreamingEstimatorMixin, _GBTParams, Estimator):
         feat_subset = (
             0 if f >= 1.0 else max(1, int(round(f * x.shape[1])))
         )
+        hist_layout = resolve_hist_layout(self.hist_layout)
         feats, bins, gains, leaves = build_forest(
             mesh.shard_batch(b_pad), mesh.shard_batch(y_pad),
             mesh.shard_batch(w_pad),
@@ -546,9 +568,9 @@ class _GBTBase(StreamingEstimatorMixin, _GBTParams, Estimator):
             n_feat=x.shape[1], n_bins=max_bins, depth=depth,
             num_trees=self.get(self.NUM_TREES), logistic=self._LOGISTIC,
             boosting=self._BOOSTING, feat_subset=feat_subset,
-            hist_layout=self.hist_layout,
+            hist_layout=hist_layout,
             hist_tables=sharded_hist_args(b_pad, mesh, max_bins,
-                                          self.hist_layout),
+                                          hist_layout),
             mesh=mesh,
         )
         thrs = split_thresholds(edges, feats, bins)

@@ -18,7 +18,8 @@ Device training, one SGNS minibatch step at a time:
     :data:`DRAW_BLOCK` steps per vectorised call;
   - gather the rows, compute the SGNS gradients (:func:`_sgns_pair_grads`,
     shared with the sharded trainer), and accumulate them into
-    ``[vocab, dim]`` by ``accum``: ``"scatter"`` (default) is three
+    ``[vocab, dim]`` by ``accum`` (by default the tuning table's
+    ``w2v_accum``, else ``"scatter"``): ``"scatter"`` is three
     row-payload ``segment_sum`` kernel launches — centers ``[bs, dim]``
     into ``v``, contexts ``[bs, dim]`` and negatives ``[bs·n_neg, dim]``
     into ``u``, the two ``u`` sums added afterwards (the JAX kernel
@@ -26,9 +27,9 @@ Device training, one SGNS minibatch step at a time:
     product over a ``[cells, vocab]`` operand, for CPU tables only (the
     CUDA trainer refuses it: at a real vocabulary the operand takes
     gigabytes).
-    The JAX package reads ``FLINKML_TPU_W2V_ACCUM`` and its tuning table;
-    the port takes the keyword ``Word2Vec(accum=...)``, as ALS takes
-    ``layout=``. On the card the kernel's atomics add in an order that
+    The JAX package reads ``FLINKML_TPU_W2V_ACCUM``, then its tuning
+    table; the port takes the keyword ``Word2Vec(accum=...)``, then the
+    table, as ALS takes ``layout=``. On the card the kernel's atomics add in an order that
     changes from run to run, and under
     ``torch.use_deterministic_algorithms(True)`` it refuses (no quiet
     switch to ``index_add_``);
@@ -105,6 +106,20 @@ class _Word2VecParams(HasInputCol, HasOutputCol, HasMaxIter,
 def check_accum(accum: str) -> None:
     if accum not in ACCUMS:
         raise ValueError(f"accum={accum!r}: expected one of {ACCUMS}")
+
+
+def resolve_accum(accum: Optional[str] = None) -> str:
+    """The dense trainer's accumulation: ``accum`` when given, else the
+    tuning table's ``w2v_accum`` for this thread's device
+    (:mod:`flinkml_tpu_torch.autotune`), else ``scatter``: the JAX
+    package's precedence, the keyword standing for its
+    ``FLINKML_TPU_W2V_ACCUM``."""
+    if accum is None:
+        from flinkml_tpu_torch.autotune import tuned_default
+
+        accum = tuned_default("w2v_accum", "scatter", allowed=ACCUMS)
+    check_accum(accum)
+    return accum
 
 
 def _build_pairs(docs, vocab_index: Dict[str, int], window: int,
@@ -220,11 +235,12 @@ def onehot_rows(ids: torch.Tensor, rows: torch.Tensor,
     return torch.einsum("bv,bd->vd", oh, flat_rows)
 
 
-def _sgns_trainer(mesh, local_bs: int, n_neg: int, accum: str = "scatter"):
+def _sgns_trainer(mesh, local_bs: int, n_neg: int,
+                  accum: Optional[str] = None):
     """The replicated-table SGNS trainer: ``trainer(centers, contexts, wl,
     pool, v0, u0, lr, n_steps, key) -> (v, u)`` over this rank's pair rows
     (``wl`` 0 on dummy rows), ``pool`` and the tables replicated."""
-    check_accum(accum)
+    accum = resolve_accum(accum)
     grouped = mesh is not None and mesh.group(mesh.DATA_AXIS) is not None
     add = scatter_rows if accum == "scatter" else onehot_rows
 
@@ -340,13 +356,15 @@ class Word2Vec(StreamingEstimatorMixin, _Word2VecParams, Estimator):
 
     ``accum`` picks the dense trainer's gradient accumulation
     (:data:`ACCUMS`, the module docstring; ``"onehot"`` on CPU tables
-    only)."""
+    only); None, the default, takes the tuning table's ``w2v_accum`` for
+    the fit's device, else ``"scatter"`` (:func:`resolve_accum`)."""
 
     # Pair-chunk row tile of the streamed fit: bounds the padded shapes.
     _PAIR_TILE = 2048
 
-    def __init__(self, accum: str = "scatter", **kwargs):
-        check_accum(accum)
+    def __init__(self, accum: Optional[str] = None, **kwargs):
+        if accum is not None:
+            check_accum(accum)
         super().__init__(**kwargs)
         self.accum = accum
 

@@ -44,8 +44,9 @@ An active :class:`~flinkml_tpu_torch.precision.PrecisionPolicy`
 (:func:`set_policy` / :func:`precision_scope`, per thread) changes the
 chain in the declared way: every float input and model constant is cast to
 ``policy.compute`` at the chain's boundary, and under ``int8_inference``
-every float constant of at least ``INT8_MIN_CONST_ELEMS`` elements travels
-as per-column absmax int8 codes with float32 scales (quantized once per
+every float constant of at least ``precision.int8_min_const_elems()``
+elements (``FLINKML_TPU_INT8_MIN_CONST``, else the tuning table, else
+``INT8_MIN_CONST_ELEMS``) travels as per-column absmax int8 codes with float32 scales (quantized once per
 model array) and is dequantized inside the chain. The policy is key
 material (a bfloat16, an int8 and a float32 program never alias), a lazy
 column runs under the policy captured at transform time, and every chain
@@ -337,17 +338,18 @@ def check_precision(kernels: Sequence[ColumnKernel], consts,
         )
 
 
-def _quantized(raw):
+def _quantized(raw, min_elems: int):
     """``raw``'s int8 codes and scales (``raw`` itself when the tier leaves
-    it at float width), memoized per model array."""
-    key = id(raw)
+    it at float width: fewer than ``min_elems`` elements), memoized per
+    model array and threshold."""
+    key = (id(raw), min_elems)
     with _LOCK:
         hit = _QUANT.get(key)
         if hit is not None and hit[0] is raw:
             _QUANT.move_to_end(key)
             return hit[1]
     val = (QuantizedConst(*_precision.quantize_absmax(raw))
-           if _precision.quantizable(raw) else raw)
+           if _precision.quantizable(raw, min_elems) else raw)
     with _LOCK:
         _QUANT[key] = (raw, val)
         _QUANT.move_to_end(key)
@@ -361,7 +363,8 @@ def _tier_consts(kernels, policy):
     under ``int8_inference`` the eligible float arrays as int8 pairs."""
     if policy is None or policy.quant != "int8":
         return tuple(k.constants for k in kernels)
-    return tuple({n: _quantized(v) for n, v in k.constants.items()}
+    min_elems = _precision.int8_min_const_elems()
+    return tuple({n: _quantized(v, min_elems) for n, v in k.constants.items()}
                  for k in kernels)
 
 

@@ -27,6 +27,7 @@ helpers here (the quantizer) take numpy arrays of the other widths only.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Mapping, NamedTuple, Optional
 
@@ -346,15 +347,55 @@ def raise_findings(findings, program: str, policy: PrecisionPolicy) -> None:
 # -- post-training quantization (the int8 tier's storage transform) ----------
 
 #: Float constants with fewer elements stay at float width under the int8
-#: tier. A module constant (tests may patch it); the JAX package's env var
-#: and autotune knob for it are not ported.
+#: tier: the static fallback of :func:`int8_min_const_elems`.
 INT8_MIN_CONST_ELEMS = 16
+
+#: Explicit override of the int8 tier's smallest quantized constant.
+ENV_INT8_MIN_CONST_VAR = "FLINKML_TPU_INT8_MIN_CONST"
+
+_INT8_ENV_WARNED: set = set()
+
+
+def int8_min_const_elems() -> int:
+    """The int8 tier's minimum-constant-size threshold, with the JAX
+    package's precedence: an explicit ``FLINKML_TPU_INT8_MIN_CONST`` > the
+    tuning table's ``int8_min_const_elems`` for this thread's device >
+    :data:`INT8_MIN_CONST_ELEMS`. A value that is not a positive integer
+    degrades to the static default (an explicit one with one log line:
+    never silently to the table's value, a third party neither the
+    operator nor the docs named)."""
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    env = os.environ.get(ENV_INT8_MIN_CONST_VAR)
+    if env is not None:
+        try:
+            v = int(env)
+        except ValueError:
+            v = 0
+        if v >= 1:
+            return v
+        if env not in _INT8_ENV_WARNED:
+            _INT8_ENV_WARNED.add(env)
+            from flinkml_tpu_torch.utils.logging import get_logger
+
+            get_logger("precision").warning(
+                "%s=%r is not a positive integer; using the static "
+                "default %d", ENV_INT8_MIN_CONST_VAR, env,
+                INT8_MIN_CONST_ELEMS,
+            )
+        return INT8_MIN_CONST_ELEMS
+    try:
+        v = int(tuned_default("int8_min_const_elems", INT8_MIN_CONST_ELEMS))
+    except (TypeError, ValueError):
+        return INT8_MIN_CONST_ELEMS
+    return v if v >= 1 else INT8_MIN_CONST_ELEMS
 
 
 def quantizable(arr, min_elems: Optional[int] = None) -> bool:
     """Whether the int8 tier quantizes this model constant: a float array
     of rank >= 1 with at least ``min_elems`` (default
-    :data:`INT8_MIN_CONST_ELEMS`) elements."""
+    :data:`INT8_MIN_CONST_ELEMS`, as the JAX package's; the fused executor
+    passes :func:`int8_min_const_elems`) elements."""
     a = np.asarray(arr)
     if a.dtype.kind != "f":
         return False

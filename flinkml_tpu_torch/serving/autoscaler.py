@@ -57,17 +57,33 @@ from flinkml_tpu_torch.utils.metrics import metrics
 _log = get_logger("serving.autoscaler")
 
 
-#: The scale-up backlog threshold when ``AutoscaleConfig.scale_up_backlog``
-#: is None. A module constant (tests may patch it); the JAX package reads
-#: a measured value from its autotune table, which is not ported.
+#: The static fallback of the scale-up backlog threshold: an
+#: ``AutoscaleConfig.scale_up_backlog`` of None takes the tuning table's
+#: ``serving_scale_up_backlog`` for the pool's device, else this.
 SCALE_UP_BACKLOG = 0.5
+
+
+def _tuned_backlog_threshold(fallback: float) -> float:
+    """The mesh-keyed ``serving_scale_up_backlog`` autotune knob,
+    degraded to the static default on a bad table value (the serving
+    knob contract)."""
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    try:
+        value = float(tuned_default("serving_scale_up_backlog", fallback))
+    except (TypeError, ValueError):
+        return fallback
+    return value if 0.0 < value < 1.0 else fallback
 
 
 @dataclasses.dataclass(frozen=True)
 class AutoscaleConfig:
     """Control-loop knobs (see module docstring for the policies).
 
-    ``scale_up_backlog=None`` takes :data:`SCALE_UP_BACKLOG` (0.5). Thresholds are fractions of aggregate queue capacity
+    ``scale_up_backlog=None`` reads the measured threshold for the pool's
+    device from the autotune table (knob ``serving_scale_up_backlog``;
+    static fallback :data:`SCALE_UP_BACKLOG`, 0.5; a value outside (0, 1)
+    degrades to it). Thresholds are fractions of aggregate queue capacity
     (queued rows / sum of ``max_queue_rows``)."""
 
     min_replicas: int = 1
@@ -103,6 +119,18 @@ class AutoscaleConfig:
             )
 
 
+def _pool_tuned_backlog(pool: ReplicaPool) -> float:
+    """The tuned threshold for the device of the pool's first replica."""
+    from flinkml_tpu_torch.serving.engine import _tuning_scope
+
+    device = next((getattr(r.engine, "device", None)
+                   for r in pool.replicas), None)
+    if device is None:
+        return _tuned_backlog_threshold(SCALE_UP_BACKLOG)
+    with _tuning_scope(device):
+        return _tuned_backlog_threshold(SCALE_UP_BACKLOG)
+
+
 class PoolAutoscaler:
     """See module docstring. Drive it with :meth:`start` (background
     control thread) or call :meth:`step` yourself (deterministic tests,
@@ -115,7 +143,7 @@ class PoolAutoscaler:
         self._up_threshold = (
             self.config.scale_up_backlog
             if self.config.scale_up_backlog is not None
-            else SCALE_UP_BACKLOG
+            else _pool_tuned_backlog(pool)
         )
         self._metrics = metrics.group(f"serving.{pool.name}.autoscaler")
         self._backlog_ewma: Optional[float] = None

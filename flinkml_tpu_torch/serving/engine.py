@@ -92,12 +92,36 @@ from flinkml_tpu_torch.table import Table
 from flinkml_tpu_torch.utils.metrics import LatencyWindow, metrics
 
 
-#: ``ServingConfig.max_batch_rows`` and ``max_wait_ms`` when left None.
-#: Module constants (tests may patch them); the JAX package reads measured
-#: values from its autotune table, which comes with ROADMAP.md Queue 1
-#: item 11.
+#: The static fallbacks of ``ServingConfig.max_batch_rows`` and
+#: ``max_wait_ms``: a config that leaves them None takes the tuning
+#: table's ``serving_max_batch_rows`` / ``serving_window_ms`` for the
+#: engine's device (:func:`~flinkml_tpu_torch.autotune.tuned_default`),
+#: else these.
 MAX_BATCH_ROWS = 1024
 MAX_WAIT_MS = 2.0
+
+
+def _tuned_int(knob: str, fallback: int) -> int:
+    """An autotuned integer knob, degraded to ``fallback`` when the
+    table value is non-numeric or non-positive (a config-table typo must
+    not take serving down)."""
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    try:
+        value = int(tuned_default(knob, fallback))
+    except (TypeError, ValueError):
+        return fallback
+    return value if value >= 1 else fallback
+
+
+def _tuned_float(knob: str, fallback: float) -> float:
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    try:
+        value = float(tuned_default(knob, fallback))
+    except (TypeError, ValueError):
+        return fallback
+    return value if value > 0 else fallback
 
 class _CpuHost:
     """The one dispatcher of every CPU engine of the process. Each engine
@@ -244,9 +268,11 @@ class ServingConfig:
     check can see pool slices).
 
     ``max_batch_rows`` (the power-of-two dispatch bucket cap) and
-    ``max_wait_ms`` (the batching window) default to None =
-    :data:`MAX_BATCH_ROWS` (1024 rows) / :data:`MAX_WAIT_MS` (2 ms). An
-    explicit value always wins.
+    ``max_wait_ms`` (the batching window) default to None = the tuning
+    table's ``serving_max_batch_rows`` / ``serving_window_ms`` for the
+    engine's device, else :data:`MAX_BATCH_ROWS` (1024 rows) /
+    :data:`MAX_WAIT_MS` (2 ms); a table value that is not a positive
+    number degrades to these. An explicit value always wins.
     """
 
     max_batch_rows: Optional[int] = None
@@ -327,27 +353,15 @@ class ServingEngine:
         name: str = "default",
     ):
         cfg = config or ServingConfig()
-        # Resolve the defaults ONCE, at construction: everything
-        # downstream (batcher bounds, warmup bucket coverage, request
-        # validation) reads concrete values; an explicit bad value fails
-        # loudly in the batcher's own validation.
-        self.config = dataclasses.replace(
-            cfg,
-            max_batch_rows=(
-                int(cfg.max_batch_rows)
-                if cfg.max_batch_rows is not None
-                else MAX_BATCH_ROWS
-            ),
-            max_wait_ms=(
-                float(cfg.max_wait_ms)
-                if cfg.max_wait_ms is not None
-                else MAX_WAIT_MS
-            ),
-        )
         # The device every dispatch of this engine runs on, captured once:
         # use_device is thread-local, and the dispatcher, a registry
         # publisher or a pool's roll are other threads than the caller's.
         self.device = _resolve_device(cfg)
+        # Resolve the defaults ONCE, at construction, for this engine's
+        # device: everything downstream (batcher bounds, warmup bucket
+        # coverage, request validation) reads concrete values; an explicit
+        # bad value fails loudly in the batcher's own validation.
+        self.config = resolve_config(cfg, self.device)
         self._stream = None  # this engine's CUDA stream (made on first use)
         self.name = name
         self._registry = source if isinstance(source, ModelRegistry) else None
@@ -1099,6 +1113,33 @@ class PendingPrediction:
             columns=req.result, version=req.version,
             latency_ms=(time.monotonic() - self.t0) * 1000.0,
             shed=req.shed,
+        )
+
+
+def _tuning_scope(device: torch.device):
+    """``device`` as the tuning table's mesh for the knobs resolved inside
+    (the static defaults where its card is not usable)."""
+    try:
+        return use_device(device)
+    except RuntimeError:
+        return contextlib.nullcontext()
+
+
+def resolve_config(cfg: ServingConfig, device: torch.device) -> ServingConfig:
+    """``cfg`` with ``max_batch_rows`` and ``max_wait_ms`` concrete: an
+    explicit value, else the tuning table's for ``device``, else
+    :data:`MAX_BATCH_ROWS` / :data:`MAX_WAIT_MS`."""
+    with _tuning_scope(device):
+        return dataclasses.replace(
+            cfg,
+            max_batch_rows=(
+                int(cfg.max_batch_rows) if cfg.max_batch_rows is not None
+                else _tuned_int("serving_max_batch_rows", MAX_BATCH_ROWS)
+            ),
+            max_wait_ms=(
+                float(cfg.max_wait_ms) if cfg.max_wait_ms is not None
+                else _tuned_float("serving_window_ms", MAX_WAIT_MS)
+            ),
         )
 
 

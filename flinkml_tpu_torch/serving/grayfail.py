@@ -87,10 +87,9 @@ from flinkml_tpu_torch.utils.metrics import metrics
 
 _log = get_logger("serving.grayfail")
 
-#: The per-attempt deadline multiplier when
-#: ``GrayFailPolicy.deadline_multiplier`` is None. A module constant
-#: (tests may patch it); the JAX package reads a measured value from its
-#: autotune table, which is not ported.
+#: The static fallback of the per-attempt deadline multiplier: a
+#: ``GrayFailPolicy.deadline_multiplier`` of None takes the tuning table's
+#: ``serving_deadline_multiplier`` for this thread's device, else this.
 DEADLINE_MULTIPLIER = 4.0
 
 
@@ -113,8 +112,10 @@ class GrayFailPolicy:
 
     # -- per-dispatch deadlines (router-side abandonment)
     abandon: bool = True
-    #: Budget = healthy-sibling attempt-p99 median × this. None takes
-    #: :data:`DEADLINE_MULTIPLIER` (4.0).
+    #: Budget = healthy-sibling attempt-p99 median × this. None reads
+    #: the autotune table knob ``serving_deadline_multiplier`` (fallback
+    #: :data:`DEADLINE_MULTIPLIER`, 4.0) — the tuned_default contract: a
+    #: bad table value degrades to the static default.
     deadline_multiplier: Optional[float] = None
     attempt_floor_ms: float = 250.0
     #: Sibling rings need this many attempts before their p99 is
@@ -154,7 +155,9 @@ class GrayFailPolicy:
     def resolved_deadline_multiplier(self) -> float:
         if self.deadline_multiplier is not None:
             return float(self.deadline_multiplier)
-        return DEADLINE_MULTIPLIER
+        from flinkml_tpu_torch.serving.engine import _tuned_float
+
+        return _tuned_float("serving_deadline_multiplier", DEADLINE_MULTIPLIER)
 
 
 class GrayFailGuard:

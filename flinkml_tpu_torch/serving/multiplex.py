@@ -142,8 +142,8 @@ class MultiModelPool(ReplicaPool):
     Starts EMPTY; register models with :meth:`add_model`, then
     :meth:`start`. ``example`` fixes the request schema shared by every
     model (multi-tenant fronts serve one feature schema; register
-    another pool for another schema). ``share_compiles`` is accepted as
-    :class:`~flinkml_tpu_torch.serving.pool.ReplicaPool` accepts it."""
+    another pool for another schema). ``share_compiles`` is
+    :class:`~flinkml_tpu_torch.serving.pool.ReplicaPool`'s."""
 
     def __init__(
         self,
@@ -159,7 +159,7 @@ class MultiModelPool(ReplicaPool):
         self._init_core(
             None, example, config=config, output_cols=None,
             name=name, health_policy=health_policy,
-            grayfail=grayfail,
+            grayfail=grayfail, share_compiles=share_compiles,
         )
         if devices is None:
             devices = [requested_device()]

@@ -153,10 +153,13 @@ class ReplicaPool:
       engine gets ``config.mesh`` and time-shares via the slice lock —
       build slices with :func:`slice_meshes`).
 
-    ``share_compiles`` is accepted for the JAX package's signature: in
-    the port every replica of a process already shares the one build of
-    each kernel and the fused executor's programs. A persistent
-    compile-cache store comes with ROADMAP.md Queue 1 item 11.
+    ``share_compiles=True`` makes :meth:`start` ensure a compile-cache
+    store (:func:`flinkml_tpu_torch.compile_cache.ensure_store`: the
+    configured one, else the kernels' default ``kernels/build/``), so the
+    replicas, and every later process on the same store, load each kernel
+    library the first replica built instead of running ``nvcc``. The fused
+    executor's programs are eager PyTorch, shared in memory by every
+    replica of the process.
 
     ``config`` is the per-replica engine template; per-replica queue
     bounds apply per engine, so pool capacity is the sum.
@@ -185,7 +188,7 @@ class ReplicaPool:
         self._init_core(
             source, example, config=config, output_cols=output_cols,
             name=name, health_policy=health_policy,
-            grayfail=grayfail,
+            grayfail=grayfail, share_compiles=share_compiles,
         )
         placements: List[Dict[str, Any]]
         if meshes is not None:
@@ -212,11 +215,13 @@ class ReplicaPool:
     def _init_core(self, source: Any, example: Table, *,
                    config: Optional[ServingConfig], output_cols,
                    name: str, health_policy: Optional[HealthPolicy],
-                   grayfail: Optional["GrayFailPolicy"] = None) -> None:
+                   grayfail: Optional["GrayFailPolicy"] = None,
+                   share_compiles: bool = True) -> None:
         """Everything a pool is besides its initial replica set — shared
         with :class:`~flinkml_tpu_torch.serving.multiplex.MultiModelPool`,
         which starts EMPTY and grows replicas per registered model."""
         self.name = name
+        self._share_compiles = share_compiles
         self._source = source
         self._registry = source if isinstance(source, ModelRegistry) else None
         self._base_config = config or ServingConfig()
@@ -313,7 +318,12 @@ class ReplicaPool:
     def start(self) -> "ReplicaPool":
         """Start every replica (load + per-bucket warmup, serially — the
         first replica builds each (program, bucket, policy) once and every
-        later replica of the process reuses it). Returns self."""
+        later replica of the process reuses it; see ``share_compiles``).
+        Returns self."""
+        if self._share_compiles:
+            from flinkml_tpu_torch import compile_cache
+
+            compile_cache.ensure_store()
         for replica in list(self.replicas):  # scaling mutates the list
             replica.engine.start()
         self._started = True

@@ -27,10 +27,10 @@ the rank, so one ``FSDP_TP`` table serves ``[d, h]`` matrices
 A plan's JSON (:meth:`ShardingPlan.to_json_dict`) is the JAX package's,
 byte for byte, so one ``*.plan.json`` serves both packages.
 
-:func:`infer_plan` tries the presets in :data:`STATIC_CANDIDATE_ORDER`
-(ascending communication cost). The JAX package can replace that order
-with a measured one from its tuning table (``autotune``); the port has no
-tuning table yet and always takes the static order.
+:func:`infer_plan` tries the presets in the order the tuning table
+measured for the current mesh (knob ``infer_plan_order``,
+:mod:`flinkml_tpu_torch.autotune`), else in :data:`STATIC_CANDIDATE_ORDER`
+(ascending communication cost). Explicit ``candidates`` always win.
 """
 
 from __future__ import annotations
@@ -448,6 +448,22 @@ def _splits_embedding_rows(plan: ShardingPlan, name: str,
     return any(entry_axes(e) for e in spec[1:])
 
 
+def _tuned_candidates() -> Tuple[ShardingPlan, ...]:
+    """The measured candidate order for the current mesh (autotune knob
+    ``infer_plan_order``), else :data:`STATIC_CANDIDATE_ORDER`. Unknown
+    names in a table entry are skipped; presets it omits keep their
+    static relative order at the back."""
+    from flinkml_tpu_torch.autotune import tuned_default
+
+    names = tuned_default("infer_plan_order", None)
+    if not names:
+        return STATIC_CANDIDATE_ORDER
+    by_name = {p.name: p for p in STATIC_CANDIDATE_ORDER}
+    ordered = [by_name[n] for n in names if n in by_name]
+    ordered += [p for p in STATIC_CANDIDATE_ORDER if p not in ordered]
+    return tuple(ordered)
+
+
 def infer_plan(
     mesh,
     param_shapes: Mapping[str, Sequence[int]],
@@ -457,7 +473,8 @@ def infer_plan(
     candidates: Optional[Sequence[ShardingPlan]] = None,
     quant_tiers: Optional[Sequence[str]] = None,
 ) -> Union[ShardingPlan, Tuple[ShardingPlan, str]]:
-    """The first plan, in ``candidates`` order (default
+    """The first plan, in ``candidates`` order (default: the tuning
+    table's ``infer_plan_order`` for this mesh, else
     :data:`STATIC_CANDIDATE_ORDER`, where first fit is cheapest fit),
     whose per-device parameter + optimizer-state footprint fits
     ``hbm_budget_bytes`` on ``mesh``. Candidates that need axes the mesh
@@ -470,7 +487,7 @@ def infer_plan(
     :func:`per_device_state_bytes_tiered`.
     """
     if candidates is None:
-        candidates = STATIC_CANDIDATE_ORDER
+        candidates = _tuned_candidates()
     axis_sizes = _axis_sizes(mesh)
     budget = int(hbm_budget_bytes)
     tiered = quant_tiers is not None

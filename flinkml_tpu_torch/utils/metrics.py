@@ -25,6 +25,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from flinkml_tpu_torch.iteration.runtime import IterationListener
+
 
 class Meter:
     """Windowed rate meter (events/sec), like Flink's MeterView."""
@@ -280,3 +282,41 @@ def default_registry() -> MetricsRegistry:
     """The process-wide :data:`metrics` registry — the scrape root for
     exposition (``default_registry().render_text()``)."""
     return metrics
+
+
+class EpochMetricsListener(IterationListener):
+    """Records per-epoch wall time, criteria, and throughput into a group.
+
+    Attach to :func:`flinkml_tpu_torch.iteration.iterate` via
+    ``listeners=[...]``. ``samples_per_epoch`` (if given) feeds a
+    ``samples`` meter and a final ``samples_per_sec`` gauge — the bench's
+    headline metric. The JAX package's listener, series for series.
+    """
+
+    def __init__(
+        self,
+        group: Optional[MetricGroup] = None,
+        samples_per_epoch: Optional[int] = None,
+    ):
+        self.group = group if group is not None else metrics.group("iteration")
+        self.samples_per_epoch = samples_per_epoch
+        self._last = time.perf_counter()
+        self._t0 = self._last
+        self._epochs = 0
+
+    def on_epoch_watermark_incremented(self, epoch: int, state: Any) -> None:
+        now = time.perf_counter()
+        self.group.record("epoch_seconds", now - self._last)
+        self.group.counter("epochs")
+        if self.samples_per_epoch:
+            self.group.meter("samples").mark(self.samples_per_epoch, now=now)
+        self._last = now
+        self._epochs += 1
+
+    def on_iteration_terminated(self, state: Any) -> None:
+        total = time.perf_counter() - self._t0
+        self.group.gauge("total_seconds", total)
+        if self.samples_per_epoch and total > 0:
+            self.group.gauge(
+                "samples_per_sec", self.samples_per_epoch * self._epochs / total
+            )

@@ -2,8 +2,9 @@
 (``flinkml_tpu_torch.serving``), on the CPU.
 
 Mirrors the JAX package's ``tests/test_autoscaler.py`` name for name,
-less its clean-process compile-cache case (the compile-cache store comes
-with ROADMAP.md Queue 1 item 11). Every test runs under
+less its clean-process compile-cache case, which is
+``tests/test_torch_compile_cache.py::test_scale_up_zero_new_builds_clean_process``
+(on the compile-cache store's stand-in library). Every test runs under
 ``use_device("cpu")``. The acceptance contract:
 
   1. **Closed loop**: offered load triples against an undersized pool;

@@ -718,7 +718,7 @@ def test_worker_killed_mid_traffic_loses_zero_requests(cluster_child):
 def test_respawn_rejoins_warm_zero_new_compiles(cluster_child):
     """The port's "zero new compiles": the respawned worker runs no
     ``nvcc``, builds as many fused programs at warmup as its predecessor
-    (there is no persistent store until item 11), and that count stays
+    (eager PyTorch programs, kept in memory only), and that count stays
     flat under traffic; parity still bitwise."""
     rep = cluster_child[0]
     assert rep["respawned"] == ["r2"], rep

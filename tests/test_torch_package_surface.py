@@ -30,10 +30,6 @@ GAPS = {
         "pallas_segment_sum", "segment_sum", "segsum_backend", "pallas_spmv",
         "spmv_backend", "pallas_top_k", "top_k", "topk_backend",
     },
-    # ROADMAP item 18: the profiling utilities.
-    "flinkml_tpu_torch.utils": {
-        "EpochMetricsListener", "StepTimer", "annotate", "trace",
-    },
 }
 
 
