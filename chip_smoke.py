@@ -225,7 +225,7 @@ and fails with a non-zero exit if any phase fails:
    serving widths with models the port fits on the card: N1, bench's
    five-stage chain (50,000 x 32 float64) behind one ``ServingEngine``
    (``max_batch_rows=256``, 1 ms window) that follows a ``ModelRegistry``,
-   8 closed-loop clients sending 1-32 rows for 2 s: rows/s, the engine's
+   8 closed-loop clients sending 1-32 rows for 1 s: rows/s, the engine's
    and the clients' p50/p99, batch occupancy, no new program or kernel
    build after warmup; then 1 s more under ``torch.profiler``: the card's
    busy share and ``fused_chain``'s device time a batch beside the
@@ -251,7 +251,7 @@ and fails with a non-zero exit if any phase fails:
    fitted again on the card: O1 (``bench.py``'s
    ``_multiproc_pool_stage``), an in-process ``ReplicaPool`` of 2 and a
    ``ClusterPool`` of 2 worker processes on the one card, 4 closed-loop
-   clients of 1-32 rows for 2 s each (``max_batch_rows=128``, 2 ms
+   clients of 1-32 rows for 1 s each (``max_batch_rows=128``, 2 ms
    window): rows/s, p50/p99, the workers-to-threads ratio, each worker's
    spawn ms and the transport p50/p99; the pool's responses bit for bit
    the in-process engine's on 4,096 rows, and each worker on ``cuda``
@@ -423,6 +423,23 @@ and fails with a non-zero exit if any phase fails:
    the ``fused_chain`` kernel and a ``StepTimer`` of ``segment_sum``
    (2^26 cells) reads within 20% (or 20 µs) of CUDA events around the
    same steps. X1's and X2's children run beside X3.
+6t. the static-analysis passes (path Y, ``analysis_path``, right after
+   path X): Y1, ``bench.py:602``'s chain (4 scalers + LR, d = 32,
+   float64) warmed at the 4,096-row bucket, then 8 transforms inside it
+   and one across its boundary under a zero-budget
+   ``TransferRetraceGuard``: no finding, no ``nvcc`` run, one
+   ``fused_chain`` launch and one upload a transform, an unwarmed chain
+   refused with FML402, the outputs within 1e-12 of the per-stage chain;
+   Y2, the sorted-stream step (``_sorted_column_stepper``) captured at
+   path H2's block (65,536 Criteo rows, dim 1e6, ELL width 64): one
+   ``flinkml.segment_sum`` node, sorted, and no FML404, its ``False``
+   copy one FML404; one step on the card launching what the capture
+   shows, within 1e-5 of the step on CPU copies; Y3, the memory walker's
+   peak for the dense step (1,000,000 x 123, batch 262,144) and the
+   bucketed sparse step (262,144 Criteo rows) within 0.5x–2.0x of
+   ``max_memory_allocated`` over one step, and FML701 at half of it.
+   Prints one ``analysis:`` line. Y must launch ``fused_chain``, ``spmv``
+   and ``segment_sum``;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -6062,7 +6079,7 @@ def faults_path(torch):
 # -- path N: the serving runtime (engine, registry, pool, gray failure, scaler) --
 
 N_ROWS, N_D = 50_000, 32          # bench.py _serving_stage's model
-N1_CLIENTS, N1_SECONDS = 8, 2.0   # the bench runs 4 s
+N1_CLIENTS, N1_SECONDS = 8, 1.0   # the bench runs 4 s; 2.0 until path Y
 N1_BATCH_ROWS, N1_WAIT_MS = 256, 1.0
 N1_PROFILE_SECONDS = 1.0
 N2_SECONDS = 2.0
@@ -6695,7 +6712,7 @@ def serving_path(torch):
 
 # -- path O: the cluster runtime (worker processes, ClusterPool, elastic worlds) --
 
-O_WORKERS, O_CLIENTS, O_SECONDS = 2, 4, 2.0      # bench.py _multiproc_pool_stage
+O_WORKERS, O_CLIENTS, O_SECONDS = 2, 4, 1.0      # bench.py _multiproc_pool_stage; 2.0 until path Y
 O_BATCH_ROWS, O_WAIT_MS = 128, 2.0
 O_CRASH_EXIT, O_CRASH_SECONDS = 23, 1.5   # the crash lands at 0.5 s
 O_PARITY_ROWS = 4096                 # rows served through both, 32 a request
@@ -6721,7 +6738,7 @@ def o_parity(ref, pool, x):
 def cluster_o1_o2(torch, model, x):
     """O1 (``bench.py:899 _multiproc_pool_stage``): an in-process
     ``ReplicaPool`` of 2 and a ``ClusterPool`` of 2 workers on the one card,
-    4 closed-loop clients of 1–32 rows each for 2 s; O2 on the same
+    4 closed-loop clients of 1–32 rows each for 1 s; O2 on the same
     workers: a ``WorkerCrash`` armed over the transport mid-traffic, the
     respawn, a lease reclaimed over the wire, the metrics. Returns
     ``(O1's record, O2's record, {worker: its last fused_chain count})``."""
@@ -10502,6 +10519,265 @@ def compile_cache_path(torch) -> dict:
 
 #: Inputs and float64 references that need no card, made while the kernels
 #: build (:func:`prepare_references`) and taken by the path that uses them.
+# -- path Y: the static-analysis passes on the card ------------------------------
+
+#: Y1: the bench chain's rows (``bench.py:602``'s width, d = 32) and the row
+#: counts transformed inside the warmed 4,096-row bucket, then one across
+#: its boundary.
+Y_CHAIN_ROWS, Y_CHAIN_D = 8_192, 32
+Y_BUCKET_ROWS = (2_049, 2_500, 3_000, 3_333, 3_600, 3_900, 4_000, 4_096)
+Y_BOUNDARY_ROWS = 4_097
+#: Y2: path H2's block (65,536 Criteo-shaped rows, dim 1e6, ELL width 64).
+Y_SORTED_ROWS = 65_536
+#: Y3: the estimate against ``max_memory_allocated``: the JAX package's
+#: calibration band (``tests/test_analysis_memory.py:387-401``).
+Y_MEMORY_BAND = (0.5, 2.0)
+
+
+def y1_guard(torch, rec):
+    """Y1: the bench chain (4 scalers + LR, d = 32, float64) warmed at one
+    row bucket, then transformed at 8 row counts inside it and once across
+    its boundary under a zero-budget ``TransferRetraceGuard``: no finding,
+    no ``nvcc`` run, one ``fused_chain`` launch and one upload a transform;
+    an unwarmed chain in the same region raises FML402; the fused outputs
+    equal the per-stage chain within 1e-12."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+    from flinkml_tpu_torch.analysis import GuardViolation, TransferRetraceGuard
+    from flinkml_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(Y_CHAIN_ROWS, Y_CHAIN_D))
+    coef = rng.normal(size=Y_CHAIN_D)
+    pm = fml.PipelineModel(chain_models(x, coef))
+    table = fml.Table({"features": x})
+    pm.transform(table.slice(0, Y_BUCKET_ROWS[-1]))   # warm the bucket
+    torch.cuda.synchronize()
+    before = fml.launch_counts()["fused_chain"]
+    fusion = metrics.group("pipeline.fusion")
+    h2d_before = fusion.snapshot()["counters"].get(
+        "host_to_device_transfers", 0)
+    n_calls = len(Y_BUCKET_ROWS) + 1
+    guard = TransferRetraceGuard(allow_compiles=0, allow_new_buckets=True,
+                                 allow_host_to_device=n_calls,
+                                 allow_device_to_host=0,
+                                 raise_on_violation=False,
+                                 location="chip_smoke:Y1")
+    outs = []
+    with guard:
+        for rows in Y_BUCKET_ROWS + (Y_BOUNDARY_ROWS,):
+            (out,) = pm.transform(table.slice(0, rows))
+            outs.append((rows, out))
+    torch.cuda.synchronize()
+    launches = fml.launch_counts()["fused_chain"] - before
+    if guard.findings or guard.nvcc_runs or launches != n_calls:
+        fail(f"Y1: guard findings {[f.render() for f in guard.findings]}, "
+             f"nvcc runs {guard.nvcc_runs}, fused_chain launches {launches} "
+             f"for {n_calls} transforms")
+    h2d = fusion.snapshot()["counters"].get(
+        "host_to_device_transfers", 0) - h2d_before
+    stages = chain_models(x, coef)[1:]
+    stages[0].set(stages[0].INPUT_COL, "features")
+    cold = fml.PipelineModel(stages)
+    try:
+        with TransferRetraceGuard(allow_compiles=0, location="chip_smoke:Y1"):
+            cold.transform(table.slice(0, 1_000))
+        fail("Y1: an unwarmed chain passed a zero-budget guard")
+    except GuardViolation as e:
+        rules = sorted({f.rule for f in e.findings})
+        if "FML402" not in rules:
+            fail(f"Y1: the unwarmed chain raised {rules}, not FML402")
+    err = 0.0
+    pipeline_fusion.set_enabled(False)
+    try:
+        for rows, out in (outs[0], outs[-1]):
+            (ref,) = pm.transform(table.slice(0, rows))
+            for c in ("s4", "rawPrediction"):
+                got, want = out.column(c), ref.column(c)
+                if got.shape != want.shape or not np.allclose(
+                        got, want, rtol=1e-12, atol=1e-12):
+                    fail(f"Y1: fused {c} at {rows} rows differs from the "
+                         f"per-stage chain by {np.abs(got - want).max()}")
+                err = max(err, float(np.abs(got - want).max()))
+    finally:
+        pipeline_fusion.set_enabled(True)
+    rec["Y1"] = {"transforms": n_calls, "fused_chain_launches": launches,
+                 "host_to_device_transfers": h2d,
+                 "nvcc_runs": guard.nvcc_runs, "findings": 0,
+                 "unwarmed_chain": "FML402", "max_abs_err_vs_per_stage": err}
+
+
+def y2_sorted_step(torch, rec):
+    """Y2: FML404 on the real sorted-stream step
+    (``_linear_sgd._sorted_column_stepper``) at path H2's block: one
+    ``flinkml.segment_sum`` node with ``indices_are_sorted=True`` and no
+    finding; the step with the flag ``False`` gives exactly one FML404.
+    Then one step on the card: its ``spmv`` and ``segment_sum`` launches
+    equal the capture's nodes, and its result is within 1e-5 of the same
+    step on CPU copies (the plain versions)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.analysis import (
+        check_sorted_scatter_fn,
+        check_sorted_scatter_jaxpr,
+    )
+    from flinkml_tpu_torch.analysis._capture import capture, nodes_named
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+    from flinkml_tpu_torch.ops.sparse import pack_sorted_sparse_column
+
+    n, dim, nnz = Y_SORTED_ROWS, SPMV_DIM, SPMV_NNZ
+    indptr, indices, values, y, _ = make_criteo_csr(n, dim, nnz, seed=7)
+    col = pack_sorted_sparse_column(criteo_rows(indices, values, n, nnz,
+                                                dim))
+    if not col.indices_are_sorted:
+        fail("Y2: the packed column does not record its sort")
+    rng = np.random.default_rng(23)
+    coef = torch.from_numpy(
+        rng.normal(size=dim).astype(np.float32) * 0.01).cuda()
+    yb = torch.from_numpy(y).cuda()
+    wb = torch.ones(n, dtype=torch.float32, device="cuda")
+    hy = sgd._stream_hypers(STREAM_LR, STREAM_REG, 0.0, torch.float32, "cuda")
+    args = (coef, col.indices, col.buf, col.perm, col.segment_ids, yb, wb,
+            *hy)
+    step = sgd._sorted_column_stepper("logistic", dim)
+    t0 = time.perf_counter()
+    gm = capture(step, *args)
+    capture_s = time.perf_counter() - t0
+    segs, spmvs = nodes_named(gm, "segment_sum"), nodes_named(gm, "spmv")
+    if [bool(s.args[3]) for s in segs] != [True]:
+        fail(f"Y2: the capture's segment_sum nodes {[s.args[2:] for s in segs]}")
+    findings = check_sorted_scatter_jaxpr(gm, (3, 4))
+    real = sgd.segment_sum
+
+    def unsorted(values, ids, num_segments, indices_are_sorted=False):
+        return real(values, ids, num_segments, indices_are_sorted=False)
+
+    sgd.segment_sum = unsorted
+    try:
+        bad = check_sorted_scatter_fn(sgd._sorted_column_stepper(
+            "logistic", dim), args, (3, 4))
+    finally:
+        sgd.segment_sum = real
+    if findings or [f.rule for f in bad] != ["FML404"]:
+        fail(f"Y2: the real step {[f.rule for f in findings]}, the False "
+             f"copy {[f.rule for f in bad]}")
+    torch.cuda.synchronize()
+    before = fml.launch_counts()
+    new_coef, loss_sum, wsum = step(*args)
+    torch.cuda.synchronize()
+    after = fml.launch_counts()
+    launches = {k: after[k] - before[k] for k in ("spmv", "segment_sum")}
+    if launches != {"spmv": len(spmvs), "segment_sum": len(segs)}:
+        fail(f"Y2: launches {launches}, capture nodes spmv {len(spmvs)} "
+             f"segment_sum {len(segs)}")
+    with fml.use_device("cpu"):
+        want = step(*(a.cpu() for a in args))
+    for name, got, ref in (("coef", new_coef, want[0]),
+                           ("loss_sum", loss_sum, want[1])):
+        scale = float(ref.abs().max())
+        check_close(f"Y2: step {name} vs plain", got.cpu(), ref, 1e-5,
+                    1e-5 * scale)
+    rec["Y2"] = {"rows": n, "dim": dim, "ell_width": int(col.indices.shape[1]),
+                 "cells": int(col.indices.numel()),
+                 "capture_s": capture_s,
+                 "segment_sum_nodes": len(segs), "spmv_nodes": len(spmvs),
+                 "launches": launches, "findings": 0,
+                 "false_copy": "FML404",
+                 "max_abs_err_vs_plain": max_err(new_coef.cpu(), want[0])}
+    return launches
+
+
+def y3_memory(torch, rec):
+    """Y3: ``estimate_fn_memory(step).peak_bytes`` against the bytes the
+    card held at the step's peak — ``max_memory_allocated()`` after
+    ``reset_peak_memory_stats()``, less what was resident before the step
+    other than the step's arguments — for the dense step at the dense fit
+    path's shape and the bucketed sparse step (``unsorted``) at
+    ``SPARSE_FIT_ROWS``, dim 1e6, 39 nnz: each within
+    :data:`Y_MEMORY_BAND`; ``check_memory_fn`` at half the measured peak
+    gives FML701."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.analysis import check_memory_fn, estimate_fn_memory
+    from flinkml_tpu_torch.models import _linear_sgd as sgd
+
+    hy = tuple(torch.tensor(v, dtype=torch.float32, device="cuda")
+               for v in (FIT_LR, 0.0, 0.0))
+    x, y, w = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
+    dense = (sgd.make_dense_step("logistic", FIT_BATCH),
+             (torch.zeros(DENSE_FIT_D, device="cuda"), 0,
+              *(torch.from_numpy(a).cuda() for a in (x, y, w)), *hy))
+    indptr, indices, values, sy, sw = make_criteo_csr(
+        SPARSE_FIT_ROWS, SPMV_DIM, SPMV_NNZ, seed=0)
+    data_args, local_bss = sgd.prepare_sparse_buckets(
+        indptr, indices, values, SPMV_DIM, sy, sw, FIT_BATCH, seed=0,
+        layout="unsorted")
+    sparse = (sgd.make_sparse_step_bucketed("logistic", local_bss, SPMV_DIM,
+                                            "unsorted"),
+              (torch.zeros(SPMV_DIM, device="cuda"), 0, data_args, *hy))
+    launches = {"spmv": 0, "segment_sum": 0}
+    out = {}
+    for name, (step, args) in (("dense", dense), ("sparse", sparse)):
+        t0 = time.perf_counter()
+        est = estimate_fn_memory(step, *args)
+        est_s = time.perf_counter() - t0
+        tensors = [a for a in args if torch.is_tensor(a)]
+        for a in args:
+            if isinstance(a, tuple):
+                tensors.extend(a)
+        arg_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        step(*args)                   # the libraries and allocator warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = fml.launch_counts()
+        result = step(*args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base + arg_bytes
+        after = fml.launch_counts()
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        del result
+        ratio = est.peak_bytes / measured
+        lo, hi = Y_MEMORY_BAND
+        if not lo <= ratio <= hi:
+            fail(f"Y3: {name} step estimate {est.peak_bytes} B vs measured "
+                 f"{measured} B (ratio {ratio:.3f} outside [{lo}, {hi}])")
+        rules = [f.rule for f in check_memory_fn(
+            step, *args, hbm_budget_bytes=measured // 2)]
+        if "FML701" not in rules:
+            fail(f"Y3: {name} step at half its measured peak gave {rules}")
+        out[name] = {"estimate_bytes": est.peak_bytes,
+                     "measured_bytes": int(measured),
+                     "argument_bytes": int(arg_bytes), "ratio": ratio,
+                     "estimate_s": est_s, "half_budget": "FML701"}
+    out["sparse"]["buckets"] = len(local_bss)
+    rec["Y3"] = out
+    return launches
+
+
+def analysis_path(torch) -> dict:
+    """Path Y: Y1, Y2 and Y3 with the launch counters set to 0 before and
+    read after; prints the ``analysis:`` line. Returns the launch counts."""
+    import flinkml_tpu_torch as fml
+
+    rec = {"path": "analysis_Y"}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    fml.reset_launch_counts()
+    y1_guard(torch, rec)
+    y2_sorted_step(torch, rec)
+    y3_memory(torch, rec)
+    torch.cuda.synchronize()
+    counts = fml.launch_counts()
+    for site in ("fused_chain", "spmv", "segment_sum"):
+        if counts[site] <= 0:
+            fail(f"path Y: {site} was never launched ({counts})")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = counts
+    rec["card"] = card_line()
+    log("analysis: " + json.dumps(rec))
+    return counts
+
+
 PREPARED = {}
 
 
@@ -10517,6 +10793,11 @@ def prepare_references() -> float:
     import torch._inductor.config  # noqa: F401
 
     PREPARED["topk_route_hosts"] = topk_route_hosts()
+    # Path Y's first capture imports make_fx's machinery (seconds); here
+    # it overlaps the build.
+    from flinkml_tpu_torch.analysis._capture import capture, spec
+
+    capture(lambda x: x * 2.0, spec((4,), device="cuda"))
     for n, d, seed in ((SVC_ROWS, SVC_D, 3), (U_FM_ROWS, U_FM_D, 5)):
         make_data(n, d, seed=seed)
     PREPARED["mesh"] = mesh_inputs()
@@ -10614,6 +10895,8 @@ def main() -> int:
     x_counts = compile_cache_path(torch)
     chain_paths_x = x_counts["fused_chain"]
     mark("path X")
+    y_counts = analysis_path(torch)
+    mark("path Y")
 
     serve_spmv = sparse_path(torch)
     chain_paths = {"dense": dense_path(torch), "census": census_path(torch),
@@ -10672,6 +10955,7 @@ def main() -> int:
     chain_paths["catalog_W"] = w_counts["fused_chain"]
     mark("path W")
     chain_paths["compile_cache_X"] = chain_paths_x
+    chain_paths["analysis_Y"] = y_counts["fused_chain"]
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -10689,6 +10973,7 @@ def main() -> int:
             rec["launches_by_path"]["catalog_V"] = v_segsum
             rec["launches_by_path"]["compile_cache_X"] = x_counts[name]
         rec["launches_by_path"]["catalog_W"] = w_counts[name]
+        rec["launches_by_path"]["analysis_Y"] = y_counts[name]
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
                                     "lsh": lsh_path(torch, timer),
@@ -10795,6 +11080,7 @@ def ab_inner(tree: str) -> int:
         out[f"fused_chain {dtype}"] = timer(call)
         out[f"fused_chain {dtype} device"] = kernel_device_ms(
             torch, call, "fused_chain")
+    out.update(ab_host_us(torch, kspmv, ksegsum, ktopk, program, consts))
     for op, rows, d, k, dtype in AB_CHAIN_OP_CASES:
         key = f"fused_chain {op} {rows}x{d} k={k} {dtype}"
         if not hasattr(kchain, "HEADS"):   # a tree without the op
@@ -10810,6 +11096,49 @@ def ab_inner(tree: str) -> int:
         del vals
     print(json.dumps(out), flush=True)
     return 0
+
+
+#: Calls of each wrapper timed on the host clock by :func:`ab_host_us`.
+AB_HOST_CALLS = 2_000
+
+
+def ab_host_us(torch, kspmv, ksegsum, ktopk, program, consts) -> dict:
+    """The host time of one wrapper call (µs): ``AB_HOST_CALLS`` calls on
+    inputs small enough that the card keeps up (the host enqueues ahead,
+    so the loop's host-clock time is the wrappers' own: argument checks,
+    the capture flag, ``ctypes`` and the launch), after 50 warm-ups; the
+    card is synchronized after the loop only."""
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(0, 4_096, (64, SPMV_NNZ)).astype(
+        np.int32)).cuda()
+    val = torch.from_numpy(rng.normal(size=(64, SPMV_NNZ)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=4_096).astype(np.float32)).cuda()
+    ids = torch.from_numpy(np.sort(rng.integers(0, 1_024, 4_096)).astype(
+        np.int32)).cuda()
+    vals = torch.from_numpy(rng.normal(size=4_096).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.normal(size=(8, 256)).astype(np.float32)).cuda()
+    xc = torch.from_numpy(rng.normal(size=(64, CHAIN_D))).cuda()
+    calls = {
+        "spmv": lambda: kspmv.spmv(idx, val, w),
+        "segment_sum unsorted": lambda: ksegsum.segment_sum(vals, ids, 1_024),
+        "segment_sum sorted": lambda: ksegsum.segment_sum(
+            vals, ids, 1_024, indices_are_sorted=True),
+        "topk": lambda: ktopk.top_k(x, 4),
+        "fused_chain": lambda: program([xc], consts, 64),
+    }
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AB_HOST_CALLS):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[f"host_us {name}"] = host / AB_HOST_CALLS * 1e6
+    return out
 
 
 #: Path E's main fits timed in each process of ``--ab-stream``.
@@ -10886,6 +11215,105 @@ def ab_main(old: str, inner: str = "--ab-inner") -> int:
             fail(f"{inner} {tree}: exit {done.returncode}\n"
                  f"{done.stderr[-2000:]}")
         print(lines[-1], flush=True)
+    return 0
+
+
+# -- --flag-cost: the capture flag's host time in the kernel wrappers -------------
+
+#: Alternating blocks of :data:`AB_HOST_CALLS` calls a wrapper in
+#: :func:`flag_cost_main`.
+FLAG_COST_ROUNDS = 10
+
+
+def _without_capture_flag(fn):
+    """``fn`` re-compiled from its own source without its ``if
+    _gate.CAPTURE.on:`` statement: the wrapper as it was before the
+    capture existed, in the same module's globals."""
+    import ast
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    body = tree.body[0].body
+    tree.body[0].body = [st for st in body if not (
+        isinstance(st, ast.If) and "CAPTURE" in ast.unparse(st.test))]
+    if len(tree.body[0].body) != len(body) - 1:
+        fail(f"--flag-cost: no capture-flag statement in {fn.__name__}")
+    scope: dict = {}
+    exec(compile(tree, inspect.getsourcefile(fn), "exec"), fn.__globals__,
+         scope)
+    return scope[fn.__name__]
+
+
+def flag_cost_main(device: str = "cuda") -> int:
+    """``--flag-cost``: the host time of one call of each kernel wrapper
+    with its capture-flag check and without it (:func:`_without_capture_
+    flag`), in one process, in :data:`FLAG_COST_ROUNDS` alternating blocks
+    of :data:`AB_HOST_CALLS` calls on :func:`ab_host_us`'s tiny inputs
+    (the card synchronized after each block, outside its time), and the
+    flag read alone (``timeit``); one JSON line. ``fused_chain``'s wrapper
+    has no flag."""
+    import timeit
+
+    import torch
+    from flinkml_tpu_torch.kernels import _gate
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke --flag-cost: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(0, 4_096, (64, SPMV_NNZ)).astype(
+        np.int32)).to(device)
+    val = torch.from_numpy(rng.normal(size=(64, SPMV_NNZ)).astype(
+        np.float32)).to(device)
+    w = torch.from_numpy(rng.normal(size=4_096).astype(np.float32)).to(device)
+    ids = torch.from_numpy(np.sort(rng.integers(0, 1_024, 4_096)).astype(
+        np.int32)).to(device)
+    vals = torch.from_numpy(rng.normal(size=4_096).astype(np.float32)).to(
+        device)
+    x = torch.from_numpy(rng.normal(size=(8, 256)).astype(np.float32)).to(
+        device)
+    cases = {
+        "spmv": (kspmv.spmv, lambda f: f(idx, val, w)),
+        "segment_sum unsorted": (ksegsum.segment_sum,
+                                 lambda f: f(vals, ids, 1_024)),
+        "segment_sum sorted": (ksegsum.segment_sum, lambda f: f(
+            vals, ids, 1_024, indices_are_sorted=True)),
+        "topk": (ktopk.top_k, lambda f: f(x, 4)),
+    }
+    out = {"card": card_line() if device == "cuda" else device,
+           "calls_per_block": AB_HOST_CALLS, "rounds": FLAG_COST_ROUNDS}
+    for name, (wrapper, call) in cases.items():
+        plain = _without_capture_flag(wrapper)
+        us = {"flag": [], "no_flag": []}
+        for r in range(FLAG_COST_ROUNDS):
+            order = (("flag", wrapper), ("no_flag", plain))
+            for key, fn in (order if r % 2 == 0 else order[::-1]):
+                for _ in range(50):
+                    call(fn)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(AB_HOST_CALLS):
+                    call(fn)
+                us[key].append((time.perf_counter() - t0)
+                               / AB_HOST_CALLS * 1e6)
+                sync()
+        diffs = [a - b for a, b in zip(us["flag"], us["no_flag"])]
+        out[name] = {"flag_us": float(np.median(us["flag"])),
+                     "no_flag_us": float(np.median(us["no_flag"])),
+                     "median_diff_us": float(np.median(diffs)),
+                     "diff_quartiles_us": [float(q) for q in
+                                           np.percentile(diffs, [25, 75])]}
+    reads = 1_000_000
+    out["flag_read_ns"] = timeit.timeit(lambda: _gate.CAPTURE.on,
+                                        number=reads) / reads * 1e9
+    out["empty_call_ns"] = timeit.timeit(lambda: None,
+                                         number=reads) / reads * 1e9
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -11221,6 +11649,8 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2], "--ab-stream-inner"))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-stream-inner":
         sys.exit(ab_stream_inner(sys.argv[2]))
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--flag-cost":
+        sys.exit(flag_cost_main(*sys.argv[2:]))
     if len(sys.argv) in (2, 3) and sys.argv[1] == "--variants":
         sys.exit(variants_main(*sys.argv[2:]))
     if len(sys.argv) == 2 and sys.argv[1] == "--o-scaleout":

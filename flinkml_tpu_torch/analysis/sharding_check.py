@@ -33,7 +33,7 @@ import json
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 from flinkml_tpu_torch.analysis.collectives import CollectiveOp, check_rank_order
-from flinkml_tpu_torch.precision import Finding
+from flinkml_tpu_torch.analysis.findings import Finding
 from flinkml_tpu_torch.sharding.plan import entry_axes
 
 

@@ -11,6 +11,13 @@ Each wrapper owns one :class:`LaunchCounter`, bumped exactly where the
 kernel is launched, so a run can show that its main path went through the
 kernel (``chip_smoke.py`` resets the counts, drives the path, and reads
 them back).
+
+While :func:`flinkml_tpu_torch.analysis._capture.capture` traces a
+program, this thread's :data:`CAPTURE` flag is set and each wrapper (and
+each collective of :mod:`flinkml_tpu_torch.parallel.collectives`) calls
+its registered ``torch.ops.flinkml`` op instead (:func:`op`), so the
+captured graph holds one node per kernel site with its arguments. Outside
+a capture a wrapper reads the flag once and runs as before.
 """
 
 from __future__ import annotations
@@ -63,6 +70,36 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._count
+
+
+class _Capture(threading.local):
+    on = False
+
+
+#: This thread's capture flag (set only by ``analysis._capture``).
+CAPTURE = _Capture()
+
+
+def op(name: str):
+    """The registered ``torch.ops.flinkml`` op of a kernel or collective
+    site (the capture registers them before it sets :data:`CAPTURE`)."""
+    import torch
+
+    return getattr(torch.ops.flinkml, name)
+
+
+class not_capturing:
+    """Clear this thread's capture flag for a block: the ops' real
+    implementations call the wrappers under it."""
+
+    def __enter__(self):
+        self._prev = CAPTURE.on
+        CAPTURE.on = False
+        return self
+
+    def __exit__(self, *exc):
+        CAPTURE.on = self._prev
+        return False
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}

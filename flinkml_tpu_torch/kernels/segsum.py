@@ -231,6 +231,9 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     ``indices_are_sorted=True`` takes the deterministic run-flush path
     for ascending ``ids``; on ids that do not ascend it still returns the
     sum (by its repair pass, in a run-dependent order)."""
+    if _gate.CAPTURE.on:
+        return _gate.op("segment_sum")(values, ids, int(num_segments),
+                                       bool(indices_are_sorted))
     if values.device.type == "cpu":
         return segment_sum_plain(values, ids, num_segments)
     if values.device.type != "cuda":

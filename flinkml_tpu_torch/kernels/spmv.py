@@ -98,6 +98,8 @@ def spmv(indices: torch.Tensor, values: torch.Tensor,
     """``sum(values * w[indices], dim=1)`` over a padded ELL bucket: the
     plain version for CPU tensors, the CUDA kernel for CUDA tensors
     (unsupported operands raise ``KernelUnsupportedError``)."""
+    if _gate.CAPTURE.on:
+        return _gate.op("spmv")(indices, values, w)
     if values.device.type == "cpu":
         return spmv_plain(indices, values, w)
     if values.device.type != "cuda":

@@ -156,6 +156,8 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     in ``jax.lax.top_k``'s order: the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors (unsupported operands raise
     ``KernelUnsupportedError``)."""
+    if _gate.CAPTURE.on:
+        return tuple(_gate.op("topk")(x, int(k)))
     if x.device.type == "cpu":
         return top_k_plain(x, k)
     if x.device.type != "cuda":

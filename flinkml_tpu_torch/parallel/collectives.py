@@ -36,6 +36,14 @@ move host tensors in this port: a CUDA payload is copied to host memory,
 exchanged, and copied back (:data:`HOST_STAGED` counts each), while the
 arithmetic stays on the card. ``all_reduce`` and ``all_gather`` take the
 CUDA tensors directly, and NCCL never stages.
+
+While a capture traces a program (:mod:`flinkml_tpu_torch.analysis.
+_capture`), every primitive here calls its ``torch.ops.flinkml`` op
+instead, whether or not a group exists, so the captured graph holds the
+program's collectives in order with their axes (``"data"``) or ranks
+(``"ranks=0,1"``) as a string argument (:func:`spec_of`); the op's real
+implementation finds the mesh or group again under that string
+(:data:`CAPTURED`).
 """
 
 from __future__ import annotations
@@ -45,11 +53,29 @@ from typing import Callable
 import numpy as np
 import torch
 
+from flinkml_tpu_torch.kernels import _gate
 from flinkml_tpu_torch.parallel.mesh import DeviceMesh, tree_map
 
 #: ``out_specs`` of :func:`map_partition` for a result that is already
 #: replicated (the JAX package's ``P()``).
 REPLICATED = "replicated"
+
+
+#: The mesh or ``(group, ranks)`` a captured collective named by its spec
+#: string ran over (the newest capture's), for the op's real
+#: implementation.
+CAPTURED: dict = {}
+
+
+def spec_of(ranks) -> str:
+    """The string a captured group primitive carries: its ranks in mesh
+    order."""
+    return "ranks=" + ",".join(str(int(r)) for r in ranks)
+
+
+def _captured(name: str, key: str, where, *args):
+    CAPTURED[key] = where
+    return _gate.op(name)(*args)
 
 
 def _local(mesh: DeviceMesh, array) -> torch.Tensor:
@@ -63,6 +89,8 @@ def psum(mesh: DeviceMesh, tensor: torch.Tensor,
     """``tensor`` summed over the ranks along ``axis`` (every rank gets
     the sum; ``jax.lax.psum`` inside a ``shard_map``). A new tensor; the
     argument is not modified."""
+    if _gate.CAPTURE.on:
+        return _captured("psum", axis, mesh, tensor, axis)
     out = tensor.clone()
     all_reduce_(mesh, out, axis)
     return out
@@ -72,6 +100,8 @@ def all_reduce_(mesh: DeviceMesh, tensor: torch.Tensor,
                 axis: str = DeviceMesh.DATA_AXIS) -> torch.Tensor:
     """In-place sum of ``tensor`` over the ranks along ``axis``; a no-op
     without a process group. Returns ``tensor``."""
+    if _gate.CAPTURE.on:
+        return _captured("all_reduce_", axis, mesh, tensor, axis)
     group = mesh.group(axis)
     if group is not None:
         import torch.distributed as dist
@@ -103,6 +133,10 @@ def broadcast(mesh: DeviceMesh, tree):
     device, then broadcast from the data axis's first rank (so every rank
     holds that rank's bits)."""
     placed = mesh.replicate(tree)
+    if _gate.CAPTURE.on:
+        axis = DeviceMesh.DATA_AXIS
+        return tree_map(lambda leaf: _captured("broadcast", axis, mesh,
+                                               leaf, axis), placed)
     group = mesh.group(DeviceMesh.DATA_AXIS)
     if group is None:
         return placed
@@ -203,6 +237,10 @@ def _group_order(group, ranks) -> list:
 def group_all_reduce(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
     """In-place sum of ``tensor`` over ``group`` (``psum``); a no-op
     without a group or for one rank. Returns ``tensor``."""
+    if _gate.CAPTURE.on:
+        spec = spec_of(ranks)
+        return _captured("group_all_reduce", spec, (group, ranks), tensor,
+                         spec)
     if group is None or len(ranks) == 1:
         return tensor
     from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
@@ -215,6 +253,10 @@ def group_all_reduce(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
 def group_all_gather(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
     """Every rank's ``tensor`` concatenated along dim 0 in mesh order
     (``all_gather(tiled=True)``)."""
+    if _gate.CAPTURE.on:
+        spec = spec_of(ranks)
+        return _captured("group_all_gather", spec, (group, ranks), tensor,
+                         spec)
     tensor = tensor.contiguous()
     if group is None or len(ranks) == 1:
         return tensor
@@ -232,6 +274,10 @@ def group_all_to_all(group, ranks, tensor: torch.Tensor) -> torch.Tensor:
     """``tensor [P, ...]``: block ``m`` goes to the mesh's rank ``m``, and
     block ``m`` of the result came from it (``all_to_all(split_axis=0,
     concat_axis=0, tiled=True)``)."""
+    if _gate.CAPTURE.on:
+        spec = spec_of(ranks)
+        return _captured("group_all_to_all", spec, (group, ranks), tensor,
+                         spec)
     if group is None or len(ranks) == 1:
         return tensor.clone()
     from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch
@@ -258,6 +304,10 @@ def ppermute(group, ranks, tensors, shift: int = 1) -> list:
     (one tag each), so no rank waits on a send its peer has not posted a
     receive for. Returns new tensors."""
     tensors = list(tensors)
+    if _gate.CAPTURE.on:
+        spec = spec_of(ranks)
+        return list(_captured("ppermute", spec, (group, ranks), tensors,
+                              spec, int(shift)))
     if group is None or len(ranks) == 1:
         return [t.clone() for t in tensors]
     from flinkml_tpu_torch.parallel.dispatch import record_collective_dispatch

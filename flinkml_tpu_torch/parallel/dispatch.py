@@ -42,8 +42,8 @@ _DEFAULT_MULTIPROCESS_INTERVAL = 8
 #
 # One lock per device set: fits over disjoint meshes proceed concurrently,
 # and every acquisition is tracked, so a dispatch event carries the lock
-# tokens its thread holds (the JAX package's analyzer reads them, rule
-# FML302; the analyzer is ROADMAP.md Queue 1 item 13).
+# tokens its thread holds (``analysis.collectives.check_dispatch_trace``
+# reads them, rule FML302).
 
 _HELD_LOCKS = threading.local()  # per-thread list of held lock tokens
 

@@ -54,6 +54,18 @@ is checked against the policy before a program is built
 (:func:`check_precision`: the stages' declared accumulation widths give
 the JAX package's FML601/FML603/FML607 verdicts; a refused chain caches
 nothing). No policy leaves every path as it was.
+
+Instrumentation
+---------------
+
+The ``pipeline.fusion`` metric group (:mod:`flinkml_tpu_torch.utils.
+metrics`) counts ``host_to_device_transfers`` and
+``host_to_device_bytes``: one for each external input column a transform
+uploads (a host column the table holds no device copy of yet). Every
+program built on a cache miss calls the hooks of :data:`on_compile` with
+its cache key. The transfer/retrace guard
+(:class:`~flinkml_tpu_torch.analysis.guard.TransferRetraceGuard`) reads
+both; neither changes a result or :func:`compiled_program_count`.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from flinkml_tpu_torch.precision import (
     resolve_policy,
 )
 from flinkml_tpu_torch.table import LazyDeviceColumn, PaddedDeviceColumn, Table
+from flinkml_tpu_torch.utils.metrics import metrics
 
 #: Smallest row bucket: tiny tables all share one program.
 MIN_ROW_BUCKET = 8
@@ -92,6 +105,11 @@ _POLICY = threading.local()
 # bounded LRU, so serving pays the absmax passes once per model array.
 _QUANT: "collections.OrderedDict" = collections.OrderedDict()
 _QUANT_MAX = 128
+
+#: Called with each new program's cache key when a miss builds one:
+#: ``(fingerprints, ext specs, const specs, bucket, device[, policy], out
+#: names)``.
+on_compile: List[Callable[[Tuple], None]] = []
 
 
 def enabled() -> bool:
@@ -254,6 +272,8 @@ def _program(kernels, ext_names, out_names, base_key, device: torch.device,
                                      policy)
         with _LOCK:
             program = _CACHE.setdefault(key, program)
+        for hook in list(on_compile):
+            hook(key)
     return program
 
 
@@ -284,9 +304,11 @@ def check_precision(kernels: Sequence[ColumnKernel], consts,
     """The precision check of one chain against ``policy``, before any
     program is built; raises
     :class:`~flinkml_tpu_torch.precision.PrecisionValidationError` with the
-    JAX package's rule ids. The port does not walk programs: each stage
-    declares where it accumulates (``ColumnKernel.accumulates``), and the
-    model constants' stored dtypes are read directly.
+    JAX package's rule ids. The gate captures no program on the transform
+    path: each stage declares where it accumulates
+    (``ColumnKernel.accumulates``), and the model constants' stored dtypes
+    are read directly (:mod:`flinkml_tpu_torch.analysis.precision` walks
+    a captured program for the FML6xx rules).
 
     - FML601: a stage accumulating at ``policy.compute`` (KMeans' distance
       sums) under a declared policy whose ``accum`` is wider;
@@ -406,6 +428,14 @@ def execute_kernel_chain(table: Table, kernels: Sequence[ColumnKernel]) -> Table
     eager_names = list(_closure_outputs(kernels, terminal))
     lazy_names = [c for c in out_names if c not in eager_names]
 
+    group = metrics.group("pipeline.fusion")
+    for name in ext:
+        if not table.has_device_copy(name, device):
+            # A real host->device copy; later transforms of this
+            # (immutable) table hit its device cache.
+            group.counter("host_to_device_transfers")
+            group.counter("host_to_device_bytes",
+                          float(table.column(name).nbytes))
     ext_vals = tuple(table.device_column_padded(name, bucket, device)
                      for name in ext)
     ext_specs = tuple((name, str(v.dtype), tuple(v.shape[1:]))

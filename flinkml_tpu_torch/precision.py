@@ -84,36 +84,15 @@ def is_narrower(a, b) -> bool:
     return significand_bits(a) < significand_bits(b)
 
 
-@dataclasses.dataclass(frozen=True)
-class Finding:
-    """One check's finding: the rule id (``FML601``, ``FML502`` ...), the
-    message, the column or constant it names, and, as the JAX package's
-    ``analysis.findings.Finding`` carries them, the stage (a plan's or a
-    program's name), the file it came from and a fix hint. Every FML5xx
-    and FML6xx rule is an error."""
+def __getattr__(name: str):
+    # ``precision.Finding`` is the analysis passes' class
+    # (:class:`flinkml_tpu_torch.analysis.findings.Finding`), imported on
+    # first use: the analysis package imports modules that import this one.
+    if name == "Finding":
+        from flinkml_tpu_torch.analysis.findings import Finding
 
-    rule: str
-    message: str
-    column: Optional[str] = None
-    stage: Optional[str] = None
-    location: Optional[str] = None
-    fix_hint: Optional[str] = None
-
-    @property
-    def severity(self) -> str:
-        return "error"
-
-    def render(self) -> str:
-        where = " @ ".join(p for p in (self.location, self.stage) if p)
-        head = f"{self.rule} [{self.severity}]"
-        if where:
-            head += f" {where}"
-        if self.column:
-            head += f" (column {self.column!r})"
-        out = f"{head}: {self.message}"
-        if self.fix_hint:
-            out += f"\n    fix: {self.fix_hint}"
-        return out
+        return Finding
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class PrecisionValidationError(ValueError):
@@ -242,7 +221,7 @@ def resolve_policy(policy) -> Optional[PrecisionPolicy]:
     raise TypeError(f"cannot interpret {policy!r} as a PrecisionPolicy")
 
 
-# -- the trainer rules (FML601/603/604/605), from declared widths ------------
+# -- the trainer gate (FML601/603/604/605), from declared widths --------------
 
 
 def check_policy_plan(policy: PrecisionPolicy,
@@ -252,6 +231,8 @@ def check_policy_plan(policy: PrecisionPolicy,
     """FML605 when a sharding plan's budget math assumed a parameter width
     (``dtype_bytes``, the width ``infer_plan``/FML503 used) other than
     ``policy.params``'s. None when no width was assumed."""
+    from flinkml_tpu_torch.analysis.findings import Finding
+
     if dtype_bytes is None:
         return []
     want = int(policy.params_dtype.itemsize)
@@ -274,7 +255,9 @@ def check_policy_plan(policy: PrecisionPolicy,
 def check_trainer_widths(policy: PrecisionPolicy, state, accumulations,
                          collectives=(), program: str = "program"):
     """FML601/603/604 for a trainer step from the widths it declares (the
-    port walks no program; each step states where it rounds):
+    gate the trainers run before a step, with no capture on their path;
+    :func:`flinkml_tpu_torch.analysis.precision.check_precision_fn` walks
+    the step's capture for the same verdicts):
 
     - ``state``: ``{leaf name: dtype}`` of the stored parameters and
       optimizer state — FML603 for a leaf narrower than ``policy.params``;
@@ -286,6 +269,8 @@ def check_trainer_widths(policy: PrecisionPolicy, state, accumulations,
       ``precast_from`` (the width it was explicitly cast down from, the
       sanctioned bandwidth trade) is at least ``policy.accum``.
     """
+    from flinkml_tpu_torch.analysis.findings import Finding
+
     findings = []
     for name, dt in state.items():
         if significand_bits(dt) < significand_bits(policy.params):

@@ -290,9 +290,22 @@ class Table:
         """True when the column's backing buffer is a tensor."""
         return _is_device_backed(self._raw_column(name))
 
+    def has_device_copy(self, name: str, device=None) -> bool:
+        """Whether the column is device-backed or already uploaded to
+        ``device`` (default: :func:`~flinkml_tpu_torch.device.
+        default_device`) — whether reading it there costs no host→device
+        copy."""
+        if self.is_device_resident(name):
+            return True
+        dev = str(torch.device(device) if device is not None
+                  else default_device())
+        return any(key[0] == name and key[-1] == dev
+                   for key in self._device_cache)
+
     def column(self, name: str) -> np.ndarray:
         """The column as a host numpy array; a device column is copied to
-        the host HERE (once, cached)."""
+        the host HERE (once, cached, counted in the ``table`` metric
+        group's ``device_to_host_materializations``)."""
         col = self._raw_column(name)
         if not _is_device_backed(col):
             return col
@@ -301,6 +314,11 @@ class Table:
                 host = col.to_host()
             else:
                 host = to_numpy(col)
+            from flinkml_tpu_torch.utils.metrics import metrics
+
+            group = metrics.group("table")
+            group.counter("device_to_host_materializations")
+            group.counter("device_to_host_bytes", float(host.nbytes))
             self._host_cache[name] = host
         return self._host_cache[name]
 
