@@ -440,6 +440,28 @@ and fails with a non-zero exit if any phase fails:
    ``max_memory_allocated`` over one step, and FML701 at half of it.
    Prints one ``analysis:`` line. Y must launch ``fused_chain``, ``spmv``
    and ``segment_sum``;
+6u. float16 in the four kernels (path Z, ``half_path``, right after path
+   Y), under the policies a caller builds (no preset in either package:
+   ``half_inference`` = float16 compute and accumulation, ``half`` =
+   float16 compute, float32 accumulation): Z0, ``spmv`` at the fit shape,
+   ``segment_sum`` unsorted and sorted at the fit step's cells (sorted
+   bit for bit with the in-order float16 adds) and with a ``[2^20, 16]``
+   payload, ``topk`` at the KNN chunk and on the adversarial rows, each
+   against its plain version with its times, the library call's and the
+   bound at 2 bytes a value; Z1, ``PipelineModel.transform`` under
+   ``half_inference``, fused and per-stage, on the five-stage chain (one
+   input past 65,504), the census pipeline, the MNIST-width multinomial
+   and StandardScaler -> KMeans, each against float64 numpy on the
+   float16-rounded inputs and constants (inf and NaN where it has them),
+   and the KMeans chain under ``half`` refused with FML601 before any
+   launch; Z2, the FSDP plan fit under ``half`` against its float16 numpy
+   emulation and the float32 fit; Z3, float16 columns with no policy (a
+   ``BatchedCSR`` batch's ``matvec`` and ``rmatvec``, ``Knn``, the fused
+   KMeans transform) against float32 numpy; then ``fused_chain`` at Z1's
+   three kernel shapes against the plain chain under ``half_inference``;
+   then ``examples/train_logistic_regression_torch.py`` and
+   ``examples/serve_pipeline_torch.py`` on the card as subprocesses. Z
+   must launch all four kernels;
 7. KNN path: ``Knn().fit`` on 60,000 x 784 float32 rows (integers 0-15),
    ``KnnModel.transform`` of 10,000 queries (k=5, 10 classes: three query
    chunks, three ``topk`` launches), the first 512 predictions equal to a
@@ -462,8 +484,9 @@ and fails with a non-zero exit if any phase fails:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a path whose kernel never launched fails. The last lines are
-the kernels' JSON summary (each kernel's record; ``bf16`` and, for
-``fused_chain``, ``tiers`` carry the bfloat16 and path-D measurements;
+the kernels' JSON summary (each kernel's record; ``bf16``, ``f16`` and,
+for ``fused_chain``, ``tiers`` carry the bfloat16, float16 (path Z) and
+path-D measurements;
 ``launches_by_path`` each path's launches),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -502,9 +525,11 @@ from typing import Optional
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the vector
-# (non-tensor-core) float32 / float64 rates, and the dense bfloat16 rate.
+# (non-tensor-core) float32 / float64 rates, and the dense bfloat16 and
+# float16 rates.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12,
+                  "float16": 989e12}
 
 SPMV_ROWS, SPMV_DIM, SPMV_NNZ = 65_536, 1_000_000, 39
 CHAIN_ROWS, CHAIN_D = 100_000, 32
@@ -2538,7 +2563,8 @@ def tier_kernel_case(torch, timer, label, kernels, table, rows, policy):
     """The chain's eager program on the card under ``policy`` against the
     plain chain at the same policy on the same tensors: every output's
     dtype equal; values within the tier's tolerance (bfloat16 outputs one
-    ulp, bfloat16 rawPrediction 2^-7, float32 1e-5, float64 1e-10); the
+    ulp, bfloat16 rawPrediction 2^-7, float16 outputs one ulp, float16
+    rawPrediction 2^-9, float32 1e-5, float64 1e-10); the
     decisions equal outside the margin of their boundary (the rows inside
     counted): LR's :data:`TIER_MARGIN`, KMeans' :data:`KMEANS_TIER_ULPS`
     ulps of the plain chain's distances (:func:`kmeans_near`). Times: the
@@ -2568,12 +2594,14 @@ def tier_kernel_case(torch, timer, label, kernels, table, rows, policy):
             continue
         if g.dtype == torch.bfloat16:
             tol = (2 ** -7, 2 ** -7) if c == "rawPrediction" else (2 ** -8, 0)
+        elif g.dtype == torch.float16:
+            tol = (2 ** -9, 2 ** -9) if c == "rawPrediction" else (2 ** -10, 0)
         elif g.dtype == torch.float32:
             tol = (1e-5, 1e-5)
         else:
             tol = (1e-10, 1e-10)
-        check_close(f"{label} {c}", g.float() if g.dtype == torch.bfloat16
-                    else g, w.float() if w.dtype == torch.bfloat16 else w,
+        check_close(f"{label} {c}", g.float() if g.element_size() == 2
+                    else g, w.float() if w.element_size() == 2 else w,
                     *tol)
         err = max(err, max_err(g, w))
     g, w = got["prediction"][:rows], want["prediction"][:rows]
@@ -2743,20 +2771,22 @@ def precision_path(torch, timer):
 
 # -- phase 2d: bfloat16 operands of spmv, segment_sum and topk -----------------------
 
-def bf16_sum_check(torch, label, got, vals, ids, num_segments):
-    """A bfloat16 segment sum in some order of its adds against the exact
-    (float64) sum: each segment of ``c`` cells within ``min(c * 2^-9, 1)``
-    of the sum of its cells' magnitudes (the recursive-summation bound at
-    bf16's unit roundoff) plus half an ulp of the result."""
+def bf16_sum_check(torch, label, got, vals, ids, num_segments,
+                   unit=2.0 ** -9):
+    """A 16-bit segment sum in some order of its adds against the exact
+    (float64) sum: each segment of ``c`` cells within ``min(c * u, 1)`` of
+    the sum of its cells' magnitudes (the recursive-summation bound at the
+    unit roundoff ``u``: 2^-9 for bfloat16, 2^-11 for float16) plus
+    ``2u`` of the result."""
     exact = torch.zeros(num_segments, dtype=torch.float64).index_add_(
         0, ids.long(), vals.double())
     mag = torch.zeros(num_segments, dtype=torch.float64).index_add_(
         0, ids.long(), vals.double().abs())
     count = torch.bincount(ids.long(), minlength=num_segments).double()
-    bound = torch.clamp(count * 2.0 ** -9, max=1.0) * mag \
-        + got.double().abs() * 2.0 ** -8
+    bound = torch.clamp(count * unit, max=1.0) * mag \
+        + got.double().abs() * (2 * unit)
     if not bool(((got.double() - exact).abs() <= bound).all()):
-        fail(f"{label}: beyond the bf16 summation bound of the exact sum")
+        fail(f"{label}: beyond the summation bound of the exact sum")
 
 
 def bf16_kernel_phase(torch, timer):
@@ -2870,6 +2900,583 @@ def bf16_kernel_phase(torch, timer):
         "library_call": "torch.topk(x, k, dim=-1) [bfloat16]"}]
     log("kernel_bf16 topk " + json.dumps(out["topk"][0]))
     return out
+
+
+# -- path Z: float16 in the four kernels, on float16-policy serving and fits ------
+
+#: The float16 policies, built by the caller as the JAX package allows (no
+#: preset in either package): float16 compute and accumulation for
+#: serving, float16 compute with float32 accumulation for the trainer.
+Z_HALF_INFERENCE = ("half_inference", "float16", "float16", "float32")
+Z_HALF = ("half", "float16", "float32", "float32")
+#: Z1: outputs against float64 numpy run on the float16-rounded inputs:
+#: rawPrediction within Z_RAW_ATOL (each input and op rounds to float16,
+#: 2^-11 relative, through up to four scalers and a 784-wide dot); a
+#: decision is held where its float64 margin exceeds Z_MARGIN (the
+#: binomial probability's distance from 0.5, the two best classes'
+#: probabilities, the two best distances relative to the second); inf and
+#: NaN where the reference has them (a value past 65,504 overflows).
+Z_RAW_ATOL = 2.0 ** -6
+Z_MARGIN = 2.0 ** -4
+#: KMeans' decisions: the two best distances (~ 2 d in magnitude, each
+#: within a few float16 ulps, 2^-10 relative) more than 2^-7 of the second
+#: apart.
+Z_KMEANS_MARGIN = 2.0 ** -7
+#: Z1's five-stage serving rows: one input value past float16's 65,504.
+Z_OVERFLOW_ROW, Z_OVERFLOW_VALUE = 3, 1.0e5
+#: Z3: KNN at the KNN path's shape (60,000 x 784 train rows, one chunk of
+#: queries) on MNIST-like intensities scaled to [0, 1] (their distances fit
+#: float16); KMeans over a float16 column of blobs.
+Z3_KNN_QUERIES = 4_096
+Z3_KMEANS = (262_144, 128, 64)
+#: Z0's topk: the KNN chunk (integer scores, many ties).
+Z0_TOPK = (4_096, 60_000, 5)
+#: The examples path Z runs on the card, and the token each prints last.
+Z_EXAMPLES = ("train_logistic_regression_torch.py", "serve_pipeline_torch.py")
+Z_EXAMPLE_TIMEOUT_S = 300
+
+
+def z_policy(spec):
+    import flinkml_tpu_torch as fml
+
+    return fml.precision.PrecisionPolicy(*spec)
+
+
+def half_kernel_phase(torch, timer):
+    """Z0 (the kernels): ``spmv`` at the fit shape (262,144 x 39, dim 1e6),
+    ``segment_sum`` unsorted and sorted at the fit step's 10.2 M cells
+    into 1e6 segments and with a ``[2^20, 16]`` payload into 65,536
+    segments, ``topk`` at the KNN chunk [4096, 60000] k=5 and on the
+    adversarial rows, all float16: each against its plain version
+    (``spmv``: float32 sums in another order, each rounded once: rtol
+    2^-10, atol 1e-2; sorted ``segment_sum`` bit for bit with the plain
+    version's in-order adds on the CPU; unsorted within the summation
+    bound at float16's unit roundoff; ``topk`` bit for bit), the times of
+    the kernel, the plain version and the library call, the bound at 2
+    bytes a value. Returns ``{kernel name: [records]}``."""
+    from flinkml_tpu_torch.kernels import segsum as ksegsum
+    from flinkml_tpu_torch.kernels import spmv as kspmv
+    from flinkml_tpu_torch.kernels import topk as ktopk
+
+    f16 = torch.float16
+    out = {}
+    rows = SPARSE_FIT_ROWS
+    indptr, indices, values, _, _ = make_criteo_csr(rows, SPMV_DIM, SPMV_NNZ,
+                                                    seed=1)
+    idx = torch.from_numpy(indices.reshape(rows, SPMV_NNZ)).cuda()
+    val = torch.from_numpy(values.reshape(rows, SPMV_NNZ)).to("cuda", f16)
+    w = torch.from_numpy(np.random.default_rng(2).normal(
+        size=SPMV_DIM)).to("cuda", f16)
+    got = kspmv.spmv(idx, val, w)
+    torch.cuda.synchronize()
+    want = kspmv.spmv_plain(idx, val, w)
+    check_close("spmv[f16] vs plain", got.float(), want.float(), 2 ** -10,
+                1e-2)
+    library_call = "torch.mv(sparse_csr_tensor, w) [float16]"
+    try:
+        csr = torch.sparse_csr_tensor(torch.from_numpy(indptr).cuda(),
+                                      idx.reshape(-1).long(),
+                                      val.reshape(-1), size=(rows, SPMV_DIM))
+        torch.mv(csr, w)
+        library_ms = timer(lambda: torch.mv(csr, w))
+    except (RuntimeError, NotImplementedError) as e:
+        library_ms, library_call = None, f"none: torch.mv refuses ({e})"[:200]
+    touched = np.unique(indices).size
+    n_bytes = idx.numel() * 4 + val.numel() * 2 + touched * 2 + rows * 2
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * val.numel(), "float16")
+    out["spmv"] = [{
+        "shape": [rows, SPMV_NNZ, SPMV_DIM], "dtype": "float16",
+        "max_abs_err": max_err(got, want),
+        "ms": timer(lambda: kspmv.spmv(idx, val, w)),
+        "plain_ms": timer(lambda: kspmv.spmv_plain(idx, val, w)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "library_call": library_call}]
+    log("kernel_f16 spmv " + json.dumps(out["spmv"][0]))
+    del idx, val, w, got, want
+
+    order = np.argsort(indices, kind="stable")
+    rng = np.random.default_rng(3)
+    payload = rng.normal(size=(PAYLOAD_CELLS, PAYLOAD_K))
+    payload_ids = rng.integers(0, PAYLOAD_SEGMENTS, size=PAYLOAD_CELLS)
+    cases = []
+    for sorted_ids in (False, True):
+        cases.append((sorted_ids, indices[order] if sorted_ids else indices,
+                      values[order] if sorted_ids else values, SPMV_DIM))
+    pord = np.argsort(payload_ids, kind="stable")
+    for sorted_ids in (False, True):
+        cases.append((sorted_ids, (payload_ids[pord] if sorted_ids
+                                   else payload_ids).astype(np.int32),
+                      payload[pord] if sorted_ids else payload,
+                      PAYLOAD_SEGMENTS))
+    out["segment_sum"] = []
+    for sorted_ids, ids_host, vals_np, nseg in cases:
+        vals_host = torch.from_numpy(vals_np).to(f16)
+        k = 1 if vals_host.dim() == 1 else vals_host.shape[1]
+        ids = torch.from_numpy(ids_host).cuda()
+        vals = vals_host.cuda()
+        poison(torch, (nseg,) + tuple(vals.shape[1:]), f16)
+        got = ksegsum.segment_sum(vals, ids, nseg,
+                                  indices_are_sorted=sorted_ids)
+        torch.cuda.synchronize()
+        in_order = ksegsum.segment_sum_plain(
+            vals_host, torch.from_numpy(ids_host), nseg)
+        label = (f"segment_sum[f16, {'sorted' if sorted_ids else 'unsorted'}"
+                 f", k={k}]")
+        if sorted_ids:
+            if not torch.equal(got.cpu().view(torch.int16),
+                               in_order.view(torch.int16)):
+                fail(f"{label}: the run-flush differs from the in-order sum")
+        else:
+            flat = (torch.from_numpy(ids_host).long()[:, None] * k
+                    + torch.arange(k)).reshape(-1)
+            bf16_sum_check(torch, label, got.cpu().reshape(-1),
+                           vals_host.reshape(-1), flat, nseg * k,
+                           unit=2.0 ** -11)
+        ids_long = ids.long()
+        n_bytes = ids.numel() * 4 + vals.numel() * 2 + nseg * k * 2
+        b_ms, b_by = bound_ms(n_bytes, vals.numel(), "float16")
+        rec = {"shape": [int(vals.shape[0]), k, nseg],
+               "dtype": "float16", "sorted": sorted_ids,
+               "max_abs_err": max_err(got.cpu(), in_order),
+               "ms": timer(lambda: ksegsum.segment_sum(
+                   vals, ids, nseg, indices_are_sorted=sorted_ids)),
+               "plain_ms": timer(lambda: ksegsum.segment_sum_plain(
+                   vals, ids, nseg)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": timer(lambda: torch.zeros(
+                   (nseg,) + tuple(vals.shape[1:]), dtype=f16,
+                   device="cuda").index_add_(0, ids_long, vals)),
+               "library_call": "torch.zeros(...).index_add_ [float16]"}
+        log("kernel_f16 segment_sum " + json.dumps(rec))
+        out["segment_sum"].append(rec)
+        del ids, vals, got, ids_long
+
+    rows, n, k = Z0_TOPK
+    host = -np.random.default_rng(9).integers(0, 2_048, size=(rows, n))
+    x = torch.from_numpy(host.astype(np.float16)).cuda()
+    got_v, _ = topk_check(torch, x, k, f"[{rows}, {n}] k={k} float16")
+    lib_v, _ = torch.topk(x, k, dim=-1)
+    adv = torch.from_numpy(topk_adversarial(np.float64).astype(
+        np.float16)).cuda()
+    for kk in (1, 5, 66, 67):
+        topk_check(torch, adv, kk, f"adversarial k={kk} float16")
+    n_bytes = rows * n * 2 + rows * k * (2 + 4)
+    b_ms, b_by = bound_ms(n_bytes, rows * n, "float16")
+    out["topk"] = [{
+        "shape": [rows, n], "k": k, "dtype": "float16",
+        "kernel_route": ktopk.route(rows, n, k, ktopk.key_bytes(f16)),
+        "max_abs_err": 0.0, "adversarial_rows_checked": True,
+        "library_values_equal": bool(torch.equal(lib_v, got_v)),
+        "ms": timer(lambda: ktopk.top_k(x, k)),
+        "plain_ms": timer(lambda: ktopk.top_k_plain(x, k)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(lambda: torch.topk(x, k, dim=-1)),
+        "library_call": "torch.topk(x, k, dim=-1) [float16]"}]
+    log("kernel_f16 topk " + json.dumps(out["topk"][0]))
+    return out
+
+
+def z_same(label, got, want, atol):
+    """``got`` against the float64 reference ``want``: NaN and +-inf where
+    the reference has them, the finite values within ``atol``."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64).reshape(got.shape)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        fail(f"{label}: NaN at {int((np.isnan(got) != np.isnan(want)).sum())}"
+             " places where the float64 reference has none (or the reverse)")
+    inf_g, inf_w = np.isinf(got) * np.sign(got), np.isinf(want) * np.sign(want)
+    if not np.array_equal(np.nan_to_num(inf_g), np.nan_to_num(inf_w)):
+        fail(f"{label}: inf differs from the float64 reference")
+    fin = np.isfinite(want)
+    err = float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+    if not err <= atol:
+        fail(f"{label}: {err} from the float64 reference, beyond {atol}")
+    return err, int((~fin).sum())
+
+
+def z_decisions(label, got, want, decisive):
+    """Decisions equal on the rows whose float64 margin is decisive;
+    returns the count of rows inside the margin."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.array_equal(got[decisive], want[decisive]):
+        bad = int((got[decisive] != want[decisive]).sum())
+        fail(f"{label}: {bad} decisive rows differ from float64 numpy")
+    return int((~decisive).sum())
+
+
+def z1_reference(case, model, table):
+    """Float64 numpy run of a Z1 chain on its float16-rounded inputs and
+    model constants (the chain's boundary casts both to ``policy.compute``
+    before the stages run, as the JAX package's ``_chain_fn`` does):
+    ``(rawPrediction or None, prediction, decisive rows)``."""
+    def r16(a):
+        return np.asarray(a, np.float16).astype(np.float64)
+
+    def std_scale(x, sc):
+        d = sc._arrays()
+        std = r16(d["std"])
+        return (x - r16(d["mean"])) / np.where(std > 0, std, 1.0)
+
+    cols = {c: (r16(v) if np.asarray(v).dtype.kind == "f" else np.asarray(v))
+            for c, v in ((c, table.column(c)) for c in table.column_names)}
+    if case == "five_stage":
+        st, mm, ma, rb, lr = model.stages
+        s = std_scale(cols["features"], st)
+        d = mm._arrays()
+        lo, span = r16(d["dataMin"]), r16(d["dataMax"]) - r16(d["dataMin"])
+        s = np.where(span > 0, (s - lo) / np.where(span > 0, span, 1.0), 0.5)
+        m = r16(ma._arrays()["maxAbs"])
+        s = s / np.where(m > 0, m, 1.0)
+        g = r16(rb._arrays()["range"])
+        s = s / np.where(g > 0, g, 1.0)
+        dot = s @ r16(lr.coefficient)
+        p = 1.0 / (1.0 + np.exp(-dot))
+        raw = np.stack([1.0 - p, p], axis=-1)
+    elif case == "census":
+        _, _, sc, lr = model.stages
+        x = numpy_census(model, cols)[0]
+        dot = std_scale(x, sc) @ r16(lr.coefficient)
+        p = 1.0 / (1.0 + np.exp(-dot))
+        raw = np.stack([1.0 - p, p], axis=-1)
+    elif case == "mnist":
+        mm, lr = model.stages
+        d = mm._arrays()
+        lo, span = r16(d["dataMin"]), r16(d["dataMax"]) - r16(d["dataMin"])
+        s = np.where(span > 0, (cols["features"] - lo)
+                     / np.where(span > 0, span, 1.0), 0.5)
+        logits = s @ r16(lr.coefficient).T
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        raw = e / e.sum(1, keepdims=True)
+    else:
+        sc, km = model.stages
+        s = std_scale(cols["features"], sc)
+        c = r16(km._arrays()["centroids"])
+        d2 = ((s * s).sum(1)[:, None] - 2.0 * s @ c.T
+              + (c * c).sum(1)[None])
+        part = np.sort(d2, axis=1)
+        decisive = ((part[:, 1] - part[:, 0])
+                    > Z_KMEANS_MARGIN * np.abs(part[:, 1]))
+        return None, np.argmin(d2, axis=1), decisive
+    if raw.shape[1] == 2:
+        pred = (raw[:, 1] >= 0.5).astype(np.float64)
+        decisive = np.abs(raw[:, 1] - 0.5) > Z_MARGIN
+    else:
+        pred = np.argmax(raw, axis=1).astype(np.float64)
+        top2 = np.sort(raw, axis=1)[:, -2:]
+        decisive = (top2[:, 1] - top2[:, 0]) > Z_MARGIN
+    return raw, pred, decisive & np.isfinite(raw).all(1)
+
+
+def z1_serving(torch):
+    """Z1: ``PipelineModel.transform`` under ``half_inference``, fused
+    (20 timed calls) and per-stage (one call), on the five-stage chain
+    (65,536 x 64 float32; row 3 holds 1e5, past 65,504), the census
+    pipeline (100,000 rows: Adult's fnlwgt, ~1.6e5 at the median, passes
+    65,504 in most rows), the MNIST-width multinomial (10,000 x 784, k =
+    10) and StandardScaler -> KMeans (262,144 x 128, k = 64), each against
+    float64 numpy on the float16-rounded inputs and constants
+    (:func:`z1_reference`, :func:`z_same`, :func:`z_decisions`; the
+    per-stage path is timed only); the KMeans
+    chain under ``half`` refused with
+    FML601 before any launch or program. Returns ``(records, {case:
+    (model, table, rows)})`` for Z0's kernel cases."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch import pipeline_fusion
+
+    pol = z_policy(Z_HALF_INFERENCE)
+    recs, models = [], {}
+    for case in ("five_stage", "census", "mnist", "kmeans"):
+        model, table, rows = _precision_models(torch, case)
+        models[case] = (model, table, rows)
+        if case == "five_stage":
+            x = np.array(table.column("features"))
+            x[Z_OVERFLOW_ROW, 0] = Z_OVERFLOW_VALUE
+            table = fml.Table({"features": x})
+
+        def run(cols=("prediction", "rawPrediction")):
+            (out,) = model.transform(table)
+            return [out.column(c) for c in cols if c in out.column_names]
+
+        pipeline_fusion.set_enabled(False)
+        try:
+            with pipeline_fusion.precision_scope(pol):
+                _, per_stage_s, _ = timed_calls(torch, run, calls=1)
+        finally:
+            pipeline_fusion.set_enabled(True)
+        pipeline_fusion.reset_cache()
+        before = fml.launch_counts()["fused_chain"]
+        with pipeline_fusion.precision_scope(pol):
+            first_s, call_s, outs = timed_calls(torch, run, calls=20)
+        n_launch = fml.launch_counts()["fused_chain"] - before
+        if n_launch < 21:
+            fail(f"half {case}: {n_launch} fused_chain launches for 21 calls")
+        raw_want, pred_want, decisive = z1_reference(case, model, table)
+        label = f"half {case} [half_inference]"
+        pred = outs[0]
+        rec = {"path": "half_Z1", "case": case, "policy": "half_inference",
+               "rows": rows, "first_call_s": first_s, "fused_call_s": call_s,
+               "fused_rows_per_s": rows / call_s,
+               "per_stage_call_s": per_stage_s,
+               "per_stage_rows_per_s": rows / per_stage_s,
+               "prediction_host_dtype": str(pred.dtype),
+               "fused_chain_launches": n_launch}
+        if raw_want is not None:
+            raw = outs[1]
+            if raw.dtype != np.float16:
+                fail(f"{label}: rawPrediction is {raw.dtype}")
+            rec["raw_max_abs_err"], rec["raw_nonfinite"] = z_same(
+                f"{label} rawPrediction", raw, raw_want, Z_RAW_ATOL)
+        rec["rows_inside_margin"] = z_decisions(f"{label} prediction", pred,
+                                                pred_want, decisive)
+        if case == "kmeans":
+            pipeline_fusion.reset_cache()
+            before = fml.launch_counts()["fused_chain"]
+            programs = pipeline_fusion.compiled_program_count()
+            try:
+                with pipeline_fusion.precision_scope(z_policy(Z_HALF)):
+                    run()
+                fail("half kmeans: the half policy was not refused")
+            except fml.PrecisionValidationError as e:
+                rules = sorted({f.rule for f in e.findings})
+            if (rules != ["FML601"]
+                    or fml.launch_counts()["fused_chain"] != before
+                    or pipeline_fusion.compiled_program_count() != programs):
+                fail(f"half kmeans: half refused with {rules}, "
+                     f"{fml.launch_counts()['fused_chain'] - before} "
+                     "launches")
+            rec["half_refused"] = rules
+        rec["card"] = card_line()
+        log("path " + json.dumps(rec))
+        recs.append(rec)
+    return recs, models
+
+
+def z2_plan_fit(torch):
+    """Z2: ``train_linear_plan`` (FSDP plan, momentum SGD, path 5's data:
+    1,000,000 x 123, batch 262,144) under ``half`` — the batch, ``coef``
+    and the margin multiplier rounded to float16 at the step boundary, the
+    products at float32 (``torch.matmul``) — against its float16 numpy
+    emulation (1e-3 of the largest coefficient) and the float32 fit
+    (different, within 2e-2)."""
+    from flinkml_tpu_torch.sharding import PRESETS, train_linear_plan
+
+    x, y, _ = make_data(DENSE_FIT_ROWS, DENSE_FIT_D)
+    perm = np.random.default_rng(0).permutation(x.shape[0])
+    xp, yp = x[perm], y[perm]
+    windows = numpy_plan_windows(x, y, 0, FIT_BATCH)
+    l2, l1 = K_REG * (1 - K_ELASTIC_NET), K_REG * K_ELASTIC_NET
+    ref = numpy_plan_fit(windows, "sgd", FIT_EPOCHS, FIT_LR, 0.9, l2, l1,
+                         mixed=f16_round)
+    del windows
+    plan = PRESETS["fsdp"]
+    stats = {}
+    secs, half = _seconds(torch, lambda: train_linear_plan(
+        xp, yp, None, plan, None, precision=z_policy(Z_HALF), stats=stats,
+        **k_kw()))
+    full = train_linear_plan(xp, yp, None, plan, None, **k_kw())
+    err = float(np.abs(half - ref).max())
+    gap = float(np.abs(half - full).max())
+    rec = {"path": "half_Z2", "plan": "fsdp", "policy": "half",
+           "rows": DENSE_FIT_ROWS, "d": DENSE_FIT_D, "fit_s": secs,
+           "loop_s": stats.get("loop_s"),
+           "samples_per_s": FIT_BATCH * FIT_EPOCHS / secs,
+           "max_abs_err_vs_f16_emulation": err,
+           "max_abs_diff_vs_float32": gap,
+           "max_abs_coef": float(np.abs(ref).max()), "card": card_line()}
+    log("path " + json.dumps(rec))
+    if not (np.isfinite(half).all() and err <= 1e-3 * np.abs(ref).max()):
+        fail(f"half Z2: the half fit differs from its numpy emulation by {err}")
+    if not 0.0 < gap <= 2e-2:
+        fail(f"half Z2: the half fit is {gap} from the float32 fit")
+    return rec
+
+
+def z3_columns(torch):
+    """Z3: float16 feature columns with no policy (the port computes in the
+    column's dtype): a float16 sparse batch (``BatchedCSR`` at the fit
+    shape, 262,144 x 39, dim 1e6: the margins by ``spmv`` within one
+    float16 ulp plus 2^-11 of each row's sum of |products|, the gradient
+    scatter by ``segment_sum`` within the summation bound, both against
+    float32 numpy on the float16 cells); ``Knn`` at 60,000 x 784 train
+    rows and a chunk of 4,096 queries (intensities / 255, as float16: on
+    the first 512, predictions equal the float32 numpy brute force's on
+    99% and on every query whose 5th and 6th distances differ by more
+    than 2^-4); the fused StandardScaler -> KMeans transform of a float16
+    column of blobs (262,144 x 128, k = 64; a run of two stages, so the
+    executor fuses it: assignments equal float32 numpy's where the two
+    best distances differ by more than 2^-4 of the second)."""
+    import flinkml_tpu_torch as fml
+    from flinkml_tpu_torch.ops.sparse import BatchedCSR
+
+    recs = []
+    rows = SPARSE_FIT_ROWS
+    _, indices, values, _, _ = make_criteo_csr(rows, SPMV_DIM, SPMV_NNZ,
+                                               seed=4)
+    idx = indices.reshape(rows, SPMV_NNZ)
+    v16 = values.reshape(rows, SPMV_NNZ).astype(np.float16)
+    coef = np.random.default_rng(5).normal(size=SPMV_DIM).astype(np.float16)
+    resid = np.random.default_rng(6).normal(size=rows).astype(np.float16)
+    batch = BatchedCSR(idx, v16, SPMV_DIM)
+    t0 = time.perf_counter()
+    margins = batch.matvec(torch.from_numpy(coef).cuda())
+    grad = batch.rmatvec(torch.from_numpy(resid).cuda())
+    torch.cuda.synchronize()
+    sparse_s = time.perf_counter() - t0
+    prods = v16.astype(np.float32) * coef.astype(np.float32)[idx]
+    want = prods.sum(1, dtype=np.float64)
+    terms = np.abs(prods).sum(1, dtype=np.float64)
+    got = margins.cpu().double().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -14)))
+                  - 10)
+    if margins.dtype != torch.float16 or not np.all(
+            np.abs(got - want) <= ulp + 2.0 ** -11 * terms):
+        fail("half Z3: float16 sparse margins beyond their bound")
+    contrib = torch.from_numpy(v16) * torch.from_numpy(resid)[:, None]
+    bf16_sum_check(torch, "half Z3 rmatvec", grad.cpu(), contrib.reshape(-1),
+                   torch.from_numpy(idx.reshape(-1)), SPMV_DIM,
+                   unit=2.0 ** -11)
+    recs.append({"path": "half_Z3", "case": "batched_csr", "rows": rows,
+                 "nnz": SPMV_NNZ, "dim": SPMV_DIM, "matvec_rmatvec_s":
+                 sparse_s, "margins_max_abs_err": float(
+                     np.abs(got - want).max())})
+    del batch, margins, grad, contrib, prods
+
+    x, y = mnist_like(KNN_TRAIN, seed=61)
+    q, qy = mnist_like(Z3_KNN_QUERIES, seed=62)
+    x16 = (x / 255.0).astype(np.float16)
+    q16 = (q / 255.0).astype(np.float16)
+    model = fml.Knn().set_k(KNN_K).fit(fml.Table({"features": x16,
+                                                  "label": y}))
+    queries = fml.Table({"features": q16})
+
+    def knn():
+        (out,) = model.transform(queries)
+        return out.column("prediction")
+
+    first_s, call_s, pred = timed_calls(torch, knn, calls=2)
+    # The first KNN_CHECK queries against float32 numpy.
+    pred = pred[:KNN_CHECK]
+    xd, qd = x16.astype(np.float32), q16[:KNN_CHECK].astype(np.float32)
+    d2 = ((qd * qd).sum(1)[:, None] - 2.0 * qd @ xd.T
+          + (xd * xd).sum(1)[None])
+    part = np.partition(d2, KNN_K, axis=1)[:, :KNN_K + 1]
+    part.sort(axis=1)
+    nn = np.argpartition(d2, KNN_K - 1, axis=1)[:, :KNN_K]
+    want = np.array([np.bincount(y[r].astype(np.int64),
+                                 minlength=KNN_CLASSES).argmax() for r in nn])
+    decisive = (part[:, KNN_K] - part[:, KNN_K - 1]) > 2.0 ** -4
+    agree = float(np.mean(pred == want))
+    if agree < 0.99 or not np.array_equal(pred[decisive], want[decisive]):
+        fail(f"half Z3 knn: {agree} of predictions agree with float32 numpy")
+    recs.append({"path": "half_Z3", "case": "knn", "train": KNN_TRAIN,
+                 "queries": Z3_KNN_QUERIES, "d": MNIST_D, "k": KNN_K,
+                 "first_call_s": first_s, "call_s": call_s,
+                 "queries_per_s": Z3_KNN_QUERIES / call_s,
+                 "agreement": agree,
+                 "queries_inside_margin": int((~decisive).sum())})
+    del d2
+
+    n, d, k = Z3_KMEANS
+    rng = np.random.default_rng(63)
+    centers = rng.normal(size=(k, d)) * 3.0
+    xk = (centers[rng.integers(0, k, size=n)]
+          + rng.normal(size=(n, d))).astype(np.float16)
+    # StandardScaler -> KMeans (a run of two stages: the fused executor),
+    # the statistics of the float32 rows, the centroids the scaled centers.
+    scaler = (fml.StandardScaler().set_input_col("features")
+              .set_output_col("s")
+              .fit(fml.Table({"features": xk.astype(np.float32)})))
+    st = scaler._arrays()
+    km = fml.PipelineModel([scaler, fml.KMeansModel().set_features_col("s")
+                            .set_model_data(fml.Table({"centroids": (
+                                (centers - st["mean"]) / st["std"])[None]}))])
+    table = fml.Table({"features": xk})
+
+    def kmeans():
+        (out,) = km.transform(table)
+        return out.column("prediction")
+
+    first_s, call_s, pred = timed_calls(torch, kmeans, calls=5)
+    xf = ((xk.astype(np.float32) - st["mean"].astype(np.float32))
+          / st["std"].astype(np.float32))
+    cf = ((centers - st["mean"]) / st["std"]).astype(np.float16).astype(
+        np.float32)
+    d2 = ((xf * xf).sum(1)[:, None] - 2.0 * xf @ cf.T
+          + (cf * cf).sum(1)[None])
+    part = np.sort(d2, axis=1)[:, :2]
+    decisive = (part[:, 1] - part[:, 0]) > 2.0 ** -4 * np.abs(part[:, 1])
+    inside = z_decisions("half Z3 kmeans", pred, np.argmin(d2, axis=1),
+                         decisive)
+    recs.append({"path": "half_Z3", "case": "scaler_kmeans_transform",
+                 "rows": n, "d": d, "k": k, "first_call_s": first_s,
+                 "call_s": call_s, "rows_per_s": n / call_s,
+                 "rows_inside_margin": inside})
+    for rec in recs:
+        rec["card"] = card_line()
+        log("path " + json.dumps(rec))
+    return recs
+
+
+def z_examples(torch):
+    """The examples on the card: each of :data:`Z_EXAMPLES` run as a
+    subprocess with its default size and device (``cuda``); it must exit 0
+    and print its OK token. Returns ``{script: seconds}``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    done = {}
+    for script in Z_EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable,
+                               os.path.join(here, "examples", script)],
+                              capture_output=True, text=True, env=env,
+                              timeout=Z_EXAMPLE_TIMEOUT_S, cwd=here)
+        secs = time.perf_counter() - t0
+        last = proc.stdout.strip().splitlines()[-3:]
+        if proc.returncode != 0 or not any(line.endswith("OK")
+                                           for line in last):
+            fail(f"example {script}: rc={proc.returncode}\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        done[script] = secs
+        log("path " + json.dumps({"path": "half_Z_example", "script": script,
+                                  "seconds": secs, "last_lines": last}))
+    return done
+
+
+def half_path(torch, timer):
+    """Path Z: Z0's ``spmv``, ``segment_sum`` and ``topk`` cases; then the
+    main path with the counts at 0 — Z1 (serving under ``half_inference``),
+    Z2 (the plan fit under ``half``), Z3 (float16 columns) — the counts
+    read; then Z0's ``fused_chain`` at its three shapes (the five-stage
+    chain at 65,536 x 64, MNIST-width multinomial at 10,000 x 784, k = 10,
+    StandardScaler -> KMeans at 262,144 x 128, k = 64) against the plain
+    chain under ``half_inference``; then the examples. Returns ``(launches
+    by kernel, {kernel name: [f16 records]})``; fails when a kernel of the
+    path never launched."""
+    import flinkml_tpu_torch as fml
+
+    recs = half_kernel_phase(torch, timer)
+    fml.reset_launch_counts()
+    _, models = z1_serving(torch)
+    z2_plan_fit(torch)
+    z3_columns(torch)
+    counts = fml.launch_counts()
+    for name in ("fused_chain", "spmv", "segment_sum", "topk"):
+        if counts[name] < 1:
+            fail(f"path Z: {name} never launched ({counts})")
+    recs["fused_chain"] = []
+    pol = z_policy(Z_HALF_INFERENCE)
+    for case in ("five_stage", "mnist", "kmeans"):
+        model, table, rows = models[case]
+        kernels = [s.transform_kernel() for s in model.stages]
+        rec = {"case": case, "policy": "half_inference", "rows": rows}
+        rec.update(tier_kernel_case(torch, timer, f"half {case}", kernels,
+                                    table, rows, pol))
+        rec["card"] = card_line()
+        log("kernel_f16 fused_chain " + json.dumps(rec))
+        recs["fused_chain"].append(rec)
+    del models
+    z_examples(torch)
+    return counts, recs
 
 
 # -- paths E, F, G: streamed, out-of-core and checkpointed linear fits --------------
@@ -5181,6 +5788,12 @@ def bf16_round(a):
     return r.view(np.float32)
 
 
+def f16_round(a):
+    """float32 values rounded to float16 (nearest, ties to even), returned
+    as float32."""
+    return np.asarray(a, np.float32).astype(np.float16).astype(np.float32)
+
+
 def numpy_plan_windows(x, y, seed, batch):
     """The plan trainer's windows after the estimator's seeded shuffle:
     clamped, rotating with the epoch; each ``(x float64, y, w, x as
@@ -5202,23 +5815,27 @@ def numpy_plan_windows(x, y, seed, batch):
 def numpy_plan_fit(windows, optimizer, epochs, lr, momentum, l2, l1,
                    mixed=False):
     """Float64 numpy run of ``train_linear_plan``'s steps (logistic loss):
-    momentum SGD or Adam, the L1 soft threshold. ``mixed`` emulates the
-    ``mixed`` policy: the batch, ``coef`` and the margin multiplier
-    rounded to bfloat16 (through float32) before the products."""
+    momentum SGD or Adam, the L1 soft threshold. ``mixed`` emulates a
+    policy that narrows compute: the batch, ``coef`` and the margin
+    multiplier rounded (through float32) before the products, to bfloat16
+    (``True``, the ``mixed`` policy) or by the function given (float16:
+    :func:`f16_round`)."""
+    rnd = bf16_round if mixed is True else mixed
+    mixed = bool(mixed)
     d = windows[0][0].shape[1]
     coef, buf = np.zeros(d), np.zeros(d)
     m, v, t = np.zeros(d), np.zeros(d), 0.0
-    xs = [bf16_round(x32).astype(np.float64) if mixed else x64
+    xs = [rnd(x32).astype(np.float64) if mixed else x64
           for x64, _, _, x32 in windows]
     for ep in range(epochs):
         _, yb, wb, _ = windows[ep % len(windows)]
         xb = xs[ep % len(windows)]
-        c = bf16_round(coef.astype(np.float32)).astype(np.float64) \
+        c = rnd(coef.astype(np.float32)).astype(np.float64) \
             if mixed else coef
         ys = 2.0 * yb - 1.0
         mult = wb * (-ys / (1.0 + np.exp(xb @ c * ys)))
         if mixed:
-            mult = bf16_round(mult.astype(np.float32)).astype(np.float64)
+            mult = rnd(mult.astype(np.float32)).astype(np.float64)
         wsum = max(wb.sum(), 1e-12)
         grad = xb.T @ mult / wsum + 2.0 * l2 * coef
         if optimizer == "sgd":
@@ -10897,6 +11514,8 @@ def main() -> int:
     mark("path X")
     y_counts = analysis_path(torch)
     mark("path Y")
+    half_counts, f16 = half_path(torch, timer)
+    mark("path Z")
 
     serve_spmv = sparse_path(torch)
     chain_paths = {"dense": dense_path(torch), "census": census_path(torch),
@@ -10956,6 +11575,7 @@ def main() -> int:
     mark("path W")
     chain_paths["compile_cache_X"] = chain_paths_x
     chain_paths["analysis_Y"] = y_counts["fused_chain"]
+    chain_paths["half_Z"] = half_counts["fused_chain"]
     chain_rec["launches_by_path"] = chain_paths
     chain_rec["launches"] = sum(chain_paths.values())
     for rec, name in ((spmv_rec, "spmv"), (segsum_rec, "segment_sum")):
@@ -10974,11 +11594,13 @@ def main() -> int:
             rec["launches_by_path"]["compile_cache_X"] = x_counts[name]
         rec["launches_by_path"]["catalog_W"] = w_counts[name]
         rec["launches_by_path"]["analysis_Y"] = y_counts[name]
+        rec["launches_by_path"]["half_Z"] = half_counts[name]
         rec["launches"] = sum(rec["launches_by_path"].values())
     topk_rec["launches_by_path"] = {"knn": knn_path(torch, timer),
                                     "lsh": lsh_path(torch, timer),
                                     "als_Q": q_topk,
-                                    "recsys_U": u_counts["topk"]}
+                                    "recsys_U": u_counts["topk"],
+                                    "half_Z": half_counts["topk"]}
     topk_rec["launches"] = sum(topk_rec["launches_by_path"].values())
     mark("KNN and LSH")
     del timer
@@ -10989,9 +11611,11 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for rec in (spmv_rec, segsum_rec, topk_rec):
         rec["bf16"] = bf16[rec["name"]]
+    for rec in (spmv_rec, chain_rec, segsum_rec, topk_rec):
+        rec["f16"] = f16[rec["name"]]
     print(json.dumps({"kernels": [
         dict({k: r[k] for k in keys},
-             **{k: r[k] for k in ("bf16", "tiers", "launches_by_path",
+             **{k: r[k] for k in ("bf16", "f16", "tiers", "launches_by_path",
                                   "naive_bayes", "als_Q", "recsys_U",
                                   "catalog_V")
                 if k in r})
@@ -11363,14 +11987,14 @@ _SEGSUM_TAIL_LAUNCH = (
     ("-rdc=true", "-lcudadevrt"))
 
 #: The head's rounding and output type decided at compile time in the
-#: untiered kernels (NARROW = false: ``rnd``, ``raw_ty`` and ``pred_ty``
+#: untiered kernels (NARROW = kWide: ``rnd``, ``raw_ty`` and ``pred_ty``
 #: fold to 0), the form that a review asked for; as built they are tested
 #: at run time in every kernel.
 _CHAIN_COMPILE_TIME_HEAD = (
     "chain: the head's rounding at compile time", "chain.cu",
     [("template <typename T, int HEAD>\n"
       "__device__ __forceinline__ void class_head(",
-      "template <typename T, int HEAD, bool NARROW>\n"
+      "template <typename T, int HEAD, int NARROW>\n"
       "__device__ __forceinline__ void class_head("),
      ("  const int rnd = a.rnd;\n  T x2 = T(0);",
       "  const int rnd = NARROW ? a.rnd : 0;\n  T x2 = T(0);"),
@@ -11440,8 +12064,8 @@ _CHAIN_NO_BF16_LOAD = [
     ("    case kBF16:\n"
      "      return T(__bfloat162float(static_cast<const __nv_bfloat16*>(src)"
      "[i]));\n", ""),
-    ("  if (elem == kF32 || elem == kF64 || elem == kBF16) {",
-     "  if (elem == kF32 || elem == kF64) {")]
+    ("  if (elem == kF32 || elem == kF64 || elem == kBF16 || elem == kF16) {",
+     "  if (elem == kF32 || elem == kF64 || elem == kF16) {")]
 _CHAIN_LOAD_SHAPES = (
     ("chain: no bf16 case in the loads", "chain.cu", _CHAIN_NO_BF16_LOAD),
     ("chain: no bf16 case in the loads, the head's rounding at compile "

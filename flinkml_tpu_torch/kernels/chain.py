@@ -45,11 +45,12 @@ declared policy (mixed, or quantized) casts every float input and constant
 to ``policy.compute`` at the chain's boundary and dequantizes int8
 constants (:func:`boundary`, as the JAX package's ``_chain_fn``), and the
 stages compute under it (:func:`~flinkml_tpu_torch.precision.chain_policy`).
-On CUDA a bfloat16 row runs the kernel's ``bf16`` entry (float32 registers,
-each op rounded), the constant table holds the boundary's values, and
-under ``int8_inference`` the table is uploaded as int8 codes, float32
-scales and segments that the kernel dequantizes into shared memory
-(:func:`pack_int8`). float16 is refused.
+On CUDA a bfloat16 row runs the kernel's ``bf16`` entry and a float16 row
+(a policy whose compute is float16, or float16 input columns) its ``f16``
+entry (float32 registers, each op rounded to the row's type), the constant
+table holds the boundary's values, and under ``int8_inference`` the table
+is uploaded as int8 codes, float32 scales and segments that the kernel
+dequantizes into shared memory (:func:`pack_int8`).
 """
 
 from __future__ import annotations
@@ -82,9 +83,10 @@ MAX_PARTS = 64
 #: they fit: :func:`shared_memory`).
 MAX_SMEM_BYTES = 232_448
 
-#: Row dtypes the CUDA kernel computes (bfloat16: under a precision tier,
-#: or from bfloat16 input columns).
-SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: Row dtypes the CUDA kernel computes (bfloat16, float16: under a
+#: precision tier, or from 16-bit input columns).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16,
+                    torch.float16)
 
 SCALER_STAGES = ("StandardScalerModel", "MinMaxScalerModel",
                  "MaxAbsScalerModel", "RobustScalerModel")
@@ -151,23 +153,31 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,              # qf, qc
     ctypes.c_void_p,                               # stream
 ]
-#: The kernel entry of each row dtype (bfloat16 rows: float32 registers),
-#: and of a float64 row whose inputs or head narrow under a tier.
+#: The kernel entry of each row dtype (bfloat16 and float16 rows: float32
+#: registers), and of a float64 row whose inputs or head narrow under a
+#: tier.
 _SYMBOLS = {torch.float32: "fml_fused_chain_f32",
             torch.float64: "fml_fused_chain_f64",
             torch.bfloat16: "fml_fused_chain_bf16",
+            torch.float16: "fml_fused_chain_f16",
             "f64_tier": "fml_fused_chain_f64_tier"}
 
 # Element type codes of an input column (csrc/chain.cu Elem) and the part
 # flags.
 _ELEM = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3,
          torch.int16: 4, torch.int8: 5, torch.uint8: 6, torch.bool: 6,
-         torch.bfloat16: 7}
+         torch.bfloat16: 7, torch.float16: 8}
 _ONEHOT, _DROP_LAST, _ROUND_BF16, _ROUND_F32 = 16, 32, 64, 128
+_ROUND_F16 = 256
 _HEAD_CODE = {None: 0, "binomial": 1, "multinomial": 2, "kmeans": 3}
 # The head's rounding bits (csrc/chain.cu kInBf16 ...) and output types.
 _IN_BF16, _OUT_BF16, _IN_F32, _OUT_F32 = 1, 2, 4, 8
-_OUT_TY = {"row": 0, torch.float32: 1, torch.bfloat16: 2}
+_IN_F16, _OUT_F16 = 16, 32
+_IN_BITS = {torch.bfloat16: _IN_BF16, torch.float16: _IN_F16,
+            torch.float32: _IN_F32}
+_OUT_BITS = {torch.bfloat16: _OUT_BF16, torch.float16: _OUT_F16,
+             torch.float32: _OUT_F32}
+_OUT_TY = {"row": 0, torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 #: Ints of one int8-table segment (csrc/chain.cu, the head).
 SEGMENT_INTS = 8
 
@@ -571,11 +581,11 @@ def _entry_value(e: TableEntry, policy, dt: torch.dtype) -> torch.Tensor:
 
 
 def _sq_norms(m: torch.Tensor) -> torch.Tensor:
-    """``|C[c]|^2`` of a ``[k, d]`` matrix at its dtype: numpy's sum where
-    numpy has the dtype (the bits the untiered table has always had),
-    PyTorch's at bfloat16 (each square and the sum rounded, as the plain
-    distance rounds them)."""
-    if m.dtype == torch.bfloat16:
+    """``|C[c]|^2`` of a ``[k, d]`` matrix at its dtype: numpy's sum at
+    float32 and float64 (the bits the untiered table has always had),
+    PyTorch's at bfloat16 and float16 (each square and the sum rounded, as
+    the plain distance rounds them)."""
+    if m.element_size() == 2:
         return torch.sum(m * m, dim=1)
     a = m.numpy()
     return torch.from_numpy(np.sum(a * a, axis=1, dtype=a.dtype))
@@ -791,9 +801,6 @@ class ChainProgram:
         the part's rounding flag)."""
         declared = _declared(self.policy)
         compute = self.policy.compute_dtype if declared else None
-        if compute == torch.float16:
-            raise _refuse("float16 compute is not supported (the kernel "
-                          "computes float32, float64 and bfloat16 rows)")
         widths, flags, row_dtypes, dense = [], [], [], []
         for part in self.plan.parts:
             v = ext_vals[part.ext]
@@ -816,6 +823,8 @@ class ChainProgram:
                 if declared and dt.is_floating_point and dt != compute:
                     if compute == torch.bfloat16:
                         flag = _ROUND_BF16
+                    elif compute == torch.float16:
+                        flag = _ROUND_F16
                     elif is_narrower(compute, dt):
                         flag = _ROUND_F32
                     dt = compute
@@ -827,7 +836,7 @@ class ChainProgram:
         dtype = functools.reduce(torch.promote_types, row_dtypes)
         if dtype not in SUPPORTED_DTYPES:
             raise _refuse(f"row dtype {dtype} is not supported (supported: "
-                          "float32, float64, bfloat16)")
+                          "float32, float64, bfloat16, float16)")
         regs = torch.float64 if dtype == torch.float64 else torch.float32
         parts = self.plan.parts
         d = sum(w for w, p in zip(widths, parts) if p.in_row)
@@ -851,12 +860,9 @@ class ChainProgram:
                               "row is not supported")
         rnd = 0
         if dtype == torch.float64:
-            rnd |= {torch.bfloat16: _IN_BF16, torch.float32: _IN_F32}.get(
-                compute, 0)
-            rnd |= {torch.bfloat16: _OUT_BF16, torch.float32: _OUT_F32}.get(
-                accum, 0)
-        elif accum == torch.bfloat16:
-            rnd |= _OUT_BF16
+            rnd |= _IN_BITS.get(compute, 0) | _OUT_BITS.get(accum, 0)
+        elif accum in (torch.bfloat16, torch.float16):
+            rnd |= _OUT_BITS[accum]
         return rnd, compute, accum
 
     def placement(self, lay: "Layout", k: int, n_table: int,
@@ -968,7 +974,7 @@ class ChainProgram:
             return outs[col].data_ptr() if col in outs else None
 
         narrow_f64 = dtype == torch.float64 and (
-            rnd & (_IN_BF16 | _IN_F32) or any(lay.flags))
+            rnd & (_IN_BF16 | _IN_F16 | _IN_F32) or any(lay.flags))
         fn = _build.function(
             "chain", _SYMBOLS["f64_tier" if narrow_f64 else dtype], _ARGTYPES)
         check_part_layout()

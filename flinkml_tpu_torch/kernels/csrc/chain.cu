@@ -89,29 +89,37 @@
 // as the JAX package's pipeline_fusion._chain_fn computes them):
 //
 // NARROW, the kernels' last template argument, marks the entries whose
-// values are narrower than their registers: T = float, a bf16 row; T =
-// double, a row whose head runs at a narrower compute width. Without a
-// tier every path runs the NARROW = false kernels it ran before.
+// values are narrower than their registers: T = float, a bf16 row
+// (kNarrowBf16) or a float16 row (kNarrowF16); T = double, a row whose
+// head runs at a narrower compute width (kNarrowBf16, the widths read
+// from `rnd` and the part flags). Without a tier every path runs the
+// NARROW = kWide kernels it ran before.
 //
 // - bfloat16 rows (mixed, mixed_inference: every float input cast to bf16
 //   at the chain's boundary): the `_bf16` entry, T = float registers with
-//   NARROW = true. Each input is rounded to bf16 as it is loaded (no pass over
+//   NARROW = kNarrowBf16. Each input is rounded to bf16 as it is loaded (no pass over
 //   it), every scaler op rounds its result to bf16 (XLA and PyTorch round
 //   each bf16 op, so the stage boundary rounds too), and the row and scaler
 //   outputs are stored as bf16. The vector route's chunks are 16 bytes of
 //   the float32 input, as without a tier; outputs store 8 bytes a chunk.
+// - float16 rows (a policy whose compute is float16, or float16 input
+//   columns): the `_f16` entry, the bf16 row's scheme at float16 (T =
+//   float registers, NARROW = kNarrowF16): each input and every scaler op
+//   rounded to float16, the row and scaler outputs stored as float16, a
+//   value past 65,504 going to inf as the plain float16 ops give it.
 // - a float64 row under a tier (a one-hot or integer part promotes the
 //   row, as the census prologue does): the `_f64_tier` entry (NARROW =
 //   true, the gathering routes only). The float inputs round to the
-//   compute width at the load (Part flags kRoundBf16 / kRoundF32), the body
-//   runs in float64, the head rounds its inputs to the compute width
-//   (`rnd` bits 0 and 2).
+//   compute width at the load (Part flags kRoundBf16 / kRoundF16 /
+//   kRoundF32), the body runs in float64, the head rounds its inputs to the
+//   compute width (`rnd` bits 0, 4 and 2).
 // - heads: the dot, distance or logit carried in registers is rounded once
-//   to the accumulation width (`rnd` bits 1 and 3), and so are the values
+//   to the accumulation width (`rnd` bits 1, 5 and 3), and so are the values
 //   computed from it (sigmoid, 1 - p, the softmax's exp, sum and quotient,
 //   the distance's two additions), as the plain version rounds them;
 //   prediction and rawPrediction are stored at the widths the policy gives
-//   them (`pred_ty`, `raw_ty`: 0 the row type, 1 float32, 2 bf16).
+//   them (`pred_ty`, `raw_ty`: 0 the row type, 1 float32, 2 bf16, 3
+//   float16).
 // - int8 constants (int8_inference): the table arrives as int8 codes, their
 //   float32 scales and a list of segments (`qseg`, 8 ints each: offset and
 //   length in the working table, kind (0 a float64 value, 1 an int8 code
@@ -127,6 +135,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 
 namespace {
@@ -139,20 +148,26 @@ constexpr int kMaxParts = 64;
 enum HeadKind { kNoHead = 0, kBinomial = 1, kMultinomial = 2, kKMeans = 3 };
 
 // Part::code: bits 0-3 the element type of `src`, bit 4 one-hot, bit 5
-// dropLast, bit 6 round to bf16 at the load, bit 7 round to float32.
+// dropLast, bit 6 round to bf16 at the load, bit 7 round to float32, bit 8
+// round to float16.
 enum Elem {
-  kF32 = 0, kF64 = 1, kI32 = 2, kI64 = 3, kI16 = 4, kI8 = 5, kU8 = 6, kBF16 = 7
+  kF32 = 0, kF64 = 1, kI32 = 2, kI64 = 3, kI16 = 4, kI8 = 5, kU8 = 6, kBF16 = 7,
+  kF16 = 8
 };
 constexpr int kOneHot = 16;
 constexpr int kDropLast = 32;
 constexpr int kRoundBf16 = 64;
 constexpr int kRoundF32 = 128;
+constexpr int kRoundF16 = 256;
 
-// Args::rnd bits: the head's inputs round to bf16 (1) or float32 (4); its
-// results to bf16 (2) or float32 (8).
+// Args::rnd bits: the head's inputs round to bf16 (1), float16 (16) or
+// float32 (4); its results to bf16 (2), float16 (32) or float32 (8).
 constexpr int kInBf16 = 1, kOutBf16 = 2, kInF32 = 4, kOutF32 = 8;
+constexpr int kInF16 = 16, kOutF16 = 32;
 // Output type codes of prediction and rawPrediction.
-enum OutTy { kOutT = 0, kOutFloat = 1, kOutBf = 2 };
+enum OutTy { kOutT = 0, kOutFloat = 1, kOutBf = 2, kOutHalf = 3 };
+// The NARROW template argument (see the head of this file).
+enum Narrow { kWide = 0, kNarrowBf16 = 1, kNarrowF16 = 2 };
 
 struct Part {
   const void* src;
@@ -212,16 +227,29 @@ template <typename T>
 __device__ __forceinline__ T to_bf16(T v) {
   return T(__bfloat162float(__float2bfloat16_rn(static_cast<float>(v))));
 }
-// Whether a NARROW kernel over T registers runs a bf16 row.
-template <bool NARROW, typename T>
-constexpr bool kBf16Row = NARROW && sizeof(T) == 4;
+// v rounded to float16 (a float64 through float32 first, as PyTorch
+// converts it), kept in T.
+template <typename T>
+__device__ __forceinline__ T to_f16(T v) {
+  return T(__half2float(__float2half_rn(static_cast<float>(v))));
+}
+// Whether a NARROW kernel over T registers runs a 16-bit row.
+template <int NARROW, typename T>
+constexpr bool kNarrowRow = NARROW != kWide && sizeof(T) == 4;
+// v rounded to a 16-bit row's type.
+template <int NARROW, typename T>
+__device__ __forceinline__ T to_row(T v) {
+  if constexpr (NARROW == kNarrowF16) return to_f16(v);
+  return to_bf16(v);
+}
 
 // A head input at the compute width (narrower than the row only on a
 // NARROW float64 row).
-template <bool NARROW, typename T>
+template <int NARROW, typename T>
 __device__ __forceinline__ T head_in(T v, int rnd) {
   if constexpr (NARROW && sizeof(T) == 8) {
     if (rnd & kInBf16) return to_bf16(v);
+    if (rnd & kInF16) return to_f16(v);
     if (rnd & kInF32) return T(static_cast<float>(v));
   }
   return v;
@@ -233,20 +261,21 @@ __device__ __forceinline__ T head_in(T v, int rnd) {
 template <typename T>
 __device__ __forceinline__ T head_out(T v, int rnd) {
   if (rnd & kOutBf16) return to_bf16(v);
+  if (rnd & kOutF16) return to_f16(v);
   if constexpr (sizeof(T) == 8) {
     if (rnd & kOutF32) return T(static_cast<float>(v));
   }
   return v;
 }
-// A body value on the row's width: bf16 rows round every op.
-template <bool NARROW, typename T>
+// A body value on the row's width: 16-bit rows round every op.
+template <int NARROW, typename T>
 __device__ __forceinline__ T row_round(T v) {
-  if constexpr (kBf16Row<NARROW, T>) return to_bf16(v);
+  if constexpr (kNarrowRow<NARROW, T>) return to_row<NARROW>(v);
   return v;
 }
 
 // One stage's op on one element: a = shift or data min, b = scale or span.
-template <bool NARROW, typename T>
+template <int NARROW, typename T>
 __device__ __forceinline__ T apply_op(unsigned op, T v, T a, T b, T scale,
                                       T offset) {
   if (op & 1u) {
@@ -258,10 +287,12 @@ __device__ __forceinline__ T apply_op(unsigned op, T v, T a, T b, T scale,
   return v;
 }
 
-// Element i of a row-typed output (T, or bf16 on a bf16 row).
-template <bool NARROW, typename T>
+// Element i of a row-typed output (T, or the 16-bit type of a 16-bit row).
+template <int NARROW, typename T>
 __device__ __forceinline__ void put_row(void* base, int64_t i, T v) {
-  if constexpr (kBf16Row<NARROW, T>) {
+  if constexpr (kNarrowRow<NARROW, T> && NARROW == kNarrowF16) {
+    static_cast<__half*>(base)[i] = __float2half_rn(static_cast<float>(v));
+  } else if constexpr (kNarrowRow<NARROW, T>) {
     static_cast<__nv_bfloat16*>(base)[i] =
         __float2bfloat16_rn(static_cast<float>(v));
   } else {
@@ -276,6 +307,8 @@ __device__ __forceinline__ void put_as(void* base, int64_t i, T v, int ty) {
   } else if (ty == kOutBf) {
     static_cast<__nv_bfloat16*>(base)[i] =
         __float2bfloat16_rn(static_cast<float>(v));
+  } else if (ty == kOutHalf) {
+    static_cast<__half*>(base)[i] = __float2half_rn(static_cast<float>(v));
   } else {
     static_cast<T*>(base)[i] = v;
   }
@@ -324,6 +357,8 @@ __device__ __forceinline__ T load_as(const void* src, int elem, long long i) {
     case kI8: return T(static_cast<const int8_t*>(src)[i]);
     case kBF16:
       return T(__bfloat162float(static_cast<const __nv_bfloat16*>(src)[i]));
+    case kF16:
+      return T(__half2float(static_cast<const __half*>(src)[i]));
     default: return T(static_cast<const uint8_t*>(src)[i]);
   }
 }
@@ -335,7 +370,7 @@ __device__ __forceinline__ long long onehot_slot(const Part& P, long long r,
   const int elem = P.code & 15;
   bool valid;
   long long idx;
-  if (elem == kF32 || elem == kF64 || elem == kBF16) {
+  if (elem == kF32 || elem == kF64 || elem == kBF16 || elem == kF16) {
     const double t = trunc(load_as<double>(P.src, elem, r));
     valid = t >= 0.0 && t <= static_cast<double>(P.max_index);  // NaN: no
     idx = valid ? static_cast<long long>(t) : 0;
@@ -349,7 +384,7 @@ __device__ __forceinline__ long long onehot_slot(const Part& P, long long r,
 
 // Column c of part P at row r, as T; writes the one-hot output. NARROW:
 // a float part rounds to the compute width (the chain's boundary cast).
-template <typename T, bool NARROW>
+template <typename T, int NARROW>
 __device__ __forceinline__ T part_value(const Part& P, long long r, int c) {
   if (P.code & kOneHot) {
     bool zero;
@@ -364,6 +399,8 @@ __device__ __forceinline__ T part_value(const Part& P, long long r, int c) {
   if constexpr (NARROW) {
     if (P.code & kRoundBf16) {
       v = to_bf16(v);
+    } else if (P.code & kRoundF16) {
+      v = to_f16(v);
     } else if (P.code & kRoundF32) {
       v = T(static_cast<float>(v));
     }
@@ -476,11 +513,18 @@ template <> struct Vec16<double> {
 };
 
 // A chunk of V row values stored at the row's width: 16 bytes of T, or
-// 8 bytes of bf16 (4 values) on a bf16 row.
-template <bool NARROW, typename T>
+// 8 bytes of the 16-bit type (4 values) on a 16-bit row.
+template <int NARROW, typename T>
 __device__ __forceinline__ void store_chunk(void* base, int64_t i,
                                             const T* v) {
-  if constexpr (kBf16Row<NARROW, T>) {
+  if constexpr (kNarrowRow<NARROW, T> && NARROW == kNarrowF16) {
+    __half2 lo = __floats2half2_rn(v[0], v[1]);
+    __half2 hi = __floats2half2_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<unsigned*>(&lo);
+    q.y = *reinterpret_cast<unsigned*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(static_cast<__half*>(base) + i), q);
+  } else if constexpr (kNarrowRow<NARROW, T>) {
     __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
     __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
     uint2 q;
@@ -501,7 +545,7 @@ __device__ __forceinline__ void store_chunk(void* base, int64_t i,
 // (see the head): on a bf16 row the dense input rounds at the load, each
 // op rounds, the row's outputs store bf16; on a float64 row the head's
 // inputs round to the compute width.
-template <typename T, int NRUN, int HEAD, bool GATHER, bool NARROW>
+template <typename T, int NRUN, int HEAD, bool GATHER, int NARROW>
 __device__ __forceinline__ void vector_rows(const Args<T>& a,
                                             const Src<T, GATHER>& src,
                                             const T* stages,
@@ -687,7 +731,7 @@ __device__ __forceinline__ void with_table(const Args<T>& a, T* smem,
   }
 }
 
-template <typename T, int NRUN, int HEAD, bool GATHER, bool NARROW>
+template <typename T, int NRUN, int HEAD, bool GATHER, int NARROW>
 __global__ void __launch_bounds__(kVecThreads)
 fused_chain_vector_kernel(const Args<T> a,
                           const __grid_constant__ Src<T, GATHER> src) {
@@ -710,7 +754,7 @@ fused_chain_vector_kernel(const Args<T> a,
 // Scalar route: one warp per row, the parts in order, the stages read
 // from `stages`, the head's block from `head_block`, a class head's row
 // staged in `rowbuf`.
-template <typename T, int HEAD, bool NARROW>
+template <typename T, int HEAD, int NARROW>
 __device__ __forceinline__ void scalar_rows(const Args<T>& a,
                                             const Src<T, true>& src,
                                             const T* stages,
@@ -767,7 +811,7 @@ __device__ __forceinline__ void scalar_rows(const Args<T>& a,
   }
 }
 
-template <typename T, int HEAD, bool NARROW>
+template <typename T, int HEAD, int NARROW>
 __global__ void __launch_bounds__(kThreads)
 fused_chain_rows_kernel(const Args<T> a,
                         const __grid_constant__ Src<T, true> src) {
@@ -818,7 +862,7 @@ int64_t grid_size(K kernel, int threads, size_t smem, int64_t blocks,
   return blocks < resident ? blocks : resident;
 }
 
-template <typename T, int NRUN, int HEAD, bool GATHER, bool NARROW>
+template <typename T, int NRUN, int HEAD, bool GATHER, int NARROW>
 int launch_vector(const Args<T>& a, const Src<T, GATHER>& src, size_t smem,
                   cudaStream_t stream) {
   auto kernel = fused_chain_vector_kernel<T, NRUN, HEAD, GATHER, NARROW>;
@@ -838,7 +882,7 @@ int launch_vector(const Args<T>& a, const Src<T, GATHER>& src, size_t smem,
 
 // threads: a multiple of 32, at most kThreads (fewer when each warp's
 // staged row would not fit in shared memory otherwise).
-template <typename T, int HEAD, bool NARROW>
+template <typename T, int HEAD, int NARROW>
 int launch_rows(const Args<T>& a, const Src<T, true>& src, int threads,
                 size_t smem, cudaStream_t stream) {
   auto kernel = fused_chain_rows_kernel<T, HEAD, NARROW>;
@@ -859,7 +903,7 @@ int launch_rows(const Args<T>& a, const Src<T, true>& src, int threads,
 
 // The vector route with the constants in registers: no head or the
 // binomial head over one dense input of type T.
-template <typename T, int HEAD, bool NARROW>
+template <typename T, int HEAD, int NARROW>
 int launch_vector_reg(const Args<T>& a, const Src<T, false>& src,
                       cudaStream_t stream) {
   switch (a.n_run) {
@@ -875,7 +919,7 @@ int launch_vector_reg(const Args<T>& a, const Src<T, false>& src,
   }
 }
 
-template <typename T, int HEAD, bool NARROW>
+template <typename T, int HEAD, int NARROW>
 int launch_head(const Args<T>& a, const PartList* parts, int n_parts,
                 int gather, int threads, size_t smem, cudaStream_t stream) {
   if (a.group == 0) {
@@ -910,7 +954,7 @@ int launch_head(const Args<T>& a, const PartList* parts, int n_parts,
 // then each warp's staged rows and logits). rnd, pred_ty, raw_ty: the
 // precision tier's head (see the head of this file); qseg, n_seg, qf, qc:
 // an int8 table (qseg null: `table` is the working table).
-template <typename T, bool NARROW>
+template <typename T, int NARROW>
 int launch(const void* parts_, int n_parts, int gather, const void* table,
            int n_table, int n_smem, int n_run, unsigned ops, int d, int head,
            int k, int group, int threads, int64_t n_rows, long long smem,
@@ -955,10 +999,11 @@ int launch(const void* parts_, int n_parts, int gather, const void* table,
                          row_out, out, pred, raw, rnd, pred_ty, raw_ty, qseg,  \
                          n_seg, qf, qc, stream);                               \
   }
-FML_CHAIN_ENTRY(fml_fused_chain_f32, float, false)
-FML_CHAIN_ENTRY(fml_fused_chain_f64, double, false)
-FML_CHAIN_ENTRY(fml_fused_chain_bf16, float, true)
-FML_CHAIN_ENTRY(fml_fused_chain_f64_tier, double, true)
+FML_CHAIN_ENTRY(fml_fused_chain_f32, float, kWide)
+FML_CHAIN_ENTRY(fml_fused_chain_f64, double, kWide)
+FML_CHAIN_ENTRY(fml_fused_chain_bf16, float, kNarrowBf16)
+FML_CHAIN_ENTRY(fml_fused_chain_f16, float, kNarrowF16)
+FML_CHAIN_ENTRY(fml_fused_chain_f64_tier, double, kNarrowBf16)
 #undef FML_CHAIN_ENTRY
 
 extern "C" int fml_chain_part_bytes() { return static_cast<int>(sizeof(Part)); }

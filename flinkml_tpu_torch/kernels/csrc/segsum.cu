@@ -77,11 +77,22 @@
 // stages 8 bf16 values a 16-byte copy, so its tiles start on the 8-cell
 // phase.
 //
+// float16 values (fml_segsum_f16) take the bf16 scheme at T = __half: each
+// add rounds to float16 (Hopper's f16 add, or a float32 add rounded, which
+// for two f16 operands gives the same bits, float32 having 24 >= 2 * 11 + 2
+// significand bits), the sorted run-flush bit for bit as the Pallas
+// kernel's in-order f16 adds, the unsorted path and the repair pass
+// reducing with red.global.add.noftz.f16x2 (an element as its 4-byte word,
+// the neighbour adding -0.0), the sorted flat tile 8 values a 16-byte
+// copy.
+//
 // No synchronisation and no allocation: the wrapper allocates `out` and
 // launches on PyTorch's current stream.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <type_traits>
 #include <cstdint>
 
 namespace {
@@ -145,6 +156,17 @@ __device__ __forceinline__ void load_v(const __nv_bfloat16* p,
   }
 }
 
+template <int V>
+__device__ __forceinline__ void load_v(const __half* p, __half* o) {
+  if constexpr (V == 2) {
+    const __half2 q = __ldcs(reinterpret_cast<const __half2*>(p));
+    o[0] = q.x;
+    o[1] = q.y;
+  } else {
+    o[0] = __ldcs(p);
+  }
+}
+
 // ---------------------------------------------------------- reductions ----
 
 // out[0..V) += v[0..V); the result is unused, so each is a RED.
@@ -185,6 +207,28 @@ __device__ __forceinline__ void red_add(__nv_bfloat16* p, __nv_bfloat16 v) {
   asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(at & ~uintptr_t(3)),
                "r"(*reinterpret_cast<const unsigned*>(&q))
                : "memory");
+}
+
+// A float16 element: the same scheme, one 32-bit f16x2 RED.
+__device__ __forceinline__ void red_add(__half* p, __half v) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const __half nz = __ushort_as_half(0x8000);  // -0.0
+  const __half2 q = (at & 2) ? __halves2half2(nz, v) : __halves2half2(v, nz);
+  asm volatile("red.global.add.noftz.f16x2 [%0], %1;" ::"l"(at & ~uintptr_t(3)),
+               "r"(*reinterpret_cast<const unsigned*>(&q))
+               : "memory");
+}
+
+template <int V>
+__device__ __forceinline__ void red_v(__half* p, const __half* v) {
+  if constexpr (V == 2) {
+    const __half2 q = __halves2half2(v[0], v[1]);
+    asm volatile("red.global.add.noftz.f16x2 [%0], %1;" ::"l"(p),
+                 "r"(*reinterpret_cast<const unsigned*>(&q))
+                 : "memory");
+  } else {
+    red_add(p, v[0]);
+  }
 }
 
 template <int V>
@@ -280,7 +324,12 @@ segsum_sorted_repair(const T* __restrict__ values,
   __syncthreads();
   for (int e = threadIdx.x; e < cells * k; e += blockDim.x) {
     const int cell = k == 1 ? e : e / k;
-    atomicAdd(out + __ldg(ids + cell) * k + (e - cell * k), __ldg(values + e));
+    T* dst = out + __ldg(ids + cell) * k + (e - cell * k);
+    if constexpr (std::is_same<T, __half>::value) {
+      red_add(dst, __ldg(values + e));
+    } else {
+      atomicAdd(dst, __ldg(values + e));
+    }
   }
   if (threadIdx.x == 0) *work = 0u;
 }
@@ -360,6 +409,16 @@ __device__ __forceinline__ void read_own(const __nv_bfloat16* sv, int s0,
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
     const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[h]);
+    v[2 * h] = p.x;
+    v[2 * h + 1] = p.y;
+  }
+}
+__device__ __forceinline__ void read_own(const __half* sv, int s0, __half* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(sv + s0);
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const __half2 p = *reinterpret_cast<const __half2*>(&w[h]);
     v[2 * h] = p.x;
     v[2 * h + 1] = p.y;
   }
@@ -628,6 +687,14 @@ extern "C" int fml_segsum_bf16(int sorted, const void* values,
                                void* out, void* work, void* stream) {
   return launch<__nv_bfloat16>(sorted != 0, values, ids, cells, k,
                                num_segments, phase, vec, out, work, stream);
+}
+
+extern "C" int fml_segsum_f16(int sorted, const void* values,
+                              const void* ids, int cells, int k,
+                              int num_segments, int phase, int vec, void* out,
+                              void* work, void* stream) {
+  return launch<__half>(sorted != 0, values, ids, cells, k, num_segments,
+                        phase, vec, out, work, stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

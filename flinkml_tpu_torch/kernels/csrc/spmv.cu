@@ -35,10 +35,12 @@
 // tile by tile, each thread adds its own products in order, and a fixed
 // tree over the block's threads sums them.
 //
-// bfloat16 values and w (fml_spmv_bf16): each cell's value and w entry
-// widen to float32, the products and the row sums run in float32, and the
-// row's sum rounds once to bf16 as it is stored. A 4-cell group of values
-// is one 8-byte load.
+// bfloat16 and float16 values and w (fml_spmv_bf16, fml_spmv_f16): each
+// cell's value and w entry widen to float32 (exactly), the products and
+// the row sums run in float32, and the row's sum rounds once to the
+// 16-bit type as it is stored. A 4-cell group of values is one 8-byte
+// load. (The JAX kernel at float16 rounds each product to float16 before
+// its float32 sum; a product past 65,504 is inf there and finite here.)
 //
 // The kernel trusts 0 <= indices < dim: the host checks that when it packs
 // the buckets (ops/sparse.py), because a CUDA gather, unlike the JAX one,
@@ -47,6 +49,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <type_traits>
 #include <cstdint>
 
 namespace {
@@ -55,18 +59,22 @@ constexpr int kThreads = 256;
 constexpr int kGroups = 2;  // 4-cell groups per thread per tile
 constexpr int kTileCells = kThreads * 4 * kGroups;
 
-// The arithmetic type of a storage type: bf16 computes in float32.
+// The arithmetic type of a storage type: bf16 and f16 compute in float32.
 template <typename S> struct Acc { using T = S; };
 template <> struct Acc<__nv_bfloat16> { using T = float; };
+template <> struct Acc<__half> { using T = float; };
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ double to_acc(double v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_acc(__half v) { return __half2float(v); }
 template <typename S>
 __device__ __forceinline__ S from_acc(typename Acc<S>::T v) {
-  if constexpr (sizeof(S) == 2) {
+  if constexpr (std::is_same<S, __half>::value) {
+    return __float2half_rn(v);
+  } else if constexpr (sizeof(S) == 2) {
     return __float2bfloat16_rn(v);
   } else {
     return v;
@@ -83,6 +91,15 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* v, int64_t c,
   const uint2 q = __ldcs(reinterpret_cast<const uint2*>(v + c));
   const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  o[0] = __low2float(a);
+  o[1] = __high2float(a);
+  o[2] = __low2float(b);
+  o[3] = __high2float(b);
+}
+__device__ __forceinline__ void load4(const __half* v, int64_t c, float* o) {
+  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(v + c));
+  const __half2 a = *reinterpret_cast<const __half2*>(&q.x);
+  const __half2 b = *reinterpret_cast<const __half2*>(&q.y);
   o[0] = __low2float(a);
   o[1] = __high2float(a);
   o[2] = __low2float(b);
@@ -287,6 +304,12 @@ extern "C" int fml_spmv_bf16(const void* indices, const void* values,
                              int phase, void* out, void* stream) {
   return launch<__nv_bfloat16>(indices, values, w, rows, width, phase, out,
                                stream);
+}
+
+extern "C" int fml_spmv_f16(const void* indices, const void* values,
+                            const void* w, int64_t rows, int width, int phase,
+                            void* out, void* stream) {
+  return launch<__half>(indices, values, w, rows, width, phase, out, stream);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

@@ -60,6 +60,12 @@
 // it is loaded (exact, and the same order), so the keys, the routes and the
 // order rules are float32's; the values written back are the keys' top 16
 // bits, bit for bit the input elements. Its loads are element by element.
+// float16 (fml_topk_f16) takes the same route: its 16 bits go to the top of
+// a 32-bit word, which is not the float32 of the same value but orders the
+// same (sign on top, then the exponent and significand bits as an unsigned
+// number, as in every IEEE format: NaN of either sign included, where a
+// conversion to float32 could quiet the NaN), and the values written back
+// are again the top 16 bits.
 //
 // No synchronisation and no allocation: the wrapper allocates the outputs
 // and the scratch (fml_topk_scratch_bytes), and the launches run on
@@ -67,6 +73,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -121,9 +128,9 @@ struct Traits<double> {
 };
 // bf16: each element widened to its float32 bits (the same value, so the
 // key order is the same), keys and selection as float32; the values are
-// the keys' top 16 bits. Element by element loads.
-template <>
-struct Traits<__nv_bfloat16> {
+// the keys' top 16 bits. Element by element loads. The same for
+// float16: its bits on top of a 32-bit word, ranked as float32 bits.
+struct Traits16 {
   using U = uint32_t;
   using B = unsigned short;
   using V = uint4;
@@ -132,8 +139,17 @@ struct Traits<__nv_bfloat16> {
   static __device__ __forceinline__ U load(const B* p, int64_t i) {
     return static_cast<U>(__ldg(p + i)) << 16;
   }
+};
+template <>
+struct Traits<__nv_bfloat16> : Traits16 {
   static __device__ __forceinline__ __nv_bfloat16 from_bits(U u) {
     return __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
+  }
+};
+template <>
+struct Traits<__half> : Traits16 {
+  static __device__ __forceinline__ __half from_bits(U u) {
+    return __ushort_as_half(static_cast<unsigned short>(u >> 16));
   }
 };
 
@@ -986,6 +1002,13 @@ extern "C" int fml_topk_bf16(const void* x, int64_t rows, int n, int k,
                                scratch, stream);
 }
 
+extern "C" int fml_topk_f16(const void* x, int64_t rows, int n, int k,
+                            int route, int segs, void* values, void* indices,
+                            void* scratch, void* stream) {
+  return launch<__half>(x, rows, n, k, route, segs, values, indices, scratch,
+                        stream);
+}
+
 extern "C" int64_t fml_topk_scratch_bytes_f32(int64_t rows, int k, int route,
                                               int segs) {
   return scratch_bytes<float>(rows, k, route, segs);
@@ -999,6 +1022,11 @@ extern "C" int64_t fml_topk_scratch_bytes_f64(int64_t rows, int k, int route,
 extern "C" int64_t fml_topk_scratch_bytes_bf16(int64_t rows, int k,
                                                int route, int segs) {
   return scratch_bytes<__nv_bfloat16>(rows, k, route, segs);
+}
+
+extern "C" int64_t fml_topk_scratch_bytes_f16(int64_t rows, int k, int route,
+                                              int segs) {
+  return scratch_bytes<__half>(rows, k, route, segs);
 }
 
 extern "C" const char* fml_cuda_error_string(int code) {

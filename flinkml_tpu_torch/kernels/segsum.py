@@ -49,9 +49,10 @@ import torch
 from flinkml_tpu_torch.kernels import _build, _gate
 from flinkml_tpu_torch.kernels.spmv import vector_phase
 
-#: Value types the CUDA kernel takes (ids are int32; bfloat16 adds round
-#: at each add, as the Pallas kernel's).
-SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: Value types the CUDA kernel takes (ids are int32; bfloat16 and float16
+#: adds round at each add, as the Pallas kernel's).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16,
+                    torch.float16)
 
 LAUNCHES = _gate.launch_counter("segment_sum")
 
@@ -72,7 +73,7 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out, work, stream
 ]
 _SYMBOLS = {torch.float32: "fml_segsum_f32", torch.float64: "fml_segsum_f64",
-            torch.bfloat16: "fml_segsum_bf16"}
+            torch.bfloat16: "fml_segsum_bf16", torch.float16: "fml_segsum_f16"}
 _INT32_LIMIT = 2**31
 
 
@@ -100,9 +101,9 @@ def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
     """The plain PyTorch version: ``index_add_`` into zeros (on the CPU it
     adds in cell order, rounding each add at the values' dtype; a bfloat16
-    ``[cells, k]`` payload goes through the flat form, whose adds keep that
-    order)."""
-    if values.dtype == torch.bfloat16 and values.dim() == 2:
+    or float16 ``[cells, k]`` payload goes through the flat form, whose
+    adds keep that order)."""
+    if values.element_size() == 2 and values.dim() == 2:
         k = values.shape[1]
         flat = (ids.long()[:, None] * k
                 + torch.arange(k, device=ids.device)).reshape(-1)
@@ -124,7 +125,7 @@ def unsupported_reason(values, ids, num_segments: int,
         return f"ids dtype {ids.dtype} is not int32"
     if values.dtype not in SUPPORTED_DTYPES:
         return (f"values dtype {values.dtype} is not supported (supported: "
-                "float32, float64, bfloat16)")
+                "float32, float64, bfloat16, float16)")
     if values.device != ids.device:
         return f"values on {values.device} but ids on {ids.device}"
     if num_segments < 0:
@@ -144,7 +145,8 @@ def unsupported_reason(values, ids, num_segments: int,
 def payload_vector(values: torch.Tensor) -> int:
     """Payload columns per vector load and reduction on the unsorted
     ``[cells, k]`` path: 4 (float32) or 2 when ``k`` and the values' base
-    alignment allow 16- or 8-byte accesses (bfloat16: 2 in 4 bytes), else
+    alignment allow 16- or 8-byte accesses (bfloat16, float16: 2 in 4
+    bytes), else
     1. float64 has no vector reduction, only the 16-byte load of 2
     columns."""
     k, item, ptr = values.shape[1], values.element_size(), values.data_ptr()
@@ -156,7 +158,7 @@ def payload_vector(values: torch.Tensor) -> int:
 
 def phase_cells(values: torch.Tensor) -> int:
     """Cells of one 16-byte copy of ids and values together on the sorted
-    flat path (``csrc/segsum.cu`` kPhaseCells): 4, or 8 for bfloat16."""
+    flat path (``csrc/segsum.cu`` kPhaseCells): 4, or 8 for 16-bit values."""
     return 8 if values.element_size() == 2 else 4
 
 

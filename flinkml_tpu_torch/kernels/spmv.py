@@ -26,9 +26,10 @@ import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
 
-#: Value types the CUDA kernel takes (values and w share one; bfloat16
-#: multiplies and sums in float32 and rounds each row's sum once).
-SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: Value types the CUDA kernel takes (values and w share one; bfloat16 and
+#: float16 multiply and sum in float32 and round each row's sum once).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16,
+                    torch.float16)
 
 LAUNCHES = _gate.launch_counter("spmv")
 
@@ -38,16 +39,17 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,                    # out, stream
 ]
 _SYMBOLS = {torch.float32: "fml_spmv_f32", torch.float64: "fml_spmv_f64",
-            torch.bfloat16: "fml_spmv_bf16"}
+            torch.bfloat16: "fml_spmv_bf16", torch.float16: "fml_spmv_f16"}
 
 
 def spmv_plain(indices: torch.Tensor, values: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: gather, multiply, sum over the slots
-    (bfloat16: in float32, each row's sum rounded once, as the kernel)."""
-    if values.dtype == torch.bfloat16:
+    (bfloat16 and float16: in float32, each row's sum rounded once, as the
+    kernel)."""
+    if values.dtype in (torch.bfloat16, torch.float16):
         return torch.sum(values.float() * w[indices.long()].float(),
-                         dim=1).to(torch.bfloat16)
+                         dim=1).to(values.dtype)
     return torch.sum(values * w[indices.long()], dim=1)
 
 
@@ -81,7 +83,7 @@ def unsupported_reason(indices, values, w) -> Optional[str]:
         return f"indices dtype {indices.dtype} is not int32"
     if values.dtype not in SUPPORTED_DTYPES:
         return (f"values dtype {values.dtype} is not supported (supported: "
-                "float32, float64, bfloat16)")
+                "float32, float64, bfloat16, float16)")
     if values.dtype != w.dtype:
         return f"values dtype {values.dtype} != w dtype {w.dtype}"
     devices = {indices.device, values.device, w.device}

@@ -28,9 +28,10 @@ import torch
 
 from flinkml_tpu_torch.kernels import _build, _gate
 
-#: Value types the CUDA kernel takes (bfloat16: each element widened to its
-#: float32 key as it is loaded).
-SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: Value types the CUDA kernel takes (bfloat16 and float16: each element's
+#: bits placed on top of a 32-bit key as it is loaded).
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16,
+                    torch.float16)
 
 #: Dynamic shared memory the ``fused`` route may use for a row's keys and
 #: its sort buffer (the kernel accepts up to 220 KB of the H100's 227 KB).
@@ -65,7 +66,7 @@ _ARGTYPES = [
 _SCRATCH_ARGTYPES = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int]                       # rows, k, route, segs
 _SYMBOLS = {torch.float32: "f32", torch.float64: "f64",
-            torch.bfloat16: "bf16"}
+            torch.bfloat16: "bf16", torch.float16: "f16"}
 _INT32_LIMIT = 2**31
 #: The signed integer view of each float width, and its magnitude mask.
 _KEY_VIEW = {2: (torch.int16, 0x7FFF), 4: (torch.int32, 0x7FFFFFFF),
@@ -91,10 +92,11 @@ def top_k_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"k={k} outside [0, n={n}]")
     _, order = torch.sort(order_keys(x), dim=-1, descending=True, stable=True)
     idx = order[..., :k]
-    if x.dtype == torch.bfloat16:
-        # Gathered as bits: PyTorch's bfloat16 gather rewrites a NaN's bits.
+    if x.element_size() == 2:
+        # Gathered as bits: PyTorch's 16-bit gathers rewrite a NaN's bits
+        # (bfloat16; float16 on the CPU quiets a signalling NaN).
         bits = torch.gather(x.contiguous().view(torch.int16), -1, idx)
-        return bits.view(torch.bfloat16), idx.to(torch.int32)
+        return bits.view(x.dtype), idx.to(torch.int32)
     return torch.gather(x, -1, idx), idx.to(torch.int32)
 
 
@@ -141,7 +143,8 @@ def unsupported_reason(x: torch.Tensor, k: int) -> Optional[str]:
         return f"operand must be [n] or [rows, n], got rank {x.dim()}"
     if x.dtype not in SUPPORTED_DTYPES:
         return (f"operand dtype {x.dtype} is not supported (supported: "
-                "float32, float64, bfloat16; integer ranking has no kernel)")
+                "float32, float64, bfloat16, float16; integer ranking has no "
+                "kernel)")
     n = x.shape[-1]
     if not 1 <= k <= n:
         return f"k={k} outside [1, n={n}]"
@@ -170,9 +173,9 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def key_bytes(dtype: torch.dtype) -> int:
-    """Bytes of the kernel's order key for ``dtype``: bfloat16 ranks by its
-    float32 key."""
-    return 4 if dtype == torch.bfloat16 else dtype.itemsize
+    """Bytes of the kernel's order key for ``dtype``: bfloat16 and float16
+    rank by a 32-bit key."""
+    return 4 if dtype.itemsize == 2 else dtype.itemsize
 
 
 def launch(x: torch.Tensor, k: int,

@@ -1025,19 +1025,27 @@ def test_tier_pipelines_on_card(cuda_device, policy):
 
 
 def test_chain_refuses_float16(cuda_device):
-    """float16 stays refused: a policy whose compute is float16, and a
-    float16 input column."""
+    """float16 is taken (the kernel's ``f16`` entry; it was refused before
+    that entry): a policy whose compute is float16, and a float16 input
+    column, each one launch, the scaler output float16 within one float16
+    ulp of the plain chain's on the same card tensors."""
     stages, cols = _tier_chain("five", 100, seed=33)
     kernels = [s.transform_kernel() for s in stages]
+    consts = [k.constants for k in kernels]
     x = torch.from_numpy(cols["features"]).to(cuda_device)
     pol = fml.precision.PrecisionPolicy("half", "float16", "float32",
                                         "float32")
-    with pytest.raises(fml.KernelUnsupportedError, match="float16"):
-        kchain.ChainProgram(kernels, ["features"], ["s4"], pol)(
-            [x], [k.constants for k in kernels], 100)
-    with pytest.raises(fml.KernelUnsupportedError):
-        kchain.ChainProgram(kernels, ["features"], ["s4"])(
-            [x.half()], [k.constants for k in kernels], 100)
+    for policy, xin in ((pol, x), (None, x.half())):
+        program = kchain.ChainProgram(kernels, ["features"], ["s4"], policy)
+        before = kchain.LAUNCHES.count
+        got = program([xin], consts, 100)["s4"]
+        torch.cuda.synchronize()
+        assert kchain.LAUNCHES.count == before + 1
+        assert got.dtype == torch.float16
+        want = kchain.chain_plain(kernels, ["features"], ["s4"], [xin],
+                                  consts, 100, policy)["s4"]
+        torch.testing.assert_close(got.double(), want.double(),
+                                   rtol=2 ** -10, atol=0.0)
 
 
 def test_spmv_bf16_matches_plain(cuda_device):

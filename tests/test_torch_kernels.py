@@ -112,8 +112,7 @@ def test_spmv_unsupported_reasons():
     idx, val, w = (torch.from_numpy(a) for a in _ell(4, 3, 10, np.float32, 0))
     assert kspmv.unsupported_reason(idx, val, w) is None
     assert "int32" in kspmv.unsupported_reason(idx.long(), val, w)
-    assert "float16" in kspmv.unsupported_reason(
-        idx, val.half(), w.half())
+    assert kspmv.unsupported_reason(idx, val.half(), w.half()) is None
     assert kspmv.unsupported_reason(idx, val.bfloat16(), w.bfloat16()) is None
     assert "!=" in kspmv.unsupported_reason(idx, val, w.double())
     assert "rank" in kspmv.unsupported_reason(idx, val, w[None])
@@ -637,8 +636,11 @@ def test_chain_layout_routes(on_cpu):
     assert kchain.route(4, 8, 0, 16) == "vector"
     assert kchain.route(4, 8, 0, 8) == "scalar"
     assert kchain.route(4, 8, all_in_row=False) == "scalar"
-    with pytest.raises(fml.KernelUnsupportedError, match="dtype"):
-        program.layout([torch.zeros(8, 4, dtype=torch.float16)])
+    # A float16 column is taken: a float16 row, gathered (its registers
+    # are float32).
+    lay = program.layout([torch.zeros(8, 4, dtype=torch.float16)])
+    assert (lay.dtype, lay.gather, lay.route) == (torch.float16, True,
+                                                  "vector")
 
 
 @pytest.mark.parametrize("n_table,n_stages,per_warp,warps,item,want", [
@@ -865,7 +867,7 @@ def test_segment_sum_unsupported_reasons():
     ids = torch.zeros(6, dtype=torch.int32)
     assert ksegsum.unsupported_reason(v, ids, 4) is None
     assert "int32" in ksegsum.unsupported_reason(v, ids.long(), 4)
-    assert "float16" in ksegsum.unsupported_reason(v.half(), ids, 4)
+    assert ksegsum.unsupported_reason(v.half(), ids, 4) is None
     assert ksegsum.unsupported_reason(v.bfloat16(), ids, 4) is None
     assert "rows" in ksegsum.unsupported_reason(v[:5], ids, 4)
     assert "rank" in ksegsum.unsupported_reason(v[None, None], ids, 4)
@@ -984,7 +986,7 @@ def test_top_k_unsupported_reasons():
     assert ktopk.unsupported_reason(x, 5) is None
     assert ktopk.unsupported_reason(x.double(), 128) is None
     assert "not supported" in ktopk.unsupported_reason(x.int(), 5)
-    assert "not supported" in ktopk.unsupported_reason(x.half(), 5)
+    assert ktopk.unsupported_reason(x.half(), 5) is None
     assert ktopk.unsupported_reason(x.bfloat16(), 5) is None
     assert "outside" in ktopk.unsupported_reason(x, 0)
     assert "outside" in ktopk.unsupported_reason(x[:, :3], 4)
